@@ -97,20 +97,20 @@ class Check:
         return worst
 
 
-def compare_k1(check, q, db, tile_n, survivors=2):
+def compare_k1(check, q, db, tile_n):
     """K1 vs its plain version on one input; returns a summary dict."""
     import torch
 
-    from knn_tpu_torch.ops.coarse_knn import (BIN_W, binned_select,
+    from knn_tpu_torch.ops.coarse_knn import (BIN_W, SURVIVORS, binned_select,
                                               binned_select_plain,
                                               kernel_tolerance, pad_queries,
                                               prepare_db)
 
+    survivors = SURVIVORS
     th, tl, tnorm = prepare_db(db, tile_n)
     qp = pad_queries(q)
-    kern = binned_select(qp, th, tl, tnorm, tile_n=tile_n, survivors=survivors)
-    plain = binned_select_plain(qp, th, tl, tnorm, tile_n=tile_n,
-                                survivors=survivors)
+    kern = binned_select(qp, th, tl, tnorm, tile_n=tile_n)
+    plain = binned_select_plain(qp, th, tl, tnorm, tile_n=tile_n)
     torch.cuda.synchronize()
     q64 = q.double()
     qn = (q64 * q64).sum(-1)
@@ -194,13 +194,15 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def k1_bound(n_q, n_p, dp, n_tiles, survivors=2):
+def k1_bound(n_q, n, dp, n_tiles, survivors):
     """Least time for K1's work on an H100: the larger of its bytes (each
     input read once, each output written once) over HBM bandwidth and its
-    three bf16 products over the dense bf16 tensor-core rate."""
-    flops = 3 * 2 * n_q * n_p * dp
+    three bf16 products over the dense bf16 tensor-core rate.  Counted over
+    the ``n`` real db rows: the PAD_VAL rows that fill the last tile are
+    work the function does not need."""
+    flops = 3 * 2 * n_q * n * dp
     w = n_tiles * survivors * 128
-    nbytes = (n_q * dp * 4 + 2 * n_p * dp * 2 + n_p * 4
+    nbytes = (n_q * dp * 4 + 2 * n * dp * 2 + n * 4
               + n_q * w * 8 + n_q * n_tiles * 128 * 4)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return {"flops": flops, "bytes": nbytes,
@@ -331,7 +333,7 @@ def main(argv=None) -> int:
         qp = ck.pad_queries(q_dev)
         kern = ck.binned_select(qp, pl.th, pl.tl, pl.tnorm, tile_n=ck.TILE_N)
         plain = ck.binned_select_plain(qp, pl.th, pl.tl, pl.tnorm,
-                                       tile_n=ck.TILE_N, survivors=2)
+                                       tile_n=ck.TILE_N)
         qn = (q_dev.double() ** 2).sum(-1)
         tol_q = (64 * EPS32 * (qn + pl.db_norm_max)).float()
         full_err = max(check.values("cd@main", kern[0], plain[0], tol_q),
@@ -340,9 +342,9 @@ def main(argv=None) -> int:
         ms = time_cuda(lambda: ck.binned_select(qp, pl.th, pl.tl, pl.tnorm,
                                                 tile_n=ck.TILE_N), 3)
         plain_ms = time_cuda(lambda: ck.binned_select_plain(
-            qp, pl.th, pl.tl, pl.tnorm, tile_n=ck.TILE_N, survivors=2), 1)
+            qp, pl.th, pl.tl, pl.tnorm, tile_n=ck.TILE_N), 1)
         n_p, dp = pl.th.shape
-        bound = k1_bound(n_q, n_p, dp, n_p // ck.TILE_N)
+        bound = k1_bound(n_q, n, dp, n_p // ck.TILE_N, ck.SURVIVORS)
 
         # the main path, with the launch count read around it alone
         ck.binned_select.launches = 0

@@ -64,7 +64,8 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
                          *, metric: str = "l2",
                          device: DeviceLike = None) -> Placement:
     """The port's placement of ``train`` [N, D] (and optional int labels
-    [N] with ``num_classes``) on ``device`` (None = cuda)."""
+    [N] with ``num_classes``) on ``device`` (None = cuda).  The rows must
+    be finite: the certificate has no order for a NaN score."""
     dev = resolve_device(device)
     metric = metric.lower()
     if metric not in PORTED_METRICS:
@@ -75,9 +76,12 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
         raise ValueError(f"train must be a non-empty [N, D] array, got {host.shape}")
     if metric == "cosine":
         host = row_normalize_f64(host)
+    # a row holding a NaN or an inf has a non-finite float64 norm
+    db_norm_max = float((host.astype(np.float64) ** 2).sum(-1).max())
+    if not np.isfinite(db_norm_max):
+        raise ValueError("train rows must be finite")
     db = torch.from_numpy(host).to(dev)
     th, tl, tnorm = prepare_db(db, TILE_N)
-    db_norm_max = float((host.astype(np.float64) ** 2).sum(-1).max())
     lab = None
     if labels is not None:
         if num_classes is None:

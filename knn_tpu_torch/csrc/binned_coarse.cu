@@ -1,5 +1,5 @@
-// Fused bf16x3 distance + per-bin top-`survivors` select + exclusion bound
-// for Hopper (sm_90a).
+// Fused bf16x3 distance + per-bin top-2 select + exclusion bound for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel knn_tpu/ops/pallas_knn.py::_bin_candidates (the
 // tiled pallas_call, body _kernel in its bf16x3 arm, emitter
@@ -12,15 +12,16 @@
 //     qt = sum_d qh*th + qh*tl + ql*th                      (f32 accumulate)
 //     s  = tnorm[t] - 2*qt                                  (||q||^2 dropped)
 //   bin b of tile ti = lane b of every 128-row group of the tile.  Per
-//   (q, ti, b) keep the `S` smallest s with their group index through a
+//   (q, ti, b) keep the 2 smallest s with their group index through a
 //   sorted insertion network with strict `<` (the earlier group wins a tie),
-//   plus the (S+1)-th smallest as the bin's exclusion bound.
+//   plus the third smallest as the bin's exclusion bound.  Two survivors are
+//   part of the definition of a bin (with tile_n): the port runs no other value.
 //
 // Outputs, in the TPU kernel's exact layout:
-//   cd     [n_q, n_tiles*S*128] f32  column ti*S*128 + j*128 + b
-//   ci     [n_q, n_tiles*S*128] i32  ti*tile_n + g*128 + b, or INT32_MAX when
-//                                    the value is not finite
-//   bounds [n_q, n_tiles*128]   f32  column ti*128 + b
+//   cd     [n_q, n_tiles*256] f32  column ti*256 + j*128 + b (survivor j)
+//   ci     [n_q, n_tiles*256] i32  ti*tile_n + g*128 + b, or INT32_MAX when
+//                                  the value is not finite
+//   bounds [n_q, n_tiles*128] f32  column ti*128 + b
 //
 // Design.  One CTA per (query block of 32 rows, db tile).  The CTA walks the
 // tile's tile_n/128 column groups in ascending order.  For each group it
@@ -47,6 +48,7 @@
 namespace {
 
 constexpr int kBinW = 128;       // lanes per group = bins per tile
+constexpr int kSurvivors = 2;    // candidates per bin
 constexpr int kBlockQ = 32;      // query rows per CTA
 constexpr int kThreads = 256;    // 8 query quads x 32 lane columns
 constexpr int kDimSlice = 64;    // dims staged per shared-memory pass
@@ -58,7 +60,6 @@ constexpr int kQStride = kBlockQ + 4;      // keeps float4 reads aligned
 constexpr size_t kSmemBytes =
     sizeof(float) * (2 * kBinW * kDbStride + 2 * kDimSlice * kQStride);
 
-template <int S>
 __global__ void __launch_bounds__(kThreads, 2)
 binned_select_bf16x3_kernel(const float* __restrict__ q,
                             const __nv_bfloat16* __restrict__ th,
@@ -82,16 +83,17 @@ binned_select_bf16x3_kernel(const float* __restrict__ q,
   const int n_groups = tile_n / kBinW;
   const size_t tile_row0 = static_cast<size_t>(ti) * tile_n;
 
-  float vals[kQuadQ][kQuadL][S + 1];
-  int gidx[kQuadQ][kQuadL][S];
+  float vals[kQuadQ][kQuadL][kSurvivors + 1];
+  int gidx[kQuadQ][kQuadL][kSurvivors];
 #pragma unroll
   for (int i = 0; i < kQuadQ; ++i)
 #pragma unroll
     for (int j = 0; j < kQuadL; ++j) {
 #pragma unroll
-      for (int s = 0; s <= S; ++s) vals[i][j][s] = __int_as_float(0x7f800000);
+      for (int s = 0; s <= kSurvivors; ++s)
+        vals[i][j][s] = __int_as_float(0x7f800000);
 #pragma unroll
-      for (int s = 0; s < S; ++s) gidx[i][j][s] = 0;
+      for (int s = 0; s < kSurvivors; ++s) gidx[i][j][s] = 0;
     }
 
   for (int g = 0; g < n_groups; ++g) {
@@ -178,7 +180,7 @@ binned_select_bf16x3_kernel(const float* __restrict__ q,
         float cur_v = tn - 2.0f * acc[i][j];
         int cur_g = g;
 #pragma unroll
-        for (int s = 0; s < S; ++s) {
+        for (int s = 0; s < kSurvivors; ++s) {
           const bool less = cur_v < vals[i][j][s];
           const float disp_v = fmaxf(cur_v, vals[i][j][s]);
           const int disp_g = less ? gidx[i][j][s] : cur_g;
@@ -187,12 +189,12 @@ binned_select_bf16x3_kernel(const float* __restrict__ q,
           cur_v = disp_v;
           cur_g = disp_g;
         }
-        vals[i][j][S] = fminf(vals[i][j][S], cur_v);
+        vals[i][j][kSurvivors] = fminf(vals[i][j][kSurvivors], cur_v);
       }
     }
   }
 
-  const size_t out_w = static_cast<size_t>(n_tiles) * S * kBinW;
+  const size_t out_w = static_cast<size_t>(n_tiles) * kSurvivors * kBinW;
   const size_t bound_w = static_cast<size_t>(n_tiles) * kBinW;
 #pragma unroll
   for (int i = 0; i < kQuadQ; ++i) {
@@ -202,8 +204,9 @@ binned_select_bf16x3_kernel(const float* __restrict__ q,
     for (int j = 0; j < kQuadL; ++j) {
       const int lane = lane_col + 32 * j;
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const size_t col = static_cast<size_t>(ti) * S * kBinW + s * kBinW + lane;
+      for (int s = 0; s < kSurvivors; ++s) {
+        const size_t col =
+            static_cast<size_t>(ti) * kSurvivors * kBinW + s * kBinW + lane;
         const float v = vals[i][j][s];
         cd[row * out_w + col] = v;
         ci[row * out_w + col] =
@@ -211,23 +214,22 @@ binned_select_bf16x3_kernel(const float* __restrict__ q,
                         : INT32_MAX;
       }
       bounds[row * bound_w + static_cast<size_t>(ti) * kBinW + lane] =
-          vals[i][j][S];
+          vals[i][j][kSurvivors];
     }
   }
 }
 
-template <int S>
 cudaError_t launch(const float* q, const __nv_bfloat16* th,
                    const __nv_bfloat16* tl, const float* tnorm, float* cd,
                    int* ci, float* bounds, int n_q, int dp, int n_tiles,
                    int tile_n, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      binned_select_bf16x3_kernel<S>,
+      binned_select_bf16x3_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles, (n_q + kBlockQ - 1) / kBlockQ);
-  binned_select_bf16x3_kernel<S><<<grid, kThreads, kSmemBytes, stream>>>(
+  binned_select_bf16x3_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       q, th, tl, tnorm, cd, ci, bounds, n_q, dp, n_tiles, tile_n);
   return cudaGetLastError();
 }
@@ -236,38 +238,19 @@ cudaError_t launch(const float* q, const __nv_bfloat16* th,
 
 // C entry for ctypes.  Shapes: q [n_q, dp] f32; th, tl [n_tiles*tile_n, dp]
 // bf16; tnorm [n_tiles*tile_n] f32 (row 0 of the [8, Np] norm rows); outputs
-// as in the header.  dp must be a multiple of 128, tile_n a multiple of 128,
-// 1 <= survivors <= 8.  Returns cudaGetLastError() after the launch (0 =
-// launched); the wrapper raises on anything else.
+// as in the header.  dp must be a multiple of 128, tile_n a multiple of 128.
+// Returns cudaGetLastError() after the launch (0 = launched); the wrapper
+// raises on anything else.
 extern "C" int binned_select_bf16x3(const void* q, const void* th,
                                     const void* tl, const void* tnorm,
                                     void* cd, void* ci, void* bounds, int n_q,
                                     int dp, int n_tiles, int tile_n,
-                                    int survivors, void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const __nv_bfloat16* thb = static_cast<const __nv_bfloat16*>(th);
-  const __nv_bfloat16* tlb = static_cast<const __nv_bfloat16*>(tl);
-  const float* tnf = static_cast<const float*>(tnorm);
-  float* cdf = static_cast<float*>(cd);
-  int* cii = static_cast<int*>(ci);
-  float* bf = static_cast<float*>(bounds);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                    void* stream) {
   if (n_q <= 0 || n_tiles <= 0) return 0;
-  switch (survivors) {
-#define KNN_CASE(S)                                                        \
-  case S:                                                                  \
-    return static_cast<int>(launch<S>(qf, thb, tlb, tnf, cdf, cii, bf, n_q, \
-                                      dp, n_tiles, tile_n, st));
-    KNN_CASE(1)
-    KNN_CASE(2)
-    KNN_CASE(3)
-    KNN_CASE(4)
-    KNN_CASE(5)
-    KNN_CASE(6)
-    KNN_CASE(7)
-    KNN_CASE(8)
-#undef KNN_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(launch(
+      static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(th),
+      static_cast<const __nv_bfloat16*>(tl), static_cast<const float*>(tnorm),
+      static_cast<float*>(cd), static_cast<int*>(ci),
+      static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -1,9 +1,9 @@
 """The self-certifying coarse pass — the port of knn_tpu/ops/pallas_knn.py.
 
-One database pass emits, per 128-wide bin, the ``survivors`` smallest
+One database pass emits, per 128-wide bin, the ``SURVIVORS`` = 2 smallest
 kernel scores with their row indices plus the bin's *exclusion bound*
-(the (survivors+1)-th smallest score): no row outside the candidates can
-score below its bin's bound.  The kernel score is squared L2 minus the
+(the third smallest score): no row outside the candidates can score below
+its bin's bound.  The kernel score is squared L2 minus the
 per-query constant ``||q||^2``: ``s = ||t||^2 - 2 q.t``.
 
 What runs where:
@@ -20,14 +20,17 @@ What runs where:
   stable sort with its exclusion value, the pad-row mask, the
   direct-difference f32 rescore (:func:`local_select_rescore`).
 
-A bin is defined by ``tile_n=16384`` and ``survivors=2`` whatever the
-CUDA block shape is: candidate width, ``m`` and the fallback rate depend
-on them.  Grouped binning: bin b of a db tile is lane b of every 128-row
+A bin is defined by ``tile_n=16384`` and two survivors whatever the CUDA
+block shape is: candidate width, ``m`` and the fallback rate depend on
+them.  Grouped binning: bin b of a db tile is lane b of every 128-row
 group of the tile (``tile_n // 128`` members strided 128 apart).
 
 Ported so far: precision ``bf16x3``, binning ``grouped``, grid
-``query_major``, kernel ``tiled``, final select ``exact``.  The other
-values the JAX package accepts are refused by name.
+``query_major``, kernel ``tiled``, final select ``exact``, two survivors
+per bin and the 128-lane bin width.  The other values the JAX package
+accepts are refused by name.  The JAX package's ``block_q`` only
+re-blocks query rows of its TPU grid; the CUDA kernel picks its own query
+block, so the port takes no such knob.
 """
 
 from __future__ import annotations
@@ -41,17 +44,14 @@ import torch
 from knn_tpu_torch.ops import _cuda
 from knn_tpu_torch.ops.topk import I32MAX, topk_pairs
 
-#: bin width — the lane count; `survivors` candidates + one bound per bin
+#: bin width — the lane count; SURVIVORS candidates + one bound per bin
 BIN_W = 128
-#: query rows per grid cell of the TPU kernel (a knob the CUDA kernel
-#: ignores: it picks its own query block)
-BLOCK_Q = 128
 #: database rows per tile: 128 bins of 128 members at 1M rows
 TILE_N = 16384
 #: dims are zero-padded to a multiple of this and reduced chunk by chunk
 DIM_CHUNK = 128
-#: cap on survivors per bin
-MAX_SURVIVORS = 8
+#: candidates kept per bin (the JAX package's grouped-binning default)
+SURVIVORS = 2
 #: row-padding fill: pad rows score ~1e36, never candidates, never
 #: deflating a bin bound; 1.5e17 keeps ||pad||^2 finite in f32
 PAD_VAL = 1.5e17
@@ -66,7 +66,8 @@ GRID_ORDERS = ("query_major", "db_major")
 KERNELS = ("tiled", "streaming", "fused")
 PORTED = {"precision": ("bf16x3",), "binning": ("grouped",),
           "grid_order": ("query_major",), "kernel": ("tiled",),
-          "final_select": ("exact",)}
+          "final_select": ("exact",), "bin_w": (BIN_W,),
+          "survivors": (SURVIVORS,)}
 
 #: K1 launches one CTA row per 32 queries; CUDA caps the grid's y extent
 _MAX_KERNEL_QUERIES = 65535 * 32
@@ -78,10 +79,12 @@ def _round_up(x: int, multiple: int) -> int:
 
 def check_knobs(*, precision: str = "bf16x3", binning: str = "grouped",
                 grid_order: str = "query_major", kernel: str = "tiled",
-                final_select: str = "exact") -> None:
+                final_select: str = "exact", bin_w: Optional[int] = None,
+                survivors: Optional[int] = None) -> None:
     """The JAX package's knob refusals (pallas_knn.py:922-956,
     1386-1398), then the port's own: every value that is valid there but
-    not ported here is refused by name."""
+    not ported here is refused by name.  ``bin_w`` and ``survivors``
+    left at None take their one ported value."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     if binning not in BINNINGS:
@@ -111,7 +114,9 @@ def check_knobs(*, precision: str = "bf16x3", binning: str = "grouped",
             "early-out's bitwise contract is an exact-boundary argument)")
     given = {"precision": precision, "binning": binning,
              "grid_order": grid_order, "kernel": kernel,
-             "final_select": final_select}
+             "final_select": final_select,
+             "bin_w": BIN_W if bin_w is None else bin_w,
+             "survivors": SURVIVORS if survivors is None else survivors}
     for knob, value in given.items():
         if value not in PORTED[knob]:
             raise ValueError(
@@ -119,37 +124,25 @@ def check_knobs(*, precision: str = "bf16x3", binning: str = "grouped",
                 f"runs {knob} in {PORTED[knob]}")
 
 
-def _geometry(tile_n: int, bin_w: int = BIN_W,
-              survivors: Optional[int] = None) -> Tuple[int, int, int, int]:
+def _geometry(tile_n: int) -> Tuple[int, int, int, int]:
     """(n_bins, survivors, out_w, bound_w) of a db tile in grouped binning:
-    128 bins (one per lane), ``survivors`` (default 2, capped at
-    MAX_SURVIVORS) candidates per bin, so ``out_w = survivors * 128``
-    candidate lanes and ``bound_w = 128`` bound lanes per tile."""
-    if tile_n % bin_w:
-        raise ValueError(f"tile_n={tile_n} must be a multiple of bin_w={bin_w}")
-    if bin_w % BIN_W:
-        raise ValueError(f"bin_w={bin_w} must be a multiple of {BIN_W} lanes")
-    survivors = min(2 if survivors is None else survivors, MAX_SURVIVORS)
-    return BIN_W, survivors, survivors * BIN_W, BIN_W
+    128 bins (one per lane), SURVIVORS candidates per bin, so
+    ``out_w = SURVIVORS * 128`` candidate lanes and ``bound_w = 128`` bound
+    lanes per tile."""
+    if tile_n % BIN_W:
+        raise ValueError(f"tile_n={tile_n} must be a multiple of bin_w={BIN_W}")
+    return BIN_W, SURVIVORS, SURVIVORS * BIN_W, BIN_W
 
 
-def effective_tile(rows: int, tile_n: int, bin_w: int,
-                   survivors: Optional[int], min_width: int) -> int:
+def effective_tile(rows: int, tile_n: int, min_width: int) -> int:
     """The db tile the kernel will run: capped to the (padded) db, then
     halved until the total candidate width ``n_tiles * out_w`` covers
     ``min_width`` (= m+2 for certified callers) or the tile bottoms out
-    at ``bin_w``."""
-    if tile_n % bin_w:
-        raise ValueError(
-            f"tile_n={tile_n} must be a multiple of bin_w={bin_w}")
-    eff = min(tile_n, max(bin_w, -(-rows // bin_w) * bin_w))
-
-    def width(t: int) -> int:
-        _, _, out_w, _ = _geometry(t, bin_w, survivors)
-        return -(-rows // t) * out_w
-
-    while eff > bin_w and width(eff) < min_width:
-        eff = max(bin_w, -(-(eff // 2) // bin_w) * bin_w)
+    at ``BIN_W``."""
+    _, _, out_w, _ = _geometry(tile_n)
+    eff = min(tile_n, max(BIN_W, _round_up(rows, BIN_W)))
+    while eff > BIN_W and -(-rows // eff) * out_w < min_width:
+        eff = max(BIN_W, _round_up(eff // 2, BIN_W))
     return eff
 
 
@@ -191,11 +184,11 @@ def prepare_db(db: torch.Tensor, tile_n: int):
     return th.contiguous(), tl.contiguous(), tnorm[None, :].expand(8, -1)
 
 
-def binned_select_plain(q, th, tl, tnorm, *, tile_n: int, survivors: int):
+def binned_select_plain(q, th, tl, tnorm, *, tile_n: int):
     """K1 in plain PyTorch, tile by tile: an f32 matmul of the upcast bf16
     parts summed per 128-dim chunk (``qh.th + qh.tl + ql.th``), then
     ``s = tnorm[0] - 2 qt`` reshaped to [Q, G, 128], a stable sort over
-    the group axis, the first ``survivors`` values and groups, and the next
+    the group axis, the first SURVIVORS values and groups, and the next
     value as the bin bound — which is what the strict-`<` insertion
     network of the kernel keeps."""
     n_q, dp = q.shape
@@ -215,21 +208,21 @@ def binned_select_plain(q, th, tl, tnorm, *, tile_n: int, survivors: int):
             part = (qh[:, cols] @ h.T + qh[:, cols] @ lo.T) + ql[:, cols] @ h.T
             qt = part if qt is None else qt + part
         s = (tnorm[0, rows][None, :] - 2.0 * qt).view(n_q, n_groups, BIN_W)
-        if n_groups < survivors + 1:
-            fill = torch.full((n_q, survivors + 1 - n_groups, BIN_W),
+        if n_groups < SURVIVORS + 1:
+            fill = torch.full((n_q, SURVIVORS + 1 - n_groups, BIN_W),
                               torch.inf, device=dev)
             s = torch.cat([s, fill], dim=1)
         vals, grp = torch.sort(s, dim=1, stable=True)
-        cd = vals[:, :survivors]
-        idx = ti * tile_n + grp[:, :survivors] * BIN_W + lane
+        cd = vals[:, :SURVIVORS]
+        idx = ti * tile_n + grp[:, :SURVIVORS] * BIN_W + lane
         ci = torch.where(torch.isfinite(cd), idx, I32MAX).to(torch.int32)
-        cds.append(cd.reshape(n_q, survivors * BIN_W))
-        cis.append(ci.reshape(n_q, survivors * BIN_W))
-        bds.append(vals[:, survivors])
+        cds.append(cd.reshape(n_q, SURVIVORS * BIN_W))
+        cis.append(ci.reshape(n_q, SURVIVORS * BIN_W))
+        bds.append(vals[:, SURVIVORS])
     return torch.cat(cds, 1), torch.cat(cis, 1), torch.cat(bds, 1)
 
 
-def _check_operands(q, th, tl, tnorm, tile_n: int, survivors: int) -> None:
+def _check_operands(q, th, tl, tnorm, tile_n: int) -> None:
     if q.dtype != torch.float32 or q.dim() != 2 or not q.is_contiguous():
         raise ValueError("q must be a contiguous [Q, Dp] float32 tensor")
     if th.dtype != torch.bfloat16 or tl.dtype != torch.bfloat16:
@@ -252,8 +245,6 @@ def _check_operands(q, th, tl, tnorm, tile_n: int, survivors: int) -> None:
     if tnorm.dtype != torch.float32 or tuple(tnorm.shape) != (8, n_p) \
             or tnorm.stride(1) != 1:
         raise ValueError("tnorm must be [8, Np] float32 with unit row stride")
-    if not 1 <= survivors <= MAX_SURVIVORS:
-        raise ValueError(f"survivors {survivors} outside [1, {MAX_SURVIVORS}]")
     devs = {t.device for t in (q, th, tl, tnorm)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
@@ -263,13 +254,13 @@ def _k1_entry():
     """K1's C entry (``binned_select_bf16x3`` in csrc/binned_coarse.cu),
     built and loaded at first use, with its ctypes signature."""
     fn = _cuda.load("binned_coarse").binned_select_bf16x3
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def binned_select(q, th, tl, tnorm, *, tile_n: int, survivors: int = 2):
-    """K1's wrapper: ``(cd [Q, T*S*128] f32, ci [Q, T*S*128] i32,
+def binned_select(q, th, tl, tnorm, *, tile_n: int):
+    """K1's wrapper: ``(cd [Q, T*256] f32, ci [Q, T*256] i32,
     bounds [Q, T*128] f32)`` from ``q [Q, Dp] f32``, the db parts
     ``th, tl [Np, Dp] bf16`` and ``tnorm [8, Np] f32``.
 
@@ -277,10 +268,9 @@ def binned_select(q, th, tl, tnorm, *, tile_n: int, survivors: int = 2):
     ``csrc/binned_coarse.cu`` at first use) on the current stream, or
     raises; on a CPU tensor it runs :func:`binned_select_plain`.
     ``binned_select.launches`` counts kernel launches."""
-    _check_operands(q, th, tl, tnorm, tile_n, survivors)
+    _check_operands(q, th, tl, tnorm, tile_n)
     if q.device.type == "cpu":
-        return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n,
-                                   survivors=survivors)
+        return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
     if q.device.type != "cuda":
         raise ValueError(f"binned_select runs on cuda or cpu, not {q.device}")
     n_q, dp = q.shape
@@ -289,7 +279,7 @@ def binned_select(q, th, tl, tnorm, *, tile_n: int, survivors: int = 2):
             f"{n_q} queries exceed one launch's {_MAX_KERNEL_QUERIES} (the "
             f"grid's y extent); run them in batches (batch_size)")
     n_tiles = th.shape[0] // tile_n
-    cd = torch.empty((n_q, n_tiles * survivors * BIN_W), dtype=torch.float32,
+    cd = torch.empty((n_q, n_tiles * SURVIVORS * BIN_W), dtype=torch.float32,
                      device=q.device)
     ci = torch.empty(cd.shape, dtype=torch.int32, device=q.device)
     bounds = torch.empty((n_q, n_tiles * BIN_W), dtype=torch.float32,
@@ -302,7 +292,7 @@ def binned_select(q, th, tl, tnorm, *, tile_n: int, survivors: int = 2):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), th.data_ptr(), tl.data_ptr(), tnorm.data_ptr(),
                 cd.data_ptr(), ci.data_ptr(), bounds.data_ptr(),
-                n_q, dp, n_tiles, tile_n, survivors, stream)
+                n_q, dp, n_tiles, tile_n, stream)
     if rc != 0:
         raise RuntimeError(
             f"binned_select_bf16x3 launch failed: cudaError {rc}")
@@ -314,21 +304,19 @@ binned_select.launches = 0
 
 
 def _bin_candidates(queries: torch.Tensor, db: Optional[torch.Tensor], *,
-                    tile_n: int, survivors: Optional[int],
+                    tile_n: int,
                     db_parts=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel launch on padded shapes (the bf16x3 arm of the JAX
     package's ``_bin_candidates``).  ``db_parts=(th, tl, tnorm)`` plugs in
     a placement's prepared parts, padded to ``round_up(N, tile_n)`` rows;
     None prepares them from ``db`` here.  Returns cd, ci, bounds for the
     query rows given (the JAX kernel's query padding never leaves it)."""
-    _, survivors, _, _ = _geometry(tile_n, BIN_W, survivors)
     th, tl, tnorm = db_parts if db_parts is not None else prepare_db(db, tile_n)
-    return binned_select(pad_queries(queries), th, tl, tnorm, tile_n=tile_n,
-                         survivors=survivors)
+    return binned_select(pad_queries(queries), th, tl, tnorm, tile_n=tile_n)
 
 
 def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
-                            block_q: int = BLOCK_Q, bin_w: int = BIN_W,
+                            bin_w: Optional[int] = None,
                             survivors: Optional[int] = None,
                             precision: str = "bf16x3",
                             binning: str = "grouped",
@@ -336,18 +324,16 @@ def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
                             kernel: str = "tiled",
                             final_select: str = "exact", db_parts=None):
     """Stage 1: resolve the effective tile and run the coarse pass.
-    Returns ``(cd [Q, W], ci [Q, W], bounds [Q, T*128])``.  ``block_q``
-    is accepted for the JAX signature and does not change the result."""
-    del block_q
+    Returns ``(cd [Q, W], ci [Q, W], bounds [Q, T*128])``."""
     check_knobs(precision=precision, binning=binning, grid_order=grid_order,
-                kernel=kernel, final_select=final_select)
-    eff_tile = effective_tile(t.shape[0], tile_n, bin_w, survivors, m + 2)
+                kernel=kernel, final_select=final_select, bin_w=bin_w,
+                survivors=survivors)
+    eff_tile = effective_tile(t.shape[0], tile_n, m + 2)
     if db_parts is not None and db_parts[0].shape[0] != _round_up(t.shape[0], eff_tile):
         raise ValueError(
             f"db_parts hold {db_parts[0].shape[0]} rows; the {eff_tile}-row "
             f"tile needs {_round_up(t.shape[0], eff_tile)}")
-    return _bin_candidates(q, t, tile_n=eff_tile, survivors=survivors,
-                           db_parts=db_parts)
+    return _bin_candidates(q, t, tile_n=eff_tile, db_parts=db_parts)
 
 
 def local_select_rescore(q, t, cd, ci, bounds, m: int, *,

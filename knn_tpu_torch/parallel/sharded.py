@@ -31,7 +31,6 @@ from knn_tpu_torch import tuning
 from knn_tpu_torch.convert import Placement, placement_from_numpy, row_normalize_f64
 from knn_tpu_torch.device import DeviceLike
 from knn_tpu_torch.ops.coarse_knn import (
-    BIN_W,
     RANK_SLACK,
     TILE_N,
     _geometry,
@@ -148,7 +147,6 @@ class ShardedKNN:
     def _pallas_setup(self, margin: int, tile_n: Optional[int],
                       precision: str, bin_w: Optional[int] = None,
                       survivors: Optional[int] = None,
-                      block_q: Optional[int] = None,
                       final_select: str = "exact",
                       include_distances: bool = True,
                       binning: str = "grouped",
@@ -159,12 +157,12 @@ class ShardedKNN:
         [B, D] device batch and returns :func:`_certify_pack`'s tensors."""
         check_knobs(precision=precision, binning=binning,
                     grid_order=grid_order, kernel=kernel,
-                    final_select=final_select)
-        eff_bin = bin_w or BIN_W
+                    final_select=final_select, bin_w=bin_w,
+                    survivors=survivors)
         rows = self.n_train
-        eff_tile = effective_tile(rows, tile_n or TILE_N, eff_bin, survivors,
+        eff_tile = effective_tile(rows, tile_n or TILE_N,
                                   min(self.k + margin, rows) + 2)
-        _, _, out_w, _ = _geometry(eff_tile, eff_bin, survivors)
+        _, _, out_w, _ = _geometry(eff_tile)
         # m is bounded by the db and by the kernel's candidate width minus
         # the two slots the exclusion value needs
         m = min(self.k + margin, rows, -(-rows // eff_tile) * out_w - 2)
@@ -182,9 +180,8 @@ class ShardedKNN:
             # width(eff_tile) >= m+2, which makes the kernel's own
             # effective_tile(min_width=m+2) a fixpoint
             d32, li, lb = local_certified_candidates(
-                q, db, m, tile_n=eff_tile, bin_w=eff_bin, survivors=survivors,
-                block_q=block_q, precision=precision, binning=binning,
-                grid_order=grid_order, kernel=kernel,
+                q, db, m, tile_n=eff_tile, precision=precision,
+                binning=binning, grid_order=grid_order, kernel=kernel,
                 final_select=final_select, db_parts=parts)
             return _certify_pack(q, d32, li, lb, db_norm_max=db_norm_max,
                                  m=m, k=self.k, w=w, n_train=rows,
@@ -194,7 +191,7 @@ class ShardedKNN:
 
     def _certify_pallas(self, batches, bs, m, d, i, q_np, db_np, *,
                         tile_n, precision, want_distances=True, bin_w=None,
-                        survivors=None, block_q=None, final_select="exact",
+                        survivors=None, final_select="exact",
                         binning="grouped", final_recall_target=None,
                         grid_order="query_major", kernel="tiled"):
         """One-pass certificate, host side: dispatch every batch, then per
@@ -211,7 +208,7 @@ class ShardedKNN:
         k = self.k
         run, m, w = self._pallas_setup(
             m - k, tile_n, precision, bin_w=bin_w, survivors=survivors,
-            block_q=block_q, final_select=final_select,
+            final_select=final_select,
             include_distances=want_distances, binning=binning,
             grid_order=grid_order, kernel=kernel)
         # stage 1: dispatch every batch (asynchronous on the GPU)
@@ -241,7 +238,6 @@ class ShardedKNN:
                          return_distances: bool = True,
                          bin_w: Optional[int] = None,
                          survivors: Optional[int] = None,
-                         block_q: Optional[int] = None,
                          final_select: Optional[str] = None,
                          binning: Optional[str] = None,
                          final_recall_target: Optional[float] = None,
@@ -258,13 +254,16 @@ class ShardedKNN:
         returns ``1 - similarity``.  Knobs left at None take the library
         defaults (knn_tpu_torch.tuning); ``stats`` carries
         ``certified``, ``fallback_queries``, ``rank_corrected_queries``,
-        the repair counts and ``pallas_knobs``."""
+        the repair counts and ``pallas_knobs``.  Queries must be finite."""
         from knn_tpu_torch.ops.certified import repair_uncertified
 
         if selector not in SELECTORS:
             raise ValueError(
                 f"selector {selector!r} is not ported; expected {SELECTORS}")
         q_np = np.asarray(queries, dtype=np.float32)
+        if not np.isfinite(q_np).all():
+            # a NaN score has no place in the certificate's order
+            raise ValueError("search_certified: queries must be finite")
         if self.metric == "cosine":
             q_np = row_normalize_f64(q_np)
         n_q = q_np.shape[0]
@@ -284,7 +283,7 @@ class ShardedKNN:
         i = np.empty((n_q, self.k), dtype=np.int64)
         knobs = tuning.resolve(
             tile_n=tile_n, precision=precision, bin_w=bin_w,
-            survivors=survivors, block_q=block_q, final_select=final_select,
+            survivors=survivors, final_select=final_select,
             binning=binning, final_recall_target=final_recall_target,
             grid_order=grid_order, kernel=kernel)
         bad, n_corrected = self._certify_pallas(

@@ -4,9 +4,8 @@ knn_tpu/tuning/autotune.py:56-67.
 The JAX package resolves knobs as explicit argument > persisted autotuner
 winner > these defaults.  The autotuner and its cache are a later slice of
 the port, so here a knob resolves as explicit argument, else default.
-``block_q`` only re-blocks query rows on the TPU; the CUDA kernel picks
-its own query block, so the knob is carried but does not shape the
-result.
+The copy leaves out ``block_q``: it only re-blocks query rows of the TPU
+grid, and the CUDA kernel picks its own query block.
 """
 
 from __future__ import annotations
@@ -16,7 +15,6 @@ from typing import Dict
 DEFAULT_KNOBS: Dict[str, object] = {
     "kernel": "tiled",
     "tile_n": None,
-    "block_q": 256,
     "bin_w": None,
     "survivors": None,
     "precision": "bf16x3",

@@ -166,6 +166,31 @@ def test_placement_matches_jax_placement():
         placement_from_numpy(db, np.zeros(len(db)), device="cpu")
 
 
+@pytest.mark.parametrize("bad_value", [np.nan, np.inf])
+@pytest.mark.parametrize("where", ["train", "query"])
+def test_non_finite_input_is_refused(bad_value, where):
+    # a NaN score has no place in the insertion network's order or the
+    # certificate's, so the entry points refuse it instead of answering
+    db, _ = _blobs(7)
+    q = db[:3].copy()
+    if where == "train":
+        db[5, 1] = bad_value
+        with pytest.raises(ValueError, match="finite"):
+            ShardedKNN(db, k=4, device="cpu")
+    else:
+        q[1, 2] = bad_value
+        with pytest.raises(ValueError, match="finite"):
+            ShardedKNN(db, k=4, device="cpu").search_certified(q)
+
+
+@pytest.mark.parametrize("knob,value", [("survivors", 4), ("bin_w", 256)])
+def test_search_certified_refuses_unported_geometry(knob, value):
+    db, _ = _blobs(8)
+    with pytest.raises(ValueError, match=f"{knob}={value} is not ported"):
+        ShardedKNN(db, k=4, device="cpu").search_certified(
+            db[:2], **{knob: value})
+
+
 def test_certify_pack_matches_jax_tail():
     # the device certificate on identical ranked candidates: same window,
     # same near-tie mask, same bad flags

@@ -30,7 +30,7 @@ def test_plain_k1_matches_pallas_bin_candidates(dim, tile_n):
         binning="grouped", grid_order="query_major")
     ref = [np.asarray(a)[: q.shape[0]] for a in ref]
     port = ck._bin_candidates(torch.from_numpy(q), torch.from_numpy(db),
-                              tile_n=tile_n, survivors=2)
+                              tile_n=tile_n)
     port = [a.numpy() for a in port]
     assert [a.shape for a in port] == [a.shape for a in ref]
     assert port[1].dtype == np.int32
@@ -50,8 +50,7 @@ def test_plain_k1_insertion_semantics_on_ties():
     db[384 + 5] = db[5]
     q = db[5:6] + np.float32(0.0)
     cd, ci, bounds = ck._bin_candidates(torch.from_numpy(q),
-                                        torch.from_numpy(db), tile_n=512,
-                                        survivors=2)
+                                        torch.from_numpy(db), tile_n=512)
     assert ci[0, 5].item() == 5 and ci[0, 128 + 5].item() == 128 + 5
     assert cd[0, 5].item() == cd[0, 128 + 5].item() == bounds[0, 5].item()
 
@@ -104,16 +103,17 @@ def test_local_certified_candidates_match_pallas(dim, tile_n):
 
 
 def test_geometry_and_effective_tile_match_pallas():
+    # the port runs the JAX package's defaults: bin_w 128, 2 survivors
     for rows, tile, surv, width in ((1_000_000, 16384, None, 130),
                                     (10_000, 16384, None, 300),
-                                    (700, 256, 2, 35), (5000, 384, 3, 900)):
-        assert ck.effective_tile(rows, tile, 128, surv, width) == \
+                                    (700, 256, 2, 35), (5000, 384, 2, 900)):
+        assert ck.effective_tile(rows, tile, width) == \
             jpk.effective_tile(rows, tile, 128, surv, "grouped", width)
-        assert ck._geometry(tile, 128, surv) == \
-            jpk._geometry(tile, 128, surv, "grouped")
-    assert (ck.BIN_W, ck.TILE_N, ck.DIM_CHUNK, ck.MAX_SURVIVORS, ck.PAD_VAL,
+        assert ck._geometry(tile) == jpk._geometry(tile, 128, surv, "grouped")
+    assert (ck.BIN_W, ck.TILE_N, ck.DIM_CHUNK, ck.SURVIVORS, ck.PAD_VAL,
             ck.RANK_SLACK) == (jpk.BIN_W, jpk.TILE_N, jpk.DIM_CHUNK,
-                               jpk.MAX_SURVIVORS, jpk.PAD_VAL, jpk.RANK_SLACK)
+                               jpk._geometry(jpk.TILE_N)[1], jpk.PAD_VAL,
+                               jpk.RANK_SLACK)
 
 
 def test_prepare_db_matches_pallas_prologue():
@@ -147,9 +147,9 @@ def test_kernel_tolerance_matches_pallas():
 @pytest.mark.parametrize("knob,value", [
     ("precision", "int8"), ("precision", "highest"), ("binning", "lane"),
     ("grid_order", "db_major"), ("kernel", "streaming"),
-    ("final_select", "approx")])
+    ("final_select", "approx"), ("survivors", 3), ("bin_w", 256)])
 def test_unported_knobs_are_refused_by_name(knob, value):
-    with pytest.raises(ValueError, match=value):
+    with pytest.raises(ValueError, match=f"{knob}={value!r} is not ported"):
         ck.check_knobs(**{knob: value})
 
 
@@ -171,7 +171,7 @@ def test_wrapper_checks_operands_and_counts_only_kernel_launches():
     before = ck.binned_select.launches
     out = ck.binned_select(qt, th, tl, tnorm, tile_n=256)
     assert ck.binned_select.launches == before  # CPU: the plain version
-    ref = ck.binned_select_plain(qt, th, tl, tnorm, tile_n=256, survivors=2)
+    ref = ck.binned_select_plain(qt, th, tl, tnorm, tile_n=256)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="float32"):
@@ -180,5 +180,5 @@ def test_wrapper_checks_operands_and_counts_only_kernel_launches():
         ck.binned_select(qt, th.float(), tl, tnorm, tile_n=256)
     with pytest.raises(ValueError, match="multiple of tile_n"):
         ck.binned_select(qt, th, tl, tnorm, tile_n=384)
-    with pytest.raises(ValueError, match="survivors"):
-        ck.binned_select(qt, th, tl, tnorm, tile_n=256, survivors=9)
+    with pytest.raises(ValueError, match="tnorm"):
+        ck.binned_select(qt, th, tl, tnorm[:, :128], tile_n=256)

@@ -44,7 +44,8 @@ def _assert_scores(port, ref, tol):
     assert (err <= tol[:, None]).all(), float(err.max())
 
 
-def _assert_ci_separated(cd, ci_p, ci_r, bounds, tol, survivors=2):
+def _assert_ci_separated(cd, ci_p, ci_r, bounds, tol):
+    survivors = ck.SURVIVORS
     n_q = cd.shape[0]
     seq = np.concatenate([cd.reshape(n_q, -1, survivors, 128),
                           bounds.reshape(n_q, -1, 1, 128)], axis=2)
@@ -79,7 +80,7 @@ def test_cuda_kernel_matches_plain(cuda_device, dim, tile_n):
                                                       tile_n=tile_n)]
     assert ck.binned_select.launches == before + 1
     plain = [a.cpu().numpy() for a in ck.binned_select_plain(
-        qp, th, tl, tnorm, tile_n=tile_n, survivors=2)]
+        qp, th, tl, tnorm, tile_n=tile_n)]
     tol = _tol(q, db)
     _assert_scores(kern[0], plain[0], tol)
     _assert_scores(kern[2], plain[2], tol)
