@@ -8,17 +8,21 @@ Its TPU kernels become hand-written Hopper kernels (``csrc/``), built with
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 
 - :class:`ShardedKNN` — a database placed once; ``search``,
-  ``search_certified`` (certified-exact through the coarse kernel),
-  ``predict``, ``predict_certified``;
+  ``search_certified`` (certified-exact through a coarse kernel: K1
+  ``tiled``, K10 ``streaming`` or K11 ``fused``, optionally through the
+  two-stage ``overlap`` pipeline), ``predict``, ``predict_certified``;
+- :func:`knn_search_pallas` — one certified search against a database
+  placed for the call;
 - :class:`KNNClassifier` — fit/predict/score;
 - :func:`run_job` with :class:`JobConfig` — the reference job
   (``python -m knn_tpu_torch.cli``).
 """
 
 from knn_tpu_torch.models.classifier import KNNClassifier
+from knn_tpu_torch.ops.coarse_knn import knn_search_pallas
 from knn_tpu_torch.parallel.sharded import ShardedKNN, unpack_certified
 from knn_tpu_torch.pipeline import JobResult, run_job
 from knn_tpu_torch.utils.config import JobConfig
 
 __all__ = ["JobConfig", "JobResult", "KNNClassifier", "ShardedKNN",
-           "run_job", "unpack_certified"]
+           "knn_search_pallas", "run_job", "unpack_certified"]

@@ -32,7 +32,8 @@
 // f32 accumulation gives.  Each of the 256 threads owns a 4-query x 4-lane
 // register tile; after the group's last dim slice it forms s and runs the
 // insertion network for its 16 (query, lane) bins in registers.  The
-// [32, tile_n] score tile never exists anywhere.
+// [32, tile_n] score tile never exists anywhere.  The per-score arithmetic
+// lives in binned_select.cuh, shared with K10/K11 (binned_stream.cu).
 //
 // What bounds it on this card: operations.  The function is 3 bf16 products
 // of 2*Q*Np*Dp FLOPs against ~1.2 GB of HBM traffic at the SIFT1M shape
@@ -41,21 +42,14 @@
 // tensor cores' 989), so it is expected to run an order of magnitude above
 // its bound; wgmma, TMA and a persistent grid are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "binned_select.cuh"
 
 namespace {
 
-constexpr int kBinW = 128;       // lanes per group = bins per tile
-constexpr int kSurvivors = 2;    // candidates per bin
-constexpr int kBlockQ = 32;      // query rows per CTA
-constexpr int kThreads = 256;    // 8 query quads x 32 lane columns
+using namespace binned;
+
 constexpr int kDimSlice = 64;    // dims staged per shared-memory pass
-constexpr int kQuadQ = 4;        // query rows per thread
-constexpr int kQuadL = 4;        // lanes per thread (strided 32 apart)
 constexpr int kDbStride = kDimSlice + 1;   // pad: conflict-free row reads
-constexpr int kQStride = kBlockQ + 4;      // keeps float4 reads aligned
 
 constexpr size_t kSmemBytes =
     sizeof(float) * (2 * kBinW * kDbStride + 2 * kDimSlice * kQStride);
@@ -83,26 +77,14 @@ binned_select_bf16x3_kernel(const float* __restrict__ q,
   const int n_groups = tile_n / kBinW;
   const size_t tile_row0 = static_cast<size_t>(ti) * tile_n;
 
-  float vals[kQuadQ][kQuadL][kSurvivors + 1];
-  int gidx[kQuadQ][kQuadL][kSurvivors];
-#pragma unroll
-  for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-    for (int j = 0; j < kQuadL; ++j) {
-#pragma unroll
-      for (int s = 0; s <= kSurvivors; ++s)
-        vals[i][j][s] = __int_as_float(0x7f800000);
-#pragma unroll
-      for (int s = 0; s < kSurvivors; ++s) gidx[i][j][s] = 0;
-    }
+  Vals vals;
+  Gidx gidx;
+  reset_bins(vals, gidx);
 
   for (int g = 0; g < n_groups; ++g) {
     const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
-    float acc[kQuadQ][kQuadL];
-#pragma unroll
-    for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kQuadL; ++j) acc[i][j] = 0.0f;
+    Acc acc;
+    zero_acc(acc);
 
     for (int k0 = 0; k0 < dp; k0 += kDimSlice) {
       __syncthreads();  // previous slice fully consumed
@@ -123,8 +105,8 @@ binned_select_bf16x3_kernel(const float* __restrict__ q,
           tls[r * kDbStride + seg * 8 + e] = __bfloat162float(bl[e]);
         }
       }
-      // query slice: 32 rows x 64 dims, split into hi/lo bf16 parts with
-      // round-to-nearest-even (JAX's astype), stored k-major for float4 reads
+      // query slice: 32 rows x 64 dims, split into hi/lo parts, stored
+      // k-major for float4 reads
 #pragma unroll
       for (int p = 0; p < (kBlockQ * kDimSlice / 4) / kThreads; ++p) {
         const int idx = tid + p * kThreads;
@@ -136,87 +118,16 @@ binned_select_bf16x3_kernel(const float* __restrict__ q,
               q + static_cast<size_t>(q0 + r) * dp + k0 + c4 * 4);
         const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const __nv_bfloat16 hi = __float2bfloat16_rn(xs[e]);
-          const float hf = __bfloat162float(hi);
-          const __nv_bfloat16 lo = __float2bfloat16_rn(xs[e] - hf);
-          qhs[(c4 * 4 + e) * kQStride + r] = hf;
-          qls[(c4 * 4 + e) * kQStride + r] = __bfloat162float(lo);
-        }
+        for (int e = 0; e < 4; ++e)
+          split_store(xs[e], qhs, qls, (c4 * 4 + e) * kQStride + r);
       }
       __syncthreads();
-
-#pragma unroll 4
-      for (int k = 0; k < kDimSlice; ++k) {
-        const float4 qh4 =
-            *reinterpret_cast<const float4*>(qhs + k * kQStride + quad * 4);
-        const float4 ql4 =
-            *reinterpret_cast<const float4*>(qls + k * kQStride + quad * 4);
-        const float qh[4] = {qh4.x, qh4.y, qh4.z, qh4.w};
-        const float ql[4] = {ql4.x, ql4.y, ql4.z, ql4.w};
-        float tv[kQuadL], lv[kQuadL];
-#pragma unroll
-        for (int j = 0; j < kQuadL; ++j) {
-          tv[j] = ths[(lane_col + 32 * j) * kDbStride + k];
-          lv[j] = tls[(lane_col + 32 * j) * kDbStride + k];
-        }
-#pragma unroll
-        for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-          for (int j = 0; j < kQuadL; ++j) {
-            acc[i][j] = fmaf(qh[i], tv[j], acc[i][j]);
-            acc[i][j] = fmaf(qh[i], lv[j], acc[i][j]);
-            acc[i][j] = fmaf(ql[i], tv[j], acc[i][j]);
-          }
-      }
+      fma_slice<kDimSlice, kDbStride>(ths, tls, qhs, qls, quad, lane_col, acc);
     }
-
-    // s = tn - 2 qt, then the sorted insertion network (strict <)
-#pragma unroll
-    for (int j = 0; j < kQuadL; ++j) {
-      const float tn = tnorm[row0 + lane_col + 32 * j];
-#pragma unroll
-      for (int i = 0; i < kQuadQ; ++i) {
-        float cur_v = tn - 2.0f * acc[i][j];
-        int cur_g = g;
-#pragma unroll
-        for (int s = 0; s < kSurvivors; ++s) {
-          const bool less = cur_v < vals[i][j][s];
-          const float disp_v = fmaxf(cur_v, vals[i][j][s]);
-          const int disp_g = less ? gidx[i][j][s] : cur_g;
-          vals[i][j][s] = fminf(cur_v, vals[i][j][s]);
-          gidx[i][j][s] = less ? cur_g : gidx[i][j][s];
-          cur_v = disp_v;
-          cur_g = disp_g;
-        }
-        vals[i][j][kSurvivors] = fminf(vals[i][j][kSurvivors], cur_v);
-      }
-    }
+    insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
   }
-
-  const size_t out_w = static_cast<size_t>(n_tiles) * kSurvivors * kBinW;
-  const size_t bound_w = static_cast<size_t>(n_tiles) * kBinW;
-#pragma unroll
-  for (int i = 0; i < kQuadQ; ++i) {
-    const int row = q0 + quad * 4 + i;
-    if (row >= n_q) continue;
-#pragma unroll
-    for (int j = 0; j < kQuadL; ++j) {
-      const int lane = lane_col + 32 * j;
-#pragma unroll
-      for (int s = 0; s < kSurvivors; ++s) {
-        const size_t col =
-            static_cast<size_t>(ti) * kSurvivors * kBinW + s * kBinW + lane;
-        const float v = vals[i][j][s];
-        cd[row * out_w + col] = v;
-        ci[row * out_w + col] =
-            isfinite(v) ? ti * tile_n + gidx[i][j][s] * kBinW + lane
-                        : INT32_MAX;
-      }
-      bounds[row * bound_w + static_cast<size_t>(ti) * kBinW + lane] =
-          vals[i][j][kSurvivors];
-    }
-  }
+  store_tile(vals, gidx, cd, ci, bounds, q0, quad, lane_col, n_q, n_tiles, ti,
+             tile_n, false);
 }
 
 cudaError_t launch(const float* q, const __nv_bfloat16* th,

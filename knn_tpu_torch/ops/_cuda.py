@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` by hand into ``knn_tpu_torch/_build/lib<name>-<digest>.so``
-(``digest`` = a hash of the source and the flags, so an edited source
-never loads a stale library), then loaded with ``ctypes``.  Nothing is
+(``digest`` = a hash of the source, the shared headers under ``csrc/``
+and the flags, so an edited source or header never loads a stale
+library), then loaded with ``ctypes``.  Nothing is
 built when a module is imported: the first launch builds, or a caller
 builds every kernel up front with :func:`build` (one ``nvcc`` process per
 source, all started together).
@@ -25,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: every kernel source of the port, by library name
-SOURCES = {"binned_coarse": CSRC / "binned_coarse.cu"}
+SOURCES = {"binned_coarse": CSRC / "binned_coarse.cu",
+           "binned_stream": CSRC / "binned_stream.cu"}
 
 #: sm_90a keeps wgmma/setmaxnreg available to later kernels; no fast-math
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,8 +54,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    # every source may include any header of csrc/
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -14,6 +14,12 @@ What runs where:
   ``pallas_knn._bin_candidates`` (bf16x3 arm, grouped binning,
   query-major grid).  :func:`binned_select_plain` is the same function in
   plain PyTorch; the wrapper runs it only for tensors on the CPU.
+- K10 and K11, the db-streaming kernels (``kernel="streaming"`` and
+  ``"fused"``), are two entries of ``knn_tpu_torch/csrc/binned_stream.cu``
+  (wrappers :func:`stream_select`, :func:`fused_select`), replacing the
+  TPU kernel ``pallas_knn._stream_call``.  K10 computes K1's function
+  bitwise; K11 adds the fused arm's early-out, which pads skipped tiles
+  (plain version :func:`fused_select_plain`).
 - Everything else is plain PyTorch, as in the JAX package's XLA code:
   the prologue (:func:`prepare_db`: dim padding to 128, ``PAD_VAL`` row
   padding, the bf16 hi/lo split, the norm rows), the exact top-(m+2) by
@@ -26,7 +32,8 @@ them.  Grouped binning: bin b of a db tile is lane b of every 128-row
 group of the tile (``tile_n // 128`` members strided 128 apart).
 
 Ported so far: precision ``bf16x3``, binning ``grouped``, grid
-``query_major``, kernel ``tiled``, final select ``exact``, two survivors
+``query_major``, kernels ``tiled``, ``streaming`` and ``fused``, final
+select ``exact``, two survivors
 per bin and the 128-lane bin width.  The other values the JAX package
 accepts are refused by name.  The JAX package's ``block_q`` only
 re-blocks query rows of its TPU grid; the CUDA kernel picks its own query
@@ -65,12 +72,42 @@ BINNINGS = ("grouped", "lane")
 GRID_ORDERS = ("query_major", "db_major")
 KERNELS = ("tiled", "streaming", "fused")
 PORTED = {"precision": ("bf16x3",), "binning": ("grouped",),
-          "grid_order": ("query_major",), "kernel": ("tiled",),
+          "grid_order": ("query_major",),
+          "kernel": ("tiled", "streaming", "fused"),
           "final_select": ("exact",), "bin_w": (BIN_W,),
           "survivors": (SURVIVORS,)}
 
-#: K1 launches one CTA row per 32 queries; CUDA caps the grid's y extent
-_MAX_KERNEL_QUERIES = 65535 * 32
+#: query rows per CTA of every coarse kernel (K1, K10, K11); K11's skip
+#: decision is taken per block of this many rows
+QUERY_BLOCK = 32
+#: the kernels launch one CTA row per QUERY_BLOCK queries; CUDA caps the
+#: grid's y extent
+_MAX_KERNEL_QUERIES = 65535 * QUERY_BLOCK
+#: CTAs each SM holds at once (the kernels' ``__launch_bounds__`` minimum)
+_CTAS_PER_SM = 2
+#: K11's carry depth cap (pallas_knn.py:260): past it the early-out disarms
+MAX_CARRY_DEPTH = 8
+
+
+def kernel_launches_per_batch(kernel: str, rows: int, tile_n: int) -> int:
+    """Coarse-kernel dispatches per batch, as the JAX package counts them
+    (pallas_knn.py:263-272): its tiled grid re-launches the pipelined
+    body once per db tile; streaming and fused are one launch whose loop
+    covers every tile.  (The port's K1 is one launch per batch too; this
+    is the JAX package's accounting, kept for parity.)"""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
+    n_tiles = -(-rows // tile_n)
+    return 1 if kernel in ("streaming", "fused") else n_tiles
+
+
+def carry_depth(keep: Optional[int]) -> int:
+    """K11's carry depth ``ceil(keep / 128)``, or 0 (disarmed) when keep is
+    None or the depth exceeds MAX_CARRY_DEPTH (pallas_knn.py:712-718)."""
+    if keep is None:
+        return 0
+    depth = -(-int(keep) // BIN_W)
+    return depth if 0 < depth <= MAX_CARRY_DEPTH else 0
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -250,29 +287,24 @@ def _check_operands(q, th, tl, tnorm, tile_n: int) -> None:
         raise ValueError(f"operands on several devices: {devs}")
 
 
-def _k1_entry():
-    """K1's C entry (``binned_select_bf16x3`` in csrc/binned_coarse.cu),
-    built and loaded at first use, with its ctypes signature."""
-    fn = _cuda.load("binned_coarse").binned_select_bf16x3
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _entry(library: str, name: str, n_ints: int):
+    """A kernel's C entry in ``csrc/<library>.cu``, built and loaded at
+    first use, with its ctypes signature: seven tensor pointers, ``n_ints``
+    ints, the stream."""
+    fn = getattr(_cuda.load(library), name)
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def binned_select(q, th, tl, tnorm, *, tile_n: int):
-    """K1's wrapper: ``(cd [Q, T*256] f32, ci [Q, T*256] i32,
-    bounds [Q, T*128] f32)`` from ``q [Q, Dp] f32``, the db parts
-    ``th, tl [Np, Dp] bf16`` and ``tnorm [8, Np] f32``.
-
-    On a CUDA tensor it launches the kernel (built from
-    ``csrc/binned_coarse.cu`` at first use) on the current stream, or
-    raises; on a CPU tensor it runs :func:`binned_select_plain`.
-    ``binned_select.launches`` counts kernel launches."""
-    _check_operands(q, th, tl, tnorm, tile_n)
-    if q.device.type == "cpu":
-        return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
+def _launch(library: str, name: str, q, th, tl, tnorm, tile_n: int,
+            *extra: int):
+    """Allocates ``(cd, ci, bounds)`` on the card and launches the C entry
+    ``name`` on the current stream with ``n_q, dp, n_tiles, tile_n`` and
+    ``extra`` ints; raises if the launch is refused."""
     if q.device.type != "cuda":
-        raise ValueError(f"binned_select runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
     n_q, dp = q.shape
     if n_q > _MAX_KERNEL_QUERIES:
         raise ValueError(
@@ -287,32 +319,183 @@ def binned_select(q, th, tl, tnorm, *, tile_n: int):
     for t in (q, th, tl, tnorm):
         if t.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
-    fn = _k1_entry()
+    fn = _entry(library, name, 4 + len(extra))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), th.data_ptr(), tl.data_ptr(), tnorm.data_ptr(),
                 cd.data_ptr(), ci.data_ptr(), bounds.data_ptr(),
-                n_q, dp, n_tiles, tile_n, stream)
+                n_q, dp, n_tiles, tile_n, *extra, stream)
     if rc != 0:
-        raise RuntimeError(
-            f"binned_select_bf16x3 launch failed: cudaError {rc}")
-    binned_select.launches += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     return cd, ci, bounds
+
+
+def binned_select(q, th, tl, tnorm, *, tile_n: int):
+    """K1's wrapper: ``(cd [Q, T*256] f32, ci [Q, T*256] i32,
+    bounds [Q, T*128] f32)`` from ``q [Q, Dp] f32``, the db parts
+    ``th, tl [Np, Dp] bf16`` and ``tnorm [8, Np] f32``.
+
+    On a CUDA tensor it launches the kernel (built from
+    ``csrc/binned_coarse.cu`` at first use) on the current stream, or
+    raises; on a CPU tensor it runs :func:`binned_select_plain`.
+    ``binned_select.launches`` counts kernel launches."""
+    _check_operands(q, th, tl, tnorm, tile_n)
+    if q.device.type == "cpu":
+        return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
+    out = _launch("binned_coarse", "binned_select_bf16x3", q, th, tl, tnorm,
+                  tile_n)
+    binned_select.launches += 1
+    return out
 
 
 binned_select.launches = 0
 
 
+def stream_segment_tiles(n_q: int, n_tiles: int, n_sm: int) -> int:
+    """Db tiles each CTA of K10/K11 walks.  The tile loop is split into
+    contiguous segments so that the grid (segments x query blocks) fills
+    about one wave of ``_CTAS_PER_SM * n_sm`` CTAs: at Q=4,096 (128 query
+    blocks) on 132 SMs that is 2 segments of 31 of the 62 SIFT1M tiles."""
+    n_blocks = -(-n_q // QUERY_BLOCK)
+    n_seg = max(1, min(n_tiles, (_CTAS_PER_SM * n_sm) // max(1, n_blocks)))
+    return -(-n_tiles // n_seg)
+
+
+def kernel_segment_tiles(n_q: int, n_tiles: int, device) -> int:
+    """Db tiles per segment that K10/K11 run for ``n_q`` queries over
+    ``n_tiles`` tiles on ``device``: :func:`stream_segment_tiles` on a
+    card, one segment over every tile on the CPU (where the plain
+    versions run).  K11's skipped cells depend on it (and on QUERY_BLOCK);
+    no certified result does."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return n_tiles
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return stream_segment_tiles(n_q, n_tiles, n_sm)
+
+
+def stream_select(q, th, tl, tnorm, *, tile_n: int):
+    """K10's wrapper (``kernel="streaming"``): the same function, operands
+    and outputs as :func:`binned_select`, computed by one launch whose
+    CTAs stream the db tiles through a cp.async double buffer
+    (``csrc/binned_stream.cu``); its outputs are bitwise equal to K1's.
+    Its plain version is :func:`binned_select_plain` (the function is the
+    same), which it runs for CPU tensors.  ``stream_select.launches``
+    counts kernel launches."""
+    _check_operands(q, th, tl, tnorm, tile_n)
+    if q.device.type == "cpu":
+        return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
+    seg = kernel_segment_tiles(q.shape[0], th.shape[0] // tile_n, q.device)
+    out = _launch("binned_stream", "stream_select_bf16x3", q, th, tl, tnorm,
+                  tile_n, seg)
+    stream_select.launches += 1
+    return out
+
+
+stream_select.launches = 0
+
+
+def fused_select_plain(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int],
+                       block_q: int = QUERY_BLOCK,
+                       seg_tiles: Optional[int] = None):
+    """K11 in plain PyTorch: :func:`binned_select_plain`, then the fused
+    arm's early-out (pallas_knn.py:776-824) replayed tile by tile at the
+    given geometry — query blocks of ``block_q`` rows (a ragged last
+    block decides on its real rows), the tile loop cut into segments of
+    ``seg_tiles`` tiles (None: one segment), each with its own carry.
+
+    Per (query, lane) the carry holds the ``carry_depth(keep)`` smallest
+    lane minima seen in the segment.  A tile is skipped for a block when
+    every row's tile minimum is strictly above ``thr``, the largest
+    lane's deepest carry value before this tile; a skipped block writes
+    +inf / INT32_MAX / +inf.  Depth 0 (keep None or too deep) skips
+    nothing: the output is K10's."""
+    cd, ci, bounds = binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
+    depth = carry_depth(keep)
+    if depth == 0:
+        return cd, ci, bounds
+    n_q = q.shape[0]
+    n_tiles = th.shape[0] // tile_n
+    seg = n_tiles if seg_tiles is None else seg_tiles
+    n_blocks = -(-n_q // block_q)
+    out_w = SURVIVORS * BIN_W
+    # survivor 0 of each bin is the lane minimum of its tile
+    lane_min = cd.view(n_q, n_tiles, SURVIVORS, BIN_W)[:, :, 0].clone()
+    carry = None
+    for ti in range(n_tiles):
+        if ti % seg == 0:
+            carry = torch.full((depth, n_q, BIN_W), torch.inf,
+                               device=q.device)
+        lm = lane_min[:, ti]
+        row_ok = lm.amin(-1) > carry[depth - 1].amax(-1)
+        fill = torch.ones(n_blocks * block_q - n_q, dtype=torch.bool,
+                          device=q.device)
+        skip = torch.cat([row_ok, fill]).view(n_blocks, block_q).all(-1)
+        rows = skip.repeat_interleave(block_q)[:n_q]
+        cd[rows, ti * out_w : (ti + 1) * out_w] = torch.inf
+        ci[rows, ti * out_w : (ti + 1) * out_w] = I32MAX
+        bounds[rows, ti * BIN_W : (ti + 1) * BIN_W] = torch.inf
+        cur = lm
+        for d in range(depth):
+            lo = torch.minimum(carry[d], cur)
+            cur = torch.maximum(carry[d], cur)
+            carry[d] = lo
+    return cd, ci, bounds
+
+
+def fused_select(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int]):
+    """K11's wrapper (``kernel="fused"``): K10 plus the early-out that
+    pads a tile's block for a query block when no row of the block can
+    use it; ``keep`` (= m+2, the final select's width) sizes the carry,
+    None disarms it.  On a CUDA tensor it launches the kernel
+    (``csrc/binned_stream.cu``) at :func:`kernel_segment_tiles`, or raises; on
+    a CPU tensor it runs :func:`fused_select_plain` at the CPU geometry.
+    ``fused_select.launches`` counts kernel launches."""
+    _check_operands(q, th, tl, tnorm, tile_n)
+    seg = kernel_segment_tiles(q.shape[0], th.shape[0] // tile_n, q.device)
+    if q.device.type == "cpu":
+        return fused_select_plain(q, th, tl, tnorm, tile_n=tile_n, keep=keep,
+                                  seg_tiles=seg)
+    out = _launch("binned_stream", "fused_select_bf16x3", q, th, tl, tnorm,
+                  tile_n, seg, carry_depth(keep))
+    fused_select.launches += 1
+    return out
+
+
+fused_select.launches = 0
+
+
+def skipped_cells(cd: torch.Tensor, n_tiles: int,
+                  block_q: int = QUERY_BLOCK) -> torch.Tensor:
+    """Bool ``[query blocks, n_tiles]``: the (block, tile) cells K11
+    skipped, read from its ``cd`` — a cell is skipped when every
+    candidate of its block is +inf, which an emitted tile never has
+    (pad rows score ~1e35, not +inf)."""
+    n_q = cd.shape[0]
+    n_blocks = -(-n_q // block_q)
+    inf = torch.isinf(cd).view(n_q, n_tiles, -1).all(-1)
+    pad = torch.ones((n_blocks * block_q - n_q, n_tiles), dtype=torch.bool,
+                     device=cd.device)
+    return torch.cat([inf, pad]).view(n_blocks, block_q, n_tiles).all(1)
+
+
 def _bin_candidates(queries: torch.Tensor, db: Optional[torch.Tensor], *,
-                    tile_n: int,
-                    db_parts=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    tile_n: int, db_parts=None, kernel: str = "tiled",
+                    keep: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel launch on padded shapes (the bf16x3 arm of the JAX
     package's ``_bin_candidates``).  ``db_parts=(th, tl, tnorm)`` plugs in
     a placement's prepared parts, padded to ``round_up(N, tile_n)`` rows;
-    None prepares them from ``db`` here.  Returns cd, ci, bounds for the
-    query rows given (the JAX kernel's query padding never leaves it)."""
+    None prepares them from ``db`` here.  ``kernel`` picks K1, K10 or
+    K11; ``keep`` sizes K11's carry (ignored by the others).  Returns cd,
+    ci, bounds for the query rows given (the JAX kernel's query padding
+    never leaves it)."""
     th, tl, tnorm = db_parts if db_parts is not None else prepare_db(db, tile_n)
-    return binned_select(pad_queries(queries), th, tl, tnorm, tile_n=tile_n)
+    qp = pad_queries(queries)
+    if kernel == "fused":
+        return fused_select(qp, th, tl, tnorm, tile_n=tile_n, keep=keep)
+    fn = stream_select if kernel == "streaming" else binned_select
+    return fn(qp, th, tl, tnorm, tile_n=tile_n)
 
 
 def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
@@ -323,8 +506,10 @@ def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
                             grid_order: str = "query_major",
                             kernel: str = "tiled",
                             final_select: str = "exact", db_parts=None):
-    """Stage 1: resolve the effective tile and run the coarse pass.
-    Returns ``(cd [Q, W], ci [Q, W], bounds [Q, T*128])``."""
+    """Stage 1: resolve the effective tile and run the coarse pass
+    (``kernel="fused"`` sizes its carry with ``keep = m+2``, as
+    pallas_knn.py:1406 does).  Returns ``(cd [Q, W], ci [Q, W],
+    bounds [Q, T*128])``."""
     check_knobs(precision=precision, binning=binning, grid_order=grid_order,
                 kernel=kernel, final_select=final_select, bin_w=bin_w,
                 survivors=survivors)
@@ -333,7 +518,9 @@ def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
         raise ValueError(
             f"db_parts hold {db_parts[0].shape[0]} rows; the {eff_tile}-row "
             f"tile needs {_round_up(t.shape[0], eff_tile)}")
-    return _bin_candidates(q, t, tile_n=eff_tile, db_parts=db_parts)
+    return _bin_candidates(q, t, tile_n=eff_tile, db_parts=db_parts,
+                           kernel=kernel,
+                           keep=m + 2 if kernel == "fused" else None)
 
 
 def local_select_rescore(q, t, cd, ci, bounds, m: int, *,
@@ -373,6 +560,33 @@ def local_certified_candidates(q, t, m: int, *, final_select: str = "exact",
         q, t, m, final_select=final_select, db_parts=db_parts, **knobs)
     return local_select_rescore(q, t, cd, ci, bounds, m,
                                 final_select=final_select)
+
+
+def knn_search_pallas(queries, db, k: int, *, margin: int = 28,
+                      tile_n: int = TILE_N, precision: str = "bf16x3",
+                      bin_w: Optional[int] = None,
+                      survivors: Optional[int] = None,
+                      final_select: str = "exact", binning: str = "grouped",
+                      final_recall_target: Optional[float] = None,
+                      grid_order: str = "query_major", kernel: str = "tiled",
+                      device=None) -> Tuple[np.ndarray, np.ndarray, dict]:
+    """Certified-exact KNN in one database pass — the port of
+    pallas_knn.knn_search_pallas (pallas_knn.py:1581-1631): places ``db``
+    on ``device`` (default ``cuda``) and calls
+    ``ShardedKNN.search_certified(selector="pallas")``, so both share one
+    certificate.  Returns ``(dists [Q, k] float64, idx [Q, k], stats)``.
+    Every call places the database afresh; repeated searches should build
+    a ``ShardedKNN`` once.  (The JAX package's ``block_q`` is not taken:
+    the CUDA kernels pick their own query block.)"""
+    from knn_tpu_torch.parallel.sharded import ShardedKNN
+
+    prog = ShardedKNN(np.asarray(db, dtype=np.float32), k=k, device=device)
+    return prog.search_certified(
+        np.asarray(queries, dtype=np.float32), margin=margin,
+        selector="pallas", tile_n=tile_n, precision=precision, bin_w=bin_w,
+        survivors=survivors, final_select=final_select, binning=binning,
+        final_recall_target=final_recall_target, grid_order=grid_order,
+        kernel=kernel)
 
 
 def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,

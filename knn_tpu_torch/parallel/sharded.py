@@ -10,18 +10,27 @@ they are absent here; everything else follows the JAX code path:
 - ``search`` — exact f32 expanded-square distances and a stable top-k
   (ties to the lower index);
 - ``search_certified(selector="pallas")`` — the one-pass certificate:
-  the coarse kernel K1 (knn_tpu_torch.ops.coarse_knn) emits per-bin
-  survivors and exclusion bounds, the exact top-(m+2) and the
-  direct-difference f32 rescore rank the candidates, the device
-  certificate :func:`_certify_pack` flags queries whose k-th distance is
-  not provably below the exclusion bound (``bad``) and marks near-tie
-  pairs, the host repairs tie runs in float64
+  the coarse kernel (K1, K10 or K11 of knn_tpu_torch.ops.coarse_knn, by
+  ``kernel``) emits per-bin survivors and exclusion bounds, the exact
+  top-(m+2) and the direct-difference f32 rescore rank the candidates,
+  the device certificate :func:`_certify_pack` flags queries whose k-th
+  distance is not provably below the exclusion bound (``bad``) and marks
+  near-tie pairs, the host repairs tie runs in float64
   (ops.refine.rank_correct_runs), and flagged queries rerun through the
   widened exact select + float64 refine (ops.certified.repair_uncertified).
+
+Batches run on the card while the host repairs earlier ones: each batch's
+certify output is copied into pinned host memory behind a CUDA event of
+its own, and the host waits on that event alone.  ``overlap=True`` runs
+the two-stage pipeline of the JAX package (sharded.py:1966-2011): the
+coarse kernel on one CUDA stream, the select/rescore/certify tail on a
+second, at most ``overlap_depth`` batches in flight.
 """
 
 from __future__ import annotations
 
+import time
+from collections import deque
 from typing import Optional, Tuple
 
 import numpy as np
@@ -37,7 +46,8 @@ from knn_tpu_torch.ops.coarse_knn import (
     _round_up,
     check_knobs,
     effective_tile,
-    local_certified_candidates,
+    local_coarse_candidates,
+    local_select_rescore,
     prepare_db,
 )
 from knn_tpu_torch.ops.metrics import L2_FAMILY
@@ -55,6 +65,51 @@ def _analysis_window(k: int, m: int) -> int:
     """Width of the device rank-analysis window — one home for the
     certify output's column count and its unpack."""
     return min(k + 17, m + 1)
+
+
+def _overlap_ratio(intervals) -> float:
+    """Fraction of the pipeline's wall time during which >= 2 batches
+    were in flight (interval = coarse-dispatch start to result-repair
+    end) — a copy of the JAX package's measure (sharded.py:161-182): it
+    reports dispatch-timeline concurrency, not device-internal overlap
+    (which needs a device trace).  0.0 for < 2 batches."""
+    if len(intervals) < 2:
+        return 0.0
+    events = []
+    for s, e in intervals:
+        events.append((s, 1))
+        events.append((e, -1))
+    events.sort()
+    in_flight, overlapped, prev = 0, 0.0, None
+    for t, delta in events:
+        if prev is not None and in_flight >= 2:
+            overlapped += t - prev
+        in_flight += delta
+        prev = t
+    wall = max(e for _, e in intervals) - min(s for s, _ in intervals)
+    return overlapped / wall if wall > 0 else 0.0
+
+
+def _fetch_async(packed):
+    """Starts the device->host copies of one batch's certify output
+    ``(gi, tight, bad, dk or None)`` on the current stream into pinned
+    host buffers and records an event behind them.  Returns the host
+    tensors and the event: the host waits on that event alone, not on the
+    batches enqueued after it.  On the CPU: the tensors and None."""
+    gi = packed[0].to(torch.int32)
+    if gi.device.type != "cuda":
+        return (gi, *packed[1:]), None
+    host = []
+    for t in (gi, *packed[1:]):
+        if t is None:
+            host.append(None)
+            continue
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return tuple(host), event
 
 
 class ShardedKNN:
@@ -94,13 +149,23 @@ class ShardedKNN:
         #: coarse-pass db parts for tiles whose padding differs from the
         #: placement's, built on first use
         self._parts = {}
+        #: the overlap pipeline's (coarse, tail) CUDA streams, made on first
+        #: use and kept: the caching allocator reuses a freed block only on
+        #: the stream it was made on, so new streams per call allocate anew
+        self._streams = None
 
     # -- exact path --------------------------------------------------------
     def _to_device(self, queries) -> torch.Tensor:
+        """Queries on the device.  A host array goes up from pinned memory
+        on the current stream without waiting for the work queued there
+        (a pageable copy would synchronize the stream)."""
         if isinstance(queries, torch.Tensor):
             return queries.to(self.device, torch.float32)
-        return torch.from_numpy(
-            np.ascontiguousarray(np.asarray(queries, np.float32))).to(self.device)
+        host = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(queries, np.float32)))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     def _exact_topk(self, q: torch.Tensor, k: int, metric: str):
         rows = max(1, _EXACT_BLOCK_ELEMS // max(1, self.n_train))
@@ -152,9 +217,14 @@ class ShardedKNN:
                       binning: str = "grouped",
                       grid_order: str = "query_major",
                       kernel: str = "tiled"):
-        """(run, m, analysis_window) for the one-pass certified path: the
-        one home of the kernel-geometry margin cap.  ``run(q)`` takes a
-        [B, D] device batch and returns :func:`_certify_pack`'s tensors."""
+        """((coarse, tail), m, analysis_window) for the one-pass certified
+        path — the one home of the kernel-geometry margin cap.  The pair
+        is the JAX package's program split at the candidate boundary
+        (sharded.py:1840-1862): ``coarse(q)`` takes a [B, D] device batch
+        and returns the coarse kernel's ``(cd, ci, bounds)``; ``tail(q,
+        cd, ci, bounds)`` the select/rescore/certify, returning
+        :func:`_certify_pack`'s tensors.  The sequential path and the
+        pipeline run the same pair, so their outputs are bitwise equal."""
         check_knobs(precision=precision, binning=binning,
                     grid_order=grid_order, kernel=kernel,
                     final_select=final_select, bin_w=bin_w,
@@ -175,30 +245,39 @@ class ShardedKNN:
         db = self.placement.db
         db_norm_max = float(np.float32(self.placement.db_norm_max))
 
-        def run(q: torch.Tensor):
+        def coarse(q: torch.Tensor):
             # the RESOLVED tile goes to the kernel: m was capped so that
             # width(eff_tile) >= m+2, which makes the kernel's own
             # effective_tile(min_width=m+2) a fixpoint
-            d32, li, lb = local_certified_candidates(
+            return local_coarse_candidates(
                 q, db, m, tile_n=eff_tile, precision=precision,
                 binning=binning, grid_order=grid_order, kernel=kernel,
                 final_select=final_select, db_parts=parts)
+
+        def tail(q: torch.Tensor, cd, ci, bounds):
+            d32, li, lb = local_select_rescore(q, db, cd, ci, bounds, m,
+                                               final_select=final_select)
             return _certify_pack(q, d32, li, lb, db_norm_max=db_norm_max,
                                  m=m, k=self.k, w=w, n_train=rows,
                                  include_distances=include_distances)
 
-        return run, m, w
+        return (coarse, tail), m, w
 
     def _certify_pallas(self, batches, bs, m, d, i, q_np, db_np, *,
                         tile_n, precision, want_distances=True, bin_w=None,
                         survivors=None, final_select="exact",
                         binning="grouped", final_recall_target=None,
-                        grid_order="query_major", kernel="tiled"):
-        """One-pass certificate, host side: dispatch every batch, then per
-        batch fetch the windowed indices, the near-tie mask and the bad
-        flags (plus the top-k distances when ``want_distances``) and
-        repair tie runs in float64.  Returns (flagged query indices,
-        rank-corrected query count)."""
+                        grid_order="query_major", kernel="tiled",
+                        overlap=False, overlap_depth=2):
+        """One-pass certificate, host side: per batch, fetch the windowed
+        indices, the near-tie mask and the bad flags (plus the top-k
+        distances when ``want_distances``) and repair tie runs in float64.
+        Sequential: every batch is enqueued first, and the host repairs
+        batch b as soon as its own event fires, while later batches run.
+        ``overlap``: the two-stage pipeline (coarse stream, tail stream,
+        at most ``overlap_depth`` batches in flight, the oldest drained
+        first).  Returns (flagged query indices, rank-corrected query
+        count, pipeline stats or None)."""
         from knn_tpu_torch.ops.refine import rank_correct_runs
 
         if final_recall_target is not None:
@@ -206,20 +285,24 @@ class ShardedKNN:
                 "final_recall_target tunes final_select='approx', which is "
                 "not ported")
         k = self.k
-        run, m, w = self._pallas_setup(
+        (coarse, tail), m, w = self._pallas_setup(
             m - k, tile_n, precision, bin_w=bin_w, survivors=survivors,
             final_select=final_select,
             include_distances=want_distances, binning=binning,
             grid_order=grid_order, kernel=kernel)
-        # stage 1: dispatch every batch (asynchronous on the GPU)
-        outs = [run(self._to_device(chunk)) for _, chunk, _ in batches]
-        # stage 2: per batch, fetch + float64 tie-run repair
         bad_mask = np.zeros(q_np.shape[0], dtype=bool)
         n_corrected = 0
-        for (lo, _, pad), packed in zip(batches, outs):
+
+        def repair(lo, pad, fetched):
+            """Waits for this batch's own copies, then the float64 tie-run
+            repair — shared by the sequential and pipelined paths."""
+            nonlocal n_corrected
+            host, event = fetched
+            if event is not None:
+                event.synchronize()
             take = bs - pad
             gi_np, tight_np, bad_np, dk_np = unpack_certified(
-                packed, k, w, want_distances)
+                host, k, w, want_distances)
             dc, ic, n_c = rank_correct_runs(
                 gi_np[:take], tight_np[:take], k, q_np[lo : lo + take], db_np,
                 d32k=None if dk_np is None else dk_np[:take].astype(np.float64))
@@ -228,7 +311,75 @@ class ShardedKNN:
                 d[lo : lo + take] = dc
             i[lo : lo + take] = ic
             bad_mask[lo : lo + take] = bad_np[:take]
-        return np.flatnonzero(bad_mask), n_corrected
+
+        if not overlap:
+            # enqueue every batch (asynchronous on the GPU), then repair
+            # each as its own copies land
+            fetched = []
+            for _, chunk, _ in batches:
+                q = self._to_device(chunk)
+                fetched.append(_fetch_async(tail(q, *coarse(q))))
+            for (lo, _, pad), f in zip(batches, fetched):
+                repair(lo, pad, f)
+            return np.flatnonzero(bad_mask), n_corrected, None
+
+        depth = max(1, int(overlap_depth))
+        cuda = self.device.type == "cuda"
+        if cuda:
+            main = torch.cuda.current_stream(self.device)
+            if self._streams is None:
+                self._streams = (torch.cuda.Stream(self.device),
+                                 torch.cuda.Stream(self.device))
+            coarse_stream, tail_stream = self._streams
+            # the placement and anything queued before this call
+            coarse_stream.wait_stream(main)
+            tail_stream.wait_stream(main)
+        intervals = []
+        pending = deque()
+        t_wall0 = time.perf_counter()
+
+        def finalize(rec):
+            lo, pad, fetched, t0 = rec
+            repair(lo, pad, fetched)
+            intervals.append((t0, time.perf_counter()))
+
+        for lo, chunk, pad in batches:
+            # the bounded in-flight window: drain the oldest batch (its
+            # tail ran while later coarse passes streamed the db) before
+            # admitting a new one
+            while len(pending) >= depth:
+                finalize(pending.popleft())
+            t0 = time.perf_counter()
+            if not cuda:
+                q = self._to_device(chunk)
+                fetched = _fetch_async(tail(q, *coarse(q)))
+            else:
+                with torch.cuda.stream(coarse_stream):
+                    q = self._to_device(chunk)
+                    cand = coarse(q)
+                    coarse_done = torch.cuda.Event()
+                    coarse_done.record()
+                with torch.cuda.stream(tail_stream):
+                    tail_stream.wait_event(coarse_done)
+                    # made on the coarse stream, read on the tail stream:
+                    # the allocator must not hand them out again before
+                    # the tail is done with them
+                    for t in (q, *cand):
+                        t.record_stream(tail_stream)
+                    fetched = _fetch_async(tail(q, *cand))
+            pending.append((lo, pad, fetched, t0))
+        while pending:
+            finalize(pending.popleft())
+        if cuda:
+            # work queued after this call (the fallback repair's widened
+            # select) starts after every batch of both streams
+            main.wait_stream(coarse_stream)
+            main.wait_stream(tail_stream)
+        wall = time.perf_counter() - t_wall0
+        pipeline = {"depth": depth, "batches": len(batches),
+                    "overlap_ratio": round(_overlap_ratio(intervals), 4),
+                    "wall_s": round(wall, 4)}
+        return np.flatnonzero(bad_mask), n_corrected, pipeline
 
     def search_certified(self, queries, *, margin: int = 28,
                          selector: str = "pallas",
@@ -243,6 +394,8 @@ class ShardedKNN:
                          final_recall_target: Optional[float] = None,
                          grid_order: Optional[str] = None,
                          kernel: Optional[str] = None,
+                         overlap: Optional[bool] = None,
+                         overlap_depth: Optional[int] = None,
                          return_sqrt: bool = False):
         """Exact lexicographic top-k via the one-pass certificate.  Returns
         ``(dists_f64 [Q, k] or None, idx [Q, k] int64, stats)`` on host.
@@ -252,9 +405,18 @@ class ShardedKNN:
         RANK_SLACK) except near-tied or repaired entries, which are
         float64-exact.  Cosine runs the certificate on unit vectors and
         returns ``1 - similarity``.  Knobs left at None take the library
-        defaults (knn_tpu_torch.tuning); ``stats`` carries
-        ``certified``, ``fallback_queries``, ``rank_corrected_queries``,
-        the repair counts and ``pallas_knobs``.  Queries must be finite."""
+        defaults (knn_tpu_torch.tuning); ``kernel`` picks the coarse
+        kernel: "tiled" (K1), "streaming" (K10) or "fused" (K11), with
+        bitwise the same result.  ``stats`` carries ``certified``,
+        ``fallback_queries``, ``rank_corrected_queries``, the repair
+        counts and ``pallas_knobs``.  Queries must be finite.
+
+        ``overlap=True`` runs the batches (``batch_size``) through the
+        two-stage pipeline with at most ``overlap_depth`` (default 2) in
+        flight; the result is bitwise the sequential one, and
+        ``stats["pipeline"]`` reports ``depth``, ``batches``,
+        ``overlap_ratio`` and ``wall_s``.  None means off and depth 2:
+        the port reads no environment switch for them."""
         from knn_tpu_torch.ops.certified import repair_uncertified
 
         if selector not in SELECTORS:
@@ -286,9 +448,11 @@ class ShardedKNN:
             survivors=survivors, final_select=final_select,
             binning=binning, final_recall_target=final_recall_target,
             grid_order=grid_order, kernel=kernel)
-        bad, n_corrected = self._certify_pallas(
+        bad, n_corrected, pipeline = self._certify_pallas(
             batches, bs, m, d, i, q_np, db_np,
-            want_distances=return_distances, **knobs)
+            want_distances=return_distances, overlap=bool(overlap),
+            overlap_depth=2 if overlap_depth is None else overlap_depth,
+            **knobs)
 
         def _select(qb, widen):
             # widened exact re-select in f32 squared L2 (cosine: on the
@@ -306,6 +470,8 @@ class ShardedKNN:
             "rank_corrected_queries": n_corrected,
             "pallas_knobs": knobs,
         }
+        if pipeline is not None:
+            stats["pipeline"] = pipeline
         if return_distances and self.metric == "cosine":
             d *= 0.5  # unit-vector squared L2 -> 1 - cosine similarity
         if return_distances and return_sqrt:

@@ -146,7 +146,7 @@ def test_kernel_tolerance_matches_pallas():
 
 @pytest.mark.parametrize("knob,value", [
     ("precision", "int8"), ("precision", "highest"), ("binning", "lane"),
-    ("grid_order", "db_major"), ("kernel", "streaming"),
+    ("grid_order", "db_major"), ("precision", "pq"),
     ("final_select", "approx"), ("survivors", 3), ("bin_w", 256)])
 def test_unported_knobs_are_refused_by_name(knob, value):
     with pytest.raises(ValueError, match=f"{knob}={value!r} is not ported"):

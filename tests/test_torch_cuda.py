@@ -85,3 +85,66 @@ def test_cuda_kernel_matches_plain(cuda_device, dim, tile_n):
     _assert_scores(kern[0], plain[0], tol)
     _assert_scores(kern[2], plain[2], tol)
     _assert_ci_separated(plain[0], kern[1], plain[1], plain[2], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,tile_n", [(24, 256), (300, 256), (128, 16384)])
+def test_cuda_streaming_kernel_is_bitwise_k1(cuda_device, dim, tile_n):
+    # K10 shares K1's per-score arithmetic (csrc/binned_select.cuh)
+    rng = np.random.default_rng(dim + 1)
+    q, db = _data(rng, 37, 3 * tile_n // 2 + 60, dim)
+    th, tl, tnorm = ck.prepare_db(torch.from_numpy(db).to(cuda_device), tile_n)
+    qp = ck.pad_queries(torch.from_numpy(q).to(cuda_device))
+    before = ck.stream_select.launches
+    k10 = ck.stream_select(qp, th, tl, tnorm, tile_n=tile_n)
+    assert ck.stream_select.launches == before + 1
+    k1 = ck.binned_select(qp, th, tl, tnorm, tile_n=tile_n)
+    for a, b in zip(k10, k1):
+        assert torch.equal(a, b)
+
+
+def _far_tile_cuda(device, n_q):
+    # tests/test_fused_overlap.py:87-89 with more queries: every query sits
+    # near a row of tile 0, the tiles after it are far from all of them
+    rng = np.random.default_rng(11)
+    db = rng.normal(size=(6 * 128, 16)).astype(np.float32)
+    db[2 * 128:] += 500.0
+    q = (db[rng.integers(0, 2 * 128, size=n_q)]
+         + rng.normal(size=(n_q, 16)).astype(np.float32) * 1e-2)
+    th, tl, tnorm = ck.prepare_db(torch.from_numpy(db).to(device), 256)
+    return q, db, ck.pad_queries(torch.from_numpy(q).to(device)), th, tl, tnorm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [9, 4096])
+def test_cuda_fused_kernel_matches_plain_and_skips(cuda_device, n_q):
+    q, db, qp, th, tl, tnorm = _far_tile_cuda(cuda_device, n_q)
+    n_tiles = th.shape[0] // 256
+    block_q = ck.QUERY_BLOCK
+    seg = ck.kernel_segment_tiles(n_q, n_tiles, cuda_device)
+    before = ck.fused_select.launches
+    kern = ck.fused_select(qp, th, tl, tnorm, tile_n=256, keep=15)
+    assert ck.fused_select.launches == before + 1
+    plain = ck.fused_select_plain(qp, th, tl, tnorm, tile_n=256, keep=15,
+                                  block_q=block_q, seg_tiles=seg)
+    skip_k = ck.skipped_cells(kern[0], n_tiles, block_q)
+    assert torch.equal(skip_k, ck.skipped_cells(plain[0], n_tiles, block_q))
+    if seg > 1:  # a segment with a near tile and a far one skips the far
+        assert bool(skip_k.any())
+    kern = [a.cpu().numpy() for a in kern]
+    plain = [a.cpu().numpy() for a in plain]
+    tol = _tol(q, db)
+    _assert_scores(kern[0], plain[0], tol)
+    _assert_scores(kern[2], plain[2], tol)
+    done = np.isinf(plain[0])
+    np.testing.assert_array_equal(kern[1][done], plain[1][done])
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernel_disarmed_is_bitwise_k10(cuda_device):
+    _, _, qp, th, tl, tnorm = _far_tile_cuda(cuda_device, 4096)
+    k10 = ck.stream_select(qp, th, tl, tnorm, tile_n=256)
+    for keep in (None, 128 * ck.MAX_CARRY_DEPTH + 1):
+        k11 = ck.fused_select(qp, th, tl, tnorm, tile_n=256, keep=keep)
+        for a, b in zip(k10, k11):
+            assert torch.equal(a, b)
