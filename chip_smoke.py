@@ -41,9 +41,12 @@ exits non-zero and prints no result):
              never; q/s of each run (second call, then five rounds of
              all four configurations in turns, tiled included), K10 and
              K11 ms per launch at Q=4,096 against their plain versions and
-             the bound,
-             K11's skipped cells, the pipeline stats and the device idle
-             share of the pipelined run (torch.profiler);
+             the bound, K11 against its plain version at Q=4,096 and at
+             the pipelined run's own geometry (each 1,024-query batch),
+             K11's skipped cells, the pipeline stats, pipelined calls on
+             the kept CUDA streams against fresh ones (wall and the
+             allocator's new segments) and the device idle share of the
+             pipelined run (torch.profiler);
 6. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
              --mode certified --selector pallas``, run in-process through
              run_job) on make_mnist_like CSVs (20,000 train, 2,000 test,
@@ -117,12 +120,14 @@ class Check:
         return worst
 
 
-def tolerance_q(q, db):
+def tolerance_q(q, db=None, tmax=None):
     """Per-query kernel-vs-plain tolerance 64 eps_f32 (||q||^2 +
-    max||t||^2), as f32 on q's device."""
+    max||t||^2), as f32 on q's device; ``tmax`` plugs in a precomputed
+    max||t||^2 (a placement's ``db_norm_max``) in place of ``db``."""
     q64 = q.double()
     qn = (q64 * q64).sum(-1)
-    tmax = float((db.double() ** 2).sum(-1).max())
+    if tmax is None:
+        tmax = float((db.double() ** 2).sum(-1).max())
     return (64 * EPS32 * (qn + tmax)).float()
 
 
@@ -220,7 +225,7 @@ def compare_k11(check, q, db, tile_n, keep, parts=None):
     qp = ck.pad_queries(q)
     n_tiles = th.shape[0] // tile_n
     block_q = ck.QUERY_BLOCK
-    seg = ck.kernel_segment_tiles(q.shape[0], n_tiles, q.device)
+    seg = ck.kernel_segment_tiles(q.shape[0], n_tiles, q.device, "fused")
     kern = ck.fused_select(qp, th, tl, tnorm, tile_n=tile_n, keep=keep)
     plain = ck.fused_select_plain(qp, th, tl, tnorm, tile_n=tile_n, keep=keep,
                                   block_q=block_q, seg_tiles=seg)
@@ -501,8 +506,7 @@ def main(argv=None) -> int:
         kern = ck.binned_select(qp, pl.th, pl.tl, pl.tnorm, tile_n=ck.TILE_N)
         plain = ck.binned_select_plain(qp, pl.th, pl.tl, pl.tnorm,
                                        tile_n=ck.TILE_N)
-        qn = (S["q_dev"].double() ** 2).sum(-1)
-        tol_q = (64 * EPS32 * (qn + pl.db_norm_max)).float()
+        tol_q = tolerance_q(S["q_dev"], tmax=pl.db_norm_max)
         full_err = max(
             checks["k1"].values("cd@main", kern[0], plain[0], tol_q),
             checks["k1"].values("bounds@main", kern[2], plain[2], tol_q))
@@ -518,8 +522,11 @@ def main(argv=None) -> int:
         reset_launches()
         (d, i, stats), wall = timed_search(S)
         launches = read_launches()
-        if launches["k1"] < 1:
-            raise AssertionError("the main path launched K1 no time")
+        want = ck.kernel_launches_per_batch("tiled", n, ck.TILE_N)
+        if launches["k1"] != want or sum(launches.values()) != want:
+            raise AssertionError(
+                f"main: launches {launches}, expected {want} of k1 (one "
+                f"batch) and no other kernel")
         # the same call again: the first one also pays one-time library
         # and allocator set-up
         _, wall_warm = timed_search(S)
@@ -568,10 +575,18 @@ def main(argv=None) -> int:
             # bitwise K1's outputs: K1's error against the same plain version
             checks["k10"].max_abs_err = max(checks["k10"].max_abs_err,
                                             S["k1_err"])
+        parts = (pl.th, pl.tl, pl.tnorm)
         k11_main = compare_k11(checks["k11"], S["q_dev"], pl.db, ck.TILE_N,
-                               keep, parts=(pl.th, pl.tl, pl.tnorm))
+                               keep, parts=parts)
+        # ... and at the pipelined run's geometry: each of its four
+        # 1,024-query batches, with that batch size's own tile segments
+        pipe_bs = 1024
+        k11_batches = [
+            compare_k11(checks["k11"], S["q_dev"][lo : lo + pipe_bs], pl.db,
+                        ck.TILE_N, keep, parts=parts)
+            for lo in range(0, n_q, pipe_bs)]
         block_q = ck.QUERY_BLOCK
-        seg = ck.kernel_segment_tiles(n_q, n_tiles, dev)
+        seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused")
         ms10 = time_cuda(lambda: ck.stream_select(*args, tile_n=ck.TILE_N), 3)
         ms11 = time_cuda(lambda: ck.fused_select(*args, tile_n=ck.TILE_N,
                                                  keep=keep), 3)
@@ -586,7 +601,8 @@ def main(argv=None) -> int:
         configs = {"streaming": {"kernel": "streaming"},
                    "fused": {"kernel": "fused"},
                    "fused_overlap": {"kernel": "fused", "overlap": True,
-                                     "batch_size": 1024, "overlap_depth": 2}}
+                                     "batch_size": pipe_bs,
+                                     "overlap_depth": 2}}
         for label, knobs in configs.items():
             reset_launches()
             (d, i, stats), wall = timed_search(S, **knobs)
@@ -624,6 +640,21 @@ def main(argv=None) -> int:
             for label, knobs in turns.items():
                 _, wall = timed_search(S, **knobs)
                 qps_turns[label].append(n_q / wall)
+        # the pipeline keeps its two CUDA streams per ShardedKNN: pipelined
+        # calls on the kept streams against calls on two fresh ones, with
+        # the caching allocator's new device segments (cudaMalloc calls)
+        stream_turns = {"kept": [], "fresh": []}
+        for _ in range(3):
+            for label in stream_turns:
+                if label == "fresh":
+                    knn._streams = None
+                torch.cuda.synchronize()
+                segs = torch.cuda.memory_stats()["segment.all.allocated"]
+                _, wall = timed_search(S, **configs["fused_overlap"])
+                stream_turns[label].append({
+                    "wall_ms": wall * 1e3,
+                    "new_segments": torch.cuda.memory_stats()[
+                        "segment.all.allocated"] - segs})
         prof = profile_search(knn, S["q_np"], **configs["fused_overlap"])
         bound = S["bound"]
         records["k10"].update(launches=runs["streaming"]["launches"]["k10"],
@@ -640,8 +671,10 @@ def main(argv=None) -> int:
               "k11_ms_per_launch": ms11, "k11_plain_ms": plain11_ms,
               "bound": bound, "k11_at_main": k11_main,
               "k11_skipped_cells": k11_main["skipped_cells"],
-              "k11_cells": k11_main["cells"], "runs": runs,
+              "k11_cells": k11_main["cells"],
+              "k11_at_pipelined_batches": k11_batches, "runs": runs,
               "qps_in_turns": qps_turns,
+              "pipeline_streams_kept_vs_fresh": stream_turns,
               "pipelined_profile": prof})
 
     if "main" in phases or "stream" in phases:

@@ -31,9 +31,10 @@
 // SMs, each of which holds 2 CTAs (84 KB of shared memory and 128 registers
 // per thread each).  So the tile loop is split into contiguous segments, one
 // per CTA: the wrapper (ops/coarse_knn.stream_segment_tiles) picks
-// n_seg = min(n_tiles, floor(2 * SMs / query blocks)) segments, which fills
-// one wave (2 segments of 31 tiles at the SIFT1M shape: 256 CTAs).  K10's
-// output does not depend on the split.
+// n_seg = min(n_tiles, floor(wave / query blocks)) segments, where wave =
+// SMs x the CTAs per SM that stream_ctas_per_sm reads from the occupancy
+// API for the built kernel (2 on an H100: 2 segments of 31 tiles, 256 CTAs,
+// at the SIFT1M shape).  K10's output does not depend on the split.
 //
 // K11's skip depends on the query block and on the segment: each segment
 // keeps its own carry, reset at its first tile.  That stays sound: the carry
@@ -273,6 +274,23 @@ stream_select_kernel(const float* __restrict__ q,
   }
 }
 
+// Lets the kernel take kSmemBytes of dynamic shared memory (above the
+// default 48 KB) on the current device.
+template <bool kFused>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(stream_select_kernel<kFused>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kSmemBytes));
+}
+
+template <bool kFused>
+cudaError_t ctas_per_sm(int* out) {
+  cudaError_t err = allow_smem<kFused>();
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, stream_select_kernel<kFused>, kThreads, kSmemBytes);
+}
+
 template <bool kFused>
 cudaError_t launch(const void* q, const void* th, const void* tl,
                    const void* tnorm, void* cd, void* ci, void* bounds,
@@ -281,9 +299,7 @@ cudaError_t launch(const void* q, const void* th, const void* tl,
   if (n_q <= 0 || n_tiles <= 0) return cudaSuccess;
   if (seg_tiles <= 0 || depth < 0 || depth > kMaxCarry || dp % kSlice)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      stream_select_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+  cudaError_t err = allow_smem<kFused>();
   if (err != cudaSuccess) return err;
   const dim3 grid((n_tiles + seg_tiles - 1) / seg_tiles,
                   (n_q + kBlockQ - 1) / kBlockQ);
@@ -324,4 +340,13 @@ extern "C" int fused_select_bf16x3(const void* q, const void* th,
   return static_cast<int>(launch<true>(q, th, tl, tnorm, cd, ci, bounds, n_q,
                                        dp, n_tiles, tile_n, seg_tiles, depth,
                                        stream));
+}
+
+// CTAs of K10 (fused = 0) or K11 (fused = 1) that one SM of the current
+// device holds at once, from the occupancy API (registers, kThreads and
+// kSmemBytes of the built kernel); the wrapper sizes the tile segments with
+// it.  Returns the cudaError (0 = *out is set).
+extern "C" int stream_ctas_per_sm(int fused, int* out) {
+  return static_cast<int>(fused ? ctas_per_sm<true>(out)
+                                : ctas_per_sm<false>(out));
 }

@@ -83,22 +83,23 @@ QUERY_BLOCK = 32
 #: the kernels launch one CTA row per QUERY_BLOCK queries; CUDA caps the
 #: grid's y extent
 _MAX_KERNEL_QUERIES = 65535 * QUERY_BLOCK
-#: CTAs each SM holds at once (the kernels' ``__launch_bounds__`` minimum)
-_CTAS_PER_SM = 2
 #: K11's carry depth cap (pallas_knn.py:260): past it the early-out disarms
 MAX_CARRY_DEPTH = 8
+#: CTAs one SM holds of K10 / K11, by (device index, kernel): read from the
+#: built kernel through the occupancy API at first use
+_ctas_per_sm = {}
 
 
 def kernel_launches_per_batch(kernel: str, rows: int, tile_n: int) -> int:
-    """Coarse-kernel dispatches per batch, as the JAX package counts them
-    (pallas_knn.py:263-272): its tiled grid re-launches the pipelined
-    body once per db tile; streaming and fused are one launch whose loop
-    covers every tile.  (The port's K1 is one launch per batch too; this
-    is the JAX package's accounting, kept for parity.)"""
+    """The port's coarse-kernel launches per query batch: one for each of
+    K1, K10 and K11, whose grids cover every db tile.  (The JAX package's
+    helper of this name, pallas_knn.py:263-272, counts ``ceil(rows /
+    tile_n)`` for ``tiled``: its TPU grid re-dispatches the pipelined body
+    once per tile.  Streaming and fused agree.)  ``rows`` and ``tile_n``
+    keep that helper's signature."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
-    n_tiles = -(-rows // tile_n)
-    return 1 if kernel in ("streaming", "fused") else n_tiles
+    return 1
 
 
 def carry_depth(keep: Optional[int]) -> int:
@@ -351,27 +352,53 @@ def binned_select(q, th, tl, tnorm, *, tile_n: int):
 binned_select.launches = 0
 
 
-def stream_segment_tiles(n_q: int, n_tiles: int, n_sm: int) -> int:
+def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
     """Db tiles each CTA of K10/K11 walks.  The tile loop is split into
     contiguous segments so that the grid (segments x query blocks) fills
-    about one wave of ``_CTAS_PER_SM * n_sm`` CTAs: at Q=4,096 (128 query
-    blocks) on 132 SMs that is 2 segments of 31 of the 62 SIFT1M tiles."""
+    about one wave of ``wave_ctas`` CTAs (SMs x CTAs per SM): at Q=4,096
+    (128 query blocks) on 132 SMs that hold 2 each, that is 2 segments of
+    31 of the 62 SIFT1M tiles."""
     n_blocks = -(-n_q // QUERY_BLOCK)
-    n_seg = max(1, min(n_tiles, (_CTAS_PER_SM * n_sm) // max(1, n_blocks)))
+    n_seg = max(1, min(n_tiles, wave_ctas // max(1, n_blocks)))
     return -(-n_tiles // n_seg)
 
 
-def kernel_segment_tiles(n_q: int, n_tiles: int, device) -> int:
-    """Db tiles per segment that K10/K11 run for ``n_q`` queries over
-    ``n_tiles`` tiles on ``device``: :func:`stream_segment_tiles` on a
-    card, one segment over every tile on the CPU (where the plain
-    versions run).  K11's skipped cells depend on it (and on QUERY_BLOCK);
-    no certified result does."""
+def _stream_ctas_per_sm(device: torch.device, kernel: str) -> int:
+    """CTAs of K10 (``streaming``) or K11 (``fused``) one SM of ``device``
+    holds at once, as the occupancy API reports it for the built kernel."""
+    key = (device.index, kernel)
+    if key not in _ctas_per_sm:
+        fn = _cuda.load("binned_stream").stream_ctas_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(int(kernel == "fused"), ctypes.byref(out))
+        if rc != 0 or out.value < 1:
+            raise RuntimeError(
+                f"occupancy query of the {kernel} kernel failed: cudaError "
+                f"{rc}, {out.value} CTAs per SM")
+        _ctas_per_sm[key] = out.value
+    return _ctas_per_sm[key]
+
+
+def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str) -> int:
+    """Db tiles per segment that K10 (``kernel="streaming"``) or K11
+    (``"fused"``) run for ``n_q`` queries over ``n_tiles`` tiles on
+    ``device``: :func:`stream_segment_tiles` over one wave of the card, one
+    segment over every tile on the CPU (where the plain versions run).
+    K11's skipped cells depend on it (and on QUERY_BLOCK); no certified
+    result does."""
+    if kernel not in ("streaming", "fused"):
+        raise ValueError(f"kernel {kernel!r} has no tile segments")
     device = torch.device(device)
     if device.type != "cuda":
         return n_tiles
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return stream_segment_tiles(n_q, n_tiles, n_sm)
+    return stream_segment_tiles(
+        n_q, n_tiles, n_sm * _stream_ctas_per_sm(device, kernel))
 
 
 def stream_select(q, th, tl, tnorm, *, tile_n: int):
@@ -385,7 +412,8 @@ def stream_select(q, th, tl, tnorm, *, tile_n: int):
     _check_operands(q, th, tl, tnorm, tile_n)
     if q.device.type == "cpu":
         return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
-    seg = kernel_segment_tiles(q.shape[0], th.shape[0] // tile_n, q.device)
+    seg = kernel_segment_tiles(q.shape[0], th.shape[0] // tile_n, q.device,
+                               "streaming")
     out = _launch("binned_stream", "stream_select_bf16x3", q, th, tl, tnorm,
                   tile_n, seg)
     stream_select.launches += 1
@@ -452,7 +480,8 @@ def fused_select(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int]):
     a CPU tensor it runs :func:`fused_select_plain` at the CPU geometry.
     ``fused_select.launches`` counts kernel launches."""
     _check_operands(q, th, tl, tnorm, tile_n)
-    seg = kernel_segment_tiles(q.shape[0], th.shape[0] // tile_n, q.device)
+    seg = kernel_segment_tiles(q.shape[0], th.shape[0] // tile_n, q.device,
+                               "fused")
     if q.device.type == "cpu":
         return fused_select_plain(q, th, tl, tnorm, tile_n=tile_n, keep=keep,
                                   seg_tiles=seg)

@@ -121,7 +121,7 @@ def test_cuda_fused_kernel_matches_plain_and_skips(cuda_device, n_q):
     q, db, qp, th, tl, tnorm = _far_tile_cuda(cuda_device, n_q)
     n_tiles = th.shape[0] // 256
     block_q = ck.QUERY_BLOCK
-    seg = ck.kernel_segment_tiles(n_q, n_tiles, cuda_device)
+    seg = ck.kernel_segment_tiles(n_q, n_tiles, cuda_device, "fused")
     before = ck.fused_select.launches
     kern = ck.fused_select(qp, th, tl, tnorm, tile_n=256, keep=15)
     assert ck.fused_select.launches == before + 1

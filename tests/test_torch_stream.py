@@ -186,8 +186,14 @@ def test_fused_refusals_kept():
 def test_launch_accounting_and_overlap_ratio_match_jax():
     for kern in ck.KERNELS:
         for rows, tile in ((1_000_000, 16384), (700, 256), (256, 256)):
-            assert ck.kernel_launches_per_batch(kern, rows, tile) == \
-                jpk.kernel_launches_per_batch(kern, rows, tile)
+            ours = ck.kernel_launches_per_batch(kern, rows, tile)
+            theirs = jpk.kernel_launches_per_batch(kern, rows, tile)
+            # the port's K1 covers every tile in one launch; the TPU grid
+            # re-dispatches once per tile
+            assert ours == (1 if kern == "tiled" else theirs)
+            assert theirs == (-(-rows // tile) if kern == "tiled" else 1)
+    with pytest.raises(ValueError, match="warp"):
+        ck.kernel_launches_per_batch("warp", 1000, 128)
     assert ck.MAX_CARRY_DEPTH == jpk.MAX_CARRY_DEPTH
     rng = np.random.default_rng(3)
     for n in (0, 1, 2, 5):
@@ -197,12 +203,19 @@ def test_launch_accounting_and_overlap_ratio_match_jax():
 
 
 def test_stream_segments_fill_one_wave():
-    # the SIFT1M batch on a 132-SM card: 2 segments of 31 tiles, 256 CTAs
-    assert ck.stream_segment_tiles(4096, 62, 132) == 31
-    assert ck.stream_segment_tiles(1024, 62, 132) == 8
-    assert ck.stream_segment_tiles(9, 3, 132) == 1
-    assert ck.stream_segment_tiles(10 ** 6, 62, 132) == 62
-    assert ck.kernel_segment_tiles(4096, 62, "cpu") == 62
+    # the SIFT1M batch on 132 SMs that hold 2 CTAs each: 2 segments of 31
+    # tiles, 256 CTAs
+    wave = 132 * 2
+    assert ck.stream_segment_tiles(4096, 62, wave) == 31
+    assert ck.stream_segment_tiles(1024, 62, wave) == 8
+    assert ck.stream_segment_tiles(9, 3, wave) == 1
+    assert ck.stream_segment_tiles(10 ** 6, 62, wave) == 62
+    # one CTA per SM: half the segments
+    assert ck.stream_segment_tiles(1024, 62, 132) == 16
+    for kern in ("streaming", "fused"):
+        assert ck.kernel_segment_tiles(4096, 62, "cpu", kern) == 62
+    with pytest.raises(ValueError, match="tiled"):
+        ck.kernel_segment_tiles(4096, 62, "cpu", "tiled")
 
 
 # --- end to end ------------------------------------------------------------
