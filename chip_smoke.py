@@ -47,18 +47,37 @@ exits non-zero and prints no result):
              the kept CUDA streams against fresh ones (wall and the
              allocator's new segments) and the device idle share of the
              pipelined run (torch.profiler);
-6. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
+6. quant  — the int8 (K5) and int4 (K6) arms: each of the six int
+             entries (tiled, streaming, fused x int8, int4) against its
+             plain version on the card, bitwise (cd, ci, bounds), on
+             integer data with exact ties at dim 24 (ragged rows), dim 300
+             and one full 16,384-row tile at Q=256, the streaming outputs
+             bitwise the tiled ones, the fused ones at the kernel's own
+             geometry, and the far-tile case, where the fused kernels must
+             skip the plain version's cells; then ``search_certified(
+             precision="int8")`` on the SIFT1M-shape data cast to uint8
+             (byte-exact placement) and ``precision="int4"`` on the ``main``
+             f32 data, each with ``kernel`` tiled, streaming, fused and
+             fused through the pipeline: recall@100 = 1.0 with the oracle's
+             indices, d and i bitwise equal across the four runs, each
+             arm's kernels launched once per batch and no other kernel,
+             fallback counts, max ε, q/s; the six entries' ms per launch
+             at Q=4,096 against their plain versions and the int bound;
+             the device idle share of the int8 tiled run;
+7. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
              --mode certified --selector pallas``, run in-process through
              run_job) on make_mnist_like CSVs (20,000 train, 2,000 test,
-             2,000 val); labels must equal the port's ``--mode exact``;
-7. kernels — one JSON line per the contract: each ported kernel (K1,
-             K10, K11) with its launches on its own path, its max error
-             against its plain version, its time, its plain version's time
-             and its bound (one bound for all three: the same products).
+             2,000 val), then again with ``--pallas-precision int8``; labels
+             must equal the port's ``--mode exact``;
+8. kernels — one JSON line per the contract: each ported kernel (K1,
+             K10, K11 and the six int entries) with its launches on its own
+             path, its max error against its plain version, its time, its
+             plain version's time and its bound (one for the bf16x3 three,
+             one per int arm).
 
 Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
-``--phases`` runs a subset (e.g. ``--phases device,build,kernel`` or
-``--phases device,build,kernel,stream``).
+``--phases`` runs a subset (e.g. ``--phases device,build,kernel``,
+``--phases device,build,kernel,stream`` or ``--phases device,build,quant``).
 """
 
 from __future__ import annotations
@@ -72,8 +91,9 @@ import time
 
 import numpy as np
 
-#: H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3
+#: H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
 #: kernel scores of PAD_VAL rows are ~1e35 and above; compare them by class
@@ -309,6 +329,60 @@ def k1_bound(n_q, n, dp, n_tiles, survivors):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def int_bound(n_q, n, dp, n_tiles, survivors, arm):
+    """Least time for an int arm's work (K5, K6) on an H100: the larger of
+    its bytes (int8 queries and their scales, the real rows' int8 or
+    packed int4 values, norms and scales read once; cd, ci, bounds
+    written once) over HBM bandwidth and its Q*N*Dp int8 multiply-adds
+    (two operations each) over the dense int8 tensor-core rate.  Counted
+    over the ``n`` real db rows."""
+    ops = 2 * n_q * n * dp
+    w = n_tiles * survivors * 128
+    row_bytes = dp if arm == "int8" else dp // 2
+    nbytes = (n_q * dp + n_q * 4 + n * row_bytes + 2 * n * 4
+              + n_q * w * 8 + n_q * n_tiles * 128 * 4)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+    return {"ops": ops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def int_case(dev, arm, n_q, n, dim, tile_n, seed):
+    """Integer rows in the uint8 range with exact ties (rows 0-31 copied
+    into the next two 128-row groups, four queries equal to db rows),
+    quantized on the fly at the uint8 shift: the int entries' operands."""
+    import torch
+
+    from knn_tpu_torch.ops import coarse_knn as ck
+
+    rng = np.random.default_rng(seed)
+    db = rng.integers(0, 256, size=(n, dim)).astype(np.float32)
+    for lo in (128, 256):
+        db[lo : lo + 32] = db[:32]
+    q = rng.integers(0, 256, size=(n_q, dim)).astype(np.float32)
+    q[:4] = db[:4]
+    qi, qsc = ck.quantize_queries(torch.from_numpy(q).to(dev), 128.0)
+    t, aux = ck.prepare_db_int(torch.from_numpy(db).to(dev), tile_n, arm,
+                               128.0)
+    return qi, qsc, t, aux
+
+
+def bitwise(name, got, want):
+    """Raises unless every tensor of ``got`` equals ``want``'s bitwise;
+    returns the largest |difference| of the finite scores (0.0)."""
+    import torch
+
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: not bitwise equal")
+    err = 0.0
+    for a, b in ((got[0], want[0]), (got[2], want[2])):
+        fin = torch.isfinite(b)
+        if bool(fin.any()):
+            err = max(err, float((a[fin].double() - b[fin].double()).abs().max()))
+    return err
+
+
 def profile_search(knn, q_np, **knobs) -> dict:
     """One more certified search (``knobs`` passed on) under
     torch.profiler: device time by kernel name, the device's busy time
@@ -360,7 +434,8 @@ def kernel_record(name, source, replaces):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="device,build,kernel,main,profile,stream,classify",
+                    default="device,build,kernel,main,profile,stream,"
+                    "quant,classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -378,7 +453,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    # library_ms stays null for all three: no single PyTorch call computes
+    # library_ms stays null for every entry: no single PyTorch call computes
     # a per-bin top-2 with exclusion bounds
     records = {
         "k1": kernel_record("binned_select_bf16x3",
@@ -391,6 +466,21 @@ def main(argv=None) -> int:
                              "knn_tpu_torch/csrc/binned_stream.cu",
                              "knn_tpu/ops/pallas_knn.py:722"),
     }
+    # the int arms: (kernel, arm) -> wrapper, C entry, TPU kernel line
+    int_entries = {
+        ("tiled", "int8"): (ck.binned_select_int, "binned_coarse", 415),
+        ("tiled", "int4"): (ck.binned_select_int, "binned_coarse", 432),
+        ("streaming", "int8"): (ck.stream_select_int, "binned_stream", 686),
+        ("streaming", "int4"): (ck.stream_select_int, "binned_stream", 690),
+        ("fused", "int8"): (ck.fused_select_int, "binned_stream", 753),
+        ("fused", "int4"): (ck.fused_select_int, "binned_stream", 753),
+    }
+    entry_names = {"tiled": "binned_select", "streaming": "stream_select",
+                   "fused": "fused_select"}
+    for (kern, arm), (_, lib, line) in int_entries.items():
+        records[f"{kern}_{arm}"] = kernel_record(
+            f"{entry_names[kern]}_{arm}", f"knn_tpu_torch/csrc/{lib}.cu",
+            f"knn_tpu/ops/pallas_knn.py:{line}")
     checks = {key: Check() for key in records}
     counters = {"k1": ck.binned_select, "k10": ck.stream_select,
                 "k11": ck.fused_select}
@@ -398,9 +488,15 @@ def main(argv=None) -> int:
     def reset_launches():
         for fn in counters.values():
             fn.launches = 0
+        for fn in (ck.binned_select_int, ck.stream_select_int,
+                   ck.fused_select_int):
+            fn.launches = {arm: 0 for arm in ck.INT_ARMS}
 
     def read_launches():
-        return {key: fn.launches for key, fn in counters.items()}
+        out = {key: fn.launches for key, fn in counters.items()}
+        for (kern, arm), (fn, _, _) in int_entries.items():
+            out[f"{kern}_{arm}"] = fn.launches[arm]
+        return out
 
     if "device" in phases:
         emit({"phase": "device", "device": kind, "nvidia_smi": smi,
@@ -497,6 +593,59 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    # the kernel configurations of search_certified that every arm runs
+    kernel_configs = {"tiled": {"kernel": "tiled"},
+                      "streaming": {"kernel": "streaming"},
+                      "fused": {"kernel": "fused"},
+                      "fused_overlap": {"kernel": "fused", "overlap": True,
+                                        "batch_size": 1024,
+                                        "overlap_depth": 2}}
+    bf16x3_keys = {"tiled": "k1", "streaming": "k10", "fused": "k11"}
+
+    def run_configs(D, arm, labels, ref=None):
+        """search_certified(precision=arm) on D's placement through the
+        kernel_configs ``labels``, the launch counts read around each call
+        alone: each run launches its own kernel once per batch and no
+        other kernel, returns ``ref``'s d and i bitwise (the first run's
+        when None) and the oracle's on D's first queries."""
+        n_q, n = D["q_np"].shape[0], D["knn"].n_train
+        runs = {}
+        for label in labels:
+            knobs = dict(kernel_configs[label], precision=arm)
+            kernel = knobs["kernel"]
+            own = bf16x3_keys[kernel] if arm == "bf16x3" else f"{kernel}_{arm}"
+            name = f"{arm} {label}"
+            reset_launches()
+            (d, i, stats), wall = timed_search(D, **knobs)
+            launches = read_launches()
+            n_batches = -(-n_q // knobs.get("batch_size", n_q))
+            want = n_batches * ck.kernel_launches_per_batch(kernel, n,
+                                                            ck.TILE_N)
+            if launches[own] != want or sum(launches.values()) != want:
+                raise AssertionError(
+                    f"{name}: launches {launches}, expected {want} of {own} "
+                    f"and no other kernel")
+            _, wall_warm = timed_search(D, **knobs)
+            if ref is None:
+                ref = (d, i)
+            elif not (np.array_equal(d, ref[0]) and np.array_equal(i, ref[1])):
+                raise AssertionError(f"{name}: d, i differ from the tiled run")
+            recall, same, rel = oracle_check(D, d, i, name)
+            if knobs.get("overlap"):
+                pipe = stats.get("pipeline")
+                if not pipe or pipe["batches"] != n_batches or pipe["depth"] != 2:
+                    raise AssertionError(f"{name}: pipeline stats {pipe}")
+            runs[label] = {"launches": launches, "batches": n_batches,
+                           "qps_first_call": n_q / wall,
+                           "qps_second_call": n_q / wall_warm,
+                           "bitwise_tiled": True, "recall_at_k": recall,
+                           "same_indices": same, "max_rel_dist_err": rel,
+                           "certified": stats["certified"],
+                           "fallback_queries": stats["fallback_queries"],
+                           "host_exact_queries": stats.get("host_exact_queries", 0),
+                           "pipeline": stats.get("pipeline")}
+        return runs
+
     def phase_main(S):
         knn, pl, qp = S["knn"], S["knn"].placement, S["qp"]
         n, dim, n_q, k = S["n"], S["dim"], S["n_q"], S["k"]
@@ -559,7 +708,6 @@ def main(argv=None) -> int:
         if "tiled" not in S:
             (d, i, _), _ = timed_search(S)
             S["tiled"] = (d, i)
-        d_t, i_t = S["tiled"]
         keep = min(k + 28, n) + 2
         n_tiles = pl.th.shape[0] // ck.TILE_N
         args = (qp, pl.th, pl.tl, pl.tnorm)
@@ -580,7 +728,7 @@ def main(argv=None) -> int:
                                keep, parts=parts)
         # ... and at the pipelined run's geometry: each of its four
         # 1,024-query batches, with that batch size's own tile segments
-        pipe_bs = 1024
+        pipe_bs = kernel_configs["fused_overlap"]["batch_size"]
         k11_batches = [
             compare_k11(checks["k11"], S["q_dev"][lo : lo + pipe_bs], pl.db,
                         ck.TILE_N, keep, parts=parts)
@@ -596,48 +744,13 @@ def main(argv=None) -> int:
             *args, tile_n=ck.TILE_N, keep=keep, block_q=block_q,
             seg_tiles=seg), 1)
 
-        runs = {}
-        own = {"streaming": "k10", "fused": "k11"}
-        configs = {"streaming": {"kernel": "streaming"},
-                   "fused": {"kernel": "fused"},
-                   "fused_overlap": {"kernel": "fused", "overlap": True,
-                                     "batch_size": pipe_bs,
-                                     "overlap_depth": 2}}
-        for label, knobs in configs.items():
-            reset_launches()
-            (d, i, stats), wall = timed_search(S, **knobs)
-            launches = read_launches()
-            kernel = knobs["kernel"]
-            n_batches = -(-n_q // knobs.get("batch_size", n_q))
-            want = n_batches * ck.kernel_launches_per_batch(kernel, n,
-                                                            ck.TILE_N)
-            if launches[own[kernel]] != want or launches["k1"] != 0 or \
-                    sum(launches.values()) != want:
-                raise AssertionError(
-                    f"{label}: launches {launches}, expected {want} of "
-                    f"{own[kernel]} and no other kernel")
-            _, wall_warm = timed_search(S, **knobs)
-            if not (np.array_equal(d, d_t) and np.array_equal(i, i_t)):
-                raise AssertionError(f"{label}: d, i differ from the tiled run")
-            recall, same, rel = oracle_check(S, d, i, label)
-            if knobs.get("overlap"):
-                pipe = stats.get("pipeline")
-                if not pipe or pipe["batches"] != n_batches or pipe["depth"] != 2:
-                    raise AssertionError(f"{label}: pipeline stats {pipe}")
-            runs[label] = {"launches": launches, "batches": n_batches,
-                           "qps_first_call": n_q / wall,
-                           "qps_second_call": n_q / wall_warm,
-                           "bitwise_tiled": True, "recall_at_k": recall,
-                           "same_indices": same, "max_rel_dist_err": rel,
-                           "certified": stats["certified"],
-                           "fallback_queries": stats["fallback_queries"],
-                           "pipeline": stats.get("pipeline")}
+        runs = run_configs(S, "bf16x3", ("streaming", "fused",
+                                         "fused_overlap"), ref=S["tiled"])
         # warm q/s of every configuration, tiled included, in five rounds
         # of turns, so that host noise falls on all of them alike
-        turns = {"tiled": {}, **configs}
-        qps_turns = {label: [] for label in turns}
+        qps_turns = {label: [] for label in kernel_configs}
         for _ in range(5):
-            for label, knobs in turns.items():
+            for label, knobs in kernel_configs.items():
                 _, wall = timed_search(S, **knobs)
                 qps_turns[label].append(n_q / wall)
         # the pipeline keeps its two CUDA streams per ShardedKNN: pipelined
@@ -650,12 +763,13 @@ def main(argv=None) -> int:
                     knn._streams = None
                 torch.cuda.synchronize()
                 segs = torch.cuda.memory_stats()["segment.all.allocated"]
-                _, wall = timed_search(S, **configs["fused_overlap"])
+                _, wall = timed_search(S, **kernel_configs["fused_overlap"])
                 stream_turns[label].append({
                     "wall_ms": wall * 1e3,
                     "new_segments": torch.cuda.memory_stats()[
                         "segment.all.allocated"] - segs})
-        prof = profile_search(knn, S["q_np"], **configs["fused_overlap"])
+        prof = profile_search(knn, S["q_np"],
+                              **kernel_configs["fused_overlap"])
         bound = S["bound"]
         records["k10"].update(launches=runs["streaming"]["launches"]["k10"],
                               ms=ms10, plain_ms=plain10_ms,
@@ -677,11 +791,155 @@ def main(argv=None) -> int:
               "pipeline_streams_kept_vs_fresh": stream_turns,
               "pipelined_profile": prof})
 
-    if "main" in phases or "stream" in phases:
+
+    def time_arm(D, arm):
+        """The arm's three entries against their plain versions at the main
+        path's shapes (bitwise), then each timed with CUDA events."""
+        knn, q_dev = D["knn"], D["q_dev"]
+        t, aux = knn._coarse_parts(ck.TILE_N, arm)
+        qi, qsc = ck.quantize_queries(q_dev, knn._quant_placement(arm)["offset"])
+        args = (qi, qsc, t, aux)
+        n_q, n_tiles = qi.shape[0], t.shape[0] // ck.TILE_N
+        keep = min(D["k"] + 28, knn.n_train) + 2
+        seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused", arm)
+        plain = ck.binned_select_int_plain(*args, tile_n=ck.TILE_N)
+        tiled = ck.binned_select_int(*args, tile_n=ck.TILE_N)
+        out = {"seg_tiles": seg, "keep": keep}
+        for kern, got in (("tiled", tiled), ("streaming", ck.stream_select_int(
+                *args, tile_n=ck.TILE_N))):
+            err = bitwise(f"{kern}_{arm}@main", got, plain)
+            checks[f"{kern}_{arm}"].max_abs_err = max(
+                checks[f"{kern}_{arm}"].max_abs_err, err)
+        del plain
+        fused = ck.fused_select_int(*args, tile_n=ck.TILE_N, keep=keep)
+        fplain = ck.fused_select_int_plain(*args, tile_n=ck.TILE_N, keep=keep,
+                                           block_q=ck.QUERY_BLOCK,
+                                           seg_tiles=seg)
+        err = bitwise(f"fused_{arm}@main", fused, fplain)
+        checks[f"fused_{arm}"].max_abs_err = max(
+            checks[f"fused_{arm}"].max_abs_err, err)
+        out["skipped_cells"] = int(ck.skipped_cells(fused[0], n_tiles).sum())
+        out["tied_bins"] = int((tiled[0].view(n_q, n_tiles, 2, 128)[:, :, 0]
+                                == tiled[0].view(n_q, n_tiles, 2, 128)[:, :, 1]
+                                ).sum())
+        del tiled, fused, fplain
+        for kern, fn, pfn, kw in (
+                ("tiled", ck.binned_select_int, ck.binned_select_int_plain, {}),
+                ("streaming", ck.stream_select_int,
+                 ck.binned_select_int_plain, {}),
+                ("fused", ck.fused_select_int, ck.fused_select_int_plain,
+                 {"keep": keep})):
+            pkw = dict(kw, block_q=ck.QUERY_BLOCK, seg_tiles=seg) if kw else {}
+            out[f"{kern}_ms"] = time_cuda(
+                lambda: fn(*args, tile_n=ck.TILE_N, **kw), 3)
+            out[f"{kern}_plain_ms"] = time_cuda(
+                lambda: pfn(*args, tile_n=ck.TILE_N, **pkw), 1)
+        out["bound"] = int_bound(n_q, knn.n_train, qi.shape[1], n_tiles,
+                                 ck.SURVIVORS, arm)
+        return out
+
+    def phase_quant(S):
+        from knn_tpu_torch import ShardedKNN
+        from knn_tpu_torch.ops.quantize import score_error_bound
+
+        # the six int entries against their plain versions, bitwise, on
+        # integer data with exact ties; streaming bitwise tiled
+        keep = min(S["k"] + 28, S["n"]) + 2
+        cases = []
+        for arm in ck.INT_ARMS:
+            for n_q, n, dim, tile in ((37, 5 * 128 + 60, 24, 256),
+                                      (11, 3 * 128 + 40, 300, 256),
+                                      (256, 16384, 128, ck.TILE_N)):
+                args = int_case(dev, arm, n_q, n, dim, tile, dim + n_q)
+                n_tiles = args[2].shape[0] // tile
+                seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused", arm)
+                plain = ck.binned_select_int_plain(*args, tile_n=tile)
+                tiled = ck.binned_select_int(*args, tile_n=tile)
+                got = {"tiled": (tiled, plain),
+                       "streaming": (ck.stream_select_int(*args, tile_n=tile),
+                                     plain),
+                       "fused": (ck.fused_select_int(*args, tile_n=tile,
+                                                     keep=keep),
+                                 ck.fused_select_int_plain(
+                                     *args, tile_n=tile, keep=keep,
+                                     block_q=ck.QUERY_BLOCK, seg_tiles=seg))}
+                for kern, (k_out, p_out) in got.items():
+                    err = bitwise(f"{kern}_{arm} case", k_out, p_out)
+                    checks[f"{kern}_{arm}"].max_abs_err = max(
+                        checks[f"{kern}_{arm}"].max_abs_err, err)
+                bitwise(f"streaming_{arm} vs tiled", got["streaming"][0], tiled)
+                cd = tiled[0].view(n_q, n_tiles, 2, 128)
+                cases.append({"arm": arm, "q": n_q, "rows": n, "dim": dim,
+                              "tile_n": tile, "bitwise": True,
+                              "tied_bins": int((cd[:, :, 0] == cd[:, :, 1]).sum())})
+        # the fused entries on the far-tile case: the same skipped cells
+        fq, fdb = far_tile_case(dev)
+        far = {}
+        for arm in ck.INT_ARMS:
+            qi, qsc = ck.quantize_queries(fq)
+            t, aux = ck.prepare_db_int(fdb, ck.TILE_N, arm)
+            n_tiles = t.shape[0] // ck.TILE_N
+            seg = ck.kernel_segment_tiles(fq.shape[0], n_tiles, dev, "fused",
+                                          arm)
+            kern = ck.fused_select_int(qi, qsc, t, aux, tile_n=ck.TILE_N,
+                                       keep=keep)
+            plain = ck.fused_select_int_plain(qi, qsc, t, aux, tile_n=ck.TILE_N,
+                                              keep=keep, block_q=ck.QUERY_BLOCK,
+                                              seg_tiles=seg)
+            bitwise(f"fused_{arm} far-tile", kern, plain)
+            skipped = int(ck.skipped_cells(kern[0], n_tiles).sum())
+            if skipped < 1:
+                raise AssertionError(f"fused_{arm} skipped no far tile")
+            far[arm] = {"seg_tiles": seg, "skipped_cells": skipped,
+                        "cells": int(n_tiles * -(-fq.shape[0] // ck.QUERY_BLOCK))}
+        del fq, fdb
+        emit({"phase": "quant_kernels", "cases": cases, "far_tile": far,
+              "max_abs_err": {f"{kern}_{arm}": checks[f"{kern}_{arm}"].max_abs_err
+                              for kern, arm in int_entries}})
+
+        # int8 on the main draw cast to uint8 (byte-exact placement), int4
+        # on the main f32 data
+        u8 = S["knn"].placement.db_host.astype(np.uint8)
+        q8 = S["q_np"].astype(np.uint8).astype(np.float32)
+        t0 = time.perf_counter()
+        knn8 = ShardedKNN(u8, k=S["k"])
+        knn8._quant_placement("int8")
+        torch.cuda.synchronize()
+        D8 = {"knn": knn8, "q_np": q8, "q_dev": torch.from_numpy(q8).to(dev),
+              "n_or": S["n_or"], "k": S["k"], "setup_s": time.perf_counter() - t0}
+        del u8
+        t0 = time.perf_counter()
+        S["knn"]._quant_placement("int4")
+        D4 = dict(S, setup_s=time.perf_counter() - t0)
+        out = {"phase": "quant"}
+        for arm, D in (("int8", D8), ("int4", D4)):
+            qp = D["knn"]._quant_placement(arm)
+            eps = score_error_bound(D["q_np"], qp["stats"], offset=qp["offset"])
+            runs = run_configs(D, arm, kernel_configs)
+            timing = time_arm(D, arm)
+            prof = (profile_search(D["knn"], D["q_np"], precision=arm)
+                    if arm == "int8" else None)
+            for kern in ("tiled", "streaming", "fused"):
+                records[f"{kern}_{arm}"].update(
+                    launches=runs[kern]["launches"][f"{kern}_{arm}"],
+                    ms=timing[f"{kern}_ms"],
+                    plain_ms=timing[f"{kern}_plain_ms"],
+                    bound_ms=timing["bound"]["bound_ms"],
+                    bound_by=timing["bound"]["bound_by"])
+            out[arm] = {"placement_s": D["setup_s"], "offset": qp["offset"],
+                        "stats": qp["stats"], "eps_max": float(eps.max()),
+                        "eps_median": float(np.median(eps)),
+                        "runs": runs, "kernels": timing, "profile": prof}
+        emit(out)
+        del D8, knn8
+
+    if phases & {"main", "stream", "quant"}:
         if "main" in phases:
             phase_main(sift_data())
         if "stream" in phases:
             phase_stream(sift_data())
+        if "quant" in phases:
+            phase_quant(sift_data())
         sift.clear()  # frees the placement before the classify job
         torch.cuda.empty_cache()
 
@@ -703,25 +961,38 @@ def main(argv=None) -> int:
             save_unlabeled_csv(files["test"], te)
             save_labeled_csv(files["val"], va, val)
             results = {}
-            for mode in ("certified", "exact"):
+            runs = {"certified": ("--mode", "certified"),
+                    "certified_int8": ("--mode", "certified",
+                                       "--pallas-precision", "int8"),
+                    "exact": ("--mode", "exact")}
+            for label, extra in runs.items():
                 argv = ["--train", files["train"], "--test", files["test"],
-                        "--val", files["val"], "--k", "50", "--mode", mode,
+                        "--val", files["val"], "--k", "50", *extra,
                         "--selector", "pallas",
-                        "--out", os.path.join(tmp, f"Test_label_{mode}.csv")]
+                        "--out", os.path.join(tmp, f"Test_label_{label}.csv")]
                 reset_launches()
-                results[mode] = run_job(args_to_config(build_parser().parse_args(argv)))
-                results[mode + "_launches"] = ck.binned_select.launches
+                results[label] = run_job(args_to_config(build_parser().parse_args(argv)))
+                results[label + "_launches"] = read_launches()
         cert, exact = results["certified"], results["exact"]
-        if results["certified_launches"] < 1:
+        cert8 = results["certified_int8"]
+        if results["certified_launches"]["k1"] < 1:
             raise AssertionError("the classify job launched K1 no time")
-        if not (np.array_equal(cert.test_labels, exact.test_labels)
-                and np.array_equal(cert.val_labels, exact.val_labels)):
-            raise AssertionError("certified labels differ from exact labels")
+        if results["certified_int8_launches"]["tiled_int8"] < 1:
+            raise AssertionError("the int8 classify job launched K5 no time")
+        for job in (cert, cert8):
+            if not (np.array_equal(job.test_labels, exact.test_labels)
+                    and np.array_equal(job.val_labels, exact.val_labels)):
+                raise AssertionError("certified labels differ from exact labels")
         emit({"phase": "classify", "n_train": 20_000, "k": 50,
               "val_accuracy": cert.val_accuracy,
               "exact_val_accuracy": exact.val_accuracy,
               "labels_equal_exact": True,
-              "k1_launches": results["certified_launches"],
+              "k1_launches": results["certified_launches"]["k1"],
+              "int8_labels_equal_exact": True,
+              "int8_k5_launches": results["certified_int8_launches"]["tiled_int8"],
+              "int8_certified_stats": {key: v for key, v in
+                                       cert8.certified_stats.items()
+                                       if key != "pallas_knobs"},
               "certified_qps": cert.queries_per_sec,
               "exact_qps": exact.queries_per_sec,
               "certified_stats": {key: v for key, v in cert.certified_stats.items()

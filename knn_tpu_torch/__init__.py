@@ -9,8 +9,10 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 
 - :class:`ShardedKNN` — a database placed once; ``search``,
   ``search_certified`` (certified-exact through a coarse kernel: K1
-  ``tiled``, K10 ``streaming`` or K11 ``fused``, optionally through the
-  two-stage ``overlap`` pipeline), ``predict``, ``predict_certified``;
+  ``tiled``, K10 ``streaming`` or K11 ``fused`` in the ``bf16x3`` arm,
+  or the int8 (K5) / int4 (K6) entries with ``precision``, optionally
+  through the two-stage ``overlap`` pipeline), ``predict``,
+  ``predict_certified``;
 - :func:`knn_search_pallas` — one certified search against a database
   placed for the call;
 - :class:`KNNClassifier` — fit/predict/score;

@@ -42,8 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="coarse selector for --mode certified")
     p.add_argument("--pallas-precision", default=None,
                    choices=CERTIFIED_PRECISIONS,
-                   help="coarse-kernel matmul precision (default bf16x3, the "
-                   "one the port runs so far)")
+                   help="coarse-kernel precision (default bf16x3; the port "
+                   "also runs int8 and int4 and refuses the others by name)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path on the CPU)")

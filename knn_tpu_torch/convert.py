@@ -7,8 +7,10 @@ arrays, the same way: cosine rows are normalized once in float64
 (``sharded.py:612-621``), the f64 ``db_norm_max`` certificate term is
 computed once (``_db_norm_max``), and the bf16x3 coarse pass's db parts
 are split once at placement (the JAX package re-splits per call inside
-its jitted program; the values are the same).  Tests build both sides
-from one numpy array through this function.
+its jitted program; the values are the same).  uint8 source rows are kept
+beside the f32 ones unless the metric is cosine (``sharded.py:561-571``),
+so the int8 arm quantizes them byte-exact (ops.quantize.from_uint8).
+Tests build both sides from one numpy array through this function.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ class Placement:
     metric: str
     labels: Optional[torch.Tensor] = None
     num_classes: Optional[int] = None
+    #: the uint8 source rows (bvecs payloads) when the metric is not
+    #: cosine: the int8 arm places them byte-exact at unit scale
+    uint8_host: Optional[np.ndarray] = None
 
     @property
     def n_train(self) -> int:
@@ -71,6 +76,10 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
     if metric not in PORTED_METRICS:
         raise ValueError(
             f"metric {metric!r} is not ported; expected one of {PORTED_METRICS}")
+    uint8_host = None
+    if isinstance(train, np.ndarray) and train.dtype == np.uint8 \
+            and metric != "cosine":
+        uint8_host = train
     host = np.ascontiguousarray(np.asarray(train, dtype=np.float32))
     if host.ndim != 2 or host.shape[0] == 0:
         raise ValueError(f"train must be a non-empty [N, D] array, got {host.shape}")
@@ -94,4 +103,5 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
     return Placement(db=db, db_host=host, th=th, tl=tl, tnorm=tnorm,
                      db_norm_max=db_norm_max,
                      metric="l2" if metric in L2_FAMILY else metric,
-                     labels=lab, num_classes=num_classes)
+                     labels=lab, num_classes=num_classes,
+                     uint8_host=uint8_host)

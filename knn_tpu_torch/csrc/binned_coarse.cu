@@ -1,16 +1,21 @@
-// Fused bf16x3 distance + per-bin top-2 select + exclusion bound for Hopper
-// (sm_90a).
+// Fused distance + per-bin top-2 select + exclusion bound for Hopper (sm_90a):
+// K1 (bf16x3) and K5 / K6 (the int8 and int4 arms), one CTA per (query
+// block, db tile).
 //
 // Replaces the TPU kernel knn_tpu/ops/pallas_knn.py::_bin_candidates (the
-// tiled pallas_call, body _kernel in its bf16x3 arm, emitter
-// _emit_select_grouped / _emit_select_grouped_scores, grouped binning,
-// query-major grid).  It computes the same function, not the same block
-// structure:
+// tiled pallas_call, body _kernel in its bf16x3, int8 and int4 arms,
+// emitter _emit_select_grouped / _emit_select_grouped_scores, grouped
+// binning, query-major grid).  It computes the same function, not the same
+// block structure:
 //
 //   for every query row q and db row t of tile ti:
-//     qh = bf16_rn(q), ql = bf16_rn(q - qh)                 (per element)
-//     qt = sum_d qh*th + qh*tl + ql*th                      (f32 accumulate)
-//     s  = tnorm[t] - 2*qt                                  (||q||^2 dropped)
+//     bf16x3: qh = bf16_rn(q), ql = bf16_rn(q - qh)          (per element)
+//             qt = sum_d qh*th + qh*tl + ql*th               (f32 accumulate)
+//     int8:   qt = (f32_rn(sum_d qi*ti) * qsc[q]) * ts[t]    (int32 exact)
+//     int4:   the same, ti unpacked from nibbles: (b & 0xF) - 8 holds dim
+//             c*128 + j, (b >> 4) - 8 dim c*128 + 64 + j of packed byte
+//             c*64 + j
+//     s  = tnorm[t] - 2*qt                                   (||q||^2 dropped)
 //   bin b of tile ti = lane b of every 128-row group of the tile.  Per
 //   (q, ti, b) keep the 2 smallest s with their group index through a
 //   sorted insertion network with strict `<` (the earlier group wins a tie),
@@ -25,22 +30,27 @@
 //
 // Design.  One CTA per (query block of 32 rows, db tile).  The CTA walks the
 // tile's tile_n/128 column groups in ascending order.  For each group it
-// stages 64-dim slices of the group's 128 db rows (th, tl upcast to f32) and
-// of the query block (split into hi/lo parts in-kernel) in shared memory and
-// accumulates the three products with CUDA-core FMAs.  bf16 products are
-// exact in f32, so these FMAs give the products a bf16 tensor-core MMA with
-// f32 accumulation gives.  Each of the 256 threads owns a 4-query x 4-lane
-// register tile; after the group's last dim slice it forms s and runs the
-// insertion network for its 16 (query, lane) bins in registers.  The
+// stages slices of the group's 128 db rows and of the query block in shared
+// memory: bf16x3 64-dim slices upcast to f32 (the query split into hi/lo
+// parts in-kernel), accumulated with CUDA-core FMAs (bf16 products are exact
+// in f32, so these FMAs give the products a bf16 tensor-core MMA with f32
+// accumulation gives); int8 / int4 one 128-dim chunk as 32-bit words of 4
+// int8 dims (int4 unpacked on the way in), accumulated in int32 with
+// __dp4a, then rescaled once.  Each of the 256 threads owns a 4-query x
+// 4-lane register tile; after the group's last slice it forms s and runs
+// the insertion network for its 16 (query, lane) bins in registers.  The
 // [32, tile_n] score tile never exists anywhere.  The per-score arithmetic
-// lives in binned_select.cuh, shared with K10/K11 (binned_stream.cu).
+// lives in binned_select.cuh, shared with the streaming kernels
+// (binned_stream.cu).
 //
-// What bounds it on this card: operations.  The function is 3 bf16 products
-// of 2*Q*Np*Dp FLOPs against ~1.2 GB of HBM traffic at the SIFT1M shape
-// (Q=4096), so it sits far above the H100's bf16 ridge point.  This first
-// version runs the products on the f32 FMA pipes (67 TFLOP/s, not the
-// tensor cores' 989), so it is expected to run an order of magnitude above
-// its bound; wgmma, TMA and a persistent grid are later work.
+// What bounds it on this card: operations.  bf16x3 is 3 bf16 products of
+// 2*Q*Np*Dp FLOPs against ~1.2 GB of HBM traffic at the SIFT1M shape
+// (Q=4096); int8 is one int8 product (Q*Np*Dp MACs) against ~0.8 GB (int4
+// ~0.7 GB).  Both sit far above the H100's ridge points.  This first
+// version runs them on CUDA cores (f32 FMA pipes at 67 TFLOP/s, __dp4a for
+// the int arms), not the tensor cores (989 TFLOP/s bf16, 1,979 TOP/s int8),
+// so it is expected to run an order of magnitude above its bound; wgmma /
+// mma.sync s8, TMA and a persistent grid are later work.
 
 #include "binned_select.cuh"
 
@@ -145,6 +155,78 @@ cudaError_t launch(const float* q, const __nv_bfloat16* th,
   return cudaGetLastError();
 }
 
+// K5 / K6: the same walk over groups, one 128-dim int8 chunk per pass.
+constexpr size_t kIntSmemInts =
+    kBinW * kIntDbStride + kIntWords * kQStride;  // 21.5 KB, static
+
+template <Arm kArm>
+__global__ void __launch_bounds__(kThreads, 2)
+binned_select_int_kernel(const int8_t* __restrict__ qi,
+                         const float* __restrict__ qsc,
+                         const uint8_t* __restrict__ t,
+                         const float* __restrict__ aux,
+                         float* __restrict__ cd, int* __restrict__ ci,
+                         float* __restrict__ bounds, int n_q, int dp,
+                         int n_tiles, int tile_n) {
+  __shared__ __align__(16) int smem[kIntSmemInts];
+  int* tws = smem;                                // [128][kIntDbStride]
+  int* qws = smem + kBinW * kIntDbStride;         // [kIntWords][kQStride]
+
+  const int tid = threadIdx.x;
+  const int lane_col = tid % 32;              // lanes lane_col + 32*j
+  const int quad = tid / 32;                  // queries quad*4 + i
+  const int ti = blockIdx.x;
+  const int q0 = blockIdx.y * kBlockQ;
+  const int n_groups = tile_n / kBinW;
+  const size_t tile_row0 = static_cast<size_t>(ti) * tile_n;
+  const size_t row_bytes = db_row_bytes<kArm>(dp);
+  // aux: row norms [Np], then row scales [Np]
+  const float* tnorm = aux;
+  const float* tscale = aux + static_cast<size_t>(n_tiles) * tile_n;
+
+  float qs[kQuadQ];
+  load_qsc(qsc, q0, quad, n_q, qs);
+  Vals vals;
+  Gidx gidx;
+  reset_bins(vals, gidx);
+
+  for (int g = 0; g < n_groups; ++g) {
+    const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
+    IAcc iacc;
+    zero_iacc(iacc);
+    for (int c0 = 0; c0 < dp; c0 += kDimChunk) {
+      __syncthreads();  // previous chunk fully consumed
+      stage_db_words<kArm>(t + row0 * row_bytes + db_row_bytes<kArm>(c0),
+                           row_bytes, tws, tid);
+      stage_q_words(qi + static_cast<size_t>(q0) * dp + c0, dp, n_q - q0,
+                    qws, tid);
+      __syncthreads();
+      dp4a_chunk(tws, qws, quad, lane_col, iacc);
+    }
+    Acc acc;
+    rescale(iacc, qs, tscale, row0, lane_col, acc);
+    insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
+  }
+  store_tile(vals, gidx, cd, ci, bounds, q0, quad, lane_col, n_q, n_tiles, ti,
+             tile_n, false);
+}
+
+template <Arm kArm>
+cudaError_t launch_int(const void* qi, const void* qsc, const void* t,
+                       const void* aux, void* cd, void* ci, void* bounds,
+                       int n_q, int dp, int n_tiles, int tile_n,
+                       cudaStream_t stream) {
+  if (n_q <= 0 || n_tiles <= 0) return cudaSuccess;
+  if (dp % kDimChunk) return cudaErrorInvalidValue;
+  const dim3 grid(n_tiles, (n_q + kBlockQ - 1) / kBlockQ);
+  binned_select_int_kernel<kArm><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(qi), static_cast<const float*>(qsc),
+      static_cast<const uint8_t*>(t), static_cast<const float*>(aux),
+      static_cast<float*>(cd), static_cast<int*>(ci),
+      static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry for ctypes.  Shapes: q [n_q, dp] f32; th, tl [n_tiles*tile_n, dp]
@@ -163,5 +245,29 @@ extern "C" int binned_select_bf16x3(const void* q, const void* th,
       static_cast<const __nv_bfloat16*>(tl), static_cast<const float*>(tnorm),
       static_cast<float*>(cd), static_cast<int*>(ci),
       static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// C entries of K5 (int8) and K6 (int4) for ctypes.  Shapes: qi [n_q, dp]
+// int8 and qsc [n_q] f32 (the quantized queries and their scales); t
+// [n_tiles*tile_n, dp] int8 (K5) or [n_tiles*tile_n, dp/2] nibble-packed
+// uint8 (K6); aux [2, n_tiles*tile_n] f32 (row norms, then row scales);
+// outputs as K1's.  dp must be a multiple of 128.  Each returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int binned_select_int8(const void* qi, const void* qsc,
+                                  const void* t, const void* aux, void* cd,
+                                  void* ci, void* bounds, int n_q, int dp,
+                                  int n_tiles, int tile_n, void* stream) {
+  return static_cast<int>(launch_int<Arm::kInt8>(
+      qi, qsc, t, aux, cd, ci, bounds, n_q, dp, n_tiles, tile_n,
+      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int binned_select_int4(const void* qi, const void* qsc,
+                                  const void* t, const void* aux, void* cd,
+                                  void* ci, void* bounds, int n_q, int dp,
+                                  int n_tiles, int tile_n, void* stream) {
+  return static_cast<int>(launch_int<Arm::kInt4>(
+      qi, qsc, t, aux, cd, ci, bounds, n_q, dp, n_tiles, tile_n,
       static_cast<cudaStream_t>(stream)));
 }

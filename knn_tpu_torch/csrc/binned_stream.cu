@@ -1,11 +1,14 @@
-// The db-streaming bf16x3 binned-select kernels for Hopper (sm_90a): K10
-// (streaming) and K11 (fused early-out), two entries of one template.
+// The db-streaming binned-select kernels for Hopper (sm_90a), two entries
+// of one template for each arm: streaming and fused early-out, for bf16x3
+// (K10, K11) and for the int8 (K5) and int4 (K6) arms.
 //
 // Replaces the TPU kernel knn_tpu/ops/pallas_knn.py::_stream_call (its
-// pallas_call, body _stream_kernel, bf16x3 arm, grouped binning).  K10
-// computes K1's function (binned_coarse.cu) with K1's per-score arithmetic
-// (binned_select.cuh), so its (cd, ci, bounds) are bitwise equal to K1's.
-// K11 is K10 plus the fused arm's early-out (pallas_knn.py:722-828):
+// pallas_call, body _stream_kernel, bf16x3, int8 and int4 arms, grouped
+// binning).  The streaming kernel of an arm computes the tiled kernel's
+// function (binned_coarse.cu) with its per-score arithmetic
+// (binned_select.cuh), so its (cd, ci, bounds) are bitwise equal to the
+// tiled kernel's of the same arm.  The fused kernel adds the fused arm's
+// early-out (pallas_knn.py:722-828):
 //
 //   per (query, lane) a sorted carry of `depth` = ceil(keep/128) running
 //   minima of the tiles' lane minima (a lane minimum is survivor 0 of its
@@ -16,27 +19,32 @@
 //   block is written as a skipped tile: cd +inf, ci INT32_MAX, bounds +inf.
 //   The carry then takes this tile's lane minima (unconditionally; for a
 //   skipped tile that is provably a no-op).  depth = 0 disarms it (keep
-//   unknown, or depth > MAX_CARRY_DEPTH = 8): nothing skips, output = K10's.
+//   unknown, or depth > MAX_CARRY_DEPTH = 8): nothing skips, output = the
+//   streaming kernel's.
 //
 // Design.  Grid (segments, query blocks of 32 rows).  A CTA walks the db
 // tiles of its segment in order, each tile's 128-row column groups in order,
-// each group's dims in 32-dim steps.  Step t+1's raw operands (th, tl bf16
-// rows and the f32 query slice) are copied into the second of two shared
-// stages with cp.async while step t is converted (bf16 -> f32, query split
-// into hi/lo) into the compute buffers and multiplied: the counterpart of the
-// TPU kernel's make_async_copy double buffer.  Each tile's block goes
-// straight to its own column offset in global memory.
+// each group's dims in steps (bf16x3: 32 dims; int8 / int4: one 128-dim
+// chunk).  Step t+1's raw operands (bf16x3: th, tl bf16 rows and the f32
+// query slice; int: the int8 or packed int4 db rows and the int8 query
+// slice) are copied into the second of two shared stages with cp.async
+// while step t is converted (bf16 -> f32 and the query's hi/lo split; int4
+// nibbles -> int8 words, int8 rows -> padded word rows) into the compute
+// buffers and multiplied: the counterpart of the TPU kernel's
+// make_async_copy double buffer.  Each tile's block goes straight to its
+// own column offset in global memory.
 //
 // Occupancy.  At Q = 4096 there are only 128 query blocks of 32 rows for 132
-// SMs, each of which holds 2 CTAs (84 KB of shared memory and 128 registers
-// per thread each).  So the tile loop is split into contiguous segments, one
-// per CTA: the wrapper (ops/coarse_knn.stream_segment_tiles) picks
-// n_seg = min(n_tiles, floor(wave / query blocks)) segments, where wave =
-// SMs x the CTAs per SM that stream_ctas_per_sm reads from the occupancy
-// API for the built kernel (2 on an H100: 2 segments of 31 tiles, 256 CTAs,
-// at the SIFT1M shape).  K10's output does not depend on the split.
+// SMs.  So the tile loop is split into contiguous segments, one per CTA: the
+// wrapper (ops/coarse_knn.stream_segment_tiles) picks n_seg = min(n_tiles,
+// floor(wave / query blocks)) segments, where wave = SMs x the CTAs per SM
+// that stream_ctas_per_sm reads from the occupancy API for the built kernel
+// of the arm (bf16x3: 84 KB of shared memory and 128 registers per thread,
+// 2 CTAs per SM: 2 segments of 31 tiles at the SIFT1M shape; int8 61 KB,
+// int4 45 KB of shared memory).  The streaming output does not depend on the
+// split.
 //
-// K11's skip depends on the query block and on the segment: each segment
+// The fused skip depends on the query block and on the segment: each segment
 // keeps its own carry, reset at its first tile.  That stays sound: the carry
 // of a segment only holds lane minima its own tiles emitted (a skipped
 // tile's minima never enter, see above), all of which stand in the final
@@ -51,12 +59,12 @@
 // The carry lives in thread-local memory (L1 / L2), 16 (query, lane) slots x
 // depth floats per thread, read and written once per tile.
 //
-// What bounds it on this card: operations, as K1: the three bf16 products
-// run for every tile before the skip is decided, so the early-out saves only
-// the skipped tile's output writes in this design, never the products.  The
-// products run on the f32 FMA pipes (CUDA cores), an order of magnitude
-// above the bf16 tensor-core bound; wgmma, TMA and a persistent grid are
-// later work.
+// What bounds it on this card: operations, as the tiled kernels: the
+// products run for every tile before the skip is decided, so the early-out
+// saves only the skipped tile's output writes in this design, never the
+// products.  They run on CUDA cores (f32 FMAs for bf16x3, __dp4a for the int
+// arms), an order of magnitude above the tensor-core bound; wgmma / mma.sync,
+// TMA and a persistent grid are later work.
 
 #include "binned_select.cuh"
 
@@ -64,16 +72,36 @@ namespace {
 
 using namespace binned;
 
-constexpr int kSlice = 32;                 // dims per pipeline step
+constexpr int kSlice = 32;                 // bf16x3 dims per pipeline step
 constexpr int kDbStride = kSlice + 1;      // pad: conflict-free row reads
 constexpr int kMaxCarry = 8;               // MAX_CARRY_DEPTH
 constexpr int kRawDb = kBinW * kSlice;     // bf16 per part per stage
-// one stage: th [128][32] bf16, tl [128][32] bf16, q [32][32] f32
-constexpr size_t kStageBytes =
-    2 * kRawDb * sizeof(__nv_bfloat16) + kBlockQ * kSlice * sizeof(float);
+
+// Per-arm pipeline geometry: dims per step, bytes of one cp.async stage and
+// of the compute buffers.
+template <Arm kArm>
+struct Geom {  // int8 / int4: one 128-dim chunk per step
+  static constexpr int kStep = kDimChunk;
+  // db rows [128][chunk bytes], then query rows [32][128] int8
+  static constexpr size_t kDbStage = kBinW * db_row_bytes<kArm>(kDimChunk);
+  static constexpr size_t kStageBytes = kDbStage + kBlockQ * kDimChunk;
+  static constexpr size_t kComputeBytes =
+      sizeof(int) * (kBinW * kIntDbStride + kIntWords * kQStride);
+};
+
+template <>
+struct Geom<Arm::kBf16x3> {
+  static constexpr int kStep = kSlice;
+  // th [128][32] bf16, tl [128][32] bf16, q [32][32] f32
+  static constexpr size_t kStageBytes =
+      2 * kRawDb * sizeof(__nv_bfloat16) + kBlockQ * kSlice * sizeof(float);
+  static constexpr size_t kComputeBytes =
+      sizeof(float) * (2 * kBinW * kDbStride + 2 * kSlice * kQStride);
+};
+
+template <Arm kArm>
 constexpr size_t kSmemBytes =
-    2 * kStageBytes +
-    sizeof(float) * (2 * kBinW * kDbStride + 2 * kSlice * kQStride);
+    2 * Geom<kArm>::kStageBytes + Geom<kArm>::kComputeBytes;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -117,6 +145,35 @@ __device__ __forceinline__ void start_stage(
   cp_async16(sq + r * kSlice + c4 * 4, src, live ? 16 : 0);
 }
 
+// The int arms' copies of one step: the 128-dim chunk at k0 of db rows
+// row0 .. row0+127 (int8 bytes, or packed int4 bytes) and of query rows
+// q0 .. q0+31 (int8; rows past n_q are zero-filled).
+template <Arm kArm>
+__device__ __forceinline__ void start_stage_int(
+    unsigned char* stage, const uint8_t* __restrict__ t,
+    const int8_t* __restrict__ qi, size_t row0, int k0, int dp, int q0,
+    int n_q, int tid) {
+  constexpr int kChunkBytes = db_row_bytes<kArm>(kDimChunk);
+  constexpr int kSegs = kChunkBytes / 16;
+  const size_t row_bytes = db_row_bytes<kArm>(dp);
+  unsigned char* sq = stage + Geom<kArm>::kDbStage;
+#pragma unroll
+  for (int p = 0; p < kBinW * kSegs / kThreads; ++p) {
+    const int idx = tid + p * kThreads;
+    const int r = idx / kSegs;
+    const int seg = idx % kSegs;
+    cp_async16(stage + r * kChunkBytes + seg * 16,
+               t + (row0 + r) * row_bytes + db_row_bytes<kArm>(k0) + seg * 16,
+               16);
+  }
+  const int r = tid / (kDimChunk / 16);
+  const int seg = tid % (kDimChunk / 16);
+  const bool live = q0 + r < n_q;
+  const int8_t* src =
+      qi + static_cast<size_t>(live ? q0 + r : 0) * dp + k0 + seg * 16;
+  cp_async16(sq + r * kDimChunk + seg * 16, src, live ? 16 : 0);
+}
+
 // Stage -> compute buffers: th/tl upcast to f32 rows, the query slice split
 // into hi/lo parts k-major (as K1 stages them from global memory).
 __device__ __forceinline__ void convert_stage(const unsigned char* stage,
@@ -150,21 +207,31 @@ __device__ __forceinline__ void convert_stage(const unsigned char* stage,
     split_store(xs[e], qhs, qls, (c4 * 4 + e) * kQStride + r);
 }
 
-template <bool kFused>
+template <Arm kArm, bool kFused>
 __global__ void __launch_bounds__(kThreads, 2)
-stream_select_kernel(const float* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ th,
-                     const __nv_bfloat16* __restrict__ tl,
-                     const float* __restrict__ tnorm, float* __restrict__ cd,
+stream_select_kernel(const void* __restrict__ p0,
+                     const void* __restrict__ p1,
+                     const void* __restrict__ p2,
+                     const float* __restrict__ p3, float* __restrict__ cd,
                      int* __restrict__ ci, float* __restrict__ bounds, int n_q,
                      int dp, int n_tiles, int tile_n, int seg_tiles,
                      int depth) {
+  // operands: bf16x3 (q f32, th bf16, tl bf16, tnorm f32 [8, Np] row 0);
+  // int8 / int4 (qi int8, qsc f32, t int8 or packed uint8, aux f32 [2, Np]:
+  // row norms, then row scales)
+  constexpr int kStep = Geom<kArm>::kStep;
+  constexpr size_t kStageBytes = Geom<kArm>::kStageBytes;
   extern __shared__ float4 smem_f4[];
   unsigned char* base = reinterpret_cast<unsigned char*>(smem_f4);
+  // compute buffers after the two stages.  bf16x3: th, tl f32 rows at
+  // kDbStride, then query hi / lo parts k-major; int: db words at
+  // kIntDbStride, then query words k-major
   float* ths = reinterpret_cast<float*>(base + 2 * kStageBytes);
   float* tls = ths + kBinW * kDbStride;       // [128][kDbStride]
   float* qhs = tls + kBinW * kDbStride;       // [kSlice][kQStride]
   float* qls = qhs + kSlice * kQStride;       // [kSlice][kQStride]
+  int* tws = reinterpret_cast<int*>(base + 2 * kStageBytes);
+  int* qws = tws + kBinW * kIntDbStride;      // [kIntWords][kQStride]
   __shared__ int warp_ok[kThreads / 32];
 
   const int tid = threadIdx.x;
@@ -176,6 +243,11 @@ stream_select_kernel(const float* __restrict__ q,
   if (t_begin >= t_end) return;
   const int n_groups = tile_n / kBinW;
   const float inf = __int_as_float(0x7f800000);
+  const float* tnorm = p3;
+  const float* tscale = p3 + static_cast<size_t>(n_tiles) * tile_n;
+  float qs[kQuadQ];
+  if constexpr (kArm != Arm::kBf16x3)
+    load_qsc(static_cast<const float*>(p1), q0, quad, n_q, qs);
 
   float carry[kQuadQ][kQuadL][kMaxCarry];
   if (kFused) {
@@ -190,10 +262,17 @@ stream_select_kernel(const float* __restrict__ q,
   // the next step to stage: (tile nt, group ng, dims nk)
   int nt = t_begin, ng = 0, nk = 0;
   auto stage_next = [&](unsigned char* stage) {
-    start_stage(stage, th, tl, q,
-                static_cast<size_t>(nt) * tile_n + static_cast<size_t>(ng) * kBinW,
-                nk, dp, q0, n_q, tid);
-    nk += kSlice;
+    const size_t row0 =
+        static_cast<size_t>(nt) * tile_n + static_cast<size_t>(ng) * kBinW;
+    if constexpr (kArm == Arm::kBf16x3)
+      start_stage(stage, static_cast<const __nv_bfloat16*>(p1),
+                  static_cast<const __nv_bfloat16*>(p2),
+                  static_cast<const float*>(p0), row0, nk, dp, q0, n_q, tid);
+    else
+      start_stage_int<kArm>(stage, static_cast<const uint8_t*>(p2),
+                            static_cast<const int8_t*>(p0), row0, nk, dp, q0,
+                            n_q, tid);
+    nk += kStep;
     if (nk == dp) {
       nk = 0;
       if (++ng == n_groups) {
@@ -214,8 +293,12 @@ stream_select_kernel(const float* __restrict__ q,
       const size_t row0 =
           static_cast<size_t>(ti) * tile_n + static_cast<size_t>(g) * kBinW;
       Acc acc;
-      zero_acc(acc);
-      for (int k0 = 0; k0 < dp; k0 += kSlice) {
+      IAcc iacc;
+      if constexpr (kArm == Arm::kBf16x3)
+        zero_acc(acc);
+      else
+        zero_iacc(iacc);
+      for (int k0 = 0; k0 < dp; k0 += kStep) {
         // this step's stage has landed (every thread's copies) and the
         // previous step's compute buffers are consumed
         cp_async_wait_all();
@@ -223,11 +306,25 @@ stream_select_kernel(const float* __restrict__ q,
         // the other stage was last read by the previous step's conversion
         if (nt < t_end) stage_next(base + (buf ^ 1) * kStageBytes);
         cp_async_commit();
-        convert_stage(base + buf * kStageBytes, ths, tls, qhs, qls, tid);
-        __syncthreads();
-        fma_slice<kSlice, kDbStride>(ths, tls, qhs, qls, quad, lane_col, acc);
+        const unsigned char* stage = base + buf * kStageBytes;
+        if constexpr (kArm == Arm::kBf16x3) {
+          convert_stage(stage, ths, tls, qhs, qls, tid);
+          __syncthreads();
+          fma_slice<kSlice, kDbStride>(ths, tls, qhs, qls, quad, lane_col,
+                                       acc);
+        } else {
+          stage_db_words<kArm>(stage, db_row_bytes<kArm>(kDimChunk), tws,
+                               tid);
+          stage_q_words(
+              reinterpret_cast<const int8_t*>(stage + Geom<kArm>::kDbStage),
+              kDimChunk, kBlockQ, qws, tid);
+          __syncthreads();
+          dp4a_chunk(tws, qws, quad, lane_col, iacc);
+        }
         buf ^= 1;
       }
+      if constexpr (kArm != Arm::kBf16x3)
+        rescale(iacc, qs, tscale, row0, lane_col, acc);
       insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
     }
 
@@ -274,79 +371,98 @@ stream_select_kernel(const float* __restrict__ q,
   }
 }
 
-// Lets the kernel take kSmemBytes of dynamic shared memory (above the
+// Lets the kernel take kSmemBytes<kArm> of dynamic shared memory (above the
 // default 48 KB) on the current device.
-template <bool kFused>
+template <Arm kArm, bool kFused>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(stream_select_kernel<kFused>,
+  return cudaFuncSetAttribute(stream_select_kernel<kArm, kFused>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmemBytes));
+                              static_cast<int>(kSmemBytes<kArm>));
 }
 
-template <bool kFused>
+template <Arm kArm, bool kFused>
 cudaError_t ctas_per_sm(int* out) {
-  cudaError_t err = allow_smem<kFused>();
+  cudaError_t err = allow_smem<kArm, kFused>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, stream_select_kernel<kFused>, kThreads, kSmemBytes);
+      out, stream_select_kernel<kArm, kFused>, kThreads, kSmemBytes<kArm>);
 }
 
-template <bool kFused>
-cudaError_t launch(const void* q, const void* th, const void* tl,
-                   const void* tnorm, void* cd, void* ci, void* bounds,
+template <Arm kArm, bool kFused>
+cudaError_t launch(const void* p0, const void* p1, const void* p2,
+                   const void* p3, void* cd, void* ci, void* bounds,
                    int n_q, int dp, int n_tiles, int tile_n, int seg_tiles,
                    int depth, void* stream) {
   if (n_q <= 0 || n_tiles <= 0) return cudaSuccess;
-  if (seg_tiles <= 0 || depth < 0 || depth > kMaxCarry || dp % kSlice)
+  if (seg_tiles <= 0 || depth < 0 || depth > kMaxCarry ||
+      dp % Geom<kArm>::kStep)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<kFused>();
+  cudaError_t err = allow_smem<kArm, kFused>();
   if (err != cudaSuccess) return err;
   const dim3 grid((n_tiles + seg_tiles - 1) / seg_tiles,
                   (n_q + kBlockQ - 1) / kBlockQ);
-  stream_select_kernel<kFused>
-      <<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(th),
-          static_cast<const __nv_bfloat16*>(tl),
-          static_cast<const float*>(tnorm), static_cast<float*>(cd),
+  constexpr size_t smem = kSmemBytes<kArm>;
+  stream_select_kernel<kArm, kFused>
+      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          p0, p1, p2, static_cast<const float*>(p3), static_cast<float*>(cd),
           static_cast<int*>(ci), static_cast<float*>(bounds), n_q, dp, n_tiles,
           tile_n, seg_tiles, depth);
   return cudaGetLastError();
 }
 
+template <bool kFused>
+cudaError_t ctas_per_sm_of(int arm, int* out) {
+  switch (arm) {
+    case static_cast<int>(Arm::kBf16x3):
+      return ctas_per_sm<Arm::kBf16x3, kFused>(out);
+    case static_cast<int>(Arm::kInt8):
+      return ctas_per_sm<Arm::kInt8, kFused>(out);
+    case static_cast<int>(Arm::kInt4):
+      return ctas_per_sm<Arm::kInt4, kFused>(out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// C entries for ctypes.  Shapes as K1's (binned_coarse.cu): q [n_q, dp] f32;
-// th, tl [n_tiles*tile_n, dp] bf16; tnorm [n_tiles*tile_n] f32 (row 0 of
-// the [8, Np] norm rows); cd, ci [n_q, n_tiles*256]; bounds
-// [n_q, n_tiles*128].  seg_tiles = db tiles per CTA (the last segment may
-// be shorter); depth = K11's carry depth, 0..8 (0 disarms).  Each returns
-// cudaGetLastError() after the launch (0 = launched); the wrapper raises on
-// anything else.
-extern "C" int stream_select_bf16x3(const void* q, const void* th,
-                                    const void* tl, const void* tnorm,
-                                    void* cd, void* ci, void* bounds, int n_q,
-                                    int dp, int n_tiles, int tile_n,
-                                    int seg_tiles, void* stream) {
-  return static_cast<int>(launch<false>(q, th, tl, tnorm, cd, ci, bounds, n_q,
-                                        dp, n_tiles, tile_n, seg_tiles, 0,
-                                        stream));
-}
+// C entries for ctypes.  bf16x3 shapes as K1's (binned_coarse.cu): q
+// [n_q, dp] f32; th, tl [n_tiles*tile_n, dp] bf16; tnorm [n_tiles*tile_n]
+// f32 (row 0 of the [8, Np] norm rows).  int8 / int4 shapes as K5's / K6's:
+// qi [n_q, dp] int8, qsc [n_q] f32, t [n_tiles*tile_n, dp] int8 or
+// [n_tiles*tile_n, dp/2] packed uint8, aux [2, n_tiles*tile_n] f32.  cd, ci
+// [n_q, n_tiles*256]; bounds [n_q, n_tiles*128].  seg_tiles = db tiles per
+// CTA (the last segment may be shorter); depth = the fused kernel's carry
+// depth, 0..8 (0 disarms).  Each returns cudaGetLastError() after the launch
+// (0 = launched); the wrapper raises on anything else.
+#define STREAM_ENTRIES(NAME, ARM)                                             \
+  extern "C" int stream_select_##NAME(                                        \
+      const void* p0, const void* p1, const void* p2, const void* p3,         \
+      void* cd, void* ci, void* bounds, int n_q, int dp, int n_tiles,         \
+      int tile_n, int seg_tiles, void* stream) {                              \
+    return static_cast<int>(launch<ARM, false>(p0, p1, p2, p3, cd, ci,        \
+                                               bounds, n_q, dp, n_tiles,      \
+                                               tile_n, seg_tiles, 0, stream)); \
+  }                                                                           \
+  extern "C" int fused_select_##NAME(                                         \
+      const void* p0, const void* p1, const void* p2, const void* p3,         \
+      void* cd, void* ci, void* bounds, int n_q, int dp, int n_tiles,         \
+      int tile_n, int seg_tiles, int depth, void* stream) {                   \
+    return static_cast<int>(launch<ARM, true>(p0, p1, p2, p3, cd, ci, bounds, \
+                                              n_q, dp, n_tiles, tile_n,       \
+                                              seg_tiles, depth, stream));     \
+  }
 
-extern "C" int fused_select_bf16x3(const void* q, const void* th,
-                                   const void* tl, const void* tnorm, void* cd,
-                                   void* ci, void* bounds, int n_q, int dp,
-                                   int n_tiles, int tile_n, int seg_tiles,
-                                   int depth, void* stream) {
-  return static_cast<int>(launch<true>(q, th, tl, tnorm, cd, ci, bounds, n_q,
-                                       dp, n_tiles, tile_n, seg_tiles, depth,
-                                       stream));
-}
+STREAM_ENTRIES(bf16x3, Arm::kBf16x3)
+STREAM_ENTRIES(int8, Arm::kInt8)
+STREAM_ENTRIES(int4, Arm::kInt4)
 
-// CTAs of K10 (fused = 0) or K11 (fused = 1) that one SM of the current
-// device holds at once, from the occupancy API (registers, kThreads and
+// CTAs of the streaming (fused = 0) or fused (fused = 1) kernel of arm
+// `arm` (0 bf16x3, 1 int8, 2 int4) that one SM of the current device holds
+// at once, from the occupancy API (registers, kThreads and the arm's
 // kSmemBytes of the built kernel); the wrapper sizes the tile segments with
 // it.  Returns the cudaError (0 = *out is set).
-extern "C" int stream_ctas_per_sm(int fused, int* out) {
-  return static_cast<int>(fused ? ctas_per_sm<true>(out)
-                                : ctas_per_sm<false>(out));
+extern "C" int stream_ctas_per_sm(int fused, int arm, int* out) {
+  return static_cast<int>(fused ? ctas_per_sm_of<true>(arm, out)
+                                : ctas_per_sm_of<false>(arm, out));
 }

@@ -20,24 +20,32 @@ What runs where:
   TPU kernel ``pallas_knn._stream_call``.  K10 computes K1's function
   bitwise; K11 adds the fused arm's early-out, which pads skipped tiles
   (plain version :func:`fused_select_plain`).
+- K5 and K6, the quantized arms (``precision="int8"`` and ``"int4"``),
+  are int entries of the same two sources (wrappers
+  :func:`binned_select_int`, :func:`stream_select_int`,
+  :func:`fused_select_int`; plain versions :func:`binned_select_int_plain`
+  and :func:`fused_select_int_plain`): an exact int32 dot of int8
+  queries against int8 (or nibble-packed int4) db rows, one f32 rescale
+  ``(f32(dot) * qsc) * ts``, then the same emitter.  They are integer
+  exact up to that one rounding, so every int kernel is held bitwise.
 - Everything else is plain PyTorch, as in the JAX package's XLA code:
-  the prologue (:func:`prepare_db`: dim padding to 128, ``PAD_VAL`` row
-  padding, the bf16 hi/lo split, the norm rows), the exact top-(m+2) by
-  stable sort with its exclusion value, the pad-row mask, the
-  direct-difference f32 rescore (:func:`local_select_rescore`).
+  the prologues (:func:`prepare_db`: dim padding to 128, ``PAD_VAL`` row
+  padding, the bf16 hi/lo split, the norm rows; :func:`quantize_queries`,
+  :func:`prepare_db_quant`, :func:`prepare_db_int` for the int arms), the
+  exact top-(m+2) by stable sort with its exclusion value, the pad-row
+  mask, the direct-difference f32 rescore (:func:`local_select_rescore`).
 
 A bin is defined by ``tile_n=16384`` and two survivors whatever the CUDA
 block shape is: candidate width, ``m`` and the fallback rate depend on
 them.  Grouped binning: bin b of a db tile is lane b of every 128-row
 group of the tile (``tile_n // 128`` members strided 128 apart).
 
-Ported so far: precision ``bf16x3``, binning ``grouped``, grid
-``query_major``, kernels ``tiled``, ``streaming`` and ``fused``, final
-select ``exact``, two survivors
-per bin and the 128-lane bin width.  The other values the JAX package
-accepts are refused by name.  The JAX package's ``block_q`` only
-re-blocks query rows of its TPU grid; the CUDA kernel picks its own query
-block, so the port takes no such knob.
+Ported so far: precisions ``bf16x3``, ``int8`` and ``int4``, binning
+``grouped``, grid ``query_major``, kernels ``tiled``, ``streaming`` and
+``fused``, final select ``exact``, two survivors per bin and the 128-lane
+bin width.  The other values the JAX package accepts are refused by name.
+The JAX package's ``block_q`` only re-blocks query rows of its TPU grid;
+the CUDA kernel picks its own query block, so the port takes no such knob.
 """
 
 from __future__ import annotations
@@ -49,6 +57,11 @@ import numpy as np
 import torch
 
 from knn_tpu_torch.ops import _cuda
+from knn_tpu_torch.ops.quantize import (db_bound_stats, pack_nibbles_t,
+                                        quantize_rows, quantize_rows_int4,
+                                        quantize_rows_int4_np,
+                                        quantize_rows_np, score_error_bound,
+                                        unpack_nibbles_t)
 from knn_tpu_torch.ops.topk import I32MAX, topk_pairs
 
 #: bin width — the lane count; SURVIVORS candidates + one bound per bin
@@ -71,7 +84,9 @@ PRECISIONS = ("bf16x3", "bf16x3f", "int8", "int4", "pq", "highest",
 BINNINGS = ("grouped", "lane")
 GRID_ORDERS = ("query_major", "db_major")
 KERNELS = ("tiled", "streaming", "fused")
-PORTED = {"precision": ("bf16x3",), "binning": ("grouped",),
+#: the quantized arms, by the dtype of their db operand (int4 is packed)
+INT_ARMS = {"int8": torch.int8, "int4": torch.uint8}
+PORTED = {"precision": ("bf16x3", "int8", "int4"), "binning": ("grouped",),
           "grid_order": ("query_major",),
           "kernel": ("tiled", "streaming", "fused"),
           "final_select": ("exact",), "bin_w": (BIN_W,),
@@ -202,42 +217,148 @@ def pad_queries(queries: torch.Tensor) -> torch.Tensor:
     return q.contiguous()
 
 
-def prepare_db(db: torch.Tensor, tile_n: int):
-    """The bf16x3 prologue of ``_bin_candidates`` for the db side:
-    ``PAD_VAL`` rows up to a ``tile_n`` multiple, zero dims up to a
-    DIM_CHUNK multiple, the hi/lo split, and the f32 row norms of the
-    padded rows as ``[8, Np]`` rows (row 0 is read; an expanded view, as
-    the TPU kernel's sublane-broadcast block).  Returns (th, tl, tnorm)."""
+def _pad_db(db: torch.Tensor, tile_n: int, offset: float = 0.0):
+    """f32 db rows as the kernels take them: ``PAD_VAL`` rows up to a
+    ``tile_n`` multiple, then the ``offset`` shift, then zero dims up to a
+    DIM_CHUNK multiple."""
     n, d = db.shape
     x = db.float()
     rpad = _round_up(max(n, 1), tile_n) - n
     if rpad:
         x = torch.cat([x, torch.full((rpad, d), PAD_VAL, dtype=torch.float32,
                                      device=x.device)])
+    if offset:
+        x = x - offset
     dpad = _round_up(d, DIM_CHUNK) - d
     if dpad:
         x = torch.nn.functional.pad(x, (0, dpad))
+    return x
+
+
+def prepare_db(db: torch.Tensor, tile_n: int):
+    """The bf16x3 prologue of ``_bin_candidates`` for the db side:
+    ``PAD_VAL`` rows up to a ``tile_n`` multiple, zero dims up to a
+    DIM_CHUNK multiple, the hi/lo split, and the f32 row norms of the
+    padded rows as ``[8, Np]`` rows (row 0 is read; an expanded view, as
+    the TPU kernel's sublane-broadcast block).  Returns (th, tl, tnorm)."""
+    x = _pad_db(db, tile_n)
     th, tl = split_bf16(x)
     tnorm = (x * x).sum(-1)
     return th.contiguous(), tl.contiguous(), tnorm[None, :].expand(8, -1)
 
 
+def quantize_queries(queries: torch.Tensor, offset: float = 0.0):
+    """The int arms' query prologue (pallas_knn.py:983-985, 1013-1015):
+    ``queries - offset`` quantized per row to int8 (:func:`quantize_rows`;
+    both int arms), dims zero-padded to a DIM_CHUNK multiple after the
+    shift.  Returns ``(qi int8 [Q, Dp], qsc f32 [Q])``.
+
+    The JAX package pads the dims before the shift, so its padded dims
+    hold ``-offset`` and can set the query's scale, while its certificate
+    quantizes the unpadded query (ROADMAP queue C, fault 8); here both
+    see the same quantization.  With offset 0, or dims a multiple of
+    128, the two are the same."""
+    qi, qsc = quantize_rows(queries.float() - offset)
+    dpad = _round_up(qi.shape[1], DIM_CHUNK) - qi.shape[1]
+    if dpad:
+        qi = torch.nn.functional.pad(qi, (0, dpad))
+    return qi.contiguous(), qsc.contiguous()
+
+
+def _int_aux(norms: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The int arms' [2, Np] aux rows: row norms (row 0) over row scales
+    (row 1).  (The TPU kernel streams sublane-broadcast blocks, int8
+    norms in rows 0-7 over scales in rows 8-15 and int4 norms in row 0
+    over scales in row 1 of 8; a CUDA kernel reads one value of each per
+    db row, so the port keeps the two rows alone.)"""
+    return torch.stack([norms.float(), scales.float()]).contiguous()
+
+
+def prepare_db_quant(values: torch.Tensor, scales: torch.Tensor,
+                     norms: torch.Tensor, tile_n: int):
+    """A pre-quantized db (the JAX package's ``db_int8`` / ``db_int4``
+    triple: int8 values [N, D] or packed uint8 [N, D/2], f32 scales [N],
+    f32 shifted-space norms [N]) padded as pallas_knn.py:996-1000 and
+    1026-1030 pad it: zero rows at zero scale with ``PAD_VAL`` norms up to
+    a ``tile_n`` multiple (they score ~PAD_VAL, never a candidate, never
+    deflating a bound), and zero dims (int8) or zero packed bytes (int4)
+    up to a DIM_CHUNK multiple of dims.  Returns ``(t, aux [2, Np])``."""
+    n = values.shape[0]
+    width = DIM_CHUNK if values.dtype == torch.int8 else DIM_CHUNK // 2
+    rpad = _round_up(max(n, 1), tile_n) - n
+    cpad = _round_up(values.shape[1], width) - values.shape[1]
+    t = torch.nn.functional.pad(values, (0, cpad, 0, rpad))
+    scales = torch.nn.functional.pad(scales.float(), (0, rpad))
+    norms = torch.nn.functional.pad(norms.float(), (0, rpad), value=PAD_VAL)
+    return t.contiguous(), _int_aux(norms, scales)
+
+
+def prepare_db_int(db: torch.Tensor, tile_n: int, precision: str,
+                   offset: float = 0.0):
+    """The quantize-on-the-fly db prologue (pallas_knn.py:986-990,
+    1016-1020): ``PAD_VAL`` rows up to a ``tile_n`` multiple, the shift,
+    zero dims up to a DIM_CHUNK multiple, per-row int8 (or int4, then
+    nibble-packed) quantization of every padded row, and the f32
+    shifted-space norms.  Returns ``(t, aux [2, Np])``."""
+    x = _pad_db(db, tile_n, offset)
+    norms = (x * x).sum(-1)
+    if precision == "int8":
+        t, scales = quantize_rows(x)
+    else:
+        vals, scales = quantize_rows_int4(x)
+        t = pack_nibbles_t(vals, DIM_CHUNK)
+    return t.contiguous(), _int_aux(norms, scales)
+
+
+def _select_tile(s, ti: int, tile_n: int):
+    """The grouped emitter on one tile's scores ``s [Q, tile_n]``
+    (pallas_knn.py:575-610): per lane, the sorted insertion network over
+    the tile's groups in order, with strict `<` (the earlier group wins a
+    tie), keeping SURVIVORS values with their groups and the next value
+    as the bin bound — the kernels' network, step for step, so that ties
+    resolve as they do there."""
+    n_q = s.shape[0]
+    s = s.view(n_q, tile_n // BIN_W, BIN_W)
+    vals = [torch.full((n_q, BIN_W), torch.inf, device=s.device)] * (
+        SURVIVORS + 1)
+    gidx = [torch.zeros((n_q, BIN_W), dtype=torch.int32,
+                        device=s.device)] * SURVIVORS
+    for g in range(s.shape[1]):
+        cur_v = s[:, g]
+        cur_g = torch.full((n_q, BIN_W), g, dtype=torch.int32,
+                           device=s.device)
+        for j in range(SURVIVORS):
+            less = cur_v < vals[j]
+            disp_v = torch.maximum(cur_v, vals[j])
+            disp_g = torch.where(less, gidx[j], cur_g)
+            vals[j] = torch.minimum(cur_v, vals[j])
+            gidx[j] = torch.where(less, cur_g, gidx[j])
+            cur_v, cur_g = disp_v, disp_g
+        vals[SURVIVORS] = torch.minimum(vals[SURVIVORS], cur_v)
+    lane = torch.arange(BIN_W, device=s.device, dtype=torch.int32)
+    ci = [torch.where(torch.isfinite(v), ti * tile_n + gi * BIN_W + lane,
+                      I32MAX).to(torch.int32)
+          for v, gi in zip(vals, gidx)]
+    return (torch.cat(vals[:SURVIVORS], 1), torch.cat(ci, 1),
+            vals[SURVIVORS])
+
+
+def _select_tiles(score_tile, n_tiles: int, tile_n: int):
+    """Concatenates :func:`_select_tile` over the db tiles, the scores of
+    tile ``ti`` given by ``score_tile(ti, rows)``."""
+    outs = [_select_tile(score_tile(ti, slice(ti * tile_n, (ti + 1) * tile_n)),
+                         ti, tile_n) for ti in range(n_tiles)]
+    return tuple(torch.cat([o[j] for o in outs], 1) for j in range(3))
+
+
 def binned_select_plain(q, th, tl, tnorm, *, tile_n: int):
     """K1 in plain PyTorch, tile by tile: an f32 matmul of the upcast bf16
     parts summed per 128-dim chunk (``qh.th + qh.tl + ql.th``), then
-    ``s = tnorm[0] - 2 qt`` reshaped to [Q, G, 128], a stable sort over
-    the group axis, the first SURVIVORS values and groups, and the next
-    value as the bin bound — which is what the strict-`<` insertion
-    network of the kernel keeps."""
-    n_q, dp = q.shape
-    n_tiles = th.shape[0] // tile_n
-    n_groups = tile_n // BIN_W
-    dev = q.device
+    ``s = tnorm[0] - 2 qt`` through :func:`_select_tile`."""
+    dp = q.shape[1]
     qh, ql = (p.float() for p in split_bf16(q))
-    lane = torch.arange(BIN_W, device=dev)
-    cds, cis, bds = [], [], []
-    for ti in range(n_tiles):
-        rows = slice(ti * tile_n, (ti + 1) * tile_n)
+
+    def scores(ti, rows):
         qt = None
         for c in range(0, dp, DIM_CHUNK):
             cols = slice(c, c + DIM_CHUNK)
@@ -245,19 +366,30 @@ def binned_select_plain(q, th, tl, tnorm, *, tile_n: int):
             lo = tl[rows, cols].float()
             part = (qh[:, cols] @ h.T + qh[:, cols] @ lo.T) + ql[:, cols] @ h.T
             qt = part if qt is None else qt + part
-        s = (tnorm[0, rows][None, :] - 2.0 * qt).view(n_q, n_groups, BIN_W)
-        if n_groups < SURVIVORS + 1:
-            fill = torch.full((n_q, SURVIVORS + 1 - n_groups, BIN_W),
-                              torch.inf, device=dev)
-            s = torch.cat([s, fill], dim=1)
-        vals, grp = torch.sort(s, dim=1, stable=True)
-        cd = vals[:, :SURVIVORS]
-        idx = ti * tile_n + grp[:, :SURVIVORS] * BIN_W + lane
-        ci = torch.where(torch.isfinite(cd), idx, I32MAX).to(torch.int32)
-        cds.append(cd.reshape(n_q, SURVIVORS * BIN_W))
-        cis.append(ci.reshape(n_q, SURVIVORS * BIN_W))
-        bds.append(vals[:, SURVIVORS])
-    return torch.cat(cds, 1), torch.cat(cis, 1), torch.cat(bds, 1)
+        return tnorm[0, rows][None, :] - 2.0 * qt
+
+    return _select_tiles(scores, th.shape[0] // tile_n, tile_n)
+
+
+def binned_select_int_plain(qi, qsc, t, aux, *, tile_n: int):
+    """K5 (``t`` int8 [Np, Dp]) and K6 (``t`` nibble-packed uint8
+    [Np, Dp/2]) in plain PyTorch: the exact integer dot ``qi . ti`` as a
+    float64 matmul of the integer values (exact far past any real dim,
+    and the same on the CPU and the card: CPU torch's int8 matmul wraps
+    in int8), cast to int32 and rounded once to f32, then the JAX
+    package's rescale order ``(f32(dot) * qsc) * ts``
+    (pallas_knn.py:475-476) and ``s = tn - 2 qt`` through
+    :func:`_select_tile`.  ``aux`` is [2, Np]: row norms over row
+    scales."""
+    tv = t if t.dtype == torch.int8 else unpack_nibbles_t(t, DIM_CHUNK)
+    q64 = qi.double()
+
+    def scores(ti, rows):
+        dot = (q64 @ tv[rows].double().T).to(torch.int32).float()
+        qt = (dot * qsc[:, None]) * aux[1, rows][None, :]
+        return aux[0, rows][None, :] - 2.0 * qt
+
+    return _select_tiles(scores, t.shape[0] // tile_n, tile_n)
 
 
 def _check_operands(q, th, tl, tnorm, tile_n: int) -> None:
@@ -274,18 +406,52 @@ def _check_operands(q, th, tl, tnorm, tile_n: int) -> None:
         raise ValueError(
             f"q dims {q.shape[1]} vs db dims {dp}: both must match and be a "
             f"multiple of {DIM_CHUNK}")
+    if tnorm.dtype != torch.float32 or tuple(tnorm.shape) != (8, n_p) \
+            or tnorm.stride(1) != 1:
+        raise ValueError("tnorm must be [8, Np] float32 with unit row stride")
+    _check_rows_and_device(n_p, tile_n, (q, th, tl, tnorm))
+
+
+def _check_rows_and_device(n_p: int, tile_n: int, operands) -> None:
+    """The checks every arm's operands share: ``n_p`` db rows a nonzero
+    multiple of a valid ``tile_n`` that fits int32 indices, and every
+    operand on one device."""
     if tile_n % BIN_W or tile_n <= 0 or n_p % tile_n or n_p == 0:
         raise ValueError(
             f"db rows {n_p} must be a nonzero multiple of tile_n={tile_n}, "
             f"itself a multiple of {BIN_W}")
     if n_p >= 2 ** 31:
         raise ValueError("db rows must fit int32 indices")
-    if tnorm.dtype != torch.float32 or tuple(tnorm.shape) != (8, n_p) \
-            or tnorm.stride(1) != 1:
-        raise ValueError("tnorm must be [8, Np] float32 with unit row stride")
-    devs = {t.device for t in (q, th, tl, tnorm)}
+    devs = {t.device for t in operands}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
+
+
+def _check_int_operands(qi, qsc, t, aux, tile_n: int) -> str:
+    """Checks the int arms' operands — ``qi [Q, Dp] int8``, ``qsc [Q]
+    f32``, ``t`` int8 [Np, Dp] (int8) or nibble-packed uint8 [Np, Dp/2]
+    (int4), ``aux [2, Np] f32`` — and returns the arm."""
+    if qi.dtype != torch.int8 or qi.dim() != 2 or not qi.is_contiguous():
+        raise ValueError("qi must be a contiguous [Q, Dp] int8 tensor")
+    if qsc.dtype != torch.float32 or tuple(qsc.shape) != (qi.shape[0],) \
+            or not qsc.is_contiguous():
+        raise ValueError("qsc must be a contiguous [Q] float32 tensor")
+    arms = {dt: arm for arm, dt in INT_ARMS.items()}
+    if t.dtype not in arms or t.dim() != 2 or not t.is_contiguous():
+        raise ValueError("t must be a contiguous 2-D int8 (int8 arm) or "
+                         "uint8 (int4 arm, nibble-packed) tensor")
+    arm = arms[t.dtype]
+    n_p, width = t.shape
+    dp = qi.shape[1]
+    if dp % DIM_CHUNK or width != (dp if arm == "int8" else dp // 2):
+        raise ValueError(
+            f"qi dims {dp} vs db width {width} ({arm}): dims must be a "
+            f"multiple of {DIM_CHUNK}, packed two per byte for int4")
+    if aux.dtype != torch.float32 or tuple(aux.shape) != (2, n_p) \
+            or not aux.is_contiguous():
+        raise ValueError("aux must be a contiguous [2, Np] float32 tensor")
+    _check_rows_and_device(n_p, tile_n, (qi, qsc, t, aux))
+    return arm
 
 
 def _entry(library: str, name: str, n_ints: int):
@@ -299,11 +465,14 @@ def _entry(library: str, name: str, n_ints: int):
     return fn
 
 
-def _launch(library: str, name: str, q, th, tl, tnorm, tile_n: int,
+def _launch(library: str, name: str, operands, n_rows: int, tile_n: int,
             *extra: int):
     """Allocates ``(cd, ci, bounds)`` on the card and launches the C entry
-    ``name`` on the current stream with ``n_q, dp, n_tiles, tile_n`` and
-    ``extra`` ints; raises if the launch is refused."""
+    ``name`` on the current stream with the four ``operands`` (the query
+    operand first: ``q, th, tl, tnorm`` or ``qi, qsc, t, aux``), then
+    ``n_q, dp, n_tiles = n_rows // tile_n, tile_n`` and ``extra`` ints;
+    raises if the launch is refused."""
+    q = operands[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
     n_q, dp = q.shape
@@ -311,19 +480,19 @@ def _launch(library: str, name: str, q, th, tl, tnorm, tile_n: int,
         raise ValueError(
             f"{n_q} queries exceed one launch's {_MAX_KERNEL_QUERIES} (the "
             f"grid's y extent); run them in batches (batch_size)")
-    n_tiles = th.shape[0] // tile_n
+    n_tiles = n_rows // tile_n
     cd = torch.empty((n_q, n_tiles * SURVIVORS * BIN_W), dtype=torch.float32,
                      device=q.device)
     ci = torch.empty(cd.shape, dtype=torch.int32, device=q.device)
     bounds = torch.empty((n_q, n_tiles * BIN_W), dtype=torch.float32,
                          device=q.device)
-    for t in (q, th, tl, tnorm):
+    for t in operands:
         if t.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
     fn = _entry(library, name, 4 + len(extra))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), th.data_ptr(), tl.data_ptr(), tnorm.data_ptr(),
+        rc = fn(*(t.data_ptr() for t in operands),
                 cd.data_ptr(), ci.data_ptr(), bounds.data_ptr(),
                 n_q, dp, n_tiles, tile_n, *extra, stream)
     if rc != 0:
@@ -343,13 +512,36 @@ def binned_select(q, th, tl, tnorm, *, tile_n: int):
     _check_operands(q, th, tl, tnorm, tile_n)
     if q.device.type == "cpu":
         return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
-    out = _launch("binned_coarse", "binned_select_bf16x3", q, th, tl, tnorm,
-                  tile_n)
+    out = _launch("binned_coarse", "binned_select_bf16x3", (q, th, tl, tnorm),
+                  th.shape[0], tile_n)
     binned_select.launches += 1
     return out
 
 
 binned_select.launches = 0
+
+
+def binned_select_int(qi, qsc, t, aux, *, tile_n: int):
+    """K5's and K6's tiled wrapper: ``(cd, ci, bounds)`` as
+    :func:`binned_select` from the int arms' operands — ``qi [Q, Dp]
+    int8``, ``qsc [Q] f32`` (:func:`quantize_queries`), ``t`` int8
+    [Np, Dp] (K5) or nibble-packed uint8 [Np, Dp/2] (K6) and ``aux [2, Np]
+    f32`` (:func:`prepare_db_quant` / :func:`prepare_db_int`).
+
+    On a CUDA tensor it launches ``binned_select_int8`` or
+    ``binned_select_int4`` (``csrc/binned_coarse.cu``), or raises; on a
+    CPU tensor it runs :func:`binned_select_int_plain`.
+    ``binned_select_int.launches[arm]`` counts each kernel's launches."""
+    arm = _check_int_operands(qi, qsc, t, aux, tile_n)
+    if qi.device.type == "cpu":
+        return binned_select_int_plain(qi, qsc, t, aux, tile_n=tile_n)
+    out = _launch("binned_coarse", f"binned_select_{arm}", (qi, qsc, t, aux),
+                  t.shape[0], tile_n)
+    binned_select_int.launches[arm] += 1
+    return out
+
+
+binned_select_int.launches = {arm: 0 for arm in INT_ARMS}
 
 
 def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
@@ -363,32 +555,41 @@ def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
     return -(-n_tiles // n_seg)
 
 
-def _stream_ctas_per_sm(device: torch.device, kernel: str) -> int:
-    """CTAs of K10 (``streaming``) or K11 (``fused``) one SM of ``device``
-    holds at once, as the occupancy API reports it for the built kernel."""
-    key = (device.index, kernel)
+#: the arm codes of binned_stream.cu's C entries
+_ARM_CODES = {"bf16x3": 0, "int8": 1, "int4": 2}
+
+
+def _stream_ctas_per_sm(device: torch.device, kernel: str,
+                        precision: str) -> int:
+    """CTAs of the ``streaming`` or ``fused`` kernel of arm ``precision``
+    one SM of ``device`` holds at once, as the occupancy API reports it
+    for the built kernel."""
+    key = (device.index, kernel, precision)
     if key not in _ctas_per_sm:
         fn = _cuda.load("binned_stream").stream_ctas_per_sm
-        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = fn(int(kernel == "fused"), ctypes.byref(out))
+            rc = fn(int(kernel == "fused"), _ARM_CODES[precision],
+                    ctypes.byref(out))
         if rc != 0 or out.value < 1:
             raise RuntimeError(
-                f"occupancy query of the {kernel} kernel failed: cudaError "
-                f"{rc}, {out.value} CTAs per SM")
+                f"occupancy query of the {kernel} {precision} kernel failed: "
+                f"cudaError {rc}, {out.value} CTAs per SM")
         _ctas_per_sm[key] = out.value
     return _ctas_per_sm[key]
 
 
-def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str) -> int:
-    """Db tiles per segment that K10 (``kernel="streaming"``) or K11
-    (``"fused"``) run for ``n_q`` queries over ``n_tiles`` tiles on
-    ``device``: :func:`stream_segment_tiles` over one wave of the card, one
-    segment over every tile on the CPU (where the plain versions run).
-    K11's skipped cells depend on it (and on QUERY_BLOCK); no certified
-    result does."""
+def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str,
+                         precision: str = "bf16x3") -> int:
+    """Db tiles per segment that the ``kernel="streaming"`` or ``"fused"``
+    kernel of arm ``precision`` runs for ``n_q`` queries over ``n_tiles``
+    tiles on ``device``: :func:`stream_segment_tiles` over one wave of the
+    card, one segment over every tile on the CPU (where the plain versions
+    run).  The fused kernels' skipped cells depend on it (and on
+    QUERY_BLOCK); no certified result does."""
     if kernel not in ("streaming", "fused"):
         raise ValueError(f"kernel {kernel!r} has no tile segments")
     device = torch.device(device)
@@ -398,7 +599,7 @@ def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str) -> int:
         device = torch.device("cuda", torch.cuda.current_device())
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return stream_segment_tiles(
-        n_q, n_tiles, n_sm * _stream_ctas_per_sm(device, kernel))
+        n_q, n_tiles, n_sm * _stream_ctas_per_sm(device, kernel, precision))
 
 
 def stream_select(q, th, tl, tnorm, *, tile_n: int):
@@ -414,8 +615,8 @@ def stream_select(q, th, tl, tnorm, *, tile_n: int):
         return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
     seg = kernel_segment_tiles(q.shape[0], th.shape[0] // tile_n, q.device,
                                "streaming")
-    out = _launch("binned_stream", "stream_select_bf16x3", q, th, tl, tnorm,
-                  tile_n, seg)
+    out = _launch("binned_stream", "stream_select_bf16x3", (q, th, tl, tnorm),
+                  th.shape[0], tile_n, seg)
     stream_select.launches += 1
     return out
 
@@ -423,12 +624,32 @@ def stream_select(q, th, tl, tnorm, *, tile_n: int):
 stream_select.launches = 0
 
 
-def fused_select_plain(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int],
-                       block_q: int = QUERY_BLOCK,
-                       seg_tiles: Optional[int] = None):
-    """K11 in plain PyTorch: :func:`binned_select_plain`, then the fused
-    arm's early-out (pallas_knn.py:776-824) replayed tile by tile at the
-    given geometry — query blocks of ``block_q`` rows (a ragged last
+def stream_select_int(qi, qsc, t, aux, *, tile_n: int):
+    """The int arms' streaming wrapper (``kernel="streaming"``): the
+    function, operands and outputs of :func:`binned_select_int`, computed
+    by one launch of ``stream_select_int8`` / ``stream_select_int4``
+    (``csrc/binned_stream.cu``), bitwise equal to the tiled kernel's.  Its
+    plain version is :func:`binned_select_int_plain`, which it runs for
+    CPU tensors.  ``stream_select_int.launches[arm]`` counts launches."""
+    arm = _check_int_operands(qi, qsc, t, aux, tile_n)
+    if qi.device.type == "cpu":
+        return binned_select_int_plain(qi, qsc, t, aux, tile_n=tile_n)
+    seg = kernel_segment_tiles(qi.shape[0], t.shape[0] // tile_n, qi.device,
+                               "streaming", arm)
+    out = _launch("binned_stream", f"stream_select_{arm}", (qi, qsc, t, aux),
+                  t.shape[0], tile_n, seg)
+    stream_select_int.launches[arm] += 1
+    return out
+
+
+stream_select_int.launches = {arm: 0 for arm in INT_ARMS}
+
+
+def _early_out(out, n_tiles: int, keep: Optional[int], block_q: int,
+               seg_tiles: Optional[int]):
+    """The fused arm's early-out (pallas_knn.py:776-824) replayed tile by
+    tile on a tiled kernel's output ``(cd, ci, bounds)``, in place, at
+    the given geometry — query blocks of ``block_q`` rows (a ragged last
     block decides on its real rows), the tile loop cut into segments of
     ``seg_tiles`` tiles (None: one segment), each with its own carry.
 
@@ -437,13 +658,12 @@ def fused_select_plain(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int],
     every row's tile minimum is strictly above ``thr``, the largest
     lane's deepest carry value before this tile; a skipped block writes
     +inf / INT32_MAX / +inf.  Depth 0 (keep None or too deep) skips
-    nothing: the output is K10's."""
-    cd, ci, bounds = binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
+    nothing."""
+    cd, ci, bounds = out
     depth = carry_depth(keep)
     if depth == 0:
         return cd, ci, bounds
-    n_q = q.shape[0]
-    n_tiles = th.shape[0] // tile_n
+    n_q = cd.shape[0]
     seg = n_tiles if seg_tiles is None else seg_tiles
     n_blocks = -(-n_q // block_q)
     out_w = SURVIVORS * BIN_W
@@ -453,11 +673,11 @@ def fused_select_plain(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int],
     for ti in range(n_tiles):
         if ti % seg == 0:
             carry = torch.full((depth, n_q, BIN_W), torch.inf,
-                               device=q.device)
+                               device=cd.device)
         lm = lane_min[:, ti]
         row_ok = lm.amin(-1) > carry[depth - 1].amax(-1)
         fill = torch.ones(n_blocks * block_q - n_q, dtype=torch.bool,
-                          device=q.device)
+                          device=cd.device)
         skip = torch.cat([row_ok, fill]).view(n_blocks, block_q).all(-1)
         rows = skip.repeat_interleave(block_q)[:n_q]
         cd[rows, ti * out_w : (ti + 1) * out_w] = torch.inf
@@ -469,6 +689,26 @@ def fused_select_plain(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int],
             cur = torch.maximum(carry[d], cur)
             carry[d] = lo
     return cd, ci, bounds
+
+
+def fused_select_plain(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int],
+                       block_q: int = QUERY_BLOCK,
+                       seg_tiles: Optional[int] = None):
+    """K11 in plain PyTorch: :func:`binned_select_plain`, then the
+    early-out (:func:`_early_out`) at the given geometry.  Depth 0 (keep
+    None or too deep) skips nothing: the output is K10's."""
+    return _early_out(binned_select_plain(q, th, tl, tnorm, tile_n=tile_n),
+                      th.shape[0] // tile_n, keep, block_q, seg_tiles)
+
+
+def fused_select_int_plain(qi, qsc, t, aux, *, tile_n: int,
+                           keep: Optional[int], block_q: int = QUERY_BLOCK,
+                           seg_tiles: Optional[int] = None):
+    """The int arms' fused kernels in plain PyTorch:
+    :func:`binned_select_int_plain`, then :func:`_early_out`."""
+    return _early_out(
+        binned_select_int_plain(qi, qsc, t, aux, tile_n=tile_n),
+        t.shape[0] // tile_n, keep, block_q, seg_tiles)
 
 
 def fused_select(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int]):
@@ -485,8 +725,8 @@ def fused_select(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int]):
     if q.device.type == "cpu":
         return fused_select_plain(q, th, tl, tnorm, tile_n=tile_n, keep=keep,
                                   seg_tiles=seg)
-    out = _launch("binned_stream", "fused_select_bf16x3", q, th, tl, tnorm,
-                  tile_n, seg, carry_depth(keep))
+    out = _launch("binned_stream", "fused_select_bf16x3", (q, th, tl, tnorm),
+                  th.shape[0], tile_n, seg, carry_depth(keep))
     fused_select.launches += 1
     return out
 
@@ -494,12 +734,35 @@ def fused_select(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int]):
 fused_select.launches = 0
 
 
+def fused_select_int(qi, qsc, t, aux, *, tile_n: int, keep: Optional[int]):
+    """The int arms' fused wrapper (``kernel="fused"``): the streaming
+    int kernel plus the early-out, as :func:`fused_select` is for bf16x3.
+    On a CUDA tensor it launches ``fused_select_int8`` /
+    ``fused_select_int4`` (``csrc/binned_stream.cu``), or raises; on a
+    CPU tensor it runs :func:`fused_select_int_plain` at the CPU geometry.
+    ``fused_select_int.launches[arm]`` counts launches."""
+    arm = _check_int_operands(qi, qsc, t, aux, tile_n)
+    seg = kernel_segment_tiles(qi.shape[0], t.shape[0] // tile_n, qi.device,
+                               "fused", arm)
+    if qi.device.type == "cpu":
+        return fused_select_int_plain(qi, qsc, t, aux, tile_n=tile_n,
+                                      keep=keep, seg_tiles=seg)
+    out = _launch("binned_stream", f"fused_select_{arm}", (qi, qsc, t, aux),
+                  t.shape[0], tile_n, seg, carry_depth(keep))
+    fused_select_int.launches[arm] += 1
+    return out
+
+
+fused_select_int.launches = {arm: 0 for arm in INT_ARMS}
+
+
 def skipped_cells(cd: torch.Tensor, n_tiles: int,
                   block_q: int = QUERY_BLOCK) -> torch.Tensor:
     """Bool ``[query blocks, n_tiles]``: the (block, tile) cells K11
     skipped, read from its ``cd`` — a cell is skipped when every
     candidate of its block is +inf, which an emitted tile never has
-    (pad rows score ~1e35, not +inf)."""
+    (pad rows score ~1e35, or PAD_VAL for a pre-quantized db, not
+    +inf)."""
     n_q = cd.shape[0]
     n_blocks = -(-n_q // block_q)
     inf = torch.isinf(cd).view(n_q, n_tiles, -1).all(-1)
@@ -510,21 +773,42 @@ def skipped_cells(cd: torch.Tensor, n_tiles: int,
 
 def _bin_candidates(queries: torch.Tensor, db: Optional[torch.Tensor], *,
                     tile_n: int, db_parts=None, kernel: str = "tiled",
-                    keep: Optional[int] = None
+                    keep: Optional[int] = None, precision: str = "bf16x3",
+                    db_quant=None, offset: float = 0.0
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel launch on padded shapes (the bf16x3 arm of the JAX
-    package's ``_bin_candidates``).  ``db_parts=(th, tl, tnorm)`` plugs in
-    a placement's prepared parts, padded to ``round_up(N, tile_n)`` rows;
-    None prepares them from ``db`` here.  ``kernel`` picks K1, K10 or
-    K11; ``keep`` sizes K11's carry (ignored by the others).  Returns cd,
-    ci, bounds for the query rows given (the JAX kernel's query padding
-    never leaves it)."""
-    th, tl, tnorm = db_parts if db_parts is not None else prepare_db(db, tile_n)
-    qp = pad_queries(queries)
+    """Kernel launch on padded shapes (the bf16x3, int8 and int4 arms of
+    the JAX package's ``_bin_candidates``).  ``db_parts`` plugs in a
+    placement's prepared parts, padded to ``round_up(N, tile_n)`` rows:
+    ``(th, tl, tnorm)`` for bf16x3, ``(t, aux)`` for the int arms.  None
+    prepares them here: from ``db_quant`` (the unpadded ``(values,
+    scales, norms)`` triple the JAX package takes as ``db_int8`` /
+    ``db_int4``) when given, else from ``db``.  ``offset`` is the shift
+    both sides of an int arm subtract before quantizing (128.0 for uint8
+    payloads).  ``kernel`` picks the tiled, streaming or fused kernel;
+    ``keep`` sizes the fused kernels' carry (ignored by the others).
+    Returns cd, ci, bounds for the query rows given (the JAX kernel's
+    query padding never leaves it)."""
+    if precision == "bf16x3":
+        th, tl, tnorm = (db_parts if db_parts is not None
+                         else prepare_db(db, tile_n))
+        qp = pad_queries(queries)
+        if kernel == "fused":
+            return fused_select(qp, th, tl, tnorm, tile_n=tile_n, keep=keep)
+        fn = stream_select if kernel == "streaming" else binned_select
+        return fn(qp, th, tl, tnorm, tile_n=tile_n)
+    if db_parts is None:
+        db_parts = (prepare_db_quant(*db_quant, tile_n) if db_quant is not None
+                    else prepare_db_int(db, tile_n, precision, offset))
+    t, aux = db_parts
+    if t.dtype != INT_ARMS[precision]:
+        raise ValueError(
+            f"precision={precision!r} takes a {INT_ARMS[precision]} db "
+            f"operand, got {t.dtype}")
+    qi, qsc = quantize_queries(queries, offset)
     if kernel == "fused":
-        return fused_select(qp, th, tl, tnorm, tile_n=tile_n, keep=keep)
-    fn = stream_select if kernel == "streaming" else binned_select
-    return fn(qp, th, tl, tnorm, tile_n=tile_n)
+        return fused_select_int(qi, qsc, t, aux, tile_n=tile_n, keep=keep)
+    fn = stream_select_int if kernel == "streaming" else binned_select_int
+    return fn(qi, qsc, t, aux, tile_n=tile_n)
 
 
 def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
@@ -534,11 +818,13 @@ def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
                             binning: str = "grouped",
                             grid_order: str = "query_major",
                             kernel: str = "tiled",
-                            final_select: str = "exact", db_parts=None):
+                            final_select: str = "exact", db_parts=None,
+                            db_quant=None, offset: float = 0.0):
     """Stage 1: resolve the effective tile and run the coarse pass
     (``kernel="fused"`` sizes its carry with ``keep = m+2``, as
-    pallas_knn.py:1406 does).  Returns ``(cd [Q, W], ci [Q, W],
-    bounds [Q, T*128])``."""
+    pallas_knn.py:1406 does).  ``db_parts``, ``db_quant`` and ``offset``
+    as :func:`_bin_candidates` takes them.  Returns ``(cd [Q, W],
+    ci [Q, W], bounds [Q, T*128])``."""
     check_knobs(precision=precision, binning=binning, grid_order=grid_order,
                 kernel=kernel, final_select=final_select, bin_w=bin_w,
                 survivors=survivors)
@@ -549,7 +835,9 @@ def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
             f"tile needs {_round_up(t.shape[0], eff_tile)}")
     return _bin_candidates(q, t, tile_n=eff_tile, db_parts=db_parts,
                            kernel=kernel,
-                           keep=m + 2 if kernel == "fused" else None)
+                           keep=m + 2 if kernel == "fused" else None,
+                           precision=precision, db_quant=db_quant,
+                           offset=offset)
 
 
 def local_select_rescore(q, t, cd, ci, bounds, m: int, *,
@@ -621,13 +909,19 @@ def knn_search_pallas(queries, db, k: int, *, margin: int = 28,
 def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,
                      db_norm_max: Optional[float] = None,
                      precision: str = "bf16x3",
-                     q_norm: Optional[np.ndarray] = None) -> np.ndarray:
-    """Per-query bound on |kernel score - exact score|:
+                     q_norm: Optional[np.ndarray] = None,
+                     quant=None) -> np.ndarray:
+    """Per-query bound on |kernel score - exact score|
+    (pallas_knn.py:1517-1578):
 
     - "highest": 4x certification_tolerance (= 32 eps_f32 (||q||^2 +
       max||t||^2));
     - "bf16x3": the dropped ql.tl term and the low-part rounding are each
-      <= 2^-17 (||q||^2 + max||t||^2)/2; 2^-14 gives ~8x headroom."""
+      <= 2^-17 (||q||^2 + max||t||^2)/2; 2^-14 gives ~8x headroom;
+    - "int8", "int4": the larger of "highest"'s and the provable
+      quantization bound ε from the actual residuals
+      (ops.quantize.score_error_bound).  ``quant`` supplies the
+      placement's ``QuantizedRows``; None quantizes ``db_np`` here."""
     from knn_tpu_torch.ops.certified import certification_tolerance
 
     if q_norm is None:
@@ -636,10 +930,17 @@ def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,
         db_norm_max = float((db_np.astype(np.float64) ** 2).sum(-1).max())
     base = 4.0 * certification_tolerance(
         queries_np, db_np, db_norm_max=db_norm_max, q_norm=q_norm)
+    if precision in INT_ARMS:
+        if quant is None:
+            quant = (quantize_rows_np(db_np) if precision == "int8"
+                     else quantize_rows_int4_np(db_np))
+        stats = db_bound_stats(quant, db_np)
+        return np.maximum(
+            base, score_error_bound(queries_np, stats, offset=quant.offset))
     if precision == "bf16x3":
         return np.maximum(base, 2.0 ** -14 * (q_norm + db_norm_max))
     if precision == "highest":
         return base
     raise ValueError(
         f"precision {precision!r} has no tolerance model in the port yet; "
-        f"use 'bf16x3' or 'highest'")
+        f"use 'bf16x3', 'int8', 'int4' or 'highest'")

@@ -10,8 +10,9 @@ they are absent here; everything else follows the JAX code path:
 - ``search`` — exact f32 expanded-square distances and a stable top-k
   (ties to the lower index);
 - ``search_certified(selector="pallas")`` — the one-pass certificate:
-  the coarse kernel (K1, K10 or K11 of knn_tpu_torch.ops.coarse_knn, by
-  ``kernel``) emits per-bin survivors and exclusion bounds, the exact
+  the coarse kernel (of knn_tpu_torch.ops.coarse_knn, by ``kernel`` and
+  ``precision``: K1, K10 or K11 for bf16x3, the int8 / int4 entries for
+  the quantized arms) emits per-bin survivors and exclusion bounds, the exact
   top-(m+2) and the direct-difference f32 rescore rank the candidates,
   the device certificate :func:`_certify_pack` flags queries whose k-th
   distance is not provably below the exclusion bound (``bad``) and marks
@@ -40,6 +41,8 @@ from knn_tpu_torch import tuning
 from knn_tpu_torch.convert import Placement, placement_from_numpy, row_normalize_f64
 from knn_tpu_torch.device import DeviceLike
 from knn_tpu_torch.ops.coarse_knn import (
+    DIM_CHUNK,
+    INT_ARMS,
     RANK_SLACK,
     TILE_N,
     _geometry,
@@ -49,8 +52,14 @@ from knn_tpu_torch.ops.coarse_knn import (
     local_coarse_candidates,
     local_select_rescore,
     prepare_db,
+    prepare_db_quant,
 )
 from knn_tpu_torch.ops.metrics import L2_FAMILY
+from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats,
+                                        from_uint8, pack_nibbles,
+                                        quantize_rows_int4_np,
+                                        quantize_rows_np,
+                                        score_error_bound_device)
 from knn_tpu_torch.ops.topk import I32MAX, knn_search_tiled
 from knn_tpu_torch.ops.vote import majority_vote
 from knn_tpu_torch.utils.config import SELECTORS
@@ -147,8 +156,10 @@ class ShardedKNN:
         self.n_train = pl.n_train
         self.num_classes = pl.num_classes
         #: coarse-pass db parts for tiles whose padding differs from the
-        #: placement's, built on first use
+        #: placement's, and the int arms' padded parts, built on first use
         self._parts = {}
+        #: the int8 / int4 placements, by precision, built on first use
+        self._quant = {}
         #: the overlap pipeline's (coarse, tail) CUDA streams, made on first
         #: use and kept: the caching allocator reuses a freed block only on
         #: the stream it was made on, so new streams per call allocate anew
@@ -198,16 +209,71 @@ class ShardedKNN:
         return majority_vote(self.placement.labels[safe], self.num_classes)
 
     # -- certified path ----------------------------------------------------
-    def _coarse_parts(self, tile: int):
-        """The bf16x3 db parts padded for ``tile``: the placement's own
-        when its padding matches, else prepared once and kept."""
+    def _coarse_parts(self, tile: int, precision: str = "bf16x3"):
+        """The db parts of arm ``precision`` padded for ``tile``: for
+        bf16x3 the placement's own when its padding matches, else
+        prepared once and kept; for int8 / int4 the quantized placement's
+        ``(t, aux)`` (coarse_knn.prepare_db_quant), prepared once per
+        padding and kept."""
         pl = self.placement
         rows = _round_up(self.n_train, tile)
+        if precision in INT_ARMS:
+            key = (precision, rows)
+            if key not in self._parts:
+                qp = self._quant_placement(precision)
+                self._parts[key] = prepare_db_quant(
+                    qp["values"], qp["scales"], qp["norms"], tile)
+            return self._parts[key]
         if pl.th.shape[0] == rows:
             return pl.th, pl.tl, pl.tnorm
         if rows not in self._parts:
             self._parts[rows] = prepare_db(pl.db, tile)
         return self._parts[rows]
+
+    def _quant_placement(self, precision: str) -> dict:
+        """The int8 or int4 db placement, built on first use and kept —
+        the JAX package's ``_int8_placement`` / ``_int4_placement``
+        (sharded.py:1203-1299).  Rows are quantized once on the host: int8
+        per row symmetric (uint8 sources byte-exact at unit scale through
+        ``from_uint8``, offset 128), int4 per row to [-7, 7] with dims
+        zero-padded to a DIM_CHUNK multiple and packed two per byte.  The
+        db-side bound statistics come from the actual residuals in
+        float64, the shifted-space row norms in float64 cast to f32.
+        Returns ``values`` (int8 [N, D] or packed uint8 [N, Dp/2]),
+        ``scales``, ``norms`` and ``consts`` (ops.quantize.bound_consts)
+        on the device, and the ``offset`` and ``stats``.  The f32 placement
+        stays for the rescore and the fallback repair."""
+        if precision not in self._quant:
+            pl = self.placement
+            host = pl.db_host
+            if precision == "int8":
+                if pl.uint8_host is not None:
+                    qr = from_uint8(pl.uint8_host)
+                    original = pl.uint8_host
+                else:
+                    qr = quantize_rows_np(host)
+                    original = host
+                values = qr.values
+            else:
+                qr = quantize_rows_int4_np(host)
+                original = host
+                dpad = _round_up(host.shape[1], DIM_CHUNK) - host.shape[1]
+                values = pack_nibbles(np.pad(qr.values, ((0, 0), (0, dpad))))
+            stats = db_bound_stats(qr, original)
+            norms = np.empty(host.shape[0], dtype=np.float32)
+            for lo in range(0, host.shape[0], 65536):
+                hs = host[lo : lo + 65536].astype(np.float64) - qr.offset
+                norms[lo : lo + hs.shape[0]] = (hs ** 2).sum(-1)
+            dev = self.device
+            self._quant[precision] = {
+                "values": torch.from_numpy(values).to(dev),
+                "scales": torch.from_numpy(qr.scales).to(dev),
+                "norms": torch.from_numpy(norms).to(dev),
+                "consts": torch.from_numpy(bound_consts(stats)).to(dev),
+                "offset": float(qr.offset),
+                "stats": stats,
+            }
+        return self._quant[precision]
 
     def _pallas_setup(self, margin: int, tile_n: Optional[int],
                       precision: str, bin_w: Optional[int] = None,
@@ -241,9 +307,15 @@ class ShardedKNN:
                 f"pallas selector: margin headroom m={m} <= k={self.k} on "
                 f"{rows} rows; lower tile_n")
         w = _analysis_window(self.k, m)
-        parts = self._coarse_parts(eff_tile)
+        parts = self._coarse_parts(eff_tile, precision)
         db = self.placement.db
         db_norm_max = float(np.float32(self.placement.db_norm_max))
+        # the int arms: the quantized placement's translation shift and
+        # bound constants (sharded.py:1807-1812)
+        consts, offset = None, 0.0
+        if precision in INT_ARMS:
+            qp = self._quant_placement(precision)
+            consts, offset = qp["consts"], qp["offset"]
 
         def coarse(q: torch.Tensor):
             # the RESOLVED tile goes to the kernel: m was capped so that
@@ -252,14 +324,15 @@ class ShardedKNN:
             return local_coarse_candidates(
                 q, db, m, tile_n=eff_tile, precision=precision,
                 binning=binning, grid_order=grid_order, kernel=kernel,
-                final_select=final_select, db_parts=parts)
+                final_select=final_select, db_parts=parts, offset=offset)
 
         def tail(q: torch.Tensor, cd, ci, bounds):
             d32, li, lb = local_select_rescore(q, db, cd, ci, bounds, m,
                                                final_select=final_select)
             return _certify_pack(q, d32, li, lb, db_norm_max=db_norm_max,
                                  m=m, k=self.k, w=w, n_train=rows,
-                                 include_distances=include_distances)
+                                 include_distances=include_distances,
+                                 consts=consts, offset=offset)
 
         return (coarse, tail), m, w
 
@@ -500,7 +573,9 @@ class ShardedKNN:
 
 
 def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
-                  w: int, n_train: int, include_distances: bool):
+                  w: int, n_train: int, include_distances: bool,
+                  consts: Optional[torch.Tensor] = None,
+                  offset: float = 0.0):
     """The certify tail of the JAX package's ``_certify_pack_spmd`` for one
     shard, from ranked candidates ``(d32 [Q, m+1], li [Q, m+1], lb [Q])``:
 
@@ -509,6 +584,10 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
       boundary; rows without one (or with non-finite values in the top
       k+1) are ``unresolved``;
     - the bf16x3 tolerance ``tol = 2^-14 (||q||^2 + db_norm_max)`` in f32;
+      for the int arms (``consts`` given, sharded.py:2350-2355) the
+      per-query provable quantization bound ε and the query norm, both in
+      the ``offset``-shifted space the kernel scores in
+      (ops.quantize.score_error_bound_device);
     - ``bad = s_k + RANK_SLACK d_k + tol >= lb`` (plus unresolved rows),
       with ``s_k = d_k - ||q||^2`` the k-th distance in kernel space.
 
@@ -529,8 +608,11 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
     unresolved = (~has_stop) | ~torch.isfinite(dw[:, : k + 1]).all(-1)
     tight_use = tight & (pair < stop[:, None]) & ~unresolved[:, None]
     q32 = q.float()
-    q_norm = (q32 * q32).sum(-1)
-    tol = 2.0 ** -14 * (q_norm + db_norm_max)
+    if consts is not None:
+        q_norm, tol = score_error_bound_device(q32 - offset, consts)
+    else:
+        q_norm = (q32 * q32).sum(-1)
+        tol = 2.0 ** -14 * (q_norm + db_norm_max)
     d_k = dw[:, k - 1]
     s_k = d_k - q_norm
     bad = (s_k + RANK_SLACK * d_k + tol >= lb) | unresolved

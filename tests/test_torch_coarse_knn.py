@@ -136,21 +136,27 @@ def test_prepare_db_matches_pallas_prologue():
 def test_kernel_tolerance_matches_pallas():
     rng = np.random.default_rng(6)
     q, db = _data(rng, 5, 200, 16)
-    for prec in ("bf16x3", "highest"):
+    for prec in ("bf16x3", "highest", "int8", "int4"):
         np.testing.assert_allclose(
             ck.kernel_tolerance(q, db, precision=prec),
             jpk.kernel_tolerance(q, db, precision=prec), rtol=1e-12)
-    with pytest.raises(ValueError, match="int8"):
-        ck.kernel_tolerance(q, db, precision="int8")
+    with pytest.raises(ValueError, match="bf16x3f"):
+        ck.kernel_tolerance(q, db, precision="bf16x3f")
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("precision", "int8"), ("precision", "highest"), ("binning", "lane"),
+    ("precision", "bf16x3f"), ("precision", "highest"), ("binning", "lane"),
     ("grid_order", "db_major"), ("precision", "pq"),
     ("final_select", "approx"), ("survivors", 3), ("bin_w", 256)])
 def test_unported_knobs_are_refused_by_name(knob, value):
     with pytest.raises(ValueError, match=f"{knob}={value!r} is not ported"):
         ck.check_knobs(**{knob: value})
+
+
+@pytest.mark.parametrize("precision", ["int8", "int4"])
+@pytest.mark.parametrize("kernel", ["tiled", "streaming", "fused"])
+def test_int_arms_are_accepted_under_every_kernel(precision, kernel):
+    ck.check_knobs(precision=precision, kernel=kernel)
 
 
 @pytest.mark.parametrize("kw,match", [

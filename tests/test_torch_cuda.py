@@ -148,3 +148,71 @@ def test_cuda_fused_kernel_disarmed_is_bitwise_k10(cuda_device):
         k11 = ck.fused_select(qp, th, tl, tnorm, tile_n=256, keep=keep)
         for a, b in zip(k10, k11):
             assert torch.equal(a, b)
+
+
+# --- K5 (int8) and K6 (int4): integer exact up to one rounding, so held
+# bitwise against the plain version
+
+def _int_case(device, arm, n_q, n, dim, tile_n, seed):
+    # integer-valued rows with exact ties: duplicated rows across groups of
+    # one bin, and uint8-range values at unit scale (int8 via the shift)
+    rng = np.random.default_rng(seed)
+    db = rng.integers(0, 256, size=(n, dim)).astype(np.float32)
+    db[128:160] = db[:32]
+    db[256:288] = db[:32]
+    q = rng.integers(0, 256, size=(n_q, dim)).astype(np.float32)
+    q[:4] = db[:4]
+    qi, qsc = ck.quantize_queries(torch.from_numpy(q).to(device), 128.0)
+    t, aux = ck.prepare_db_int(torch.from_numpy(db).to(device), tile_n, arm,
+                               128.0)
+    return qi, qsc, t, aux
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["int8", "int4"])
+@pytest.mark.parametrize("n_q,n,dim,tile_n", [(37, 5 * 128 + 60, 24, 256),
+                                              (11, 3 * 128 + 40, 300, 256),
+                                              (256, 16384, 128, 16384)])
+def test_cuda_int_kernels_bitwise_plain(cuda_device, arm, n_q, n, dim, tile_n):
+    args = _int_case(cuda_device, arm, n_q, n, dim, tile_n, dim + n_q)
+    plain = ck.binned_select_int_plain(*args, tile_n=tile_n)
+    before = dict(ck.binned_select_int.launches)
+    tiled = ck.binned_select_int(*args, tile_n=tile_n)
+    assert ck.binned_select_int.launches[arm] == before[arm] + 1
+    before = dict(ck.stream_select_int.launches)
+    stream = ck.stream_select_int(*args, tile_n=tile_n)
+    assert ck.stream_select_int.launches[arm] == before[arm] + 1
+    for a, b, c in zip(tiled, plain, stream):
+        assert torch.equal(a, b) and torch.equal(c, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["int8", "int4"])
+@pytest.mark.parametrize("n_q", [9, 4096])
+def test_cuda_fused_int_kernel_bitwise_plain_and_skips(cuda_device, arm, n_q):
+    # the far-tile case of _far_tile_cuda, quantized on the fly
+    rng = np.random.default_rng(12)
+    db = rng.normal(size=(6 * 128, 16)).astype(np.float32)
+    db[2 * 128:] += 500.0
+    q = torch.from_numpy(db[rng.integers(0, 2 * 128, size=n_q)]
+                         + rng.normal(size=(n_q, 16)).astype(np.float32)
+                         * 1e-2).to(cuda_device)
+    qi, qsc = ck.quantize_queries(q)
+    t, aux = ck.prepare_db_int(torch.from_numpy(db).to(cuda_device), 256, arm)
+    n_tiles = t.shape[0] // 256
+    seg = ck.kernel_segment_tiles(n_q, n_tiles, cuda_device, "fused", arm)
+    before = dict(ck.fused_select_int.launches)
+    kern = ck.fused_select_int(qi, qsc, t, aux, tile_n=256, keep=15)
+    assert ck.fused_select_int.launches[arm] == before[arm] + 1
+    plain = ck.fused_select_int_plain(qi, qsc, t, aux, tile_n=256, keep=15,
+                                      block_q=ck.QUERY_BLOCK, seg_tiles=seg)
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+    if seg > 1:
+        assert bool(ck.skipped_cells(kern[0], n_tiles).any())
+    # disarmed, it is the streaming kernel
+    k10 = ck.stream_select_int(qi, qsc, t, aux, tile_n=256)
+    for keep in (None, 128 * ck.MAX_CARRY_DEPTH + 1):
+        k11 = ck.fused_select_int(qi, qsc, t, aux, tile_n=256, keep=keep)
+        for a, b in zip(k10, k11):
+            assert torch.equal(a, b)

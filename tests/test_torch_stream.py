@@ -175,12 +175,13 @@ def test_fused_refusals_kept():
         ck.check_knobs(kernel="fused", final_select="approx")
     with pytest.raises(ValueError, match="precision='pq'"):
         ck.check_knobs(kernel="fused", precision="pq")
-    for prec in ("int8", "highest", "bf16x3f"):
+    for prec in ("default", "highest", "bf16x3f"):
         with pytest.raises(ValueError,
                            match=f"precision={prec!r} is not ported"):
             ck.check_knobs(kernel="fused", precision=prec)
     for kern in ck.KERNELS:
-        ck.check_knobs(kernel=kern)
+        for prec in ("bf16x3", "int8", "int4"):
+            ck.check_knobs(kernel=kern, precision=prec)
 
 
 def test_launch_accounting_and_overlap_ratio_match_jax():
