@@ -54,7 +54,10 @@ exits non-zero and prints no result):
              and one full 16,384-row tile at Q=256, the streaming outputs
              bitwise the tiled ones, the fused ones at the kernel's own
              geometry, and the far-tile case, where the fused kernels must
-             skip the plain version's cells; then ``search_certified(
+             skip the plain version's cells; at the SIFT1M shape each
+             entry bitwise its plain version at Q=4,096, the fused ones
+             also at the pipelined run's own geometry (each 1,024-query
+             batch, its own tile segments); then ``search_certified(
              precision="int8")`` on the SIFT1M-shape data cast to uint8
              (byte-exact placement) and ``precision="int4"`` on the ``main``
              f32 data, each with ``kernel`` tiled, streaming, fused and
@@ -466,37 +469,35 @@ def main(argv=None) -> int:
                              "knn_tpu_torch/csrc/binned_stream.cu",
                              "knn_tpu/ops/pallas_knn.py:722"),
     }
-    # the int arms: (kernel, arm) -> wrapper, C entry, TPU kernel line
+    # the int arms: (kernel, arm) -> C library, TPU kernel line
     int_entries = {
-        ("tiled", "int8"): (ck.binned_select_int, "binned_coarse", 415),
-        ("tiled", "int4"): (ck.binned_select_int, "binned_coarse", 432),
-        ("streaming", "int8"): (ck.stream_select_int, "binned_stream", 686),
-        ("streaming", "int4"): (ck.stream_select_int, "binned_stream", 690),
-        ("fused", "int8"): (ck.fused_select_int, "binned_stream", 753),
-        ("fused", "int4"): (ck.fused_select_int, "binned_stream", 753),
+        ("tiled", "int8"): ("binned_coarse", 415),
+        ("tiled", "int4"): ("binned_coarse", 432),
+        ("streaming", "int8"): ("binned_stream", 686),
+        ("streaming", "int4"): ("binned_stream", 690),
+        ("fused", "int8"): ("binned_stream", 753),
+        ("fused", "int4"): ("binned_stream", 753),
     }
-    entry_names = {"tiled": "binned_select", "streaming": "stream_select",
-                   "fused": "fused_select"}
-    for (kern, arm), (_, lib, line) in int_entries.items():
+    wrappers = {"tiled": ck.binned_select, "streaming": ck.stream_select,
+                "fused": ck.fused_select}
+    for (kern, arm), (lib, line) in int_entries.items():
         records[f"{kern}_{arm}"] = kernel_record(
-            f"{entry_names[kern]}_{arm}", f"knn_tpu_torch/csrc/{lib}.cu",
+            f"{wrappers[kern].__name__}_{arm}", f"knn_tpu_torch/csrc/{lib}.cu",
             f"knn_tpu/ops/pallas_knn.py:{line}")
     checks = {key: Check() for key in records}
-    counters = {"k1": ck.binned_select, "k10": ck.stream_select,
-                "k11": ck.fused_select}
+    # record key -> (wrapper, arm) whose launch count it reads
+    counters = {"k1": (ck.binned_select, "bf16x3"),
+                "k10": (ck.stream_select, "bf16x3"),
+                "k11": (ck.fused_select, "bf16x3"),
+                **{f"{kern}_{arm}": (wrappers[kern], arm)
+                   for kern, arm in int_entries}}
 
     def reset_launches():
-        for fn in counters.values():
-            fn.launches = 0
-        for fn in (ck.binned_select_int, ck.stream_select_int,
-                   ck.fused_select_int):
-            fn.launches = {arm: 0 for arm in ck.INT_ARMS}
+        for fn in wrappers.values():
+            fn.launches = dict.fromkeys(ck.ARMS, 0)
 
     def read_launches():
-        out = {key: fn.launches for key, fn in counters.items()}
-        for (kern, arm), (fn, _, _) in int_entries.items():
-            out[f"{kern}_{arm}"] = fn.launches[arm]
-        return out
+        return {key: fn.launches[arm] for key, (fn, arm) in counters.items()}
 
     if "device" in phases:
         emit({"phase": "device", "device": kind, "nvidia_smi": smi,
@@ -794,7 +795,10 @@ def main(argv=None) -> int:
 
     def time_arm(D, arm):
         """The arm's three entries against their plain versions at the main
-        path's shapes (bitwise), then each timed with CUDA events."""
+        path's shapes (bitwise), the fused entry also at the pipelined
+        run's own geometry (each 1,024-query batch, with that batch size's
+        tile segments: bitwise, so the same skipped cells), then each
+        entry timed with CUDA events."""
         knn, q_dev = D["knn"], D["q_dev"]
         t, aux = knn._coarse_parts(ck.TILE_N, arm)
         qi, qsc = ck.quantize_queries(q_dev, knn._quant_placement(arm)["offset"])
@@ -802,32 +806,47 @@ def main(argv=None) -> int:
         n_q, n_tiles = qi.shape[0], t.shape[0] // ck.TILE_N
         keep = min(D["k"] + 28, knn.n_train) + 2
         seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused", arm)
-        plain = ck.binned_select_int_plain(*args, tile_n=ck.TILE_N)
-        tiled = ck.binned_select_int(*args, tile_n=ck.TILE_N)
+        plain = ck.binned_select_plain(*args, tile_n=ck.TILE_N)
+        tiled = ck.binned_select(*args, tile_n=ck.TILE_N)
         out = {"seg_tiles": seg, "keep": keep}
-        for kern, got in (("tiled", tiled), ("streaming", ck.stream_select_int(
+        for kern, got in (("tiled", tiled), ("streaming", ck.stream_select(
                 *args, tile_n=ck.TILE_N))):
             err = bitwise(f"{kern}_{arm}@main", got, plain)
             checks[f"{kern}_{arm}"].max_abs_err = max(
                 checks[f"{kern}_{arm}"].max_abs_err, err)
         del plain
-        fused = ck.fused_select_int(*args, tile_n=ck.TILE_N, keep=keep)
-        fplain = ck.fused_select_int_plain(*args, tile_n=ck.TILE_N, keep=keep,
+
+        def fused_vs_plain(name, sl):
+            sub = (qi[sl], qsc[sl], t, aux)
+            g = ck.kernel_segment_tiles(sub[0].shape[0], n_tiles, dev,
+                                        "fused", arm)
+            kern = ck.fused_select(*sub, tile_n=ck.TILE_N, keep=keep)
+            fplain = ck.fused_select_plain(*sub, tile_n=ck.TILE_N, keep=keep,
                                            block_q=ck.QUERY_BLOCK,
-                                           seg_tiles=seg)
-        err = bitwise(f"fused_{arm}@main", fused, fplain)
-        checks[f"fused_{arm}"].max_abs_err = max(
-            checks[f"fused_{arm}"].max_abs_err, err)
-        out["skipped_cells"] = int(ck.skipped_cells(fused[0], n_tiles).sum())
+                                           seg_tiles=g)
+            err = bitwise(name, kern, fplain)
+            checks[f"fused_{arm}"].max_abs_err = max(
+                checks[f"fused_{arm}"].max_abs_err, err)
+            skip = ck.skipped_cells(kern[0], n_tiles)
+            return kern, {"q": sub[0].shape[0], "seg_tiles": g,
+                          "skipped_cells": int(skip.sum()),
+                          "cells": skip.numel(), "bitwise_plain": True}
+
+        fused, at_main = fused_vs_plain(f"fused_{arm}@main", slice(None))
+        out["skipped_cells"] = at_main["skipped_cells"]
+        pipe_bs = kernel_configs["fused_overlap"]["batch_size"]
+        out["fused_at_pipelined_batches"] = [
+            fused_vs_plain(f"fused_{arm}@batch{lo // pipe_bs}",
+                           slice(lo, lo + pipe_bs))[1]
+            for lo in range(0, n_q, pipe_bs)]
         out["tied_bins"] = int((tiled[0].view(n_q, n_tiles, 2, 128)[:, :, 0]
                                 == tiled[0].view(n_q, n_tiles, 2, 128)[:, :, 1]
                                 ).sum())
-        del tiled, fused, fplain
+        del tiled, fused
         for kern, fn, pfn, kw in (
-                ("tiled", ck.binned_select_int, ck.binned_select_int_plain, {}),
-                ("streaming", ck.stream_select_int,
-                 ck.binned_select_int_plain, {}),
-                ("fused", ck.fused_select_int, ck.fused_select_int_plain,
+                ("tiled", ck.binned_select, ck.binned_select_plain, {}),
+                ("streaming", ck.stream_select, ck.binned_select_plain, {}),
+                ("fused", ck.fused_select, ck.fused_select_plain,
                  {"keep": keep})):
             pkw = dict(kw, block_q=ck.QUERY_BLOCK, seg_tiles=seg) if kw else {}
             out[f"{kern}_ms"] = time_cuda(
@@ -853,14 +872,14 @@ def main(argv=None) -> int:
                 args = int_case(dev, arm, n_q, n, dim, tile, dim + n_q)
                 n_tiles = args[2].shape[0] // tile
                 seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused", arm)
-                plain = ck.binned_select_int_plain(*args, tile_n=tile)
-                tiled = ck.binned_select_int(*args, tile_n=tile)
+                plain = ck.binned_select_plain(*args, tile_n=tile)
+                tiled = ck.binned_select(*args, tile_n=tile)
                 got = {"tiled": (tiled, plain),
-                       "streaming": (ck.stream_select_int(*args, tile_n=tile),
+                       "streaming": (ck.stream_select(*args, tile_n=tile),
                                      plain),
-                       "fused": (ck.fused_select_int(*args, tile_n=tile,
-                                                     keep=keep),
-                                 ck.fused_select_int_plain(
+                       "fused": (ck.fused_select(*args, tile_n=tile,
+                                                 keep=keep),
+                                 ck.fused_select_plain(
                                      *args, tile_n=tile, keep=keep,
                                      block_q=ck.QUERY_BLOCK, seg_tiles=seg))}
                 for kern, (k_out, p_out) in got.items():
@@ -881,11 +900,11 @@ def main(argv=None) -> int:
             n_tiles = t.shape[0] // ck.TILE_N
             seg = ck.kernel_segment_tiles(fq.shape[0], n_tiles, dev, "fused",
                                           arm)
-            kern = ck.fused_select_int(qi, qsc, t, aux, tile_n=ck.TILE_N,
-                                       keep=keep)
-            plain = ck.fused_select_int_plain(qi, qsc, t, aux, tile_n=ck.TILE_N,
-                                              keep=keep, block_q=ck.QUERY_BLOCK,
-                                              seg_tiles=seg)
+            kern = ck.fused_select(qi, qsc, t, aux, tile_n=ck.TILE_N,
+                                   keep=keep)
+            plain = ck.fused_select_plain(qi, qsc, t, aux, tile_n=ck.TILE_N,
+                                          keep=keep, block_q=ck.QUERY_BLOCK,
+                                          seg_tiles=seg)
             bitwise(f"fused_{arm} far-tile", kern, plain)
             skipped = int(ck.skipped_cells(kern[0], n_tiles).sum())
             if skipped < 1:
@@ -910,6 +929,7 @@ def main(argv=None) -> int:
         del u8
         t0 = time.perf_counter()
         S["knn"]._quant_placement("int4")
+        torch.cuda.synchronize()
         D4 = dict(S, setup_s=time.perf_counter() - t0)
         out = {"phase": "quant"}
         for arm, D in (("int8", D8), ("int4", D4)):

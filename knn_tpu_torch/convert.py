@@ -7,9 +7,10 @@ arrays, the same way: cosine rows are normalized once in float64
 (``sharded.py:612-621``), the f64 ``db_norm_max`` certificate term is
 computed once (``_db_norm_max``), and the bf16x3 coarse pass's db parts
 are split once at placement (the JAX package re-splits per call inside
-its jitted program; the values are the same).  uint8 source rows are kept
-beside the f32 ones unless the metric is cosine (``sharded.py:561-571``),
-so the int8 arm quantizes them byte-exact (ops.quantize.from_uint8).
+its jitted program; the values are the same).  A uint8 source is marked
+unless the metric is cosine (``sharded.py:561-571``), so the int8 arm
+places its bytes byte-exact (ops.quantize.from_uint8); the f32 rows hold
+them exactly, so nothing of the caller's array is kept.
 Tests build both sides from one numpy array through this function.
 """
 
@@ -45,9 +46,9 @@ class Placement:
     metric: str
     labels: Optional[torch.Tensor] = None
     num_classes: Optional[int] = None
-    #: the uint8 source rows (bvecs payloads) when the metric is not
+    #: the rows came as uint8 (bvecs payloads) and the metric is not
     #: cosine: the int8 arm places them byte-exact at unit scale
-    uint8_host: Optional[np.ndarray] = None
+    uint8_source: bool = False
 
     @property
     def n_train(self) -> int:
@@ -76,10 +77,8 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
     if metric not in PORTED_METRICS:
         raise ValueError(
             f"metric {metric!r} is not ported; expected one of {PORTED_METRICS}")
-    uint8_host = None
-    if isinstance(train, np.ndarray) and train.dtype == np.uint8 \
-            and metric != "cosine":
-        uint8_host = train
+    uint8_source = (isinstance(train, np.ndarray) and train.dtype == np.uint8
+                    and metric != "cosine")
     host = np.ascontiguousarray(np.asarray(train, dtype=np.float32))
     if host.ndim != 2 or host.shape[0] == 0:
         raise ValueError(f"train must be a non-empty [N, D] array, got {host.shape}")
@@ -104,4 +103,4 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
                      db_norm_max=db_norm_max,
                      metric="l2" if metric in L2_FAMILY else metric,
                      labels=lab, num_classes=num_classes,
-                     uint8_host=uint8_host)
+                     uint8_source=uint8_source)

@@ -21,13 +21,12 @@ What runs where:
   bitwise; K11 adds the fused arm's early-out, which pads skipped tiles
   (plain version :func:`fused_select_plain`).
 - K5 and K6, the quantized arms (``precision="int8"`` and ``"int4"``),
-  are int entries of the same two sources (wrappers
-  :func:`binned_select_int`, :func:`stream_select_int`,
-  :func:`fused_select_int`; plain versions :func:`binned_select_int_plain`
-  and :func:`fused_select_int_plain`): an exact int32 dot of int8
-  queries against int8 (or nibble-packed int4) db rows, one f32 rescale
-  ``(f32(dot) * qsc) * ts``, then the same emitter.  They are integer
-  exact up to that one rounding, so every int kernel is held bitwise.
+  are int entries of the same two sources behind the same three
+  wrappers, which tell the arm by their operands' dtypes: an exact int32
+  dot of int8 queries against int8 (or nibble-packed int4) db rows, one
+  f32 rescale ``(f32(dot) * qsc) * ts``, then the same emitter.  They are
+  integer exact up to that one rounding, so every int kernel is held
+  bitwise against its plain version.
 - Everything else is plain PyTorch, as in the JAX package's XLA code:
   the prologues (:func:`prepare_db`: dim padding to 128, ``PAD_VAL`` row
   padding, the bf16 hi/lo split, the norm rows; :func:`quantize_queries`,
@@ -86,6 +85,10 @@ GRID_ORDERS = ("query_major", "db_major")
 KERNELS = ("tiled", "streaming", "fused")
 #: the quantized arms, by the dtype of their db operand (int4 is packed)
 INT_ARMS = {"int8": torch.int8, "int4": torch.uint8}
+#: the arms the coarse kernels run, and their codes in binned_stream.cu's
+#: C entries; every wrapper counts its launches per arm
+ARMS = ("bf16x3", *INT_ARMS)
+_ARM_CODES = {arm: code for code, arm in enumerate(ARMS)}
 PORTED = {"precision": ("bf16x3", "int8", "int4"), "binning": ("grouped",),
           "grid_order": ("query_major",),
           "kernel": ("tiled", "streaming", "fused"),
@@ -351,10 +354,11 @@ def _select_tiles(score_tile, n_tiles: int, tile_n: int):
     return tuple(torch.cat([o[j] for o in outs], 1) for j in range(3))
 
 
-def binned_select_plain(q, th, tl, tnorm, *, tile_n: int):
-    """K1 in plain PyTorch, tile by tile: an f32 matmul of the upcast bf16
+def _bf16x3_scores(q, th, tl, tnorm):
+    """K1's scores in plain PyTorch: an f32 matmul of the upcast bf16
     parts summed per 128-dim chunk (``qh.th + qh.tl + ql.th``), then
-    ``s = tnorm[0] - 2 qt`` through :func:`_select_tile`."""
+    ``s = tnorm[0] - 2 qt``.  Returns ``(scores(ti, rows), Np)``, the
+    scores of a tile's db rows for :func:`_select_tiles`."""
     dp = q.shape[1]
     qh, ql = (p.float() for p in split_bf16(q))
 
@@ -368,19 +372,18 @@ def binned_select_plain(q, th, tl, tnorm, *, tile_n: int):
             qt = part if qt is None else qt + part
         return tnorm[0, rows][None, :] - 2.0 * qt
 
-    return _select_tiles(scores, th.shape[0] // tile_n, tile_n)
+    return scores, th.shape[0]
 
 
-def binned_select_int_plain(qi, qsc, t, aux, *, tile_n: int):
-    """K5 (``t`` int8 [Np, Dp]) and K6 (``t`` nibble-packed uint8
-    [Np, Dp/2]) in plain PyTorch: the exact integer dot ``qi . ti`` as a
-    float64 matmul of the integer values (exact far past any real dim,
-    and the same on the CPU and the card: CPU torch's int8 matmul wraps
-    in int8), cast to int32 and rounded once to f32, then the JAX
+def _int_scores(qi, qsc, t, aux):
+    """K5's (``t`` int8 [Np, Dp]) and K6's (``t`` nibble-packed uint8
+    [Np, Dp/2]) scores in plain PyTorch: the exact integer dot ``qi . ti``
+    as a float64 matmul of the integer values (exact far past any real
+    dim, and the same on the CPU and the card: CPU torch's int8 matmul
+    wraps in int8), cast to int32 and rounded once to f32, then the JAX
     package's rescale order ``(f32(dot) * qsc) * ts``
-    (pallas_knn.py:475-476) and ``s = tn - 2 qt`` through
-    :func:`_select_tile`.  ``aux`` is [2, Np]: row norms over row
-    scales."""
+    (pallas_knn.py:475-476) and ``s = tn - 2 qt``.  ``aux`` is [2, Np]:
+    row norms over row scales.  Returns as :func:`_bf16x3_scores`."""
     tv = t if t.dtype == torch.int8 else unpack_nibbles_t(t, DIM_CHUNK)
     q64 = qi.double()
 
@@ -389,10 +392,33 @@ def binned_select_int_plain(qi, qsc, t, aux, *, tile_n: int):
         qt = (dot * qsc[:, None]) * aux[1, rows][None, :]
         return aux[0, rows][None, :] - 2.0 * qt
 
-    return _select_tiles(scores, t.shape[0] // tile_n, tile_n)
+    return scores, t.shape[0]
 
 
-def _check_operands(q, th, tl, tnorm, tile_n: int) -> None:
+def binned_select_plain(*operands: torch.Tensor, tile_n: int):
+    """The coarse kernels' function in plain PyTorch, tile by tile through
+    :func:`_select_tile`: K1 and K10 from the bf16x3 operands ``(q, th,
+    tl, tnorm)``, K5 and K6 from the int operands ``(qi, qsc, t, aux)``
+    (:func:`binned_select` describes both), told apart by the query
+    operand's dtype."""
+    scores, n_p = (_int_scores if operands[0].dtype == torch.int8
+                   else _bf16x3_scores)(*operands)
+    return _select_tiles(scores, n_p // tile_n, tile_n)
+
+
+def _check_operands(operands, tile_n: int) -> Tuple[str, int]:
+    """Checks a coarse kernel's four operands — the bf16x3 ``(q, th, tl,
+    tnorm)`` or an int arm's ``(qi, qsc, t, aux)``, told apart by the
+    query operand's dtype — and returns the arm and the padded db rows."""
+    if len(operands) != 4:
+        raise ValueError(f"a coarse kernel takes 4 operands, got {len(operands)}")
+    if operands[0].dtype == torch.int8:
+        return _check_int_operands(*operands, tile_n), operands[2].shape[0]
+    _check_bf16x3_operands(*operands, tile_n)
+    return "bf16x3", operands[1].shape[0]
+
+
+def _check_bf16x3_operands(q, th, tl, tnorm, tile_n: int) -> None:
     if q.dtype != torch.float32 or q.dim() != 2 or not q.is_contiguous():
         raise ValueError("q must be a contiguous [Q, Dp] float32 tensor")
     if th.dtype != torch.bfloat16 or tl.dtype != torch.bfloat16:
@@ -500,48 +526,32 @@ def _launch(library: str, name: str, operands, n_rows: int, tile_n: int,
     return cd, ci, bounds
 
 
-def binned_select(q, th, tl, tnorm, *, tile_n: int):
-    """K1's wrapper: ``(cd [Q, T*256] f32, ci [Q, T*256] i32,
-    bounds [Q, T*128] f32)`` from ``q [Q, Dp] f32``, the db parts
-    ``th, tl [Np, Dp] bf16`` and ``tnorm [8, Np] f32``.
+def binned_select(*operands: torch.Tensor, tile_n: int):
+    """The tiled wrapper — K1 (bf16x3), K5 (int8), K6 (int4): ``(cd
+    [Q, T*256] f32, ci [Q, T*256] i32, bounds [Q, T*128] f32)`` from four
+    operands, the arm told by their dtypes:
 
-    On a CUDA tensor it launches the kernel (built from
+    - bf16x3: ``q [Q, Dp] f32`` (:func:`pad_queries`), the db parts ``th,
+      tl [Np, Dp] bf16`` and ``tnorm [8, Np] f32`` (:func:`prepare_db`);
+    - int8 / int4: ``qi [Q, Dp] int8`` and ``qsc [Q] f32``
+      (:func:`quantize_queries`), ``t`` int8 [Np, Dp] (int8) or
+      nibble-packed uint8 [Np, Dp/2] (int4) and ``aux [2, Np] f32``
+      (:func:`prepare_db_quant` / :func:`prepare_db_int`).
+
+    On a CUDA tensor it launches ``binned_select_<arm>`` (built from
     ``csrc/binned_coarse.cu`` at first use) on the current stream, or
     raises; on a CPU tensor it runs :func:`binned_select_plain`.
-    ``binned_select.launches`` counts kernel launches."""
-    _check_operands(q, th, tl, tnorm, tile_n)
-    if q.device.type == "cpu":
-        return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
-    out = _launch("binned_coarse", "binned_select_bf16x3", (q, th, tl, tnorm),
-                  th.shape[0], tile_n)
-    binned_select.launches += 1
+    ``binned_select.launches[arm]`` counts kernel launches."""
+    arm, n_p = _check_operands(operands, tile_n)
+    if operands[0].device.type == "cpu":
+        return binned_select_plain(*operands, tile_n=tile_n)
+    out = _launch("binned_coarse", f"binned_select_{arm}", operands, n_p,
+                  tile_n)
+    binned_select.launches[arm] += 1
     return out
 
 
-binned_select.launches = 0
-
-
-def binned_select_int(qi, qsc, t, aux, *, tile_n: int):
-    """K5's and K6's tiled wrapper: ``(cd, ci, bounds)`` as
-    :func:`binned_select` from the int arms' operands — ``qi [Q, Dp]
-    int8``, ``qsc [Q] f32`` (:func:`quantize_queries`), ``t`` int8
-    [Np, Dp] (K5) or nibble-packed uint8 [Np, Dp/2] (K6) and ``aux [2, Np]
-    f32`` (:func:`prepare_db_quant` / :func:`prepare_db_int`).
-
-    On a CUDA tensor it launches ``binned_select_int8`` or
-    ``binned_select_int4`` (``csrc/binned_coarse.cu``), or raises; on a
-    CPU tensor it runs :func:`binned_select_int_plain`.
-    ``binned_select_int.launches[arm]`` counts each kernel's launches."""
-    arm = _check_int_operands(qi, qsc, t, aux, tile_n)
-    if qi.device.type == "cpu":
-        return binned_select_int_plain(qi, qsc, t, aux, tile_n=tile_n)
-    out = _launch("binned_coarse", f"binned_select_{arm}", (qi, qsc, t, aux),
-                  t.shape[0], tile_n)
-    binned_select_int.launches[arm] += 1
-    return out
-
-
-binned_select_int.launches = {arm: 0 for arm in INT_ARMS}
+binned_select.launches = dict.fromkeys(ARMS, 0)
 
 
 def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
@@ -553,10 +563,6 @@ def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
     n_blocks = -(-n_q // QUERY_BLOCK)
     n_seg = max(1, min(n_tiles, wave_ctas // max(1, n_blocks)))
     return -(-n_tiles // n_seg)
-
-
-#: the arm codes of binned_stream.cu's C entries
-_ARM_CODES = {"bf16x3": 0, "int8": 1, "int4": 2}
 
 
 def _stream_ctas_per_sm(device: torch.device, kernel: str,
@@ -602,47 +608,29 @@ def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str,
         n_q, n_tiles, n_sm * _stream_ctas_per_sm(device, kernel, precision))
 
 
-def stream_select(q, th, tl, tnorm, *, tile_n: int):
-    """K10's wrapper (``kernel="streaming"``): the same function, operands
-    and outputs as :func:`binned_select`, computed by one launch whose
-    CTAs stream the db tiles through a cp.async double buffer
-    (``csrc/binned_stream.cu``); its outputs are bitwise equal to K1's.
-    Its plain version is :func:`binned_select_plain` (the function is the
-    same), which it runs for CPU tensors.  ``stream_select.launches``
-    counts kernel launches."""
-    _check_operands(q, th, tl, tnorm, tile_n)
+def stream_select(*operands: torch.Tensor, tile_n: int):
+    """The streaming wrapper (``kernel="streaming"``) — K10 (bf16x3) and
+    the int arms' streaming entries: the function, operands and outputs
+    of :func:`binned_select`, computed by one launch of
+    ``stream_select_<arm>`` whose CTAs stream the db tiles through a
+    cp.async double buffer (``csrc/binned_stream.cu``); its outputs are
+    bitwise the tiled kernel's.  Its plain version is
+    :func:`binned_select_plain` (the function is the same), which it runs
+    for CPU tensors.  ``stream_select.launches[arm]`` counts kernel
+    launches."""
+    arm, n_p = _check_operands(operands, tile_n)
+    q = operands[0]
     if q.device.type == "cpu":
-        return binned_select_plain(q, th, tl, tnorm, tile_n=tile_n)
-    seg = kernel_segment_tiles(q.shape[0], th.shape[0] // tile_n, q.device,
-                               "streaming")
-    out = _launch("binned_stream", "stream_select_bf16x3", (q, th, tl, tnorm),
-                  th.shape[0], tile_n, seg)
-    stream_select.launches += 1
-    return out
-
-
-stream_select.launches = 0
-
-
-def stream_select_int(qi, qsc, t, aux, *, tile_n: int):
-    """The int arms' streaming wrapper (``kernel="streaming"``): the
-    function, operands and outputs of :func:`binned_select_int`, computed
-    by one launch of ``stream_select_int8`` / ``stream_select_int4``
-    (``csrc/binned_stream.cu``), bitwise equal to the tiled kernel's.  Its
-    plain version is :func:`binned_select_int_plain`, which it runs for
-    CPU tensors.  ``stream_select_int.launches[arm]`` counts launches."""
-    arm = _check_int_operands(qi, qsc, t, aux, tile_n)
-    if qi.device.type == "cpu":
-        return binned_select_int_plain(qi, qsc, t, aux, tile_n=tile_n)
-    seg = kernel_segment_tiles(qi.shape[0], t.shape[0] // tile_n, qi.device,
+        return binned_select_plain(*operands, tile_n=tile_n)
+    seg = kernel_segment_tiles(q.shape[0], n_p // tile_n, q.device,
                                "streaming", arm)
-    out = _launch("binned_stream", f"stream_select_{arm}", (qi, qsc, t, aux),
-                  t.shape[0], tile_n, seg)
-    stream_select_int.launches[arm] += 1
+    out = _launch("binned_stream", f"stream_select_{arm}", operands, n_p,
+                  tile_n, seg)
+    stream_select.launches[arm] += 1
     return out
 
 
-stream_select_int.launches = {arm: 0 for arm in INT_ARMS}
+stream_select.launches = dict.fromkeys(ARMS, 0)
 
 
 def _early_out(out, n_tiles: int, keep: Optional[int], block_q: int,
@@ -691,69 +679,42 @@ def _early_out(out, n_tiles: int, keep: Optional[int], block_q: int,
     return cd, ci, bounds
 
 
-def fused_select_plain(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int],
-                       block_q: int = QUERY_BLOCK,
+def fused_select_plain(*operands: torch.Tensor, tile_n: int,
+                       keep: Optional[int], block_q: int = QUERY_BLOCK,
                        seg_tiles: Optional[int] = None):
-    """K11 in plain PyTorch: :func:`binned_select_plain`, then the
-    early-out (:func:`_early_out`) at the given geometry.  Depth 0 (keep
-    None or too deep) skips nothing: the output is K10's."""
-    return _early_out(binned_select_plain(q, th, tl, tnorm, tile_n=tile_n),
-                      th.shape[0] // tile_n, keep, block_q, seg_tiles)
+    """The fused kernels (K11 and the int arms' fused entries) in plain
+    PyTorch: :func:`binned_select_plain`, then the early-out
+    (:func:`_early_out`) at the given geometry.  Depth 0 (keep None or
+    too deep) skips nothing: the output is the streaming kernel's."""
+    out = binned_select_plain(*operands, tile_n=tile_n)
+    return _early_out(out, out[2].shape[1] // BIN_W, keep, block_q,
+                      seg_tiles)
 
 
-def fused_select_int_plain(qi, qsc, t, aux, *, tile_n: int,
-                           keep: Optional[int], block_q: int = QUERY_BLOCK,
-                           seg_tiles: Optional[int] = None):
-    """The int arms' fused kernels in plain PyTorch:
-    :func:`binned_select_int_plain`, then :func:`_early_out`."""
-    return _early_out(
-        binned_select_int_plain(qi, qsc, t, aux, tile_n=tile_n),
-        t.shape[0] // tile_n, keep, block_q, seg_tiles)
-
-
-def fused_select(q, th, tl, tnorm, *, tile_n: int, keep: Optional[int]):
-    """K11's wrapper (``kernel="fused"``): K10 plus the early-out that
-    pads a tile's block for a query block when no row of the block can
-    use it; ``keep`` (= m+2, the final select's width) sizes the carry,
-    None disarms it.  On a CUDA tensor it launches the kernel
-    (``csrc/binned_stream.cu``) at :func:`kernel_segment_tiles`, or raises; on
-    a CPU tensor it runs :func:`fused_select_plain` at the CPU geometry.
-    ``fused_select.launches`` counts kernel launches."""
-    _check_operands(q, th, tl, tnorm, tile_n)
-    seg = kernel_segment_tiles(q.shape[0], th.shape[0] // tile_n, q.device,
-                               "fused")
+def fused_select(*operands: torch.Tensor, tile_n: int, keep: Optional[int]):
+    """The fused wrapper (``kernel="fused"``) — K11 (bf16x3) and the int
+    arms' fused entries: the streaming kernel plus the early-out that pads
+    a tile's block for a query block when no row of the block can use it;
+    ``keep`` (= m+2, the final select's width) sizes the carry, None
+    disarms it.  Operands as :func:`binned_select` takes them.  On a CUDA
+    tensor it launches ``fused_select_<arm>`` (``csrc/binned_stream.cu``)
+    at :func:`kernel_segment_tiles`, or raises; on a CPU tensor it runs
+    :func:`fused_select_plain` at the CPU geometry.
+    ``fused_select.launches[arm]`` counts kernel launches."""
+    arm, n_p = _check_operands(operands, tile_n)
+    q = operands[0]
+    seg = kernel_segment_tiles(q.shape[0], n_p // tile_n, q.device, "fused",
+                               arm)
     if q.device.type == "cpu":
-        return fused_select_plain(q, th, tl, tnorm, tile_n=tile_n, keep=keep,
+        return fused_select_plain(*operands, tile_n=tile_n, keep=keep,
                                   seg_tiles=seg)
-    out = _launch("binned_stream", "fused_select_bf16x3", (q, th, tl, tnorm),
-                  th.shape[0], tile_n, seg, carry_depth(keep))
-    fused_select.launches += 1
+    out = _launch("binned_stream", f"fused_select_{arm}", operands, n_p,
+                  tile_n, seg, carry_depth(keep))
+    fused_select.launches[arm] += 1
     return out
 
 
-fused_select.launches = 0
-
-
-def fused_select_int(qi, qsc, t, aux, *, tile_n: int, keep: Optional[int]):
-    """The int arms' fused wrapper (``kernel="fused"``): the streaming
-    int kernel plus the early-out, as :func:`fused_select` is for bf16x3.
-    On a CUDA tensor it launches ``fused_select_int8`` /
-    ``fused_select_int4`` (``csrc/binned_stream.cu``), or raises; on a
-    CPU tensor it runs :func:`fused_select_int_plain` at the CPU geometry.
-    ``fused_select_int.launches[arm]`` counts launches."""
-    arm = _check_int_operands(qi, qsc, t, aux, tile_n)
-    seg = kernel_segment_tiles(qi.shape[0], t.shape[0] // tile_n, qi.device,
-                               "fused", arm)
-    if qi.device.type == "cpu":
-        return fused_select_int_plain(qi, qsc, t, aux, tile_n=tile_n,
-                                      keep=keep, seg_tiles=seg)
-    out = _launch("binned_stream", f"fused_select_{arm}", (qi, qsc, t, aux),
-                  t.shape[0], tile_n, seg, carry_depth(keep))
-    fused_select_int.launches[arm] += 1
-    return out
-
-
-fused_select_int.launches = {arm: 0 for arm in INT_ARMS}
+fused_select.launches = dict.fromkeys(ARMS, 0)
 
 
 def skipped_cells(cd: torch.Tensor, n_tiles: int,
@@ -789,26 +750,23 @@ def _bin_candidates(queries: torch.Tensor, db: Optional[torch.Tensor], *,
     Returns cd, ci, bounds for the query rows given (the JAX kernel's
     query padding never leaves it)."""
     if precision == "bf16x3":
-        th, tl, tnorm = (db_parts if db_parts is not None
-                         else prepare_db(db, tile_n))
-        qp = pad_queries(queries)
-        if kernel == "fused":
-            return fused_select(qp, th, tl, tnorm, tile_n=tile_n, keep=keep)
-        fn = stream_select if kernel == "streaming" else binned_select
-        return fn(qp, th, tl, tnorm, tile_n=tile_n)
-    if db_parts is None:
-        db_parts = (prepare_db_quant(*db_quant, tile_n) if db_quant is not None
-                    else prepare_db_int(db, tile_n, precision, offset))
-    t, aux = db_parts
-    if t.dtype != INT_ARMS[precision]:
-        raise ValueError(
-            f"precision={precision!r} takes a {INT_ARMS[precision]} db "
-            f"operand, got {t.dtype}")
-    qi, qsc = quantize_queries(queries, offset)
+        parts = db_parts if db_parts is not None else prepare_db(db, tile_n)
+        operands = (pad_queries(queries), *parts)
+    else:
+        if db_parts is None:
+            db_parts = (prepare_db_quant(*db_quant, tile_n)
+                        if db_quant is not None
+                        else prepare_db_int(db, tile_n, precision, offset))
+        t, aux = db_parts
+        if t.dtype != INT_ARMS[precision]:
+            raise ValueError(
+                f"precision={precision!r} takes a {INT_ARMS[precision]} db "
+                f"operand, got {t.dtype}")
+        operands = (*quantize_queries(queries, offset), t, aux)
     if kernel == "fused":
-        return fused_select_int(qi, qsc, t, aux, tile_n=tile_n, keep=keep)
-    fn = stream_select_int if kernel == "streaming" else binned_select_int
-    return fn(qi, qsc, t, aux, tile_n=tile_n)
+        return fused_select(*operands, tile_n=tile_n, keep=keep)
+    fn = stream_select if kernel == "streaming" else binned_select
+    return fn(*operands, tile_n=tile_n)
 
 
 def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,

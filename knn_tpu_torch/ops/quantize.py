@@ -69,14 +69,23 @@ def quantize_rows_np(x: np.ndarray, offset: float = 0.0) -> QuantizedRows:
     return QuantizedRows(q, scales, float(offset))
 
 
-def quantize_rows(x: torch.Tensor):
-    """Per-row symmetric int8 quantization of f32 rows ``x`` (any offset
-    already applied): ``(values int8, scales f32)``."""
+def _quantize_t(x: torch.Tensor, levels: float, recip: float, eager: bool):
     x = x.float()
     amax = x.abs().amax(-1)
-    scales = torch.where(amax > 0, amax * _RECIP_127, torch.ones_like(amax))
-    q = torch.clamp(torch.round(x / scales[:, None]), -127, 127).to(torch.int8)
-    return q, scales
+    scaled = amax / levels if eager else amax * recip
+    scales = torch.where(amax > 0, scaled, torch.ones_like(amax))
+    q = torch.clamp(torch.round(x / scales[:, None]), -levels, levels)
+    return q.to(torch.int8), scales
+
+
+def quantize_rows(x: torch.Tensor, *, eager: bool = False):
+    """Per-row symmetric int8 quantization of f32 rows ``x`` (any offset
+    already applied): ``(values int8, scales f32)``.  The scale is
+    ``amax * f32(1/127)``, as the reference's compiled programs compute
+    it (the queries); ``eager`` divides, as its numpy and eager functions
+    do, so the result is bitwise :func:`quantize_rows_np`'s (the db
+    placement)."""
+    return _quantize_t(x, 127.0, _RECIP_127, eager)
 
 
 def dequantize(qr: QuantizedRows) -> np.ndarray:
@@ -109,15 +118,12 @@ def quantize_rows_int4_np(x: np.ndarray, offset: float = 0.0) -> QuantizedRows:
     return QuantizedRows(q, scales, float(offset))
 
 
-def quantize_rows_int4(x: torch.Tensor):
+def quantize_rows_int4(x: torch.Tensor, *, eager: bool = False):
     """Torch twin of :func:`quantize_rows_int4_np` (offset already
-    applied): ``(values int8 in [-7, 7], scales f32)``.  Queries of the
-    int4 arm stay int8 (:func:`quantize_rows`)."""
-    x = x.float()
-    amax = x.abs().amax(-1)
-    scales = torch.where(amax > 0, amax * _RECIP_INT4, torch.ones_like(amax))
-    q = torch.clamp(torch.round(x / scales[:, None]), -7, 7).to(torch.int8)
-    return q, scales
+    applied): ``(values int8 in [-7, 7], scales f32)``, the scale
+    multiplied or divided as :func:`quantize_rows` computes it.  Queries
+    of the int4 arm stay int8 (:func:`quantize_rows`)."""
+    return _quantize_t(x, _INT4_RANGE, _RECIP_INT4, eager)
 
 
 def pack_nibbles(values: np.ndarray, dim_chunk: int = 128) -> np.ndarray:
@@ -203,6 +209,31 @@ def db_bound_stats(qr: QuantizedRows, original: np.ndarray, *,
         "db_norm_max": float(nrm),
         "dim": int(qr.values.shape[1]),
     }
+
+
+def db_bound_stats_t(values: torch.Tensor, scales: torch.Tensor,
+                     original: torch.Tensor, offset: float, *,
+                     chunk: int = 65536):
+    """Torch twin of :func:`db_bound_stats` on the rows' device, in
+    float64 and chunked as it is (``values`` int8 [N, D] unpacked,
+    ``original`` the f32 rows), with the rows' f32 shifted-space squared
+    norms (float64 sums cast to f32, as the reference's placements
+    compute them) as a second result: ``(stats, norms [N])``."""
+    n = values.shape[0]
+    norms = torch.empty(n, dtype=torch.float32, device=values.device)
+    maxima = torch.zeros(3, dtype=torch.float64, device=values.device)
+    for lo in range(0, n, chunk):
+        rows = slice(lo, lo + chunk)
+        t_sh = original[rows].double() - offset
+        t_hat = scales[rows, None].double() * values[rows].double()
+        nrm = (t_sh * t_sh).sum(-1)
+        norms[lo : lo + chunk] = nrm.float()
+        maxima = torch.maximum(maxima, torch.stack([
+            (t_hat * t_hat).sum(-1).sqrt().max(),
+            ((t_hat - t_sh) ** 2).sum(-1).sqrt().max(), nrm.max()]))
+    t2hat, et2, nrm = maxima.tolist()
+    return {"t2hat_max": t2hat, "et2_max": et2, "db_norm_max": nrm,
+            "dim": int(values.shape[1])}, norms
 
 
 def bound_consts(stats: dict) -> np.ndarray:

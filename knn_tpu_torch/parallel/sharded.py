@@ -55,10 +55,9 @@ from knn_tpu_torch.ops.coarse_knn import (
     prepare_db_quant,
 )
 from knn_tpu_torch.ops.metrics import L2_FAMILY
-from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats,
-                                        from_uint8, pack_nibbles,
-                                        quantize_rows_int4_np,
-                                        quantize_rows_np,
+from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats_t,
+                                        pack_nibbles_t, quantize_rows,
+                                        quantize_rows_int4,
                                         score_error_bound_device)
 from knn_tpu_torch.ops.topk import I32MAX, knn_search_tiled
 from knn_tpu_torch.ops.vote import majority_vote
@@ -155,8 +154,8 @@ class ShardedKNN:
         self.train_tile = train_tile
         self.n_train = pl.n_train
         self.num_classes = pl.num_classes
-        #: coarse-pass db parts for tiles whose padding differs from the
-        #: placement's, and the int arms' padded parts, built on first use
+        #: coarse-pass db parts of each arm for tiles whose padding differs
+        #: from the placement's, built on first use
         self._parts = {}
         #: the int8 / int4 placements, by precision, built on first use
         self._quant = {}
@@ -210,67 +209,68 @@ class ShardedKNN:
 
     # -- certified path ----------------------------------------------------
     def _coarse_parts(self, tile: int, precision: str = "bf16x3"):
-        """The db parts of arm ``precision`` padded for ``tile``: for
-        bf16x3 the placement's own when its padding matches, else
-        prepared once and kept; for int8 / int4 the quantized placement's
-        ``(t, aux)`` (coarse_knn.prepare_db_quant), prepared once per
-        padding and kept."""
-        pl = self.placement
+        """The db parts of arm ``precision`` padded for ``tile``: the
+        placement's own — the f32 placement's bf16 parts, or the quantized
+        placement's ``(t, aux)`` — when their padding matches, else padded
+        anew once and kept."""
         rows = _round_up(self.n_train, tile)
         if precision in INT_ARMS:
-            key = (precision, rows)
-            if key not in self._parts:
-                qp = self._quant_placement(precision)
-                self._parts[key] = prepare_db_quant(
-                    qp["values"], qp["scales"], qp["norms"], tile)
-            return self._parts[key]
-        if pl.th.shape[0] == rows:
-            return pl.th, pl.tl, pl.tnorm
-        if rows not in self._parts:
-            self._parts[rows] = prepare_db(pl.db, tile)
-        return self._parts[rows]
+            own = self._quant_placement(precision)["parts"]
+        else:
+            pl = self.placement
+            own = (pl.th, pl.tl, pl.tnorm)
+        if own[0].shape[0] == rows:
+            return own
+        key = (precision, rows)
+        if key not in self._parts:
+            n = self.n_train
+            if precision in INT_ARMS:
+                t, aux = own
+                self._parts[key] = prepare_db_quant(t[:n], aux[1, :n],
+                                                    aux[0, :n], tile)
+            else:
+                self._parts[key] = prepare_db(self.placement.db, tile)
+        return self._parts[key]
 
     def _quant_placement(self, precision: str) -> dict:
         """The int8 or int4 db placement, built on first use and kept —
         the JAX package's ``_int8_placement`` / ``_int4_placement``
-        (sharded.py:1203-1299).  Rows are quantized once on the host: int8
-        per row symmetric (uint8 sources byte-exact at unit scale through
-        ``from_uint8``, offset 128), int4 per row to [-7, 7] with dims
-        zero-padded to a DIM_CHUNK multiple and packed two per byte.  The
-        db-side bound statistics come from the actual residuals in
-        float64, the shifted-space row norms in float64 cast to f32.
-        Returns ``values`` (int8 [N, D] or packed uint8 [N, Dp/2]),
-        ``scales``, ``norms`` and ``consts`` (ops.quantize.bound_consts)
-        on the device, and the ``offset`` and ``stats``.  The f32 placement
-        stays for the rescore and the fallback repair."""
+        (sharded.py:1203-1299) — from the f32 placement's rows, on their
+        device: int8 per row symmetric (uint8 sources byte-exact at unit
+        scale, offset 128), int4 per row to [-7, 7] with dims zero-padded
+        to a DIM_CHUNK multiple and packed two per byte.  Values and
+        scales are bitwise the reference's numpy functions'
+        (ops.quantize.quantize_rows with ``eager``); the db-side bound
+        statistics and the shifted-space row norms are float64 over the
+        actual residuals (ops.quantize.db_bound_stats_t).  Returns
+        ``parts``, the kernel operands ``(t, aux)`` padded as the f32
+        placement's bf16 parts are (coarse_knn.prepare_db_quant), and
+        ``consts`` (ops.quantize.bound_consts) on the device, ``offset``
+        and ``stats``.  The f32 placement stays for the rescore and the
+        fallback repair."""
         if precision not in self._quant:
             pl = self.placement
-            host = pl.db_host
-            if precision == "int8":
-                if pl.uint8_host is not None:
-                    qr = from_uint8(pl.uint8_host)
-                    original = pl.uint8_host
-                else:
-                    qr = quantize_rows_np(host)
-                    original = host
-                values = qr.values
+            byte_exact = precision == "int8" and pl.uint8_source
+            offset = 128.0 if byte_exact else 0.0
+            shifted = pl.db - offset
+            if byte_exact:  # ops.quantize.from_uint8 on the device
+                values = shifted.to(torch.int8)
+                scales = torch.ones(self.n_train, device=self.device)
+            elif precision == "int8":
+                values, scales = quantize_rows(shifted, eager=True)
             else:
-                qr = quantize_rows_int4_np(host)
-                original = host
-                dpad = _round_up(host.shape[1], DIM_CHUNK) - host.shape[1]
-                values = pack_nibbles(np.pad(qr.values, ((0, 0), (0, dpad))))
-            stats = db_bound_stats(qr, original)
-            norms = np.empty(host.shape[0], dtype=np.float32)
-            for lo in range(0, host.shape[0], 65536):
-                hs = host[lo : lo + 65536].astype(np.float64) - qr.offset
-                norms[lo : lo + hs.shape[0]] = (hs ** 2).sum(-1)
-            dev = self.device
+                values, scales = quantize_rows_int4(shifted, eager=True)
+            del shifted
+            stats, norms = db_bound_stats_t(values, scales, pl.db, offset)
+            if precision == "int4":
+                dpad = _round_up(values.shape[1], DIM_CHUNK) - values.shape[1]
+                values = pack_nibbles_t(
+                    torch.nn.functional.pad(values, (0, dpad)), DIM_CHUNK)
             self._quant[precision] = {
-                "values": torch.from_numpy(values).to(dev),
-                "scales": torch.from_numpy(qr.scales).to(dev),
-                "norms": torch.from_numpy(norms).to(dev),
-                "consts": torch.from_numpy(bound_consts(stats)).to(dev),
-                "offset": float(qr.offset),
+                "parts": prepare_db_quant(values, scales, norms,
+                                          pl.th.shape[0]),
+                "consts": torch.from_numpy(bound_consts(stats)).to(self.device),
+                "offset": offset,
                 "stats": stats,
             }
         return self._quant[precision]

@@ -174,7 +174,7 @@ def test_wrapper_checks_operands_and_counts_only_kernel_launches():
     q, db = _data(rng, 4, 256, 128)
     th, tl, tnorm = ck.prepare_db(torch.from_numpy(db), 256)
     qt = torch.from_numpy(q)
-    before = ck.binned_select.launches
+    before = dict(ck.binned_select.launches)
     out = ck.binned_select(qt, th, tl, tnorm, tile_n=256)
     assert ck.binned_select.launches == before  # CPU: the plain version
     ref = ck.binned_select_plain(qt, th, tl, tnorm, tile_n=256)

@@ -75,10 +75,10 @@ def test_cuda_kernel_matches_plain(cuda_device, dim, tile_n):
     q, db = _data(rng, 37, 3 * tile_n // 2 + 60, dim)
     th, tl, tnorm = ck.prepare_db(torch.from_numpy(db).to(cuda_device), tile_n)
     qp = ck.pad_queries(torch.from_numpy(q).to(cuda_device))
-    before = ck.binned_select.launches
+    before = ck.binned_select.launches["bf16x3"]
     kern = [a.cpu().numpy() for a in ck.binned_select(qp, th, tl, tnorm,
                                                       tile_n=tile_n)]
-    assert ck.binned_select.launches == before + 1
+    assert ck.binned_select.launches["bf16x3"] == before + 1
     plain = [a.cpu().numpy() for a in ck.binned_select_plain(
         qp, th, tl, tnorm, tile_n=tile_n)]
     tol = _tol(q, db)
@@ -95,9 +95,9 @@ def test_cuda_streaming_kernel_is_bitwise_k1(cuda_device, dim, tile_n):
     q, db = _data(rng, 37, 3 * tile_n // 2 + 60, dim)
     th, tl, tnorm = ck.prepare_db(torch.from_numpy(db).to(cuda_device), tile_n)
     qp = ck.pad_queries(torch.from_numpy(q).to(cuda_device))
-    before = ck.stream_select.launches
+    before = ck.stream_select.launches["bf16x3"]
     k10 = ck.stream_select(qp, th, tl, tnorm, tile_n=tile_n)
-    assert ck.stream_select.launches == before + 1
+    assert ck.stream_select.launches["bf16x3"] == before + 1
     k1 = ck.binned_select(qp, th, tl, tnorm, tile_n=tile_n)
     for a, b in zip(k10, k1):
         assert torch.equal(a, b)
@@ -122,9 +122,9 @@ def test_cuda_fused_kernel_matches_plain_and_skips(cuda_device, n_q):
     n_tiles = th.shape[0] // 256
     block_q = ck.QUERY_BLOCK
     seg = ck.kernel_segment_tiles(n_q, n_tiles, cuda_device, "fused")
-    before = ck.fused_select.launches
+    before = ck.fused_select.launches["bf16x3"]
     kern = ck.fused_select(qp, th, tl, tnorm, tile_n=256, keep=15)
-    assert ck.fused_select.launches == before + 1
+    assert ck.fused_select.launches["bf16x3"] == before + 1
     plain = ck.fused_select_plain(qp, th, tl, tnorm, tile_n=256, keep=15,
                                   block_q=block_q, seg_tiles=seg)
     skip_k = ck.skipped_cells(kern[0], n_tiles, block_q)
@@ -175,13 +175,13 @@ def _int_case(device, arm, n_q, n, dim, tile_n, seed):
                                               (256, 16384, 128, 16384)])
 def test_cuda_int_kernels_bitwise_plain(cuda_device, arm, n_q, n, dim, tile_n):
     args = _int_case(cuda_device, arm, n_q, n, dim, tile_n, dim + n_q)
-    plain = ck.binned_select_int_plain(*args, tile_n=tile_n)
-    before = dict(ck.binned_select_int.launches)
-    tiled = ck.binned_select_int(*args, tile_n=tile_n)
-    assert ck.binned_select_int.launches[arm] == before[arm] + 1
-    before = dict(ck.stream_select_int.launches)
-    stream = ck.stream_select_int(*args, tile_n=tile_n)
-    assert ck.stream_select_int.launches[arm] == before[arm] + 1
+    plain = ck.binned_select_plain(*args, tile_n=tile_n)
+    before = dict(ck.binned_select.launches)
+    tiled = ck.binned_select(*args, tile_n=tile_n)
+    assert ck.binned_select.launches[arm] == before[arm] + 1
+    before = dict(ck.stream_select.launches)
+    stream = ck.stream_select(*args, tile_n=tile_n)
+    assert ck.stream_select.launches[arm] == before[arm] + 1
     for a, b, c in zip(tiled, plain, stream):
         assert torch.equal(a, b) and torch.equal(c, b)
 
@@ -201,18 +201,18 @@ def test_cuda_fused_int_kernel_bitwise_plain_and_skips(cuda_device, arm, n_q):
     t, aux = ck.prepare_db_int(torch.from_numpy(db).to(cuda_device), 256, arm)
     n_tiles = t.shape[0] // 256
     seg = ck.kernel_segment_tiles(n_q, n_tiles, cuda_device, "fused", arm)
-    before = dict(ck.fused_select_int.launches)
-    kern = ck.fused_select_int(qi, qsc, t, aux, tile_n=256, keep=15)
-    assert ck.fused_select_int.launches[arm] == before[arm] + 1
-    plain = ck.fused_select_int_plain(qi, qsc, t, aux, tile_n=256, keep=15,
+    before = dict(ck.fused_select.launches)
+    kern = ck.fused_select(qi, qsc, t, aux, tile_n=256, keep=15)
+    assert ck.fused_select.launches[arm] == before[arm] + 1
+    plain = ck.fused_select_plain(qi, qsc, t, aux, tile_n=256, keep=15,
                                       block_q=ck.QUERY_BLOCK, seg_tiles=seg)
     for a, b in zip(kern, plain):
         assert torch.equal(a, b)
     if seg > 1:
         assert bool(ck.skipped_cells(kern[0], n_tiles).any())
     # disarmed, it is the streaming kernel
-    k10 = ck.stream_select_int(qi, qsc, t, aux, tile_n=256)
+    k10 = ck.stream_select(qi, qsc, t, aux, tile_n=256)
     for keep in (None, 128 * ck.MAX_CARRY_DEPTH + 1):
-        k11 = ck.fused_select_int(qi, qsc, t, aux, tile_n=256, keep=keep)
+        k11 = ck.fused_select(qi, qsc, t, aux, tile_n=256, keep=keep)
         for a, b in zip(k10, k11):
             assert torch.equal(a, b)

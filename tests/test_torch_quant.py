@@ -5,7 +5,7 @@ knn_tpu.parallel.sharded) and the float64 oracle.
 The int arms are integer exact up to one f32 rounding (the rescale), so
 their raw outputs are held bitwise against the Pallas kernel given the
 same operand arrays (ROADMAP, parity levels).  On the CPU the wrappers
-run the plain versions (binned_select_int_plain, fused_select_int_plain).
+run the plain versions (binned_select_plain, fused_select_plain).
 """
 
 import jax
@@ -66,14 +66,19 @@ def test_quantize_functions_bitwise_jax(kind):
         assert v.dtype == torch.int8 and s.dtype == torch.float32
         np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
         np.testing.assert_array_equal(s.numpy(), np.asarray(js))
-    for ours, theirs in ((pqz.quantize_rows_np, jqz.quantize_rows_np),
-                         (pqz.quantize_rows_int4_np,
-                          jqz.quantize_rows_int4_np)):
+    # against the numpy functions (the db placement): eager divides
+    for ours, ours_t, theirs in (
+            (pqz.quantize_rows_np, pqz.quantize_rows, jqz.quantize_rows_np),
+            (pqz.quantize_rows_int4_np, pqz.quantize_rows_int4,
+             jqz.quantize_rows_int4_np)):
         a, b = ours(x, offset=3.0), theirs(x, offset=3.0)
         np.testing.assert_array_equal(a.values, b.values)
         np.testing.assert_array_equal(a.scales, b.scales)
         assert a.offset == b.offset
         np.testing.assert_array_equal(pqz.dequantize(a), jqz.dequantize(b))
+        v, s = ours_t(torch.from_numpy(x) - 3.0, eager=True)
+        np.testing.assert_array_equal(v.numpy(), b.values)
+        np.testing.assert_array_equal(s.numpy(), b.scales)
     q4 = pqz.quantize_rows_int4_np(x).values
     packed = pqz.pack_nibbles(q4)
     np.testing.assert_array_equal(packed, jqz.pack_nibbles(q4))
@@ -109,6 +114,21 @@ def test_bound_stats_and_error_bounds_match_jax():
             np.testing.assert_array_equal(ours.values, theirs.values)
             stats = pqz.db_bound_stats(ours, db, chunk=64)
             assert stats == jqz.db_bound_stats(theirs, db, chunk=64)
+            # the device twin (the placement's): float64 sums in another
+            # order, exact on integer rows
+            stats_t, norms = pqz.db_bound_stats_t(
+                torch.from_numpy(ours.values), torch.from_numpy(ours.scales),
+                torch.from_numpy(db.astype(np.float32)), ours.offset, chunk=64)
+            assert stats_t.keys() == stats.keys()
+            for key, value in stats.items():
+                if src == "uint8":
+                    assert stats_t[key] == value
+                else:
+                    assert stats_t[key] == pytest.approx(value, rel=1e-12)
+            np.testing.assert_allclose(
+                norms.numpy(),
+                ((db.astype(np.float64) - ours.offset) ** 2).sum(-1),
+                rtol=2.0 ** -23)
             consts = pqz.bound_consts(stats)
             np.testing.assert_array_equal(consts, jqz.bound_consts(stats))
             np.testing.assert_array_equal(
@@ -165,7 +185,7 @@ def test_bound_dominates_observed_kernel_error(arm):
                                      torch.from_numpy(qr.scales), norms, 256)
         qi, qsc = ck.quantize_queries(torch.from_numpy(q), qr.offset)
         n_p = t.shape[0]
-        cd, ci, _ = ck.binned_select_int_plain(qi, qsc, t, aux, tile_n=n_p)
+        cd, ci, _ = ck.binned_select_plain(qi, qsc, t, aux, tile_n=n_p)
         # every emitted candidate's f32 score against its exact score
         q_sh = q.astype(np.float64) - qr.offset
         s_true = (t_sh ** 2).sum(-1)[None, :] - 2.0 * (q_sh @ t_sh.T)
@@ -213,11 +233,10 @@ def test_plain_int_arms_bitwise_pallas(arm, kernel, dim):
                                  2 * BIN_W)
     qi, qsc = ck.quantize_queries(torch.from_numpy(q))
     if kernel == "fused":  # at the Pallas kernel's query block
-        port = ck.fused_select_int_plain(qi, qsc, t, aux, tile_n=2 * BIN_W,
+        port = ck.fused_select_plain(qi, qsc, t, aux, tile_n=2 * BIN_W,
                                          keep=keep, block_q=8)
     else:
-        fn = ck.stream_select_int if kernel == "streaming" else \
-            ck.binned_select_int
+        fn = ck.stream_select if kernel == "streaming" else ck.binned_select
         before = dict(fn.launches)
         port = fn(qi, qsc, t, aux, tile_n=2 * BIN_W)
         assert fn.launches == before  # CPU: the plain version
@@ -241,7 +260,7 @@ def test_plain_fused_int_skips_the_cells_pallas_skips(arm):
     t, aux = ck.prepare_db_quant(*(torch.from_numpy(a) for a in trip),
                                  2 * BIN_W)
     qi, qsc = ck.quantize_queries(torch.from_numpy(q))
-    port = ck.fused_select_int_plain(qi, qsc, t, aux, tile_n=2 * BIN_W,
+    port = ck.fused_select_plain(qi, qsc, t, aux, tile_n=2 * BIN_W,
                                      keep=15, block_q=16)
     for a, b in zip(port, ref):
         np.testing.assert_array_equal(a.numpy(), b)
@@ -289,15 +308,16 @@ def test_int_operands_are_checked():
     t4, _ = ck.prepare_db_int(db, 256, "int4")
     assert t8.shape == (256, 128) and t4.shape == (256, 64)
     assert aux.shape == (2, 256) and t4.dtype == torch.uint8
-    with pytest.raises(ValueError, match="int8 tensor"):
-        ck.binned_select_int(qi.float(), qsc, t8, aux, tile_n=256)
+    with pytest.raises(ValueError, match="qsc"):
+        ck.binned_select(qi, qsc.double(), t8, aux, tile_n=256)
     with pytest.raises(ValueError, match="packed two per byte"):
-        ck.binned_select_int(qi, qsc, t4[:, :32].contiguous(), aux,
-                             tile_n=256)
+        ck.binned_select(qi, qsc, t4[:, :32].contiguous(), aux, tile_n=256)
     with pytest.raises(ValueError, match="aux"):
-        ck.stream_select_int(qi, qsc, t8, aux[:1], tile_n=256)
+        ck.stream_select(qi, qsc, t8, aux[:1], tile_n=256)
     with pytest.raises(ValueError, match="multiple of tile_n"):
-        ck.fused_select_int(qi, qsc, t8, aux, tile_n=384, keep=15)
+        ck.fused_select(qi, qsc, t8, aux, tile_n=384, keep=15)
+    with pytest.raises(ValueError, match="4 operands"):
+        ck.binned_select(qi, qsc, t8, tile_n=256)
     with pytest.raises(ValueError, match="takes a torch.uint8"):
         ck._bin_candidates(db[:4], None, tile_n=256, precision="int4",
                            db_parts=(t8, aux))
@@ -360,11 +380,39 @@ def test_search_certified_matches_jax_and_oracle(arm, src):
         np.testing.assert_array_equal(out["tiled"][0], out[kern][0])
         np.testing.assert_array_equal(out["tiled"][1], out[kern][1])
     placed = port._quant_placement(arm)
+    ref = jknn._int8_cache if arm == "int8" else jknn._int4_cache
     if src == "uint8" and arm == "int8":
         assert placed["offset"] == 128.0 and placed["stats"]["et2_max"] == 0.0
-        assert placed["stats"] == jknn._int8_cache["stats"]
+        assert placed["stats"] == ref["stats"]
     else:
         assert placed["offset"] == 0.0
+    # the placement, built on the device, holds the reference's operands
+    t, aux = placed["parts"]
+    n = db.shape[0]
+    ref_t = np.asarray(ref["values"])[:n]  # int8: dims not padded there
+    np.testing.assert_array_equal(t[:n, : ref_t.shape[1]].numpy(), ref_t)
+    assert not bool(t[:, ref_t.shape[1]:].any())
+    np.testing.assert_array_equal(aux[1, :n].numpy(),
+                                  np.asarray(ref["scales"])[:n])
+    np.testing.assert_array_equal(aux[0, :n].numpy(),
+                                  np.asarray(ref["norms"])[:n])
+    assert bool((aux[0, n:] == ck.PAD_VAL).all())
+    np.testing.assert_array_equal(placed["consts"].numpy(),
+                                  np.asarray(ref["consts"]))
+
+
+def test_uint8_placement_keeps_no_view_of_the_callers_rows():
+    # the int8 placement is built lazily; bytes the caller changes after
+    # construction must not reach it
+    q, db = _search_data("uint8", 3)
+    _, oi = _oracle(db.astype(np.float32), q, 5)
+    port = ShardedKNN(db, k=5, device="cpu")
+    assert port.placement.uint8_source
+    db[:] = 0
+    _, i, _ = port.search_certified(q, selector="pallas", margin=8,
+                                    tile_n=256, precision="int8")
+    np.testing.assert_array_equal(i, oi)
+    assert port._quant_placement("int8")["stats"]["et2_max"] == 0.0
 
 
 @pytest.mark.parametrize("arm", ARMS)

@@ -69,7 +69,7 @@ def test_plain_k10_matches_pallas_streaming(dim, tile_n):
     q, db = _data(rng, 11, 5 * BIN_W + 60, dim)  # ragged rows
     ref = _jax_bin(q, db, "streaming", 8, tile_n)
     qp, th, tl, tnorm = _parts(q, db, tile_n)
-    before = ck.stream_select.launches
+    before = dict(ck.stream_select.launches)
     port = [a.numpy() for a in ck.stream_select(qp, th, tl, tnorm,
                                                 tile_n=tile_n)]
     assert ck.stream_select.launches == before  # CPU: the plain version
