@@ -33,21 +33,46 @@ exits non-zero and prints no result):
              more certified search with torch.profiler (device time by
              kernel, device busy time, device idle share);
 5. stream  — at the ``main`` shape and placement: ``search_certified``
-             with ``kernel="streaming"``, ``kernel="fused"`` and
-             ``kernel="fused", overlap=True, batch_size=1024,
-             overlap_depth=2``; each run's d and i bitwise equal to the
-             tiled run's, recall@100 = 1.0 with the oracle's indices on the
-             first 256 queries, K10/K11 launched once per batch and K1
-             never; q/s of each run (second call, then five rounds of
-             all four configurations in turns, tiled included), K10 and
-             K11 ms per launch at Q=4,096 against their plain versions and
-             the bound, K11 against its plain version at Q=4,096 and at
+             with ``grid_order="db_major"`` (K9), ``kernel="streaming"``,
+             ``kernel="fused"`` and ``kernel="fused", overlap=True,
+             batch_size=1024, overlap_depth=2``; each run's d and i bitwise
+             equal to the tiled run's, recall@100 = 1.0 with the oracle's
+             indices on the first 256 queries, each run's own kernel
+             launched once per batch and no other; K10's and the db-major
+             K1's outputs bitwise K1's; q/s of each run (second call, then
+             five rounds of all five configurations in turns, tiled
+             included), K9, K10 and K11 ms per launch at Q=4,096 against
+             their plain versions and the bound, K11 against its plain
+             version at Q=4,096 and at
              the pipelined run's own geometry (each 1,024-query batch),
              K11's skipped cells, the pipeline stats, pipelined calls on
              the kept CUDA streams against fresh ones (wall and the
              allocator's new segments) and the device idle share of the
              pipelined run (torch.profiler);
-6. quant  — the int8 (K5) and int4 (K6) arms: each of the six int
+6. f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
+             (K3): each of their nine entries (tiled, streaming, fused)
+             against its plain version within 64 eps_f32 (||q||^2 +
+             max||t||^2), ci equal on separated slots, on the ``kernel``
+             phase's small cases, the far-tile case (the fused entries must
+             skip) and at the ``main`` shape (the fused entries also at the
+             pipelined run's geometry); every streaming entry bitwise its
+             tiled entry and the db-major tiled entry (K9) bitwise the
+             query-major one, as the ``stream`` and ``quant`` phases check
+             for the other three arms; then ``search_certified(precision=
+             "bf16x3f")`` and ``("highest")`` at the ``main`` shape through
+             five configurations (tiled, tiled db-major, streaming, fused,
+             the pipeline): recall@100 = 1.0 with the oracle's indices, d
+             and i bitwise equal across the five, each run's own kernel
+             launched once per batch and no other, fallback counts, q/s, a
+             profile of the tiled call; the counted certificate
+             ``knn_search_certified(candidate_fn=pallas_candidate_fn(
+             precision="default"))`` through K3's tiled, db-major, streaming
+             and fused entries, each with the oracle's indices; the max over
+             the emitted candidates of |s_kernel - s_f64| / tolerance for
+             bf16x3, bf16x3f and highest at Dp = 128 (must stay below 1);
+             every entry's ms per launch against its plain version and its
+             bound;
+7. quant  — the int8 (K5) and int4 (K6) arms: each of the six int
              entries (tiled, streaming, fused x int8, int4) against its
              plain version on the card, bitwise (cd, ci, bounds), on
              integer data with exact ties at dim 24 (ragged rows), dim 300
@@ -60,27 +85,31 @@ exits non-zero and prints no result):
              batch, its own tile segments); then ``search_certified(
              precision="int8")`` on the SIFT1M-shape data cast to uint8
              (byte-exact placement) and ``precision="int4"`` on the ``main``
-             f32 data, each with ``kernel`` tiled, streaming, fused and
-             fused through the pipeline: recall@100 = 1.0 with the oracle's
-             indices, d and i bitwise equal across the four runs, each
-             arm's kernels launched once per batch and no other kernel,
-             fallback counts, max ε, q/s; the six entries' ms per launch
-             at Q=4,096 against their plain versions and the int bound;
+             f32 data, each with ``kernel`` tiled (query- and db-major),
+             streaming, fused and fused through the pipeline: recall@100 =
+             1.0 with the oracle's indices, d and i bitwise equal across
+             the five runs, each arm's kernels launched once per batch and
+             no other kernel, fallback counts, max ε, q/s; the six entries'
+             and the db-major grid's ms per launch at Q=4,096 against their
+             plain versions and the int bound;
              the device idle share of the int8 tiled run;
-7. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
+8. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
              --mode certified --selector pallas``, run in-process through
              run_job) on make_mnist_like CSVs (20,000 train, 2,000 test,
-             2,000 val), then again with ``--pallas-precision int8``; labels
-             must equal the port's ``--mode exact``;
-8. kernels — one JSON line per the contract: each ported kernel (K1,
-             K10, K11 and the six int entries) with its launches on its own
-             path, its max error against its plain version, its time, its
-             plain version's time and its bound (one for the bf16x3 three,
-             one per int arm).
+             2,000 val), then again with ``--pallas-precision int8`` and
+             ``highest``; labels must equal the port's ``--mode exact``; the
+             |s_kernel - s_f64| / tolerance ratio of bf16x3, bf16x3f and
+             highest at Dp = 896 on the job's rows (must stay below 1);
+9. kernels — one JSON line per the contract: each ported kernel (K1,
+             K10, K11, the entries of K4, K2, K3, K5, K6 and the db-major
+             grid K9 of every arm) with its launches on its own path, its
+             max error against its plain version, its time, its plain
+             version's time and its bound (one per arm).
 
 Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases`` runs a subset (e.g. ``--phases device,build,kernel``,
-``--phases device,build,kernel,stream`` or ``--phases device,build,quant``).
+``--phases device,build,kernel,stream``, ``--phases device,build,quant`` or
+``--phases device,build,f32arms``).
 """
 
 from __future__ import annotations
@@ -94,8 +123,10 @@ import time
 
 import numpy as np
 
-#: H100 SXM data-sheet peaks (dense): bf16 and int8 tensor cores and HBM3
+#: H100 SXM data-sheet peaks (dense): bf16, TF32 and int8 tensor cores and
+#: HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
@@ -235,36 +266,108 @@ def compare_k1(checks, q, db, tile_n):
     return out
 
 
-def compare_k11(check, q, db, tile_n, keep, parts=None):
-    """K11 against its plain version at the kernel's own geometry (query
-    block, tile segments): the same skipped (block, tile) cells, cd and
-    bounds within the tolerance, ci equal on separated and skipped slots.
-    ``parts`` plugs in prepared db parts.  Returns a summary dict."""
+def compare_k11(check, q, db, tile_n, keep, parts=None, arm="bf16x3",
+                plain=None):
+    """The fused entry of f32-family arm ``arm`` (K11 for bf16x3) against
+    its plain version at the kernel's own geometry (query block, tile
+    segments): the same skipped (block, tile) cells, cd and bounds within
+    the tolerance, ci equal on separated and skipped slots.  ``parts``
+    plugs in prepared db operands, ``plain`` a precomputed plain output
+    (the fused plain version at this geometry).  Returns a summary
+    dict."""
     import torch
 
     from knn_tpu_torch.ops import coarse_knn as ck
 
-    th, tl, tnorm = parts if parts is not None else ck.prepare_db(db, tile_n)
+    if parts is None:
+        parts = ck.prepare_db_arm(db, tile_n, arm)
     qp = ck.pad_queries(q)
-    n_tiles = th.shape[0] // tile_n
+    n_tiles = parts[0].shape[0] // tile_n
     block_q = ck.QUERY_BLOCK
-    seg = ck.kernel_segment_tiles(q.shape[0], n_tiles, q.device, "fused")
-    kern = ck.fused_select(qp, th, tl, tnorm, tile_n=tile_n, keep=keep)
-    plain = ck.fused_select_plain(qp, th, tl, tnorm, tile_n=tile_n, keep=keep,
-                                  block_q=block_q, seg_tiles=seg)
+    seg = ck.kernel_segment_tiles(q.shape[0], n_tiles, q.device, "fused", arm)
+    kern = ck.fused_select(qp, *parts, tile_n=tile_n, keep=keep, arm=arm)
+    if plain is None:
+        plain = ck.fused_select_plain(qp, *parts, tile_n=tile_n, keep=keep,
+                                      block_q=block_q, seg_tiles=seg, arm=arm)
     torch.cuda.synchronize()
     skip = ck.skipped_cells(kern[0], n_tiles, block_q)
     if not torch.equal(skip, ck.skipped_cells(plain[0], n_tiles, block_q)):
-        raise AssertionError("K11 skipped other cells than its plain version")
+        raise AssertionError(
+            f"fused {arm} skipped other cells than its plain version")
     tol_q = tolerance_q(q, db)
-    return {"q": q.shape[0], "rows": db.shape[0], "dim": db.shape[1],
-            "tile_n": tile_n, "keep": keep, "block_q": block_q,
-            "seg_tiles": seg, "skipped_cells": int(skip.sum()),
-            "cells": skip.numel(),
-            "max_abs_err_cd": check.values("k11 cd", kern[0], plain[0], tol_q),
-            "max_abs_err_bounds": check.values("k11 bounds", kern[2],
+    name = f"fused_{arm}"
+    return {"arm": arm, "q": q.shape[0], "rows": db.shape[0],
+            "dim": db.shape[1], "tile_n": tile_n, "keep": keep,
+            "block_q": block_q, "seg_tiles": seg,
+            "skipped_cells": int(skip.sum()), "cells": skip.numel(),
+            "max_abs_err_cd": check.values(f"{name} cd", kern[0], plain[0],
+                                           tol_q),
+            "max_abs_err_bounds": check.values(f"{name} bounds", kern[2],
                                                plain[2], tol_q),
-            "ci_checked": check_ci("k11", kern, plain, tol_q, n_tiles)}
+            "ci_checked": check_ci(name, kern, plain, tol_q, n_tiles)}
+
+
+def compare_f32(checks, arm, q, db, tile_n, keep):
+    """The tiled, streaming and fused entries of f32-family arm ``arm``
+    against their plain versions on one input (the fused one at its own
+    geometry), the streaming and db-major tiled outputs bitwise the tiled
+    ones; returns a summary dict."""
+    import torch
+
+    from knn_tpu_torch.ops import coarse_knn as ck
+
+    parts = ck.prepare_db_arm(db, tile_n, arm)
+    qp = ck.pad_queries(q)
+    ops = (qp, *parts)
+    tiled = ck.binned_select(*ops, tile_n=tile_n, arm=arm)
+    plain = ck.binned_select_plain(*ops, tile_n=tile_n, arm=arm)
+    torch.cuda.synchronize()
+    n_tiles = parts[0].shape[0] // tile_n
+    tol_q = tolerance_q(q, db)
+    out = {"arm": arm, "q": q.shape[0], "rows": db.shape[0],
+           "dim": db.shape[1], "tile_n": tile_n}
+    err = max(checks[f"tiled_{arm}"].values(f"tiled_{arm} cd", tiled[0],
+                                            plain[0], tol_q),
+              checks[f"tiled_{arm}"].values(f"tiled_{arm} bounds", tiled[2],
+                                            plain[2], tol_q))
+    out["max_abs_err"] = err
+    out["ci_separated_checked"] = check_ci(f"tiled_{arm}", tiled, plain,
+                                           tol_q, n_tiles)
+    for key, got in (("streaming", ck.stream_select(*ops, tile_n=tile_n,
+                                                    arm=arm)),
+                     ("db_major", ck.binned_select(*ops, tile_n=tile_n,
+                                                   arm=arm,
+                                                   grid_order="db_major"))):
+        bitwise(f"{key}_{arm} vs tiled", got, tiled)
+        checks[f"{key}_{arm}"].max_abs_err = max(
+            checks[f"{key}_{arm}"].max_abs_err, err)
+        out[f"{key}_bitwise_tiled"] = True
+    out["fused"] = compare_k11(checks[f"fused_{arm}"], q, db, tile_n, keep,
+                               parts=parts, arm=arm)
+    return out
+
+
+def score_error_ratio(q, db, arm, db_norm_max=None, tile_n=16384):
+    """The largest |s_kernel - s_f64| / tolerance over the candidates the
+    tiled entry of arm ``arm`` emits for queries ``q`` against ``db``
+    (tolerance = the certificate's, coarse_knn.kernel_tolerance; s_f64 =
+    ||t||^2 - 2 q.t of the f32 values in float64)."""
+    import torch
+
+    from knn_tpu_torch.ops import coarse_knn as ck
+
+    parts = ck.prepare_db_arm(db, tile_n, arm)
+    cd, ci, _ = ck.binned_select(ck.pad_queries(q), *parts, tile_n=tile_n,
+                                 arm=arm)
+    q64, db64 = q.double(), db.double()
+    s64 = (db64 * db64).sum(-1)[None, :] - 2.0 * (q64 @ db64.T)
+    real = ci < db.shape[0]
+    got = torch.gather(s64, 1, torch.where(real, ci, 0).long())
+    tol = torch.from_numpy(ck.kernel_tolerance(
+        q.cpu().numpy(), db.cpu().numpy(), precision=arm,
+        db_norm_max=db_norm_max)).to(q.device)
+    ratio = torch.where(real, (cd.double() - got).abs(), 0.0) / tol[:, None]
+    return float(ratio.max())
 
 
 def far_tile_case(dev, n_q=4096, tile_n=16384, n_tiles=8, dim=16):
@@ -316,17 +419,29 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def k1_bound(n_q, n, dp, n_tiles, survivors):
-    """Least time for K1's work on an H100: the larger of its bytes (each
+#: per f32-family arm: products of 2*Q*N*Dp FLOPs, their peak rate, db
+#: bytes per row and dim.  bf16x3 / bf16x3f three bf16 products of th, tl;
+#: default one of th; highest the card's cheapest f32-accurate route, three
+#: TF32 products of a hi / lo split, over the f32 rows
+F32_WORK = {"bf16x3": (3, PEAK_BF16_FLOPS, 4),
+            "bf16x3f": (3, PEAK_BF16_FLOPS, 4),
+            "default": (1, PEAK_BF16_FLOPS, 2),
+            "highest": (3, PEAK_TF32_FLOPS, 4)}
+
+
+def f32_bound(n_q, n, dp, n_tiles, survivors, arm="bf16x3"):
+    """Least time for an f32-family arm's work on an H100 (K1, K4, K2, K3
+    and their streaming / fused entries): the larger of its bytes (each
     input read once, each output written once) over HBM bandwidth and its
-    three bf16 products over the dense bf16 tensor-core rate.  Counted over
-    the ``n`` real db rows: the PAD_VAL rows that fill the last tile are
-    work the function does not need."""
-    flops = 3 * 2 * n_q * n * dp
+    products (F32_WORK) over the dense tensor-core rate of their type.
+    Counted over the ``n`` real db rows: the PAD_VAL rows that fill the
+    last tile are work the function does not need."""
+    products, peak, db_bytes = F32_WORK[arm]
+    flops = products * 2 * n_q * n * dp
     w = n_tiles * survivors * 128
-    nbytes = (n_q * dp * 4 + 2 * n * dp * 2 + n * 4
+    nbytes = (n_q * dp * 4 + db_bytes * n * dp + n * 4
               + n_q * w * 8 + n_q * n_tiles * 128 * 4)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return {"flops": flops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -390,13 +505,19 @@ def profile_search(knn, q_np, **knobs) -> dict:
     """One more certified search (``knobs`` passed on) under
     torch.profiler: device time by kernel name, the device's busy time
     (union of kernel intervals) and its idle share of the call's wall
-    time."""
+    time, and whether the trace holds the coarse kernel.  A few tiny
+    kernels run inside the trace first: after several traces in one
+    process, a trace's first kernels went unrecorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warm = torch.zeros(8, device="cuda")
+        for _ in range(8):
+            warm.add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         knn.search_certified(q_np, margin=28, selector="pallas", **knobs)
         torch.cuda.synchronize()
@@ -424,7 +545,10 @@ def profile_search(knn, q_np, **knobs) -> dict:
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / 1e3 / (wall * 1e3),
             "kernels_ms": {name[:80]: us / 1e3 for name, us in top},
-            "kernel_events": len(kernels)}
+            "kernel_events": len(kernels),
+            "coarse_kernel_traced": any(
+                key in name for name in by_name
+                for key in ("binned_select_", "stream_select_"))}
 
 
 def kernel_record(name, source, replaces):
@@ -438,7 +562,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,main,profile,stream,"
-                    "quant,classify",
+                    "quant,f32arms,classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -469,35 +593,53 @@ def main(argv=None) -> int:
                              "knn_tpu_torch/csrc/binned_stream.cu",
                              "knn_tpu/ops/pallas_knn.py:722"),
     }
-    # the int arms: (kernel, arm) -> C library, TPU kernel line
-    int_entries = {
+    # the other arms' entries: (kernel, arm) -> C library, TPU kernel line
+    # (K5, K6 int8 / int4; K4 bf16x3f; K2 highest; K3 default)
+    arm_entries = {
         ("tiled", "int8"): ("binned_coarse", 415),
         ("tiled", "int4"): ("binned_coarse", 432),
         ("streaming", "int8"): ("binned_stream", 686),
         ("streaming", "int4"): ("binned_stream", 690),
         ("fused", "int8"): ("binned_stream", 753),
         ("fused", "int4"): ("binned_stream", 753),
+        **{(kern, arm): (lib, line)
+           for arm, lines in (("bf16x3f", (407, 704)),
+                              ("highest", (453, 711)),
+                              ("default", (453, 711)))
+           for kern, lib, line in (("tiled", "binned_coarse", lines[0]),
+                                   ("streaming", "binned_stream", lines[1]),
+                                   ("fused", "binned_stream", 722))},
     }
     wrappers = {"tiled": ck.binned_select, "streaming": ck.stream_select,
                 "fused": ck.fused_select}
-    for (kern, arm), (lib, line) in int_entries.items():
+    for (kern, arm), (lib, line) in arm_entries.items():
         records[f"{kern}_{arm}"] = kernel_record(
             f"{wrappers[kern].__name__}_{arm}", f"knn_tpu_torch/csrc/{lib}.cu",
             f"knn_tpu/ops/pallas_knn.py:{line}")
+    # K9: the db-major grid of every arm's tiled entry
+    for arm in ck.ARMS:
+        records[f"db_major_{arm}"] = kernel_record(
+            f"binned_select_{arm} grid_order=db_major",
+            "knn_tpu_torch/csrc/binned_coarse.cu",
+            "knn_tpu/ops/pallas_knn.py:1135")
     checks = {key: Check() for key in records}
-    # record key -> (wrapper, arm) whose launch count it reads
-    counters = {"k1": (ck.binned_select, "bf16x3"),
-                "k10": (ck.stream_select, "bf16x3"),
-                "k11": (ck.fused_select, "bf16x3"),
-                **{f"{kern}_{arm}": (wrappers[kern], arm)
-                   for kern, arm in int_entries}}
+    # record key -> (wrapper, counter attribute, arm) whose count it reads
+    counters = {"k1": (ck.binned_select, "launches", "bf16x3"),
+                "k10": (ck.stream_select, "launches", "bf16x3"),
+                "k11": (ck.fused_select, "launches", "bf16x3"),
+                **{f"{kern}_{arm}": (wrappers[kern], "launches", arm)
+                   for kern, arm in arm_entries},
+                **{f"db_major_{arm}": (ck.binned_select, "db_major_launches",
+                                       arm) for arm in ck.ARMS}}
 
     def reset_launches():
         for fn in wrappers.values():
             fn.launches = dict.fromkeys(ck.ARMS, 0)
+        ck.binned_select.db_major_launches = dict.fromkeys(ck.ARMS, 0)
 
     def read_launches():
-        return {key: fn.launches[arm] for key, (fn, arm) in counters.items()}
+        return {key: getattr(fn, attr)[arm]
+                for key, (fn, attr, arm) in counters.items()}
 
     if "device" in phases:
         emit({"phase": "device", "device": kind, "nvidia_smi": smi,
@@ -567,7 +709,8 @@ def main(argv=None) -> int:
                     setup_s=setup_s, q_dev=q_dev, qp=ck.pad_queries(q_dev),
                     n_or=256,
                     # one bound for K1, K10 and K11: the same products
-                    bound=k1_bound(n_q, n, dp, n_p // ck.TILE_N, ck.SURVIVORS))
+                    bound=f32_bound(n_q, n, dp, n_p // ck.TILE_N,
+                                    ck.SURVIVORS))
         return sift
 
     def oracle_check(S, d, i, label):
@@ -596,6 +739,8 @@ def main(argv=None) -> int:
 
     # the kernel configurations of search_certified that every arm runs
     kernel_configs = {"tiled": {"kernel": "tiled"},
+                      "tiled_db_major": {"kernel": "tiled",
+                                         "grid_order": "db_major"},
                       "streaming": {"kernel": "streaming"},
                       "fused": {"kernel": "fused"},
                       "fused_overlap": {"kernel": "fused", "overlap": True,
@@ -614,7 +759,10 @@ def main(argv=None) -> int:
         for label in labels:
             knobs = dict(kernel_configs[label], precision=arm)
             kernel = knobs["kernel"]
-            own = bf16x3_keys[kernel] if arm == "bf16x3" else f"{kernel}_{arm}"
+            own = [bf16x3_keys[kernel] if arm == "bf16x3"
+                   else f"{kernel}_{arm}"]
+            if knobs.get("grid_order") == "db_major":
+                own.append(f"db_major_{arm}")  # counted by both
             name = f"{arm} {label}"
             reset_launches()
             (d, i, stats), wall = timed_search(D, **knobs)
@@ -622,7 +770,8 @@ def main(argv=None) -> int:
             n_batches = -(-n_q // knobs.get("batch_size", n_q))
             want = n_batches * ck.kernel_launches_per_batch(kernel, n,
                                                             ck.TILE_N)
-            if launches[own] != want or sum(launches.values()) != want:
+            if any(launches[key] != want for key in own) \
+                    or sum(launches.values()) != want * len(own):
                 raise AssertionError(
                     f"{name}: launches {launches}, expected {want} of {own} "
                     f"and no other kernel")
@@ -713,17 +862,20 @@ def main(argv=None) -> int:
         n_tiles = pl.th.shape[0] // ck.TILE_N
         args = (qp, pl.th, pl.tl, pl.tnorm)
 
-        # K10 bitwise K1 at the main shape; K11 against its plain version
-        # at its own geometry
+        # K10 and the db-major K1 (K9) bitwise K1 at the main shape; K11
+        # against its plain version at its own geometry
         k1_out = ck.binned_select(*args, tile_n=ck.TILE_N)
-        k10_out = ck.stream_select(*args, tile_n=ck.TILE_N)
-        if not all(torch.equal(a, b) for a, b in zip(k10_out, k1_out)):
-            raise AssertionError("K10 is not bitwise K1 at the main shape")
-        del k1_out, k10_out
+        bitwise("K10 vs K1 at the main shape",
+                ck.stream_select(*args, tile_n=ck.TILE_N), k1_out)
+        bitwise("db-major K1 vs K1 at the main shape",
+                ck.binned_select(*args, tile_n=ck.TILE_N,
+                                 grid_order="db_major"), k1_out)
+        del k1_out
         if "k1_err" in S:
             # bitwise K1's outputs: K1's error against the same plain version
-            checks["k10"].max_abs_err = max(checks["k10"].max_abs_err,
-                                            S["k1_err"])
+            for key in ("k10", "db_major_bf16x3"):
+                checks[key].max_abs_err = max(checks[key].max_abs_err,
+                                              S["k1_err"])
         parts = (pl.th, pl.tl, pl.tnorm)
         k11_main = compare_k11(checks["k11"], S["q_dev"], pl.db, ck.TILE_N,
                                keep, parts=parts)
@@ -737,6 +889,8 @@ def main(argv=None) -> int:
         block_q = ck.QUERY_BLOCK
         seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused")
         ms10 = time_cuda(lambda: ck.stream_select(*args, tile_n=ck.TILE_N), 3)
+        ms9 = time_cuda(lambda: ck.binned_select(*args, tile_n=ck.TILE_N,
+                                                 grid_order="db_major"), 3)
         ms11 = time_cuda(lambda: ck.fused_select(*args, tile_n=ck.TILE_N,
                                                  keep=keep), 3)
         plain10_ms = time_cuda(lambda: ck.binned_select_plain(
@@ -745,8 +899,9 @@ def main(argv=None) -> int:
             *args, tile_n=ck.TILE_N, keep=keep, block_q=block_q,
             seg_tiles=seg), 1)
 
-        runs = run_configs(S, "bf16x3", ("streaming", "fused",
-                                         "fused_overlap"), ref=S["tiled"])
+        runs = run_configs(S, "bf16x3", ("tiled_db_major", "streaming",
+                                         "fused", "fused_overlap"),
+                           ref=S["tiled"])
         # warm q/s of every configuration, tiled included, in five rounds
         # of turns, so that host noise falls on all of them alike
         qps_turns = {label: [] for label in kernel_configs}
@@ -780,9 +935,15 @@ def main(argv=None) -> int:
                               ms=ms11, plain_ms=plain11_ms,
                               bound_ms=bound["bound_ms"],
                               bound_by=bound["bound_by"])
+        # K9 computes K1's function: K1's plain version and bound
+        records["db_major_bf16x3"].update(
+            launches=runs["tiled_db_major"]["launches"]["db_major_bf16x3"],
+            ms=ms9, plain_ms=plain10_ms, bound_ms=bound["bound_ms"],
+            bound_by=bound["bound_by"])
         emit({"phase": "stream", "n": n, "queries": n_q, "k": k,
               "keep": keep, "block_q": block_q, "seg_tiles": seg,
               "k10_ms_per_launch": ms10, "k10_plain_ms": plain10_ms,
+              "k1_db_major_ms_per_launch": ms9,
               "k11_ms_per_launch": ms11, "k11_plain_ms": plain11_ms,
               "bound": bound, "k11_at_main": k11_main,
               "k11_skipped_cells": k11_main["skipped_cells"],
@@ -810,7 +971,8 @@ def main(argv=None) -> int:
         tiled = ck.binned_select(*args, tile_n=ck.TILE_N)
         out = {"seg_tiles": seg, "keep": keep}
         for kern, got in (("tiled", tiled), ("streaming", ck.stream_select(
-                *args, tile_n=ck.TILE_N))):
+                *args, tile_n=ck.TILE_N)), ("db_major", ck.binned_select(
+                    *args, tile_n=ck.TILE_N, grid_order="db_major"))):
             err = bitwise(f"{kern}_{arm}@main", got, plain)
             checks[f"{kern}_{arm}"].max_abs_err = max(
                 checks[f"{kern}_{arm}"].max_abs_err, err)
@@ -853,6 +1015,10 @@ def main(argv=None) -> int:
                 lambda: fn(*args, tile_n=ck.TILE_N, **kw), 3)
             out[f"{kern}_plain_ms"] = time_cuda(
                 lambda: pfn(*args, tile_n=ck.TILE_N, **pkw), 1)
+        # K9 computes the tiled entry's function: the same plain version
+        out["db_major_ms"] = time_cuda(lambda: ck.binned_select(
+            *args, tile_n=ck.TILE_N, grid_order="db_major"), 3)
+        out["db_major_plain_ms"] = out["tiled_plain_ms"]
         out["bound"] = int_bound(n_q, knn.n_train, qi.shape[1], n_tiles,
                                  ck.SURVIVORS, arm)
         return out
@@ -914,7 +1080,8 @@ def main(argv=None) -> int:
         del fq, fdb
         emit({"phase": "quant_kernels", "cases": cases, "far_tile": far,
               "max_abs_err": {f"{kern}_{arm}": checks[f"{kern}_{arm}"].max_abs_err
-                              for kern, arm in int_entries}})
+                              for kern in ("tiled", "streaming", "fused")
+                              for arm in ck.INT_ARMS}})
 
         # int8 on the main draw cast to uint8 (byte-exact placement), int4
         # on the main f32 data
@@ -939,9 +1106,12 @@ def main(argv=None) -> int:
             timing = time_arm(D, arm)
             prof = (profile_search(D["knn"], D["q_np"], precision=arm)
                     if arm == "int8" else None)
-            for kern in ("tiled", "streaming", "fused"):
+            for kern, label in (("tiled", "tiled"),
+                                ("db_major", "tiled_db_major"),
+                                ("streaming", "streaming"),
+                                ("fused", "fused")):
                 records[f"{kern}_{arm}"].update(
-                    launches=runs[kern]["launches"][f"{kern}_{arm}"],
+                    launches=runs[label]["launches"][f"{kern}_{arm}"],
                     ms=timing[f"{kern}_ms"],
                     plain_ms=timing[f"{kern}_plain_ms"],
                     bound_ms=timing["bound"]["bound_ms"],
@@ -953,11 +1123,190 @@ def main(argv=None) -> int:
         emit(out)
         del D8, knn8
 
-    if phases & {"main", "stream", "quant"}:
+    def timed_once(fn):
+        """fn()'s output and its time on the card (CUDA events, one call)."""
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    def f32_arm_at_main(S, arm, pipelined):
+        """The four entries of f32-family arm ``arm`` (tiled, db-major,
+        streaming, fused) at the main path's shapes: the tiled and fused
+        ones against their plain versions (the fused one at its own
+        geometry, and at the pipelined run's when ``pipelined``), the
+        streaming and db-major ones bitwise the tiled one; then each timed
+        with CUDA events."""
+        knn, q_dev, pl = S["knn"], S["q_dev"], S["knn"].placement
+        parts = knn._coarse_parts(ck.TILE_N, arm)
+        args = (S["qp"], *parts)
+        n_q, n_tiles = q_dev.shape[0], parts[0].shape[0] // ck.TILE_N
+        keep = min(S["k"] + 28, knn.n_train) + 2
+        seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused", arm)
+        tol_q = tolerance_q(q_dev, tmax=pl.db_norm_max)
+        plain, plain_ms = timed_once(lambda: ck.binned_select_plain(
+            *args, tile_n=ck.TILE_N, arm=arm))
+        tiled = ck.binned_select(*args, tile_n=ck.TILE_N, arm=arm)
+        err = max(checks[f"tiled_{arm}"].values(f"tiled_{arm}@main cd",
+                                                tiled[0], plain[0], tol_q),
+                  checks[f"tiled_{arm}"].values(f"tiled_{arm}@main bounds",
+                                                tiled[2], plain[2], tol_q))
+        out = {"seg_tiles": seg, "keep": keep, "max_abs_err": err,
+               "ci_separated_checked": check_ci(f"tiled_{arm}@main", tiled,
+                                                plain, tol_q, n_tiles)}
+        del plain
+        for key, kw, fn in (("streaming", {}, ck.stream_select),
+                            ("db_major", {"grid_order": "db_major"},
+                             ck.binned_select)):
+            bitwise(f"{key}_{arm}@main vs tiled",
+                    fn(*args, tile_n=ck.TILE_N, arm=arm, **kw), tiled)
+            checks[f"{key}_{arm}"].max_abs_err = max(
+                checks[f"{key}_{arm}"].max_abs_err, err)
+        del tiled
+        fplain, fplain_ms = timed_once(lambda: ck.fused_select_plain(
+            *args, tile_n=ck.TILE_N, keep=keep, arm=arm,
+            block_q=ck.QUERY_BLOCK, seg_tiles=seg))
+        out["fused_at_main"] = compare_k11(checks[f"fused_{arm}"], q_dev,
+                                           pl.db, ck.TILE_N, keep,
+                                           parts=parts, arm=arm, plain=fplain)
+        del fplain
+        if pipelined:
+            pipe_bs = kernel_configs["fused_overlap"]["batch_size"]
+            out["fused_at_pipelined_batches"] = [
+                compare_k11(checks[f"fused_{arm}"], q_dev[lo : lo + pipe_bs],
+                            pl.db, ck.TILE_N, keep, parts=parts, arm=arm)
+                for lo in range(0, n_q, pipe_bs)]
+        for key, fn, kw in (("tiled", ck.binned_select, {}),
+                            ("db_major", ck.binned_select,
+                             {"grid_order": "db_major"}),
+                            ("streaming", ck.stream_select, {}),
+                            ("fused", ck.fused_select, {"keep": keep})):
+            out[f"{key}_ms"] = time_cuda(
+                lambda: fn(*args, tile_n=ck.TILE_N, arm=arm, **kw), 3)
+        # the streaming and db-major entries compute the tiled function
+        out.update(tiled_plain_ms=plain_ms, db_major_plain_ms=plain_ms,
+                   streaming_plain_ms=plain_ms, fused_plain_ms=fplain_ms)
+        out["bound"] = f32_bound(n_q, knn.n_train, S["qp"].shape[1], n_tiles,
+                                 ck.SURVIVORS, arm)
+        return out
+
+    def phase_f32arms(S):
+        from knn_tpu_torch import knn_search_certified, pallas_candidate_fn
+
+        knn, n, n_q, k = S["knn"], S["n"], S["n_q"], S["k"]
+        keep = min(k + 28, n) + 2
+        new_arms = ("bf16x3f", "highest", "default")
+        # each new entry against its plain version on the kernel phase's
+        # small cases; streaming and db-major bitwise tiled
+        rng = np.random.default_rng(4)
+        cases = []
+        for arm in new_arms:
+            for c_q, c_n, dim, tile in ((37, 5 * 128 + 60, 24, 256),
+                                        (11, 3 * 128 + 40, 300, 256),
+                                        (256, 16384, 128, ck.TILE_N)):
+                q = torch.from_numpy((rng.normal(size=(c_q, dim)) * 10)
+                                     .astype(np.float32)).to(dev)
+                db = torch.from_numpy((rng.normal(size=(c_n, dim)) * 10)
+                                      .astype(np.float32)).to(dev)
+                cases.append(compare_f32(checks, arm, q, db, tile, keep))
+        fq, fdb = far_tile_case(dev)
+        far = {}
+        for arm in new_arms:
+            far[arm] = compare_k11(checks[f"fused_{arm}"], fq, fdb,
+                                   ck.TILE_N, keep, arm=arm)
+            if far[arm]["skipped_cells"] < 1:
+                raise AssertionError(f"fused_{arm} skipped no far tile")
+        del fq, fdb
+        emit({"phase": "f32arms_kernels", "cases": cases, "far_tile": far})
+
+        out = {"phase": "f32arms"}
+        for arm in new_arms:
+            t0 = time.perf_counter()
+            knn._coarse_parts(ck.TILE_N, arm)  # highest: the f32 rows
+            torch.cuda.synchronize()
+            placement_s = time.perf_counter() - t0
+            out[arm] = {"placement_s": placement_s,
+                        "kernels": f32_arm_at_main(S, arm,
+                                                   pipelined=arm != "default")}
+        # the one-pass certificate through each certified arm's five
+        # configurations
+        for arm in ("bf16x3f", "highest"):
+            runs = run_configs(S, arm, kernel_configs)
+            out[arm].update(runs=runs, profile=profile_search(
+                knn, S["q_np"], precision=arm))
+        # the counted certificate through K3's four configurations
+        db_np = knn.placement.db_host
+        counted, ref = {}, None
+        for label in ("tiled", "tiled_db_major", "streaming", "fused"):
+            knobs = {key: v for key, v in kernel_configs[label].items()}
+            own = [f"{knobs['kernel']}_default"]
+            if knobs.get("grid_order") == "db_major":
+                own.append("db_major_default")
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, i, stats = knn_search_certified(
+                S["q_np"], db_np, k, margin=28,
+                candidate_fn=pallas_candidate_fn(precision="default",
+                                                 **knobs))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            if any(launches[key] != 1 for key in own) \
+                    or sum(launches.values()) != len(own):
+                raise AssertionError(
+                    f"counted certificate {label}: launches {launches}, "
+                    f"expected one of {own} and no other kernel")
+            if ref is None:
+                ref = (d, i)
+            elif not (np.array_equal(d, ref[0]) and np.array_equal(i, ref[1])):
+                raise AssertionError(
+                    f"counted certificate {label}: d, i differ from tiled")
+            recall, same, rel = oracle_check(S, d, i, f"counted {label}")
+            counted[label] = {"launches": launches, "wall_s": wall,
+                              "qps": n_q / wall, "recall_at_k": recall,
+                              "same_indices": same, "max_rel_dist_err": rel,
+                              "fallback_queries": stats["fallback_queries"],
+                              "host_exact_queries":
+                                  stats.get("host_exact_queries", 0)}
+        out["default"]["counted_certificate"] = counted
+        # the certified arms' rounding against their tolerance at Dp = 128
+        n_or = S["n_or"]
+        out["score_error_over_tolerance_dp128"] = {
+            arm: score_error_ratio(S["q_dev"][:n_or], knn.placement.db, arm,
+                                   db_norm_max=knn.placement.db_norm_max)
+            for arm in ("bf16x3", "bf16x3f", "highest")}
+        if max(out["score_error_over_tolerance_dp128"].values()) >= 1.0:
+            raise AssertionError(
+                f"kernel score error reached its tolerance: "
+                f"{out['score_error_over_tolerance_dp128']}")
+        for arm in new_arms:
+            timing = out[arm]["kernels"]
+            runs = out[arm].get("runs") or counted
+            for key, label in (("tiled", "tiled"),
+                               ("db_major", "tiled_db_major"),
+                               ("streaming", "streaming"),
+                               ("fused", "fused")):
+                records[f"{key}_{arm}"].update(
+                    launches=runs[label]["launches"][f"{key}_{arm}"],
+                    ms=timing[f"{key}_ms"],
+                    plain_ms=timing[f"{key}_plain_ms"],
+                    bound_ms=timing["bound"]["bound_ms"],
+                    bound_by=timing["bound"]["bound_by"])
+        emit(out)
+
+    if phases & {"main", "stream", "quant", "f32arms"}:
         if "main" in phases:
             phase_main(sift_data())
         if "stream" in phases:
             phase_stream(sift_data())
+        # before quant: after the int8 trace (tens of thousands of events)
+        # later traces in the process lost their first kernels
+        if "f32arms" in phases:
+            phase_f32arms(sift_data())
         if "quant" in phases:
             phase_quant(sift_data())
         sift.clear()  # frees the placement before the classify job
@@ -984,6 +1333,8 @@ def main(argv=None) -> int:
             runs = {"certified": ("--mode", "certified"),
                     "certified_int8": ("--mode", "certified",
                                        "--pallas-precision", "int8"),
+                    "certified_highest": ("--mode", "certified",
+                                          "--pallas-precision", "highest"),
                     "exact": ("--mode", "exact")}
             for label, extra in runs.items():
                 argv = ["--train", files["train"], "--test", files["test"],
@@ -995,14 +1346,27 @@ def main(argv=None) -> int:
                 results[label + "_launches"] = read_launches()
         cert, exact = results["certified"], results["exact"]
         cert8 = results["certified_int8"]
-        if results["certified_launches"]["k1"] < 1:
-            raise AssertionError("the classify job launched K1 no time")
-        if results["certified_int8_launches"]["tiled_int8"] < 1:
-            raise AssertionError("the int8 classify job launched K5 no time")
-        for job in (cert, cert8):
+        cert_hi = results["certified_highest"]
+        for label, key in (("certified", "k1"),
+                           ("certified_int8", "tiled_int8"),
+                           ("certified_highest", "tiled_highest")):
+            if results[f"{label}_launches"][key] < 1:
+                raise AssertionError(f"the {label} job launched {key} no time")
+        for job in (cert, cert8, cert_hi):
             if not (np.array_equal(job.test_labels, exact.test_labels)
                     and np.array_equal(job.val_labels, exact.val_labels)):
                 raise AssertionError("certified labels differ from exact labels")
+        # the certified arms' rounding against their tolerance at Dp = 896
+        # (784 dims): the job's train rows and test queries
+        te_dev = torch.from_numpy(np.asarray(te, np.float32)).to(dev)
+        tr_dev = torch.from_numpy(np.asarray(tr, np.float32)).to(dev)
+        ratio896 = {arm: score_error_ratio(te_dev, tr_dev, arm)
+                    for arm in ("bf16x3", "bf16x3f", "highest")}
+        del te_dev, tr_dev
+        if max(ratio896.values()) >= 1.0:
+            raise AssertionError(
+                f"kernel score error reached its tolerance at Dp = 896: "
+                f"{ratio896}")
         emit({"phase": "classify", "n_train": 20_000, "k": 50,
               "val_accuracy": cert.val_accuracy,
               "exact_val_accuracy": exact.val_accuracy,
@@ -1010,6 +1374,13 @@ def main(argv=None) -> int:
               "k1_launches": results["certified_launches"]["k1"],
               "int8_labels_equal_exact": True,
               "int8_k5_launches": results["certified_int8_launches"]["tiled_int8"],
+              "highest_labels_equal_exact": True,
+              "highest_k2_launches":
+                  results["certified_highest_launches"]["tiled_highest"],
+              "highest_certified_stats": {
+                  key: v for key, v in cert_hi.certified_stats.items()
+                  if key != "pallas_knobs"},
+              "score_error_over_tolerance_dp896": ratio896,
               "int8_certified_stats": {key: v for key, v in
                                        cert8.certified_stats.items()
                                        if key != "pallas_knobs"},

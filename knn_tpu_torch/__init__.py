@@ -8,23 +8,29 @@ Its TPU kernels become hand-written Hopper kernels (``csrc/``), built with
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 
 - :class:`ShardedKNN` — a database placed once; ``search``,
-  ``search_certified`` (certified-exact through a coarse kernel: K1
-  ``tiled``, K10 ``streaming`` or K11 ``fused`` in the ``bf16x3`` arm,
-  or the int8 (K5) / int4 (K6) entries with ``precision``, optionally
-  through the two-stage ``overlap`` pipeline), ``predict``,
-  ``predict_certified``;
+  ``search_certified`` (certified-exact through a coarse kernel: the
+  ``tiled`` (query-major or ``db_major`` grid), ``streaming`` or
+  ``fused`` entry of the ``bf16x3`` (K1, K10, K11), ``bf16x3f`` (K4),
+  ``highest`` (K2), ``int8`` (K5) or ``int4`` (K6) arm, optionally through
+  the two-stage ``overlap`` pipeline), ``predict``, ``predict_certified``;
 - :func:`knn_search_pallas` — one certified search against a database
   placed for the call;
+- :func:`knn_search_certified` with :func:`pallas_candidate_fn` — the
+  counted certificate over any coarse kernel (``default``, K3, included),
+  :func:`count_below` its counting pass;
 - :class:`KNNClassifier` — fit/predict/score;
 - :func:`run_job` with :class:`JobConfig` — the reference job
   (``python -m knn_tpu_torch.cli``).
 """
 
 from knn_tpu_torch.models.classifier import KNNClassifier
+from knn_tpu_torch.ops.certified import (count_below, knn_search_certified,
+                                         pallas_candidate_fn)
 from knn_tpu_torch.ops.coarse_knn import knn_search_pallas
 from knn_tpu_torch.parallel.sharded import ShardedKNN, unpack_certified
 from knn_tpu_torch.pipeline import JobResult, run_job
 from knn_tpu_torch.utils.config import JobConfig
 
 __all__ = ["JobConfig", "JobResult", "KNNClassifier", "ShardedKNN",
-           "knn_search_pallas", "run_job", "unpack_certified"]
+           "count_below", "knn_search_certified", "knn_search_pallas",
+           "pallas_candidate_fn", "run_job", "unpack_certified"]

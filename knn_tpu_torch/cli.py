@@ -43,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pallas-precision", default=None,
                    choices=CERTIFIED_PRECISIONS,
                    help="coarse-kernel precision (default bf16x3; the port "
-                   "also runs int8 and int4 and refuses the others by name)")
+                   "also runs bf16x3f, highest, int8 and int4 and refuses "
+                   "pq by name)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path on the CPU)")

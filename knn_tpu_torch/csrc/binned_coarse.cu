@@ -1,21 +1,18 @@
 // Fused distance + per-bin top-2 select + exclusion bound for Hopper (sm_90a):
-// K1 (bf16x3) and K5 / K6 (the int8 and int4 arms), one CTA per (query
-// block, db tile).
+// the tiled entries of every arm -- K1 (bf16x3), K4 (bf16x3f), K2
+// (highest), K3 (default), K5 / K6 (int8, int4) -- one CTA per (query
+// block, db tile), in the query-major or (K9) the db-major grid.
 //
 // Replaces the TPU kernel knn_tpu/ops/pallas_knn.py::_bin_candidates (the
-// tiled pallas_call, body _kernel in its bf16x3, int8 and int4 arms,
-// emitter _emit_select_grouped / _emit_select_grouped_scores, grouped
-// binning, query-major grid).  It computes the same function, not the same
-// block structure:
+// tiled pallas_call, body _kernel in its bf16x3, bf16x3f, highest, default,
+// int8 and int4 arms, emitter _emit_select_grouped /
+// _emit_select_grouped_scores, grouped binning, both grid orders).  It
+// computes the same function, not the same block structure:
 //
 //   for every query row q and db row t of tile ti:
-//     bf16x3: qh = bf16_rn(q), ql = bf16_rn(q - qh)          (per element)
-//             qt = sum_d qh*th + qh*tl + ql*th               (f32 accumulate)
-//     int8:   qt = (f32_rn(sum_d qi*ti) * qsc[q]) * ts[t]    (int32 exact)
-//     int4:   the same, ti unpacked from nibbles: (b & 0xF) - 8 holds dim
-//             c*128 + j, (b >> 4) - 8 dim c*128 + 64 + j of packed byte
-//             c*64 + j
-//     s  = tnorm[t] - 2*qt                                   (||q||^2 dropped)
+//     qt  = the arm's dot (binned_select.cuh: per-chunk f32 sums for the
+//           f32 family, an exact int32 dot and one rescale for the int arms)
+//     s   = tnorm[t] - 2*qt                                  (||q||^2 dropped)
 //   bin b of tile ti = lane b of every 128-row group of the tile.  Per
 //   (q, ti, b) keep the 2 smallest s with their group index through a
 //   sorted insertion network with strict `<` (the earlier group wins a tie),
@@ -31,26 +28,38 @@
 // Design.  One CTA per (query block of 32 rows, db tile).  The CTA walks the
 // tile's tile_n/128 column groups in ascending order.  For each group it
 // stages slices of the group's 128 db rows and of the query block in shared
-// memory: bf16x3 64-dim slices upcast to f32 (the query split into hi/lo
-// parts in-kernel), accumulated with CUDA-core FMAs (bf16 products are exact
-// in f32, so these FMAs give the products a bf16 tensor-core MMA with f32
-// accumulation gives); int8 / int4 one 128-dim chunk as 32-bit words of 4
-// int8 dims (int4 unpacked on the way in), accumulated in int32 with
-// __dp4a, then rescaled once.  Each of the 256 threads owns a 4-query x
-// 4-lane register tile; after the group's last slice it forms s and runs
-// the insertion network for its 16 (query, lane) bins in registers.  The
-// [32, tile_n] score tile never exists anywhere.  The per-score arithmetic
-// lives in binned_select.cuh, shared with the streaming kernels
-// (binned_stream.cu).
+// memory and multiplies them on CUDA cores: the f32 family 64-dim slices
+// (bf16 parts upcast to f32 and the query split into hi/lo parts in-kernel,
+// or f32 values converted to f64 for highest -- once, when staged), each
+// 128-dim chunk summed in its own accumulator (bf16x3f walks the chunk three
+// times, once per product), then added into the score; the int arms one
+// 128-dim chunk as 32-bit words of 4 int8 dims (int4 unpacked on the way
+// in), accumulated in int32 with __dp4a, then rescaled once.  Each of the
+// 256 threads owns a 4-query x 4-lane register tile; after the group's last
+// chunk it forms s and runs the insertion network for its 16 (query, lane)
+// bins in registers.  The [32, tile_n] score tile never exists anywhere.
+// The per-score arithmetic lives in binned_select.cuh, shared with the
+// streaming kernels (binned_stream.cu).
 //
-// What bounds it on this card: operations.  bf16x3 is 3 bf16 products of
-// 2*Q*Np*Dp FLOPs against ~1.2 GB of HBM traffic at the SIFT1M shape
-// (Q=4096); int8 is one int8 product (Q*Np*Dp MACs) against ~0.8 GB (int4
-// ~0.7 GB).  Both sit far above the H100's ridge points.  This first
-// version runs them on CUDA cores (f32 FMA pipes at 67 TFLOP/s, __dp4a for
-// the int arms), not the tensor cores (989 TFLOP/s bf16, 1,979 TOP/s int8),
-// so it is expected to run an order of magnitude above its bound; wgmma /
-// mma.sync s8, TMA and a persistent grid are later work.
+// Grid order (K9).  The query-major grid is (n_tiles, query blocks):
+// consecutive CTAs take consecutive db tiles for one query block.  The
+// db-major grid (db_major = 1, the counterpart of pallas_knn.py:1135-1140)
+// is (query blocks, n_tiles): consecutive CTAs share one db tile, so its
+// rows are read from L2 by the CTAs in flight together.  Every CTA computes
+// the same cells either way, so the outputs are bitwise equal.  The grid's
+// y extent caps the query blocks (query-major) or the tiles (db-major) at
+// 65,535.
+//
+// What bounds it on this card: operations.  bf16x3 and bf16x3f are 3 bf16
+// products of 2*Q*Np*Dp FLOPs, default one, against ~1.2 GB of HBM traffic
+// at the SIFT1M shape (Q=4096); highest is an f32-accurate product (three
+// TF32 products on tensor cores are the cheapest such route); int8 is one
+// int8 product (Q*Np*Dp MACs) against ~0.8 GB (int4 ~0.7 GB).  All sit far
+// above the H100's ridge points.  This first version runs them on CUDA
+// cores (f32 FMA pipes at 67 TFLOP/s, f64 at half that, __dp4a for the int
+// arms), not the tensor cores (989 TFLOP/s bf16, 495 TF32, 1,979 TOP/s
+// int8), so it is expected to run an order of magnitude above its bound;
+// wgmma / mma.sync, TMA and a persistent grid are later work.
 
 #include "binned_select.cuh"
 
@@ -61,29 +70,84 @@ using namespace binned;
 constexpr int kDimSlice = 64;    // dims staged per shared-memory pass
 constexpr int kDbStride = kDimSlice + 1;   // pad: conflict-free row reads
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (2 * kBinW * kDbStride + 2 * kDimSlice * kQStride);
+constexpr size_t kSmemBytes = kF32ComputeBytes<kDimSlice>;   // 83 KB
+constexpr int kMaxGridY = 65535;
 
-__global__ void __launch_bounds__(kThreads, 2)
-binned_select_bf16x3_kernel(const float* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ th,
-                            const __nv_bfloat16* __restrict__ tl,
-                            const float* __restrict__ tnorm,
-                            float* __restrict__ cd, int* __restrict__ ci,
-                            float* __restrict__ bounds, int n_q, int dp,
-                            int n_tiles, int tile_n) {
+// Stages dims k0 .. k0+63 of db rows row0 .. row0+127 and of query rows
+// q0 .. q0+31 into the compute buffers: th (and tl) upcast to f32, 8 bf16
+// per 16-byte load, or t converted to f64, 4 f32 per load; the query split
+// into its bf16 parts (or converted to f64), k-major for 16-byte reads,
+// rows past n_q as zeros.
+template <Arm kArm>
+__device__ __forceinline__ void stage_slice(
+    const F32Bufs<kArm, kDimSlice, kDbStride>& bufs,
+    const float* __restrict__ q, const void* __restrict__ db0,
+    const void* __restrict__ db1, size_t row0, int k0, int dp, int q0,
+    int n_q, int tid) {
+  if constexpr (kArm == Arm::kHighest) {
+    const float* t = static_cast<const float*>(db0);
+    double* dst = static_cast<double*>(bufs.db0);
+#pragma unroll
+    for (int p = 0; p < (kBinW * kDimSlice / 4) / kThreads; ++p) {
+      const int idx = tid + p * kThreads;
+      const int r = idx / (kDimSlice / 4);
+      const int c4 = idx % (kDimSlice / 4);
+      put_f32x4(*reinterpret_cast<const float4*>(
+                    t + (row0 + r) * static_cast<size_t>(dp) + k0 + c4 * 4),
+                dst + r * kDbStride + c4 * 4);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < (kBinW * kDimSlice / 8) / kThreads; ++p) {
+      const int idx = tid + p * kThreads;
+      const int r = idx / (kDimSlice / 8);
+      const int seg = idx % (kDimSlice / 8);
+      const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
+      const int at = r * kDbStride + seg * 8;
+      put_bf16x8(*reinterpret_cast<const uint4*>(
+                     static_cast<const __nv_bfloat16*>(db0) + off),
+                 static_cast<float*>(bufs.db0) + at);
+      if constexpr (kUsesLo<kArm>)
+        put_bf16x8(*reinterpret_cast<const uint4*>(
+                       static_cast<const __nv_bfloat16*>(db1) + off),
+                   static_cast<float*>(bufs.db1) + at);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < (kBlockQ * kDimSlice / 4) / kThreads; ++p) {
+    const int idx = tid + p * kThreads;
+    const int r = idx / (kDimSlice / 4);
+    const int c4 = idx % (kDimSlice / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < n_q)
+      v = *reinterpret_cast<const float4*>(
+          q + static_cast<size_t>(q0 + r) * dp + k0 + c4 * 4);
+    const float xs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      store_query<kArm>(xs[e], bufs.qa, bufs.qb, (c4 * 4 + e) * kQStride + r);
+  }
+}
+
+// The f32 family (K1, K4, K2, K3).  db0 / db1: th / tl bf16 (bf16x3,
+// bf16x3f), th alone (default), t f32 (highest).
+template <Arm kArm>
+__global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
+binned_select_f32_kernel(const float* __restrict__ q,
+                         const void* __restrict__ db0,
+                         const void* __restrict__ db1,
+                         const float* __restrict__ tnorm,
+                         float* __restrict__ cd, int* __restrict__ ci,
+                         float* __restrict__ bounds, int n_q, int dp,
+                         int n_tiles, int tile_n, int db_major) {
   extern __shared__ float4 smem_f4[];
-  float* smem = reinterpret_cast<float*>(smem_f4);
-  float* ths = smem;                          // [128][kDbStride]
-  float* tls = ths + kBinW * kDbStride;       // [128][kDbStride]
-  float* qhs = tls + kBinW * kDbStride;       // [kDimSlice][kQStride]
-  float* qls = qhs + kDimSlice * kQStride;    // [kDimSlice][kQStride]
+  const F32Bufs<kArm, kDimSlice, kDbStride> bufs(smem_f4);
 
   const int tid = threadIdx.x;
   const int lane_col = tid % 32;              // lanes lane_col + 32*j
   const int quad = tid / 32;                  // queries quad*4 + i
-  const int ti = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
+  const int ti = db_major ? blockIdx.y : blockIdx.x;
+  const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
   const int n_groups = tile_n / kBinW;
   const size_t tile_row0 = static_cast<size_t>(ti) * tile_n;
 
@@ -94,65 +158,26 @@ binned_select_bf16x3_kernel(const float* __restrict__ q,
   for (int g = 0; g < n_groups; ++g) {
     const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
     Acc acc;
-    zero_acc(acc);
-
-    for (int k0 = 0; k0 < dp; k0 += kDimSlice) {
-      __syncthreads();  // previous slice fully consumed
-      // db slice: 128 rows x 64 dims of th and tl, 8 bf16 per 16-byte load
-#pragma unroll
-      for (int p = 0; p < (kBinW * kDimSlice / 8) / kThreads; ++p) {
-        const int idx = tid + p * kThreads;
-        const int r = idx / (kDimSlice / 8);
-        const int seg = idx % (kDimSlice / 8);
-        const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
-        const uint4 vh = *reinterpret_cast<const uint4*>(th + off);
-        const uint4 vl = *reinterpret_cast<const uint4*>(tl + off);
-        const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&vh);
-        const __nv_bfloat16* bl = reinterpret_cast<const __nv_bfloat16*>(&vl);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          ths[r * kDbStride + seg * 8 + e] = __bfloat162float(bh[e]);
-          tls[r * kDbStride + seg * 8 + e] = __bfloat162float(bl[e]);
+    zero_tile(acc);
+    for (int c0 = 0; c0 < dp; c0 += kDimChunk) {
+      Tile<Elem<kArm>> cacc;
+      zero_tile(cacc);
+#pragma unroll 1
+      for (int pass = 0; pass < kPasses<kArm>; ++pass) {
+        for (int k0 = c0; k0 < c0 + kDimChunk; k0 += kDimSlice) {
+          __syncthreads();  // previous slice fully consumed
+          stage_slice<kArm>(bufs, q, db0, db1, row0, k0, dp, q0, n_q, tid);
+          __syncthreads();
+          slice_products<kArm, kDimSlice, kDbStride>(smem_f4, pass, quad,
+                                                     lane_col, cacc);
         }
       }
-      // query slice: 32 rows x 64 dims, split into hi/lo parts, stored
-      // k-major for float4 reads
-#pragma unroll
-      for (int p = 0; p < (kBlockQ * kDimSlice / 4) / kThreads; ++p) {
-        const int idx = tid + p * kThreads;
-        const int r = idx / (kDimSlice / 4);
-        const int c4 = idx % (kDimSlice / 4);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q0 + r < n_q)
-          v = *reinterpret_cast<const float4*>(
-              q + static_cast<size_t>(q0 + r) * dp + k0 + c4 * 4);
-        const float xs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split_store(xs[e], qhs, qls, (c4 * 4 + e) * kQStride + r);
-      }
-      __syncthreads();
-      fma_slice<kDimSlice, kDbStride>(ths, tls, qhs, qls, quad, lane_col, acc);
+      add_chunk(acc, cacc);
     }
     insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
   }
   store_tile(vals, gidx, cd, ci, bounds, q0, quad, lane_col, n_q, n_tiles, ti,
              tile_n, false);
-}
-
-cudaError_t launch(const float* q, const __nv_bfloat16* th,
-                   const __nv_bfloat16* tl, const float* tnorm, float* cd,
-                   int* ci, float* bounds, int n_q, int dp, int n_tiles,
-                   int tile_n, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      binned_select_bf16x3_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n_tiles, (n_q + kBlockQ - 1) / kBlockQ);
-  binned_select_bf16x3_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      q, th, tl, tnorm, cd, ci, bounds, n_q, dp, n_tiles, tile_n);
-  return cudaGetLastError();
 }
 
 // K5 / K6: the same walk over groups, one 128-dim int8 chunk per pass.
@@ -167,7 +192,7 @@ binned_select_int_kernel(const int8_t* __restrict__ qi,
                          const float* __restrict__ aux,
                          float* __restrict__ cd, int* __restrict__ ci,
                          float* __restrict__ bounds, int n_q, int dp,
-                         int n_tiles, int tile_n) {
+                         int n_tiles, int tile_n, int db_major) {
   __shared__ __align__(16) int smem[kIntSmemInts];
   int* tws = smem;                                // [128][kIntDbStride]
   int* qws = smem + kBinW * kIntDbStride;         // [kIntWords][kQStride]
@@ -175,8 +200,8 @@ binned_select_int_kernel(const int8_t* __restrict__ qi,
   const int tid = threadIdx.x;
   const int lane_col = tid % 32;              // lanes lane_col + 32*j
   const int quad = tid / 32;                  // queries quad*4 + i
-  const int ti = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
+  const int ti = db_major ? blockIdx.y : blockIdx.x;
+  const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
   const int n_groups = tile_n / kBinW;
   const size_t tile_row0 = static_cast<size_t>(ti) * tile_n;
   const size_t row_bytes = db_row_bytes<kArm>(dp);
@@ -211,63 +236,72 @@ binned_select_int_kernel(const int8_t* __restrict__ qi,
              tile_n, false);
 }
 
+// The grid of one launch: (tiles, query blocks), or (query blocks, tiles)
+// for db_major.  False when its y extent is past the cap.
+bool grid_of(int n_q, int n_tiles, int db_major, dim3* grid) {
+  const int q_blocks = (n_q + kBlockQ - 1) / kBlockQ;
+  *grid = db_major ? dim3(q_blocks, n_tiles) : dim3(n_tiles, q_blocks);
+  return static_cast<int>(grid->y) <= kMaxGridY;
+}
+
 template <Arm kArm>
-cudaError_t launch_int(const void* qi, const void* qsc, const void* t,
-                       const void* aux, void* cd, void* ci, void* bounds,
-                       int n_q, int dp, int n_tiles, int tile_n,
-                       cudaStream_t stream) {
+cudaError_t launch(const void* p0, const void* p1, const void* p2,
+                   const void* p3, void* cd, void* ci, void* bounds, int n_q,
+                   int dp, int n_tiles, int tile_n, int db_major,
+                   cudaStream_t stream) {
   if (n_q <= 0 || n_tiles <= 0) return cudaSuccess;
-  if (dp % kDimChunk) return cudaErrorInvalidValue;
-  const dim3 grid(n_tiles, (n_q + kBlockQ - 1) / kBlockQ);
-  binned_select_int_kernel<kArm><<<grid, kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(qi), static_cast<const float*>(qsc),
-      static_cast<const uint8_t*>(t), static_cast<const float*>(aux),
-      static_cast<float*>(cd), static_cast<int*>(ci),
-      static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n);
+  dim3 grid;
+  if (dp % kDimChunk || !grid_of(n_q, n_tiles, db_major, &grid))
+    return cudaErrorInvalidValue;
+  if constexpr (kIsInt<kArm>) {
+    binned_select_int_kernel<kArm><<<grid, kThreads, 0, stream>>>(
+        static_cast<const int8_t*>(p0), static_cast<const float*>(p1),
+        static_cast<const uint8_t*>(p2), static_cast<const float*>(p3),
+        static_cast<float*>(cd), static_cast<int*>(ci),
+        static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n, db_major);
+  } else {
+    const cudaError_t err = cudaFuncSetAttribute(
+        binned_select_f32_kernel<kArm>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemBytes));
+    if (err != cudaSuccess) return err;
+    binned_select_f32_kernel<kArm><<<grid, kThreads, kSmemBytes, stream>>>(
+        static_cast<const float*>(p0), p1, p2, static_cast<const float*>(p3),
+        static_cast<float*>(cd), static_cast<int*>(ci),
+        static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n, db_major);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry for ctypes.  Shapes: q [n_q, dp] f32; th, tl [n_tiles*tile_n, dp]
-// bf16; tnorm [n_tiles*tile_n] f32 (row 0 of the [8, Np] norm rows); outputs
-// as in the header.  dp must be a multiple of 128, tile_n a multiple of 128.
-// Returns cudaGetLastError() after the launch (0 = launched); the wrapper
-// raises on anything else.
-extern "C" int binned_select_bf16x3(const void* q, const void* th,
-                                    const void* tl, const void* tnorm,
-                                    void* cd, void* ci, void* bounds, int n_q,
-                                    int dp, int n_tiles, int tile_n,
-                                    void* stream) {
-  if (n_q <= 0 || n_tiles <= 0) return 0;
-  return static_cast<int>(launch(
-      static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(th),
-      static_cast<const __nv_bfloat16*>(tl), static_cast<const float*>(tnorm),
-      static_cast<float*>(cd), static_cast<int*>(ci),
-      static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n,
-      static_cast<cudaStream_t>(stream)));
-}
+// C entries for ctypes, one per arm.  Operands p0 .. p3:
+//   bf16x3, bf16x3f: q [n_q, dp] f32; th, tl [n_tiles*tile_n, dp] bf16;
+//                    tnorm [n_tiles*tile_n] f32 (row 0 of the [8, Np] rows)
+//   default:         q; th; unused; tnorm
+//   highest:         q; t [n_tiles*tile_n, dp] f32; unused; tnorm
+//   int8 / int4:     qi [n_q, dp] int8; qsc [n_q] f32 (the quantized
+//                    queries and their scales); t [n_tiles*tile_n, dp] int8
+//                    (K5) or [n_tiles*tile_n, dp/2] nibble-packed uint8
+//                    (K6); aux [2, n_tiles*tile_n] f32 (row norms, then row
+//                    scales)
+// Outputs as in the header.  dp and tile_n must be multiples of 128;
+// db_major picks the grid order (K9).  Each returns cudaGetLastError()
+// after the launch (0 = launched; cudaErrorInvalidValue for a dim or grid
+// it does not take); the wrapper raises on anything else.
+#define TILED_ENTRY(NAME, ARM)                                               \
+  extern "C" int binned_select_##NAME(                                       \
+      const void* p0, const void* p1, const void* p2, const void* p3,        \
+      void* cd, void* ci, void* bounds, int n_q, int dp, int n_tiles,        \
+      int tile_n, int db_major, void* stream) {                              \
+    return static_cast<int>(launch<ARM>(p0, p1, p2, p3, cd, ci, bounds, n_q, \
+                                        dp, n_tiles, tile_n, db_major,       \
+                                        static_cast<cudaStream_t>(stream))); \
+  }
 
-// C entries of K5 (int8) and K6 (int4) for ctypes.  Shapes: qi [n_q, dp]
-// int8 and qsc [n_q] f32 (the quantized queries and their scales); t
-// [n_tiles*tile_n, dp] int8 (K5) or [n_tiles*tile_n, dp/2] nibble-packed
-// uint8 (K6); aux [2, n_tiles*tile_n] f32 (row norms, then row scales);
-// outputs as K1's.  dp must be a multiple of 128.  Each returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int binned_select_int8(const void* qi, const void* qsc,
-                                  const void* t, const void* aux, void* cd,
-                                  void* ci, void* bounds, int n_q, int dp,
-                                  int n_tiles, int tile_n, void* stream) {
-  return static_cast<int>(launch_int<Arm::kInt8>(
-      qi, qsc, t, aux, cd, ci, bounds, n_q, dp, n_tiles, tile_n,
-      static_cast<cudaStream_t>(stream)));
-}
-
-extern "C" int binned_select_int4(const void* qi, const void* qsc,
-                                  const void* t, const void* aux, void* cd,
-                                  void* ci, void* bounds, int n_q, int dp,
-                                  int n_tiles, int tile_n, void* stream) {
-  return static_cast<int>(launch_int<Arm::kInt4>(
-      qi, qsc, t, aux, cd, ci, bounds, n_q, dp, n_tiles, tile_n,
-      static_cast<cudaStream_t>(stream)));
-}
+TILED_ENTRY(bf16x3, Arm::kBf16x3)
+TILED_ENTRY(bf16x3f, Arm::kBf16x3f)
+TILED_ENTRY(highest, Arm::kHighest)
+TILED_ENTRY(default, Arm::kDefault)
+TILED_ENTRY(int8, Arm::kInt8)
+TILED_ENTRY(int4, Arm::kInt4)

@@ -1,15 +1,28 @@
-// Device code shared by the binned-select kernels for Hopper (sm_90a): K1,
-// K5 and K6 tiled (binned_coarse.cu, one CTA per query block and db tile)
-// and the streaming / fused kernels of every arm (binned_stream.cu, one CTA
-// per query block walking a run of db tiles).
+// Device code shared by the binned-select kernels for Hopper (sm_90a): the
+// tiled entries of every arm (binned_coarse.cu, one CTA per query block and
+// db tile) and the streaming / fused entries of every arm (binned_stream.cu,
+// one CTA per query block walking a run of db tiles).
 //
 // Every kernel of one arm computes each score with the same arithmetic, in
 // the same order, so the tiled, streaming and fused outputs of the arm are
-// bitwise equal:
+// bitwise equal.  Per 128-dim chunk c of the padded dims (nd = Dp / 128
+// chunks), the f32-family arms sum the chunk's products into a chunk
+// accumulator `cacc` zeroed at the chunk's start, and add the chunk into
+// the score's running f32 sum `acc` at its end (acc = 0 + c_0 + c_1 + ...):
+// the order of the TPU body, which adds each chunk's dot into its f32
+// scratch (knn_tpu/ops/pallas_knn.py:493-503).
 //
 //   bf16x3 (K1, K10, K11):
 //     qh = bf16_rn(q), ql = bf16_rn(q - qh)                 (split_store)
-//     acc += qh*th; acc += qh*tl; acc += ql*th, dim by dim   (fma_slice)
+//     cacc += qh*th; cacc += qh*tl; cacc += ql*th, dim by dim (fma_slice)
+//   bf16x3f (K4): the same products, in the order of the TPU's one dot
+//     over the 3x contraction [qh|qh|ql].[th|tl|th] (pallas_knn.py:407-414):
+//     per chunk all 128 qh*th, then all qh*tl, then all ql*th, in one f32
+//     chunk accumulator (three passes of fma_pair over the chunk)
+//   default (K3): the TPU's one bf16 pass, cacc += bf16_rn(q)*th (th is
+//     bf16_rn(t)), f32 accumulation                          (fma_pair)
+//   highest (K2): cacc += q*t in f64 (DFMA) over the f32 values, rounded
+//     once to f32 at the chunk's end                         (fma_pair)
 //   int8 (K5) / int4 (K6):
 //     iacc += qi . ti in int32, 4 dims per __dp4a            (dp4a_chunk)
 //       (int4 rows are unpacked to int8 words first:         (unpack_int4)
@@ -22,12 +35,46 @@
 // dim), so the one f32 rounding is the rescale's, in the TPU kernel's order
 // (knn_tpu/ops/pallas_knn.py:475-476).
 //
+// Worst-case rounding of the f32-family scores, u = 2^-24, P = sum_i |q_i
+// t_i| <= ||q|| ||t|| <= (||q||^2 + M) / 2 with M = max ||t||^2:
+//
+//   bf16x3, bf16x3f.  Products of bf16 values are exact in f32, so the only
+//     accumulation error is the summation's: a chain of 3*128 terms per
+//     chunk, then nd - 1 chunk additions, |err(qt)| <= (384 + nd) u P (1 +
+//     2^-7).  In s = tn - 2 qt that is <= (384 + nd) u (||q||^2 + M) =
+//     (0.375 + nd / 1024) 2^-14 (||q||^2 + M), under the certificate's
+//     2^-14 tolerance for any dim.  (A single chain of 3 Dp terms, as K1
+//     ran before, gives 3 Dp u (||q||^2 + M): past Dp ~ 340 that alone
+//     exceeds the tolerance, ~2.6x at Dp = 896.)  The split itself is not
+//     exact: q t - (qh th + qh tl + ql th) <= 3 * 2^-16 |q t| per dim (the
+//     dropped ql tl and the two low-part roundings), i.e. up to 0.75 of the
+//     tolerance in s when every dim's roundings are at their largest and
+//     align; the reference's tolerance model (pallas_knn.py:1532-1534) puts
+//     them at 1/16.  Together the two can pass 2^-14 by up to ~13% only on
+//     such constructed input; ROADMAP queue C, fault 12.
+//   highest.  Each product of two f32 values is exact in f64; the chunk's
+//     f64 sum errs by <= 127 * 2^-53 P_c and its rounding to f32 by u P_c;
+//     the nd - 1 f32 chunk additions by (nd - 1) u P.  So |err(qt)| <=
+//     nd u P (1 + 2^-20), and in s, with the rounding of tn - 2 qt,
+//     <= (nd + 2) u (||q||^2 + M): 3 u at Dp = 128, 9 u at Dp = 896, against
+//     the certificate's budget of 32 eps_f32 (||q||^2 + M) = 64 u (||q||^2 +
+//     M) (pallas_knn.py:1573, sharded.py:2366).  The rest of the budget
+//     covers the f32 row and query norm reductions (each <= (1 + log2 Dp) u
+//     ||x||^2 as tree sums) and the certificate's own f32 arithmetic.  A
+//     plain f32 chain over one chunk (128 u P per chunk) would not fit:
+//     2 * 128 u P <= 2^-17 (||q||^2 + M), twice the budget.
+//   default.  No tolerance model (the reference refuses it in the one-pass
+//     certificate): bf16_rn(q) bf16_rn(t) - q t <= (2^-7 + 2^-16) |q t| per
+//     dim, plus (128 + nd) u P of f32 accumulation.  It serves the counted
+//     certificate, which does not depend on the coarse pass's precision.
+//
 // The thread layout is fixed here too: a CTA of kThreads = 256 threads owns
 // kBlockQ = 32 query rows and the 128 lanes of a column group; each thread
 // owns a 4-query x 4-lane register tile (queries quad*4 + i, lanes
-// lane_col + 32*j).  Shared-memory operands: bf16x3 stages f32 th/tl rows at
-// a per-kernel row stride and query hi/lo parts k-major at kQStride; the int
-// arms stage one 128-dim chunk as 32-bit words of 4 int8 dims, db rows at
+// lane_col + 32*j).  Shared-memory operands of the f32 family: db rows at a
+// per-kernel row stride (f32 th / tl, or f64 t for highest) and query parts
+// k-major at kQStride (f32 hi / lo, or f64 q for highest); the int arms
+// stage one 128-dim chunk as 32-bit words of 4 int8 dims, db rows at
 // kIntDbStride words and query words k-major at kQStride.
 
 #pragma once
@@ -35,6 +82,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace binned {
 
@@ -44,19 +93,60 @@ constexpr int kBlockQ = 32;      // query rows per CTA
 constexpr int kThreads = 256;    // 8 query quads x 32 lane columns
 constexpr int kQuadQ = 4;        // query rows per thread
 constexpr int kQuadL = 4;        // lanes per thread (strided 32 apart)
-constexpr int kQStride = kBlockQ + 4;   // keeps float4 reads aligned
+constexpr int kQStride = kBlockQ + 4;   // keeps float4 / double2 reads aligned
 
-// The coarse pass's arithmetic arms; the values are the C entries' codes.
-enum class Arm : int { kBf16x3 = 0, kInt8 = 1, kInt4 = 2 };
+// The coarse pass's arithmetic arms; the values are the C entries' codes
+// (ops/coarse_knn.ARMS order).
+enum class Arm : int {
+  kBf16x3 = 0,
+  kInt8 = 1,
+  kInt4 = 2,
+  kBf16x3f = 3,
+  kHighest = 4,
+  kDefault = 5
+};
 
-constexpr int kDimChunk = 128;            // dims per int chunk (DIM_CHUNK)
+constexpr int kDimChunk = 128;            // dims per chunk (DIM_CHUNK)
 constexpr int kIntWords = kDimChunk / 4;  // int8 words of 4 dims per chunk
 constexpr int kIntDbStride = kIntWords + 1;   // pad: conflict-free row reads
+
+template <Arm kArm>
+constexpr bool kIsInt = kArm == Arm::kInt8 || kArm == Arm::kInt4;
+
+// Passes over each chunk: bf16x3f walks it three times (qh.th, qh.tl,
+// ql.th), every other arm once.
+template <Arm kArm>
+constexpr int kPasses = kArm == Arm::kBf16x3f ? 3 : 1;
+
+// The f32 family's shared-memory element and chunk-accumulator type: f64
+// for highest, f32 for the bf16 arms.
+template <Arm kArm>
+using Elem = std::conditional_t<kArm == Arm::kHighest, double, float>;
+
+// The bf16 arms stage the db's hi part (and lo part, but for default) and
+// the query's hi part (and lo part, but for default).
+template <Arm kArm>
+constexpr bool kUsesLo = kArm == Arm::kBf16x3 || kArm == Arm::kBf16x3f;
+
+// CTAs per SM the kernels are compiled for: highest's f64 chunk
+// accumulators need more than the 128 registers two CTAs leave a thread.
+template <Arm kArm>
+constexpr int kMinCtas = kArm == Arm::kHighest ? 1 : 2;
+
+// Bytes of the f32 family's compute buffers for a slice of kSlice dims:
+// two f32 db parts [128][kSlice+1] and two f32 query parts [kSlice][kQStride]
+// (bf16 arms), or one f64 db part and one f64 query part (highest) -- the
+// same size.
+template <int kSlice>
+constexpr size_t kF32ComputeBytes =
+    sizeof(double) * (kBinW * (kSlice + 1) + kSlice * kQStride);
 
 using Vals = float[kQuadQ][kQuadL][kSurvivors + 1];
 using Gidx = int[kQuadQ][kQuadL][kSurvivors];
 using Acc = float[kQuadQ][kQuadL];
 using IAcc = int[kQuadQ][kQuadL];
+template <typename T>
+using Tile = T[kQuadQ][kQuadL];
 
 // Db bytes per row of an arm's operand for dp dims: int8 one per dim, int4
 // two dims per byte.
@@ -78,39 +168,75 @@ __device__ __forceinline__ void reset_bins(Vals& vals, Gidx& gidx) {
     }
 }
 
-__device__ __forceinline__ void zero_acc(Acc& acc) {
+template <typename T>
+__device__ __forceinline__ void zero_tile(Tile<T>& acc) {
 #pragma unroll
   for (int i = 0; i < kQuadQ; ++i)
 #pragma unroll
-    for (int j = 0; j < kQuadL; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < kQuadL; ++j) acc[i][j] = T(0);
 }
 
-// One query value split into hi/lo bf16 parts with round-to-nearest-even
-// (JAX's astype), stored as f32 at k-major position ``at``.
-__device__ __forceinline__ void split_store(float x, float* qhs, float* qls,
+// The end of a chunk: its sum, rounded to f32 (highest), added into the
+// score's running f32 sum.
+template <typename T>
+__device__ __forceinline__ void add_chunk(Acc& acc, const Tile<T>& cacc) {
+#pragma unroll
+  for (int i = 0; i < kQuadQ; ++i)
+#pragma unroll
+    for (int j = 0; j < kQuadL; ++j) {
+      if constexpr (std::is_same_v<T, double>)
+        acc[i][j] = __fadd_rn(acc[i][j], __double2float_rn(cacc[i][j]));
+      else
+        acc[i][j] = __fadd_rn(acc[i][j], cacc[i][j]);
+    }
+}
+
+// One query value as the arm stores it at k-major position ``at``: the
+// hi / lo bf16 parts with round-to-nearest-even (JAX's astype) as f32 (the
+// bf16 arms; default keeps the hi part alone), or the value as f64
+// (highest, converted once here, not per product).
+template <Arm kArm>
+__device__ __forceinline__ void store_query(float x, void* qa, void* qb,
                                             int at) {
-  const __nv_bfloat16 hi = __float2bfloat16_rn(x);
-  const float hf = __bfloat162float(hi);
-  const __nv_bfloat16 lo = __float2bfloat16_rn(x - hf);
-  qhs[at] = hf;
-  qls[at] = __bfloat162float(lo);
+  if constexpr (kArm == Arm::kHighest) {
+    static_cast<double*>(qa)[at] = static_cast<double>(x);
+  } else {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+    const float hf = __bfloat162float(hi);
+    static_cast<float*>(qa)[at] = hf;
+    if constexpr (kUsesLo<kArm>)
+      static_cast<float*>(qb)[at] = __bfloat162float(__float2bfloat16_rn(x - hf));
+  }
 }
 
-// acc[i][j] += qh*th + qh*tl + ql*th over kSlice dims staged in shared memory
-// (three FMAs per dim, in this order).  bf16 products are exact in f32, so
-// these FMAs give the products a bf16 MMA with f32 accumulation gives.
+// This thread's 4 query values at k-major row k (16-byte loads).
+__device__ __forceinline__ void load_q4(const float* qs, int k, int quad,
+                                        float (&out)[kQuadQ]) {
+  const float4 v = *reinterpret_cast<const float4*>(qs + k * kQStride + quad * 4);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+
+__device__ __forceinline__ void load_q4(const double* qs, int k, int quad,
+                                        double (&out)[kQuadQ]) {
+  const double2* p =
+      reinterpret_cast<const double2*>(qs + k * kQStride + quad * 4);
+  const double2 a = p[0], b = p[1];
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
+// K1's order: cacc[i][j] += qh*th + qh*tl + ql*th over kSlice dims staged in
+// shared memory (three FMAs per dim, in this order).  bf16 products are
+// exact in f32, so these FMAs give the products a bf16 MMA with f32
+// accumulation gives.
 template <int kSlice, int kDbStride>
 __device__ __forceinline__ void fma_slice(const float* ths, const float* tls,
                                           const float* qhs, const float* qls,
                                           int quad, int lane_col, Acc& acc) {
 #pragma unroll 4
   for (int k = 0; k < kSlice; ++k) {
-    const float4 qh4 =
-        *reinterpret_cast<const float4*>(qhs + k * kQStride + quad * 4);
-    const float4 ql4 =
-        *reinterpret_cast<const float4*>(qls + k * kQStride + quad * 4);
-    const float qh[4] = {qh4.x, qh4.y, qh4.z, qh4.w};
-    const float ql[4] = {ql4.x, ql4.y, ql4.z, ql4.w};
+    float qh[kQuadQ], ql[kQuadQ];
+    load_q4(qhs, k, quad, qh);
+    load_q4(qls, k, quad, ql);
     float tv[kQuadL], lv[kQuadL];
 #pragma unroll
     for (int j = 0; j < kQuadL; ++j) {
@@ -126,6 +252,98 @@ __device__ __forceinline__ void fma_slice(const float* ths, const float* tls,
         acc[i][j] = fmaf(ql[i], tv[j], acc[i][j]);
       }
   }
+}
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// One product per dim: cacc[i][j] += q*t over kSlice dims of one db part
+// and one query part (f32 FMA, or f64 DFMA for highest).
+template <int kSlice, int kDbStride, typename T>
+__device__ __forceinline__ void fma_pair(const T* ts, const T* qs, int quad,
+                                         int lane_col, Tile<T>& acc) {
+#pragma unroll 4
+  for (int k = 0; k < kSlice; ++k) {
+    T qv[kQuadQ];
+    load_q4(qs, k, quad, qv);
+    T tv[kQuadL];
+#pragma unroll
+    for (int j = 0; j < kQuadL; ++j)
+      tv[j] = ts[(lane_col + 32 * j) * kDbStride + k];
+#pragma unroll
+    for (int i = 0; i < kQuadQ; ++i)
+#pragma unroll
+      for (int j = 0; j < kQuadL; ++j)
+        acc[i][j] = fma_rn(qv[i], tv[j], acc[i][j]);
+  }
+}
+
+// The f32 family's products over one staged slice, pass ``pass`` of the
+// chunk.  Compute buffers at ``cbuf``: db part(s) [128][kDbStride], then
+// query part(s) [kSlice][kQStride] -- th, tl, qh, ql (bf16 arms) or t, q
+// as f64 (highest).
+template <Arm kArm, int kSlice, int kDbStride>
+__device__ __forceinline__ void slice_products(void* cbuf, int pass, int quad,
+                                               int lane_col,
+                                               Tile<Elem<kArm>>& cacc) {
+  using T = Elem<kArm>;
+  T* db0 = static_cast<T*>(cbuf);
+  if constexpr (kArm == Arm::kHighest) {
+    fma_pair<kSlice, kDbStride>(db0, db0 + kBinW * kDbStride, quad, lane_col,
+                                cacc);
+  } else {
+    float* tls = db0 + kBinW * kDbStride;
+    float* qhs = tls + kBinW * kDbStride;
+    float* qls = qhs + kSlice * kQStride;
+    if constexpr (kArm == Arm::kBf16x3)
+      fma_slice<kSlice, kDbStride>(db0, tls, qhs, qls, quad, lane_col, cacc);
+    else if constexpr (kArm == Arm::kDefault)
+      fma_pair<kSlice, kDbStride>(db0, qhs, quad, lane_col, cacc);
+    else  // bf16x3f: pass 0 qh.th, pass 1 qh.tl, pass 2 ql.th
+      fma_pair<kSlice, kDbStride>(pass == 1 ? tls : db0,
+                                  pass == 2 ? qls : qhs, quad, lane_col, cacc);
+  }
+}
+
+// Where a slice's db rows and query values go in the compute buffers.
+template <Arm kArm, int kSlice, int kDbStride>
+struct F32Bufs {
+  void* db0;   // th (bf16 arms) or t (highest), [128][kDbStride]
+  void* db1;   // tl, [128][kDbStride] (bf16x3, bf16x3f)
+  void* qa;    // qh or q, [kSlice][kQStride]
+  void* qb;    // ql, [kSlice][kQStride] (bf16x3, bf16x3f)
+  __device__ explicit F32Bufs(void* cbuf) {
+    using T = Elem<kArm>;
+    T* p = static_cast<T*>(cbuf);
+    db0 = p;
+    if constexpr (kArm == Arm::kHighest) {
+      db1 = nullptr;
+      qa = p + kBinW * kDbStride;
+      qb = nullptr;
+    } else {
+      db1 = p + kBinW * kDbStride;
+      qa = p + 2 * kBinW * kDbStride;
+      qb = p + 2 * kBinW * kDbStride + kSlice * kQStride;
+    }
+  }
+};
+
+// Stores 8 consecutive db values of row r, dims c .. c+7 of the slice, into
+// the compute buffers: bf16 (8 of th or tl, 16 bytes) upcast to f32, or f32
+// (two 16-byte halves, 4 each) converted to f64.
+__device__ __forceinline__ void put_bf16x8(uint4 v, float* dst) {
+  const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(b[e]);
+}
+
+__device__ __forceinline__ void put_f32x4(float4 v, double* dst) {
+  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
 
 __device__ __forceinline__ void zero_iacc(IAcc& acc) {

@@ -1,14 +1,15 @@
 // The db-streaming binned-select kernels for Hopper (sm_90a), two entries
 // of one template for each arm: streaming and fused early-out, for bf16x3
-// (K10, K11) and for the int8 (K5) and int4 (K6) arms.
+// (K10, K11), bf16x3f (K4), highest (K2), default (K3) and the int8 (K5)
+// and int4 (K6) arms.
 //
 // Replaces the TPU kernel knn_tpu/ops/pallas_knn.py::_stream_call (its
-// pallas_call, body _stream_kernel, bf16x3, int8 and int4 arms, grouped
-// binning).  The streaming kernel of an arm computes the tiled kernel's
-// function (binned_coarse.cu) with its per-score arithmetic
-// (binned_select.cuh), so its (cd, ci, bounds) are bitwise equal to the
-// tiled kernel's of the same arm.  The fused kernel adds the fused arm's
-// early-out (pallas_knn.py:722-828):
+// pallas_call, body _stream_kernel, every arm but pq, grouped binning).  The
+// streaming kernel of an arm computes the tiled kernel's function
+// (binned_coarse.cu) with its per-score arithmetic (binned_select.cuh), so
+// its (cd, ci, bounds) are bitwise equal to the tiled kernel's of the same
+// arm.  The fused kernel adds the fused arm's early-out
+// (pallas_knn.py:722-828):
 //
 //   per (query, lane) a sorted carry of `depth` = ceil(keep/128) running
 //   minima of the tiles' lane minima (a lane minimum is survivor 0 of its
@@ -24,25 +25,26 @@
 //
 // Design.  Grid (segments, query blocks of 32 rows).  A CTA walks the db
 // tiles of its segment in order, each tile's 128-row column groups in order,
-// each group's dims in steps (bf16x3: 32 dims; int8 / int4: one 128-dim
-// chunk).  Step t+1's raw operands (bf16x3: th, tl bf16 rows and the f32
-// query slice; int: the int8 or packed int4 db rows and the int8 query
-// slice) are copied into the second of two shared stages with cp.async
-// while step t is converted (bf16 -> f32 and the query's hi/lo split; int4
-// nibbles -> int8 words, int8 rows -> padded word rows) into the compute
-// buffers and multiplied: the counterpart of the TPU kernel's
-// make_async_copy double buffer.  Each tile's block goes straight to its
-// own column offset in global memory.
+// each group's dims in steps: the f32 family 32 dims (bf16x3f walks each
+// 128-dim chunk three times, one pass per product, so its steps are
+// (pass, 32 dims)), int8 / int4 one 128-dim chunk.  Step t+1's raw operands
+// (th and tl bf16 rows -- th alone for default -- or f32 rows for highest,
+// and the f32 query slice; int: the int8 or packed int4 db rows and the int8
+// query slice) are copied into the second of two shared stages with cp.async
+// while step t is converted (bf16 -> f32 and the query's hi/lo split; f32 ->
+// f64 for highest; int4 nibbles -> int8 words, int8 rows -> padded word
+// rows) into the compute buffers and multiplied: the counterpart of the TPU
+// kernel's make_async_copy double buffer.  Each tile's block goes straight
+// to its own column offset in global memory.
 //
 // Occupancy.  At Q = 4096 there are only 128 query blocks of 32 rows for 132
 // SMs.  So the tile loop is split into contiguous segments, one per CTA: the
 // wrapper (ops/coarse_knn.stream_segment_tiles) picks n_seg = min(n_tiles,
 // floor(wave / query blocks)) segments, where wave = SMs x the CTAs per SM
 // that stream_ctas_per_sm reads from the occupancy API for the built kernel
-// of the arm (bf16x3: 84 KB of shared memory and 128 registers per thread,
-// 2 CTAs per SM: 2 segments of 31 tiles at the SIFT1M shape; int8 61 KB,
-// int4 45 KB of shared memory).  The streaming output does not depend on the
-// split.
+// of the arm (bf16x3, bf16x3f, highest: 84 KB of shared memory; default
+// 68 KB; int8 61 KB, int4 45 KB; highest is compiled for one CTA per SM,
+// the others for two).  The streaming output does not depend on the split.
 //
 // The fused skip depends on the query block and on the segment: each segment
 // keeps its own carry, reset at its first tile.  That stays sound: the carry
@@ -62,9 +64,11 @@
 // What bounds it on this card: operations, as the tiled kernels: the
 // products run for every tile before the skip is decided, so the early-out
 // saves only the skipped tile's output writes in this design, never the
-// products.  They run on CUDA cores (f32 FMAs for bf16x3, __dp4a for the int
-// arms), an order of magnitude above the tensor-core bound; wgmma / mma.sync,
-// TMA and a persistent grid are later work.
+// products.  They run on CUDA cores (f32 FMAs for the bf16 arms, f64 FMAs
+// for highest, __dp4a for the int arms), an order of magnitude above the
+// tensor-core bound; wgmma / mma.sync, TMA and a persistent grid are later
+// work.  bf16x3f copies each slice once per pass, three times K1's db
+// bytes from L2.
 
 #include "binned_select.cuh"
 
@@ -72,36 +76,34 @@ namespace {
 
 using namespace binned;
 
-constexpr int kSlice = 32;                 // bf16x3 dims per pipeline step
+constexpr int kSlice = 32;                 // f32-family dims per step
 constexpr int kDbStride = kSlice + 1;      // pad: conflict-free row reads
 constexpr int kMaxCarry = 8;               // MAX_CARRY_DEPTH
-constexpr int kRawDb = kBinW * kSlice;     // bf16 per part per stage
+constexpr int kRawDb = kBinW * kSlice;     // db values per part per stage
 
-// Per-arm pipeline geometry: dims per step, bytes of one cp.async stage and
-// of the compute buffers.
+// Per-arm pipeline geometry: dims per step, bytes of the db half of one
+// cp.async stage, of the whole stage and of the compute buffers.
 template <Arm kArm>
-struct Geom {  // int8 / int4: one 128-dim chunk per step
-  static constexpr int kStep = kDimChunk;
-  // db rows [128][chunk bytes], then query rows [32][128] int8
-  static constexpr size_t kDbStage = kBinW * db_row_bytes<kArm>(kDimChunk);
-  static constexpr size_t kStageBytes = kDbStage + kBlockQ * kDimChunk;
-  static constexpr size_t kComputeBytes =
-      sizeof(int) * (kBinW * kIntDbStride + kIntWords * kQStride);
-};
-
-template <>
-struct Geom<Arm::kBf16x3> {
-  static constexpr int kStep = kSlice;
-  // th [128][32] bf16, tl [128][32] bf16, q [32][32] f32
-  static constexpr size_t kStageBytes =
-      2 * kRawDb * sizeof(__nv_bfloat16) + kBlockQ * kSlice * sizeof(float);
-  static constexpr size_t kComputeBytes =
-      sizeof(float) * (2 * kBinW * kDbStride + 2 * kSlice * kQStride);
-};
+constexpr int kStep = kIsInt<kArm> ? kDimChunk : kSlice;
 
 template <Arm kArm>
-constexpr size_t kSmemBytes =
-    2 * Geom<kArm>::kStageBytes + Geom<kArm>::kComputeBytes;
+constexpr size_t kDbStage =
+    kIsInt<kArm> ? kBinW * db_row_bytes<kArm>(kDimChunk)   // [128][chunk]
+    : kArm == Arm::kHighest ? kRawDb * sizeof(float)       // t [128][32] f32
+    : (kUsesLo<kArm> ? 2 : 1) * kRawDb * sizeof(__nv_bfloat16);  // th (, tl)
+
+template <Arm kArm>
+constexpr size_t kStageBytes =  // then the query rows [32][step]
+    kDbStage<kArm> +
+    (kIsInt<kArm> ? kBlockQ * kDimChunk : kBlockQ * kSlice * sizeof(float));
+
+template <Arm kArm>
+constexpr size_t kComputeBytes =
+    kIsInt<kArm> ? sizeof(int) * (kBinW * kIntDbStride + kIntWords * kQStride)
+                 : kF32ComputeBytes<kSlice>;
+
+template <Arm kArm>
+constexpr size_t kSmemBytes = 2 * kStageBytes<kArm> + kComputeBytes<kArm>;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -119,24 +121,42 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Starts the copies of one step: db rows row0 .. row0+127 and query rows
-// q0 .. q0+31, dims k0 .. k0+31.
+// Starts the f32 family's copies of one step: db rows row0 .. row0+127 and
+// query rows q0 .. q0+31, dims k0 .. k0+31.  db0 / db1: th / tl bf16
+// (bf16x3, bf16x3f), th (default), t f32 (highest).
+template <Arm kArm>
 __device__ __forceinline__ void start_stage(
-    unsigned char* stage, const __nv_bfloat16* __restrict__ th,
-    const __nv_bfloat16* __restrict__ tl, const float* __restrict__ q,
-    size_t row0, int k0, int dp, int q0, int n_q, int tid) {
-  __nv_bfloat16* sth = reinterpret_cast<__nv_bfloat16*>(stage);
-  __nv_bfloat16* stl = sth + kRawDb;
-  float* sq = reinterpret_cast<float*>(stl + kRawDb);
+    unsigned char* stage, const void* __restrict__ db0,
+    const void* __restrict__ db1, const float* __restrict__ q, size_t row0,
+    int k0, int dp, int q0, int n_q, int tid) {
+  if constexpr (kArm == Arm::kHighest) {
+    float* st = reinterpret_cast<float*>(stage);
+    const float* t = static_cast<const float*>(db0);
 #pragma unroll
-  for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
-    const int idx = tid + p * kThreads;
-    const int r = idx / (kSlice / 8);
-    const int seg = idx % (kSlice / 8);
-    const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
-    cp_async16(sth + r * kSlice + seg * 8, th + off, 16);
-    cp_async16(stl + r * kSlice + seg * 8, tl + off, 16);
+    for (int p = 0; p < (kRawDb / 4) / kThreads; ++p) {
+      const int idx = tid + p * kThreads;
+      const int r = idx / (kSlice / 4);
+      const int seg = idx % (kSlice / 4);
+      cp_async16(st + r * kSlice + seg * 4,
+                 t + (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 4, 16);
+    }
+  } else {
+    __nv_bfloat16* sth = reinterpret_cast<__nv_bfloat16*>(stage);
+    __nv_bfloat16* stl = sth + kRawDb;
+#pragma unroll
+    for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
+      const int idx = tid + p * kThreads;
+      const int r = idx / (kSlice / 8);
+      const int seg = idx % (kSlice / 8);
+      const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
+      cp_async16(sth + r * kSlice + seg * 8,
+                 static_cast<const __nv_bfloat16*>(db0) + off, 16);
+      if constexpr (kUsesLo<kArm>)
+        cp_async16(stl + r * kSlice + seg * 8,
+                   static_cast<const __nv_bfloat16*>(db1) + off, 16);
+    }
   }
+  float* sq = reinterpret_cast<float*>(stage + kDbStage<kArm>);
   const int r = tid / (kSlice / 4);
   const int c4 = tid % (kSlice / 4);
   const bool live = q0 + r < n_q;
@@ -156,7 +176,7 @@ __device__ __forceinline__ void start_stage_int(
   constexpr int kChunkBytes = db_row_bytes<kArm>(kDimChunk);
   constexpr int kSegs = kChunkBytes / 16;
   const size_t row_bytes = db_row_bytes<kArm>(dp);
-  unsigned char* sq = stage + Geom<kArm>::kDbStage;
+  unsigned char* sq = stage + kDbStage<kArm>;
 #pragma unroll
   for (int p = 0; p < kBinW * kSegs / kThreads; ++p) {
     const int idx = tid + p * kThreads;
@@ -174,41 +194,52 @@ __device__ __forceinline__ void start_stage_int(
   cp_async16(sq + r * kDimChunk + seg * 16, src, live ? 16 : 0);
 }
 
-// Stage -> compute buffers: th/tl upcast to f32 rows, the query slice split
-// into hi/lo parts k-major (as K1 stages them from global memory).
-__device__ __forceinline__ void convert_stage(const unsigned char* stage,
-                                              float* ths, float* tls,
-                                              float* qhs, float* qls,
-                                              int tid) {
-  const __nv_bfloat16* sth = reinterpret_cast<const __nv_bfloat16*>(stage);
-  const __nv_bfloat16* stl = sth + kRawDb;
-  const float* sq = reinterpret_cast<const float*>(stl + kRawDb);
+// Stage -> compute buffers (as the tiled kernels stage from global memory):
+// th (and tl) upcast to f32 rows, or t converted to f64 rows; the query
+// slice split into its bf16 parts, or converted to f64, k-major.
+template <Arm kArm>
+__device__ __forceinline__ void convert_stage(
+    const unsigned char* stage, const F32Bufs<kArm, kSlice, kDbStride>& bufs,
+    int tid) {
+  if constexpr (kArm == Arm::kHighest) {
+    const float* st = reinterpret_cast<const float*>(stage);
 #pragma unroll
-  for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
-    const int idx = tid + p * kThreads;
-    const int r = idx / (kSlice / 8);
-    const int seg = idx % (kSlice / 8);
-    const uint4 vh = *reinterpret_cast<const uint4*>(sth + r * kSlice + seg * 8);
-    const uint4 vl = *reinterpret_cast<const uint4*>(stl + r * kSlice + seg * 8);
-    const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&vh);
-    const __nv_bfloat16* bl = reinterpret_cast<const __nv_bfloat16*>(&vl);
+    for (int p = 0; p < (kRawDb / 4) / kThreads; ++p) {
+      const int idx = tid + p * kThreads;
+      const int r = idx / (kSlice / 4);
+      const int c4 = idx % (kSlice / 4);
+      put_f32x4(*reinterpret_cast<const float4*>(st + r * kSlice + c4 * 4),
+                static_cast<double*>(bufs.db0) + r * kDbStride + c4 * 4);
+    }
+  } else {
+    const __nv_bfloat16* sth = reinterpret_cast<const __nv_bfloat16*>(stage);
+    const __nv_bfloat16* stl = sth + kRawDb;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      ths[r * kDbStride + seg * 8 + e] = __bfloat162float(bh[e]);
-      tls[r * kDbStride + seg * 8 + e] = __bfloat162float(bl[e]);
+    for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
+      const int idx = tid + p * kThreads;
+      const int r = idx / (kSlice / 8);
+      const int seg = idx % (kSlice / 8);
+      const int at = r * kDbStride + seg * 8;
+      put_bf16x8(*reinterpret_cast<const uint4*>(sth + r * kSlice + seg * 8),
+                 static_cast<float*>(bufs.db0) + at);
+      if constexpr (kUsesLo<kArm>)
+        put_bf16x8(
+            *reinterpret_cast<const uint4*>(stl + r * kSlice + seg * 8),
+            static_cast<float*>(bufs.db1) + at);
     }
   }
+  const float* sq = reinterpret_cast<const float*>(stage + kDbStage<kArm>);
   const int r = tid / (kSlice / 4);
   const int c4 = tid % (kSlice / 4);
   const float4 v = *reinterpret_cast<const float4*>(sq + r * kSlice + c4 * 4);
   const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    split_store(xs[e], qhs, qls, (c4 * 4 + e) * kQStride + r);
+    store_query<kArm>(xs[e], bufs.qa, bufs.qb, (c4 * 4 + e) * kQStride + r);
 }
 
 template <Arm kArm, bool kFused>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
 stream_select_kernel(const void* __restrict__ p0,
                      const void* __restrict__ p1,
                      const void* __restrict__ p2,
@@ -216,21 +247,21 @@ stream_select_kernel(const void* __restrict__ p0,
                      int* __restrict__ ci, float* __restrict__ bounds, int n_q,
                      int dp, int n_tiles, int tile_n, int seg_tiles,
                      int depth) {
-  // operands: bf16x3 (q f32, th bf16, tl bf16, tnorm f32 [8, Np] row 0);
-  // int8 / int4 (qi int8, qsc f32, t int8 or packed uint8, aux f32 [2, Np]:
-  // row norms, then row scales)
-  constexpr int kStep = Geom<kArm>::kStep;
-  constexpr size_t kStageBytes = Geom<kArm>::kStageBytes;
+  // operands: f32 family (q f32, th bf16 / t f32, tl bf16 or unused, tnorm
+  // f32 [8, Np] row 0); int8 / int4 (qi int8, qsc f32, t int8 or packed
+  // uint8, aux f32 [2, Np]: row norms, then row scales)
+  constexpr int kStepA = kStep<kArm>;
+  constexpr size_t kStageA = kStageBytes<kArm>;
+  // virtual dims per chunk: bf16x3f walks each chunk once per product
+  constexpr int kVChunk = kPasses<kArm> * kDimChunk;
   extern __shared__ float4 smem_f4[];
   unsigned char* base = reinterpret_cast<unsigned char*>(smem_f4);
-  // compute buffers after the two stages.  bf16x3: th, tl f32 rows at
-  // kDbStride, then query hi / lo parts k-major; int: db words at
+  // compute buffers after the two stages.  f32 family: db parts at
+  // kDbStride, then query parts k-major (F32Bufs); int: db words at
   // kIntDbStride, then query words k-major
-  float* ths = reinterpret_cast<float*>(base + 2 * kStageBytes);
-  float* tls = ths + kBinW * kDbStride;       // [128][kDbStride]
-  float* qhs = tls + kBinW * kDbStride;       // [kSlice][kQStride]
-  float* qls = qhs + kSlice * kQStride;       // [kSlice][kQStride]
-  int* tws = reinterpret_cast<int*>(base + 2 * kStageBytes);
+  void* cbuf = base + 2 * kStageA;
+  const F32Bufs<kArm, kSlice, kDbStride> bufs(cbuf);
+  int* tws = static_cast<int*>(cbuf);
   int* qws = tws + kBinW * kIntDbStride;      // [kIntWords][kQStride]
   __shared__ int warp_ok[kThreads / 32];
 
@@ -242,11 +273,12 @@ stream_select_kernel(const void* __restrict__ p0,
   const int t_end = min(t_begin + seg_tiles, n_tiles);
   if (t_begin >= t_end) return;
   const int n_groups = tile_n / kBinW;
+  const int v_dims = kPasses<kArm> * dp;      // steps of a group, in dims
   const float inf = __int_as_float(0x7f800000);
   const float* tnorm = p3;
   const float* tscale = p3 + static_cast<size_t>(n_tiles) * tile_n;
   float qs[kQuadQ];
-  if constexpr (kArm != Arm::kBf16x3)
+  if constexpr (kIsInt<kArm>)
     load_qsc(static_cast<const float*>(p1), q0, quad, n_q, qs);
 
   float carry[kQuadQ][kQuadL][kMaxCarry];
@@ -259,22 +291,23 @@ stream_select_kernel(const void* __restrict__ p0,
         for (int d = 0; d < depth; ++d) carry[i][j][d] = inf;
   }
 
-  // the next step to stage: (tile nt, group ng, dims nk)
-  int nt = t_begin, ng = 0, nk = 0;
+  // the next step to stage: (tile nt, group ng, virtual dims nv)
+  int nt = t_begin, ng = 0, nv = 0;
   auto stage_next = [&](unsigned char* stage) {
     const size_t row0 =
         static_cast<size_t>(nt) * tile_n + static_cast<size_t>(ng) * kBinW;
-    if constexpr (kArm == Arm::kBf16x3)
-      start_stage(stage, static_cast<const __nv_bfloat16*>(p1),
-                  static_cast<const __nv_bfloat16*>(p2),
-                  static_cast<const float*>(p0), row0, nk, dp, q0, n_q, tid);
-    else
+    // the real dims of virtual offset nv (pass nv % kVChunk / 128)
+    const int k0 = nv / kVChunk * kDimChunk + nv % kDimChunk;
+    if constexpr (kIsInt<kArm>)
       start_stage_int<kArm>(stage, static_cast<const uint8_t*>(p2),
-                            static_cast<const int8_t*>(p0), row0, nk, dp, q0,
+                            static_cast<const int8_t*>(p0), row0, k0, dp, q0,
                             n_q, tid);
-    nk += kStep;
-    if (nk == dp) {
-      nk = 0;
+    else
+      start_stage<kArm>(stage, p1, p2, static_cast<const float*>(p0), row0,
+                        k0, dp, q0, n_q, tid);
+    nv += kStepA;
+    if (nv == v_dims) {
+      nv = 0;
       if (++ng == n_groups) {
         ng = 0;
         ++nt;
@@ -293,37 +326,41 @@ stream_select_kernel(const void* __restrict__ p0,
       const size_t row0 =
           static_cast<size_t>(ti) * tile_n + static_cast<size_t>(g) * kBinW;
       Acc acc;
+      Tile<Elem<kArm>> cacc;
       IAcc iacc;
-      if constexpr (kArm == Arm::kBf16x3)
-        zero_acc(acc);
-      else
+      if constexpr (kIsInt<kArm>)
         zero_iacc(iacc);
-      for (int k0 = 0; k0 < dp; k0 += kStep) {
+      else
+        zero_tile(acc);
+      for (int v0 = 0; v0 < v_dims; v0 += kStepA) {
         // this step's stage has landed (every thread's copies) and the
         // previous step's compute buffers are consumed
         cp_async_wait_all();
         __syncthreads();
         // the other stage was last read by the previous step's conversion
-        if (nt < t_end) stage_next(base + (buf ^ 1) * kStageBytes);
+        if (nt < t_end) stage_next(base + (buf ^ 1) * kStageA);
         cp_async_commit();
-        const unsigned char* stage = base + buf * kStageBytes;
-        if constexpr (kArm == Arm::kBf16x3) {
-          convert_stage(stage, ths, tls, qhs, qls, tid);
-          __syncthreads();
-          fma_slice<kSlice, kDbStride>(ths, tls, qhs, qls, quad, lane_col,
-                                       acc);
-        } else {
+        const unsigned char* stage = base + buf * kStageA;
+        if constexpr (kIsInt<kArm>) {
           stage_db_words<kArm>(stage, db_row_bytes<kArm>(kDimChunk), tws,
                                tid);
           stage_q_words(
-              reinterpret_cast<const int8_t*>(stage + Geom<kArm>::kDbStage),
+              reinterpret_cast<const int8_t*>(stage + kDbStage<kArm>),
               kDimChunk, kBlockQ, qws, tid);
           __syncthreads();
           dp4a_chunk(tws, qws, quad, lane_col, iacc);
+        } else {
+          const int off = v0 % kVChunk;
+          if (off == 0) zero_tile(cacc);
+          convert_stage<kArm>(stage, bufs, tid);
+          __syncthreads();
+          slice_products<kArm, kSlice, kDbStride>(cbuf, off / kDimChunk, quad,
+                                                  lane_col, cacc);
+          if (off + kStepA == kVChunk) add_chunk(acc, cacc);
         }
         buf ^= 1;
       }
-      if constexpr (kArm != Arm::kBf16x3)
+      if constexpr (kIsInt<kArm>)
         rescale(iacc, qs, tscale, row0, lane_col, acc);
       insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
     }
@@ -394,8 +431,7 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
                    int n_q, int dp, int n_tiles, int tile_n, int seg_tiles,
                    int depth, void* stream) {
   if (n_q <= 0 || n_tiles <= 0) return cudaSuccess;
-  if (seg_tiles <= 0 || depth < 0 || depth > kMaxCarry ||
-      dp % Geom<kArm>::kStep)
+  if (seg_tiles <= 0 || depth < 0 || depth > kMaxCarry || dp % kDimChunk)
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem<kArm, kFused>();
   if (err != cudaSuccess) return err;
@@ -413,12 +449,15 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
 template <bool kFused>
 cudaError_t ctas_per_sm_of(int arm, int* out) {
   switch (arm) {
-    case static_cast<int>(Arm::kBf16x3):
-      return ctas_per_sm<Arm::kBf16x3, kFused>(out);
-    case static_cast<int>(Arm::kInt8):
-      return ctas_per_sm<Arm::kInt8, kFused>(out);
-    case static_cast<int>(Arm::kInt4):
-      return ctas_per_sm<Arm::kInt4, kFused>(out);
+#define ARM_CASE(ARM) \
+  case static_cast<int>(ARM): return ctas_per_sm<ARM, kFused>(out);
+    ARM_CASE(Arm::kBf16x3)
+    ARM_CASE(Arm::kInt8)
+    ARM_CASE(Arm::kInt4)
+    ARM_CASE(Arm::kBf16x3f)
+    ARM_CASE(Arm::kHighest)
+    ARM_CASE(Arm::kDefault)
+#undef ARM_CASE
     default:
       return cudaErrorInvalidValue;
   }
@@ -426,15 +465,17 @@ cudaError_t ctas_per_sm_of(int arm, int* out) {
 
 }  // namespace
 
-// C entries for ctypes.  bf16x3 shapes as K1's (binned_coarse.cu): q
-// [n_q, dp] f32; th, tl [n_tiles*tile_n, dp] bf16; tnorm [n_tiles*tile_n]
-// f32 (row 0 of the [8, Np] norm rows).  int8 / int4 shapes as K5's / K6's:
-// qi [n_q, dp] int8, qsc [n_q] f32, t [n_tiles*tile_n, dp] int8 or
-// [n_tiles*tile_n, dp/2] packed uint8, aux [2, n_tiles*tile_n] f32.  cd, ci
-// [n_q, n_tiles*256]; bounds [n_q, n_tiles*128].  seg_tiles = db tiles per
-// CTA (the last segment may be shorter); depth = the fused kernel's carry
-// depth, 0..8 (0 disarms).  Each returns cudaGetLastError() after the launch
-// (0 = launched); the wrapper raises on anything else.
+// C entries for ctypes.  Operands p0 .. p3 as the tiled entries of the same
+// arm take them (binned_coarse.cu): f32 family q [n_q, dp] f32, then th, tl
+// bf16 (bf16x3, bf16x3f), th and an unused pointer (default) or t f32 and
+// an unused pointer (highest), then tnorm [n_tiles*tile_n] f32 (row 0 of
+// the [8, Np] norm rows); int8 / int4 qi [n_q, dp] int8, qsc [n_q] f32, t
+// [n_tiles*tile_n, dp] int8 or [n_tiles*tile_n, dp/2] packed uint8, aux
+// [2, n_tiles*tile_n] f32.  cd, ci [n_q, n_tiles*256]; bounds [n_q,
+// n_tiles*128].  seg_tiles = db tiles per CTA (the last segment may be
+// shorter); depth = the fused kernel's carry depth, 0..8 (0 disarms).  Each
+// returns cudaGetLastError() after the launch (0 = launched); the wrapper
+// raises on anything else.
 #define STREAM_ENTRIES(NAME, ARM)                                             \
   extern "C" int stream_select_##NAME(                                        \
       const void* p0, const void* p1, const void* p2, const void* p3,         \
@@ -454,14 +495,18 @@ cudaError_t ctas_per_sm_of(int arm, int* out) {
   }
 
 STREAM_ENTRIES(bf16x3, Arm::kBf16x3)
+STREAM_ENTRIES(bf16x3f, Arm::kBf16x3f)
+STREAM_ENTRIES(highest, Arm::kHighest)
+STREAM_ENTRIES(default, Arm::kDefault)
 STREAM_ENTRIES(int8, Arm::kInt8)
 STREAM_ENTRIES(int4, Arm::kInt4)
 
 // CTAs of the streaming (fused = 0) or fused (fused = 1) kernel of arm
-// `arm` (0 bf16x3, 1 int8, 2 int4) that one SM of the current device holds
-// at once, from the occupancy API (registers, kThreads and the arm's
-// kSmemBytes of the built kernel); the wrapper sizes the tile segments with
-// it.  Returns the cudaError (0 = *out is set).
+// `arm` (the Arm codes: 0 bf16x3, 1 int8, 2 int4, 3 bf16x3f, 4 highest, 5
+// default) that one SM of the current device holds at once, from the
+// occupancy API (registers, kThreads and the arm's kSmemBytes of the built
+// kernel); the wrapper sizes the tile segments with it.  Returns the
+// cudaError (0 = *out is set).
 extern "C" int stream_ctas_per_sm(int fused, int arm, int* out) {
   return static_cast<int>(fused ? ctas_per_sm_of<true>(arm, out)
                                 : ctas_per_sm_of<false>(arm, out));

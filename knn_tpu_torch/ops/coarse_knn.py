@@ -8,39 +8,47 @@ per-query constant ``||q||^2``: ``s = ||t||^2 - 2 q.t``.
 
 What runs where:
 
-- K1, the fused distance + per-bin select, is a hand-written CUDA C++
-  kernel for Hopper (``knn_tpu_torch/csrc/binned_coarse.cu``, wrapper
-  :func:`binned_select`), replacing the TPU kernel
-  ``pallas_knn._bin_candidates`` (bf16x3 arm, grouped binning,
-  query-major grid).  :func:`binned_select_plain` is the same function in
-  plain PyTorch; the wrapper runs it only for tensors on the CPU.
-- K10 and K11, the db-streaming kernels (``kernel="streaming"`` and
-  ``"fused"``), are two entries of ``knn_tpu_torch/csrc/binned_stream.cu``
+- The tiled kernels (``kernel="tiled"``) are entries of
+  ``knn_tpu_torch/csrc/binned_coarse.cu`` (wrapper :func:`binned_select`),
+  replacing the TPU kernel ``pallas_knn._bin_candidates``: K1 (bf16x3),
+  K4 (bf16x3f), K2 (highest), K3 (default), K5 / K6 (int8, int4), each in
+  the query-major grid or the db-major one (K9, ``grid_order="db_major"``,
+  bitwise the same outputs).  :func:`binned_select_plain` is the same
+  function in plain PyTorch; every wrapper runs it only for tensors on
+  the CPU.
+- The db-streaming kernels (``kernel="streaming"`` and ``"fused"``) of
+  every arm are entries of ``knn_tpu_torch/csrc/binned_stream.cu``
   (wrappers :func:`stream_select`, :func:`fused_select`), replacing the
-  TPU kernel ``pallas_knn._stream_call``.  K10 computes K1's function
-  bitwise; K11 adds the fused arm's early-out, which pads skipped tiles
-  (plain version :func:`fused_select_plain`).
-- K5 and K6, the quantized arms (``precision="int8"`` and ``"int4"``),
-  are int entries of the same two sources behind the same three
-  wrappers, which tell the arm by their operands' dtypes: an exact int32
-  dot of int8 queries against int8 (or nibble-packed int4) db rows, one
-  f32 rescale ``(f32(dot) * qsc) * ts``, then the same emitter.  They are
-  integer exact up to that one rounding, so every int kernel is held
-  bitwise against its plain version.
+  TPU kernel ``pallas_knn._stream_call``: K10 / K11 for bf16x3.  A
+  streaming entry computes its tiled entry's function bitwise; a fused
+  one adds the early-out, which pads skipped tiles (plain version
+  :func:`fused_select_plain`).
+- The arms' arithmetic (``csrc/binned_select.cuh``): the f32 family sums
+  each 128-dim chunk in its own accumulator and adds the chunks in f32,
+  the TPU body's order — bf16x3 ``qh.th + qh.tl + ql.th`` dim by dim,
+  bf16x3f the same products pass by pass, default the one bf16 product,
+  highest exact f32 products summed in f64 per chunk; the int arms an
+  exact int32 dot and one f32 rescale ``(f32(dot) * qsc) * ts``, held
+  bitwise against their plain versions.  The wrappers tell the arm by the
+  operands' dtypes (int8, int4, or the f32 family's ``bf16x3``) or take
+  it as ``arm``: the f32 family's operands do not tell bf16x3 from
+  bf16x3f.
 - Everything else is plain PyTorch, as in the JAX package's XLA code:
   the prologues (:func:`prepare_db`: dim padding to 128, ``PAD_VAL`` row
-  padding, the bf16 hi/lo split, the norm rows; :func:`quantize_queries`,
-  :func:`prepare_db_quant`, :func:`prepare_db_int` for the int arms), the
-  exact top-(m+2) by stable sort with its exclusion value, the pad-row
-  mask, the direct-difference f32 rescore (:func:`local_select_rescore`).
+  padding, the bf16 hi/lo split, the norm rows; :func:`prepare_db_f32`
+  for highest; :func:`quantize_queries`, :func:`prepare_db_quant`,
+  :func:`prepare_db_int` for the int arms), the exact top-(m+2) by stable
+  sort with its exclusion value, the pad-row mask, the direct-difference
+  f32 rescore (:func:`local_select_rescore`).
 
 A bin is defined by ``tile_n=16384`` and two survivors whatever the CUDA
 block shape is: candidate width, ``m`` and the fallback rate depend on
 them.  Grouped binning: bin b of a db tile is lane b of every 128-row
 group of the tile (``tile_n // 128`` members strided 128 apart).
 
-Ported so far: precisions ``bf16x3``, ``int8`` and ``int4``, binning
-``grouped``, grid ``query_major``, kernels ``tiled``, ``streaming`` and
+Ported so far: precisions ``bf16x3``, ``bf16x3f``, ``highest``,
+``default``, ``int8`` and ``int4``, binning ``grouped``, grids
+``query_major`` and ``db_major``, kernels ``tiled``, ``streaming`` and
 ``fused``, final select ``exact``, two survivors per bin and the 128-lane
 bin width.  The other values the JAX package accepts are refused by name.
 The JAX package's ``block_q`` only re-blocks query rows of its TPU grid;
@@ -85,26 +93,35 @@ GRID_ORDERS = ("query_major", "db_major")
 KERNELS = ("tiled", "streaming", "fused")
 #: the quantized arms, by the dtype of their db operand (int4 is packed)
 INT_ARMS = {"int8": torch.int8, "int4": torch.uint8}
-#: the arms the coarse kernels run, and their codes in binned_stream.cu's
-#: C entries; every wrapper counts its launches per arm
-ARMS = ("bf16x3", *INT_ARMS)
+#: the f32 family, by the dtype of its db operand and its operand count:
+#: (q, th, tl, tnorm) for the bf16x3 pair, (q, th, tnorm) for default,
+#: (q, t, tnorm) for highest
+F32_ARMS = {"bf16x3": (torch.bfloat16, 4), "bf16x3f": (torch.bfloat16, 4),
+            "highest": (torch.float32, 3), "default": (torch.bfloat16, 3)}
+#: the arms the coarse kernels run, and their codes in the C entries
+#: (csrc/binned_select.cuh, enum Arm); every wrapper counts its launches
+#: per arm
+ARMS = ("bf16x3", *INT_ARMS, "bf16x3f", "highest", "default")
 _ARM_CODES = {arm: code for code, arm in enumerate(ARMS)}
-PORTED = {"precision": ("bf16x3", "int8", "int4"), "binning": ("grouped",),
-          "grid_order": ("query_major",),
+PORTED = {"precision": ("bf16x3", "bf16x3f", "highest", "default", "int8",
+                        "int4"),
+          "binning": ("grouped",), "grid_order": GRID_ORDERS,
           "kernel": ("tiled", "streaming", "fused"),
           "final_select": ("exact",), "bin_w": (BIN_W,),
           "survivors": (SURVIVORS,)}
 
-#: query rows per CTA of every coarse kernel (K1, K10, K11); K11's skip
+#: query rows per CTA of every coarse kernel; the fused kernels' skip
 #: decision is taken per block of this many rows
 QUERY_BLOCK = 32
-#: the kernels launch one CTA row per QUERY_BLOCK queries; CUDA caps the
-#: grid's y extent
-_MAX_KERNEL_QUERIES = 65535 * QUERY_BLOCK
+#: CUDA caps a grid's y extent: the query blocks of the query-major and
+#: streaming grids, the db tiles of the db-major grid
+_MAX_GRID_Y = 65535
+_MAX_KERNEL_QUERIES = _MAX_GRID_Y * QUERY_BLOCK
 #: K11's carry depth cap (pallas_knn.py:260): past it the early-out disarms
 MAX_CARRY_DEPTH = 8
-#: CTAs one SM holds of K10 / K11, by (device index, kernel): read from the
-#: built kernel through the occupancy API at first use
+#: CTAs one SM holds of a streaming / fused kernel, by (device index,
+#: kernel, arm): read from the built kernel through the occupancy API at
+#: first use
 _ctas_per_sm = {}
 
 
@@ -246,8 +263,32 @@ def prepare_db(db: torch.Tensor, tile_n: int):
     the TPU kernel's sublane-broadcast block).  Returns (th, tl, tnorm)."""
     x = _pad_db(db, tile_n)
     th, tl = split_bf16(x)
-    tnorm = (x * x).sum(-1)
-    return th.contiguous(), tl.contiguous(), tnorm[None, :].expand(8, -1)
+    return th.contiguous(), tl.contiguous(), _norm_rows(x)
+
+
+def _norm_rows(x: torch.Tensor) -> torch.Tensor:
+    """The f32 row norms of padded rows as ``[8, Np]`` rows (an expanded
+    view, as the TPU kernel's sublane-broadcast block; row 0 is read)."""
+    return (x * x).sum(-1)[None, :].expand(8, -1)
+
+
+def prepare_db_f32(db: torch.Tensor, tile_n: int):
+    """The highest arm's db prologue (pallas_knn.py:913-915, 1079-1081,
+    1100-1105): the f32 rows padded as :func:`prepare_db` pads them, kept
+    in f32, and their norm rows — the same values as prepare_db's.
+    Returns (t [Np, Dp] f32, tnorm [8, Np])."""
+    x = _pad_db(db, tile_n).contiguous()
+    return x, _norm_rows(x)
+
+
+def prepare_db_arm(db: torch.Tensor, tile_n: int, precision: str):
+    """The db operands of f32-family arm ``precision`` as the kernels
+    take them: ``(th, tl, tnorm)`` for bf16x3 / bf16x3f, ``(th, tnorm)``
+    for default (K3 reads ``th = bf16(t)``), ``(t, tnorm)`` for highest."""
+    if precision == "highest":
+        return prepare_db_f32(db, tile_n)
+    th, tl, tnorm = prepare_db(db, tile_n)
+    return (th, tnorm) if precision == "default" else (th, tl, tnorm)
 
 
 def quantize_queries(queries: torch.Tensor, offset: float = 0.0):
@@ -354,25 +395,72 @@ def _select_tiles(score_tile, n_tiles: int, tile_n: int):
     return tuple(torch.cat([o[j] for o in outs], 1) for j in range(3))
 
 
-def _bf16x3_scores(q, th, tl, tnorm):
-    """K1's scores in plain PyTorch: an f32 matmul of the upcast bf16
-    parts summed per 128-dim chunk (``qh.th + qh.tl + ql.th``), then
-    ``s = tnorm[0] - 2 qt``.  Returns ``(scores(ti, rows), Np)``, the
-    scores of a tile's db rows for :func:`_select_tiles`."""
-    dp = q.shape[1]
-    qh, ql = (p.float() for p in split_bf16(q))
+def _chunked_scores(tnorm, dp: int, chunk_dot):
+    """``s = tnorm[0] - 2 qt`` of a tile's db rows, ``qt`` summed in f32
+    over the 128-dim chunks in order, each chunk's f32 dot from
+    ``chunk_dot(rows, cols)`` — the kernels' chunk structure."""
 
     def scores(ti, rows):
         qt = None
         for c in range(0, dp, DIM_CHUNK):
-            cols = slice(c, c + DIM_CHUNK)
-            h = th[rows, cols].float()
-            lo = tl[rows, cols].float()
-            part = (qh[:, cols] @ h.T + qh[:, cols] @ lo.T) + ql[:, cols] @ h.T
+            part = chunk_dot(rows, slice(c, c + DIM_CHUNK))
             qt = part if qt is None else qt + part
         return tnorm[0, rows][None, :] - 2.0 * qt
 
-    return scores, th.shape[0]
+    return scores
+
+
+def _bf16x3_scores(q, th, tl, tnorm):
+    """K1's scores in plain PyTorch: per 128-dim chunk an f32 matmul of
+    the upcast bf16 parts (``qh.th + qh.tl + ql.th``), the chunks summed in
+    f32, then ``s = tnorm[0] - 2 qt``.  Returns ``(scores(ti, rows), Np)``,
+    the scores of a tile's db rows for :func:`_select_tiles`."""
+    qh, ql = (p.float() for p in split_bf16(q))
+
+    def chunk_dot(rows, cols):
+        h = th[rows, cols].float()
+        lo = tl[rows, cols].float()
+        return (qh[:, cols] @ h.T + qh[:, cols] @ lo.T) + ql[:, cols] @ h.T
+
+    return _chunked_scores(tnorm, q.shape[1], chunk_dot), th.shape[0]
+
+
+def _bf16x3f_scores(q, th, tl, tnorm):
+    """K4's scores: per chunk one f32 matmul over the 3x contraction
+    ``[qh|qh|ql] . [th|tl|th]`` (pallas_knn.py:407-414, 970-976), chunks
+    summed in f32.  Returns as :func:`_bf16x3_scores`."""
+    qh, ql = (p.float() for p in split_bf16(q))
+
+    def chunk_dot(rows, cols):
+        h = th[rows, cols].float()
+        q3 = torch.cat([qh[:, cols], qh[:, cols], ql[:, cols]], 1)
+        return q3 @ torch.cat([h, tl[rows, cols].float(), h], 1).T
+
+    return _chunked_scores(tnorm, q.shape[1], chunk_dot), th.shape[0]
+
+
+def _highest_scores(q, t, tnorm):
+    """K2's scores: per chunk the f64 matmul of the f32 values (every
+    product exact), rounded once to f32, chunks summed in f32.  Returns
+    as :func:`_bf16x3_scores`."""
+    q64 = q.double()
+
+    def chunk_dot(rows, cols):
+        return (q64[:, cols] @ t[rows, cols].double().T).float()
+
+    return _chunked_scores(tnorm, q.shape[1], chunk_dot), t.shape[0]
+
+
+def _default_scores(q, th, tnorm):
+    """K3's scores: the TPU's one bf16 pass, per chunk an f32 matmul of
+    ``bf16_rn(q)`` against ``th = bf16_rn(t)`` (exact products), chunks
+    summed in f32.  Returns as :func:`_bf16x3_scores`."""
+    qh = q.to(torch.bfloat16).float()
+
+    def chunk_dot(rows, cols):
+        return qh[:, cols] @ th[rows, cols].float().T
+
+    return _chunked_scores(tnorm, q.shape[1], chunk_dot), th.shape[0]
 
 
 def _int_scores(qi, qsc, t, aux):
@@ -395,39 +483,58 @@ def _int_scores(qi, qsc, t, aux):
     return scores, t.shape[0]
 
 
-def binned_select_plain(*operands: torch.Tensor, tile_n: int):
+_SCORES = {"bf16x3": _bf16x3_scores, "bf16x3f": _bf16x3f_scores,
+           "highest": _highest_scores, "default": _default_scores,
+           "int8": _int_scores, "int4": _int_scores}
+
+
+def binned_select_plain(*operands: torch.Tensor, tile_n: int,
+                        arm: Optional[str] = None):
     """The coarse kernels' function in plain PyTorch, tile by tile through
-    :func:`_select_tile`: K1 and K10 from the bf16x3 operands ``(q, th,
-    tl, tnorm)``, K5 and K6 from the int operands ``(qi, qsc, t, aux)``
-    (:func:`binned_select` describes both), told apart by the query
-    operand's dtype."""
-    scores, n_p = (_int_scores if operands[0].dtype == torch.int8
-                   else _bf16x3_scores)(*operands)
+    :func:`_select_tile`, from the operands of arm ``arm`` as
+    :func:`binned_select` takes them (the int arms told by dtype)."""
+    arm, n_p = _check_operands(operands, tile_n, arm)
+    scores, _ = _SCORES[arm](*operands)
     return _select_tiles(scores, n_p // tile_n, tile_n)
 
 
-def _check_operands(operands, tile_n: int) -> Tuple[str, int]:
-    """Checks a coarse kernel's four operands — the bf16x3 ``(q, th, tl,
-    tnorm)`` or an int arm's ``(qi, qsc, t, aux)``, told apart by the
-    query operand's dtype — and returns the arm and the padded db rows."""
-    if len(operands) != 4:
-        raise ValueError(f"a coarse kernel takes 4 operands, got {len(operands)}")
-    if operands[0].dtype == torch.int8:
-        return _check_int_operands(*operands, tile_n), operands[2].shape[0]
-    _check_bf16x3_operands(*operands, tile_n)
-    return "bf16x3", operands[1].shape[0]
-
-
-def _check_bf16x3_operands(q, th, tl, tnorm, tile_n: int) -> None:
+def _check_operands(operands, tile_n: int,
+                    arm: Optional[str] = None) -> Tuple[str, int]:
+    """Checks a coarse kernel's operands — an int arm's ``(qi, qsc, t,
+    aux)`` (told by the query operand's dtype), or the f32 family's
+    operands of ``arm`` (None: bf16x3) — and returns the arm and the
+    padded db rows."""
+    if operands and operands[0].dtype == torch.int8:
+        if len(operands) != 4:
+            raise ValueError(
+                f"an int arm's coarse kernel takes 4 operands, got "
+                f"{len(operands)}")
+        got = _check_int_operands(*operands, tile_n)
+        if arm not in (None, got):
+            raise ValueError(f"arm={arm!r} given {got} operands")
+        return got, operands[2].shape[0]
+    arm = "bf16x3" if arm is None else arm
+    if arm not in F32_ARMS:
+        raise ValueError(
+            f"arm {arm!r} is not an arm of the f32 family {tuple(F32_ARMS)} "
+            f"(the int arms are told by their operands)")
+    db_dtype, count = F32_ARMS[arm]
+    if len(operands) != count:
+        raise ValueError(
+            f"the {arm} coarse kernel takes {count} operands, got "
+            f"{len(operands)}")
+    q, dbs, tnorm = operands[0], operands[1:-1], operands[-1]
     if q.dtype != torch.float32 or q.dim() != 2 or not q.is_contiguous():
         raise ValueError("q must be a contiguous [Q, Dp] float32 tensor")
-    if th.dtype != torch.bfloat16 or tl.dtype != torch.bfloat16:
-        raise ValueError("th, tl must be bfloat16")
-    if th.shape != tl.shape or th.dim() != 2:
-        raise ValueError(f"th {tuple(th.shape)} / tl {tuple(tl.shape)} mismatch")
-    if not (th.is_contiguous() and tl.is_contiguous()):
-        raise ValueError("th, tl must be contiguous")
-    n_p, dp = th.shape
+    names = "th, tl" if count == 4 else ("t" if arm == "highest" else "th")
+    if any(t.dtype != db_dtype for t in dbs):
+        raise ValueError(f"{names} must be {str(db_dtype)[6:]}")
+    if dbs[0].dim() != 2 or any(t.shape != dbs[0].shape for t in dbs):
+        raise ValueError(
+            f"{names} mismatch: {[tuple(t.shape) for t in dbs]}")
+    if not all(t.is_contiguous() for t in dbs):
+        raise ValueError(f"{names} must be contiguous")
+    n_p, dp = dbs[0].shape
     if q.shape[1] != dp or dp % DIM_CHUNK:
         raise ValueError(
             f"q dims {q.shape[1]} vs db dims {dp}: both must match and be a "
@@ -435,7 +542,8 @@ def _check_bf16x3_operands(q, th, tl, tnorm, tile_n: int) -> None:
     if tnorm.dtype != torch.float32 or tuple(tnorm.shape) != (8, n_p) \
             or tnorm.stride(1) != 1:
         raise ValueError("tnorm must be [8, Np] float32 with unit row stride")
-    _check_rows_and_device(n_p, tile_n, (q, th, tl, tnorm))
+    _check_rows_and_device(n_p, tile_n, operands)
+    return arm, n_p
 
 
 def _check_rows_and_device(n_p: int, tile_n: int, operands) -> None:
@@ -491,22 +599,36 @@ def _entry(library: str, name: str, n_ints: int):
     return fn
 
 
+def check_grid(n_q: int, n_tiles: int,
+               grid_order: str = "query_major") -> None:
+    """Refuses a launch whose grid's y extent passes CUDA's cap: the
+    query blocks of the query-major and streaming grids, the db tiles of
+    the db-major grid."""
+    if grid_order == "db_major":
+        if n_tiles > _MAX_GRID_Y:
+            raise ValueError(
+                f"{n_tiles} db tiles exceed the db-major grid's "
+                f"{_MAX_GRID_Y} (its y extent); raise tile_n or use "
+                f"grid_order='query_major'")
+    elif n_q > _MAX_KERNEL_QUERIES:
+        raise ValueError(
+            f"{n_q} queries exceed one launch's {_MAX_KERNEL_QUERIES} (the "
+            f"grid's y extent); run them in batches (batch_size)")
+
+
 def _launch(library: str, name: str, operands, n_rows: int, tile_n: int,
-            *extra: int):
+            *extra: int, grid_order: str = "query_major"):
     """Allocates ``(cd, ci, bounds)`` on the card and launches the C entry
-    ``name`` on the current stream with the four ``operands`` (the query
-    operand first: ``q, th, tl, tnorm`` or ``qi, qsc, t, aux``), then
-    ``n_q, dp, n_tiles = n_rows // tile_n, tile_n`` and ``extra`` ints;
-    raises if the launch is refused."""
+    ``name`` on the current stream with the ``operands`` (the query
+    operand first; a three-operand arm's fills the entry's third pointer
+    with NULL), then ``n_q, dp, n_tiles = n_rows // tile_n, tile_n`` and
+    ``extra`` ints; raises if the launch is refused."""
     q = operands[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
     n_q, dp = q.shape
-    if n_q > _MAX_KERNEL_QUERIES:
-        raise ValueError(
-            f"{n_q} queries exceed one launch's {_MAX_KERNEL_QUERIES} (the "
-            f"grid's y extent); run them in batches (batch_size)")
     n_tiles = n_rows // tile_n
+    check_grid(n_q, n_tiles, grid_order)
     cd = torch.empty((n_q, n_tiles * SURVIVORS * BIN_W), dtype=torch.float32,
                      device=q.device)
     ci = torch.empty(cd.shape, dtype=torch.int32, device=q.device)
@@ -515,43 +637,60 @@ def _launch(library: str, name: str, operands, n_rows: int, tile_n: int,
     for t in operands:
         if t.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")
+    ptrs = [t.data_ptr() for t in operands]
+    if len(ptrs) == 3:
+        ptrs.insert(2, None)
     fn = _entry(library, name, 4 + len(extra))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in operands),
-                cd.data_ptr(), ci.data_ptr(), bounds.data_ptr(),
+        rc = fn(*ptrs, cd.data_ptr(), ci.data_ptr(), bounds.data_ptr(),
                 n_q, dp, n_tiles, tile_n, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     return cd, ci, bounds
 
 
-def binned_select(*operands: torch.Tensor, tile_n: int):
-    """The tiled wrapper — K1 (bf16x3), K5 (int8), K6 (int4): ``(cd
-    [Q, T*256] f32, ci [Q, T*256] i32, bounds [Q, T*128] f32)`` from four
-    operands, the arm told by their dtypes:
+def binned_select(*operands: torch.Tensor, tile_n: int,
+                  arm: Optional[str] = None,
+                  grid_order: str = "query_major"):
+    """The tiled wrapper — K1 (bf16x3), K4 (bf16x3f), K2 (highest), K3
+    (default), K5 (int8), K6 (int4): ``(cd [Q, T*256] f32, ci [Q, T*256]
+    i32, bounds [Q, T*128] f32)`` from the arm's operands:
 
-    - bf16x3: ``q [Q, Dp] f32`` (:func:`pad_queries`), the db parts ``th,
-      tl [Np, Dp] bf16`` and ``tnorm [8, Np] f32`` (:func:`prepare_db`);
+    - bf16x3, bf16x3f: ``q [Q, Dp] f32`` (:func:`pad_queries`), the db
+      parts ``th, tl [Np, Dp] bf16`` and ``tnorm [8, Np] f32``
+      (:func:`prepare_db`);
+    - default: ``q``, ``th`` and ``tnorm`` (K3 reads ``th = bf16(t)``);
+    - highest: ``q``, ``t [Np, Dp] f32`` and ``tnorm``
+      (:func:`prepare_db_f32`);
     - int8 / int4: ``qi [Q, Dp] int8`` and ``qsc [Q] f32``
       (:func:`quantize_queries`), ``t`` int8 [Np, Dp] (int8) or
       nibble-packed uint8 [Np, Dp/2] (int4) and ``aux [2, Np] f32``
       (:func:`prepare_db_quant` / :func:`prepare_db_int`).
 
-    On a CUDA tensor it launches ``binned_select_<arm>`` (built from
-    ``csrc/binned_coarse.cu`` at first use) on the current stream, or
-    raises; on a CPU tensor it runs :func:`binned_select_plain`.
-    ``binned_select.launches[arm]`` counts kernel launches."""
-    arm, n_p = _check_operands(operands, tile_n)
+    The int arms are told by their operands' dtypes; the f32 family's arm
+    is ``arm`` (None: bf16x3).  ``grid_order="db_major"`` launches the
+    db-major grid (K9), bitwise the same outputs.  On a CUDA tensor it
+    launches ``binned_select_<arm>`` (built from ``csrc/binned_coarse.cu``
+    at first use) on the current stream, or raises; on a CPU tensor it
+    runs :func:`binned_select_plain`.  ``binned_select.launches[arm]``
+    counts kernel launches, ``binned_select.db_major_launches[arm]`` those
+    in the db-major grid among them."""
+    arm, n_p = _check_operands(operands, tile_n, arm)
+    if grid_order not in GRID_ORDERS:
+        raise ValueError(f"grid_order {grid_order!r} not in {GRID_ORDERS}")
     if operands[0].device.type == "cpu":
-        return binned_select_plain(*operands, tile_n=tile_n)
+        return binned_select_plain(*operands, tile_n=tile_n, arm=arm)
+    db_major = grid_order == "db_major"
     out = _launch("binned_coarse", f"binned_select_{arm}", operands, n_p,
-                  tile_n)
+                  tile_n, int(db_major), grid_order=grid_order)
     binned_select.launches[arm] += 1
+    binned_select.db_major_launches[arm] += db_major
     return out
 
 
 binned_select.launches = dict.fromkeys(ARMS, 0)
+binned_select.db_major_launches = dict.fromkeys(ARMS, 0)
 
 
 def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
@@ -608,20 +747,21 @@ def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str,
         n_q, n_tiles, n_sm * _stream_ctas_per_sm(device, kernel, precision))
 
 
-def stream_select(*operands: torch.Tensor, tile_n: int):
+def stream_select(*operands: torch.Tensor, tile_n: int,
+                  arm: Optional[str] = None):
     """The streaming wrapper (``kernel="streaming"``) — K10 (bf16x3) and
-    the int arms' streaming entries: the function, operands and outputs
-    of :func:`binned_select`, computed by one launch of
+    the other arms' streaming entries: the function, operands, ``arm`` and
+    outputs of :func:`binned_select`, computed by one launch of
     ``stream_select_<arm>`` whose CTAs stream the db tiles through a
     cp.async double buffer (``csrc/binned_stream.cu``); its outputs are
     bitwise the tiled kernel's.  Its plain version is
     :func:`binned_select_plain` (the function is the same), which it runs
     for CPU tensors.  ``stream_select.launches[arm]`` counts kernel
     launches."""
-    arm, n_p = _check_operands(operands, tile_n)
+    arm, n_p = _check_operands(operands, tile_n, arm)
     q = operands[0]
     if q.device.type == "cpu":
-        return binned_select_plain(*operands, tile_n=tile_n)
+        return binned_select_plain(*operands, tile_n=tile_n, arm=arm)
     seg = kernel_segment_tiles(q.shape[0], n_p // tile_n, q.device,
                                "streaming", arm)
     out = _launch("binned_stream", f"stream_select_{arm}", operands, n_p,
@@ -681,33 +821,35 @@ def _early_out(out, n_tiles: int, keep: Optional[int], block_q: int,
 
 def fused_select_plain(*operands: torch.Tensor, tile_n: int,
                        keep: Optional[int], block_q: int = QUERY_BLOCK,
-                       seg_tiles: Optional[int] = None):
-    """The fused kernels (K11 and the int arms' fused entries) in plain
+                       seg_tiles: Optional[int] = None,
+                       arm: Optional[str] = None):
+    """The fused kernels (K11 and the other arms' fused entries) in plain
     PyTorch: :func:`binned_select_plain`, then the early-out
     (:func:`_early_out`) at the given geometry.  Depth 0 (keep None or
     too deep) skips nothing: the output is the streaming kernel's."""
-    out = binned_select_plain(*operands, tile_n=tile_n)
+    out = binned_select_plain(*operands, tile_n=tile_n, arm=arm)
     return _early_out(out, out[2].shape[1] // BIN_W, keep, block_q,
                       seg_tiles)
 
 
-def fused_select(*operands: torch.Tensor, tile_n: int, keep: Optional[int]):
-    """The fused wrapper (``kernel="fused"``) — K11 (bf16x3) and the int
+def fused_select(*operands: torch.Tensor, tile_n: int, keep: Optional[int],
+                 arm: Optional[str] = None):
+    """The fused wrapper (``kernel="fused"``) — K11 (bf16x3) and the other
     arms' fused entries: the streaming kernel plus the early-out that pads
     a tile's block for a query block when no row of the block can use it;
     ``keep`` (= m+2, the final select's width) sizes the carry, None
-    disarms it.  Operands as :func:`binned_select` takes them.  On a CUDA
-    tensor it launches ``fused_select_<arm>`` (``csrc/binned_stream.cu``)
-    at :func:`kernel_segment_tiles`, or raises; on a CPU tensor it runs
-    :func:`fused_select_plain` at the CPU geometry.
-    ``fused_select.launches[arm]`` counts kernel launches."""
-    arm, n_p = _check_operands(operands, tile_n)
+    disarms it.  Operands and ``arm`` as :func:`binned_select` takes them.
+    On a CUDA tensor it launches ``fused_select_<arm>``
+    (``csrc/binned_stream.cu``) at :func:`kernel_segment_tiles`, or
+    raises; on a CPU tensor it runs :func:`fused_select_plain` at the CPU
+    geometry.  ``fused_select.launches[arm]`` counts kernel launches."""
+    arm, n_p = _check_operands(operands, tile_n, arm)
     q = operands[0]
     seg = kernel_segment_tiles(q.shape[0], n_p // tile_n, q.device, "fused",
                                arm)
     if q.device.type == "cpu":
         return fused_select_plain(*operands, tile_n=tile_n, keep=keep,
-                                  seg_tiles=seg)
+                                  seg_tiles=seg, arm=arm)
     out = _launch("binned_stream", f"fused_select_{arm}", operands, n_p,
                   tile_n, seg, carry_depth(keep))
     fused_select.launches[arm] += 1
@@ -735,24 +877,24 @@ def skipped_cells(cd: torch.Tensor, n_tiles: int,
 def _bin_candidates(queries: torch.Tensor, db: Optional[torch.Tensor], *,
                     tile_n: int, db_parts=None, kernel: str = "tiled",
                     keep: Optional[int] = None, precision: str = "bf16x3",
-                    db_quant=None, offset: float = 0.0
+                    db_quant=None, offset: float = 0.0,
+                    grid_order: str = "query_major"
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel launch on padded shapes (the bf16x3, int8 and int4 arms of
-    the JAX package's ``_bin_candidates``).  ``db_parts`` plugs in a
-    placement's prepared parts, padded to ``round_up(N, tile_n)`` rows:
-    ``(th, tl, tnorm)`` for bf16x3, ``(t, aux)`` for the int arms.  None
-    prepares them here: from ``db_quant`` (the unpadded ``(values,
+    """Kernel launch on padded shapes (the JAX package's
+    ``_bin_candidates`` for every ported arm).  ``db_parts`` plugs in a
+    placement's db operands of the arm, padded to ``round_up(N, tile_n)``
+    rows: ``(th, tl, tnorm)`` for bf16x3 / bf16x3f, ``(th, tnorm)`` for
+    default, ``(t, tnorm)`` for highest, ``(t, aux)`` for the int arms.
+    None prepares them here: from ``db_quant`` (the unpadded ``(values,
     scales, norms)`` triple the JAX package takes as ``db_int8`` /
     ``db_int4``) when given, else from ``db``.  ``offset`` is the shift
     both sides of an int arm subtract before quantizing (128.0 for uint8
-    payloads).  ``kernel`` picks the tiled, streaming or fused kernel;
-    ``keep`` sizes the fused kernels' carry (ignored by the others).
-    Returns cd, ci, bounds for the query rows given (the JAX kernel's
-    query padding never leaves it)."""
-    if precision == "bf16x3":
-        parts = db_parts if db_parts is not None else prepare_db(db, tile_n)
-        operands = (pad_queries(queries), *parts)
-    else:
+    payloads).  ``kernel`` picks the tiled, streaming or fused kernel,
+    ``grid_order`` the tiled kernel's grid; ``keep`` sizes the fused
+    kernels' carry (ignored by the others).  Returns cd, ci, bounds for
+    the query rows given (the JAX kernel's query padding never leaves
+    it)."""
+    if precision in INT_ARMS:
         if db_parts is None:
             db_parts = (prepare_db_quant(*db_quant, tile_n)
                         if db_quant is not None
@@ -763,10 +905,17 @@ def _bin_candidates(queries: torch.Tensor, db: Optional[torch.Tensor], *,
                 f"precision={precision!r} takes a {INT_ARMS[precision]} db "
                 f"operand, got {t.dtype}")
         operands = (*quantize_queries(queries, offset), t, aux)
+    else:
+        if db_parts is None:
+            db_parts = prepare_db_arm(db, tile_n, precision)
+        operands = (pad_queries(queries), *db_parts)
     if kernel == "fused":
-        return fused_select(*operands, tile_n=tile_n, keep=keep)
-    fn = stream_select if kernel == "streaming" else binned_select
-    return fn(*operands, tile_n=tile_n)
+        return fused_select(*operands, tile_n=tile_n, keep=keep,
+                            arm=precision)
+    if kernel == "streaming":
+        return stream_select(*operands, tile_n=tile_n, arm=precision)
+    return binned_select(*operands, tile_n=tile_n, arm=precision,
+                         grid_order=grid_order)
 
 
 def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
@@ -795,7 +944,7 @@ def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
                            kernel=kernel,
                            keep=m + 2 if kernel == "fused" else None,
                            precision=precision, db_quant=db_quant,
-                           offset=offset)
+                           offset=offset, grid_order=grid_order)
 
 
 def local_select_rescore(q, t, cd, ci, bounds, m: int, *,
@@ -874,8 +1023,10 @@ def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,
 
     - "highest": 4x certification_tolerance (= 32 eps_f32 (||q||^2 +
       max||t||^2));
-    - "bf16x3": the dropped ql.tl term and the low-part rounding are each
-      <= 2^-17 (||q||^2 + max||t||^2)/2; 2^-14 gives ~8x headroom;
+    - "bf16x3", "bf16x3f": the reference's model puts the dropped ql.tl
+      term and the low-part rounding at <= 2^-17 (||q||^2 +
+      max||t||^2)/2 each and takes 2^-14 (csrc/binned_select.cuh gives
+      the kernels' worst case; ROADMAP queue C, fault 12);
     - "int8", "int4": the larger of "highest"'s and the provable
       quantization bound ε from the actual residuals
       (ops.quantize.score_error_bound).  ``quant`` supplies the
@@ -895,10 +1046,34 @@ def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,
         stats = db_bound_stats(quant, db_np)
         return np.maximum(
             base, score_error_bound(queries_np, stats, offset=quant.offset))
-    if precision == "bf16x3":
+    if precision in ("bf16x3", "bf16x3f"):
         return np.maximum(base, 2.0 ** -14 * (q_norm + db_norm_max))
     if precision == "highest":
         return base
     raise ValueError(
-        f"precision {precision!r} has no tolerance model in the port yet; "
-        f"use 'bf16x3', 'int8', 'int4' or 'highest'")
+        f"precision {precision!r} has no certified tolerance model; use "
+        f"'bf16x3', 'bf16x3f', 'int8', 'int4' or 'highest'")
+
+
+def pallas_knn_candidates(queries: torch.Tensor, db: torch.Tensor, m: int, *,
+                          tile_n: int = TILE_N, precision: str = "bf16x3",
+                          **knobs) -> torch.Tensor:
+    """[Q, m] coarse candidate indices from the coarse kernel of arm
+    ``precision`` (pallas_knn.py:1482-1514) — the ``candidate_fn`` plug of
+    ops.certified.knn_search_certified.  The kernel needs one exclusion
+    slot, so a whole-db request (m >= n) selects ``m_eff = min(m, n-1)``
+    rows and pads the rest with the int32-max sentinel: the count
+    certificate catches the one row left out.  ``knobs`` (``kernel``,
+    ``grid_order``) pass on to the coarse pass; the JAX package's
+    ``block_q``, ``interpret`` and ``compute_dtype`` have no counterpart
+    here.  Returns int64 indices on the queries' device."""
+    n_q = queries.shape[0]
+    m_eff = min(m, max(db.shape[0] - 1, 1))
+    _, idx, _ = local_certified_candidates(queries, db, m_eff, tile_n=tile_n,
+                                           precision=precision, **knobs)
+    idx = idx[:n_q, :m_eff]
+    if m_eff < m:
+        idx = torch.cat([idx, torch.full((n_q, m - m_eff), I32MAX,
+                                         dtype=idx.dtype, device=idx.device)],
+                        dim=-1)
+    return idx

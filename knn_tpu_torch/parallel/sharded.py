@@ -10,9 +10,10 @@ they are absent here; everything else follows the JAX code path:
 - ``search`` — exact f32 expanded-square distances and a stable top-k
   (ties to the lower index);
 - ``search_certified(selector="pallas")`` — the one-pass certificate:
-  the coarse kernel (of knn_tpu_torch.ops.coarse_knn, by ``kernel`` and
-  ``precision``: K1, K10 or K11 for bf16x3, the int8 / int4 entries for
-  the quantized arms) emits per-bin survivors and exclusion bounds, the exact
+  the coarse kernel (of knn_tpu_torch.ops.coarse_knn, by ``kernel``,
+  ``precision`` and ``grid_order``: the tiled, streaming or fused entry of
+  the bf16x3, bf16x3f, highest, int8 or int4 arm) emits per-bin survivors
+  and exclusion bounds, the exact
   top-(m+2) and the direct-difference f32 rescore rank the candidates,
   the device certificate :func:`_certify_pack` flags queries whose k-th
   distance is not provably below the exclusion bound (``bad``) and marks
@@ -52,6 +53,7 @@ from knn_tpu_torch.ops.coarse_knn import (
     local_coarse_candidates,
     local_select_rescore,
     prepare_db,
+    prepare_db_f32,
     prepare_db_quant,
 )
 from knn_tpu_torch.ops.metrics import L2_FAMILY
@@ -61,7 +63,7 @@ from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats_t,
                                         score_error_bound_device)
 from knn_tpu_torch.ops.topk import I32MAX, knn_search_tiled
 from knn_tpu_torch.ops.vote import majority_vote
-from knn_tpu_torch.utils.config import SELECTORS
+from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
 
 #: upper bound on the elements of one [queries, rows] f32 distance block
 #: of the exact path; larger query sets run in row chunks (each query's
@@ -159,6 +161,8 @@ class ShardedKNN:
         self._parts = {}
         #: the int8 / int4 placements, by precision, built on first use
         self._quant = {}
+        #: the highest arm's padded f32 rows, built on first use
+        self._t32 = None
         #: the overlap pipeline's (coarse, tail) CUDA streams, made on first
         #: use and kept: the caching allocator reuses a freed block only on
         #: the stream it was made on, so new streams per call allocate anew
@@ -209,28 +213,46 @@ class ShardedKNN:
 
     # -- certified path ----------------------------------------------------
     def _coarse_parts(self, tile: int, precision: str = "bf16x3"):
-        """The db parts of arm ``precision`` padded for ``tile``: the
-        placement's own — the f32 placement's bf16 parts, or the quantized
-        placement's ``(t, aux)`` — when their padding matches, else padded
-        anew once and kept."""
+        """The db operands of arm ``precision`` padded for ``tile``: the
+        placement's own — the f32 placement's bf16 parts ``(th, tl,
+        tnorm)`` (``(th, tnorm)`` for default), the padded f32 rows ``(t,
+        tnorm)`` for highest, or the quantized placement's ``(t, aux)`` —
+        when their padding matches, else padded anew once and kept."""
         rows = _round_up(self.n_train, tile)
-        if precision in INT_ARMS:
-            own = self._quant_placement(precision)["parts"]
-        else:
-            pl = self.placement
-            own = (pl.th, pl.tl, pl.tnorm)
-        if own[0].shape[0] == rows:
-            return own
-        key = (precision, rows)
-        if key not in self._parts:
-            n = self.n_train
+        pl = self.placement
+        if rows == pl.th.shape[0]:  # every placement is padded alike
             if precision in INT_ARMS:
-                t, aux = own
-                self._parts[key] = prepare_db_quant(t[:n], aux[1, :n],
-                                                    aux[0, :n], tile)
+                parts = self._quant_placement(precision)["parts"]
+            elif precision == "highest":
+                parts = self._f32_parts()
             else:
-                self._parts[key] = prepare_db(self.placement.db, tile)
-        return self._parts[key]
+                parts = (pl.th, pl.tl, pl.tnorm)
+        else:
+            # the bf16 arms share one set of parts
+            key = (precision if precision in (*INT_ARMS, "highest")
+                   else "bf16", rows)
+            if key not in self._parts:
+                if precision in INT_ARMS:
+                    n = self.n_train
+                    t, aux = self._quant_placement(precision)["parts"]
+                    self._parts[key] = prepare_db_quant(t[:n], aux[1, :n],
+                                                        aux[0, :n], tile)
+                elif precision == "highest":
+                    self._parts[key] = prepare_db_f32(pl.db, tile)
+                else:
+                    self._parts[key] = prepare_db(pl.db, tile)
+            parts = self._parts[key]
+        return (parts[0], parts[-1]) if precision == "default" else parts
+
+    def _f32_parts(self):
+        """The highest arm's operands ``(t, tnorm)``: the f32 rows padded as
+        the bf16 parts are (coarse_knn.prepare_db_f32), built on the
+        placement's device at first use and kept (~512 MB at 1M x 128),
+        with the placement's norm rows."""
+        if self._t32 is None:
+            self._t32 = prepare_db_f32(self.placement.db,
+                                       self.placement.th.shape[0])[0]
+        return self._t32, self.placement.tnorm
 
     def _quant_placement(self, precision: str) -> dict:
         """The int8 or int4 db placement, built on first use and kept —
@@ -291,6 +313,12 @@ class ShardedKNN:
         cd, ci, bounds)`` the select/rescore/certify, returning
         :func:`_certify_pack`'s tensors.  The sequential path and the
         pipeline run the same pair, so their outputs are bitwise equal."""
+        if precision not in CERTIFIED_PRECISIONS:
+            # default has no certified tolerance model: refuse rather than
+            # certify with one (sharded.py:1799-1806)
+            raise ValueError(
+                f"precision {precision!r} has no certified tolerance "
+                f"model; use one of {CERTIFIED_PRECISIONS}")
         check_knobs(precision=precision, binning=binning,
                     grid_order=grid_order, kernel=kernel,
                     final_select=final_select, bin_w=bin_w,
@@ -332,7 +360,8 @@ class ShardedKNN:
             return _certify_pack(q, d32, li, lb, db_norm_max=db_norm_max,
                                  m=m, k=self.k, w=w, n_train=rows,
                                  include_distances=include_distances,
-                                 consts=consts, offset=offset)
+                                 precision=precision, consts=consts,
+                                 offset=offset)
 
         return (coarse, tail), m, w
 
@@ -479,8 +508,12 @@ class ShardedKNN:
         float64-exact.  Cosine runs the certificate on unit vectors and
         returns ``1 - similarity``.  Knobs left at None take the library
         defaults (knn_tpu_torch.tuning); ``kernel`` picks the coarse
-        kernel: "tiled" (K1), "streaming" (K10) or "fused" (K11), with
-        bitwise the same result.  ``stats`` carries ``certified``,
+        kernel: "tiled", "streaming" or "fused", and ``grid_order`` the
+        tiled kernel's grid ("query_major" or "db_major"), with bitwise
+        the same result; ``precision`` its arm: "bf16x3" (K1, K10, K11),
+        "bf16x3f" (K4), "highest" (K2), "int8" (K5), "int4" (K6), each
+        certified with its own tolerance ("default", K3, has none and is
+        refused).  ``stats`` carries ``certified``,
         ``fallback_queries``, ``rank_corrected_queries``, the repair
         counts and ``pallas_knobs``.  Queries must be finite.
 
@@ -574,6 +607,7 @@ class ShardedKNN:
 
 def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
                   w: int, n_train: int, include_distances: bool,
+                  precision: str = "bf16x3",
                   consts: Optional[torch.Tensor] = None,
                   offset: float = 0.0):
     """The certify tail of the JAX package's ``_certify_pack_spmd`` for one
@@ -583,8 +617,10 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
       RANK_SLACK; ``stop`` is the first big gap at or after the top-k
       boundary; rows without one (or with non-finite values in the top
       k+1) are ``unresolved``;
-    - the bf16x3 tolerance ``tol = 2^-14 (||q||^2 + db_norm_max)`` in f32;
-      for the int arms (``consts`` given, sharded.py:2350-2355) the
+    - the tolerance of ``precision`` in f32 (sharded.py:2361-2367):
+      ``2^-14 (||q||^2 + db_norm_max)`` for bf16x3 and bf16x3f, ``32
+      eps_f32 (||q||^2 + db_norm_max)`` for highest; for the int arms
+      (``consts`` given, sharded.py:2350-2355) the
       per-query provable quantization bound ε and the query norm, both in
       the ``offset``-shifted space the kernel scores in
       (ops.quantize.score_error_bound_device);
@@ -612,7 +648,9 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
         q_norm, tol = score_error_bound_device(q32 - offset, consts)
     else:
         q_norm = (q32 * q32).sum(-1)
-        tol = 2.0 ** -14 * (q_norm + db_norm_max)
+        scale = 2.0 ** -14 if precision in ("bf16x3", "bf16x3f") \
+            else 32.0 * float(np.finfo(np.float32).eps)
+        tol = scale * (q_norm + db_norm_max)
     d_k = dw[:, k - 1]
     s_k = d_k - q_norm
     bad = (s_k + RANK_SLACK * d_k + tol >= lb) | unresolved

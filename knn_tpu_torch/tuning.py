@@ -4,8 +4,7 @@ knn_tpu/tuning/autotune.py:56-67.
 The JAX package resolves knobs as explicit argument > persisted autotuner
 winner > these defaults.  The autotuner and its cache are a later slice of
 the port, so here a knob resolves as explicit argument, else default
-(``precision`` among them: "bf16x3" unless "int8" or "int4" is asked
-for).
+(``precision`` among them: "bf16x3" unless another arm is asked for).
 The copy leaves out ``block_q``: it only re-blocks query rows of the TPU
 grid, and the CUDA kernel picks its own query block.
 """

@@ -136,18 +136,19 @@ def test_prepare_db_matches_pallas_prologue():
 def test_kernel_tolerance_matches_pallas():
     rng = np.random.default_rng(6)
     q, db = _data(rng, 5, 200, 16)
-    for prec in ("bf16x3", "highest", "int8", "int4"):
+    for prec in ("bf16x3", "bf16x3f", "highest", "int8", "int4"):
         np.testing.assert_allclose(
             ck.kernel_tolerance(q, db, precision=prec),
             jpk.kernel_tolerance(q, db, precision=prec), rtol=1e-12)
-    with pytest.raises(ValueError, match="bf16x3f"):
-        ck.kernel_tolerance(q, db, precision="bf16x3f")
+    # default has no tolerance model in either package
+    for fn in (ck.kernel_tolerance, jpk.kernel_tolerance):
+        with pytest.raises(ValueError, match="tolerance model"):
+            fn(q, db, precision="default")
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("precision", "bf16x3f"), ("precision", "highest"), ("binning", "lane"),
-    ("grid_order", "db_major"), ("precision", "pq"),
-    ("final_select", "approx"), ("survivors", 3), ("bin_w", 256)])
+    ("binning", "lane"), ("precision", "pq"), ("final_select", "approx"),
+    ("survivors", 3), ("survivors", 4), ("bin_w", 256), ("bin_w", 64)])
 def test_unported_knobs_are_refused_by_name(knob, value):
     with pytest.raises(ValueError, match=f"{knob}={value!r} is not ported"):
         ck.check_knobs(**{knob: value})
@@ -157,6 +158,15 @@ def test_unported_knobs_are_refused_by_name(knob, value):
 @pytest.mark.parametrize("kernel", ["tiled", "streaming", "fused"])
 def test_int_arms_are_accepted_under_every_kernel(precision, kernel):
     ck.check_knobs(precision=precision, kernel=kernel)
+
+
+@pytest.mark.parametrize("precision", ck.PORTED["precision"])
+@pytest.mark.parametrize("kernel,grid_order", [
+    ("tiled", "query_major"), ("tiled", "db_major"),
+    ("streaming", "query_major"), ("fused", "query_major")])
+def test_ported_precisions_are_accepted_under_every_kernel(precision, kernel,
+                                                           grid_order):
+    ck.check_knobs(precision=precision, kernel=kernel, grid_order=grid_order)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -216,3 +216,92 @@ def test_cuda_fused_int_kernel_bitwise_plain_and_skips(cuda_device, arm, n_q):
         k11 = ck.fused_select(qi, qsc, t, aux, tile_n=256, keep=keep)
         for a, b in zip(k10, k11):
             assert torch.equal(a, b)
+
+
+# --- K4 (bf16x3f), K2 (highest), K3 (default): f32 sums in another order
+# than the plain versions' matmuls, so held within the tolerance; and K9,
+# the db-major grid of every tiled entry, bitwise the query-major one
+
+F32_ARMS = ["bf16x3f", "highest", "default"]
+
+
+def _f32_operands(device, arm, q, db, tile_n):
+    return (ck.pad_queries(torch.from_numpy(q).to(device)),
+            *ck.prepare_db_arm(torch.from_numpy(db).to(device), tile_n, arm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", F32_ARMS)
+@pytest.mark.parametrize("dim,tile_n", [(24, 256), (300, 256), (128, 16384)])
+def test_cuda_f32_arm_kernels_match_plain(cuda_device, arm, dim, tile_n):
+    rng = np.random.default_rng(dim + 3)
+    q, db = _data(rng, 37, 3 * tile_n // 2 + 60, dim)
+    ops = _f32_operands(cuda_device, arm, q, db, tile_n)
+    plain = [a.cpu().numpy() for a in ck.binned_select_plain(
+        *ops, tile_n=tile_n, arm=arm)]
+    before = (ck.binned_select.launches[arm], ck.stream_select.launches[arm])
+    tiled = ck.binned_select(*ops, tile_n=tile_n, arm=arm)
+    stream = ck.stream_select(*ops, tile_n=tile_n, arm=arm)
+    assert (ck.binned_select.launches[arm],
+            ck.stream_select.launches[arm]) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(stream, tiled):
+        assert torch.equal(a, b)
+    tiled = [a.cpu().numpy() for a in tiled]
+    tol = _tol(q, db)
+    _assert_scores(tiled[0], plain[0], tol)
+    _assert_scores(tiled[2], plain[2], tol)
+    _assert_ci_separated(plain[0], tiled[1], plain[1], plain[2], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", F32_ARMS)
+@pytest.mark.parametrize("n_q", [9, 4096])
+def test_cuda_fused_f32_arm_kernels_match_plain_and_skip(cuda_device, arm,
+                                                          n_q):
+    q, db, *_ = _far_tile_cuda(cuda_device, n_q)
+    ops = _f32_operands(cuda_device, arm, q, db, 256)
+    n_tiles = ops[1].shape[0] // 256
+    seg = ck.kernel_segment_tiles(n_q, n_tiles, cuda_device, "fused", arm)
+    before = ck.fused_select.launches[arm]
+    kern = ck.fused_select(*ops, tile_n=256, keep=15, arm=arm)
+    assert ck.fused_select.launches[arm] == before + 1
+    plain = ck.fused_select_plain(*ops, tile_n=256, keep=15, arm=arm,
+                                  block_q=ck.QUERY_BLOCK, seg_tiles=seg)
+    skip = ck.skipped_cells(kern[0], n_tiles)
+    assert torch.equal(skip, ck.skipped_cells(plain[0], n_tiles))
+    if seg > 1:
+        assert bool(skip.any())
+    kern = [a.cpu().numpy() for a in kern]
+    plain = [a.cpu().numpy() for a in plain]
+    tol = _tol(q, db)
+    _assert_scores(kern[0], plain[0], tol)
+    _assert_scores(kern[2], plain[2], tol)
+    done = np.isinf(plain[0])
+    np.testing.assert_array_equal(kern[1][done], plain[1][done])
+    # disarmed, it is the streaming kernel
+    k10 = ck.stream_select(*ops, tile_n=256, arm=arm)
+    k11 = ck.fused_select(*ops, tile_n=256, keep=None, arm=arm)
+    for a, b in zip(k10, k11):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["bf16x3", *F32_ARMS, "int8", "int4"])
+@pytest.mark.parametrize("dim,tile_n", [(24, 256), (300, 256)])
+def test_cuda_db_major_is_bitwise_query_major(cuda_device, arm, dim, tile_n):
+    n_q, n = 37, 5 * 128 + 60
+    if arm in ("int8", "int4"):
+        ops = _int_case(cuda_device, arm, n_q, n, dim, tile_n, dim)
+    else:
+        q, db = _data(np.random.default_rng(dim), n_q, n, dim)
+        ops = _f32_operands(cuda_device, arm, q, db, tile_n)
+    kw = {} if arm in ("int8", "int4") else {"arm": arm}
+    qm = ck.binned_select(*ops, tile_n=tile_n, **kw)
+    before = (ck.binned_select.launches[arm],
+              ck.binned_select.db_major_launches[arm])
+    dm = ck.binned_select(*ops, tile_n=tile_n, grid_order="db_major", **kw)
+    assert (ck.binned_select.launches[arm],
+            ck.binned_select.db_major_launches[arm]) == (before[0] + 1,
+                                                         before[1] + 1)
+    for a, b in zip(dm, qm):
+        assert torch.equal(a, b)

@@ -175,12 +175,12 @@ def test_fused_refusals_kept():
         ck.check_knobs(kernel="fused", final_select="approx")
     with pytest.raises(ValueError, match="precision='pq'"):
         ck.check_knobs(kernel="fused", precision="pq")
-    for prec in ("default", "highest", "bf16x3f"):
-        with pytest.raises(ValueError,
-                           match=f"precision={prec!r} is not ported"):
-            ck.check_knobs(kernel="fused", precision=prec)
+    for kern in ("tiled", "streaming"):
+        with pytest.raises(ValueError, match="precision='pq' is not ported"):
+            ck.check_knobs(kernel=kern, precision="pq")
     for kern in ck.KERNELS:
-        for prec in ("bf16x3", "int8", "int4"):
+        for prec in ("bf16x3", "bf16x3f", "highest", "default", "int8",
+                     "int4"):
             ck.check_knobs(kernel=kern, precision=prec)
 
 
