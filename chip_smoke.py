@@ -52,13 +52,17 @@ exits non-zero and prints no result):
 6. f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
              (K3): each of their nine entries (tiled, streaming, fused)
              against its plain version within 64 eps_f32 (||q||^2 +
-             max||t||^2), ci equal on separated slots, on the ``kernel``
-             phase's small cases, the far-tile case (the fused entries must
-             skip) and at the ``main`` shape (the fused entries also at the
-             pipelined run's geometry); every streaming entry bitwise its
-             tiled entry and the db-major tiled entry (K9) bitwise the
-             query-major one, as the ``stream`` and ``quant`` phases check
-             for the other three arms; then ``search_certified(precision=
+             max||t||^2) (highest: (2 nd + 4) 2^-24 (||q||^2 +
+             max||t||^2), nd = Dp / 128), ci equal on separated slots, on
+             the ``kernel`` phase's small cases, the far-tile case (the
+             fused entries must skip) and at the ``main`` shape (the fused
+             entries also at the pipelined run's geometry); every
+             streaming entry bitwise its tiled entry and the db-major tiled
+             entry (K9) bitwise the query-major one, as the ``stream`` and
+             ``quant`` phases check for the other three arms; the tiled,
+             streaming and fused entries of bf16x3, bf16x3f and highest on
+             all-positive data at Dp = 896, each score within the worst
+             case csrc/binned_select.cuh states; then ``search_certified(precision=
              "bf16x3f")`` and ``("highest")`` at the ``main`` shape through
              five configurations (tiled, tiled db-major, streaming, fused,
              the pipeline): recall@100 = 1.0 with the oracle's indices, d
@@ -130,6 +134,7 @@ PEAK_TF32_FLOPS = 494.7e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 EPS32 = float(np.finfo(np.float32).eps)
+U32 = 2.0 ** -24
 #: kernel scores of PAD_VAL rows are ~1e35 and above; compare them by class
 PAD_SCALE = 1e30
 
@@ -174,15 +179,23 @@ class Check:
         return worst
 
 
-def tolerance_q(q, db=None, tmax=None):
-    """Per-query kernel-vs-plain tolerance 64 eps_f32 (||q||^2 +
-    max||t||^2), as f32 on q's device; ``tmax`` plugs in a precomputed
-    max||t||^2 (a placement's ``db_norm_max``) in place of ``db``."""
+def tolerance_q(q, db=None, tmax=None, arm="bf16x3"):
+    """Per-query kernel-vs-plain tolerance, as f32 on q's device: 64
+    eps_f32 (||q||^2 + M), M = max||t||^2, for the arms whose kernel and
+    plain version sum f32 products in different orders; for highest,
+    whose two differ only in the order of each chunk's f64 sum, (2 nd + 4)
+    u (||q||^2 + M), u = 2^-24, nd = 128-dim chunks: the chunk sums round
+    to f32 at most an ulp apart, each f32 chunk addition and the rounding
+    of s add at most one more.  ``tmax`` plugs in a precomputed M (a
+    placement's ``db_norm_max``) in place of ``db``."""
     q64 = q.double()
     qn = (q64 * q64).sum(-1)
     if tmax is None:
         tmax = float((db.double() ** 2).sum(-1).max())
-    return (64 * EPS32 * (qn + tmax)).float()
+    scale = 64 * EPS32
+    if arm == "highest":
+        scale = (2 * -(-q.shape[1] // 128) + 4) * U32
+    return (scale * (qn + tmax)).float()
 
 
 def check_ci(name, kern, plain, tol_q, n_tiles):
@@ -227,9 +240,10 @@ def compare_k1(checks, q, db, tile_n):
 
     th, tl, tnorm = prepare_db(db, tile_n)
     qp = pad_queries(q)
-    kern = binned_select(qp, th, tl, tnorm, tile_n=tile_n)
-    k10 = stream_select(qp, th, tl, tnorm, tile_n=tile_n)
-    plain = binned_select_plain(qp, th, tl, tnorm, tile_n=tile_n)
+    ops = (qp, th, tl, tnorm)
+    kern = binned_select(*ops, tile_n=tile_n, arm="bf16x3")
+    k10 = stream_select(*ops, tile_n=tile_n, arm="bf16x3")
+    plain = binned_select_plain(*ops, tile_n=tile_n, arm="bf16x3")
     torch.cuda.synchronize()
     tol_q = tolerance_q(q, db)
     n_q = q.shape[0]
@@ -294,7 +308,7 @@ def compare_k11(check, q, db, tile_n, keep, parts=None, arm="bf16x3",
     if not torch.equal(skip, ck.skipped_cells(plain[0], n_tiles, block_q)):
         raise AssertionError(
             f"fused {arm} skipped other cells than its plain version")
-    tol_q = tolerance_q(q, db)
+    tol_q = tolerance_q(q, db, arm=arm)
     name = f"fused_{arm}"
     return {"arm": arm, "q": q.shape[0], "rows": db.shape[0],
             "dim": db.shape[1], "tile_n": tile_n, "keep": keep,
@@ -323,9 +337,10 @@ def compare_f32(checks, arm, q, db, tile_n, keep):
     plain = ck.binned_select_plain(*ops, tile_n=tile_n, arm=arm)
     torch.cuda.synchronize()
     n_tiles = parts[0].shape[0] // tile_n
-    tol_q = tolerance_q(q, db)
+    tol_q = tolerance_q(q, db, arm=arm)
     out = {"arm": arm, "q": q.shape[0], "rows": db.shape[0],
-           "dim": db.shape[1], "tile_n": tile_n}
+           "dim": db.shape[1], "tile_n": tile_n,
+           "tolerance_max": float(tol_q.max())}
     err = max(checks[f"tiled_{arm}"].values(f"tiled_{arm} cd", tiled[0],
                                             plain[0], tol_q),
               checks[f"tiled_{arm}"].values(f"tiled_{arm} bounds", tiled[2],
@@ -368,6 +383,52 @@ def score_error_ratio(q, db, arm, db_norm_max=None, tile_n=16384):
         db_norm_max=db_norm_max)).to(q.device)
     ratio = torch.where(real, (cd.double() - got).abs(), 0.0) / tol[:, None]
     return float(ratio.max())
+
+
+def header_bound_ratio(dev, arm, kernel, n_q=64, n=512, dim=896):
+    """The largest |s_kernel - s_ref| / bound over every db row, for the
+    ``kernel`` entry of f32-family arm ``arm`` on all-positive data at
+    Dp = 896 (7 chunks, every product positive: the chains' worst shape).
+    s_ref is the exact f64 score of the kernel's own operands (the bf16
+    parts' three products, or the f32 values' one); the bound is
+    csrc/binned_select.cuh's worst case for the arm's qt, doubled in s,
+    plus the rounding of s.  With ``tile_n = 128`` every tile is one
+    group, so every row's score is survivor 0 of its bin."""
+    import torch
+
+    from knn_tpu_torch.ops import coarse_knn as ck
+
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(rng.uniform(1.0, 2.0, size=(n_q, dim))
+                         .astype(np.float32)).to(dev)
+    db = torch.from_numpy(rng.uniform(1.0, 2.0, size=(n, dim))
+                          .astype(np.float32)).to(dev)
+    qp = ck.pad_queries(q)
+    parts = ck.prepare_db_arm(db, ck.BIN_W, arm)
+    nd = qp.shape[1] // ck.DIM_CHUNK
+    if arm == "highest":
+        pairs = [(qp, parts[0])]
+        b_qt = nd * (1 + 2.0 ** -20)
+    else:
+        qh, ql = ck.split_bf16(qp)
+        pairs = [(qh, parts[0]), (qh, parts[1]), (ql, parts[0])]
+        b_qt = (3 * ck.DIM_CHUNK + nd) * (1 + 2.0 ** -7)
+    qt = sum(a.double() @ b.double().T for a, b in pairs)
+    p = sum(a.double().abs() @ b.double().abs().T for a, b in pairs)
+    s_ref = parts[-1][0].double()[None, :] - 2.0 * qt
+    bound = 2 * b_qt * U32 * p * (1 + U32) + U32 * s_ref.abs()
+    fn = {"tiled": ck.binned_select, "streaming": ck.stream_select,
+          "fused": ck.fused_select}[kernel]
+    kw = {"keep": 15} if kernel == "fused" else {}
+    cd, ci, _ = fn(qp, *parts, tile_n=ck.BIN_W, arm=arm, **kw)
+    real = ci < n
+    if kernel != "fused" and not bool(
+            real.view(n_q, -1, ck.SURVIVORS, ck.BIN_W)[:, :, 0].all()):
+        raise AssertionError(f"{kernel}_{arm}: a row's score is missing")
+    rows = torch.where(real, ci, 0).long()
+    err = (cd.double() - torch.gather(s_ref, 1, rows)).abs()
+    return float(torch.where(real, err / torch.gather(bound, 1, rows),
+                             0.0).max())
 
 
 def far_tile_case(dev, n_q=4096, tile_n=16384, n_tiles=8, dim=16):
@@ -802,19 +863,19 @@ def main(argv=None) -> int:
 
         # K1 against its plain version at the main path's shape, then both
         # timed with CUDA events
-        kern = ck.binned_select(qp, pl.th, pl.tl, pl.tnorm, tile_n=ck.TILE_N)
-        plain = ck.binned_select_plain(qp, pl.th, pl.tl, pl.tnorm,
-                                       tile_n=ck.TILE_N)
+        args = (qp, pl.th, pl.tl, pl.tnorm)
+        kern = ck.binned_select(*args, tile_n=ck.TILE_N, arm="bf16x3")
+        plain = ck.binned_select_plain(*args, tile_n=ck.TILE_N, arm="bf16x3")
         tol_q = tolerance_q(S["q_dev"], tmax=pl.db_norm_max)
         full_err = max(
             checks["k1"].values("cd@main", kern[0], plain[0], tol_q),
             checks["k1"].values("bounds@main", kern[2], plain[2], tol_q))
         S["k1_err"] = full_err
         del kern, plain
-        ms = time_cuda(lambda: ck.binned_select(qp, pl.th, pl.tl, pl.tnorm,
-                                                tile_n=ck.TILE_N), 3)
+        ms = time_cuda(lambda: ck.binned_select(*args, tile_n=ck.TILE_N,
+                                                arm="bf16x3"), 3)
         plain_ms = time_cuda(lambda: ck.binned_select_plain(
-            qp, pl.th, pl.tl, pl.tnorm, tile_n=ck.TILE_N), 1)
+            *args, tile_n=ck.TILE_N, arm="bf16x3"), 1)
         bound = S["bound"]
 
         # the main path, with the launch count read around it alone
@@ -864,12 +925,12 @@ def main(argv=None) -> int:
 
         # K10 and the db-major K1 (K9) bitwise K1 at the main shape; K11
         # against its plain version at its own geometry
-        k1_out = ck.binned_select(*args, tile_n=ck.TILE_N)
+        bf = {"tile_n": ck.TILE_N, "arm": "bf16x3"}
+        k1_out = ck.binned_select(*args, **bf)
         bitwise("K10 vs K1 at the main shape",
-                ck.stream_select(*args, tile_n=ck.TILE_N), k1_out)
+                ck.stream_select(*args, **bf), k1_out)
         bitwise("db-major K1 vs K1 at the main shape",
-                ck.binned_select(*args, tile_n=ck.TILE_N,
-                                 grid_order="db_major"), k1_out)
+                ck.binned_select(*args, **bf, grid_order="db_major"), k1_out)
         del k1_out
         if "k1_err" in S:
             # bitwise K1's outputs: K1's error against the same plain version
@@ -888,16 +949,13 @@ def main(argv=None) -> int:
             for lo in range(0, n_q, pipe_bs)]
         block_q = ck.QUERY_BLOCK
         seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused")
-        ms10 = time_cuda(lambda: ck.stream_select(*args, tile_n=ck.TILE_N), 3)
-        ms9 = time_cuda(lambda: ck.binned_select(*args, tile_n=ck.TILE_N,
+        ms10 = time_cuda(lambda: ck.stream_select(*args, **bf), 3)
+        ms9 = time_cuda(lambda: ck.binned_select(*args, **bf,
                                                  grid_order="db_major"), 3)
-        ms11 = time_cuda(lambda: ck.fused_select(*args, tile_n=ck.TILE_N,
-                                                 keep=keep), 3)
-        plain10_ms = time_cuda(lambda: ck.binned_select_plain(
-            *args, tile_n=ck.TILE_N), 1)
+        ms11 = time_cuda(lambda: ck.fused_select(*args, **bf, keep=keep), 3)
+        plain10_ms = time_cuda(lambda: ck.binned_select_plain(*args, **bf), 1)
         plain11_ms = time_cuda(lambda: ck.fused_select_plain(
-            *args, tile_n=ck.TILE_N, keep=keep, block_q=block_q,
-            seg_tiles=seg), 1)
+            *args, **bf, keep=keep, block_q=block_q, seg_tiles=seg), 1)
 
         runs = run_configs(S, "bf16x3", ("tiled_db_major", "streaming",
                                          "fused", "fused_overlap"),
@@ -967,12 +1025,14 @@ def main(argv=None) -> int:
         n_q, n_tiles = qi.shape[0], t.shape[0] // ck.TILE_N
         keep = min(D["k"] + 28, knn.n_train) + 2
         seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused", arm)
-        plain = ck.binned_select_plain(*args, tile_n=ck.TILE_N)
-        tiled = ck.binned_select(*args, tile_n=ck.TILE_N)
+        ka = {"tile_n": ck.TILE_N, "arm": arm}
+        plain = ck.binned_select_plain(*args, **ka)
+        tiled = ck.binned_select(*args, **ka)
         out = {"seg_tiles": seg, "keep": keep}
-        for kern, got in (("tiled", tiled), ("streaming", ck.stream_select(
-                *args, tile_n=ck.TILE_N)), ("db_major", ck.binned_select(
-                    *args, tile_n=ck.TILE_N, grid_order="db_major"))):
+        for kern, got in (("tiled", tiled),
+                          ("streaming", ck.stream_select(*args, **ka)),
+                          ("db_major", ck.binned_select(
+                              *args, **ka, grid_order="db_major"))):
             err = bitwise(f"{kern}_{arm}@main", got, plain)
             checks[f"{kern}_{arm}"].max_abs_err = max(
                 checks[f"{kern}_{arm}"].max_abs_err, err)
@@ -982,8 +1042,8 @@ def main(argv=None) -> int:
             sub = (qi[sl], qsc[sl], t, aux)
             g = ck.kernel_segment_tiles(sub[0].shape[0], n_tiles, dev,
                                         "fused", arm)
-            kern = ck.fused_select(*sub, tile_n=ck.TILE_N, keep=keep)
-            fplain = ck.fused_select_plain(*sub, tile_n=ck.TILE_N, keep=keep,
+            kern = ck.fused_select(*sub, **ka, keep=keep)
+            fplain = ck.fused_select_plain(*sub, **ka, keep=keep,
                                            block_q=ck.QUERY_BLOCK,
                                            seg_tiles=g)
             err = bitwise(name, kern, fplain)
@@ -1011,13 +1071,12 @@ def main(argv=None) -> int:
                 ("fused", ck.fused_select, ck.fused_select_plain,
                  {"keep": keep})):
             pkw = dict(kw, block_q=ck.QUERY_BLOCK, seg_tiles=seg) if kw else {}
-            out[f"{kern}_ms"] = time_cuda(
-                lambda: fn(*args, tile_n=ck.TILE_N, **kw), 3)
+            out[f"{kern}_ms"] = time_cuda(lambda: fn(*args, **ka, **kw), 3)
             out[f"{kern}_plain_ms"] = time_cuda(
-                lambda: pfn(*args, tile_n=ck.TILE_N, **pkw), 1)
+                lambda: pfn(*args, **ka, **pkw), 1)
         # K9 computes the tiled entry's function: the same plain version
         out["db_major_ms"] = time_cuda(lambda: ck.binned_select(
-            *args, tile_n=ck.TILE_N, grid_order="db_major"), 3)
+            *args, **ka, grid_order="db_major"), 3)
         out["db_major_plain_ms"] = out["tiled_plain_ms"]
         out["bound"] = int_bound(n_q, knn.n_train, qi.shape[1], n_tiles,
                                  ck.SURVIVORS, arm)
@@ -1038,15 +1097,14 @@ def main(argv=None) -> int:
                 args = int_case(dev, arm, n_q, n, dim, tile, dim + n_q)
                 n_tiles = args[2].shape[0] // tile
                 seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused", arm)
-                plain = ck.binned_select_plain(*args, tile_n=tile)
-                tiled = ck.binned_select(*args, tile_n=tile)
+                ka = {"tile_n": tile, "arm": arm}
+                plain = ck.binned_select_plain(*args, **ka)
+                tiled = ck.binned_select(*args, **ka)
                 got = {"tiled": (tiled, plain),
-                       "streaming": (ck.stream_select(*args, tile_n=tile),
-                                     plain),
-                       "fused": (ck.fused_select(*args, tile_n=tile,
-                                                 keep=keep),
+                       "streaming": (ck.stream_select(*args, **ka), plain),
+                       "fused": (ck.fused_select(*args, **ka, keep=keep),
                                  ck.fused_select_plain(
-                                     *args, tile_n=tile, keep=keep,
+                                     *args, **ka, keep=keep,
                                      block_q=ck.QUERY_BLOCK, seg_tiles=seg))}
                 for kern, (k_out, p_out) in got.items():
                     err = bitwise(f"{kern}_{arm} case", k_out, p_out)
@@ -1067,9 +1125,10 @@ def main(argv=None) -> int:
             seg = ck.kernel_segment_tiles(fq.shape[0], n_tiles, dev, "fused",
                                           arm)
             kern = ck.fused_select(qi, qsc, t, aux, tile_n=ck.TILE_N,
-                                   keep=keep)
+                                   keep=keep, arm=arm)
             plain = ck.fused_select_plain(qi, qsc, t, aux, tile_n=ck.TILE_N,
-                                          keep=keep, block_q=ck.QUERY_BLOCK,
+                                          keep=keep, arm=arm,
+                                          block_q=ck.QUERY_BLOCK,
                                           seg_tiles=seg)
             bitwise(f"fused_{arm} far-tile", kern, plain)
             skipped = int(ck.skipped_cells(kern[0], n_tiles).sum())
@@ -1146,7 +1205,7 @@ def main(argv=None) -> int:
         n_q, n_tiles = q_dev.shape[0], parts[0].shape[0] // ck.TILE_N
         keep = min(S["k"] + 28, knn.n_train) + 2
         seg = ck.kernel_segment_tiles(n_q, n_tiles, dev, "fused", arm)
-        tol_q = tolerance_q(q_dev, tmax=pl.db_norm_max)
+        tol_q = tolerance_q(q_dev, tmax=pl.db_norm_max, arm=arm)
         plain, plain_ms = timed_once(lambda: ck.binned_select_plain(
             *args, tile_n=ck.TILE_N, arm=arm))
         tiled = ck.binned_select(*args, tile_n=ck.TILE_N, arm=arm)
@@ -1220,7 +1279,16 @@ def main(argv=None) -> int:
             if far[arm]["skipped_cells"] < 1:
                 raise AssertionError(f"fused_{arm} skipped no far tile")
         del fq, fdb
-        emit({"phase": "f32arms_kernels", "cases": cases, "far_tile": far})
+        # every entry of the certified f32 arms on all-positive data at
+        # Dp = 896 against the worst case csrc/binned_select.cuh states
+        header = {f"{kern}_{arm}": header_bound_ratio(dev, arm, kern)
+                  for arm in ("bf16x3", "bf16x3f", "highest")
+                  for kern in ("tiled", "streaming", "fused")}
+        if max(header.values()) > 1.0:
+            raise AssertionError(
+                f"score error past the header's bound at Dp = 896: {header}")
+        emit({"phase": "f32arms_kernels", "cases": cases, "far_tile": far,
+              "dp896_error_over_header_bound": header})
 
         out = {"phase": "f32arms"}
         for arm in new_arms:

@@ -31,8 +31,10 @@
 // memory and multiplies them on CUDA cores: the f32 family 64-dim slices
 // (bf16 parts upcast to f32 and the query split into hi/lo parts in-kernel,
 // or f32 values converted to f64 for highest -- once, when staged), each
-// 128-dim chunk summed in its own accumulator (bf16x3f walks the chunk three
-// times, once per product), then added into the score; the int arms one
+// 128-dim chunk summed in its own accumulator (chunk 0 in the score's own,
+// later ones added into a running sum kept in shared memory; bf16x3f walks
+// the chunk three times, once per product, staging the db part and query
+// part that product reads), then added into the score; the int arms one
 // 128-dim chunk as 32-bit words of 4 int8 dims (int4 unpacked on the way
 // in), accumulated in int32 with __dp4a, then rescaled once.  Each of the
 // 256 threads owns a 4-query x 4-lane register tile; after the group's last
@@ -70,20 +72,25 @@ using namespace binned;
 constexpr int kDimSlice = 64;    // dims staged per shared-memory pass
 constexpr int kDbStride = kDimSlice + 1;   // pad: conflict-free row reads
 
-constexpr size_t kSmemBytes = kF32ComputeBytes<kDimSlice>;   // 83 KB
+constexpr size_t kComputeBytes = kF32ComputeBytes<kDimSlice>;   // 84,992 B
+// dynamic shared memory of the single-chunk (Dp = 128) and the multi-chunk
+// builds of an f32 kernel: the multi-chunk one adds the running sums
+template <bool kMulti>
+constexpr size_t kSmemBytes = kComputeBytes + (kMulti ? kRunBytes : 0);
 constexpr int kMaxGridY = 65535;
 
 // Stages dims k0 .. k0+63 of db rows row0 .. row0+127 and of query rows
-// q0 .. q0+31 into the compute buffers: th (and tl) upcast to f32, 8 bf16
-// per 16-byte load, or t converted to f64, 4 f32 per load; the query split
-// into its bf16 parts (or converted to f64), k-major for 16-byte reads,
-// rows past n_q as zeros.
+// q0 .. q0+31 into the compute buffers for pass ``pass`` of the chunk: the
+// db part(s) it reads (th, tl or both) upcast to f32, 8 bf16 per 16-byte
+// load, or t converted to f64, 4 f32 per load; the query's bf16 part(s)
+// (or the query converted to f64), k-major for 16-byte reads, rows past
+// n_q as zeros.
 template <Arm kArm>
 __device__ __forceinline__ void stage_slice(
     const F32Bufs<kArm, kDimSlice, kDbStride>& bufs,
     const float* __restrict__ q, const void* __restrict__ db0,
     const void* __restrict__ db1, size_t row0, int k0, int dp, int q0,
-    int n_q, int tid) {
+    int n_q, int tid, int pass) {
   if constexpr (kArm == Arm::kHighest) {
     const float* t = static_cast<const float*>(db0);
     double* dst = static_cast<double*>(bufs.db0);
@@ -97,6 +104,8 @@ __device__ __forceinline__ void stage_slice(
                 dst + r * kDbStride + c4 * 4);
     }
   } else {
+    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(
+        db_part<kArm>(pass) ? db1 : db0);
 #pragma unroll
     for (int p = 0; p < (kBinW * kDimSlice / 8) / kThreads; ++p) {
       const int idx = tid + p * kThreads;
@@ -104,8 +113,7 @@ __device__ __forceinline__ void stage_slice(
       const int seg = idx % (kDimSlice / 8);
       const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
       const int at = r * kDbStride + seg * 8;
-      put_bf16x8(*reinterpret_cast<const uint4*>(
-                     static_cast<const __nv_bfloat16*>(db0) + off),
+      put_bf16x8(*reinterpret_cast<const uint4*>(src + off),
                  static_cast<float*>(bufs.db0) + at);
       if constexpr (kUsesLo<kArm>)
         put_bf16x8(*reinterpret_cast<const uint4*>(
@@ -125,13 +133,15 @@ __device__ __forceinline__ void stage_slice(
     const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      store_query<kArm>(xs[e], bufs.qa, bufs.qb, (c4 * 4 + e) * kQStride + r);
+      store_query<kArm>(xs[e], bufs.qa, bufs.qb, (c4 * 4 + e) * kQStride + r,
+                        pass);
   }
 }
 
 // The f32 family (K1, K4, K2, K3).  db0 / db1: th / tl bf16 (bf16x3,
-// bf16x3f), th alone (default), t f32 (highest).
-template <Arm kArm>
+// bf16x3f), th alone (default), t f32 (highest).  kMulti: the build for
+// Dp > 128 (sum_chunks).
+template <Arm kArm, bool kMulti>
 __global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
 binned_select_f32_kernel(const float* __restrict__ q,
                          const void* __restrict__ db0,
@@ -142,6 +152,9 @@ binned_select_f32_kernel(const float* __restrict__ q,
                          int n_tiles, int tile_n, int db_major) {
   extern __shared__ float4 smem_f4[];
   const F32Bufs<kArm, kDimSlice, kDbStride> bufs(smem_f4);
+  // the multi-chunk build's running sums, after the compute buffers
+  float* run = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(smem_f4) + kComputeBytes);
 
   const int tid = threadIdx.x;
   const int lane_col = tid % 32;              // lanes lane_col + 32*j
@@ -157,23 +170,22 @@ binned_select_f32_kernel(const float* __restrict__ q,
 
   for (int g = 0; g < n_groups; ++g) {
     const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
-    Acc acc;
-    zero_tile(acc);
-    for (int c0 = 0; c0 < dp; c0 += kDimChunk) {
-      Tile<Elem<kArm>> cacc;
-      zero_tile(cacc);
+    // the products of chunk c, summed into ``sum``
+    auto chunk = [&](int c, auto& sum) {
 #pragma unroll 1
       for (int pass = 0; pass < kPasses<kArm>; ++pass) {
-        for (int k0 = c0; k0 < c0 + kDimChunk; k0 += kDimSlice) {
+        for (int k0 = c * kDimChunk; k0 < (c + 1) * kDimChunk;
+             k0 += kDimSlice) {
           __syncthreads();  // previous slice fully consumed
-          stage_slice<kArm>(bufs, q, db0, db1, row0, k0, dp, q0, n_q, tid);
+          stage_slice<kArm>(bufs, q, db0, db1, row0, k0, dp, q0, n_q, tid,
+                            pass);
           __syncthreads();
-          slice_products<kArm, kDimSlice, kDbStride>(smem_f4, pass, quad,
-                                                     lane_col, cacc);
+          slice_products(bufs, quad, lane_col, sum);
         }
       }
-      add_chunk(acc, cacc);
-    }
+    };
+    Acc acc;
+    sum_chunks<kArm, kMulti>(dp / kDimChunk, run, tid, chunk, acc);
     insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
   }
   store_tile(vals, gidx, cd, ci, bounds, q0, quad, lane_col, n_q, n_tiles, ti,
@@ -244,6 +256,25 @@ bool grid_of(int n_q, int n_tiles, int db_major, dim3* grid) {
   return static_cast<int>(grid->y) <= kMaxGridY;
 }
 
+template <Arm kArm, bool kMulti>
+cudaError_t launch_f32(dim3 grid, const void* p0, const void* p1,
+                       const void* p2, const void* p3, void* cd, void* ci,
+                       void* bounds, int n_q, int dp, int n_tiles, int tile_n,
+                       int db_major, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      binned_select_f32_kernel<kArm, kMulti>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes<kMulti>));
+  if (err != cudaSuccess) return err;
+  binned_select_f32_kernel<kArm, kMulti>
+      <<<grid, kThreads, kSmemBytes<kMulti>, stream>>>(
+          static_cast<const float*>(p0), p1, p2,
+          static_cast<const float*>(p3), static_cast<float*>(cd),
+          static_cast<int*>(ci), static_cast<float*>(bounds), n_q, dp,
+          n_tiles, tile_n, db_major);
+  return cudaGetLastError();
+}
+
 template <Arm kArm>
 cudaError_t launch(const void* p0, const void* p1, const void* p2,
                    const void* p3, void* cd, void* ci, void* bounds, int n_q,
@@ -260,15 +291,13 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
         static_cast<float*>(cd), static_cast<int*>(ci),
         static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n, db_major);
   } else {
-    const cudaError_t err = cudaFuncSetAttribute(
-        binned_select_f32_kernel<kArm>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return err;
-    binned_select_f32_kernel<kArm><<<grid, kThreads, kSmemBytes, stream>>>(
-        static_cast<const float*>(p0), p1, p2, static_cast<const float*>(p3),
-        static_cast<float*>(cd), static_cast<int*>(ci),
-        static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n, db_major);
+    return dp > kDimChunk
+               ? launch_f32<kArm, true>(grid, p0, p1, p2, p3, cd, ci, bounds,
+                                        n_q, dp, n_tiles, tile_n, db_major,
+                                        stream)
+               : launch_f32<kArm, false>(grid, p0, p1, p2, p3, cd, ci, bounds,
+                                         n_q, dp, n_tiles, tile_n, db_major,
+                                         stream);
   }
   return cudaGetLastError();
 }

@@ -10,15 +10,19 @@
 // accumulator `cacc` zeroed at the chunk's start, and add the chunk into
 // the score's running f32 sum `acc` at its end (acc = 0 + c_0 + c_1 + ...):
 // the order of the TPU body, which adds each chunk's dot into its f32
-// scratch (knn_tpu/ops/pallas_knn.py:493-503).
+// scratch (knn_tpu/ops/pallas_knn.py:493-503).  The f32 sums of chunk 0
+// go straight into `acc`, and from chunk 1 on `acc` waits in shared memory
+// (sum_chunks, in the kernels' multi-chunk build): one accumulator tile is
+// in registers at a time.
 //
 //   bf16x3 (K1, K10, K11):
-//     qh = bf16_rn(q), ql = bf16_rn(q - qh)                 (split_store)
+//     qh = bf16_rn(q), ql = bf16_rn(q - qh)                 (store_query)
 //     cacc += qh*th; cacc += qh*tl; cacc += ql*th, dim by dim (fma_slice)
 //   bf16x3f (K4): the same products, in the order of the TPU's one dot
 //     over the 3x contraction [qh|qh|ql].[th|tl|th] (pallas_knn.py:407-414):
 //     per chunk all 128 qh*th, then all qh*tl, then all ql*th, in one f32
-//     chunk accumulator (three passes of fma_pair over the chunk)
+//     chunk accumulator (three passes of fma_pair over the chunk, each
+//     staging only the db part and query part it reads)
 //   default (K3): the TPU's one bf16 pass, cacc += bf16_rn(q)*th (th is
 //     bf16_rn(t)), f32 accumulation                          (fma_pair)
 //   highest (K2): cacc += q*t in f64 (DFMA) over the f32 values, rounded
@@ -123,10 +127,23 @@ constexpr int kPasses = kArm == Arm::kBf16x3f ? 3 : 1;
 template <Arm kArm>
 using Elem = std::conditional_t<kArm == Arm::kHighest, double, float>;
 
-// The bf16 arms stage the db's hi part (and lo part, but for default) and
-// the query's hi part (and lo part, but for default).
+// bf16x3 stages both bf16 parts of the db and of the query (th, tl, qh,
+// ql) for each slice; bf16x3f one of each per pass (th + qh, tl + qh,
+// th + ql); default the hi parts alone.
 template <Arm kArm>
-constexpr bool kUsesLo = kArm == Arm::kBf16x3 || kArm == Arm::kBf16x3f;
+constexpr bool kUsesLo = kArm == Arm::kBf16x3;
+
+// The db part (0: th or t, 1: tl) and query part (0: qh or q, 1: ql) that
+// pass ``pass`` of a chunk reads.
+template <Arm kArm>
+__host__ __device__ constexpr int db_part(int pass) {
+  return kArm == Arm::kBf16x3f && pass == 1 ? 1 : 0;
+}
+
+template <Arm kArm>
+__host__ __device__ constexpr int q_part(int pass) {
+  return kArm == Arm::kBf16x3f && pass == 2 ? 1 : 0;
+}
 
 // CTAs per SM the kernels are compiled for: highest's f64 chunk
 // accumulators need more than the 128 registers two CTAs leave a thread.
@@ -176,36 +193,86 @@ __device__ __forceinline__ void zero_tile(Tile<T>& acc) {
     for (int j = 0; j < kQuadL; ++j) acc[i][j] = T(0);
 }
 
-// The end of a chunk: its sum, rounded to f32 (highest), added into the
-// score's running f32 sum.
+// A chunk's sum as f32: highest's f64 sum rounded once.
 template <typename T>
-__device__ __forceinline__ void add_chunk(Acc& acc, const Tile<T>& cacc) {
+__device__ __forceinline__ float chunk_f32(T c) {
+  if constexpr (std::is_same_v<T, double>)
+    return __double2float_rn(c);
+  else
+    return c;
+}
+
+// Bytes of the running sums that chunks 1 .. nd-1 are added into: one f32
+// tile per thread in shared memory, element (i, j) of thread tid at
+// [(i * kQuadL + j) * kThreads + tid] (conflict-free).
+constexpr size_t kRunBytes = sizeof(float) * kQuadQ * kQuadL * kThreads;
+
+// The f32 family's score sums acc = 0 + c_0 + c_1 + ... over nd chunks,
+// where chunk(c, sum) adds the products of chunk c into ``sum`` (f32, or
+// f64 for highest).  The bf16 arms sum chunk 0 straight into acc (0 + c_0
+// == c_0, and an FMA chain from +0 never ends at -0).  Every f32 kernel is
+// built twice and launched by Dp: kMulti = false for Dp = 128 (nd = 1: the
+// one chunk, nothing else -- the register and shared-memory footprint of
+// a single chain), kMulti = true for Dp > 128, where chunks 1 .. nd-1 go
+// through a chunk tile while the running sum waits in shared memory
+// (``run``, kRunBytes), so one accumulator tile is in registers at a time.
+// Both give the same bits.
+template <Arm kArm, bool kMulti, typename ChunkFn>
+__device__ __forceinline__ void sum_chunks(int nd, float* run, int tid,
+                                           ChunkFn&& chunk, Acc& acc) {
+  zero_tile(acc);
+  if constexpr (kArm == Arm::kHighest) {
+    Tile<double> c0;
+    zero_tile(c0);
+    chunk(0, c0);
 #pragma unroll
-  for (int i = 0; i < kQuadQ; ++i)
+    for (int i = 0; i < kQuadQ; ++i)
 #pragma unroll
-    for (int j = 0; j < kQuadL; ++j) {
-      if constexpr (std::is_same_v<T, double>)
-        acc[i][j] = __fadd_rn(acc[i][j], __double2float_rn(cacc[i][j]));
-      else
-        acc[i][j] = __fadd_rn(acc[i][j], cacc[i][j]);
+      for (int j = 0; j < kQuadL; ++j)
+        acc[i][j] = __fadd_rn(acc[i][j], chunk_f32(c0[i][j]));
+  } else {
+    chunk(0, acc);
+  }
+  if constexpr (kMulti) {
+#pragma unroll
+    for (int e = 0; e < kQuadQ * kQuadL; ++e)
+      run[e * kThreads + tid] = acc[e / kQuadL][e % kQuadL];
+    for (int c = 1; c < nd; ++c) {
+      Tile<Elem<kArm>> cacc;
+      zero_tile(cacc);
+      chunk(c, cacc);
+#pragma unroll
+      for (int e = 0; e < kQuadQ * kQuadL; ++e) {
+        float& r = run[e * kThreads + tid];
+        r = __fadd_rn(r, chunk_f32(cacc[e / kQuadL][e % kQuadL]));
+      }
     }
+#pragma unroll
+    for (int e = 0; e < kQuadQ * kQuadL; ++e)
+      acc[e / kQuadL][e % kQuadL] = run[e * kThreads + tid];
+  }
 }
 
 // One query value as the arm stores it at k-major position ``at``: the
-// hi / lo bf16 parts with round-to-nearest-even (JAX's astype) as f32 (the
-// bf16 arms; default keeps the hi part alone), or the value as f64
-// (highest, converted once here, not per product).
+// hi / lo bf16 parts with round-to-nearest-even (JAX's astype) as f32
+// (bf16x3 both, in qa and qb; bf16x3f the part pass ``pass`` reads, in qa;
+// default the hi part), or the value as f64 (highest, converted once here,
+// not per product).
 template <Arm kArm>
 __device__ __forceinline__ void store_query(float x, void* qa, void* qb,
-                                            int at) {
+                                            int at, int pass) {
   if constexpr (kArm == Arm::kHighest) {
     static_cast<double*>(qa)[at] = static_cast<double>(x);
   } else {
-    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
-    const float hf = __bfloat162float(hi);
-    static_cast<float*>(qa)[at] = hf;
-    if constexpr (kUsesLo<kArm>)
+    const float hf = __bfloat162float(__float2bfloat16_rn(x));
+    if constexpr (kUsesLo<kArm>) {
+      static_cast<float*>(qa)[at] = hf;
       static_cast<float*>(qb)[at] = __bfloat162float(__float2bfloat16_rn(x - hf));
+    } else {
+      static_cast<float*>(qa)[at] =
+          q_part<kArm>(pass) ? __bfloat162float(__float2bfloat16_rn(x - hf))
+                             : hf;
+    }
   }
 }
 
@@ -267,6 +334,7 @@ __device__ __forceinline__ double fma_rn(double a, double b, double c) {
 template <int kSlice, int kDbStride, typename T>
 __device__ __forceinline__ void fma_pair(const T* ts, const T* qs, int quad,
                                          int lane_col, Tile<T>& acc) {
+  // ts: [128][kDbStride] db values, qs: [kSlice][kQStride] query values
 #pragma unroll 4
   for (int k = 0; k < kSlice; ++k) {
     T qv[kQuadQ];
@@ -283,55 +351,49 @@ __device__ __forceinline__ void fma_pair(const T* ts, const T* qs, int quad,
   }
 }
 
-// The f32 family's products over one staged slice, pass ``pass`` of the
-// chunk.  Compute buffers at ``cbuf``: db part(s) [128][kDbStride], then
-// query part(s) [kSlice][kQStride] -- th, tl, qh, ql (bf16 arms) or t, q
-// as f64 (highest).
-template <Arm kArm, int kSlice, int kDbStride>
-__device__ __forceinline__ void slice_products(void* cbuf, int pass, int quad,
-                                               int lane_col,
-                                               Tile<Elem<kArm>>& cacc) {
-  using T = Elem<kArm>;
-  T* db0 = static_cast<T*>(cbuf);
-  if constexpr (kArm == Arm::kHighest) {
-    fma_pair<kSlice, kDbStride>(db0, db0 + kBinW * kDbStride, quad, lane_col,
-                                cacc);
-  } else {
-    float* tls = db0 + kBinW * kDbStride;
-    float* qhs = tls + kBinW * kDbStride;
-    float* qls = qhs + kSlice * kQStride;
-    if constexpr (kArm == Arm::kBf16x3)
-      fma_slice<kSlice, kDbStride>(db0, tls, qhs, qls, quad, lane_col, cacc);
-    else if constexpr (kArm == Arm::kDefault)
-      fma_pair<kSlice, kDbStride>(db0, qhs, quad, lane_col, cacc);
-    else  // bf16x3f: pass 0 qh.th, pass 1 qh.tl, pass 2 ql.th
-      fma_pair<kSlice, kDbStride>(pass == 1 ? tls : db0,
-                                  pass == 2 ? qls : qhs, quad, lane_col, cacc);
-  }
-}
-
-// Where a slice's db rows and query values go in the compute buffers.
+// Where a slice's db rows and query values go in the compute buffers:
+// th, tl, qh, ql (bf16x3); the pass's db part and query part (bf16x3f);
+// th, qh (default); t, q as f64 (highest).
 template <Arm kArm, int kSlice, int kDbStride>
 struct F32Bufs {
-  void* db0;   // th (bf16 arms) or t (highest), [128][kDbStride]
-  void* db1;   // tl, [128][kDbStride] (bf16x3, bf16x3f)
-  void* qa;    // qh or q, [kSlice][kQStride]
-  void* qb;    // ql, [kSlice][kQStride] (bf16x3, bf16x3f)
+  void* db0;   // [128][kDbStride]
+  void* db1;   // tl, [128][kDbStride] (bf16x3)
+  void* qa;    // [kSlice][kQStride]
+  void* qb;    // ql, [kSlice][kQStride] (bf16x3)
   __device__ explicit F32Bufs(void* cbuf) {
     using T = Elem<kArm>;
     T* p = static_cast<T*>(cbuf);
     db0 = p;
-    if constexpr (kArm == Arm::kHighest) {
-      db1 = nullptr;
-      qa = p + kBinW * kDbStride;
-      qb = nullptr;
-    } else {
+    if constexpr (kUsesLo<kArm>) {
       db1 = p + kBinW * kDbStride;
       qa = p + 2 * kBinW * kDbStride;
       qb = p + 2 * kBinW * kDbStride + kSlice * kQStride;
+    } else {
+      db1 = nullptr;
+      qa = p + kBinW * kDbStride;
+      qb = nullptr;
     }
   }
 };
+
+// The f32 family's products over one staged slice into ``acc``: K1's three
+// per dim, or one per dim of the staged pair (the other arms; bf16x3f's
+// pass staged the pair it reads).
+template <Arm kArm, int kSlice, int kDbStride>
+__device__ __forceinline__ void slice_products(
+    const F32Bufs<kArm, kSlice, kDbStride>& b, int quad, int lane_col,
+    Tile<Elem<kArm>>& acc) {
+  using T = Elem<kArm>;
+  if constexpr (kUsesLo<kArm>)
+    fma_slice<kSlice, kDbStride>(
+        static_cast<const float*>(b.db0), static_cast<const float*>(b.db1),
+        static_cast<const float*>(b.qa), static_cast<const float*>(b.qb),
+        quad, lane_col, acc);
+  else
+    fma_pair<kSlice, kDbStride>(static_cast<const T*>(b.db0),
+                                static_cast<const T*>(b.qa), quad, lane_col,
+                                acc);
+}
 
 // Stores 8 consecutive db values of row r, dims c .. c+7 of the slice, into
 // the compute buffers: bf16 (8 of th or tl, 16 bytes) upcast to f32, or f32

@@ -28,7 +28,8 @@
 // each group's dims in steps: the f32 family 32 dims (bf16x3f walks each
 // 128-dim chunk three times, one pass per product, so its steps are
 // (pass, 32 dims)), int8 / int4 one 128-dim chunk.  Step t+1's raw operands
-// (th and tl bf16 rows -- th alone for default -- or f32 rows for highest,
+// (th and tl bf16 rows -- the pass's part for bf16x3f, th alone for
+// default -- or f32 rows for highest,
 // and the f32 query slice; int: the int8 or packed int4 db rows and the int8
 // query slice) are copied into the second of two shared stages with cp.async
 // while step t is converted (bf16 -> f32 and the query's hi/lo split; f32 ->
@@ -42,9 +43,10 @@
 // wrapper (ops/coarse_knn.stream_segment_tiles) picks n_seg = min(n_tiles,
 // floor(wave / query blocks)) segments, where wave = SMs x the CTAs per SM
 // that stream_ctas_per_sm reads from the occupancy API for the built kernel
-// of the arm (bf16x3, bf16x3f, highest: 84 KB of shared memory; default
-// 68 KB; int8 61 KB, int4 45 KB; highest is compiled for one CTA per SM,
-// the others for two).  The streaming output does not depend on the split.
+// of the arm (bf16x3, highest: 84 KB of shared memory; bf16x3f, default
+// 68 KB; the f32 arms' multi-chunk builds 16 KB more; int8 61 KB, int4
+// 45 KB; highest is compiled for one CTA per SM, the others for two).  The
+// streaming output does not depend on the split.
 //
 // The fused skip depends on the query block and on the segment: each segment
 // keeps its own carry, reset at its first tile.  That stays sound: the carry
@@ -67,8 +69,7 @@
 // products.  They run on CUDA cores (f32 FMAs for the bf16 arms, f64 FMAs
 // for highest, __dp4a for the int arms), an order of magnitude above the
 // tensor-core bound; wgmma / mma.sync, TMA and a persistent grid are later
-// work.  bf16x3f copies each slice once per pass, three times K1's db
-// bytes from L2.
+// work.  bf16x3f copies one db part per pass, 1.5x K1's db bytes from L2.
 
 #include "binned_select.cuh"
 
@@ -102,8 +103,22 @@ constexpr size_t kComputeBytes =
     kIsInt<kArm> ? sizeof(int) * (kBinW * kIntDbStride + kIntWords * kQStride)
                  : kF32ComputeBytes<kSlice>;
 
+// ... and the running sums of the f32 kernels' multi-chunk build
+// (Dp > 128, sum_chunks)
+template <Arm kArm, bool kMulti>
+constexpr size_t kSmemBytes =
+    2 * kStageBytes<kArm> + kComputeBytes<kArm> + (kMulti ? kRunBytes : 0);
+
+// The multi-chunk build holds as many CTAs per SM as the single-chunk one
+// that stream_ctas_per_sm measures: registers bound both (kMinCtas), and
+// kMinCtas CTAs with the running sums still fit an SM's 228 KB of shared
+// memory (1 KB reserved per CTA).
 template <Arm kArm>
-constexpr size_t kSmemBytes = 2 * kStageBytes<kArm> + kComputeBytes<kArm>;
+constexpr bool kMultiFits =
+    kMinCtas<kArm> * (kSmemBytes<kArm, true> + 1024) <= 228 * 1024;
+static_assert(kMultiFits<Arm::kBf16x3> && kMultiFits<Arm::kBf16x3f> &&
+                  kMultiFits<Arm::kHighest> && kMultiFits<Arm::kDefault>,
+              "the multi-chunk build would lose occupancy");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -121,14 +136,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Starts the f32 family's copies of one step: db rows row0 .. row0+127 and
-// query rows q0 .. q0+31, dims k0 .. k0+31.  db0 / db1: th / tl bf16
-// (bf16x3, bf16x3f), th (default), t f32 (highest).
+// Starts the f32 family's copies of one step, pass ``pass`` of its chunk:
+// db rows row0 .. row0+127 and query rows q0 .. q0+31, dims k0 .. k0+31.
+// db0 / db1: th / tl bf16 (bf16x3 copies both; bf16x3f the one the pass
+// reads), th (default), t f32 (highest).
 template <Arm kArm>
 __device__ __forceinline__ void start_stage(
     unsigned char* stage, const void* __restrict__ db0,
     const void* __restrict__ db1, const float* __restrict__ q, size_t row0,
-    int k0, int dp, int q0, int n_q, int tid) {
+    int k0, int dp, int q0, int n_q, int tid, int pass) {
   if constexpr (kArm == Arm::kHighest) {
     float* st = reinterpret_cast<float*>(stage);
     const float* t = static_cast<const float*>(db0);
@@ -143,14 +159,15 @@ __device__ __forceinline__ void start_stage(
   } else {
     __nv_bfloat16* sth = reinterpret_cast<__nv_bfloat16*>(stage);
     __nv_bfloat16* stl = sth + kRawDb;
+    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(
+        db_part<kArm>(pass) ? db1 : db0);
 #pragma unroll
     for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
       const int idx = tid + p * kThreads;
       const int r = idx / (kSlice / 8);
       const int seg = idx % (kSlice / 8);
       const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
-      cp_async16(sth + r * kSlice + seg * 8,
-                 static_cast<const __nv_bfloat16*>(db0) + off, 16);
+      cp_async16(sth + r * kSlice + seg * 8, src + off, 16);
       if constexpr (kUsesLo<kArm>)
         cp_async16(stl + r * kSlice + seg * 8,
                    static_cast<const __nv_bfloat16*>(db1) + off, 16);
@@ -195,12 +212,13 @@ __device__ __forceinline__ void start_stage_int(
 }
 
 // Stage -> compute buffers (as the tiled kernels stage from global memory):
-// th (and tl) upcast to f32 rows, or t converted to f64 rows; the query
-// slice split into its bf16 parts, or converted to f64, k-major.
+// the staged bf16 part(s) upcast to f32 rows, or t converted to f64 rows;
+// the query slice's bf16 part(s) for pass ``pass``, or the slice converted
+// to f64, k-major.
 template <Arm kArm>
 __device__ __forceinline__ void convert_stage(
     const unsigned char* stage, const F32Bufs<kArm, kSlice, kDbStride>& bufs,
-    int tid) {
+    int tid, int pass) {
   if constexpr (kArm == Arm::kHighest) {
     const float* st = reinterpret_cast<const float*>(stage);
 #pragma unroll
@@ -220,12 +238,16 @@ __device__ __forceinline__ void convert_stage(
       const int r = idx / (kSlice / 8);
       const int seg = idx % (kSlice / 8);
       const int at = r * kDbStride + seg * 8;
-      put_bf16x8(*reinterpret_cast<const uint4*>(sth + r * kSlice + seg * 8),
-                 static_cast<float*>(bufs.db0) + at);
+      // both parts' loads before any store: the compiler cannot reorder a
+      // shared load across shared stores it cannot prove disjoint
+      const uint4 vh =
+          *reinterpret_cast<const uint4*>(sth + r * kSlice + seg * 8);
+      uint4 vl;
       if constexpr (kUsesLo<kArm>)
-        put_bf16x8(
-            *reinterpret_cast<const uint4*>(stl + r * kSlice + seg * 8),
-            static_cast<float*>(bufs.db1) + at);
+        vl = *reinterpret_cast<const uint4*>(stl + r * kSlice + seg * 8);
+      put_bf16x8(vh, static_cast<float*>(bufs.db0) + at);
+      if constexpr (kUsesLo<kArm>)
+        put_bf16x8(vl, static_cast<float*>(bufs.db1) + at);
     }
   }
   const float* sq = reinterpret_cast<const float*>(stage + kDbStage<kArm>);
@@ -235,10 +257,11 @@ __device__ __forceinline__ void convert_stage(
   const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    store_query<kArm>(xs[e], bufs.qa, bufs.qb, (c4 * 4 + e) * kQStride + r);
+    store_query<kArm>(xs[e], bufs.qa, bufs.qb, (c4 * 4 + e) * kQStride + r,
+                      pass);
 }
 
-template <Arm kArm, bool kFused>
+template <Arm kArm, bool kFused, bool kMulti>
 __global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
 stream_select_kernel(const void* __restrict__ p0,
                      const void* __restrict__ p1,
@@ -263,6 +286,10 @@ stream_select_kernel(const void* __restrict__ p0,
   const F32Bufs<kArm, kSlice, kDbStride> bufs(cbuf);
   int* tws = static_cast<int*>(cbuf);
   int* qws = tws + kBinW * kIntDbStride;      // [kIntWords][kQStride]
+  // the running sums of the multi-chunk build (sum_chunks), after the
+  // compute buffers
+  float* run = reinterpret_cast<float*>(base + 2 * kStageA +
+                                        kComputeBytes<kArm>);
   __shared__ int warp_ok[kThreads / 32];
 
   const int tid = threadIdx.x;
@@ -296,7 +323,7 @@ stream_select_kernel(const void* __restrict__ p0,
   auto stage_next = [&](unsigned char* stage) {
     const size_t row0 =
         static_cast<size_t>(nt) * tile_n + static_cast<size_t>(ng) * kBinW;
-    // the real dims of virtual offset nv (pass nv % kVChunk / 128)
+    // the real dims of virtual offset nv, in pass nv % kVChunk / 128
     const int k0 = nv / kVChunk * kDimChunk + nv % kDimChunk;
     if constexpr (kIsInt<kArm>)
       start_stage_int<kArm>(stage, static_cast<const uint8_t*>(p2),
@@ -304,7 +331,7 @@ stream_select_kernel(const void* __restrict__ p0,
                             n_q, tid);
     else
       start_stage<kArm>(stage, p1, p2, static_cast<const float*>(p0), row0,
-                        k0, dp, q0, n_q, tid);
+                        k0, dp, q0, n_q, tid, nv % kVChunk / kDimChunk);
     nv += kStepA;
     if (nv == v_dims) {
       nv = 0;
@@ -325,14 +352,8 @@ stream_select_kernel(const void* __restrict__ p0,
     for (int g = 0; g < n_groups; ++g) {
       const size_t row0 =
           static_cast<size_t>(ti) * tile_n + static_cast<size_t>(g) * kBinW;
-      Acc acc;
-      Tile<Elem<kArm>> cacc;
-      IAcc iacc;
-      if constexpr (kIsInt<kArm>)
-        zero_iacc(iacc);
-      else
-        zero_tile(acc);
-      for (int v0 = 0; v0 < v_dims; v0 += kStepA) {
+      // the step at virtual dims v0, its products summed into ``sum``
+      auto step = [&](int v0, auto& sum) {
         // this step's stage has landed (every thread's copies) and the
         // previous step's compute buffers are consumed
         cp_async_wait_all();
@@ -348,20 +369,27 @@ stream_select_kernel(const void* __restrict__ p0,
               reinterpret_cast<const int8_t*>(stage + kDbStage<kArm>),
               kDimChunk, kBlockQ, qws, tid);
           __syncthreads();
-          dp4a_chunk(tws, qws, quad, lane_col, iacc);
+          dp4a_chunk(tws, qws, quad, lane_col, sum);
         } else {
-          const int off = v0 % kVChunk;
-          if (off == 0) zero_tile(cacc);
-          convert_stage<kArm>(stage, bufs, tid);
+          convert_stage<kArm>(stage, bufs, tid, v0 % kVChunk / kDimChunk);
           __syncthreads();
-          slice_products<kArm, kSlice, kDbStride>(cbuf, off / kDimChunk, quad,
-                                                  lane_col, cacc);
-          if (off + kStepA == kVChunk) add_chunk(acc, cacc);
+          slice_products(bufs, quad, lane_col, sum);
         }
         buf ^= 1;
-      }
-      if constexpr (kIsInt<kArm>)
+      };
+      Acc acc;
+      if constexpr (kIsInt<kArm>) {
+        IAcc iacc;
+        zero_iacc(iacc);
+        for (int v0 = 0; v0 < v_dims; v0 += kStepA) step(v0, iacc);
         rescale(iacc, qs, tscale, row0, lane_col, acc);
+      } else {
+        auto chunk = [&](int c, auto& sum) {
+          for (int v0 = c * kVChunk; v0 < (c + 1) * kVChunk; v0 += kStepA)
+            step(v0, sum);
+        };
+        sum_chunks<kArm, kMulti>(dp / kDimChunk, run, tid, chunk, acc);
+      }
       insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
     }
 
@@ -408,21 +436,40 @@ stream_select_kernel(const void* __restrict__ p0,
   }
 }
 
-// Lets the kernel take kSmemBytes<kArm> of dynamic shared memory (above the
+// Lets the kernel take kSmemBytes of dynamic shared memory (above the
 // default 48 KB) on the current device.
-template <Arm kArm, bool kFused>
+template <Arm kArm, bool kFused, bool kMulti>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(stream_select_kernel<kArm, kFused>,
+  return cudaFuncSetAttribute(stream_select_kernel<kArm, kFused, kMulti>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmemBytes<kArm>));
+                              static_cast<int>(kSmemBytes<kArm, kMulti>));
 }
 
+// CTAs per SM of the single-chunk build (kMultiFits: the same for the
+// multi-chunk one).
 template <Arm kArm, bool kFused>
 cudaError_t ctas_per_sm(int* out) {
-  cudaError_t err = allow_smem<kArm, kFused>();
+  cudaError_t err = allow_smem<kArm, kFused, false>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, stream_select_kernel<kArm, kFused>, kThreads, kSmemBytes<kArm>);
+      out, stream_select_kernel<kArm, kFused, false>, kThreads,
+      kSmemBytes<kArm, false>);
+}
+
+template <Arm kArm, bool kFused, bool kMulti>
+cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
+                         const void* p2, const void* p3, void* cd, void* ci,
+                         void* bounds, int n_q, int dp, int n_tiles,
+                         int tile_n, int seg_tiles, int depth, void* stream) {
+  cudaError_t err = allow_smem<kArm, kFused, kMulti>();
+  if (err != cudaSuccess) return err;
+  stream_select_kernel<kArm, kFused, kMulti>
+      <<<grid, kThreads, kSmemBytes<kArm, kMulti>,
+         static_cast<cudaStream_t>(stream)>>>(
+          p0, p1, p2, static_cast<const float*>(p3), static_cast<float*>(cd),
+          static_cast<int*>(ci), static_cast<float*>(bounds), n_q, dp, n_tiles,
+          tile_n, seg_tiles, depth);
+  return cudaGetLastError();
 }
 
 template <Arm kArm, bool kFused>
@@ -433,17 +480,18 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
   if (n_q <= 0 || n_tiles <= 0) return cudaSuccess;
   if (seg_tiles <= 0 || depth < 0 || depth > kMaxCarry || dp % kDimChunk)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<kArm, kFused>();
-  if (err != cudaSuccess) return err;
   const dim3 grid((n_tiles + seg_tiles - 1) / seg_tiles,
                   (n_q + kBlockQ - 1) / kBlockQ);
-  constexpr size_t smem = kSmemBytes<kArm>;
-  stream_select_kernel<kArm, kFused>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          p0, p1, p2, static_cast<const float*>(p3), static_cast<float*>(cd),
-          static_cast<int*>(ci), static_cast<float*>(bounds), n_q, dp, n_tiles,
-          tile_n, seg_tiles, depth);
-  return cudaGetLastError();
+  if constexpr (!kIsInt<kArm>) {
+    if (dp > kDimChunk)
+      return launch_build<kArm, kFused, true>(grid, p0, p1, p2, p3, cd, ci,
+                                              bounds, n_q, dp, n_tiles,
+                                              tile_n, seg_tiles, depth,
+                                              stream);
+  }
+  return launch_build<kArm, kFused, false>(grid, p0, p1, p2, p3, cd, ci,
+                                           bounds, n_q, dp, n_tiles, tile_n,
+                                           seg_tiles, depth, stream);
 }
 
 template <bool kFused>

@@ -29,10 +29,9 @@ What runs where:
   bf16x3f the same products pass by pass, default the one bf16 product,
   highest exact f32 products summed in f64 per chunk; the int arms an
   exact int32 dot and one f32 rescale ``(f32(dot) * qsc) * ts``, held
-  bitwise against their plain versions.  The wrappers tell the arm by the
-  operands' dtypes (int8, int4, or the f32 family's ``bf16x3``) or take
-  it as ``arm``: the f32 family's operands do not tell bf16x3 from
-  bf16x3f.
+  bitwise against their plain versions.  Every wrapper takes the arm as
+  ``arm`` and checks that the operands are that arm's (the f32 family's
+  operands do not tell bf16x3 from bf16x3f).
 - Everything else is plain PyTorch, as in the JAX package's XLA code:
   the prologues (:func:`prepare_db`: dim padding to 128, ``PAD_VAL`` row
   padding, the bf16 hi/lo split, the norm rows; :func:`prepare_db_f32`
@@ -488,36 +487,30 @@ _SCORES = {"bf16x3": _bf16x3_scores, "bf16x3f": _bf16x3f_scores,
            "int8": _int_scores, "int4": _int_scores}
 
 
-def binned_select_plain(*operands: torch.Tensor, tile_n: int,
-                        arm: Optional[str] = None):
+def binned_select_plain(*operands: torch.Tensor, tile_n: int, arm: str):
     """The coarse kernels' function in plain PyTorch, tile by tile through
     :func:`_select_tile`, from the operands of arm ``arm`` as
-    :func:`binned_select` takes them (the int arms told by dtype)."""
-    arm, n_p = _check_operands(operands, tile_n, arm)
+    :func:`binned_select` takes them."""
+    n_p = _check_operands(operands, tile_n, arm)
     scores, _ = _SCORES[arm](*operands)
     return _select_tiles(scores, n_p // tile_n, tile_n)
 
 
-def _check_operands(operands, tile_n: int,
-                    arm: Optional[str] = None) -> Tuple[str, int]:
-    """Checks a coarse kernel's operands — an int arm's ``(qi, qsc, t,
-    aux)`` (told by the query operand's dtype), or the f32 family's
-    operands of ``arm`` (None: bf16x3) — and returns the arm and the
-    padded db rows."""
-    if operands and operands[0].dtype == torch.int8:
+def _check_operands(operands, tile_n: int, arm: str) -> int:
+    """Checks that ``operands`` are arm ``arm``'s — an int arm's ``(qi,
+    qsc, t, aux)`` or an f32-family arm's (:data:`F32_ARMS`) — and returns
+    the padded db rows."""
+    if arm in INT_ARMS:
         if len(operands) != 4:
             raise ValueError(
                 f"an int arm's coarse kernel takes 4 operands, got "
                 f"{len(operands)}")
         got = _check_int_operands(*operands, tile_n)
-        if arm not in (None, got):
+        if got != arm:
             raise ValueError(f"arm={arm!r} given {got} operands")
-        return got, operands[2].shape[0]
-    arm = "bf16x3" if arm is None else arm
+        return operands[2].shape[0]
     if arm not in F32_ARMS:
-        raise ValueError(
-            f"arm {arm!r} is not an arm of the f32 family {tuple(F32_ARMS)} "
-            f"(the int arms are told by their operands)")
+        raise ValueError(f"arm {arm!r} not in {ARMS}")
     db_dtype, count = F32_ARMS[arm]
     if len(operands) != count:
         raise ValueError(
@@ -543,7 +536,7 @@ def _check_operands(operands, tile_n: int,
             or tnorm.stride(1) != 1:
         raise ValueError("tnorm must be [8, Np] float32 with unit row stride")
     _check_rows_and_device(n_p, tile_n, operands)
-    return arm, n_p
+    return n_p
 
 
 def _check_rows_and_device(n_p: int, tile_n: int, operands) -> None:
@@ -650,8 +643,7 @@ def _launch(library: str, name: str, operands, n_rows: int, tile_n: int,
     return cd, ci, bounds
 
 
-def binned_select(*operands: torch.Tensor, tile_n: int,
-                  arm: Optional[str] = None,
+def binned_select(*operands: torch.Tensor, tile_n: int, arm: str,
                   grid_order: str = "query_major"):
     """The tiled wrapper — K1 (bf16x3), K4 (bf16x3f), K2 (highest), K3
     (default), K5 (int8), K6 (int4): ``(cd [Q, T*256] f32, ci [Q, T*256]
@@ -668,15 +660,15 @@ def binned_select(*operands: torch.Tensor, tile_n: int,
       nibble-packed uint8 [Np, Dp/2] (int4) and ``aux [2, Np] f32``
       (:func:`prepare_db_quant` / :func:`prepare_db_int`).
 
-    The int arms are told by their operands' dtypes; the f32 family's arm
-    is ``arm`` (None: bf16x3).  ``grid_order="db_major"`` launches the
-    db-major grid (K9), bitwise the same outputs.  On a CUDA tensor it
-    launches ``binned_select_<arm>`` (built from ``csrc/binned_coarse.cu``
-    at first use) on the current stream, or raises; on a CPU tensor it
-    runs :func:`binned_select_plain`.  ``binned_select.launches[arm]``
-    counts kernel launches, ``binned_select.db_major_launches[arm]`` those
-    in the db-major grid among them."""
-    arm, n_p = _check_operands(operands, tile_n, arm)
+    ``arm`` names the arm (:data:`ARMS`); the operands must be its own.
+    ``grid_order="db_major"`` launches the db-major grid (K9), bitwise the
+    same outputs.  On a CUDA tensor it launches ``binned_select_<arm>``
+    (built from ``csrc/binned_coarse.cu`` at first use) on the current
+    stream, or raises; on a CPU tensor it runs
+    :func:`binned_select_plain`.  ``binned_select.launches[arm]`` counts
+    kernel launches, ``binned_select.db_major_launches[arm]`` those in the
+    db-major grid among them."""
+    n_p = _check_operands(operands, tile_n, arm)
     if grid_order not in GRID_ORDERS:
         raise ValueError(f"grid_order {grid_order!r} not in {GRID_ORDERS}")
     if operands[0].device.type == "cpu":
@@ -747,8 +739,7 @@ def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str,
         n_q, n_tiles, n_sm * _stream_ctas_per_sm(device, kernel, precision))
 
 
-def stream_select(*operands: torch.Tensor, tile_n: int,
-                  arm: Optional[str] = None):
+def stream_select(*operands: torch.Tensor, tile_n: int, arm: str):
     """The streaming wrapper (``kernel="streaming"``) — K10 (bf16x3) and
     the other arms' streaming entries: the function, operands, ``arm`` and
     outputs of :func:`binned_select`, computed by one launch of
@@ -758,7 +749,7 @@ def stream_select(*operands: torch.Tensor, tile_n: int,
     :func:`binned_select_plain` (the function is the same), which it runs
     for CPU tensors.  ``stream_select.launches[arm]`` counts kernel
     launches."""
-    arm, n_p = _check_operands(operands, tile_n, arm)
+    n_p = _check_operands(operands, tile_n, arm)
     q = operands[0]
     if q.device.type == "cpu":
         return binned_select_plain(*operands, tile_n=tile_n, arm=arm)
@@ -820,9 +811,9 @@ def _early_out(out, n_tiles: int, keep: Optional[int], block_q: int,
 
 
 def fused_select_plain(*operands: torch.Tensor, tile_n: int,
-                       keep: Optional[int], block_q: int = QUERY_BLOCK,
-                       seg_tiles: Optional[int] = None,
-                       arm: Optional[str] = None):
+                       keep: Optional[int], arm: str,
+                       block_q: int = QUERY_BLOCK,
+                       seg_tiles: Optional[int] = None):
     """The fused kernels (K11 and the other arms' fused entries) in plain
     PyTorch: :func:`binned_select_plain`, then the early-out
     (:func:`_early_out`) at the given geometry.  Depth 0 (keep None or
@@ -833,7 +824,7 @@ def fused_select_plain(*operands: torch.Tensor, tile_n: int,
 
 
 def fused_select(*operands: torch.Tensor, tile_n: int, keep: Optional[int],
-                 arm: Optional[str] = None):
+                 arm: str):
     """The fused wrapper (``kernel="fused"``) — K11 (bf16x3) and the other
     arms' fused entries: the streaming kernel plus the early-out that pads
     a tile's block for a query block when no row of the block can use it;
@@ -843,7 +834,7 @@ def fused_select(*operands: torch.Tensor, tile_n: int, keep: Optional[int],
     (``csrc/binned_stream.cu``) at :func:`kernel_segment_tiles`, or
     raises; on a CPU tensor it runs :func:`fused_select_plain` at the CPU
     geometry.  ``fused_select.launches[arm]`` counts kernel launches."""
-    arm, n_p = _check_operands(operands, tile_n, arm)
+    n_p = _check_operands(operands, tile_n, arm)
     q = operands[0]
     seg = kernel_segment_tiles(q.shape[0], n_p // tile_n, q.device, "fused",
                                arm)

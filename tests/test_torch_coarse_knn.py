@@ -185,16 +185,16 @@ def test_wrapper_checks_operands_and_counts_only_kernel_launches():
     th, tl, tnorm = ck.prepare_db(torch.from_numpy(db), 256)
     qt = torch.from_numpy(q)
     before = dict(ck.binned_select.launches)
-    out = ck.binned_select(qt, th, tl, tnorm, tile_n=256)
+    out = ck.binned_select(qt, th, tl, tnorm, tile_n=256, arm="bf16x3")
     assert ck.binned_select.launches == before  # CPU: the plain version
-    ref = ck.binned_select_plain(qt, th, tl, tnorm, tile_n=256)
+    ref = ck.binned_select_plain(qt, th, tl, tnorm, tile_n=256, arm="bf16x3")
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="float32"):
-        ck.binned_select(qt.double(), th, tl, tnorm, tile_n=256)
+        ck.binned_select(qt.double(), th, tl, tnorm, tile_n=256, arm="bf16x3")
     with pytest.raises(ValueError, match="bfloat16"):
-        ck.binned_select(qt, th.float(), tl, tnorm, tile_n=256)
+        ck.binned_select(qt, th.float(), tl, tnorm, tile_n=256, arm="bf16x3")
     with pytest.raises(ValueError, match="multiple of tile_n"):
-        ck.binned_select(qt, th, tl, tnorm, tile_n=384)
+        ck.binned_select(qt, th, tl, tnorm, tile_n=384, arm="bf16x3")
     with pytest.raises(ValueError, match="tnorm"):
-        ck.binned_select(qt, th, tl, tnorm[:, :128], tile_n=256)
+        ck.binned_select(qt, th, tl, tnorm[:, :128], tile_n=256, arm="bf16x3")

@@ -193,10 +193,15 @@ def test_grid_caps_and_operand_checks():
         ck.binned_select(*bf, tile_n=256, arm="default")
     with pytest.raises(ValueError, match="must be float32"):
         ck.binned_select(bf[0], bf[1], bf[3], tile_n=256, arm="highest")
-    with pytest.raises(ValueError, match="not an arm of the f32 family"):
+    # the arm is named, never inferred: the operands must be its own
+    with pytest.raises(ValueError, match="int8 tensor"):
         ck.stream_select(*bf, tile_n=256, arm="int8")
+    with pytest.raises(ValueError, match="not in"):
+        ck.fused_select(*bf, tile_n=256, keep=15, arm="pq")
+    with pytest.raises(TypeError, match="arm"):
+        ck.binned_select(*bf, tile_n=256)
     with pytest.raises(ValueError, match="grid_order"):
-        ck.binned_select(*bf, tile_n=256, grid_order="diagonal")
+        ck.binned_select(*bf, tile_n=256, arm="bf16x3", grid_order="diagonal")
 
 
 # --- the one-pass certificate ------------------------------------------------

@@ -185,7 +185,8 @@ def test_bound_dominates_observed_kernel_error(arm):
                                      torch.from_numpy(qr.scales), norms, 256)
         qi, qsc = ck.quantize_queries(torch.from_numpy(q), qr.offset)
         n_p = t.shape[0]
-        cd, ci, _ = ck.binned_select_plain(qi, qsc, t, aux, tile_n=n_p)
+        cd, ci, _ = ck.binned_select_plain(qi, qsc, t, aux, tile_n=n_p,
+                                           arm=arm)
         # every emitted candidate's f32 score against its exact score
         q_sh = q.astype(np.float64) - qr.offset
         s_true = (t_sh ** 2).sum(-1)[None, :] - 2.0 * (q_sh @ t_sh.T)
@@ -234,11 +235,11 @@ def test_plain_int_arms_bitwise_pallas(arm, kernel, dim):
     qi, qsc = ck.quantize_queries(torch.from_numpy(q))
     if kernel == "fused":  # at the Pallas kernel's query block
         port = ck.fused_select_plain(qi, qsc, t, aux, tile_n=2 * BIN_W,
-                                         keep=keep, block_q=8)
+                                         keep=keep, block_q=8, arm=arm)
     else:
         fn = ck.stream_select if kernel == "streaming" else ck.binned_select
         before = dict(fn.launches)
-        port = fn(qi, qsc, t, aux, tile_n=2 * BIN_W)
+        port = fn(qi, qsc, t, aux, tile_n=2 * BIN_W, arm=arm)
         assert fn.launches == before  # CPU: the plain version
     for a, b in zip(port, ref):
         np.testing.assert_array_equal(a.numpy(), b)
@@ -261,7 +262,7 @@ def test_plain_fused_int_skips_the_cells_pallas_skips(arm):
                                  2 * BIN_W)
     qi, qsc = ck.quantize_queries(torch.from_numpy(q))
     port = ck.fused_select_plain(qi, qsc, t, aux, tile_n=2 * BIN_W,
-                                     keep=15, block_q=16)
+                                     keep=15, block_q=16, arm=arm)
     for a, b in zip(port, ref):
         np.testing.assert_array_equal(a.numpy(), b)
     skip = ck.skipped_cells(port[0], 3, 16)
@@ -309,15 +310,16 @@ def test_int_operands_are_checked():
     assert t8.shape == (256, 128) and t4.shape == (256, 64)
     assert aux.shape == (2, 256) and t4.dtype == torch.uint8
     with pytest.raises(ValueError, match="qsc"):
-        ck.binned_select(qi, qsc.double(), t8, aux, tile_n=256)
+        ck.binned_select(qi, qsc.double(), t8, aux, tile_n=256, arm="int8")
     with pytest.raises(ValueError, match="packed two per byte"):
-        ck.binned_select(qi, qsc, t4[:, :32].contiguous(), aux, tile_n=256)
+        ck.binned_select(qi, qsc, t4[:, :32].contiguous(), aux, tile_n=256,
+                         arm="int4")
     with pytest.raises(ValueError, match="aux"):
-        ck.stream_select(qi, qsc, t8, aux[:1], tile_n=256)
+        ck.stream_select(qi, qsc, t8, aux[:1], tile_n=256, arm="int8")
     with pytest.raises(ValueError, match="multiple of tile_n"):
-        ck.fused_select(qi, qsc, t8, aux, tile_n=384, keep=15)
+        ck.fused_select(qi, qsc, t8, aux, tile_n=384, keep=15, arm="int8")
     with pytest.raises(ValueError, match="4 operands"):
-        ck.binned_select(qi, qsc, t8, tile_n=256)
+        ck.binned_select(qi, qsc, t8, tile_n=256, arm="int8")
     with pytest.raises(ValueError, match="takes a torch.uint8"):
         ck._bin_candidates(db[:4], None, tile_n=256, precision="int4",
                            db_parts=(t8, aux))

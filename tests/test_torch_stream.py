@@ -71,7 +71,7 @@ def test_plain_k10_matches_pallas_streaming(dim, tile_n):
     qp, th, tl, tnorm = _parts(q, db, tile_n)
     before = dict(ck.stream_select.launches)
     port = [a.numpy() for a in ck.stream_select(qp, th, tl, tnorm,
-                                                tile_n=tile_n)]
+                                                tile_n=tile_n, arm="bf16x3")]
     assert ck.stream_select.launches == before  # CPU: the plain version
     assert [a.shape for a in port] == [a.shape for a in ref]
     tol = _tol(q, db)
@@ -88,7 +88,8 @@ def test_plain_k11_skips_the_tiles_pallas_skips():
     ref = _jax_bin(q, db, "fused", 16, keep=15)
     qp, th, tl, tnorm = _parts(q, db, 2 * BIN_W)
     port = [a.numpy() for a in ck.fused_select_plain(
-        qp, th, tl, tnorm, tile_n=2 * BIN_W, keep=15, block_q=16)]
+        qp, th, tl, tnorm, tile_n=2 * BIN_W, keep=15, block_q=16,
+        arm="bf16x3")]
     n_tiles = 3
     skip_ref = ck.skipped_cells(torch.from_numpy(ref[0]), n_tiles, 16)
     skip_port = ck.skipped_cells(torch.from_numpy(port[0]), n_tiles, 16)
@@ -106,11 +107,12 @@ def test_plain_k11_skips_the_tiles_pallas_skips():
 def test_plain_k11_disarmed_equals_k10():
     q, db = _far_tile(1)
     qp, th, tl, tnorm = _parts(q, db, 2 * BIN_W)
-    k10 = ck.binned_select_plain(qp, th, tl, tnorm, tile_n=2 * BIN_W)
+    k10 = ck.binned_select_plain(qp, th, tl, tnorm, tile_n=2 * BIN_W,
+                                 arm="bf16x3")
     # keep None, or a carry deeper than MAX_CARRY_DEPTH, disarms the skip
     for keep in (None, BIN_W * ck.MAX_CARRY_DEPTH + 1):
         k11 = ck.fused_select_plain(qp, th, tl, tnorm, tile_n=2 * BIN_W,
-                                    keep=keep, block_q=16)
+                                    keep=keep, block_q=16, arm="bf16x3")
         for a, b in zip(k10, k11):
             assert torch.equal(a, b)
     assert ck.carry_depth(None) == 0
@@ -129,9 +131,10 @@ def test_k11_geometry_never_changes_the_certified_stage(block_q, seg_tiles):
     m, tile_n = 13, 2 * BIN_W
     qp, th, tl, tnorm = _parts(q, db, tile_n)
     dbt = torch.from_numpy(db)
-    k1 = ck.binned_select_plain(qp, th, tl, tnorm, tile_n=tile_n)
+    k1 = ck.binned_select_plain(qp, th, tl, tnorm, tile_n=tile_n, arm="bf16x3")
     k11 = ck.fused_select_plain(qp, th, tl, tnorm, tile_n=tile_n, keep=m + 2,
-                                block_q=block_q, seg_tiles=seg_tiles)
+                                block_q=block_q, seg_tiles=seg_tiles,
+                                arm="bf16x3")
     n_tiles = th.shape[0] // tile_n
     if seg_tiles != 1:  # one-tile segments never skip: their carry is empty
         assert bool(ck.skipped_cells(k11[0], n_tiles, block_q).any())
