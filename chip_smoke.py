@@ -97,23 +97,52 @@ exits non-zero and prints no result):
              and the db-major grid's ms per launch at Q=4,096 against their
              plain versions and the int bound;
              the device idle share of the int8 tiled run;
-8. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
+8. pq     — K7, the pq arm: its tiled, db-major and streaming entries
+             bitwise their plain version (grouped binning, and lane
+             binning at 2 and 8 survivors, 128- and 256-row bins) on a
+             random LUT and codes with exact ties at the ``kernel``
+             phase's shapes; the pq placement of the ``main`` data trained
+             on every row (its seconds), the three entries bitwise their
+             plain version at Q=4,096 and timed against it and the bound;
+             ``search_certified(precision="pq")`` through tiled, db-major
+             and streaming (each run's own kernel launched once and no
+             other, d and i bitwise across the three, recall@100 = 1.0
+             with the oracle's indices, fallback counts, ε, q/s); then a
+             lattice case (65,536 x 128 rows whose every 4-dim subspace
+             takes one of 256 points: the training recovers them, the
+             residuals are 0, so most queries certify) the same way;
+9. lane   — K8, lane binning: every arm's tiled, db-major and streaming
+             lane entries against their plain versions (int8, int4 and pq
+             bitwise, the f32 family within its tolerance with ci equal on
+             separated slots) at 2 and 8 survivors and 128- and 256-row
+             bins, and each lane score bitwise the grouped entry's score of
+             the same row; at the main shape each entry against its plain
+             version, timed, its scores against the grouped entry's on 512
+             queries; ``search_certified(binning="lane")`` for bf16x3,
+             bf16x3f, highest, int8, int4 and pq, tiled and streaming, on
+             the ``main`` data (the indices of the grouped bf16x3 run for
+             every query, the oracle's, distances within RANK_SLACK,
+             fallbacks, q/s), and the counted certificate through the
+             default arm's lane entries;
+10. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
              --mode certified --selector pallas``, run in-process through
              run_job) on make_mnist_like CSVs (20,000 train, 2,000 test,
              2,000 val), then again with ``--pallas-precision int8`` and
              ``highest``; labels must equal the port's ``--mode exact``; the
              |s_kernel - s_f64| / tolerance ratio of bf16x3, bf16x3f and
              highest at Dp = 896 on the job's rows (must stay below 1);
-9. kernels — one JSON line per the contract: each ported kernel (K1,
-             K10, K11, the entries of K4, K2, K3, K5, K6 and the db-major
-             grid K9 of every arm) with its launches on its own path, its
-             max error against its plain version, its time, its plain
-             version's time and its bound (one per arm).
+11. kernels — one JSON line per the contract: each ported kernel (K1,
+             K10, K11, the entries of K4, K2, K3, K5, K6, K7, the db-major
+             grid K9 of every arm and the lane entries K8 of every arm)
+             with its launches on its own path, its max error against its
+             plain version, its time, its plain version's time and its
+             bound (one per arm).
 
 Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases`` runs a subset (e.g. ``--phases device,build,kernel``,
-``--phases device,build,kernel,stream``, ``--phases device,build,quant`` or
-``--phases device,build,f32arms``).
+``--phases device,build,kernel,stream``, ``--phases device,build,quant``,
+``--phases device,build,f32arms``, ``--phases device,build,pq`` or
+``--phases device,build,lane``).
 """
 
 from __future__ import annotations
@@ -132,7 +161,10 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12   # CUDA cores; an FMA counts as two
 PEAK_HBM_BYTES = 3.35e12
+#: shared-memory words one SM loads per clock (32 banks of 4 bytes)
+SMEM_WORDS_PER_CLOCK = 32
 EPS32 = float(np.finfo(np.float32).eps)
 U32 = 2.0 ** -24
 #: kernel scores of PAD_VAL rows are ~1e35 and above; compare them by class
@@ -141,6 +173,15 @@ PAD_SCALE = 1e30
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def nvidia_smi_line() -> str:
@@ -526,6 +567,119 @@ def int_bound(n_q, n, dp, n_tiles, survivors, arm):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def pq_bound(n_q, n, m, ncodes, n_tiles, out_w, bound_w, n_sm, clock_hz):
+    """Least time for K7's work on an H100: the largest of its bytes (the
+    f32 LUT, the real rows' uint8 codes and norm-row floats read once;
+    cd, ci, bounds written once) over HBM bandwidth, its Q*N*m table
+    lookups over the shared-memory word rate (SMEM_WORDS_PER_CLOCK x SMs
+    x the SM clock; a lookup is a data-dependent gather, which no tensor
+    core does: the TPU's one-hot matmul would be 2*Q*N*m*C FLOPs), and its
+    Q*N*m f32 adds over the CUDA cores' f32 rate.  Counted over the ``n``
+    real db rows."""
+    lookups = n_q * n * m
+    nbytes = (n_q * m * ncodes * 4 + n * m + n * 4
+              + n_q * n_tiles * out_w * 8 + n_q * n_tiles * bound_w * 4)
+    t_lookup = lookups / (SMEM_WORDS_PER_CLOCK * n_sm * clock_hz)
+    t_add = lookups / (PEAK_F32_FLOPS / 2)
+    t_ops, t_bytes = max(t_lookup, t_add), nbytes / PEAK_HBM_BYTES
+    return {"lookups": lookups, "bytes": nbytes, "sm_clock_hz": clock_hz,
+            "lookup_ms": t_lookup * 1e3, "add_ms": t_add * 1e3,
+            "bytes_ms": t_bytes * 1e3,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def pq_case(dev, n_q, n, m, ncodes, tile_n, seed):
+    """A random LUT [n_q, m*ncodes] and codes [n, m] with exact ties (rows
+    3 and 90 equal to row 10 of one 128-row bin, rows 128-159 equal to
+    rows 0-31), padded for ``tile_n``: the pq entries' operands."""
+    import torch
+
+    from knn_tpu_torch.ops import coarse_knn as ck
+
+    rng = np.random.default_rng(seed)
+    lut = (rng.normal(size=(n_q, m * ncodes)) * 10).astype(np.float32)
+    codes = rng.integers(0, ncodes, size=(n, m)).astype(np.uint8)
+    codes[3] = codes[90] = codes[10]
+    codes[128:160] = codes[:32]
+    return (torch.from_numpy(lut).to(dev),
+            *ck.prepare_db_pq(torch.from_numpy(codes).to(dev), tile_n))
+
+
+def lattice_case(dev, n=65_536, dim=128, n_q=4096, seed=3):
+    """Rows whose every 4-dim subspace takes one of 256 fixed integer
+    points (the codes drawn uniformly), and queries uniform over the same
+    box: the farthest-point init recovers the points exactly, so the pq
+    residuals are 0 and ε is the f32 slack alone."""
+    rng = np.random.default_rng(seed)
+    m = dim // 4
+    rows = np.empty((n, dim), np.float32)
+    for s in range(m):
+        pts = rng.permutation(16 ** 4)[:256]
+        pts = np.stack([pts // 16 ** j % 16 for j in range(4)], 1)
+        rows[:, 4 * s : 4 * s + 4] = pts[rng.integers(0, 256, size=n)]
+    q = (rng.random((n_q, dim)) * 16.0).astype(np.float32)
+    return rows, q
+
+
+def check_ci_lane(name, kern, plain, tol_q, geo):
+    """check_ci for lane binning at geometry ``geo``: ci of the kernel
+    equal to the plain version's wherever the survivor's value is apart
+    from its neighbours in the bin's order (the previous survivor, the
+    next one, the bound) by more than the tolerance.  Returns the slots
+    checked."""
+    import torch
+
+    n_bins, surv, out_w, bound_w = geo
+    n_q = kern[0].shape[0]
+    n_tiles = kern[0].shape[1] // out_w
+
+    def bins(x):
+        return x.view(n_q, n_tiles, out_w)[:, :, : n_bins * surv].reshape(
+            n_q, n_tiles, surv, n_bins)
+
+    vals = bins(plain[0])
+    bnd = plain[2].view(n_q, n_tiles, bound_w)[:, :, None, :n_bins]
+    seq = torch.cat([vals, bnd], dim=2)
+    gap = (seq[:, :, 1:] - seq[:, :, :-1]).abs()
+    tol4 = tol_q[:, None, None, None]
+    sep = gap[:, :, :surv] > tol4
+    sep[:, :, 1:] &= gap[:, :, : surv - 1] > tol4
+    sep &= torch.isfinite(vals)
+    sep |= torch.isinf(vals)
+    mism = int((sep & (bins(kern[1]) != bins(plain[1]))).sum())
+    if mism:
+        raise AssertionError(f"{name} ci: {mism} separated slots differ")
+    return int(sep.sum())
+
+
+def lane_scores_equal_grouped(name, lane, grouped, n_rows, rows=None):
+    """Raises unless every row that both the lane and the grouped output
+    emit carries the bitwise same score in both (query rows ``rows``, all
+    by default, 64 at a time); returns the rows compared."""
+    import torch
+
+    n_q = lane[0].shape[0]
+    rows = range(n_q) if rows is None else rows
+    common = 0
+    for lo in range(rows.start, rows.stop, 64):
+        sl = slice(lo, min(lo + 64, rows.stop))
+        g = torch.full((sl.stop - sl.start, n_rows + 1), torch.nan,
+                       device=lane[0].device)
+        g.scatter_(1, grouped[1][sl].long().clamp(max=n_rows), grouped[0][sl])
+        li = lane[1][sl].long().clamp(max=n_rows)
+        got = torch.gather(g, 1, li)
+        both = (li < n_rows) & ~torch.isnan(got)
+        if not torch.equal(lane[0][sl][both].view(torch.int32),
+                           got[both].view(torch.int32)):
+            raise AssertionError(f"{name}: a lane score differs from the "
+                                 f"grouped score of its row")
+        common += int(both.sum())
+    if common == 0:
+        raise AssertionError(f"{name}: no row emitted by both")
+    return common
+
+
 def int_case(dev, arm, n_q, n, dim, tile_n, seed):
     """Integer rows in the uint8 range with exact ties (rows 0-31 copied
     into the next two 128-row groups, four queries equal to db rows),
@@ -623,7 +777,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,main,profile,stream,"
-                    "quant,f32arms,classify",
+                    "quant,f32arms,pq,lane,classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -663,6 +817,8 @@ def main(argv=None) -> int:
         ("streaming", "int4"): ("binned_stream", 690),
         ("fused", "int8"): ("binned_stream", 753),
         ("fused", "int4"): ("binned_stream", 753),
+        ("tiled", "pq"): ("binned_coarse", 443),
+        ("streaming", "pq"): ("binned_stream", 679),
         **{(kern, arm): (lib, line)
            for arm, lines in (("bf16x3f", (407, 704)),
                               ("highest", (453, 711)),
@@ -683,6 +839,15 @@ def main(argv=None) -> int:
             f"binned_select_{arm} grid_order=db_major",
             "knn_tpu_torch/csrc/binned_coarse.cu",
             "knn_tpu/ops/pallas_knn.py:1135")
+    # K8: the lane-binning entries of every arm (the lane emitter,
+    # pallas_knn.py:506)
+    for arm in ck.ARMS:
+        for kern, lib in (("tiled", "binned_coarse"),
+                          ("streaming", "binned_stream")):
+            records[f"{kern}_lane_{arm}"] = kernel_record(
+                f"{wrappers[kern].__name__}_{arm} binning=lane",
+                f"knn_tpu_torch/csrc/{lib}.cu",
+                "knn_tpu/ops/pallas_knn.py:506")
     checks = {key: Check() for key in records}
     # record key -> (wrapper, counter attribute, arm) whose count it reads
     counters = {"k1": (ck.binned_select, "launches", "bf16x3"),
@@ -691,12 +856,16 @@ def main(argv=None) -> int:
                 **{f"{kern}_{arm}": (wrappers[kern], "launches", arm)
                    for kern, arm in arm_entries},
                 **{f"db_major_{arm}": (ck.binned_select, "db_major_launches",
-                                       arm) for arm in ck.ARMS}}
+                                       arm) for arm in ck.ARMS},
+                **{f"{kern}_lane_{arm}": (wrappers[kern], "lane_launches", arm)
+                   for arm in ck.ARMS for kern in ("tiled", "streaming")}}
 
     def reset_launches():
         for fn in wrappers.values():
             fn.launches = dict.fromkeys(ck.ARMS, 0)
         ck.binned_select.db_major_launches = dict.fromkeys(ck.ARMS, 0)
+        for fn in (ck.binned_select, ck.stream_select):
+            fn.lane_launches = dict.fromkeys(ck.ARMS, 0)
 
     def read_launches():
         return {key: getattr(fn, attr)[arm]
@@ -809,22 +978,28 @@ def main(argv=None) -> int:
                                         "overlap_depth": 2}}
     bf16x3_keys = {"tiled": "k1", "streaming": "k10", "fused": "k11"}
 
-    def run_configs(D, arm, labels, ref=None):
-        """search_certified(precision=arm) on D's placement through the
-        kernel_configs ``labels``, the launch counts read around each call
-        alone: each run launches its own kernel once per batch and no
-        other kernel, returns ``ref``'s d and i bitwise (the first run's
-        when None) and the oracle's on D's first queries."""
+    def run_configs(D, arm, labels, ref=None, binning="grouped",
+                    ref_i=None, **extra):
+        """search_certified(precision=arm, binning=binning, **extra) on D's
+        placement through the kernel_configs ``labels``, the launch counts
+        read around each call alone: each run launches its own kernel once
+        per batch and no other kernel, returns ``ref``'s d and i bitwise
+        (the first run's when None) — or, given ``ref_i``, those indices
+        for every query — and the oracle's on D's first queries."""
         n_q, n = D["q_np"].shape[0], D["knn"].n_train
         runs = {}
         for label in labels:
-            knobs = dict(kernel_configs[label], precision=arm)
+            knobs = dict(kernel_configs[label], precision=arm,
+                         binning=binning, **extra)
             kernel = knobs["kernel"]
-            own = [bf16x3_keys[kernel] if arm == "bf16x3"
-                   else f"{kernel}_{arm}"]
+            if binning == "lane":
+                own = [f"{kernel}_lane_{arm}"]
+            else:
+                own = [bf16x3_keys[kernel] if arm == "bf16x3"
+                       else f"{kernel}_{arm}"]
             if knobs.get("grid_order") == "db_major":
                 own.append(f"db_major_{arm}")  # counted by both
-            name = f"{arm} {label}"
+            name = f"{arm} {label}" + (" lane" if binning == "lane" else "")
             reset_launches()
             (d, i, stats), wall = timed_search(D, **knobs)
             launches = read_launches()
@@ -837,7 +1012,11 @@ def main(argv=None) -> int:
                     f"{name}: launches {launches}, expected {want} of {own} "
                     f"and no other kernel")
             _, wall_warm = timed_search(D, **knobs)
-            if ref is None:
+            if ref_i is not None:
+                if not np.array_equal(i, ref_i):
+                    raise AssertionError(
+                        f"{name}: indices differ from the grouped run's")
+            elif ref is None:
                 ref = (d, i)
             elif not (np.array_equal(d, ref[0]) and np.array_equal(i, ref[1])):
                 raise AssertionError(f"{name}: d, i differ from the tiled run")
@@ -849,7 +1028,9 @@ def main(argv=None) -> int:
             runs[label] = {"launches": launches, "batches": n_batches,
                            "qps_first_call": n_q / wall,
                            "qps_second_call": n_q / wall_warm,
-                           "bitwise_tiled": True, "recall_at_k": recall,
+                           "bitwise_tiled": ref_i is None,
+                           "same_indices_all_queries": True,
+                           "recall_at_k": recall,
                            "same_indices": same, "max_rel_dist_err": rel,
                            "certified": stats["certified"],
                            "fallback_queries": stats["fallback_queries"],
@@ -1366,7 +1547,304 @@ def main(argv=None) -> int:
                     bound_by=timing["bound"]["bound_by"])
         emit(out)
 
-    if phases & {"main", "stream", "quant", "f32arms"}:
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def arm_operands(S, arm):
+        """The main placement's operands of arm ``arm`` for the main
+        queries, as the coarse wrappers take them."""
+        knn, q = S["knn"], S["q_dev"]
+        if arm in ck.INT_ARMS:
+            off = knn._quant_placement(arm)["offset"]
+            return (*ck.quantize_queries(q, off),
+                    *knn._coarse_parts(ck.TILE_N, arm))
+        if arm == "pq":
+            pq = knn._pq_placement()
+            return (ck.pq_luts(q, pq["books"]), *pq["parts"])
+        return (S["qp"], *knn._coarse_parts(ck.TILE_N, arm))
+
+    def arm_bound(S, arm, args, geo):
+        """The arm's bound at the main shape (f32_bound, int_bound or
+        pq_bound) for emit geometry ``geo``."""
+        n_q, n = S["n_q"], S["n"]
+        n_tiles = args[-1].shape[1] // ck.TILE_N
+        if arm == "pq":
+            m = args[1].shape[1]
+            return pq_bound(n_q, n, m, args[0].shape[1] // m, n_tiles,
+                            geo[2], geo[3], n_sm, sm_clock_hz())
+        if arm in ck.INT_ARMS:
+            return int_bound(n_q, n, args[0].shape[1], n_tiles, geo[2] // 128,
+                             arm)
+        return f32_bound(n_q, n, args[0].shape[1], n_tiles, geo[2] // 128,
+                         arm)
+
+    def phase_pq(S):
+        from knn_tpu_torch import ShardedKNN
+        from knn_tpu_torch.ops.pq import score_error_bound_pq
+
+        # K7's three entries bitwise their plain version at the kernel
+        # phase's shapes, in grouped and lane binning
+        emits = {"grouped": {}, "lane": {"binning": "lane"},
+                 "lane_s8_b256": {"binning": "lane", "survivors": 8,
+                                  "bin_w": 256}}
+        cases = []
+        for n_q, n, m, ncodes, tile in ((37, 5 * 128 + 60, 7, 200, 256),
+                                        (11, 3 * 128 + 40, 32, 256, 256),
+                                        (256, 16384, 32, 256, ck.TILE_N)):
+            args = pq_case(dev, n_q, n, m, ncodes, tile, n_q + m)
+            for label, kw in emits.items():
+                kw = dict(kw, tile_n=tile, arm="pq")
+                plain = ck.binned_select_plain(*args, **kw)
+                for key, out in (
+                        ("tiled", ck.binned_select(*args, **kw)),
+                        ("db_major", ck.binned_select(
+                            *args, **kw, grid_order="db_major")),
+                        ("streaming", ck.stream_select(*args, **kw))):
+                    err = bitwise(f"{key}_pq {label} case", out, plain)
+                    rec = (f"{key}_pq" if label == "grouped"
+                           else f"{'tiled' if key == 'db_major' else key}"
+                                f"_lane_pq")
+                    checks[rec].max_abs_err = max(checks[rec].max_abs_err,
+                                                  err)
+                cases.append({"q": n_q, "rows": n, "m": m, "ncodes": ncodes,
+                              "tile_n": tile, "binning": label,
+                              "bitwise": True})
+        emit({"phase": "pq_kernels", "cases": cases})
+
+        # the main placement, trained on every row
+        knn, n_q = S["knn"], S["n_q"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pq = knn._pq_placement()
+        torch.cuda.synchronize()
+        placement_s = time.perf_counter() - t0
+        args = arm_operands(S, "pq")
+        ka = {"tile_n": ck.TILE_N, "arm": "pq"}
+        plain, plain_ms = timed_once(lambda: ck.binned_select_plain(*args,
+                                                                    **ka))
+        for key, fn, kw in (("tiled", ck.binned_select, {}),
+                            ("db_major", ck.binned_select,
+                             {"grid_order": "db_major"}),
+                            ("streaming", ck.stream_select, {})):
+            bitwise(f"{key}_pq@main", fn(*args, **ka, **kw), plain)
+        del plain
+        timing = {f"{key}_ms": time_cuda(lambda: fn(*args, **ka, **kw), 3)
+                  for key, fn, kw in (("tiled", ck.binned_select, {}),
+                                      ("db_major", ck.binned_select,
+                                       {"grid_order": "db_major"}),
+                                      ("streaming", ck.stream_select, {}))}
+        bound = arm_bound(S, "pq", args, ck.emit_geometry(ck.TILE_N))
+        del args
+        eps = score_error_bound_pq(S["q_np"], pq["stats"])
+        runs = run_configs(S, "pq", ("tiled", "tiled_db_major", "streaming"))
+        for key, label in (("tiled", "tiled"), ("db_major", "tiled_db_major"),
+                           ("streaming", "streaming")):
+            records[f"{key}_pq"].update(
+                launches=runs[label]["launches"][f"{key}_pq"],
+                ms=timing[f"{key}_ms"], plain_ms=plain_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+        # the lattice case: residuals 0, so ε is the f32 slack alone
+        rows, q_lat = lattice_case(dev)
+        lat = ShardedKNN(rows, k=S["k"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pql = lat._pq_placement()
+        torch.cuda.synchronize()
+        DL = {"knn": lat, "q_np": q_lat, "q_dev": torch.from_numpy(q_lat).to(dev),
+              "n_or": S["n_or"], "k": S["k"]}
+        # 2,048-row tiles: 4,096 bins, so three of a query's 100 neighbours
+        # rarely share one
+        lat_runs = {}
+        for label in ("tiled", "streaming"):
+            reset_launches()
+            (d, i, st), wall = timed_search(DL, precision="pq", kernel=label,
+                                            tile_n=2048)
+            launches = read_launches()
+            if launches[f"{label}_pq"] != 1 or sum(launches.values()) != 1:
+                raise AssertionError(f"lattice {label}: launches {launches}")
+            _, wall_warm = timed_search(DL, precision="pq", kernel=label,
+                                        tile_n=2048)
+            recall, same, rel = oracle_check(DL, d, i, f"lattice {label}")
+            lat_runs[label] = {
+                "recall_at_k": recall, "same_indices": same,
+                "max_rel_dist_err": rel, "certified": st["certified"],
+                "fallback_queries": st["fallback_queries"],
+                "qps_first_call": q_lat.shape[0] / wall,
+                "qps_second_call": q_lat.shape[0] / wall_warm}
+        if lat_runs["tiled"]["certified"] <= q_lat.shape[0] // 2:
+            raise AssertionError(
+                f"lattice: only {lat_runs['tiled']['certified']} of "
+                f"{q_lat.shape[0]} queries certified")
+        lat_eps = score_error_bound_pq(q_lat, pql["stats"])
+        emit({"phase": "pq", "n": S["n"], "queries": n_q, "k": S["k"],
+              "placement_s": placement_s, "train_s": pq["train_s"],
+              "m": int(pq["books"].shape[0]), "ncodes": pq["ncodes"],
+              "dsub": pq["dsub"], "norm_err_max": pq["stats"]["norm_err_max"],
+              "r_sub_max": float(np.max(pq["stats"]["r_sub"])),
+              "eps_max": float(eps.max()), "eps_median": float(np.median(eps)),
+              "kernels": dict(timing, plain_ms=plain_ms, bound=bound),
+              "runs": runs,
+              "lattice": {"rows": rows.shape[0], "tile_n": 2048,
+                          "train_s": pql["train_s"],
+                          "r_sub_max": float(np.max(pql["stats"]["r_sub"])),
+                          "norm_err_max": pql["stats"]["norm_err_max"],
+                          "eps_max": float(lat_eps.max()), "runs": lat_runs}})
+        del lat, DL, pql
+
+    def phase_lane(S):
+        from knn_tpu_torch import knn_search_certified, pallas_candidate_fn
+
+        # every arm's lane entries against their plain versions at small
+        # shapes and two geometries; lane scores bitwise the grouped ones
+        rng = np.random.default_rng(9)
+        cases = []
+        for arm in ck.ARMS:
+            for surv, bin_w in ((2, 128), (8, 256)):
+                tile, n_q, n = 512, 37, 5 * 128 + 60
+                if arm == "pq":
+                    args, tol_q = pq_case(dev, n_q, n, 7, 200, tile, 1), None
+                elif arm in ck.INT_ARMS:
+                    args = int_case(dev, arm, n_q, n, 24, tile, surv)
+                    tol_q = None
+                else:
+                    q = torch.from_numpy((rng.normal(size=(n_q, 24)) * 10)
+                                         .astype(np.float32)).to(dev)
+                    db = torch.from_numpy((rng.normal(size=(n, 24)) * 10)
+                                          .astype(np.float32)).to(dev)
+                    db[3] = db[10]
+                    db[90] = db[10]
+                    args = (ck.pad_queries(q),
+                            *ck.prepare_db_arm(db, tile, arm))
+                    tol_q = tolerance_q(q, db, arm=arm)
+                kw = {"tile_n": tile, "arm": arm, "binning": "lane",
+                      "survivors": surv, "bin_w": bin_w}
+                geo = ck.emit_geometry(tile, "lane", bin_w, surv)
+                plain = ck.binned_select_plain(*args, **kw)
+                n_p = args[-1].shape[1]
+                for key, out in (
+                        ("tiled", ck.binned_select(*args, **kw)),
+                        ("db_major", ck.binned_select(
+                            *args, **kw, grid_order="db_major")),
+                        ("streaming", ck.stream_select(*args, **kw))):
+                    rec = "streaming" if key == "streaming" else "tiled"
+                    name = f"{key}_lane_{arm} s{surv} b{bin_w}"
+                    if tol_q is None:
+                        err = bitwise(name, out, plain)
+                    else:
+                        err = max(checks[f"{rec}_lane_{arm}"].values(
+                                      f"{name} cd", out[0], plain[0], tol_q),
+                                  checks[f"{rec}_lane_{arm}"].values(
+                                      f"{name} bounds", out[2], plain[2],
+                                      tol_q))
+                        check_ci_lane(name, out, plain, tol_q, geo)
+                    checks[f"{rec}_lane_{arm}"].max_abs_err = max(
+                        checks[f"{rec}_lane_{arm}"].max_abs_err, err)
+                    grouped_fn = (ck.stream_select if key == "streaming"
+                                  else ck.binned_select)
+                    lane_scores_equal_grouped(
+                        name, out, grouped_fn(*args, tile_n=tile, arm=arm),
+                        n_p)
+                cases.append({"arm": arm, "survivors": surv, "bin_w": bin_w,
+                              "geometry": geo, "bitwise": tol_q is None,
+                              "scores_equal_grouped": True})
+        emit({"phase": "lane_kernels", "cases": cases})
+
+        # each arm's lane entries at the main shape: against the plain
+        # version, against the grouped scores on 512 queries, timed
+        out = {"phase": "lane"}
+        geo = ck.emit_geometry(ck.TILE_N, "lane")
+        for arm in ck.ARMS:
+            args = arm_operands(S, arm)
+            ka = {"tile_n": ck.TILE_N, "arm": arm, "binning": "lane"}
+            plain, plain_ms = timed_once(
+                lambda: ck.binned_select_plain(*args, **ka))
+            tiled = ck.binned_select(*args, **ka)
+            if arm in ck.INT_ARMS or arm == "pq":
+                err = bitwise(f"tiled_lane_{arm}@main", tiled, plain)
+                ci_checked = None
+            else:
+                tol_q = tolerance_q(S["q_dev"],
+                                    tmax=S["knn"].placement.db_norm_max,
+                                    arm=arm)
+                chk = checks[f"tiled_lane_{arm}"]
+                err = max(chk.values(f"tiled_lane_{arm}@main cd", tiled[0],
+                                     plain[0], tol_q),
+                          chk.values(f"tiled_lane_{arm}@main bounds",
+                                     tiled[2], plain[2], tol_q))
+                ci_checked = check_ci_lane(f"tiled_lane_{arm}@main", tiled,
+                                           plain, tol_q, geo)
+            del plain
+            for key, fn, kw in (("db_major", ck.binned_select,
+                                 {"grid_order": "db_major"}),
+                                ("streaming", ck.stream_select, {})):
+                bitwise(f"{key}_lane_{arm}@main vs tiled",
+                        fn(*args, **ka, **kw), tiled)
+            for rec in (f"tiled_lane_{arm}", f"streaming_lane_{arm}"):
+                checks[rec].max_abs_err = max(checks[rec].max_abs_err, err)
+            common = lane_scores_equal_grouped(
+                f"lane_{arm}@main", tiled,
+                ck.binned_select(*args, tile_n=ck.TILE_N, arm=arm),
+                args[-1].shape[1], rows=range(512))
+            del tiled
+            timing = {
+                "tiled_ms": time_cuda(lambda: ck.binned_select(*args, **ka),
+                                      3),
+                "streaming_ms": time_cuda(
+                    lambda: ck.stream_select(*args, **ka), 3)}
+            bound = arm_bound(S, arm, args, geo)
+            del args
+            out[arm] = {"kernels": dict(timing, plain_ms=plain_ms,
+                                        bound=bound, max_abs_err=err,
+                                        ci_separated_checked=ci_checked,
+                                        rows_compared_with_grouped=common)}
+            for kern in ("tiled", "streaming"):
+                records[f"{kern}_lane_{arm}"].update(
+                    ms=timing[f"{kern}_ms"], plain_ms=plain_ms,
+                    bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+        # the certified search in lane binning through every certified arm:
+        # every query's indices are the grouped bf16x3 run's
+        if "tiled" not in S:
+            (d, i, _), _ = timed_search(S)
+            S["tiled"] = (d, i)
+        for arm in ("bf16x3", "bf16x3f", "highest", "int8", "int4", "pq"):
+            runs = run_configs(S, arm, ("tiled", "streaming"),
+                               binning="lane", ref_i=S["tiled"][1])
+            out[arm]["runs"] = runs
+            for kern in ("tiled", "streaming"):
+                records[f"{kern}_lane_{arm}"]["launches"] = \
+                    runs[kern]["launches"][f"{kern}_lane_{arm}"]
+        # the default arm's lane entries through the counted certificate
+        counted = {}
+        for kern in ("tiled", "streaming"):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, i, st = knn_search_certified(
+                S["q_np"], S["knn"].placement.db_host, S["k"], margin=28,
+                candidate_fn=pallas_candidate_fn(precision="default",
+                                                 kernel=kern, binning="lane"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            key = f"{kern}_lane_default"
+            if launches[key] != 1 or sum(launches.values()) != 1:
+                raise AssertionError(
+                    f"counted certificate lane {kern}: launches {launches}")
+            if not np.array_equal(i, S["tiled"][1]):
+                raise AssertionError(
+                    f"counted certificate lane {kern}: indices differ")
+            recall, same, rel = oracle_check(S, d, i, f"counted lane {kern}")
+            records[key]["launches"] = launches[key]
+            counted[kern] = {"launches": launches, "wall_s": wall,
+                             "qps": S["n_q"] / wall, "recall_at_k": recall,
+                             "same_indices": same, "max_rel_dist_err": rel,
+                             "fallback_queries": st["fallback_queries"]}
+        out["default"]["counted_certificate"] = counted
+        emit(out)
+
+    if phases & {"main", "stream", "quant", "f32arms", "pq", "lane"}:
         if "main" in phases:
             phase_main(sift_data())
         if "stream" in phases:
@@ -1377,6 +1855,10 @@ def main(argv=None) -> int:
             phase_f32arms(sift_data())
         if "quant" in phases:
             phase_quant(sift_data())
+        if "pq" in phases:
+            phase_pq(sift_data())
+        if "lane" in phases:
+            phase_lane(sift_data())
         sift.clear()  # frees the placement before the classify job
         torch.cuda.empty_cache()
 

@@ -11,7 +11,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
   ``search_certified`` (certified-exact through a coarse kernel: the
   ``tiled`` (query-major or ``db_major`` grid), ``streaming`` or
   ``fused`` entry of the ``bf16x3`` (K1, K10, K11), ``bf16x3f`` (K4),
-  ``highest`` (K2), ``int8`` (K5) or ``int4`` (K6) arm, optionally through
+  ``highest`` (K2), ``int8`` (K5), ``int4`` (K6) or ``pq`` (K7, tiled and
+  streaming) arm, in grouped or ``lane`` binning (K8), optionally through
   the two-stage ``overlap`` pipeline), ``predict``, ``predict_certified``;
 - :func:`knn_search_pallas` — one certified search against a database
   placed for the call;

@@ -42,9 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="coarse selector for --mode certified")
     p.add_argument("--pallas-precision", default=None,
                    choices=CERTIFIED_PRECISIONS,
-                   help="coarse-kernel precision (default bf16x3; the port "
-                   "also runs bf16x3f, highest, int8 and int4 and refuses "
-                   "pq by name)")
+                   help="coarse-kernel precision (default bf16x3; also "
+                   "bf16x3f, highest, int8, int4 and pq, whose codebooks "
+                   "train on the train rows)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path on the CPU)")

@@ -11,7 +11,8 @@ its jitted program; the values are the same).  A uint8 source is marked
 unless the metric is cosine (``sharded.py:561-571``), so the int8 arm
 places its bytes byte-exact (ops.quantize.from_uint8); the f32 rows hold
 them exactly, so nothing of the caller's array is kept.
-Tests build both sides from one numpy array through this function.
+Tests build both sides from one numpy array through this function, and
+carry a trained product quantizer across with :func:`pq_from_numpy`.
 """
 
 from __future__ import annotations
@@ -104,3 +105,20 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
                      metric="l2" if metric in L2_FAMILY else metric,
                      labels=lab, num_classes=num_classes,
                      uint8_source=uint8_source)
+
+
+def pq_from_numpy(knn, codebooks: np.ndarray, codes: np.ndarray,
+                  stats: dict, dsub: int, dim: int,
+                  ncodes: Optional[int] = None) -> dict:
+    """Carries trained pq state in numpy form — a JAX ``ops.pq.PQResult``'s
+    ``codebooks`` f32 [m, C, dsub], ``codes`` uint8 [N, m], ``stats``
+    (``pq_bound_stats``), ``dsub`` and ``dim`` — into the pq placement of
+    the port's ``ShardedKNN`` ``knn`` (its rows must be the ones the codes
+    encode), so both packages score the same codes whatever their k-means
+    would train.  ``ncodes`` names the placement's geometry (None: the
+    codebooks' C).  Returns the placement (``ShardedKNN._place_pq``)."""
+    if dim != knn.placement.db_host.shape[1]:
+        raise ValueError(
+            f"the codes encode {dim}-dim rows, the placement holds "
+            f"{knn.placement.db_host.shape[1]}-dim ones")
+    return knn._place_pq(codebooks, codes, stats, dsub=dsub, ncodes=ncodes)

@@ -141,15 +141,13 @@ __device__ __forceinline__ void stage_slice(
 // The f32 family (K1, K4, K2, K3).  db0 / db1: th / tl bf16 (bf16x3,
 // bf16x3f), th alone (default), t f32 (highest).  kMulti: the build for
 // Dp > 128 (sum_chunks).
-template <Arm kArm, bool kMulti>
+template <Arm kArm, bool kMulti, int kSlots>
 __global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
 binned_select_f32_kernel(const float* __restrict__ q,
                          const void* __restrict__ db0,
                          const void* __restrict__ db1,
-                         const float* __restrict__ tnorm,
-                         float* __restrict__ cd, int* __restrict__ ci,
-                         float* __restrict__ bounds, int n_q, int dp,
-                         int n_tiles, int tile_n, int db_major) {
+                         const float* __restrict__ tnorm, Out out, int dp,
+                         int db_major) {
   extern __shared__ float4 smem_f4[];
   const F32Bufs<kArm, kDimSlice, kDbStride> bufs(smem_f4);
   // the multi-chunk build's running sums, after the compute buffers
@@ -161,12 +159,13 @@ binned_select_f32_kernel(const float* __restrict__ q,
   const int quad = tid / 32;                  // queries quad*4 + i
   const int ti = db_major ? blockIdx.y : blockIdx.x;
   const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
-  const int n_groups = tile_n / kBinW;
-  const size_t tile_row0 = static_cast<size_t>(ti) * tile_n;
+  const int n_q = out.n_q;
+  const int n_groups = out.tile_n / kBinW;
+  const size_t tile_row0 = static_cast<size_t>(ti) * out.tile_n;
+  const Place place{q0, quad, lane_col};
 
-  Vals vals;
-  Gidx gidx;
-  reset_bins(vals, gidx);
+  Emitter<kSlots> em;
+  em.begin_tile();
 
   for (int g = 0; g < n_groups; ++g) {
     const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
@@ -186,25 +185,22 @@ binned_select_f32_kernel(const float* __restrict__ q,
     };
     Acc acc;
     sum_chunks<kArm, kMulti>(dp / kDimChunk, run, tid, chunk, acc);
-    insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
+    em.group(acc, tnorm, row0, g, ti, out, place);
   }
-  store_tile(vals, gidx, cd, ci, bounds, q0, quad, lane_col, n_q, n_tiles, ti,
-             tile_n, false);
+  em.end_tile(ti, out, place, false);
 }
 
 // K5 / K6: the same walk over groups, one 128-dim int8 chunk per pass.
 constexpr size_t kIntSmemInts =
     kBinW * kIntDbStride + kIntWords * kQStride;  // 21.5 KB, static
 
-template <Arm kArm>
+template <Arm kArm, int kSlots>
 __global__ void __launch_bounds__(kThreads, 2)
 binned_select_int_kernel(const int8_t* __restrict__ qi,
                          const float* __restrict__ qsc,
                          const uint8_t* __restrict__ t,
-                         const float* __restrict__ aux,
-                         float* __restrict__ cd, int* __restrict__ ci,
-                         float* __restrict__ bounds, int n_q, int dp,
-                         int n_tiles, int tile_n, int db_major) {
+                         const float* __restrict__ aux, Out out, int dp,
+                         int db_major) {
   __shared__ __align__(16) int smem[kIntSmemInts];
   int* tws = smem;                                // [128][kIntDbStride]
   int* qws = smem + kBinW * kIntDbStride;         // [kIntWords][kQStride]
@@ -214,18 +210,19 @@ binned_select_int_kernel(const int8_t* __restrict__ qi,
   const int quad = tid / 32;                  // queries quad*4 + i
   const int ti = db_major ? blockIdx.y : blockIdx.x;
   const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
-  const int n_groups = tile_n / kBinW;
-  const size_t tile_row0 = static_cast<size_t>(ti) * tile_n;
+  const int n_q = out.n_q;
+  const int n_groups = out.tile_n / kBinW;
+  const size_t tile_row0 = static_cast<size_t>(ti) * out.tile_n;
   const size_t row_bytes = db_row_bytes<kArm>(dp);
   // aux: row norms [Np], then row scales [Np]
   const float* tnorm = aux;
-  const float* tscale = aux + static_cast<size_t>(n_tiles) * tile_n;
+  const float* tscale = aux + static_cast<size_t>(out.n_tiles) * out.tile_n;
+  const Place place{q0, quad, lane_col};
 
   float qs[kQuadQ];
   load_qsc(qsc, q0, quad, n_q, qs);
-  Vals vals;
-  Gidx gidx;
-  reset_bins(vals, gidx);
+  Emitter<kSlots> em;
+  em.begin_tile();
 
   for (int g = 0; g < n_groups; ++g) {
     const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
@@ -242,10 +239,26 @@ binned_select_int_kernel(const int8_t* __restrict__ qi,
     }
     Acc acc;
     rescale(iacc, qs, tscale, row0, lane_col, acc);
-    insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
+    em.group(acc, tnorm, row0, g, ti, out, place);
   }
-  store_tile(vals, gidx, cd, ci, bounds, q0, quad, lane_col, n_q, n_tiles, ti,
-             tile_n, false);
+  em.end_tile(ti, out, place, false);
+}
+
+// K7: one db tile per CTA (binned_select.cuh, pq_tiles).
+template <int kSlots>
+__global__ void __launch_bounds__(kThreads, 1)
+binned_select_pq_kernel(const float* __restrict__ lut,
+                        const uint8_t* __restrict__ codes,
+                        const float* __restrict__ tnorm, Out out, int m,
+                        int ncodes, int db_major) {
+  extern __shared__ float4 smem_f4[];
+  const int tid = threadIdx.x;
+  const int ti = db_major ? blockIdx.y : blockIdx.x;
+  const Place place{static_cast<int>(db_major ? blockIdx.x : blockIdx.y) *
+                        kBlockQ,
+                    tid / 32, tid % 32};
+  pq_tiles<kSlots>(lut, codes, tnorm, out, place, m, ncodes, ti, ti + 1,
+                  reinterpret_cast<unsigned char*>(smem_f4));
 }
 
 // The grid of one launch: (tiles, query blocks), or (query blocks, tiles)
@@ -256,50 +269,77 @@ bool grid_of(int n_q, int n_tiles, int db_major, dim3* grid) {
   return static_cast<int>(grid->y) <= kMaxGridY;
 }
 
-template <Arm kArm, bool kMulti>
+template <Arm kArm, bool kMulti, int kSlots>
 cudaError_t launch_f32(dim3 grid, const void* p0, const void* p1,
-                       const void* p2, const void* p3, void* cd, void* ci,
-                       void* bounds, int n_q, int dp, int n_tiles, int tile_n,
+                       const void* p2, const void* p3, const Out& out, int dp,
                        int db_major, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      binned_select_f32_kernel<kArm, kMulti>,
+      binned_select_f32_kernel<kArm, kMulti, kSlots>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes<kMulti>));
   if (err != cudaSuccess) return err;
-  binned_select_f32_kernel<kArm, kMulti>
+  binned_select_f32_kernel<kArm, kMulti, kSlots>
       <<<grid, kThreads, kSmemBytes<kMulti>, stream>>>(
           static_cast<const float*>(p0), p1, p2,
-          static_cast<const float*>(p3), static_cast<float*>(cd),
-          static_cast<int*>(ci), static_cast<float*>(bounds), n_q, dp,
-          n_tiles, tile_n, db_major);
+          static_cast<const float*>(p3), out, dp, db_major);
+  return cudaGetLastError();
+}
+
+template <Arm kArm, int kSlots>
+cudaError_t launch_arm(dim3 grid, const void* p0, const void* p1,
+                       const void* p2, const void* p3, const Out& out, int dp,
+                       int db_major, int ncodes, cudaStream_t stream) {
+  if constexpr (kArm == Arm::kPq) {
+    // dp = m, the code bytes per row
+    const size_t smem = pq_smem_bytes(dp, ncodes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        binned_select_pq_kernel<kSlots>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    binned_select_pq_kernel<kSlots><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(p0), static_cast<const uint8_t*>(p1),
+        static_cast<const float*>(p3), out, dp, ncodes, db_major);
+  } else if constexpr (kIsInt<kArm>) {
+    binned_select_int_kernel<kArm, kSlots><<<grid, kThreads, 0, stream>>>(
+        static_cast<const int8_t*>(p0), static_cast<const float*>(p1),
+        static_cast<const uint8_t*>(p2), static_cast<const float*>(p3), out,
+        dp, db_major);
+  } else {
+    return dp > kDimChunk
+               ? launch_f32<kArm, true, kSlots>(grid, p0, p1, p2, p3, out, dp,
+                                               db_major, stream)
+               : launch_f32<kArm, false, kSlots>(grid, p0, p1, p2, p3, out, dp,
+                                                db_major, stream);
+  }
   return cudaGetLastError();
 }
 
 template <Arm kArm>
 cudaError_t launch(const void* p0, const void* p1, const void* p2,
                    const void* p3, void* cd, void* ci, void* bounds, int n_q,
-                   int dp, int n_tiles, int tile_n, int db_major,
-                   cudaStream_t stream) {
+                   int dp, int n_tiles, int tile_n, int db_major, int bin_w,
+                   int survivors, int ncodes, cudaStream_t stream) {
   if (n_q <= 0 || n_tiles <= 0) return cudaSuccess;
   dim3 grid;
-  if (dp % kDimChunk || !grid_of(n_q, n_tiles, db_major, &grid))
+  Out out{static_cast<float*>(cd), static_cast<int*>(ci),
+          static_cast<float*>(bounds), n_q, n_tiles, tile_n, {}};
+  if (!make_geom(tile_n, bin_w, survivors, &out.geo) ||
+      !grid_of(n_q, n_tiles, db_major, &grid))
     return cudaErrorInvalidValue;
-  if constexpr (kIsInt<kArm>) {
-    binned_select_int_kernel<kArm><<<grid, kThreads, 0, stream>>>(
-        static_cast<const int8_t*>(p0), static_cast<const float*>(p1),
-        static_cast<const uint8_t*>(p2), static_cast<const float*>(p3),
-        static_cast<float*>(cd), static_cast<int*>(ci),
-        static_cast<float*>(bounds), n_q, dp, n_tiles, tile_n, db_major);
-  } else {
-    return dp > kDimChunk
-               ? launch_f32<kArm, true>(grid, p0, p1, p2, p3, cd, ci, bounds,
-                                        n_q, dp, n_tiles, tile_n, db_major,
-                                        stream)
-               : launch_f32<kArm, false>(grid, p0, p1, p2, p3, cd, ci, bounds,
-                                         n_q, dp, n_tiles, tile_n, db_major,
-                                         stream);
+  if (kArm == Arm::kPq ? (dp < 1 || ncodes < 2 || ncodes > 256)
+                       : dp % kDimChunk != 0)
+    return cudaErrorInvalidValue;
+  switch (emit_slots(bin_w, survivors)) {
+    case 0:
+      return launch_arm<kArm, 0>(grid, p0, p1, p2, p3, out, dp, db_major,
+                                 ncodes, stream);
+    case kLaneSlotsSmall:
+      return launch_arm<kArm, kLaneSlotsSmall>(grid, p0, p1, p2, p3, out, dp,
+                                               db_major, ncodes, stream);
+    default:
+      return launch_arm<kArm, kLaneSlots>(grid, p0, p1, p2, p3, out, dp,
+                                          db_major, ncodes, stream);
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -314,18 +354,26 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
 //                    (K5) or [n_tiles*tile_n, dp/2] nibble-packed uint8
 //                    (K6); aux [2, n_tiles*tile_n] f32 (row norms, then row
 //                    scales)
-// Outputs as in the header.  dp and tile_n must be multiples of 128;
-// db_major picks the grid order (K9).  Each returns cudaGetLastError()
-// after the launch (0 = launched; cudaErrorInvalidValue for a dim or grid
-// it does not take); the wrapper raises on anything else.
-#define TILED_ENTRY(NAME, ARM)                                               \
-  extern "C" int binned_select_##NAME(                                       \
-      const void* p0, const void* p1, const void* p2, const void* p3,        \
-      void* cd, void* ci, void* bounds, int n_q, int dp, int n_tiles,        \
-      int tile_n, int db_major, void* stream) {                              \
-    return static_cast<int>(launch<ARM>(p0, p1, p2, p3, cd, ci, bounds, n_q, \
-                                        dp, n_tiles, tile_n, db_major,       \
-                                        static_cast<cudaStream_t>(stream))); \
+//   pq (K7):         lut [n_q, dp*ncodes] f32; codes [n_tiles*tile_n, dp]
+//                    uint8 (dp = m, the subspaces; every code < ncodes);
+//                    unused; tnorm
+// Outputs as in binned_select.cuh for the binning: bin_w = 0 is grouped
+// binning (survivors must be 2), bin_w > 0 lane binning with `survivors`
+// (1 .. 8) per bin of bin_w rows (K8).  dp (but pq's) and tile_n must be
+// multiples of 128; db_major picks the grid order (K9); ncodes is read by
+// pq alone.  Each returns cudaGetLastError() after the launch (0 =
+// launched; cudaErrorInvalidValue for a dim, geometry or grid it does not
+// take); the wrapper raises on anything else.
+#define TILED_ENTRY(NAME, ARM)                                                \
+  extern "C" int binned_select_##NAME(                                        \
+      const void* p0, const void* p1, const void* p2, const void* p3,         \
+      void* cd, void* ci, void* bounds, int n_q, int dp, int n_tiles,         \
+      int tile_n, int db_major, int bin_w, int survivors, int ncodes,         \
+      void* stream) {                                                         \
+    return static_cast<int>(launch<ARM>(p0, p1, p2, p3, cd, ci, bounds, n_q,  \
+                                        dp, n_tiles, tile_n, db_major, bin_w, \
+                                        survivors, ncodes,                    \
+                                        static_cast<cudaStream_t>(stream)));  \
   }
 
 TILED_ENTRY(bf16x3, Arm::kBf16x3)
@@ -334,3 +382,4 @@ TILED_ENTRY(highest, Arm::kHighest)
 TILED_ENTRY(default, Arm::kDefault)
 TILED_ENTRY(int8, Arm::kInt8)
 TILED_ENTRY(int4, Arm::kInt4)
+TILED_ENTRY(pq, Arm::kPq)

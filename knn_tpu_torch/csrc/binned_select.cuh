@@ -107,7 +107,8 @@ enum class Arm : int {
   kInt4 = 2,
   kBf16x3f = 3,
   kHighest = 4,
-  kDefault = 5
+  kDefault = 5,
+  kPq = 6
 };
 
 constexpr int kDimChunk = 128;            // dims per chunk (DIM_CHUNK)
@@ -587,6 +588,371 @@ __device__ __forceinline__ void store_tile(const Vals& vals, const Gidx& gidx,
       bounds[row * bound_w + static_cast<size_t>(ti) * kBinW + lane] =
           pad ? inf : vals[i][j][kSurvivors];
     }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// The two emitters (pallas_knn.py:506-610).  A launch takes its binning as a
+// runtime geometry; the emitter itself is a template parameter of every
+// kernel (kLane), so a lane build and a grouped build of one arm share every
+// line of the per-score code above and compute the same score for the same
+// (query, row).
+//
+//   grouped (bin_w = 0 here): bin b of a tile = lane b of every 128-row group,
+//     2 survivors per bin by the insertion network with strict `<` over the
+//     groups in order (insert_group / store_tile above);
+//   lane (K8): bin b = tile rows b*bin_w .. (b+1)*bin_w - 1, bin_w a multiple
+//     of 128, `surv` (1 .. 8, a runtime argument) survivors per bin: the surv
+//     smallest scores of the bin in (value, row) order -- the reference's
+//     repeated min / first-argmin -- and the next value as the bin's bound.
+//     Outputs per tile: cd / ci column j*n_bins + b for survivor j, padded
+//     with +inf / INT32_MAX to out_w = round_up(n_bins*surv, 128) columns;
+//     bounds column b, padded with +inf to bound_w = round_up(n_bins, 128).
+//
+// Lane design.  A bin is bin_w / 128 consecutive groups, so one warp (4 query
+// rows x the group's 128 rows) sees all of it.  Each thread keeps, per query
+// row, its own surv + 1 smallest (value, row) pairs in (value, row) order: its
+// rows arrive in increasing order, and the insertion compares (value, row)
+// lexicographically.  The lists live in registers, kSlots pairs per query
+// row, a template parameter: 3 for 1 or 2 survivors, 9 up to 8 (the launch
+// picks the smaller that holds surv + 1), so the common two-survivor build
+// keeps fewer registers than the grouped network.  At the bin's last group the warp merges its 32 lists in
+// surv + 1 rounds: a butterfly of __shfl_xor_sync picks the smallest head in
+// (value, row) order, its owner pops it; rounds 0 .. surv-1 are the
+// survivors, round surv the bound.  No row outside a thread's surv + 1 pairs
+// can be among the bin's surv + 1 smallest.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxSurvivors = 8;                   // MAX_SURVIVORS
+constexpr int kLaneSlots = kMaxSurvivors + 1;      // the lists' two builds
+constexpr int kLaneSlotsSmall = kSurvivors + 1;
+
+// The emitter build of a launch: 0 for grouped binning, else the lane
+// lists' slots for `surv` survivors.
+__host__ inline int emit_slots(int bin_w, int surv) {
+  return bin_w == 0 ? 0 : surv + 1 <= kLaneSlotsSmall ? kLaneSlotsSmall
+                                                      : kLaneSlots;
+}
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The output geometry of one launch.
+struct Geom {
+  int bin_w;       // rows per bin; 0 = grouped binning
+  int surv;        // survivors per bin
+  int n_bins;      // bins per tile
+  int out_w;       // candidate columns per tile
+  int bound_w;     // bound columns per tile
+  int bin_groups;  // 128-row groups per lane bin
+};
+
+// False for a geometry the kernels do not take: grouped runs two survivors;
+// a lane bin is a multiple of 128 rows that divides the tile, with 1 .. 8
+// survivors.
+__host__ inline bool make_geom(int tile_n, int bin_w, int surv, Geom* g) {
+  if (bin_w == 0) {
+    *g = Geom{0, kSurvivors, kBinW, kSurvivors * kBinW, kBinW, 1};
+    return surv == kSurvivors;
+  }
+  if (bin_w < kBinW || bin_w % kBinW || tile_n % bin_w || surv < 1 ||
+      surv > kMaxSurvivors)
+    return false;
+  const int n_bins = tile_n / bin_w;
+  *g = Geom{bin_w, surv, n_bins, round_up(n_bins * surv, kBinW),
+            round_up(n_bins, kBinW), bin_w / kBinW};
+  return true;
+}
+
+// Where a launch writes: the outputs, their rows and the geometry.
+struct Out {
+  float* cd;
+  int* ci;
+  float* bounds;
+  int n_q;
+  int n_tiles;
+  int tile_n;
+  Geom geo;
+};
+
+// The thread's place in the CTA: query rows q0 + quad*4 + i, lanes
+// lane_col + 32*j of each group.
+struct Place {
+  int q0;
+  int quad;
+  int lane_col;
+};
+
+// kSlots = 0: grouped binning; kSlots > 0: lane binning with lists of kSlots
+// (value, row) pairs per query row.
+template <int kSlots>
+struct Emitter;
+
+// Grouped binning: the insertion network of insert_group, stored per tile.
+template <>
+struct Emitter<0> {
+  Vals vals;
+  Gidx gidx;
+
+  __device__ __forceinline__ void begin_tile() { reset_bins(vals, gidx); }
+
+  __device__ __forceinline__ void group(const Acc& acc,
+                                        const float* __restrict__ tnorm,
+                                        size_t row0, int g, int, const Out&,
+                                        const Place& p) {
+    insert_group(vals, gidx, acc, tnorm, row0, p.lane_col, g);
+  }
+
+  __device__ __forceinline__ void end_tile(int ti, const Out& o,
+                                           const Place& p, bool pad) {
+    store_tile(vals, gidx, o.cd, o.ci, o.bounds, p.q0, p.quad, p.lane_col,
+               o.n_q, o.n_tiles, ti, o.tile_n, pad);
+  }
+};
+
+// Lane binning (K8).
+template <int kSlots>
+struct Emitter {
+  float v[kQuadQ][kSlots];   // per query row: the thread's smallest
+  int r[kQuadQ][kSlots];     // (value, tile row) pairs, in order
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int i = 0; i < kQuadQ; ++i)
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        v[i][k] = __int_as_float(0x7f800000);
+        r[i][k] = INT32_MAX;
+      }
+  }
+
+  __device__ __forceinline__ void begin_tile() { reset(); }
+
+  // s = tnorm[t] - 2 qt for group g (tile rows g*128 + lane_col + 32*j, in
+  // increasing order), inserted into the first surv + 1 slots; at the bin's
+  // last group, the warp merge and its writes.
+  __device__ __forceinline__ void group(const Acc& acc,
+                                        const float* __restrict__ tnorm,
+                                        size_t row0, int g, int ti,
+                                        const Out& o, const Place& p) {
+    const int surv = o.geo.surv;
+#pragma unroll
+    for (int j = 0; j < kQuadL; ++j) {
+      const float tn = tnorm[row0 + p.lane_col + 32 * j];
+      const int row = g * kBinW + p.lane_col + 32 * j;
+#pragma unroll
+      for (int i = 0; i < kQuadQ; ++i) {
+        float cur_v = tn - 2.0f * acc[i][j];
+        int cur_r = row;
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          if (k <= surv) {
+            const bool less = cur_v < v[i][k] ||
+                              (cur_v == v[i][k] && cur_r < r[i][k]);
+            const float keep_v = less ? cur_v : v[i][k];
+            const int keep_r = less ? cur_r : r[i][k];
+            cur_v = less ? v[i][k] : cur_v;
+            cur_r = less ? r[i][k] : cur_r;
+            v[i][k] = keep_v;
+            r[i][k] = keep_r;
+          }
+        }
+      }
+    }
+    if ((g + 1) % o.geo.bin_groups == 0) {
+      flush(g / o.geo.bin_groups, ti, o, p);
+      reset();
+    }
+  }
+
+  // The warp merge of bin b (see above); lane 0 of the warp writes.
+  __device__ __forceinline__ void flush(int b, int ti, const Out& o,
+                                        const Place& p) {
+    const Geom& geo = o.geo;
+    const size_t cd_w = static_cast<size_t>(o.n_tiles) * geo.out_w;
+    const size_t b_w = static_cast<size_t>(o.n_tiles) * geo.bound_w;
+#pragma unroll
+    for (int i = 0; i < kQuadQ; ++i) {
+      const int qrow = p.q0 + p.quad * 4 + i;
+      for (int round = 0; round <= geo.surv; ++round) {
+        float hv = v[i][0];
+        int hr = r[i][0];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, hv, off);
+          const int orow = __shfl_xor_sync(0xffffffffu, hr, off);
+          if (ov < hv || (ov == hv && orow < hr)) {
+            hv = ov;
+            hr = orow;
+          }
+        }
+        const bool pop = v[i][0] == hv && r[i][0] == hr;
+#pragma unroll
+        for (int k = 0; k + 1 < kSlots; ++k) {
+          v[i][k] = pop ? v[i][k + 1] : v[i][k];
+          r[i][k] = pop ? r[i][k + 1] : r[i][k];
+        }
+        if (pop) {
+          v[i][kSlots - 1] = __int_as_float(0x7f800000);
+          r[i][kSlots - 1] = INT32_MAX;
+        }
+        if (p.lane_col == 0 && qrow < o.n_q) {
+          if (round < geo.surv) {
+            const size_t at = qrow * cd_w +
+                              static_cast<size_t>(ti) * geo.out_w +
+                              round * geo.n_bins + b;
+            o.cd[at] = hv;
+            o.ci[at] = isfinite(hv) ? ti * o.tile_n + hr : INT32_MAX;
+          } else {
+            o.bounds[qrow * b_w + static_cast<size_t>(ti) * geo.bound_w + b] =
+                hv;
+          }
+        }
+      }
+    }
+  }
+
+  // The tile's padding columns: +inf / INT32_MAX past n_bins*surv, +inf
+  // past n_bins.  (Lane binning has no fused form, so nothing is skipped.)
+  __device__ __forceinline__ void end_tile(int ti, const Out& o,
+                                           const Place& p, bool) {
+    const Geom& geo = o.geo;
+    const float inf = __int_as_float(0x7f800000);
+    const size_t cd_w = static_cast<size_t>(o.n_tiles) * geo.out_w;
+    const size_t b_w = static_cast<size_t>(o.n_tiles) * geo.bound_w;
+#pragma unroll
+    for (int i = 0; i < kQuadQ; ++i) {
+      const size_t qrow = p.q0 + p.quad * 4 + i;
+      if (static_cast<int>(qrow) >= o.n_q) continue;
+      for (int c = geo.n_bins * geo.surv + p.lane_col; c < geo.out_w; c += 32) {
+        const size_t at = qrow * cd_w + static_cast<size_t>(ti) * geo.out_w + c;
+        o.cd[at] = inf;
+        o.ci[at] = INT32_MAX;
+      }
+      for (int c = geo.n_bins + p.lane_col; c < geo.bound_w; c += 32)
+        o.bounds[qrow * b_w + static_cast<size_t>(ti) * geo.bound_w + c] = inf;
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K7, the pq arm (pallas_knn.py:362-381, 443-452, 679-684):
+//
+//   qt[q, t] = sum over s = 0 .. m-1, in this order, of LUT[q, s*C + code[t, s]]
+//              (f32 adds from 0, each rounded: __fadd_rn)
+//   s        = tnorm[t] - 2*qt   (tnorm 0 on real rows, PAD_VAL on padding)
+//
+// then the grouped or the lane emitter.  The TPU kernel sums the same m
+// products as a dense dot of the LUT with the codes' one-hot expansion; here
+// the sum order is fixed, so a kernel and its plain version give the same
+// bits.
+//
+// Design: the CTA shape of the other arms (32 query rows, 128-row groups in
+// order, 4 x 4 register tile per thread), kPqGroups groups at a time.  The
+// groups' codes ([kPqGroups*128, m] bytes, contiguous in the [Np, m] code
+// array) are staged transposed ([m][kPqGroups*128]) in shared memory; then
+// per subspace s the query block's LUT slice [32][C] f32 is staged (32 KB
+// at C = 256, 16-byte copies, one row segment per thread) and each thread
+// adds its 16 entries of every group, one accumulator tile per group in
+// registers.  What bounds it: the table lookups, Q*N*m shared-memory word
+// loads (bank conflicts: the codes are data), and the LUT slices restaged
+// per (kPqGroups groups, subspace): 32*C*4*m bytes per kPqGroups groups and
+// query block from L2 (~0.26 TB per 4,096 queries x 1M rows).  The four
+// accumulator tiles need more than the 128 registers two CTAs per SM leave,
+// so the pq kernels run one CTA per SM.  A tensor-core one-hot product, as
+// the TPU runs it, costs 2*Q*N*m*C FLOPs -- far more.
+// ---------------------------------------------------------------------------
+
+constexpr int kPqGroups = 4;   // 128-row groups per staged LUT slice
+
+// Dynamic shared memory of a pq CTA: the LUT slice, then the codes.
+__host__ __device__ inline size_t pq_smem_bytes(int m, int ncodes) {
+  return sizeof(float) * kBlockQ * ncodes +
+         static_cast<size_t>(m) * kPqGroups * kBinW;
+}
+
+// The pq arm over db tiles [t_begin, t_end) for the query block at p.q0:
+// lut [n_q, m*ncodes] f32, codes [n_tiles*tile_n, m] uint8, tnorm
+// [n_tiles*tile_n] f32.
+template <int kSlots>
+__device__ __forceinline__ void pq_tiles(const float* __restrict__ lut,
+                                         const uint8_t* __restrict__ codes,
+                                         const float* __restrict__ tnorm,
+                                         const Out& o, const Place& p,
+                                         int m, int ncodes, int t_begin,
+                                         int t_end, unsigned char* smem) {
+  float* lut_s = reinterpret_cast<float*>(smem);      // [kBlockQ][ncodes]
+  uint8_t* cs = smem + sizeof(float) * kBlockQ * ncodes;
+  constexpr int kRows = kPqGroups * kBinW;            // cs: [m][kRows]
+  const int tid = threadIdx.x;
+  const size_t lut_w = static_cast<size_t>(m) * ncodes;
+  const int n_groups = o.tile_n / kBinW;
+  // the LUT slice's copy: words of a row, rows a pass, this thread's place
+  const bool vec4 = ncodes % 4 == 0;
+  const int words = vec4 ? ncodes / 4 : ncodes;
+  const int rows_step = kThreads / words;
+  const int row0 = tid / words < rows_step ? tid / words : kBlockQ;
+  const int col = tid % words;
+  Emitter<kSlots> em;
+  for (int ti = t_begin; ti < t_end; ++ti) {
+    em.begin_tile();
+    for (int g = 0; g < n_groups; g += kPqGroups) {
+      const int gn = min(kPqGroups, n_groups - g);
+      const size_t rows0 =
+          static_cast<size_t>(ti) * o.tile_n + static_cast<size_t>(g) * kBinW;
+      __syncthreads();  // the previous groups' codes and slice are consumed
+      const uint32_t* src =
+          reinterpret_cast<const uint32_t*>(codes + rows0 * m);
+      for (int w = tid; w < 32 * m * gn; w += kThreads) {
+        const uint32_t x = src[w];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int byte = 4 * w + e;
+          const int row = byte / m;
+          cs[(byte - row * m) * kRows + row] = static_cast<uint8_t>(x >> (8 * e));
+        }
+      }
+      Acc acc[kPqGroups];
+#pragma unroll
+      for (int gg = 0; gg < kPqGroups; ++gg) zero_tile(acc[gg]);
+      for (int s = 0; s < m; ++s) {
+        __syncthreads();  // codes staged; the previous slice consumed
+        // thread tid copies column `col` of rows row0, row0 + rows_step, ...
+        // (16-byte words when C is a multiple of 4)
+        for (int r = row0; r < kBlockQ; r += rows_step) {
+          const size_t at = static_cast<size_t>(p.q0 + r) * lut_w +
+                            static_cast<size_t>(s) * ncodes;
+          const bool live = p.q0 + r < o.n_q;
+          if (vec4)
+            reinterpret_cast<float4*>(lut_s + r * ncodes)[col] =
+                live ? reinterpret_cast<const float4*>(lut + at)[col]
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+          else
+            lut_s[r * ncodes + col] = live ? lut[at + col] : 0.0f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int gg = 0; gg < kPqGroups; ++gg) {
+          if (gg < gn) {
+            int code[kQuadL];
+#pragma unroll
+            for (int j = 0; j < kQuadL; ++j)
+              code[j] = cs[s * kRows + gg * kBinW + p.lane_col + 32 * j];
+#pragma unroll
+            for (int i = 0; i < kQuadQ; ++i)
+#pragma unroll
+              for (int j = 0; j < kQuadL; ++j)
+                acc[gg][i][j] = __fadd_rn(
+                    acc[gg][i][j], lut_s[(p.quad * 4 + i) * ncodes + code[j]]);
+          }
+        }
+      }
+#pragma unroll
+      for (int gg = 0; gg < kPqGroups; ++gg)
+        if (gg < gn)
+          em.group(acc[gg], tnorm, rows0 + gg * kBinW, g + gg, ti, o, p);
+    }
+    em.end_tile(ti, o, p, false);
   }
 }
 

@@ -261,15 +261,14 @@ __device__ __forceinline__ void convert_stage(
                       pass);
 }
 
-template <Arm kArm, bool kFused, bool kMulti>
+template <Arm kArm, bool kFused, bool kMulti, int kSlots>
 __global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
 stream_select_kernel(const void* __restrict__ p0,
                      const void* __restrict__ p1,
                      const void* __restrict__ p2,
-                     const float* __restrict__ p3, float* __restrict__ cd,
-                     int* __restrict__ ci, float* __restrict__ bounds, int n_q,
-                     int dp, int n_tiles, int tile_n, int seg_tiles,
-                     int depth) {
+                     const float* __restrict__ p3, Out out, int dp,
+                     int seg_tiles, int depth) {
+  static_assert(!(kFused && kSlots), "the fused early-out is grouped only");
   // operands: f32 family (q f32, th bf16 / t f32, tl bf16 or unused, tnorm
   // f32 [8, Np] row 0); int8 / int4 (qi int8, qsc f32, t int8 or packed
   // uint8, aux f32 [2, Np]: row norms, then row scales)
@@ -296,6 +295,10 @@ stream_select_kernel(const void* __restrict__ p0,
   const int lane_col = tid % 32;              // lanes lane_col + 32*j
   const int quad = tid / 32;                  // queries quad*4 + i
   const int q0 = blockIdx.y * kBlockQ;
+  const int n_q = out.n_q;
+  const int n_tiles = out.n_tiles;
+  const int tile_n = out.tile_n;
+  const Place place{q0, quad, lane_col};
   const int t_begin = blockIdx.x * seg_tiles;
   const int t_end = min(t_begin + seg_tiles, n_tiles);
   if (t_begin >= t_end) return;
@@ -345,10 +348,9 @@ stream_select_kernel(const void* __restrict__ p0,
   cp_async_commit();
   int buf = 0;
 
-  Vals vals;
-  Gidx gidx;
+  Emitter<kSlots> em;
   for (int ti = t_begin; ti < t_end; ++ti) {
-    reset_bins(vals, gidx);
+    em.begin_tile();
     for (int g = 0; g < n_groups; ++g) {
       const size_t row0 =
           static_cast<size_t>(ti) * tile_n + static_cast<size_t>(g) * kBinW;
@@ -390,11 +392,12 @@ stream_select_kernel(const void* __restrict__ p0,
         };
         sum_chunks<kArm, kMulti>(dp / kDimChunk, run, tid, chunk, acc);
       }
-      insert_group(vals, gidx, acc, tnorm, row0, lane_col, g);
+      em.group(acc, tnorm, row0, g, ti, out, place);
     }
 
     bool skip = false;
-    if (kFused && depth > 0) {
+    if constexpr (kFused) {
+     if (depth > 0) {
       float tmin[kQuadQ], thr[kQuadQ];
 #pragma unroll
       for (int i = 0; i < kQuadQ; ++i) {
@@ -402,7 +405,7 @@ stream_select_kernel(const void* __restrict__ p0,
         thr[i] = -inf;
 #pragma unroll
         for (int j = 0; j < kQuadL; ++j) {
-          const float lane_min = vals[i][j][0];
+          const float lane_min = em.vals[i][j][0];
           tmin[i] = fminf(tmin[i], lane_min);
           thr[i] = fmaxf(thr[i], carry[i][j][depth - 1]);
           // sorted insertion of the lane minimum into the carry
@@ -430,75 +433,145 @@ stream_select_kernel(const void* __restrict__ p0,
       skip = true;
 #pragma unroll
       for (int w = 0; w < kThreads / 32; ++w) skip = skip && warp_ok[w];
+     }
     }
-    store_tile(vals, gidx, cd, ci, bounds, q0, quad, lane_col, n_q, n_tiles,
-               ti, tile_n, skip);
+    em.end_tile(ti, out, place, skip);
   }
+}
+
+// K7's streaming entry: the tiled walk (binned_select.cuh, pq_tiles) over
+// the CTA's segment of db tiles.
+template <int kSlots>
+__global__ void __launch_bounds__(kThreads, 1)
+stream_select_pq_kernel(const float* __restrict__ lut,
+                        const uint8_t* __restrict__ codes,
+                        const float* __restrict__ tnorm, Out out, int m,
+                        int ncodes, int seg_tiles) {
+  extern __shared__ float4 smem_f4[];
+  const int tid = threadIdx.x;
+  const int t_begin = blockIdx.x * seg_tiles;
+  const int t_end = min(t_begin + seg_tiles, out.n_tiles);
+  if (t_begin >= t_end) return;
+  const Place place{static_cast<int>(blockIdx.y) * kBlockQ, tid / 32,
+                    tid % 32};
+  pq_tiles<kSlots>(lut, codes, tnorm, out, place, m, ncodes, t_begin, t_end,
+                  reinterpret_cast<unsigned char*>(smem_f4));
 }
 
 // Lets the kernel take kSmemBytes of dynamic shared memory (above the
 // default 48 KB) on the current device.
-template <Arm kArm, bool kFused, bool kMulti>
+template <Arm kArm, bool kFused, bool kMulti, int kSlots>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(stream_select_kernel<kArm, kFused, kMulti>,
+  return cudaFuncSetAttribute(
+      stream_select_kernel<kArm, kFused, kMulti, kSlots>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes<kArm, kMulti>));
+}
+
+template <int kSlots>
+cudaError_t allow_smem_pq(size_t smem) {
+  return cudaFuncSetAttribute(stream_select_pq_kernel<kSlots>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(kSmemBytes<kArm, kMulti>));
+                              static_cast<int>(smem));
 }
 
 // CTAs per SM of the single-chunk build (kMultiFits: the same for the
-// multi-chunk one).
-template <Arm kArm, bool kFused>
-cudaError_t ctas_per_sm(int* out) {
-  cudaError_t err = allow_smem<kArm, kFused, false>();
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, stream_select_kernel<kArm, kFused, false>, kThreads,
-      kSmemBytes<kArm, false>);
+// multi-chunk one); pq's at its shared memory for m subspaces of ncodes.
+template <Arm kArm, bool kFused, int kSlots>
+cudaError_t ctas_per_sm(int m, int ncodes, int* out) {
+  if constexpr (kArm == Arm::kPq) {
+    const size_t smem = pq_smem_bytes(m, ncodes);
+    cudaError_t err = allow_smem_pq<kSlots>(smem);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, stream_select_pq_kernel<kSlots>, kThreads, smem);
+  } else {
+    cudaError_t err = allow_smem<kArm, kFused, false, kSlots>();
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, stream_select_kernel<kArm, kFused, false, kSlots>, kThreads,
+        kSmemBytes<kArm, false>);
+  }
 }
 
-template <Arm kArm, bool kFused, bool kMulti>
+template <Arm kArm, bool kFused, bool kMulti, int kSlots>
 cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
-                         const void* p2, const void* p3, void* cd, void* ci,
-                         void* bounds, int n_q, int dp, int n_tiles,
-                         int tile_n, int seg_tiles, int depth, void* stream) {
-  cudaError_t err = allow_smem<kArm, kFused, kMulti>();
-  if (err != cudaSuccess) return err;
-  stream_select_kernel<kArm, kFused, kMulti>
-      <<<grid, kThreads, kSmemBytes<kArm, kMulti>,
-         static_cast<cudaStream_t>(stream)>>>(
-          p0, p1, p2, static_cast<const float*>(p3), static_cast<float*>(cd),
-          static_cast<int*>(ci), static_cast<float*>(bounds), n_q, dp, n_tiles,
-          tile_n, seg_tiles, depth);
+                         const void* p2, const void* p3, const Out& out,
+                         int dp, int seg_tiles, int depth, int ncodes,
+                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (kArm == Arm::kPq) {
+    const size_t smem = pq_smem_bytes(dp, ncodes);
+    cudaError_t err = allow_smem_pq<kSlots>(smem);
+    if (err != cudaSuccess) return err;
+    stream_select_pq_kernel<kSlots><<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(p0), static_cast<const uint8_t*>(p1),
+        static_cast<const float*>(p3), out, dp, ncodes, seg_tiles);
+  } else {
+    cudaError_t err = allow_smem<kArm, kFused, kMulti, kSlots>();
+    if (err != cudaSuccess) return err;
+    stream_select_kernel<kArm, kFused, kMulti, kSlots>
+        <<<grid, kThreads, kSmemBytes<kArm, kMulti>, st>>>(
+            p0, p1, p2, static_cast<const float*>(p3), out, dp, seg_tiles,
+            depth);
+  }
   return cudaGetLastError();
+}
+
+template <Arm kArm, bool kFused, int kSlots>
+cudaError_t launch_binning(dim3 grid, const void* p0, const void* p1,
+                           const void* p2, const void* p3, const Out& out,
+                           int dp, int seg_tiles, int depth, int ncodes,
+                           void* stream) {
+  if constexpr (!kIsInt<kArm> && kArm != Arm::kPq) {
+    if (dp > kDimChunk)
+      return launch_build<kArm, kFused, true, kSlots>(
+          grid, p0, p1, p2, p3, out, dp, seg_tiles, depth, ncodes, stream);
+  }
+  return launch_build<kArm, kFused, false, kSlots>(
+      grid, p0, p1, p2, p3, out, dp, seg_tiles, depth, ncodes, stream);
 }
 
 template <Arm kArm, bool kFused>
 cudaError_t launch(const void* p0, const void* p1, const void* p2,
                    const void* p3, void* cd, void* ci, void* bounds,
                    int n_q, int dp, int n_tiles, int tile_n, int seg_tiles,
-                   int depth, void* stream) {
+                   int depth, int bin_w, int survivors, int ncodes,
+                   void* stream) {
   if (n_q <= 0 || n_tiles <= 0) return cudaSuccess;
-  if (seg_tiles <= 0 || depth < 0 || depth > kMaxCarry || dp % kDimChunk)
+  Out out{static_cast<float*>(cd), static_cast<int*>(ci),
+          static_cast<float*>(bounds), n_q, n_tiles, tile_n, {}};
+  if (seg_tiles <= 0 || depth < 0 || depth > kMaxCarry ||
+      !make_geom(tile_n, bin_w, survivors, &out.geo) || (kFused && bin_w))
+    return cudaErrorInvalidValue;
+  if (kArm == Arm::kPq ? (dp < 1 || ncodes < 2 || ncodes > 256)
+                       : dp % kDimChunk != 0)
     return cudaErrorInvalidValue;
   const dim3 grid((n_tiles + seg_tiles - 1) / seg_tiles,
                   (n_q + kBlockQ - 1) / kBlockQ);
-  if constexpr (!kIsInt<kArm>) {
-    if (dp > kDimChunk)
-      return launch_build<kArm, kFused, true>(grid, p0, p1, p2, p3, cd, ci,
-                                              bounds, n_q, dp, n_tiles,
-                                              tile_n, seg_tiles, depth,
-                                              stream);
+  if constexpr (kFused) {
+    return launch_binning<kArm, true, 0>(grid, p0, p1, p2, p3, out, dp,
+                                         seg_tiles, depth, ncodes, stream);
+  } else {
+    switch (emit_slots(bin_w, survivors)) {
+      case 0:
+        return launch_binning<kArm, false, 0>(grid, p0, p1, p2, p3, out, dp,
+                                              seg_tiles, 0, ncodes, stream);
+      case kLaneSlotsSmall:
+        return launch_binning<kArm, false, kLaneSlotsSmall>(
+            grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
+      default:
+        return launch_binning<kArm, false, kLaneSlots>(
+            grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
+    }
   }
-  return launch_build<kArm, kFused, false>(grid, p0, p1, p2, p3, cd, ci,
-                                           bounds, n_q, dp, n_tiles, tile_n,
-                                           seg_tiles, depth, stream);
 }
 
-template <bool kFused>
-cudaError_t ctas_per_sm_of(int arm, int* out) {
+template <bool kFused, int kSlots>
+cudaError_t ctas_per_sm_of(int arm, int m, int ncodes, int* out) {
   switch (arm) {
 #define ARM_CASE(ARM) \
-  case static_cast<int>(ARM): return ctas_per_sm<ARM, kFused>(out);
+  case static_cast<int>(ARM): return ctas_per_sm<ARM, kFused, kSlots>(m, ncodes, out);
     ARM_CASE(Arm::kBf16x3)
     ARM_CASE(Arm::kInt8)
     ARM_CASE(Arm::kInt4)
@@ -506,6 +579,9 @@ cudaError_t ctas_per_sm_of(int arm, int* out) {
     ARM_CASE(Arm::kHighest)
     ARM_CASE(Arm::kDefault)
 #undef ARM_CASE
+    case static_cast<int>(Arm::kPq):
+      if constexpr (kFused) return cudaErrorInvalidValue;
+      else return ctas_per_sm<Arm::kPq, false, kSlots>(m, ncodes, out);
     default:
       return cudaErrorInvalidValue;
   }
@@ -519,28 +595,38 @@ cudaError_t ctas_per_sm_of(int arm, int* out) {
 // an unused pointer (highest), then tnorm [n_tiles*tile_n] f32 (row 0 of
 // the [8, Np] norm rows); int8 / int4 qi [n_q, dp] int8, qsc [n_q] f32, t
 // [n_tiles*tile_n, dp] int8 or [n_tiles*tile_n, dp/2] packed uint8, aux
-// [2, n_tiles*tile_n] f32.  cd, ci [n_q, n_tiles*256]; bounds [n_q,
-// n_tiles*128].  seg_tiles = db tiles per CTA (the last segment may be
-// shorter); depth = the fused kernel's carry depth, 0..8 (0 disarms).  Each
-// returns cudaGetLastError() after the launch (0 = launched); the wrapper
-// raises on anything else.
-#define STREAM_ENTRIES(NAME, ARM)                                             \
+// [2, n_tiles*tile_n] f32; pq lut [n_q, dp*ncodes] f32, codes
+// [n_tiles*tile_n, dp] uint8, an unused pointer, tnorm.  cd, ci, bounds as
+// binned_select.cuh lays them out for the binning (grouped: [n_q,
+// n_tiles*256] and [n_q, n_tiles*128]).  seg_tiles = db tiles per CTA (the
+// last segment may be shorter); bin_w / survivors the binning (bin_w = 0:
+// grouped, two survivors; the fused entries are grouped only); depth = the
+// fused kernel's carry depth, 0..8 (0 disarms); ncodes is read by pq alone.
+// Each returns cudaGetLastError() after the launch (0 = launched); the
+// wrapper raises on anything else.
+#define STREAM_ENTRY(NAME, ARM)                                               \
   extern "C" int stream_select_##NAME(                                        \
       const void* p0, const void* p1, const void* p2, const void* p3,         \
       void* cd, void* ci, void* bounds, int n_q, int dp, int n_tiles,         \
-      int tile_n, int seg_tiles, void* stream) {                              \
-    return static_cast<int>(launch<ARM, false>(p0, p1, p2, p3, cd, ci,        \
-                                               bounds, n_q, dp, n_tiles,      \
-                                               tile_n, seg_tiles, 0, stream)); \
-  }                                                                           \
+      int tile_n, int seg_tiles, int bin_w, int survivors, int ncodes,        \
+      void* stream) {                                                         \
+    return static_cast<int>(launch<ARM, false>(                               \
+        p0, p1, p2, p3, cd, ci, bounds, n_q, dp, n_tiles, tile_n, seg_tiles,  \
+        0, bin_w, survivors, ncodes, stream));                                \
+  }
+
+#define FUSED_ENTRY(NAME, ARM)                                                \
   extern "C" int fused_select_##NAME(                                         \
       const void* p0, const void* p1, const void* p2, const void* p3,         \
       void* cd, void* ci, void* bounds, int n_q, int dp, int n_tiles,         \
       int tile_n, int seg_tiles, int depth, void* stream) {                   \
     return static_cast<int>(launch<ARM, true>(p0, p1, p2, p3, cd, ci, bounds, \
                                               n_q, dp, n_tiles, tile_n,       \
-                                              seg_tiles, depth, stream));     \
+                                              seg_tiles, depth, 0, 2, 0,      \
+                                              stream));                       \
   }
+
+#define STREAM_ENTRIES(NAME, ARM) STREAM_ENTRY(NAME, ARM) FUSED_ENTRY(NAME, ARM)
 
 STREAM_ENTRIES(bf16x3, Arm::kBf16x3)
 STREAM_ENTRIES(bf16x3f, Arm::kBf16x3f)
@@ -548,14 +634,29 @@ STREAM_ENTRIES(highest, Arm::kHighest)
 STREAM_ENTRIES(default, Arm::kDefault)
 STREAM_ENTRIES(int8, Arm::kInt8)
 STREAM_ENTRIES(int4, Arm::kInt4)
+STREAM_ENTRY(pq, Arm::kPq)
 
 // CTAs of the streaming (fused = 0) or fused (fused = 1) kernel of arm
 // `arm` (the Arm codes: 0 bf16x3, 1 int8, 2 int4, 3 bf16x3f, 4 highest, 5
-// default) that one SM of the current device holds at once, from the
-// occupancy API (registers, kThreads and the arm's kSmemBytes of the built
-// kernel); the wrapper sizes the tile segments with it.  Returns the
-// cudaError (0 = *out is set).
-extern "C" int stream_ctas_per_sm(int fused, int arm, int* out) {
-  return static_cast<int>(fused ? ctas_per_sm_of<true>(arm, out)
-                                : ctas_per_sm_of<false>(arm, out));
+// default, 6 pq) in grouped binning (bin_w = 0) or lane binning with
+// `survivors` that one SM of the current device holds at once, from the
+// occupancy API (registers, kThreads and the arm's shared memory -- pq's for
+// m subspaces of ncodes codes -- of the built kernel); the wrapper sizes the
+// tile segments with it.  Returns the cudaError (0 = *out is set).
+extern "C" int stream_ctas_per_sm(int fused, int arm, int bin_w, int survivors,
+                                  int m, int ncodes, int* out) {
+  const int slots = emit_slots(bin_w, survivors);
+  if (fused)
+    return static_cast<int>(slots ? cudaErrorInvalidValue
+                                  : ctas_per_sm_of<true, 0>(arm, m, ncodes, out));
+  switch (slots) {
+    case 0:
+      return static_cast<int>(ctas_per_sm_of<false, 0>(arm, m, ncodes, out));
+    case kLaneSlotsSmall:
+      return static_cast<int>(
+          ctas_per_sm_of<false, kLaneSlotsSmall>(arm, m, ncodes, out));
+    default:
+      return static_cast<int>(
+          ctas_per_sm_of<false, kLaneSlots>(arm, m, ncodes, out));
+  }
 }

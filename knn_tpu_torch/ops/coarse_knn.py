@@ -1,57 +1,63 @@
 """The self-certifying coarse pass — the port of knn_tpu/ops/pallas_knn.py.
 
-One database pass emits, per 128-wide bin, the ``SURVIVORS`` = 2 smallest
-kernel scores with their row indices plus the bin's *exclusion bound*
-(the third smallest score): no row outside the candidates can score below
-its bin's bound.  The kernel score is squared L2 minus the
-per-query constant ``||q||^2``: ``s = ||t||^2 - 2 q.t``.
+One database pass emits, per bin, the ``survivors`` smallest kernel scores
+with their row indices plus the bin's *exclusion bound* (the next smallest
+score): no row outside the candidates can score below its bin's bound.
+The kernel score is squared L2 minus the per-query constant ``||q||^2``:
+``s = ||t||^2 - 2 q.t`` (for pq, against the row's reconstruction).
 
 What runs where:
 
 - The tiled kernels (``kernel="tiled"``) are entries of
   ``knn_tpu_torch/csrc/binned_coarse.cu`` (wrapper :func:`binned_select`),
   replacing the TPU kernel ``pallas_knn._bin_candidates``: K1 (bf16x3),
-  K4 (bf16x3f), K2 (highest), K3 (default), K5 / K6 (int8, int4), each in
-  the query-major grid or the db-major one (K9, ``grid_order="db_major"``,
-  bitwise the same outputs).  :func:`binned_select_plain` is the same
-  function in plain PyTorch; every wrapper runs it only for tensors on
-  the CPU.
+  K4 (bf16x3f), K2 (highest), K3 (default), K5 / K6 (int8, int4), K7 (pq),
+  each in the query-major grid or the db-major one (K9,
+  ``grid_order="db_major"``, bitwise the same outputs), and each in grouped
+  or lane binning (K8, ``binning="lane"``).  :func:`binned_select_plain`
+  is the same function in plain PyTorch; every wrapper runs it only for
+  tensors on the CPU.
 - The db-streaming kernels (``kernel="streaming"`` and ``"fused"``) of
   every arm are entries of ``knn_tpu_torch/csrc/binned_stream.cu``
   (wrappers :func:`stream_select`, :func:`fused_select`), replacing the
   TPU kernel ``pallas_knn._stream_call``: K10 / K11 for bf16x3.  A
-  streaming entry computes its tiled entry's function bitwise; a fused
-  one adds the early-out, which pads skipped tiles (plain version
-  :func:`fused_select_plain`).
+  streaming entry computes its tiled entry's function bitwise, in either
+  binning; a fused one (grouped binning, never pq) adds the early-out,
+  which pads skipped tiles (plain version :func:`fused_select_plain`).
 - The arms' arithmetic (``csrc/binned_select.cuh``): the f32 family sums
   each 128-dim chunk in its own accumulator and adds the chunks in f32,
   the TPU body's order — bf16x3 ``qh.th + qh.tl + ql.th`` dim by dim,
   bf16x3f the same products pass by pass, default the one bf16 product,
   highest exact f32 products summed in f64 per chunk; the int arms an
   exact int32 dot and one f32 rescale ``(f32(dot) * qsc) * ts``, held
-  bitwise against their plain versions.  Every wrapper takes the arm as
+  bitwise against their plain versions; pq the sum of the row's LUT
+  entries, one subspace after another in f32 (bitwise its plain version
+  too).  Every wrapper takes the arm as
   ``arm`` and checks that the operands are that arm's (the f32 family's
   operands do not tell bf16x3 from bf16x3f).
 - Everything else is plain PyTorch, as in the JAX package's XLA code:
   the prologues (:func:`prepare_db`: dim padding to 128, ``PAD_VAL`` row
   padding, the bf16 hi/lo split, the norm rows; :func:`prepare_db_f32`
   for highest; :func:`quantize_queries`, :func:`prepare_db_quant`,
-  :func:`prepare_db_int` for the int arms), the exact top-(m+2) by stable
-  sort with its exclusion value, the pad-row mask, the direct-difference
-  f32 rescore (:func:`local_select_rescore`).
+  :func:`prepare_db_int` for the int arms; :func:`pq_luts` and
+  :func:`prepare_db_pq` for pq), the exact top-(m+2) by stable sort with
+  its exclusion value, the pad-row mask, the direct-difference f32 rescore
+  (:func:`local_select_rescore`).
 
-A bin is defined by ``tile_n=16384`` and two survivors whatever the CUDA
-block shape is: candidate width, ``m`` and the fallback rate depend on
-them.  Grouped binning: bin b of a db tile is lane b of every 128-row
-group of the tile (``tile_n // 128`` members strided 128 apart).
+A bin is defined by the tile, the binning, ``bin_w`` and ``survivors``
+whatever the CUDA block shape is: candidate width, ``m`` and the fallback
+rate depend on them (:func:`_geometry`, :func:`effective_tile`, the JAX
+package's formulas).  Grouped binning: bin b of a db tile is lane b of
+every 128-row group of the tile (``tile_n // 128`` members strided 128
+apart), two survivors.  Lane binning: bin b is tile rows ``b*bin_w ..
+(b+1)*bin_w - 1``, ``survivors`` of them by repeated min / first-argmin.
 
-Ported so far: precisions ``bf16x3``, ``bf16x3f``, ``highest``,
-``default``, ``int8`` and ``int4``, binning ``grouped``, grids
-``query_major`` and ``db_major``, kernels ``tiled``, ``streaming`` and
-``fused``, final select ``exact``, two survivors per bin and the 128-lane
-bin width.  The other values the JAX package accepts are refused by name.
-The JAX package's ``block_q`` only re-blocks query rows of its TPU grid;
-the CUDA kernel picks its own query block, so the port takes no such knob.
+Ported: every precision, binning, grid and kernel of the JAX package, and
+final select ``exact``.  Not yet ported, refused by name: ``final_select=
+"approx"`` and grouped binning's other geometries (``survivors`` other
+than 2, ``bin_w`` other than 128: ROADMAP queue A item 3).  The JAX
+package's ``block_q`` only re-blocks query rows of its TPU grid; the CUDA
+kernel picks its own query block, so the port takes no such knob.
 """
 
 from __future__ import annotations
@@ -78,6 +84,8 @@ TILE_N = 16384
 DIM_CHUNK = 128
 #: candidates kept per bin (the JAX package's grouped-binning default)
 SURVIVORS = 2
+#: the survivors cap of both binnings (pallas_knn.py:136)
+MAX_SURVIVORS = 8
 #: row-padding fill: pad rows score ~1e36, never candidates, never
 #: deflating a bin bound; 1.5e17 keeps ||pad||^2 finite in f32
 PAD_VAL = 1.5e17
@@ -100,14 +108,14 @@ F32_ARMS = {"bf16x3": (torch.bfloat16, 4), "bf16x3f": (torch.bfloat16, 4),
 #: the arms the coarse kernels run, and their codes in the C entries
 #: (csrc/binned_select.cuh, enum Arm); every wrapper counts its launches
 #: per arm
-ARMS = ("bf16x3", *INT_ARMS, "bf16x3f", "highest", "default")
+ARMS = ("bf16x3", *INT_ARMS, "bf16x3f", "highest", "default", "pq")
 _ARM_CODES = {arm: code for code, arm in enumerate(ARMS)}
-PORTED = {"precision": ("bf16x3", "bf16x3f", "highest", "default", "int8",
-                        "int4"),
-          "binning": ("grouped",), "grid_order": GRID_ORDERS,
-          "kernel": ("tiled", "streaming", "fused"),
-          "final_select": ("exact",), "bin_w": (BIN_W,),
-          "survivors": (SURVIVORS,)}
+PORTED = {"precision": PRECISIONS, "binning": BINNINGS,
+          "grid_order": GRID_ORDERS, "kernel": KERNELS,
+          "final_select": ("exact",)}
+#: grouped binning's one ported geometry (its kernels compile the
+#: two-survivor network; ``bin_w`` only moves effective_tile's floor there)
+GROUPED_PORTED = {"bin_w": (BIN_W,), "survivors": (SURVIVORS,)}
 
 #: query rows per CTA of every coarse kernel; the fused kernels' skip
 #: decision is taken per block of this many rows
@@ -153,10 +161,10 @@ def check_knobs(*, precision: str = "bf16x3", binning: str = "grouped",
                 grid_order: str = "query_major", kernel: str = "tiled",
                 final_select: str = "exact", bin_w: Optional[int] = None,
                 survivors: Optional[int] = None) -> None:
-    """The JAX package's knob refusals (pallas_knn.py:922-956,
+    """The JAX package's knob refusals (pallas_knn.py:286-311, 922-956,
     1386-1398), then the port's own: every value that is valid there but
-    not ported here is refused by name.  ``bin_w`` and ``survivors``
-    left at None take their one ported value."""
+    not ported here is refused by name.  ``bin_w`` and ``survivors`` left
+    at None take the JAX package's defaults (:func:`_geometry`)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     if binning not in BINNINGS:
@@ -184,37 +192,81 @@ def check_knobs(*, precision: str = "bf16x3", binning: str = "grouped",
         raise ValueError(
             "kernel='fused' requires final_select='exact' (the "
             "early-out's bitwise contract is an exact-boundary argument)")
+    if bin_w is not None and (bin_w < BIN_W or bin_w % BIN_W):
+        raise ValueError(f"bin_w={bin_w} must be a multiple of {BIN_W} lanes")
+    if survivors is not None and survivors < 1:
+        raise ValueError(f"survivors={survivors} must be >= 1")
     given = {"precision": precision, "binning": binning,
              "grid_order": grid_order, "kernel": kernel,
-             "final_select": final_select,
-             "bin_w": BIN_W if bin_w is None else bin_w,
-             "survivors": SURVIVORS if survivors is None else survivors}
+             "final_select": final_select}
     for knob, value in given.items():
         if value not in PORTED[knob]:
             raise ValueError(
                 f"{knob}={value!r} is not ported to CUDA yet; the port "
                 f"runs {knob} in {PORTED[knob]}")
+    if binning == "grouped":
+        # the JAX package caps grouped survivors at MAX_SURVIVORS
+        for knob, value, run in (
+                ("bin_w", bin_w, bin_w),
+                ("survivors", survivors,
+                 None if survivors is None else min(survivors,
+                                                    MAX_SURVIVORS))):
+            if run is not None and run not in GROUPED_PORTED[knob]:
+                raise ValueError(
+                    f"{knob}={value!r} is not ported to CUDA yet for "
+                    f"binning='grouped'; the port runs {knob} in "
+                    f"{GROUPED_PORTED[knob]} there")
 
 
-def _geometry(tile_n: int) -> Tuple[int, int, int, int]:
-    """(n_bins, survivors, out_w, bound_w) of a db tile in grouped binning:
-    128 bins (one per lane), SURVIVORS candidates per bin, so
-    ``out_w = SURVIVORS * 128`` candidate lanes and ``bound_w = 128`` bound
-    lanes per tile."""
-    if tile_n % BIN_W:
-        raise ValueError(f"tile_n={tile_n} must be a multiple of bin_w={BIN_W}")
-    return BIN_W, SURVIVORS, SURVIVORS * BIN_W, BIN_W
+def _geometry(tile_n: int, bin_w: int = BIN_W,
+              survivors: Optional[int] = None,
+              binning: str = "grouped") -> Tuple[int, int, int, int]:
+    """(n_bins, survivors, out_w, bound_w) for a db tile — the JAX
+    package's formula (pallas_knn.py:275-313).  Output blocks are
+    lane-aligned: ``out_w = round_up(n_bins * survivors, 128)`` candidate
+    columns per tile (padded with +inf / the sentinel), ``bound_w``
+    columns of per-bin bounds.  ``survivors=None`` picks 2 in grouped
+    binning and, in lane binning, ``max(2, 128 // n_bins)`` (at most
+    MAX_SURVIVORS and bin_w); an explicit value is capped the same way.
+    In grouped binning the bins are the 128 lanes and ``bin_w`` does not
+    shape them, but the tile must still be a multiple of it."""
+    if binning not in BINNINGS:
+        raise ValueError(f"binning {binning!r} not in {BINNINGS}")
+    if tile_n % bin_w:
+        raise ValueError(f"tile_n={tile_n} must be a multiple of bin_w={bin_w}")
+    if bin_w % BIN_W:
+        raise ValueError(f"bin_w={bin_w} must be a multiple of {BIN_W} lanes")
+    if binning == "grouped":
+        if survivors is None:
+            survivors = 2
+        survivors = min(survivors, MAX_SURVIVORS)
+        return BIN_W, survivors, survivors * BIN_W, BIN_W
+    n_bins = tile_n // bin_w
+    if survivors is None:
+        survivors = min(max(2, 128 // n_bins), MAX_SURVIVORS, bin_w)
+    survivors = min(survivors, MAX_SURVIVORS, bin_w)
+    return (n_bins, survivors, _round_up(n_bins * survivors, 128),
+            _round_up(n_bins, 128))
 
 
-def effective_tile(rows: int, tile_n: int, min_width: int) -> int:
-    """The db tile the kernel will run: capped to the (padded) db, then
-    halved until the total candidate width ``n_tiles * out_w`` covers
-    ``min_width`` (= m+2 for certified callers) or the tile bottoms out
-    at ``BIN_W``."""
-    _, _, out_w, _ = _geometry(tile_n)
-    eff = min(tile_n, max(BIN_W, _round_up(rows, BIN_W)))
-    while eff > BIN_W and -(-rows // eff) * out_w < min_width:
-        eff = max(BIN_W, _round_up(eff // 2, BIN_W))
+def effective_tile(rows: int, tile_n: int, bin_w: int,
+                   survivors: Optional[int], binning: str,
+                   min_width: int) -> int:
+    """The db tile the kernel will run — the JAX package's formula
+    (pallas_knn.py:316-346): capped to the (padded) db, then halved until
+    the total candidate width ``n_tiles * out_w`` covers ``min_width``
+    (= m+2 for certified callers) or the tile bottoms out at ``bin_w``."""
+    if tile_n % bin_w:
+        raise ValueError(
+            f"tile_n={tile_n} must be a multiple of bin_w={bin_w}")
+    eff = min(tile_n, max(bin_w, -(-rows // bin_w) * bin_w))
+
+    def width(t: int) -> int:
+        _, _, out_w, _ = _geometry(t, bin_w, survivors, binning)
+        return -(-rows // t) * out_w
+
+    while eff > bin_w and width(eff) < min_width:
+        eff = max(bin_w, -(-(eff // 2) // bin_w) * bin_w)
     return eff
 
 
@@ -353,6 +405,39 @@ def prepare_db_int(db: torch.Tensor, tile_n: int, precision: str,
     return t.contiguous(), _int_aux(norms, scales)
 
 
+def pq_luts(queries: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """The pq arm's query prologue (pallas_knn.py:1056-1066): per query
+    the lookup table ``LUT[q, s*C + c] = q_s . cb[s, c] - ||cb[s, c]||^2 /
+    2`` in f32, the queries zero-padded (or cut) to the trained ``m *
+    dsub`` dims, from ``codebooks`` f32 [m, C, dsub] on the queries'
+    device.  Returns a contiguous [Q, m*C] f32 tensor (the JAX package
+    also pads its columns to a multiple of 128 for the TPU's lanes; a CUDA
+    kernel reads only the m*C entries)."""
+    m, c, dsub = codebooks.shape
+    q = queries.float()
+    if q.shape[1] < m * dsub:
+        q = torch.nn.functional.pad(q, (0, m * dsub - q.shape[1]))
+    qv = q[:, : m * dsub].reshape(q.shape[0], m, dsub)
+    books = codebooks.float()
+    lut = (torch.einsum("qmd,mcd->qmc", qv, books)
+           - 0.5 * (books * books).sum(-1)[None])
+    return lut.reshape(q.shape[0], m * c).contiguous()
+
+
+def prepare_db_pq(codes: torch.Tensor, tile_n: int):
+    """The pq arm's db operands (pallas_knn.py:1067-1071, 1096-1099): the
+    uint8 codes [N, m] padded with zero codes to a ``tile_n`` multiple of
+    rows, and the ``[8, Np]`` norm rows that carry the pad fill alone — 0
+    on real rows (the LUT holds the reconstruction's norm term), PAD_VAL
+    on padding.  Returns ``(codes [Np, m] uint8, tnorm [8, Np] f32)``."""
+    n = codes.shape[0]
+    rpad = _round_up(max(n, 1), tile_n) - n
+    codes = torch.nn.functional.pad(codes, (0, 0, 0, rpad)).contiguous()
+    tn = torch.zeros(n + rpad, dtype=torch.float32, device=codes.device)
+    tn[n:] = PAD_VAL
+    return codes, tn[None, :].expand(8, -1)
+
+
 def _select_tile(s, ti: int, tile_n: int):
     """The grouped emitter on one tile's scores ``s [Q, tile_n]``
     (pallas_knn.py:575-610): per lane, the sorted insertion network over
@@ -386,11 +471,50 @@ def _select_tile(s, ti: int, tile_n: int):
             vals[SURVIVORS])
 
 
-def _select_tiles(score_tile, n_tiles: int, tile_n: int):
-    """Concatenates :func:`_select_tile` over the db tiles, the scores of
-    tile ``ti`` given by ``score_tile(ti, rows)``."""
-    outs = [_select_tile(score_tile(ti, slice(ti * tile_n, (ti + 1) * tile_n)),
-                         ti, tile_n) for ti in range(n_tiles)]
+def _select_tile_lane(s, ti: int, tile_n: int, geo):
+    """The lane emitter on one tile's scores ``s [Q, tile_n]``
+    (pallas_knn.py:506-549), step for step: bin b = rows ``b*bin_w ..
+    (b+1)*bin_w - 1``; survivor j is the bin's minimum after the j earlier
+    picks were set to +inf, at its first argmin; the bound is the minimum
+    of the rest; the index is I32MAX where a value is not finite; +inf /
+    I32MAX fill the columns past ``n_bins * survivors`` and +inf the
+    bounds past ``n_bins``.  ``geo`` is :func:`_geometry`'s tuple."""
+    n_bins, survivors, out_w, bound_w = geo
+    n_q = s.shape[0]
+    bin_w = tile_n // n_bins
+    work = s.reshape(n_q, n_bins, bin_w)
+    lane = torch.arange(bin_w, device=s.device)
+    base = ti * tile_n + torch.arange(n_bins, device=s.device) * bin_w
+    ds, is_ = [], []
+    for _ in range(survivors):
+        mj = work.amin(-1)
+        aj = work.argmin(-1)
+        ds.append(mj)
+        is_.append(torch.where(torch.isfinite(mj), base + aj, I32MAX))
+        work = torch.where(lane == aj[:, :, None], torch.inf, work)
+    bound = work.amin(-1)
+    cd = torch.cat(ds, -1)
+    ci = torch.cat(is_, -1).to(torch.int32)
+    pad = out_w - survivors * n_bins
+    if pad:
+        cd = torch.nn.functional.pad(cd, (0, pad), value=torch.inf)
+        ci = torch.nn.functional.pad(ci, (0, pad), value=I32MAX)
+    if bound_w - n_bins:
+        bound = torch.nn.functional.pad(bound, (0, bound_w - n_bins),
+                                        value=torch.inf)
+    return cd, ci, bound
+
+
+def _select_tiles(score_tile, n_tiles: int, tile_n: int, geo=None):
+    """Concatenates the emitter over the db tiles, the scores of tile
+    ``ti`` given by ``score_tile(ti, rows)``: :func:`_select_tile`
+    (grouped binning, ``geo`` None) or :func:`_select_tile_lane` (lane
+    binning at geometry ``geo``)."""
+    outs = []
+    for ti in range(n_tiles):
+        s = score_tile(ti, slice(ti * tile_n, (ti + 1) * tile_n))
+        outs.append(_select_tile(s, ti, tile_n) if geo is None
+                    else _select_tile_lane(s, ti, tile_n, geo))
     return tuple(torch.cat([o[j] for o in outs], 1) for j in range(3))
 
 
@@ -482,24 +606,69 @@ def _int_scores(qi, qsc, t, aux):
     return scores, t.shape[0]
 
 
+def _pq_scores(lut, codes, tnorm):
+    """K7's scores in plain PyTorch: ``qt[q, t] = sum_s LUT[q, s*C +
+    code[t, s]]`` summed in f32 one subspace at a time, s = 0 .. m-1 from
+    zero (the kernel's order: no reduction whose order torch may choose),
+    then ``s = tnorm[0] - 2 qt``.  Returns as :func:`_bf16x3_scores`."""
+    m = codes.shape[1]
+    c = lut.shape[1] // m
+
+    def scores(ti, rows):
+        cod = codes[rows].long()
+        qt = torch.zeros((lut.shape[0], cod.shape[0]), dtype=torch.float32,
+                         device=lut.device)
+        for s in range(m):
+            qt = qt + lut[:, s * c + cod[:, s]]
+        return tnorm[0, rows][None, :] - 2.0 * qt
+
+    return scores, codes.shape[0]
+
+
 _SCORES = {"bf16x3": _bf16x3_scores, "bf16x3f": _bf16x3f_scores,
            "highest": _highest_scores, "default": _default_scores,
-           "int8": _int_scores, "int4": _int_scores}
+           "int8": _int_scores, "int4": _int_scores, "pq": _pq_scores}
 
 
-def binned_select_plain(*operands: torch.Tensor, tile_n: int, arm: str):
+def emit_geometry(tile_n: int, binning: str = "grouped",
+                  bin_w: Optional[int] = None,
+                  survivors: Optional[int] = None):
+    """The geometry a launch emits at: :func:`_geometry` of the binning,
+    checked against what the kernels compile (grouped: two survivors per
+    lane bin; lane: a ``bin_w`` multiple of 128 dividing the tile, 1 to
+    MAX_SURVIVORS survivors)."""
+    if survivors is not None and survivors < 1:
+        raise ValueError(f"survivors={survivors} must be >= 1")
+    geo = _geometry(tile_n, BIN_W if bin_w is None else bin_w, survivors,
+                    binning)
+    if binning == "grouped" and geo[1] != SURVIVORS:
+        raise ValueError(
+            f"survivors={survivors} is not ported to CUDA yet for "
+            f"binning='grouped'; the port runs survivors in {(SURVIVORS,)}")
+    return geo
+
+
+def binned_select_plain(*operands: torch.Tensor, tile_n: int, arm: str,
+                        binning: str = "grouped",
+                        bin_w: Optional[int] = None,
+                        survivors: Optional[int] = None):
     """The coarse kernels' function in plain PyTorch, tile by tile through
-    :func:`_select_tile`, from the operands of arm ``arm`` as
-    :func:`binned_select` takes them."""
+    the emitter of ``binning`` (:func:`_select_tile`, or
+    :func:`_select_tile_lane` at ``bin_w`` / ``survivors``), from the
+    operands of arm ``arm`` as :func:`binned_select` takes them."""
     n_p = _check_operands(operands, tile_n, arm)
+    geo = emit_geometry(tile_n, binning, bin_w, survivors)
     scores, _ = _SCORES[arm](*operands)
-    return _select_tiles(scores, n_p // tile_n, tile_n)
+    return _select_tiles(scores, n_p // tile_n, tile_n,
+                         None if binning == "grouped" else geo)
 
 
 def _check_operands(operands, tile_n: int, arm: str) -> int:
     """Checks that ``operands`` are arm ``arm``'s — an int arm's ``(qi,
     qsc, t, aux)`` or an f32-family arm's (:data:`F32_ARMS`) — and returns
     the padded db rows."""
+    if arm == "pq":
+        return _check_pq_operands(operands, tile_n)
     if arm in INT_ARMS:
         if len(operands) != 4:
             raise ValueError(
@@ -552,6 +721,33 @@ def _check_rows_and_device(n_p: int, tile_n: int, operands) -> None:
     devs = {t.device for t in operands}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
+
+
+def _check_pq_operands(operands, tile_n: int) -> int:
+    """Checks the pq arm's operands — ``lut [Q, m*C] f32`` (:func:`pq_luts`),
+    ``codes [Np, m] uint8`` and ``tnorm [8, Np] f32`` (:func:`prepare_db_pq`)
+    — and returns the padded db rows.  Every code must be below C (the
+    kernel reads LUT entry ``s*C + code``)."""
+    if len(operands) != 3:
+        raise ValueError(
+            f"the pq coarse kernel takes 3 operands (lut, codes, tnorm), got "
+            f"{len(operands)}")
+    lut, codes, tnorm = operands
+    if lut.dtype != torch.float32 or lut.dim() != 2 or not lut.is_contiguous():
+        raise ValueError("lut must be a contiguous [Q, m*C] float32 tensor")
+    if codes.dtype != torch.uint8 or codes.dim() != 2 \
+            or not codes.is_contiguous():
+        raise ValueError("codes must be a contiguous [Np, m] uint8 tensor")
+    n_p, m = codes.shape
+    if m < 1 or lut.shape[1] % m or not 2 <= lut.shape[1] // m <= 256:
+        raise ValueError(
+            f"lut width {lut.shape[1]} is not m*C for the codes' m={m} "
+            f"subspaces and 2 <= C <= 256 codes")
+    if tnorm.dtype != torch.float32 or tuple(tnorm.shape) != (8, n_p) \
+            or tnorm.stride(1) != 1:
+        raise ValueError("tnorm must be [8, Np] float32 with unit row stride")
+    _check_rows_and_device(n_p, tile_n, operands)
+    return n_p
 
 
 def _check_int_operands(qi, qsc, t, aux, tile_n: int) -> str:
@@ -609,23 +805,27 @@ def check_grid(n_q: int, n_tiles: int,
             f"grid's y extent); run them in batches (batch_size)")
 
 
-def _launch(library: str, name: str, operands, n_rows: int, tile_n: int,
-            *extra: int, grid_order: str = "query_major"):
-    """Allocates ``(cd, ci, bounds)`` on the card and launches the C entry
-    ``name`` on the current stream with the ``operands`` (the query
-    operand first; a three-operand arm's fills the entry's third pointer
-    with NULL), then ``n_q, dp, n_tiles = n_rows // tile_n, tile_n`` and
-    ``extra`` ints; raises if the launch is refused."""
+def _launch(library: str, arm: str, name: str, operands, n_rows: int,
+            tile_n: int, geo, *extra: int, grid_order: str = "query_major"):
+    """Allocates ``(cd, ci, bounds)`` on the card at the emit geometry
+    ``geo`` and launches the C entry ``name`` of arm ``arm`` on the current
+    stream with the ``operands`` (the query operand first; a three-operand
+    arm's fills the entry's third pointer with NULL), then ``n_q, dp,
+    n_tiles = n_rows // tile_n, tile_n`` and ``extra`` ints (``dp`` = the
+    query operand's width; for pq, the codes' subspaces); raises if the
+    launch is refused."""
     q = operands[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
-    n_q, dp = q.shape
+    n_q = q.shape[0]
+    dp = operands[1].shape[1] if arm == "pq" else q.shape[1]
     n_tiles = n_rows // tile_n
     check_grid(n_q, n_tiles, grid_order)
-    cd = torch.empty((n_q, n_tiles * SURVIVORS * BIN_W), dtype=torch.float32,
+    _, _, out_w, bound_w = geo
+    cd = torch.empty((n_q, n_tiles * out_w), dtype=torch.float32,
                      device=q.device)
     ci = torch.empty(cd.shape, dtype=torch.int32, device=q.device)
-    bounds = torch.empty((n_q, n_tiles * BIN_W), dtype=torch.float32,
+    bounds = torch.empty((n_q, n_tiles * bound_w), dtype=torch.float32,
                          device=q.device)
     for t in operands:
         if t.data_ptr() % 16:
@@ -643,11 +843,22 @@ def _launch(library: str, name: str, operands, n_rows: int, tile_n: int,
     return cd, ci, bounds
 
 
+def _binning_ints(operands, arm: str, tile_n: int, binning: str, geo):
+    """The C entries' binning arguments: ``bin_w`` (0 = grouped binning),
+    ``survivors`` and pq's code count C (0 for the other arms)."""
+    bin_w = 0 if binning == "grouped" else tile_n // geo[0]
+    ncodes = operands[0].shape[1] // operands[1].shape[1] if arm == "pq" else 0
+    return bin_w, geo[1], ncodes
+
+
 def binned_select(*operands: torch.Tensor, tile_n: int, arm: str,
-                  grid_order: str = "query_major"):
+                  grid_order: str = "query_major", binning: str = "grouped",
+                  bin_w: Optional[int] = None,
+                  survivors: Optional[int] = None):
     """The tiled wrapper — K1 (bf16x3), K4 (bf16x3f), K2 (highest), K3
-    (default), K5 (int8), K6 (int4): ``(cd [Q, T*256] f32, ci [Q, T*256]
-    i32, bounds [Q, T*128] f32)`` from the arm's operands:
+    (default), K5 (int8), K6 (int4), K7 (pq): ``(cd [Q, T*out_w] f32, ci
+    [Q, T*out_w] i32, bounds [Q, T*bound_w] f32)`` (grouped binning: out_w
+    256, bound_w 128) from the arm's operands:
 
     - bf16x3, bf16x3f: ``q [Q, Dp] f32`` (:func:`pad_queries`), the db
       parts ``th, tl [Np, Dp] bf16`` and ``tnorm [8, Np] f32``
@@ -658,31 +869,43 @@ def binned_select(*operands: torch.Tensor, tile_n: int, arm: str,
     - int8 / int4: ``qi [Q, Dp] int8`` and ``qsc [Q] f32``
       (:func:`quantize_queries`), ``t`` int8 [Np, Dp] (int8) or
       nibble-packed uint8 [Np, Dp/2] (int4) and ``aux [2, Np] f32``
-      (:func:`prepare_db_quant` / :func:`prepare_db_int`).
+      (:func:`prepare_db_quant` / :func:`prepare_db_int`);
+    - pq: ``lut [Q, m*C] f32`` (:func:`pq_luts`), ``codes [Np, m] uint8``
+      and ``tnorm [8, Np] f32`` (:func:`prepare_db_pq`).
 
     ``arm`` names the arm (:data:`ARMS`); the operands must be its own.
     ``grid_order="db_major"`` launches the db-major grid (K9), bitwise the
-    same outputs.  On a CUDA tensor it launches ``binned_select_<arm>``
-    (built from ``csrc/binned_coarse.cu`` at first use) on the current
-    stream, or raises; on a CPU tensor it runs
-    :func:`binned_select_plain`.  ``binned_select.launches[arm]`` counts
-    kernel launches, ``binned_select.db_major_launches[arm]`` those in the
-    db-major grid among them."""
+    same outputs.  ``binning="lane"`` emits lane bins (K8) of ``bin_w``
+    rows with ``survivors`` each (:func:`emit_geometry`).  On a CUDA
+    tensor it launches ``binned_select_<arm>`` (built from
+    ``csrc/binned_coarse.cu`` at first use) on the current stream, or
+    raises; on a CPU tensor it runs :func:`binned_select_plain`.
+    ``binned_select.launches[arm]`` counts its kernel launches in grouped
+    binning, ``.lane_launches[arm]`` those in lane binning, and
+    ``.db_major_launches[arm]`` those in the db-major grid among both."""
     n_p = _check_operands(operands, tile_n, arm)
     if grid_order not in GRID_ORDERS:
         raise ValueError(f"grid_order {grid_order!r} not in {GRID_ORDERS}")
+    geo = emit_geometry(tile_n, binning, bin_w, survivors)
     if operands[0].device.type == "cpu":
-        return binned_select_plain(*operands, tile_n=tile_n, arm=arm)
+        return binned_select_plain(*operands, tile_n=tile_n, arm=arm,
+                                   binning=binning, bin_w=bin_w,
+                                   survivors=survivors)
     db_major = grid_order == "db_major"
-    out = _launch("binned_coarse", f"binned_select_{arm}", operands, n_p,
-                  tile_n, int(db_major), grid_order=grid_order)
-    binned_select.launches[arm] += 1
+    out = _launch("binned_coarse", arm, f"binned_select_{arm}", operands,
+                  n_p, tile_n, geo, int(db_major),
+                  *_binning_ints(operands, arm, tile_n, binning, geo),
+                  grid_order=grid_order)
+    counts = (binned_select.lane_launches if binning == "lane"
+              else binned_select.launches)
+    counts[arm] += 1
     binned_select.db_major_launches[arm] += db_major
     return out
 
 
 binned_select.launches = dict.fromkeys(ARMS, 0)
 binned_select.db_major_launches = dict.fromkeys(ARMS, 0)
+binned_select.lane_launches = dict.fromkeys(ARMS, 0)
 
 
 def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
@@ -696,21 +919,22 @@ def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
     return -(-n_tiles // n_seg)
 
 
-def _stream_ctas_per_sm(device: torch.device, kernel: str,
-                        precision: str) -> int:
+def _stream_ctas_per_sm(device: torch.device, kernel: str, precision: str,
+                        emit=(0, SURVIVORS), pq_shape=(0, 0)) -> int:
     """CTAs of the ``streaming`` or ``fused`` kernel of arm ``precision``
     one SM of ``device`` holds at once, as the occupancy API reports it
-    for the built kernel."""
-    key = (device.index, kernel, precision)
+    for the built kernel of the binning ``emit`` = (bin_w, survivors) as
+    the C entries take them (bin_w 0: grouped) — pq's at its shared memory
+    for ``pq_shape`` = (m, C)."""
+    key = (device.index, kernel, precision, tuple(emit), tuple(pq_shape))
     if key not in _ctas_per_sm:
         fn = _cuda.load("binned_stream").stream_ctas_per_sm
-        fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = fn(int(kernel == "fused"), _ARM_CODES[precision],
-                    ctypes.byref(out))
+            rc = fn(int(kernel == "fused"), _ARM_CODES[precision], *emit,
+                    *pq_shape, ctypes.byref(out))
         if rc != 0 or out.value < 1:
             raise RuntimeError(
                 f"occupancy query of the {kernel} {precision} kernel failed: "
@@ -720,13 +944,16 @@ def _stream_ctas_per_sm(device: torch.device, kernel: str,
 
 
 def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str,
-                         precision: str = "bf16x3") -> int:
+                         precision: str = "bf16x3", emit=(0, SURVIVORS),
+                         pq_shape=(0, 0)) -> int:
     """Db tiles per segment that the ``kernel="streaming"`` or ``"fused"``
-    kernel of arm ``precision`` runs for ``n_q`` queries over ``n_tiles``
-    tiles on ``device``: :func:`stream_segment_tiles` over one wave of the
-    card, one segment over every tile on the CPU (where the plain versions
-    run).  The fused kernels' skipped cells depend on it (and on
-    QUERY_BLOCK); no certified result does."""
+    kernel of arm ``precision`` in the binning ``emit`` = (bin_w,
+    survivors) of the C entries (pq: at ``pq_shape`` = (m, C)) runs for
+    ``n_q`` queries over ``n_tiles`` tiles on ``device``:
+    :func:`stream_segment_tiles` over one wave of the card, one segment
+    over every tile on the CPU (where the plain versions run).  The fused
+    kernels' skipped cells depend on it (and on QUERY_BLOCK); no certified
+    result does."""
     if kernel not in ("streaming", "fused"):
         raise ValueError(f"kernel {kernel!r} has no tile segments")
     device = torch.device(device)
@@ -736,32 +963,52 @@ def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str,
         device = torch.device("cuda", torch.cuda.current_device())
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return stream_segment_tiles(
-        n_q, n_tiles, n_sm * _stream_ctas_per_sm(device, kernel, precision))
+        n_q, n_tiles, n_sm * _stream_ctas_per_sm(device, kernel, precision,
+                                                 emit, pq_shape))
 
 
-def stream_select(*operands: torch.Tensor, tile_n: int, arm: str):
+def _pq_shape(operands, arm: str):
+    """(m, C) of the pq arm's operands, (0, 0) for the other arms."""
+    if arm != "pq":
+        return (0, 0)
+    m = operands[1].shape[1]
+    return (m, operands[0].shape[1] // m)
+
+
+def stream_select(*operands: torch.Tensor, tile_n: int, arm: str,
+                  binning: str = "grouped", bin_w: Optional[int] = None,
+                  survivors: Optional[int] = None):
     """The streaming wrapper (``kernel="streaming"``) — K10 (bf16x3) and
-    the other arms' streaming entries: the function, operands, ``arm`` and
-    outputs of :func:`binned_select`, computed by one launch of
-    ``stream_select_<arm>`` whose CTAs stream the db tiles through a
-    cp.async double buffer (``csrc/binned_stream.cu``); its outputs are
-    bitwise the tiled kernel's.  Its plain version is
-    :func:`binned_select_plain` (the function is the same), which it runs
-    for CPU tensors.  ``stream_select.launches[arm]`` counts kernel
-    launches."""
+    the other arms' streaming entries: the function, operands, ``arm``,
+    binning knobs and outputs of :func:`binned_select`, computed by one
+    launch of ``stream_select_<arm>`` whose CTAs walk a segment of db tiles
+    each (``csrc/binned_stream.cu``; the f32 and int arms stream them
+    through a cp.async double buffer); its outputs are bitwise the tiled
+    kernel's.  Its plain version is :func:`binned_select_plain` (the
+    function is the same), which it runs for CPU tensors.
+    ``stream_select.launches[arm]`` counts its kernel launches in grouped
+    binning, ``.lane_launches[arm]`` those in lane binning."""
     n_p = _check_operands(operands, tile_n, arm)
+    geo = emit_geometry(tile_n, binning, bin_w, survivors)
     q = operands[0]
     if q.device.type == "cpu":
-        return binned_select_plain(*operands, tile_n=tile_n, arm=arm)
+        return binned_select_plain(*operands, tile_n=tile_n, arm=arm,
+                                   binning=binning, bin_w=bin_w,
+                                   survivors=survivors)
+    ints = _binning_ints(operands, arm, tile_n, binning, geo)
     seg = kernel_segment_tiles(q.shape[0], n_p // tile_n, q.device,
-                               "streaming", arm)
-    out = _launch("binned_stream", f"stream_select_{arm}", operands, n_p,
-                  tile_n, seg)
-    stream_select.launches[arm] += 1
+                               "streaming", arm, ints[:2],
+                               _pq_shape(operands, arm))
+    out = _launch("binned_stream", arm, f"stream_select_{arm}", operands,
+                  n_p, tile_n, geo, seg, *ints)
+    counts = (stream_select.lane_launches if binning == "lane"
+              else stream_select.launches)
+    counts[arm] += 1
     return out
 
 
 stream_select.launches = dict.fromkeys(ARMS, 0)
+stream_select.lane_launches = dict.fromkeys(ARMS, 0)
 
 
 def _early_out(out, n_tiles: int, keep: Optional[int], block_q: int,
@@ -817,7 +1064,10 @@ def fused_select_plain(*operands: torch.Tensor, tile_n: int,
     """The fused kernels (K11 and the other arms' fused entries) in plain
     PyTorch: :func:`binned_select_plain`, then the early-out
     (:func:`_early_out`) at the given geometry.  Depth 0 (keep None or
-    too deep) skips nothing: the output is the streaming kernel's."""
+    too deep) skips nothing: the output is the streaming kernel's.  pq is
+    refused, as the JAX package refuses it."""
+    if arm == "pq":
+        check_knobs(kernel="fused", precision="pq")
     out = binned_select_plain(*operands, tile_n=tile_n, arm=arm)
     return _early_out(out, out[2].shape[1] // BIN_W, keep, block_q,
                       seg_tiles)
@@ -834,6 +1084,8 @@ def fused_select(*operands: torch.Tensor, tile_n: int, keep: Optional[int],
     (``csrc/binned_stream.cu``) at :func:`kernel_segment_tiles`, or
     raises; on a CPU tensor it runs :func:`fused_select_plain` at the CPU
     geometry.  ``fused_select.launches[arm]`` counts kernel launches."""
+    if arm == "pq":
+        check_knobs(kernel="fused", precision="pq")  # refused by name
     n_p = _check_operands(operands, tile_n, arm)
     q = operands[0]
     seg = kernel_segment_tiles(q.shape[0], n_p // tile_n, q.device, "fused",
@@ -841,8 +1093,8 @@ def fused_select(*operands: torch.Tensor, tile_n: int, keep: Optional[int],
     if q.device.type == "cpu":
         return fused_select_plain(*operands, tile_n=tile_n, keep=keep,
                                   seg_tiles=seg, arm=arm)
-    out = _launch("binned_stream", f"fused_select_{arm}", operands, n_p,
-                  tile_n, seg, carry_depth(keep))
+    out = _launch("binned_stream", arm, f"fused_select_{arm}", operands,
+                  n_p, tile_n, emit_geometry(tile_n), seg, carry_depth(keep))
     fused_select.launches[arm] += 1
     return out
 
@@ -869,23 +1121,42 @@ def _bin_candidates(queries: torch.Tensor, db: Optional[torch.Tensor], *,
                     tile_n: int, db_parts=None, kernel: str = "tiled",
                     keep: Optional[int] = None, precision: str = "bf16x3",
                     db_quant=None, offset: float = 0.0,
-                    grid_order: str = "query_major"
+                    grid_order: str = "query_major", db_pq=None,
+                    binning: str = "grouped", bin_w: Optional[int] = None,
+                    survivors: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel launch on padded shapes (the JAX package's
-    ``_bin_candidates`` for every ported arm).  ``db_parts`` plugs in a
+    ``_bin_candidates`` for every arm).  ``db_parts`` plugs in a
     placement's db operands of the arm, padded to ``round_up(N, tile_n)``
     rows: ``(th, tl, tnorm)`` for bf16x3 / bf16x3f, ``(th, tnorm)`` for
-    default, ``(t, tnorm)`` for highest, ``(t, aux)`` for the int arms.
-    None prepares them here: from ``db_quant`` (the unpadded ``(values,
-    scales, norms)`` triple the JAX package takes as ``db_int8`` /
-    ``db_int4``) when given, else from ``db``.  ``offset`` is the shift
-    both sides of an int arm subtract before quantizing (128.0 for uint8
-    payloads).  ``kernel`` picks the tiled, streaming or fused kernel,
-    ``grid_order`` the tiled kernel's grid; ``keep`` sizes the fused
-    kernels' carry (ignored by the others).  Returns cd, ci, bounds for
-    the query rows given (the JAX kernel's query padding never leaves
-    it)."""
-    if precision in INT_ARMS:
+    default, ``(t, tnorm)`` for highest, ``(t, aux)`` for the int arms,
+    ``(codes, tnorm)`` for pq.  None prepares them here: from ``db_quant``
+    (the unpadded ``(values, scales, norms)`` triple the JAX package takes
+    as ``db_int8`` / ``db_int4``) when given, else from ``db``.
+    ``precision="pq"`` requires ``db_pq = (codes uint8 [N, m], codebooks
+    f32 [m, C, dsub])`` on the queries' device: the LUT is built from the
+    codebooks, the db operands from the codes unless ``db_parts`` holds
+    them.  ``offset`` is the shift both sides of an int arm subtract
+    before quantizing (128.0 for uint8 payloads).  ``kernel`` picks the
+    tiled, streaming or fused kernel, ``grid_order`` the tiled kernel's
+    grid, ``binning`` / ``bin_w`` / ``survivors`` the emitter; ``keep``
+    sizes the fused kernels' carry (ignored by the others).  Returns cd,
+    ci, bounds for the query rows given (the JAX kernel's query padding
+    never leaves it)."""
+    if precision == "pq":
+        if db_pq is None:
+            raise ValueError(
+                "precision='pq' requires db_pq=(codes, codebooks): PQ "
+                "codebooks train on data (ops.pq.train_pq)")
+        codes, books = db_pq
+        if db is not None and codes.shape[0] != db.shape[0]:
+            raise ValueError(
+                f"db_pq codes rows ({codes.shape[0]}) do not match the db "
+                f"rows ({db.shape[0]}) the rescore gathers from")
+        if db_parts is None:
+            db_parts = prepare_db_pq(codes, tile_n)
+        operands = (pq_luts(queries, books), *db_parts)
+    elif precision in INT_ARMS:
         if db_parts is None:
             db_parts = (prepare_db_quant(*db_quant, tile_n)
                         if db_quant is not None
@@ -900,13 +1171,16 @@ def _bin_candidates(queries: torch.Tensor, db: Optional[torch.Tensor], *,
         if db_parts is None:
             db_parts = prepare_db_arm(db, tile_n, precision)
         operands = (pad_queries(queries), *db_parts)
+    check_knobs(precision=precision, binning=binning, kernel=kernel,
+                grid_order=grid_order, bin_w=bin_w, survivors=survivors)
+    emit = {"binning": binning, "bin_w": bin_w, "survivors": survivors}
     if kernel == "fused":
         return fused_select(*operands, tile_n=tile_n, keep=keep,
                             arm=precision)
     if kernel == "streaming":
-        return stream_select(*operands, tile_n=tile_n, arm=precision)
+        return stream_select(*operands, tile_n=tile_n, arm=precision, **emit)
     return binned_select(*operands, tile_n=tile_n, arm=precision,
-                         grid_order=grid_order)
+                         grid_order=grid_order, **emit)
 
 
 def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
@@ -917,16 +1191,17 @@ def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
                             grid_order: str = "query_major",
                             kernel: str = "tiled",
                             final_select: str = "exact", db_parts=None,
-                            db_quant=None, offset: float = 0.0):
+                            db_quant=None, offset: float = 0.0, db_pq=None):
     """Stage 1: resolve the effective tile and run the coarse pass
     (``kernel="fused"`` sizes its carry with ``keep = m+2``, as
-    pallas_knn.py:1406 does).  ``db_parts``, ``db_quant`` and ``offset``
-    as :func:`_bin_candidates` takes them.  Returns ``(cd [Q, W],
-    ci [Q, W], bounds [Q, T*128])``."""
+    pallas_knn.py:1406 does).  ``db_parts``, ``db_quant``, ``offset`` and
+    ``db_pq`` as :func:`_bin_candidates` takes them.  Returns ``(cd [Q,
+    W], ci [Q, W], bounds [Q, T*bound_w])``."""
     check_knobs(precision=precision, binning=binning, grid_order=grid_order,
                 kernel=kernel, final_select=final_select, bin_w=bin_w,
                 survivors=survivors)
-    eff_tile = effective_tile(t.shape[0], tile_n, m + 2)
+    eff_tile = effective_tile(t.shape[0], tile_n, bin_w or BIN_W, survivors,
+                              binning, m + 2)
     if db_parts is not None and db_parts[0].shape[0] != _round_up(t.shape[0], eff_tile):
         raise ValueError(
             f"db_parts hold {db_parts[0].shape[0]} rows; the {eff_tile}-row "
@@ -935,7 +1210,8 @@ def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
                            kernel=kernel,
                            keep=m + 2 if kernel == "fused" else None,
                            precision=precision, db_quant=db_quant,
-                           offset=offset, grid_order=grid_order)
+                           offset=offset, grid_order=grid_order, db_pq=db_pq,
+                           binning=binning, bin_w=bin_w, survivors=survivors)
 
 
 def local_select_rescore(q, t, cd, ci, bounds, m: int, *,
@@ -984,15 +1260,19 @@ def knn_search_pallas(queries, db, k: int, *, margin: int = 28,
                       final_select: str = "exact", binning: str = "grouped",
                       final_recall_target: Optional[float] = None,
                       grid_order: str = "query_major", kernel: str = "tiled",
-                      device=None) -> Tuple[np.ndarray, np.ndarray, dict]:
+                      device=None, pq_dsub: Optional[int] = None,
+                      pq_ncodes: Optional[int] = None
+                      ) -> Tuple[np.ndarray, np.ndarray, dict]:
     """Certified-exact KNN in one database pass — the port of
     pallas_knn.knn_search_pallas (pallas_knn.py:1581-1631): places ``db``
     on ``device`` (default ``cuda``) and calls
     ``ShardedKNN.search_certified(selector="pallas")``, so both share one
     certificate.  Returns ``(dists [Q, k] float64, idx [Q, k], stats)``.
     Every call places the database afresh; repeated searches should build
-    a ``ShardedKNN`` once.  (The JAX package's ``block_q`` is not taken:
-    the CUDA kernels pick their own query block.)"""
+    a ``ShardedKNN`` once.  ``pq_dsub`` / ``pq_ncodes`` set the pq
+    placement's geometry (None: 4 dims, 256 codes; the JAX package reads
+    them from environment switches).  (The JAX package's ``block_q`` is not
+    taken: the CUDA kernels pick their own query block.)"""
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
     prog = ShardedKNN(np.asarray(db, dtype=np.float32), k=k, device=device)
@@ -1001,7 +1281,7 @@ def knn_search_pallas(queries, db, k: int, *, margin: int = 28,
         selector="pallas", tile_n=tile_n, precision=precision, bin_w=bin_w,
         survivors=survivors, final_select=final_select, binning=binning,
         final_recall_target=final_recall_target, grid_order=grid_order,
-        kernel=kernel)
+        kernel=kernel, pq_dsub=pq_dsub, pq_ncodes=pq_ncodes)
 
 
 def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,
@@ -1021,7 +1301,10 @@ def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,
     - "int8", "int4": the larger of "highest"'s and the provable
       quantization bound ε from the actual residuals
       (ops.quantize.score_error_bound).  ``quant`` supplies the
-      placement's ``QuantizedRows``; None quantizes ``db_np`` here."""
+      placement's ``QuantizedRows``; None quantizes ``db_np`` here;
+    - "pq": the larger of "highest"'s and the per-subspace bound
+      (ops.pq.score_error_bound_pq); ``quant`` must be the trained
+      ``ops.pq.PQResult`` (codebooks train on data)."""
     from knn_tpu_torch.ops.certified import certification_tolerance
 
     if q_norm is None:
@@ -1037,13 +1320,21 @@ def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,
         stats = db_bound_stats(quant, db_np)
         return np.maximum(
             base, score_error_bound(queries_np, stats, offset=quant.offset))
+    if precision == "pq":
+        from knn_tpu_torch.ops.pq import score_error_bound_pq
+
+        if quant is None:
+            raise ValueError(
+                "precision='pq' needs quant=<ops.pq.PQResult> (codebooks "
+                "train on data)")
+        return np.maximum(base, score_error_bound_pq(queries_np, quant.stats))
     if precision in ("bf16x3", "bf16x3f"):
         return np.maximum(base, 2.0 ** -14 * (q_norm + db_norm_max))
     if precision == "highest":
         return base
     raise ValueError(
         f"precision {precision!r} has no certified tolerance model; use "
-        f"'bf16x3', 'bf16x3f', 'int8', 'int4' or 'highest'")
+        f"'bf16x3', 'bf16x3f', 'int8', 'int4', 'pq' or 'highest'")
 
 
 def pallas_knn_candidates(queries: torch.Tensor, db: torch.Tensor, m: int, *,

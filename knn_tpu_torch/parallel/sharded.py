@@ -11,9 +11,10 @@ they are absent here; everything else follows the JAX code path:
   (ties to the lower index);
 - ``search_certified(selector="pallas")`` — the one-pass certificate:
   the coarse kernel (of knn_tpu_torch.ops.coarse_knn, by ``kernel``,
-  ``precision`` and ``grid_order``: the tiled, streaming or fused entry of
-  the bf16x3, bf16x3f, highest, int8 or int4 arm) emits per-bin survivors
-  and exclusion bounds, the exact
+  ``precision``, ``grid_order`` and ``binning``: the tiled, streaming or
+  fused entry of the bf16x3, bf16x3f, highest, int8, int4 or pq arm, in
+  grouped or lane binning) emits per-bin survivors and exclusion bounds,
+  the exact
   top-(m+2) and the direct-difference f32 rescore rank the candidates,
   the device certificate :func:`_certify_pack` flags queries whose k-th
   distance is not provably below the exclusion bound (``bad``) and marks
@@ -42,6 +43,7 @@ from knn_tpu_torch import tuning
 from knn_tpu_torch.convert import Placement, placement_from_numpy, row_normalize_f64
 from knn_tpu_torch.device import DeviceLike
 from knn_tpu_torch.ops.coarse_knn import (
+    BIN_W,
     DIM_CHUNK,
     INT_ARMS,
     RANK_SLACK,
@@ -54,9 +56,12 @@ from knn_tpu_torch.ops.coarse_knn import (
     local_select_rescore,
     prepare_db,
     prepare_db_f32,
+    prepare_db_pq,
     prepare_db_quant,
 )
 from knn_tpu_torch.ops.metrics import L2_FAMILY
+from knn_tpu_torch.ops.pq import (PQ_DSUB_DEFAULT, PQ_NCODES_DEFAULT,
+                                  bound_consts_pq, score_error_bound_pq_t)
 from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats_t,
                                         pack_nibbles_t, quantize_rows,
                                         quantize_rows_int4,
@@ -163,6 +168,8 @@ class ShardedKNN:
         self._quant = {}
         #: the highest arm's padded f32 rows, built on first use
         self._t32 = None
+        #: the pq placements, by (dsub, ncodes), trained on first use
+        self._pq = {}
         #: the overlap pipeline's (coarse, tail) CUDA streams, made on first
         #: use and kept: the caching allocator reuses a freed block only on
         #: the stream it was made on, so new streams per call allocate anew
@@ -212,14 +219,23 @@ class ShardedKNN:
         return majority_vote(self.placement.labels[safe], self.num_classes)
 
     # -- certified path ----------------------------------------------------
-    def _coarse_parts(self, tile: int, precision: str = "bf16x3"):
+    def _coarse_parts(self, tile: int, precision: str = "bf16x3",
+                      pq: Optional[dict] = None):
         """The db operands of arm ``precision`` padded for ``tile``: the
         placement's own — the f32 placement's bf16 parts ``(th, tl,
         tnorm)`` (``(th, tnorm)`` for default), the padded f32 rows ``(t,
-        tnorm)`` for highest, or the quantized placement's ``(t, aux)`` —
-        when their padding matches, else padded anew once and kept."""
+        tnorm)`` for highest, the quantized placement's ``(t, aux)``, or
+        the pq placement ``pq``'s ``(codes, tnorm)`` — when their padding
+        matches, else padded anew once and kept."""
         rows = _round_up(self.n_train, tile)
         pl = self.placement
+        if precision == "pq":
+            if rows == pq["parts"][0].shape[0]:
+                return pq["parts"]
+            key = ("pq", pq["dsub"], pq["ncodes"], rows)
+            if key not in self._parts:
+                self._parts[key] = prepare_db_pq(pq["codes"], tile)
+            return self._parts[key]
         if rows == pl.th.shape[0]:  # every placement is padded alike
             if precision in INT_ARMS:
                 parts = self._quant_placement(precision)["parts"]
@@ -297,6 +313,63 @@ class ShardedKNN:
             }
         return self._quant[precision]
 
+    def _pq_placement(self, dsub: Optional[int] = None,
+                      ncodes: Optional[int] = None) -> dict:
+        """The product-quantized db placement of the pq arm, trained on
+        first use and kept per ``(dsub, ncodes)`` — the JAX package's
+        ``_pq_placement`` (sharded.py:1301-1355): per-subspace codebooks
+        trained on every host row with the seeded k-means
+        (ops.pq.train_pq, its assign steps on this placement's device) and
+        the rows encoded as uint8 codes [N, m].  Defaults (4, 256); the
+        JAX package reads them from environment switches (ROADMAP queue
+        C).  Returns ``parts``, the kernel operands ``(codes, tnorm)``
+        padded as the f32 placement's bf16 parts are (zero codes, PAD_VAL
+        norm rows; coarse_knn.prepare_db_pq), ``codes`` (the unpadded
+        rows of it), ``books`` (f32 [m, C, dsub]) and ``consts``
+        (ops.pq.bound_consts_pq) on the device, ``stats``, ``dsub``,
+        ``ncodes`` and ``train_s`` (the training's seconds)."""
+        from knn_tpu_torch.ops.pq import train_pq
+
+        dsub = int(dsub or PQ_DSUB_DEFAULT)
+        ncodes = int(ncodes or PQ_NCODES_DEFAULT)
+        key = (dsub, ncodes)
+        if key not in self._pq:
+            t0 = time.perf_counter()
+            res = train_pq(self.placement.db_host, device=self.device,
+                           dsub=dsub, ncodes=ncodes)
+            entry = self._place_pq(res.codebooks, res.codes, res.stats,
+                                   dsub=dsub, ncodes=ncodes)
+            entry["train_s"] = time.perf_counter() - t0
+        return self._pq[key]
+
+    def _place_pq(self, codebooks: np.ndarray, codes: np.ndarray,
+                  stats: dict, *, dsub: int,
+                  ncodes: Optional[int] = None) -> dict:
+        """Places trained pq state — codebooks f32 [m, C, dsub], the rows'
+        codes uint8 [N, m] and their ``ops.pq.pq_bound_stats`` — as the pq
+        placement of geometry ``(dsub, ncodes)`` (``ncodes`` None: the
+        codebooks' C; training keeps the requested C even where fewer rows
+        capped the codebooks, as the JAX package keys its cache), and
+        returns it (knn_tpu_torch.convert.pq_from_numpy carries a JAX
+        ``PQResult`` across with it)."""
+        codebooks = np.asarray(codebooks, np.float32)
+        codes = np.ascontiguousarray(np.asarray(codes, np.uint8))
+        if codes.shape != (self.n_train, codebooks.shape[0]):
+            raise ValueError(
+                f"codes {codes.shape} do not match {self.n_train} rows of "
+                f"{codebooks.shape[0]} subspaces")
+        ncodes = int(ncodes or codebooks.shape[1])
+        codes_t = torch.from_numpy(codes).to(self.device)
+        parts = prepare_db_pq(codes_t, self.placement.th.shape[0])
+        entry = {"parts": parts, "codes": parts[0][: self.n_train],
+                 "books": torch.from_numpy(codebooks).to(self.device),
+                 "consts": torch.from_numpy(
+                     bound_consts_pq(stats)).to(self.device),
+                 "stats": stats, "dsub": int(dsub), "ncodes": ncodes,
+                 "train_s": None}
+        self._pq[(int(dsub), ncodes)] = entry
+        return entry
+
     def _pallas_setup(self, margin: int, tile_n: Optional[int],
                       precision: str, bin_w: Optional[int] = None,
                       survivors: Optional[int] = None,
@@ -304,7 +377,9 @@ class ShardedKNN:
                       include_distances: bool = True,
                       binning: str = "grouped",
                       grid_order: str = "query_major",
-                      kernel: str = "tiled"):
+                      kernel: str = "tiled",
+                      pq_dsub: Optional[int] = None,
+                      pq_ncodes: Optional[int] = None):
         """((coarse, tail), m, analysis_window) for the one-pass certified
         path — the one home of the kernel-geometry margin cap.  The pair
         is the JAX package's program split at the candidate boundary
@@ -324,9 +399,10 @@ class ShardedKNN:
                     final_select=final_select, bin_w=bin_w,
                     survivors=survivors)
         rows = self.n_train
-        eff_tile = effective_tile(rows, tile_n or TILE_N,
-                                  min(self.k + margin, rows) + 2)
-        _, _, out_w, _ = _geometry(eff_tile)
+        eff_bin = bin_w or BIN_W
+        eff_tile = effective_tile(rows, tile_n or TILE_N, eff_bin, survivors,
+                                  binning, min(self.k + margin, rows) + 2)
+        _, _, out_w, _ = _geometry(eff_tile, eff_bin, survivors, binning)
         # m is bounded by the db and by the kernel's candidate width minus
         # the two slots the exclusion value needs
         m = min(self.k + margin, rows, -(-rows // eff_tile) * out_w - 2)
@@ -335,15 +411,21 @@ class ShardedKNN:
                 f"pallas selector: margin headroom m={m} <= k={self.k} on "
                 f"{rows} rows; lower tile_n")
         w = _analysis_window(self.k, m)
-        parts = self._coarse_parts(eff_tile, precision)
         db = self.placement.db
         db_norm_max = float(np.float32(self.placement.db_norm_max))
         # the int arms: the quantized placement's translation shift and
-        # bound constants (sharded.py:1807-1812)
-        consts, offset = None, 0.0
+        # bound constants (sharded.py:1807-1812); pq: its codes and
+        # codebooks, bound constants and subspace width
+        consts, offset, db_pq, dsub = None, 0.0, None, None
+        pq = None
         if precision in INT_ARMS:
             qp = self._quant_placement(precision)
             consts, offset = qp["consts"], qp["offset"]
+        elif precision == "pq":
+            pq = self._pq_placement(pq_dsub, pq_ncodes)
+            consts, dsub = pq["consts"], pq["dsub"]
+            db_pq = (pq["codes"], pq["books"])
+        parts = self._coarse_parts(eff_tile, precision, pq)
 
         def coarse(q: torch.Tensor):
             # the RESOLVED tile goes to the kernel: m was capped so that
@@ -351,8 +433,10 @@ class ShardedKNN:
             # effective_tile(min_width=m+2) a fixpoint
             return local_coarse_candidates(
                 q, db, m, tile_n=eff_tile, precision=precision,
-                binning=binning, grid_order=grid_order, kernel=kernel,
-                final_select=final_select, db_parts=parts, offset=offset)
+                binning=binning, bin_w=bin_w, survivors=survivors,
+                grid_order=grid_order, kernel=kernel,
+                final_select=final_select, db_parts=parts, offset=offset,
+                db_pq=db_pq)
 
         def tail(q: torch.Tensor, cd, ci, bounds):
             d32, li, lb = local_select_rescore(q, db, cd, ci, bounds, m,
@@ -361,7 +445,7 @@ class ShardedKNN:
                                  m=m, k=self.k, w=w, n_train=rows,
                                  include_distances=include_distances,
                                  precision=precision, consts=consts,
-                                 offset=offset)
+                                 offset=offset, pq_dsub=dsub)
 
         return (coarse, tail), m, w
 
@@ -370,7 +454,8 @@ class ShardedKNN:
                         survivors=None, final_select="exact",
                         binning="grouped", final_recall_target=None,
                         grid_order="query_major", kernel="tiled",
-                        overlap=False, overlap_depth=2):
+                        overlap=False, overlap_depth=2, pq_dsub=None,
+                        pq_ncodes=None):
         """One-pass certificate, host side: per batch, fetch the windowed
         indices, the near-tie mask and the bad flags (plus the top-k
         distances when ``want_distances``) and repair tie runs in float64.
@@ -391,7 +476,8 @@ class ShardedKNN:
             m - k, tile_n, precision, bin_w=bin_w, survivors=survivors,
             final_select=final_select,
             include_distances=want_distances, binning=binning,
-            grid_order=grid_order, kernel=kernel)
+            grid_order=grid_order, kernel=kernel, pq_dsub=pq_dsub,
+            pq_ncodes=pq_ncodes)
         bad_mask = np.zeros(q_np.shape[0], dtype=bool)
         n_corrected = 0
 
@@ -498,7 +584,9 @@ class ShardedKNN:
                          kernel: Optional[str] = None,
                          overlap: Optional[bool] = None,
                          overlap_depth: Optional[int] = None,
-                         return_sqrt: bool = False):
+                         return_sqrt: bool = False,
+                         pq_dsub: Optional[int] = None,
+                         pq_ncodes: Optional[int] = None):
         """Exact lexicographic top-k via the one-pass certificate.  Returns
         ``(dists_f64 [Q, k] or None, idx [Q, k] int64, stats)`` on host.
 
@@ -511,9 +599,13 @@ class ShardedKNN:
         kernel: "tiled", "streaming" or "fused", and ``grid_order`` the
         tiled kernel's grid ("query_major" or "db_major"), with bitwise
         the same result; ``precision`` its arm: "bf16x3" (K1, K10, K11),
-        "bf16x3f" (K4), "highest" (K2), "int8" (K5), "int4" (K6), each
+        "bf16x3f" (K4), "highest" (K2), "int8" (K5), "int4" (K6), "pq"
+        (K7; its placement trained on first use at ``pq_dsub`` dims per
+        subspace and ``pq_ncodes`` codes, default 4 and 256), each
         certified with its own tolerance ("default", K3, has none and is
-        refused).  ``stats`` carries ``certified``,
+        refused); ``binning`` the emitter: "grouped" (two survivors per
+        lane bin) or "lane" (K8: bins of ``bin_w`` rows, ``survivors``
+        each).  ``stats`` carries ``certified``,
         ``fallback_queries``, ``rank_corrected_queries``, the repair
         counts and ``pallas_knobs``.  Queries must be finite.
 
@@ -558,7 +650,7 @@ class ShardedKNN:
             batches, bs, m, d, i, q_np, db_np,
             want_distances=return_distances, overlap=bool(overlap),
             overlap_depth=2 if overlap_depth is None else overlap_depth,
-            **knobs)
+            pq_dsub=pq_dsub, pq_ncodes=pq_ncodes, **knobs)
 
         def _select(qb, widen):
             # widened exact re-select in f32 squared L2 (cosine: on the
@@ -609,7 +701,7 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
                   w: int, n_train: int, include_distances: bool,
                   precision: str = "bf16x3",
                   consts: Optional[torch.Tensor] = None,
-                  offset: float = 0.0):
+                  offset: float = 0.0, pq_dsub: Optional[int] = None):
     """The certify tail of the JAX package's ``_certify_pack_spmd`` for one
     shard, from ranked candidates ``(d32 [Q, m+1], li [Q, m+1], lb [Q])``:
 
@@ -623,7 +715,9 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
       (``consts`` given, sharded.py:2350-2355) the
       per-query provable quantization bound ε and the query norm, both in
       the ``offset``-shifted space the kernel scores in
-      (ops.quantize.score_error_bound_device);
+      (ops.quantize.score_error_bound_device); for pq the per-subspace
+      bound of its ``consts`` at ``pq_dsub`` dims per subspace
+      (ops.pq.score_error_bound_pq_t, sharded.py:2356-2360);
     - ``bad = s_k + RANK_SLACK d_k + tol >= lb`` (plus unresolved rows),
       with ``s_k = d_k - ||q||^2`` the k-th distance in kernel space.
 
@@ -644,7 +738,9 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
     unresolved = (~has_stop) | ~torch.isfinite(dw[:, : k + 1]).all(-1)
     tight_use = tight & (pair < stop[:, None]) & ~unresolved[:, None]
     q32 = q.float()
-    if consts is not None:
+    if precision == "pq":
+        q_norm, tol = score_error_bound_pq_t(q32, consts, dsub=pq_dsub)
+    elif consts is not None:
         q_norm, tol = score_error_bound_device(q32 - offset, consts)
     else:
         q_norm = (q32 * q32).sum(-1)

@@ -24,9 +24,9 @@ from typing import Optional
 from knn_tpu_torch.ops.metrics import PORTED_METRICS
 
 #: kernel matmul precisions with a certified tolerance model (the JAX
-#: package's list).  The port's coarse pass runs all of them but ``pq``
-#: (knn_tpu_torch.ops.coarse_knn refuses it by name); ``default`` runs
-#: only under the counted certificate (ops.certified).
+#: package's list), all of which the port's coarse pass runs; ``default``
+#: (no tolerance model) runs only under the counted certificate
+#: (ops.certified).
 CERTIFIED_PRECISIONS = ("bf16x3", "bf16x3f", "highest", "int8", "int4",
                         "pq")
 

@@ -103,11 +103,12 @@ def test_local_certified_candidates_match_pallas(dim, tile_n):
 
 
 def test_geometry_and_effective_tile_match_pallas():
-    # the port runs the JAX package's defaults: bin_w 128, 2 survivors
+    # grouped binning at the JAX package's defaults: bin_w 128, 2 survivors
+    # (tests/test_torch_lane.py covers the other geometries)
     for rows, tile, surv, width in ((1_000_000, 16384, None, 130),
                                     (10_000, 16384, None, 300),
                                     (700, 256, 2, 35), (5000, 384, 2, 900)):
-        assert ck.effective_tile(rows, tile, width) == \
+        assert ck.effective_tile(rows, tile, 128, surv, "grouped", width) == \
             jpk.effective_tile(rows, tile, 128, surv, "grouped", width)
         assert ck._geometry(tile) == jpk._geometry(tile, 128, surv, "grouped")
     assert (ck.BIN_W, ck.TILE_N, ck.DIM_CHUNK, ck.SURVIVORS, ck.PAD_VAL,
@@ -146,12 +147,19 @@ def test_kernel_tolerance_matches_pallas():
             fn(q, db, precision="default")
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("binning", "lane"), ("precision", "pq"), ("final_select", "approx"),
-    ("survivors", 3), ("survivors", 4), ("bin_w", 256), ("bin_w", 64)])
-def test_unported_knobs_are_refused_by_name(knob, value):
-    with pytest.raises(ValueError, match=f"{knob}={value!r} is not ported"):
-        ck.check_knobs(**{knob: value})
+@pytest.mark.parametrize("kw,match", [
+    # values still unported: grouped binning's other geometries, approx
+    ({"final_select": "approx"}, "final_select='approx' is not ported"),
+    ({"survivors": 3}, "survivors=3 is not ported"),
+    ({"survivors": 4}, "survivors=4 is not ported"),
+    ({"bin_w": 256}, "bin_w=256 is not ported"),
+    # the JAX package's own refusals that stay
+    ({"bin_w": 64}, "bin_w=64 must be a multiple of 128"),
+    ({"kernel": "fused", "precision": "pq"}, "not certified for precision='pq'"),
+    ({"kernel": "fused", "binning": "lane"}, "requires binning='grouped'")])
+def test_unported_knobs_are_refused_by_name(kw, match):
+    with pytest.raises(ValueError, match=match):
+        ck.check_knobs(**kw)
 
 
 @pytest.mark.parametrize("precision", ["int8", "int4"])
@@ -166,6 +174,10 @@ def test_int_arms_are_accepted_under_every_kernel(precision, kernel):
     ("streaming", "query_major"), ("fused", "query_major")])
 def test_ported_precisions_are_accepted_under_every_kernel(precision, kernel,
                                                            grid_order):
+    if (kernel, precision) == ("fused", "pq"):  # the JAX package's refusal
+        with pytest.raises(ValueError, match="precision='pq'"):
+            ck.check_knobs(precision=precision, kernel=kernel)
+        return
     ck.check_knobs(precision=precision, kernel=kernel, grid_order=grid_order)
 
 

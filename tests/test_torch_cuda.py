@@ -367,3 +367,156 @@ def header_bound_ratio(device, arm, kernel, n_q=64, n=512, dim=896):
 def test_cuda_f32_arm_error_inside_the_header_bound_at_dp896(cuda_device,
                                                              arm, kernel):
     assert header_bound_ratio(cuda_device, arm, kernel) <= 1.0
+
+
+# --- K8 (lane binning) of every arm and K7 (pq): the int arms and pq are
+# held bitwise against their plain versions, the f32 family within the
+# tolerance with ci equal on separated slots; every score a lane entry
+# emits is bitwise the grouped entry's score of the same row
+
+def _assert_lane_ci_separated(cd, ci_p, ci_r, bounds, geo, tol):
+    """ci equal wherever the survivor's value is apart from its
+    neighbours in the bin's order (the previous survivor, the next one or
+    the bound) by more than ``tol``."""
+    n_bins, surv, out_w, bound_w = geo
+    n_q = cd.shape[0]
+    n_tiles = cd.shape[1] // out_w
+    vals = cd.reshape(n_q, n_tiles, out_w)[:, :, : n_bins * surv]
+    vals = vals.reshape(n_q, n_tiles, surv, n_bins)
+    bnd = bounds.reshape(n_q, n_tiles, bound_w)[:, :, None, :n_bins]
+    seq = np.concatenate([vals, bnd], axis=2)
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(np.diff(seq, axis=2))
+    t = tol[:, None, None, None]
+    sep = gap[:, :, :surv] > t
+    sep[:, :, 1:] &= gap[:, :, : surv - 1] > t
+    sep &= np.isfinite(vals)
+
+    def view(ci):
+        c = ci.reshape(n_q, n_tiles, out_w)[:, :, : n_bins * surv]
+        return c.reshape(sep.shape)
+
+    assert sep.sum() > 0
+    np.testing.assert_array_equal(view(ci_p)[sep], view(ci_r)[sep])
+
+
+def _pq_case(device, n_q, n, m, ncodes, tile_n, seed):
+    # a random LUT and codes with exact ties: rows 3 and 90 equal to row 10
+    # (one 128-row bin), rows 128-159 equal to rows 0-31 (another bin)
+    rng = np.random.default_rng(seed)
+    lut = (rng.normal(size=(n_q, m * ncodes)) * 10).astype(np.float32)
+    codes = rng.integers(0, ncodes, size=(n, m)).astype(np.uint8)
+    codes[3] = codes[90] = codes[10]
+    codes[128:160] = codes[:32]
+    parts = ck.prepare_db_pq(torch.from_numpy(codes).to(device), tile_n)
+    return (torch.from_numpy(lut).to(device), *parts)
+
+
+def _lane_operands(device, arm, tile_n, seed):
+    n_q, n, dim = 37, 5 * 128 + 60, 24
+    if arm == "pq":
+        return _pq_case(device, n_q, n, 7, 200, tile_n, seed), None
+    if arm in ("int8", "int4"):
+        return _int_case(device, arm, n_q, n, dim, tile_n, seed), None
+    q, db = _data(np.random.default_rng(seed), n_q, n, dim)
+    db[3] = db[90] = db[10]
+    return _f32_operands(device, arm, q, db, tile_n), _tol(q, db, arm)
+
+
+LANE_ARMS = ["bf16x3", *F32_ARMS, "int8", "int4", "pq"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", LANE_ARMS)
+@pytest.mark.parametrize("survivors,bin_w", [(2, 128), (8, 256)])
+def test_cuda_lane_kernels_match_plain(cuda_device, arm, survivors, bin_w):
+    tile_n = 512
+    args, tol = _lane_operands(cuda_device, arm, tile_n, survivors + bin_w)
+    kw = {"tile_n": tile_n, "arm": arm, "binning": "lane", "bin_w": bin_w,
+          "survivors": survivors}
+    plain = [a.cpu().numpy() for a in ck.binned_select_plain(*args, **kw)]
+    geo = ck._geometry(tile_n, bin_w, survivors, "lane")
+    before = (dict(ck.binned_select.lane_launches),
+              dict(ck.stream_select.lane_launches))
+    outs = {"tiled": ck.binned_select(*args, **kw),
+            "db_major": ck.binned_select(*args, **kw, grid_order="db_major"),
+            "streaming": ck.stream_select(*args, **kw)}
+    assert ck.binned_select.lane_launches[arm] == before[0][arm] + 2
+    assert ck.stream_select.lane_launches[arm] == before[1][arm] + 1
+    for out in outs.values():
+        assert torch.equal(out[0], outs["tiled"][0])  # one arithmetic
+        got = [a.cpu().numpy() for a in out]
+        assert got[0].shape == plain[0].shape
+        assert got[2].shape == plain[2].shape
+        if tol is None:
+            for a, b in zip(got, plain):
+                np.testing.assert_array_equal(a, b)
+        else:
+            _assert_scores(got[0], plain[0], tol)
+            _assert_scores(got[2], plain[2], tol)
+            _assert_lane_ci_separated(plain[0], got[1], plain[1], plain[2],
+                                      geo, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", LANE_ARMS)
+def test_cuda_lane_scores_are_the_grouped_scores(cuda_device, arm):
+    tile_n = 256
+    args, _ = _lane_operands(cuda_device, arm, tile_n, 5)
+    for fn in (ck.binned_select, ck.stream_select):
+        lane = fn(*args, tile_n=tile_n, arm=arm, binning="lane",
+                  survivors=8)
+        grouped = fn(*args, tile_n=tile_n, arm=arm)
+        n_rows = args[-1].shape[1]
+        common = 0
+        for q in range(lane[0].shape[0]):
+            g = torch.full((n_rows + 1,), torch.nan, device=cuda_device)
+            gi = grouped[1][q].long().clamp(max=n_rows)
+            g[gi] = grouped[0][q]
+            li = lane[1][q].long().clamp(max=n_rows)
+            both = (li < n_rows) & ~torch.isnan(g[li])
+            assert torch.equal(lane[0][q][both], g[li][both])
+            common += int(both.sum())
+        assert common > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n,m,ncodes,tile_n", [
+    (37, 5 * 128 + 60, 7, 200, 256), (11, 3 * 128 + 40, 32, 256, 256),
+    (256, 16384, 32, 256, 16384)])
+def test_cuda_pq_kernels_bitwise_plain(cuda_device, n_q, n, m, ncodes,
+                                       tile_n):
+    args = _pq_case(cuda_device, n_q, n, m, ncodes, tile_n, n_q + m)
+    plain = ck.binned_select_plain(*args, tile_n=tile_n, arm="pq")
+    before = (dict(ck.binned_select.launches),
+              dict(ck.stream_select.launches))
+    outs = (ck.binned_select(*args, tile_n=tile_n, arm="pq"),
+            ck.binned_select(*args, tile_n=tile_n, arm="pq",
+                             grid_order="db_major"),
+            ck.stream_select(*args, tile_n=tile_n, arm="pq"))
+    assert ck.binned_select.launches["pq"] == before[0]["pq"] + 2
+    assert ck.stream_select.launches["pq"] == before[1]["pq"] + 1
+    for out in outs:
+        for a, b in zip(out, plain):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="precision='pq'"):
+        ck.fused_select(*args, tile_n=tile_n, keep=15, arm="pq")
+
+
+@pytest.mark.cuda
+def test_cuda_pq_and_lane_search_certified_match_the_exact_search(
+        cuda_device):
+    from knn_tpu_torch import ShardedKNN
+
+    rng = np.random.default_rng(21)
+    db = (rng.normal(size=(3000, 16)) * 5).astype(np.float32)
+    q = (rng.normal(size=(40, 16)) * 5).astype(np.float32)
+    knn = ShardedKNN(db, k=10, device=cuda_device)
+    _, ref = knn.search(q)
+    ref = ref.cpu().numpy()
+    for knobs in ({"precision": "pq"}, {"precision": "pq", "kernel": "streaming"},
+                  {"precision": "pq", "binning": "lane"},
+                  {"binning": "lane", "kernel": "streaming"},
+                  {"precision": "int8", "binning": "lane", "survivors": 4}):
+        _, i, _ = knn.search_certified(q, tile_n=1024, pq_ncodes=64, **knobs)
+        np.testing.assert_array_equal(i, ref)

@@ -197,6 +197,8 @@ def test_grid_caps_and_operand_checks():
     with pytest.raises(ValueError, match="int8 tensor"):
         ck.stream_select(*bf, tile_n=256, arm="int8")
     with pytest.raises(ValueError, match="not in"):
+        ck.fused_select(*bf, tile_n=256, keep=15, arm="nope")
+    with pytest.raises(ValueError, match="precision='pq'"):
         ck.fused_select(*bf, tile_n=256, keep=15, arm="pq")
     with pytest.raises(TypeError, match="arm"):
         ck.binned_select(*bf, tile_n=256)

@@ -179,8 +179,11 @@ def test_fused_refusals_kept():
     with pytest.raises(ValueError, match="precision='pq'"):
         ck.check_knobs(kernel="fused", precision="pq")
     for kern in ("tiled", "streaming"):
-        with pytest.raises(ValueError, match="precision='pq' is not ported"):
-            ck.check_knobs(kernel=kern, precision="pq")
+        # pq and lane binning run under the other two kernels
+        ck.check_knobs(kernel=kern, precision="pq")
+        ck.check_knobs(kernel=kern, precision="pq", binning="lane")
+        with pytest.raises(ValueError, match="survivors=3 is not ported"):
+            ck.check_knobs(kernel=kern, survivors=3)
     for kern in ck.KERNELS:
         for prec in ("bf16x3", "bf16x3f", "highest", "default", "int8",
                      "int4"):
