@@ -412,8 +412,8 @@ def _pq_case(device, n_q, n, m, ncodes, tile_n, seed):
     return (torch.from_numpy(lut).to(device), *parts)
 
 
-def _lane_operands(device, arm, tile_n, seed):
-    n_q, n, dim = 37, 5 * 128 + 60, 24
+def _lane_operands(device, arm, tile_n, seed, dim=24):
+    n_q, n = 37, 5 * 128 + 60
     if arm == "pq":
         return _pq_case(device, n_q, n, 7, 200, tile_n, seed), None
     if arm in ("int8", "int4"):
@@ -459,6 +459,29 @@ def test_cuda_lane_kernels_match_plain(cuda_device, arm, survivors, bin_w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["bf16x3", *F32_ARMS, "int8", "int4"])
+def test_cuda_lane_kernels_match_plain_at_three_dim_chunks(cuda_device, arm):
+    # Dp = 384: the f32 arms' multi-chunk builds, the int arms' chunk loop
+    tile_n = 256
+    args, tol = _lane_operands(cuda_device, arm, tile_n, 3, dim=300)
+    kw = {"tile_n": tile_n, "arm": arm, "binning": "lane", "survivors": 3}
+    plain = [a.cpu().numpy() for a in ck.binned_select_plain(*args, **kw)]
+    geo = ck._geometry(tile_n, 128, 3, "lane")
+    for out in (ck.binned_select(*args, **kw),
+                ck.binned_select(*args, **kw, grid_order="db_major"),
+                ck.stream_select(*args, **kw)):
+        got = [a.cpu().numpy() for a in out]
+        if tol is None:
+            for a, b in zip(got, plain):
+                np.testing.assert_array_equal(a, b)
+        else:
+            _assert_scores(got[0], plain[0], tol)
+            _assert_scores(got[2], plain[2], tol)
+            _assert_lane_ci_separated(plain[0], got[1], plain[1], plain[2],
+                                      geo, tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arm", LANE_ARMS)
 def test_cuda_lane_scores_are_the_grouped_scores(cuda_device, arm):
     tile_n = 256
@@ -483,7 +506,8 @@ def test_cuda_lane_scores_are_the_grouped_scores(cuda_device, arm):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_q,n,m,ncodes,tile_n", [
     (37, 5 * 128 + 60, 7, 200, 256), (11, 3 * 128 + 40, 32, 256, 256),
-    (256, 16384, 32, 256, 16384)])
+    (256, 16384, 32, 256, 16384),
+    (9, 7 * 128 + 5, 5, 130, 384)])  # C % 4 != 0: the LUT copied by floats
 def test_cuda_pq_kernels_bitwise_plain(cuda_device, n_q, n, m, ncodes,
                                        tile_n):
     args = _pq_case(cuda_device, n_q, n, m, ncodes, tile_n, n_q + m)

@@ -208,8 +208,13 @@ def test_plain_k7_matches_pallas(mesh, binning, kernel, survivors):
         db_pq=(jnp.asarray(res.codes), jnp.asarray(res.codebooks)))
     ref = [np.asarray(a)[: q.shape[0]] for a in ref]
     lut = _jax_lut(q, res.codebooks).copy()
+    # the same codes carried into the port's placement (convert.py), padded
+    # for the tile
+    knn = ShardedKNN(db, k=5, device="cpu")
+    placed = pq_from_numpy(knn, res.codebooks, res.codes, res.stats, res.dsub,
+                           res.dim)
     ops = (torch.from_numpy(lut),
-           *ck.prepare_db_pq(torch.from_numpy(res.codes), tile_n))
+           *knn._coarse_parts(tile_n, "pq", placed))
     fn = ck.stream_select if kernel == "streaming" else ck.binned_select
     port = [a.numpy() for a in fn(*ops, tile_n=tile_n, arm="pq",
                                   binning=binning, survivors=survivors)]
