@@ -1,13 +1,15 @@
-// Fused distance + per-bin top-2 select + exclusion bound for Hopper (sm_90a):
-// the tiled entries of every arm -- K1 (bf16x3), K4 (bf16x3f), K2
-// (highest), K3 (default), K5 / K6 (int8, int4) -- one CTA per (query
-// block, db tile), in the query-major or (K9) the db-major grid.
+// Fused distance + per-bin select + exclusion bound for Hopper (sm_90a): the
+// tiled entries of every arm -- K1 (bf16x3), K4 (bf16x3f), K2 (highest), K3
+// (default), K5 / K6 (int8, int4), K7 (pq) -- one CTA per (query block, db
+// tile), in the query-major or (K9) the db-major grid, in grouped or (K8)
+// lane binning.
 //
 // Replaces the TPU kernel knn_tpu/ops/pallas_knn.py::_bin_candidates (the
-// tiled pallas_call, body _kernel in its bf16x3, bf16x3f, highest, default,
-// int8 and int4 arms, emitter _emit_select_grouped /
-// _emit_select_grouped_scores, grouped binning, both grid orders).  It
-// computes the same function, not the same block structure:
+// tiled pallas_call, body _kernel in every arm, emitters _emit_select /
+// _emit_select_grouped / _emit_select_grouped_scores, both binnings, both
+// grid orders).  It computes the same function, not the same block
+// structure (grouped binning shown; lane binning's bins and outputs are in
+// binned_select.cuh, pq's scores too):
 //
 //   for every query row q and db row t of tile ti:
 //     qt  = the arm's dot (binned_select.cuh: per-chunk f32 sums for the
@@ -17,7 +19,8 @@
 //   (q, ti, b) keep the 2 smallest s with their group index through a
 //   sorted insertion network with strict `<` (the earlier group wins a tie),
 //   plus the third smallest as the bin's exclusion bound.  Two survivors are
-//   part of the definition of a bin (with tile_n): the port runs no other value.
+//   part of the definition of a grouped bin (with tile_n): the port runs no
+//   other value there.
 //
 // Outputs, in the TPU kernel's exact layout:
 //   cd     [n_q, n_tiles*256] f32  column ti*256 + j*128 + b (survivor j)

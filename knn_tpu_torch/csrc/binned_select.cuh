@@ -1,7 +1,9 @@
 // Device code shared by the binned-select kernels for Hopper (sm_90a): the
 // tiled entries of every arm (binned_coarse.cu, one CTA per query block and
 // db tile) and the streaming / fused entries of every arm (binned_stream.cu,
-// one CTA per query block walking a run of db tiles).
+// one CTA per query block walking a run of db tiles): the per-score
+// arithmetic of the f32 and int arms (this part), both emitters (grouped
+// and lane binning, K8) and the pq arm's walk (K7), below.
 //
 // Every kernel of one arm computes each score with the same arithmetic, in
 // the same order, so the tiled, streaming and fused outputs of the arm are

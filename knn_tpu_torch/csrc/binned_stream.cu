@@ -1,10 +1,12 @@
 // The db-streaming binned-select kernels for Hopper (sm_90a), two entries
 // of one template for each arm: streaming and fused early-out, for bf16x3
 // (K10, K11), bf16x3f (K4), highest (K2), default (K3) and the int8 (K5)
-// and int4 (K6) arms.
+// and int4 (K6) arms; the streaming entry of pq (K7, the tiled walk of
+// binned_select.cuh over a segment of tiles, no fused form); every
+// streaming entry in grouped or (K8) lane binning.
 //
 // Replaces the TPU kernel knn_tpu/ops/pallas_knn.py::_stream_call (its
-// pallas_call, body _stream_kernel, every arm but pq, grouped binning).  The
+// pallas_call, body _stream_kernel, every arm, both binnings).  The
 // streaming kernel of an arm computes the tiled kernel's function
 // (binned_coarse.cu) with its per-score arithmetic (binned_select.cuh), so
 // its (cd, ci, bounds) are bitwise equal to the tiled kernel's of the same
