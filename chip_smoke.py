@@ -472,6 +472,43 @@ def header_bound_ratio(dev, arm, kernel, n_q=64, n=512, dim=896):
                              0.0).max())
 
 
+def pq_bound_ratio(dev, kernel, n_q=64, n=1024, m=196, dsub=4, ncodes=256):
+    """The largest |s_kernel - s_ref| / bound over every real row for K7's
+    ``kernel`` entry at ``m`` subspaces (196: 784 dims), on rows that are
+    their own reconstruction (residuals 0) and all-nonnegative LUT entries
+    (q in [1, 2], codebook values in [0, 1]: every partial sum of the
+    chain grows).  s_ref is the exact f64 score ||t||^2 - 2 q.t; the bound
+    is csrc/binned_select.cuh's worst case, ops.pq.k7_rounding (||q||^2 +
+    2 M) (norm_err_max is 0 here).  With ``tile_n = 128`` every row's
+    score is survivor 0 of its bin."""
+    import torch
+
+    from knn_tpu_torch.ops import coarse_knn as ck
+    from knn_tpu_torch.ops import pq as ppq
+
+    rng = np.random.default_rng(m)
+    books = rng.uniform(0.0, 1.0, size=(m, ncodes, dsub)).astype(np.float32)
+    codes = rng.integers(0, ncodes, size=(n, m)).astype(np.uint8)
+    q = rng.uniform(1.0, 2.0, size=(n_q, m * dsub)).astype(np.float32)
+    t64 = ppq.reconstruct(books, codes, m * dsub, dsub).astype(np.float64)
+    q64 = q.astype(np.float64)
+    tn = (t64 ** 2).sum(-1)
+    s_ref = torch.from_numpy(tn[None, :] - 2.0 * (q64 @ t64.T)).to(dev)
+    bound = torch.from_numpy(ppq.k7_rounding(m, dsub) * (
+        (q64 ** 2).sum(-1) + 2.0 * tn.max())).to(dev)
+    lut = ck.pq_luts(torch.from_numpy(q).to(dev),
+                     torch.from_numpy(books).to(dev))
+    parts = ck.prepare_db_pq(torch.from_numpy(codes).to(dev), ck.BIN_W)
+    fn = {"tiled": ck.binned_select, "streaming": ck.stream_select}[kernel]
+    cd, ci, _ = fn(lut, *parts, tile_n=ck.BIN_W, arm="pq")
+    real = ci < n
+    if not bool(real.view(n_q, -1, ck.SURVIVORS, ck.BIN_W)[:, :, 0].all()):
+        raise AssertionError(f"{kernel}_pq: a row's score is missing")
+    rows = torch.where(real, ci, 0).long()
+    err = (cd.double() - torch.gather(s_ref, 1, rows)).abs()
+    return float(torch.where(real, err / bound[:, None], 0.0).max())
+
+
 def far_tile_case(dev, n_q=4096, tile_n=16384, n_tiles=8, dim=16):
     """tests/test_fused_overlap.py:87-89 scaled up: every query sits near a
     row of tiles 0-1; tile t >= 2 is shifted by 500 t, so each segment's
@@ -610,7 +647,7 @@ def lattice_case(dev, n=65_536, dim=128, n_q=4096, seed=3):
     """Rows whose every 4-dim subspace takes one of 256 fixed integer
     points (the codes drawn uniformly), and queries uniform over the same
     box: the farthest-point init recovers the points exactly, so the pq
-    residuals are 0 and ε is the f32 slack alone."""
+    residuals are 0 and ε is the f32 terms alone."""
     rng = np.random.default_rng(seed)
     m = dim // 4
     rows = np.empty((n, dim), np.float32)
@@ -848,6 +885,12 @@ def main(argv=None) -> int:
                 f"{wrappers[kern].__name__}_{arm} binning=lane",
                 f"knn_tpu_torch/csrc/{lib}.cu",
                 "knn_tpu/ops/pallas_knn.py:506")
+        # the lane emitter in the db-major grid (its launches are those of
+        # db_major_launches in a lane-binned run)
+        records[f"db_major_lane_{arm}"] = kernel_record(
+            f"binned_select_{arm} grid_order=db_major binning=lane",
+            "knn_tpu_torch/csrc/binned_coarse.cu",
+            "knn_tpu/ops/pallas_knn.py:506")
     checks = {key: Check() for key in records}
     # record key -> (wrapper, counter attribute, arm) whose count it reads
     counters = {"k1": (ck.binned_select, "launches", "bf16x3"),
@@ -1580,7 +1623,14 @@ def main(argv=None) -> int:
 
     def phase_pq(S):
         from knn_tpu_torch import ShardedKNN
-        from knn_tpu_torch.ops.pq import score_error_bound_pq
+        from knn_tpu_torch.convert import pq_from_numpy
+        from knn_tpu_torch.ops import pq as ppq
+
+        def cert_eps(q, placed):
+            # the certificate's ε (ops.pq.score_error_bound_pq_t)
+            return ppq.score_error_bound_pq_t(
+                torch.from_numpy(q).to(dev), placed["consts"],
+                dsub=placed["dsub"])[1].cpu().numpy()
 
         # K7's three entries bitwise their plain version at the kernel
         # phase's shapes, in grouped and lane binning
@@ -1602,8 +1652,7 @@ def main(argv=None) -> int:
                         ("streaming", ck.stream_select(*args, **kw))):
                     err = bitwise(f"{key}_pq {label} case", out, plain)
                     rec = (f"{key}_pq" if label == "grouped"
-                           else f"{'tiled' if key == 'db_major' else key}"
-                                f"_lane_pq")
+                           else f"{key}_lane_pq")
                     checks[rec].max_abs_err = max(checks[rec].max_abs_err,
                                                   err)
                 cases.append({"q": n_q, "rows": n, "m": m, "ncodes": ncodes,
@@ -1635,7 +1684,7 @@ def main(argv=None) -> int:
                                       ("streaming", ck.stream_select, {}))}
         bound = arm_bound(S, "pq", args, ck.emit_geometry(ck.TILE_N))
         del args
-        eps = score_error_bound_pq(S["q_np"], pq["stats"])
+        eps = cert_eps(S["q_np"], pq)
         runs = run_configs(S, "pq", ("tiled", "tiled_db_major", "streaming"))
         for key, label in (("tiled", "tiled"), ("db_major", "tiled_db_major"),
                            ("streaming", "streaming")):
@@ -1644,7 +1693,7 @@ def main(argv=None) -> int:
                 ms=timing[f"{key}_ms"], plain_ms=plain_ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
-        # the lattice case: residuals 0, so ε is the f32 slack alone
+        # the lattice case: residuals 0, so ε is the f32 terms alone
         rows, q_lat = lattice_case(dev)
         lat = ShardedKNN(rows, k=S["k"])
         torch.cuda.synchronize()
@@ -1676,7 +1725,55 @@ def main(argv=None) -> int:
             raise AssertionError(
                 f"lattice: only {lat_runs['tiled']['certified']} of "
                 f"{q_lat.shape[0]} queries certified")
-        lat_eps = score_error_bound_pq(q_lat, pql["stats"])
+        lat_eps = cert_eps(q_lat, pql)
+        del lat, DL
+
+        # K7 at 196 subspaces (784 dims, dsub 4): its f32 error inside the
+        # worst case binned_select.cuh states, which the certificate's ε
+        # carries (ops.pq.k7_rounding), and a certified search on rows
+        # with zero residuals, where ε is the f32 terms alone
+        ratio196 = {kern: pq_bound_ratio(dev, kern)
+                    for kern in ("tiled", "streaming")}
+        if max(ratio196.values()) > 1.0:
+            raise AssertionError(
+                f"K7's error passed the header's bound at m = 196: "
+                f"{ratio196}")
+        rng = np.random.default_rng(196)
+        m196, n196, k196 = 196, 16384, S["k"]
+        books = (rng.normal(size=(m196, 256, 4)) * 3).astype(np.float32)
+        codes = rng.integers(0, 256, size=(n196, m196)).astype(np.uint8)
+        rows196 = ppq.reconstruct(books, codes, 4 * m196, 4)
+        q196 = (rng.normal(size=(512, 4 * m196)) * 3).astype(np.float32)
+        knn196 = ShardedKNN(rows196, k=k196)
+        placed = pq_from_numpy(
+            knn196, books, codes,
+            ppq.pq_bound_stats(books, codes, rows196, dsub=4), 4, 4 * m196)
+        reset_launches()
+        d196, i196, st196 = knn196.search_certified(
+            q196, margin=28, selector="pallas", precision="pq", tile_n=2048)
+        if read_launches()["tiled_pq"] != 1:
+            raise AssertionError("m = 196: K7 was not launched once")
+        od, oi = f64_oracle(torch.from_numpy(q196).to(dev),
+                            knn196.placement.db, k196)
+        od, oi = od.cpu().numpy(), oi.cpu().numpy()
+        rel196 = float(np.max(np.abs(d196 - od) / np.maximum(od, 1e-30)))
+        if not np.array_equal(i196, oi) or rel196 > ck.RANK_SLACK:
+            raise AssertionError(
+                f"m = 196: certified search differs from the oracle "
+                f"(max_rel_dist_err={rel196})")
+        eps196 = cert_eps(q196, placed)
+        many = {"m": m196, "rows": n196, "queries": q196.shape[0],
+                "error_over_header_bound": ratio196,
+                "same_indices_all_queries": True,
+                "max_rel_dist_err": rel196,
+                "certified": st196["certified"],
+                "fallback_queries": st196["fallback_queries"],
+                "eps_max": float(eps196.max()),
+                "k7_term_share_of_eps": float(np.max(
+                    ppq.k7_rounding(m196, 4)
+                    * ((q196.astype(np.float64) ** 2).sum(-1)
+                       + 2 * placed["stats"]["db_norm_max"]) / eps196))}
+        del knn196, placed
         emit({"phase": "pq", "n": S["n"], "queries": n_q, "k": S["k"],
               "placement_s": placement_s, "train_s": pq["train_s"],
               "m": int(pq["books"].shape[0]), "ncodes": pq["ncodes"],
@@ -1689,8 +1786,9 @@ def main(argv=None) -> int:
                           "train_s": pql["train_s"],
                           "r_sub_max": float(np.max(pql["stats"]["r_sub"])),
                           "norm_err_max": pql["stats"]["norm_err_max"],
-                          "eps_max": float(lat_eps.max()), "runs": lat_runs}})
-        del lat, DL, pql
+                          "eps_max": float(lat_eps.max()), "runs": lat_runs},
+              "many_subspaces": many})
+        del pql
 
     def phase_lane(S):
         from knn_tpu_torch import knn_search_certified, pallas_candidate_fn
@@ -1727,19 +1825,17 @@ def main(argv=None) -> int:
                         ("db_major", ck.binned_select(
                             *args, **kw, grid_order="db_major")),
                         ("streaming", ck.stream_select(*args, **kw))):
-                    rec = "streaming" if key == "streaming" else "tiled"
                     name = f"{key}_lane_{arm} s{surv} b{bin_w}"
+                    chk = checks[f"{key}_lane_{arm}"]
                     if tol_q is None:
                         err = bitwise(name, out, plain)
                     else:
-                        err = max(checks[f"{rec}_lane_{arm}"].values(
-                                      f"{name} cd", out[0], plain[0], tol_q),
-                                  checks[f"{rec}_lane_{arm}"].values(
-                                      f"{name} bounds", out[2], plain[2],
-                                      tol_q))
+                        err = max(chk.values(f"{name} cd", out[0], plain[0],
+                                             tol_q),
+                                  chk.values(f"{name} bounds", out[2],
+                                             plain[2], tol_q))
                         check_ci_lane(name, out, plain, tol_q, geo)
-                    checks[f"{rec}_lane_{arm}"].max_abs_err = max(
-                        checks[f"{rec}_lane_{arm}"].max_abs_err, err)
+                    chk.max_abs_err = max(chk.max_abs_err, err)
                     grouped_fn = (ck.stream_select if key == "streaming"
                                   else ck.binned_select)
                     lane_scores_equal_grouped(
@@ -1751,7 +1847,7 @@ def main(argv=None) -> int:
         emit({"phase": "lane_kernels", "cases": cases})
 
         # each arm's lane entries at the main shape: against the plain
-        # version, against the grouped scores on 512 queries, timed
+        # version, against the grouped scores on every query, timed
         out = {"phase": "lane"}
         geo = ck.emit_geometry(ck.TILE_N, "lane")
         for arm in ck.ARMS:
@@ -1780,16 +1876,20 @@ def main(argv=None) -> int:
                                 ("streaming", ck.stream_select, {})):
                 bitwise(f"{key}_lane_{arm}@main vs tiled",
                         fn(*args, **ka, **kw), tiled)
-            for rec in (f"tiled_lane_{arm}", f"streaming_lane_{arm}"):
+            for kern in ("tiled", "db_major", "streaming"):
+                rec = f"{kern}_lane_{arm}"
                 checks[rec].max_abs_err = max(checks[rec].max_abs_err, err)
             common = lane_scores_equal_grouped(
                 f"lane_{arm}@main", tiled,
                 ck.binned_select(*args, tile_n=ck.TILE_N, arm=arm),
-                args[-1].shape[1], rows=range(512))
+                args[-1].shape[1])
             del tiled
             timing = {
                 "tiled_ms": time_cuda(lambda: ck.binned_select(*args, **ka),
                                       3),
+                "db_major_ms": time_cuda(
+                    lambda: ck.binned_select(*args, **ka,
+                                             grid_order="db_major"), 3),
                 "streaming_ms": time_cuda(
                     lambda: ck.stream_select(*args, **ka), 3)}
             bound = arm_bound(S, arm, args, geo)
@@ -1798,7 +1898,7 @@ def main(argv=None) -> int:
                                         bound=bound, max_abs_err=err,
                                         ci_separated_checked=ci_checked,
                                         rows_compared_with_grouped=common)}
-            for kern in ("tiled", "streaming"):
+            for kern in ("tiled", "db_major", "streaming"):
                 records[f"{kern}_lane_{arm}"].update(
                     ms=timing[f"{kern}_ms"], plain_ms=plain_ms,
                     bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
@@ -1809,35 +1909,46 @@ def main(argv=None) -> int:
             (d, i, _), _ = timed_search(S)
             S["tiled"] = (d, i)
         for arm in ("bf16x3", "bf16x3f", "highest", "int8", "int4", "pq"):
-            runs = run_configs(S, arm, ("tiled", "streaming"),
+            runs = run_configs(S, arm, ("tiled", "tiled_db_major",
+                                        "streaming"),
                                binning="lane", ref_i=S["tiled"][1])
             out[arm]["runs"] = runs
             for kern in ("tiled", "streaming"):
                 records[f"{kern}_lane_{arm}"]["launches"] = \
                     runs[kern]["launches"][f"{kern}_lane_{arm}"]
+            records[f"db_major_lane_{arm}"]["launches"] = \
+                runs["tiled_db_major"]["launches"][f"db_major_{arm}"]
         # the default arm's lane entries through the counted certificate
         counted = {}
-        for kern in ("tiled", "streaming"):
+        for label in ("tiled", "tiled_db_major", "streaming"):
+            kern = kernel_configs[label]["kernel"]
             reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             d, i, st = knn_search_certified(
                 S["q_np"], S["knn"].placement.db_host, S["k"], margin=28,
-                candidate_fn=pallas_candidate_fn(precision="default",
-                                                 kernel=kern, binning="lane"))
+                candidate_fn=pallas_candidate_fn(
+                    precision="default", binning="lane",
+                    **kernel_configs[label]))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches()
             key = f"{kern}_lane_default"
-            if launches[key] != 1 or sum(launches.values()) != 1:
+            own = [key] + (["db_major_default"] if label != kern else [])
+            if any(launches[k] != 1 for k in own) \
+                    or sum(launches.values()) != len(own):
                 raise AssertionError(
-                    f"counted certificate lane {kern}: launches {launches}")
+                    f"counted certificate lane {label}: launches {launches}")
             if not np.array_equal(i, S["tiled"][1]):
                 raise AssertionError(
-                    f"counted certificate lane {kern}: indices differ")
-            recall, same, rel = oracle_check(S, d, i, f"counted lane {kern}")
-            records[key]["launches"] = launches[key]
-            counted[kern] = {"launches": launches, "wall_s": wall,
+                    f"counted certificate lane {label}: indices differ")
+            recall, same, rel = oracle_check(S, d, i, f"counted lane {label}")
+            if label == kern:
+                records[key]["launches"] = launches[key]
+            else:
+                records["db_major_lane_default"]["launches"] = \
+                    launches["db_major_default"]
+            counted[label] = {"launches": launches, "wall_s": wall,
                              "qps": S["n_q"] / wall, "recall_at_k": recall,
                              "same_indices": same, "max_rel_dist_err": rel,
                              "fallback_queries": st["fallback_queries"]}
@@ -1942,6 +2053,14 @@ def main(argv=None) -> int:
 
     for key, rec in records.items():
         rec["max_abs_err"] = checks[key].max_abs_err
+    if phases >= set(ap.get_default("phases").split(",")):
+        # every phase ran: every entry was launched, checked and timed
+        for key, rec in records.items():
+            if not rec["launches"] or any(
+                    rec[f] is None for f in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms")):
+                raise AssertionError(f"kernel record {key} is incomplete: "
+                                     f"{rec}")
     emit({"kernels": list(records.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

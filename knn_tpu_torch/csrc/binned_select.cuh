@@ -849,6 +849,23 @@ struct Emitter {
 // the sum order is fixed, so a kernel and its plain version give the same
 // bits.
 //
+// Worst-case rounding, u = 2^-24, gamma_n = n u / (1 - n u).  On a real row
+// t with codes c_s, t^ its reconstruction (t^_s = cb[s, c_s]), write T_s =
+// ||q_s|| ||t^_s|| + ||t^_s||^2 / 2, so |LUT entry| <= T_s.  The prologue
+// (coarse_knn.pq_luts: a dsub-term f32 dot, a dsub-term f32 norm, one
+// subtraction) errs by <= gamma_{dsub+1} T_s per entry; this kernel's chain
+// of m f32 adds from 0 by <= gamma_{m-1} sum_s |entry|.  So |qt - sum_s
+// LUT_exact| <= gamma_{m+dsub} sum_s T_s, and s = 0 - 2 qt is exact after
+// it: |s - s_pq| <= 2 gamma_{m+dsub} sum_s T_s <= gamma_{m+dsub} (||q||^2 +
+// 2 ||t^||^2) <= gamma_{m+dsub} (||q||^2 + 2 (M + norm_err_max)), with
+// sum_s T_s <= ||q|| ||t^|| + ||t^||^2 / 2 <= ||q||^2 / 2 + ||t^||^2 and
+// ||t^||^2 <= M + norm_err_max (ops/pq.pq_bound_stats).  That is (m + dsub)
+// u (||q||^2 + 2 M) to first order: 36 u at the default m = 32, dsub = 4,
+// but 200 u at m = 196 (784 dims), over the reference certificate's whole
+// f32 slack of 64 eps_f32 (||q||^2 + M) = 128 u (||q||^2 + M).  The port's
+// certificate adds this term to the reference's ε (ops/pq.k7_rounding,
+// score_error_bound_pq_t).
+//
 // Design: the CTA shape of the other arms (32 query rows, 128-row groups in
 // order, 4 x 4 register tile per thread), kPqGroups groups at a time.  The
 // groups' codes ([kPqGroups*128, m] bytes, contiguous in the [Np, m] code

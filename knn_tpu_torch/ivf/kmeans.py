@@ -8,10 +8,7 @@ The **assign** step is the port's own exact search: a
 :class:`~knn_tpu_torch.parallel.sharded.ShardedKNN` placement of the
 current centroids searched with ``k=1`` on the caller's device, whose
 stable top-k breaks a distance tie to the lower centroid index
-(ops/topk.py), as the reference's select does.  On a CUDA device the init's
-float64 distance passes run on the card (:func:`_farthest_point_init_t`,
-the same picks: the pass is four f64 products summed per row and an
-argmax whose ties go to the lowest index on both).
+(ops/topk.py), as the reference's select does.
 
 The rest of the IVF tier (lists, probing, ``quantize_centroids``) is a
 later slice of the port.
@@ -22,7 +19,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import numpy as np
-import torch
 
 from knn_tpu_torch.device import DeviceLike, resolve_device
 
@@ -87,36 +83,6 @@ def _farthest_point_init(rows64: np.ndarray, ncentroids: int,
     return np.sort(np.asarray(picks))
 
 
-def _farthest_point_init_t(rows64: torch.Tensor, ncentroids: int,
-                           seed: int) -> np.ndarray:
-    """:func:`_farthest_point_init` on ``rows64``'s device: the same seed
-    draw, each row's float64 squared distance to the newest pick as
-    numpy's einsum sums four dims (even and odd dims in two running sums,
-    then their sum: ``(p0 + p2) + (p1 + p3)``), ``torch.argmax`` (ties to
-    the first index, as ``np.argmax``)."""
-    n = rows64.shape[0]
-    rng = np.random.default_rng(seed)
-    picks = [int(rng.integers(n))]
-
-    def sq_dist(p):
-        sq = (rows64 - rows64[p]) ** 2
-        even = sq[:, 0]
-        for j in range(2, sq.shape[1], 2):
-            even = even + sq[:, j]
-        if sq.shape[1] == 1:
-            return even
-        odd = sq[:, 1]
-        for j in range(3, sq.shape[1], 2):
-            odd = odd + sq[:, j]
-        return even + odd
-
-    min_sq = sq_dist(picks[0])
-    for _ in range(1, ncentroids):
-        picks.append(int(torch.argmax(min_sq)))
-        min_sq = torch.minimum(min_sq, sq_dist(picks[-1]))
-    return np.sort(np.asarray(picks))
-
-
 def train_kmeans(rows: np.ndarray, ncentroids: int, *,
                  device: DeviceLike = None, iters: int = 5, seed: int = 0,
                  train_tile: Optional[int] = None) -> KMeansResult:
@@ -127,11 +93,7 @@ def train_kmeans(rows: np.ndarray, ncentroids: int, *,
     n, d = rows.shape
     ncentroids = int(min(max(1, ncentroids), n))
     rows64 = rows.astype(np.float64)
-    if dev.type == "cuda":
-        init = _farthest_point_init_t(torch.from_numpy(rows64).to(dev),
-                                      ncentroids, seed)
-    else:
-        init = _farthest_point_init(rows64, ncentroids, seed)
+    init = _farthest_point_init(rows64, ncentroids, seed)
     centroids = rows[init].copy()
     assign = np.zeros(n, np.int64)
     it = 0

@@ -21,7 +21,10 @@ The certificate widens its threshold by
 with ``r_s`` the largest per-subspace residual and ``norm_err_max`` the
 largest ``| ||t||^2 - ||t^||^2 |``, both float64 from the actual rows
 (:func:`pq_bound_stats`).  :func:`score_error_bound_pq_t` is the torch
-twin of the JAX package's traceable ``score_error_bound_pq_device``.
+twin of the JAX package's traceable ``score_error_bound_pq_device``, plus
+one term of the port's own: the worst case of K7's f32 arithmetic, the
+LUT prologue and the m-term sum (:func:`k7_rounding`), which the f32
+slack alone stops covering past m ~ 60 subspaces.
 
 The JAX package reads the pq geometry's defaults from two environment
 switches; the port takes ``dsub`` and ``ncodes`` as arguments with the
@@ -209,11 +212,24 @@ def score_error_bound_pq(q: np.ndarray, stats: dict) -> np.ndarray:
             + _F32_SLACK * (q_norm + stats["db_norm_max"]))
 
 
+def k7_rounding(m: int, dsub: int) -> float:
+    """The coefficient ``g`` of K7's worst-case f32 error on a real row,
+    ``|s_kernel - s_pq| <= g (||q||^2 + 2 (M + norm_err_max))`` with ``s_pq
+    = ||t^||^2 - 2 q.t^`` exact (csrc/binned_select.cuh states the proof):
+    gamma_{m + dsub} = n u / (1 - n u), u = 2^-24, n = m + dsub, times the
+    bound headroom for the f32 evaluation of the bound itself."""
+    n = (int(m) + int(dsub)) * 2.0 ** -24
+    return n / (1.0 - n) * _BOUND_HEADROOM
+
+
 def score_error_bound_pq_t(q: torch.Tensor, consts: torch.Tensor, *,
                            dsub: int):
-    """Torch twin of :func:`score_error_bound_pq` for the certificate, in
-    f32 on ``q``'s device (the JAX package's
-    ``score_error_bound_pq_device``): ``q`` [Q, D] f32, ``consts`` the
+    """The certificate's per-query ε for the pq arm, in f32 on ``q``'s
+    device: the torch twin of :func:`score_error_bound_pq` (the JAX
+    package's ``score_error_bound_pq_device``) plus K7's own f32 error,
+    :func:`k7_rounding` ``x (||q||^2 + 2 (db_norm_max + norm_err_max))``,
+    which the reference leaves to its f32 slack (ROADMAP queue C,
+    divergence 17).  ``q`` [Q, D] f32, ``consts`` the
     :func:`bound_consts_pq` vector ([m + 2] f32).  Returns ``(q_norm [Q],
     eps [Q])``."""
     m = consts.shape[0] - 2
@@ -227,4 +243,6 @@ def score_error_bound_pq_t(q: torch.Tensor, consts: torch.Tensor, *,
     q_norm = (q * q).sum(-1)
     quant = consts[m] + 2.0 * (qs_norm * consts[None, :m]).sum(-1)
     eps = quant * _BOUND_HEADROOM + _F32_SLACK * (q_norm + consts[m + 1])
+    eps = eps + k7_rounding(m, dsub) * (
+        q_norm + 2.0 * (consts[m + 1] + consts[m]))
     return q_norm, eps

@@ -527,6 +527,49 @@ def test_cuda_pq_kernels_bitwise_plain(cuda_device, n_q, n, m, ncodes,
         ck.fused_select(*args, tile_n=tile_n, keep=15, arm="pq")
 
 
+def pq_bound_ratio(device, kernel, n_q=16, n=256, m=196, dsub=4,
+                   ncodes=64):
+    """The largest |s_kernel - s_ref| / bound over every real row for K7's
+    ``kernel`` entry ("plain": its plain version) at ``m`` subspaces (196:
+    784 dims), on rows that are their own reconstruction (residuals 0) and
+    all-nonnegative LUT entries (q in [1, 2], codebook values in [0, 1]:
+    the chain's worst shape, every partial sum grows).  s_ref is the exact
+    f64 score ||t||^2 - 2 q.t; the bound is csrc/binned_select.cuh's worst
+    case, ops.pq.k7_rounding (||q||^2 + 2 M) (norm_err_max is 0 here).
+    With ``tile_n = 128`` every row's score is survivor 0 of its bin."""
+    from knn_tpu_torch.ops import pq as ppq
+
+    rng = np.random.default_rng(m)
+    books = rng.uniform(0.0, 1.0, size=(m, ncodes, dsub)).astype(np.float32)
+    codes = rng.integers(0, ncodes, size=(n, m)).astype(np.uint8)
+    q = rng.uniform(1.0, 2.0, size=(n_q, m * dsub)).astype(np.float32)
+    t64 = ppq.reconstruct(books, codes, m * dsub, dsub).astype(np.float64)
+    q64 = q.astype(np.float64)
+    tn = (t64 ** 2).sum(-1)
+    s_ref = torch.from_numpy(tn[None, :] - 2.0 * (q64 @ t64.T)).to(device)
+    bound = torch.from_numpy(ppq.k7_rounding(m, dsub) * (
+        (q64 ** 2).sum(-1) + 2.0 * tn.max())).to(device)
+    lut = ck.pq_luts(torch.from_numpy(q).to(device),
+                     torch.from_numpy(books).to(device))
+    assert bool((lut >= 0).all())
+    parts = ck.prepare_db_pq(torch.from_numpy(codes).to(device), ck.BIN_W)
+    fn = {"plain": ck.binned_select_plain, "tiled": ck.binned_select,
+          "streaming": ck.stream_select}[kernel]
+    cd, ci, _ = fn(lut, *parts, tile_n=ck.BIN_W, arm="pq")
+    real = ci < n
+    assert bool(real.view(n_q, -1, ck.SURVIVORS, ck.BIN_W)[:, :, 0].all())
+    rows = torch.where(real, ci, 0).long()
+    err = (cd.double() - torch.gather(s_ref, 1, rows)).abs()
+    return float(torch.where(real, err / bound[:, None], 0.0).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["tiled", "streaming"])
+def test_cuda_k7_error_inside_the_header_bound_at_196_subspaces(cuda_device,
+                                                                kernel):
+    assert pq_bound_ratio(cuda_device, kernel) <= 1.0
+
+
 @pytest.mark.cuda
 def test_cuda_pq_and_lane_search_certified_match_the_exact_search(
         cuda_device):

@@ -28,7 +28,8 @@ from knn_tpu_torch.ivf import kmeans as pkm
 from knn_tpu_torch.ops import coarse_knn as ck
 from knn_tpu_torch.ops import pq as ppq
 from knn_tpu_torch.parallel.sharded import ShardedKNN
-from test_torch_cuda import _assert_ci_separated, _assert_lane_ci_separated
+from test_torch_cuda import (_assert_ci_separated, _assert_lane_ci_separated,
+                             pq_bound_ratio)
 
 import oracles
 
@@ -92,13 +93,10 @@ def test_farthest_point_init_picks_match_jax(dim):
         np.float64)
     ref = jkm._farthest_point_init(rows64, 40, seed=5)
     np.testing.assert_array_equal(pkm._farthest_point_init(rows64, 40, 5), ref)
-    np.testing.assert_array_equal(
-        pkm._farthest_point_init_t(torch.from_numpy(rows64), 40, 5), ref)
     # lattice rows: exact ties in the distances go to the lowest index
     lat = np.repeat(np.arange(6.0)[:, None], dim, 1)[rng.integers(0, 6, 200)]
-    np.testing.assert_array_equal(
-        pkm._farthest_point_init_t(torch.from_numpy(lat), 6, 0),
-        jkm._farthest_point_init(lat, 6, 0))
+    np.testing.assert_array_equal(pkm._farthest_point_init(lat, 6, 0),
+                                  jkm._farthest_point_init(lat, 6, 0))
 
 
 @pytest.mark.parametrize("ncodes", [16, 64])
@@ -130,15 +128,45 @@ def test_torch_eps_never_below_host(mesh):
     q = (rng.normal(size=(6, 14)) * 20).astype(np.float32)
     res = jpq.train_pq(rows, mesh=mesh, dsub=4, ncodes=16)
     host = ppq.score_error_bound_pq(q, res.stats)
-    q_norm, eps = ppq.score_error_bound_pq_t(
-        torch.from_numpy(q), torch.from_numpy(ppq.bound_consts_pq(res.stats)),
-        dsub=4)
+    consts = torch.from_numpy(ppq.bound_consts_pq(res.stats))
+    q_norm, eps = ppq.score_error_bound_pq_t(torch.from_numpy(q), consts,
+                                             dsub=4)
     assert (eps.double().numpy() >= host * (1 - 1e-5)).all()
     np.testing.assert_allclose(q_norm.numpy(),
                                (q.astype(np.float64) ** 2).sum(-1), rtol=1e-5)
+    # the JAX device twin's ε plus K7's own f32 term (m = 4 subspaces)
     jq, jeps = jpq.score_error_bound_pq_device(
         jnp.asarray(q), jnp.asarray(jpq.bound_consts_pq(res.stats)), dsub=4)
-    np.testing.assert_allclose(eps.numpy(), np.asarray(jeps), rtol=1e-6)
+    k7 = ppq.k7_rounding(4, 4) * (q_norm + 2.0 * (consts[5] + consts[4]))
+    assert (k7 > 0).all()
+    np.testing.assert_allclose(eps.numpy(), np.asarray(jeps) + k7.numpy(),
+                               rtol=1e-6)
+
+
+def test_k7_rounding_bound_covers_many_subspaces():
+    # 784 dims at dsub 4: m = 196 f32 adds per score, where K7's chain
+    # alone can pass the reference's f32 slack of 128 u (||q||^2 + M)
+    assert ppq.k7_rounding(196, 4) * 2 ** 24 > 200
+    ratio = pq_bound_ratio("cpu", "plain")
+    assert 0.0 < ratio <= 1.0
+    # the certified search at m = 196 on rows with zero residuals: ε is the
+    # f32 terms alone, and the indices are the oracle's
+    rng = np.random.default_rng(5)
+    m, dsub, c, k = 196, 4, 64, 5
+    books = (rng.normal(size=(m, c, dsub)) * 3).astype(np.float32)
+    codes = rng.integers(0, c, size=(600, m)).astype(np.uint8)
+    rows = ppq.reconstruct(books, codes, m * dsub, dsub)
+    queries = (rng.normal(size=(12, m * dsub)) * 3).astype(np.float32)
+    stats = ppq.pq_bound_stats(books, codes, rows, dsub=dsub)
+    assert not stats["r_sub"].any()
+    knn = ShardedKNN(rows, k=k, device="cpu")
+    pq_from_numpy(knn, books, codes, stats, dsub, m * dsub)
+    d, i, st = knn.search_certified(queries, precision="pq", pq_ncodes=c,
+                                    tile_n=256)
+    ref_d, ref_i = _oracle(rows, queries, k)
+    np.testing.assert_array_equal(i, ref_i)
+    np.testing.assert_allclose(d, ref_d, rtol=5e-5)
+    assert st["certified"] == 12
 
 
 # --- the pq prologue and K7's plain version ------------------------------------
