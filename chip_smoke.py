@@ -171,7 +171,15 @@ U32 = 2.0 ** -24
 PAD_SCALE = 1e30
 
 
+#: the script's start, for each phase line's ``elapsed_s``
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """Prints one JSON line; a phase line also gets the seconds since the
+    script started (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -221,21 +229,24 @@ class Check:
 
 
 def tolerance_q(q, db=None, tmax=None, arm="bf16x3"):
-    """Per-query kernel-vs-plain tolerance, as f32 on q's device: 64
-    eps_f32 (||q||^2 + M), M = max||t||^2, for the arms whose kernel and
-    plain version sum f32 products in different orders; for highest,
-    whose two differ only in the order of each chunk's f64 sum, (2 nd + 4)
-    u (||q||^2 + M), u = 2^-24, nd = 128-dim chunks: the chunk sums round
-    to f32 at most an ulp apart, each f32 chunk addition and the rounding
-    of s add at most one more.  ``tmax`` plugs in a precomputed M (a
-    placement's ``db_norm_max``) in place of ``db``."""
+    """Per-query kernel-vs-plain tolerance, as f32 on q's device:
+    coarse_knn.kernel_plain_tolerance_scale (||q||^2 + M), M =
+    max||t||^2 -- for bf16x3 the proved sum of the tensor-core summation's
+    bound and the plain version's (csrc/binned_mma.cuh); 64 eps_f32 for
+    bf16x3f and default, whose kernel and plain version sum f32 products
+    in different orders; for highest, whose two differ only in the order
+    of each chunk's f64 sum, (2 nd + 4) u, u = 2^-24, nd = 128-dim chunks:
+    the chunk sums round to f32 at most an ulp apart, each f32 chunk
+    addition and the rounding of s add at most one more.  ``tmax`` plugs
+    in a precomputed M (a placement's ``db_norm_max``) in place of
+    ``db``."""
+    from knn_tpu_torch.ops.coarse_knn import kernel_plain_tolerance_scale
+
     q64 = q.double()
     qn = (q64 * q64).sum(-1)
     if tmax is None:
         tmax = float((db.double() ** 2).sum(-1).max())
-    scale = 64 * EPS32
-    if arm == "highest":
-        scale = (2 * -(-q.shape[1] // 128) + 4) * U32
+    scale = kernel_plain_tolerance_scale(arm, -(-q.shape[1] // 128))
     return (scale * (qn + tmax)).float()
 
 
@@ -431,9 +442,11 @@ def header_bound_ratio(dev, arm, kernel, n_q=64, n=512, dim=896):
     ``kernel`` entry of f32-family arm ``arm`` on all-positive data at
     Dp = 896 (7 chunks, every product positive: the chains' worst shape).
     s_ref is the exact f64 score of the kernel's own operands (the bf16
-    parts' three products, or the f32 values' one); the bound is
-    csrc/binned_select.cuh's worst case for the arm's qt, doubled in s,
-    plus the rounding of s.  With ``tile_n = 128`` every tile is one
+    parts' three products, or the f32 values' one); the bound is the
+    headers' worst case for the arm's qt (coarse_knn.
+    accumulation_coefficient: csrc/binned_mma.cuh for bf16x3,
+    csrc/binned_select.cuh for the others), doubled in s, plus the
+    rounding of s.  With ``tile_n = 128`` every tile is one
     group, so every row's score is survivor 0 of its bin."""
     import torch
 
@@ -447,13 +460,12 @@ def header_bound_ratio(dev, arm, kernel, n_q=64, n=512, dim=896):
     qp = ck.pad_queries(q)
     parts = ck.prepare_db_arm(db, ck.BIN_W, arm)
     nd = qp.shape[1] // ck.DIM_CHUNK
+    b_qt = ck.accumulation_coefficient(arm, nd)
     if arm == "highest":
         pairs = [(qp, parts[0])]
-        b_qt = nd * (1 + 2.0 ** -20)
     else:
         qh, ql = ck.split_bf16(qp)
         pairs = [(qh, parts[0]), (qh, parts[1]), (ql, parts[0])]
-        b_qt = (3 * ck.DIM_CHUNK + nd) * (1 + 2.0 ** -7)
     qt = sum(a.double() @ b.double().T for a, b in pairs)
     p = sum(a.double().abs() @ b.double().abs().T for a, b in pairs)
     s_ref = parts[-1][0].double()[None, :] - 2.0 * qt
@@ -507,6 +519,55 @@ def pq_bound_ratio(dev, kernel, n_q=64, n=1024, m=196, dsub=4, ncodes=256):
     rows = torch.where(real, ci, 0).long()
     err = (cd.double() - torch.gather(s_ref, 1, rows)).abs()
     return float(torch.where(real, err / bound[:, None], 0.0).max())
+
+
+def fault18_ratios(dev, dim, n_q=64, n=1024):
+    """Fault 18's construction on the card: queries and rows whose every
+    value is one of the f32 values in [1, 1 + 2^-8) whose bf16 split errs
+    most (the split's error in s nears half of 2^-14 (||q||^2 + M)).  For
+    every bf16x3 entry (tiled in both grids, streaming, fused, lane tiled
+    and streaming) the largest |s_kernel - s_f64| over the certificate's
+    tolerance (coarse_knn.kernel_tolerance) and over the reference's 2^-14
+    (||q||^2 + M), over every emitted candidate; raises when the first
+    passes 1."""
+    import torch
+
+    from knn_tpu_torch.ops import coarse_knn as ck
+
+    one = np.float32(1.0).view(np.int32)
+    x = (one + np.arange(2 ** 15, dtype=np.int32)).view(np.float32)
+    xh, xl = (a.double().numpy() for a in ck.split_bf16(torch.from_numpy(x)))
+    x64 = x.astype(np.float64)
+    vals = x[np.argsort(-(x64 * x64 - (xh * xh + 2 * xh * xl)))[:8]]
+    rng = np.random.default_rng(dim)
+    q = vals[rng.integers(0, 8, size=(n_q, dim))]
+    db = vals[rng.integers(0, 8, size=(n, dim))]
+    q64, db64 = q.astype(np.float64), db.astype(np.float64)
+    s64 = torch.from_numpy((db64 ** 2).sum(-1)[None, :]
+                           - 2.0 * q64 @ db64.T).to(dev)
+    scale = (q64 ** 2).sum(-1) + (db64 ** 2).sum(-1).max()
+    tol = torch.from_numpy(ck.kernel_tolerance(q, db, precision="bf16x3")).to(dev)
+    old = torch.from_numpy(2.0 ** -14 * scale).to(dev)
+    qp = ck.pad_queries(torch.from_numpy(q).to(dev))
+    th, tl, tnorm = ck.prepare_db(torch.from_numpy(db).to(dev), ck.BIN_W)
+    out = {}
+    for name, fn, kw in (
+            ("tiled", ck.binned_select, {}),
+            ("db_major", ck.binned_select, {"grid_order": "db_major"}),
+            ("streaming", ck.stream_select, {}),
+            ("fused", ck.fused_select, {"keep": None}),
+            ("lane_tiled", ck.binned_select, {"binning": "lane"}),
+            ("lane_streaming", ck.stream_select, {"binning": "lane"})):
+        cd, ci, _ = fn(qp, th, tl, tnorm, tile_n=ck.BIN_W, arm="bf16x3", **kw)
+        real = ci < n
+        err = torch.where(real, (cd.double() - torch.gather(
+            s64, 1, torch.where(real, ci, 0).long())).abs(), 0.0).amax(-1)
+        out[name] = {"error_over_tolerance": float((err / tol).max()),
+                     "error_over_2^-14": float((err / old).max())}
+        if out[name]["error_over_tolerance"] > 1.0:
+            raise AssertionError(f"fault 18 case, bf16x3 {name} at Dp={dim}: "
+                                 f"{out[name]}")
+    return out
 
 
 def far_tile_case(dev, n_q=4096, tile_n=16384, n_tiles=8, dim=16):
@@ -803,6 +864,46 @@ def profile_search(knn, q_np, **knobs) -> dict:
                 for key in ("binned_select_", "stream_select_"))}
 
 
+def tensor_core_counts(paths):
+    """Tensor-core instructions in each kernel of the built libraries, by
+    library and kernel: HMMA / HGMMA lines of ``cuobjdump -sass`` where
+    the toolkit has it, else the mma / wgmma instructions of the sources'
+    PTX (``nvcc -ptx``).  Returns (tool, {library: {kernel: count}})."""
+    import re
+    from pathlib import Path
+
+    from knn_tpu_torch.ops import _cuda
+
+    counts = {}
+    # cuobjdump sits beside nvcc in the toolkit
+    tool = Path(_cuda._nvcc()).parent / "cuobjdump"
+    tool = str(tool) if tool.exists() else None
+    for name, path in paths.items():
+        per = counts.setdefault(name, {})
+        if tool:
+            text = subprocess.run([tool, "-sass", str(path)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            pattern, head = r"\bH(G)?MMA\b", r"Function : (\S+)"
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                ptx = f"{tmp}/{name}.ptx"
+                subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS[:4], "-ptx",
+                                "-o", ptx, str(_cuda.SOURCES[name])],
+                               check=True, capture_output=True)
+                text = open(ptx).read()
+            pattern, head = r"\b(w)?gmma\.|\bmma\.sync", r"\.entry (\S+)\("
+        current = None
+        for line in text.splitlines():
+            m = re.search(head, line)
+            if m:
+                current = m.group(1)
+                per.setdefault(current, 0)
+            elif current and re.search(pattern, line):
+                per[current] += 1
+    return ("cuobjdump -sass" if tool else "nvcc -ptx"), counts
+
+
 def kernel_record(name, source, replaces):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": None,
@@ -923,7 +1024,24 @@ def main(argv=None) -> int:
     if "build" in phases:
         t0 = time.perf_counter()
         paths = _cuda.build()
-        emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+        build_s = time.perf_counter() - t0
+        # the bf16x3 entries' kernels (K1 in either grid, K10, K11, their
+        # lane builds, Dp = 128 and Dp > 128 builds) must run on the
+        # tensor cores; every other kernel runs on CUDA cores
+        tc_tool, tc = tensor_core_counts(paths)
+        bf16x3_tc = {f"{lib}:{fn}": n for lib, fns in tc.items()
+                     for fn, n in fns.items() if "mma_kernel" in fn
+                     and "probe" not in fn}
+        if len(bf16x3_tc) < 2 or min(bf16x3_tc.values()) < 1:
+            raise AssertionError(
+                f"bf16x3 kernels without tensor-core instructions: "
+                f"{bf16x3_tc}")
+        emit({"phase": "build", "seconds": round(build_s, 3),
+              "tensor_core_tool": tc_tool,
+              "bf16x3_tensor_core_instructions": bf16x3_tc,
+              "other_kernels_tensor_core_instructions": sum(
+                  n for lib, fns in tc.items() for fn, n in fns.items()
+                  if "mma_kernel" not in fn and "probe" not in fn),
               "libraries": {n: str(p.name) for n, p in paths.items()},
               "ptxas": {n: [ln.split(":", 1)[-1].strip()
                             for ln in log.splitlines()
@@ -955,7 +1073,14 @@ def main(argv=None) -> int:
             raise AssertionError("K11 skipped no tile on the far-tile case")
         k11_cases.append(far)
         del fq, fdb
+        # the tensor-core step's rounding against the header's model, and
+        # fault 18's construction through every bf16x3 entry
+        probe = ck.mma_rounding_probe(dev)
+        if max(r["max_error_over_bound"] for r in probe.values()) > 1.0:
+            raise AssertionError(f"mma step outside the header's model: {probe}")
+        fault18 = {f"dp{dim}": fault18_ratios(dev, dim) for dim in (128, 896)}
         emit({"phase": "kernel", "cases": cases, "k11_cases": k11_cases,
+              "mma_rounding_probe": probe, "fault18_case": fault18,
               "max_abs_err": {key: c.max_abs_err for key, c in checks.items()}})
 
     # the SIFT1M-shape placement, queries and oracle, shared by main and
@@ -2061,6 +2186,7 @@ def main(argv=None) -> int:
                                              "bound_ms")):
                 raise AssertionError(f"kernel record {key} is incomplete: "
                                      f"{rec}")
+    emit({"phase": "done", "phases": sorted(phases)})
     emit({"kernels": list(records.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

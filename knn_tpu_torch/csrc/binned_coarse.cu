@@ -29,9 +29,12 @@
 //   bounds [n_q, n_tiles*128] f32  column ti*128 + b
 //
 // Design.  One CTA per (query block of 32 rows, db tile).  The CTA walks the
-// tile's tile_n/128 column groups in ascending order.  For each group it
-// stages slices of the group's 128 db rows and of the query block in shared
-// memory and multiplies them on CUDA cores: the f32 family 64-dim slices
+// tile's tile_n/128 column groups in ascending order.  bf16x3 (K1) runs
+// binned_mma.cuh's mainloop: each group's chunks on the tensor cores
+// through a cp.async ring, its scores through a shared-memory tile into the
+// emitter.  The other arms stage slices of the group's 128 db rows and of
+// the query block in shared memory and multiply them on CUDA cores: the
+// f32 family 64-dim slices
 // (bf16 parts upcast to f32 and the query split into hi/lo parts in-kernel,
 // or f32 values converted to f64 for highest -- once, when staged), each
 // 128-dim chunk summed in its own accumulator (chunk 0 in the score's own,
@@ -60,13 +63,14 @@
 // at the SIFT1M shape (Q=4096); highest is an f32-accurate product (three
 // TF32 products on tensor cores are the cheapest such route); int8 is one
 // int8 product (Q*Np*Dp MACs) against ~0.8 GB (int4 ~0.7 GB).  All sit far
-// above the H100's ridge points.  This first version runs them on CUDA
-// cores (f32 FMA pipes at 67 TFLOP/s, f64 at half that, __dp4a for the int
-// arms), not the tensor cores (989 TFLOP/s bf16, 495 TF32, 1,979 TOP/s
-// int8), so it is expected to run an order of magnitude above its bound;
-// wgmma / mma.sync, TMA and a persistent grid are later work.
+// above the H100's ridge points.  bf16x3 runs on the tensor cores
+// (binned_mma.cuh: its 32-query CTA reads the db rows once per query
+// block, so the L2 traffic, not the products, limits it); the other arms
+// on CUDA cores (f32 FMA pipes at 67 TFLOP/s, f64 at half that, __dp4a for
+// the int arms), an order of magnitude above their bounds; their tensor-
+// core forms (3xTF32, s8 MMA) are later work.
 
-#include "binned_select.cuh"
+#include "binned_mma.cuh"
 
 namespace {
 
@@ -77,17 +81,17 @@ constexpr int kDbStride = kDimSlice + 1;   // pad: conflict-free row reads
 
 constexpr size_t kComputeBytes = kF32ComputeBytes<kDimSlice>;   // 84,992 B
 // dynamic shared memory of the single-chunk (Dp = 128) and the multi-chunk
-// builds of an f32 kernel: the multi-chunk one adds the running sums
+// builds of a CUDA-core f32 kernel: the multi-chunk one adds the running
+// sums
 template <bool kMulti>
 constexpr size_t kSmemBytes = kComputeBytes + (kMulti ? kRunBytes : 0);
 constexpr int kMaxGridY = 65535;
 
 // Stages dims k0 .. k0+63 of db rows row0 .. row0+127 and of query rows
 // q0 .. q0+31 into the compute buffers for pass ``pass`` of the chunk: the
-// db part(s) it reads (th, tl or both) upcast to f32, 8 bf16 per 16-byte
-// load, or t converted to f64, 4 f32 per load; the query's bf16 part(s)
-// (or the query converted to f64), k-major for 16-byte reads, rows past
-// n_q as zeros.
+// db part it reads (th or tl) upcast to f32, 8 bf16 per 16-byte load, or t
+// converted to f64, 4 f32 per load; the query's bf16 part (or the query
+// converted to f64), k-major for 16-byte reads, rows past n_q as zeros.
 template <Arm kArm>
 __device__ __forceinline__ void stage_slice(
     const F32Bufs<kArm, kDimSlice, kDbStride>& bufs,
@@ -118,10 +122,6 @@ __device__ __forceinline__ void stage_slice(
       const int at = r * kDbStride + seg * 8;
       put_bf16x8(*reinterpret_cast<const uint4*>(src + off),
                  static_cast<float*>(bufs.db0) + at);
-      if constexpr (kUsesLo<kArm>)
-        put_bf16x8(*reinterpret_cast<const uint4*>(
-                       static_cast<const __nv_bfloat16*>(db1) + off),
-                   static_cast<float*>(bufs.db1) + at);
     }
   }
 #pragma unroll
@@ -136,13 +136,12 @@ __device__ __forceinline__ void stage_slice(
     const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      store_query<kArm>(xs[e], bufs.qa, bufs.qb, (c4 * 4 + e) * kQStride + r,
-                        pass);
+      store_query<kArm>(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r, pass);
   }
 }
 
-// The f32 family (K1, K4, K2, K3).  db0 / db1: th / tl bf16 (bf16x3,
-// bf16x3f), th alone (default), t f32 (highest).  kMulti: the build for
+// The CUDA-core f32 family (K4, K2, K3).  db0 / db1: th / tl bf16
+// (bf16x3f), th alone (default), t f32 (highest).  kMulti: the build for
 // Dp > 128 (sum_chunks).
 template <Arm kArm, bool kMulti, int kSlots>
 __global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
@@ -191,6 +190,24 @@ binned_select_f32_kernel(const float* __restrict__ q,
     em.group(acc, tnorm, row0, g, ti, out, place);
   }
   em.end_tile(ti, out, place, false);
+}
+
+// K1: the bf16x3 arm on tensor cores (binned_mma.cuh), one db tile per
+// CTA.  kMulti: the build for Dp > 128 (the query's chunk staged per step).
+template <bool kMulti, int kSlots>
+__global__ void __launch_bounds__(kThreads, 1)
+binned_select_mma_kernel(const float* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ th,
+                         const __nv_bfloat16* __restrict__ tl,
+                         const float* __restrict__ tnorm, Out out, int dp,
+                         int db_major) {
+  extern __shared__ float4 smem_f4[];
+  __shared__ int warp_ok[kThreads / 32];
+  const int ti = db_major ? blockIdx.y : blockIdx.x;
+  const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
+  bf16x3_walk<kMulti, kSlots, false>(
+      q, th, tl, tnorm, out, dp, q0, ti, ti + 1, 0,
+      reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
 }
 
 // K5 / K6: the same walk over groups, one 128-dim int8 chunk per pass.
@@ -276,15 +293,29 @@ template <Arm kArm, bool kMulti, int kSlots>
 cudaError_t launch_f32(dim3 grid, const void* p0, const void* p1,
                        const void* p2, const void* p3, const Out& out, int dp,
                        int db_major, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      binned_select_f32_kernel<kArm, kMulti, kSlots>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes<kMulti>));
-  if (err != cudaSuccess) return err;
-  binned_select_f32_kernel<kArm, kMulti, kSlots>
-      <<<grid, kThreads, kSmemBytes<kMulti>, stream>>>(
-          static_cast<const float*>(p0), p1, p2,
-          static_cast<const float*>(p3), out, dp, db_major);
+  if constexpr (kArm == Arm::kBf16x3) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        binned_select_mma_kernel<kMulti, kSlots>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMmaSmemBytes<kMulti>));
+    if (err != cudaSuccess) return err;
+    binned_select_mma_kernel<kMulti, kSlots>
+        <<<grid, kThreads, kMmaSmemBytes<kMulti>, stream>>>(
+            static_cast<const float*>(p0),
+            static_cast<const __nv_bfloat16*>(p1),
+            static_cast<const __nv_bfloat16*>(p2),
+            static_cast<const float*>(p3), out, dp, db_major);
+  } else {
+    const cudaError_t err = cudaFuncSetAttribute(
+        binned_select_f32_kernel<kArm, kMulti, kSlots>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemBytes<kMulti>));
+    if (err != cudaSuccess) return err;
+    binned_select_f32_kernel<kArm, kMulti, kSlots>
+        <<<grid, kThreads, kSmemBytes<kMulti>, stream>>>(
+            static_cast<const float*>(p0), p1, p2,
+            static_cast<const float*>(p3), out, dp, db_major);
+  }
   return cudaGetLastError();
 }
 
@@ -386,3 +417,16 @@ TILED_ENTRY(default, Arm::kDefault)
 TILED_ENTRY(int8, Arm::kInt8)
 TILED_ENTRY(int4, Arm::kInt4)
 TILED_ENTRY(pq, Arm::kPq)
+
+// One tensor-core k-step of the bf16x3 kernels on its own (the rounding
+// probe of binned_mma.cuh's model): d = c + a . b^T, a [16][16] bf16, b
+// [8][16] bf16, c and d [16][8] f32, row-major.  Returns cudaGetLastError()
+// after the launch.
+extern "C" int mma_probe_bf16(const void* a, const void* b, const void* c,
+                              void* d, void* stream) {
+  binned::mma_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<const float*>(c),
+      static_cast<float*>(d));
+  return static_cast<int>(cudaGetLastError());
+}

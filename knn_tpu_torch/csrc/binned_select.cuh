@@ -2,8 +2,10 @@
 // tiled entries of every arm (binned_coarse.cu, one CTA per query block and
 // db tile) and the streaming / fused entries of every arm (binned_stream.cu,
 // one CTA per query block walking a run of db tiles): the per-score
-// arithmetic of the f32 and int arms (this part), both emitters (grouped
-// and lane binning, K8) and the pq arm's walk (K7), below.
+// arithmetic of the CUDA-core f32 and int arms (this part), both emitters
+// (grouped and lane binning, K8), K11's carry and skip, and the pq arm's
+// walk (K7), below.  The bf16x3 arm (K1, K10, K11) runs on the tensor
+// cores: binned_mma.cuh.
 //
 // Every kernel of one arm computes each score with the same arithmetic, in
 // the same order, so the tiled, streaming and fused outputs of the arm are
@@ -17,10 +19,10 @@
 // (sum_chunks, in the kernels' multi-chunk build): one accumulator tile is
 // in registers at a time.
 //
-//   bf16x3 (K1, K10, K11):
-//     qh = bf16_rn(q), ql = bf16_rn(q - qh)                 (store_query)
-//     cacc += qh*th; cacc += qh*tl; cacc += ql*th, dim by dim (fma_slice)
-//   bf16x3f (K4): the same products, in the order of the TPU's one dot
+//   bf16x3 (K1, K10, K11): qh.th + (qh.tl + ql.th) per chunk on tensor
+//     cores, chunks added in f32 (binned_mma.cuh)
+//   bf16x3f (K4): qh = bf16_rn(q), ql = bf16_rn(q - qh)     (store_query),
+//     the products qh*th, qh*tl, ql*th in the order of the TPU's one dot
 //     over the 3x contraction [qh|qh|ql].[th|tl|th] (pallas_knn.py:407-414):
 //     per chunk all 128 qh*th, then all qh*tl, then all ql*th, in one f32
 //     chunk accumulator (three passes of fma_pair over the chunk, each
@@ -44,20 +46,28 @@
 // Worst-case rounding of the f32-family scores, u = 2^-24, P = sum_i |q_i
 // t_i| <= ||q|| ||t|| <= (||q||^2 + M) / 2 with M = max ||t||^2:
 //
-//   bf16x3, bf16x3f.  Products of bf16 values are exact in f32, so the only
-//     accumulation error is the summation's: a chain of 3*128 terms per
-//     chunk, then nd - 1 chunk additions, |err(qt)| <= (384 + nd) u P (1 +
-//     2^-7).  In s = tn - 2 qt that is <= (384 + nd) u (||q||^2 + M) =
-//     (0.375 + nd / 1024) 2^-14 (||q||^2 + M), under the certificate's
-//     2^-14 tolerance for any dim.  (A single chain of 3 Dp terms, as K1
-//     ran before, gives 3 Dp u (||q||^2 + M): past Dp ~ 340 that alone
-//     exceeds the tolerance, ~2.6x at Dp = 896.)  The split itself is not
-//     exact: q t - (qh th + qh tl + ql th) <= 3 * 2^-16 |q t| per dim (the
-//     dropped ql tl and the two low-part roundings), i.e. up to 0.75 of the
-//     tolerance in s when every dim's roundings are at their largest and
-//     align; the reference's tolerance model (pallas_knn.py:1532-1534) puts
-//     them at 1/16.  Together the two can pass 2^-14 by up to ~13% only on
-//     such constructed input; ROADMAP queue C, fault 12.
+//   bf16x3, bf16x3f: the certificate's slack, proved (coarse_knn.
+//     bf16_tolerance_scale, read by the host tolerance and the device
+//     certificate alike).  Three terms, per unit of (||q||^2 + M) in s:
+//     - the split.  bf16 keeps 8 significant bits: |q - qh| <= 2^-8 |q|,
+//       ql = bf16_rn(q - qh) errs by <= 2^-16 |q|, so q = qh + ql + e_q
+//       with |e_q| <= 2^-16 |q| (t likewise), and q t - (qh th + qh tl +
+//       ql th) = ql tl + e_q t' + q' e_t, at most 3 * 2^-16 (1 + 2^-7) |q
+//       t| per dim.  Doubled in s over sum |q_i t_i| <= P: SPLIT_SCALE =
+//       3 * 2^-16 (1 + 2^-7) = 0.754 of 2^-14, reached when every dim's
+//       roundings are at their largest and align (the reference's model,
+//       pallas_knn.py:1532-1534, puts them at 1/16 of 2^-14);
+//     - the summation.  Products of bf16 values are exact in f32.
+//       bf16x3 on tensor cores: (320 + nd)(1 + 2^-7) u (binned_mma.cuh);
+//       bf16x3f, a chain of 3*128 FMAs per chunk, then nd - 1 chunk
+//       additions: (384 + nd)(1 + 2^-7) u (coarse_knn.
+//       accumulation_coefficient);
+//     - the headroom: 64 u for the f32 norms, the rounding of s and the
+//       certificate's f32 adds, the budget the highest arm keeps below.
+//     Their sum, 0.754 + 0.32 + 0.06 = 1.14 of 2^-14 (bf16x3, Dp = 128)
+//     or 1.20 (bf16x3f), replaces the reference's 2^-14 whenever it is
+//     larger (ROADMAP divergence 18; the sum of the split and the old
+//     chain could pass 2^-14 by ~13%, fault 18).
 //   highest.  Each product of two f32 values is exact in f64; the chunk's
 //     f64 sum errs by <= 127 * 2^-53 P_c and its rounding to f32 by u P_c;
 //     the nd - 1 f32 chunk additions by (nd - 1) u P.  So |err(qt)| <=
@@ -100,6 +110,7 @@ constexpr int kThreads = 256;    // 8 query quads x 32 lane columns
 constexpr int kQuadQ = 4;        // query rows per thread
 constexpr int kQuadL = 4;        // lanes per thread (strided 32 apart)
 constexpr int kQStride = kBlockQ + 4;   // keeps float4 / double2 reads aligned
+constexpr int kMaxCarry = 8;             // MAX_CARRY_DEPTH (K11's carry)
 
 // The coarse pass's arithmetic arms; the values are the C entries' codes
 // (ops/coarse_knn.ARMS order).
@@ -130,12 +141,6 @@ constexpr int kPasses = kArm == Arm::kBf16x3f ? 3 : 1;
 template <Arm kArm>
 using Elem = std::conditional_t<kArm == Arm::kHighest, double, float>;
 
-// bf16x3 stages both bf16 parts of the db and of the query (th, tl, qh,
-// ql) for each slice; bf16x3f one of each per pass (th + qh, tl + qh,
-// th + ql); default the hi parts alone.
-template <Arm kArm>
-constexpr bool kUsesLo = kArm == Arm::kBf16x3;
-
 // The db part (0: th or t, 1: tl) and query part (0: qh or q, 1: ql) that
 // pass ``pass`` of a chunk reads.
 template <Arm kArm>
@@ -153,10 +158,11 @@ __host__ __device__ constexpr int q_part(int pass) {
 template <Arm kArm>
 constexpr int kMinCtas = kArm == Arm::kHighest ? 1 : 2;
 
-// Bytes of the f32 family's compute buffers for a slice of kSlice dims:
-// two f32 db parts [128][kSlice+1] and two f32 query parts [kSlice][kQStride]
-// (bf16 arms), or one f64 db part and one f64 query part (highest) -- the
-// same size.
+// Bytes of the CUDA-core f32 family's compute buffers for a slice of
+// kSlice dims, sized for one f64 db part [128][kSlice+1] and one f64 query
+// part [kSlice][kQStride] (highest); bf16x3f and default use the first
+// half, as f32, and keep the same footprint (their occupancy and tile
+// segments as measured).
 template <int kSlice>
 constexpr size_t kF32ComputeBytes =
     sizeof(double) * (kBinW * (kSlice + 1) + kSlice * kQStride);
@@ -210,9 +216,10 @@ __device__ __forceinline__ float chunk_f32(T c) {
 // [(i * kQuadL + j) * kThreads + tid] (conflict-free).
 constexpr size_t kRunBytes = sizeof(float) * kQuadQ * kQuadL * kThreads;
 
-// The f32 family's score sums acc = 0 + c_0 + c_1 + ... over nd chunks,
+// The CUDA-core f32 family's score sums acc = 0 + c_0 + c_1 + ... over nd
+// chunks,
 // where chunk(c, sum) adds the products of chunk c into ``sum`` (f32, or
-// f64 for highest).  The bf16 arms sum chunk 0 straight into acc (0 + c_0
+// f64 for highest).  bf16x3f and default sum chunk 0 straight into acc (0 + c_0
 // == c_0, and an FMA chain from +0 never ends at -0).  Every f32 kernel is
 // built twice and launched by Dp: kMulti = false for Dp = 128 (nd = 1: the
 // one chunk, nothing else -- the register and shared-memory footprint of
@@ -257,25 +264,19 @@ __device__ __forceinline__ void sum_chunks(int nd, float* run, int tid,
 }
 
 // One query value as the arm stores it at k-major position ``at``: the
-// hi / lo bf16 parts with round-to-nearest-even (JAX's astype) as f32
-// (bf16x3 both, in qa and qb; bf16x3f the part pass ``pass`` reads, in qa;
-// default the hi part), or the value as f64 (highest, converted once here,
-// not per product).
+// hi or lo bf16 part with round-to-nearest-even (JAX's astype) as f32
+// (bf16x3f the part pass ``pass`` reads; default the hi part), or the
+// value as f64 (highest, converted once here, not per product).
 template <Arm kArm>
-__device__ __forceinline__ void store_query(float x, void* qa, void* qb,
-                                            int at, int pass) {
+__device__ __forceinline__ void store_query(float x, void* qa, int at,
+                                            int pass) {
   if constexpr (kArm == Arm::kHighest) {
     static_cast<double*>(qa)[at] = static_cast<double>(x);
   } else {
     const float hf = __bfloat162float(__float2bfloat16_rn(x));
-    if constexpr (kUsesLo<kArm>) {
-      static_cast<float*>(qa)[at] = hf;
-      static_cast<float*>(qb)[at] = __bfloat162float(__float2bfloat16_rn(x - hf));
-    } else {
-      static_cast<float*>(qa)[at] =
-          q_part<kArm>(pass) ? __bfloat162float(__float2bfloat16_rn(x - hf))
-                             : hf;
-    }
+    static_cast<float*>(qa)[at] =
+        q_part<kArm>(pass) ? __bfloat162float(__float2bfloat16_rn(x - hf))
+                           : hf;
   }
 }
 
@@ -292,36 +293,6 @@ __device__ __forceinline__ void load_q4(const double* qs, int k, int quad,
       reinterpret_cast<const double2*>(qs + k * kQStride + quad * 4);
   const double2 a = p[0], b = p[1];
   out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-}
-
-// K1's order: cacc[i][j] += qh*th + qh*tl + ql*th over kSlice dims staged in
-// shared memory (three FMAs per dim, in this order).  bf16 products are
-// exact in f32, so these FMAs give the products a bf16 MMA with f32
-// accumulation gives.
-template <int kSlice, int kDbStride>
-__device__ __forceinline__ void fma_slice(const float* ths, const float* tls,
-                                          const float* qhs, const float* qls,
-                                          int quad, int lane_col, Acc& acc) {
-#pragma unroll 4
-  for (int k = 0; k < kSlice; ++k) {
-    float qh[kQuadQ], ql[kQuadQ];
-    load_q4(qhs, k, quad, qh);
-    load_q4(qls, k, quad, ql);
-    float tv[kQuadL], lv[kQuadL];
-#pragma unroll
-    for (int j = 0; j < kQuadL; ++j) {
-      tv[j] = ths[(lane_col + 32 * j) * kDbStride + k];
-      lv[j] = tls[(lane_col + 32 * j) * kDbStride + k];
-    }
-#pragma unroll
-    for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kQuadL; ++j) {
-        acc[i][j] = fmaf(qh[i], tv[j], acc[i][j]);
-        acc[i][j] = fmaf(qh[i], lv[j], acc[i][j]);
-        acc[i][j] = fmaf(ql[i], tv[j], acc[i][j]);
-      }
-  }
 }
 
 __device__ __forceinline__ float fma_rn(float a, float b, float c) {
@@ -355,47 +326,31 @@ __device__ __forceinline__ void fma_pair(const T* ts, const T* qs, int quad,
 }
 
 // Where a slice's db rows and query values go in the compute buffers:
-// th, tl, qh, ql (bf16x3); the pass's db part and query part (bf16x3f);
-// th, qh (default); t, q as f64 (highest).
+// the pass's db part and query part (bf16x3f); th, qh (default); t, q as
+// f64 (highest).
 template <Arm kArm, int kSlice, int kDbStride>
 struct F32Bufs {
   void* db0;   // [128][kDbStride]
-  void* db1;   // tl, [128][kDbStride] (bf16x3)
   void* qa;    // [kSlice][kQStride]
-  void* qb;    // ql, [kSlice][kQStride] (bf16x3)
   __device__ explicit F32Bufs(void* cbuf) {
     using T = Elem<kArm>;
     T* p = static_cast<T*>(cbuf);
     db0 = p;
-    if constexpr (kUsesLo<kArm>) {
-      db1 = p + kBinW * kDbStride;
-      qa = p + 2 * kBinW * kDbStride;
-      qb = p + 2 * kBinW * kDbStride + kSlice * kQStride;
-    } else {
-      db1 = nullptr;
-      qa = p + kBinW * kDbStride;
-      qb = nullptr;
-    }
+    qa = p + kBinW * kDbStride;
   }
 };
 
-// The f32 family's products over one staged slice into ``acc``: K1's three
-// per dim, or one per dim of the staged pair (the other arms; bf16x3f's
-// pass staged the pair it reads).
+// The CUDA-core f32 family's products over one staged slice into ``acc``:
+// one per dim of the staged pair (bf16x3f's pass staged the pair it
+// reads).
 template <Arm kArm, int kSlice, int kDbStride>
 __device__ __forceinline__ void slice_products(
     const F32Bufs<kArm, kSlice, kDbStride>& b, int quad, int lane_col,
     Tile<Elem<kArm>>& acc) {
   using T = Elem<kArm>;
-  if constexpr (kUsesLo<kArm>)
-    fma_slice<kSlice, kDbStride>(
-        static_cast<const float*>(b.db0), static_cast<const float*>(b.db1),
-        static_cast<const float*>(b.qa), static_cast<const float*>(b.qb),
-        quad, lane_col, acc);
-  else
-    fma_pair<kSlice, kDbStride>(static_cast<const T*>(b.db0),
-                                static_cast<const T*>(b.qa), quad, lane_col,
-                                acc);
+  fma_pair<kSlice, kDbStride>(static_cast<const T*>(b.db0),
+                              static_cast<const T*>(b.qa), quad, lane_col,
+                              acc);
 }
 
 // Stores 8 consecutive db values of row r, dims c .. c+7 of the slice, into
@@ -836,6 +791,68 @@ struct Emitter {
     }
   }
 };
+
+// K11's early-out (the fused entries of every f32 and int arm; the TPU's
+// pallas_knn.py:722-828; binned_stream.cu states the rule and why it is
+// sound).  Per (query, lane) a sorted carry of ``depth`` running minima of
+// the tiles' lane minima, in thread-local memory.
+__device__ __forceinline__ void reset_carry(
+    float (&carry)[kQuadQ][kQuadL][kMaxCarry], int depth) {
+#pragma unroll
+  for (int i = 0; i < kQuadQ; ++i)
+#pragma unroll
+    for (int j = 0; j < kQuadL; ++j)
+#pragma unroll 1
+      for (int d = 0; d < depth; ++d)
+        carry[i][j][d] = __int_as_float(0x7f800000);
+}
+
+// At a tile's end: true when every real query row of the CTA's block has
+// its tile minimum above thr (the largest lane's deepest carry value
+// before this tile); the carry then takes the tile's lane minima.  depth
+// = 0 skips nothing.  Every thread of the CTA calls it (a barrier).
+__device__ __forceinline__ bool fused_skip(
+    const Emitter<0>& em, float (&carry)[kQuadQ][kQuadL][kMaxCarry],
+    int depth, const Place& p, int n_q, int* warp_ok) {
+  if (depth == 0) return false;
+  const float inf = __int_as_float(0x7f800000);
+  float tmin[kQuadQ], thr[kQuadQ];
+#pragma unroll
+  for (int i = 0; i < kQuadQ; ++i) {
+    tmin[i] = inf;
+    thr[i] = -inf;
+#pragma unroll
+    for (int j = 0; j < kQuadL; ++j) {
+      const float lane_min = em.vals[i][j][0];
+      tmin[i] = fminf(tmin[i], lane_min);
+      thr[i] = fmaxf(thr[i], carry[i][j][depth - 1]);
+      // sorted insertion of the lane minimum into the carry
+      float cur = lane_min;
+#pragma unroll 1
+      for (int d = 0; d < depth; ++d) {
+        const float c = carry[i][j][d];
+        carry[i][j][d] = fminf(c, cur);
+        cur = fmaxf(c, cur);
+      }
+    }
+  }
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < kQuadQ; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      tmin[i] = fminf(tmin[i], __shfl_xor_sync(0xffffffffu, tmin[i], off));
+      thr[i] = fmaxf(thr[i], __shfl_xor_sync(0xffffffffu, thr[i], off));
+    }
+    ok = ok && (p.q0 + p.quad * 4 + i >= n_q || tmin[i] > thr[i]);
+  }
+  if (p.lane_col == 0) warp_ok[p.quad] = ok;
+  __syncthreads();
+  bool skip = true;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) skip = skip && warp_ok[w];
+  return skip;
+}
 
 // ---------------------------------------------------------------------------
 // K7, the pq arm (pallas_knn.py:362-381, 443-452, 679-684):

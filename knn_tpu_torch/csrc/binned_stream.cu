@@ -25,18 +25,21 @@
 //   unknown, or depth > MAX_CARRY_DEPTH = 8): nothing skips, output = the
 //   streaming kernel's.
 //
-// Design.  Grid (segments, query blocks of 32 rows).  A CTA walks the db
-// tiles of its segment in order, each tile's 128-row column groups in order,
-// each group's dims in steps: the f32 family 32 dims (bf16x3f walks each
-// 128-dim chunk three times, one pass per product, so its steps are
-// (pass, 32 dims)), int8 / int4 one 128-dim chunk.  Step t+1's raw operands
-// (th and tl bf16 rows -- the pass's part for bf16x3f, th alone for
-// default -- or f32 rows for highest,
-// and the f32 query slice; int: the int8 or packed int4 db rows and the int8
-// query slice) are copied into the second of two shared stages with cp.async
-// while step t is converted (bf16 -> f32 and the query's hi/lo split; f32 ->
-// f64 for highest; int4 nibbles -> int8 words, int8 rows -> padded word
-// rows) into the compute buffers and multiplied: the counterpart of the TPU
+// Design.  Grid (segments, query blocks of 32 rows).  A CTA walks the
+// db tiles of its segment in order, each tile's 128-row column groups in
+// order.  bf16x3 (K10, K11) runs binned_mma.cuh's mainloop over the run:
+// (tile, group, 128-dim chunk) steps through a two-stage cp.async ring,
+// products on the tensor cores -- the same code as K1, so the same bits.
+// The other arms walk each group's dims in steps: the f32 family 32 dims
+// (bf16x3f walks each 128-dim chunk three times, one pass per product, so
+// its steps are (pass, 32 dims)), int8 / int4 one 128-dim chunk.  Step
+// t+1's raw operands (the pass's bf16 part for bf16x3f, th alone for
+// default, or f32 rows for highest, and the f32 query slice; int: the int8
+// or packed int4 db rows and the int8 query slice) are copied into the
+// second of two shared stages with cp.async while step t is converted
+// (bf16 -> f32 and the query's hi/lo split; f32 -> f64 for highest; int4
+// nibbles -> int8 words, int8 rows -> padded word rows) into the compute
+// buffers and multiplied on CUDA cores: the counterpart of the TPU
 // kernel's make_async_copy double buffer.  Each tile's block goes straight
 // to its own column offset in global memory.
 //
@@ -45,10 +48,11 @@
 // wrapper (ops/coarse_knn.stream_segment_tiles) picks n_seg = min(n_tiles,
 // floor(wave / query blocks)) segments, where wave = SMs x the CTAs per SM
 // that stream_ctas_per_sm reads from the occupancy API for the built kernel
-// of the arm (bf16x3, highest: 84 KB of shared memory; bf16x3f, default
-// 68 KB; the f32 arms' multi-chunk builds 16 KB more; int8 61 KB, int4
-// 45 KB; highest is compiled for one CTA per SM, the others for two).  The
-// streaming output does not depend on the split.
+// of the arm (bf16x3: 170 KB of shared memory, 202 KB above Dp = 128, one
+// CTA per SM; highest 84 KB; bf16x3f, default 68 KB; their multi-chunk
+// builds 16 KB more; int8 61 KB, int4 45 KB; highest is compiled for one
+// CTA per SM, the others for two).  The streaming output does not depend on
+// the split.
 //
 // The fused skip depends on the query block and on the segment: each segment
 // keeps its own carry, reset at its first tile.  That stays sound: the carry
@@ -65,15 +69,15 @@
 // The carry lives in thread-local memory (L1 / L2), 16 (query, lane) slots x
 // depth floats per thread, read and written once per tile.
 //
-// What bounds it on this card: operations, as the tiled kernels: the
-// products run for every tile before the skip is decided, so the early-out
-// saves only the skipped tile's output writes in this design, never the
-// products.  They run on CUDA cores (f32 FMAs for the bf16 arms, f64 FMAs
-// for highest, __dp4a for the int arms), an order of magnitude above the
-// tensor-core bound; wgmma / mma.sync, TMA and a persistent grid are later
-// work.  bf16x3f copies one db part per pass, 1.5x K1's db bytes from L2.
+// What bounds it on this card: as the tiled kernels.  The products run for
+// every tile before the skip is decided, so the early-out saves only the
+// skipped tile's output writes in this design, never the products.
+// bf16x3's run on the tensor cores (binned_mma.cuh); the other arms' on
+// CUDA cores (f32 FMAs, f64 FMAs for highest, __dp4a for the int arms), an
+// order of magnitude above the tensor-core bound.  bf16x3f copies one db
+// part per pass, 1.5x bf16x3's db bytes from L2.
 
-#include "binned_select.cuh"
+#include "binned_mma.cuh"
 
 namespace {
 
@@ -81,7 +85,6 @@ using namespace binned;
 
 constexpr int kSlice = 32;                 // f32-family dims per step
 constexpr int kDbStride = kSlice + 1;      // pad: conflict-free row reads
-constexpr int kMaxCarry = 8;               // MAX_CARRY_DEPTH
 constexpr int kRawDb = kBinW * kSlice;     // db values per part per stage
 
 // Per-arm pipeline geometry: dims per step, bytes of the db half of one
@@ -93,7 +96,7 @@ template <Arm kArm>
 constexpr size_t kDbStage =
     kIsInt<kArm> ? kBinW * db_row_bytes<kArm>(kDimChunk)   // [128][chunk]
     : kArm == Arm::kHighest ? kRawDb * sizeof(float)       // t [128][32] f32
-    : (kUsesLo<kArm> ? 2 : 1) * kRawDb * sizeof(__nv_bfloat16);  // th (, tl)
+    : kRawDb * sizeof(__nv_bfloat16);                      // th or tl
 
 template <Arm kArm>
 constexpr size_t kStageBytes =  // then the query rows [32][step]
@@ -118,29 +121,13 @@ constexpr size_t kSmemBytes =
 template <Arm kArm>
 constexpr bool kMultiFits =
     kMinCtas<kArm> * (kSmemBytes<kArm, true> + 1024) <= 228 * 1024;
-static_assert(kMultiFits<Arm::kBf16x3> && kMultiFits<Arm::kBf16x3f> &&
-                  kMultiFits<Arm::kHighest> && kMultiFits<Arm::kDefault>,
+static_assert(kMultiFits<Arm::kBf16x3f> && kMultiFits<Arm::kHighest> &&
+                  kMultiFits<Arm::kDefault>,
               "the multi-chunk build would lose occupancy");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  // src_bytes < 16 zero-fills the rest (query rows past n_q)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Starts the f32 family's copies of one step, pass ``pass`` of its chunk:
-// db rows row0 .. row0+127 and query rows q0 .. q0+31, dims k0 .. k0+31.
-// db0 / db1: th / tl bf16 (bf16x3 copies both; bf16x3f the one the pass
+// Starts the CUDA-core f32 family's copies of one step, pass ``pass`` of
+// its chunk: db rows row0 .. row0+127 and query rows q0 .. q0+31, dims k0
+// .. k0+31.  db0 / db1: th / tl bf16 (bf16x3f copies the one the pass
 // reads), th (default), t f32 (highest).
 template <Arm kArm>
 __device__ __forceinline__ void start_stage(
@@ -160,7 +147,6 @@ __device__ __forceinline__ void start_stage(
     }
   } else {
     __nv_bfloat16* sth = reinterpret_cast<__nv_bfloat16*>(stage);
-    __nv_bfloat16* stl = sth + kRawDb;
     const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(
         db_part<kArm>(pass) ? db1 : db0);
 #pragma unroll
@@ -170,9 +156,6 @@ __device__ __forceinline__ void start_stage(
       const int seg = idx % (kSlice / 8);
       const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
       cp_async16(sth + r * kSlice + seg * 8, src + off, 16);
-      if constexpr (kUsesLo<kArm>)
-        cp_async16(stl + r * kSlice + seg * 8,
-                   static_cast<const __nv_bfloat16*>(db1) + off, 16);
     }
   }
   float* sq = reinterpret_cast<float*>(stage + kDbStage<kArm>);
@@ -214,9 +197,9 @@ __device__ __forceinline__ void start_stage_int(
 }
 
 // Stage -> compute buffers (as the tiled kernels stage from global memory):
-// the staged bf16 part(s) upcast to f32 rows, or t converted to f64 rows;
-// the query slice's bf16 part(s) for pass ``pass``, or the slice converted
-// to f64, k-major.
+// the staged bf16 part upcast to f32 rows, or t converted to f64 rows; the
+// query slice's bf16 part for pass ``pass``, or the slice converted to
+// f64, k-major.
 template <Arm kArm>
 __device__ __forceinline__ void convert_stage(
     const unsigned char* stage, const F32Bufs<kArm, kSlice, kDbStride>& bufs,
@@ -233,23 +216,13 @@ __device__ __forceinline__ void convert_stage(
     }
   } else {
     const __nv_bfloat16* sth = reinterpret_cast<const __nv_bfloat16*>(stage);
-    const __nv_bfloat16* stl = sth + kRawDb;
 #pragma unroll
     for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
       const int idx = tid + p * kThreads;
       const int r = idx / (kSlice / 8);
       const int seg = idx % (kSlice / 8);
-      const int at = r * kDbStride + seg * 8;
-      // both parts' loads before any store: the compiler cannot reorder a
-      // shared load across shared stores it cannot prove disjoint
-      const uint4 vh =
-          *reinterpret_cast<const uint4*>(sth + r * kSlice + seg * 8);
-      uint4 vl;
-      if constexpr (kUsesLo<kArm>)
-        vl = *reinterpret_cast<const uint4*>(stl + r * kSlice + seg * 8);
-      put_bf16x8(vh, static_cast<float*>(bufs.db0) + at);
-      if constexpr (kUsesLo<kArm>)
-        put_bf16x8(vl, static_cast<float*>(bufs.db1) + at);
+      put_bf16x8(*reinterpret_cast<const uint4*>(sth + r * kSlice + seg * 8),
+                 static_cast<float*>(bufs.db0) + r * kDbStride + seg * 8);
     }
   }
   const float* sq = reinterpret_cast<const float*>(stage + kDbStage<kArm>);
@@ -259,8 +232,7 @@ __device__ __forceinline__ void convert_stage(
   const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    store_query<kArm>(xs[e], bufs.qa, bufs.qb, (c4 * 4 + e) * kQStride + r,
-                      pass);
+    store_query<kArm>(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r, pass);
 }
 
 template <Arm kArm, bool kFused, bool kMulti, int kSlots>
@@ -306,7 +278,6 @@ stream_select_kernel(const void* __restrict__ p0,
   if (t_begin >= t_end) return;
   const int n_groups = tile_n / kBinW;
   const int v_dims = kPasses<kArm> * dp;      // steps of a group, in dims
-  const float inf = __int_as_float(0x7f800000);
   const float* tnorm = p3;
   const float* tscale = p3 + static_cast<size_t>(n_tiles) * tile_n;
   float qs[kQuadQ];
@@ -314,14 +285,7 @@ stream_select_kernel(const void* __restrict__ p0,
     load_qsc(static_cast<const float*>(p1), q0, quad, n_q, qs);
 
   float carry[kQuadQ][kQuadL][kMaxCarry];
-  if (kFused) {
-#pragma unroll
-    for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kQuadL; ++j)
-#pragma unroll 1
-        for (int d = 0; d < depth; ++d) carry[i][j][d] = inf;
-  }
+  if constexpr (kFused) reset_carry(carry, depth);
 
   // the next step to stage: (tile nt, group ng, virtual dims nv)
   int nt = t_begin, ng = 0, nv = 0;
@@ -398,45 +362,8 @@ stream_select_kernel(const void* __restrict__ p0,
     }
 
     bool skip = false;
-    if constexpr (kFused) {
-     if (depth > 0) {
-      float tmin[kQuadQ], thr[kQuadQ];
-#pragma unroll
-      for (int i = 0; i < kQuadQ; ++i) {
-        tmin[i] = inf;
-        thr[i] = -inf;
-#pragma unroll
-        for (int j = 0; j < kQuadL; ++j) {
-          const float lane_min = em.vals[i][j][0];
-          tmin[i] = fminf(tmin[i], lane_min);
-          thr[i] = fmaxf(thr[i], carry[i][j][depth - 1]);
-          // sorted insertion of the lane minimum into the carry
-          float cur = lane_min;
-#pragma unroll 1
-          for (int d = 0; d < depth; ++d) {
-            const float c = carry[i][j][d];
-            carry[i][j][d] = fminf(c, cur);
-            cur = fmaxf(c, cur);
-          }
-        }
-      }
-      bool ok = true;
-#pragma unroll
-      for (int i = 0; i < kQuadQ; ++i) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          tmin[i] = fminf(tmin[i], __shfl_xor_sync(0xffffffffu, tmin[i], off));
-          thr[i] = fmaxf(thr[i], __shfl_xor_sync(0xffffffffu, thr[i], off));
-        }
-        ok = ok && (q0 + quad * 4 + i >= n_q || tmin[i] > thr[i]);
-      }
-      if (lane_col == 0) warp_ok[quad] = ok;
-      __syncthreads();
-      skip = true;
-#pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) skip = skip && warp_ok[w];
-     }
-    }
+    if constexpr (kFused)
+      skip = fused_skip(em, carry, depth, place, n_q, warp_ok);
     em.end_tile(ti, out, place, skip);
   }
 }
@@ -460,14 +387,50 @@ stream_select_pq_kernel(const float* __restrict__ lut,
                   reinterpret_cast<unsigned char*>(smem_f4));
 }
 
-// Lets the kernel take kSmemBytes of dynamic shared memory (above the
-// default 48 KB) on the current device.
+// K10 / K11: the bf16x3 arm on tensor cores (binned_mma.cuh) over the
+// CTA's segment of db tiles, K11's skip at each tile's end.
+template <bool kFused, bool kMulti, int kSlots>
+__global__ void __launch_bounds__(kThreads, 1)
+stream_select_mma_kernel(const float* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ th,
+                         const __nv_bfloat16* __restrict__ tl,
+                         const float* __restrict__ tnorm, Out out, int dp,
+                         int seg_tiles, int depth) {
+  extern __shared__ float4 smem_f4[];
+  __shared__ int warp_ok[kThreads / 32];
+  const int t_begin = blockIdx.x * seg_tiles;
+  const int t_end = min(t_begin + seg_tiles, out.n_tiles);
+  if (t_begin >= t_end) return;
+  bf16x3_walk<kMulti, kSlots, kFused>(
+      q, th, tl, tnorm, out, dp, blockIdx.y * kBlockQ, t_begin, t_end, depth,
+      reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
+}
+
+// The kernel of a build and its dynamic shared memory: bf16x3's
+// tensor-core kernel, or the CUDA-core one of the other f32 and int arms.
+template <Arm kArm, bool kFused, bool kMulti, int kSlots>
+constexpr auto kernel_of() {
+  if constexpr (kArm == Arm::kBf16x3)
+    return stream_select_mma_kernel<kFused, kMulti, kSlots>;
+  else
+    return stream_select_kernel<kArm, kFused, kMulti, kSlots>;
+}
+
+template <Arm kArm, bool kMulti>
+constexpr size_t smem_of() {
+  if constexpr (kArm == Arm::kBf16x3)
+    return kMmaSmemBytes<kMulti>;
+  else
+    return kSmemBytes<kArm, kMulti>;
+}
+
+// Lets the kernel take its dynamic shared memory (above the default 48 KB)
+// on the current device.
 template <Arm kArm, bool kFused, bool kMulti, int kSlots>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(
-      stream_select_kernel<kArm, kFused, kMulti, kSlots>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes<kArm, kMulti>));
+  return cudaFuncSetAttribute(kernel_of<kArm, kFused, kMulti, kSlots>(),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem_of<kArm, kMulti>()));
 }
 
 template <int kSlots>
@@ -491,8 +454,8 @@ cudaError_t ctas_per_sm(int m, int ncodes, int* out) {
     cudaError_t err = allow_smem<kArm, kFused, false, kSlots>();
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, stream_select_kernel<kArm, kFused, false, kSlots>, kThreads,
-        kSmemBytes<kArm, false>);
+        out, kernel_of<kArm, kFused, false, kSlots>(), kThreads,
+        smem_of<kArm, false>());
   }
 }
 
@@ -512,10 +475,18 @@ cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
   } else {
     cudaError_t err = allow_smem<kArm, kFused, kMulti, kSlots>();
     if (err != cudaSuccess) return err;
-    stream_select_kernel<kArm, kFused, kMulti, kSlots>
-        <<<grid, kThreads, kSmemBytes<kArm, kMulti>, st>>>(
-            p0, p1, p2, static_cast<const float*>(p3), out, dp, seg_tiles,
-            depth);
+    if constexpr (kArm == Arm::kBf16x3)
+      stream_select_mma_kernel<kFused, kMulti, kSlots>
+          <<<grid, kThreads, kMmaSmemBytes<kMulti>, st>>>(
+              static_cast<const float*>(p0),
+              static_cast<const __nv_bfloat16*>(p1),
+              static_cast<const __nv_bfloat16*>(p2),
+              static_cast<const float*>(p3), out, dp, seg_tiles, depth);
+    else
+      stream_select_kernel<kArm, kFused, kMulti, kSlots>
+          <<<grid, kThreads, kSmemBytes<kArm, kMulti>, st>>>(
+              p0, p1, p2, static_cast<const float*>(p3), out, dp, seg_tiles,
+              depth);
   }
   return cudaGetLastError();
 }

@@ -26,7 +26,9 @@ What runs where:
   which pads skipped tiles (plain version :func:`fused_select_plain`).
 - The arms' arithmetic (``csrc/binned_select.cuh``): the f32 family sums
   each 128-dim chunk in its own accumulator and adds the chunks in f32,
-  the TPU body's order — bf16x3 ``qh.th + qh.tl + ql.th`` dim by dim,
+  the TPU body's order — bf16x3 ``qh.th + (qh.tl + ql.th)`` on the tensor
+  cores (``csrc/binned_mma.cuh``, one mainloop for K1, K9, K10, K11 and
+  their lane builds; :func:`mma_probe` runs one of its k-steps alone),
   bf16x3f the same products pass by pass, default the one bf16 product,
   highest exact f32 products summed in f64 per chunk; the int arms an
   exact int32 dot and one f32 rescale ``(f32(dot) * qsc) * ts``, held
@@ -91,6 +93,79 @@ MAX_SURVIVORS = 8
 PAD_VAL = 1.5e17
 #: relative slack of the direct-difference f32 rescore distances
 RANK_SLACK = 2.0 ** -18
+
+#: f32 unit roundoff
+U32 = 2.0 ** -24
+#: products of one tensor-core k-step of the bf16x3 kernels (mma m16n8k16)
+MMA_K = 16
+#: the header's model of one such step (csrc/binned_mma.cuh): it errs by
+#: at most MMA_KAPPA u (|acc| + sum |p|) -- blocks of >= 8 exact products
+#: plus the accumulator, aligned to the largest and truncated to 24 bits,
+#: each block's sum normalised by truncation: 2 blocks x (2 x 9 + 2) u
+MMA_KAPPA = 40
+#: the bf16 split's error in s per unit of (||q||^2 + M): q.t - (qh.th +
+#: qh.tl + ql.th) <= 3 2^-16 (1 + 2^-7) |q.t| per dim, doubled in s,
+#: sum |q_i t_i| <= (||q||^2 + M) / 2
+SPLIT_SCALE = 3 * 2.0 ** -16 * (1 + 2.0 ** -7)
+#: the rest of the f32 arithmetic the certificate's slack covers, per unit
+#: of (||q||^2 + M): the f32 row and query norms (tree sums, each <= (1 +
+#: log2 Dp) u ||x||^2), the rounding of s = tn - 2 qt, the certificate's
+#: own f32 adds -- the budget the highest arm keeps for the same terms
+HEADROOM_SCALE = 64 * U32
+
+
+def accumulation_coefficient(arm: str, nd: int) -> float:
+    """``b`` such that the coarse kernel of f32-family arm ``arm`` sums
+    ``qt`` over ``nd`` 128-dim chunks within ``b u P`` of the exact sum of
+    its products, ``P`` = the sum of their magnitudes (proofs in
+    csrc/binned_select.cuh and csrc/binned_mma.cuh):
+
+    - bf16x3 (K1, K10, K11 on tensor cores): per chunk 8 k-steps of the
+      header's model into two accumulators (qh.th; qh.tl + ql.th), 8
+      MMA_KAPPA u P_c, their one f32 add and the nd - 1 chunk adds;
+    - bf16x3f (K4, CUDA cores): a chain of 3 x 128 f32 FMAs per chunk and
+      the nd - 1 chunk adds;
+    - highest (K2): exact products in f64 per chunk, one rounding to f32
+      per chunk, the chunk adds."""
+    if arm == "bf16x3":
+        return (DIM_CHUNK // MMA_K * MMA_KAPPA + nd) * (1 + 2.0 ** -7)
+    if arm == "bf16x3f":
+        return (3 * DIM_CHUNK + nd) * (1 + 2.0 ** -7)
+    if arm == "highest":
+        return nd * (1 + 2.0 ** -20)
+    raise ValueError(f"arm {arm!r} has no accumulation bound")
+
+
+def bf16_tolerance_scale(arm: str, nd: int) -> float:
+    """The certificate's slack for the bf16x3 / bf16x3f arms per unit of
+    ``(||q||^2 + max||t||^2)`` at ``nd`` 128-dim chunks: the bf16 split's
+    proved error, the arm's kernel's summation (in s: the qt coefficient,
+    doubled, over P <= (||q||^2 + M) / 2) and the f32 headroom, never
+    below the reference's ``2^-14`` (pallas_knn.py:1570-1571).  Both the
+    host tolerance (:func:`kernel_tolerance`) and the device certificate
+    (parallel/sharded.py ``_certify_pack``) read it."""
+    if arm not in ("bf16x3", "bf16x3f"):
+        raise ValueError(f"arm {arm!r} is not bf16x3 or bf16x3f")
+    proved = (SPLIT_SCALE + accumulation_coefficient(arm, nd) * U32
+              + HEADROOM_SCALE)
+    return max(2.0 ** -14, proved)
+
+
+def kernel_plain_tolerance_scale(arm: str, nd: int) -> float:
+    """Per unit of ``(||q||^2 + max||t||^2)``, how far a coarse kernel's
+    score may lie from its plain version's at ``nd`` chunks: for bf16x3
+    the proved sum of the kernel's summation bound
+    (:func:`accumulation_coefficient`) and the plain version's (three f32
+    products of 128 terms per chunk in any order, two adds, the chunk
+    adds: (128 + nd)(1 + 2^-7) u P), plus both roundings of s (|s| <=
+    2 (||q||^2 + M)); for highest ``(2 nd + 4) u`` (the two differ only
+    in each chunk's f64 order); for the other f32 arms ``64 eps_f32``."""
+    if arm == "bf16x3":
+        plain = (DIM_CHUNK + nd) * (1 + 2.0 ** -7)
+        return (accumulation_coefficient(arm, nd) + plain + 4) * U32
+    if arm == "highest":
+        return (2 * nd + 4) * U32
+    return 128 * U32
 
 #: the JAX package's knob domains, and the values this port runs
 PRECISIONS = ("bf16x3", "bf16x3f", "int8", "int4", "pq", "highest",
@@ -1102,6 +1177,125 @@ def fused_select(*operands: torch.Tensor, tile_n: int, keep: Optional[int],
 fused_select.launches = dict.fromkeys(ARMS, 0)
 
 
+def _truncate(x: np.ndarray, ulp: np.ndarray) -> np.ndarray:
+    return np.trunc(x / ulp) * ulp
+
+
+def _ulp24(x: np.ndarray) -> np.ndarray:
+    """2^(e - 23) for |x| in [2^e, 2^(e+1)): the spacing of a 24-bit
+    significand at x's exponent (1 where x is 0)."""
+    _, e = np.frexp(np.where(x == 0, 1.0, x))
+    return np.ldexp(1.0, e - 24)
+
+
+def mma_step_model(c: np.ndarray, p: np.ndarray, block: int = 8) -> np.ndarray:
+    """The header's model of one tensor-core k-step of the bf16x3 kernels
+    (csrc/binned_mma.cuh), in float64: ``c`` [...] accumulators, ``p``
+    [..., k] exact products.  The products are summed in blocks of
+    ``block``, the accumulator entering the first: each block's addends
+    are aligned to its largest and truncated to 24 bits, the block's sum
+    normalised to 24 bits by truncation.  Returns the new accumulators."""
+    acc = np.asarray(c, dtype=np.float64)
+    p = np.asarray(p, dtype=np.float64)
+    for lo in range(0, p.shape[-1], block):
+        addends = np.concatenate([acc[..., None], p[..., lo:lo + block]], -1)
+        ulp = _ulp24(np.abs(addends).max(-1))
+        total = _truncate(addends, ulp[..., None]).sum(-1)
+        acc = _truncate(total, _ulp24(np.abs(total)))
+    return acc
+
+
+def mma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """One k-step of the bf16x3 kernels' tensor-core product on its own:
+    ``d = c + a @ b.T`` for ``a`` [16, 16] bf16, ``b`` [8, 16] bf16 and
+    ``c`` [16, 8] f32 — the probe of the rounding model that the bf16x3
+    tolerance is proved from.  On a CUDA tensor it launches the C entry
+    ``mma_probe_bf16`` (``csrc/binned_coarse.cu``: one warp, one
+    ``mma.sync`` m16n8k16), or raises; on a CPU tensor it runs
+    :func:`mma_step_model`.  ``mma_probe.launches`` counts launches."""
+    if (a.dtype != torch.bfloat16 or tuple(a.shape) != (16, MMA_K)
+            or b.dtype != torch.bfloat16 or tuple(b.shape) != (8, MMA_K)
+            or c.dtype != torch.float32 or tuple(c.shape) != (16, 8)):
+        raise ValueError("mma_probe takes a [16, 16] bf16, b [8, 16] bf16, "
+                         "c [16, 8] f32")
+    a, b, c = (t.contiguous() for t in (a, b, c))
+    if a.device.type == "cpu":
+        p = a.double().numpy()[:, None, :] * b.double().numpy()[None, :, :]
+        return torch.from_numpy(
+            mma_step_model(c.double().numpy(), p).astype(np.float32))
+    if a.device.type != "cuda":
+        raise ValueError(f"mma_probe runs on cuda or cpu, not {a.device}")
+    d = torch.empty_like(c)
+    fn = _cuda.load("binned_coarse").mma_probe_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mma_probe_bf16 launch failed: cudaError {rc}")
+    mma_probe.launches += 1
+    return d
+
+
+mma_probe.launches = 0
+
+
+def _mma_probe_cases():
+    """Operands (a, b, c) of the rounding probe, by name: products below
+    an accumulator of 1 that a round-to-nearest sum keeps and a truncating
+    alignment drops (0.75 ulp up and down; sixteen of 0.47 ulp each), and
+    random signs and magnitudes."""
+    cases = {}
+    ones = np.ones((16, 8), np.float32)
+    for name, av in (("one_product_up_0.75ulp", 1.5 * 2.0 ** -12),
+                     ("one_product_down_0.75ulp", -1.5 * 2.0 ** -12)):
+        a = np.zeros((16, MMA_K), np.float32)
+        a[:, 0] = av
+        b = np.zeros((8, MMA_K), np.float32)
+        b[:, 0] = 2.0 ** -12
+        cases[name] = (a, b, ones)
+    cases["sixteen_products_0.47ulp"] = (
+        np.full((16, MMA_K), 0.9375 * 2.0 ** -12, np.float32),
+        np.full((8, MMA_K), 2.0 ** -12, np.float32), ones)
+    rng = np.random.default_rng(18)
+    cases["random"] = (rng.normal(size=(16, MMA_K)).astype(np.float32),
+                       rng.normal(size=(8, MMA_K)).astype(np.float32),
+                       (rng.normal(size=(16, 8)) * 4).astype(np.float32))
+    return cases
+
+
+def mma_rounding_probe(device) -> dict:
+    """Runs :func:`mma_probe` on the probe's cases on ``device`` and
+    compares each output with the exact f64 sum: the largest error over
+    the model's bound ``MMA_KAPPA u (|c| + sum |p|)`` (must stay <= 1 for
+    the proof to hold), and which rounding each case's outputs match --
+    the model's truncating sum in blocks of 8 or of 16, or one
+    round-to-nearest of the exact sum."""
+    out = {}
+    for name, (a, b, c) in _mma_probe_cases().items():
+        at = torch.from_numpy(a).to(torch.bfloat16)
+        bt = torch.from_numpy(b).to(torch.bfloat16)
+        d = mma_probe(at.to(device), bt.to(device),
+                      torch.from_numpy(c).to(device)).cpu().double().numpy()
+        p = at.double().numpy()[:, None, :] * bt.double().numpy()[None, :, :]
+        c64 = c.astype(np.float64)
+        exact = c64 + p.sum(-1)
+        bound = MMA_KAPPA * U32 * (np.abs(c64) + np.abs(p).sum(-1))
+        out[name] = {
+            "max_error_over_bound": float((np.abs(d - exact) / bound).max()),
+            "max_abs_err_ulps": float((np.abs(d - exact)
+                                       / _ulp24(np.abs(exact))).max()),
+            "truncating_blocks_of_8": bool(
+                np.array_equal(d, mma_step_model(c64, p, 8))),
+            "truncating_blocks_of_16": bool(
+                np.array_equal(d, mma_step_model(c64, p, 16))),
+            "round_to_nearest": bool(
+                np.array_equal(d, exact.astype(np.float32))),
+        }
+    return out
+
+
 def skipped_cells(cd: torch.Tensor, n_tiles: int,
                   block_q: int = QUERY_BLOCK) -> torch.Tensor:
     """Bool ``[query blocks, n_tiles]``: the (block, tile) cells K11
@@ -1294,10 +1488,11 @@ def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,
 
     - "highest": 4x certification_tolerance (= 32 eps_f32 (||q||^2 +
       max||t||^2));
-    - "bf16x3", "bf16x3f": the reference's model puts the dropped ql.tl
-      term and the low-part rounding at <= 2^-17 (||q||^2 +
-      max||t||^2)/2 each and takes 2^-14 (csrc/binned_select.cuh gives
-      the kernels' worst case; ROADMAP queue C, fault 12);
+    - "bf16x3", "bf16x3f": :func:`bf16_tolerance_scale` (||q||^2 +
+      max||t||^2) -- the bf16 split's proved error, the arm's kernel's
+      summation bound and the f32 headroom, never below the reference's
+      2^-14 (its model puts the split at 1/16 of that; ROADMAP divergence
+      18);
     - "int8", "int4": the larger of "highest"'s and the provable
       quantization bound ε from the actual residuals
       (ops.quantize.score_error_bound).  ``quant`` supplies the
@@ -1329,7 +1524,9 @@ def kernel_tolerance(queries_np: np.ndarray, db_np: np.ndarray, *,
                 "train on data)")
         return np.maximum(base, score_error_bound_pq(queries_np, quant.stats))
     if precision in ("bf16x3", "bf16x3f"):
-        return np.maximum(base, 2.0 ** -14 * (q_norm + db_norm_max))
+        nd = -(-queries_np.shape[1] // DIM_CHUNK)
+        return np.maximum(base, bf16_tolerance_scale(precision, nd)
+                          * (q_norm + db_norm_max))
     if precision == "highest":
         return base
     raise ValueError(

@@ -50,6 +50,7 @@ from knn_tpu_torch.ops.coarse_knn import (
     TILE_N,
     _geometry,
     _round_up,
+    bf16_tolerance_scale,
     check_knobs,
     effective_tile,
     local_coarse_candidates,
@@ -710,7 +711,9 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
       boundary; rows without one (or with non-finite values in the top
       k+1) are ``unresolved``;
     - the tolerance of ``precision`` in f32 (sharded.py:2361-2367):
-      ``2^-14 (||q||^2 + db_norm_max)`` for bf16x3 and bf16x3f, ``32
+      ``coarse_knn.bf16_tolerance_scale (||q||^2 + db_norm_max)`` for
+      bf16x3 and bf16x3f (the reference's ``2^-14`` or the proved slack,
+      whichever is larger: ROADMAP divergence 18), ``32
       eps_f32 (||q||^2 + db_norm_max)`` for highest; for the int arms
       (``consts`` given, sharded.py:2350-2355) the
       per-query provable quantization bound ε and the query norm, both in
@@ -744,8 +747,10 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
         q_norm, tol = score_error_bound_device(q32 - offset, consts)
     else:
         q_norm = (q32 * q32).sum(-1)
-        scale = 2.0 ** -14 if precision in ("bf16x3", "bf16x3f") \
-            else 32.0 * float(np.finfo(np.float32).eps)
+        scale = (bf16_tolerance_scale(precision,
+                                      -(-q.shape[1] // DIM_CHUNK))
+                 if precision in ("bf16x3", "bf16x3f")
+                 else 32.0 * float(np.finfo(np.float32).eps))
         tol = scale * (q_norm + db_norm_max)
     d_k = dw[:, k - 1]
     s_k = d_k - q_norm

@@ -193,7 +193,10 @@ def test_search_certified_refuses_unported_geometry(knob, value):
 
 def test_certify_pack_matches_jax_tail():
     # the device certificate on identical ranked candidates: same window,
-    # same near-tie mask, same bad flags
+    # same near-tie mask, same bad flags -- the JAX tail given the bounds
+    # lowered by the port's extra proved slack (bf16_tolerance_scale over
+    # the reference's 2^-14, ROADMAP divergence 18); row 4's bound sits
+    # inside that extra slack, so only the port's tolerance flags it
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
@@ -211,9 +214,14 @@ def test_certify_pack_matches_jax_tail():
     li = np.tile(np.arange(m + 1), (n_q, 1)).astype(np.int32)
     li[2, 5:] = 2 ** 31 - 1
     q = rng.random((n_q, 8)).astype(np.float32)
-    lb = (d32[:, k - 1] - (q.astype(np.float64) ** 2).sum(-1)
-          + rng.normal(size=n_q)).astype(np.float32)
+    q_norm = (q.astype(np.float64) ** 2).sum(-1)
+    lb = (d32[:, k - 1] - q_norm + rng.normal(size=n_q)).astype(np.float32)
     w = min(k + 17, m + 1)
+    new_scale = ck.bf16_tolerance_scale("bf16x3", 1)
+    extra = (new_scale - 2.0 ** -14) * (q_norm + 3.0)
+    lb[4] = (d32[4, k - 1] - q_norm[4]
+             + ck.RANK_SLACK * float(d32[4, k - 1])
+             + (2.0 ** -14 + new_scale) / 2 * (q_norm[4] + 3.0))
 
     def spmd(qs, ds, ls, bs):
         return _certify_pack_spmd(
@@ -225,9 +233,13 @@ def test_certify_pack_matches_jax_tail():
     prog = jax.jit(shard_map_compat(
         spmd, mesh=make_mesh(1, 1), in_specs=(P(QUERY_AXIS),) * 4,
         out_specs=P(QUERY_AXIS), check_vma=False))
-    jpacked = prog(jnp.asarray(q), jnp.asarray(d32), jnp.asarray(li),
-                   jnp.asarray(lb))
-    jgi, jtight, jbad, jdk = unpack_certified(np.asarray(jpacked), k, w, True)
+    def jax_tail(bounds):
+        packed = prog(jnp.asarray(q), jnp.asarray(d32), jnp.asarray(li),
+                      jnp.asarray(bounds))
+        return unpack_certified(np.asarray(packed), k, w, True)
+
+    jgi, jtight, jbad, jdk = jax_tail((lb - extra).astype(np.float32))
+    assert not jax_tail(lb)[2][4]  # the reference's 2^-14 passes row 4
     pgi, ptight, pbad, pdk = _certify_pack(
         torch.from_numpy(q), torch.from_numpy(d32),
         torch.from_numpy(li.astype(np.int64)), torch.from_numpy(lb),
@@ -235,4 +247,137 @@ def test_certify_pack_matches_jax_tail():
     np.testing.assert_array_equal(pgi.numpy(), jgi)
     np.testing.assert_array_equal(ptight.numpy(), jtight)
     np.testing.assert_array_equal(pbad.numpy(), jbad)
+    assert pbad[4]
     np.testing.assert_array_equal(pdk.numpy(), jdk)
+
+
+# --- fault 18: the bf16x3 / bf16x3f slack, proved (coarse_knn.
+# bf16_tolerance_scale; proofs in csrc/binned_select.cuh and
+# csrc/binned_mma.cuh)
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16x3f"])
+@pytest.mark.parametrize("dim", [24, 128, 300, 896])
+def test_bf16_tolerance_is_never_below_the_jax_tolerance(precision, dim):
+    from knn_tpu.ops import pallas_knn as jpk
+
+    rng = np.random.default_rng(dim)
+    q = (rng.normal(size=(16, dim)) * 10).astype(np.float32)
+    db = (rng.normal(size=(200, dim)) * 10).astype(np.float32)
+    port = ck.kernel_tolerance(q, db, precision=precision)
+    ref = jpk.kernel_tolerance(q, db, precision=precision)
+    assert (port >= ref).all()
+    nd = -(-dim // ck.DIM_CHUNK)
+    scale = ck.bf16_tolerance_scale(precision, nd)
+    assert scale > 2.0 ** -14  # the proved terms pass the reference's
+    q64, db64 = q.astype(np.float64), db.astype(np.float64)
+    np.testing.assert_allclose(
+        port, scale * ((q64 ** 2).sum(-1) + (db64 ** 2).sum(-1).max()),
+        rtol=1e-12)
+
+
+def _split_error(x):
+    """x.x - (xh.xh + xh.xl + xl.xh) in float64 for f32 values x, the
+    parts split as the kernels split them."""
+    xh, xl = (a.double().numpy() for a in ck.split_bf16(torch.from_numpy(x)))
+    x64 = x.astype(np.float64)
+    return x64 * x64 - (xh * xh + xh * xl + xl * xh)
+
+
+def _split_worst_values(count):
+    """The f32 values in [1, 1 + 2^-8) whose split errs most (x.x
+    against its three products), from a sweep of all 2^15 of them: the
+    high part is 1 for each (so the errors of two such values add, where
+    values rounding up would cancel them), the low part nears 2^-8 and its
+    own rounding half its ulp, both errors positive."""
+    one = np.float32(1.0).view(np.int32)
+    x = (one + np.arange(2 ** 15, dtype=np.int32)).view(np.float32)
+    rel = _split_error(x) / (x.astype(np.float64) ** 2)
+    return x[np.argsort(-rel)[:count]]
+
+
+@pytest.mark.parametrize("dim", [128, 896])
+def test_fault18_split_worst_case_stays_inside_the_new_tolerance(dim):
+    # every dim's split error at (nearly) its largest and of one sign:
+    # queries and rows whose every value is one of the worst values
+    vals = _split_worst_values(8)
+    rng = np.random.default_rng(dim)
+    q = vals[rng.integers(0, 8, size=(6, dim))]
+    db = vals[rng.integers(0, 8, size=(256, dim))]
+    q64, db64 = q.astype(np.float64), db.astype(np.float64)
+    scale = (q64 ** 2).sum(-1) + (db64 ** 2).sum(-1).max()
+    # the split alone: q.t - (three products), in s, over (||q||^2 + M)
+    qh, ql = (a.double().numpy() for a in ck.split_bf16(torch.from_numpy(q)))
+    th, tl = (a.double().numpy() for a in ck.split_bf16(torch.from_numpy(db)))
+    split_s = 2.0 * (q64 @ db64.T - (qh @ th.T + qh @ tl.T + ql @ th.T))
+    ratio = np.abs(split_s).max(-1) / scale
+    assert (split_s > 0).all()
+    # near two thirds of the proved 3 * 2^-16 (1 + 2^-7): e_q and e_t reach
+    # 2^-17 |x|, the dropped ql.tl 2^-16 |q t|
+    assert (ratio > 0.48 * 2.0 ** -14).all()
+    assert (ratio <= ck.SPLIT_SCALE).all()
+    # the plain version's scores against f64 scores of the f32 values,
+    # every row a bin of its own (tile_n = 128: row r is survivor 0 of
+    # bin r % 128 of its tile only when it is the bin's smallest, so
+    # compare every emitted candidate)
+    tol = ck.kernel_tolerance(q, db, precision="bf16x3")
+    qp = ck.pad_queries(torch.from_numpy(q))
+    th_t, tl_t, tnorm = ck.prepare_db(torch.from_numpy(db), ck.BIN_W)
+    cd, ci, _ = ck.binned_select_plain(qp, th_t, tl_t, tnorm,
+                                       tile_n=ck.BIN_W, arm="bf16x3")
+    s64 = (db64 ** 2).sum(-1)[None, :] - 2.0 * q64 @ db64.T
+    real = ci.numpy() < db.shape[0]
+    assert real[:, :128].all()
+    got = np.take_along_axis(s64, np.where(real, ci.numpy(), 0), 1)
+    err = np.where(real, np.abs(cd.numpy().astype(np.float64) - got), 0.0)
+    assert (err.max(-1) <= tol).all()
+    over_old = err.max(-1) > 2.0 ** -14 * scale
+    if over_old.any():  # the reference's slack would not have held
+        assert (err.max(-1)[over_old] <= tol[over_old]).all()
+
+
+def _model_chunk(a, b, block):
+    """One 128-dim chunk's dot in the tensor-core step model, [Q, N]: 8
+    k-steps of ck.MMA_K exact products, from a zero accumulator."""
+    acc = np.zeros((a.shape[0], b.shape[0]))
+    for k0 in range(0, a.shape[1], ck.MMA_K):
+        p = (a[:, None, k0:k0 + ck.MMA_K].astype(np.float64)
+             * b[None, :, k0:k0 + ck.MMA_K])
+        acc = ck.mma_step_model(acc, p, block)
+    return acc
+
+
+@pytest.mark.parametrize("block", [8, 16])
+def test_mma_step_model_stays_inside_the_stated_terms(block):
+    u = ck.U32
+    rng = np.random.default_rng(block)
+    # one step: kappa u (|c| + sum |p|), on random signs and on products
+    # just under the accumulator's truncation unit (each one dropped)
+    c = rng.normal(size=(64, 32)) * 100
+    p = rng.normal(size=(64, 32, ck.MMA_K))
+    c[0] = 1.0
+    p[0] = 0.99 * 2.0 ** -23
+    got = ck.mma_step_model(c, p, block)
+    exact = c + p.sum(-1)
+    bound = ck.MMA_KAPPA * u * (np.abs(c) + np.abs(p).sum(-1))
+    assert (np.abs(got - exact) <= bound).all()
+    assert np.abs(got - exact)[0].max() > 0.6 * bound[0].max()  # truncated
+    # one chunk (8 steps): (8 kappa + 1) u P -- all-positive bf16 values,
+    # and a first product of 1 followed by 127 products each truncated away
+    vals = ck.split_bf16(torch.from_numpy(
+        rng.uniform(1.0, 2.0, size=(8, 128)).astype(np.float32)))[0]
+    a = vals.double().numpy()
+    b = a[::-1].copy()
+    cases = [(a, b)]
+    big = np.full((1, 128), 2.0 ** -12)
+    big[0, 0] = 1.0
+    cases.append((big, np.where(np.arange(128) == 0, 1.0,
+                                0.99 * 2.0 ** -11)[None, :]))
+    coef = ck.accumulation_coefficient("bf16x3", 1)
+    for x, y in cases:
+        got = _model_chunk(x, y, block)
+        exact = x @ y.T
+        p_sum = np.abs(x) @ np.abs(y).T
+        assert (np.abs(got - exact) <= coef * u * p_sum).all()
+    # the adversarial chunk loses ~7 x 16 truncated products: more than a
+    # round-to-nearest chain would
+    assert np.abs(got - exact).max() > 100 * u * p_sum.max()

@@ -137,10 +137,20 @@ def test_prepare_db_matches_pallas_prologue():
 def test_kernel_tolerance_matches_pallas():
     rng = np.random.default_rng(6)
     q, db = _data(rng, 5, 200, 16)
-    for prec in ("bf16x3", "bf16x3f", "highest", "int8", "int4"):
+    for prec in ("highest", "int8", "int4"):
         np.testing.assert_allclose(
             ck.kernel_tolerance(q, db, precision=prec),
             jpk.kernel_tolerance(q, db, precision=prec), rtol=1e-12)
+    # bf16x3 / bf16x3f: the reference's 2^-14 (||q||^2 + M) term with the
+    # proved slack in place of 2^-14 (ROADMAP divergence 18)
+    q64, db64 = q.astype(np.float64), db.astype(np.float64)
+    x = (q64 ** 2).sum(-1) + (db64 ** 2).sum(-1).max()
+    for prec in ("bf16x3", "bf16x3f"):
+        ref = jpk.kernel_tolerance(q, db, precision=prec)
+        np.testing.assert_allclose(ref, 2.0 ** -14 * x, rtol=1e-12)
+        np.testing.assert_allclose(
+            ck.kernel_tolerance(q, db, precision=prec),
+            ck.bf16_tolerance_scale(prec, 1) * x, rtol=1e-12)
     # default has no tolerance model in either package
     for fn in (ck.kernel_tolerance, jpk.kernel_tolerance):
         with pytest.raises(ValueError, match="tolerance model"):

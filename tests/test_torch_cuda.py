@@ -32,15 +32,22 @@ def _data(rng, n_q, n, dim, scale=10.0):
     return q, db
 
 
-def _tol(q, db, arm="bf16x3"):
+def _tol(q, db, arm="bf16x3", kernel=False):
     # highest: the kernel and its plain version round each chunk's f64 sum
     # to f32 (the two f64 sums differ far below an ulp, so the roundings by
     # at most one ulp), then add the nd chunks and form s in the same f32
-    # order (at most one more ulp each): |Δs| <= (2 nd + 4) u (||q||^2 + M)
+    # order (at most one more ulp each): |Δs| <= (2 nd + 4) u (||q||^2 + M).
+    # ``kernel``: a CUDA kernel against its plain version, at
+    # ck.kernel_plain_tolerance_scale -- for bf16x3 the proved sum of the
+    # tensor-core summation's bound and the plain version's (past 64
+    # eps_f32), for the other arms the same values as below
     q64, db64 = q.astype(np.float64), db.astype(np.float64)
     scale = (q64 ** 2).sum(-1) + (db64 ** 2).sum(-1).max()
+    nd = -(-q.shape[1] // ck.DIM_CHUNK)
+    if kernel:
+        return ck.kernel_plain_tolerance_scale(arm, nd) * scale
     if arm == "highest":
-        return (2 * -(-q.shape[1] // ck.DIM_CHUNK) + 4) * U32 * scale
+        return (2 * nd + 4) * U32 * scale
     return 64 * EPS32 * scale
 
 
@@ -92,7 +99,7 @@ def test_cuda_kernel_matches_plain(cuda_device, dim, tile_n):
     assert ck.binned_select.launches["bf16x3"] == before + 1
     plain = [a.cpu().numpy() for a in ck.binned_select_plain(
         qp, th, tl, tnorm, tile_n=tile_n, arm="bf16x3")]
-    tol = _tol(q, db)
+    tol = _tol(q, db, kernel=True)
     _assert_scores(kern[0], plain[0], tol)
     _assert_scores(kern[2], plain[2], tol)
     _assert_ci_separated(plain[0], kern[1], plain[1], plain[2], tol)
@@ -145,7 +152,7 @@ def test_cuda_fused_kernel_matches_plain_and_skips(cuda_device, n_q):
         assert bool(skip_k.any())
     kern = [a.cpu().numpy() for a in kern]
     plain = [a.cpu().numpy() for a in plain]
-    tol = _tol(q, db)
+    tol = _tol(q, db, kernel=True)
     _assert_scores(kern[0], plain[0], tol)
     _assert_scores(kern[2], plain[2], tol)
     done = np.isinf(plain[0])
@@ -261,7 +268,7 @@ def test_cuda_f32_arm_kernels_match_plain(cuda_device, arm, dim, tile_n):
     for a, b in zip(stream, tiled):
         assert torch.equal(a, b)
     tiled = [a.cpu().numpy() for a in tiled]
-    tol = _tol(q, db, arm)
+    tol = _tol(q, db, arm, kernel=True)
     _assert_scores(tiled[0], plain[0], tol)
     _assert_scores(tiled[2], plain[2], tol)
     _assert_ci_separated(plain[0], tiled[1], plain[1], plain[2], tol)
@@ -287,7 +294,7 @@ def test_cuda_fused_f32_arm_kernels_match_plain_and_skip(cuda_device, arm,
         assert bool(skip.any())
     kern = [a.cpu().numpy() for a in kern]
     plain = [a.cpu().numpy() for a in plain]
-    tol = _tol(q, db, arm)
+    tol = _tol(q, db, arm, kernel=True)
     _assert_scores(kern[0], plain[0], tol)
     _assert_scores(kern[2], plain[2], tol)
     done = np.isinf(plain[0])
@@ -326,9 +333,11 @@ def header_bound_ratio(device, arm, kernel, n_q=64, n=512, dim=896):
     Dp = 896 (7 chunks, every product positive: the chains' worst shape).
     s_ref is the exact f64 score of the kernel's own operands (the bf16
     parts' three products, or the f32 values' one); the bound is
-    csrc/binned_select.cuh's worst case for the arm's qt, doubled in s,
-    plus the rounding of s.  With ``tile_n = 128`` every tile is one group,
-    so every row's score is survivor 0 of its bin."""
+    the headers' worst case for the arm's qt
+    (ck.accumulation_coefficient: csrc/binned_mma.cuh for bf16x3,
+    csrc/binned_select.cuh for the others), doubled in s, plus the
+    rounding of s.  With ``tile_n = 128`` every tile is one group, so
+    every row's score is survivor 0 of its bin."""
     rng = np.random.default_rng(12)
     q = torch.from_numpy(rng.uniform(1.0, 2.0, size=(n_q, dim))
                          .astype(np.float32)).to(device)
@@ -337,13 +346,12 @@ def header_bound_ratio(device, arm, kernel, n_q=64, n=512, dim=896):
     qp = ck.pad_queries(q)
     parts = ck.prepare_db_arm(db, ck.BIN_W, arm)
     nd = qp.shape[1] // ck.DIM_CHUNK
+    b_qt = ck.accumulation_coefficient(arm, nd)
     if arm == "highest":
         pairs = [(qp, parts[0])]
-        b_qt = nd * (1 + 2.0 ** -20)
     else:
         qh, ql = ck.split_bf16(qp)
         pairs = [(qh, parts[0]), (qh, parts[1]), (ql, parts[0])]
-        b_qt = (3 * ck.DIM_CHUNK + nd) * (1 + 2.0 ** -7)
     qt = sum(a.double() @ b.double().T for a, b in pairs)
     p = sum(a.double().abs() @ b.double().abs().T for a, b in pairs)
     s_ref = parts[-1][0].double()[None, :] - 2.0 * qt
@@ -367,6 +375,69 @@ def header_bound_ratio(device, arm, kernel, n_q=64, n=512, dim=896):
 def test_cuda_f32_arm_error_inside_the_header_bound_at_dp896(cuda_device,
                                                              arm, kernel):
     assert header_bound_ratio(cuda_device, arm, kernel) <= 1.0
+
+
+def _split_worst_case(device, dim, n_q=32, n=512):
+    """Fault 18's construction: queries and rows whose every value is one
+    of the f32 values in [1, 1 + 2^-8) whose bf16 split errs most (the
+    high part 1, the low part's rounding near half its ulp, one sign), so
+    the split's error in s nears half of 2^-14 (||q||^2 + M)."""
+    one = np.float32(1.0).view(np.int32)
+    x = (one + np.arange(2 ** 15, dtype=np.int32)).view(np.float32)
+    xh, xl = (a.double().numpy() for a in ck.split_bf16(torch.from_numpy(x)))
+    x64 = x.astype(np.float64)
+    rel = (x64 * x64 - (xh * xh + 2 * xh * xl)) / (x64 * x64)
+    vals = x[np.argsort(-rel)[:8]]
+    rng = np.random.default_rng(dim)
+    q = vals[rng.integers(0, 8, size=(n_q, dim))]
+    db = vals[rng.integers(0, 8, size=(n, dim))]
+    return q, db
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [128, 896])
+@pytest.mark.parametrize("entry", ["tiled", "db_major", "streaming", "fused",
+                                   "lane_tiled", "lane_streaming"])
+def test_cuda_bf16x3_fault18_case_inside_the_new_tolerance(cuda_device,
+                                                           entry, dim):
+    # every bf16x3 entry's score of every emitted candidate against the f64
+    # score of the f32 values, within the certificate's tolerance
+    # (ck.kernel_tolerance: the split's proved error + the tensor-core
+    # summation's + headroom)
+    q, db = _split_worst_case(cuda_device, dim)
+    qp = ck.pad_queries(torch.from_numpy(q).to(cuda_device))
+    th, tl, tnorm = ck.prepare_db(torch.from_numpy(db).to(cuda_device),
+                                  ck.BIN_W)
+    fn, kw = {"tiled": (ck.binned_select, {}),
+              "db_major": (ck.binned_select, {"grid_order": "db_major"}),
+              "streaming": (ck.stream_select, {}),
+              "fused": (ck.fused_select, {"keep": None}),
+              "lane_tiled": (ck.binned_select, {"binning": "lane"}),
+              "lane_streaming": (ck.stream_select, {"binning": "lane"})}[entry]
+    cd, ci, _ = (a.cpu().numpy() for a in fn(qp, th, tl, tnorm,
+                                             tile_n=ck.BIN_W, arm="bf16x3",
+                                             **kw))
+    q64, db64 = q.astype(np.float64), db.astype(np.float64)
+    s64 = (db64 ** 2).sum(-1)[None, :] - 2.0 * q64 @ db64.T
+    real = ci < db.shape[0]
+    assert real.sum() >= q.shape[0] * db.shape[0] // ck.BIN_W
+    got = np.take_along_axis(s64, np.where(real, ci, 0), 1)
+    err = np.where(real, np.abs(cd.astype(np.float64) - got), 0.0).max(-1)
+    tol = ck.kernel_tolerance(q, db, precision="bf16x3")
+    assert (err <= tol).all(), float((err / tol).max())
+
+
+@pytest.mark.cuda
+def test_cuda_mma_step_rounding_inside_the_header_model(cuda_device):
+    # one tensor-core k-step on constructed operands (products an
+    # accumulator of 1 truncates away, random ones): every output within
+    # MMA_KAPPA u (|c| + sum |p|) of the exact sum, the model the bf16x3
+    # tolerance is proved from
+    before = ck.mma_probe.launches
+    report = ck.mma_rounding_probe(cuda_device)
+    assert ck.mma_probe.launches == before + len(report)
+    for name, r in report.items():
+        assert r["max_error_over_bound"] <= 1.0, (name, r)
 
 
 # --- K8 (lane binning) of every arm and K7 (pq): the int arms and pq are
@@ -420,7 +491,8 @@ def _lane_operands(device, arm, tile_n, seed, dim=24):
         return _int_case(device, arm, n_q, n, dim, tile_n, seed), None
     q, db = _data(np.random.default_rng(seed), n_q, n, dim)
     db[3] = db[90] = db[10]
-    return _f32_operands(device, arm, q, db, tile_n), _tol(q, db, arm)
+    return (_f32_operands(device, arm, q, db, tile_n),
+            _tol(q, db, arm, kernel=True))
 
 
 LANE_ARMS = ["bf16x3", *F32_ARMS, "int8", "int4", "pq"]
