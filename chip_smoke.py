@@ -8,12 +8,14 @@ exits non-zero and prints no result):
 
 1. device  — the card's name, ``nvidia-smi`` name and power limit, versions;
 2. build   — builds every CUDA kernel of the port from ``knn_tpu_torch/csrc``
-             with nvcc (one process per source, all at once);
+             with nvcc (one process per source, all at once); every bf16x3
+             and bf16x3f build must hold tensor-core (HMMA) instructions;
 3. kernel  — K1 (the fused bf16x3 binned-select kernel) and K10 (the
              db-streaming kernel) against their plain PyTorch version on
              the card: dim 24 with ragged rows, dim 300 (three dim chunks),
              one full 16,384-row SIFT tile at Q=256; cd and bounds within
-             64 eps_f32 (||q||^2 + max||t||^2), ci equal wherever a bin's
+             coarse_knn.kernel_plain_tolerance_scale (||q||^2 +
+             max||t||^2), ci equal wherever a bin's
              values are separated by more than that, the exclusion bound
              sound against float64 scores, and K10's outputs bitwise equal
              to K1's; K11 (the fused early-out kernel) against its plain
@@ -21,6 +23,8 @@ exits non-zero and prints no result):
              near 16,384-row tile, two far ones, 4,096 queries; at least
              one tile must skip) and on the full SIFT tile: the same
              skipped (block, tile) cells, the rest within the tolerance;
+             the tensor-core k-step's rounding probe, and fault 18's
+             construction through every bf16x3 and bf16x3f entry;
 4. main    — certified-exact k=100 search at the SIFT1M shape (1,000,000 x
              128 f32 rows and 4,096 queries drawn as bench.py draws them,
              seed 0) through ``ShardedKNN.search_certified(selector=
@@ -51,9 +55,11 @@ exits non-zero and prints no result):
              pipelined run (torch.profiler);
 6. f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
              (K3): each of their nine entries (tiled, streaming, fused)
-             against its plain version within 64 eps_f32 (||q||^2 +
-             max||t||^2) (highest: (2 nd + 4) 2^-24 (||q||^2 +
-             max||t||^2), nd = Dp / 128), ci equal on separated slots, on
+             against its plain version within coarse_knn.
+             kernel_plain_tolerance_scale (||q||^2 + max||t||^2) (bf16x3f:
+             the proved sum of its tensor-core summation's bound and the
+             plain version's; highest: (2 nd + 4) 2^-24, nd = Dp / 128;
+             default 128 2^-24), ci equal on separated slots, on
              the ``kernel`` phase's small cases, the far-tile case (the
              fused entries must skip) and at the ``main`` shape (the fused
              entries also at the pipelined run's geometry); every
@@ -101,7 +107,9 @@ exits non-zero and prints no result):
              bitwise their plain version (grouped binning, and lane
              binning at 2 and 8 survivors, 128- and 256-row bins) on a
              random LUT and codes with exact ties at the ``kernel``
-             phase's shapes; the pq placement of the ``main`` data trained
+             phase's shapes and at m = 196, C = 200 with 45 queries and a
+             1,280-row tile (a full 1,024-row block of K7's walk and a
+             shorter one); the pq placement of the ``main`` data trained
              on every row (its seconds), the three entries bitwise their
              plain version at Q=4,096 and timed against it and the bound;
              ``search_certified(precision="pq")`` through tiled, db-major
@@ -149,6 +157,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -231,9 +240,9 @@ class Check:
 def tolerance_q(q, db=None, tmax=None, arm="bf16x3"):
     """Per-query kernel-vs-plain tolerance, as f32 on q's device:
     coarse_knn.kernel_plain_tolerance_scale (||q||^2 + M), M =
-    max||t||^2 -- for bf16x3 the proved sum of the tensor-core summation's
-    bound and the plain version's (csrc/binned_mma.cuh); 64 eps_f32 for
-    bf16x3f and default, whose kernel and plain version sum f32 products
+    max||t||^2 -- for bf16x3 and bf16x3f the proved sum of the tensor-core
+    summation's bound and the plain version's (csrc/binned_mma.cuh); 64
+    eps_f32 for default, whose kernel and plain version sum f32 products
     in different orders; for highest, whose two differ only in the order
     of each chunk's f64 sum, (2 nd + 4) u, u = 2^-24, nd = 128-dim chunks:
     the chunk sums round to f32 at most an ulp apart, each f32 chunk
@@ -444,8 +453,8 @@ def header_bound_ratio(dev, arm, kernel, n_q=64, n=512, dim=896):
     s_ref is the exact f64 score of the kernel's own operands (the bf16
     parts' three products, or the f32 values' one); the bound is the
     headers' worst case for the arm's qt (coarse_knn.
-    accumulation_coefficient: csrc/binned_mma.cuh for bf16x3,
-    csrc/binned_select.cuh for the others), doubled in s, plus the
+    accumulation_coefficient: csrc/binned_mma.cuh for bf16x3 and bf16x3f,
+    csrc/binned_select.cuh for highest), doubled in s, plus the
     rounding of s.  With ``tile_n = 128`` every tile is one
     group, so every row's score is survivor 0 of its bin."""
     import torch
@@ -490,7 +499,7 @@ def pq_bound_ratio(dev, kernel, n_q=64, n=1024, m=196, dsub=4, ncodes=256):
     their own reconstruction (residuals 0) and all-nonnegative LUT entries
     (q in [1, 2], codebook values in [0, 1]: every partial sum of the
     chain grows).  s_ref is the exact f64 score ||t||^2 - 2 q.t; the bound
-    is csrc/binned_select.cuh's worst case, ops.pq.k7_rounding (||q||^2 +
+    is csrc/binned_pq.cuh's worst case, ops.pq.k7_rounding (||q||^2 +
     2 M) (norm_err_max is 0 here).  With ``tile_n = 128`` every row's
     score is survivor 0 of its bin."""
     import torch
@@ -521,15 +530,15 @@ def pq_bound_ratio(dev, kernel, n_q=64, n=1024, m=196, dsub=4, ncodes=256):
     return float(torch.where(real, err / bound[:, None], 0.0).max())
 
 
-def fault18_ratios(dev, dim, n_q=64, n=1024):
+def fault18_ratios(dev, dim, arm, n_q=64, n=1024):
     """Fault 18's construction on the card: queries and rows whose every
     value is one of the f32 values in [1, 1 + 2^-8) whose bf16 split errs
     most (the split's error in s nears half of 2^-14 (||q||^2 + M)).  For
-    every bf16x3 entry (tiled in both grids, streaming, fused, lane tiled
-    and streaming) the largest |s_kernel - s_f64| over the certificate's
-    tolerance (coarse_knn.kernel_tolerance) and over the reference's 2^-14
-    (||q||^2 + M), over every emitted candidate; raises when the first
-    passes 1."""
+    every entry of ``arm`` (bf16x3 or bf16x3f: tiled in both grids,
+    streaming, fused, lane tiled and streaming) the largest |s_kernel -
+    s_f64| over the certificate's tolerance (coarse_knn.kernel_tolerance)
+    and over the reference's 2^-14 (||q||^2 + M), over every emitted
+    candidate; raises when the first passes 1."""
     import torch
 
     from knn_tpu_torch.ops import coarse_knn as ck
@@ -546,7 +555,7 @@ def fault18_ratios(dev, dim, n_q=64, n=1024):
     s64 = torch.from_numpy((db64 ** 2).sum(-1)[None, :]
                            - 2.0 * q64 @ db64.T).to(dev)
     scale = (q64 ** 2).sum(-1) + (db64 ** 2).sum(-1).max()
-    tol = torch.from_numpy(ck.kernel_tolerance(q, db, precision="bf16x3")).to(dev)
+    tol = torch.from_numpy(ck.kernel_tolerance(q, db, precision=arm)).to(dev)
     old = torch.from_numpy(2.0 ** -14 * scale).to(dev)
     qp = ck.pad_queries(torch.from_numpy(q).to(dev))
     th, tl, tnorm = ck.prepare_db(torch.from_numpy(db).to(dev), ck.BIN_W)
@@ -558,14 +567,14 @@ def fault18_ratios(dev, dim, n_q=64, n=1024):
             ("fused", ck.fused_select, {"keep": None}),
             ("lane_tiled", ck.binned_select, {"binning": "lane"}),
             ("lane_streaming", ck.stream_select, {"binning": "lane"})):
-        cd, ci, _ = fn(qp, th, tl, tnorm, tile_n=ck.BIN_W, arm="bf16x3", **kw)
+        cd, ci, _ = fn(qp, th, tl, tnorm, tile_n=ck.BIN_W, arm=arm, **kw)
         real = ci < n
         err = torch.where(real, (cd.double() - torch.gather(
             s64, 1, torch.where(real, ci, 0).long())).abs(), 0.0).amax(-1)
         out[name] = {"error_over_tolerance": float((err / tol).max()),
                      "error_over_2^-14": float((err / old).max())}
         if out[name]["error_over_tolerance"] > 1.0:
-            raise AssertionError(f"fault 18 case, bf16x3 {name} at Dp={dim}: "
+            raise AssertionError(f"fault 18 case, {arm} {name} at Dp={dim}: "
                                  f"{out[name]}")
     return out
 
@@ -869,7 +878,6 @@ def tensor_core_counts(paths):
     library and kernel: HMMA / HGMMA lines of ``cuobjdump -sass`` where
     the toolkit has it, else the mma / wgmma instructions of the sources'
     PTX (``nvcc -ptx``).  Returns (tool, {library: {kernel: count}})."""
-    import re
     from pathlib import Path
 
     from knn_tpu_torch.ops import _cuda
@@ -1025,20 +1033,29 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths = _cuda.build()
         build_s = time.perf_counter() - t0
-        # the bf16x3 entries' kernels (K1 in either grid, K10, K11, their
-        # lane builds, Dp = 128 and Dp > 128 builds) must run on the
-        # tensor cores; every other kernel runs on CUDA cores
+        # the bf16x3 and bf16x3f entries' kernels (K1 and K4 in either
+        # grid, K10, K11 and K4's streaming and fused entries, their lane
+        # builds, Dp = 128 and Dp > 128 builds) must run on the tensor
+        # cores; every other kernel runs on CUDA cores.  A build's arm is
+        # its kernel template's first argument (binned::Arm, mangled
+        # "ArmE<code>E")
         tc_tool, tc = tensor_core_counts(paths)
-        bf16x3_tc = {f"{lib}:{fn}": n for lib, fns in tc.items()
-                     for fn, n in fns.items() if "mma_kernel" in fn
-                     and "probe" not in fn}
-        if len(bf16x3_tc) < 2 or min(bf16x3_tc.values()) < 1:
-            raise AssertionError(
-                f"bf16x3 kernels without tensor-core instructions: "
-                f"{bf16x3_tc}")
+        mma_tc = {arm: {} for arm in ("bf16x3", "bf16x3f")}
+        for lib, fns in tc.items():
+            for fn, n in fns.items():
+                code = re.search(r"ArmE(\d+)E", fn)
+                if "mma_kernel" in fn and code:
+                    mma_tc.setdefault(ck.ARMS[int(code.group(1))], {})[
+                        f"{lib}:{fn}"] = n
+        for arm, builds in mma_tc.items():
+            if len(builds) < 2 or min(builds.values()) < 1:
+                raise AssertionError(
+                    f"{arm} kernels without tensor-core instructions: "
+                    f"{builds}")
         emit({"phase": "build", "seconds": round(build_s, 3),
               "tensor_core_tool": tc_tool,
-              "bf16x3_tensor_core_instructions": bf16x3_tc,
+              "bf16x3_tensor_core_instructions": mma_tc["bf16x3"],
+              "bf16x3f_tensor_core_instructions": mma_tc["bf16x3f"],
               "other_kernels_tensor_core_instructions": sum(
                   n for lib, fns in tc.items() for fn, n in fns.items()
                   if "mma_kernel" not in fn and "probe" not in fn),
@@ -1074,11 +1091,13 @@ def main(argv=None) -> int:
         k11_cases.append(far)
         del fq, fdb
         # the tensor-core step's rounding against the header's model, and
-        # fault 18's construction through every bf16x3 entry
+        # fault 18's construction through every bf16x3 and bf16x3f entry
         probe = ck.mma_rounding_probe(dev)
         if max(r["max_error_over_bound"] for r in probe.values()) > 1.0:
             raise AssertionError(f"mma step outside the header's model: {probe}")
-        fault18 = {f"dp{dim}": fault18_ratios(dev, dim) for dim in (128, 896)}
+        fault18 = {arm: {f"dp{dim}": fault18_ratios(dev, dim, arm)
+                         for dim in (128, 896)}
+                   for arm in ("bf16x3", "bf16x3f")}
         emit({"phase": "kernel", "cases": cases, "k11_cases": k11_cases,
               "mma_rounding_probe": probe, "fault18_case": fault18,
               "max_abs_err": {key: c.max_abs_err for key, c in checks.items()}})
@@ -1629,7 +1648,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"fused_{arm} skipped no far tile")
         del fq, fdb
         # every entry of the certified f32 arms on all-positive data at
-        # Dp = 896 against the worst case csrc/binned_select.cuh states
+        # Dp = 896 against the worst case the headers state
         header = {f"{kern}_{arm}": header_bound_ratio(dev, arm, kern)
                   for arm in ("bf16x3", "bf16x3f", "highest")
                   for kern in ("tiled", "streaming", "fused")}
@@ -1763,9 +1782,12 @@ def main(argv=None) -> int:
                  "lane_s8_b256": {"binning": "lane", "survivors": 8,
                                   "bin_w": 256}}
         cases = []
+        # (the last: m = 196, C = 200, queries not a multiple of 32, a tile
+        # of one full 1,024-row block and a shorter one)
         for n_q, n, m, ncodes, tile in ((37, 5 * 128 + 60, 7, 200, 256),
                                         (11, 3 * 128 + 40, 32, 256, 256),
-                                        (256, 16384, 32, 256, ck.TILE_N)):
+                                        (256, 16384, 32, 256, ck.TILE_N),
+                                        (45, 1280 + 60, 196, 200, 1280)):
             args = pq_case(dev, n_q, n, m, ncodes, tile, n_q + m)
             for label, kw in emits.items():
                 kw = dict(kw, tile_n=tile, arm="pq")
@@ -1854,7 +1876,7 @@ def main(argv=None) -> int:
         del lat, DL
 
         # K7 at 196 subspaces (784 dims, dsub 4): its f32 error inside the
-        # worst case binned_select.cuh states, which the certificate's ε
+        # worst case binned_pq.cuh states, which the certificate's ε
         # carries (ops.pq.k7_rounding), and a certified search on rows
         # with zero residuals, where ε is the f32 terms alone
         ratio196 = {kern: pq_bound_ratio(dev, kern)

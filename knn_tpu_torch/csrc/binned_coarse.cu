@@ -29,18 +29,17 @@
 //   bounds [n_q, n_tiles*128] f32  column ti*128 + b
 //
 // Design.  One CTA per (query block of 32 rows, db tile).  The CTA walks the
-// tile's tile_n/128 column groups in ascending order.  bf16x3 (K1) runs
-// binned_mma.cuh's mainloop: each group's chunks on the tensor cores
-// through a cp.async ring, its scores through a shared-memory tile into the
-// emitter.  The other arms stage slices of the group's 128 db rows and of
-// the query block in shared memory and multiply them on CUDA cores: the
-// f32 family 64-dim slices
-// (bf16 parts upcast to f32 and the query split into hi/lo parts in-kernel,
+// tile's tile_n/128 column groups in ascending order.  bf16x3 (K1) and
+// bf16x3f (K4) run binned_mma.cuh's mainloop: each group's chunks on the
+// tensor cores through a cp.async ring, its scores through a shared-memory
+// tile into the emitter; pq (K7) runs binned_pq.cuh's walk.  The other
+// arms stage slices of the group's 128 db rows and of the query block in
+// shared memory and multiply them on CUDA cores: default and highest
+// 64-dim slices (th upcast to f32 and the query rounded to bf16 in-kernel,
 // or f32 values converted to f64 for highest -- once, when staged), each
 // 128-dim chunk summed in its own accumulator (chunk 0 in the score's own,
-// later ones added into a running sum kept in shared memory; bf16x3f walks
-// the chunk three times, once per product, staging the db part and query
-// part that product reads), then added into the score; the int arms one
+// later ones added into a running sum kept in shared memory), then added
+// into the score; the int arms one
 // 128-dim chunk as 32-bit words of 4 int8 dims (int4 unpacked on the way
 // in), accumulated in int32 with __dp4a, then rescaled once.  Each of the
 // 256 threads owns a 4-query x 4-lane register tile; after the group's last
@@ -63,14 +62,16 @@
 // at the SIFT1M shape (Q=4096); highest is an f32-accurate product (three
 // TF32 products on tensor cores are the cheapest such route); int8 is one
 // int8 product (Q*Np*Dp MACs) against ~0.8 GB (int4 ~0.7 GB).  All sit far
-// above the H100's ridge points.  bf16x3 runs on the tensor cores
-// (binned_mma.cuh: its 32-query CTA reads the db rows once per query
-// block, so the L2 traffic, not the products, limits it); the other arms
-// on CUDA cores (f32 FMA pipes at 67 TFLOP/s, f64 at half that, __dp4a for
-// the int arms), an order of magnitude above their bounds; their tensor-
-// core forms (3xTF32, s8 MMA) are later work.
+// above the H100's ridge points.  bf16x3 and bf16x3f run on the tensor
+// cores (binned_mma.cuh: a 32-query CTA reads the db rows once per query
+// block, so the L2 traffic, not the products, limits them); highest,
+// default and the int arms on CUDA cores (f32 FMA pipes at 67 TFLOP/s, f64
+// at half that, __dp4a for the int arms), an order of magnitude above
+// their bounds; their tensor-core forms (3xTF32, s8 MMA) are later work.
+// pq's bound is its shared-memory lookups (binned_pq.cuh).
 
 #include "binned_mma.cuh"
+#include "binned_pq.cuh"
 
 namespace {
 
@@ -88,16 +89,15 @@ constexpr size_t kSmemBytes = kComputeBytes + (kMulti ? kRunBytes : 0);
 constexpr int kMaxGridY = 65535;
 
 // Stages dims k0 .. k0+63 of db rows row0 .. row0+127 and of query rows
-// q0 .. q0+31 into the compute buffers for pass ``pass`` of the chunk: the
-// db part it reads (th or tl) upcast to f32, 8 bf16 per 16-byte load, or t
-// converted to f64, 4 f32 per load; the query's bf16 part (or the query
-// converted to f64), k-major for 16-byte reads, rows past n_q as zeros.
+// q0 .. q0+31 into the compute buffers: th upcast to f32, 8 bf16 per
+// 16-byte load, or t converted to f64, 4 f32 per load; the query's bf16
+// part (or the query converted to f64), k-major for 16-byte reads, rows
+// past n_q as zeros.
 template <Arm kArm>
 __device__ __forceinline__ void stage_slice(
     const F32Bufs<kArm, kDimSlice, kDbStride>& bufs,
-    const float* __restrict__ q, const void* __restrict__ db0,
-    const void* __restrict__ db1, size_t row0, int k0, int dp, int q0,
-    int n_q, int tid, int pass) {
+    const float* __restrict__ q, const void* __restrict__ db0, size_t row0,
+    int k0, int dp, int q0, int n_q, int tid) {
   if constexpr (kArm == Arm::kHighest) {
     const float* t = static_cast<const float*>(db0);
     double* dst = static_cast<double*>(bufs.db0);
@@ -111,8 +111,7 @@ __device__ __forceinline__ void stage_slice(
                 dst + r * kDbStride + c4 * 4);
     }
   } else {
-    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(
-        db_part<kArm>(pass) ? db1 : db0);
+    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(db0);
 #pragma unroll
     for (int p = 0; p < (kBinW * kDimSlice / 8) / kThreads; ++p) {
       const int idx = tid + p * kThreads;
@@ -136,18 +135,16 @@ __device__ __forceinline__ void stage_slice(
     const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      store_query<kArm>(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r, pass);
+      store_query<kArm>(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r);
   }
 }
 
-// The CUDA-core f32 family (K4, K2, K3).  db0 / db1: th / tl bf16
-// (bf16x3f), th alone (default), t f32 (highest).  kMulti: the build for
-// Dp > 128 (sum_chunks).
+// The CUDA-core f32 family (K2, K3).  db0: th bf16 (default), t f32
+// (highest).  kMulti: the build for Dp > 128 (sum_chunks).
 template <Arm kArm, bool kMulti, int kSlots>
 __global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
 binned_select_f32_kernel(const float* __restrict__ q,
                          const void* __restrict__ db0,
-                         const void* __restrict__ db1,
                          const float* __restrict__ tnorm, Out out, int dp,
                          int db_major) {
   extern __shared__ float4 smem_f4[];
@@ -173,16 +170,12 @@ binned_select_f32_kernel(const float* __restrict__ q,
     const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
     // the products of chunk c, summed into ``sum``
     auto chunk = [&](int c, auto& sum) {
-#pragma unroll 1
-      for (int pass = 0; pass < kPasses<kArm>; ++pass) {
-        for (int k0 = c * kDimChunk; k0 < (c + 1) * kDimChunk;
-             k0 += kDimSlice) {
-          __syncthreads();  // previous slice fully consumed
-          stage_slice<kArm>(bufs, q, db0, db1, row0, k0, dp, q0, n_q, tid,
-                            pass);
-          __syncthreads();
-          slice_products(bufs, quad, lane_col, sum);
-        }
+      for (int k0 = c * kDimChunk; k0 < (c + 1) * kDimChunk;
+           k0 += kDimSlice) {
+        __syncthreads();  // previous slice fully consumed
+        stage_slice<kArm>(bufs, q, db0, row0, k0, dp, q0, n_q, tid);
+        __syncthreads();
+        slice_products(bufs, quad, lane_col, sum);
       }
     };
     Acc acc;
@@ -192,9 +185,10 @@ binned_select_f32_kernel(const float* __restrict__ q,
   em.end_tile(ti, out, place, false);
 }
 
-// K1: the bf16x3 arm on tensor cores (binned_mma.cuh), one db tile per
-// CTA.  kMulti: the build for Dp > 128 (the query's chunk staged per step).
-template <bool kMulti, int kSlots>
+// K1 and K4: the bf16x3 and bf16x3f arms on tensor cores (binned_mma.cuh),
+// one db tile per CTA.  kMulti: the build for Dp > 128 (the query's chunk
+// staged per step).
+template <Arm kArm, bool kMulti, int kSlots>
 __global__ void __launch_bounds__(kThreads, 1)
 binned_select_mma_kernel(const float* __restrict__ q,
                          const __nv_bfloat16* __restrict__ th,
@@ -205,7 +199,7 @@ binned_select_mma_kernel(const float* __restrict__ q,
   __shared__ int warp_ok[kThreads / 32];
   const int ti = db_major ? blockIdx.y : blockIdx.x;
   const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
-  bf16x3_walk<kMulti, kSlots, false>(
+  bf16x3_walk<kArm, kMulti, kSlots, false>(
       q, th, tl, tnorm, out, dp, q0, ti, ti + 1, 0,
       reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
 }
@@ -264,11 +258,11 @@ binned_select_int_kernel(const int8_t* __restrict__ qi,
   em.end_tile(ti, out, place, false);
 }
 
-// K7: one db tile per CTA (binned_select.cuh, pq_tiles).
+// K7: one db tile per CTA (binned_pq.cuh, pq_tiles).
 template <int kSlots>
 __global__ void __launch_bounds__(kThreads, 1)
-binned_select_pq_kernel(const float* __restrict__ lut,
-                        const uint8_t* __restrict__ codes,
+binned_select_pq_kernel(const float* __restrict__ lut_t,
+                        const uint8_t* __restrict__ codes_t,
                         const float* __restrict__ tnorm, Out out, int m,
                         int ncodes, int db_major) {
   extern __shared__ float4 smem_f4[];
@@ -277,7 +271,7 @@ binned_select_pq_kernel(const float* __restrict__ lut,
   const Place place{static_cast<int>(db_major ? blockIdx.x : blockIdx.y) *
                         kBlockQ,
                     tid / 32, tid % 32};
-  pq_tiles<kSlots>(lut, codes, tnorm, out, place, m, ncodes, ti, ti + 1,
+  pq_tiles<kSlots>(lut_t, codes_t, tnorm, out, place, m, ncodes, ti, ti + 1,
                   reinterpret_cast<unsigned char*>(smem_f4));
 }
 
@@ -293,13 +287,13 @@ template <Arm kArm, bool kMulti, int kSlots>
 cudaError_t launch_f32(dim3 grid, const void* p0, const void* p1,
                        const void* p2, const void* p3, const Out& out, int dp,
                        int db_major, cudaStream_t stream) {
-  if constexpr (kArm == Arm::kBf16x3) {
+  if constexpr (kUsesMma<kArm>) {
     const cudaError_t err = cudaFuncSetAttribute(
-        binned_select_mma_kernel<kMulti, kSlots>,
+        binned_select_mma_kernel<kArm, kMulti, kSlots>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kMmaSmemBytes<kMulti>));
     if (err != cudaSuccess) return err;
-    binned_select_mma_kernel<kMulti, kSlots>
+    binned_select_mma_kernel<kArm, kMulti, kSlots>
         <<<grid, kThreads, kMmaSmemBytes<kMulti>, stream>>>(
             static_cast<const float*>(p0),
             static_cast<const __nv_bfloat16*>(p1),
@@ -313,7 +307,7 @@ cudaError_t launch_f32(dim3 grid, const void* p0, const void* p1,
     if (err != cudaSuccess) return err;
     binned_select_f32_kernel<kArm, kMulti, kSlots>
         <<<grid, kThreads, kSmemBytes<kMulti>, stream>>>(
-            static_cast<const float*>(p0), p1, p2,
+            static_cast<const float*>(p0), p1,
             static_cast<const float*>(p3), out, dp, db_major);
   }
   return cudaGetLastError();
@@ -325,7 +319,7 @@ cudaError_t launch_arm(dim3 grid, const void* p0, const void* p1,
                        int db_major, int ncodes, cudaStream_t stream) {
   if constexpr (kArm == Arm::kPq) {
     // dp = m, the code bytes per row
-    const size_t smem = pq_smem_bytes(dp, ncodes);
+    const size_t smem = pq_smem_bytes(ncodes);
     const cudaError_t err = cudaFuncSetAttribute(
         binned_select_pq_kernel<kSlots>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -388,9 +382,12 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
 //                    (K5) or [n_tiles*tile_n, dp/2] nibble-packed uint8
 //                    (K6); aux [2, n_tiles*tile_n] f32 (row norms, then row
 //                    scales)
-//   pq (K7):         lut [n_q, dp*ncodes] f32; codes [n_tiles*tile_n, dp]
-//                    uint8 (dp = m, the subspaces; every code < ncodes);
-//                    unused; tnorm
+//   pq (K7):         lut_t [ceil(n_q/32), dp, ncodes, 32] f32 (the LUT by
+//                    query block and subspace, each slice [code][query],
+//                    queries past n_q zero); codes_t [dp, n_tiles*tile_n]
+//                    uint8 (subspace-major; dp = m, the subspaces; every
+//                    code < ncodes); unused; tnorm (coarse_knn.
+//                    _pq_kernel_operands lays them out)
 // Outputs as in binned_select.cuh for the binning: bin_w = 0 is grouped
 // binning (survivors must be 2), bin_w > 0 lane binning with `survivors`
 // (1 .. 8) per bin of bin_w rows (K8).  dp (but pq's) and tile_n must be

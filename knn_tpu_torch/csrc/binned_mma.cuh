@@ -1,18 +1,24 @@
-// The bf16x3 arm on Hopper's tensor cores: one mainloop that every bf16x3
-// entry runs -- the tiled kernel K1 in either grid (binned_coarse.cu), the
-// streaming K10 and fused K11 kernels (binned_stream.cu), each in grouped
-// or (K8) lane binning.  One walk, one MMA shape (mma.sync m16n8k16, bf16
-// in, f32 accumulate) and one k-order, so every bf16x3 entry gives the same
-// bits, and a lane build reads the very score tile its grouped build reads.
+// The bf16x3 and bf16x3f arms on Hopper's tensor cores: one mainloop that
+// every entry of both runs -- the tiled kernels K1 / K4 in either grid
+// (binned_coarse.cu), the streaming and fused kernels K10 / K11 and K4's
+// (binned_stream.cu), each in grouped or (K8) lane binning.  One walk, one
+// MMA shape (mma.sync m16n8k16, bf16 in, f32 accumulate) and one k-order
+// per arm, so every entry of an arm gives the same bits, and a lane build
+// reads the very score tile its grouped build reads.  The arm is the
+// walk's template parameter: it sets only how the products are grouped
+// into accumulators.
 //
-// Replaces the CUDA-core arithmetic of K1 / K10 / K11 (f32 FMAs of the
-// upcast parts, dim by dim).  The TPU kernel it stands for is
-// knn_tpu/ops/pallas_knn.py::_kernel:384 / _stream_kernel:613 in the
-// bf16x3 arm: qt = qh.th + qh.tl + ql.th, s = tnorm - 2 qt.
+// Replaces the CUDA-core arithmetic of K1 / K10 / K11 and K4 (f32 FMAs of
+// the upcast parts, dim by dim; K4 walked each chunk once per product).
+// The TPU kernels they stand for are knn_tpu/ops/pallas_knn.py::_kernel /
+// _stream_kernel: bf16x3 (:384, :613) qt = qh.th + qh.tl + ql.th, and
+// bf16x3f (:407-414, :704-710) qt = one dot over the 3x contraction
+// [qh|qh|ql].[th|tl|th]; s = tnorm - 2 qt.
 //
 // Design.  A CTA of kThreads = 256 threads (8 warps) owns kBlockQ = 32
 // query rows and walks a run of (db tile, 128-row group, 128-dim chunk)
-// steps: one step for K1's one tile, a segment of tiles for K10 / K11.
+// steps: one step for a tiled entry's one tile, a segment of tiles for the
+// streaming and fused entries.
 //   - Operands: each step's th and tl chunk rows [128][128] bf16 are
 //     copied with cp.async into one of two shared stages, rows padded to
 //     kMmaRow = 136 bf16 (272 B: the 8 rows an ldmatrix phase reads fall in
@@ -23,13 +29,16 @@
 //     db rows) for Dp > 128.
 //   - Products: warp w takes db rows w*16 .. w*16+15 of the group as the
 //     MMA's M and the 32 queries as N (4 n-tiles of 8), K = 16 dims a
-//     step: per k-step 2 ldmatrix.x4 of th / tl, 4 of qh / ql, 12 MMAs
-//     into two accumulators, hi = qh.th and lo = qh.tl + ql.th (about 2^-8
-//     of hi: its rounding is 2^-8 as large).  At the chunk's end the two
-//     are added once in f32 (round to nearest) and the chunk's sum goes to
-//     the score tile S [32][132] f32 in shared memory: written at chunk 0,
-//     added (round to nearest) at chunks 1 .. nd-1 -- the per-chunk sums
-//     of the fault-12 repair, acc = c_0 + c_1 + ... in chunk order.
+//     step: per k-step 2 ldmatrix.x4 of th / tl, 4 of qh / ql, and per
+//     n-tile three MMAs in the order th.qh, tl.qh, th.ql.  bf16x3 sums
+//     them into two accumulators, hi = qh.th and lo = qh.tl + ql.th (about
+//     2^-8 of hi: its rounding is 2^-8 as large), added once in f32 (round
+//     to nearest) at the chunk's end; bf16x3f sums all three into one
+//     accumulator, 24 k-steps a chunk (the TPU's one dot).  The chunk's sum
+//     goes to the score tile S [32][132] f32 in shared memory: written at
+//     chunk 0, added (round to nearest) at chunks 1 .. nd-1 -- the
+//     per-chunk sums of the fault-12 repair, acc = c_0 + c_1 + ... in chunk
+//     order.
 //   - Emission: after the group's last chunk, S is read in the emitters'
 //     thread layout (Place: queries quad*4 + i, lanes lane_col + 32 j) and
 //     handed to Emitter<kSlots>::group, unchanged (grouped network with
@@ -44,29 +53,39 @@
 // A block of n products errs by at most (2 (n + 1) + 2) u times the sum
 // of its addends' magnitudes, so one step, two blocks of 8 at worst,
 // errs by at most kappa u (|acc| + sum |p|), kappa = 40
-// (coarse_knn.MMA_KAPPA).  Per chunk of 8 steps each step's |acc| + sum
-// |p| is at most the chunk's P_c (to first order), so an accumulator errs
-// by <= 8 kappa u P_c = 320 u P_c; hi and lo together by 320 u P_c over
-// all three products; their add, u P_c; the nd - 1 chunk adds, (nd - 1) u
-// P.  So |err(qt)| <= (320 + nd) u P (1 + 2^-7), the (1 + 2^-7) covering
-// the second-order terms.  In s = tn - 2 qt, with P <= (||q||^2 + M) / 2:
-// (320 + nd)(1 + 2^-7) u (||q||^2 + M) -- 0.32 of 2^-14 at Dp = 128
-// (coarse_knn.accumulation_coefficient).  The certificate's tolerance
-// adds it to the split's proved error (binned_select.cuh) and the f32
-// headroom (coarse_knn.bf16_tolerance_scale).  On an H100 the probe
-// (chip_smoke.py's kernel phase) finds a step keeping two bits below an
-// accumulator of 1 and truncating: a 0.75-ulp product is dropped, sixteen
-// 0.47-ulp products add 4 of their 7.5 ulps; every case stays within 0.18
-// of the model's bound.
+// (coarse_knn.MMA_KAPPA).  Within a chunk every step's |acc| + sum |p| is
+// at most the chunk's P_c (the sum of the magnitudes of its products, to
+// first order), so an accumulator that takes n steps errs by <= n kappa u
+// P_c.  The second-order terms (|acc| carries the earlier steps' errors,
+// at most 24 kappa u = 2^-14.1 of it) are covered by a factor (1 + 2^-7).
+//   - bf16x3: hi and lo take 8 steps each, together 8 kappa u P_c = 320 u
+//     P_c over all three products; their add, u P_c; the nd - 1 chunk
+//     adds, (nd - 1) u P.  So |err(qt)| <= (320 + nd)(1 + 2^-7) u P.
+//   - bf16x3f: the one accumulator takes 24 steps, 24 kappa u P_c = 960 u
+//     P_c; no add inside the chunk; the nd - 1 chunk adds.  So |err(qt)|
+//     <= (960 + nd - 1)(1 + 2^-7) u P.
+// In s = tn - 2 qt, with P <= (||q||^2 + M) / 2, these coefficients times
+// u (||q||^2 + M): 0.32 (bf16x3) and 0.945 (bf16x3f) of 2^-14 at Dp = 128
+// (coarse_knn.accumulation_coefficient).  The certificate's tolerance adds
+// the split's proved error (binned_select.cuh, 0.756 of 2^-14) and the f32
+// headroom (64 u, 0.0625 of 2^-14): 1.134 x 2^-14 (bf16x3) and 1.763 x
+// 2^-14 (bf16x3f) at Dp = 128 (coarse_knn.bf16_tolerance_scale).  The
+// bound holds for any order of the steps; the one that runs, th.qh before
+// the two small products in every k-step, is what the tests replay
+// (coarse_knn.mma_step_model).  On an H100 the probe (chip_smoke.py's
+// kernel phase) finds a step keeping two bits below an accumulator of 1
+// and truncating: a 0.75-ulp product is dropped, sixteen 0.47-ulp products
+// add 4 of their 7.5 ulps; every case stays within 0.18 of the model's
+// bound.
 //
 // What bounds it on this card: the db bytes.  A 32-query block reads each
 // db row's th and tl (512 B at Dp = 128) for 3 x 2 x 32 x 128 = 24,576
 // FLOPs: 48 FLOP per byte, far under the tensor cores' ridge (~295 from
 // HBM).  Each pass over the db moves ~0.5 GB, 128 query blocks ~66 GB
-// through L2: at 4,096 queries x 1M rows the kernel takes ~22 ms (H100
+// through L2: at 4,096 queries x 1M rows either arm takes ~21-23 ms (H100
 // SXM, 700 W), ~3 TB/s of L2 reads, in either grid order, against a 3.18
-// ms bound of operations.  One CTA per SM (238-244 registers a thread, the
-// emitter's 80 among them, and 170-202 KB of shared memory), so the
+// ms bound of operations.  One CTA per SM (up to 244 registers a thread,
+// the emitter's 80 among them, and 170-202 KB of shared memory), so the
 // emitter's work and the barriers are not hidden behind another CTA's
 // products.  Larger query blocks (the emitter state is what the registers
 // cannot hold twice) or cluster multicast of the db rows are the next
@@ -77,6 +96,11 @@
 #include "binned_select.cuh"
 
 namespace binned {
+
+// The arms that run on the tensor cores: bf16x3 (K1, K10, K11) and
+// bf16x3f (K4).
+template <Arm kArm>
+constexpr bool kUsesMma = kArm == Arm::kBf16x3 || kArm == Arm::kBf16x3f;
 
 constexpr int kMmaK = 16;                  // dims per MMA k-step
 constexpr int kMmaRow = kDimChunk + 8;     // bf16 per staged row (272 B)
@@ -194,14 +218,18 @@ __device__ __forceinline__ void mma_split_query(const float* src, size_t stride,
   }
 }
 
-// The two accumulators of a warp's 16 db rows x 32 queries: [n-tile][4].
+// The accumulators of a warp's 16 db rows x 32 queries: [n-tile][4].
+// bf16x3 keeps two, bf16x3f (kOne) one: ``hi`` alone.
 struct MmaAcc {
-  float hi[4][4];   // qh . th
-  float lo[4][4];   // qh . tl + ql . th
+  float hi[4][4];   // qh . th (bf16x3f: every product)
+  float lo[4][4];   // qh . tl + ql . th (bf16x3 only)
 };
 
 // One staged chunk's products into ``acc`` (zeroed here): 8 k-steps in
-// order, per step and n-tile hi += th.qh, lo += tl.qh, lo += th.ql.
+// order, per step and n-tile th.qh, tl.qh, th.ql -- into hi, lo, lo
+// (bf16x3), or all three into hi (kOne, bf16x3f: 24 steps a chunk into one
+// accumulator, the TPU's one dot over the 3x contraction).
+template <bool kOne>
 __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sth,
                                           const __nv_bfloat16* stl,
                                           const __nv_bfloat16* qh,
@@ -230,16 +258,18 @@ __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sth,
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int pr = nt / 2, h = 2 * (nt % 2);
+      float (&second)[4] = *(kOne ? &acc.hi[nt] : &acc.lo[nt]);
       mma_bf16(acc.hi[nt], ah, bh[pr][h], bh[pr][h + 1]);
-      mma_bf16(acc.lo[nt], al, bh[pr][h], bh[pr][h + 1]);
-      mma_bf16(acc.lo[nt], ah, bl[pr][h], bl[pr][h + 1]);
+      mma_bf16(second, al, bh[pr][h], bh[pr][h + 1]);
+      mma_bf16(second, ah, bl[pr][h], bl[pr][h + 1]);
     }
   }
 }
 
-// The chunk's sum hi + lo (one f32 add) into the score tile S[query][row]:
-// written at the group's first chunk, added after it.  Each thread writes
-// and re-reads only its own fragment's cells.
+// The chunk's sum (bf16x3: hi + lo, one f32 add; bf16x3f: hi) into the
+// score tile S[query][row]: written at the group's first chunk, added
+// after it.  Each thread writes and re-reads only its own fragment's cells.
+template <bool kOne>
 __device__ __forceinline__ void mma_store_chunk(const MmaAcc& acc, float* S,
                                                 int warp, int lane,
                                                 bool first) {
@@ -250,24 +280,28 @@ __device__ __forceinline__ void mma_store_chunk(const MmaAcc& acc, float* S,
     for (int e = 0; e < 4; ++e) {
       const int qr = nt * 8 + 2 * t + (e & 1);
       const int row = warp * 16 + g + (e >> 1) * 8;
-      const float c = __fadd_rn(acc.hi[nt][e], acc.lo[nt][e]);
+      const float c =
+          kOne ? acc.hi[nt][e] : __fadd_rn(acc.hi[nt][e], acc.lo[nt][e]);
       float& s = S[qr * kScoreStride + row];
       s = first ? c : __fadd_rn(s, c);
     }
 }
 
-// Every bf16x3 entry's walk: db tiles [t_begin, t_end) for the query block
-// at q0, each tile's groups, each group's chunks, through the two-stage
-// ring; the group's scores to the emitter; at each tile's end K11's skip
-// (kFused, depth > 0) and the tile's block.  q [n_q, dp] f32; th, tl
-// [n_tiles*tile_n, dp] bf16; tnorm row 0 of the [8, Np] norm rows.
-template <bool kMulti, int kSlots, bool kFused>
+// Every bf16x3 and bf16x3f entry's walk (kArm one of the two): db tiles
+// [t_begin, t_end) for the query block at q0, each tile's groups, each
+// group's chunks, through the two-stage ring; the group's scores to the
+// emitter; at each tile's end K11's skip (kFused, depth > 0) and the
+// tile's block.  q [n_q, dp] f32; th, tl [n_tiles*tile_n, dp] bf16; tnorm
+// row 0 of the [8, Np] norm rows.
+template <Arm kArm, bool kMulti, int kSlots, bool kFused>
 __device__ __forceinline__ void bf16x3_walk(
     const float* __restrict__ q, const __nv_bfloat16* __restrict__ th,
     const __nv_bfloat16* __restrict__ tl, const float* __restrict__ tnorm,
     const Out& out, int dp, int q0, int t_begin, int t_end, int depth,
     unsigned char* smem, int* warp_ok) {
   static_assert(!(kFused && kSlots), "the fused early-out is grouped only");
+  static_assert(kUsesMma<kArm>, "the tensor-core walk serves bf16x3 / bf16x3f");
+  constexpr bool kOne = kArm == Arm::kBf16x3f;
   constexpr size_t kStage = kMmaStageBytes<kMulti>;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -327,8 +361,8 @@ __device__ __forceinline__ void bf16x3_walk(
         }
         const __nv_bfloat16* sth = reinterpret_cast<const __nv_bfloat16*>(st);
         MmaAcc acc;
-        mma_chunk(sth, sth + kBinW * kMmaRow, qh, ql, warp, lane, acc);
-        mma_store_chunk(acc, S, warp, lane, c == 0);
+        mma_chunk<kOne>(sth, sth + kBinW * kMmaRow, qh, ql, warp, lane, acc);
+        mma_store_chunk<kOne>(acc, S, warp, lane, c == 0);
         buf ^= 1;
       }
       __syncthreads();   // S complete

@@ -3,9 +3,9 @@
 // db tile) and the streaming / fused entries of every arm (binned_stream.cu,
 // one CTA per query block walking a run of db tiles): the per-score
 // arithmetic of the CUDA-core f32 and int arms (this part), both emitters
-// (grouped and lane binning, K8), K11's carry and skip, and the pq arm's
-// walk (K7), below.  The bf16x3 arm (K1, K10, K11) runs on the tensor
-// cores: binned_mma.cuh.
+// (grouped and lane binning, K8), and K11's carry and skip, below.  The
+// bf16x3 (K1, K10, K11) and bf16x3f (K4) arms run on the tensor cores
+// (binned_mma.cuh); the pq arm's walk (K7) is binned_pq.cuh.
 //
 // Every kernel of one arm computes each score with the same arithmetic, in
 // the same order, so the tiled, streaming and fused outputs of the arm are
@@ -21,12 +21,10 @@
 //
 //   bf16x3 (K1, K10, K11): qh.th + (qh.tl + ql.th) per chunk on tensor
 //     cores, chunks added in f32 (binned_mma.cuh)
-//   bf16x3f (K4): qh = bf16_rn(q), ql = bf16_rn(q - qh)     (store_query),
-//     the products qh*th, qh*tl, ql*th in the order of the TPU's one dot
-//     over the 3x contraction [qh|qh|ql].[th|tl|th] (pallas_knn.py:407-414):
-//     per chunk all 128 qh*th, then all qh*tl, then all ql*th, in one f32
-//     chunk accumulator (three passes of fma_pair over the chunk, each
-//     staging only the db part and query part it reads)
+//   bf16x3f (K4): qh.th, qh.tl, ql.th of every k-step into one tensor-core
+//     accumulator per chunk (the TPU's one dot over the 3x contraction
+//     [qh|qh|ql].[th|tl|th], pallas_knn.py:407-414), chunks added in f32
+//     (binned_mma.cuh)
 //   default (K3): the TPU's one bf16 pass, cacc += bf16_rn(q)*th (th is
 //     bf16_rn(t)), f32 accumulation                          (fma_pair)
 //   highest (K2): cacc += q*t in f64 (DFMA) over the f32 values, rounded
@@ -54,20 +52,18 @@
 //       with |e_q| <= 2^-16 |q| (t likewise), and q t - (qh th + qh tl +
 //       ql th) = ql tl + e_q t' + q' e_t, at most 3 * 2^-16 (1 + 2^-7) |q
 //       t| per dim.  Doubled in s over sum |q_i t_i| <= P: SPLIT_SCALE =
-//       3 * 2^-16 (1 + 2^-7) = 0.754 of 2^-14, reached when every dim's
+//       3 * 2^-16 (1 + 2^-7) = 0.756 of 2^-14, reached when every dim's
 //       roundings are at their largest and align (the reference's model,
 //       pallas_knn.py:1532-1534, puts them at 1/16 of 2^-14);
-//     - the summation.  Products of bf16 values are exact in f32.
-//       bf16x3 on tensor cores: (320 + nd)(1 + 2^-7) u (binned_mma.cuh);
-//       bf16x3f, a chain of 3*128 FMAs per chunk, then nd - 1 chunk
-//       additions: (384 + nd)(1 + 2^-7) u (coarse_knn.
-//       accumulation_coefficient);
+//     - the summation.  Products of bf16 values are exact in f32; on
+//       tensor cores (binned_mma.cuh, coarse_knn.accumulation_coefficient)
+//       bf16x3 (320 + nd)(1 + 2^-7) u, bf16x3f (960 + nd - 1)(1 + 2^-7) u;
 //     - the headroom: 64 u for the f32 norms, the rounding of s and the
 //       certificate's f32 adds, the budget the highest arm keeps below.
-//     Their sum, 0.754 + 0.32 + 0.06 = 1.14 of 2^-14 (bf16x3, Dp = 128)
-//     or 1.20 (bf16x3f), replaces the reference's 2^-14 whenever it is
-//     larger (ROADMAP divergence 18; the sum of the split and the old
-//     chain could pass 2^-14 by ~13%, fault 18).
+//     Their sum, 0.756 + 0.316 + 0.063 = 1.134 of 2^-14 (bf16x3, Dp = 128)
+//     or 0.756 + 0.945 + 0.063 = 1.763 (bf16x3f), replaces the reference's
+//     2^-14 whenever it is larger (ROADMAP divergence 18; the sum of the
+//     split and a CUDA-core chain could pass 2^-14 by ~13%, fault 18).
 //   highest.  Each product of two f32 values is exact in f64; the chunk's
 //     f64 sum errs by <= 127 * 2^-53 P_c and its rounding to f32 by u P_c;
 //     the nd - 1 f32 chunk additions by (nd - 1) u P.  So |err(qt)| <=
@@ -87,9 +83,9 @@
 // The thread layout is fixed here too: a CTA of kThreads = 256 threads owns
 // kBlockQ = 32 query rows and the 128 lanes of a column group; each thread
 // owns a 4-query x 4-lane register tile (queries quad*4 + i, lanes
-// lane_col + 32*j).  Shared-memory operands of the f32 family: db rows at a
-// per-kernel row stride (f32 th / tl, or f64 t for highest) and query parts
-// k-major at kQStride (f32 hi / lo, or f64 q for highest); the int arms
+// lane_col + 32*j).  Shared-memory operands of the CUDA-core f32 family: db
+// rows at a per-kernel row stride (f32 th, or f64 t for highest) and query
+// parts k-major at kQStride (f32 hi, or f64 q for highest); the int arms
 // stage one 128-dim chunk as 32-bit words of 4 int8 dims, db rows at
 // kIntDbStride words and query words k-major at kQStride.
 
@@ -131,27 +127,10 @@ constexpr int kIntDbStride = kIntWords + 1;   // pad: conflict-free row reads
 template <Arm kArm>
 constexpr bool kIsInt = kArm == Arm::kInt8 || kArm == Arm::kInt4;
 
-// Passes over each chunk: bf16x3f walks it three times (qh.th, qh.tl,
-// ql.th), every other arm once.
-template <Arm kArm>
-constexpr int kPasses = kArm == Arm::kBf16x3f ? 3 : 1;
-
-// The f32 family's shared-memory element and chunk-accumulator type: f64
-// for highest, f32 for the bf16 arms.
+// The CUDA-core f32 family's shared-memory element and chunk-accumulator
+// type: f64 for highest, f32 for default.
 template <Arm kArm>
 using Elem = std::conditional_t<kArm == Arm::kHighest, double, float>;
-
-// The db part (0: th or t, 1: tl) and query part (0: qh or q, 1: ql) that
-// pass ``pass`` of a chunk reads.
-template <Arm kArm>
-__host__ __device__ constexpr int db_part(int pass) {
-  return kArm == Arm::kBf16x3f && pass == 1 ? 1 : 0;
-}
-
-template <Arm kArm>
-__host__ __device__ constexpr int q_part(int pass) {
-  return kArm == Arm::kBf16x3f && pass == 2 ? 1 : 0;
-}
 
 // CTAs per SM the kernels are compiled for: highest's f64 chunk
 // accumulators need more than the 128 registers two CTAs leave a thread.
@@ -160,9 +139,9 @@ constexpr int kMinCtas = kArm == Arm::kHighest ? 1 : 2;
 
 // Bytes of the CUDA-core f32 family's compute buffers for a slice of
 // kSlice dims, sized for one f64 db part [128][kSlice+1] and one f64 query
-// part [kSlice][kQStride] (highest); bf16x3f and default use the first
-// half, as f32, and keep the same footprint (their occupancy and tile
-// segments as measured).
+// part [kSlice][kQStride] (highest); default uses the first half, as f32,
+// and keeps the same footprint (its occupancy and tile segments as
+// measured).
 template <int kSlice>
 constexpr size_t kF32ComputeBytes =
     sizeof(double) * (kBinW * (kSlice + 1) + kSlice * kQStride);
@@ -219,8 +198,8 @@ constexpr size_t kRunBytes = sizeof(float) * kQuadQ * kQuadL * kThreads;
 // The CUDA-core f32 family's score sums acc = 0 + c_0 + c_1 + ... over nd
 // chunks,
 // where chunk(c, sum) adds the products of chunk c into ``sum`` (f32, or
-// f64 for highest).  bf16x3f and default sum chunk 0 straight into acc (0 + c_0
-// == c_0, and an FMA chain from +0 never ends at -0).  Every f32 kernel is
+// f64 for highest).  default sums chunk 0 straight into acc (0 + c_0 ==
+// c_0, and an FMA chain from +0 never ends at -0).  Every f32 kernel is
 // built twice and launched by Dp: kMulti = false for Dp = 128 (nd = 1: the
 // one chunk, nothing else -- the register and shared-memory footprint of
 // a single chain), kMulti = true for Dp > 128, where chunks 1 .. nd-1 go
@@ -264,20 +243,14 @@ __device__ __forceinline__ void sum_chunks(int nd, float* run, int tid,
 }
 
 // One query value as the arm stores it at k-major position ``at``: the
-// hi or lo bf16 part with round-to-nearest-even (JAX's astype) as f32
-// (bf16x3f the part pass ``pass`` reads; default the hi part), or the
-// value as f64 (highest, converted once here, not per product).
+// bf16 part with round-to-nearest-even (JAX's astype) as f32 (default), or
+// the value as f64 (highest, converted once here, not per product).
 template <Arm kArm>
-__device__ __forceinline__ void store_query(float x, void* qa, int at,
-                                            int pass) {
-  if constexpr (kArm == Arm::kHighest) {
+__device__ __forceinline__ void store_query(float x, void* qa, int at) {
+  if constexpr (kArm == Arm::kHighest)
     static_cast<double*>(qa)[at] = static_cast<double>(x);
-  } else {
-    const float hf = __bfloat162float(__float2bfloat16_rn(x));
-    static_cast<float*>(qa)[at] =
-        q_part<kArm>(pass) ? __bfloat162float(__float2bfloat16_rn(x - hf))
-                           : hf;
-  }
+  else
+    static_cast<float*>(qa)[at] = __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // This thread's 4 query values at k-major row k (16-byte loads).
@@ -326,8 +299,7 @@ __device__ __forceinline__ void fma_pair(const T* ts, const T* qs, int quad,
 }
 
 // Where a slice's db rows and query values go in the compute buffers:
-// the pass's db part and query part (bf16x3f); th, qh (default); t, q as
-// f64 (highest).
+// th, qh (default); t, q as f64 (highest).
 template <Arm kArm, int kSlice, int kDbStride>
 struct F32Bufs {
   void* db0;   // [128][kDbStride]
@@ -341,8 +313,7 @@ struct F32Bufs {
 };
 
 // The CUDA-core f32 family's products over one staged slice into ``acc``:
-// one per dim of the staged pair (bf16x3f's pass staged the pair it
-// reads).
+// one per dim of the staged pair.
 template <Arm kArm, int kSlice, int kDbStride>
 __device__ __forceinline__ void slice_products(
     const F32Bufs<kArm, kSlice, kDbStride>& b, int quad, int lane_col,
@@ -354,8 +325,8 @@ __device__ __forceinline__ void slice_products(
 }
 
 // Stores 8 consecutive db values of row r, dims c .. c+7 of the slice, into
-// the compute buffers: bf16 (8 of th or tl, 16 bytes) upcast to f32, or f32
-// (two 16-byte halves, 4 each) converted to f64.
+// the compute buffers: bf16 (8 of th, 16 bytes) upcast to f32, or f32 (two
+// 16-byte halves, 4 each) converted to f64.
 __device__ __forceinline__ void put_bf16x8(uint4 v, float* dst) {
   const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
@@ -852,144 +823,6 @@ __device__ __forceinline__ bool fused_skip(
 #pragma unroll
   for (int w = 0; w < kThreads / 32; ++w) skip = skip && warp_ok[w];
   return skip;
-}
-
-// ---------------------------------------------------------------------------
-// K7, the pq arm (pallas_knn.py:362-381, 443-452, 679-684):
-//
-//   qt[q, t] = sum over s = 0 .. m-1, in this order, of LUT[q, s*C + code[t, s]]
-//              (f32 adds from 0, each rounded: __fadd_rn)
-//   s        = tnorm[t] - 2*qt   (tnorm 0 on real rows, PAD_VAL on padding)
-//
-// then the grouped or the lane emitter.  The TPU kernel sums the same m
-// products as a dense dot of the LUT with the codes' one-hot expansion; here
-// the sum order is fixed, so a kernel and its plain version give the same
-// bits.
-//
-// Worst-case rounding, u = 2^-24, gamma_n = n u / (1 - n u).  On a real row
-// t with codes c_s, t^ its reconstruction (t^_s = cb[s, c_s]), write T_s =
-// ||q_s|| ||t^_s|| + ||t^_s||^2 / 2, so |LUT entry| <= T_s.  The prologue
-// (coarse_knn.pq_luts: a dsub-term f32 dot, a dsub-term f32 norm, one
-// subtraction) errs by <= gamma_{dsub+1} T_s per entry; this kernel's chain
-// of m f32 adds from 0 by <= gamma_{m-1} sum_s |entry|.  So |qt - sum_s
-// LUT_exact| <= gamma_{m+dsub} sum_s T_s, and s = 0 - 2 qt is exact after
-// it: |s - s_pq| <= 2 gamma_{m+dsub} sum_s T_s <= gamma_{m+dsub} (||q||^2 +
-// 2 ||t^||^2) <= gamma_{m+dsub} (||q||^2 + 2 (M + norm_err_max)), with
-// sum_s T_s <= ||q|| ||t^|| + ||t^||^2 / 2 <= ||q||^2 / 2 + ||t^||^2 and
-// ||t^||^2 <= M + norm_err_max (ops/pq.pq_bound_stats).  That is (m + dsub)
-// u (||q||^2 + 2 M) to first order: 36 u at the default m = 32, dsub = 4,
-// but 200 u at m = 196 (784 dims), over the reference certificate's whole
-// f32 slack of 64 eps_f32 (||q||^2 + M) = 128 u (||q||^2 + M).  The port's
-// certificate adds this term to the reference's ε (ops/pq.k7_rounding,
-// score_error_bound_pq_t).
-//
-// Design: the CTA shape of the other arms (32 query rows, 128-row groups in
-// order, 4 x 4 register tile per thread), kPqGroups groups at a time.  The
-// groups' codes ([kPqGroups*128, m] bytes, contiguous in the [Np, m] code
-// array) are staged transposed ([m][kPqGroups*128]) in shared memory; then
-// per subspace s the query block's LUT slice [32][C] f32 is staged (32 KB
-// at C = 256, 16-byte copies, one row segment per thread) and each thread
-// adds its 16 entries of every group, one accumulator tile per group in
-// registers.  What bounds it: the table lookups, Q*N*m shared-memory word
-// loads (bank conflicts: the codes are data), and the LUT slices restaged
-// per (kPqGroups groups, subspace): 32*C*4*m bytes per kPqGroups groups and
-// query block from L2 (~0.26 TB per 4,096 queries x 1M rows).  The four
-// accumulator tiles need more than the 128 registers two CTAs per SM leave,
-// so the pq kernels run one CTA per SM.  A tensor-core one-hot product, as
-// the TPU runs it, costs 2*Q*N*m*C FLOPs -- far more.
-// ---------------------------------------------------------------------------
-
-constexpr int kPqGroups = 4;   // 128-row groups per staged LUT slice
-
-// Dynamic shared memory of a pq CTA: the LUT slice, then the codes.
-__host__ __device__ inline size_t pq_smem_bytes(int m, int ncodes) {
-  return sizeof(float) * kBlockQ * ncodes +
-         static_cast<size_t>(m) * kPqGroups * kBinW;
-}
-
-// The pq arm over db tiles [t_begin, t_end) for the query block at p.q0:
-// lut [n_q, m*ncodes] f32, codes [n_tiles*tile_n, m] uint8, tnorm
-// [n_tiles*tile_n] f32.
-template <int kSlots>
-__device__ __forceinline__ void pq_tiles(const float* __restrict__ lut,
-                                         const uint8_t* __restrict__ codes,
-                                         const float* __restrict__ tnorm,
-                                         const Out& o, const Place& p,
-                                         int m, int ncodes, int t_begin,
-                                         int t_end, unsigned char* smem) {
-  float* lut_s = reinterpret_cast<float*>(smem);      // [kBlockQ][ncodes]
-  uint8_t* cs = smem + sizeof(float) * kBlockQ * ncodes;
-  constexpr int kRows = kPqGroups * kBinW;            // cs: [m][kRows]
-  const int tid = threadIdx.x;
-  const size_t lut_w = static_cast<size_t>(m) * ncodes;
-  const int n_groups = o.tile_n / kBinW;
-  // the LUT slice's copy: words of a row, rows a pass, this thread's place
-  const bool vec4 = ncodes % 4 == 0;
-  const int words = vec4 ? ncodes / 4 : ncodes;
-  const int rows_step = kThreads / words;
-  const int row0 = tid / words < rows_step ? tid / words : kBlockQ;
-  const int col = tid % words;
-  Emitter<kSlots> em;
-  for (int ti = t_begin; ti < t_end; ++ti) {
-    em.begin_tile();
-    for (int g = 0; g < n_groups; g += kPqGroups) {
-      const int gn = min(kPqGroups, n_groups - g);
-      const size_t rows0 =
-          static_cast<size_t>(ti) * o.tile_n + static_cast<size_t>(g) * kBinW;
-      __syncthreads();  // the previous groups' codes and slice are consumed
-      const uint32_t* src =
-          reinterpret_cast<const uint32_t*>(codes + rows0 * m);
-      for (int w = tid; w < 32 * m * gn; w += kThreads) {
-        const uint32_t x = src[w];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int byte = 4 * w + e;
-          const int row = byte / m;
-          cs[(byte - row * m) * kRows + row] = static_cast<uint8_t>(x >> (8 * e));
-        }
-      }
-      Acc acc[kPqGroups];
-#pragma unroll
-      for (int gg = 0; gg < kPqGroups; ++gg) zero_tile(acc[gg]);
-      for (int s = 0; s < m; ++s) {
-        __syncthreads();  // codes staged; the previous slice consumed
-        // thread tid copies column `col` of rows row0, row0 + rows_step, ...
-        // (16-byte words when C is a multiple of 4)
-        for (int r = row0; r < kBlockQ; r += rows_step) {
-          const size_t at = static_cast<size_t>(p.q0 + r) * lut_w +
-                            static_cast<size_t>(s) * ncodes;
-          const bool live = p.q0 + r < o.n_q;
-          if (vec4)
-            reinterpret_cast<float4*>(lut_s + r * ncodes)[col] =
-                live ? reinterpret_cast<const float4*>(lut + at)[col]
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-          else
-            lut_s[r * ncodes + col] = live ? lut[at + col] : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int gg = 0; gg < kPqGroups; ++gg) {
-          if (gg < gn) {
-            int code[kQuadL];
-#pragma unroll
-            for (int j = 0; j < kQuadL; ++j)
-              code[j] = cs[s * kRows + gg * kBinW + p.lane_col + 32 * j];
-#pragma unroll
-            for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-              for (int j = 0; j < kQuadL; ++j)
-                acc[gg][i][j] = __fadd_rn(
-                    acc[gg][i][j], lut_s[(p.quad * 4 + i) * ncodes + code[j]]);
-          }
-        }
-      }
-#pragma unroll
-      for (int gg = 0; gg < kPqGroups; ++gg)
-        if (gg < gn)
-          em.group(acc[gg], tnorm, rows0 + gg * kBinW, g + gg, ti, o, p);
-    }
-    em.end_tile(ti, o, p, false);
-  }
 }
 
 }  // namespace binned

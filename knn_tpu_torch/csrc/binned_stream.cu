@@ -1,8 +1,8 @@
 // The db-streaming binned-select kernels for Hopper (sm_90a), two entries
 // of one template for each arm: streaming and fused early-out, for bf16x3
 // (K10, K11), bf16x3f (K4), highest (K2), default (K3) and the int8 (K5)
-// and int4 (K6) arms; the streaming entry of pq (K7, the tiled walk of
-// binned_select.cuh over a segment of tiles, no fused form); every
+// and int4 (K6) arms; the streaming entry of pq (K7, the walk of
+// binned_pq.cuh over a segment of tiles, no fused form); every
 // streaming entry in grouped or (K8) lane binning.
 //
 // Replaces the TPU kernel knn_tpu/ops/pallas_knn.py::_stream_call (its
@@ -27,15 +27,14 @@
 //
 // Design.  Grid (segments, query blocks of 32 rows).  A CTA walks the
 // db tiles of its segment in order, each tile's 128-row column groups in
-// order.  bf16x3 (K10, K11) runs binned_mma.cuh's mainloop over the run:
-// (tile, group, 128-dim chunk) steps through a two-stage cp.async ring,
-// products on the tensor cores -- the same code as K1, so the same bits.
-// The other arms walk each group's dims in steps: the f32 family 32 dims
-// (bf16x3f walks each 128-dim chunk three times, one pass per product, so
-// its steps are (pass, 32 dims)), int8 / int4 one 128-dim chunk.  Step
-// t+1's raw operands (the pass's bf16 part for bf16x3f, th alone for
-// default, or f32 rows for highest, and the f32 query slice; int: the int8
-// or packed int4 db rows and the int8 query slice) are copied into the
+// order.  bf16x3 (K10, K11) and bf16x3f (K4) run binned_mma.cuh's
+// mainloop over the run: (tile, group, 128-dim chunk) steps through a
+// two-stage cp.async ring, products on the tensor cores -- the same code as
+// the arm's tiled entry, so the same bits; pq (K7) runs binned_pq.cuh's
+// walk over the run.  default and highest walk each group's dims in steps
+// of 32 dims, int8 / int4 one 128-dim chunk.  Step t+1's raw operands (th
+// for default, or f32 rows for highest, and the f32 query slice; int: the
+// int8 or packed int4 db rows and the int8 query slice) are copied into the
 // second of two shared stages with cp.async while step t is converted
 // (bf16 -> f32 and the query's hi/lo split; f32 -> f64 for highest; int4
 // nibbles -> int8 words, int8 rows -> padded word rows) into the compute
@@ -48,11 +47,11 @@
 // wrapper (ops/coarse_knn.stream_segment_tiles) picks n_seg = min(n_tiles,
 // floor(wave / query blocks)) segments, where wave = SMs x the CTAs per SM
 // that stream_ctas_per_sm reads from the occupancy API for the built kernel
-// of the arm (bf16x3: 170 KB of shared memory, 202 KB above Dp = 128, one
-// CTA per SM; highest 84 KB; bf16x3f, default 68 KB; their multi-chunk
-// builds 16 KB more; int8 61 KB, int4 45 KB; highest is compiled for one
-// CTA per SM, the others for two).  The streaming output does not depend on
-// the split.
+// of the arm (bf16x3, bf16x3f: 170 KB of shared memory, 202 KB above Dp =
+// 128, one CTA per SM; pq 194 KB at 256 codes, one; highest 84 KB;
+// default 68 KB; their multi-chunk builds 16 KB more; int8 61 KB, int4 45
+// KB; highest is compiled for one CTA per SM, default and the int arms for
+// two).  The streaming output does not depend on the split.
 //
 // The fused skip depends on the query block and on the segment: each segment
 // keeps its own carry, reset at its first tile.  That stays sound: the carry
@@ -72,12 +71,12 @@
 // What bounds it on this card: as the tiled kernels.  The products run for
 // every tile before the skip is decided, so the early-out saves only the
 // skipped tile's output writes in this design, never the products.
-// bf16x3's run on the tensor cores (binned_mma.cuh); the other arms' on
-// CUDA cores (f32 FMAs, f64 FMAs for highest, __dp4a for the int arms), an
-// order of magnitude above the tensor-core bound.  bf16x3f copies one db
-// part per pass, 1.5x bf16x3's db bytes from L2.
+// bf16x3's and bf16x3f's run on the tensor cores (binned_mma.cuh); the
+// other arms' on CUDA cores (f32 FMAs, f64 FMAs for highest, __dp4a for
+// the int arms), an order of magnitude above the tensor-core bound.
 
 #include "binned_mma.cuh"
+#include "binned_pq.cuh"
 
 namespace {
 
@@ -121,19 +120,17 @@ constexpr size_t kSmemBytes =
 template <Arm kArm>
 constexpr bool kMultiFits =
     kMinCtas<kArm> * (kSmemBytes<kArm, true> + 1024) <= 228 * 1024;
-static_assert(kMultiFits<Arm::kBf16x3f> && kMultiFits<Arm::kHighest> &&
-                  kMultiFits<Arm::kDefault>,
+static_assert(kMultiFits<Arm::kHighest> && kMultiFits<Arm::kDefault>,
               "the multi-chunk build would lose occupancy");
 
-// Starts the CUDA-core f32 family's copies of one step, pass ``pass`` of
-// its chunk: db rows row0 .. row0+127 and query rows q0 .. q0+31, dims k0
-// .. k0+31.  db0 / db1: th / tl bf16 (bf16x3f copies the one the pass
-// reads), th (default), t f32 (highest).
+// Starts the CUDA-core f32 family's copies of one step: db rows row0 ..
+// row0+127 and query rows q0 .. q0+31, dims k0 .. k0+31.  db0: th bf16
+// (default), t f32 (highest).
 template <Arm kArm>
 __device__ __forceinline__ void start_stage(
     unsigned char* stage, const void* __restrict__ db0,
-    const void* __restrict__ db1, const float* __restrict__ q, size_t row0,
-    int k0, int dp, int q0, int n_q, int tid, int pass) {
+    const float* __restrict__ q, size_t row0, int k0, int dp, int q0,
+    int n_q, int tid) {
   if constexpr (kArm == Arm::kHighest) {
     float* st = reinterpret_cast<float*>(stage);
     const float* t = static_cast<const float*>(db0);
@@ -147,8 +144,7 @@ __device__ __forceinline__ void start_stage(
     }
   } else {
     __nv_bfloat16* sth = reinterpret_cast<__nv_bfloat16*>(stage);
-    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(
-        db_part<kArm>(pass) ? db1 : db0);
+    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(db0);
 #pragma unroll
     for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
       const int idx = tid + p * kThreads;
@@ -197,13 +193,12 @@ __device__ __forceinline__ void start_stage_int(
 }
 
 // Stage -> compute buffers (as the tiled kernels stage from global memory):
-// the staged bf16 part upcast to f32 rows, or t converted to f64 rows; the
-// query slice's bf16 part for pass ``pass``, or the slice converted to
-// f64, k-major.
+// the staged th upcast to f32 rows, or t converted to f64 rows; the query
+// slice's bf16 part, or the slice converted to f64, k-major.
 template <Arm kArm>
 __device__ __forceinline__ void convert_stage(
     const unsigned char* stage, const F32Bufs<kArm, kSlice, kDbStride>& bufs,
-    int tid, int pass) {
+    int tid) {
   if constexpr (kArm == Arm::kHighest) {
     const float* st = reinterpret_cast<const float*>(stage);
 #pragma unroll
@@ -232,7 +227,7 @@ __device__ __forceinline__ void convert_stage(
   const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    store_query<kArm>(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r, pass);
+    store_query<kArm>(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r);
 }
 
 template <Arm kArm, bool kFused, bool kMulti, int kSlots>
@@ -243,13 +238,11 @@ stream_select_kernel(const void* __restrict__ p0,
                      const float* __restrict__ p3, Out out, int dp,
                      int seg_tiles, int depth) {
   static_assert(!(kFused && kSlots), "the fused early-out is grouped only");
-  // operands: f32 family (q f32, th bf16 / t f32, tl bf16 or unused, tnorm
-  // f32 [8, Np] row 0); int8 / int4 (qi int8, qsc f32, t int8 or packed
-  // uint8, aux f32 [2, Np]: row norms, then row scales)
+  // operands: default / highest (q f32, th bf16 / t f32, unused, tnorm f32
+  // [8, Np] row 0); int8 / int4 (qi int8, qsc f32, t int8 or packed uint8,
+  // aux f32 [2, Np]: row norms, then row scales)
   constexpr int kStepA = kStep<kArm>;
   constexpr size_t kStageA = kStageBytes<kArm>;
-  // virtual dims per chunk: bf16x3f walks each chunk once per product
-  constexpr int kVChunk = kPasses<kArm> * kDimChunk;
   extern __shared__ float4 smem_f4[];
   unsigned char* base = reinterpret_cast<unsigned char*>(smem_f4);
   // compute buffers after the two stages.  f32 family: db parts at
@@ -277,7 +270,6 @@ stream_select_kernel(const void* __restrict__ p0,
   const int t_end = min(t_begin + seg_tiles, n_tiles);
   if (t_begin >= t_end) return;
   const int n_groups = tile_n / kBinW;
-  const int v_dims = kPasses<kArm> * dp;      // steps of a group, in dims
   const float* tnorm = p3;
   const float* tscale = p3 + static_cast<size_t>(n_tiles) * tile_n;
   float qs[kQuadQ];
@@ -287,23 +279,21 @@ stream_select_kernel(const void* __restrict__ p0,
   float carry[kQuadQ][kQuadL][kMaxCarry];
   if constexpr (kFused) reset_carry(carry, depth);
 
-  // the next step to stage: (tile nt, group ng, virtual dims nv)
-  int nt = t_begin, ng = 0, nv = 0;
+  // the next step to stage: (tile nt, group ng, dims k0)
+  int nt = t_begin, ng = 0, k0 = 0;
   auto stage_next = [&](unsigned char* stage) {
     const size_t row0 =
         static_cast<size_t>(nt) * tile_n + static_cast<size_t>(ng) * kBinW;
-    // the real dims of virtual offset nv, in pass nv % kVChunk / 128
-    const int k0 = nv / kVChunk * kDimChunk + nv % kDimChunk;
     if constexpr (kIsInt<kArm>)
       start_stage_int<kArm>(stage, static_cast<const uint8_t*>(p2),
                             static_cast<const int8_t*>(p0), row0, k0, dp, q0,
                             n_q, tid);
     else
-      start_stage<kArm>(stage, p1, p2, static_cast<const float*>(p0), row0,
-                        k0, dp, q0, n_q, tid, nv % kVChunk / kDimChunk);
-    nv += kStepA;
-    if (nv == v_dims) {
-      nv = 0;
+      start_stage<kArm>(stage, p1, static_cast<const float*>(p0), row0, k0,
+                        dp, q0, n_q, tid);
+    k0 += kStepA;
+    if (k0 == dp) {
+      k0 = 0;
       if (++ng == n_groups) {
         ng = 0;
         ++nt;
@@ -320,8 +310,8 @@ stream_select_kernel(const void* __restrict__ p0,
     for (int g = 0; g < n_groups; ++g) {
       const size_t row0 =
           static_cast<size_t>(ti) * tile_n + static_cast<size_t>(g) * kBinW;
-      // the step at virtual dims v0, its products summed into ``sum``
-      auto step = [&](int v0, auto& sum) {
+      // the next step's products summed into ``sum``
+      auto step = [&](auto& sum) {
         // this step's stage has landed (every thread's copies) and the
         // previous step's compute buffers are consumed
         cp_async_wait_all();
@@ -339,7 +329,7 @@ stream_select_kernel(const void* __restrict__ p0,
           __syncthreads();
           dp4a_chunk(tws, qws, quad, lane_col, sum);
         } else {
-          convert_stage<kArm>(stage, bufs, tid, v0 % kVChunk / kDimChunk);
+          convert_stage<kArm>(stage, bufs, tid);
           __syncthreads();
           slice_products(bufs, quad, lane_col, sum);
         }
@@ -349,12 +339,11 @@ stream_select_kernel(const void* __restrict__ p0,
       if constexpr (kIsInt<kArm>) {
         IAcc iacc;
         zero_iacc(iacc);
-        for (int v0 = 0; v0 < v_dims; v0 += kStepA) step(v0, iacc);
+        for (int c0 = 0; c0 < dp; c0 += kStepA) step(iacc);
         rescale(iacc, qs, tscale, row0, lane_col, acc);
       } else {
-        auto chunk = [&](int c, auto& sum) {
-          for (int v0 = c * kVChunk; v0 < (c + 1) * kVChunk; v0 += kStepA)
-            step(v0, sum);
+        auto chunk = [&](int, auto& sum) {
+          for (int d = 0; d < kDimChunk; d += kStepA) step(sum);
         };
         sum_chunks<kArm, kMulti>(dp / kDimChunk, run, tid, chunk, acc);
       }
@@ -368,12 +357,12 @@ stream_select_kernel(const void* __restrict__ p0,
   }
 }
 
-// K7's streaming entry: the tiled walk (binned_select.cuh, pq_tiles) over
-// the CTA's segment of db tiles.
+// K7's streaming entry: the tiled walk (binned_pq.cuh, pq_tiles) over the
+// CTA's segment of db tiles.
 template <int kSlots>
 __global__ void __launch_bounds__(kThreads, 1)
-stream_select_pq_kernel(const float* __restrict__ lut,
-                        const uint8_t* __restrict__ codes,
+stream_select_pq_kernel(const float* __restrict__ lut_t,
+                        const uint8_t* __restrict__ codes_t,
                         const float* __restrict__ tnorm, Out out, int m,
                         int ncodes, int seg_tiles) {
   extern __shared__ float4 smem_f4[];
@@ -383,13 +372,14 @@ stream_select_pq_kernel(const float* __restrict__ lut,
   if (t_begin >= t_end) return;
   const Place place{static_cast<int>(blockIdx.y) * kBlockQ, tid / 32,
                     tid % 32};
-  pq_tiles<kSlots>(lut, codes, tnorm, out, place, m, ncodes, t_begin, t_end,
+  pq_tiles<kSlots>(lut_t, codes_t, tnorm, out, place, m, ncodes, t_begin, t_end,
                   reinterpret_cast<unsigned char*>(smem_f4));
 }
 
-// K10 / K11: the bf16x3 arm on tensor cores (binned_mma.cuh) over the
-// CTA's segment of db tiles, K11's skip at each tile's end.
-template <bool kFused, bool kMulti, int kSlots>
+// K10 / K11 and K4's streaming and fused entries: the bf16x3 and bf16x3f
+// arms on tensor cores (binned_mma.cuh) over the CTA's segment of db
+// tiles, K11's skip at each tile's end.
+template <Arm kArm, bool kFused, bool kMulti, int kSlots>
 __global__ void __launch_bounds__(kThreads, 1)
 stream_select_mma_kernel(const float* __restrict__ q,
                          const __nv_bfloat16* __restrict__ th,
@@ -401,24 +391,25 @@ stream_select_mma_kernel(const float* __restrict__ q,
   const int t_begin = blockIdx.x * seg_tiles;
   const int t_end = min(t_begin + seg_tiles, out.n_tiles);
   if (t_begin >= t_end) return;
-  bf16x3_walk<kMulti, kSlots, kFused>(
+  bf16x3_walk<kArm, kMulti, kSlots, kFused>(
       q, th, tl, tnorm, out, dp, blockIdx.y * kBlockQ, t_begin, t_end, depth,
       reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
 }
 
-// The kernel of a build and its dynamic shared memory: bf16x3's
-// tensor-core kernel, or the CUDA-core one of the other f32 and int arms.
+// The kernel of a build and its dynamic shared memory: the tensor-core
+// kernel of bf16x3 and bf16x3f, or the CUDA-core one of the other f32 and
+// int arms.
 template <Arm kArm, bool kFused, bool kMulti, int kSlots>
 constexpr auto kernel_of() {
-  if constexpr (kArm == Arm::kBf16x3)
-    return stream_select_mma_kernel<kFused, kMulti, kSlots>;
+  if constexpr (kUsesMma<kArm>)
+    return stream_select_mma_kernel<kArm, kFused, kMulti, kSlots>;
   else
     return stream_select_kernel<kArm, kFused, kMulti, kSlots>;
 }
 
 template <Arm kArm, bool kMulti>
 constexpr size_t smem_of() {
-  if constexpr (kArm == Arm::kBf16x3)
+  if constexpr (kUsesMma<kArm>)
     return kMmaSmemBytes<kMulti>;
   else
     return kSmemBytes<kArm, kMulti>;
@@ -441,11 +432,11 @@ cudaError_t allow_smem_pq(size_t smem) {
 }
 
 // CTAs per SM of the single-chunk build (kMultiFits: the same for the
-// multi-chunk one); pq's at its shared memory for m subspaces of ncodes.
+// multi-chunk one); pq's at its shared memory for ncodes codes (m unused).
 template <Arm kArm, bool kFused, int kSlots>
 cudaError_t ctas_per_sm(int m, int ncodes, int* out) {
   if constexpr (kArm == Arm::kPq) {
-    const size_t smem = pq_smem_bytes(m, ncodes);
+    const size_t smem = pq_smem_bytes(ncodes);
     cudaError_t err = allow_smem_pq<kSlots>(smem);
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -466,7 +457,7 @@ cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (kArm == Arm::kPq) {
-    const size_t smem = pq_smem_bytes(dp, ncodes);
+    const size_t smem = pq_smem_bytes(ncodes);
     cudaError_t err = allow_smem_pq<kSlots>(smem);
     if (err != cudaSuccess) return err;
     stream_select_pq_kernel<kSlots><<<grid, kThreads, smem, st>>>(
@@ -475,8 +466,8 @@ cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
   } else {
     cudaError_t err = allow_smem<kArm, kFused, kMulti, kSlots>();
     if (err != cudaSuccess) return err;
-    if constexpr (kArm == Arm::kBf16x3)
-      stream_select_mma_kernel<kFused, kMulti, kSlots>
+    if constexpr (kUsesMma<kArm>)
+      stream_select_mma_kernel<kArm, kFused, kMulti, kSlots>
           <<<grid, kThreads, kMmaSmemBytes<kMulti>, st>>>(
               static_cast<const float*>(p0),
               static_cast<const __nv_bfloat16*>(p1),
@@ -568,8 +559,9 @@ cudaError_t ctas_per_sm_of(int arm, int m, int ncodes, int* out) {
 // an unused pointer (highest), then tnorm [n_tiles*tile_n] f32 (row 0 of
 // the [8, Np] norm rows); int8 / int4 qi [n_q, dp] int8, qsc [n_q] f32, t
 // [n_tiles*tile_n, dp] int8 or [n_tiles*tile_n, dp/2] packed uint8, aux
-// [2, n_tiles*tile_n] f32; pq lut [n_q, dp*ncodes] f32, codes
-// [n_tiles*tile_n, dp] uint8, an unused pointer, tnorm.  cd, ci, bounds as
+// [2, n_tiles*tile_n] f32; pq lut_t [ceil(n_q/32), dp, ncodes, 32] f32 and
+// codes_t [dp, n_tiles*tile_n] uint8 (binned_coarse.cu states the
+// layouts), an unused pointer, tnorm.  cd, ci, bounds as
 // binned_select.cuh lays them out for the binning (grouped: [n_q,
 // n_tiles*256] and [n_q, n_tiles*128]).  seg_tiles = db tiles per CTA (the
 // last segment may be shorter); bin_w / survivors the binning (bin_w = 0:

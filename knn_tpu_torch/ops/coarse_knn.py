@@ -26,17 +26,17 @@ What runs where:
   which pads skipped tiles (plain version :func:`fused_select_plain`).
 - The arms' arithmetic (``csrc/binned_select.cuh``): the f32 family sums
   each 128-dim chunk in its own accumulator and adds the chunks in f32,
-  the TPU body's order — bf16x3 ``qh.th + (qh.tl + ql.th)`` on the tensor
-  cores (``csrc/binned_mma.cuh``, one mainloop for K1, K9, K10, K11 and
-  their lane builds; :func:`mma_probe` runs one of its k-steps alone),
-  bf16x3f the same products pass by pass, default the one bf16 product,
-  highest exact f32 products summed in f64 per chunk; the int arms an
-  exact int32 dot and one f32 rescale ``(f32(dot) * qsc) * ts``, held
-  bitwise against their plain versions; pq the sum of the row's LUT
-  entries, one subspace after another in f32 (bitwise its plain version
-  too).  Every wrapper takes the arm as
-  ``arm`` and checks that the operands are that arm's (the f32 family's
-  operands do not tell bf16x3 from bf16x3f).
+  the TPU body's order — on the tensor cores (``csrc/binned_mma.cuh``, one
+  mainloop for every bf16x3 and bf16x3f entry; :func:`mma_probe` runs one
+  of its k-steps alone) bf16x3 ``qh.th + (qh.tl + ql.th)`` in two
+  accumulators and bf16x3f the same products in one; default the one
+  bf16 product, highest exact f32 products summed in f64 per chunk; the
+  int arms an exact int32 dot and one f32 rescale ``(f32(dot) * qsc) *
+  ts``, held bitwise against their plain versions; pq
+  (``csrc/binned_pq.cuh``) the sum of the row's LUT entries, one subspace
+  after another in f32 (bitwise its plain version too).  Every wrapper
+  takes the arm as ``arm`` and checks that the operands are that arm's
+  (the f32 family's operands do not tell bf16x3 from bf16x3f).
 - Everything else is plain PyTorch, as in the JAX package's XLA code:
   the prologues (:func:`prepare_db`: dim padding to 128, ``PAD_VAL`` row
   padding, the bf16 hi/lo split, the norm rows; :func:`prepare_db_f32`
@@ -118,19 +118,20 @@ def accumulation_coefficient(arm: str, nd: int) -> float:
     """``b`` such that the coarse kernel of f32-family arm ``arm`` sums
     ``qt`` over ``nd`` 128-dim chunks within ``b u P`` of the exact sum of
     its products, ``P`` = the sum of their magnitudes (proofs in
-    csrc/binned_select.cuh and csrc/binned_mma.cuh):
+    csrc/binned_mma.cuh and csrc/binned_select.cuh):
 
     - bf16x3 (K1, K10, K11 on tensor cores): per chunk 8 k-steps of the
       header's model into two accumulators (qh.th; qh.tl + ql.th), 8
       MMA_KAPPA u P_c, their one f32 add and the nd - 1 chunk adds;
-    - bf16x3f (K4, CUDA cores): a chain of 3 x 128 f32 FMAs per chunk and
-      the nd - 1 chunk adds;
+    - bf16x3f (K4 on tensor cores): per chunk 24 k-steps (8 of each
+      product) into one accumulator, 24 MMA_KAPPA u P_c, and the nd - 1
+      chunk adds;
     - highest (K2): exact products in f64 per chunk, one rounding to f32
       per chunk, the chunk adds."""
     if arm == "bf16x3":
         return (DIM_CHUNK // MMA_K * MMA_KAPPA + nd) * (1 + 2.0 ** -7)
     if arm == "bf16x3f":
-        return (3 * DIM_CHUNK + nd) * (1 + 2.0 ** -7)
+        return (3 * DIM_CHUNK // MMA_K * MMA_KAPPA + nd - 1) * (1 + 2.0 ** -7)
     if arm == "highest":
         return nd * (1 + 2.0 ** -20)
     raise ValueError(f"arm {arm!r} has no accumulation bound")
@@ -153,15 +154,18 @@ def bf16_tolerance_scale(arm: str, nd: int) -> float:
 
 def kernel_plain_tolerance_scale(arm: str, nd: int) -> float:
     """Per unit of ``(||q||^2 + max||t||^2)``, how far a coarse kernel's
-    score may lie from its plain version's at ``nd`` chunks: for bf16x3
-    the proved sum of the kernel's summation bound
-    (:func:`accumulation_coefficient`) and the plain version's (three f32
-    products of 128 terms per chunk in any order, two adds, the chunk
-    adds: (128 + nd)(1 + 2^-7) u P), plus both roundings of s (|s| <=
-    2 (||q||^2 + M)); for highest ``(2 nd + 4) u`` (the two differ only
-    in each chunk's f64 order); for the other f32 arms ``64 eps_f32``."""
-    if arm == "bf16x3":
-        plain = (DIM_CHUNK + nd) * (1 + 2.0 ** -7)
+    score may lie from its plain version's at ``nd`` chunks: for the
+    tensor-core arms the proved sum of the kernel's summation bound
+    (:func:`accumulation_coefficient`) and the plain version's, plus both
+    roundings of s (|s| <= 2 (||q||^2 + M)) -- the plain bf16x3 sums three
+    f32 products of 128 terms per chunk in any order, two adds and the
+    chunk adds, (128 + nd)(1 + 2^-7) u P; the plain bf16x3f one f32 product
+    of 384 terms per chunk and the chunk adds, (384 + nd)(1 + 2^-7) u P;
+    for highest ``(2 nd + 4) u`` (the two differ only in each chunk's f64
+    order); for default ``128 u``."""
+    if arm in ("bf16x3", "bf16x3f"):
+        terms = DIM_CHUNK if arm == "bf16x3" else 3 * DIM_CHUNK
+        plain = (terms + nd) * (1 + 2.0 ** -7)
         return (accumulation_coefficient(arm, nd) + plain + 4) * U32
     if arm == "highest":
         return (2 * nd + 4) * U32
@@ -880,12 +884,25 @@ def check_grid(n_q: int, n_tiles: int,
             f"grid's y extent); run them in batches (batch_size)")
 
 
+def _pq_kernel_operands(lut: torch.Tensor, codes: torch.Tensor):
+    """K7's operands in the layout its lookups read (csrc/binned_pq.cuh):
+    the LUT by query block and subspace, each slice ``[C][32 queries]``
+    (queries past Q zero), ``[ceil(Q/32), m, C, 32]`` f32, and the codes
+    subspace-major, ``[m, Np]`` uint8."""
+    n_q, m = lut.shape[0], codes.shape[1]
+    n_blocks = -(-n_q // QUERY_BLOCK)
+    lut = torch.nn.functional.pad(lut, (0, 0, 0, n_blocks * QUERY_BLOCK - n_q))
+    lut_t = lut.view(n_blocks, QUERY_BLOCK, m, -1).permute(0, 2, 3, 1)
+    return lut_t.contiguous(), codes.t().contiguous()
+
+
 def _launch(library: str, arm: str, name: str, operands, n_rows: int,
             tile_n: int, geo, *extra: int, grid_order: str = "query_major"):
     """Allocates ``(cd, ci, bounds)`` on the card at the emit geometry
     ``geo`` and launches the C entry ``name`` of arm ``arm`` on the current
     stream with the ``operands`` (the query operand first; a three-operand
-    arm's fills the entry's third pointer with NULL), then ``n_q, dp,
+    arm's fills the entry's third pointer with NULL; pq's LUT and codes in
+    the kernel's layout, :func:`_pq_kernel_operands`), then ``n_q, dp,
     n_tiles = n_rows // tile_n, tile_n`` and ``extra`` ints (``dp`` = the
     query operand's width; for pq, the codes' subspaces); raises if the
     launch is refused."""
@@ -902,6 +919,8 @@ def _launch(library: str, arm: str, name: str, operands, n_rows: int,
     ci = torch.empty(cd.shape, dtype=torch.int32, device=q.device)
     bounds = torch.empty((n_q, n_tiles * bound_w), dtype=torch.float32,
                          device=q.device)
+    if arm == "pq":
+        operands = (*_pq_kernel_operands(*operands[:2]), operands[2])
     for t in operands:
         if t.data_ptr() % 16:
             raise ValueError("kernel operands must be 16-byte aligned")

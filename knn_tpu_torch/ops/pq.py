@@ -215,7 +215,7 @@ def score_error_bound_pq(q: np.ndarray, stats: dict) -> np.ndarray:
 def k7_rounding(m: int, dsub: int) -> float:
     """The coefficient ``g`` of K7's worst-case f32 error on a real row,
     ``|s_kernel - s_pq| <= g (||q||^2 + 2 (M + norm_err_max))`` with ``s_pq
-    = ||t^||^2 - 2 q.t^`` exact (csrc/binned_select.cuh states the proof):
+    = ||t^||^2 - 2 q.t^`` exact (csrc/binned_pq.cuh states the proof):
     gamma_{m + dsub} = n u / (1 - n u), u = 2^-24, n = m + dsub, times the
     bound headroom for the f32 evaluation of the bound itself."""
     n = (int(m) + int(dsub)) * 2.0 ** -24

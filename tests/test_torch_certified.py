@@ -381,3 +381,95 @@ def test_mma_step_model_stays_inside_the_stated_terms(block):
     # the adversarial chunk loses ~7 x 16 truncated products: more than a
     # round-to-nearest chain would
     assert np.abs(got - exact).max() > 100 * u * p_sum.max()
+
+
+# --- K4 (bf16x3f) on tensor cores: 24 k-steps a chunk into one accumulator
+# (csrc/binned_mma.cuh), its proved coefficient and tolerances
+
+def _k4_chunked_sums(q, t, block=8):
+    """K4's qt in the tensor-core step model, in the kernel's k-order: per
+    128-dim chunk, per 16-dim k-step, qh.th, qh.tl, ql.th into one
+    accumulator from 0; the chunk sums added in f32.  Returns (qt as f32
+    values in float64, the exact f64 sum of the three products, P = the sum
+    of their magnitudes)."""
+    qh, ql = (a.double().numpy() for a in ck.split_bf16(torch.from_numpy(q)))
+    th, tl = (a.double().numpy() for a in ck.split_bf16(torch.from_numpy(t)))
+    pairs = [(qh, th), (qh, tl), (ql, th)]
+    total = None
+    p_sum = np.zeros((q.shape[0], t.shape[0]))
+    for c in range(0, q.shape[1], ck.DIM_CHUNK):
+        acc = np.zeros((q.shape[0], t.shape[0]))
+        for k0 in range(c, c + ck.DIM_CHUNK, ck.MMA_K):
+            for a, b in pairs:
+                p = a[:, None, k0:k0 + ck.MMA_K] * b[None, :, k0:k0 + ck.MMA_K]
+                acc = ck.mma_step_model(acc, p, block)
+                p_sum += np.abs(p).sum(-1)
+        chunk = acc.astype(np.float32)
+        total = chunk if total is None else total + chunk
+    exact = sum(a @ b.T for a, b in pairs)
+    return total.astype(np.float64), exact, p_sum
+
+
+@pytest.mark.parametrize("dim", [128, 896])
+@pytest.mark.parametrize("data", ["all_positive", "fault18"])
+def test_k4_one_accumulator_replay_stays_inside_its_coefficient(dim, data):
+    # the numpy replay of K4's chunk in the kernel's k-order errs by no more
+    # than accumulation_coefficient("bf16x3f") u P, on all-positive values
+    # (every partial sum grows) and on fault 18's construction (the split's
+    # worst values), and the whole score by less than the new tolerance
+    rng = np.random.default_rng(dim + len(data))
+    if data == "all_positive":
+        q = rng.uniform(1.0, 2.0, size=(4, dim)).astype(np.float32)
+        t = rng.uniform(1.0, 2.0, size=(48, dim)).astype(np.float32)
+    else:
+        vals = _split_worst_values(8)
+        q = vals[rng.integers(0, 8, size=(4, dim))]
+        t = vals[rng.integers(0, 8, size=(48, dim))]
+    nd = dim // ck.DIM_CHUNK
+    got, exact, p_sum = _k4_chunked_sums(q, t)
+    coef = ck.accumulation_coefficient("bf16x3f", nd)
+    assert (np.abs(got - exact) <= coef * ck.U32 * p_sum).all()
+    if data == "all_positive":
+        assert np.abs(got - exact).max() > 0  # the model rounds
+    q64, t64 = q.astype(np.float64), t.astype(np.float64)
+    scale = (q64 ** 2).sum(-1)[:, None] + (t64 ** 2).sum(-1).max()
+    s_err = 2.0 * np.abs(q64 @ t64.T - got)  # split + summation, in s
+    assert (s_err <= ck.bf16_tolerance_scale("bf16x3f", nd) * scale).all()
+
+
+@pytest.mark.parametrize("block", [8, 16])
+def test_k4_one_accumulator_adversarial_chunk(block):
+    # a first product of 1, then 383 products each below the accumulator's
+    # truncation unit: the replay drops them, and stays inside the bound
+    q = np.full((1, 128), np.float32(2.0 ** -6))
+    t = np.full((1, 128), np.float32(0.99 * 2.0 ** -6))
+    q[0, 0] = t[0, 0] = 1.0
+    got, exact, p_sum = _k4_chunked_sums(q, t, block)
+    coef = ck.accumulation_coefficient("bf16x3f", 1)
+    err = np.abs(got - exact)
+    assert (err <= coef * ck.U32 * p_sum).all()
+    assert err.max() > 100 * ck.U32 * p_sum.max()
+
+
+@pytest.mark.parametrize("nd", [1, 7])
+def test_bf16x3f_tolerance_is_the_proved_sum(nd):
+    u = ck.U32
+    coef = (24 * ck.MMA_KAPPA + nd - 1) * (1 + 2.0 ** -7)
+    assert ck.accumulation_coefficient("bf16x3f", nd) == coef
+    scale = ck.bf16_tolerance_scale("bf16x3f", nd)
+    assert scale == ck.SPLIT_SCALE + coef * u + ck.HEADROOM_SCALE
+    assert scale >= 2.0 ** -14
+    assert scale >= ck.bf16_tolerance_scale("bf16x3", nd)
+    if nd == 1:  # Dp = 128
+        assert scale / 2.0 ** -14 == pytest.approx(1.76318359375, abs=1e-12)
+
+
+@pytest.mark.parametrize("arm,terms", [("bf16x3", 128), ("bf16x3f", 384)])
+@pytest.mark.parametrize("nd", [1, 7])
+def test_kernel_plain_tolerance_is_the_proved_sum(arm, terms, nd):
+    # the kernel's summation bound plus the plain version's (one f32 product
+    # of ``terms`` products a chunk in any order, the chunk adds), plus both
+    # roundings of s
+    plain = (terms + nd) * (1 + 2.0 ** -7)
+    want = (ck.accumulation_coefficient(arm, nd) + plain + 4) * ck.U32
+    assert ck.kernel_plain_tolerance_scale(arm, nd) == want

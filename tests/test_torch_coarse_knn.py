@@ -151,6 +151,12 @@ def test_kernel_tolerance_matches_pallas():
         np.testing.assert_allclose(
             ck.kernel_tolerance(q, db, precision=prec),
             ck.bf16_tolerance_scale(prec, 1) * x, rtol=1e-12)
+    # the proved scales at Dp = 128 (csrc/binned_mma.cuh): bf16x3f's one
+    # tensor-core accumulator takes 24 k-steps a chunk
+    assert ck.bf16_tolerance_scale("bf16x3", 1) / 2.0 ** -14 == \
+        pytest.approx(1.13428497, abs=1e-8)
+    assert ck.bf16_tolerance_scale("bf16x3f", 1) / 2.0 ** -14 == \
+        pytest.approx(1.76318359, abs=1e-8)
     # default has no tolerance model in either package
     for fn in (ck.kernel_tolerance, jpk.kernel_tolerance):
         with pytest.raises(ValueError, match="tolerance model"):

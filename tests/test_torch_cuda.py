@@ -10,9 +10,11 @@ The comparison helpers here are shared with tests/test_torch_coarse_knn.py:
 f32 scores agree within 64 eps_f32 (||q||^2 + max||t||^2) per query (the
 two sum in different orders; for highest, whose two differ only in the
 order of each chunk's f64 sum, within (2 nd + 4) u (||q||^2 +
-max||t||^2)), ci is equal wherever a bin's values are separated by more
-than that, and pad-row scores (~1e35, from PAD_VAL rows) are compared by
-class.
+max||t||^2); a CUDA kernel against its plain version within
+ck.kernel_plain_tolerance_scale, for the tensor-core arms bf16x3 and
+bf16x3f the proved sum of the two summations' bounds), ci is equal
+wherever a bin's values are separated by more than that, and pad-row
+scores (~1e35, from PAD_VAL rows) are compared by class.
 """
 
 import numpy as np
@@ -38,9 +40,9 @@ def _tol(q, db, arm="bf16x3", kernel=False):
     # at most one ulp), then add the nd chunks and form s in the same f32
     # order (at most one more ulp each): |Δs| <= (2 nd + 4) u (||q||^2 + M).
     # ``kernel``: a CUDA kernel against its plain version, at
-    # ck.kernel_plain_tolerance_scale -- for bf16x3 the proved sum of the
-    # tensor-core summation's bound and the plain version's (past 64
-    # eps_f32), for the other arms the same values as below
+    # ck.kernel_plain_tolerance_scale -- for bf16x3 and bf16x3f the proved
+    # sum of the tensor-core summation's bound and the plain version's
+    # (past 64 eps_f32), for highest the value below, for default 128 u
     q64, db64 = q.astype(np.float64), db.astype(np.float64)
     scale = (q64 ** 2).sum(-1) + (db64 ** 2).sum(-1).max()
     nd = -(-q.shape[1] // ck.DIM_CHUNK)
@@ -334,8 +336,8 @@ def header_bound_ratio(device, arm, kernel, n_q=64, n=512, dim=896):
     s_ref is the exact f64 score of the kernel's own operands (the bf16
     parts' three products, or the f32 values' one); the bound is
     the headers' worst case for the arm's qt
-    (ck.accumulation_coefficient: csrc/binned_mma.cuh for bf16x3,
-    csrc/binned_select.cuh for the others), doubled in s, plus the
+    (ck.accumulation_coefficient: csrc/binned_mma.cuh for bf16x3 and
+    bf16x3f, csrc/binned_select.cuh for highest), doubled in s, plus the
     rounding of s.  With ``tile_n = 128`` every tile is one group, so
     every row's score is survivor 0 of its bin."""
     rng = np.random.default_rng(12)
@@ -394,20 +396,18 @@ def _split_worst_case(device, dim, n_q=32, n=512):
     return q, db
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dim", [128, 896])
-@pytest.mark.parametrize("entry", ["tiled", "db_major", "streaming", "fused",
-                                   "lane_tiled", "lane_streaming"])
-def test_cuda_bf16x3_fault18_case_inside_the_new_tolerance(cuda_device,
-                                                           entry, dim):
-    # every bf16x3 entry's score of every emitted candidate against the f64
+FAULT18_ENTRIES = ["tiled", "db_major", "streaming", "fused", "lane_tiled",
+                   "lane_streaming"]
+
+
+def _fault18_case(device, arm, entry, dim):
+    # every ``arm`` entry's score of every emitted candidate against the f64
     # score of the f32 values, within the certificate's tolerance
     # (ck.kernel_tolerance: the split's proved error + the tensor-core
     # summation's + headroom)
-    q, db = _split_worst_case(cuda_device, dim)
-    qp = ck.pad_queries(torch.from_numpy(q).to(cuda_device))
-    th, tl, tnorm = ck.prepare_db(torch.from_numpy(db).to(cuda_device),
-                                  ck.BIN_W)
+    q, db = _split_worst_case(device, dim)
+    qp = ck.pad_queries(torch.from_numpy(q).to(device))
+    th, tl, tnorm = ck.prepare_db(torch.from_numpy(db).to(device), ck.BIN_W)
     fn, kw = {"tiled": (ck.binned_select, {}),
               "db_major": (ck.binned_select, {"grid_order": "db_major"}),
               "streaming": (ck.stream_select, {}),
@@ -415,16 +415,66 @@ def test_cuda_bf16x3_fault18_case_inside_the_new_tolerance(cuda_device,
               "lane_tiled": (ck.binned_select, {"binning": "lane"}),
               "lane_streaming": (ck.stream_select, {"binning": "lane"})}[entry]
     cd, ci, _ = (a.cpu().numpy() for a in fn(qp, th, tl, tnorm,
-                                             tile_n=ck.BIN_W, arm="bf16x3",
-                                             **kw))
+                                             tile_n=ck.BIN_W, arm=arm, **kw))
     q64, db64 = q.astype(np.float64), db.astype(np.float64)
     s64 = (db64 ** 2).sum(-1)[None, :] - 2.0 * q64 @ db64.T
     real = ci < db.shape[0]
     assert real.sum() >= q.shape[0] * db.shape[0] // ck.BIN_W
     got = np.take_along_axis(s64, np.where(real, ci, 0), 1)
     err = np.where(real, np.abs(cd.astype(np.float64) - got), 0.0).max(-1)
-    tol = ck.kernel_tolerance(q, db, precision="bf16x3")
+    tol = ck.kernel_tolerance(q, db, precision=arm)
     assert (err <= tol).all(), float((err / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [128, 896])
+@pytest.mark.parametrize("entry", FAULT18_ENTRIES)
+def test_cuda_bf16x3_fault18_case_inside_the_new_tolerance(cuda_device,
+                                                           entry, dim):
+    _fault18_case(cuda_device, "bf16x3", entry, dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [128, 896])
+@pytest.mark.parametrize("entry", FAULT18_ENTRIES)
+def test_cuda_bf16x3f_fault18_case_inside_its_tolerance(cuda_device, entry,
+                                                        dim):
+    _fault18_case(cuda_device, "bf16x3f", entry, dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,tile_n", [(24, 256), (300, 256), (128, 16384)])
+def test_cuda_bf16x3f_entries_are_bitwise_alike(cuda_device, dim, tile_n):
+    # K4 runs one tensor-core walk for every entry: tiled in both grids,
+    # streaming and fused (disarmed) give the same bits, every lane score is
+    # the grouped score of its row, and the kernel stays within the proved
+    # kernel-vs-plain tolerance
+    rng = np.random.default_rng(dim + 17)
+    q, db = _data(rng, 45, 3 * tile_n // 2 + 60, dim)
+    ops = _f32_operands(cuda_device, "bf16x3f", q, db, tile_n)
+    ka = {"tile_n": tile_n, "arm": "bf16x3f"}
+    tiled = ck.binned_select(*ops, **ka)
+    for other in (ck.binned_select(*ops, **ka, grid_order="db_major"),
+                  ck.stream_select(*ops, **ka),
+                  ck.fused_select(*ops, **ka, keep=None)):
+        for a, b in zip(other, tiled):
+            assert torch.equal(a, b)
+    n_rows = ops[-1].shape[1]
+    for fn in (ck.binned_select, ck.stream_select):
+        lane = fn(*ops, **ka, binning="lane", survivors=8)
+        g = torch.full((tiled[0].shape[0], n_rows + 1), torch.nan,
+                       device=cuda_device)
+        g.scatter_(1, tiled[1].long().clamp(max=n_rows), tiled[0])
+        li = lane[1].long().clamp(max=n_rows)
+        got = torch.gather(g, 1, li)
+        both = (li < n_rows) & ~torch.isnan(got)
+        assert bool(both.any())
+        assert torch.equal(lane[0][both], got[both])
+    plain = [a.cpu().numpy() for a in ck.binned_select_plain(*ops, **ka)]
+    tiled = [a.cpu().numpy() for a in tiled]
+    tol = _tol(q, db, "bf16x3f", kernel=True)
+    _assert_scores(tiled[0], plain[0], tol)
+    _assert_scores(tiled[2], plain[2], tol)
 
 
 @pytest.mark.cuda
@@ -599,6 +649,29 @@ def test_cuda_pq_kernels_bitwise_plain(cuda_device, n_q, n, m, ncodes,
         ck.fused_select(*args, tile_n=tile_n, keep=15, arm="pq")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n,m,ncodes,tile_n", [
+    (45, 1280 + 60, 196, 200, 1280),    # a full 1,024-row block + 2 groups
+    (70, 2 * 1152 + 5, 7, 256, 1152),   # a block + 1 group, C % 32 == 0
+    (33, 300, 32, 130, 128)])           # a tile shorter than a block
+def test_cuda_pq_kernels_bitwise_plain_at_the_row_block_edges(
+        cuda_device, n_q, n, m, ncodes, tile_n):
+    # K7's walk stages 1,024-row blocks and 32-query LUT slices: query
+    # counts off a multiple of 32, tiles shorter than a block or ending in
+    # a partial one, m = 196 and C = 200, in grouped and lane binning, every
+    # entry bitwise its plain version
+    args = _pq_case(cuda_device, n_q, n, m, ncodes, tile_n, n_q + m)
+    for emit in ({}, {"binning": "lane"},
+                 {"binning": "lane", "survivors": 8}):
+        kw = dict(emit, tile_n=tile_n, arm="pq")
+        plain = ck.binned_select_plain(*args, **kw)
+        for out in (ck.binned_select(*args, **kw),
+                    ck.binned_select(*args, **kw, grid_order="db_major"),
+                    ck.stream_select(*args, **kw)):
+            for a, b in zip(out, plain):
+                assert torch.equal(a, b)
+
+
 def pq_bound_ratio(device, kernel, n_q=16, n=256, m=196, dsub=4,
                    ncodes=64):
     """The largest |s_kernel - s_ref| / bound over every real row for K7's
@@ -606,7 +679,7 @@ def pq_bound_ratio(device, kernel, n_q=16, n=256, m=196, dsub=4,
     784 dims), on rows that are their own reconstruction (residuals 0) and
     all-nonnegative LUT entries (q in [1, 2], codebook values in [0, 1]:
     the chain's worst shape, every partial sum grows).  s_ref is the exact
-    f64 score ||t||^2 - 2 q.t; the bound is csrc/binned_select.cuh's worst
+    f64 score ||t||^2 - 2 q.t; the bound is csrc/binned_pq.cuh's worst
     case, ops.pq.k7_rounding (||q||^2 + 2 M) (norm_err_max is 0 here).
     With ``tile_n = 128`` every row's score is survivor 0 of its bin."""
     from knn_tpu_torch.ops import pq as ppq

@@ -104,8 +104,8 @@ def test_plain_k3_matches_the_bf16_product_model(dim):
 @pytest.mark.parametrize("arm", ["bf16x3", "bf16x3f", "highest"])
 def test_fault12_chunked_sums_stay_inside_the_bound_at_dp896(arm):
     # all-positive products at Dp = 896 (7 chunks): the kernels' order of
-    # summation, replayed in numpy f32 / f64 (bf16x3: the tensor-core
-    # step model of csrc/binned_mma.cuh, coarse_knn.
+    # summation, replayed in numpy f32 / f64 (bf16x3, bf16x3f: the
+    # tensor-core step model of csrc/binned_mma.cuh, coarse_knn.
     # accumulation_coefficient), errs by no more than the bound the
     # headers state, and s by less than the reference's tolerance; a
     # single chain of 3 Dp terms has a bound past it
@@ -129,9 +129,6 @@ def test_fault12_chunked_sums_stay_inside_the_bound_at_dp896(arm):
         th, tl = (a.float().numpy() for a in ck.split_bf16(torch.from_numpy(t)))
         pairs = [(qh, th), (qh, tl), (ql, th)]
 
-        def prod(a, b, d):  # exact in f32: bf16 x bf16
-            return (a[:, d, None] * b[None, :, d]).astype(np.float32)
-
         def steps(a, b, c):  # [4, 128, 16] exact products of each k-step
             for k0 in range(c, c + 128, ck.MMA_K):
                 yield (a[:, None, k0:k0 + ck.MMA_K].astype(np.float64)
@@ -140,28 +137,24 @@ def test_fault12_chunked_sums_stay_inside_the_bound_at_dp896(arm):
         total = np.zeros((4, 128), np.float32)
         p_sum = np.zeros((4, 128))
         for c in range(0, 896, 128):
-            if arm == "bf16x3":
-                # the tensor-core kernels: per k-step hi += qh.th, lo +=
-                # qh.tl, lo += ql.th in the header's model (blocks of 8,
-                # truncating alignment), then hi + lo in f32
-                hi = lo = np.zeros((4, 128))
-                for ph, phl, plh in zip(*(steps(a, b, c) for a, b in pairs)):
-                    hi = ck.mma_step_model(hi, ph)
+            # the tensor-core kernels, in the header's step model (blocks
+            # of 8, truncating alignment): per k-step qh.th, qh.tl, ql.th
+            # -- bf16x3 into hi, lo, lo, then hi + lo in f32; bf16x3f all
+            # three into one accumulator
+            hi = lo = np.zeros((4, 128))
+            for ph, phl, plh in zip(*(steps(a, b, c) for a, b in pairs)):
+                hi = ck.mma_step_model(hi, ph)
+                if arm == "bf16x3":
                     lo = ck.mma_step_model(ck.mma_step_model(lo, phl), plh)
-                    p_sum += sum(np.abs(x).sum(-1) for x in (ph, phl, plh))
-                cacc = hi.astype(np.float32) + lo.astype(np.float32)
-            else:  # bf16x3f: pass by pass over the chunk, an f32 chain
-                cacc = np.zeros((4, 128), np.float32)
-                for a, b, d in [(a, b, d) for a, b in pairs
-                                for d in range(c, c + 128)]:
-                    p = prod(a, b, d)
-                    cacc = cacc + p
-                    p_sum += np.abs(p.astype(np.float64))
+                else:
+                    hi = ck.mma_step_model(ck.mma_step_model(hi, phl), plh)
+                p_sum += sum(np.abs(x).sum(-1) for x in (ph, phl, plh))
+            cacc = (hi.astype(np.float32) + lo.astype(np.float32)
+                    if arm == "bf16x3" else hi.astype(np.float32))
             total = total + cacc
         exact = sum(a.astype(np.float64) @ b.astype(np.float64).T
                     for a, b in pairs)
-        bound = (ck.accumulation_coefficient(arm, nd) if arm == "bf16x3"
-                 else 384 + nd) * u * p_sum
+        bound = ck.accumulation_coefficient(arm, nd) * u * p_sum
         tol = 2.0 ** -14 * scale
         # the old single chain's bound in s: 3 Dp u (||q||^2 + M) > tol
         assert (3 * 896 * u * scale > tol).all()

@@ -274,6 +274,35 @@ def test_k7_sums_the_lut_in_subspace_order():
     assert cd[0, 0].item() == -2.0
 
 
+@pytest.mark.parametrize("n_q,n,m,ncodes,tile_n", [
+    (45, 1280 + 60, 7, 200, 1280), (33, 300, 196, 64, 384)])
+def test_k7_kernel_layout_replays_the_plain_scores(n_q, n, m, ncodes, tile_n):
+    # the LUT and codes as the CUDA kernel reads them (query block x
+    # subspace x [code][query], codes subspace-major), summed in the
+    # kernel's order (per query block and row, subspaces in order, f32 adds
+    # from 0), give the plain version's scores bitwise
+    rng = np.random.default_rng(m)
+    lut = torch.from_numpy((rng.normal(size=(n_q, m * ncodes)) * 10)
+                           .astype(np.float32))
+    codes, tnorm = ck.prepare_db_pq(torch.from_numpy(
+        rng.integers(0, ncodes, size=(n, m)).astype(np.uint8)), tile_n)
+    lut_t, codes_t = (a.numpy() for a in ck._pq_kernel_operands(lut, codes))
+    n_blocks = -(-n_q // ck.QUERY_BLOCK)
+    assert lut_t.shape == (n_blocks, m, ncodes, ck.QUERY_BLOCK)
+    assert codes_t.shape == (m, codes.shape[0])
+    # queries past n_q read zeros
+    assert not lut_t[-1, :, :, n_q - (n_blocks - 1) * ck.QUERY_BLOCK:].any()
+    rows = np.arange(codes.shape[0])
+    acc = np.zeros((n_blocks, ck.QUERY_BLOCK, rows.size), np.float32)
+    for s in range(m):
+        acc = acc + lut_t[:, s][:, codes_t[s]].transpose(0, 2, 1)
+    got = tnorm[0].numpy()[None, :] - np.float32(2.0) * acc.reshape(
+        -1, rows.size)[:n_q]
+    scores, _ = ck._pq_scores(lut, codes, tnorm)
+    want = scores(0, slice(None)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 # --- knobs and the certified path ---------------------------------------------
 
 
