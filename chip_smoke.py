@@ -9,7 +9,9 @@ exits non-zero and prints no result):
 1. device  — the card's name, ``nvidia-smi`` name and power limit, versions;
 2. build   — builds every CUDA kernel of the port from ``knn_tpu_torch/csrc``
              with nvcc (one process per source, all at once); every bf16x3
-             and bf16x3f build must hold tensor-core (HMMA) instructions;
+             and bf16x3f build must hold bf16 tensor-core (HMMA)
+             instructions and every highest build FP64 tensor-core (DMMA)
+             ones;
 3. kernel  — K1 (the fused bf16x3 binned-select kernel) and K10 (the
              db-streaming kernel) against their plain PyTorch version on
              the card: dim 24 with ragged rows, dim 300 (three dim chunks),
@@ -23,8 +25,10 @@ exits non-zero and prints no result):
              near 16,384-row tile, two far ones, 4,096 queries; at least
              one tile must skip) and on the full SIFT tile: the same
              skipped (block, tile) cells, the rest within the tolerance;
-             the tensor-core k-step's rounding probe, and fault 18's
-             construction through every bf16x3 and bf16x3f entry;
+             the tensor-core k-step's rounding probe (bf16, and highest's
+             f64 step against its model: ties, products far below the
+             accumulator, cancellation), and fault 18's construction
+             through every bf16x3 and bf16x3f entry;
 4. main    — certified-exact k=100 search at the SIFT1M shape (1,000,000 x
              128 f32 rows and 4,096 queries drawn as bench.py draws them,
              seed 0) through ``ShardedKNN.search_certified(selector=
@@ -122,11 +126,12 @@ exits non-zero and prints no result):
 9. lane   — K8, lane binning: every arm's tiled, db-major and streaming
              lane entries against their plain versions (int8, int4 and pq
              bitwise, the f32 family within its tolerance with ci equal on
-             separated slots) at 2 and 8 survivors and 128- and 256-row
-             bins, and each lane score bitwise the grouped entry's score of
-             the same row; at the main shape each entry against its plain
-             version, timed, its scores against the grouped entry's on 512
-             queries; ``search_certified(binning="lane")`` for bf16x3,
+             separated slots) at 1 to 8 survivors and 128-, 256- and
+             512-row bins, and each lane score bitwise the grouped entry's
+             score of the same row; at the main shape each entry against
+             its plain version, its scores against the grouped entry's,
+             timed beside the grouped entry in turns (the lane / grouped
+             ratio); ``search_certified(binning="lane")`` for bf16x3,
              bf16x3f, highest, int8, int4 and pq, tiled and streaming, on
              the ``main`` data (the indices of the grouped bf16x3 run for
              every query, the oracle's, distances within RANK_SLACK,
@@ -138,7 +143,8 @@ exits non-zero and prints no result):
              2,000 val), then again with ``--pallas-precision int8`` and
              ``highest``; labels must equal the port's ``--mode exact``; the
              |s_kernel - s_f64| / tolerance ratio of bf16x3, bf16x3f and
-             highest at Dp = 896 on the job's rows (must stay below 1);
+             highest at Dp = 896 on the job's rows (must stay below 1), and
+             K2's three entries timed there;
 11. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, the entries of K4, K2, K3, K5, K6, K7, the db-major
              grid K9 of every arm and the lane entries K8 of every arm)
@@ -165,10 +171,10 @@ import time
 
 import numpy as np
 
-#: H100 SXM data-sheet peaks (dense): bf16, TF32 and int8 tensor cores and
+#: H100 SXM data-sheet peaks (dense): bf16, FP64 and int8 tensor cores and
 #: HBM3
 PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 494.7e12
+PEAK_FP64_TC_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12   # CUDA cores; an FMA counts as two
 PEAK_HBM_BYTES = 3.35e12
@@ -630,12 +636,16 @@ def time_cuda(fn, reps):
 
 #: per f32-family arm: products of 2*Q*N*Dp FLOPs, their peak rate, db
 #: bytes per row and dim.  bf16x3 / bf16x3f three bf16 products of th, tl;
-#: default one of th; highest the card's cheapest f32-accurate route, three
-#: TF32 products of a hi / lo split, over the f32 rows
+#: default one of th; highest one f64 product of the f32 rows on the FP64
+#: tensor cores -- the route that keeps its proof.  3xTF32 (a hi / lo split
+#: on the tf32 tensor cores, 6.36 ms at the main shape) is no route for
+#: this arm: its f32 accumulation errs by up to 20 u per m16n8k8 step
+#: (csrc/binned_mma.cuh's step model), 320 u P over a chunk's hi.hi
+#: products alone, five times highest's whole 64 u budget in s
 F32_WORK = {"bf16x3": (3, PEAK_BF16_FLOPS, 4),
             "bf16x3f": (3, PEAK_BF16_FLOPS, 4),
             "default": (1, PEAK_BF16_FLOPS, 2),
-            "highest": (3, PEAK_TF32_FLOPS, 4)}
+            "highest": (1, PEAK_FP64_TC_FLOPS, 4)}
 
 
 def f32_bound(n_q, n, dp, n_tiles, survivors, arm="bf16x3"):
@@ -727,6 +737,12 @@ def lattice_case(dev, n=65_536, dim=128, n_q=4096, seed=3):
         rows[:, 4 * s : 4 * s + 4] = pts[rng.integers(0, 256, size=n)]
     q = (rng.random((n_q, dim)) * 16.0).astype(np.float32)
     return rows, q
+
+
+#: (survivors, bin_w) of the lane phase's small cases: every survivor
+#: count, every bin width of a 512-row tile
+LANE_GEOMETRIES = ((1, 128), (2, 128), (2, 256), (3, 512), (4, 128),
+                   (5, 256), (6, 512), (7, 128), (8, 256), (8, 512))
 
 
 def check_ci_lane(name, kern, plain, tol_q, geo):
@@ -875,9 +891,11 @@ def profile_search(knn, q_np, **knobs) -> dict:
 
 def tensor_core_counts(paths):
     """Tensor-core instructions in each kernel of the built libraries, by
-    library and kernel: HMMA / HGMMA lines of ``cuobjdump -sass`` where
-    the toolkit has it, else the mma / wgmma instructions of the sources'
-    PTX (``nvcc -ptx``).  Returns (tool, {library: {kernel: count}})."""
+    library, kernel and kind: HMMA / HGMMA (bf16) and DMMA (f64) lines of
+    ``cuobjdump -sass`` where the toolkit has it, else the mma / wgmma
+    instructions of the sources' PTX (``nvcc -ptx``; ``.f64`` ones count
+    as DMMA).  Returns (tool, {library: {kernel: {"HMMA": n, "DMMA":
+    n}}})."""
     from pathlib import Path
 
     from knn_tpu_torch.ops import _cuda
@@ -892,7 +910,7 @@ def tensor_core_counts(paths):
             text = subprocess.run([tool, "-sass", str(path)],
                                   capture_output=True, text=True,
                                   check=True).stdout
-            pattern, head = r"\bH(G)?MMA\b", r"Function : (\S+)"
+            pattern, head = r"\b(H|D)G?MMA\b", r"Function : (\S+)"
         else:
             with tempfile.TemporaryDirectory() as tmp:
                 ptx = f"{tmp}/{name}.ptx"
@@ -900,15 +918,19 @@ def tensor_core_counts(paths):
                                 "-o", ptx, str(_cuda.SOURCES[name])],
                                check=True, capture_output=True)
                 text = open(ptx).read()
-            pattern, head = r"\b(w)?gmma\.|\bmma\.sync", r"\.entry (\S+)\("
+            pattern, head = (r"\b(?:w?gmma|mma\.sync)\S*?(\.f64)?\s",
+                             r"\.entry (\S+)\(")
         current = None
         for line in text.splitlines():
             m = re.search(head, line)
             if m:
                 current = m.group(1)
-                per.setdefault(current, 0)
-            elif current and re.search(pattern, line):
-                per[current] += 1
+                per.setdefault(current, {"HMMA": 0, "DMMA": 0})
+            elif current:
+                hit = re.search(pattern, line)
+                if hit:
+                    kind = "DMMA" if hit.group(1) in ("D", ".f64") else "HMMA"
+                    per[current][kind] += 1
     return ("cuobjdump -sass" if tool else "nvcc -ptx"), counts
 
 
@@ -1035,29 +1057,33 @@ def main(argv=None) -> int:
         build_s = time.perf_counter() - t0
         # the bf16x3 and bf16x3f entries' kernels (K1 and K4 in either
         # grid, K10, K11 and K4's streaming and fused entries, their lane
-        # builds, Dp = 128 and Dp > 128 builds) must run on the tensor
-        # cores; every other kernel runs on CUDA cores.  A build's arm is
-        # its kernel template's first argument (binned::Arm, mangled
+        # builds, Dp = 128 and Dp > 128 builds) must run on the bf16 tensor
+        # cores (HMMA), highest's (K2, every entry and build) on the FP64
+        # ones (DMMA); every other kernel runs on CUDA cores.  A build's arm
+        # is its kernel template's first argument (binned::Arm, mangled
         # "ArmE<code>E")
         tc_tool, tc = tensor_core_counts(paths)
-        mma_tc = {arm: {} for arm in ("bf16x3", "bf16x3f")}
+        unit = {"bf16x3": "HMMA", "bf16x3f": "HMMA", "highest": "DMMA"}
+        mma_tc = {arm: {} for arm in unit}
         for lib, fns in tc.items():
             for fn, n in fns.items():
                 code = re.search(r"ArmE(\d+)E", fn)
                 if "mma_kernel" in fn and code:
-                    mma_tc.setdefault(ck.ARMS[int(code.group(1))], {})[
-                        f"{lib}:{fn}"] = n
+                    arm = ck.ARMS[int(code.group(1))]
+                    mma_tc.setdefault(arm, {})[f"{lib}:{fn}"] = n[unit[arm]]
         for arm, builds in mma_tc.items():
             if len(builds) < 2 or min(builds.values()) < 1:
                 raise AssertionError(
-                    f"{arm} kernels without tensor-core instructions: "
+                    f"{arm} kernels without {unit[arm]} instructions: "
                     f"{builds}")
         emit({"phase": "build", "seconds": round(build_s, 3),
               "tensor_core_tool": tc_tool,
               "bf16x3_tensor_core_instructions": mma_tc["bf16x3"],
               "bf16x3f_tensor_core_instructions": mma_tc["bf16x3f"],
+              "highest_fp64_tensor_core_instructions": mma_tc["highest"],
               "other_kernels_tensor_core_instructions": sum(
-                  n for lib, fns in tc.items() for fn, n in fns.items()
+                  sum(n.values()) for lib, fns in tc.items()
+                  for fn, n in fns.items()
                   if "mma_kernel" not in fn and "probe" not in fn),
               "libraries": {n: str(p.name) for n, p in paths.items()},
               "ptxas": {n: [ln.split(":", 1)[-1].strip()
@@ -1095,11 +1121,18 @@ def main(argv=None) -> int:
         probe = ck.mma_rounding_probe(dev)
         if max(r["max_error_over_bound"] for r in probe.values()) > 1.0:
             raise AssertionError(f"mma step outside the header's model: {probe}")
+        # ... and highest's f64 step against its model (round to nearest,
+        # any order): highest's tolerance is proved from it
+        dprobe = ck.dmma_rounding_probe(dev)
+        if max(r["max_error_over_bound"] for r in dprobe.values()) > 1.0:
+            raise AssertionError(
+                f"f64 mma step outside the header's model: {dprobe}")
         fault18 = {arm: {f"dp{dim}": fault18_ratios(dev, dim, arm)
                          for dim in (128, 896)}
                    for arm in ("bf16x3", "bf16x3f")}
         emit({"phase": "kernel", "cases": cases, "k11_cases": k11_cases,
-              "mma_rounding_probe": probe, "fault18_case": fault18,
+              "mma_rounding_probe": probe, "dmma_rounding_probe": dprobe,
+              "fault18_case": fault18,
               "max_abs_err": {key: c.max_abs_err for key, c in checks.items()}})
 
     # the SIFT1M-shape placement, queries and oracle, shared by main and
@@ -1941,11 +1974,12 @@ def main(argv=None) -> int:
         from knn_tpu_torch import knn_search_certified, pallas_candidate_fn
 
         # every arm's lane entries against their plain versions at small
-        # shapes and two geometries; lane scores bitwise the grouped ones
+        # shapes, every survivor count and bin width; lane scores bitwise
+        # the grouped ones
         rng = np.random.default_rng(9)
         cases = []
         for arm in ck.ARMS:
-            for surv, bin_w in ((2, 128), (8, 256)):
+            for surv, bin_w in LANE_GEOMETRIES:
                 tile, n_q, n = 512, 37, 5 * 128 + 60
                 if arm == "pq":
                     args, tol_q = pq_case(dev, n_q, n, 7, 200, tile, 1), None
@@ -1994,7 +2028,8 @@ def main(argv=None) -> int:
         emit({"phase": "lane_kernels", "cases": cases})
 
         # each arm's lane entries at the main shape: against the plain
-        # version, against the grouped scores on every query, timed
+        # version, against the grouped scores on every query, timed beside
+        # the grouped entries in turns
         out = {"phase": "lane"}
         geo = ck.emit_geometry(ck.TILE_N, "lane")
         for arm in ck.ARMS:
@@ -2031,17 +2066,26 @@ def main(argv=None) -> int:
                 ck.binned_select(*args, tile_n=ck.TILE_N, arm=arm),
                 args[-1].shape[1])
             del tiled
-            timing = {
-                "tiled_ms": time_cuda(lambda: ck.binned_select(*args, **ka),
-                                      3),
-                "db_major_ms": time_cuda(
-                    lambda: ck.binned_select(*args, **ka,
-                                             grid_order="db_major"), 3),
-                "streaming_ms": time_cuda(
-                    lambda: ck.stream_select(*args, **ka), 3)}
+            entries = {"tiled": (ck.binned_select, {}),
+                       "db_major": (ck.binned_select,
+                                    {"grid_order": "db_major"}),
+                       "streaming": (ck.stream_select, {})}
+            timing, ratio = {}, {}
+            for kern, (fn, kw) in entries.items():
+                # grouped, lane, lane, grouped
+                g1 = time_cuda(lambda: fn(*args, tile_n=ck.TILE_N, arm=arm,
+                                          **kw), 3)
+                lane_ms = [time_cuda(lambda: fn(*args, **ka, **kw), 3)
+                           for _ in range(2)]
+                g2 = time_cuda(lambda: fn(*args, tile_n=ck.TILE_N, arm=arm,
+                                          **kw), 3)
+                timing[f"{kern}_ms"] = sum(lane_ms) / 2
+                timing[f"{kern}_grouped_ms"] = (g1 + g2) / 2
+                ratio[kern] = timing[f"{kern}_ms"] / timing[f"{kern}_grouped_ms"]
             bound = arm_bound(S, arm, args, geo)
             del args
             out[arm] = {"kernels": dict(timing, plain_ms=plain_ms,
+                                        lane_over_grouped=ratio,
                                         bound=bound, max_abs_err=err,
                                         ci_separated_checked=ci_checked,
                                         rows_compared_with_grouped=common)}
@@ -2170,7 +2214,21 @@ def main(argv=None) -> int:
         tr_dev = torch.from_numpy(np.asarray(tr, np.float32)).to(dev)
         ratio896 = {arm: score_error_ratio(te_dev, tr_dev, arm)
                     for arm in ("bf16x3", "bf16x3f", "highest")}
-        del te_dev, tr_dev
+        # K2's entries at Dp = 896 on the job's rows (2,000 queries x 20,000
+        # rows, two 16,384-row tiles), CUDA events, mean of 3
+        hi_args = (ck.pad_queries(te_dev),
+                   *ck.prepare_db_arm(tr_dev, ck.TILE_N, "highest"))
+        hi = {"tiled_ms": time_cuda(lambda: ck.binned_select(
+                  *hi_args, tile_n=ck.TILE_N, arm="highest"), 3),
+              "streaming_ms": time_cuda(lambda: ck.stream_select(
+                  *hi_args, tile_n=ck.TILE_N, arm="highest"), 3),
+              "fused_ms": time_cuda(lambda: ck.fused_select(
+                  *hi_args, tile_n=ck.TILE_N, keep=80, arm="highest"), 3),
+              "bound": f32_bound(te_dev.shape[0], tr_dev.shape[0],
+                                 hi_args[0].shape[1],
+                                 hi_args[1].shape[0] // ck.TILE_N,
+                                 ck.SURVIVORS, "highest")}
+        del te_dev, tr_dev, hi_args
         if max(ratio896.values()) >= 1.0:
             raise AssertionError(
                 f"kernel score error reached its tolerance at Dp = 896: "
@@ -2189,6 +2247,7 @@ def main(argv=None) -> int:
                   key: v for key, v in cert_hi.certified_stats.items()
                   if key != "pallas_knobs"},
               "score_error_over_tolerance_dp896": ratio896,
+              "highest_kernels_dp896": hi,
               "int8_certified_stats": {key: v for key, v in
                                        cert8.certified_stats.items()
                                        if key != "pallas_knobs"},

@@ -29,19 +29,18 @@
 //   bounds [n_q, n_tiles*128] f32  column ti*128 + b
 //
 // Design.  One CTA per (query block of 32 rows, db tile).  The CTA walks the
-// tile's tile_n/128 column groups in ascending order.  bf16x3 (K1) and
-// bf16x3f (K4) run binned_mma.cuh's mainloop: each group's chunks on the
-// tensor cores through a cp.async ring, its scores through a shared-memory
-// tile into the emitter; pq (K7) runs binned_pq.cuh's walk.  The other
-// arms stage slices of the group's 128 db rows and of the query block in
-// shared memory and multiply them on CUDA cores: default and highest
-// 64-dim slices (th upcast to f32 and the query rounded to bf16 in-kernel,
-// or f32 values converted to f64 for highest -- once, when staged), each
-// 128-dim chunk summed in its own accumulator (chunk 0 in the score's own,
-// later ones added into a running sum kept in shared memory), then added
-// into the score; the int arms one
-// 128-dim chunk as 32-bit words of 4 int8 dims (int4 unpacked on the way
-// in), accumulated in int32 with __dp4a, then rescaled once.  Each of the
+// tile's tile_n/128 column groups in ascending order.  bf16x3 (K1), bf16x3f
+// (K4) and highest (K2) run binned_mma.cuh's mainloop: each group's chunks
+// on the tensor cores (bf16, or FP64 for highest) through a cp.async ring,
+// its scores through a shared-memory tile into the emitter; pq (K7) runs
+// binned_pq.cuh's walk.  The other arms stage slices of the group's 128 db
+// rows and of the query block in shared memory and multiply them on CUDA
+// cores: default 64-dim slices (th upcast to f32 and the query rounded to
+// bf16 in-kernel), each 128-dim chunk summed in its own accumulator (chunk
+// 0 in the score's own, later ones added into a running sum kept in shared
+// memory), then added into the score; the int arms one 128-dim chunk as
+// 32-bit words of 4 int8 dims (int4 unpacked on the way in), accumulated in
+// int32 with __dp4a, then rescaled once.  Each of the
 // 256 threads owns a 4-query x 4-lane register tile; after the group's last
 // chunk it forms s and runs the insertion network for its 16 (query, lane)
 // bins in registers.  The [32, tile_n] score tile never exists anywhere.
@@ -59,16 +58,17 @@
 //
 // What bounds it on this card: operations.  bf16x3 and bf16x3f are 3 bf16
 // products of 2*Q*Np*Dp FLOPs, default one, against ~1.2 GB of HBM traffic
-// at the SIFT1M shape (Q=4096); highest is an f32-accurate product (three
-// TF32 products on tensor cores are the cheapest such route); int8 is one
-// int8 product (Q*Np*Dp MACs) against ~0.8 GB (int4 ~0.7 GB).  All sit far
-// above the H100's ridge points.  bf16x3 and bf16x3f run on the tensor
-// cores (binned_mma.cuh: a 32-query CTA reads the db rows once per query
-// block, so the L2 traffic, not the products, limits them); highest,
-// default and the int arms on CUDA cores (f32 FMA pipes at 67 TFLOP/s, f64
-// at half that, __dp4a for the int arms), an order of magnitude above
-// their bounds; their tensor-core forms (3xTF32, s8 MMA) are later work.
-// pq's bound is its shared-memory lookups (binned_pq.cuh).
+// at the SIFT1M shape (Q=4096); highest is one f64 product of the f32
+// values (the FP64 tensor cores' 67 TFLOP/s; 3xTF32 would not keep its
+// proof, binned_mma.cuh); int8 is one int8 product (Q*Np*Dp MACs) against
+// ~0.8 GB (int4 ~0.7 GB).  All sit far above the H100's ridge points.
+// bf16x3, bf16x3f and highest run on the tensor cores (binned_mma.cuh: a
+// 32-query CTA reads the db rows once per query block, so the L2 traffic,
+// not the products, limits them); default and the int arms on CUDA cores
+// (f32 FMA pipes at 67 TFLOP/s, __dp4a for the int arms), an order of
+// magnitude above their bounds; their tensor-core forms (one bf16 MMA, s8
+// MMA) are later work.  pq's bound is its shared-memory lookups
+// (binned_pq.cuh).
 
 #include "binned_mma.cuh"
 #include "binned_pq.cuh"
@@ -80,48 +80,30 @@ using namespace binned;
 constexpr int kDimSlice = 64;    // dims staged per shared-memory pass
 constexpr int kDbStride = kDimSlice + 1;   // pad: conflict-free row reads
 
-constexpr size_t kComputeBytes = kF32ComputeBytes<kDimSlice>;   // 84,992 B
+constexpr size_t kComputeBytes = kF32ComputeBytes<kDimSlice>;   // 42,496 B
 // dynamic shared memory of the single-chunk (Dp = 128) and the multi-chunk
-// builds of a CUDA-core f32 kernel: the multi-chunk one adds the running
-// sums
+// builds of the CUDA-core default kernel: the multi-chunk one adds the
+// running sums
 template <bool kMulti>
 constexpr size_t kSmemBytes = kComputeBytes + (kMulti ? kRunBytes : 0);
 constexpr int kMaxGridY = 65535;
 
 // Stages dims k0 .. k0+63 of db rows row0 .. row0+127 and of query rows
 // q0 .. q0+31 into the compute buffers: th upcast to f32, 8 bf16 per
-// 16-byte load, or t converted to f64, 4 f32 per load; the query's bf16
-// part (or the query converted to f64), k-major for 16-byte reads, rows
-// past n_q as zeros.
-template <Arm kArm>
+// 16-byte load; the query's bf16 part k-major for 16-byte reads, rows past
+// n_q as zeros.
 __device__ __forceinline__ void stage_slice(
-    const F32Bufs<kArm, kDimSlice, kDbStride>& bufs,
-    const float* __restrict__ q, const void* __restrict__ db0, size_t row0,
-    int k0, int dp, int q0, int n_q, int tid) {
-  if constexpr (kArm == Arm::kHighest) {
-    const float* t = static_cast<const float*>(db0);
-    double* dst = static_cast<double*>(bufs.db0);
+    const F32Bufs<kDimSlice, kDbStride>& bufs, const float* __restrict__ q,
+    const __nv_bfloat16* __restrict__ th, size_t row0, int k0, int dp, int q0,
+    int n_q, int tid) {
 #pragma unroll
-    for (int p = 0; p < (kBinW * kDimSlice / 4) / kThreads; ++p) {
-      const int idx = tid + p * kThreads;
-      const int r = idx / (kDimSlice / 4);
-      const int c4 = idx % (kDimSlice / 4);
-      put_f32x4(*reinterpret_cast<const float4*>(
-                    t + (row0 + r) * static_cast<size_t>(dp) + k0 + c4 * 4),
-                dst + r * kDbStride + c4 * 4);
-    }
-  } else {
-    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(db0);
-#pragma unroll
-    for (int p = 0; p < (kBinW * kDimSlice / 8) / kThreads; ++p) {
-      const int idx = tid + p * kThreads;
-      const int r = idx / (kDimSlice / 8);
-      const int seg = idx % (kDimSlice / 8);
-      const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
-      const int at = r * kDbStride + seg * 8;
-      put_bf16x8(*reinterpret_cast<const uint4*>(src + off),
-                 static_cast<float*>(bufs.db0) + at);
-    }
+  for (int p = 0; p < (kBinW * kDimSlice / 8) / kThreads; ++p) {
+    const int idx = tid + p * kThreads;
+    const int r = idx / (kDimSlice / 8);
+    const int seg = idx % (kDimSlice / 8);
+    const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
+    put_bf16x8(*reinterpret_cast<const uint4*>(th + off),
+               bufs.db0 + r * kDbStride + seg * 8);
   }
 #pragma unroll
   for (int p = 0; p < (kBlockQ * kDimSlice / 4) / kThreads; ++p) {
@@ -135,20 +117,20 @@ __device__ __forceinline__ void stage_slice(
     const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      store_query<kArm>(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r);
+      store_query(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r);
   }
 }
 
-// The CUDA-core f32 family (K2, K3).  db0: th bf16 (default), t f32
-// (highest).  kMulti: the build for Dp > 128 (sum_chunks).
-template <Arm kArm, bool kMulti, int kSlots>
-__global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
+// K3: the default arm on CUDA cores.  kMulti: the build for Dp > 128
+// (sum_chunks).
+template <bool kMulti, int kRounds>
+__global__ void __launch_bounds__(kThreads, kCudaCoreCtas)
 binned_select_f32_kernel(const float* __restrict__ q,
-                         const void* __restrict__ db0,
+                         const __nv_bfloat16* __restrict__ th,
                          const float* __restrict__ tnorm, Out out, int dp,
                          int db_major) {
   extern __shared__ float4 smem_f4[];
-  const F32Bufs<kArm, kDimSlice, kDbStride> bufs(smem_f4);
+  const F32Bufs<kDimSlice, kDbStride> bufs(smem_f4);
   // the multi-chunk build's running sums, after the compute buffers
   float* run = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(smem_f4) + kComputeBytes);
@@ -163,44 +145,44 @@ binned_select_f32_kernel(const float* __restrict__ q,
   const size_t tile_row0 = static_cast<size_t>(ti) * out.tile_n;
   const Place place{q0, quad, lane_col};
 
-  Emitter<kSlots> em;
+  Emitter<kRounds> em;
   em.begin_tile();
 
   for (int g = 0; g < n_groups; ++g) {
     const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
     // the products of chunk c, summed into ``sum``
-    auto chunk = [&](int c, auto& sum) {
+    auto chunk = [&](int c, Acc& sum) {
       for (int k0 = c * kDimChunk; k0 < (c + 1) * kDimChunk;
            k0 += kDimSlice) {
         __syncthreads();  // previous slice fully consumed
-        stage_slice<kArm>(bufs, q, db0, row0, k0, dp, q0, n_q, tid);
+        stage_slice(bufs, q, th, row0, k0, dp, q0, n_q, tid);
         __syncthreads();
         slice_products(bufs, quad, lane_col, sum);
       }
     };
     Acc acc;
-    sum_chunks<kArm, kMulti>(dp / kDimChunk, run, tid, chunk, acc);
+    sum_chunks<kMulti>(dp / kDimChunk, run, tid, chunk, acc);
     em.group(acc, tnorm, row0, g, ti, out, place);
   }
   em.end_tile(ti, out, place, false);
 }
 
-// K1 and K4: the bf16x3 and bf16x3f arms on tensor cores (binned_mma.cuh),
-// one db tile per CTA.  kMulti: the build for Dp > 128 (the query's chunk
-// staged per step).
-template <Arm kArm, bool kMulti, int kSlots>
+// K1, K4 and K2: the bf16x3, bf16x3f and highest arms on tensor cores
+// (binned_mma.cuh), one db tile per CTA.  kMulti: the build for Dp > 128
+// (the query's chunk staged per step).
+template <Arm kArm, bool kMulti, int kRounds>
 __global__ void __launch_bounds__(kThreads, 1)
 binned_select_mma_kernel(const float* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ th,
-                         const __nv_bfloat16* __restrict__ tl,
+                         const void* __restrict__ db0,
+                         const void* __restrict__ db1,
                          const float* __restrict__ tnorm, Out out, int dp,
                          int db_major) {
   extern __shared__ float4 smem_f4[];
   __shared__ int warp_ok[kThreads / 32];
   const int ti = db_major ? blockIdx.y : blockIdx.x;
   const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
-  bf16x3_walk<kArm, kMulti, kSlots, false>(
-      q, th, tl, tnorm, out, dp, q0, ti, ti + 1, 0,
+  mma_walk<kArm, kMulti, kRounds, false>(
+      q, db0, db1, tnorm, out, dp, q0, ti, ti + 1, 0,
       reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
 }
 
@@ -208,8 +190,8 @@ binned_select_mma_kernel(const float* __restrict__ q,
 constexpr size_t kIntSmemInts =
     kBinW * kIntDbStride + kIntWords * kQStride;  // 21.5 KB, static
 
-template <Arm kArm, int kSlots>
-__global__ void __launch_bounds__(kThreads, 2)
+template <Arm kArm, int kRounds>
+__global__ void __launch_bounds__(kThreads, kCudaCoreCtas)
 binned_select_int_kernel(const int8_t* __restrict__ qi,
                          const float* __restrict__ qsc,
                          const uint8_t* __restrict__ t,
@@ -235,7 +217,7 @@ binned_select_int_kernel(const int8_t* __restrict__ qi,
 
   float qs[kQuadQ];
   load_qsc(qsc, q0, quad, n_q, qs);
-  Emitter<kSlots> em;
+  Emitter<kRounds> em;
   em.begin_tile();
 
   for (int g = 0; g < n_groups; ++g) {
@@ -259,7 +241,7 @@ binned_select_int_kernel(const int8_t* __restrict__ qi,
 }
 
 // K7: one db tile per CTA (binned_pq.cuh, pq_tiles).
-template <int kSlots>
+template <int kRounds>
 __global__ void __launch_bounds__(kThreads, 1)
 binned_select_pq_kernel(const float* __restrict__ lut_t,
                         const uint8_t* __restrict__ codes_t,
@@ -271,7 +253,7 @@ binned_select_pq_kernel(const float* __restrict__ lut_t,
   const Place place{static_cast<int>(db_major ? blockIdx.x : blockIdx.y) *
                         kBlockQ,
                     tid / 32, tid % 32};
-  pq_tiles<kSlots>(lut_t, codes_t, tnorm, out, place, m, ncodes, ti, ti + 1,
+  pq_tiles<kRounds>(lut_t, codes_t, tnorm, out, place, m, ncodes, ti, ti + 1,
                   reinterpret_cast<unsigned char*>(smem_f4));
 }
 
@@ -283,37 +265,36 @@ bool grid_of(int n_q, int n_tiles, int db_major, dim3* grid) {
   return static_cast<int>(grid->y) <= kMaxGridY;
 }
 
-template <Arm kArm, bool kMulti, int kSlots>
+template <Arm kArm, bool kMulti, int kRounds>
 cudaError_t launch_f32(dim3 grid, const void* p0, const void* p1,
                        const void* p2, const void* p3, const Out& out, int dp,
                        int db_major, cudaStream_t stream) {
   if constexpr (kUsesMma<kArm>) {
+    constexpr size_t smem = kMmaSmemBytes<kArm, kMulti>;
     const cudaError_t err = cudaFuncSetAttribute(
-        binned_select_mma_kernel<kArm, kMulti, kSlots>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMmaSmemBytes<kMulti>));
+        binned_select_mma_kernel<kArm, kMulti, kRounds>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    binned_select_mma_kernel<kArm, kMulti, kSlots>
-        <<<grid, kThreads, kMmaSmemBytes<kMulti>, stream>>>(
-            static_cast<const float*>(p0),
-            static_cast<const __nv_bfloat16*>(p1),
-            static_cast<const __nv_bfloat16*>(p2),
-            static_cast<const float*>(p3), out, dp, db_major);
+    binned_select_mma_kernel<kArm, kMulti, kRounds>
+        <<<grid, kThreads, smem, stream>>>(static_cast<const float*>(p0), p1,
+                                           p2, static_cast<const float*>(p3),
+                                           out, dp, db_major);
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
-        binned_select_f32_kernel<kArm, kMulti, kSlots>,
+        binned_select_f32_kernel<kMulti, kRounds>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes<kMulti>));
     if (err != cudaSuccess) return err;
-    binned_select_f32_kernel<kArm, kMulti, kSlots>
+    binned_select_f32_kernel<kMulti, kRounds>
         <<<grid, kThreads, kSmemBytes<kMulti>, stream>>>(
-            static_cast<const float*>(p0), p1,
+            static_cast<const float*>(p0),
+            static_cast<const __nv_bfloat16*>(p1),
             static_cast<const float*>(p3), out, dp, db_major);
   }
   return cudaGetLastError();
 }
 
-template <Arm kArm, int kSlots>
+template <Arm kArm, int kRounds>
 cudaError_t launch_arm(dim3 grid, const void* p0, const void* p1,
                        const void* p2, const void* p3, const Out& out, int dp,
                        int db_major, int ncodes, cudaStream_t stream) {
@@ -321,22 +302,22 @@ cudaError_t launch_arm(dim3 grid, const void* p0, const void* p1,
     // dp = m, the code bytes per row
     const size_t smem = pq_smem_bytes(ncodes);
     const cudaError_t err = cudaFuncSetAttribute(
-        binned_select_pq_kernel<kSlots>,
+        binned_select_pq_kernel<kRounds>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    binned_select_pq_kernel<kSlots><<<grid, kThreads, smem, stream>>>(
+    binned_select_pq_kernel<kRounds><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(p0), static_cast<const uint8_t*>(p1),
         static_cast<const float*>(p3), out, dp, ncodes, db_major);
   } else if constexpr (kIsInt<kArm>) {
-    binned_select_int_kernel<kArm, kSlots><<<grid, kThreads, 0, stream>>>(
+    binned_select_int_kernel<kArm, kRounds><<<grid, kThreads, 0, stream>>>(
         static_cast<const int8_t*>(p0), static_cast<const float*>(p1),
         static_cast<const uint8_t*>(p2), static_cast<const float*>(p3), out,
         dp, db_major);
   } else {
     return dp > kDimChunk
-               ? launch_f32<kArm, true, kSlots>(grid, p0, p1, p2, p3, out, dp,
+               ? launch_f32<kArm, true, kRounds>(grid, p0, p1, p2, p3, out, dp,
                                                db_major, stream)
-               : launch_f32<kArm, false, kSlots>(grid, p0, p1, p2, p3, out, dp,
+               : launch_f32<kArm, false, kRounds>(grid, p0, p1, p2, p3, out, dp,
                                                 db_major, stream);
   }
   return cudaGetLastError();
@@ -357,15 +338,15 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
   if (kArm == Arm::kPq ? (dp < 1 || ncodes < 2 || ncodes > 256)
                        : dp % kDimChunk != 0)
     return cudaErrorInvalidValue;
-  switch (emit_slots(bin_w, survivors)) {
+  switch (emit_rounds(bin_w, survivors)) {
     case 0:
       return launch_arm<kArm, 0>(grid, p0, p1, p2, p3, out, dp, db_major,
                                  ncodes, stream);
-    case kLaneSlotsSmall:
-      return launch_arm<kArm, kLaneSlotsSmall>(grid, p0, p1, p2, p3, out, dp,
+    case kLaneRoundsSmall:
+      return launch_arm<kArm, kLaneRoundsSmall>(grid, p0, p1, p2, p3, out, dp,
                                                db_major, ncodes, stream);
     default:
-      return launch_arm<kArm, kLaneSlots>(grid, p0, p1, p2, p3, out, dp,
+      return launch_arm<kArm, kLaneRounds>(grid, p0, p1, p2, p3, out, dp,
                                           db_major, ncodes, stream);
   }
 }
@@ -425,5 +406,17 @@ extern "C" int mma_probe_bf16(const void* a, const void* b, const void* c,
       static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), static_cast<const float*>(c),
       static_cast<float*>(d));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One FP64 tensor-core k-step of the highest kernels on its own (the
+// rounding probe of binned_mma.cuh's f64 step model): d = c + a . b^T, a
+// [16][8] f64, b [8][8] f64, c and d [16][8] f64, row-major.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int dmma_probe_f64(const void* a, const void* b, const void* c,
+                              void* d, void* stream) {
+  binned::dmma_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(a), static_cast<const double*>(b),
+      static_cast<const double*>(c), static_cast<double*>(d));
   return static_cast<int>(cudaGetLastError());
 }

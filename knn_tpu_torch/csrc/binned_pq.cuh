@@ -51,8 +51,8 @@
 //     to the score tile S [32][1,025] f32 (row stride 1,025: lane q's
 //     column writes fall in 32 different banks), and after one barrier the
 //     emitters read S group by group in their own thread layout (queries
-//     quad*4 + i, lanes lane_col + 32 j) into Emitter<kSlots>::group,
-//     unchanged: grouped ties and lane lists as in every other arm, a lane
+//     quad*4 + i, lanes lane_col + 32 j) into Emitter<kRounds>::group,
+//     unchanged: grouped ties and the lane merge as in every other arm, a lane
 //     score the grouped score of its row by construction.
 //
 // Arithmetic per 4,096 queries x 1M rows x m = 32, C = 256 (Q*N*m = 1.31e11
@@ -70,7 +70,7 @@
 //   - codes bytes per lookup: 1 / 32 (1,024 rows x 1 B per 32,768 lookups);
 //   - per CTA: 131,200 B of score tile + 2 x (128 C + 1,024) B of stages =
 //     198,784 B of shared memory at C = 256; 128 accumulator registers a
-//     thread beside the emitter's state (80 grouped, 24 / 72 lane), 254-255
+//     thread beside the emitter's state (80 grouped, 8 lane), 254-255
 //     registers in all: one CTA per SM.
 // On an H100 SXM (700 W) at that shape the walk takes ~38 ms in the
 // query-major grid, bound by its issue (four instructions a lookup, one
@@ -152,7 +152,7 @@ __device__ __forceinline__ void pq_lookups(const unsigned char* stage,
 // The pq arm over db tiles [t_begin, t_end) for the query block at p.q0:
 // lut_t [n_blocks, m, ncodes, 32] f32, codes_t [m, n_tiles*tile_n] uint8,
 // tnorm [n_tiles*tile_n] f32.
-template <int kSlots>
+template <int kRounds>
 __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
                                          const uint8_t* __restrict__ codes_t,
                                          const float* __restrict__ tnorm,
@@ -193,7 +193,7 @@ __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
   cp_async_commit();
   int buf = 0;
 
-  Emitter<kSlots> em;
+  Emitter<kRounds> em;
   for (int ti = t_begin; ti < t_end; ++ti) {
     em.begin_tile();
     for (int b = 0; b < n_blocks; ++b) {

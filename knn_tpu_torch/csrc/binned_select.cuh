@@ -2,10 +2,11 @@
 // tiled entries of every arm (binned_coarse.cu, one CTA per query block and
 // db tile) and the streaming / fused entries of every arm (binned_stream.cu,
 // one CTA per query block walking a run of db tiles): the per-score
-// arithmetic of the CUDA-core f32 and int arms (this part), both emitters
-// (grouped and lane binning, K8), and K11's carry and skip, below.  The
-// bf16x3 (K1, K10, K11) and bf16x3f (K4) arms run on the tensor cores
-// (binned_mma.cuh); the pq arm's walk (K7) is binned_pq.cuh.
+// arithmetic of the CUDA-core arms (this part), both emitters (grouped and
+// lane binning, K8), and K11's carry and skip, below.  The bf16x3 (K1, K10,
+// K11) and bf16x3f (K4) arms run on the bf16 tensor cores and highest (K2)
+// on the FP64 tensor cores (binned_mma.cuh); the pq arm's walk (K7) is
+// binned_pq.cuh.
 //
 // Every kernel of one arm computes each score with the same arithmetic, in
 // the same order, so the tiled, streaming and fused outputs of the arm are
@@ -25,17 +26,19 @@
 //     accumulator per chunk (the TPU's one dot over the 3x contraction
 //     [qh|qh|ql].[th|tl|th], pallas_knn.py:407-414), chunks added in f32
 //     (binned_mma.cuh)
+//   highest (K2): q*t of the f32 values summed in f64 on the FP64 tensor
+//     cores (mma m16n8k8), rounded once to f32 at the chunk's end, chunks
+//     added in f32 (binned_mma.cuh)
 //   default (K3): the TPU's one bf16 pass, cacc += bf16_rn(q)*th (th is
 //     bf16_rn(t)), f32 accumulation                          (fma_pair)
-//   highest (K2): cacc += q*t in f64 (DFMA) over the f32 values, rounded
-//     once to f32 at the chunk's end                         (fma_pair)
 //   int8 (K5) / int4 (K6):
 //     iacc += qi . ti in int32, 4 dims per __dp4a            (dp4a_chunk)
 //       (int4 rows are unpacked to int8 words first:         (unpack_int4)
 //        (b & 0xF) - 8 and (b >> 4) - 8)
 //     acc = (f32_rn(iacc) * qsc) * ts, each product rounded  (rescale)
-//   then s = tnorm[t] - 2*acc and the strict-`<` insertion   (insert_group)
-//   network that keeps 2 survivors + the bin bound
+//   then s = tnorm[t] - 2*acc and the emitter: the strict-`<` insertion
+//   network that keeps 2 survivors + the bin bound (grouped), or the lane
+//   merge (K8)
 //
 // The int dot is exact (|qi.ti| <= 127^2 * dp fits int32 far past any real
 // dim), so the one f32 rounding is the rescale's, in the TPU kernel's order
@@ -64,17 +67,24 @@
 //     or 0.756 + 0.945 + 0.063 = 1.763 (bf16x3f), replaces the reference's
 //     2^-14 whenever it is larger (ROADMAP divergence 18; the sum of the
 //     split and a CUDA-core chain could pass 2^-14 by ~13%, fault 18).
-//   highest.  Each product of two f32 values is exact in f64; the chunk's
-//     f64 sum errs by <= 127 * 2^-53 P_c and its rounding to f32 by u P_c;
-//     the nd - 1 f32 chunk additions by (nd - 1) u P.  So |err(qt)| <=
-//     nd u P (1 + 2^-20), and in s, with the rounding of tn - 2 qt,
-//     <= (nd + 2) u (||q||^2 + M): 3 u at Dp = 128, 9 u at Dp = 896, against
-//     the certificate's budget of 32 eps_f32 (||q||^2 + M) = 64 u (||q||^2 +
+//   highest.  Each product of two f32 values is exact in f64.  A chunk's
+//     products are summed on the FP64 tensor cores in 16 k-steps of 8
+//     (binned_mma.cuh states the step model the probe checks: every f64
+//     add rounds to nearest, in any order within a step, so a step of k
+//     products errs by <= k 2^-53 (|c| + sum |p|)); the 16 steps err by <=
+//     128 * 2^-53 P_c, the rounding to f32 by u P_c (1 + 2^-22), the nd - 1
+//     f32 chunk additions by (nd - 1) u P.  So |err(qt)| <= nd u P (1 +
+//     2^-20), and in s, with the rounding of tn - 2 qt, <= (nd + 2) u
+//     (||q||^2 + M): 3 u at Dp = 128, 9 u at Dp = 896, against the
+//     certificate's budget of 32 eps_f32 (||q||^2 + M) = 64 u (||q||^2 +
 //     M) (pallas_knn.py:1573, sharded.py:2366).  The rest of the budget
 //     covers the f32 row and query norm reductions (each <= (1 + log2 Dp) u
 //     ||x||^2 as tree sums) and the certificate's own f32 arithmetic.  A
 //     plain f32 chain over one chunk (128 u P per chunk) would not fit:
-//     2 * 128 u P <= 2^-17 (||q||^2 + M), twice the budget.
+//     2 * 128 u P <= 2^-17 (||q||^2 + M), twice the budget; nor would
+//     3xTF32 on the tf32 tensor cores (binned_mma.cuh's step model with
+//     f32 accumulation: 16 steps of 20 u for the hi.hi product alone, 320
+//     u P per chunk, five times the whole budget in s).
 //   default.  No tolerance model (the reference refuses it in the one-pass
 //     certificate): bf16_rn(q) bf16_rn(t) - q t <= (2^-7 + 2^-16) |q t| per
 //     dim, plus (128 + nd) u P of f32 accumulation.  It serves the counted
@@ -83,19 +93,17 @@
 // The thread layout is fixed here too: a CTA of kThreads = 256 threads owns
 // kBlockQ = 32 query rows and the 128 lanes of a column group; each thread
 // owns a 4-query x 4-lane register tile (queries quad*4 + i, lanes
-// lane_col + 32*j).  Shared-memory operands of the CUDA-core f32 family: db
-// rows at a per-kernel row stride (f32 th, or f64 t for highest) and query
-// parts k-major at kQStride (f32 hi, or f64 q for highest); the int arms
-// stage one 128-dim chunk as 32-bit words of 4 int8 dims, db rows at
-// kIntDbStride words and query words k-major at kQStride.
+// lane_col + 32*j).  Shared-memory operands of the CUDA-core default arm:
+// db rows (f32 th) at a per-kernel row stride and the query's bf16 part
+// k-major at kQStride; the int arms stage one 128-dim chunk as 32-bit
+// words of 4 int8 dims, db rows at kIntDbStride words and query words
+// k-major at kQStride.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace binned {
 
@@ -105,7 +113,7 @@ constexpr int kBlockQ = 32;      // query rows per CTA
 constexpr int kThreads = 256;    // 8 query quads x 32 lane columns
 constexpr int kQuadQ = 4;        // query rows per thread
 constexpr int kQuadL = 4;        // lanes per thread (strided 32 apart)
-constexpr int kQStride = kBlockQ + 4;   // keeps float4 / double2 reads aligned
+constexpr int kQStride = kBlockQ + 4;   // keeps float4 reads aligned
 constexpr int kMaxCarry = 8;             // MAX_CARRY_DEPTH (K11's carry)
 
 // The coarse pass's arithmetic arms; the values are the C entries' codes
@@ -127,31 +135,21 @@ constexpr int kIntDbStride = kIntWords + 1;   // pad: conflict-free row reads
 template <Arm kArm>
 constexpr bool kIsInt = kArm == Arm::kInt8 || kArm == Arm::kInt4;
 
-// The CUDA-core f32 family's shared-memory element and chunk-accumulator
-// type: f64 for highest, f32 for default.
-template <Arm kArm>
-using Elem = std::conditional_t<kArm == Arm::kHighest, double, float>;
+// CTAs per SM the CUDA-core kernels (default and the int arms) are
+// compiled for.
+constexpr int kCudaCoreCtas = 2;
 
-// CTAs per SM the kernels are compiled for: highest's f64 chunk
-// accumulators need more than the 128 registers two CTAs leave a thread.
-template <Arm kArm>
-constexpr int kMinCtas = kArm == Arm::kHighest ? 1 : 2;
-
-// Bytes of the CUDA-core f32 family's compute buffers for a slice of
-// kSlice dims, sized for one f64 db part [128][kSlice+1] and one f64 query
-// part [kSlice][kQStride] (highest); default uses the first half, as f32,
-// and keeps the same footprint (its occupancy and tile segments as
-// measured).
+// Bytes of the CUDA-core default arm's compute buffers for a slice of
+// kSlice dims: the db part [128][kSlice+1] f32 and the query part
+// [kSlice][kQStride] f32.
 template <int kSlice>
 constexpr size_t kF32ComputeBytes =
-    sizeof(double) * (kBinW * (kSlice + 1) + kSlice * kQStride);
+    sizeof(float) * (kBinW * (kSlice + 1) + kSlice * kQStride);
 
 using Vals = float[kQuadQ][kQuadL][kSurvivors + 1];
 using Gidx = int[kQuadQ][kQuadL][kSurvivors];
 using Acc = float[kQuadQ][kQuadL];
 using IAcc = int[kQuadQ][kQuadL];
-template <typename T>
-using Tile = T[kQuadQ][kQuadL];
 
 // Db bytes per row of an arm's operand for dp dims: int8 one per dim, int4
 // two dims per byte.
@@ -173,21 +171,11 @@ __device__ __forceinline__ void reset_bins(Vals& vals, Gidx& gidx) {
     }
 }
 
-template <typename T>
-__device__ __forceinline__ void zero_tile(Tile<T>& acc) {
+__device__ __forceinline__ void zero_tile(Acc& acc) {
 #pragma unroll
   for (int i = 0; i < kQuadQ; ++i)
 #pragma unroll
-    for (int j = 0; j < kQuadL; ++j) acc[i][j] = T(0);
-}
-
-// A chunk's sum as f32: highest's f64 sum rounded once.
-template <typename T>
-__device__ __forceinline__ float chunk_f32(T c) {
-  if constexpr (std::is_same_v<T, double>)
-    return __double2float_rn(c);
-  else
-    return c;
+    for (int j = 0; j < kQuadL; ++j) acc[i][j] = 0.0f;
 }
 
 // Bytes of the running sums that chunks 1 .. nd-1 are added into: one f32
@@ -195,45 +183,32 @@ __device__ __forceinline__ float chunk_f32(T c) {
 // [(i * kQuadL + j) * kThreads + tid] (conflict-free).
 constexpr size_t kRunBytes = sizeof(float) * kQuadQ * kQuadL * kThreads;
 
-// The CUDA-core f32 family's score sums acc = 0 + c_0 + c_1 + ... over nd
-// chunks,
-// where chunk(c, sum) adds the products of chunk c into ``sum`` (f32, or
-// f64 for highest).  default sums chunk 0 straight into acc (0 + c_0 ==
-// c_0, and an FMA chain from +0 never ends at -0).  Every f32 kernel is
-// built twice and launched by Dp: kMulti = false for Dp = 128 (nd = 1: the
-// one chunk, nothing else -- the register and shared-memory footprint of
-// a single chain), kMulti = true for Dp > 128, where chunks 1 .. nd-1 go
-// through a chunk tile while the running sum waits in shared memory
-// (``run``, kRunBytes), so one accumulator tile is in registers at a time.
-// Both give the same bits.
-template <Arm kArm, bool kMulti, typename ChunkFn>
+// The CUDA-core default arm's score sums acc = 0 + c_0 + c_1 + ... over nd
+// chunks, where chunk(c, sum) adds the products of chunk c into ``sum``.
+// Chunk 0 goes straight into acc (0 + c_0 == c_0, and an FMA chain from +0
+// never ends at -0).  The kernel is built twice and launched by Dp: kMulti
+// = false for Dp = 128 (nd = 1: the one chunk, nothing else -- the register
+// and shared-memory footprint of a single chain), kMulti = true for Dp >
+// 128, where chunks 1 .. nd-1 go through a chunk tile while the running sum
+// waits in shared memory (``run``, kRunBytes), so one accumulator tile is in
+// registers at a time.  Both give the same bits.
+template <bool kMulti, typename ChunkFn>
 __device__ __forceinline__ void sum_chunks(int nd, float* run, int tid,
                                            ChunkFn&& chunk, Acc& acc) {
   zero_tile(acc);
-  if constexpr (kArm == Arm::kHighest) {
-    Tile<double> c0;
-    zero_tile(c0);
-    chunk(0, c0);
-#pragma unroll
-    for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kQuadL; ++j)
-        acc[i][j] = __fadd_rn(acc[i][j], chunk_f32(c0[i][j]));
-  } else {
-    chunk(0, acc);
-  }
+  chunk(0, acc);
   if constexpr (kMulti) {
 #pragma unroll
     for (int e = 0; e < kQuadQ * kQuadL; ++e)
       run[e * kThreads + tid] = acc[e / kQuadL][e % kQuadL];
     for (int c = 1; c < nd; ++c) {
-      Tile<Elem<kArm>> cacc;
+      Acc cacc;
       zero_tile(cacc);
       chunk(c, cacc);
 #pragma unroll
       for (int e = 0; e < kQuadQ * kQuadL; ++e) {
         float& r = run[e * kThreads + tid];
-        r = __fadd_rn(r, chunk_f32(cacc[e / kQuadL][e % kQuadL]));
+        r = __fadd_rn(r, cacc[e / kQuadL][e % kQuadL]);
       }
     }
 #pragma unroll
@@ -242,15 +217,10 @@ __device__ __forceinline__ void sum_chunks(int nd, float* run, int tid,
   }
 }
 
-// One query value as the arm stores it at k-major position ``at``: the
-// bf16 part with round-to-nearest-even (JAX's astype) as f32 (default), or
-// the value as f64 (highest, converted once here, not per product).
-template <Arm kArm>
-__device__ __forceinline__ void store_query(float x, void* qa, int at) {
-  if constexpr (kArm == Arm::kHighest)
-    static_cast<double*>(qa)[at] = static_cast<double>(x);
-  else
-    static_cast<float*>(qa)[at] = __bfloat162float(__float2bfloat16_rn(x));
+// One query value as the default arm stores it at k-major position ``at``:
+// its bf16 part with round-to-nearest-even (JAX's astype), as f32.
+__device__ __forceinline__ void store_query(float x, float* qa, int at) {
+  qa[at] = __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // This thread's 4 query values at k-major row k (16-byte loads).
@@ -260,33 +230,17 @@ __device__ __forceinline__ void load_q4(const float* qs, int k, int quad,
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
 
-__device__ __forceinline__ void load_q4(const double* qs, int k, int quad,
-                                        double (&out)[kQuadQ]) {
-  const double2* p =
-      reinterpret_cast<const double2*>(qs + k * kQStride + quad * 4);
-  const double2 a = p[0], b = p[1];
-  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-}
-
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-
-// One product per dim: cacc[i][j] += q*t over kSlice dims of one db part
-// and one query part (f32 FMA, or f64 DFMA for highest).
-template <int kSlice, int kDbStride, typename T>
-__device__ __forceinline__ void fma_pair(const T* ts, const T* qs, int quad,
-                                         int lane_col, Tile<T>& acc) {
+// One product per dim: acc[i][j] += q*t (f32 FMA) over kSlice dims of one
+// db part and one query part.
+template <int kSlice, int kDbStride>
+__device__ __forceinline__ void fma_pair(const float* ts, const float* qs,
+                                         int quad, int lane_col, Acc& acc) {
   // ts: [128][kDbStride] db values, qs: [kSlice][kQStride] query values
 #pragma unroll 4
   for (int k = 0; k < kSlice; ++k) {
-    T qv[kQuadQ];
+    float qv[kQuadQ];
     load_q4(qs, k, quad, qv);
-    T tv[kQuadL];
+    float tv[kQuadL];
 #pragma unroll
     for (int j = 0; j < kQuadL; ++j)
       tv[j] = ts[(lane_col + 32 * j) * kDbStride + k];
@@ -294,47 +248,34 @@ __device__ __forceinline__ void fma_pair(const T* ts, const T* qs, int quad,
     for (int i = 0; i < kQuadQ; ++i)
 #pragma unroll
       for (int j = 0; j < kQuadL; ++j)
-        acc[i][j] = fma_rn(qv[i], tv[j], acc[i][j]);
+        acc[i][j] = __fmaf_rn(qv[i], tv[j], acc[i][j]);
   }
 }
 
-// Where a slice's db rows and query values go in the compute buffers:
-// th, qh (default); t, q as f64 (highest).
-template <Arm kArm, int kSlice, int kDbStride>
+// Where a slice's db rows (th as f32) and query values (bf16 parts as f32)
+// go in the default arm's compute buffers.
+template <int kSlice, int kDbStride>
 struct F32Bufs {
-  void* db0;   // [128][kDbStride]
-  void* qa;    // [kSlice][kQStride]
-  __device__ explicit F32Bufs(void* cbuf) {
-    using T = Elem<kArm>;
-    T* p = static_cast<T*>(cbuf);
-    db0 = p;
-    qa = p + kBinW * kDbStride;
-  }
+  float* db0;   // [128][kDbStride]
+  float* qa;    // [kSlice][kQStride]
+  __device__ explicit F32Bufs(void* cbuf)
+      : db0(static_cast<float*>(cbuf)), qa(db0 + kBinW * kDbStride) {}
 };
 
-// The CUDA-core f32 family's products over one staged slice into ``acc``:
-// one per dim of the staged pair.
-template <Arm kArm, int kSlice, int kDbStride>
+// The default arm's products over one staged slice into ``acc``: one per
+// dim of the staged pair.
+template <int kSlice, int kDbStride>
 __device__ __forceinline__ void slice_products(
-    const F32Bufs<kArm, kSlice, kDbStride>& b, int quad, int lane_col,
-    Tile<Elem<kArm>>& acc) {
-  using T = Elem<kArm>;
-  fma_pair<kSlice, kDbStride>(static_cast<const T*>(b.db0),
-                              static_cast<const T*>(b.qa), quad, lane_col,
-                              acc);
+    const F32Bufs<kSlice, kDbStride>& b, int quad, int lane_col, Acc& acc) {
+  fma_pair<kSlice, kDbStride>(b.db0, b.qa, quad, lane_col, acc);
 }
 
 // Stores 8 consecutive db values of row r, dims c .. c+7 of the slice, into
-// the compute buffers: bf16 (8 of th, 16 bytes) upcast to f32, or f32 (two
-// 16-byte halves, 4 each) converted to f64.
+// the compute buffers: bf16 (8 of th, 16 bytes) upcast to f32.
 __device__ __forceinline__ void put_bf16x8(uint4 v, float* dst) {
   const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
   for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(b[e]);
-}
-
-__device__ __forceinline__ void put_f32x4(float4 v, double* dst) {
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
 }
 
 __device__ __forceinline__ void zero_iacc(IAcc& acc) {
@@ -523,9 +464,9 @@ __device__ __forceinline__ void store_tile(const Vals& vals, const Gidx& gidx,
 // ---------------------------------------------------------------------------
 // The two emitters (pallas_knn.py:506-610).  A launch takes its binning as a
 // runtime geometry; the emitter itself is a template parameter of every
-// kernel (kLane), so a lane build and a grouped build of one arm share every
-// line of the per-score code above and compute the same score for the same
-// (query, row).
+// kernel (kRounds), so a lane build and a grouped build of one arm share
+// every line of the per-score code above and compute the same score for the
+// same (query, row).
 //
 //   grouped (bin_w = 0 here): bin b of a tile = lane b of every 128-row group,
 //     2 survivors per bin by the insertion network with strict `<` over the
@@ -538,29 +479,34 @@ __device__ __forceinline__ void store_tile(const Vals& vals, const Gidx& gidx,
 //     with +inf / INT32_MAX to out_w = round_up(n_bins*surv, 128) columns;
 //     bounds column b, padded with +inf to bound_w = round_up(n_bins, 128).
 //
-// Lane design.  A bin is bin_w / 128 consecutive groups, so one warp (4 query
-// rows x the group's 128 rows) sees all of it.  Each thread keeps, per query
-// row, its own surv + 1 smallest (value, row) pairs in (value, row) order: its
-// rows arrive in increasing order, and the insertion compares (value, row)
-// lexicographically.  The lists live in registers, kSlots pairs per query
-// row, a template parameter: 3 for 1 or 2 survivors, 9 up to 8 (the launch
-// picks the smaller that holds surv + 1), so the common two-survivor build
-// keeps fewer registers than the grouped network.  At the bin's last group the warp merges its 32 lists in
-// surv + 1 rounds: a butterfly of __shfl_xor_sync picks the smallest head in
-// (value, row) order, its owner pops it; rounds 0 .. surv-1 are the
-// survivors, round surv the bound.  No row outside a thread's surv + 1 pairs
-// can be among the bin's surv + 1 smallest.
+// Lane design.  Every walk hands the emitter a group's scores in one layout:
+// warp w holds query rows 4w .. 4w+3, and for each of them lane l holds the
+// group's rows l + 32 j, j = 0 .. 3.  So one warp sees a query row's whole
+// group, and a bin is bin_w / 128 consecutive groups.  Per query row the
+// warp keeps the bin's running list of its surv + 1 smallest (value, row)
+// pairs so far, one pair a lane (lane r holds the r-th).  At each group the
+// warp merges that list with the group's 128 scores in surv + 1 rounds, all
+// four query rows at once: each lane takes the smallest of its candidates
+// (its list slot, then its 4 scores: rows in increasing order), one
+// __reduce_min_sync (redux.sync) gives the warp's smallest order key, a
+// second the smallest packed row among the lanes that hold it; the owner
+// drops that candidate and lane r keeps round r's pair.  At the bin's last
+// group lanes 0 .. surv - 1 write the survivors and lane surv the bound, in
+// parallel.  The order key is an unsigned integer in the floats' order with
+// -0 taken as +0 and NaN past +inf (order_key); the packed row carries the
+// sign of a zero score, so the value written is bitwise the score's.  No
+// per-thread list, no butterfly of shuffles, no lane writing alone.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxSurvivors = 8;                   // MAX_SURVIVORS
-constexpr int kLaneSlots = kMaxSurvivors + 1;      // the lists' two builds
-constexpr int kLaneSlotsSmall = kSurvivors + 1;
+constexpr int kLaneRounds = kMaxSurvivors + 1;     // the lane merge's two builds
+constexpr int kLaneRoundsSmall = kSurvivors + 1;
 
 // The emitter build of a launch: 0 for grouped binning, else the lane
-// lists' slots for `surv` survivors.
-__host__ inline int emit_slots(int bin_w, int surv) {
-  return bin_w == 0 ? 0 : surv + 1 <= kLaneSlotsSmall ? kLaneSlotsSmall
-                                                      : kLaneSlots;
+// merge's unrolled rounds for `surv` survivors.
+__host__ inline int emit_rounds(int bin_w, int surv) {
+  return bin_w == 0 ? 0 : surv + 1 <= kLaneRoundsSmall ? kLaneRoundsSmall
+                                                       : kLaneRounds;
 }
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -611,9 +557,9 @@ struct Place {
   int lane_col;
 };
 
-// kSlots = 0: grouped binning; kSlots > 0: lane binning with lists of kSlots
-// (value, row) pairs per query row.
-template <int kSlots>
+// kRounds = 0: grouped binning; kRounds > 0: lane binning, its merge
+// unrolled over kRounds >= surv + 1 rounds.
+template <int kRounds>
 struct Emitter;
 
 // Grouped binning: the insertion network of insert_group, stored per tile.
@@ -638,104 +584,140 @@ struct Emitter<0> {
   }
 };
 
+// The lane merge's order keys: kTaken marks a candidate already taken, an
+// empty list slot and NaN (never selected before any other candidate).
+constexpr unsigned kTaken = 0xFFFFFFFFu;
+constexpr unsigned kKeyInf = 0xFF800000u;   // order_key(+inf)
+
+// An unsigned key in the order of the floats: -0 takes +0's key (the two
+// compare equal), NaN takes kTaken.
+__device__ __forceinline__ unsigned order_key(float x) {
+  const unsigned b = __float_as_uint(x);
+  const unsigned k = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return (b & 0x7FFFFFFFu) > 0x7F800000u ? kTaken
+         : b == 0x80000000u              ? 0x80000000u
+                                         : k;
+}
+
+// The score of a (key, packed row) pair: the key's float, -0 where the
+// packed row's low bit says so, +inf past it (kTaken).
+__device__ __forceinline__ float key_value(unsigned key, unsigned packed) {
+  const float v = __uint_as_float((key & 0x80000000u) ? (key & 0x7FFFFFFFu)
+                                                      : ~key);
+  return key >= kKeyInf ? __int_as_float(0x7f800000)
+         : (packed & 1u) ? -0.0f
+                         : v;
+}
+
 // Lane binning (K8).
-template <int kSlots>
+template <int kRounds>
 struct Emitter {
-  float v[kQuadQ][kSlots];   // per query row: the thread's smallest
-  int r[kQuadQ][kSlots];     // (value, tile row) pairs, in order
+  // per query row, slot `lane` of the bin's running list (lane <= surv):
+  // its order key and its packed row (tile row << 1 | the sign of a zero)
+  unsigned rk[kQuadQ];
+  unsigned rp[kQuadQ];
 
   __device__ __forceinline__ void reset() {
 #pragma unroll
-    for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        v[i][k] = __int_as_float(0x7f800000);
-        r[i][k] = INT32_MAX;
-      }
+    for (int i = 0; i < kQuadQ; ++i) rk[i] = rp[i] = kTaken;
   }
 
   __device__ __forceinline__ void begin_tile() { reset(); }
 
-  // s = tnorm[t] - 2 qt for group g (tile rows g*128 + lane_col + 32*j, in
-  // increasing order), inserted into the first surv + 1 slots; at the bin's
-  // last group, the warp merge and its writes.
+  // s = tnorm[t] - 2 qt for group g (tile rows g*128 + lane_col + 32*j),
+  // merged with the running lists in surv + 1 rounds; at the bin's last
+  // group, the writes.
   __device__ __forceinline__ void group(const Acc& acc,
                                         const float* __restrict__ tnorm,
                                         size_t row0, int g, int ti,
                                         const Out& o, const Place& p) {
     const int surv = o.geo.surv;
+    const int lane = p.lane_col;
+    unsigned key[kQuadQ][kQuadL], pk[kQuadQ][kQuadL];
 #pragma unroll
     for (int j = 0; j < kQuadL; ++j) {
-      const float tn = tnorm[row0 + p.lane_col + 32 * j];
-      const int row = g * kBinW + p.lane_col + 32 * j;
+      const float tn = tnorm[row0 + lane + 32 * j];
+      const unsigned row2 =
+          static_cast<unsigned>(g * kBinW + lane + 32 * j) << 1;
 #pragma unroll
       for (int i = 0; i < kQuadQ; ++i) {
-        float cur_v = tn - 2.0f * acc[i][j];
-        int cur_r = row;
+        const float s = tn - 2.0f * acc[i][j];
+        key[i][j] = order_key(s);
+        pk[i][j] = row2 | (__float_as_uint(s) == 0x80000000u ? 1u : 0u);
+      }
+    }
+    unsigned nk[kQuadQ], np[kQuadQ];
 #pragma unroll
-        for (int k = 0; k < kSlots; ++k) {
-          if (k <= surv) {
-            const bool less = cur_v < v[i][k] ||
-                              (cur_v == v[i][k] && cur_r < r[i][k]);
-            const float keep_v = less ? cur_v : v[i][k];
-            const int keep_r = less ? cur_r : r[i][k];
-            cur_v = less ? v[i][k] : cur_v;
-            cur_r = less ? r[i][k] : cur_r;
-            v[i][k] = keep_v;
-            r[i][k] = keep_r;
+    for (int i = 0; i < kQuadQ; ++i) nk[i] = np[i] = kTaken;
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      if (r <= surv) {
+        unsigned bk[kQuadQ], bp[kQuadQ];
+#pragma unroll
+        for (int i = 0; i < kQuadQ; ++i) {
+          // the list slot's rows precede this group's; strict `<` keeps
+          // the first of equal keys, the smallest row
+          bk[i] = rk[i];
+          bp[i] = rp[i];
+#pragma unroll
+          for (int j = 0; j < kQuadL; ++j) {
+            const bool less = key[i][j] < bk[i];
+            bk[i] = less ? key[i][j] : bk[i];
+            bp[i] = less ? pk[i][j] : bp[i];
           }
+        }
+        unsigned mk[kQuadQ], mp[kQuadQ];
+#pragma unroll
+        for (int i = 0; i < kQuadQ; ++i)
+          mk[i] = __reduce_min_sync(0xffffffffu, bk[i]);
+#pragma unroll
+        for (int i = 0; i < kQuadQ; ++i)
+          mp[i] = __reduce_min_sync(0xffffffffu,
+                                    bk[i] == mk[i] ? bp[i] : kTaken);
+#pragma unroll
+        for (int i = 0; i < kQuadQ; ++i) {
+          // a real row is one candidate of the warp: its owner drops it
+          rk[i] = rp[i] == mp[i] ? kTaken : rk[i];
+#pragma unroll
+          for (int j = 0; j < kQuadL; ++j)
+            key[i][j] = pk[i][j] == mp[i] ? kTaken : key[i][j];
+          nk[i] = lane == r ? mk[i] : nk[i];
+          np[i] = lane == r ? mp[i] : np[i];
         }
       }
     }
+#pragma unroll
+    for (int i = 0; i < kQuadQ; ++i) {
+      rk[i] = nk[i];
+      rp[i] = np[i];
+    }
     if ((g + 1) % o.geo.bin_groups == 0) {
-      flush(g / o.geo.bin_groups, ti, o, p);
+      write(g / o.geo.bin_groups, ti, o, p);
       reset();
     }
   }
 
-  // The warp merge of bin b (see above); lane 0 of the warp writes.
-  __device__ __forceinline__ void flush(int b, int ti, const Out& o,
+  // Bin b's outputs: lane r < surv writes survivor r, lane surv the bound.
+  __device__ __forceinline__ void write(int b, int ti, const Out& o,
                                         const Place& p) {
     const Geom& geo = o.geo;
+    const int lane = p.lane_col;
+    if (lane > geo.surv) return;
     const size_t cd_w = static_cast<size_t>(o.n_tiles) * geo.out_w;
     const size_t b_w = static_cast<size_t>(o.n_tiles) * geo.bound_w;
 #pragma unroll
     for (int i = 0; i < kQuadQ; ++i) {
       const int qrow = p.q0 + p.quad * 4 + i;
-      for (int round = 0; round <= geo.surv; ++round) {
-        float hv = v[i][0];
-        int hr = r[i][0];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, hv, off);
-          const int orow = __shfl_xor_sync(0xffffffffu, hr, off);
-          if (ov < hv || (ov == hv && orow < hr)) {
-            hv = ov;
-            hr = orow;
-          }
-        }
-        const bool pop = v[i][0] == hv && r[i][0] == hr;
-#pragma unroll
-        for (int k = 0; k + 1 < kSlots; ++k) {
-          v[i][k] = pop ? v[i][k + 1] : v[i][k];
-          r[i][k] = pop ? r[i][k + 1] : r[i][k];
-        }
-        if (pop) {
-          v[i][kSlots - 1] = __int_as_float(0x7f800000);
-          r[i][kSlots - 1] = INT32_MAX;
-        }
-        if (p.lane_col == 0 && qrow < o.n_q) {
-          if (round < geo.surv) {
-            const size_t at = qrow * cd_w +
-                              static_cast<size_t>(ti) * geo.out_w +
-                              round * geo.n_bins + b;
-            o.cd[at] = hv;
-            o.ci[at] = isfinite(hv) ? ti * o.tile_n + hr : INT32_MAX;
-          } else {
-            o.bounds[qrow * b_w + static_cast<size_t>(ti) * geo.bound_w + b] =
-                hv;
-          }
-        }
+      if (qrow >= o.n_q) continue;
+      const float v = key_value(rk[i], rp[i]);
+      if (lane < geo.surv) {
+        const size_t at = qrow * cd_w + static_cast<size_t>(ti) * geo.out_w +
+                          lane * geo.n_bins + b;
+        o.cd[at] = v;
+        o.ci[at] = isfinite(v) ? ti * o.tile_n + static_cast<int>(rp[i] >> 1)
+                               : INT32_MAX;
+      } else {
+        o.bounds[qrow * b_w + static_cast<size_t>(ti) * geo.bound_w + b] = v;
       }
     }
   }

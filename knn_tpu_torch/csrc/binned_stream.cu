@@ -27,20 +27,19 @@
 //
 // Design.  Grid (segments, query blocks of 32 rows).  A CTA walks the
 // db tiles of its segment in order, each tile's 128-row column groups in
-// order.  bf16x3 (K10, K11) and bf16x3f (K4) run binned_mma.cuh's
-// mainloop over the run: (tile, group, 128-dim chunk) steps through a
-// two-stage cp.async ring, products on the tensor cores -- the same code as
-// the arm's tiled entry, so the same bits; pq (K7) runs binned_pq.cuh's
-// walk over the run.  default and highest walk each group's dims in steps
-// of 32 dims, int8 / int4 one 128-dim chunk.  Step t+1's raw operands (th
-// for default, or f32 rows for highest, and the f32 query slice; int: the
-// int8 or packed int4 db rows and the int8 query slice) are copied into the
-// second of two shared stages with cp.async while step t is converted
-// (bf16 -> f32 and the query's hi/lo split; f32 -> f64 for highest; int4
-// nibbles -> int8 words, int8 rows -> padded word rows) into the compute
-// buffers and multiplied on CUDA cores: the counterpart of the TPU
-// kernel's make_async_copy double buffer.  Each tile's block goes straight
-// to its own column offset in global memory.
+// order.  bf16x3 (K10, K11), bf16x3f (K4) and highest (K2) run
+// binned_mma.cuh's mainloop over the run: (tile, group, 128-dim chunk)
+// steps through a two-stage cp.async ring, products on the tensor cores --
+// the same code as the arm's tiled entry, so the same bits; pq (K7) runs
+// binned_pq.cuh's walk over the run.  default walks each group's dims in
+// steps of 32 dims, int8 / int4 one 128-dim chunk.  Step t+1's raw
+// operands (th and the f32 query slice; int: the int8 or packed int4 db
+// rows and the int8 query slice) are copied into the second of two shared
+// stages with cp.async while step t is converted (bf16 -> f32 and the
+// query's bf16 part; int4 nibbles -> int8 words, int8 rows -> padded word
+// rows) into the compute buffers and multiplied on CUDA cores: the
+// counterpart of the TPU kernel's make_async_copy double buffer.  Each
+// tile's block goes straight to its own column offset in global memory.
 //
 // Occupancy.  At Q = 4096 there are only 128 query blocks of 32 rows for 132
 // SMs.  So the tile loop is split into contiguous segments, one per CTA: the
@@ -48,10 +47,10 @@
 // floor(wave / query blocks)) segments, where wave = SMs x the CTAs per SM
 // that stream_ctas_per_sm reads from the occupancy API for the built kernel
 // of the arm (bf16x3, bf16x3f: 170 KB of shared memory, 202 KB above Dp =
-// 128, one CTA per SM; pq 194 KB at 256 codes, one; highest 84 KB;
-// default 68 KB; their multi-chunk builds 16 KB more; int8 61 KB, int4 45
-// KB; highest is compiled for one CTA per SM, default and the int arms for
-// two).  The streaming output does not depend on the split.
+// 128, one CTA per SM; highest 187 KB, 219 KB above, one; pq 194 KB at 256
+// codes, one; default 45 KB, its multi-chunk build 16 KB more; int8 61 KB,
+// int4 45 KB; default and the int arms are compiled for two CTAs per SM).
+// The streaming output does not depend on the split.
 //
 // The fused skip depends on the query block and on the segment: each segment
 // keeps its own carry, reset at its first tile.  That stays sound: the carry
@@ -71,9 +70,9 @@
 // What bounds it on this card: as the tiled kernels.  The products run for
 // every tile before the skip is decided, so the early-out saves only the
 // skipped tile's output writes in this design, never the products.
-// bf16x3's and bf16x3f's run on the tensor cores (binned_mma.cuh); the
-// other arms' on CUDA cores (f32 FMAs, f64 FMAs for highest, __dp4a for
-// the int arms), an order of magnitude above the tensor-core bound.
+// bf16x3's, bf16x3f's and highest's run on the tensor cores
+// (binned_mma.cuh); default's and the int arms' on CUDA cores (f32 FMAs,
+// __dp4a), an order of magnitude above the tensor-core bound.
 
 #include "binned_mma.cuh"
 #include "binned_pq.cuh"
@@ -82,7 +81,7 @@ namespace {
 
 using namespace binned;
 
-constexpr int kSlice = 32;                 // f32-family dims per step
+constexpr int kSlice = 32;                 // default's dims per step
 constexpr int kDbStride = kSlice + 1;      // pad: conflict-free row reads
 constexpr int kRawDb = kBinW * kSlice;     // db values per part per stage
 
@@ -94,8 +93,7 @@ constexpr int kStep = kIsInt<kArm> ? kDimChunk : kSlice;
 template <Arm kArm>
 constexpr size_t kDbStage =
     kIsInt<kArm> ? kBinW * db_row_bytes<kArm>(kDimChunk)   // [128][chunk]
-    : kArm == Arm::kHighest ? kRawDb * sizeof(float)       // t [128][32] f32
-    : kRawDb * sizeof(__nv_bfloat16);                      // th or tl
+                 : kRawDb * sizeof(__nv_bfloat16);         // th
 
 template <Arm kArm>
 constexpr size_t kStageBytes =  // then the query rows [32][step]
@@ -107,54 +105,36 @@ constexpr size_t kComputeBytes =
     kIsInt<kArm> ? sizeof(int) * (kBinW * kIntDbStride + kIntWords * kQStride)
                  : kF32ComputeBytes<kSlice>;
 
-// ... and the running sums of the f32 kernels' multi-chunk build
+// ... and the running sums of the default kernel's multi-chunk build
 // (Dp > 128, sum_chunks)
 template <Arm kArm, bool kMulti>
 constexpr size_t kSmemBytes =
     2 * kStageBytes<kArm> + kComputeBytes<kArm> + (kMulti ? kRunBytes : 0);
 
 // The multi-chunk build holds as many CTAs per SM as the single-chunk one
-// that stream_ctas_per_sm measures: registers bound both (kMinCtas), and
-// kMinCtas CTAs with the running sums still fit an SM's 228 KB of shared
-// memory (1 KB reserved per CTA).
-template <Arm kArm>
-constexpr bool kMultiFits =
-    kMinCtas<kArm> * (kSmemBytes<kArm, true> + 1024) <= 228 * 1024;
-static_assert(kMultiFits<Arm::kHighest> && kMultiFits<Arm::kDefault>,
+// that stream_ctas_per_sm measures: registers bound both (kCudaCoreCtas),
+// and kCudaCoreCtas CTAs with the running sums still fit an SM's 228 KB of
+// shared memory (1 KB reserved per CTA).
+static_assert(kCudaCoreCtas * (kSmemBytes<Arm::kDefault, true> + 1024) <=
+                  228 * 1024,
               "the multi-chunk build would lose occupancy");
 
-// Starts the CUDA-core f32 family's copies of one step: db rows row0 ..
-// row0+127 and query rows q0 .. q0+31, dims k0 .. k0+31.  db0: th bf16
-// (default), t f32 (highest).
-template <Arm kArm>
+// Starts the default arm's copies of one step: th of db rows row0 ..
+// row0+127 and the f32 query rows q0 .. q0+31, dims k0 .. k0+31.
 __device__ __forceinline__ void start_stage(
-    unsigned char* stage, const void* __restrict__ db0,
+    unsigned char* stage, const __nv_bfloat16* __restrict__ th,
     const float* __restrict__ q, size_t row0, int k0, int dp, int q0,
     int n_q, int tid) {
-  if constexpr (kArm == Arm::kHighest) {
-    float* st = reinterpret_cast<float*>(stage);
-    const float* t = static_cast<const float*>(db0);
+  __nv_bfloat16* sth = reinterpret_cast<__nv_bfloat16*>(stage);
 #pragma unroll
-    for (int p = 0; p < (kRawDb / 4) / kThreads; ++p) {
-      const int idx = tid + p * kThreads;
-      const int r = idx / (kSlice / 4);
-      const int seg = idx % (kSlice / 4);
-      cp_async16(st + r * kSlice + seg * 4,
-                 t + (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 4, 16);
-    }
-  } else {
-    __nv_bfloat16* sth = reinterpret_cast<__nv_bfloat16*>(stage);
-    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(db0);
-#pragma unroll
-    for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
-      const int idx = tid + p * kThreads;
-      const int r = idx / (kSlice / 8);
-      const int seg = idx % (kSlice / 8);
-      const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
-      cp_async16(sth + r * kSlice + seg * 8, src + off, 16);
-    }
+  for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
+    const int idx = tid + p * kThreads;
+    const int r = idx / (kSlice / 8);
+    const int seg = idx % (kSlice / 8);
+    const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
+    cp_async16(sth + r * kSlice + seg * 8, th + off, 16);
   }
-  float* sq = reinterpret_cast<float*>(stage + kDbStage<kArm>);
+  float* sq = reinterpret_cast<float*>(stage + kDbStage<Arm::kDefault>);
   const int r = tid / (kSlice / 4);
   const int c4 = tid % (kSlice / 4);
   const bool live = q0 + r < n_q;
@@ -192,64 +172,53 @@ __device__ __forceinline__ void start_stage_int(
   cp_async16(sq + r * kDimChunk + seg * 16, src, live ? 16 : 0);
 }
 
-// Stage -> compute buffers (as the tiled kernels stage from global memory):
-// the staged th upcast to f32 rows, or t converted to f64 rows; the query
-// slice's bf16 part, or the slice converted to f64, k-major.
-template <Arm kArm>
+// Stage -> compute buffers (as the tiled kernel stages from global memory):
+// the staged th upcast to f32 rows; the query slice's bf16 part, k-major.
 __device__ __forceinline__ void convert_stage(
-    const unsigned char* stage, const F32Bufs<kArm, kSlice, kDbStride>& bufs,
+    const unsigned char* stage, const F32Bufs<kSlice, kDbStride>& bufs,
     int tid) {
-  if constexpr (kArm == Arm::kHighest) {
-    const float* st = reinterpret_cast<const float*>(stage);
+  const __nv_bfloat16* sth = reinterpret_cast<const __nv_bfloat16*>(stage);
 #pragma unroll
-    for (int p = 0; p < (kRawDb / 4) / kThreads; ++p) {
-      const int idx = tid + p * kThreads;
-      const int r = idx / (kSlice / 4);
-      const int c4 = idx % (kSlice / 4);
-      put_f32x4(*reinterpret_cast<const float4*>(st + r * kSlice + c4 * 4),
-                static_cast<double*>(bufs.db0) + r * kDbStride + c4 * 4);
-    }
-  } else {
-    const __nv_bfloat16* sth = reinterpret_cast<const __nv_bfloat16*>(stage);
-#pragma unroll
-    for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
-      const int idx = tid + p * kThreads;
-      const int r = idx / (kSlice / 8);
-      const int seg = idx % (kSlice / 8);
-      put_bf16x8(*reinterpret_cast<const uint4*>(sth + r * kSlice + seg * 8),
-                 static_cast<float*>(bufs.db0) + r * kDbStride + seg * 8);
-    }
+  for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
+    const int idx = tid + p * kThreads;
+    const int r = idx / (kSlice / 8);
+    const int seg = idx % (kSlice / 8);
+    put_bf16x8(*reinterpret_cast<const uint4*>(sth + r * kSlice + seg * 8),
+               bufs.db0 + r * kDbStride + seg * 8);
   }
-  const float* sq = reinterpret_cast<const float*>(stage + kDbStage<kArm>);
+  const float* sq =
+      reinterpret_cast<const float*>(stage + kDbStage<Arm::kDefault>);
   const int r = tid / (kSlice / 4);
   const int c4 = tid % (kSlice / 4);
   const float4 v = *reinterpret_cast<const float4*>(sq + r * kSlice + c4 * 4);
   const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    store_query<kArm>(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r);
+    store_query(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r);
 }
 
-template <Arm kArm, bool kFused, bool kMulti, int kSlots>
-__global__ void __launch_bounds__(kThreads, kMinCtas<kArm>)
+// The CUDA-core streaming and fused entries: default (K3) and the int arms
+// (K5, K6).
+template <Arm kArm, bool kFused, bool kMulti, int kRounds>
+__global__ void __launch_bounds__(kThreads, kCudaCoreCtas)
 stream_select_kernel(const void* __restrict__ p0,
                      const void* __restrict__ p1,
                      const void* __restrict__ p2,
                      const float* __restrict__ p3, Out out, int dp,
                      int seg_tiles, int depth) {
-  static_assert(!(kFused && kSlots), "the fused early-out is grouped only");
-  // operands: default / highest (q f32, th bf16 / t f32, unused, tnorm f32
-  // [8, Np] row 0); int8 / int4 (qi int8, qsc f32, t int8 or packed uint8,
-  // aux f32 [2, Np]: row norms, then row scales)
+  static_assert(!(kFused && kRounds), "the fused early-out is grouped only");
+  // operands: default (q f32, th bf16, unused, tnorm f32 [8, Np] row 0);
+  // int8 / int4 (qi int8, qsc f32, t int8 or packed uint8, aux f32 [2,
+  // Np]: row norms, then row scales)
   constexpr int kStepA = kStep<kArm>;
   constexpr size_t kStageA = kStageBytes<kArm>;
   extern __shared__ float4 smem_f4[];
   unsigned char* base = reinterpret_cast<unsigned char*>(smem_f4);
-  // compute buffers after the two stages.  f32 family: db parts at
-  // kDbStride, then query parts k-major (F32Bufs); int: db words at
-  // kIntDbStride, then query words k-major
+  // compute buffers after the two stages.  default: db rows at kDbStride,
+  // then query values k-major (F32Bufs); int: db words at kIntDbStride,
+  // then query words k-major
   void* cbuf = base + 2 * kStageA;
-  const F32Bufs<kArm, kSlice, kDbStride> bufs(cbuf);
+  const F32Bufs<kSlice, kDbStride> bufs(cbuf);
   int* tws = static_cast<int*>(cbuf);
   int* qws = tws + kBinW * kIntDbStride;      // [kIntWords][kQStride]
   // the running sums of the multi-chunk build (sum_chunks), after the
@@ -289,8 +258,8 @@ stream_select_kernel(const void* __restrict__ p0,
                             static_cast<const int8_t*>(p0), row0, k0, dp, q0,
                             n_q, tid);
     else
-      start_stage<kArm>(stage, p1, static_cast<const float*>(p0), row0, k0,
-                        dp, q0, n_q, tid);
+      start_stage(stage, static_cast<const __nv_bfloat16*>(p1),
+                  static_cast<const float*>(p0), row0, k0, dp, q0, n_q, tid);
     k0 += kStepA;
     if (k0 == dp) {
       k0 = 0;
@@ -304,7 +273,7 @@ stream_select_kernel(const void* __restrict__ p0,
   cp_async_commit();
   int buf = 0;
 
-  Emitter<kSlots> em;
+  Emitter<kRounds> em;
   for (int ti = t_begin; ti < t_end; ++ti) {
     em.begin_tile();
     for (int g = 0; g < n_groups; ++g) {
@@ -329,7 +298,7 @@ stream_select_kernel(const void* __restrict__ p0,
           __syncthreads();
           dp4a_chunk(tws, qws, quad, lane_col, sum);
         } else {
-          convert_stage<kArm>(stage, bufs, tid);
+          convert_stage(stage, bufs, tid);
           __syncthreads();
           slice_products(bufs, quad, lane_col, sum);
         }
@@ -342,10 +311,10 @@ stream_select_kernel(const void* __restrict__ p0,
         for (int c0 = 0; c0 < dp; c0 += kStepA) step(iacc);
         rescale(iacc, qs, tscale, row0, lane_col, acc);
       } else {
-        auto chunk = [&](int, auto& sum) {
+        auto chunk = [&](int, Acc& sum) {
           for (int d = 0; d < kDimChunk; d += kStepA) step(sum);
         };
-        sum_chunks<kArm, kMulti>(dp / kDimChunk, run, tid, chunk, acc);
+        sum_chunks<kMulti>(dp / kDimChunk, run, tid, chunk, acc);
       }
       em.group(acc, tnorm, row0, g, ti, out, place);
     }
@@ -359,7 +328,7 @@ stream_select_kernel(const void* __restrict__ p0,
 
 // K7's streaming entry: the tiled walk (binned_pq.cuh, pq_tiles) over the
 // CTA's segment of db tiles.
-template <int kSlots>
+template <int kRounds>
 __global__ void __launch_bounds__(kThreads, 1)
 stream_select_pq_kernel(const float* __restrict__ lut_t,
                         const uint8_t* __restrict__ codes_t,
@@ -372,18 +341,18 @@ stream_select_pq_kernel(const float* __restrict__ lut_t,
   if (t_begin >= t_end) return;
   const Place place{static_cast<int>(blockIdx.y) * kBlockQ, tid / 32,
                     tid % 32};
-  pq_tiles<kSlots>(lut_t, codes_t, tnorm, out, place, m, ncodes, t_begin, t_end,
+  pq_tiles<kRounds>(lut_t, codes_t, tnorm, out, place, m, ncodes, t_begin, t_end,
                   reinterpret_cast<unsigned char*>(smem_f4));
 }
 
-// K10 / K11 and K4's streaming and fused entries: the bf16x3 and bf16x3f
-// arms on tensor cores (binned_mma.cuh) over the CTA's segment of db
-// tiles, K11's skip at each tile's end.
-template <Arm kArm, bool kFused, bool kMulti, int kSlots>
+// K10 / K11 and K4's and K2's streaming and fused entries: the bf16x3,
+// bf16x3f and highest arms on tensor cores (binned_mma.cuh) over the CTA's
+// segment of db tiles, K11's skip at each tile's end.
+template <Arm kArm, bool kFused, bool kMulti, int kRounds>
 __global__ void __launch_bounds__(kThreads, 1)
 stream_select_mma_kernel(const float* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ th,
-                         const __nv_bfloat16* __restrict__ tl,
+                         const void* __restrict__ db0,
+                         const void* __restrict__ db1,
                          const float* __restrict__ tnorm, Out out, int dp,
                          int seg_tiles, int depth) {
   extern __shared__ float4 smem_f4[];
@@ -391,66 +360,67 @@ stream_select_mma_kernel(const float* __restrict__ q,
   const int t_begin = blockIdx.x * seg_tiles;
   const int t_end = min(t_begin + seg_tiles, out.n_tiles);
   if (t_begin >= t_end) return;
-  bf16x3_walk<kArm, kMulti, kSlots, kFused>(
-      q, th, tl, tnorm, out, dp, blockIdx.y * kBlockQ, t_begin, t_end, depth,
-      reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
+  mma_walk<kArm, kMulti, kRounds, kFused>(
+      q, db0, db1, tnorm, out, dp, blockIdx.y * kBlockQ, t_begin, t_end,
+      depth, reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
 }
 
 // The kernel of a build and its dynamic shared memory: the tensor-core
-// kernel of bf16x3 and bf16x3f, or the CUDA-core one of the other f32 and
-// int arms.
-template <Arm kArm, bool kFused, bool kMulti, int kSlots>
+// kernel of bf16x3, bf16x3f and highest, or the CUDA-core one of default
+// and the int arms.
+template <Arm kArm, bool kFused, bool kMulti, int kRounds>
 constexpr auto kernel_of() {
   if constexpr (kUsesMma<kArm>)
-    return stream_select_mma_kernel<kArm, kFused, kMulti, kSlots>;
+    return stream_select_mma_kernel<kArm, kFused, kMulti, kRounds>;
   else
-    return stream_select_kernel<kArm, kFused, kMulti, kSlots>;
+    return stream_select_kernel<kArm, kFused, kMulti, kRounds>;
 }
 
 template <Arm kArm, bool kMulti>
 constexpr size_t smem_of() {
   if constexpr (kUsesMma<kArm>)
-    return kMmaSmemBytes<kMulti>;
+    return kMmaSmemBytes<kArm, kMulti>;
   else
     return kSmemBytes<kArm, kMulti>;
 }
 
 // Lets the kernel take its dynamic shared memory (above the default 48 KB)
 // on the current device.
-template <Arm kArm, bool kFused, bool kMulti, int kSlots>
+template <Arm kArm, bool kFused, bool kMulti, int kRounds>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(kernel_of<kArm, kFused, kMulti, kSlots>(),
+  return cudaFuncSetAttribute(kernel_of<kArm, kFused, kMulti, kRounds>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_of<kArm, kMulti>()));
 }
 
-template <int kSlots>
+template <int kRounds>
 cudaError_t allow_smem_pq(size_t smem) {
-  return cudaFuncSetAttribute(stream_select_pq_kernel<kSlots>,
+  return cudaFuncSetAttribute(stream_select_pq_kernel<kRounds>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-// CTAs per SM of the single-chunk build (kMultiFits: the same for the
-// multi-chunk one); pq's at its shared memory for ncodes codes (m unused).
-template <Arm kArm, bool kFused, int kSlots>
+// CTAs per SM of the single-chunk build (the same for the multi-chunk one:
+// one for the tensor-core arms, the static_assert above for default); pq's
+// at its shared memory for ncodes codes (m unused).
+template <Arm kArm, bool kFused, int kRounds>
 cudaError_t ctas_per_sm(int m, int ncodes, int* out) {
   if constexpr (kArm == Arm::kPq) {
     const size_t smem = pq_smem_bytes(ncodes);
-    cudaError_t err = allow_smem_pq<kSlots>(smem);
+    cudaError_t err = allow_smem_pq<kRounds>(smem);
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, stream_select_pq_kernel<kSlots>, kThreads, smem);
+        out, stream_select_pq_kernel<kRounds>, kThreads, smem);
   } else {
-    cudaError_t err = allow_smem<kArm, kFused, false, kSlots>();
+    cudaError_t err = allow_smem<kArm, kFused, false, kRounds>();
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, kernel_of<kArm, kFused, false, kSlots>(), kThreads,
+        out, kernel_of<kArm, kFused, false, kRounds>(), kThreads,
         smem_of<kArm, false>());
   }
 }
 
-template <Arm kArm, bool kFused, bool kMulti, int kSlots>
+template <Arm kArm, bool kFused, bool kMulti, int kRounds>
 cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
                          const void* p2, const void* p3, const Out& out,
                          int dp, int seg_tiles, int depth, int ncodes,
@@ -458,23 +428,21 @@ cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (kArm == Arm::kPq) {
     const size_t smem = pq_smem_bytes(ncodes);
-    cudaError_t err = allow_smem_pq<kSlots>(smem);
+    cudaError_t err = allow_smem_pq<kRounds>(smem);
     if (err != cudaSuccess) return err;
-    stream_select_pq_kernel<kSlots><<<grid, kThreads, smem, st>>>(
+    stream_select_pq_kernel<kRounds><<<grid, kThreads, smem, st>>>(
         static_cast<const float*>(p0), static_cast<const uint8_t*>(p1),
         static_cast<const float*>(p3), out, dp, ncodes, seg_tiles);
   } else {
-    cudaError_t err = allow_smem<kArm, kFused, kMulti, kSlots>();
+    cudaError_t err = allow_smem<kArm, kFused, kMulti, kRounds>();
     if (err != cudaSuccess) return err;
     if constexpr (kUsesMma<kArm>)
-      stream_select_mma_kernel<kArm, kFused, kMulti, kSlots>
-          <<<grid, kThreads, kMmaSmemBytes<kMulti>, st>>>(
-              static_cast<const float*>(p0),
-              static_cast<const __nv_bfloat16*>(p1),
-              static_cast<const __nv_bfloat16*>(p2),
+      stream_select_mma_kernel<kArm, kFused, kMulti, kRounds>
+          <<<grid, kThreads, kMmaSmemBytes<kArm, kMulti>, st>>>(
+              static_cast<const float*>(p0), p1, p2,
               static_cast<const float*>(p3), out, dp, seg_tiles, depth);
     else
-      stream_select_kernel<kArm, kFused, kMulti, kSlots>
+      stream_select_kernel<kArm, kFused, kMulti, kRounds>
           <<<grid, kThreads, kSmemBytes<kArm, kMulti>, st>>>(
               p0, p1, p2, static_cast<const float*>(p3), out, dp, seg_tiles,
               depth);
@@ -482,17 +450,17 @@ cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
   return cudaGetLastError();
 }
 
-template <Arm kArm, bool kFused, int kSlots>
+template <Arm kArm, bool kFused, int kRounds>
 cudaError_t launch_binning(dim3 grid, const void* p0, const void* p1,
                            const void* p2, const void* p3, const Out& out,
                            int dp, int seg_tiles, int depth, int ncodes,
                            void* stream) {
   if constexpr (!kIsInt<kArm> && kArm != Arm::kPq) {
     if (dp > kDimChunk)
-      return launch_build<kArm, kFused, true, kSlots>(
+      return launch_build<kArm, kFused, true, kRounds>(
           grid, p0, p1, p2, p3, out, dp, seg_tiles, depth, ncodes, stream);
   }
-  return launch_build<kArm, kFused, false, kSlots>(
+  return launch_build<kArm, kFused, false, kRounds>(
       grid, p0, p1, p2, p3, out, dp, seg_tiles, depth, ncodes, stream);
 }
 
@@ -517,25 +485,25 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
     return launch_binning<kArm, true, 0>(grid, p0, p1, p2, p3, out, dp,
                                          seg_tiles, depth, ncodes, stream);
   } else {
-    switch (emit_slots(bin_w, survivors)) {
+    switch (emit_rounds(bin_w, survivors)) {
       case 0:
         return launch_binning<kArm, false, 0>(grid, p0, p1, p2, p3, out, dp,
                                               seg_tiles, 0, ncodes, stream);
-      case kLaneSlotsSmall:
-        return launch_binning<kArm, false, kLaneSlotsSmall>(
+      case kLaneRoundsSmall:
+        return launch_binning<kArm, false, kLaneRoundsSmall>(
             grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
       default:
-        return launch_binning<kArm, false, kLaneSlots>(
+        return launch_binning<kArm, false, kLaneRounds>(
             grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
     }
   }
 }
 
-template <bool kFused, int kSlots>
+template <bool kFused, int kRounds>
 cudaError_t ctas_per_sm_of(int arm, int m, int ncodes, int* out) {
   switch (arm) {
 #define ARM_CASE(ARM) \
-  case static_cast<int>(ARM): return ctas_per_sm<ARM, kFused, kSlots>(m, ncodes, out);
+  case static_cast<int>(ARM): return ctas_per_sm<ARM, kFused, kRounds>(m, ncodes, out);
     ARM_CASE(Arm::kBf16x3)
     ARM_CASE(Arm::kInt8)
     ARM_CASE(Arm::kInt4)
@@ -545,7 +513,7 @@ cudaError_t ctas_per_sm_of(int arm, int m, int ncodes, int* out) {
 #undef ARM_CASE
     case static_cast<int>(Arm::kPq):
       if constexpr (kFused) return cudaErrorInvalidValue;
-      else return ctas_per_sm<Arm::kPq, false, kSlots>(m, ncodes, out);
+      else return ctas_per_sm<Arm::kPq, false, kRounds>(m, ncodes, out);
     default:
       return cudaErrorInvalidValue;
   }
@@ -610,18 +578,18 @@ STREAM_ENTRY(pq, Arm::kPq)
 // tile segments with it.  Returns the cudaError (0 = *out is set).
 extern "C" int stream_ctas_per_sm(int fused, int arm, int bin_w, int survivors,
                                   int m, int ncodes, int* out) {
-  const int slots = emit_slots(bin_w, survivors);
+  const int slots = emit_rounds(bin_w, survivors);
   if (fused)
     return static_cast<int>(slots ? cudaErrorInvalidValue
                                   : ctas_per_sm_of<true, 0>(arm, m, ncodes, out));
   switch (slots) {
     case 0:
       return static_cast<int>(ctas_per_sm_of<false, 0>(arm, m, ncodes, out));
-    case kLaneSlotsSmall:
+    case kLaneRoundsSmall:
       return static_cast<int>(
-          ctas_per_sm_of<false, kLaneSlotsSmall>(arm, m, ncodes, out));
+          ctas_per_sm_of<false, kLaneRoundsSmall>(arm, m, ncodes, out));
     default:
       return static_cast<int>(
-          ctas_per_sm_of<false, kLaneSlots>(arm, m, ncodes, out));
+          ctas_per_sm_of<false, kLaneRounds>(arm, m, ncodes, out));
   }
 }

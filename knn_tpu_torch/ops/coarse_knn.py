@@ -27,12 +27,13 @@ What runs where:
 - The arms' arithmetic (``csrc/binned_select.cuh``): the f32 family sums
   each 128-dim chunk in its own accumulator and adds the chunks in f32,
   the TPU body's order — on the tensor cores (``csrc/binned_mma.cuh``, one
-  mainloop for every bf16x3 and bf16x3f entry; :func:`mma_probe` runs one
-  of its k-steps alone) bf16x3 ``qh.th + (qh.tl + ql.th)`` in two
-  accumulators and bf16x3f the same products in one; default the one
-  bf16 product, highest exact f32 products summed in f64 per chunk; the
-  int arms an exact int32 dot and one f32 rescale ``(f32(dot) * qsc) *
-  ts``, held bitwise against their plain versions; pq
+  mainloop for every bf16x3, bf16x3f and highest entry; :func:`mma_probe`
+  and :func:`dmma_probe` run one of its k-steps alone) bf16x3 ``qh.th +
+  (qh.tl + ql.th)`` in two accumulators, bf16x3f the same products in
+  one, highest the exact products of the f32 values summed in f64 per
+  chunk on the FP64 tensor cores; on CUDA cores default the one bf16
+  product; the int arms an exact int32 dot and one f32 rescale ``(f32(dot)
+  * qsc) * ts``, held bitwise against their plain versions; pq
   (``csrc/binned_pq.cuh``) the sum of the row's LUT entries, one subspace
   after another in f32 (bitwise its plain version too).  Every wrapper
   takes the arm as ``arm`` and checks that the operands are that arm's
@@ -103,6 +104,12 @@ MMA_K = 16
 #: plus the accumulator, aligned to the largest and truncated to 24 bits,
 #: each block's sum normalised by truncation: 2 blocks x (2 x 9 + 2) u
 MMA_KAPPA = 40
+#: products of one FP64 tensor-core k-step of the highest kernels (mma
+#: m16n8k8); the header's model of such a step: every f64 add rounds to
+#: nearest, in any order, so it errs by at most DMMA_K 2^-53 (|acc| + sum |p|)
+DMMA_K = 8
+#: f64 unit roundoff
+U64 = 2.0 ** -53
 #: the bf16 split's error in s per unit of (||q||^2 + M): q.t - (qh.th +
 #: qh.tl + ql.th) <= 3 2^-16 (1 + 2^-7) |q.t| per dim, doubled in s,
 #: sum |q_i t_i| <= (||q||^2 + M) / 2
@@ -126,8 +133,9 @@ def accumulation_coefficient(arm: str, nd: int) -> float:
     - bf16x3f (K4 on tensor cores): per chunk 24 k-steps (8 of each
       product) into one accumulator, 24 MMA_KAPPA u P_c, and the nd - 1
       chunk adds;
-    - highest (K2): exact products in f64 per chunk, one rounding to f32
-      per chunk, the chunk adds."""
+    - highest (K2 on the FP64 tensor cores): exact products summed in f64
+      per chunk, 16 k-steps of DMMA_K (the header's step model: <= 128
+      2^-53 P_c a chunk), one rounding to f32 per chunk, the chunk adds."""
     if arm == "bf16x3":
         return (DIM_CHUNK // MMA_K * MMA_KAPPA + nd) * (1 + 2.0 ** -7)
     if arm == "bf16x3f":
@@ -1311,6 +1319,125 @@ def mma_rounding_probe(device) -> dict:
                 np.array_equal(d, mma_step_model(c64, p, 16))),
             "round_to_nearest": bool(
                 np.array_equal(d, exact.astype(np.float32))),
+        }
+    return out
+
+
+def dmma_step_model(c: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """One realization of the header's model of an FP64 tensor-core k-step
+    of the highest kernels (csrc/binned_mma.cuh): ``c`` [...]
+    accumulators, ``p`` [..., k] exact products, added to the accumulator
+    one by one in k order, each add rounded to nearest in f64.  Returns
+    the new accumulators."""
+    acc = np.array(c, dtype=np.float64)
+    p = np.asarray(p, dtype=np.float64)
+    for k in range(p.shape[-1]):
+        acc = acc + p[..., k]
+    return acc
+
+
+def dmma_probe(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """One FP64 k-step of the highest kernels' tensor-core product on its
+    own: ``d = c + a @ b.T`` for ``a`` [16, 8], ``b`` [8, 8] and ``c`` [16,
+    8], all float64 — the probe of the step model highest's bound rests
+    on.  On a CUDA tensor it launches the C entry ``dmma_probe_f64``
+    (``csrc/binned_coarse.cu``: one warp, one ``mma.sync`` m16n8k8 f64), or
+    raises; on a CPU tensor it runs :func:`dmma_step_model`.
+    ``dmma_probe.launches`` counts launches."""
+    if (a.dtype != torch.float64 or tuple(a.shape) != (16, DMMA_K)
+            or b.dtype != torch.float64 or tuple(b.shape) != (8, DMMA_K)
+            or c.dtype != torch.float64 or tuple(c.shape) != (16, 8)):
+        raise ValueError("dmma_probe takes a [16, 8], b [8, 8], c [16, 8] "
+                         "float64")
+    a, b, c = (t.contiguous() for t in (a, b, c))
+    if a.device.type == "cpu":
+        p = a.numpy()[:, None, :] * b.numpy()[None, :, :]
+        return torch.from_numpy(dmma_step_model(c.numpy(), p))
+    if a.device.type != "cuda":
+        raise ValueError(f"dmma_probe runs on cuda or cpu, not {a.device}")
+    d = torch.empty_like(c)
+    fn = _cuda.load("binned_coarse").dmma_probe_f64
+    fn.argtypes = [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dmma_probe_f64 launch failed: cudaError {rc}")
+    dmma_probe.launches += 1
+    return d
+
+
+dmma_probe.launches = 0
+
+
+def _dmma_probe_cases():
+    """Operands (a, b, c) of highest's rounding probe, by name: every row
+    of ``a`` holds the same products (``b`` is all ones, so they are
+    exact), added to an accumulator of 1 — half-ulp ties (one, and eight
+    that a round-to-nearest chain drops one by one), products far below
+    the accumulator, cancellation after a tie and of the accumulator
+    itself — and random f32 values, whose f64 products are exact as the
+    kernels' are."""
+    ones_b = np.ones((8, DMMA_K))
+    acc1 = np.ones((16, 8))
+
+    def rows(*vals):
+        return np.tile(np.array(vals + (0.0,) * (DMMA_K - len(vals))), (16, 1))
+
+    tie = U64                      # half an ulp of 1.0
+    cases = {
+        "half_ulp_tie": (rows(tie), ones_b, acc1),
+        "eight_half_ulp_ties": (rows(*[tie] * DMMA_K), ones_b, acc1),
+        "far_below_the_accumulator": (rows(*[2.0 ** -60] * DMMA_K), ones_b,
+                                      acc1),
+        "cancellation_after_a_tie": (rows(3 * tie, -1.0), ones_b, acc1),
+        "cancellation_of_the_accumulator": (
+            rows(-1.0, 2.0 ** -30, 2.0 ** -60, -(2.0 ** -31), 2.0 ** -80),
+            ones_b, acc1),
+    }
+    rng = np.random.default_rng(53)
+    f32 = np.float32
+    cases["random"] = (rng.normal(size=(16, DMMA_K)).astype(f32).astype(float),
+                       rng.normal(size=(8, DMMA_K)).astype(f32).astype(float),
+                       (rng.normal(size=(16, 8)) * 4).astype(f32).astype(float))
+    return cases
+
+
+def dmma_rounding_probe(device) -> dict:
+    """Runs :func:`dmma_probe` on the probe's cases on ``device`` and
+    compares each output with the exact sum (``fractions.Fraction``): the
+    largest error over the model's bound ``DMMA_K 2^-53 (|c| + sum |p|)``
+    (must stay <= 1 for highest's proof to hold), the largest error in
+    units of 2^-53 (|c| + sum |p|) (an ulp of the addends' magnitude, at
+    most DMMA_K under the model), and whether the outputs are the exact sum
+    rounded once to nearest, or the model's chain in k order
+    (:func:`dmma_step_model`)."""
+    from fractions import Fraction
+
+    out = {}
+    for name, (a, b, c) in _dmma_probe_cases().items():
+        d = dmma_probe(*(torch.from_numpy(x).to(device) for x in (a, b, c)))
+        d = d.cpu().numpy()
+        p = a[:, None, :] * b[None, :, :]
+        ratio = ulps = 0.0
+        once = True
+        for r in range(16):
+            for n in range(8):
+                exact = Fraction(c[r, n]) + sum(
+                    Fraction(a[r, k]) * Fraction(b[n, k])
+                    for k in range(DMMA_K))
+                err = abs(Fraction(d[r, n]) - exact)
+                bound = DMMA_K * Fraction(U64) * (
+                    abs(Fraction(c[r, n]))
+                    + sum(abs(Fraction(x)) for x in p[r, n]))
+                ratio = max(ratio, float(err / bound))
+                ulps = max(ulps, float(err / (bound / DMMA_K)))
+                once = once and d[r, n] == float(exact)
+        out[name] = {
+            "max_error_over_bound": ratio, "max_err_units": ulps,
+            "round_to_nearest_once": bool(once),
+            "chain_in_k_order": bool(np.array_equal(d, dmma_step_model(c, p))),
         }
     return out
 

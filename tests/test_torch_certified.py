@@ -473,3 +473,131 @@ def test_kernel_plain_tolerance_is_the_proved_sum(arm, terms, nd):
     plain = (terms + nd) * (1 + 2.0 ** -7)
     want = (ck.accumulation_coefficient(arm, nd) + plain + 4) * ck.U32
     assert ck.kernel_plain_tolerance_scale(arm, nd) == want
+
+
+# --- K2 (highest) on the FP64 tensor cores: 16 m16n8k8 steps a chunk into
+# one f64 accumulator (csrc/binned_mma.cuh), the step model the card's probe
+# checks, and the tolerances that stand on it
+
+def _k2_dmma_chunked_sums(q, t, reverse=False):
+    """K2's qt as the FP64 tensor-core walk sums it: per 128-dim chunk, 16
+    k-steps of ck.DMMA_K products in dim order (step s takes dims 8s ..
+    8s+7), each step's products added to the f64 accumulator in the step
+    model (in dim order, or reversed: the model allows any order), the
+    chunk rounded once to f32, the chunks added in f32.  Returns qt as f32
+    values in float64."""
+    q64, t64 = q.astype(np.float64), t.astype(np.float64)
+    total = None
+    for c in range(0, q.shape[1], ck.DIM_CHUNK):
+        acc = np.zeros((q.shape[0], t.shape[0]))
+        for k0 in range(c, c + ck.DIM_CHUNK, ck.DMMA_K):
+            p = q64[:, None, k0:k0 + ck.DMMA_K] * t64[None, :, k0:k0 + ck.DMMA_K]
+            acc = ck.dmma_step_model(acc, p[..., ::-1] if reverse else p)
+        chunk = acc.astype(np.float32)
+        total = chunk if total is None else total + chunk
+    return total.astype(np.float64)
+
+
+def _exact_dot(q, t):
+    """The exact q.t and P = sum |q_i t_i| of every (query, row) pair, as
+    Fractions."""
+    from fractions import Fraction
+
+    qf = [[Fraction(float(x)) for x in row] for row in q]
+    tf = [[Fraction(float(x)) for x in row] for row in t]
+    exact = [[sum(a * b for a, b in zip(qr, tr)) for tr in tf] for qr in qf]
+    p_sum = [[sum(abs(a * b) for a, b in zip(qr, tr)) for tr in tf]
+             for qr in qf]
+    return exact, p_sum
+
+
+@pytest.mark.parametrize("dim", [128, 896])
+@pytest.mark.parametrize("data", ["all_positive", "cancelling"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_dmma_replay_stays_inside_its_coefficient(dim, data, reverse):
+    # the numpy replay of K2's chunk sums in the walk's k-order errs by no
+    # more than accumulation_coefficient("highest") u P of the exact dot
+    # (Fractions), on all-positive values (every partial sum grows) and on
+    # cancelling ones (rows near the negated query: |q.t| << P)
+    from fractions import Fraction
+
+    rng = np.random.default_rng(dim + len(data))
+    if data == "all_positive":
+        q = rng.uniform(1.0, 2.0, size=(3, dim)).astype(np.float32)
+        t = rng.uniform(1.0, 2.0, size=(5, dim)).astype(np.float32)
+    else:
+        q = rng.normal(size=(3, dim)).astype(np.float32)
+        t = np.concatenate([
+            -q + rng.normal(size=(3, dim)).astype(np.float32) * 1e-3,
+            rng.normal(size=(2, dim)).astype(np.float32)]).astype(np.float32)
+    nd = dim // ck.DIM_CHUNK
+    got = _k2_dmma_chunked_sums(q, t, reverse)
+    exact, p_sum = _exact_dot(q, t)
+    coef = Fraction(ck.accumulation_coefficient("highest", nd))
+    worst = 0.0
+    for i in range(q.shape[0]):
+        for j in range(t.shape[0]):
+            err = abs(Fraction(float(got[i, j])) - exact[i][j])
+            assert err <= coef * Fraction(ck.U32) * p_sum[i][j]
+            worst = max(worst, float(err / p_sum[i][j]))
+    if data == "all_positive":
+        assert worst > 0  # the f32 roundings are there
+
+
+def test_k2_dmma_step_model_bound_and_the_probe_cases():
+    # one step: DMMA_K 2^-53 (|c| + sum |p|) on random exact products, and
+    # the probe's constructed cases replayed on the CPU inside the model
+    rng = np.random.default_rng(53)
+    c = rng.normal(size=(64, 32)) * 100
+    a = rng.normal(size=(64, 32, ck.DMMA_K)).astype(np.float32)
+    b = rng.normal(size=(64, 32, ck.DMMA_K)).astype(np.float32)
+    p = a.astype(np.float64) * b
+    got = ck.dmma_step_model(c, p)
+    exact = c + p.sum(-1)
+    assert (np.abs(got - exact)
+            <= ck.DMMA_K * ck.U64 * (np.abs(c) + np.abs(p).sum(-1))).all()
+    report = ck.dmma_rounding_probe("cpu")
+    assert set(report) == {"half_ulp_tie", "eight_half_ulp_ties",
+                           "far_below_the_accumulator",
+                           "cancellation_after_a_tie",
+                           "cancellation_of_the_accumulator", "random"}
+    for name, r in report.items():
+        assert r["max_error_over_bound"] <= 1.0, (name, r)
+        assert r["chain_in_k_order"], name  # the CPU runs the model's chain
+    # eight ties each rounded away by a chain reach the bound: the model is
+    # tight for a round-to-nearest chain
+    assert report["eight_half_ulp_ties"]["max_error_over_bound"] > 0.99
+
+
+def test_dmma_probe_refuses_other_operands():
+    a = torch.zeros((16, ck.DMMA_K), dtype=torch.float64)
+    b = torch.zeros((8, ck.DMMA_K), dtype=torch.float64)
+    c = torch.zeros((16, 8), dtype=torch.float64)
+    before = ck.dmma_probe.launches
+    assert torch.equal(ck.dmma_probe(a, b, c), c)
+    assert ck.dmma_probe.launches == before  # the CPU runs the model
+    with pytest.raises(ValueError, match="float64"):
+        ck.dmma_probe(a.float(), b, c)
+    with pytest.raises(ValueError, match="float64"):
+        ck.dmma_probe(a, b[:4], c)
+
+
+@pytest.mark.parametrize("nd", [1, 7])
+def test_highest_tolerances_stand_on_the_dmma_model(nd):
+    # the FP64 tensor cores keep highest's proof: its summation coefficient,
+    # its kernel-vs-plain tolerance and its certificate (the reference's
+    # 32 eps_f32 (||q||^2 + M)) are what they were on CUDA cores
+    u = ck.U32
+    assert ck.accumulation_coefficient("highest", nd) == nd * (1 + 2.0 ** -20)
+    assert ck.kernel_plain_tolerance_scale("highest", nd) == (2 * nd + 4) * u
+    # a chunk's 16 steps err by <= 128 2^-53 P_c: 2^-22 of its f32 rounding
+    assert 16 * ck.DMMA_K * ck.U64 <= 2.0 ** -22 * u
+    rng = np.random.default_rng(nd)
+    q = rng.normal(size=(5, 128 * nd)).astype(np.float32)
+    db = rng.normal(size=(40, 128 * nd)).astype(np.float32)
+    scale = ((q.astype(np.float64) ** 2).sum(-1)
+             + (db.astype(np.float64) ** 2).sum(-1).max())
+    eps = float(np.finfo(np.float32).eps)
+    np.testing.assert_allclose(
+        ck.kernel_tolerance(q, db, precision="highest"), 32 * eps * scale,
+        rtol=1e-12)

@@ -442,17 +442,15 @@ def test_cuda_bf16x3f_fault18_case_inside_its_tolerance(cuda_device, entry,
     _fault18_case(cuda_device, "bf16x3f", entry, dim)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dim,tile_n", [(24, 256), (300, 256), (128, 16384)])
-def test_cuda_bf16x3f_entries_are_bitwise_alike(cuda_device, dim, tile_n):
-    # K4 runs one tensor-core walk for every entry: tiled in both grids,
-    # streaming and fused (disarmed) give the same bits, every lane score is
-    # the grouped score of its row, and the kernel stays within the proved
-    # kernel-vs-plain tolerance
+def _tensor_core_entries_alike(device, arm, dim, tile_n):
+    """The tensor-core walk of ``arm`` serves every entry: tiled in both
+    grids, streaming and fused (disarmed) give the same bits, every lane
+    score is the grouped score of its row, and the kernel stays within the
+    proved kernel-vs-plain tolerance."""
     rng = np.random.default_rng(dim + 17)
     q, db = _data(rng, 45, 3 * tile_n // 2 + 60, dim)
-    ops = _f32_operands(cuda_device, "bf16x3f", q, db, tile_n)
-    ka = {"tile_n": tile_n, "arm": "bf16x3f"}
+    ops = _f32_operands(device, arm, q, db, tile_n)
+    ka = {"tile_n": tile_n, "arm": arm}
     tiled = ck.binned_select(*ops, **ka)
     for other in (ck.binned_select(*ops, **ka, grid_order="db_major"),
                   ck.stream_select(*ops, **ka),
@@ -463,7 +461,7 @@ def test_cuda_bf16x3f_entries_are_bitwise_alike(cuda_device, dim, tile_n):
     for fn in (ck.binned_select, ck.stream_select):
         lane = fn(*ops, **ka, binning="lane", survivors=8)
         g = torch.full((tiled[0].shape[0], n_rows + 1), torch.nan,
-                       device=cuda_device)
+                       device=device)
         g.scatter_(1, tiled[1].long().clamp(max=n_rows), tiled[0])
         li = lane[1].long().clamp(max=n_rows)
         got = torch.gather(g, 1, li)
@@ -472,9 +470,39 @@ def test_cuda_bf16x3f_entries_are_bitwise_alike(cuda_device, dim, tile_n):
         assert torch.equal(lane[0][both], got[both])
     plain = [a.cpu().numpy() for a in ck.binned_select_plain(*ops, **ka)]
     tiled = [a.cpu().numpy() for a in tiled]
-    tol = _tol(q, db, "bf16x3f", kernel=True)
+    tol = _tol(q, db, arm, kernel=True)
     _assert_scores(tiled[0], plain[0], tol)
     _assert_scores(tiled[2], plain[2], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,tile_n", [(24, 256), (300, 256), (128, 16384)])
+def test_cuda_bf16x3f_entries_are_bitwise_alike(cuda_device, dim, tile_n):
+    # K4 runs one tensor-core walk for every entry
+    _tensor_core_entries_alike(cuda_device, "bf16x3f", dim, tile_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,tile_n", [(24, 256), (300, 256), (128, 16384),
+                                        (896, 256)])
+def test_cuda_highest_entries_are_bitwise_alike(cuda_device, dim, tile_n):
+    # K2 runs one FP64 tensor-core walk for every entry, one k-order: tiled
+    # in both grids, streaming, fused and the lane builds give the same
+    # bits, within (2 nd + 4) u of the plain version
+    _tensor_core_entries_alike(cuda_device, "highest", dim, tile_n)
+
+
+@pytest.mark.cuda
+def test_cuda_dmma_step_rounding_inside_the_header_model(cuda_device):
+    # one FP64 tensor-core k-step on constructed operands (half-ulp ties,
+    # products far below the accumulator, cancellation, random): every
+    # output within DMMA_K 2^-53 (|c| + sum |p|) of the exact sum, the
+    # model highest's tolerance is proved from
+    before = ck.dmma_probe.launches
+    report = ck.dmma_rounding_probe(cuda_device)
+    assert ck.dmma_probe.launches == before + len(report)
+    for name, r in report.items():
+        assert r["max_error_over_bound"] <= 1.0, (name, r)
 
 
 @pytest.mark.cuda
@@ -546,11 +574,14 @@ def _lane_operands(device, arm, tile_n, seed, dim=24):
 
 
 LANE_ARMS = ["bf16x3", *F32_ARMS, "int8", "int4", "pq"]
+#: every survivor count, every bin width of a 512-row tile
+LANE_GEOMETRIES = [(1, 128), (2, 128), (2, 256), (3, 512), (4, 128),
+                   (5, 256), (6, 512), (7, 128), (8, 256), (8, 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arm", LANE_ARMS)
-@pytest.mark.parametrize("survivors,bin_w", [(2, 128), (8, 256)])
+@pytest.mark.parametrize("survivors,bin_w", LANE_GEOMETRIES)
 def test_cuda_lane_kernels_match_plain(cuda_device, arm, survivors, bin_w):
     tile_n = 512
     args, tol = _lane_operands(cuda_device, arm, tile_n, survivors + bin_w)
@@ -601,6 +632,34 @@ def test_cuda_lane_kernels_match_plain_at_three_dim_chunks(cuda_device, arm):
             _assert_scores(got[2], plain[2], tol)
             _assert_lane_ci_separated(plain[0], got[1], plain[1], plain[2],
                                       geo, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", LANE_ARMS)
+@pytest.mark.parametrize("survivors,bin_w", LANE_GEOMETRIES)
+def test_cuda_lane_scores_are_the_grouped_scores_at_every_geometry(
+        cuda_device, arm, survivors, bin_w):
+    # every score a lane entry emits is bitwise the grouped entry's score of
+    # the same row, for the tiled (both grids) and streaming entries
+    tile_n = 512
+    args, _ = _lane_operands(cuda_device, arm, tile_n, survivors + bin_w)
+    n_rows = args[-1].shape[1]
+    kw = {"tile_n": tile_n, "arm": arm}
+    for fn, extra in ((ck.binned_select, {}),
+                      (ck.binned_select, {"grid_order": "db_major"}),
+                      (ck.stream_select, {})):
+        lane = fn(*args, **kw, **extra, binning="lane", bin_w=bin_w,
+                  survivors=survivors)
+        grouped = fn(*args, **kw, **extra)
+        g = torch.full((grouped[0].shape[0], n_rows + 1), torch.nan,
+                       device=cuda_device)
+        g.scatter_(1, grouped[1].long().clamp(max=n_rows), grouped[0])
+        li = lane[1].long().clamp(max=n_rows)
+        got = torch.gather(g, 1, li)
+        both = (li < n_rows) & ~torch.isnan(got)
+        assert bool(both.any())
+        assert torch.equal(lane[0][both].view(torch.int32),
+                           got[both].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -168,6 +168,149 @@ def test_lane_ties_go_to_the_lower_row_and_differ_from_grouped():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+# --- K8's warp merge (csrc/binned_select.cuh, Emitter) replayed on the host
+
+_TAKEN = np.uint32(0xFFFFFFFF)
+_KEY_INF = np.uint32(0xFF800000)
+
+
+def _order_key(x):
+    """binned_select.cuh order_key: f32 -> uint32 in the floats' order, -0
+    as +0, NaN as taken."""
+    b = x.view(np.uint32)
+    k = np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+    k = np.where(b == 0x80000000, np.uint32(0x80000000), k)
+    return np.where((b & 0x7FFFFFFF) > 0x7F800000, _TAKEN, k).astype(np.uint32)
+
+
+def _key_value(key, packed):
+    """binned_select.cuh key_value: a (key, packed row) pair's score."""
+    bits = np.where(key & 0x80000000, key & 0x7FFFFFFF, ~key).astype(np.uint32)
+    v = np.where(packed & 1, np.float32(-0.0), bits.view(np.float32))
+    return np.where(key >= _KEY_INF, np.float32(np.inf), v).astype(np.float32)
+
+
+def _lane_merge_replay(s, tile_n, geo):
+    """The lane emitter's warp merge on scores ``s [Q, T*tile_n]`` f32, step
+    for step: per query row and 128-row group, lane l holds rows g*128 + l +
+    32 j; the bin's running list is one (key, packed row) pair a lane;
+    surv + 1 rounds each take the warp's smallest key, then its smallest
+    packed row among the lanes that hold that key (redux.sync); the owner
+    drops it, lane r keeps round r's pair; lanes 0 .. surv-1 write the
+    survivors, lane surv the bound.  Returns (cd, ci, bounds) in the
+    geometry's layout."""
+    n_bins, surv, out_w, bound_w = geo
+    n_q = s.shape[0]
+    n_tiles = s.shape[1] // tile_n
+    groups = tile_n // 128
+    bin_groups = groups // n_bins
+    lane = np.arange(32)
+    cd = np.full((n_q, n_tiles * out_w), np.inf, np.float32)
+    ci = np.full((n_q, n_tiles * out_w), np.iinfo(np.int32).max, np.int32)
+    bounds = np.full((n_q, n_tiles * bound_w), np.inf, np.float32)
+    for ti in range(n_tiles):
+        rk = np.full((n_q, 32), _TAKEN)
+        rp = np.full((n_q, 32), _TAKEN)
+        for g in range(groups):
+            sc = s[:, ti * tile_n + g * 128:ti * tile_n + (g + 1) * 128]
+            sc = sc.reshape(n_q, 4, 32).transpose(0, 2, 1)  # [Q, lane, j]
+            key = _order_key(np.ascontiguousarray(sc))
+            row = (g * 128 + lane[:, None] + 32 * np.arange(4)[None, :])
+            pk = ((row.astype(np.uint32) << 1)[None]
+                  | (sc.view(np.uint32) == 0x80000000)).astype(np.uint32)
+            nk = np.full((n_q, 32), _TAKEN)
+            np_ = np.full((n_q, 32), _TAKEN)
+            for r in range(surv + 1):
+                bk, bp = rk.copy(), rp.copy()
+                for j in range(4):
+                    less = key[:, :, j] < bk
+                    bk = np.where(less, key[:, :, j], bk)
+                    bp = np.where(less, pk[:, :, j], bp)
+                mk = bk.min(1, keepdims=True)
+                mp = np.where(bk == mk, bp, _TAKEN).min(1, keepdims=True)
+                rk = np.where(rp == mp, _TAKEN, rk)
+                key = np.where(pk == mp[:, :, None], _TAKEN, key)
+                nk[:, r] = mk[:, 0]
+                np_[:, r] = mp[:, 0]
+            rk, rp = nk, np_
+            if (g + 1) % bin_groups == 0:
+                b = g // bin_groups
+                v = _key_value(rk[:, :surv + 1], rp[:, :surv + 1])
+                for r in range(surv):
+                    col = ti * out_w + r * n_bins + b
+                    cd[:, col] = v[:, r]
+                    ci[:, col] = np.where(np.isfinite(v[:, r]),
+                                          ti * tile_n + (rp[:, r] >> 1),
+                                          np.iinfo(np.int32).max)
+                bounds[:, ti * bound_w + b] = v[:, surv]
+                rk = np.full((n_q, 32), _TAKEN)
+                rp = np.full((n_q, 32), _TAKEN)
+    return cd, ci, bounds
+
+
+def _hard_scores(rng, n_q, n):
+    """Scores with exact ties across lanes, groups and bins, both zeros,
+    +-inf and runs of +inf that leave bins with fewer finite rows than
+    survivors."""
+    s = rng.integers(-6, 7, size=(n_q, n)).astype(np.float32)
+    s[:, ::7] = 0.0
+    s[:, 3::11] = -0.0
+    s[:, 5::13] = np.inf
+    s[:, 9::29] = -np.inf
+    s[0, :300] = np.inf             # a query whose first bins are all +inf
+    s[1, 128:256] = -0.0            # a bin of -0 ties
+    s[2, :] = 0.0                   # every score a tie
+    s[2, 40] = -0.0
+    s[3, :512] = 5.0                # -0 ahead of +0 in one bin's minimum
+    s[3, 0] = -0.0
+    s[3, 1] = 0.0
+    return s
+
+
+@pytest.mark.parametrize("survivors", range(1, 9))
+@pytest.mark.parametrize("bin_w", [128, 256, 512])
+def test_warp_merge_replay_is_the_plain_lane_emitter(survivors, bin_w):
+    # the redux.sync merge on (order key, packed row) pairs selects what the
+    # plain lane emitter (repeated min / first-argmin) selects: the same
+    # rows, values equal, the same bounds, +inf / INT32_MAX padding; and the
+    # value it writes is bitwise the selected row's score (the sign of a
+    # zero carried by the packed row)
+    tile_n, n_tiles = 512, 2
+    rng = np.random.default_rng(survivors * 1000 + bin_w)
+    s = _hard_scores(rng, 6, n_tiles * tile_n)
+    geo = ck._geometry(tile_n, bin_w, survivors, "lane")
+    got = _lane_merge_replay(s, tile_n, geo)
+    st = torch.from_numpy(s)
+    ref = [a.numpy() for a in ck._select_tiles(
+        lambda ti, rows: st[:, rows], n_tiles, tile_n, geo)]
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[0], ref[0])    # -0 == +0 here
+    np.testing.assert_array_equal(got[2], ref[2])
+    real = got[1] != np.iinfo(np.int32).max
+    picked = np.take_along_axis(s, np.where(real, got[1], 0), 1)
+    np.testing.assert_array_equal(got[0][real].view(np.uint32),
+                                  picked[real].view(np.uint32))
+    assert not np.isfinite(got[0][~real]).any()
+    assert (got[0][3, 0].view(np.uint32) == 0x80000000
+            and got[1][3, 0] == 0)             # -0, row 0, won the tie
+
+
+def test_order_key_orders_like_the_floats():
+    vals = np.array([-np.inf, -3.5, -1e-30, -0.0, 0.0, 1e-45, 2.0, 3e38,
+                     np.inf], np.float32)
+    keys = _order_key(vals)
+    assert (np.diff(keys.astype(np.int64)) >= 0).all()
+    assert keys[3] == keys[4]                        # -0 with +0
+    assert (np.diff(keys.astype(np.int64))[[0, 1, 2, 4, 5, 6, 7]] > 0).all()
+    assert keys[-1] == _KEY_INF
+    assert _order_key(np.array([np.nan, -np.nan], np.float32)).tolist() == [
+        0xFFFFFFFF, 0xFFFFFFFF]
+    packed = np.zeros(len(vals), np.uint32)
+    packed[3] = 1
+    np.testing.assert_array_equal(_key_value(keys, packed).view(np.uint32),
+                                  vals.view(np.uint32))
+
+
 # --- knobs -------------------------------------------------------------------
 
 
