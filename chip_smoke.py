@@ -8,10 +8,11 @@ exits non-zero and prints no result):
 
 1. device  — the card's name, ``nvidia-smi`` name and power limit, versions;
 2. build   — builds every CUDA kernel of the port from ``knn_tpu_torch/csrc``
-             with nvcc (one process per source, all at once); every bf16x3
-             and bf16x3f build must hold bf16 tensor-core (HMMA)
-             instructions and every highest build FP64 tensor-core (DMMA)
-             ones;
+             with nvcc (one process per source, all at once); every
+             bf16x3, bf16x3f and default build must hold bf16 tensor-core
+             (HMMA) instructions, every highest build FP64 tensor-core
+             (DMMA) ones and every int8 and int4 build s8 tensor-core
+             (IMMA) ones;
 3. kernel  — K1 (the fused bf16x3 binned-select kernel) and K10 (the
              db-streaming kernel) against their plain PyTorch version on
              the card: dim 24 with ragged rows, dim 300 (three dim chunks),
@@ -60,13 +61,15 @@ exits non-zero and prints no result):
 6. f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
              (K3): each of their nine entries (tiled, streaming, fused)
              against its plain version within coarse_knn.
-             kernel_plain_tolerance_scale (||q||^2 + max||t||^2) (bf16x3f:
-             the proved sum of its tensor-core summation's bound and the
-             plain version's; highest: (2 nd + 4) 2^-24, nd = Dp / 128;
-             default 128 2^-24), ci equal on separated slots, on
+             kernel_plain_tolerance_scale (||q||^2 + max||t||^2) (bf16x3f
+             and default: the proved sum of the tensor-core summation's
+             bound and the plain version's; highest: (2 nd + 4) 2^-24, nd
+             = Dp / 128), ci equal on separated slots, on
              the ``kernel`` phase's small cases, the far-tile case (the
              fused entries must skip) and at the ``main`` shape (the fused
-             entries also at the pipelined run's geometry); every
+             entries also at the pipelined run's geometry), K3's error
+             over that tolerance and over the 128 2^-24 it replaced (Dp =
+             128 and 896, all-positive and normal data); every
              streaming entry bitwise its tiled entry and the db-major tiled
              entry (K9) bitwise the query-major one, as the ``stream`` and
              ``quant`` phases check for the other three arms; the tiled,
@@ -499,6 +502,51 @@ def header_bound_ratio(dev, arm, kernel, n_q=64, n=512, dim=896):
                              0.0).max())
 
 
+def default_plain_ratio(dev, dim, data, n_q=64, n=2048):
+    """K3's tiled, streaming and fused (disarmed) entries against their
+    plain version at Dp = round_up(dim, 128): the largest |s_kernel -
+    s_plain| over every row's score, per unit of the proved tolerance
+    (coarse_knn.kernel_plain_tolerance_scale("default", nd) (||q||^2 + M))
+    and of the 128 u (||q||^2 + M) the port allowed before it was proved.
+    ``data`` "all_positive" (q, t in [1, 2): every partial sum grows, the
+    chains' worst shape) or "normal".  With ``tile_n = 128`` every tile is
+    one group, so every row's score is survivor 0 of its bin, in both."""
+    import torch
+
+    from knn_tpu_torch.ops import coarse_knn as ck
+
+    rng = np.random.default_rng(dim + len(data))
+    draw = ((lambda shape: rng.uniform(1.0, 2.0, size=shape))
+            if data == "all_positive" else
+            (lambda shape: rng.normal(size=shape) * 10))
+    q = torch.from_numpy(draw((n_q, dim)).astype(np.float32)).to(dev)
+    db = torch.from_numpy(draw((n, dim)).astype(np.float32)).to(dev)
+    qp = ck.pad_queries(q)
+    parts = ck.prepare_db_arm(db, ck.BIN_W, "default")
+    ka = {"tile_n": ck.BIN_W, "arm": "default"}
+    plain = ck.binned_select_plain(qp, *parts, **ka)
+    q64 = q.double()
+    scale = (q64 * q64).sum(-1) + float((db.double() ** 2).sum(-1).max())
+    nd = qp.shape[1] // ck.DIM_CHUNK
+    out = {"dim": dim, "data": data}
+    for kern, fn, kw in (("tiled", ck.binned_select, {}),
+                         ("streaming", ck.stream_select, {}),
+                         ("fused", ck.fused_select, {"keep": None})):
+        cd, ci, _ = fn(qp, *parts, **ka, **kw)
+        if not torch.equal(ci, plain[1]):
+            raise AssertionError(f"K3 {kern} at Dp={qp.shape[1]}: rows differ")
+        real = ci < n
+        err = torch.where(real, (cd.double() - plain[0].double()).abs(),
+                          0.0).amax(-1) / scale
+        out[kern] = {
+            "error_over_tolerance": float(err.max()) / ck.
+            kernel_plain_tolerance_scale("default", nd),
+            "error_over_128u": float(err.max()) / (128 * U32)}
+        if out[kern]["error_over_tolerance"] > 1.0:
+            raise AssertionError(f"K3 {kern} past its proved tolerance: {out}")
+    return out
+
+
 def pq_bound_ratio(dev, kernel, n_q=64, n=1024, m=196, dsub=4, ncodes=256):
     """The largest |s_kernel - s_ref| / bound over every real row for K7's
     ``kernel`` entry at ``m`` subspaces (196: 784 dims), on rows that are
@@ -891,11 +939,11 @@ def profile_search(knn, q_np, **knobs) -> dict:
 
 def tensor_core_counts(paths):
     """Tensor-core instructions in each kernel of the built libraries, by
-    library, kernel and kind: HMMA / HGMMA (bf16) and DMMA (f64) lines of
-    ``cuobjdump -sass`` where the toolkit has it, else the mma / wgmma
-    instructions of the sources' PTX (``nvcc -ptx``; ``.f64`` ones count
-    as DMMA).  Returns (tool, {library: {kernel: {"HMMA": n, "DMMA":
-    n}}})."""
+    library, kernel and kind: HMMA / HGMMA (bf16), DMMA (f64) and IMMA /
+    IGMMA (s8) lines of ``cuobjdump -sass`` where the toolkit has it, else
+    the mma / wgmma instructions of the sources' PTX (``nvcc -ptx``; those
+    ending ``.f64`` count as DMMA, ``.s32`` as IMMA).  Returns (tool,
+    {library: {kernel: {"HMMA": n, "DMMA": n, "IMMA": n}}})."""
     from pathlib import Path
 
     from knn_tpu_torch.ops import _cuda
@@ -904,13 +952,15 @@ def tensor_core_counts(paths):
     # cuobjdump sits beside nvcc in the toolkit
     tool = Path(_cuda._nvcc()).parent / "cuobjdump"
     tool = str(tool) if tool.exists() else None
+    kinds = {"H": "HMMA", "D": "DMMA", "I": "IMMA", None: "HMMA",
+             ".f64": "DMMA", ".s32": "IMMA"}
     for name, path in paths.items():
         per = counts.setdefault(name, {})
         if tool:
             text = subprocess.run([tool, "-sass", str(path)],
                                   capture_output=True, text=True,
                                   check=True).stdout
-            pattern, head = r"\b(H|D)G?MMA\b", r"Function : (\S+)"
+            pattern, head = r"\b(H|D|I)G?MMA\b", r"Function : (\S+)"
         else:
             with tempfile.TemporaryDirectory() as tmp:
                 ptx = f"{tmp}/{name}.ptx"
@@ -918,19 +968,18 @@ def tensor_core_counts(paths):
                                 "-o", ptx, str(_cuda.SOURCES[name])],
                                check=True, capture_output=True)
                 text = open(ptx).read()
-            pattern, head = (r"\b(?:w?gmma|mma\.sync)\S*?(\.f64)?\s",
+            pattern, head = (r"\b(?:w?gmma|mma\.sync)\S*?(\.f64|\.s32)?\s",
                              r"\.entry (\S+)\(")
         current = None
         for line in text.splitlines():
             m = re.search(head, line)
             if m:
                 current = m.group(1)
-                per.setdefault(current, {"HMMA": 0, "DMMA": 0})
+                per.setdefault(current, {"HMMA": 0, "DMMA": 0, "IMMA": 0})
             elif current:
                 hit = re.search(pattern, line)
                 if hit:
-                    kind = "DMMA" if hit.group(1) in ("D", ".f64") else "HMMA"
-                    per[current][kind] += 1
+                    per[current][kinds[hit.group(1)]] += 1
     return ("cuobjdump -sass" if tool else "nvcc -ptx"), counts
 
 
@@ -1055,15 +1104,15 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths = _cuda.build()
         build_s = time.perf_counter() - t0
-        # the bf16x3 and bf16x3f entries' kernels (K1 and K4 in either
-        # grid, K10, K11 and K4's streaming and fused entries, their lane
-        # builds, Dp = 128 and Dp > 128 builds) must run on the bf16 tensor
-        # cores (HMMA), highest's (K2, every entry and build) on the FP64
-        # ones (DMMA); every other kernel runs on CUDA cores.  A build's arm
-        # is its kernel template's first argument (binned::Arm, mangled
-        # "ArmE<code>E")
+        # every entry's kernel but pq's (every arm's tiled entry in either
+        # grid, streaming and fused entries, lane builds, Dp = 128 and Dp >
+        # 128 builds) must run on its tensor cores: bf16x3, bf16x3f and
+        # default on the bf16 ones (HMMA), highest on the FP64 ones (DMMA),
+        # int8 and int4 on the s8 ones (IMMA).  A build's arm is its kernel
+        # template's first argument (binned::Arm, mangled "ArmE<code>E")
         tc_tool, tc = tensor_core_counts(paths)
-        unit = {"bf16x3": "HMMA", "bf16x3f": "HMMA", "highest": "DMMA"}
+        unit = {"bf16x3": "HMMA", "bf16x3f": "HMMA", "default": "HMMA",
+                "highest": "DMMA", "int8": "IMMA", "int4": "IMMA"}
         mma_tc = {arm: {} for arm in unit}
         for lib, fns in tc.items():
             for fn, n in fns.items():
@@ -1078,9 +1127,9 @@ def main(argv=None) -> int:
                     f"{builds}")
         emit({"phase": "build", "seconds": round(build_s, 3),
               "tensor_core_tool": tc_tool,
-              "bf16x3_tensor_core_instructions": mma_tc["bf16x3"],
-              "bf16x3f_tensor_core_instructions": mma_tc["bf16x3f"],
-              "highest_fp64_tensor_core_instructions": mma_tc["highest"],
+              "tensor_core_instructions": {
+                  f"{arm} ({unit[arm]})": builds
+                  for arm, builds in mma_tc.items()},
               "other_kernels_tensor_core_instructions": sum(
                   sum(n.values()) for lib, fns in tc.items()
                   for fn, n in fns.items()
@@ -1614,7 +1663,14 @@ def main(argv=None) -> int:
                                                 tiled[0], plain[0], tol_q),
                   checks[f"tiled_{arm}"].values(f"tiled_{arm}@main bounds",
                                                 tiled[2], plain[2], tol_q))
+        real = (plain[0] < PAD_SCALE) & torch.isfinite(plain[0])
+        ratio = float((torch.where(real, (tiled[0] - plain[0]).abs(), 0.0)
+                       .amax(-1) / tol_q).max())
+        nd = S["qp"].shape[1] // ck.DIM_CHUNK
         out = {"seg_tiles": seg, "keep": keep, "max_abs_err": err,
+               "error_over_tolerance": ratio,
+               "error_over_128u": ratio * ck.kernel_plain_tolerance_scale(
+                   arm, nd) / (128 * U32),
                "ci_separated_checked": check_ci(f"tiled_{arm}@main", tiled,
                                                 plain, tol_q, n_tiles)}
         del plain
@@ -1688,8 +1744,14 @@ def main(argv=None) -> int:
         if max(header.values()) > 1.0:
             raise AssertionError(
                 f"score error past the header's bound at Dp = 896: {header}")
+        # K3 against its plain version per unit of its proved tolerance and
+        # of the unproved 128 u it replaced, at Dp = 128 and 896
+        k3_ratio = [default_plain_ratio(dev, dim, data)
+                    for dim in (128, 896)
+                    for data in ("all_positive", "normal")]
         emit({"phase": "f32arms_kernels", "cases": cases, "far_tile": far,
-              "dp896_error_over_header_bound": header})
+              "dp896_error_over_header_bound": header,
+              "default_kernel_vs_plain": k3_ratio})
 
         out = {"phase": "f32arms"}
         for arm in new_arms:

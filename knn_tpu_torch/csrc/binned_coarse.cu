@@ -29,23 +29,16 @@
 //   bounds [n_q, n_tiles*128] f32  column ti*128 + b
 //
 // Design.  One CTA per (query block of 32 rows, db tile).  The CTA walks the
-// tile's tile_n/128 column groups in ascending order.  bf16x3 (K1), bf16x3f
-// (K4) and highest (K2) run binned_mma.cuh's mainloop: each group's chunks
-// on the tensor cores (bf16, or FP64 for highest) through a cp.async ring,
-// its scores through a shared-memory tile into the emitter; pq (K7) runs
-// binned_pq.cuh's walk.  The other arms stage slices of the group's 128 db
-// rows and of the query block in shared memory and multiply them on CUDA
-// cores: default 64-dim slices (th upcast to f32 and the query rounded to
-// bf16 in-kernel), each 128-dim chunk summed in its own accumulator (chunk
-// 0 in the score's own, later ones added into a running sum kept in shared
-// memory), then added into the score; the int arms one 128-dim chunk as
-// 32-bit words of 4 int8 dims (int4 unpacked on the way in), accumulated in
-// int32 with __dp4a, then rescaled once.  Each of the
-// 256 threads owns a 4-query x 4-lane register tile; after the group's last
-// chunk it forms s and runs the insertion network for its 16 (query, lane)
-// bins in registers.  The [32, tile_n] score tile never exists anywhere.
-// The per-score arithmetic lives in binned_select.cuh, shared with the
-// streaming kernels (binned_stream.cu).
+// tile's tile_n/128 column groups in ascending order.  Every arm but pq runs
+// binned_mma.cuh's mainloop: each group's 128-dim chunks on the tensor
+// cores -- bf16 for bf16x3 (K1), bf16x3f (K4) and default (K3), FP64 for
+// highest (K2), s8 for int8 (K5) and int4 (K6) -- through a cp.async ring,
+// the group's scores through a shared-memory tile into the emitter, which
+// runs the insertion network (or the lane merge) for each thread's 16
+// (query, lane) bins in registers; pq (K7) runs binned_pq.cuh's walk.  The
+// [32, tile_n] score tile never exists anywhere.  The per-score arithmetic
+// is the mainloop's and binned_select.cuh's, shared with the streaming
+// kernels (binned_stream.cu).
 //
 // Grid order (K9).  The query-major grid is (n_tiles, query blocks):
 // consecutive CTAs take consecutive db tiles for one query block.  The
@@ -56,19 +49,16 @@
 // y extent caps the query blocks (query-major) or the tiles (db-major) at
 // 65,535.
 //
-// What bounds it on this card: operations.  bf16x3 and bf16x3f are 3 bf16
-// products of 2*Q*Np*Dp FLOPs, default one, against ~1.2 GB of HBM traffic
-// at the SIFT1M shape (Q=4096); highest is one f64 product of the f32
-// values (the FP64 tensor cores' 67 TFLOP/s; 3xTF32 would not keep its
-// proof, binned_mma.cuh); int8 is one int8 product (Q*Np*Dp MACs) against
-// ~0.8 GB (int4 ~0.7 GB).  All sit far above the H100's ridge points.
-// bf16x3, bf16x3f and highest run on the tensor cores (binned_mma.cuh: a
-// 32-query CTA reads the db rows once per query block, so the L2 traffic,
-// not the products, limits them); default and the int arms on CUDA cores
-// (f32 FMA pipes at 67 TFLOP/s, __dp4a for the int arms), an order of
-// magnitude above their bounds; their tensor-core forms (one bf16 MMA, s8
-// MMA) are later work.  pq's bound is its shared-memory lookups
-// (binned_pq.cuh).
+// What bounds it on this card: the L2 reads of the db rows (binned_mma.cuh).
+// By operations and HBM bytes alone every arm sits far above the H100's
+// ridge points: bf16x3 and bf16x3f are 3 bf16 products of 2*Q*Np*Dp FLOPs,
+// default one, against ~1.2 GB of HBM traffic at the SIFT1M shape
+// (Q=4096); highest is one f64 product of the f32 values (the FP64 tensor
+// cores' 67 TFLOP/s; 3xTF32 would not keep its proof, binned_mma.cuh);
+// int8 is one int8 product (Q*Np*Dp MACs) against ~0.8 GB (int4 ~0.7 GB).
+// But a 32-query CTA reads the db rows once per query block, so Q/32
+// passes over the db go through L2 and set the time of every tensor-core
+// arm.  pq's bound is its shared-memory lookups (binned_pq.cuh).
 
 #include "binned_mma.cuh"
 #include "binned_pq.cuh"
@@ -77,171 +67,29 @@ namespace {
 
 using namespace binned;
 
-constexpr int kDimSlice = 64;    // dims staged per shared-memory pass
-constexpr int kDbStride = kDimSlice + 1;   // pad: conflict-free row reads
-
-constexpr size_t kComputeBytes = kF32ComputeBytes<kDimSlice>;   // 42,496 B
-// dynamic shared memory of the single-chunk (Dp = 128) and the multi-chunk
-// builds of the CUDA-core default kernel: the multi-chunk one adds the
-// running sums
-template <bool kMulti>
-constexpr size_t kSmemBytes = kComputeBytes + (kMulti ? kRunBytes : 0);
 constexpr int kMaxGridY = 65535;
 
-// Stages dims k0 .. k0+63 of db rows row0 .. row0+127 and of query rows
-// q0 .. q0+31 into the compute buffers: th upcast to f32, 8 bf16 per
-// 16-byte load; the query's bf16 part k-major for 16-byte reads, rows past
-// n_q as zeros.
-__device__ __forceinline__ void stage_slice(
-    const F32Bufs<kDimSlice, kDbStride>& bufs, const float* __restrict__ q,
-    const __nv_bfloat16* __restrict__ th, size_t row0, int k0, int dp, int q0,
-    int n_q, int tid) {
-#pragma unroll
-  for (int p = 0; p < (kBinW * kDimSlice / 8) / kThreads; ++p) {
-    const int idx = tid + p * kThreads;
-    const int r = idx / (kDimSlice / 8);
-    const int seg = idx % (kDimSlice / 8);
-    const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
-    put_bf16x8(*reinterpret_cast<const uint4*>(th + off),
-               bufs.db0 + r * kDbStride + seg * 8);
-  }
-#pragma unroll
-  for (int p = 0; p < (kBlockQ * kDimSlice / 4) / kThreads; ++p) {
-    const int idx = tid + p * kThreads;
-    const int r = idx / (kDimSlice / 4);
-    const int c4 = idx % (kDimSlice / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < n_q)
-      v = *reinterpret_cast<const float4*>(
-          q + static_cast<size_t>(q0 + r) * dp + k0 + c4 * 4);
-    const float xs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      store_query(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r);
-  }
-}
-
-// K3: the default arm on CUDA cores.  kMulti: the build for Dp > 128
-// (sum_chunks).
-template <bool kMulti, int kRounds>
-__global__ void __launch_bounds__(kThreads, kCudaCoreCtas)
-binned_select_f32_kernel(const float* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ th,
-                         const float* __restrict__ tnorm, Out out, int dp,
-                         int db_major) {
-  extern __shared__ float4 smem_f4[];
-  const F32Bufs<kDimSlice, kDbStride> bufs(smem_f4);
-  // the multi-chunk build's running sums, after the compute buffers
-  float* run = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(smem_f4) + kComputeBytes);
-
-  const int tid = threadIdx.x;
-  const int lane_col = tid % 32;              // lanes lane_col + 32*j
-  const int quad = tid / 32;                  // queries quad*4 + i
-  const int ti = db_major ? blockIdx.y : blockIdx.x;
-  const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
-  const int n_q = out.n_q;
-  const int n_groups = out.tile_n / kBinW;
-  const size_t tile_row0 = static_cast<size_t>(ti) * out.tile_n;
-  const Place place{q0, quad, lane_col};
-
-  Emitter<kRounds> em;
-  em.begin_tile();
-
-  for (int g = 0; g < n_groups; ++g) {
-    const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
-    // the products of chunk c, summed into ``sum``
-    auto chunk = [&](int c, Acc& sum) {
-      for (int k0 = c * kDimChunk; k0 < (c + 1) * kDimChunk;
-           k0 += kDimSlice) {
-        __syncthreads();  // previous slice fully consumed
-        stage_slice(bufs, q, th, row0, k0, dp, q0, n_q, tid);
-        __syncthreads();
-        slice_products(bufs, quad, lane_col, sum);
-      }
-    };
-    Acc acc;
-    sum_chunks<kMulti>(dp / kDimChunk, run, tid, chunk, acc);
-    em.group(acc, tnorm, row0, g, ti, out, place);
-  }
-  em.end_tile(ti, out, place, false);
-}
-
-// K1, K4 and K2: the bf16x3, bf16x3f and highest arms on tensor cores
+// K1, K4, K2, K3, K5 and K6: every arm but pq on the tensor cores
 // (binned_mma.cuh), one db tile per CTA.  kMulti: the build for Dp > 128
 // (the query's chunk staged per step).
-template <Arm kArm, bool kMulti, int kRounds>
+template <Arm kArm, bool kMulti, int kDepth>
 __global__ void __launch_bounds__(kThreads, 1)
-binned_select_mma_kernel(const float* __restrict__ q,
-                         const void* __restrict__ db0,
-                         const void* __restrict__ db1,
-                         const float* __restrict__ tnorm, Out out, int dp,
+binned_select_mma_kernel(const void* __restrict__ p0,
+                         const void* __restrict__ p1,
+                         const void* __restrict__ p2,
+                         const float* __restrict__ p3, Out out, int dp,
                          int db_major) {
   extern __shared__ float4 smem_f4[];
   __shared__ int warp_ok[kThreads / 32];
   const int ti = db_major ? blockIdx.y : blockIdx.x;
   const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
-  mma_walk<kArm, kMulti, kRounds, false>(
-      q, db0, db1, tnorm, out, dp, q0, ti, ti + 1, 0,
+  mma_walk<kArm, kMulti, kDepth, false>(
+      p0, p1, p2, p3, out, dp, q0, ti, ti + 1, 0,
       reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
 }
 
-// K5 / K6: the same walk over groups, one 128-dim int8 chunk per pass.
-constexpr size_t kIntSmemInts =
-    kBinW * kIntDbStride + kIntWords * kQStride;  // 21.5 KB, static
-
-template <Arm kArm, int kRounds>
-__global__ void __launch_bounds__(kThreads, kCudaCoreCtas)
-binned_select_int_kernel(const int8_t* __restrict__ qi,
-                         const float* __restrict__ qsc,
-                         const uint8_t* __restrict__ t,
-                         const float* __restrict__ aux, Out out, int dp,
-                         int db_major) {
-  __shared__ __align__(16) int smem[kIntSmemInts];
-  int* tws = smem;                                // [128][kIntDbStride]
-  int* qws = smem + kBinW * kIntDbStride;         // [kIntWords][kQStride]
-
-  const int tid = threadIdx.x;
-  const int lane_col = tid % 32;              // lanes lane_col + 32*j
-  const int quad = tid / 32;                  // queries quad*4 + i
-  const int ti = db_major ? blockIdx.y : blockIdx.x;
-  const int q0 = (db_major ? blockIdx.x : blockIdx.y) * kBlockQ;
-  const int n_q = out.n_q;
-  const int n_groups = out.tile_n / kBinW;
-  const size_t tile_row0 = static_cast<size_t>(ti) * out.tile_n;
-  const size_t row_bytes = db_row_bytes<kArm>(dp);
-  // aux: row norms [Np], then row scales [Np]
-  const float* tnorm = aux;
-  const float* tscale = aux + static_cast<size_t>(out.n_tiles) * out.tile_n;
-  const Place place{q0, quad, lane_col};
-
-  float qs[kQuadQ];
-  load_qsc(qsc, q0, quad, n_q, qs);
-  Emitter<kRounds> em;
-  em.begin_tile();
-
-  for (int g = 0; g < n_groups; ++g) {
-    const size_t row0 = tile_row0 + static_cast<size_t>(g) * kBinW;
-    IAcc iacc;
-    zero_iacc(iacc);
-    for (int c0 = 0; c0 < dp; c0 += kDimChunk) {
-      __syncthreads();  // previous chunk fully consumed
-      stage_db_words<kArm>(t + row0 * row_bytes + db_row_bytes<kArm>(c0),
-                           row_bytes, tws, tid);
-      stage_q_words(qi + static_cast<size_t>(q0) * dp + c0, dp, n_q - q0,
-                    qws, tid);
-      __syncthreads();
-      dp4a_chunk(tws, qws, quad, lane_col, iacc);
-    }
-    Acc acc;
-    rescale(iacc, qs, tscale, row0, lane_col, acc);
-    em.group(acc, tnorm, row0, g, ti, out, place);
-  }
-  em.end_tile(ti, out, place, false);
-}
-
 // K7: one db tile per CTA (binned_pq.cuh, pq_tiles).
-template <int kRounds>
+template <int kDepth>
 __global__ void __launch_bounds__(kThreads, 1)
 binned_select_pq_kernel(const float* __restrict__ lut_t,
                         const uint8_t* __restrict__ codes_t,
@@ -253,7 +101,7 @@ binned_select_pq_kernel(const float* __restrict__ lut_t,
   const Place place{static_cast<int>(db_major ? blockIdx.x : blockIdx.y) *
                         kBlockQ,
                     tid / 32, tid % 32};
-  pq_tiles<kRounds>(lut_t, codes_t, tnorm, out, place, m, ncodes, ti, ti + 1,
+  pq_tiles<kDepth>(lut_t, codes_t, tnorm, out, place, m, ncodes, ti, ti + 1,
                   reinterpret_cast<unsigned char*>(smem_f4));
 }
 
@@ -265,60 +113,42 @@ bool grid_of(int n_q, int n_tiles, int db_major, dim3* grid) {
   return static_cast<int>(grid->y) <= kMaxGridY;
 }
 
-template <Arm kArm, bool kMulti, int kRounds>
-cudaError_t launch_f32(dim3 grid, const void* p0, const void* p1,
+template <Arm kArm, bool kMulti, int kDepth>
+cudaError_t launch_mma(dim3 grid, const void* p0, const void* p1,
                        const void* p2, const void* p3, const Out& out, int dp,
                        int db_major, cudaStream_t stream) {
-  if constexpr (kUsesMma<kArm>) {
-    constexpr size_t smem = kMmaSmemBytes<kArm, kMulti>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        binned_select_mma_kernel<kArm, kMulti, kRounds>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    binned_select_mma_kernel<kArm, kMulti, kRounds>
-        <<<grid, kThreads, smem, stream>>>(static_cast<const float*>(p0), p1,
-                                           p2, static_cast<const float*>(p3),
-                                           out, dp, db_major);
-  } else {
-    const cudaError_t err = cudaFuncSetAttribute(
-        binned_select_f32_kernel<kMulti, kRounds>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes<kMulti>));
-    if (err != cudaSuccess) return err;
-    binned_select_f32_kernel<kMulti, kRounds>
-        <<<grid, kThreads, kSmemBytes<kMulti>, stream>>>(
-            static_cast<const float*>(p0),
-            static_cast<const __nv_bfloat16*>(p1),
-            static_cast<const float*>(p3), out, dp, db_major);
-  }
+  constexpr size_t smem = kMmaSmemBytes<kArm, kMulti>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      binned_select_mma_kernel<kArm, kMulti, kDepth>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  binned_select_mma_kernel<kArm, kMulti, kDepth>
+      <<<grid, kThreads, smem, stream>>>(p0, p1, p2,
+                                         static_cast<const float*>(p3), out,
+                                         dp, db_major);
   return cudaGetLastError();
 }
 
-template <Arm kArm, int kRounds>
+template <Arm kArm, int kDepth>
 cudaError_t launch_arm(dim3 grid, const void* p0, const void* p1,
                        const void* p2, const void* p3, const Out& out, int dp,
                        int db_major, int ncodes, cudaStream_t stream) {
   if constexpr (kArm == Arm::kPq) {
     // dp = m, the code bytes per row
-    const size_t smem = pq_smem_bytes(ncodes);
+    const size_t smem = pq_smem_bytes(ncodes, kDepth);
     const cudaError_t err = cudaFuncSetAttribute(
-        binned_select_pq_kernel<kRounds>,
+        binned_select_pq_kernel<kDepth>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    binned_select_pq_kernel<kRounds><<<grid, kThreads, smem, stream>>>(
+    binned_select_pq_kernel<kDepth><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(p0), static_cast<const uint8_t*>(p1),
         static_cast<const float*>(p3), out, dp, ncodes, db_major);
-  } else if constexpr (kIsInt<kArm>) {
-    binned_select_int_kernel<kArm, kRounds><<<grid, kThreads, 0, stream>>>(
-        static_cast<const int8_t*>(p0), static_cast<const float*>(p1),
-        static_cast<const uint8_t*>(p2), static_cast<const float*>(p3), out,
-        dp, db_major);
   } else {
     return dp > kDimChunk
-               ? launch_f32<kArm, true, kRounds>(grid, p0, p1, p2, p3, out, dp,
-                                               db_major, stream)
-               : launch_f32<kArm, false, kRounds>(grid, p0, p1, p2, p3, out, dp,
-                                                db_major, stream);
+               ? launch_mma<kArm, true, kDepth>(grid, p0, p1, p2, p3, out, dp,
+                                                db_major, stream)
+               : launch_mma<kArm, false, kDepth>(grid, p0, p1, p2, p3, out,
+                                                 dp, db_major, stream);
   }
   return cudaGetLastError();
 }
@@ -338,15 +168,15 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
   if (kArm == Arm::kPq ? (dp < 1 || ncodes < 2 || ncodes > 256)
                        : dp % kDimChunk != 0)
     return cudaErrorInvalidValue;
-  switch (emit_rounds(bin_w, survivors)) {
+  switch (emit_depth(bin_w, survivors)) {
     case 0:
       return launch_arm<kArm, 0>(grid, p0, p1, p2, p3, out, dp, db_major,
                                  ncodes, stream);
-    case kLaneRoundsSmall:
-      return launch_arm<kArm, kLaneRoundsSmall>(grid, p0, p1, p2, p3, out, dp,
+    case kLaneDepthSmall:
+      return launch_arm<kArm, kLaneDepthSmall>(grid, p0, p1, p2, p3, out, dp,
                                                db_major, ncodes, stream);
     default:
-      return launch_arm<kArm, kLaneRounds>(grid, p0, p1, p2, p3, out, dp,
+      return launch_arm<kArm, kLaneDepth>(grid, p0, p1, p2, p3, out, dp,
                                           db_major, ncodes, stream);
   }
 }

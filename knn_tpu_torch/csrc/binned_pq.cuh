@@ -51,7 +51,7 @@
 //     to the score tile S [32][1,025] f32 (row stride 1,025: lane q's
 //     column writes fall in 32 different banks), and after one barrier the
 //     emitters read S group by group in their own thread layout (queries
-//     quad*4 + i, lanes lane_col + 32 j) into Emitter<kRounds>::group,
+//     quad*4 + i, lanes lane_col + 32 j) into Emitter<kDepth>::group,
 //     unchanged: grouped ties and the lane merge as in every other arm, a lane
 //     score the grouped score of its row by construction.
 //
@@ -69,8 +69,9 @@
 //     HBM: >= 39 ms at 3.35 TB/s;
 //   - codes bytes per lookup: 1 / 32 (1,024 rows x 1 B per 32,768 lookups);
 //   - per CTA: 131,200 B of score tile + 2 x (128 C + 1,024) B of stages =
-//     198,784 B of shared memory at C = 256; 128 accumulator registers a
-//     thread beside the emitter's state (80 grouped, 8 lane), 254-255
+//     198,784 B of shared memory at C = 256 (lane builds add the lane
+//     emitter's 16,896-B score tile); 128 accumulator registers a
+//     thread beside the emitter's state (80 grouped, 6-18 lane), 254-255
 //     registers in all: one CTA per SM.
 // On an H100 SXM (700 W) at that shape the walk takes ~38 ms in the
 // query-major grid, bound by its issue (four instructions a lookup, one
@@ -102,9 +103,11 @@ __host__ __device__ inline size_t pq_stage_bytes(int ncodes) {
   return sizeof(float) * kBlockQ * ncodes + kPqRows;
 }
 
-// Dynamic shared memory of a pq CTA: the score tile, then two stages.
-__host__ __device__ inline size_t pq_smem_bytes(int ncodes) {
-  return kPqScoreBytes + 2 * pq_stage_bytes(ncodes);
+// Dynamic shared memory of a pq CTA: the score tile, two stages, then (lane
+// binning, depth > 0) the lane emitter's tile.
+__host__ __device__ inline size_t pq_smem_bytes(int ncodes, int depth) {
+  return kPqScoreBytes + 2 * pq_stage_bytes(ncodes) +
+         (depth ? kScoreTileBytes : 0);
 }
 
 // Starts the copies of one step: subspace s's LUT slice of query block qb
@@ -152,7 +155,7 @@ __device__ __forceinline__ void pq_lookups(const unsigned char* stage,
 // The pq arm over db tiles [t_begin, t_end) for the query block at p.q0:
 // lut_t [n_blocks, m, ncodes, 32] f32, codes_t [m, n_tiles*tile_n] uint8,
 // tnorm [n_tiles*tile_n] f32.
-template <int kRounds>
+template <int kDepth>
 __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
                                          const uint8_t* __restrict__ codes_t,
                                          const float* __restrict__ tnorm,
@@ -193,7 +196,8 @@ __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
   cp_async_commit();
   int buf = 0;
 
-  Emitter<kRounds> em;
+  // lane binning: its tile after the stages
+  Emitter<kDepth> em(reinterpret_cast<float*>(stages + 2 * stage_bytes));
   for (int ti = t_begin; ti < t_end; ++ti) {
     em.begin_tile();
     for (int b = 0; b < n_blocks; ++b) {
@@ -224,15 +228,17 @@ __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
       }
       __syncthreads();
       for (int gg = 0; gg < rows / kBinW; ++gg) {
+        float tn[kQuadL];
+        load_group_rows(tnorm, rows0 + static_cast<size_t>(gg) * kBinW,
+                        p.lane_col, tn);
         Acc a;
 #pragma unroll
         for (int i = 0; i < kQuadQ; ++i)
 #pragma unroll
           for (int j = 0; j < kQuadL; ++j)
-            a[i][j] = S[(p.quad * kQuadQ + i) * kPqStride + gg * kBinW +
-                        p.lane_col + 32 * j];
-        em.group(a, tnorm, rows0 + static_cast<size_t>(gg) * kBinW,
-                 b * kGroups + gg, ti, o, p);
+            a[i][j] = tn[j] - 2.0f * S[(p.quad * kQuadQ + i) * kPqStride +
+                                       gg * kBinW + p.lane_col + 32 * j];
+        em.group(a, b * kGroups + gg, ti, o, p);
       }
     }
     em.end_tile(ti, o, p, false);

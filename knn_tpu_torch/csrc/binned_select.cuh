@@ -1,48 +1,45 @@
-// Device code shared by the binned-select kernels for Hopper (sm_90a): the
-// tiled entries of every arm (binned_coarse.cu, one CTA per query block and
-// db tile) and the streaming / fused entries of every arm (binned_stream.cu,
-// one CTA per query block walking a run of db tiles): the per-score
-// arithmetic of the CUDA-core arms (this part), both emitters (grouped and
-// lane binning, K8), and K11's carry and skip, below.  The bf16x3 (K1, K10,
-// K11) and bf16x3f (K4) arms run on the bf16 tensor cores and highest (K2)
-// on the FP64 tensor cores (binned_mma.cuh); the pq arm's walk (K7) is
-// binned_pq.cuh.
+// Device code shared by every coarse kernel for Hopper (sm_90a): the tiled
+// entries of every arm (binned_coarse.cu, one CTA per query block and db
+// tile) and the streaming / fused entries of every arm (binned_stream.cu,
+// one CTA per query block walking a run of db tiles): the arms' codes and
+// thread layout and score tile, the int arms' nibble unpacking, both emitters
+// (grouped and lane binning, K8), and K11's carry and skip, below.  Every
+// arm but pq computes its scores on the tensor cores in one mainloop
+// (binned_mma.cuh): bf16x3 (K1, K10, K11), bf16x3f (K4) and default (K3)
+// on the bf16 ones, highest (K2) on the FP64 ones, int8 (K5) and int4 (K6)
+// on the s8 ones; the pq arm's walk (K7) is binned_pq.cuh.
 //
 // Every kernel of one arm computes each score with the same arithmetic, in
 // the same order, so the tiled, streaming and fused outputs of the arm are
 // bitwise equal.  Per 128-dim chunk c of the padded dims (nd = Dp / 128
 // chunks), the f32-family arms sum the chunk's products into a chunk
-// accumulator `cacc` zeroed at the chunk's start, and add the chunk into
-// the score's running f32 sum `acc` at its end (acc = 0 + c_0 + c_1 + ...):
-// the order of the TPU body, which adds each chunk's dot into its f32
-// scratch (knn_tpu/ops/pallas_knn.py:493-503).  The f32 sums of chunk 0
-// go straight into `acc`, and from chunk 1 on `acc` waits in shared memory
-// (sum_chunks, in the kernels' multi-chunk build): one accumulator tile is
-// in registers at a time.
+// accumulator zeroed at the chunk's start, and add the chunk into the
+// score's running f32 sum at its end (acc = 0 + c_0 + c_1 + ...): the
+// order of the TPU body, which adds each chunk's dot into its f32 scratch
+// (knn_tpu/ops/pallas_knn.py:493-503).
 //
 //   bf16x3 (K1, K10, K11): qh.th + (qh.tl + ql.th) per chunk on tensor
-//     cores, chunks added in f32 (binned_mma.cuh)
+//     cores, chunks added in f32
 //   bf16x3f (K4): qh.th, qh.tl, ql.th of every k-step into one tensor-core
 //     accumulator per chunk (the TPU's one dot over the 3x contraction
 //     [qh|qh|ql].[th|tl|th], pallas_knn.py:407-414), chunks added in f32
-//     (binned_mma.cuh)
 //   highest (K2): q*t of the f32 values summed in f64 on the FP64 tensor
 //     cores (mma m16n8k8), rounded once to f32 at the chunk's end, chunks
-//     added in f32 (binned_mma.cuh)
-//   default (K3): the TPU's one bf16 pass, cacc += bf16_rn(q)*th (th is
-//     bf16_rn(t)), f32 accumulation                          (fma_pair)
-//   int8 (K5) / int4 (K6):
-//     iacc += qi . ti in int32, 4 dims per __dp4a            (dp4a_chunk)
-//       (int4 rows are unpacked to int8 words first:         (unpack_int4)
-//        (b & 0xF) - 8 and (b >> 4) - 8)
-//     acc = (f32_rn(iacc) * qsc) * ts, each product rounded  (rescale)
+//     added in f32
+//   default (K3): the TPU's one bf16 pass, qh.th (qh = bf16_rn(q), th =
+//     bf16_rn(t)) in one tensor-core accumulator per chunk, 8 k-steps,
+//     chunks added in f32
+//   int8 (K5) / int4 (K6): qi . ti on the s8 tensor cores (mma m16n8k32)
+//     into one int32 sum over every chunk (int4 rows are unpacked to int8
+//     first, (b & 0xF) - 8 and (b >> 4) - 8: unpack_int4), then
+//     acc = (f32_rn(dot) * qsc) * ts, each product rounded (binned_mma.cuh)
 //   then s = tnorm[t] - 2*acc and the emitter: the strict-`<` insertion
 //   network that keeps 2 survivors + the bin bound (grouped), or the lane
 //   merge (K8)
 //
-// The int dot is exact (|qi.ti| <= 127^2 * dp fits int32 far past any real
-// dim), so the one f32 rounding is the rescale's, in the TPU kernel's order
-// (knn_tpu/ops/pallas_knn.py:475-476).
+// The int dot is exact (|qi.ti| <= 128^2 dp fits int32 far past any
+// real dim), so the one f32 rounding is the rescale's, in the TPU kernel's
+// order (knn_tpu/ops/pallas_knn.py:475-476).
 //
 // Worst-case rounding of the f32-family scores, u = 2^-24, P = sum_i |q_i
 // t_i| <= ||q|| ||t|| <= (||q||^2 + M) / 2 with M = max ||t||^2:
@@ -85,19 +82,25 @@
 //     3xTF32 on the tf32 tensor cores (binned_mma.cuh's step model with
 //     f32 accumulation: 16 steps of 20 u for the hi.hi product alone, 320
 //     u P per chunk, five times the whole budget in s).
-//   default.  No tolerance model (the reference refuses it in the one-pass
-//     certificate): bf16_rn(q) bf16_rn(t) - q t <= (2^-7 + 2^-16) |q t| per
-//     dim, plus (128 + nd) u P of f32 accumulation.  It serves the counted
-//     certificate, which does not depend on the coarse pass's precision.
+//   default.  No certificate tolerance (the reference refuses it in the
+//     one-pass certificate; it serves the counted certificate, which does
+//     not depend on the coarse pass's precision).  Against the exact sum of
+//     its own products qh th, the tensor-core walk errs by <= (8 kappa + nd
+//     - 1)(1 + 2^-7) u P (coarse_knn.accumulation_coefficient("default"):
+//     8 k-steps of the step model into one accumulator, the nd - 1 chunk
+//     adds), the plain version's f32 matmul by <= (128 + nd)(1 + 2^-7) u
+//     P; so kernel and plain differ in s by <= (8 kappa + nd - 1 + 128 +
+//     nd)(1 + 2^-7) + 4 times u (||q||^2 + M), both roundings of s
+//     included: 456.5 u at Dp = 128 (coarse_knn.
+//     kernel_plain_tolerance_scale; binned_mma.cuh gives the proof).
+//     Against q t the one pass errs by up to (2^-7 + 2^-16) |q t| a dim
+//     more, the arm's definition.
 //
 // The thread layout is fixed here too: a CTA of kThreads = 256 threads owns
-// kBlockQ = 32 query rows and the 128 lanes of a column group; each thread
-// owns a 4-query x 4-lane register tile (queries quad*4 + i, lanes
-// lane_col + 32*j).  Shared-memory operands of the CUDA-core default arm:
-// db rows (f32 th) at a per-kernel row stride and the query's bf16 part
-// k-major at kQStride; the int arms stage one 128-dim chunk as 32-bit
-// words of 4 int8 dims, db rows at kIntDbStride words and query words
-// k-major at kQStride.
+// kBlockQ = 32 query rows and the 128 lanes of a column group; for the
+// emitters each thread owns a 4-query x 4-lane tile of the group's scores
+// (queries quad*4 + i, lanes lane_col + 32*j), read from the mainloop's
+// shared score tile.
 
 #pragma once
 
@@ -113,7 +116,6 @@ constexpr int kBlockQ = 32;      // query rows per CTA
 constexpr int kThreads = 256;    // 8 query quads x 32 lane columns
 constexpr int kQuadQ = 4;        // query rows per thread
 constexpr int kQuadL = 4;        // lanes per thread (strided 32 apart)
-constexpr int kQStride = kBlockQ + 4;   // keeps float4 reads aligned
 constexpr int kMaxCarry = 8;             // MAX_CARRY_DEPTH (K11's carry)
 
 // The coarse pass's arithmetic arms; the values are the C entries' codes
@@ -129,27 +131,13 @@ enum class Arm : int {
 };
 
 constexpr int kDimChunk = 128;            // dims per chunk (DIM_CHUNK)
-constexpr int kIntWords = kDimChunk / 4;  // int8 words of 4 dims per chunk
-constexpr int kIntDbStride = kIntWords + 1;   // pad: conflict-free row reads
 
 template <Arm kArm>
 constexpr bool kIsInt = kArm == Arm::kInt8 || kArm == Arm::kInt4;
 
-// CTAs per SM the CUDA-core kernels (default and the int arms) are
-// compiled for.
-constexpr int kCudaCoreCtas = 2;
-
-// Bytes of the CUDA-core default arm's compute buffers for a slice of
-// kSlice dims: the db part [128][kSlice+1] f32 and the query part
-// [kSlice][kQStride] f32.
-template <int kSlice>
-constexpr size_t kF32ComputeBytes =
-    sizeof(float) * (kBinW * (kSlice + 1) + kSlice * kQStride);
-
 using Vals = float[kQuadQ][kQuadL][kSurvivors + 1];
 using Gidx = int[kQuadQ][kQuadL][kSurvivors];
 using Acc = float[kQuadQ][kQuadL];
-using IAcc = int[kQuadQ][kQuadL];
 
 // Db bytes per row of an arm's operand for dp dims: int8 one per dim, int4
 // two dims per byte.
@@ -171,120 +159,6 @@ __device__ __forceinline__ void reset_bins(Vals& vals, Gidx& gidx) {
     }
 }
 
-__device__ __forceinline__ void zero_tile(Acc& acc) {
-#pragma unroll
-  for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-    for (int j = 0; j < kQuadL; ++j) acc[i][j] = 0.0f;
-}
-
-// Bytes of the running sums that chunks 1 .. nd-1 are added into: one f32
-// tile per thread in shared memory, element (i, j) of thread tid at
-// [(i * kQuadL + j) * kThreads + tid] (conflict-free).
-constexpr size_t kRunBytes = sizeof(float) * kQuadQ * kQuadL * kThreads;
-
-// The CUDA-core default arm's score sums acc = 0 + c_0 + c_1 + ... over nd
-// chunks, where chunk(c, sum) adds the products of chunk c into ``sum``.
-// Chunk 0 goes straight into acc (0 + c_0 == c_0, and an FMA chain from +0
-// never ends at -0).  The kernel is built twice and launched by Dp: kMulti
-// = false for Dp = 128 (nd = 1: the one chunk, nothing else -- the register
-// and shared-memory footprint of a single chain), kMulti = true for Dp >
-// 128, where chunks 1 .. nd-1 go through a chunk tile while the running sum
-// waits in shared memory (``run``, kRunBytes), so one accumulator tile is in
-// registers at a time.  Both give the same bits.
-template <bool kMulti, typename ChunkFn>
-__device__ __forceinline__ void sum_chunks(int nd, float* run, int tid,
-                                           ChunkFn&& chunk, Acc& acc) {
-  zero_tile(acc);
-  chunk(0, acc);
-  if constexpr (kMulti) {
-#pragma unroll
-    for (int e = 0; e < kQuadQ * kQuadL; ++e)
-      run[e * kThreads + tid] = acc[e / kQuadL][e % kQuadL];
-    for (int c = 1; c < nd; ++c) {
-      Acc cacc;
-      zero_tile(cacc);
-      chunk(c, cacc);
-#pragma unroll
-      for (int e = 0; e < kQuadQ * kQuadL; ++e) {
-        float& r = run[e * kThreads + tid];
-        r = __fadd_rn(r, cacc[e / kQuadL][e % kQuadL]);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < kQuadQ * kQuadL; ++e)
-      acc[e / kQuadL][e % kQuadL] = run[e * kThreads + tid];
-  }
-}
-
-// One query value as the default arm stores it at k-major position ``at``:
-// its bf16 part with round-to-nearest-even (JAX's astype), as f32.
-__device__ __forceinline__ void store_query(float x, float* qa, int at) {
-  qa[at] = __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// This thread's 4 query values at k-major row k (16-byte loads).
-__device__ __forceinline__ void load_q4(const float* qs, int k, int quad,
-                                        float (&out)[kQuadQ]) {
-  const float4 v = *reinterpret_cast<const float4*>(qs + k * kQStride + quad * 4);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-// One product per dim: acc[i][j] += q*t (f32 FMA) over kSlice dims of one
-// db part and one query part.
-template <int kSlice, int kDbStride>
-__device__ __forceinline__ void fma_pair(const float* ts, const float* qs,
-                                         int quad, int lane_col, Acc& acc) {
-  // ts: [128][kDbStride] db values, qs: [kSlice][kQStride] query values
-#pragma unroll 4
-  for (int k = 0; k < kSlice; ++k) {
-    float qv[kQuadQ];
-    load_q4(qs, k, quad, qv);
-    float tv[kQuadL];
-#pragma unroll
-    for (int j = 0; j < kQuadL; ++j)
-      tv[j] = ts[(lane_col + 32 * j) * kDbStride + k];
-#pragma unroll
-    for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kQuadL; ++j)
-        acc[i][j] = __fmaf_rn(qv[i], tv[j], acc[i][j]);
-  }
-}
-
-// Where a slice's db rows (th as f32) and query values (bf16 parts as f32)
-// go in the default arm's compute buffers.
-template <int kSlice, int kDbStride>
-struct F32Bufs {
-  float* db0;   // [128][kDbStride]
-  float* qa;    // [kSlice][kQStride]
-  __device__ explicit F32Bufs(void* cbuf)
-      : db0(static_cast<float*>(cbuf)), qa(db0 + kBinW * kDbStride) {}
-};
-
-// The default arm's products over one staged slice into ``acc``: one per
-// dim of the staged pair.
-template <int kSlice, int kDbStride>
-__device__ __forceinline__ void slice_products(
-    const F32Bufs<kSlice, kDbStride>& b, int quad, int lane_col, Acc& acc) {
-  fma_pair<kSlice, kDbStride>(b.db0, b.qa, quad, lane_col, acc);
-}
-
-// Stores 8 consecutive db values of row r, dims c .. c+7 of the slice, into
-// the compute buffers: bf16 (8 of th, 16 bytes) upcast to f32.
-__device__ __forceinline__ void put_bf16x8(uint4 v, float* dst) {
-  const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(b[e]);
-}
-
-__device__ __forceinline__ void zero_iacc(IAcc& acc) {
-#pragma unroll
-  for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-    for (int j = 0; j < kQuadL; ++j) acc[i][j] = 0;
-}
-
 // One 32-bit word of 4 packed int4 bytes (chunk bytes j .. j+3) as the int8
 // words of dims j .. j+3 (low nibbles) and 64+j .. 64+j+3 (high nibbles) of
 // the chunk: the chunk-paired layout of knn_tpu_torch/ops/quantize.py
@@ -294,119 +168,24 @@ __device__ __forceinline__ void unpack_int4(unsigned x, int& lo, int& hi) {
   hi = static_cast<int>(__vsub4((x >> 4) & 0x0F0F0F0Fu, 0x08080808u));
 }
 
-// Stages one 128-dim chunk of 128 db rows as int8 words: word w (dims
-// 4w .. 4w+3 of the chunk) of row r at dst[r * kIntDbStride + w].  The
-// chunk's bytes of row r are at src + r * src_stride (global or shared
-// memory, 16-byte aligned); int4 bytes are unpacked on the way.
-template <Arm kArm>
-__device__ __forceinline__ void stage_db_words(const uint8_t* src,
-                                               size_t src_stride, int* dst,
-                                               int tid) {
-  constexpr int kSegs = db_row_bytes<kArm>(kDimChunk) / 16;  // loads per row
+// This thread's 4 values of a per-row array (the norm rows) for the group
+// at db row row0: rows row0 + lane_col + 32*j.
+__device__ __forceinline__ void load_group_rows(const float* __restrict__ src,
+                                                size_t row0, int lane_col,
+                                                float (&out)[kQuadL]) {
 #pragma unroll
-  for (int p = 0; p < kBinW * kSegs / kThreads; ++p) {
-    const int idx = tid + p * kThreads;
-    const int r = idx / kSegs;
-    const int seg = idx % kSegs;
-    const uint4 v = *reinterpret_cast<const uint4*>(src + r * src_stride +
-                                                    seg * 16);
-    const unsigned xs[4] = {v.x, v.y, v.z, v.w};
-    int* row = dst + r * kIntDbStride;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (kArm == Arm::kInt4) {
-        int lo, hi;
-        unpack_int4(xs[e], lo, hi);
-        row[seg * 4 + e] = lo;
-        row[kIntWords / 2 + seg * 4 + e] = hi;
-      } else {
-        row[seg * 4 + e] = static_cast<int>(xs[e]);
-      }
-    }
-  }
+  for (int j = 0; j < kQuadL; ++j) out[j] = src[row0 + lane_col + 32 * j];
 }
 
-// Stages one 128-dim chunk of the query block's int8 rows k-major: word w
-// of row r at dst[w * kQStride + r].  Row r's chunk is at src + r *
-// src_stride; rows at or past `live` are written as zeros.
-__device__ __forceinline__ void stage_q_words(const int8_t* src,
-                                              size_t src_stride, int live,
-                                              int* dst, int tid) {
-  const int r = tid / (kDimChunk / 16);
-  const int seg = tid % (kDimChunk / 16);
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (r < live)
-    v = *reinterpret_cast<const uint4*>(src + r * src_stride + seg * 16);
-  const unsigned xs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    dst[(seg * 4 + e) * kQStride + r] = static_cast<int>(xs[e]);
-}
-
-// acc[i][j] += qi . ti over one staged 128-dim chunk, 4 dims per __dp4a
-// (exact int32).
-__device__ __forceinline__ void dp4a_chunk(const int* tws, const int* qws,
-                                           int quad, int lane_col,
-                                           IAcc& acc) {
-#pragma unroll 4
-  for (int w = 0; w < kIntWords; ++w) {
-    const int4 q4 =
-        *reinterpret_cast<const int4*>(qws + w * kQStride + quad * 4);
-    const int qv[4] = {q4.x, q4.y, q4.z, q4.w};
-    int tv[kQuadL];
-#pragma unroll
-    for (int j = 0; j < kQuadL; ++j)
-      tv[j] = tws[(lane_col + 32 * j) * kIntDbStride + w];
-#pragma unroll
-    for (int i = 0; i < kQuadQ; ++i)
-#pragma unroll
-      for (int j = 0; j < kQuadL; ++j)
-        acc[i][j] = __dp4a(qv[i], tv[j], acc[i][j]);
-  }
-}
-
-// The query scales of this thread's rows quad*4 + i of the block at q0
-// (0 past n_q: those rows are never written).
-__device__ __forceinline__ void load_qsc(const float* __restrict__ qsc,
-                                         int q0, int quad, int n_q,
-                                         float (&out)[kQuadQ]) {
-#pragma unroll
-  for (int i = 0; i < kQuadQ; ++i) {
-    const int row = q0 + quad * 4 + i;
-    out[i] = row < n_q ? qsc[row] : 0.0f;
-  }
-}
-
-// The one f32 rounding of the int arms, in the TPU kernel's order:
-// acc = (f32_rn(dot) * qsc) * ts, each product rounded to nearest (the _rn
-// intrinsics keep nvcc from contracting or reordering them).
-__device__ __forceinline__ void rescale(const IAcc& iacc,
-                                        const float (&qsc)[kQuadQ],
-                                        const float* __restrict__ tscale,
-                                        size_t row0, int lane_col,
-                                        Acc& acc) {
-#pragma unroll
-  for (int j = 0; j < kQuadL; ++j) {
-    const float ts = tscale[row0 + lane_col + 32 * j];
-#pragma unroll
-    for (int i = 0; i < kQuadQ; ++i)
-      acc[i][j] =
-          __fmul_rn(__fmul_rn(__int2float_rn(iacc[i][j]), qsc[i]), ts);
-  }
-}
-
-// s = tn - 2 qt for group g (db rows row0 .. row0+127), then the sorted
-// insertion network with strict `<`: the earlier group wins a tie.
+// Group g's scores s into the sorted insertion network with strict `<`:
+// the earlier group wins a tie.
 __device__ __forceinline__ void insert_group(Vals& vals, Gidx& gidx,
-                                             const Acc& acc,
-                                             const float* __restrict__ tnorm,
-                                             size_t row0, int lane_col, int g) {
+                                             const Acc& s, int g) {
 #pragma unroll
   for (int j = 0; j < kQuadL; ++j) {
-    const float tn = tnorm[row0 + lane_col + 32 * j];
 #pragma unroll
     for (int i = 0; i < kQuadQ; ++i) {
-      float cur_v = tn - 2.0f * acc[i][j];
+      float cur_v = s[i][j];
       int cur_g = g;
 #pragma unroll
       for (int s = 0; s < kSurvivors; ++s) {
@@ -464,7 +243,7 @@ __device__ __forceinline__ void store_tile(const Vals& vals, const Gidx& gidx,
 // ---------------------------------------------------------------------------
 // The two emitters (pallas_knn.py:506-610).  A launch takes its binning as a
 // runtime geometry; the emitter itself is a template parameter of every
-// kernel (kRounds), so a lane build and a grouped build of one arm share
+// kernel (kDepth), so a lane build and a grouped build of one arm share
 // every line of the per-score code above and compute the same score for the
 // same (query, row).
 //
@@ -479,34 +258,41 @@ __device__ __forceinline__ void store_tile(const Vals& vals, const Gidx& gidx,
 //     with +inf / INT32_MAX to out_w = round_up(n_bins*surv, 128) columns;
 //     bounds column b, padded with +inf to bound_w = round_up(n_bins, 128).
 //
-// Lane design.  Every walk hands the emitter a group's scores in one layout:
-// warp w holds query rows 4w .. 4w+3, and for each of them lane l holds the
-// group's rows l + 32 j, j = 0 .. 3.  So one warp sees a query row's whole
-// group, and a bin is bin_w / 128 consecutive groups.  Per query row the
-// warp keeps the bin's running list of its surv + 1 smallest (value, row)
-// pairs so far, one pair a lane (lane r holds the r-th).  At each group the
-// warp merges that list with the group's 128 scores in surv + 1 rounds, all
-// four query rows at once: each lane takes the smallest of its candidates
-// (its list slot, then its 4 scores: rows in increasing order), one
-// __reduce_min_sync (redux.sync) gives the warp's smallest order key, a
-// second the smallest packed row among the lanes that hold it; the owner
-// drops that candidate and lane r keeps round r's pair.  At the bin's last
-// group lanes 0 .. surv - 1 write the survivors and lane surv the bound, in
-// parallel.  The order key is an unsigned integer in the floats' order with
-// -0 taken as +0 and NaN past +inf (order_key); the packed row carries the
-// sign of a zero score, so the value written is bitwise the score's.  No
-// per-thread list, no butterfly of shuffles, no lane writing alone.
+// Lane design.  Every walk leaves a group's scores in a shared score tile
+// [32 queries][128 rows] (q * kScoreStride + r): the tensor-core walk's S
+// itself, read before the norms are applied (group_tile scores each read
+// in the grouped path's order); K7's walk writes s into one (group).  Lane
+// l of warp w takes query row 4w + l / 8 and 16 rows of the group
+// (lane_row: 8 slots cover the 128 rows, each lane's in increasing order,
+// the warp's 32 reads on 32 banks), so 8 lanes share a query row and each
+// owns a slice of every group of the bin.  Each lane keeps the kDepth
+// smallest (value, row) pairs of its slices so far in a sorted list, by
+// the grouped emitter's insertion network with strict `<` (its rows arrive
+// in increasing order, so the earlier row stays first on a tie).  At the
+// bin's last group the 8 lanes of a query row merge their lists in 3
+// butterfly steps of shuffles: each takes its partner's list, keeps the
+// elementwise smaller of its own and the partner's reversed (the kDepth
+// smallest of both, a half-cleaner of the bitonic merge), and sorts them
+// (odd-even transposition); pairs compare by value, then row.  Lane e
+// then holds entry e of the bin -- survivor e, or the bound for e == surv
+// -- and gathers it over 8 consecutive bins, so each array gets whole
+// 32-byte sectors, not a 4-byte store per bin.  Scores are compared as
+// floats: -0 equals +0 (the row decides, as in the reference's
+// first-argmin), and neither +inf nor NaN enters a list, so a bin short of
+// finite scores writes +inf and INT32_MAX, as the reference writes a
+// non-finite survivor; the value written is the score's own bits.  Per group a lane does 16 insertions and no warp-wide
+// reduction, about the grouped emitter's work; the merge runs once a bin.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxSurvivors = 8;                   // MAX_SURVIVORS
-constexpr int kLaneRounds = kMaxSurvivors + 1;     // the lane merge's two builds
-constexpr int kLaneRoundsSmall = kSurvivors + 1;
+constexpr int kLaneDepth = kMaxSurvivors + 1;      // the lane lists' two builds
+constexpr int kLaneDepthSmall = kSurvivors + 1;
 
 // The emitter build of a launch: 0 for grouped binning, else the lane
-// merge's unrolled rounds for `surv` survivors.
-__host__ inline int emit_rounds(int bin_w, int surv) {
-  return bin_w == 0 ? 0 : surv + 1 <= kLaneRoundsSmall ? kLaneRoundsSmall
-                                                       : kLaneRounds;
+// lists' length for `surv` survivors.
+__host__ inline int emit_depth(int bin_w, int surv) {
+  return bin_w == 0 ? 0 : surv + 1 <= kLaneDepthSmall ? kLaneDepthSmall
+                                                      : kLaneDepth;
 }
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -557,9 +343,9 @@ struct Place {
   int lane_col;
 };
 
-// kRounds = 0: grouped binning; kRounds > 0: lane binning, its merge
-// unrolled over kRounds >= surv + 1 rounds.
-template <int kRounds>
+// kDepth = 0: grouped binning; kDepth > 0: lane binning, each lane's list
+// kDepth >= surv + 1 long.
+template <int kDepth>
 struct Emitter;
 
 // Grouped binning: the insertion network of insert_group, stored per tile.
@@ -568,13 +354,15 @@ struct Emitter<0> {
   Vals vals;
   Gidx gidx;
 
+  __device__ explicit Emitter(float*) {}
+
   __device__ __forceinline__ void begin_tile() { reset_bins(vals, gidx); }
 
-  __device__ __forceinline__ void group(const Acc& acc,
-                                        const float* __restrict__ tnorm,
-                                        size_t row0, int g, int, const Out&,
-                                        const Place& p) {
-    insert_group(vals, gidx, acc, tnorm, row0, p.lane_col, g);
+  // Group g's scores s = tn - 2 qt (queries quad*4 + i, rows lane_col +
+  // 32*j of the group).
+  __device__ __forceinline__ void group(const Acc& s, int g, int, const Out&,
+                                        const Place&) {
+    insert_group(vals, gidx, s, g);
   }
 
   __device__ __forceinline__ void end_tile(int ti, const Out& o,
@@ -584,141 +372,215 @@ struct Emitter<0> {
   }
 };
 
-// The lane merge's order keys: kTaken marks a candidate already taken, an
-// empty list slot and NaN (never selected before any other candidate).
-constexpr unsigned kTaken = 0xFFFFFFFFu;
-constexpr unsigned kKeyInf = 0xFF800000u;   // order_key(+inf)
+// The score tile of a group that the emitters read: f32 per (query q < 32
+// of the block, row r < 128 of the group) at q * kScoreStride + r.  The
+// stride keeps the tensor-core walk's fragment stores (binned_mma.cuh), the
+// grouped emitter's reads (a warp's lanes on consecutive rows of one
+// query) and the lane emitter's reads (lane_row) each on 32 banks.
+constexpr int kScoreStride = kBinW + 4;
+constexpr size_t kScoreTileBytes = sizeof(float) * kBlockQ * kScoreStride;
 
-// An unsigned key in the order of the floats: -0 takes +0's key (the two
-// compare equal), NaN takes kTaken.
-__device__ __forceinline__ unsigned order_key(float x) {
-  const unsigned b = __float_as_uint(x);
-  const unsigned k = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return (b & 0x7FFFFFFFu) > 0x7F800000u ? kTaken
-         : b == 0x80000000u              ? 0x80000000u
-                                         : k;
+// Row ``k`` (0 .. 15, in increasing order) of the 16 a lane emitter thread
+// reads, for slot = lane % 8: 32 (k / 4) + 16 (slot % 2) + 4 (k % 4) +
+// slot / 2.  The 8 slots cover the group's 128 rows, and with 4 query rows
+// a warp at kScoreStride = 4 (mod 32) its 32 lanes read 32 banks.
+__device__ __forceinline__ int lane_row(int slot, int k) {
+  return 32 * (k / 4) + 16 * (slot % 2) + 4 * (k % 4) + slot / 2;
 }
 
-// The score of a (key, packed row) pair: the key's float, -0 where the
-// packed row's low bit says so, +inf past it (kTaken).
-__device__ __forceinline__ float key_value(unsigned key, unsigned packed) {
-  const float v = __uint_as_float((key & 0x80000000u) ? (key & 0x7FFFFFFFu)
-                                                      : ~key);
-  return key >= kKeyInf ? __int_as_float(0x7f800000)
-         : (packed & 1u) ? -0.0f
-                         : v;
+// (va, ra) before (vb, rb) in the lane emitter's order: by value, then row.
+__device__ __forceinline__ bool lane_before(float va, int ra, float vb,
+                                            int rb) {
+  return va < vb || (va == vb && ra < rb);
 }
 
-// Lane binning (K8).
-template <int kRounds>
+// Consecutive bins a lane's outputs are gathered over before they are
+// written: 8 f32 = one 32-byte sector.
+constexpr int kLaneVec = 8;
+
+// Lane binning (K8).  kDepth >= surv + 1: the length of each lane's list.
+template <int kDepth>
 struct Emitter {
-  // per query row, slot `lane` of the bin's running list (lane <= surv):
-  // its order key and its packed row (tile row << 1 | the sign of a zero)
-  unsigned rk[kQuadQ];
-  unsigned rp[kQuadQ];
+  float* tile;          // group(): the score tile it writes and reads
+  float lv[kDepth];     // this lane's list: values, ascending
+  int lr[kDepth];       // ... and their tile rows
+  float wv[kLaneVec];   // entry (lane % 8)'s values of the bins in flight
+  int wc[kLaneVec];     // ... and their candidate indices
+  int bin;              // the tile's bin being gathered
+  int bin_group;        // its groups seen so far
+
+  __device__ explicit Emitter(float* score_tile) : tile(score_tile) {}
 
   __device__ __forceinline__ void reset() {
 #pragma unroll
-    for (int i = 0; i < kQuadQ; ++i) rk[i] = rp[i] = kTaken;
+    for (int d = 0; d < kDepth; ++d) {
+      lv[d] = __int_as_float(0x7f800000);
+      lr[d] = INT32_MAX;
+    }
   }
 
-  __device__ __forceinline__ void begin_tile() { reset(); }
+  __device__ __forceinline__ void begin_tile() {
+    reset();
+    bin = bin_group = 0;
+  }
 
-  // s = tnorm[t] - 2 qt for group g (tile rows g*128 + lane_col + 32*j),
-  // merged with the running lists in surv + 1 rounds; at the bin's last
-  // group, the writes.
-  __device__ __forceinline__ void group(const Acc& acc,
-                                        const float* __restrict__ tnorm,
-                                        size_t row0, int g, int ti,
-                                        const Out& o, const Place& p) {
-    const int surv = o.geo.surv;
-    const int lane = p.lane_col;
-    unsigned key[kQuadQ][kQuadL], pk[kQuadQ][kQuadL];
+  // (v, row) into the sorted list; strict `<`, so the earlier row stays
+  // ahead of an equal value, and +inf and NaN never enter (the list starts
+  // at +inf).  Each slot compares with v at once (less[d] implies
+  // less[d + 1]) and takes its own entry, its predecessor's or v.
+  __device__ __forceinline__ void insert(float v, int row) {
+    bool less[kDepth];
 #pragma unroll
-    for (int j = 0; j < kQuadL; ++j) {
-      const float tn = tnorm[row0 + lane + 32 * j];
-      const unsigned row2 =
-          static_cast<unsigned>(g * kBinW + lane + 32 * j) << 1;
+    for (int d = 0; d < kDepth; ++d) less[d] = v < lv[d];
 #pragma unroll
-      for (int i = 0; i < kQuadQ; ++i) {
-        const float s = tn - 2.0f * acc[i][j];
-        key[i][j] = order_key(s);
-        pk[i][j] = row2 | (__float_as_uint(s) == 0x80000000u ? 1u : 0u);
-      }
+    for (int d = kDepth - 1; d > 0; --d) {
+      lv[d] = less[d - 1] ? lv[d - 1] : less[d] ? v : lv[d];
+      lr[d] = less[d - 1] ? lr[d - 1] : less[d] ? row : lr[d];
     }
-    unsigned nk[kQuadQ], np[kQuadQ];
+    lv[0] = less[0] ? v : lv[0];
+    lr[0] = less[0] ? row : lr[0];
+  }
+
+  // Group g of tile ti from a score tile S (q * kScoreStride + r): lane l
+  // of warp w takes query row 4w + l / 8 and rows lane_row(l % 8, k) of
+  // the group, each score score(r, S[...]), into its list; at the bin's
+  // last group, the merge and the writes.
+  template <class ScoreOf>
+  __device__ __forceinline__ void group_tile(const float* S, ScoreOf score,
+                                             int g, int ti, const Out& o,
+                                             const Place& p) {
+    const int q = p.quad * kQuadQ + p.lane_col / 8;
+    const int slot = p.lane_col % 8;
 #pragma unroll
-    for (int i = 0; i < kQuadQ; ++i) nk[i] = np[i] = kTaken;
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      if (r <= surv) {
-        unsigned bk[kQuadQ], bp[kQuadQ];
-#pragma unroll
-        for (int i = 0; i < kQuadQ; ++i) {
-          // the list slot's rows precede this group's; strict `<` keeps
-          // the first of equal keys, the smallest row
-          bk[i] = rk[i];
-          bp[i] = rp[i];
-#pragma unroll
-          for (int j = 0; j < kQuadL; ++j) {
-            const bool less = key[i][j] < bk[i];
-            bk[i] = less ? key[i][j] : bk[i];
-            bp[i] = less ? pk[i][j] : bp[i];
-          }
-        }
-        unsigned mk[kQuadQ], mp[kQuadQ];
-#pragma unroll
-        for (int i = 0; i < kQuadQ; ++i)
-          mk[i] = __reduce_min_sync(0xffffffffu, bk[i]);
-#pragma unroll
-        for (int i = 0; i < kQuadQ; ++i)
-          mp[i] = __reduce_min_sync(0xffffffffu,
-                                    bk[i] == mk[i] ? bp[i] : kTaken);
-#pragma unroll
-        for (int i = 0; i < kQuadQ; ++i) {
-          // a real row is one candidate of the warp: its owner drops it
-          rk[i] = rp[i] == mp[i] ? kTaken : rk[i];
-#pragma unroll
-          for (int j = 0; j < kQuadL; ++j)
-            key[i][j] = pk[i][j] == mp[i] ? kTaken : key[i][j];
-          nk[i] = lane == r ? mk[i] : nk[i];
-          np[i] = lane == r ? mp[i] : np[i];
-        }
-      }
+    for (int k = 0; k < 16; ++k) {
+      const int r = lane_row(slot, k);
+      insert(score(r, S[q * kScoreStride + r]), g * kBinW + r);
     }
-#pragma unroll
-    for (int i = 0; i < kQuadQ; ++i) {
-      rk[i] = nk[i];
-      rp[i] = np[i];
-    }
-    if ((g + 1) % o.geo.bin_groups == 0) {
-      write(g / o.geo.bin_groups, ti, o, p);
+    if (++bin_group == o.geo.bin_groups) {
+      merge();
+      write(bin++, ti, o, p);
       reset();
+      bin_group = 0;
     }
   }
 
-  // Bin b's outputs: lane r < surv writes survivor r, lane surv the bound.
+  // The emitters' common form (K7's walk): group g's scores s in the
+  // threads' layout (queries quad*4 + i, rows lane_col + 32*j) through
+  // ``tile`` into group_tile.  Every thread of the CTA calls it.
+  __device__ __forceinline__ void group(const Acc& s, int g, int ti,
+                                        const Out& o, const Place& p) {
+    __syncthreads();   // the tile's readers of the previous group are done
+#pragma unroll
+    for (int i = 0; i < kQuadQ; ++i)
+#pragma unroll
+      for (int j = 0; j < kQuadL; ++j)
+        tile[(p.quad * kQuadQ + i) * kScoreStride + p.lane_col + 32 * j] =
+            s[i][j];
+    __syncthreads();
+    group_tile(tile, [](int, float v) { return v; }, g, ti, o, p);
+  }
+
+  // The 8 lanes of a query row (lane / 8 alike) end with the kDepth
+  // smallest pairs of all their lists, sorted.
+  __device__ __forceinline__ void merge() {
+#pragma unroll
+    for (int m = 1; m < 8; m <<= 1) {
+      float bv[kDepth];
+      int br[kDepth];
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+        bv[d] = __shfl_xor_sync(0xffffffffu, lv[d], m);
+        br[d] = __shfl_xor_sync(0xffffffffu, lr[d], m);
+      }
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+        const bool theirs =
+            lane_before(bv[kDepth - 1 - d], br[kDepth - 1 - d], lv[d], lr[d]);
+        lv[d] = theirs ? bv[kDepth - 1 - d] : lv[d];
+        lr[d] = theirs ? br[kDepth - 1 - d] : lr[d];
+      }
+      // the list is bitonic (rising, then falling): two exchanges sort 3,
+      // odd-even transposition any length
+      if constexpr (kDepth == 3) {
+        exchange(0, 2);
+        exchange(1, 2);
+      } else {
+#pragma unroll
+        for (int ph = 0; ph < kDepth; ++ph)
+#pragma unroll
+          for (int d = ph % 2; d + 1 < kDepth; d += 2) exchange(d, d + 1);
+      }
+    }
+  }
+
+  // Orders list entries d < e.
+  __device__ __forceinline__ void exchange(int d, int e) {
+    const bool swap = lane_before(lv[e], lr[e], lv[d], lr[d]);
+    const float v = lv[d];
+    const int r = lr[d];
+    lv[d] = swap ? lv[e] : v;
+    lr[d] = swap ? lr[e] : r;
+    lv[e] = swap ? v : lv[e];
+    lr[e] = swap ? r : lr[e];
+  }
+
+  // Bin b's outputs: of the 8 lanes of a query row, lane e writes entry e
+  // of the merged list -- survivor e for e < surv, the bound for e ==
+  // surv -- gathered over kLaneVec consecutive bins into one 32-byte
+  // sector per array where the tile's bins come in whole sectors (n_bins a
+  // multiple of kLaneVec), else bin by bin; entry 8 (surv = 8's bound) by
+  // lane 0, bin by bin.
   __device__ __forceinline__ void write(int b, int ti, const Out& o,
                                         const Place& p) {
     const Geom& geo = o.geo;
-    const int lane = p.lane_col;
-    if (lane > geo.surv) return;
+    const int qrow = p.q0 + p.quad * kQuadQ + p.lane_col / 8;
+    const int e = p.lane_col % 8;
+    if (qrow >= o.n_q || e > geo.surv) return;
     const size_t cd_w = static_cast<size_t>(o.n_tiles) * geo.out_w;
     const size_t b_w = static_cast<size_t>(o.n_tiles) * geo.bound_w;
+    // this lane's entry: lv[e] (an unrolled select, no local memory)
+    float v = lv[0];
+    int r = lr[0];
 #pragma unroll
-    for (int i = 0; i < kQuadQ; ++i) {
-      const int qrow = p.q0 + p.quad * 4 + i;
-      if (qrow >= o.n_q) continue;
-      const float v = key_value(rk[i], rp[i]);
-      if (lane < geo.surv) {
-        const size_t at = qrow * cd_w + static_cast<size_t>(ti) * geo.out_w +
-                          lane * geo.n_bins + b;
-        o.cd[at] = v;
-        o.ci[at] = isfinite(v) ? ti * o.tile_n + static_cast<int>(rp[i] >> 1)
-                               : INT32_MAX;
-      } else {
-        o.bounds[qrow * b_w + static_cast<size_t>(ti) * geo.bound_w + b] = v;
+    for (int d = 1; d < kDepth && d < 8; ++d) {
+      v = e == d ? lv[d] : v;
+      r = e == d ? lr[d] : r;
+    }
+    const bool bound = e == geo.surv;
+    // bin 0 of this lane's entry in the tile's block (cd and ci share a
+    // layout)
+    const size_t at = bound ? qrow * b_w + static_cast<size_t>(ti) * geo.bound_w
+                            : qrow * cd_w +
+                                  static_cast<size_t>(ti) * geo.out_w +
+                                  e * geo.n_bins;
+    float* dst = (bound ? o.bounds : o.cd) + at;
+    int* dci = o.ci + at;
+    const int c = isfinite(v) ? ti * o.tile_n + r : INT32_MAX;
+    if (geo.n_bins % kLaneVec == 0) {
+      const int u = b % kLaneVec;
+#pragma unroll
+      for (int x = 0; x < kLaneVec; ++x) {
+        wv[x] = x == u ? v : wv[x];
+        wc[x] = x == u ? c : wc[x];
       }
+      if (u == kLaneVec - 1) {
+        float4* dv = reinterpret_cast<float4*>(dst + b - u);
+        dv[0] = make_float4(wv[0], wv[1], wv[2], wv[3]);
+        dv[1] = make_float4(wv[4], wv[5], wv[6], wv[7]);
+        if (!bound) {
+          int4* dc = reinterpret_cast<int4*>(dci + b - u);
+          dc[0] = make_int4(wc[0], wc[1], wc[2], wc[3]);
+          dc[1] = make_int4(wc[4], wc[5], wc[6], wc[7]);
+        }
+      }
+    } else {
+      dst[b] = v;
+      if (!bound) dci[b] = c;
+    }
+    if constexpr (kDepth > 8) {
+      if (e == 0 && geo.surv == 8)
+        o.bounds[qrow * b_w + static_cast<size_t>(ti) * geo.bound_w + b] =
+            lv[8];
     }
   }
 

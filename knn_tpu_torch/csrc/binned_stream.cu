@@ -27,29 +27,21 @@
 //
 // Design.  Grid (segments, query blocks of 32 rows).  A CTA walks the
 // db tiles of its segment in order, each tile's 128-row column groups in
-// order.  bf16x3 (K10, K11), bf16x3f (K4) and highest (K2) run
-// binned_mma.cuh's mainloop over the run: (tile, group, 128-dim chunk)
-// steps through a two-stage cp.async ring, products on the tensor cores --
+// order.  Every arm but pq runs binned_mma.cuh's mainloop over the run:
+// (tile, group, 128-dim chunk) steps through a cp.async ring (step t+k's
+// db rows copied while step t computes: the counterpart of the TPU
+// kernel's make_async_copy double buffer), products on the tensor cores --
 // the same code as the arm's tiled entry, so the same bits; pq (K7) runs
-// binned_pq.cuh's walk over the run.  default walks each group's dims in
-// steps of 32 dims, int8 / int4 one 128-dim chunk.  Step t+1's raw
-// operands (th and the f32 query slice; int: the int8 or packed int4 db
-// rows and the int8 query slice) are copied into the second of two shared
-// stages with cp.async while step t is converted (bf16 -> f32 and the
-// query's bf16 part; int4 nibbles -> int8 words, int8 rows -> padded word
-// rows) into the compute buffers and multiplied on CUDA cores: the
-// counterpart of the TPU kernel's make_async_copy double buffer.  Each
-// tile's block goes straight to its own column offset in global memory.
+// binned_pq.cuh's walk over the run.  Each tile's block goes straight to
+// its own column offset in global memory.
 //
 // Occupancy.  At Q = 4096 there are only 128 query blocks of 32 rows for 132
 // SMs.  So the tile loop is split into contiguous segments, one per CTA: the
 // wrapper (ops/coarse_knn.stream_segment_tiles) picks n_seg = min(n_tiles,
 // floor(wave / query blocks)) segments, where wave = SMs x the CTAs per SM
 // that stream_ctas_per_sm reads from the occupancy API for the built kernel
-// of the arm (bf16x3, bf16x3f: 170 KB of shared memory, 202 KB above Dp =
-// 128, one CTA per SM; highest 187 KB, 219 KB above, one; pq 194 KB at 256
-// codes, one; default 45 KB, its multi-chunk build 16 KB more; int8 61 KB,
-// int4 45 KB; default and the int arms are compiled for two CTAs per SM).
+// of the arm (the mainloop's shared memory, binned_mma.cuh: 72-224 KB by
+// arm and Dp, compiled for one CTA per SM; pq 194 KB at 256 codes, one).
 // The streaming output does not depend on the split.
 //
 // The fused skip depends on the query block and on the segment: each segment
@@ -69,10 +61,9 @@
 //
 // What bounds it on this card: as the tiled kernels.  The products run for
 // every tile before the skip is decided, so the early-out saves only the
-// skipped tile's output writes in this design, never the products.
-// bf16x3's, bf16x3f's and highest's run on the tensor cores
-// (binned_mma.cuh); default's and the int arms' on CUDA cores (f32 FMAs,
-// __dp4a), an order of magnitude above the tensor-core bound.
+// skipped tile's output writes in this design, never the products.  Every
+// arm but pq runs on the tensor cores (binned_mma.cuh), bound by the L2
+// reads of the db rows.
 
 #include "binned_mma.cuh"
 #include "binned_pq.cuh"
@@ -81,254 +72,9 @@ namespace {
 
 using namespace binned;
 
-constexpr int kSlice = 32;                 // default's dims per step
-constexpr int kDbStride = kSlice + 1;      // pad: conflict-free row reads
-constexpr int kRawDb = kBinW * kSlice;     // db values per part per stage
-
-// Per-arm pipeline geometry: dims per step, bytes of the db half of one
-// cp.async stage, of the whole stage and of the compute buffers.
-template <Arm kArm>
-constexpr int kStep = kIsInt<kArm> ? kDimChunk : kSlice;
-
-template <Arm kArm>
-constexpr size_t kDbStage =
-    kIsInt<kArm> ? kBinW * db_row_bytes<kArm>(kDimChunk)   // [128][chunk]
-                 : kRawDb * sizeof(__nv_bfloat16);         // th
-
-template <Arm kArm>
-constexpr size_t kStageBytes =  // then the query rows [32][step]
-    kDbStage<kArm> +
-    (kIsInt<kArm> ? kBlockQ * kDimChunk : kBlockQ * kSlice * sizeof(float));
-
-template <Arm kArm>
-constexpr size_t kComputeBytes =
-    kIsInt<kArm> ? sizeof(int) * (kBinW * kIntDbStride + kIntWords * kQStride)
-                 : kF32ComputeBytes<kSlice>;
-
-// ... and the running sums of the default kernel's multi-chunk build
-// (Dp > 128, sum_chunks)
-template <Arm kArm, bool kMulti>
-constexpr size_t kSmemBytes =
-    2 * kStageBytes<kArm> + kComputeBytes<kArm> + (kMulti ? kRunBytes : 0);
-
-// The multi-chunk build holds as many CTAs per SM as the single-chunk one
-// that stream_ctas_per_sm measures: registers bound both (kCudaCoreCtas),
-// and kCudaCoreCtas CTAs with the running sums still fit an SM's 228 KB of
-// shared memory (1 KB reserved per CTA).
-static_assert(kCudaCoreCtas * (kSmemBytes<Arm::kDefault, true> + 1024) <=
-                  228 * 1024,
-              "the multi-chunk build would lose occupancy");
-
-// Starts the default arm's copies of one step: th of db rows row0 ..
-// row0+127 and the f32 query rows q0 .. q0+31, dims k0 .. k0+31.
-__device__ __forceinline__ void start_stage(
-    unsigned char* stage, const __nv_bfloat16* __restrict__ th,
-    const float* __restrict__ q, size_t row0, int k0, int dp, int q0,
-    int n_q, int tid) {
-  __nv_bfloat16* sth = reinterpret_cast<__nv_bfloat16*>(stage);
-#pragma unroll
-  for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
-    const int idx = tid + p * kThreads;
-    const int r = idx / (kSlice / 8);
-    const int seg = idx % (kSlice / 8);
-    const size_t off = (row0 + r) * static_cast<size_t>(dp) + k0 + seg * 8;
-    cp_async16(sth + r * kSlice + seg * 8, th + off, 16);
-  }
-  float* sq = reinterpret_cast<float*>(stage + kDbStage<Arm::kDefault>);
-  const int r = tid / (kSlice / 4);
-  const int c4 = tid % (kSlice / 4);
-  const bool live = q0 + r < n_q;
-  const float* src =
-      q + static_cast<size_t>(live ? q0 + r : 0) * dp + k0 + c4 * 4;
-  cp_async16(sq + r * kSlice + c4 * 4, src, live ? 16 : 0);
-}
-
-// The int arms' copies of one step: the 128-dim chunk at k0 of db rows
-// row0 .. row0+127 (int8 bytes, or packed int4 bytes) and of query rows
-// q0 .. q0+31 (int8; rows past n_q are zero-filled).
-template <Arm kArm>
-__device__ __forceinline__ void start_stage_int(
-    unsigned char* stage, const uint8_t* __restrict__ t,
-    const int8_t* __restrict__ qi, size_t row0, int k0, int dp, int q0,
-    int n_q, int tid) {
-  constexpr int kChunkBytes = db_row_bytes<kArm>(kDimChunk);
-  constexpr int kSegs = kChunkBytes / 16;
-  const size_t row_bytes = db_row_bytes<kArm>(dp);
-  unsigned char* sq = stage + kDbStage<kArm>;
-#pragma unroll
-  for (int p = 0; p < kBinW * kSegs / kThreads; ++p) {
-    const int idx = tid + p * kThreads;
-    const int r = idx / kSegs;
-    const int seg = idx % kSegs;
-    cp_async16(stage + r * kChunkBytes + seg * 16,
-               t + (row0 + r) * row_bytes + db_row_bytes<kArm>(k0) + seg * 16,
-               16);
-  }
-  const int r = tid / (kDimChunk / 16);
-  const int seg = tid % (kDimChunk / 16);
-  const bool live = q0 + r < n_q;
-  const int8_t* src =
-      qi + static_cast<size_t>(live ? q0 + r : 0) * dp + k0 + seg * 16;
-  cp_async16(sq + r * kDimChunk + seg * 16, src, live ? 16 : 0);
-}
-
-// Stage -> compute buffers (as the tiled kernel stages from global memory):
-// the staged th upcast to f32 rows; the query slice's bf16 part, k-major.
-__device__ __forceinline__ void convert_stage(
-    const unsigned char* stage, const F32Bufs<kSlice, kDbStride>& bufs,
-    int tid) {
-  const __nv_bfloat16* sth = reinterpret_cast<const __nv_bfloat16*>(stage);
-#pragma unroll
-  for (int p = 0; p < (kRawDb / 8) / kThreads; ++p) {
-    const int idx = tid + p * kThreads;
-    const int r = idx / (kSlice / 8);
-    const int seg = idx % (kSlice / 8);
-    put_bf16x8(*reinterpret_cast<const uint4*>(sth + r * kSlice + seg * 8),
-               bufs.db0 + r * kDbStride + seg * 8);
-  }
-  const float* sq =
-      reinterpret_cast<const float*>(stage + kDbStage<Arm::kDefault>);
-  const int r = tid / (kSlice / 4);
-  const int c4 = tid % (kSlice / 4);
-  const float4 v = *reinterpret_cast<const float4*>(sq + r * kSlice + c4 * 4);
-  const float xs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    store_query(xs[e], bufs.qa, (c4 * 4 + e) * kQStride + r);
-}
-
-// The CUDA-core streaming and fused entries: default (K3) and the int arms
-// (K5, K6).
-template <Arm kArm, bool kFused, bool kMulti, int kRounds>
-__global__ void __launch_bounds__(kThreads, kCudaCoreCtas)
-stream_select_kernel(const void* __restrict__ p0,
-                     const void* __restrict__ p1,
-                     const void* __restrict__ p2,
-                     const float* __restrict__ p3, Out out, int dp,
-                     int seg_tiles, int depth) {
-  static_assert(!(kFused && kRounds), "the fused early-out is grouped only");
-  // operands: default (q f32, th bf16, unused, tnorm f32 [8, Np] row 0);
-  // int8 / int4 (qi int8, qsc f32, t int8 or packed uint8, aux f32 [2,
-  // Np]: row norms, then row scales)
-  constexpr int kStepA = kStep<kArm>;
-  constexpr size_t kStageA = kStageBytes<kArm>;
-  extern __shared__ float4 smem_f4[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(smem_f4);
-  // compute buffers after the two stages.  default: db rows at kDbStride,
-  // then query values k-major (F32Bufs); int: db words at kIntDbStride,
-  // then query words k-major
-  void* cbuf = base + 2 * kStageA;
-  const F32Bufs<kSlice, kDbStride> bufs(cbuf);
-  int* tws = static_cast<int*>(cbuf);
-  int* qws = tws + kBinW * kIntDbStride;      // [kIntWords][kQStride]
-  // the running sums of the multi-chunk build (sum_chunks), after the
-  // compute buffers
-  float* run = reinterpret_cast<float*>(base + 2 * kStageA +
-                                        kComputeBytes<kArm>);
-  __shared__ int warp_ok[kThreads / 32];
-
-  const int tid = threadIdx.x;
-  const int lane_col = tid % 32;              // lanes lane_col + 32*j
-  const int quad = tid / 32;                  // queries quad*4 + i
-  const int q0 = blockIdx.y * kBlockQ;
-  const int n_q = out.n_q;
-  const int n_tiles = out.n_tiles;
-  const int tile_n = out.tile_n;
-  const Place place{q0, quad, lane_col};
-  const int t_begin = blockIdx.x * seg_tiles;
-  const int t_end = min(t_begin + seg_tiles, n_tiles);
-  if (t_begin >= t_end) return;
-  const int n_groups = tile_n / kBinW;
-  const float* tnorm = p3;
-  const float* tscale = p3 + static_cast<size_t>(n_tiles) * tile_n;
-  float qs[kQuadQ];
-  if constexpr (kIsInt<kArm>)
-    load_qsc(static_cast<const float*>(p1), q0, quad, n_q, qs);
-
-  float carry[kQuadQ][kQuadL][kMaxCarry];
-  if constexpr (kFused) reset_carry(carry, depth);
-
-  // the next step to stage: (tile nt, group ng, dims k0)
-  int nt = t_begin, ng = 0, k0 = 0;
-  auto stage_next = [&](unsigned char* stage) {
-    const size_t row0 =
-        static_cast<size_t>(nt) * tile_n + static_cast<size_t>(ng) * kBinW;
-    if constexpr (kIsInt<kArm>)
-      start_stage_int<kArm>(stage, static_cast<const uint8_t*>(p2),
-                            static_cast<const int8_t*>(p0), row0, k0, dp, q0,
-                            n_q, tid);
-    else
-      start_stage(stage, static_cast<const __nv_bfloat16*>(p1),
-                  static_cast<const float*>(p0), row0, k0, dp, q0, n_q, tid);
-    k0 += kStepA;
-    if (k0 == dp) {
-      k0 = 0;
-      if (++ng == n_groups) {
-        ng = 0;
-        ++nt;
-      }
-    }
-  };
-  stage_next(base);
-  cp_async_commit();
-  int buf = 0;
-
-  Emitter<kRounds> em;
-  for (int ti = t_begin; ti < t_end; ++ti) {
-    em.begin_tile();
-    for (int g = 0; g < n_groups; ++g) {
-      const size_t row0 =
-          static_cast<size_t>(ti) * tile_n + static_cast<size_t>(g) * kBinW;
-      // the next step's products summed into ``sum``
-      auto step = [&](auto& sum) {
-        // this step's stage has landed (every thread's copies) and the
-        // previous step's compute buffers are consumed
-        cp_async_wait_all();
-        __syncthreads();
-        // the other stage was last read by the previous step's conversion
-        if (nt < t_end) stage_next(base + (buf ^ 1) * kStageA);
-        cp_async_commit();
-        const unsigned char* stage = base + buf * kStageA;
-        if constexpr (kIsInt<kArm>) {
-          stage_db_words<kArm>(stage, db_row_bytes<kArm>(kDimChunk), tws,
-                               tid);
-          stage_q_words(
-              reinterpret_cast<const int8_t*>(stage + kDbStage<kArm>),
-              kDimChunk, kBlockQ, qws, tid);
-          __syncthreads();
-          dp4a_chunk(tws, qws, quad, lane_col, sum);
-        } else {
-          convert_stage(stage, bufs, tid);
-          __syncthreads();
-          slice_products(bufs, quad, lane_col, sum);
-        }
-        buf ^= 1;
-      };
-      Acc acc;
-      if constexpr (kIsInt<kArm>) {
-        IAcc iacc;
-        zero_iacc(iacc);
-        for (int c0 = 0; c0 < dp; c0 += kStepA) step(iacc);
-        rescale(iacc, qs, tscale, row0, lane_col, acc);
-      } else {
-        auto chunk = [&](int, Acc& sum) {
-          for (int d = 0; d < kDimChunk; d += kStepA) step(sum);
-        };
-        sum_chunks<kMulti>(dp / kDimChunk, run, tid, chunk, acc);
-      }
-      em.group(acc, tnorm, row0, g, ti, out, place);
-    }
-
-    bool skip = false;
-    if constexpr (kFused)
-      skip = fused_skip(em, carry, depth, place, n_q, warp_ok);
-    em.end_tile(ti, out, place, skip);
-  }
-}
-
 // K7's streaming entry: the tiled walk (binned_pq.cuh, pq_tiles) over the
 // CTA's segment of db tiles.
-template <int kRounds>
+template <int kDepth>
 __global__ void __launch_bounds__(kThreads, 1)
 stream_select_pq_kernel(const float* __restrict__ lut_t,
                         const uint8_t* __restrict__ codes_t,
@@ -341,126 +87,102 @@ stream_select_pq_kernel(const float* __restrict__ lut_t,
   if (t_begin >= t_end) return;
   const Place place{static_cast<int>(blockIdx.y) * kBlockQ, tid / 32,
                     tid % 32};
-  pq_tiles<kRounds>(lut_t, codes_t, tnorm, out, place, m, ncodes, t_begin, t_end,
+  pq_tiles<kDepth>(lut_t, codes_t, tnorm, out, place, m, ncodes, t_begin, t_end,
                   reinterpret_cast<unsigned char*>(smem_f4));
 }
 
-// K10 / K11 and K4's and K2's streaming and fused entries: the bf16x3,
-// bf16x3f and highest arms on tensor cores (binned_mma.cuh) over the CTA's
-// segment of db tiles, K11's skip at each tile's end.
-template <Arm kArm, bool kFused, bool kMulti, int kRounds>
+// K10 / K11 and every other arm's streaming and fused entries but pq's: the
+// arm on the tensor cores (binned_mma.cuh) over the CTA's segment of db
+// tiles, K11's skip at each tile's end.
+template <Arm kArm, bool kFused, bool kMulti, int kDepth>
 __global__ void __launch_bounds__(kThreads, 1)
-stream_select_mma_kernel(const float* __restrict__ q,
-                         const void* __restrict__ db0,
-                         const void* __restrict__ db1,
-                         const float* __restrict__ tnorm, Out out, int dp,
+stream_select_mma_kernel(const void* __restrict__ p0,
+                         const void* __restrict__ p1,
+                         const void* __restrict__ p2,
+                         const float* __restrict__ p3, Out out, int dp,
                          int seg_tiles, int depth) {
   extern __shared__ float4 smem_f4[];
   __shared__ int warp_ok[kThreads / 32];
   const int t_begin = blockIdx.x * seg_tiles;
   const int t_end = min(t_begin + seg_tiles, out.n_tiles);
   if (t_begin >= t_end) return;
-  mma_walk<kArm, kMulti, kRounds, kFused>(
-      q, db0, db1, tnorm, out, dp, blockIdx.y * kBlockQ, t_begin, t_end,
-      depth, reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
-}
-
-// The kernel of a build and its dynamic shared memory: the tensor-core
-// kernel of bf16x3, bf16x3f and highest, or the CUDA-core one of default
-// and the int arms.
-template <Arm kArm, bool kFused, bool kMulti, int kRounds>
-constexpr auto kernel_of() {
-  if constexpr (kUsesMma<kArm>)
-    return stream_select_mma_kernel<kArm, kFused, kMulti, kRounds>;
-  else
-    return stream_select_kernel<kArm, kFused, kMulti, kRounds>;
-}
-
-template <Arm kArm, bool kMulti>
-constexpr size_t smem_of() {
-  if constexpr (kUsesMma<kArm>)
-    return kMmaSmemBytes<kArm, kMulti>;
-  else
-    return kSmemBytes<kArm, kMulti>;
+  mma_walk<kArm, kMulti, kDepth, kFused>(
+      p0, p1, p2, p3, out, dp, blockIdx.y * kBlockQ, t_begin, t_end, depth,
+      reinterpret_cast<unsigned char*>(smem_f4), warp_ok);
 }
 
 // Lets the kernel take its dynamic shared memory (above the default 48 KB)
 // on the current device.
-template <Arm kArm, bool kFused, bool kMulti, int kRounds>
+template <Arm kArm, bool kFused, bool kMulti, int kDepth>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(kernel_of<kArm, kFused, kMulti, kRounds>(),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_of<kArm, kMulti>()));
+  return cudaFuncSetAttribute(
+      stream_select_mma_kernel<kArm, kFused, kMulti, kDepth>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMmaSmemBytes<kArm, kMulti>));
 }
 
-template <int kRounds>
+template <int kDepth>
 cudaError_t allow_smem_pq(size_t smem) {
-  return cudaFuncSetAttribute(stream_select_pq_kernel<kRounds>,
+  return cudaFuncSetAttribute(stream_select_pq_kernel<kDepth>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-// CTAs per SM of the single-chunk build (the same for the multi-chunk one:
-// one for the tensor-core arms, the static_assert above for default); pq's
-// at its shared memory for ncodes codes (m unused).
-template <Arm kArm, bool kFused, int kRounds>
+// CTAs per SM of the single-chunk build (the multi-chunk one, with more
+// shared memory, holds no more); pq's at its shared memory for ncodes codes
+// (m unused).
+template <Arm kArm, bool kFused, int kDepth>
 cudaError_t ctas_per_sm(int m, int ncodes, int* out) {
   if constexpr (kArm == Arm::kPq) {
-    const size_t smem = pq_smem_bytes(ncodes);
-    cudaError_t err = allow_smem_pq<kRounds>(smem);
+    const size_t smem = pq_smem_bytes(ncodes, kDepth);
+    cudaError_t err = allow_smem_pq<kDepth>(smem);
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, stream_select_pq_kernel<kRounds>, kThreads, smem);
+        out, stream_select_pq_kernel<kDepth>, kThreads, smem);
   } else {
-    cudaError_t err = allow_smem<kArm, kFused, false, kRounds>();
+    cudaError_t err = allow_smem<kArm, kFused, false, kDepth>();
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, kernel_of<kArm, kFused, false, kRounds>(), kThreads,
-        smem_of<kArm, false>());
+        out, stream_select_mma_kernel<kArm, kFused, false, kDepth>, kThreads,
+        kMmaSmemBytes<kArm, false>);
   }
 }
 
-template <Arm kArm, bool kFused, bool kMulti, int kRounds>
+template <Arm kArm, bool kFused, bool kMulti, int kDepth>
 cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
                          const void* p2, const void* p3, const Out& out,
                          int dp, int seg_tiles, int depth, int ncodes,
                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (kArm == Arm::kPq) {
-    const size_t smem = pq_smem_bytes(ncodes);
-    cudaError_t err = allow_smem_pq<kRounds>(smem);
+    const size_t smem = pq_smem_bytes(ncodes, kDepth);
+    cudaError_t err = allow_smem_pq<kDepth>(smem);
     if (err != cudaSuccess) return err;
-    stream_select_pq_kernel<kRounds><<<grid, kThreads, smem, st>>>(
+    stream_select_pq_kernel<kDepth><<<grid, kThreads, smem, st>>>(
         static_cast<const float*>(p0), static_cast<const uint8_t*>(p1),
         static_cast<const float*>(p3), out, dp, ncodes, seg_tiles);
   } else {
-    cudaError_t err = allow_smem<kArm, kFused, kMulti, kRounds>();
+    cudaError_t err = allow_smem<kArm, kFused, kMulti, kDepth>();
     if (err != cudaSuccess) return err;
-    if constexpr (kUsesMma<kArm>)
-      stream_select_mma_kernel<kArm, kFused, kMulti, kRounds>
-          <<<grid, kThreads, kMmaSmemBytes<kArm, kMulti>, st>>>(
-              static_cast<const float*>(p0), p1, p2,
-              static_cast<const float*>(p3), out, dp, seg_tiles, depth);
-    else
-      stream_select_kernel<kArm, kFused, kMulti, kRounds>
-          <<<grid, kThreads, kSmemBytes<kArm, kMulti>, st>>>(
-              p0, p1, p2, static_cast<const float*>(p3), out, dp, seg_tiles,
-              depth);
+    stream_select_mma_kernel<kArm, kFused, kMulti, kDepth>
+        <<<grid, kThreads, kMmaSmemBytes<kArm, kMulti>, st>>>(
+            p0, p1, p2, static_cast<const float*>(p3), out, dp, seg_tiles,
+            depth);
   }
   return cudaGetLastError();
 }
 
-template <Arm kArm, bool kFused, int kRounds>
+template <Arm kArm, bool kFused, int kDepth>
 cudaError_t launch_binning(dim3 grid, const void* p0, const void* p1,
                            const void* p2, const void* p3, const Out& out,
                            int dp, int seg_tiles, int depth, int ncodes,
                            void* stream) {
-  if constexpr (!kIsInt<kArm> && kArm != Arm::kPq) {
+  if constexpr (kArm != Arm::kPq) {
     if (dp > kDimChunk)
-      return launch_build<kArm, kFused, true, kRounds>(
+      return launch_build<kArm, kFused, true, kDepth>(
           grid, p0, p1, p2, p3, out, dp, seg_tiles, depth, ncodes, stream);
   }
-  return launch_build<kArm, kFused, false, kRounds>(
+  return launch_build<kArm, kFused, false, kDepth>(
       grid, p0, p1, p2, p3, out, dp, seg_tiles, depth, ncodes, stream);
 }
 
@@ -485,25 +207,25 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
     return launch_binning<kArm, true, 0>(grid, p0, p1, p2, p3, out, dp,
                                          seg_tiles, depth, ncodes, stream);
   } else {
-    switch (emit_rounds(bin_w, survivors)) {
+    switch (emit_depth(bin_w, survivors)) {
       case 0:
         return launch_binning<kArm, false, 0>(grid, p0, p1, p2, p3, out, dp,
                                               seg_tiles, 0, ncodes, stream);
-      case kLaneRoundsSmall:
-        return launch_binning<kArm, false, kLaneRoundsSmall>(
+      case kLaneDepthSmall:
+        return launch_binning<kArm, false, kLaneDepthSmall>(
             grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
       default:
-        return launch_binning<kArm, false, kLaneRounds>(
+        return launch_binning<kArm, false, kLaneDepth>(
             grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
     }
   }
 }
 
-template <bool kFused, int kRounds>
+template <bool kFused, int kDepth>
 cudaError_t ctas_per_sm_of(int arm, int m, int ncodes, int* out) {
   switch (arm) {
 #define ARM_CASE(ARM) \
-  case static_cast<int>(ARM): return ctas_per_sm<ARM, kFused, kRounds>(m, ncodes, out);
+  case static_cast<int>(ARM): return ctas_per_sm<ARM, kFused, kDepth>(m, ncodes, out);
     ARM_CASE(Arm::kBf16x3)
     ARM_CASE(Arm::kInt8)
     ARM_CASE(Arm::kInt4)
@@ -513,7 +235,7 @@ cudaError_t ctas_per_sm_of(int arm, int m, int ncodes, int* out) {
 #undef ARM_CASE
     case static_cast<int>(Arm::kPq):
       if constexpr (kFused) return cudaErrorInvalidValue;
-      else return ctas_per_sm<Arm::kPq, false, kRounds>(m, ncodes, out);
+      else return ctas_per_sm<Arm::kPq, false, kDepth>(m, ncodes, out);
     default:
       return cudaErrorInvalidValue;
   }
@@ -578,18 +300,18 @@ STREAM_ENTRY(pq, Arm::kPq)
 // tile segments with it.  Returns the cudaError (0 = *out is set).
 extern "C" int stream_ctas_per_sm(int fused, int arm, int bin_w, int survivors,
                                   int m, int ncodes, int* out) {
-  const int slots = emit_rounds(bin_w, survivors);
+  const int slots = emit_depth(bin_w, survivors);
   if (fused)
     return static_cast<int>(slots ? cudaErrorInvalidValue
                                   : ctas_per_sm_of<true, 0>(arm, m, ncodes, out));
   switch (slots) {
     case 0:
       return static_cast<int>(ctas_per_sm_of<false, 0>(arm, m, ncodes, out));
-    case kLaneRoundsSmall:
+    case kLaneDepthSmall:
       return static_cast<int>(
-          ctas_per_sm_of<false, kLaneRoundsSmall>(arm, m, ncodes, out));
+          ctas_per_sm_of<false, kLaneDepthSmall>(arm, m, ncodes, out));
     default:
       return static_cast<int>(
-          ctas_per_sm_of<false, kLaneRounds>(arm, m, ncodes, out));
+          ctas_per_sm_of<false, kLaneDepth>(arm, m, ncodes, out));
   }
 }

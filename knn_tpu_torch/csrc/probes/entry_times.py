@@ -1,0 +1,95 @@
+"""Times every coarse entry of the default, int8 and int4 arms on one card.
+
+    python3 knn_tpu_torch/csrc/probes/entry_times.py [--arms default,int8,int4]
+
+Imports ``knn_tpu_torch`` from the checkout that holds this file (three
+directories up), so a copy of the file placed in another checkout of the
+repository times that checkout's kernels: two checkouts can be timed in
+turns in one run on one card.  At 4,096 queries against 1,000,000 x
+128 uniform rows (the SIFT1M shape, drawn as chip_smoke.py draws them), for
+each arm: the grouped tiled, db-major, streaming and fused entries and the
+lane tiled, db-major and streaming entries (128-row bins, 2 survivors),
+each timed with CUDA events (mean of 3 launches after one warm-up), in
+turns grouped, lane, lane, grouped.  Prints the card's name and power
+limit, then one JSON line per (arm, entry).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[3]
+sys.path.insert(0, str(ROOT))
+from knn_tpu_torch.ops import _cuda  # noqa: E402
+from knn_tpu_torch.ops import coarse_knn as ck  # noqa: E402
+
+
+def time_ms(fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arms", default="default,int8,int4")
+    arms = ap.parse_args().arms.split(",")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    _cuda.build()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    n, n_q = 1_000_000, 4096
+    db = torch.from_numpy((rng.random(size=(n, 128)) * 128.0)
+                          .astype(np.float32)).to(dev)
+    q = torch.from_numpy((rng.random(size=(n_q, 128)) * 128.0)
+                         .astype(np.float32)).to(dev)
+    lane = {"binning": "lane"}
+    entries = {"tiled": (ck.binned_select, {}),
+               "db_major": (ck.binned_select, {"grid_order": "db_major"}),
+               "streaming": (ck.stream_select, {}),
+               "fused": (ck.fused_select, {"keep": 130})}
+    for arm in arms:
+        if arm in ck.INT_ARMS:
+            args = (*ck.quantize_queries(q), *ck.prepare_db_int(db, ck.TILE_N,
+                                                                arm))
+        else:
+            args = (ck.pad_queries(q), *ck.prepare_db_arm(db, ck.TILE_N, arm))
+        for entry, (fn, kw) in entries.items():
+            def grouped():
+                return fn(*args, tile_n=ck.TILE_N, arm=arm, **kw)
+
+            def lanes():
+                return fn(*args, tile_n=ck.TILE_N, arm=arm, **kw, **lane)
+            out = {"checkout": ROOT.name, "arm": arm, "entry": entry,
+                   "queries": n_q, "rows": n}
+            if entry == "fused":   # grouped binning only
+                out["grouped_ms"] = [time_ms(grouped), time_ms(grouped)]
+            else:
+                g1 = time_ms(grouped)
+                out["lane_ms"] = [time_ms(lanes), time_ms(lanes)]
+                out["grouped_ms"] = [g1, time_ms(grouped)]
+                out["lane_over_grouped"] = (sum(out["lane_ms"])
+                                            / sum(out["grouped_ms"]))
+            print(json.dumps(out), flush=True)
+        del args
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -27,13 +27,14 @@ What runs where:
 - The arms' arithmetic (``csrc/binned_select.cuh``): the f32 family sums
   each 128-dim chunk in its own accumulator and adds the chunks in f32,
   the TPU body's order — on the tensor cores (``csrc/binned_mma.cuh``, one
-  mainloop for every bf16x3, bf16x3f and highest entry; :func:`mma_probe`
-  and :func:`dmma_probe` run one of its k-steps alone) bf16x3 ``qh.th +
+  mainloop for every entry but pq's; :func:`mma_probe` and
+  :func:`dmma_probe` run one of its k-steps alone) bf16x3 ``qh.th +
   (qh.tl + ql.th)`` in two accumulators, bf16x3f the same products in
-  one, highest the exact products of the f32 values summed in f64 per
-  chunk on the FP64 tensor cores; on CUDA cores default the one bf16
-  product; the int arms an exact int32 dot and one f32 rescale ``(f32(dot)
-  * qsc) * ts``, held bitwise against their plain versions; pq
+  one, default the one bf16 product ``qh.th`` in one, highest the exact
+  products of the f32 values summed in f64 per chunk on the FP64 tensor
+  cores; the int arms an exact int32 dot on the s8 tensor cores and one
+  f32 rescale ``(f32(dot) * qsc) * ts``, held bitwise against their plain
+  versions; pq
   (``csrc/binned_pq.cuh``) the sum of the row's LUT entries, one subspace
   after another in f32 (bitwise its plain version too).  Every wrapper
   takes the arm as ``arm`` and checks that the operands are that arm's
@@ -133,6 +134,10 @@ def accumulation_coefficient(arm: str, nd: int) -> float:
     - bf16x3f (K4 on tensor cores): per chunk 24 k-steps (8 of each
       product) into one accumulator, 24 MMA_KAPPA u P_c, and the nd - 1
       chunk adds;
+    - default (K3 on tensor cores): per chunk 8 k-steps of qh.th into one
+      accumulator, 8 MMA_KAPPA u P_c, and the nd - 1 chunk adds (P over
+      the bf16 values' products: the one pass's rounding of q and t is
+      the arm's definition);
     - highest (K2 on the FP64 tensor cores): exact products summed in f64
       per chunk, 16 k-steps of DMMA_K (the header's step model: <= 128
       2^-53 P_c a chunk), one rounding to f32 per chunk, the chunk adds."""
@@ -140,6 +145,8 @@ def accumulation_coefficient(arm: str, nd: int) -> float:
         return (DIM_CHUNK // MMA_K * MMA_KAPPA + nd) * (1 + 2.0 ** -7)
     if arm == "bf16x3f":
         return (3 * DIM_CHUNK // MMA_K * MMA_KAPPA + nd - 1) * (1 + 2.0 ** -7)
+    if arm == "default":
+        return (DIM_CHUNK // MMA_K * MMA_KAPPA + nd - 1) * (1 + 2.0 ** -7)
     if arm == "highest":
         return nd * (1 + 2.0 ** -20)
     raise ValueError(f"arm {arm!r} has no accumulation bound")
@@ -162,21 +169,26 @@ def bf16_tolerance_scale(arm: str, nd: int) -> float:
 
 def kernel_plain_tolerance_scale(arm: str, nd: int) -> float:
     """Per unit of ``(||q||^2 + max||t||^2)``, how far a coarse kernel's
-    score may lie from its plain version's at ``nd`` chunks: for the
+    score may lie from its plain version's at ``nd`` chunks: for the bf16
     tensor-core arms the proved sum of the kernel's summation bound
     (:func:`accumulation_coefficient`) and the plain version's, plus both
     roundings of s (|s| <= 2 (||q||^2 + M)) -- the plain bf16x3 sums three
     f32 products of 128 terms per chunk in any order, two adds and the
     chunk adds, (128 + nd)(1 + 2^-7) u P; the plain bf16x3f one f32 product
     of 384 terms per chunk and the chunk adds, (384 + nd)(1 + 2^-7) u P;
-    for highest ``(2 nd + 4) u`` (the two differ only in each chunk's f64
-    order); for default ``128 u``."""
-    if arm in ("bf16x3", "bf16x3f"):
-        terms = DIM_CHUNK if arm == "bf16x3" else 3 * DIM_CHUNK
+    the plain default one f32 product of 128 terms per chunk and the chunk
+    adds, counted as (128 + nd)(1 + 2^-7) u P (two adds more than it
+    makes: they cover the bf16 values' P <= (1 + 2^-8)^2 (||q||^2 + M) / 2,
+    csrc/binned_mma.cuh) -- 456.5 u at Dp = 128; for highest ``(2 nd +
+    4) u`` (the two differ only in each chunk's f64 order); ``128 u`` for
+    the int and pq arms, whose kernels are bitwise their plain versions."""
+    if arm in ("bf16x3", "bf16x3f", "default"):
+        terms = 3 * DIM_CHUNK if arm == "bf16x3f" else DIM_CHUNK
         plain = (terms + nd) * (1 + 2.0 ** -7)
         return (accumulation_coefficient(arm, nd) + plain + 4) * U32
     if arm == "highest":
         return (2 * nd + 4) * U32
+    # the int and pq kernels are held bitwise against their plain versions
     return 128 * U32
 
 #: the JAX package's knob domains, and the values this port runs
@@ -1014,8 +1026,8 @@ def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
     """Db tiles each CTA of K10/K11 walks.  The tile loop is split into
     contiguous segments so that the grid (segments x query blocks) fills
     about one wave of ``wave_ctas`` CTAs (SMs x CTAs per SM): at Q=4,096
-    (128 query blocks) on 132 SMs that hold 2 each, that is 2 segments of
-    31 of the 62 SIFT1M tiles."""
+    (128 query blocks) on 132 SMs that hold 1 each, that is one segment of
+    the 62 SIFT1M tiles; at Q=1,024 (32 blocks), 4 segments of 16."""
     n_blocks = -(-n_q // QUERY_BLOCK)
     n_seg = max(1, min(n_tiles, wave_ctas // max(1, n_blocks)))
     return -(-n_tiles // n_seg)

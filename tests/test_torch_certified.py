@@ -464,7 +464,8 @@ def test_bf16x3f_tolerance_is_the_proved_sum(nd):
         assert scale / 2.0 ** -14 == pytest.approx(1.76318359375, abs=1e-12)
 
 
-@pytest.mark.parametrize("arm,terms", [("bf16x3", 128), ("bf16x3f", 384)])
+@pytest.mark.parametrize("arm,terms", [("bf16x3", 128), ("bf16x3f", 384),
+                                       ("default", 128)])
 @pytest.mark.parametrize("nd", [1, 7])
 def test_kernel_plain_tolerance_is_the_proved_sum(arm, terms, nd):
     # the kernel's summation bound plus the plain version's (one f32 product
@@ -473,6 +474,117 @@ def test_kernel_plain_tolerance_is_the_proved_sum(arm, terms, nd):
     plain = (terms + nd) * (1 + 2.0 ** -7)
     want = (ck.accumulation_coefficient(arm, nd) + plain + 4) * ck.U32
     assert ck.kernel_plain_tolerance_scale(arm, nd) == want
+
+
+# --- K3 (default) on the bf16 tensor cores: 8 k-steps of qh.th a chunk
+# into one accumulator (csrc/binned_mma.cuh), its proved coefficient and
+# the kernel-vs-plain tolerance that stands on it
+
+def _k3_chunked_sums(q, t, block=8):
+    """K3's qt in the tensor-core step model, in the walk's k-order: per
+    128-dim chunk, per 16-dim k-step, qh.th into one accumulator from 0;
+    the chunk sums added in f32.  Returns (qt as f32 values in float64, qh
+    and th as float64: the bf16 operands, whose products are exact)."""
+    qh = ck.split_bf16(torch.from_numpy(q))[0].double().numpy()
+    th = ck.split_bf16(torch.from_numpy(t))[0].double().numpy()
+    total = None
+    for c in range(0, q.shape[1], ck.DIM_CHUNK):
+        acc = np.zeros((q.shape[0], t.shape[0]))
+        for k0 in range(c, c + ck.DIM_CHUNK, ck.MMA_K):
+            p = qh[:, None, k0:k0 + ck.MMA_K] * th[None, :, k0:k0 + ck.MMA_K]
+            acc = ck.mma_step_model(acc, p, block)
+        chunk = acc.astype(np.float32)
+        total = chunk if total is None else total + chunk
+    return total.astype(np.float64), qh, th
+
+
+def _k3_data(dim, data):
+    rng = np.random.default_rng(dim + len(data))
+    if data == "all_positive":  # values of many magnitudes, so steps round
+        q, t = (rng.uniform(1.0, 2.0, size=(n, dim))
+                * 2.0 ** rng.integers(-8, 8, size=(n, dim))
+                for n in (3, 5))
+        q, t = q.astype(np.float32), t.astype(np.float32)
+    else:  # rows nearly orthogonal to every query: |q.t| << P
+        q = rng.normal(size=(3, dim))
+        t = rng.normal(size=(5, dim))
+        basis, _ = np.linalg.qr(q.T)
+        t = t - (t @ basis) @ basis.T
+        q, t = q.astype(np.float32), t.astype(np.float32)
+    return q, t
+
+
+@pytest.mark.parametrize("dim", [128, 896])
+@pytest.mark.parametrize("data", ["all_positive", "cancelling"])
+@pytest.mark.parametrize("block", [8, 16])
+def test_k3_replay_stays_inside_its_coefficient(dim, data, block):
+    # the numpy replay of K3's chunk sums in the walk's k-order errs by no
+    # more than accumulation_coefficient("default") u P of the exact sum of
+    # its bf16 products (Fractions), on all-positive values (every partial
+    # sum grows) and on cancelling ones (rows orthogonal to the queries)
+    from fractions import Fraction
+
+    q, t = _k3_data(dim, data)
+    nd = dim // ck.DIM_CHUNK
+    got, qh, th = _k3_chunked_sums(q, t, block)
+    exact, p_sum = _exact_dot(qh, th)
+    coef = Fraction(ck.accumulation_coefficient("default", nd))
+    worst = 0.0
+    for i in range(q.shape[0]):
+        for j in range(t.shape[0]):
+            err = abs(Fraction(float(got[i, j])) - exact[i][j])
+            assert err <= coef * Fraction(ck.U32) * p_sum[i][j]
+            worst = max(worst, float(err / p_sum[i][j]))
+    if data == "all_positive":
+        assert worst > 0  # the model truncates
+    else:  # the sums cancel: |q.t| is far below P
+        assert max(abs(float(exact[i][j] / p_sum[i][j]))
+                   for i in range(3) for j in range(5)) < 0.1
+
+
+@pytest.mark.parametrize("dim", [128, 896])
+@pytest.mark.parametrize("data", ["all_positive", "cancelling"])
+def test_k3_replay_against_the_plain_version_inside_the_tolerance(dim, data):
+    # K3's scores in the step model against its plain version on the CPU
+    # (binned_select_plain: an f32 matmul a chunk) stay within
+    # kernel_plain_tolerance_scale("default", nd) (||q||^2 + M); tile_n =
+    # 128 puts every row's score in survivor 0 of its bin
+    q, t = _k3_data(dim, data)
+    t = np.concatenate([t] * 26)[:128]   # one full 128-row tile
+    nd = -(-dim // ck.DIM_CHUNK)
+    ops = (ck.pad_queries(torch.from_numpy(q)),
+           *ck.prepare_db_arm(torch.from_numpy(t), ck.BIN_W, "default"))
+    cd, ci, _ = ck.binned_select_plain(*ops, tile_n=ck.BIN_W, arm="default")
+    got, _, _ = _k3_chunked_sums(q, t)
+    tn = ops[-1][0].double().numpy()
+    s_model = (tn[None, :] - 2.0 * got).astype(np.float32)
+    plain = cd.numpy()[:, :ck.BIN_W].astype(np.float64)
+    model = np.take_along_axis(s_model, ci.numpy()[:, :ck.BIN_W], 1)
+    q64, t64 = q.astype(np.float64), t.astype(np.float64)
+    scale = (q64 ** 2).sum(-1) + (t64 ** 2).sum(-1).max()
+    err = np.abs(plain - model).max(-1)
+    assert (err <= ck.kernel_plain_tolerance_scale("default", nd) * scale).all()
+
+
+@pytest.mark.parametrize("nd", [1, 7])
+def test_default_tolerance_is_proved_and_above_two_f32_chains(nd):
+    # K3's kernel-vs-plain tolerance is the proved sum (8 kappa + nd - 1 +
+    # 128 + nd)(1 + 2^-7) + 4 -- 456.5 u at Dp = 128, where 128 u stood
+    # unproved -- and never below what two f32 FMA chains of the same
+    # products could differ by, (256 + 2 nd + 4) u; default keeps no
+    # certificate tolerance, as the reference
+    u = ck.U32
+    coef = (8 * ck.MMA_KAPPA + nd - 1) * (1 + 2.0 ** -7)
+    assert ck.accumulation_coefficient("default", nd) == coef
+    scale = ck.kernel_plain_tolerance_scale("default", nd)
+    assert scale == (coef + (128 + nd) * (1 + 2.0 ** -7) + 4) * u
+    assert scale >= (256 + 2 * nd + 4) * u
+    if nd == 1:
+        assert scale / u == pytest.approx(456.5078125, abs=1e-9)
+    with pytest.raises(ValueError, match="no certified tolerance"):
+        ck.kernel_tolerance(np.zeros((2, 128 * nd), np.float32),
+                            np.ones((4, 128 * nd), np.float32),
+                            precision="default")
 
 
 # --- K2 (highest) on the FP64 tensor cores: 16 m16n8k8 steps a chunk into

@@ -11,10 +11,10 @@ f32 scores agree within 64 eps_f32 (||q||^2 + max||t||^2) per query (the
 two sum in different orders; for highest, whose two differ only in the
 order of each chunk's f64 sum, within (2 nd + 4) u (||q||^2 +
 max||t||^2); a CUDA kernel against its plain version within
-ck.kernel_plain_tolerance_scale, for the tensor-core arms bf16x3 and
-bf16x3f the proved sum of the two summations' bounds), ci is equal
-wherever a bin's values are separated by more than that, and pad-row
-scores (~1e35, from PAD_VAL rows) are compared by class.
+ck.kernel_plain_tolerance_scale, for the bf16 tensor-core arms bf16x3,
+bf16x3f and default the proved sum of the two summations' bounds), ci is
+equal wherever a bin's values are separated by more than that, and
+pad-row scores (~1e35, from PAD_VAL rows) are compared by class.
 """
 
 import numpy as np
@@ -40,9 +40,9 @@ def _tol(q, db, arm="bf16x3", kernel=False):
     # at most one ulp), then add the nd chunks and form s in the same f32
     # order (at most one more ulp each): |Δs| <= (2 nd + 4) u (||q||^2 + M).
     # ``kernel``: a CUDA kernel against its plain version, at
-    # ck.kernel_plain_tolerance_scale -- for bf16x3 and bf16x3f the proved
-    # sum of the tensor-core summation's bound and the plain version's
-    # (past 64 eps_f32), for highest the value below, for default 128 u
+    # ck.kernel_plain_tolerance_scale -- for bf16x3, bf16x3f and default
+    # the proved sum of the tensor-core summation's bound and the plain
+    # version's (past 64 eps_f32), for highest the value below
     q64, db64 = q.astype(np.float64), db.astype(np.float64)
     scale = (q64 ** 2).sum(-1) + (db64 ** 2).sum(-1).max()
     nd = -(-q.shape[1] // ck.DIM_CHUNK)
@@ -490,6 +490,102 @@ def test_cuda_highest_entries_are_bitwise_alike(cuda_device, dim, tile_n):
     # in both grids, streaming, fused and the lane builds give the same
     # bits, within (2 nd + 4) u of the plain version
     _tensor_core_entries_alike(cuda_device, "highest", dim, tile_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,tile_n", [(24, 256), (300, 256), (128, 16384),
+                                        (896, 256)])
+def test_cuda_default_entries_are_bitwise_alike(cuda_device, dim, tile_n):
+    # K3 runs the bf16 tensor-core walk for every entry, one k-order: tiled
+    # in both grids, streaming, fused and the lane builds give the same
+    # bits, within the proved kernel-vs-plain tolerance
+    _tensor_core_entries_alike(cuda_device, "default", dim, tile_n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [128, 896])
+@pytest.mark.parametrize("kernel", ["tiled", "streaming", "fused"])
+def test_cuda_default_kernel_within_the_proved_tolerance(cuda_device, dim,
+                                                         kernel):
+    # all-positive values, every partial sum growing: the chains' worst
+    # shape; tile_n = 128 puts every row's score in survivor 0 of its bin
+    rng = np.random.default_rng(dim + 5)
+    q = rng.uniform(1.0, 2.0, size=(32, dim)).astype(np.float32)
+    db = rng.uniform(1.0, 2.0, size=(512, dim)).astype(np.float32)
+    ops = _f32_operands(cuda_device, "default", q, db, ck.BIN_W)
+    fn = {"tiled": ck.binned_select, "streaming": ck.stream_select,
+          "fused": ck.fused_select}[kernel]
+    kw = {"keep": None} if kernel == "fused" else {}
+    kern = [a.cpu().numpy() for a in fn(*ops, tile_n=ck.BIN_W, arm="default",
+                                        **kw)]
+    plain = [a.cpu().numpy() for a in ck.binned_select_plain(
+        *ops, tile_n=ck.BIN_W, arm="default")]
+    np.testing.assert_array_equal(kern[1], plain[1])
+    tol = _tol(q, db, "default", kernel=True)
+    _assert_scores(kern[0], plain[0], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["int8", "int4"])
+@pytest.mark.parametrize("dim", [128, 256, 896])
+def test_cuda_int_entries_bitwise_plain_at_every_build(cuda_device, arm, dim):
+    # the s8 tensor-core walk at Dp = 128 (the query block staged once) and
+    # above (its chunk staged per step): 45 queries (a ragged last block),
+    # 767 rows (the last tile one row short of full, so the tile-edge rows
+    # sit beside a PAD_VAL row), exact ties; every entry bitwise its plain
+    # version, the lane builds too
+    tile_n = 256
+    args = _int_case(cuda_device, arm, 45, 3 * tile_n - 1, dim, tile_n,
+                     dim + 45)
+    ka = {"tile_n": tile_n, "arm": arm}
+    plain = ck.binned_select_plain(*args, **ka)
+    for out in (ck.binned_select(*args, **ka),
+                ck.binned_select(*args, **ka, grid_order="db_major"),
+                ck.stream_select(*args, **ka),
+                ck.fused_select(*args, **ka, keep=None)):
+        for a, b in zip(out, plain):
+            assert torch.equal(a, b)
+    lane = {"binning": "lane", "survivors": 3, "bin_w": 256}
+    plain = ck.binned_select_plain(*args, **ka, **lane)
+    for out in (ck.binned_select(*args, **ka, **lane),
+                ck.binned_select(*args, **ka, **lane, grid_order="db_major"),
+                ck.stream_select(*args, **ka, **lane)):
+        for a, b in zip(out, plain):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["default", "int8", "int4"])
+def test_cuda_fused_multi_chunk_entries_skip_the_plain_cells(cuda_device,
+                                                            arm):
+    # the far-tile case at 200 dims (Dp = 256: the multi-chunk builds) with
+    # 4,096 queries: the fused entry skips the cells the plain version skips
+    # at the same segments, the rest bitwise (int) or within the tolerance
+    rng = np.random.default_rng(13)
+    db = rng.normal(size=(6 * 128, 200)).astype(np.float32)
+    db[2 * 128:] += 500.0
+    q = (db[rng.integers(0, 2 * 128, size=4096)]
+         + rng.normal(size=(4096, 200)).astype(np.float32) * 1e-2)
+    if arm == "default":
+        ops = _f32_operands(cuda_device, arm, q, db, 256)
+    else:
+        ops = (*ck.quantize_queries(torch.from_numpy(q).to(cuda_device)),
+               *ck.prepare_db_int(torch.from_numpy(db).to(cuda_device), 256,
+                                  arm))
+    n_tiles = ops[-1].shape[-1] // 256
+    seg = ck.kernel_segment_tiles(4096, n_tiles, cuda_device, "fused", arm)
+    kern = ck.fused_select(*ops, tile_n=256, keep=15, arm=arm)
+    plain = ck.fused_select_plain(*ops, tile_n=256, keep=15, arm=arm,
+                                  block_q=ck.QUERY_BLOCK, seg_tiles=seg)
+    skip = ck.skipped_cells(kern[0], n_tiles)
+    assert torch.equal(skip, ck.skipped_cells(plain[0], n_tiles))
+    assert bool(skip.any())
+    if arm == "default":
+        tol = _tol(q, db, arm, kernel=True)
+        _assert_scores(kern[0].cpu().numpy(), plain[0].cpu().numpy(), tol)
+    else:
+        for a, b in zip(kern, plain):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -168,83 +168,88 @@ def test_lane_ties_go_to_the_lower_row_and_differ_from_grouped():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-# --- K8's warp merge (csrc/binned_select.cuh, Emitter) replayed on the host
+# --- K8's lane lists and their warp merge (csrc/binned_select.cuh, Emitter)
+# replayed on the host
 
-_TAKEN = np.uint32(0xFFFFFFFF)
-_KEY_INF = np.uint32(0xFF800000)
-
-
-def _order_key(x):
-    """binned_select.cuh order_key: f32 -> uint32 in the floats' order, -0
-    as +0, NaN as taken."""
-    b = x.view(np.uint32)
-    k = np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
-    k = np.where(b == 0x80000000, np.uint32(0x80000000), k)
-    return np.where((b & 0x7FFFFFFF) > 0x7F800000, _TAKEN, k).astype(np.uint32)
+_I32MAX = np.iinfo(np.int32).max
 
 
-def _key_value(key, packed):
-    """binned_select.cuh key_value: a (key, packed row) pair's score."""
-    bits = np.where(key & 0x80000000, key & 0x7FFFFFFF, ~key).astype(np.uint32)
-    v = np.where(packed & 1, np.float32(-0.0), bits.view(np.float32))
-    return np.where(key >= _KEY_INF, np.float32(np.inf), v).astype(np.float32)
+def _before(va, ra, vb, rb):
+    """binned_select.cuh lane_before: (va, ra) ahead of (vb, rb) -- by
+    value, then row."""
+    return (va < vb) | ((va == vb) & (ra < rb))
+
+
+def _insert(lv, lr, v, r):
+    """Emitter::insert on every list at once: (v, r) into the sorted lists
+    lv, lr [..., depth] with strict `<`."""
+    for d in range(lv.shape[-1]):
+        less = v < lv[..., d]
+        tv, tr = lv[..., d].copy(), lr[..., d].copy()
+        lv[..., d] = np.where(less, v, tv)
+        lr[..., d] = np.where(less, r, tr)
+        v, r = np.where(less, tv, v), np.where(less, tr, r)
+
+
+def _butterfly_merge(lv, lr):
+    """Emitter::merge on lists [Q, 8 lanes, depth]: three shuffle steps,
+    each keeping the elementwise smaller of a lane's list and its partner's
+    reversed, then an odd-even transposition sort."""
+    depth = lv.shape[-1]
+    slot = np.arange(8)
+    for m in (1, 2, 4):
+        bv, br = lv[:, slot ^ m, ::-1], lr[:, slot ^ m, ::-1]
+        theirs = _before(bv, br, lv, lr)
+        lv, lr = np.where(theirs, bv, lv), np.where(theirs, br, lr)
+        for ph in range(depth):
+            for d in range(ph % 2, depth - 1, 2):
+                swap = _before(lv[..., d + 1], lr[..., d + 1], lv[..., d],
+                               lr[..., d])
+                a, ar = lv[..., d].copy(), lr[..., d].copy()
+                lv[..., d] = np.where(swap, lv[..., d + 1], a)
+                lr[..., d] = np.where(swap, lr[..., d + 1], ar)
+                lv[..., d + 1] = np.where(swap, a, lv[..., d + 1])
+                lr[..., d + 1] = np.where(swap, ar, lr[..., d + 1])
+    return lv, lr
 
 
 def _lane_merge_replay(s, tile_n, geo):
-    """The lane emitter's warp merge on scores ``s [Q, T*tile_n]`` f32, step
-    for step: per query row and 128-row group, lane l holds rows g*128 + l +
-    32 j; the bin's running list is one (key, packed row) pair a lane;
-    surv + 1 rounds each take the warp's smallest key, then its smallest
-    packed row among the lanes that hold that key (redux.sync); the owner
-    drops it, lane r keeps round r's pair; lanes 0 .. surv-1 write the
-    survivors, lane surv the bound.  Returns (cd, ci, bounds) in the
-    geometry's layout."""
+    """The lane emitter on scores ``s [Q, T*tile_n]`` f32, step for step:
+    per query row, 8 lanes each own 16 rows of every 128-row group of a bin
+    (binned_select.cuh lane_row, in increasing order) and keep the kDepth
+    smallest (value, row) pairs in a sorted list (strict `<` against a list
+    that starts at +inf, so +inf and NaN never enter); at the bin's end the
+    8 lists merge in three butterfly steps,
+    and survivor e / the bound come from the merged list (every lane holds
+    the same one).  Returns (cd, ci, bounds) in the kernels' layout."""
     n_bins, surv, out_w, bound_w = geo
+    depth = 3 if surv + 1 <= 3 else 9          # kLaneDepthSmall, kLaneDepth
     n_q = s.shape[0]
     n_tiles = s.shape[1] // tile_n
-    groups = tile_n // 128
-    bin_groups = groups // n_bins
-    lane = np.arange(32)
+    bin_groups = tile_n // 128 // n_bins
     cd = np.full((n_q, n_tiles * out_w), np.inf, np.float32)
-    ci = np.full((n_q, n_tiles * out_w), np.iinfo(np.int32).max, np.int32)
+    ci = np.full((n_q, n_tiles * out_w), _I32MAX, np.int32)
     bounds = np.full((n_q, n_tiles * bound_w), np.inf, np.float32)
+    slot = np.arange(8)
     for ti in range(n_tiles):
-        rk = np.full((n_q, 32), _TAKEN)
-        rp = np.full((n_q, 32), _TAKEN)
-        for g in range(groups):
-            sc = s[:, ti * tile_n + g * 128:ti * tile_n + (g + 1) * 128]
-            sc = sc.reshape(n_q, 4, 32).transpose(0, 2, 1)  # [Q, lane, j]
-            key = _order_key(np.ascontiguousarray(sc))
-            row = (g * 128 + lane[:, None] + 32 * np.arange(4)[None, :])
-            pk = ((row.astype(np.uint32) << 1)[None]
-                  | (sc.view(np.uint32) == 0x80000000)).astype(np.uint32)
-            nk = np.full((n_q, 32), _TAKEN)
-            np_ = np.full((n_q, 32), _TAKEN)
-            for r in range(surv + 1):
-                bk, bp = rk.copy(), rp.copy()
-                for j in range(4):
-                    less = key[:, :, j] < bk
-                    bk = np.where(less, key[:, :, j], bk)
-                    bp = np.where(less, pk[:, :, j], bp)
-                mk = bk.min(1, keepdims=True)
-                mp = np.where(bk == mk, bp, _TAKEN).min(1, keepdims=True)
-                rk = np.where(rp == mp, _TAKEN, rk)
-                key = np.where(pk == mp[:, :, None], _TAKEN, key)
-                nk[:, r] = mk[:, 0]
-                np_[:, r] = mp[:, 0]
-            rk, rp = nk, np_
-            if (g + 1) % bin_groups == 0:
-                b = g // bin_groups
-                v = _key_value(rk[:, :surv + 1], rp[:, :surv + 1])
-                for r in range(surv):
-                    col = ti * out_w + r * n_bins + b
-                    cd[:, col] = v[:, r]
-                    ci[:, col] = np.where(np.isfinite(v[:, r]),
-                                          ti * tile_n + (rp[:, r] >> 1),
-                                          np.iinfo(np.int32).max)
-                bounds[:, ti * bound_w + b] = v[:, surv]
-                rk = np.full((n_q, 32), _TAKEN)
-                rp = np.full((n_q, 32), _TAKEN)
+        for b in range(n_bins):
+            lv = np.full((n_q, 8, depth), np.inf, np.float32)
+            lr = np.full((n_q, 8, depth), _I32MAX, np.int64)
+            for g in range(b * bin_groups, (b + 1) * bin_groups):
+                for k in range(16):
+                    row = (g * 128 + 32 * (k // 4) + 16 * (slot % 2)
+                           + 4 * (k % 4) + slot // 2)
+                    v = s[:, ti * tile_n + row]
+                    _insert(lv, lr, v, np.broadcast_to(row, v.shape))
+            lv, lr = _butterfly_merge(lv, lr)
+            for e in range(8):   # every lane of a query row holds one list
+                np.testing.assert_array_equal(lr[:, e], lr[:, 0])
+            for e in range(surv):
+                col = ti * out_w + e * n_bins + b
+                cd[:, col] = lv[:, 0, e]
+                ci[:, col] = np.where(np.isfinite(lv[:, 0, e]),
+                                      ti * tile_n + lr[:, 0, e], _I32MAX)
+            bounds[:, ti * bound_w + b] = lv[:, 0, surv]
     return cd, ci, bounds
 
 
@@ -270,11 +275,10 @@ def _hard_scores(rng, n_q, n):
 @pytest.mark.parametrize("survivors", range(1, 9))
 @pytest.mark.parametrize("bin_w", [128, 256, 512])
 def test_warp_merge_replay_is_the_plain_lane_emitter(survivors, bin_w):
-    # the redux.sync merge on (order key, packed row) pairs selects what the
-    # plain lane emitter (repeated min / first-argmin) selects: the same
-    # rows, values equal, the same bounds, +inf / INT32_MAX padding; and the
-    # value it writes is bitwise the selected row's score (the sign of a
-    # zero carried by the packed row)
+    # the per-lane lists and their butterfly merge select what the plain
+    # lane emitter (repeated min / first-argmin) selects: the same rows,
+    # values equal, the same bounds, +inf / INT32_MAX padding; and the value
+    # it writes is bitwise the selected row's score (a -0 stays -0)
     tile_n, n_tiles = 512, 2
     rng = np.random.default_rng(survivors * 1000 + bin_w)
     s = _hard_scores(rng, 6, n_tiles * tile_n)
@@ -295,20 +299,28 @@ def test_warp_merge_replay_is_the_plain_lane_emitter(survivors, bin_w):
             and got[1][3, 0] == 0)             # -0, row 0, won the tie
 
 
-def test_order_key_orders_like_the_floats():
-    vals = np.array([-np.inf, -3.5, -1e-30, -0.0, 0.0, 1e-45, 2.0, 3e38,
-                     np.inf], np.float32)
-    keys = _order_key(vals)
-    assert (np.diff(keys.astype(np.int64)) >= 0).all()
-    assert keys[3] == keys[4]                        # -0 with +0
-    assert (np.diff(keys.astype(np.int64))[[0, 1, 2, 4, 5, 6, 7]] > 0).all()
-    assert keys[-1] == _KEY_INF
-    assert _order_key(np.array([np.nan, -np.nan], np.float32)).tolist() == [
-        0xFFFFFFFF, 0xFFFFFFFF]
-    packed = np.zeros(len(vals), np.uint32)
-    packed[3] = 1
-    np.testing.assert_array_equal(_key_value(keys, packed).view(np.uint32),
-                                  vals.view(np.uint32))
+@pytest.mark.parametrize("depth", [3, 9])
+def test_butterfly_merge_keeps_the_smallest_pairs_in_order(depth):
+    # 8 sorted lists of (value, row) with ties, +-0 and +inf: after the
+    # merge every lane holds the depth smallest pairs of all 8 lists in
+    # (value, row) order, -0 and +0 ordered by row
+    rng = np.random.default_rng(depth)
+    vals = rng.integers(-3, 4, size=(64, 8, depth)).astype(np.float32)
+    vals[::3] = np.where(vals[::3] == 0, np.float32(-0.0), vals[::3])
+    vals[5::7, :, -1] = np.inf
+    rows = rng.permutation(64 * 8 * depth).reshape(64, 8, depth)
+    order = np.lexsort((rows, vals), axis=-1)
+    lv = np.take_along_axis(vals, order, -1)
+    lr = np.take_along_axis(rows, order, -1).astype(np.int64)
+    got_v, got_r = _butterfly_merge(lv.copy(), lr.copy())
+    flat_v, flat_r = lv.reshape(64, -1), lr.reshape(64, -1)
+    want = np.lexsort((flat_r, flat_v), axis=-1)[:, :depth]
+    for lane in range(8):
+        np.testing.assert_array_equal(got_r[:, lane],
+                                      np.take_along_axis(flat_r, want, -1))
+        np.testing.assert_array_equal(
+            got_v[:, lane].view(np.uint32),
+            np.take_along_axis(flat_v, want, -1).view(np.uint32))
 
 
 # --- knobs -------------------------------------------------------------------
