@@ -140,7 +140,21 @@ exits non-zero and prints no result):
              every query, the oracle's, distances within RANK_SLACK,
              fallbacks, q/s), and the counted certificate through the
              default arm's lane entries;
-10. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
+10. survivors — grouped binning at 1, 3 and 8 survivors (the deep builds):
+             every entry of every arm against its plain version on small
+             shapes and on 512 queries of the ``main`` placement, the fused
+             skip on far tiles, the deep entries timed in turns beside the
+             two-survivor ones, ``search_certified`` at 4 and 8 survivors
+             against the oracle (recall@100 1.0), and every deep entry
+             driven through a search at 3;
+11. tune   — the autotuner: the quick grid on the ``main`` rows and the
+             standard grid at 100,000 rows, every candidate timed, gated
+             out by the bitwise gate or refused by the resource gate (one
+             that raised fails the phase), a second call timing 0
+             candidates, and a search resolving its knobs from the cache.
+             The script runs with an empty HOME of its own, so no cached
+             winner picks the knobs of another phase;
+12. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
              --mode certified --selector pallas``, run in-process through
              run_job) on make_mnist_like CSVs (20,000 train, 2,000 test,
              2,000 val), then again with ``--pallas-precision int8`` and
@@ -148,9 +162,10 @@ exits non-zero and prints no result):
              |s_kernel - s_f64| / tolerance ratio of bf16x3, bf16x3f and
              highest at Dp = 896 on the job's rows (must stay below 1), and
              K2's three entries timed there;
-11. kernels — one JSON line per the contract: each ported kernel (K1,
+13. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, the entries of K4, K2, K3, K5, K6, K7, the db-major
-             grid K9 of every arm and the lane entries K8 of every arm)
+             grid K9, the lane entries K8 and the deep grouped entries of
+             every arm)
              with its launches on its own path, its max error against its
              plain version, its time, its plain version's time and its
              bound (one per arm).
@@ -158,14 +173,15 @@ exits non-zero and prints no result):
 Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases`` runs a subset (e.g. ``--phases device,build,kernel``,
 ``--phases device,build,kernel,stream``, ``--phases device,build,quant``,
-``--phases device,build,f32arms``, ``--phases device,build,pq`` or
-``--phases device,build,lane``).
+``--phases device,build,f32arms``, ``--phases device,build,pq``,
+``--phases device,build,lane`` or ``--phases device,build,survivors,tune``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -275,10 +291,10 @@ def check_ci(name, kern, plain, tol_q, n_tiles):
     version padded a skipped tile (+inf).  Returns the slots checked."""
     import torch
 
-    from knn_tpu_torch.ops.coarse_knn import BIN_W, SURVIVORS
+    from knn_tpu_torch.ops.coarse_knn import BIN_W
 
-    survivors = SURVIVORS
     n_q = kern[0].shape[0]
+    survivors = kern[0].shape[1] // (n_tiles * BIN_W)
     cd_p = plain[0].view(n_q, n_tiles, survivors, BIN_W)
     bd_p = plain[2].view(n_q, n_tiles, 1, BIN_W)
     seq = torch.cat([cd_p, bd_p], dim=2)  # [Q, T, S+1, 128] ascending
@@ -789,6 +805,8 @@ def lattice_case(dev, n=65_536, dim=128, n_q=4096, seed=3):
 
 #: (survivors, bin_w) of the lane phase's small cases: every survivor
 #: count, every bin width of a 512-row tile
+#: the grouped survivor counts the deep build is checked at
+SURVIVOR_COUNTS = (1, 3, 8)
 LANE_GEOMETRIES = ((1, 128), (2, 128), (2, 256), (3, 512), (4, 128),
                    (5, 256), (6, 512), (7, 128), (8, 256), (8, 512))
 
@@ -994,7 +1012,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,main,profile,stream,"
-                    "quant,f32arms,pq,lane,classify",
+                    "quant,f32arms,pq,lane,survivors,tune,classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1004,6 +1022,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    # the run's own empty HOME: a search resolves the knobs it leaves at
+    # None with no cached autotuner winner, whatever the user's
+    # ~/.cache/knn_tpu_torch/autotune.json holds (it would pick the kernels
+    # the phases count and time); the tune phase passes its own cache files
+    home = tempfile.TemporaryDirectory(prefix="chip_smoke_home_")
+    os.environ["HOME"] = home.name
     from knn_tpu_torch.device import set_precision_policy
     from knn_tpu_torch.ops import _cuda
     from knn_tpu_torch.ops import coarse_knn as ck
@@ -1071,6 +1095,23 @@ def main(argv=None) -> int:
             f"binned_select_{arm} grid_order=db_major binning=lane",
             "knn_tpu_torch/csrc/binned_coarse.cu",
             "knn_tpu/ops/pallas_knn.py:506")
+    # the deep grouped build (survivors other than 2, binned_select.cuh's
+    # Emitter<kGroupedDeep>) of every entry: tiled, streaming, fused (not
+    # pq) and the db-major grid, the grouped emitter at pallas_knn.py:575
+    deep_entries = [(kern, arm) for arm in ck.ARMS
+                    for kern in ("tiled", "streaming", "fused")
+                    if (kern, arm) != ("fused", "pq")]
+    for kern, arm in deep_entries:
+        lib = "binned_coarse" if kern == "tiled" else "binned_stream"
+        records[f"{kern}_deep_{arm}"] = kernel_record(
+            f"{wrappers[kern].__name__}_{arm} survivors=1..8 (deep build)",
+            f"knn_tpu_torch/csrc/{lib}.cu",
+            "knn_tpu/ops/pallas_knn.py:575")
+    for arm in ck.ARMS:
+        records[f"db_major_deep_{arm}"] = kernel_record(
+            f"binned_select_{arm} grid_order=db_major survivors=1..8 "
+            f"(deep build)", "knn_tpu_torch/csrc/binned_coarse.cu",
+            "knn_tpu/ops/pallas_knn.py:575")
     checks = {key: Check() for key in records}
     # record key -> (wrapper, counter attribute, arm) whose count it reads
     counters = {"k1": (ck.binned_select, "launches", "bf16x3"),
@@ -1081,11 +1122,14 @@ def main(argv=None) -> int:
                 **{f"db_major_{arm}": (ck.binned_select, "db_major_launches",
                                        arm) for arm in ck.ARMS},
                 **{f"{kern}_lane_{arm}": (wrappers[kern], "lane_launches", arm)
-                   for arm in ck.ARMS for kern in ("tiled", "streaming")}}
+                   for arm in ck.ARMS for kern in ("tiled", "streaming")},
+                **{f"{kern}_deep_{arm}": (wrappers[kern], "deep_launches", arm)
+                   for kern, arm in deep_entries}}
 
     def reset_launches():
         for fn in wrappers.values():
             fn.launches = dict.fromkeys(ck.ARMS, 0)
+            fn.deep_launches = dict.fromkeys(ck.ARMS, 0)
         ck.binned_select.db_major_launches = dict.fromkeys(ck.ARMS, 0)
         for fn in (ck.binned_select, ck.stream_select):
             fn.lane_launches = dict.fromkeys(ck.ARMS, 0)
@@ -1099,6 +1143,28 @@ def main(argv=None) -> int:
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "python": sys.version.split()[0],
               "sms": torch.cuda.get_device_properties(0).multi_processor_count})
+
+    def build_resources():
+        """[registers, static shared, local, dynamic shared bytes, CTAs per
+        SM] of every build, by "entry/arm/emitter/dp": the two-survivor
+        grouped build (s2), the deep grouped one (deep), the lane builds
+        (lane3, lane9), at Dp 128 and 256 (pq: at 32 subspaces of 256
+        codes)."""
+        emitters = {"s2": (0, 2), "deep": (0, 3), "lane3": (128, 2),
+                    "lane9": (128, 8)}
+        out = {}
+        for kern in ("tiled", "streaming", "fused"):
+            for arm in ck.ARMS:
+                for emit_name, (bin_w, surv) in emitters.items():
+                    if kern == "fused" and (arm == "pq" or bin_w):
+                        continue
+                    for dp in ((32,) if arm == "pq" else (128, 256)):
+                        res = ck.kernel_resources(
+                            kern, arm, bin_w=bin_w, survivors=surv, dp=dp,
+                            device=dev)
+                        out[f"{kern}/{arm}/{emit_name}/dp{dp}"] = [
+                            res[f] for f in ck.RESOURCE_FIELDS]
+        return out
 
     if "build" in phases:
         t0 = time.perf_counter()
@@ -1139,7 +1205,11 @@ def main(argv=None) -> int:
                             for ln in log.splitlines()
                             if any(s in ln for s in ("Compiling entry",
                                                      "registers", "spill"))]
-                        for n, log in _cuda.build_logs.items()}})
+                        for n, log in _cuda.build_logs.items()},
+              # every build a launch can take, read from the built kernel:
+              # [registers, static shared, local, dynamic shared bytes,
+              # CTAs per SM]
+              "resources": build_resources()})
 
     if "kernel" in phases:
         rng = np.random.default_rng(0)
@@ -1263,6 +1333,8 @@ def main(argv=None) -> int:
             kernel = knobs["kernel"]
             if binning == "lane":
                 own = [f"{kernel}_lane_{arm}"]
+            elif extra.get("survivors") not in (None, ck.SURVIVORS):
+                own = [f"{kernel}_deep_{arm}"]
             else:
                 own = [bf16x3_keys[kernel] if arm == "bf16x3"
                        else f"{kernel}_{arm}"]
@@ -2208,7 +2280,382 @@ def main(argv=None) -> int:
         out["default"]["counted_certificate"] = counted
         emit(out)
 
-    if phases & {"main", "stream", "quant", "f32arms", "pq", "lane"}:
+    def grouped_compare(name, key, out, plain, tol_q, n_tiles):
+        """A grouped entry's output against its plain version: bitwise
+        (int, pq: ``tol_q`` None), else cd and bounds within ``tol_q`` and
+        ci equal on separated slots; folds the error into ``key``'s
+        check."""
+        chk = checks[key]
+        if tol_q is None:
+            err = bitwise(name, out, plain)
+        else:
+            err = max(chk.values(f"{name} cd", out[0], plain[0], tol_q),
+                      chk.values(f"{name} bounds", out[2], plain[2], tol_q))
+            check_ci(name, out, plain, tol_q, n_tiles)
+        chk.max_abs_err = max(chk.max_abs_err, err)
+        return err
+
+    def deep_fused_compare(name, key, args, kw, plain, tol_q, keep, n_tiles):
+        """The fused entry at ``kw``'s survivors against its plain version
+        at the kernel's own geometry (query blocks, tile segments): the
+        same skipped (block, tile) cells and the rest as grouped_compare;
+        returns the skipped cells."""
+        surv = ck.emit_geometry(kw["tile_n"], survivors=kw["survivors"])[1]
+        seg = ck.kernel_segment_tiles(args[0].shape[0], n_tiles, dev,
+                                      "fused", kw["arm"], (0, surv))
+        kern = ck.fused_select(*args, **kw, keep=keep)
+        fplain = ck._early_out(tuple(t.clone() for t in plain), n_tiles,
+                               keep, ck.QUERY_BLOCK, seg)
+        skip = ck.skipped_cells(kern[0], n_tiles)
+        if not torch.equal(skip, ck.skipped_cells(fplain[0], n_tiles)):
+            raise AssertionError(f"{name}: skipped other cells than its "
+                                 f"plain version")
+        grouped_compare(name, key, kern, fplain, tol_q, n_tiles)
+        return int(skip.sum())
+
+    def counted_deep_runs(D, labels, ref_i):
+        """The counted certificate through the default arm's deep entries
+        at 3 survivors on D's queries, the launch counts read around each
+        call alone: each its own entry once, the oracle's indices."""
+        from knn_tpu_torch import knn_search_certified, pallas_candidate_fn
+
+        runs = {}
+        for label in labels:
+            kern = kernel_configs[label]["kernel"]
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, i, st = knn_search_certified(
+                D["q_np"], D["knn"].placement.db_host, D["k"], margin=28,
+                candidate_fn=pallas_candidate_fn(
+                    precision="default", survivors=3,
+                    **kernel_configs[label]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            own = [f"{kern}_deep_default"] + (
+                ["db_major_default"] if label != kern else [])
+            if any(launches[k] != 1 for k in own) \
+                    or sum(launches.values()) != len(own):
+                raise AssertionError(
+                    f"counted certificate deep {label}: launches {launches}")
+            if not np.array_equal(i, ref_i):
+                raise AssertionError(
+                    f"counted certificate deep {label}: indices differ")
+            recall, same, rel = oracle_check(D, d, i,
+                                             f"counted deep {label}")
+            runs[label] = {"launches": launches, "wall_s": wall,
+                           "recall_at_k": recall, "same_indices": same,
+                           "max_rel_dist_err": rel,
+                           "fallback_queries": st["fallback_queries"]}
+        return runs
+
+    def phase_survivors(S):
+        """Grouped binning at 1, 3 and 8 survivors (the deep build) in
+        every entry of every arm against its plain version, the fused
+        skip, the deep builds at the main shape beside the two-survivor
+        ones in turns, and certified searches through them."""
+        rng = np.random.default_rng(11)
+        cases = []
+        # small shapes: dim 24 with ragged rows, 4 and 8 groups a tile,
+        # exact ties; dim 300 (three chunks: the multi-chunk builds)
+        for arm in ck.ARMS:
+            for n_q, n, dim, tile in ((37, 5 * 128 + 60, 24, 512),
+                                      (37, 9 * 128 + 60, 24, 1024),
+                                      (11, 3 * 128 + 40, 300, 512)):
+                if arm == "pq":
+                    args, tol_q = pq_case(dev, n_q, n, 7, 200, tile, 2), None
+                elif arm in ck.INT_ARMS:
+                    args = int_case(dev, arm, n_q, n, dim, tile, 5)
+                    tol_q = None
+                else:
+                    q = torch.from_numpy((rng.normal(size=(n_q, dim)) * 10)
+                                         .astype(np.float32)).to(dev)
+                    db = torch.from_numpy((rng.normal(size=(n, dim)) * 10)
+                                          .astype(np.float32)).to(dev)
+                    db[3] = db[10]
+                    db[90] = db[10]
+                    args = (ck.pad_queries(q), *ck.prepare_db_arm(db, tile,
+                                                                  arm))
+                    tol_q = tolerance_q(q, db, arm=arm)
+                n_tiles = args[-1].shape[1] // tile
+                for surv in SURVIVOR_COUNTS:
+                    kw = {"tile_n": tile, "arm": arm, "survivors": surv}
+                    plain = ck.binned_select_plain(*args, **kw)
+                    tiled = ck.binned_select(*args, **kw)
+                    name = f"deep {arm} s{surv} dim{dim} tile{tile}"
+                    grouped_compare(f"tiled {name}", f"tiled_deep_{arm}",
+                                    tiled, plain, tol_q, n_tiles)
+                    for key, fn, extra in (
+                            ("db_major", ck.binned_select,
+                             {"grid_order": "db_major"}),
+                            ("streaming", ck.stream_select, {})):
+                        bitwise(f"{key} {name} vs tiled",
+                                fn(*args, **kw, **extra), tiled)
+                        checks[f"{key}_deep_{arm}"].max_abs_err = max(
+                            checks[f"{key}_deep_{arm}"].max_abs_err,
+                            checks[f"tiled_deep_{arm}"].max_abs_err)
+                    case = {"arm": arm, "survivors": surv, "q": n_q,
+                            "rows": n, "dim": dim, "tile_n": tile,
+                            "bitwise": tol_q is None}
+                    if arm != "pq":
+                        bitwise(f"fused disarmed {name} vs streaming",
+                                ck.fused_select(*args, **kw, keep=None),
+                                ck.stream_select(*args, **kw))
+                        case["fused_skipped_cells"] = deep_fused_compare(
+                            f"fused {name}", f"fused_deep_{arm}", args, kw,
+                            plain, tol_q, 130, n_tiles)
+                    cases.append(case)
+                # above MAX_SURVIVORS the count is capped, as the JAX
+                # package caps it
+                bitwise(f"deep {arm} s12 vs s8",
+                        ck.binned_select(*args, tile_n=tile, arm=arm,
+                                         survivors=12),
+                        ck.binned_select(*args, tile_n=tile, arm=arm,
+                                         survivors=8))
+        emit({"phase": "survivors_kernels", "cases": cases})
+
+        # the fused skip at 1 and 8 survivors on the far-tile case: the
+        # same skipped cells as the plain version, some of them skipped
+        fq, fdb = far_tile_case(dev)
+        far = {}
+        for arm in ck.ARMS:
+            if arm == "pq":
+                continue
+            if arm in ck.INT_ARMS:
+                fargs = (*ck.quantize_queries(fq),
+                         *ck.prepare_db_int(fdb, ck.TILE_N, arm))
+                tol_q = None
+            else:
+                fargs = (ck.pad_queries(fq),
+                         *ck.prepare_db_arm(fdb, ck.TILE_N, arm))
+                tol_q = tolerance_q(fq, fdb, arm=arm)
+            n_tiles = fargs[-1].shape[1] // ck.TILE_N
+            for surv in (1, 8):
+                kw = {"tile_n": ck.TILE_N, "arm": arm, "survivors": surv}
+                plain = ck.binned_select_plain(*fargs, **kw)
+                skipped = deep_fused_compare(
+                    f"fused deep {arm} s{surv} far tiles", f"fused_deep_{arm}",
+                    fargs, kw, plain, tol_q, 130, n_tiles)
+                if skipped < 1:
+                    raise AssertionError(f"fused deep {arm} s{surv} skipped "
+                                         f"no cell on the far-tile case")
+                far[f"{arm}_s{surv}"] = skipped
+            del fargs, plain
+        del fq, fdb
+
+        # the main placement, a 512-query subset: every entry at 1, 3 and
+        # 8 survivors against its plain version.  pq's placement is the pq
+        # phase's (its training is that phase's cost): without it, pq is
+        # left out here
+        sub = 512
+        pl = S["knn"].placement
+        arms = [arm for arm in ck.ARMS if arm != "pq" or S["knn"]._pq]
+        main = {}
+        for arm in arms:
+            args = arm_operands(S, arm)
+            nq_args = 2 if arm in ck.INT_ARMS else 1
+            sargs = (*(a[:sub] for a in args[:nq_args]), *args[nq_args:])
+            tol_q = (None if arm in ck.INT_ARMS or arm == "pq" else
+                     tolerance_q(S["q_dev"][:sub], tmax=pl.db_norm_max,
+                                 arm=arm))
+            n_tiles = args[-1].shape[1] // ck.TILE_N
+            out = {}
+            for surv in SURVIVOR_COUNTS:
+                kw = {"tile_n": ck.TILE_N, "arm": arm, "survivors": surv}
+                plain = ck.binned_select_plain(*sargs, **kw)
+                tiled = ck.binned_select(*sargs, **kw)
+                name = f"deep {arm} s{surv}@main"
+                err = grouped_compare(f"tiled {name}", f"tiled_deep_{arm}",
+                                      tiled, plain, tol_q, n_tiles)
+                for key, fn, extra in (
+                        ("db_major", ck.binned_select,
+                         {"grid_order": "db_major"}),
+                        ("streaming", ck.stream_select, {})):
+                    bitwise(f"{key} {name} vs tiled",
+                            fn(*sargs, **kw, **extra), tiled)
+                    checks[f"{key}_deep_{arm}"].max_abs_err = max(
+                        checks[f"{key}_deep_{arm}"].max_abs_err, err)
+                out[f"s{surv}"] = {"max_abs_err": err}
+                if arm != "pq":
+                    out[f"s{surv}"]["fused_skipped_cells"] = \
+                        deep_fused_compare(f"fused {name}",
+                                           f"fused_deep_{arm}", sargs, kw,
+                                           plain, tol_q, 130, n_tiles)
+                del plain, tiled
+            # every entry at 4,096 queries in turns with its two-survivor
+            # build: 2, then 1, 3, 8, then 2 again (CUDA events, mean of 2)
+            entries = {"tiled": (ck.binned_select, {}),
+                       "db_major": (ck.binned_select,
+                                    {"grid_order": "db_major"}),
+                       "streaming": (ck.stream_select, {})}
+            if arm != "pq":
+                entries["fused"] = (ck.fused_select, {"keep": 130})
+            times = {}
+            for key, (fn, extra) in entries.items():
+                def run(surv):
+                    return fn(*args, tile_n=ck.TILE_N, arm=arm,
+                              survivors=surv, **extra)
+
+                def timed(surv):
+                    run(surv)
+                    torch.cuda.synchronize()
+                    return time_cuda(lambda: run(surv), 2)
+
+                t2 = timed(2)
+                deep = {f"s{surv}": timed(surv) for surv in SURVIVOR_COUNTS}
+                times[key] = {"s2_ms": [t2, timed(2)], **{
+                    f"{k}_ms": v for k, v in deep.items()}}
+            out["times_4096"] = times
+            # the records: the 8-survivor build at 4,096 queries against
+            # its plain version there and the bound of its work
+            geo8 = ck.emit_geometry(ck.TILE_N, survivors=8)
+            plain8, plain_ms = timed_once(lambda: ck.binned_select_plain(
+                *args, tile_n=ck.TILE_N, arm=arm, survivors=8))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck._early_out(plain8, n_tiles, 130, ck.QUERY_BLOCK, None)
+            torch.cuda.synchronize()
+            early_ms = (time.perf_counter() - t0) * 1e3
+            del plain8
+            bound = arm_bound(S, arm, args, geo8)
+            for key in entries:
+                records[f"{key}_deep_{arm}"].update(
+                    ms=times[key]["s8_ms"],
+                    plain_ms=plain_ms + (early_ms if key == "fused" else 0),
+                    bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+            out["plain_s8_ms"] = plain_ms
+            out["bound_s8"] = bound
+            main[arm] = out
+            del args, sargs
+            torch.cuda.empty_cache()
+
+        # certified searches through the deep build: bf16x3 at 4 and 8
+        # survivors on every query (recall@100 = 1.0 against the oracle,
+        # the two-survivor run's indices), the launch count read around
+        # each call alone
+        if "tiled" not in S:
+            (d, i, _), _ = timed_search(S)
+            S["tiled"] = (d, i)
+        searches = {}
+        for surv in (4, 8):
+            searches[f"s{surv}"] = run_configs(
+                S, "bf16x3", ("tiled",), ref_i=S["tiled"][1],
+                survivors=surv)["tiled"]
+        # ... and every entry of every arm at 3 survivors on the subset
+        D = {key: S[key] for key in ("knn", "k", "od", "oi") if key in S}
+        D.update(q_np=S["q_np"][:sub], q_dev=S["q_dev"][:sub], n_or=256)
+        for arm in arms:
+            labels = ("tiled", "tiled_db_major", "streaming") + (
+                () if arm == "pq" else ("fused",))
+            if arm == "default":   # no one-pass certificate: the counted one
+                runs = counted_deep_runs(D, labels, S["tiled"][1][:sub])
+            else:
+                runs = run_configs(D, arm, labels, ref_i=S["tiled"][1][:sub],
+                                   survivors=3)
+            for label in labels:
+                kern = kernel_configs[label]["kernel"]
+                if label == "tiled_db_major":
+                    records[f"db_major_deep_{arm}"]["launches"] = \
+                        runs[label]["launches"][f"db_major_{arm}"]
+                else:
+                    records[f"{kern}_deep_{arm}"]["launches"] = \
+                        runs[label]["launches"][f"{kern}_deep_{arm}"]
+            searches[f"{arm}_s3"] = runs
+        for arm in arms:
+            records[f"db_major_deep_{arm}"].update(
+                {f: records[f"tiled_deep_{arm}"][f]
+                 for f in ("plain_ms", "bound_ms", "bound_by")},
+                ms=main[arm]["times_4096"]["db_major"]["s8_ms"])
+            checks[f"db_major_deep_{arm}"].max_abs_err = \
+                checks[f"tiled_deep_{arm}"].max_abs_err
+        emit({"phase": "survivors", "far_tile_skipped_cells": far,
+              "main_subset_queries": sub, "arms_at_main": arms, "main": main,
+              "searches": searches})
+
+    def phase_tune(S):
+        """The autotuner: the quick grid on the main placement's rows, a
+        second call from the cache, the standard grid at 100,000 rows
+        (pq's training among its candidates), and a search resolving its
+        knobs from the cache."""
+        import importlib
+
+        from knn_tpu_torch import tuning
+
+        # the module (the package exports its ``autotune`` function)
+        tune_mod = importlib.import_module("knn_tpu_torch.tuning.autotune")
+        db_np = S["knn"].placement.db_host
+        q_np = S["q_np"][:256]
+        out = {"phase": "tune"}
+        with tempfile.TemporaryDirectory() as tmp:
+            cache = f"{tmp}/autotune.json"
+            for label, rows, level in (("quick_1m", db_np, "quick"),
+                                       ("standard_100k", db_np[:100_000],
+                                        "standard")):
+                tuning.reset_counters()
+                t0 = time.perf_counter()
+                entry = tuning.autotune(rows, q_np, S["k"], grid_level=level,
+                                        runs=2, cache_path=cache)
+                first_s = time.perf_counter() - t0
+                first = tuning.counters()
+                grid = tuning.knob_grid(level)
+                labels = [tune_mod._label({**tuning.DEFAULT_KNOBS, **c})
+                          for c in grid]
+                timed = [lb for lb in labels
+                         if entry["timings_ms"].get(lb) is not None]
+                # every candidate timed, or gated out / refused with its
+                # reason recorded; one that raised (its error is the
+                # exception's type and message) is a build or launch fault
+                missing = [lb for lb in labels if lb not in entry["timings_ms"]
+                           or (entry["timings_ms"][lb] is None
+                               and lb not in entry["errors"])]
+                raised = {lb: e for lb, e in entry["errors"].items()
+                          if not e.startswith(("bitwise gate",
+                                               "smem-refused"))}
+                if entry["cached"] or missing or raised or \
+                        first["candidates_timed"] != len(timed):
+                    raise AssertionError(f"tune {label}: {entry}, missing "
+                                         f"{missing}, raised {raised}, "
+                                         f"counters {first}")
+                tuning.reset_counters()
+                t0 = time.perf_counter()
+                again = tuning.autotune(rows, q_np, S["k"], grid_level=level,
+                                        runs=2, cache_path=cache)
+                second_s = time.perf_counter() - t0
+                second = tuning.counters()
+                if not again["cached"] or second["candidates_timed"] != 0 \
+                        or again["knobs"] != entry["knobs"]:
+                    raise AssertionError(f"tune {label}: the second call "
+                                         f"re-timed: {second}")
+                out[label] = {
+                    "rows": int(rows.shape[0]), "queries": int(q_np.shape[0]),
+                    "candidates": len(labels), "timed": len(timed),
+                    "winner": entry["winner"], "winner_ms": entry["winner_ms"],
+                    "timings_ms": entry["timings_ms"],
+                    "errors": entry["errors"], "smem": entry.get("smem"),
+                    "cache_key": entry["cache_key"], "first_s": first_s,
+                    "counters_first": first, "second_s": second_s,
+                    "counters_second": second}
+            # the consumer: search_certified on the 1M placement resolves
+            # its knobs from the cache (the quick grid's winner)
+            win = out["quick_1m"]
+            d, i, st = S["knn"].search_certified(S["q_np"], tune_cache=cache)
+            if st["tuning"]["source"] != "cache" or st["pallas_knobs"] != {
+                    **tuning.DEFAULT_KNOBS,
+                    **tuning.TuneCache(cache).get(win["cache_key"])["knobs"]}:
+                raise AssertionError(f"tune: search did not resolve from the "
+                                     f"cache: {st['tuning']}")
+            if "tiled" in S and not np.array_equal(i, S["tiled"][1]):
+                raise AssertionError(
+                    "tune: the cached winner's indices differ")
+            out["search_from_cache"] = {"tuning": st["tuning"],
+                                        "pallas_knobs": st["pallas_knobs"],
+                                        "fallback_queries":
+                                            st["fallback_queries"]}
+        emit(out)
+
+    if phases & {"main", "stream", "quant", "f32arms", "pq", "lane",
+                  "survivors", "tune"}:
         if "main" in phases:
             phase_main(sift_data())
         if "stream" in phases:
@@ -2223,12 +2670,14 @@ def main(argv=None) -> int:
             phase_pq(sift_data())
         if "lane" in phases:
             phase_lane(sift_data())
+        if "survivors" in phases:
+            phase_survivors(sift_data())
+        if "tune" in phases:
+            phase_tune(sift_data())
         sift.clear()  # frees the placement before the classify job
         torch.cuda.empty_cache()
 
     if "classify" in phases:
-        import os
-
         from knn_tpu_torch.cli import args_to_config, build_parser
         from knn_tpu_torch.data.datasets import (make_mnist_like,
                                                  save_labeled_csv,

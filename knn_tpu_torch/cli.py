@@ -1,9 +1,10 @@
-"""Command line for the reference job on one GPU — the job path of
-knn_tpu/cli.py (``main``), as ``python -m knn_tpu_torch.cli``::
+"""Command line of the port on one GPU — the job path of knn_tpu/cli.py
+(``main``) and its ``tune`` subcommand, as ``python -m knn_tpu_torch.cli``::
 
     python -m knn_tpu_torch.cli --train train.csv --test test.csv \\
         --val val.csv --k 50 --mode certified --selector pallas \\
         --out Test_label.csv
+    python -m knn_tpu_torch.cli tune --n 100000 --dim 128 --k 100
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it exits with an error.
@@ -73,7 +74,83 @@ def args_to_config(args: argparse.Namespace) -> JobConfig:
     )
 
 
+def build_tune_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch tune",
+        description="Autotune the coarse kernels for one problem shape and "
+        "persist the winner (knn_tpu_torch.tuning); a second run for the "
+        "same (device kind, n, dim, k, metric) resolves from the "
+        "cache with zero re-timing.")
+    p.add_argument("--n", type=int, default=100_000, help="database rows")
+    p.add_argument("--dim", type=int, default=128, help="feature dim")
+    p.add_argument("--k", type=int, default=100, help="neighbor count")
+    p.add_argument("--metric", default="l2",
+                   choices=("l2", "sql2", "euclidean"))
+    p.add_argument("--queries", type=int, default=256,
+                   help="timing/gate query count")
+    p.add_argument("--margin", type=int, default=28, help="candidate margin")
+    p.add_argument("--grid", default="standard",
+                   choices=("quick", "standard", "full"),
+                   help="knob grid size (tuning.knob_grid)")
+    p.add_argument("--runs", type=int, default=2,
+                   help="timed repetitions per candidate (fenced)")
+    p.add_argument("--seed", type=int, default=0, help="synthetic data seed")
+    p.add_argument("--cache", default=None, metavar="PATH",
+                   help="cache file (default: "
+                   "~/.cache/knn_tpu_torch/autotune.json)")
+    p.add_argument("--force", action="store_true",
+                   help="re-search even when a cached winner exists")
+    p.add_argument("--json", default=None, metavar="PATH",
+                   help="also write the result record to this path")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' tunes the plain "
+                   "PyTorch versions)")
+    return p
+
+
+def run_tune(args: argparse.Namespace) -> int:
+    """The ``tune`` subcommand (knn_tpu/cli.py:308-343): synthetic data at
+    the requested shape (``rng.random * 128``), tuning.autotune, one
+    summary line and one JSON line (winner, per-candidate timings,
+    counters: the zero re-timing evidence)."""
+    import json
+
+    import numpy as np
+
+    from knn_tpu_torch import tuning
+
+    rng = np.random.default_rng(args.seed)
+    db = (rng.random(size=(args.n, args.dim)) * 128.0).astype(np.float32)
+    queries = (rng.random(size=(args.queries, args.dim)) * 128.0).astype(
+        np.float32)
+    tuning.reset_counters()
+    entry = tuning.autotune(
+        db, queries, args.k, metric=args.metric, margin=args.margin,
+        grid_level=args.grid, runs=args.runs, cache_path=args.cache,
+        force=args.force, device=args.device)
+    record = {**entry, "counters": tuning.counters()}
+    if entry["cached"]:
+        print(f"cached winner for {record['cache_key']}: "
+              f"{entry['winner']} ({entry['winner_ms']} ms) — "
+              f"0 candidates re-timed")
+    else:
+        print(f"tuned {record['cache_key']}: winner {entry['winner']} "
+              f"({entry['winner_ms']} ms) from "
+              f"{len(entry['timings_ms'])} candidates -> "
+              f"{record['cache_path']}")
+    print(json.dumps(record))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(record, f, indent=2)
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["tune"]:
+        # subcommand by leading token: the job's flat interface stays as
+        # it is
+        return run_tune(build_tune_parser().parse_args(argv[1:]))
     args = build_parser().parse_args(argv)
     from knn_tpu_torch.pipeline import run_job
 

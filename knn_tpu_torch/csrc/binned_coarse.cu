@@ -16,15 +16,14 @@
 //           f32 family, an exact int32 dot and one rescale for the int arms)
 //     s   = tnorm[t] - 2*qt                                  (||q||^2 dropped)
 //   bin b of tile ti = lane b of every 128-row group of the tile.  Per
-//   (q, ti, b) keep the 2 smallest s with their group index through a
-//   sorted insertion network with strict `<` (the earlier group wins a tie),
-//   plus the third smallest as the bin's exclusion bound.  Two survivors are
-//   part of the definition of a grouped bin (with tile_n): the port runs no
-//   other value there.
+//   (q, ti, b) keep the `surv` (1 .. 8; 2 by default) smallest s with their
+//   group index through a sorted insertion network with strict `<` (the
+//   earlier group wins a tie), plus the next smallest as the bin's
+//   exclusion bound.
 //
-// Outputs, in the TPU kernel's exact layout:
-//   cd     [n_q, n_tiles*256] f32  column ti*256 + j*128 + b (survivor j)
-//   ci     [n_q, n_tiles*256] i32  ti*tile_n + g*128 + b, or INT32_MAX when
+// Outputs, in the TPU kernel's exact layout (W = surv*128):
+//   cd     [n_q, n_tiles*W] f32    column ti*W + j*128 + b (survivor j)
+//   ci     [n_q, n_tiles*W] i32    ti*tile_n + g*128 + b, or INT32_MAX when
 //                                  the value is not finite
 //   bounds [n_q, n_tiles*128] f32  column ti*128 + b
 //
@@ -35,7 +34,9 @@
 // highest (K2), s8 for int8 (K5) and int4 (K6) -- through a cp.async ring,
 // the group's scores through a shared-memory tile into the emitter, which
 // runs the insertion network (or the lane merge) for each thread's 16
-// (query, lane) bins in registers; pq (K7) runs binned_pq.cuh's walk.  The
+// (query, lane) bins in registers (the deep grouped build, surv != 2: for 4
+// of them a pass, the tile walked once per pass, binned_select.cuh); pq
+// (K7) runs binned_pq.cuh's walk.  The
 // [32, tile_n] score tile never exists anywhere.  The per-score arithmetic
 // is the mainloop's and binned_select.cuh's, shared with the streaming
 // kernels (binned_stream.cu).
@@ -172,6 +173,9 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
     case 0:
       return launch_arm<kArm, 0>(grid, p0, p1, p2, p3, out, dp, db_major,
                                  ncodes, stream);
+    case kGroupedDeep:
+      return launch_arm<kArm, kGroupedDeep>(grid, p0, p1, p2, p3, out, dp,
+                                            db_major, ncodes, stream);
     case kLaneDepthSmall:
       return launch_arm<kArm, kLaneDepthSmall>(grid, p0, p1, p2, p3, out, dp,
                                                db_major, ncodes, stream);
@@ -181,7 +185,64 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
   }
 }
 
+// The resources of the tiled build a launch of arm kArm would take
+// (binned_select.cuh kernel_attrs).
+template <Arm kArm, int kDepth>
+cudaError_t attrs_build(int dp, int ncodes, int* out) {
+  if constexpr (kArm == Arm::kPq) {
+    return kernel_attrs(binned_select_pq_kernel<kDepth>,
+                        pq_smem_bytes(ncodes, kDepth), out);
+  } else {
+    if (dp > kDimChunk)
+      return kernel_attrs(binned_select_mma_kernel<kArm, true, kDepth>,
+                          kMmaSmemBytes<kArm, true>, out);
+    return kernel_attrs(binned_select_mma_kernel<kArm, false, kDepth>,
+                        kMmaSmemBytes<kArm, false>, out);
+  }
+}
+
+template <Arm kArm>
+cudaError_t attrs(int bin_w, int survivors, int dp, int ncodes, int* out) {
+  switch (emit_depth(bin_w, survivors)) {
+    case 0:
+      return attrs_build<kArm, 0>(dp, ncodes, out);
+    case kGroupedDeep:
+      return attrs_build<kArm, kGroupedDeep>(dp, ncodes, out);
+    case kLaneDepthSmall:
+      return attrs_build<kArm, kLaneDepthSmall>(dp, ncodes, out);
+    default:
+      return attrs_build<kArm, kLaneDepth>(dp, ncodes, out);
+  }
+}
+
 }  // namespace
+
+// The resources of the tiled build that binned_select_<arm> launches for
+// the binning (bin_w, survivors) at dp dims (pq: ncodes codes): out[0 ..
+// 4] = registers a thread, static shared bytes, local bytes, dynamic
+// shared bytes, CTAs per SM (binned_select.cuh kernel_attrs).  arm is the
+// Arm code.  Returns the cudaError (0 = out is set).
+extern "C" int binned_select_attrs(int arm, int bin_w, int survivors, int dp,
+                                   int ncodes, int* out) {
+  Geom geo;
+  if (!make_geom(bin_w ? bin_w : kBinW, bin_w, survivors, &geo))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (arm) {
+#define ARM_CASE(ARM)              \
+  case static_cast<int>(ARM):      \
+    return static_cast<int>(attrs<ARM>(bin_w, survivors, dp, ncodes, out));
+    ARM_CASE(Arm::kBf16x3)
+    ARM_CASE(Arm::kInt8)
+    ARM_CASE(Arm::kInt4)
+    ARM_CASE(Arm::kBf16x3f)
+    ARM_CASE(Arm::kHighest)
+    ARM_CASE(Arm::kDefault)
+    ARM_CASE(Arm::kPq)
+#undef ARM_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // C entries for ctypes, one per arm.  Operands p0 .. p3:
 //   bf16x3, bf16x3f: q [n_q, dp] f32; th, tl [n_tiles*tile_n, dp] bf16;
@@ -200,8 +261,8 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
 //                    code < ncodes); unused; tnorm (coarse_knn.
 //                    _pq_kernel_operands lays them out)
 // Outputs as in binned_select.cuh for the binning: bin_w = 0 is grouped
-// binning (survivors must be 2), bin_w > 0 lane binning with `survivors`
-// (1 .. 8) per bin of bin_w rows (K8).  dp (but pq's) and tile_n must be
+// binning with `survivors` (1 .. 8) per lane bin, bin_w > 0 lane binning
+// with `survivors` (1 .. 8) per bin of bin_w rows (K8).  dp (but pq's) and tile_n must be
 // multiples of 128; db_major picks the grid order (K9); ncodes is read by
 // pq alone.  Each returns cudaGetLastError() after the launch (0 =
 // launched; cudaErrorInvalidValue for a dim, geometry or grid it does not

@@ -670,7 +670,7 @@ __device__ __forceinline__ void mma_walk(
     const void* __restrict__ p2, const float* __restrict__ p3,
     const Out& out, int dp, int q0, int t_begin, int t_end, int depth,
     unsigned char* smem, int* warp_ok) {
-  static_assert(!(kFused && kDepth), "the fused early-out is grouped only");
+  static_assert(!(kFused && kDepth > 0), "the fused early-out is grouped only");
   static_assert(kUsesMma<kArm>, "pq runs binned_pq.cuh's walk");
   constexpr bool kInt = kIsInt<kArm>;
   constexpr int kStages = kRing<kArm>;
@@ -688,6 +688,9 @@ __device__ __forceinline__ void mma_walk(
   const void* db1 = kInt ? nullptr : p2;
   const float* tnorm = p3;
   const size_t n_rows = static_cast<size_t>(out.n_tiles) * tile_n;
+  // the deep grouped build walks each tile once per row of its quads
+  constexpr bool kDeep = kDepth == kGroupedDeep;
+  constexpr int kPasses = Emitter<kDepth>::kPasses;
   unsigned char* qs = smem + kStages * kStage;
   unsigned char* unpacked = qs + kMmaQBytes<kArm>;   // int4's int8 rows
   float* S = reinterpret_cast<float*>(unpacked + kMmaUnpackBytes<kArm>);
@@ -715,8 +718,8 @@ __device__ __forceinline__ void mma_walk(
                       dp, n_q - q0, qs, tid);
   }
 
-  // the next step to stage: (tile nt, group ng, chunk nc)
-  int nt = t_begin, ng = 0, nc = 0;
+  // the next step to stage: (tile nt, pass npass, group ng, chunk nc)
+  int nt = t_begin, npass = 0, ng = 0, nc = 0;
   auto stage_next = [&](unsigned char* st) {
     const size_t row0 =
         static_cast<size_t>(nt) * tile_n + static_cast<size_t>(ng) * kBinW;
@@ -726,7 +729,10 @@ __device__ __forceinline__ void mma_walk(
       nc = 0;
       if (++ng == n_groups) {
         ng = 0;
-        ++nt;
+        if (++npass == kPasses) {
+          npass = 0;
+          ++nt;
+        }
       }
     }
   };
@@ -752,120 +758,135 @@ __device__ __forceinline__ void mma_walk(
   if constexpr (kFused) reset_carry(carry, depth);
   Emitter<kDepth> em(S);
   for (int ti = t_begin; ti < t_end; ++ti) {
-    em.begin_tile();
-    for (int g = 0; g < n_groups; ++g) {
-      const size_t row0 =
-          static_cast<size_t>(ti) * tile_n + static_cast<size_t>(g) * kBinW;
-      int iacc[4][4];   // the int arms' exact dot over every chunk
-      // the f32 family: the norms of the emitters' rows lane + 32 j; the
-      // int arms: the norms and scales of the fragment rows
-      float tn[kQuadL], ts[2];
-      for (int c = 0; c < nd; ++c) {
-        // this step's stage has landed (every thread's copies); the stage
-        // the next copies go to, the query operand, the unpacked rows and
-        // S are no longer read
-        cp_async_wait<kStages - 2>();
-        __syncthreads();
-        if (nt < t_end) stage_next(smem + (buf + kStages - 1) % kStages * kStage);
-        cp_async_commit();
-        const unsigned char* st = smem + buf * kStage;
-        // the group's norms, in flight during its last chunk's products
-        // (the int arms': in that chunk's stage, with its row scales)
-        if (c == nd - 1) {
-          if constexpr (kInt) {
-            const float* rows = reinterpret_cast<const float*>(
-                st + kStage - kMmaRowsBytes<kArm>);
-            tn[0] = rows[frag_row];
-            tn[1] = rows[frag_row + 8];
-            ts[0] = rows[kBinW + frag_row];
-            ts[1] = rows[kBinW + frag_row + 8];
-          } else {
-            load_group_rows(tnorm, row0, lane, tn);
-          }
-        }
-        if constexpr (kInt) {
-          if constexpr (kArm == Arm::kInt4) {
-            imma_unpack_int4(st, unpacked, tid);
-            __syncthreads();
-          }
-          if (c == 0) {
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) iacc[n][e] = 0;
-          }
-          if constexpr (kMulti)
-            imma_query_frags(st + kMmaDbBytes<kArm>, lane, qfrag);
-          imma_chunk(kArm == Arm::kInt4 ? unpacked : st, qfrag, warp, lane,
-                     iacc);
+    for (int pass = 0; pass < kPasses; ++pass) {
+      em.begin_pass(pass);
+      for (int g = 0; g < n_groups; ++g) {
+        const size_t row0 =
+            static_cast<size_t>(ti) * tile_n + static_cast<size_t>(g) * kBinW;
+        int iacc[4][4];   // the int arms' exact dot over every chunk
+        // the f32 family: the norms of the emitters' rows lane + 32 j; the
+        // int arms: the norms and scales of the fragment rows
+        float tn[kQuadL], ts[2];
+        for (int c = 0; c < nd; ++c) {
+          // this step's stage has landed (every thread's copies); the stage
+          // the next copies go to, the query operand, the unpacked rows and
+          // S are no longer read
+          cp_async_wait<kStages - 2>();
+          __syncthreads();
+          if (nt < t_end)
+            stage_next(smem + (buf + kStages - 1) % kStages * kStage);
+          cp_async_commit();
+          const unsigned char* st = smem + buf * kStage;
+          // the group's norms, in flight during its last chunk's products
+          // (the int arms': in that chunk's stage, with its row scales)
           if (c == nd - 1) {
-            // the one f32 rounding, (f32_rn(dot) * qsc) * ts in the TPU
-            // kernel's order (the _rn intrinsics: no contraction), then s
-            const int gq = lane >> 2, t = lane & 3;
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                store_score(S, n * 8 + 2 * t + (e & 1),
-                            warp * 16 + gq + (e >> 1) * 8,
-                            tn[e >> 1] - 2.0f * __fmul_rn(
-                                __fmul_rn(__int2float_rn(iacc[n][e]),
-                                          qsc[n][e & 1]),
-                                ts[e >> 1]),
-                            true);
+            if constexpr (kInt) {
+              const float* rows = reinterpret_cast<const float*>(
+                  st + kStage - kMmaRowsBytes<kArm>);
+              tn[0] = rows[frag_row];
+              tn[1] = rows[frag_row + 8];
+              ts[0] = rows[kBinW + frag_row];
+              ts[1] = rows[kBinW + frag_row + 8];
+            } else {
+              load_group_rows(tnorm, row0, lane, tn);
+            }
           }
-        } else {
-          if constexpr (kMulti) {
-            mma_query<kArm>(
-                reinterpret_cast<const float*>(st + kMmaDbBytes<kArm>),
-                kDimChunk, kBlockQ, qs, tid);
-            __syncthreads();
-          }
-          if constexpr (kUsesDmma<kArm>) {
-            dmma_chunk(reinterpret_cast<const float*>(st),
-                       reinterpret_cast<const double*>(qs), warp, lane, S,
-                       c == 0);
+          if constexpr (kInt) {
+            if constexpr (kArm == Arm::kInt4) {
+              imma_unpack_int4(st, unpacked, tid);
+              __syncthreads();
+            }
+            if (c == 0) {
+#pragma unroll
+              for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) iacc[n][e] = 0;
+            }
+            if constexpr (kMulti)
+              imma_query_frags(st + kMmaDbBytes<kArm>, lane, qfrag);
+            imma_chunk(kArm == Arm::kInt4 ? unpacked : st, qfrag, warp, lane,
+                       iacc);
+            if (c == nd - 1) {
+              // the one f32 rounding, (f32_rn(dot) * qsc) * ts in the TPU
+              // kernel's order (the _rn intrinsics: no contraction), then s
+              const int gq = lane >> 2, t = lane & 3;
+#pragma unroll
+              for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  store_score(S, n * 8 + 2 * t + (e & 1),
+                              warp * 16 + gq + (e >> 1) * 8,
+                              tn[e >> 1] - 2.0f * __fmul_rn(
+                                  __fmul_rn(__int2float_rn(iacc[n][e]),
+                                            qsc[n][e & 1]),
+                                  ts[e >> 1]),
+                              true);
+            }
           } else {
-            const __nv_bfloat16* sth =
-                reinterpret_cast<const __nv_bfloat16*>(st);
-            const __nv_bfloat16* qh =
-                reinterpret_cast<const __nv_bfloat16*>(qs);
-            MmaAcc acc;
-            mma_chunk<kArm>(sth, sth + kBinW * kMmaRow, qh,
-                            qh + kBlockQ * kMmaRow, warp, lane, acc);
-            mma_store_chunk<kArm>(acc, S, warp, lane, c == 0);
+            if constexpr (kMulti) {
+              mma_query<kArm>(
+                  reinterpret_cast<const float*>(st + kMmaDbBytes<kArm>),
+                  kDimChunk, kBlockQ, qs, tid);
+              __syncthreads();
+            }
+            if constexpr (kUsesDmma<kArm>) {
+              dmma_chunk(reinterpret_cast<const float*>(st),
+                         reinterpret_cast<const double*>(qs), warp, lane, S,
+                         c == 0);
+            } else {
+              const __nv_bfloat16* sth =
+                  reinterpret_cast<const __nv_bfloat16*>(st);
+              const __nv_bfloat16* qh =
+                  reinterpret_cast<const __nv_bfloat16*>(qs);
+              MmaAcc acc;
+              mma_chunk<kArm>(sth, sth + kBinW * kMmaRow, qh,
+                              qh + kBlockQ * kMmaRow, warp, lane, acc);
+              mma_store_chunk<kArm>(acc, S, warp, lane, c == 0);
+            }
+          }
+          buf = (buf + 1) % kStages;
+        }
+        // lane binning reads the f32 family's norms beside S
+        float* tn_rows = S + kBlockQ * kScoreStride;
+        if constexpr (kDepth > 0 && !kInt) {
+          if (warp == 0) {
+#pragma unroll
+            for (int j = 0; j < kQuadL; ++j) tn_rows[lane + 32 * j] = tn[j];
           }
         }
-        buf = (buf + 1) % kStages;
-      }
-      // lane binning reads the f32 family's norms beside S
-      float* tn_rows = S + kBlockQ * kScoreStride;
-      if constexpr (kDepth > 0 && !kInt) {
-        if (warp == 0) {
-#pragma unroll
-          for (int j = 0; j < kQuadL; ++j) tn_rows[lane + 32 * j] = tn[j];
-        }
-      }
-      __syncthreads();   // S complete: qt (the int arms: the scores)
-      if constexpr (kDepth > 0) {
-        if constexpr (kInt)
-          em.group_tile(S, [](int, float s) { return s; }, g, ti, out, place);
-        else
-          em.group_tile(S, [&](int r, float qt) {
-            return tn_rows[r] - 2.0f * qt;
-          }, g, ti, out, place);
-      } else {
-        Acc a;
-#pragma unroll
-        for (int i = 0; i < kQuadQ; ++i)
+        __syncthreads();   // S complete: qt (the int arms: the scores)
+        if constexpr (kDepth > 0) {
+          if constexpr (kInt)
+            em.group_tile(S, [](int, float s) { return s; }, g, ti, out, place);
+          else
+            em.group_tile(S, [&](int r, float qt) {
+              return tn_rows[r] - 2.0f * qt;
+            }, g, ti, out, place);
+        } else if constexpr (kDeep) {
+          // this pass's row of the thread's quad
+          float a[kQuadL];
 #pragma unroll
           for (int j = 0; j < kQuadL; ++j) {
             const float v =
-                S[(warp * kQuadQ + i) * kScoreStride + lane + 32 * j];
-            a[i][j] = kInt ? v : tn[j] - 2.0f * v;
+                S[(warp * kQuadQ + pass) * kScoreStride + lane + 32 * j];
+            a[j] = kInt ? v : tn[j] - 2.0f * v;
           }
-        em.group(a, g, ti, out, place);
+          em.group_row(a, g, out.geo.surv);
+        } else {
+          Acc a;
+#pragma unroll
+          for (int i = 0; i < kQuadQ; ++i)
+#pragma unroll
+            for (int j = 0; j < kQuadL; ++j) {
+              const float v =
+                  S[(warp * kQuadQ + i) * kScoreStride + lane + 32 * j];
+              a[i][j] = kInt ? v : tn[j] - 2.0f * v;
+            }
+          em.group(a, g, ti, out, place);
+        }
       }
+      em.end_pass(ti, out, place);
+      if constexpr (kFused && kDeep) fused_pass(em, carry, depth);
     }
     bool skip = false;
     if constexpr (kFused)

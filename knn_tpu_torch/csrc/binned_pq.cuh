@@ -53,7 +53,10 @@
 //     emitters read S group by group in their own thread layout (queries
 //     quad*4 + i, lanes lane_col + 32 j) into Emitter<kDepth>::group,
 //     unchanged: grouped ties and the lane merge as in every other arm, a lane
-//     score the grouped score of its row by construction.
+//     score the grouped score of its row by construction.  The deep grouped
+//     build (survivors other than 2, binned_select.cuh) walks each tile
+//     once per row of the threads' query quads, its emitter reading that
+//     row of S alone.
 //
 // Arithmetic per 4,096 queries x 1M rows x m = 32, C = 256 (Q*N*m = 1.31e11
 // lookups; the bound is one shared-memory wavefront per warp lookup, 15.67
@@ -107,7 +110,7 @@ __host__ __device__ inline size_t pq_stage_bytes(int ncodes) {
 // binning, depth > 0) the lane emitter's tile.
 __host__ __device__ inline size_t pq_smem_bytes(int ncodes, int depth) {
   return kPqScoreBytes + 2 * pq_stage_bytes(ncodes) +
-         (depth ? kScoreTileBytes : 0);
+         (depth > 0 ? kScoreTileBytes : 0);
 }
 
 // Starts the copies of one step: subspace s's LUT slice of query block qb
@@ -177,8 +180,11 @@ __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
     return min(kGroups, n_groups - b * kGroups) * kBinW;
   };
 
-  // the next step to stage: (tile nt, row block nb, subspace ns)
-  int nt = t_begin, nb = 0, ns = 0;
+  // the deep grouped build walks each tile once per row of its quads
+  constexpr bool kDeep = kDepth == kGroupedDeep;
+  constexpr int kPasses = Emitter<kDepth>::kPasses;
+  // the next step to stage: (tile nt, pass npass, row block nb, subspace ns)
+  int nt = t_begin, npass = 0, nb = 0, ns = 0;
   auto stage_next = [&](unsigned char* st) {
     const size_t rows0 = static_cast<size_t>(nt) * tile_n +
                          static_cast<size_t>(nb) * kPqRows;
@@ -188,7 +194,10 @@ __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
       ns = 0;
       if (++nb == n_blocks) {
         nb = 0;
-        ++nt;
+        if (++npass == kPasses) {
+          npass = 0;
+          ++nt;
+        }
       }
     }
   };
@@ -199,47 +208,60 @@ __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
   // lane binning: its tile after the stages
   Emitter<kDepth> em(reinterpret_cast<float*>(stages + 2 * stage_bytes));
   for (int ti = t_begin; ti < t_end; ++ti) {
-    em.begin_tile();
-    for (int b = 0; b < n_blocks; ++b) {
-      const int rows = block_rows(b);
-      const size_t rows0 =
-          static_cast<size_t>(ti) * tile_n + static_cast<size_t>(b) * kPqRows;
-      const bool active = warp * kPqWarpRows < rows;
-      float acc[kPqWarpRows];
+    for (int pass = 0; pass < kPasses; ++pass) {
+      em.begin_pass(pass);
+      for (int b = 0; b < n_blocks; ++b) {
+        const int rows = block_rows(b);
+        const size_t rows0 = static_cast<size_t>(ti) * tile_n +
+                             static_cast<size_t>(b) * kPqRows;
+        const bool active = warp * kPqWarpRows < rows;
+        float acc[kPqWarpRows];
 #pragma unroll
-      for (int r = 0; r < kPqWarpRows; ++r) acc[r] = 0.0f;
-      for (int s = 0; s < m; ++s) {
-        // this step's stage has landed (every thread's copies); the other
-        // stage was last read by the previous step's lookups
-        cp_async_wait_all();
+        for (int r = 0; r < kPqWarpRows; ++r) acc[r] = 0.0f;
+        for (int s = 0; s < m; ++s) {
+          // this step's stage has landed (every thread's copies); the other
+          // stage was last read by the previous step's lookups
+          cp_async_wait_all();
+          __syncthreads();
+          if (nt < t_end) stage_next(stages + (buf ^ 1) * stage_bytes);
+          cp_async_commit();
+          if (active)
+            pq_lookups(stages + buf * stage_bytes, ncodes, warp, lane, acc);
+          buf ^= 1;
+        }
+        // S was last read by the previous block's emission, before this
+        // block's first barrier
+        if (active) {
+#pragma unroll
+          for (int r = 0; r < kPqWarpRows; ++r)
+            S[lane * kPqStride + warp * kPqWarpRows + r] = acc[r];
+        }
         __syncthreads();
-        if (nt < t_end) stage_next(stages + (buf ^ 1) * stage_bytes);
-        cp_async_commit();
-        if (active) pq_lookups(stages + buf * stage_bytes, ncodes, warp, lane,
-                               acc);
-        buf ^= 1;
-      }
-      // S was last read by the previous block's emission, before this
-      // block's first barrier
-      if (active) {
+        for (int gg = 0; gg < rows / kBinW; ++gg) {
+          float tn[kQuadL];
+          load_group_rows(tnorm, rows0 + static_cast<size_t>(gg) * kBinW,
+                          p.lane_col, tn);
+          if constexpr (kDeep) {
+            // this pass's row of the thread's quad
+            float a[kQuadL];
 #pragma unroll
-        for (int r = 0; r < kPqWarpRows; ++r)
-          S[lane * kPqStride + warp * kPqWarpRows + r] = acc[r];
-      }
-      __syncthreads();
-      for (int gg = 0; gg < rows / kBinW; ++gg) {
-        float tn[kQuadL];
-        load_group_rows(tnorm, rows0 + static_cast<size_t>(gg) * kBinW,
-                        p.lane_col, tn);
-        Acc a;
+            for (int j = 0; j < kQuadL; ++j)
+              a[j] = tn[j] - 2.0f * S[(p.quad * kQuadQ + pass) * kPqStride +
+                                      gg * kBinW + p.lane_col + 32 * j];
+            em.group_row(a, b * kGroups + gg, o.geo.surv);
+          } else {
+            Acc a;
 #pragma unroll
-        for (int i = 0; i < kQuadQ; ++i)
+            for (int i = 0; i < kQuadQ; ++i)
 #pragma unroll
-          for (int j = 0; j < kQuadL; ++j)
-            a[i][j] = tn[j] - 2.0f * S[(p.quad * kQuadQ + i) * kPqStride +
-                                       gg * kBinW + p.lane_col + 32 * j];
-        em.group(a, b * kGroups + gg, ti, o, p);
+              for (int j = 0; j < kQuadL; ++j)
+                a[i][j] = tn[j] - 2.0f * S[(p.quad * kQuadQ + i) * kPqStride +
+                                           gg * kBinW + p.lane_col + 32 * j];
+            em.group(a, b * kGroups + gg, ti, o, p);
+          }
+        }
       }
+      em.end_pass(ti, o, p);
     }
     em.end_tile(ti, o, p, false);
   }

@@ -34,8 +34,8 @@
 //     first, (b & 0xF) - 8 and (b >> 4) - 8: unpack_int4), then
 //     acc = (f32_rn(dot) * qsc) * ts, each product rounded (binned_mma.cuh)
 //   then s = tnorm[t] - 2*acc and the emitter: the strict-`<` insertion
-//   network that keeps 2 survivors + the bin bound (grouped), or the lane
-//   merge (K8)
+//   network that keeps `surv` survivors (1 .. 8) + the bin bound
+//   (grouped), or the lane merge (K8)
 //
 // The int dot is exact (|qi.ti| <= 128^2 dp fits int32 far past any
 // real dim), so the one f32 rounding is the rescale's, in the TPU kernel's
@@ -100,7 +100,8 @@
 // kBlockQ = 32 query rows and the 128 lanes of a column group; for the
 // emitters each thread owns a 4-query x 4-lane tile of the group's scores
 // (queries quad*4 + i, lanes lane_col + 32*j), read from the mainloop's
-// shared score tile.
+// shared score tile (the deep grouped build: one of the 4 queries a pass,
+// below).
 
 #pragma once
 
@@ -111,7 +112,7 @@
 namespace binned {
 
 constexpr int kBinW = 128;       // lanes per group = bins per tile
-constexpr int kSurvivors = 2;    // candidates per bin
+constexpr int kSurvivors = 2;    // candidates per bin, the default build
 constexpr int kBlockQ = 32;      // query rows per CTA
 constexpr int kThreads = 256;    // 8 query quads x 32 lane columns
 constexpr int kQuadQ = 4;        // query rows per thread
@@ -248,8 +249,14 @@ __device__ __forceinline__ void store_tile(const Vals& vals, const Gidx& gidx,
 // same (query, row).
 //
 //   grouped (bin_w = 0 here): bin b of a tile = lane b of every 128-row group,
-//     2 survivors per bin by the insertion network with strict `<` over the
-//     groups in order (insert_group / store_tile above);
+//     `surv` survivors per bin by the insertion network with strict `<` over
+//     the groups in order, the next value the bin's bound
+//     (_emit_select_grouped_scores, pallas_knn.py:575-610).  Two builds:
+//     surv = 2 (the default, Emitter<0>: insert_group / store_tile above,
+//     all 16 of a thread's cells in registers, 80 registers) and the deep
+//     build for any other surv in 1 .. 8 (Emitter<kGroupedDeep>, below).
+//     Outputs per tile: cd / ci column j*128 + b for survivor j (out_w =
+//     surv*128), bounds column b (bound_w = 128);
 //   lane (K8): bin b = tile rows b*bin_w .. (b+1)*bin_w - 1, bin_w a multiple
 //     of 128, `surv` (1 .. 8, a runtime argument) survivors per bin: the surv
 //     smallest scores of the bin in (value, row) order -- the reference's
@@ -287,12 +294,14 @@ __device__ __forceinline__ void store_tile(const Vals& vals, const Gidx& gidx,
 constexpr int kMaxSurvivors = 8;                   // MAX_SURVIVORS
 constexpr int kLaneDepth = kMaxSurvivors + 1;      // the lane lists' two builds
 constexpr int kLaneDepthSmall = kSurvivors + 1;
+constexpr int kGroupedDeep = -1;                   // grouped, surv != 2
 
-// The emitter build of a launch: 0 for grouped binning, else the lane
+// The emitter build of a launch: 0 for grouped binning at two survivors,
+// kGroupedDeep for grouped binning at any other count, else the lane
 // lists' length for `surv` survivors.
 __host__ inline int emit_depth(int bin_w, int surv) {
-  return bin_w == 0 ? 0 : surv + 1 <= kLaneDepthSmall ? kLaneDepthSmall
-                                                      : kLaneDepth;
+  if (bin_w == 0) return surv == kSurvivors ? 0 : kGroupedDeep;
+  return surv + 1 <= kLaneDepthSmall ? kLaneDepthSmall : kLaneDepth;
 }
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -307,17 +316,15 @@ struct Geom {
   int bin_groups;  // 128-row groups per lane bin
 };
 
-// False for a geometry the kernels do not take: grouped runs two survivors;
-// a lane bin is a multiple of 128 rows that divides the tile, with 1 .. 8
-// survivors.
+// False for a geometry the kernels do not take: 1 .. 8 survivors, and a
+// lane bin a multiple of 128 rows that divides the tile.
 __host__ inline bool make_geom(int tile_n, int bin_w, int surv, Geom* g) {
+  if (surv < 1 || surv > kMaxSurvivors) return false;
   if (bin_w == 0) {
-    *g = Geom{0, kSurvivors, kBinW, kSurvivors * kBinW, kBinW, 1};
-    return surv == kSurvivors;
+    *g = Geom{0, surv, kBinW, surv * kBinW, kBinW, 1};
+    return true;
   }
-  if (bin_w < kBinW || bin_w % kBinW || tile_n % bin_w || surv < 1 ||
-      surv > kMaxSurvivors)
-    return false;
+  if (bin_w < kBinW || bin_w % kBinW || tile_n % bin_w) return false;
   const int n_bins = tile_n / bin_w;
   *g = Geom{bin_w, surv, n_bins, round_up(n_bins * surv, kBinW),
             round_up(n_bins, kBinW), bin_w / kBinW};
@@ -343,20 +350,27 @@ struct Place {
   int lane_col;
 };
 
-// kDepth = 0: grouped binning; kDepth > 0: lane binning, each lane's list
-// kDepth >= surv + 1 long.
+// kDepth = 0: grouped binning at two survivors; kGroupedDeep: grouped
+// binning at any other count; kDepth > 0: lane binning, each lane's list
+// kDepth >= surv + 1 long.  Every emitter walks each db tile in kPasses
+// passes over its groups (one but the deep grouped build's), begin_pass
+// before a pass, end_pass after it, end_tile after the last.
 template <int kDepth>
 struct Emitter;
 
-// Grouped binning: the insertion network of insert_group, stored per tile.
+// Grouped binning at two survivors: the insertion network of insert_group,
+// stored per tile.
 template <>
 struct Emitter<0> {
+  static constexpr int kPasses = 1;
   Vals vals;
   Gidx gidx;
 
   __device__ explicit Emitter(float*) {}
 
-  __device__ __forceinline__ void begin_tile() { reset_bins(vals, gidx); }
+  __device__ __forceinline__ void begin_pass(int) { reset_bins(vals, gidx); }
+
+  __device__ __forceinline__ void end_pass(int, const Out&, const Place&) {}
 
   // Group g's scores s = tn - 2 qt (queries quad*4 + i, rows lane_col +
   // 32*j of the group).
@@ -398,9 +412,132 @@ __device__ __forceinline__ bool lane_before(float va, int ra, float vb,
 // written: 8 f32 = one 32-byte sector.
 constexpr int kLaneVec = 8;
 
+// Grouped binning at surv = 1 .. 8 survivors but 2 (the reference's any
+// survivors up to MAX_SURVIVORS, _geometry:296-300).  A cell -- one (query,
+// lane) bin -- keeps up to 8 survivor values, their group indices and the
+// bound: 17 registers, 272 for the 16 cells of a thread, past the 255 a
+// thread may hold before the mainloop's own, and shared memory is taken by
+// the mainloop's ring (up to 224 KB of 227).  So this build walks each db
+// tile in kQuadQ = 4 passes, the thread's query row quad*4 + pass in pass
+// `pass` (4 cells, 68 registers of state, fewer than the two-survivor
+// build's 80): every pass runs the tile's products again, 4x the walk's
+// work, no spill.  The network is insert_group's with the survivor count a
+// runtime value (the steps past `surv` predicated off), the bound its own
+// register; a pass stores its row's block at its end, and a fused launch
+// re-writes the whole block as a skipped tile's at the tile's end when the
+// early-out skips it (the same carry and rule as the two-survivor build,
+// fed each row's lane minima at the end of its pass).
+template <>
+struct Emitter<kGroupedDeep> {
+  static constexpr int kPasses = kQuadQ;
+  float vals[kQuadL][kMaxSurvivors];   // survivors, ascending
+  int gidx[kQuadL][kMaxSurvivors];     // ... and their groups
+  float bnd[kQuadL];                   // the bin bound
+  int row;                             // this pass's row of the quad
+  float tmin[kQuadQ], thr[kQuadQ];     // fused: the rows' skip statistics
+
+  __device__ explicit Emitter(float*) {}
+
+  __device__ __forceinline__ void begin_pass(int pass) {
+    row = pass;
+#pragma unroll
+    for (int j = 0; j < kQuadL; ++j) {
+#pragma unroll
+      for (int k = 0; k < kMaxSurvivors; ++k) {
+        vals[j][k] = __int_as_float(0x7f800000);
+        gidx[j][k] = 0;
+      }
+      bnd[j] = __int_as_float(0x7f800000);
+    }
+  }
+
+  // Group g's scores s[j] of this pass's row (lanes lane_col + 32*j) into
+  // the network, insert_group's steps for the first `surv` slots.
+  __device__ __forceinline__ void group_row(const float (&s)[kQuadL], int g,
+                                            int surv) {
+#pragma unroll
+    for (int j = 0; j < kQuadL; ++j) {
+      float cur_v = s[j];
+      int cur_g = g;
+#pragma unroll
+      for (int k = 0; k < kMaxSurvivors; ++k) {
+        if (k < surv) {
+          const bool less = cur_v < vals[j][k];
+          const float disp_v = fmaxf(cur_v, vals[j][k]);
+          const int disp_g = less ? gidx[j][k] : cur_g;
+          vals[j][k] = fminf(cur_v, vals[j][k]);
+          gidx[j][k] = less ? cur_g : gidx[j][k];
+          cur_v = disp_v;
+          cur_g = disp_g;
+        }
+      }
+      bnd[j] = fminf(bnd[j], cur_v);
+    }
+  }
+
+  // This pass's row of tile ti's block: survivors to cd / ci at column
+  // ti*surv*128 + k*128 + lane (INT32_MAX where the value is not finite),
+  // the bound to bounds at ti*128 + lane.
+  __device__ __forceinline__ void end_pass(int ti, const Out& o,
+                                           const Place& p) {
+    const int qrow = p.q0 + p.quad * kQuadQ + row;
+    if (qrow >= o.n_q) return;
+    const int surv = o.geo.surv;
+    const size_t out_w = static_cast<size_t>(o.n_tiles) * o.geo.out_w;
+    const size_t bound_w = static_cast<size_t>(o.n_tiles) * kBinW;
+#pragma unroll
+    for (int j = 0; j < kQuadL; ++j) {
+      const int lane = p.lane_col + 32 * j;
+#pragma unroll
+      for (int k = 0; k < kMaxSurvivors; ++k) {
+        if (k < surv) {
+          const size_t at = qrow * out_w +
+                            static_cast<size_t>(ti) * o.geo.out_w +
+                            k * kBinW + lane;
+          const float v = vals[j][k];
+          o.cd[at] = v;
+          o.ci[at] = isfinite(v) ? ti * o.tile_n + gidx[j][k] * kBinW + lane
+                                 : INT32_MAX;
+        }
+      }
+      o.bounds[qrow * bound_w + static_cast<size_t>(ti) * kBinW + lane] =
+          bnd[j];
+    }
+  }
+
+  // A skipped tile (fused): the thread's whole block, every row, as +inf,
+  // INT32_MAX, +inf over what the passes stored.
+  __device__ __forceinline__ void end_tile(int ti, const Out& o,
+                                           const Place& p, bool pad) {
+    if (!pad) return;
+    const float inf = __int_as_float(0x7f800000);
+    const size_t out_w = static_cast<size_t>(o.n_tiles) * o.geo.out_w;
+    const size_t bound_w = static_cast<size_t>(o.n_tiles) * kBinW;
+#pragma unroll
+    for (int i = 0; i < kQuadQ; ++i) {
+      const int qrow = p.q0 + p.quad * kQuadQ + i;
+      if (qrow >= o.n_q) continue;
+#pragma unroll
+      for (int j = 0; j < kQuadL; ++j) {
+        const int lane = p.lane_col + 32 * j;
+        for (int k = 0; k < o.geo.surv; ++k) {
+          const size_t at = qrow * out_w +
+                            static_cast<size_t>(ti) * o.geo.out_w +
+                            k * kBinW + lane;
+          o.cd[at] = inf;
+          o.ci[at] = INT32_MAX;
+        }
+        o.bounds[qrow * bound_w + static_cast<size_t>(ti) * kBinW + lane] =
+            inf;
+      }
+    }
+  }
+};
+
 // Lane binning (K8).  kDepth >= surv + 1: the length of each lane's list.
 template <int kDepth>
 struct Emitter {
+  static constexpr int kPasses = 1;
   float* tile;          // group(): the score tile it writes and reads
   float lv[kDepth];     // this lane's list: values, ascending
   int lr[kDepth];       // ... and their tile rows
@@ -419,10 +556,12 @@ struct Emitter {
     }
   }
 
-  __device__ __forceinline__ void begin_tile() {
+  __device__ __forceinline__ void begin_pass(int) {
     reset();
     bin = bin_group = 0;
   }
+
+  __device__ __forceinline__ void end_pass(int, const Out&, const Place&) {}
 
   // (v, row) into the sorted list; strict `<`, so the earlier row stays
   // ahead of an equal value, and +inf and NaN never enter (the list starts
@@ -607,6 +746,32 @@ struct Emitter {
   }
 };
 
+// The resources of one built kernel as a launch would take them: after
+// letting it have its dynamic shared memory, its registers a thread, its
+// static shared, local (spill and stack) and dynamic shared bytes, and the
+// CTAs of kThreads one SM holds (out[0 .. 4]).  A kernel whose shared
+// memory the device refuses fails with the CUDA error here, as its launch
+// would.
+template <class Kernel>
+__host__ cudaError_t kernel_attrs(Kernel* fn, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(a.localSizeBytes);
+  out[3] = static_cast<int>(smem);
+  out[4] = ctas;
+  return cudaSuccess;
+}
+
 // K11's early-out (the fused entries of every f32 and int arm; the TPU's
 // pallas_knn.py:722-828; binned_stream.cu states the rule and why it is
 // sound).  Per (query, lane) a sorted carry of ``depth`` running minima of
@@ -620,6 +785,48 @@ __device__ __forceinline__ void reset_carry(
 #pragma unroll 1
       for (int d = 0; d < depth; ++d)
         carry[i][j][d] = __int_as_float(0x7f800000);
+}
+
+// One cell's part of the early-out at a tile's end: the row's tile minimum
+// takes the lane minimum, thr the cell's deepest carry value before this
+// tile, and the carry the lane minimum (sorted insertion).
+__device__ __forceinline__ void carry_cell(float (&carry)[kMaxCarry],
+                                           int depth, float lane_min,
+                                           float& tmin, float& thr) {
+  tmin = fminf(tmin, lane_min);
+  thr = fmaxf(thr, carry[depth - 1]);
+  float cur = lane_min;
+#pragma unroll 1
+  for (int d = 0; d < depth; ++d) {
+    const float c = carry[d];
+    carry[d] = fminf(c, cur);
+    cur = fmaxf(c, cur);
+  }
+}
+
+// The block's decision from each row's tile minimum and thr: true when
+// every real query row of the CTA's block has its tile minimum above thr.
+// Every thread of the CTA calls it (a barrier).
+__device__ __forceinline__ bool block_skip(float (&tmin)[kQuadQ],
+                                           float (&thr)[kQuadQ],
+                                           const Place& p, int n_q,
+                                           int* warp_ok) {
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < kQuadQ; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      tmin[i] = fminf(tmin[i], __shfl_xor_sync(0xffffffffu, tmin[i], off));
+      thr[i] = fmaxf(thr[i], __shfl_xor_sync(0xffffffffu, thr[i], off));
+    }
+    ok = ok && (p.q0 + p.quad * 4 + i >= n_q || tmin[i] > thr[i]);
+  }
+  if (p.lane_col == 0) warp_ok[p.quad] = ok;
+  __syncthreads();
+  bool skip = true;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) skip = skip && warp_ok[w];
+  return skip;
 }
 
 // At a tile's end: true when every real query row of the CTA's block has
@@ -637,36 +844,35 @@ __device__ __forceinline__ bool fused_skip(
     tmin[i] = inf;
     thr[i] = -inf;
 #pragma unroll
-    for (int j = 0; j < kQuadL; ++j) {
-      const float lane_min = em.vals[i][j][0];
-      tmin[i] = fminf(tmin[i], lane_min);
-      thr[i] = fmaxf(thr[i], carry[i][j][depth - 1]);
-      // sorted insertion of the lane minimum into the carry
-      float cur = lane_min;
-#pragma unroll 1
-      for (int d = 0; d < depth; ++d) {
-        const float c = carry[i][j][d];
-        carry[i][j][d] = fminf(c, cur);
-        cur = fmaxf(c, cur);
-      }
-    }
+    for (int j = 0; j < kQuadL; ++j)
+      carry_cell(carry[i][j], depth, em.vals[i][j][0], tmin[i], thr[i]);
   }
-  bool ok = true;
+  return block_skip(tmin, thr, p, n_q, warp_ok);
+}
+
+// The deep grouped build's part at a pass's end: its row's statistics and
+// carry, from the row's lane minima (survivor 0 of each bin).
+__device__ __forceinline__ void fused_pass(
+    Emitter<kGroupedDeep>& em, float (&carry)[kQuadQ][kQuadL][kMaxCarry],
+    int depth) {
+  if (depth == 0) return;
+  float tmin = __int_as_float(0x7f800000), thr = -tmin;
+#pragma unroll
+  for (int j = 0; j < kQuadL; ++j)
+    carry_cell(carry[em.row][j], depth, em.vals[j][0], tmin, thr);
 #pragma unroll
   for (int i = 0; i < kQuadQ; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      tmin[i] = fminf(tmin[i], __shfl_xor_sync(0xffffffffu, tmin[i], off));
-      thr[i] = fmaxf(thr[i], __shfl_xor_sync(0xffffffffu, thr[i], off));
-    }
-    ok = ok && (p.q0 + p.quad * 4 + i >= n_q || tmin[i] > thr[i]);
+    em.tmin[i] = i == em.row ? tmin : em.tmin[i];
+    em.thr[i] = i == em.row ? thr : em.thr[i];
   }
-  if (p.lane_col == 0) warp_ok[p.quad] = ok;
-  __syncthreads();
-  bool skip = true;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) skip = skip && warp_ok[w];
-  return skip;
+}
+
+// ... and its decision at the tile's end, from every pass's row.
+__device__ __forceinline__ bool fused_skip(
+    Emitter<kGroupedDeep>& em, float (&)[kQuadQ][kQuadL][kMaxCarry],
+    int depth, const Place& p, int n_q, int* warp_ok) {
+  if (depth == 0) return false;
+  return block_skip(em.tmin, em.thr, p, n_q, warp_ok);
 }
 
 }  // namespace binned

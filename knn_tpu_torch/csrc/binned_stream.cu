@@ -39,7 +39,7 @@
 // SMs.  So the tile loop is split into contiguous segments, one per CTA: the
 // wrapper (ops/coarse_knn.stream_segment_tiles) picks n_seg = min(n_tiles,
 // floor(wave / query blocks)) segments, where wave = SMs x the CTAs per SM
-// that stream_ctas_per_sm reads from the occupancy API for the built kernel
+// that stream_select_attrs reads from the occupancy API for the built kernel
 // of the arm (the mainloop's shared memory, binned_mma.cuh: 72-224 KB by
 // arm and Dp, compiled for one CTA per SM; pq 194 KB at 256 codes, one).
 // The streaming output does not depend on the split.
@@ -128,26 +128,6 @@ cudaError_t allow_smem_pq(size_t smem) {
                               static_cast<int>(smem));
 }
 
-// CTAs per SM of the single-chunk build (the multi-chunk one, with more
-// shared memory, holds no more); pq's at its shared memory for ncodes codes
-// (m unused).
-template <Arm kArm, bool kFused, int kDepth>
-cudaError_t ctas_per_sm(int m, int ncodes, int* out) {
-  if constexpr (kArm == Arm::kPq) {
-    const size_t smem = pq_smem_bytes(ncodes, kDepth);
-    cudaError_t err = allow_smem_pq<kDepth>(smem);
-    if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, stream_select_pq_kernel<kDepth>, kThreads, smem);
-  } else {
-    cudaError_t err = allow_smem<kArm, kFused, false, kDepth>();
-    if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, stream_select_mma_kernel<kArm, kFused, false, kDepth>, kThreads,
-        kMmaSmemBytes<kArm, false>);
-  }
-}
-
 template <Arm kArm, bool kFused, bool kMulti, int kDepth>
 cudaError_t launch_build(dim3 grid, const void* p0, const void* p1,
                          const void* p2, const void* p3, const Out& out,
@@ -204,6 +184,9 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
   const dim3 grid((n_tiles + seg_tiles - 1) / seg_tiles,
                   (n_q + kBlockQ - 1) / kBlockQ);
   if constexpr (kFused) {
+    if (emit_depth(bin_w, survivors) == kGroupedDeep)
+      return launch_binning<kArm, true, kGroupedDeep>(
+          grid, p0, p1, p2, p3, out, dp, seg_tiles, depth, ncodes, stream);
     return launch_binning<kArm, true, 0>(grid, p0, p1, p2, p3, out, dp,
                                          seg_tiles, depth, ncodes, stream);
   } else {
@@ -211,6 +194,9 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
       case 0:
         return launch_binning<kArm, false, 0>(grid, p0, p1, p2, p3, out, dp,
                                               seg_tiles, 0, ncodes, stream);
+      case kGroupedDeep:
+        return launch_binning<kArm, false, kGroupedDeep>(
+            grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
       case kLaneDepthSmall:
         return launch_binning<kArm, false, kLaneDepthSmall>(
             grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
@@ -221,27 +207,76 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
   }
 }
 
-template <bool kFused, int kDepth>
-cudaError_t ctas_per_sm_of(int arm, int m, int ncodes, int* out) {
+// The resources of the streaming (kFused false) or fused build a launch of
+// arm kArm would take (binned_select.cuh kernel_attrs).
+template <Arm kArm, bool kFused, int kDepth>
+cudaError_t attrs_build(int dp, int ncodes, int* out) {
+  if constexpr (kArm == Arm::kPq) {
+    if constexpr (kFused) return cudaErrorInvalidValue;
+    else
+      return kernel_attrs(stream_select_pq_kernel<kDepth>,
+                          pq_smem_bytes(ncodes, kDepth), out);
+  } else {
+    if (dp > kDimChunk)
+      return kernel_attrs(stream_select_mma_kernel<kArm, kFused, true, kDepth>,
+                          kMmaSmemBytes<kArm, true>, out);
+    return kernel_attrs(stream_select_mma_kernel<kArm, kFused, false, kDepth>,
+                        kMmaSmemBytes<kArm, false>, out);
+  }
+}
+
+template <Arm kArm>
+cudaError_t attrs(int fused, int bin_w, int survivors, int dp, int ncodes,
+                  int* out) {
+  const int slots = emit_depth(bin_w, survivors);
+  if (fused) {
+    if (slots > 0) return cudaErrorInvalidValue;
+    return slots == kGroupedDeep
+               ? attrs_build<kArm, true, kGroupedDeep>(dp, ncodes, out)
+               : attrs_build<kArm, true, 0>(dp, ncodes, out);
+  }
+  switch (slots) {
+    case 0:
+      return attrs_build<kArm, false, 0>(dp, ncodes, out);
+    case kGroupedDeep:
+      return attrs_build<kArm, false, kGroupedDeep>(dp, ncodes, out);
+    case kLaneDepthSmall:
+      return attrs_build<kArm, false, kLaneDepthSmall>(dp, ncodes, out);
+    default:
+      return attrs_build<kArm, false, kLaneDepth>(dp, ncodes, out);
+  }
+}
+
+}  // namespace
+
+// The resources of the streaming (fused = 0) or fused (fused = 1) build
+// that stream_select_<arm> / fused_select_<arm> launch for the binning
+// (bin_w, survivors) at dp dims (pq: ncodes codes), as binned_coarse.cu's
+// binned_select_attrs reports its tiled builds'.  Returns the cudaError (0
+// = out is set).
+extern "C" int stream_select_attrs(int fused, int arm, int bin_w,
+                                   int survivors, int dp, int ncodes,
+                                   int* out) {
+  Geom geo;
+  if (!make_geom(bin_w ? bin_w : kBinW, bin_w, survivors, &geo))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (arm) {
-#define ARM_CASE(ARM) \
-  case static_cast<int>(ARM): return ctas_per_sm<ARM, kFused, kDepth>(m, ncodes, out);
+#define ARM_CASE(ARM)         \
+  case static_cast<int>(ARM): \
+    return static_cast<int>(  \
+        attrs<ARM>(fused, bin_w, survivors, dp, ncodes, out));
     ARM_CASE(Arm::kBf16x3)
     ARM_CASE(Arm::kInt8)
     ARM_CASE(Arm::kInt4)
     ARM_CASE(Arm::kBf16x3f)
     ARM_CASE(Arm::kHighest)
     ARM_CASE(Arm::kDefault)
+    ARM_CASE(Arm::kPq)
 #undef ARM_CASE
-    case static_cast<int>(Arm::kPq):
-      if constexpr (kFused) return cudaErrorInvalidValue;
-      else return ctas_per_sm<Arm::kPq, false, kDepth>(m, ncodes, out);
     default:
-      return cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
-}  // namespace
 
 // C entries for ctypes.  Operands p0 .. p3 as the tiled entries of the same
 // arm take them (binned_coarse.cu): f32 family q [n_q, dp] f32, then th, tl
@@ -253,10 +288,11 @@ cudaError_t ctas_per_sm_of(int arm, int m, int ncodes, int* out) {
 // codes_t [dp, n_tiles*tile_n] uint8 (binned_coarse.cu states the
 // layouts), an unused pointer, tnorm.  cd, ci, bounds as
 // binned_select.cuh lays them out for the binning (grouped: [n_q,
-// n_tiles*256] and [n_q, n_tiles*128]).  seg_tiles = db tiles per CTA (the
-// last segment may be shorter); bin_w / survivors the binning (bin_w = 0:
-// grouped, two survivors; the fused entries are grouped only); depth = the
-// fused kernel's carry depth, 0..8 (0 disarms); ncodes is read by pq alone.
+// n_tiles*survivors*128] and [n_q, n_tiles*128]).  seg_tiles = db tiles per
+// CTA (the last segment may be shorter); bin_w / survivors the binning
+// (bin_w = 0: grouped; the fused entries are grouped only and take the
+// survivors alone), 1 .. 8 survivors; depth = the fused kernel's carry
+// depth, 0..8 (0 disarms); ncodes is read by pq alone.
 // Each returns cudaGetLastError() after the launch (0 = launched); the
 // wrapper raises on anything else.
 #define STREAM_ENTRY(NAME, ARM)                                               \
@@ -274,11 +310,11 @@ cudaError_t ctas_per_sm_of(int arm, int m, int ncodes, int* out) {
   extern "C" int fused_select_##NAME(                                         \
       const void* p0, const void* p1, const void* p2, const void* p3,         \
       void* cd, void* ci, void* bounds, int n_q, int dp, int n_tiles,         \
-      int tile_n, int seg_tiles, int depth, void* stream) {                   \
+      int tile_n, int seg_tiles, int depth, int survivors, void* stream) {    \
     return static_cast<int>(launch<ARM, true>(p0, p1, p2, p3, cd, ci, bounds, \
                                               n_q, dp, n_tiles, tile_n,       \
-                                              seg_tiles, depth, 0, 2, 0,      \
-                                              stream));                       \
+                                              seg_tiles, depth, 0, survivors, \
+                                              0, stream));                    \
   }
 
 #define STREAM_ENTRIES(NAME, ARM) STREAM_ENTRY(NAME, ARM) FUSED_ENTRY(NAME, ARM)
@@ -290,28 +326,3 @@ STREAM_ENTRIES(default, Arm::kDefault)
 STREAM_ENTRIES(int8, Arm::kInt8)
 STREAM_ENTRIES(int4, Arm::kInt4)
 STREAM_ENTRY(pq, Arm::kPq)
-
-// CTAs of the streaming (fused = 0) or fused (fused = 1) kernel of arm
-// `arm` (the Arm codes: 0 bf16x3, 1 int8, 2 int4, 3 bf16x3f, 4 highest, 5
-// default, 6 pq) in grouped binning (bin_w = 0) or lane binning with
-// `survivors` that one SM of the current device holds at once, from the
-// occupancy API (registers, kThreads and the arm's shared memory -- pq's for
-// m subspaces of ncodes codes -- of the built kernel); the wrapper sizes the
-// tile segments with it.  Returns the cudaError (0 = *out is set).
-extern "C" int stream_ctas_per_sm(int fused, int arm, int bin_w, int survivors,
-                                  int m, int ncodes, int* out) {
-  const int slots = emit_depth(bin_w, survivors);
-  if (fused)
-    return static_cast<int>(slots ? cudaErrorInvalidValue
-                                  : ctas_per_sm_of<true, 0>(arm, m, ncodes, out));
-  switch (slots) {
-    case 0:
-      return static_cast<int>(ctas_per_sm_of<false, 0>(arm, m, ncodes, out));
-    case kLaneDepthSmall:
-      return static_cast<int>(
-          ctas_per_sm_of<false, kLaneDepthSmall>(arm, m, ncodes, out));
-    default:
-      return static_cast<int>(
-          ctas_per_sm_of<false, kLaneDepth>(arm, m, ncodes, out));
-  }
-}

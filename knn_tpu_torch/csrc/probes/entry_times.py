@@ -1,4 +1,4 @@
-"""Times every coarse entry of the default, int8 and int4 arms on one card.
+"""Times every coarse entry of the given arms on one card.
 
     python3 knn_tpu_torch/csrc/probes/entry_times.py [--arms default,int8,int4]
 
@@ -6,9 +6,11 @@ Imports ``knn_tpu_torch`` from the checkout that holds this file (three
 directories up), so a copy of the file placed in another checkout of the
 repository times that checkout's kernels: two checkouts can be timed in
 turns in one run on one card.  At 4,096 queries against 1,000,000 x
-128 uniform rows (the SIFT1M shape, drawn as chip_smoke.py draws them), for
-each arm: the grouped tiled, db-major, streaming and fused entries and the
-lane tiled, db-major and streaming entries (128-row bins, 2 survivors),
+128 uniform rows (the SIFT1M shape, drawn as chip_smoke.py draws them; pq:
+a random LUT of 32 subspaces x 256 codes and random codes, as its timing
+needs no training), for each arm: the grouped tiled, db-major, streaming
+and fused (not pq) entries and the lane tiled, db-major and streaming
+entries (128-row bins, 2 survivors),
 each timed with CUDA events (mean of 3 launches after one warm-up), in
 turns grouped, lane, lane, grouped.  Prints the card's name and power
 limit, then one JSON line per (arm, entry).
@@ -65,12 +67,22 @@ def main() -> None:
                "streaming": (ck.stream_select, {}),
                "fused": (ck.fused_select, {"keep": 130})}
     for arm in arms:
-        if arm in ck.INT_ARMS:
+        if arm == "pq":
+            m, c = 32, 256
+            lut = torch.from_numpy((rng.normal(size=(n_q, m * c)) * 100)
+                                   .astype(np.float32)).to(dev)
+            codes = torch.from_numpy(rng.integers(0, c, size=(n, m))
+                                     .astype(np.uint8)).to(dev)
+            args = (lut, *ck.prepare_db_pq(codes, ck.TILE_N))
+        elif arm in ck.INT_ARMS:
             args = (*ck.quantize_queries(q), *ck.prepare_db_int(db, ck.TILE_N,
                                                                 arm))
         else:
             args = (ck.pad_queries(q), *ck.prepare_db_arm(db, ck.TILE_N, arm))
         for entry, (fn, kw) in entries.items():
+            if (arm, entry) == ("pq", "fused"):
+                continue          # refused, as in the JAX package
+
             def grouped():
                 return fn(*args, tile_n=ck.TILE_N, arm=arm, **kw)
 

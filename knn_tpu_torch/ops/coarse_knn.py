@@ -44,24 +44,25 @@ What runs where:
   padding, the bf16 hi/lo split, the norm rows; :func:`prepare_db_f32`
   for highest; :func:`quantize_queries`, :func:`prepare_db_quant`,
   :func:`prepare_db_int` for the int arms; :func:`pq_luts` and
-  :func:`prepare_db_pq` for pq), the exact top-(m+2) by stable sort with
-  its exclusion value, the pad-row mask, the direct-difference f32 rescore
-  (:func:`local_select_rescore`).
+  :func:`prepare_db_pq` for pq), the final select with its exclusion
+  value (exact top-(m+2) by stable sort, which ``final_select="approx"``
+  runs too), the pad-row mask, the direct-difference f32
+  rescore (:func:`local_select_rescore`).
 
 A bin is defined by the tile, the binning, ``bin_w`` and ``survivors``
 whatever the CUDA block shape is: candidate width, ``m`` and the fallback
 rate depend on them (:func:`_geometry`, :func:`effective_tile`, the JAX
 package's formulas).  Grouped binning: bin b of a db tile is lane b of
 every 128-row group of the tile (``tile_n // 128`` members strided 128
-apart), two survivors.  Lane binning: bin b is tile rows ``b*bin_w ..
-(b+1)*bin_w - 1``, ``survivors`` of them by repeated min / first-argmin.
+apart), ``survivors`` of them (default 2, capped at MAX_SURVIVORS) by the
+insertion network; ``bin_w`` only sets the tile's granularity there.
+Lane binning: bin b is tile rows ``b*bin_w .. (b+1)*bin_w - 1``,
+``survivors`` of them by repeated min / first-argmin.
 
-Ported: every precision, binning, grid and kernel of the JAX package, and
-final select ``exact``.  Not yet ported, refused by name: ``final_select=
-"approx"`` and grouped binning's other geometries (``survivors`` other
-than 2, ``bin_w`` other than 128: ROADMAP queue A item 3).  The JAX
-package's ``block_q`` only re-blocks query rows of its TPU grid; the CUDA
-kernel picks its own query block, so the port takes no such knob.
+Ported: every precision, binning, grid, kernel and final select of the
+JAX package, at every ``survivors`` and ``bin_w`` either binning takes.
+The JAX package's ``block_q`` only re-blocks query rows of its TPU grid;
+the CUDA kernel picks its own query block, so the port takes no such knob.
 """
 
 from __future__ import annotations
@@ -209,12 +210,7 @@ F32_ARMS = {"bf16x3": (torch.bfloat16, 4), "bf16x3f": (torch.bfloat16, 4),
 #: per arm
 ARMS = ("bf16x3", *INT_ARMS, "bf16x3f", "highest", "default", "pq")
 _ARM_CODES = {arm: code for code, arm in enumerate(ARMS)}
-PORTED = {"precision": PRECISIONS, "binning": BINNINGS,
-          "grid_order": GRID_ORDERS, "kernel": KERNELS,
-          "final_select": ("exact",)}
-#: grouped binning's one ported geometry (its kernels compile the
-#: two-survivor network; ``bin_w`` only moves effective_tile's floor there)
-GROUPED_PORTED = {"bin_w": (BIN_W,), "survivors": (SURVIVORS,)}
+FINAL_SELECTS = ("exact", "approx")
 
 #: query rows per CTA of every coarse kernel; the fused kernels' skip
 #: decision is taken per block of this many rows
@@ -261,9 +257,9 @@ def check_knobs(*, precision: str = "bf16x3", binning: str = "grouped",
                 final_select: str = "exact", bin_w: Optional[int] = None,
                 survivors: Optional[int] = None) -> None:
     """The JAX package's knob refusals (pallas_knn.py:286-311, 922-956,
-    1386-1398), then the port's own: every value that is valid there but
-    not ported here is refused by name.  ``bin_w`` and ``survivors`` left
-    at None take the JAX package's defaults (:func:`_geometry`)."""
+    1386-1398).  ``bin_w`` and ``survivors`` left at None take the JAX
+    package's defaults (:func:`_geometry`); a ``survivors`` above
+    MAX_SURVIVORS is capped there, as in the JAX package."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     if binning not in BINNINGS:
@@ -272,9 +268,9 @@ def check_knobs(*, precision: str = "bf16x3", binning: str = "grouped",
         raise ValueError(f"grid_order {grid_order!r} not in {GRID_ORDERS}")
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
-    if final_select not in ("exact", "approx"):
+    if final_select not in FINAL_SELECTS:
         raise ValueError(
-            f"final_select {final_select!r} not in ('exact', 'approx')")
+            f"final_select {final_select!r} not in {FINAL_SELECTS}")
     if kernel in ("streaming", "fused") and grid_order != "query_major":
         raise ValueError(
             f"kernel={kernel!r} streams the db inside one launch; "
@@ -295,26 +291,6 @@ def check_knobs(*, precision: str = "bf16x3", binning: str = "grouped",
         raise ValueError(f"bin_w={bin_w} must be a multiple of {BIN_W} lanes")
     if survivors is not None and survivors < 1:
         raise ValueError(f"survivors={survivors} must be >= 1")
-    given = {"precision": precision, "binning": binning,
-             "grid_order": grid_order, "kernel": kernel,
-             "final_select": final_select}
-    for knob, value in given.items():
-        if value not in PORTED[knob]:
-            raise ValueError(
-                f"{knob}={value!r} is not ported to CUDA yet; the port "
-                f"runs {knob} in {PORTED[knob]}")
-    if binning == "grouped":
-        # the JAX package caps grouped survivors at MAX_SURVIVORS
-        for knob, value, run in (
-                ("bin_w", bin_w, bin_w),
-                ("survivors", survivors,
-                 None if survivors is None else min(survivors,
-                                                    MAX_SURVIVORS))):
-            if run is not None and run not in GROUPED_PORTED[knob]:
-                raise ValueError(
-                    f"{knob}={value!r} is not ported to CUDA yet for "
-                    f"binning='grouped'; the port runs {knob} in "
-                    f"{GROUPED_PORTED[knob]} there")
 
 
 def _geometry(tile_n: int, bin_w: int = BIN_W,
@@ -537,37 +513,46 @@ def prepare_db_pq(codes: torch.Tensor, tile_n: int):
     return codes, tn[None, :].expand(8, -1)
 
 
-def _select_tile(s, ti: int, tile_n: int):
-    """The grouped emitter on one tile's scores ``s [Q, tile_n]``
-    (pallas_knn.py:575-610): per lane, the sorted insertion network over
-    the tile's groups in order, with strict `<` (the earlier group wins a
-    tie), keeping SURVIVORS values with their groups and the next value
-    as the bin bound — the kernels' network, step for step, so that ties
-    resolve as they do there."""
+def _select_tile(s, ti: int, tile_n: int, survivors: int = SURVIVORS):
+    """The grouped emitter on the scores ``s [Q, T*tile_n]`` of the T
+    consecutive db tiles from tile ``ti`` (pallas_knn.py:575-610): per
+    (tile, lane), the sorted insertion network over the tile's groups in
+    order, with strict `<` (the earlier group wins a tie), keeping
+    ``survivors`` values with their groups and the next value as the bin
+    bound — the kernels' network, step for step, so that ties resolve as
+    they do there.  Returns the T tiles' blocks side by side."""
     n_q = s.shape[0]
-    s = s.view(n_q, tile_n // BIN_W, BIN_W)
-    vals = [torch.full((n_q, BIN_W), torch.inf, device=s.device)] * (
-        SURVIVORS + 1)
-    gidx = [torch.zeros((n_q, BIN_W), dtype=torch.int32,
-                        device=s.device)] * SURVIVORS
-    for g in range(s.shape[1]):
-        cur_v = s[:, g]
-        cur_g = torch.full((n_q, BIN_W), g, dtype=torch.int32,
-                           device=s.device)
-        for j in range(SURVIVORS):
+    n_t = s.shape[1] // tile_n
+    s = s.reshape(n_q, n_t, tile_n // BIN_W, BIN_W)
+    shape = (n_q, n_t, BIN_W)
+    vals = [torch.full(shape, torch.inf, device=s.device)] * (survivors + 1)
+    gidx = [torch.zeros(shape, dtype=torch.int32,
+                        device=s.device)] * survivors
+    for g in range(s.shape[2]):
+        cur_v = s[:, :, g]
+        cur_g = torch.full(shape, g, dtype=torch.int32, device=s.device)
+        for j in range(survivors):
             less = cur_v < vals[j]
             disp_v = torch.maximum(cur_v, vals[j])
             disp_g = torch.where(less, gidx[j], cur_g)
             vals[j] = torch.minimum(cur_v, vals[j])
             gidx[j] = torch.where(less, cur_g, gidx[j])
             cur_v, cur_g = disp_v, disp_g
-        vals[SURVIVORS] = torch.minimum(vals[SURVIVORS], cur_v)
-    lane = torch.arange(BIN_W, device=s.device, dtype=torch.int32)
-    ci = [torch.where(torch.isfinite(v), ti * tile_n + gi * BIN_W + lane,
+        vals[survivors] = torch.minimum(vals[survivors], cur_v)
+    base = ((ti + torch.arange(n_t, device=s.device)) * tile_n)[None, :, None]
+    lane = torch.arange(BIN_W, device=s.device)
+    ci = [torch.where(torch.isfinite(v), base + gi * BIN_W + lane,
                       I32MAX).to(torch.int32)
           for v, gi in zip(vals, gidx)]
-    return (torch.cat(vals[:SURVIVORS], 1), torch.cat(ci, 1),
-            vals[SURVIVORS])
+    width = n_t * survivors * BIN_W
+    return (torch.stack(vals[:survivors], 2).reshape(n_q, width),
+            torch.stack(ci, 2).reshape(n_q, width),
+            vals[survivors].reshape(n_q, n_t * BIN_W))
+
+
+#: scores a plain grouped emitter call takes at once: the tiles of a batch
+#: run through one network, each step on all of them
+_PLAIN_BATCH_SCORES = 1 << 27
 
 
 def _select_tile_lane(s, ti: int, tile_n: int, geo):
@@ -604,16 +589,26 @@ def _select_tile_lane(s, ti: int, tile_n: int, geo):
     return cd, ci, bound
 
 
-def _select_tiles(score_tile, n_tiles: int, tile_n: int, geo=None):
-    """Concatenates the emitter over the db tiles, the scores of tile
-    ``ti`` given by ``score_tile(ti, rows)``: :func:`_select_tile`
-    (grouped binning, ``geo`` None) or :func:`_select_tile_lane` (lane
-    binning at geometry ``geo``)."""
+def _select_tiles(score_tile, n_tiles: int, tile_n: int, geo=None,
+                  survivors: int = SURVIVORS):
+    """Concatenates the emitter over the db tiles, the scores of db rows
+    ``rows`` (from tile ``ti``) given by ``score_tile(ti, rows)``:
+    :func:`_select_tile` (grouped binning at ``survivors``, ``geo`` None;
+    after the first tile on batches of tiles of up to
+    ``_PLAIN_BATCH_SCORES`` scores) or :func:`_select_tile_lane` (lane
+    binning at geometry ``geo``, tile by tile)."""
     outs = []
-    for ti in range(n_tiles):
-        s = score_tile(ti, slice(ti * tile_n, (ti + 1) * tile_n))
-        outs.append(_select_tile(s, ti, tile_n) if geo is None
-                    else _select_tile_lane(s, ti, tile_n, geo))
+    ti, step = 0, 1
+    while ti < n_tiles:
+        te = min(ti + step, n_tiles)
+        s = score_tile(ti, slice(ti * tile_n, te * tile_n))
+        if geo is None:
+            outs.append(_select_tile(s, ti, tile_n, survivors))
+            per_tile = max(1, s.numel() // (te - ti))
+            step = max(1, _PLAIN_BATCH_SCORES // per_tile)
+        else:
+            outs.append(_select_tile_lane(s, ti, tile_n, geo))
+        ti = te
     return tuple(torch.cat([o[j] for o in outs], 1) for j in range(3))
 
 
@@ -732,19 +727,15 @@ _SCORES = {"bf16x3": _bf16x3_scores, "bf16x3f": _bf16x3f_scores,
 def emit_geometry(tile_n: int, binning: str = "grouped",
                   bin_w: Optional[int] = None,
                   survivors: Optional[int] = None):
-    """The geometry a launch emits at: :func:`_geometry` of the binning,
-    checked against what the kernels compile (grouped: two survivors per
-    lane bin; lane: a ``bin_w`` multiple of 128 dividing the tile, 1 to
-    MAX_SURVIVORS survivors)."""
+    """The geometry a launch emits at: :func:`_geometry` of the binning
+    (grouped: 1 to MAX_SURVIVORS survivors per lane bin, ``bin_w`` a
+    multiple of 128 dividing the tile; lane: the same, ``bin_w`` rows a
+    bin), ``survivors`` capped at MAX_SURVIVORS as the JAX package caps
+    it."""
     if survivors is not None and survivors < 1:
         raise ValueError(f"survivors={survivors} must be >= 1")
-    geo = _geometry(tile_n, BIN_W if bin_w is None else bin_w, survivors,
-                    binning)
-    if binning == "grouped" and geo[1] != SURVIVORS:
-        raise ValueError(
-            f"survivors={survivors} is not ported to CUDA yet for "
-            f"binning='grouped'; the port runs survivors in {(SURVIVORS,)}")
-    return geo
+    return _geometry(tile_n, BIN_W if bin_w is None else bin_w, survivors,
+                     binning)
 
 
 def binned_select_plain(*operands: torch.Tensor, tile_n: int, arm: str,
@@ -759,7 +750,7 @@ def binned_select_plain(*operands: torch.Tensor, tile_n: int, arm: str,
     geo = emit_geometry(tile_n, binning, bin_w, survivors)
     scores, _ = _SCORES[arm](*operands)
     return _select_tiles(scores, n_p // tile_n, tile_n,
-                         None if binning == "grouped" else geo)
+                         None if binning == "grouped" else geo, geo[1])
 
 
 def _check_operands(operands, tile_n: int, arm: str) -> int:
@@ -995,8 +986,10 @@ def binned_select(*operands: torch.Tensor, tile_n: int, arm: str,
     ``csrc/binned_coarse.cu`` at first use) on the current stream, or
     raises; on a CPU tensor it runs :func:`binned_select_plain`.
     ``binned_select.launches[arm]`` counts its kernel launches in grouped
-    binning, ``.lane_launches[arm]`` those in lane binning, and
-    ``.db_major_launches[arm]`` those in the db-major grid among both."""
+    binning at two survivors, ``.deep_launches[arm]`` those at any other
+    count (the deep grouped build), ``.lane_launches[arm]`` those in lane
+    binning, and ``.db_major_launches[arm]`` those in the db-major grid
+    among them all."""
     n_p = _check_operands(operands, tile_n, arm)
     if grid_order not in GRID_ORDERS:
         raise ValueError(f"grid_order {grid_order!r} not in {GRID_ORDERS}")
@@ -1010,14 +1003,22 @@ def binned_select(*operands: torch.Tensor, tile_n: int, arm: str,
                   n_p, tile_n, geo, int(db_major),
                   *_binning_ints(operands, arm, tile_n, binning, geo),
                   grid_order=grid_order)
-    counts = (binned_select.lane_launches if binning == "lane"
-              else binned_select.launches)
-    counts[arm] += 1
+    _launch_counts(binned_select, binning, geo)[arm] += 1
     binned_select.db_major_launches[arm] += db_major
     return out
 
 
+def _launch_counts(wrapper, binning: str, geo) -> dict:
+    """The launch counter of ``wrapper`` that a launch at ``binning`` and
+    emit geometry ``geo`` adds to: ``.launches`` (grouped, two survivors),
+    ``.deep_launches`` (grouped, any other count) or ``.lane_launches``."""
+    if binning == "lane":
+        return wrapper.lane_launches
+    return wrapper.launches if geo[1] == SURVIVORS else wrapper.deep_launches
+
+
 binned_select.launches = dict.fromkeys(ARMS, 0)
+binned_select.deep_launches = dict.fromkeys(ARMS, 0)
 binned_select.db_major_launches = dict.fromkeys(ARMS, 0)
 binned_select.lane_launches = dict.fromkeys(ARMS, 0)
 
@@ -1036,25 +1037,66 @@ def stream_segment_tiles(n_q: int, n_tiles: int, wave_ctas: int) -> int:
 def _stream_ctas_per_sm(device: torch.device, kernel: str, precision: str,
                         emit=(0, SURVIVORS), pq_shape=(0, 0)) -> int:
     """CTAs of the ``streaming`` or ``fused`` kernel of arm ``precision``
-    one SM of ``device`` holds at once, as the occupancy API reports it
-    for the built kernel of the binning ``emit`` = (bin_w, survivors) as
-    the C entries take them (bin_w 0: grouped) — pq's at its shared memory
-    for ``pq_shape`` = (m, C)."""
+    one SM of ``device`` holds at once (:func:`kernel_resources`, kept per
+    build), for the binning ``emit`` = (bin_w, survivors) as the C
+    entries take them (bin_w 0: grouped) — pq's at its shared memory for
+    ``pq_shape`` = (m, C).  The single-chunk build's: the multi-chunk one,
+    with more shared memory, holds no more."""
     key = (device.index, kernel, precision, tuple(emit), tuple(pq_shape))
     if key not in _ctas_per_sm:
-        fn = _cuda.load("binned_stream").stream_ctas_per_sm
-        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-        fn.restype = ctypes.c_int
-        out = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            rc = fn(int(kernel == "fused"), _ARM_CODES[precision], *emit,
-                    *pq_shape, ctypes.byref(out))
-        if rc != 0 or out.value < 1:
+        ctas = kernel_resources(kernel, precision, bin_w=emit[0],
+                                survivors=emit[1],
+                                ncodes=pq_shape[1] or 256,
+                                device=device)["ctas_per_sm"]
+        if ctas < 1:
             raise RuntimeError(
-                f"occupancy query of the {kernel} {precision} kernel failed: "
-                f"cudaError {rc}, {out.value} CTAs per SM")
-        _ctas_per_sm[key] = out.value
+                f"the {kernel} {precision} kernel fits no CTA on an SM")
+        _ctas_per_sm[key] = ctas
     return _ctas_per_sm[key]
+
+
+#: the fields of :func:`kernel_resources`, in the C entries' order
+RESOURCE_FIELDS = ("registers", "static_shared_bytes", "local_bytes",
+                   "dynamic_shared_bytes", "ctas_per_sm")
+
+
+def kernel_resources(kernel: str, arm: str, *, bin_w: int = 0,
+                     survivors: int = SURVIVORS, dp: int = DIM_CHUNK,
+                     ncodes: int = 256, device=None) -> dict:
+    """The resources of the build that a ``kernel`` ("tiled", "streaming"
+    or "fused") launch of arm ``arm`` takes at the C entries' binning
+    ``bin_w`` (0 = grouped) and ``survivors`` and ``dp`` padded dims (pq:
+    ``dp`` subspaces of ``ncodes`` codes), read from the built kernel on a
+    CUDA ``device`` (default: the current one): registers a thread,
+    static shared, local (spill and stack), dynamic shared bytes and CTAs
+    per SM (cudaFuncGetAttributes and the occupancy API, after the kernel
+    is let have its dynamic shared memory).  Raises RuntimeError with the
+    CUDA error when the device refuses the build, as its launch would."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        raise ValueError(f"kernel_resources reads a built kernel on cuda, "
+                         f"not {device}")
+    out = (ctypes.c_int * len(RESOURCE_FIELDS))()
+    if kernel == "tiled":
+        fn = _cuda.load("binned_coarse").binned_select_attrs
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        args = (_ARM_CODES[arm], bin_w, survivors, dp, ncodes)
+    else:
+        fn = _cuda.load("binned_stream").stream_select_attrs
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        args = (int(kernel == "fused"), _ARM_CODES[arm], bin_w, survivors,
+                dp, ncodes)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(*args, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(
+            f"the {kernel} {arm} build (bin_w={bin_w}, survivors="
+            f"{survivors}, dp={dp}) cannot launch on {device}: cudaError "
+            f"{rc}")
+    return dict(zip(RESOURCE_FIELDS, out))
 
 
 def kernel_segment_tiles(n_q: int, n_tiles: int, device, kernel: str,
@@ -1101,7 +1143,8 @@ def stream_select(*operands: torch.Tensor, tile_n: int, arm: str,
     kernel's.  Its plain version is :func:`binned_select_plain` (the
     function is the same), which it runs for CPU tensors.
     ``stream_select.launches[arm]`` counts its kernel launches in grouped
-    binning, ``.lane_launches[arm]`` those in lane binning."""
+    binning at two survivors, ``.deep_launches[arm]`` those at any other
+    count, ``.lane_launches[arm]`` those in lane binning."""
     n_p = _check_operands(operands, tile_n, arm)
     geo = emit_geometry(tile_n, binning, bin_w, survivors)
     q = operands[0]
@@ -1115,13 +1158,12 @@ def stream_select(*operands: torch.Tensor, tile_n: int, arm: str,
                                _pq_shape(operands, arm))
     out = _launch("binned_stream", arm, f"stream_select_{arm}", operands,
                   n_p, tile_n, geo, seg, *ints)
-    counts = (stream_select.lane_launches if binning == "lane"
-              else stream_select.launches)
-    counts[arm] += 1
+    _launch_counts(stream_select, binning, geo)[arm] += 1
     return out
 
 
 stream_select.launches = dict.fromkeys(ARMS, 0)
+stream_select.deep_launches = dict.fromkeys(ARMS, 0)
 stream_select.lane_launches = dict.fromkeys(ARMS, 0)
 
 
@@ -1146,9 +1188,9 @@ def _early_out(out, n_tiles: int, keep: Optional[int], block_q: int,
     n_q = cd.shape[0]
     seg = n_tiles if seg_tiles is None else seg_tiles
     n_blocks = -(-n_q // block_q)
-    out_w = SURVIVORS * BIN_W
+    out_w = cd.shape[1] // n_tiles   # survivors * BIN_W
     # survivor 0 of each bin is the lane minimum of its tile
-    lane_min = cd.view(n_q, n_tiles, SURVIVORS, BIN_W)[:, :, 0].clone()
+    lane_min = cd.view(n_q, n_tiles, out_w // BIN_W, BIN_W)[:, :, 0].clone()
     carry = None
     for ti in range(n_tiles):
         if ti % seg == 0:
@@ -1174,46 +1216,53 @@ def _early_out(out, n_tiles: int, keep: Optional[int], block_q: int,
 def fused_select_plain(*operands: torch.Tensor, tile_n: int,
                        keep: Optional[int], arm: str,
                        block_q: int = QUERY_BLOCK,
-                       seg_tiles: Optional[int] = None):
+                       seg_tiles: Optional[int] = None,
+                       survivors: Optional[int] = None):
     """The fused kernels (K11 and the other arms' fused entries) in plain
-    PyTorch: :func:`binned_select_plain`, then the early-out
-    (:func:`_early_out`) at the given geometry.  Depth 0 (keep None or
-    too deep) skips nothing: the output is the streaming kernel's.  pq is
-    refused, as the JAX package refuses it."""
+    PyTorch: :func:`binned_select_plain` (grouped binning at ``survivors``),
+    then the early-out (:func:`_early_out`) at the given geometry.  Depth
+    0 (keep None or too deep) skips nothing: the output is the streaming
+    kernel's.  pq is refused, as the JAX package refuses it."""
     if arm == "pq":
         check_knobs(kernel="fused", precision="pq")
-    out = binned_select_plain(*operands, tile_n=tile_n, arm=arm)
+    out = binned_select_plain(*operands, tile_n=tile_n, arm=arm,
+                              survivors=survivors)
     return _early_out(out, out[2].shape[1] // BIN_W, keep, block_q,
                       seg_tiles)
 
 
 def fused_select(*operands: torch.Tensor, tile_n: int, keep: Optional[int],
-                 arm: str):
+                 arm: str, survivors: Optional[int] = None):
     """The fused wrapper (``kernel="fused"``) — K11 (bf16x3) and the other
     arms' fused entries: the streaming kernel plus the early-out that pads
     a tile's block for a query block when no row of the block can use it;
     ``keep`` (= m+2, the final select's width) sizes the carry, None
-    disarms it.  Operands and ``arm`` as :func:`binned_select` takes them.
-    On a CUDA tensor it launches ``fused_select_<arm>``
-    (``csrc/binned_stream.cu``) at :func:`kernel_segment_tiles`, or
-    raises; on a CPU tensor it runs :func:`fused_select_plain` at the CPU
-    geometry.  ``fused_select.launches[arm]`` counts kernel launches."""
+    disarms it.  Operands and ``arm`` as :func:`binned_select` takes them;
+    grouped binning at ``survivors`` (default 2).  On a CUDA tensor it
+    launches ``fused_select_<arm>`` (``csrc/binned_stream.cu``) at
+    :func:`kernel_segment_tiles`, or raises; on a CPU tensor it runs
+    :func:`fused_select_plain` at the CPU geometry.
+    ``fused_select.launches[arm]`` counts its kernel launches at two
+    survivors, ``.deep_launches[arm]`` those at any other count."""
     if arm == "pq":
         check_knobs(kernel="fused", precision="pq")  # refused by name
     n_p = _check_operands(operands, tile_n, arm)
+    geo = emit_geometry(tile_n, survivors=survivors)
     q = operands[0]
     seg = kernel_segment_tiles(q.shape[0], n_p // tile_n, q.device, "fused",
-                               arm)
+                               arm, (0, geo[1]))
     if q.device.type == "cpu":
         return fused_select_plain(*operands, tile_n=tile_n, keep=keep,
-                                  seg_tiles=seg, arm=arm)
+                                  seg_tiles=seg, arm=arm,
+                                  survivors=survivors)
     out = _launch("binned_stream", arm, f"fused_select_{arm}", operands,
-                  n_p, tile_n, emit_geometry(tile_n), seg, carry_depth(keep))
-    fused_select.launches[arm] += 1
+                  n_p, tile_n, geo, seg, carry_depth(keep), geo[1])
+    _launch_counts(fused_select, "grouped", geo)[arm] += 1
     return out
 
 
 fused_select.launches = dict.fromkeys(ARMS, 0)
+fused_select.deep_launches = dict.fromkeys(ARMS, 0)
 
 
 def _truncate(x: np.ndarray, ulp: np.ndarray) -> np.ndarray:
@@ -1528,7 +1577,7 @@ def _bin_candidates(queries: torch.Tensor, db: Optional[torch.Tensor], *,
     emit = {"binning": binning, "bin_w": bin_w, "survivors": survivors}
     if kernel == "fused":
         return fused_select(*operands, tile_n=tile_n, keep=keep,
-                            arm=precision)
+                            arm=precision, survivors=survivors)
     if kernel == "streaming":
         return stream_select(*operands, tile_n=tile_n, arm=precision, **emit)
     return binned_select(*operands, tile_n=tile_n, arm=precision,
@@ -1567,19 +1616,30 @@ def local_coarse_candidates(q, t, m: int, *, tile_n: int = TILE_N,
 
 
 def local_select_rescore(q, t, cd, ci, bounds, m: int, *,
-                         final_select: str = "exact"):
-    """Stage 2: exact top-(m+2) over the packed candidates by kernel score
-    (stable sort: ties to the lower position, ``lax.top_k``'s order), the
-    exclusion value, the pad-row mask, and the direct-difference f32
-    rescore ordered lexicographically by (distance, index).  Returns
-    ``d32 [Q, m+1]``, ``idx [Q, m+1]`` (int64, sentinel int32 max) and
-    ``lb [Q]``: every row not among the candidates has kernel score >= lb."""
+                         final_select: str = "exact",
+                         final_recall_target: Optional[float] = None):
+    """Stage 2 (pallas_knn.py:1424-1478): the final select over the packed
+    candidates by kernel score, the exclusion value, the pad-row mask, and
+    the direct-difference f32 rescore ordered lexicographically by
+    (distance, index).  ``final_select="exact"``: the top-(m+2) by stable
+    sort (ties to the lower position, ``lax.top_k``'s order), the last
+    value the exclusion value.  ``"approx"``: the reference's ApproxTopK
+    branch selects m+1 and restores the exclusion value as the masked min
+    of the rest; torch has no approximate top-k, and with an exact
+    top-(m+1) that min is the exact branch's exclusion value, so "approx"
+    runs the exact select and ``final_recall_target`` has no effect
+    (ROADMAP divergence 19).
+    Returns ``d32 [Q, m+1]``, ``idx [Q, m+1]`` (int64, sentinel int32 max)
+    and ``lb [Q]``: every row not among the candidates has kernel score >=
+    lb."""
     w = cd.shape[1]
     if m + 2 > w:
         raise ValueError(
             f"pallas selector: m+2={m + 2} exceeds {w} bin survivors on a "
             f"{t.shape[0]}-row shard; lower margin or tile_n")
     check_knobs(final_select=final_select)
+    # "approx" runs this exact select too (divergence 19): with an exact
+    # top-(m+1), the masked min of the rest is vals[:, m+1]
     vals, sel = torch.sort(cd, dim=-1, stable=True)
     lidx = torch.gather(ci, -1, sel[:, : m + 1]).long()
     lb = torch.minimum(bounds.amin(-1), vals[:, m + 1])
@@ -1595,6 +1655,7 @@ def local_select_rescore(q, t, cd, ci, bounds, m: int, *,
 
 
 def local_certified_candidates(q, t, m: int, *, final_select: str = "exact",
+                               final_recall_target: Optional[float] = None,
                                db_parts=None, **knobs):
     """The whole device-side certified coarse pass against one db:
     :func:`local_coarse_candidates` then :func:`local_select_rescore`.
@@ -1602,7 +1663,8 @@ def local_certified_candidates(q, t, m: int, *, final_select: str = "exact",
     cd, ci, bounds = local_coarse_candidates(
         q, t, m, final_select=final_select, db_parts=db_parts, **knobs)
     return local_select_rescore(q, t, cd, ci, bounds, m,
-                                final_select=final_select)
+                                final_select=final_select,
+                                final_recall_target=final_recall_target)
 
 
 def knn_search_pallas(queries, db, k: int, *, margin: int = 28,

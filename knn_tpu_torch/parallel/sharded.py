@@ -380,7 +380,8 @@ class ShardedKNN:
                       grid_order: str = "query_major",
                       kernel: str = "tiled",
                       pq_dsub: Optional[int] = None,
-                      pq_ncodes: Optional[int] = None):
+                      pq_ncodes: Optional[int] = None,
+                      final_recall_target: Optional[float] = None):
         """((coarse, tail), m, analysis_window) for the one-pass certified
         path — the one home of the kernel-geometry margin cap.  The pair
         is the JAX package's program split at the candidate boundary
@@ -440,8 +441,9 @@ class ShardedKNN:
                 db_pq=db_pq)
 
         def tail(q: torch.Tensor, cd, ci, bounds):
-            d32, li, lb = local_select_rescore(q, db, cd, ci, bounds, m,
-                                               final_select=final_select)
+            d32, li, lb = local_select_rescore(
+                q, db, cd, ci, bounds, m, final_select=final_select,
+                final_recall_target=final_recall_target)
             return _certify_pack(q, d32, li, lb, db_norm_max=db_norm_max,
                                  m=m, k=self.k, w=w, n_train=rows,
                                  include_distances=include_distances,
@@ -468,17 +470,13 @@ class ShardedKNN:
         count, pipeline stats or None)."""
         from knn_tpu_torch.ops.refine import rank_correct_runs
 
-        if final_recall_target is not None:
-            raise ValueError(
-                "final_recall_target tunes final_select='approx', which is "
-                "not ported")
         k = self.k
         (coarse, tail), m, w = self._pallas_setup(
             m - k, tile_n, precision, bin_w=bin_w, survivors=survivors,
             final_select=final_select,
             include_distances=want_distances, binning=binning,
             grid_order=grid_order, kernel=kernel, pq_dsub=pq_dsub,
-            pq_ncodes=pq_ncodes)
+            pq_ncodes=pq_ncodes, final_recall_target=final_recall_target)
         bad_mask = np.zeros(q_np.shape[0], dtype=bool)
         n_corrected = 0
 
@@ -587,7 +585,8 @@ class ShardedKNN:
                          overlap_depth: Optional[int] = None,
                          return_sqrt: bool = False,
                          pq_dsub: Optional[int] = None,
-                         pq_ncodes: Optional[int] = None):
+                         pq_ncodes: Optional[int] = None,
+                         tune_cache: Optional[str] = None):
         """Exact lexicographic top-k via the one-pass certificate.  Returns
         ``(dists_f64 [Q, k] or None, idx [Q, k] int64, stats)`` on host.
 
@@ -595,8 +594,17 @@ class ShardedKNN:
         device's f32 direct-difference values (relative error <
         RANK_SLACK) except near-tied or repaired entries, which are
         float64-exact.  Cosine runs the certificate on unit vectors and
-        returns ``1 - similarity``.  Knobs left at None take the library
-        defaults (knn_tpu_torch.tuning); ``kernel`` picks the coarse
+        returns ``1 - similarity``.  The coarse-kernel knobs (``tile_n``,
+        ``bin_w``, ``survivors``, ``precision``, ``final_select``,
+        ``binning``, ``grid_order``, ``final_recall_target``, ``kernel``)
+        left at None resolve through ``knn_tpu_torch.tuning.resolve_full``:
+        the autotuner's persisted winner for this card and ``(n, d, k,
+        metric)`` when there is one (``python -m knn_tpu_torch.cli
+        tune``; ``tune_cache`` names the cache file, default
+        ``tuning.default_cache_path()``), else the library defaults;
+        explicit values win over both, and ``stats["pallas_knobs"]`` /
+        ``stats["tuning"]`` carry the resolved set and its provenance.
+        ``kernel`` picks the coarse
         kernel: "tiled", "streaming" or "fused", and ``grid_order`` the
         tiled kernel's grid ("query_major" or "db_major"), with bitwise
         the same result; ``precision`` its arm: "bf16x3" (K1, K10, K11),
@@ -604,9 +612,12 @@ class ShardedKNN:
         (K7; its placement trained on first use at ``pq_dsub`` dims per
         subspace and ``pq_ncodes`` codes, default 4 and 256), each
         certified with its own tolerance ("default", K3, has none and is
-        refused); ``binning`` the emitter: "grouped" (two survivors per
-        lane bin) or "lane" (K8: bins of ``bin_w`` rows, ``survivors``
-        each).  ``stats`` carries ``certified``,
+        refused); ``binning`` the emitter: "grouped" (``survivors`` per
+        lane bin, default 2, at most 8) or "lane" (K8: bins of ``bin_w``
+        rows, ``survivors`` each); ``final_select`` "exact" or "approx"
+        (an exact top-(m+1) stands in for the reference's approximate one:
+        ``final_recall_target`` has no effect, ROADMAP divergence 19).
+        ``stats`` carries ``certified``,
         ``fallback_queries``, ``rank_corrected_queries``, the repair
         counts and ``pallas_knobs``.  Queries must be finite.
 
@@ -642,11 +653,18 @@ class ShardedKNN:
             batches.append((lo, chunk, pad))
         d = np.empty((n_q, self.k))
         i = np.empty((n_q, self.k), dtype=np.int64)
-        knobs = tuning.resolve(
-            tile_n=tile_n, precision=precision, bin_w=bin_w,
-            survivors=survivors, final_select=final_select,
-            binning=binning, final_recall_target=final_recall_target,
-            grid_order=grid_order, kernel=kernel)
+        # one knob-resolution home: explicit args > the persisted winner
+        # for this placement's shape on this card > library defaults (the
+        # certificate runs in squared-L2 space, cosine on unit vectors)
+        knobs, tune_info = tuning.resolve_full(
+            self.n_train, self.placement.db.shape[1], self.k, metric="l2",
+            device_kind=tuning.device_kind_of(self.device),
+            cache_path=tune_cache,
+            overrides=dict(
+                tile_n=tile_n, precision=precision, bin_w=bin_w,
+                survivors=survivors, final_select=final_select,
+                binning=binning, final_recall_target=final_recall_target,
+                grid_order=grid_order, kernel=kernel))
         bad, n_corrected, pipeline = self._certify_pallas(
             batches, bs, m, d, i, q_np, db_np,
             want_distances=return_distances, overlap=bool(overlap),
@@ -668,6 +686,7 @@ class ShardedKNN:
             **repair,
             "rank_corrected_queries": n_corrected,
             "pallas_knobs": knobs,
+            "tuning": tune_info,
         }
         if pipeline is not None:
             stats["pipeline"] = pipeline

@@ -1,0 +1,518 @@
+"""The port's kernel autotuner — knn_tpu/tuning/autotune.py for the CUDA
+kernels: enumerate a bounded knob grid, gate each candidate by its end
+result against the default configuration's, time the survivors fenced,
+persist the winner (:mod:`knn_tpu_torch.tuning.cache`).
+
+Why a gate per candidate: every knob changes kernel geometry or arithmetic,
+and the certified pipeline's contract is that the FINAL (distances,
+indices) are exact for any knob set; a candidate whose answer differs
+bitwise from the default configuration's is broken, not merely different,
+and can never win, however fast it timed.
+
+The public entry points:
+
+- :func:`resolve_full` / :func:`resolve` — the one call every knob consumer
+  goes through (``ShardedKNN.search_certified``): the cached winner for
+  this ``(device kind, n, d, k, metric)``, else ``DEFAULT_KNOBS``,
+  with explicit caller values beating both;
+- :func:`autotune` — the search for one problem shape; a cache entry
+  short-circuits it with zero re-timing (``counters()["candidates_timed"]``
+  pins that in the tests and in the CLI's JSON record);
+- ``python -m knn_tpu_torch.cli tune`` — the command that runs it.
+
+What differs from the JAX package:
+
+- ``block_q`` is not a knob: it re-blocks the query rows of the TPU grid,
+  and every CUDA kernel takes its own 32-row query block.  The grid is the
+  JAX package's with that axis removed (the throughput profile's block_q
+  512 / 1024 ladder collapses into the default geometry), duplicates
+  dropped in first-seen order.
+- One regime: winners are keyed and searched for latency (serving).  The
+  JAX package's ``throughput`` profile keys winners for its kNN join,
+  which the port does not have yet; :func:`knob_grid` keeps the profile's
+  grid only so it can be held against the JAX package's.  The key's dtype
+  is always float32, the port's only compute dtype.
+- A Hopper resource gate replaces the VMEM gate (knn_tpu/analysis/vmem.py):
+  each candidate's build is read from the built kernel
+  (``coarse_knn.kernel_resources``: registers, shared and local bytes,
+  CTAs per SM), and one the card cannot launch is recorded as
+  ``smem-refused: ...`` in ``errors`` with its provenance in
+  ``entry["smem"]``.  On the CPU (the plain versions) it is disarmed.
+- Timing is fenced by ``torch.cuda.synchronize`` around each run, one warm
+  run outside the clock; the timed program is the certified coarse pass
+  and its select / rescore / certificate tail on the placement
+  (``ShardedKNN._pallas_setup``), whose quantized, highest and pq
+  placements are built once per call and shared by every candidate of
+  their precision (pq trains its codebooks once).
+- Not yet ported: roofline pruning (``prune=`` is refused by name) and the
+  entries' roofline attribution wait for ``obs/roofline`` (ROADMAP queue A
+  item 7); ``autotune_ivf`` waits for ``ivf/index`` (queue A item 5).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from knn_tpu_torch.tuning.cache import TuneCache, cache_key
+
+#: the JAX package's tuning profiles, as grids (:func:`knob_grid`)
+PROFILES = ("latency", "throughput")
+
+#: the knob names resolve() returns — the kernel-shaping keyword arguments
+#: of ShardedKNN.search_certified.  Values are the library defaults (None =
+#: the ops.coarse_knn default at the use site), so a cache miss with no
+#: overrides runs the default configuration bit for bit.
+DEFAULT_KNOBS: Dict[str, object] = {
+    "kernel": "tiled",
+    "tile_n": None,
+    "bin_w": None,
+    "survivors": None,
+    "precision": "bf16x3",
+    "final_select": "exact",
+    "binning": "grouped",
+    "grid_order": "query_major",
+    "final_recall_target": None,
+}
+
+_counters_lock = threading.Lock()
+_COUNTERS = {
+    "resolve_calls": 0,      # resolve() invocations
+    "cache_hits": 0,         # resolve/autotune served from the cache
+    "cache_misses": 0,       # resolve fell back to defaults
+    "tune_searches": 0,      # autotune() runs that actually searched
+    "candidates_timed": 0,   # candidates timed (0 on a warm cache)
+    "candidates_gated_out": 0,  # candidates rejected by the bitwise gate
+    "candidates_smem_refused": 0,  # refused by the Hopper resource gate
+}
+
+
+def counters() -> Dict[str, int]:
+    """Snapshot of the module counters — the zero re-timing evidence (a
+    second tune of a warm cache must not move ``candidates_timed``)."""
+    with _counters_lock:
+        return dict(_COUNTERS)
+
+
+def reset_counters() -> None:
+    with _counters_lock:
+        for key in _COUNTERS:
+            _COUNTERS[key] = 0
+
+
+def _bump(name: str, by: int = 1) -> None:
+    with _counters_lock:
+        _COUNTERS[name] += by
+
+
+def device_kind_of(device=None) -> str:
+    """The cache keys' device kind: ``torch.cuda.get_device_name`` of a
+    CUDA ``device`` (None: the current card, when there is one), else
+    ``"cpu"``."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    return torch.cuda.get_device_name(device)
+
+
+def resolve_full(
+    n: int, d: int, k: int, *, metric: str = "l2",
+    device_kind: Optional[str] = None,
+    overrides: Optional[Dict[str, object]] = None,
+    cache_path: Optional[str] = None,
+) -> Tuple[Dict[str, object], Dict[str, object]]:
+    """(knobs, info): the knob set for one problem shape and its
+    provenance.  Precedence: explicit overrides (non-None values) > the
+    cached winner > ``DEFAULT_KNOBS``.  ``info`` carries ``source``
+    ("cache" | "default"), the cache key and path, and which
+    knobs an override pinned.  ``device_kind`` None reads the current
+    card's (:func:`device_kind_of`)."""
+    _bump("resolve_calls")
+    if device_kind is None:
+        device_kind = device_kind_of()
+    key = cache_key(device_kind, n, d, k, metric)
+    cache = TuneCache(cache_path)
+    knobs = dict(DEFAULT_KNOBS)
+    entry = cache.get(key)
+    if entry is not None and isinstance(entry.get("knobs"), dict):
+        # unknown keys of a newer cache are dropped, known ones win
+        knobs.update({kk: v for kk, v in entry["knobs"].items()
+                      if kk in DEFAULT_KNOBS})
+        source = "cache"
+        _bump("cache_hits")
+    else:
+        source = "default"
+        _bump("cache_misses")
+    overridden = []
+    for kk, v in (overrides or {}).items():
+        if kk not in DEFAULT_KNOBS:
+            raise ValueError(f"unknown pallas knob {kk!r}; "
+                             f"expected one of {sorted(DEFAULT_KNOBS)}")
+        if v is not None:
+            knobs[kk] = v
+            overridden.append(kk)
+    info = {
+        "source": source,
+        "cache_key": key,
+        "cache_path": cache.path,
+        "overridden": sorted(overridden),
+    }
+    if source == "cache":
+        info["winner_ms"] = entry.get("winner_ms")
+        info["measured_at"] = entry.get("measured_at")
+    return knobs, info
+
+
+def resolve(n: int, d: int, k: int, **kwargs) -> Dict[str, object]:
+    """The knob set alone — see :func:`resolve_full`."""
+    return resolve_full(n, d, k, **kwargs)[0]
+
+
+def _label(knobs: Dict[str, object]) -> str:
+    """Stable candidate label: only the knobs that deviate from the
+    defaults, in sorted order ("defaults" when none do)."""
+    parts = [f"{kk}={knobs[kk]}" for kk in sorted(DEFAULT_KNOBS)
+             if knobs[kk] != DEFAULT_KNOBS[kk]]
+    return ",".join(parts) or "defaults"
+
+
+def knob_grid(level: str = "standard",
+              profile: str = "latency") -> List[Dict[str, object]]:
+    """The bounded, deterministic candidate grid: the JAX package's
+    ``knob_grid`` (autotune.py:214-382) at every level and profile with
+    its ``block_q`` axis removed, in its first-seen order.
+
+    - ``"quick"``: kernel x grid_order at the default geometry, plus the
+      approx final select.
+    - ``"standard"``: quick + one-at-a-time deviations of tile_n and
+      precision (every arm with a certificate, int8 / int4 / pq under
+      streaming too), and the fused crosses.
+    - ``"full"``: the bounded product tile_n x grid_order x precision x
+      kernel, each with the exact and the approx final select.
+
+    Invalid combinations (streaming / fused with db_major, fused with
+    approx or lane binning, pq under fused) are skipped as the kernels
+    refuse them.  The JAX package's full product enumerates block_q 256
+    before 128 and reaches bf16x3f under streaming / fused at tile_n
+    32,768 only at 128 (its VMEM rule); without the axis those arms come
+    after the rest of their tile, where the JAX order has them.
+    ``profile="throughput"`` (:data:`PROFILES`; no consumer in the port
+    yet, only :func:`autotune`'s latency grid is searched) adds what remains of the JAX package's block_q 512 / 1024
+    ladder once the axis is gone: tiled tile_n and precision deviations,
+    and int8 at tile_n 32,768.  ``survivors`` and ``bin_w`` are not axes
+    here, as there: they reach a search through a grid passed to
+    :func:`autotune`, or a cache entry."""
+    if level not in ("quick", "standard", "full"):
+        raise ValueError(f"grid level {level!r} not in "
+                         f"('quick', 'standard', 'full')")
+    if profile not in PROFILES:
+        raise ValueError(f"unknown tuning profile {profile!r}; "
+                         f"expected one of {PROFILES}")
+    out: List[Dict[str, object]] = []
+    seen = set()
+
+    def add(**deviations):
+        knobs = dict(DEFAULT_KNOBS)
+        knobs.update(deviations)
+        if (knobs["kernel"] in ("streaming", "fused")
+                and knobs["grid_order"] != "query_major"):
+            return  # no db grid axis to reorder (the kernels refuse it)
+        if knobs["kernel"] == "fused" and (
+                knobs["final_select"] == "approx"
+                or knobs["binning"] != "grouped"):
+            return  # the early-out's bitwise contract is exact + grouped
+        if knobs["precision"] == "pq" and knobs["kernel"] == "fused":
+            return  # refused: carry soundness unproven for pq scores
+        lbl = _label(knobs)
+        if lbl not in seen:
+            seen.add(lbl)
+            out.append(knobs)
+
+    def extend_throughput():
+        add(tile_n=8192)
+        for prec in ("bf16x3f", "int8", "int4"):
+            add(precision=prec)
+        add(tile_n=32768)
+        add(precision="int8", tile_n=32768)
+
+    for kern in ("tiled", "streaming", "fused"):
+        for order in ("query_major", "db_major"):
+            add(kernel=kern, grid_order=order)
+    add(final_select="approx")
+    if level == "quick":
+        if profile == "throughput":
+            extend_throughput()
+        return out
+    for tile in (8192, 32768):
+        add(tile_n=tile)
+    add(tile_n=32768, final_select="approx")
+    for prec in ("bf16x3f", "highest", "int8", "int4"):
+        add(precision=prec)
+    add(precision="int8", kernel="streaming")
+    add(precision="int4", kernel="streaming")
+    add(precision="pq", kernel="streaming")
+    add(precision="pq")
+    add(precision="int8", kernel="fused")
+    add(kernel="fused", tile_n=32768)
+    if level == "standard":
+        if profile == "throughput":
+            extend_throughput()
+        return out
+    for tile in (None, 8192, 32768):
+        # the JAX package's VMEM rule held these back to its block_q 128
+        # pass over the tile
+        late = []
+        for order in ("query_major", "db_major"):
+            for prec in ("bf16x3", "bf16x3f", "int8", "int4"):
+                for kern in ("tiled", "streaming", "fused"):
+                    cand = dict(tile_n=tile, grid_order=order,
+                                precision=prec, kernel=kern)
+                    if (prec == "bf16x3f" and kern != "tiled"
+                            and (tile or 0) >= 32768):
+                        late.append(cand)
+                        continue
+                    add(**cand)
+                    add(**cand, final_select="approx")
+        for cand in late:
+            add(**cand)
+            add(**cand, final_select="approx")
+    if profile == "throughput":
+        extend_throughput()
+    return out
+
+
+def _resource_gate(knn, candidates, n: int, d: int, k: int, margin: int):
+    """The Hopper resource gate: for each candidate the build its first
+    launch would take (the tile :func:`coarse_knn.effective_tile` resolves,
+    its survivors, the padded dims) read from the built kernel; returns
+    ``(refused {label: record}, info)``.  Candidates whose geometry does
+    not resolve are kept: their search raises, and is recorded, later."""
+    from knn_tpu_torch.ops import coarse_knn as ck
+
+    refused: Dict[str, dict] = {}
+    checked = {}
+    dp = -(-d // ck.DIM_CHUNK) * ck.DIM_CHUNK
+    m = min(k + margin, n)
+    for cand in candidates:
+        knobs = {**DEFAULT_KNOBS, **cand}
+        label = _label(knobs)
+        bin_w = knobs["bin_w"] or ck.BIN_W
+        try:
+            eff = ck.effective_tile(n, knobs["tile_n"] or ck.TILE_N, bin_w,
+                                    knobs["survivors"], knobs["binning"],
+                                    m + 2)
+            surv = ck._geometry(eff, bin_w, knobs["survivors"],
+                                knobs["binning"])[1]
+        except ValueError:
+            continue
+        prec = knobs["precision"]
+        build = (knobs["kernel"], prec,
+                 0 if knobs["binning"] == "grouped" else bin_w, surv,
+                 # pq: its default placement's subspaces (4 dims each)
+                 -(-d // 4) if prec == "pq" else dp)
+        if build not in checked:
+            try:
+                checked[build] = ck.kernel_resources(
+                    build[0], prec, bin_w=build[2], survivors=build[3],
+                    dp=build[4], device=knn.device)
+            except RuntimeError as e:
+                checked[build] = {"error": str(e)}
+        res = checked[build]
+        if "error" in res or res["ctas_per_sm"] < 1:
+            refused[label] = {"kernel": build[0], "precision": prec,
+                              "bin_w": build[2], "survivors": build[3],
+                              "dp": build[4], **res}
+    info = {"device": str(knn.device), "builds_checked": len(checked),
+            "candidates_refused": len(refused), "refused": refused}
+    return refused, info
+
+
+def _search_once(queries, knn, k, margin, knobs):
+    """Full certified search under one knob set: (d, i) — the bitwise
+    gate's surface (the final answers every knob must keep)."""
+    from knn_tpu_torch.ops.coarse_knn import TILE_N
+
+    d, i, _ = knn.search_certified(
+        queries, margin=margin,
+        tile_n=knobs["tile_n"] or TILE_N,
+        precision=knobs["precision"], bin_w=knobs["bin_w"],
+        survivors=knobs["survivors"],
+        final_select=knobs["final_select"], binning=knobs["binning"],
+        final_recall_target=knobs["final_recall_target"],
+        grid_order=knobs["grid_order"], kernel=knobs["kernel"])
+    return d, i
+
+
+def _timed_program(knn, queries, margin: int, knobs: Dict[str, object]):
+    """The device hot path one candidate is timed on: the certified
+    coarse pass and its tail (select, rescore, certificate) on the
+    placement's device queries, as ``search_certified`` runs them for one
+    batch (``ShardedKNN._pallas_setup``)."""
+    from knn_tpu_torch.ops.coarse_knn import TILE_N
+
+    (coarse, tail), _, _ = knn._pallas_setup(
+        margin, knobs["tile_n"] or TILE_N, knobs["precision"],
+        bin_w=knobs["bin_w"], survivors=knobs["survivors"],
+        final_select=knobs["final_select"], binning=knobs["binning"],
+        grid_order=knobs["grid_order"], kernel=knobs["kernel"],
+        final_recall_target=knobs["final_recall_target"])
+    q = knn._to_device(queries)
+
+    def run():
+        return tail(q, *coarse(q))
+
+    return run
+
+
+def _fence(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def autotune(
+    db, queries, k: int, *, metric: str = "l2", margin: int = 28,
+    grid: Optional[Sequence[Dict[str, object]]] = None,
+    grid_level: str = "standard", runs: int = 2,
+    cache_path: Optional[str] = None, device_kind: Optional[str] = None,
+    force: bool = False, prune: Optional[float] = None, device=None,
+) -> Dict[str, object]:
+    """Searches the knob grid for ``(db, queries, k, metric)`` on
+    ``device`` (default ``cuda``; ``"cpu"`` runs the plain versions) and
+    persists the winner; returns the cache entry (plus ``"cached": True``
+    when an existing entry short-circuited the search with zero
+    re-timing).
+
+    Per candidate, in grid order:
+
+    1. **bitwise gate** — the candidate's full certified search must give
+       the default configuration's final (distances, indices) exactly
+       (``np.array_equal``); a mismatch marks it ineligible
+       (``timings_ms[label] = None``), and it can never win.
+    2. **fenced timing** — the device hot path (:func:`_timed_program`)
+       runs once outside the clock, then ``runs`` times between
+       ``torch.cuda.synchronize`` fences; the mean wall ms is its score.
+
+    Candidates that raise (a geometry invalid for this shape) are recorded
+    ineligible with the error, not fatal.  Before any timing, the **Hopper
+    resource gate** (:func:`_resource_gate`, CUDA only) refuses a
+    candidate whose build the card cannot launch: ``smem-refused: ...`` in
+    ``errors``, the builds read in ``entry["smem"]``.  ``prune`` (the JAX
+    package's roofline pruning) is refused: it waits for the port's
+    roofline model."""
+    from knn_tpu_torch.parallel.sharded import ShardedKNN
+
+    if prune is not None:
+        raise ValueError(
+            "autotune(prune=...): roofline pruning is not ported; it waits "
+            "for the port's roofline model (obs/roofline, ROADMAP queue A "
+            "item 7)")
+    if metric.lower() not in ("l2", "sql2", "euclidean"):
+        raise ValueError(
+            f"autotune runs the squared-L2 kernel; metric {metric!r} is "
+            f"not in its family (cosine callers tune on unit vectors "
+            f"with metric='l2')")
+    db = np.asarray(db, dtype=np.float32)
+    queries = np.asarray(queries, dtype=np.float32)
+    n, d = db.shape
+    knn = ShardedKNN(db, k=k, device=device)
+    if device_kind is None:
+        device_kind = device_kind_of(knn.device)
+    key = cache_key(device_kind, n, d, k, metric)
+    cache = TuneCache(cache_path)
+    if not force:
+        entry = cache.get(key)
+        if entry is not None:
+            _bump("cache_hits")
+            return {**entry, "cached": True, "cache_key": key,
+                    "cache_path": cache.path}
+
+    _bump("tune_searches")
+    candidates = (list(grid) if grid is not None
+                  else knob_grid(grid_level))
+    for c in candidates:
+        unknown = set(c) - set(DEFAULT_KNOBS)
+        if unknown:
+            raise ValueError(f"unknown knobs in grid candidate: {unknown}")
+
+    # the reference: the default configuration, whose final answer every
+    # candidate must reproduce bitwise to be eligible
+    ref_d, ref_i = _search_once(queries, knn, k, margin, dict(DEFAULT_KNOBS))
+
+    timings: Dict[str, Optional[float]] = {}
+    errors: Dict[str, str] = {}
+    smem_info = None
+    if knn.device.type == "cuda":
+        refused, smem_info = _resource_gate(knn, candidates, n, d, k,
+                                            margin)
+        for label, rec in refused.items():
+            timings[label] = None
+            why = rec.get("error") or f"{rec['ctas_per_sm']} CTAs per SM"
+            errors[label] = (
+                f"smem-refused: the {rec['kernel']} {rec['precision']} "
+                f"build cannot launch on {device_kind}: {why}")
+        if refused:
+            _bump("candidates_smem_refused", len(refused))
+
+    best_label, best_ms, best_knobs = None, None, None
+    for cand in candidates:
+        knobs = dict(DEFAULT_KNOBS)
+        knobs.update(cand)
+        label = _label(knobs)
+        if label in timings:
+            continue  # refused, or a duplicate
+        try:
+            if knobs != DEFAULT_KNOBS:
+                d_c, i_c = _search_once(queries, knn, k, margin, knobs)
+                if not (np.array_equal(i_c, ref_i)
+                        and np.array_equal(d_c, ref_d)):
+                    _bump("candidates_gated_out")
+                    timings[label] = None
+                    errors[label] = "bitwise gate: result != reference"
+                    continue
+            prog = _timed_program(knn, queries, margin, knobs)
+            prog()
+            _fence(knn.device)  # warm: builds and allocations off the clock
+            reps = []
+            for _ in range(max(1, runs)):
+                _fence(knn.device)
+                t0 = time.perf_counter()
+                prog()
+                _fence(knn.device)
+                reps.append(time.perf_counter() - t0)
+            _bump("candidates_timed")
+            ms = float(np.mean(reps)) * 1e3
+            timings[label] = round(ms, 3)
+            if best_ms is None or ms < best_ms:
+                best_label, best_ms, best_knobs = label, ms, knobs
+        except Exception as e:  # noqa: BLE001 — per candidate, recorded
+            timings[label] = None
+            errors[label] = f"{type(e).__name__}: {e}"
+    if best_knobs is None:
+        raise RuntimeError(
+            f"autotune: no eligible candidate for {key} (errors: {errors})")
+    entry = {
+        "knobs": best_knobs,
+        "winner": best_label,
+        "winner_ms": round(best_ms, 3),
+        "timings_ms": timings,
+        "errors": errors,
+        "gate": "bitwise-vs-reference",
+        "runs": int(runs),
+        "n_queries": int(queries.shape[0]),
+        "margin": int(margin),
+        "device_kind": device_kind,
+        "backend": knn.device.type,
+        "torch_version": torch.__version__,
+        "measured_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+    }
+    if smem_info is not None:
+        entry["smem"] = smem_info
+    cache.put(key, entry)
+    return {**entry, "cached": False, "cache_key": key,
+            "cache_path": cache.path}

@@ -19,6 +19,7 @@ from knn_tpu_torch.ops import coarse_knn as ck
 from knn_tpu_torch.parallel.sharded import ShardedKNN
 
 import oracles
+from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
 
 
 def _blobs(seed, n=1500, dim=24):
@@ -181,14 +182,6 @@ def test_non_finite_input_is_refused(bad_value, where):
         q[1, 2] = bad_value
         with pytest.raises(ValueError, match="finite"):
             ShardedKNN(db, k=4, device="cpu").search_certified(q)
-
-
-@pytest.mark.parametrize("knob,value", [("survivors", 4), ("bin_w", 256)])
-def test_search_certified_refuses_unported_geometry(knob, value):
-    db, _ = _blobs(8)
-    with pytest.raises(ValueError, match=f"{knob}={value} is not ported"):
-        ShardedKNN(db, k=4, device="cpu").search_certified(
-            db[:2], **{knob: value})
 
 
 def test_certify_pack_matches_jax_tail():

@@ -164,12 +164,7 @@ def test_kernel_tolerance_matches_pallas():
 
 
 @pytest.mark.parametrize("kw,match", [
-    # values still unported: grouped binning's other geometries, approx
-    ({"final_select": "approx"}, "final_select='approx' is not ported"),
-    ({"survivors": 3}, "survivors=3 is not ported"),
-    ({"survivors": 4}, "survivors=4 is not ported"),
-    ({"bin_w": 256}, "bin_w=256 is not ported"),
-    # the JAX package's own refusals that stay
+    # the JAX package's own refusals (every value it takes is ported)
     ({"bin_w": 64}, "bin_w=64 must be a multiple of 128"),
     ({"kernel": "fused", "precision": "pq"}, "not certified for precision='pq'"),
     ({"kernel": "fused", "binning": "lane"}, "requires binning='grouped'")])
@@ -184,7 +179,7 @@ def test_int_arms_are_accepted_under_every_kernel(precision, kernel):
     ck.check_knobs(precision=precision, kernel=kernel)
 
 
-@pytest.mark.parametrize("precision", ck.PORTED["precision"])
+@pytest.mark.parametrize("precision", ck.PRECISIONS)
 @pytest.mark.parametrize("kernel,grid_order", [
     ("tiled", "query_major"), ("tiled", "db_major"),
     ("streaming", "query_major"), ("fused", "query_major")])

@@ -14,7 +14,9 @@ max||t||^2); a CUDA kernel against its plain version within
 ck.kernel_plain_tolerance_scale, for the bf16 tensor-core arms bf16x3,
 bf16x3f and default the proved sum of the two summations' bounds), ci is
 equal wherever a bin's values are separated by more than that, and
-pad-row scores (~1e35, from PAD_VAL rows) are compared by class.
+pad-row scores (~1e35, from PAD_VAL rows) are compared by class.  So is
+the fixture ``empty_default_tune_cache``, which every test module that
+searches imports.
 """
 
 import numpy as np
@@ -22,10 +24,24 @@ import pytest
 import torch
 
 from knn_tpu_torch.ops import coarse_knn as ck
+from knn_tpu_torch.tuning import cache as tune_cache
 
 EPS32 = float(np.finfo(np.float32).eps)
 U32 = 2.0 ** -24
 PAD_SCALE = 1e30
+
+
+@pytest.fixture(scope="module", autouse=True)
+def empty_default_tune_cache(tmp_path_factory):
+    """The tuner's default cache, for the module that holds or imports this
+    fixture, is an empty file of its own: a search's knobs left at None
+    resolve to the library defaults whatever the user's
+    ~/.cache/knn_tpu_torch/autotune.json holds (tests of the cache pass
+    explicit paths, or write this one)."""
+    path = str(tmp_path_factory.mktemp("tune_cache") / "autotune.json")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tune_cache, "default_cache_path", lambda: path)
+        yield path
 
 
 def _data(rng, n_q, n, dim, scale=10.0):
@@ -64,7 +80,8 @@ def _assert_scores(port, ref, tol):
 
 
 def _assert_ci_separated(cd, ci_p, ci_r, bounds, tol):
-    survivors = ck.SURVIVORS
+    # grouped binning: survivors = candidate columns over bound columns
+    survivors = cd.shape[1] // bounds.shape[1]
     n_q = cd.shape[0]
     seq = np.concatenate([cd.reshape(n_q, -1, survivors, 128),
                           bounds.reshape(n_q, -1, 1, 128)], axis=2)
@@ -887,3 +904,125 @@ def test_cuda_pq_and_lane_search_certified_match_the_exact_search(
                   {"precision": "int8", "binning": "lane", "survivors": 4}):
         _, i, _ = knn.search_certified(q, tile_n=1024, pq_ncodes=64, **knobs)
         np.testing.assert_array_equal(i, ref)
+
+
+# --- grouped binning at 1-8 survivors (the deep grouped build) -------------
+
+#: survivor counts the deep build is checked at (2 is the default build)
+DEEP_SURVIVORS = [1, 3, 8]
+
+
+def _deep_operands(device, arm, tile_n, seed, dim):
+    n_q, n = 37, 2 * tile_n + 60
+    if arm == "pq":
+        return _pq_case(device, n_q, n, 7, 200, tile_n, seed), None
+    if arm in ("int8", "int4"):
+        return _int_case(device, arm, n_q, n, dim, tile_n, seed), None
+    q, db = _data(np.random.default_rng(seed), n_q, n, dim)
+    db[3] = db[90] = db[128 + 3] = db[10]
+    return (_f32_operands(device, arm, q, db, tile_n),
+            _tol(q, db, arm, kernel=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", LANE_ARMS)
+@pytest.mark.parametrize("survivors", DEEP_SURVIVORS)
+@pytest.mark.parametrize("dim,tile_n", [(24, 512), (24, 1024), (300, 512)])
+def test_cuda_deep_grouped_entries_match_plain(cuda_device, arm, survivors,
+                                               dim, tile_n):
+    # every grouped entry (tiled, db-major, streaming, fused but pq's) at
+    # 1, 3 and 8 survivors against its plain version: int and pq bitwise,
+    # the f32 family within the kernel's tolerance; one arithmetic across
+    # the entries; the deep launches counted apart from the default build's
+    args, tol = _deep_operands(cuda_device, arm, tile_n, survivors + dim, dim)
+    kw = {"tile_n": tile_n, "arm": arm, "survivors": survivors}
+    plain = [a.cpu().numpy() for a in ck.binned_select_plain(*args, **kw)]
+    before = {fn: (dict(fn.deep_launches), dict(fn.launches))
+              for fn in (ck.binned_select, ck.stream_select, ck.fused_select)}
+    outs = {"tiled": ck.binned_select(*args, **kw),
+            "db_major": ck.binned_select(*args, **kw, grid_order="db_major"),
+            "streaming": ck.stream_select(*args, **kw)}
+    if arm != "pq":
+        outs["fused"] = ck.fused_select(*args, **kw, keep=None)
+    for fn, n in ((ck.binned_select, 2), (ck.stream_select, 1),
+                  (ck.fused_select, int(arm != "pq"))):
+        assert fn.deep_launches[arm] == before[fn][0][arm] + n
+        assert fn.launches == before[fn][1]
+    for out in outs.values():
+        assert torch.equal(out[0], outs["tiled"][0])
+        assert torch.equal(out[1], outs["tiled"][1])
+        got = [a.cpu().numpy() for a in out]
+        assert got[0].shape == plain[0].shape == (37, 3 * survivors * 128)
+        if tol is None:
+            for a, b in zip(got, plain):
+                np.testing.assert_array_equal(a, b)
+        else:
+            _assert_scores(got[0], plain[0], tol)
+            _assert_scores(got[2], plain[2], tol)
+            _assert_ci_separated(plain[0], got[1], plain[1], plain[2], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["bf16x3", *F32_ARMS, "int8", "int4"])
+@pytest.mark.parametrize("survivors", [1, 8])
+def test_cuda_deep_fused_entries_skip_the_plain_cells(cuda_device, arm,
+                                                      survivors):
+    # K11's carry is the same at every survivor count (depth ceil(keep /
+    # 128)): the deep fused entries skip the cells their plain version
+    # skips on the far-tile case
+    q, db, *_ = _far_tile_cuda(cuda_device, 4096)
+    if arm in ("int8", "int4"):
+        args = (*ck.quantize_queries(torch.from_numpy(q).to(cuda_device)),
+                *ck.prepare_db_int(torch.from_numpy(db).to(cuda_device), 256,
+                                   arm))
+        tol = None
+    else:
+        args = _f32_operands(cuda_device, arm, q, db, 256)
+        tol = _tol(q, db, arm, kernel=True)
+    kw = {"tile_n": 256, "arm": arm, "survivors": survivors}
+    n_tiles = args[-1].shape[1] // 256
+    seg = ck.kernel_segment_tiles(q.shape[0], n_tiles, cuda_device, "fused",
+                                  arm, (0, survivors))
+    kern = ck.fused_select(*args, **kw, keep=15)
+    plain = ck.fused_select_plain(*args, **kw, keep=15, seg_tiles=seg)
+    skip = ck.skipped_cells(kern[0], n_tiles)
+    assert torch.equal(skip, ck.skipped_cells(plain[0], n_tiles))
+    assert int(skip.sum()) > 0
+    got, want = ([a.cpu().numpy() for a in out] for out in (kern, plain))
+    if tol is None:
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    else:
+        _assert_scores(got[0], want[0], tol)
+        _assert_scores(got[2], want[2], tol)
+
+
+#: local memory a build may take by design: the fused builds keep K11's
+#: carry in thread-local memory (16 cells x MAX_CARRY_DEPTH floats, 512 B);
+#: at 255 registers the highest builds (their f64 accumulators) and pq's
+#: streaming one (128 accumulators a thread) spill a few words -- 16-56 B
+#: and 8 B in the two-survivor builds as they were before the deep build
+#: came, up to 24 B and 0 B in the deep ones (H100 builds, sm_90a)
+CARRY_BYTES = 4 * 4 * ck.MAX_CARRY_DEPTH * 4
+SPILL_BYTES = {"highest": 64, "pq": 8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm,kernel", [
+    (arm, kernel) for arm in LANE_ARMS
+    for kernel in ("tiled", "streaming", "fused")
+    if (kernel, arm) != ("fused", "pq")])    # refused, as in the reference
+def test_cuda_grouped_builds_take_no_local_memory_beyond_the_stated(
+        cuda_device, arm, kernel):
+    # the two-survivor build and the deep one, at Dp 128 and above: no
+    # spill but the stated (the deep build's 4-cell passes keep its state
+    # below the default build's), every build one CTA per SM
+    allowed = ((CARRY_BYTES if kernel == "fused" else 0)
+               + SPILL_BYTES.get(arm, 0))
+    for survivors in (2, 3):
+        for dp in ((32,) if arm == "pq" else (128, 256)):
+            res = ck.kernel_resources(kernel, arm, survivors=survivors, dp=dp,
+                                      device=cuda_device)
+            assert res["local_bytes"] <= allowed, (survivors, dp, res)
+            assert res["ctas_per_sm"] >= 1, (survivors, dp, res)
+            assert res["registers"] <= 255

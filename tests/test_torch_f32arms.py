@@ -29,6 +29,7 @@ from test_torch_cuda import (_assert_ci_separated, _assert_scores, _data,
                              _f32_operands, _tol)
 
 import oracles
+from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
 
 CERT_ARMS = ["bf16x3f", "highest"]
 

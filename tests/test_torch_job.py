@@ -28,6 +28,7 @@ from knn_tpu_torch.ops.topk import knn_search_tiled, topk_pairs
 from knn_tpu_torch.ops.vote import majority_vote
 
 import oracles
+from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -185,6 +186,7 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import sys\n"
         "import knn_tpu_torch, knn_tpu_torch.cli, knn_tpu_torch.pipeline\n"
         "import knn_tpu_torch.convert, knn_tpu_torch.tuning\n"
+        "import knn_tpu_torch.tuning.autotune, knn_tpu_torch.tuning.cache\n"
         "import knn_tpu_torch.ops.coarse_knn, knn_tpu_torch.ops.certified\n"
         "import knn_tpu_torch.ops.refine, knn_tpu_torch.data.datasets\n"
         "import knn_tpu_torch.models.classifier, knn_tpu_torch.parallel.sharded\n"

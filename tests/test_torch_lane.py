@@ -24,6 +24,7 @@ from knn_tpu_torch.parallel.sharded import ShardedKNN
 from test_torch_cuda import _assert_lane_ci_separated, _assert_scores, _tol
 
 import oracles
+from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
 
 BIN_W = ck.BIN_W
 
@@ -339,7 +340,7 @@ def test_lane_knobs_are_accepted(kw):
     ({"binning": "lane", "kernel": "fused"}, "requires binning='grouped'"),
     ({"binning": "lane", "survivors": 0}, "survivors=0 must be >= 1"),
     ({"binning": "lane", "bin_w": 192}, "multiple of 128"),
-    ({"survivors": 3}, "survivors=3 is not ported")])
+    ({"bin_w": 192}, "multiple of 128")])
 def test_lane_refusals(kw, match):
     with pytest.raises(ValueError, match=match):
         ck.check_knobs(**kw)

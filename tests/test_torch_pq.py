@@ -32,6 +32,7 @@ from test_torch_cuda import (_assert_ci_separated, _assert_lane_ci_separated,
                              pq_bound_ratio)
 
 import oracles
+from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
 
 BIN_W = ck.BIN_W
 U32 = 2.0 ** -24

@@ -25,6 +25,7 @@ from knn_tpu_torch.parallel.sharded import ShardedKNN
 from test_torch_cuda import _assert_ci_separated, _assert_scores, _tol
 
 import oracles
+from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
 
 BIN_W = ck.BIN_W
 ARMS = ("int8", "int4")

@@ -25,6 +25,7 @@ from knn_tpu_torch.parallel.sharded import ShardedKNN
 from test_torch_cuda import _assert_ci_separated, _assert_scores, _data, _tol
 
 import oracles
+from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
 
 BIN_W = ck.BIN_W
 
@@ -182,8 +183,9 @@ def test_fused_refusals_kept():
         # pq and lane binning run under the other two kernels
         ck.check_knobs(kernel=kern, precision="pq")
         ck.check_knobs(kernel=kern, precision="pq", binning="lane")
-        with pytest.raises(ValueError, match="survivors=3 is not ported"):
-            ck.check_knobs(kernel=kern, survivors=3)
+        # grouped binning at any survivors, capped at MAX_SURVIVORS
+        ck.check_knobs(kernel=kern, survivors=3)
+        ck.check_knobs(kernel=kern, survivors=12, bin_w=256)
     for kern in ck.KERNELS:
         for prec in ("bf16x3", "bf16x3f", "highest", "default", "int8",
                      "int4"):
