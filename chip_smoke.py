@@ -8,11 +8,14 @@ exits non-zero and prints no result):
 
 1. device  — the card's name, ``nvidia-smi`` name and power limit, versions;
 2. build   — builds every CUDA kernel of the port from ``knn_tpu_torch/csrc``
-             with nvcc (one process per source, all at once); every
-             bf16x3, bf16x3f and default build must hold bf16 tensor-core
-             (HMMA) instructions, every highest build FP64 tensor-core
-             (DMMA) ones and every int8 and int4 build s8 tensor-core
-             (IMMA) ones;
+             with nvcc (one process per arm of each source, all at once);
+             every bf16x3, bf16x3f and default build must hold bf16
+             tensor-core (HMMA) instructions, every highest build FP64
+             tensor-core (DMMA) ones and every int8 and int4 build s8
+             tensor-core (IMMA) ones; the registers, local bytes, emitter
+             build and passes a tile of every build a launch can take (the
+             deep grouped builds at 1, 3, 4 and 8 survivors and on
+             512-group tiles among them);
 3. kernel  — K1 (the fused bf16x3 binned-select kernel) and K10 (the
              db-streaming kernel) against their plain PyTorch version on
              the card: dim 24 with ragged rows, dim 300 (three dim chunks),
@@ -140,13 +143,17 @@ exits non-zero and prints no result):
              every query, the oracle's, distances within RANK_SLACK,
              fallbacks, q/s), and the counted certificate through the
              default arm's lane entries;
-10. survivors — grouped binning at 1, 3 and 8 survivors (the deep builds):
-             every entry of every arm against its plain version on small
-             shapes and on 512 queries of the ``main`` placement, the fused
-             skip on far tiles, the deep entries timed in turns beside the
-             two-survivor ones, ``search_certified`` at 4 and 8 survivors
-             against the oracle (recall@100 1.0), and every deep entry
-             driven through a search at 3;
+10. survivors — grouped binning at 1 and 3-8 survivors (the deep builds):
+             every entry of every arm against its plain version (int, pq
+             bitwise; the f32 family within its tolerance) on small shapes
+             at every count, on 256- and 512-group tiles with ties between
+             their first and last groups and on 512 queries of the
+             ``main`` placement at 1, 3, 4, 5 and 8, the fused skip on far
+             tiles at 1, 3, 5 and 8, the deep entries timed at 4,096
+             queries at 1, 3, 4, 5 and 8 in turns beside the two-survivor
+             ones, ``search_certified`` at 4 and 8 survivors against the
+             oracle (recall@100 1.0), and every deep entry driven through a
+             search at 3;
 11. tune   — the autotuner: the quick grid on the ``main`` rows and the
              standard grid at 100,000 rows, every candidate timed, gated
              out by the bitwise gate or refused by the resource gate (one
@@ -770,10 +777,11 @@ def pq_bound(n_q, n, m, ncodes, n_tiles, out_w, bound_w, n_sm, clock_hz):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def pq_case(dev, n_q, n, m, ncodes, tile_n, seed):
+def pq_case(dev, n_q, n, m, ncodes, tile_n, seed, ties=()):
     """A random LUT [n_q, m*ncodes] and codes [n, m] with exact ties (rows
     3 and 90 equal to row 10 of one 128-row bin, rows 128-159 equal to
-    rows 0-31), padded for ``tile_n``: the pq entries' operands."""
+    rows 0-31, and the (to, from) slices ``ties`` names), padded for
+    ``tile_n``: the pq entries' operands."""
     import torch
 
     from knn_tpu_torch.ops import coarse_knn as ck
@@ -783,6 +791,8 @@ def pq_case(dev, n_q, n, m, ncodes, tile_n, seed):
     codes = rng.integers(0, ncodes, size=(n, m)).astype(np.uint8)
     codes[3] = codes[90] = codes[10]
     codes[128:160] = codes[:32]
+    for dst, src in ties:
+        codes[dst] = codes[src]
     return (torch.from_numpy(lut).to(dev),
             *ck.prepare_db_pq(torch.from_numpy(codes).to(dev), tile_n))
 
@@ -805,8 +815,11 @@ def lattice_case(dev, n=65_536, dim=128, n_q=4096, seed=3):
 
 #: (survivors, bin_w) of the lane phase's small cases: every survivor
 #: count, every bin width of a 512-row tile
-#: the grouped survivor counts the deep build is checked at
-SURVIVOR_COUNTS = (1, 3, 8)
+#: the grouped survivor counts the deep builds are checked and timed at on
+#: the main placement: one per build of csrc/binned_select.cuh's table and
+#: its edges; the small shapes take every count but the two-survivor one
+SURVIVOR_COUNTS = (1, 3, 4, 5, 8)
+SMALL_SURVIVOR_COUNTS = (1, 3, 4, 5, 6, 7, 8)
 LANE_GEOMETRIES = ((1, 128), (2, 128), (2, 256), (3, 512), (4, 128),
                    (5, 256), (6, 512), (7, 128), (8, 256), (8, 512))
 
@@ -869,10 +882,24 @@ def lane_scores_equal_grouped(name, lane, grouped, n_rows, rows=None):
     return common
 
 
-def int_case(dev, arm, n_q, n, dim, tile_n, seed):
+def wide_ties(tile_n, n):
+    """(to, from) row slices tying rows 0-31 of each tile's first group to
+    the same lanes of its last group and, past 256 groups (the packed deep
+    builds' 8-bit group indices), of groups 255 and 256."""
+    ties = []
+    for t0 in range(0, n - tile_n + 1, tile_n):
+        groups = [tile_n // 128 - 1] + ([255, 256] if tile_n > 256 * 128
+                                        else [])
+        ties += [(slice(t0 + g * 128, t0 + g * 128 + 32),
+                  slice(t0, t0 + 32)) for g in groups]
+    return ties
+
+
+def int_case(dev, arm, n_q, n, dim, tile_n, seed, ties=()):
     """Integer rows in the uint8 range with exact ties (rows 0-31 copied
-    into the next two 128-row groups, four queries equal to db rows),
-    quantized on the fly at the uint8 shift: the int entries' operands."""
+    into the next two 128-row groups and the (to, from) slices ``ties``
+    names, four queries equal to db rows), quantized on the fly at the
+    uint8 shift: the int entries' operands."""
     import torch
 
     from knn_tpu_torch.ops import coarse_knn as ck
@@ -881,6 +908,8 @@ def int_case(dev, arm, n_q, n, dim, tile_n, seed):
     db = rng.integers(0, 256, size=(n, dim)).astype(np.float32)
     for lo in (128, 256):
         db[lo : lo + 32] = db[:32]
+    for dst, src in ties:
+        db[dst] = db[src]
     q = rng.integers(0, 256, size=(n_q, dim)).astype(np.float32)
     q[:4] = db[:4]
     qi, qsc = ck.quantize_queries(torch.from_numpy(q).to(dev), 128.0)
@@ -1146,22 +1175,29 @@ def main(argv=None) -> int:
 
     def build_resources():
         """[registers, static shared, local, dynamic shared bytes, CTAs per
-        SM] of every build, by "entry/arm/emitter/dp": the two-survivor
-        grouped build (s2), the deep grouped one (deep), the lane builds
-        (lane3, lane9), at Dp 128 and 256 (pq: at 32 subspaces of 256
-        codes)."""
-        emitters = {"s2": (0, 2), "deep": (0, 3), "lane3": (128, 2),
-                    "lane9": (128, 8)}
+        SM, emitter code, passes a tile] of every build, by
+        "entry/arm/emitter/dp": the two-survivor grouped build (s2), the
+        deep grouped builds at 1, 3, 4 and 8 survivors (deep_s1 .. deep_s8:
+        builds A, B, C, C of csrc/binned_select.cuh's table) and at 8 on
+        512-group tiles (deep_s8_wide: W), the lane builds (lane3, lane9),
+        at Dp 128 and 256 (pq: at 32 subspaces of 256 codes)."""
+        emitters = {"s2": (0, 2, ck.TILE_N), "deep_s1": (0, 1, ck.TILE_N),
+                    "deep_s3": (0, 3, ck.TILE_N),
+                    "deep_s4": (0, 4, ck.TILE_N),
+                    "deep_s8": (0, 8, ck.TILE_N),
+                    "deep_s8_wide": (0, 8, 65536),
+                    "lane3": (128, 2, ck.TILE_N),
+                    "lane9": (128, 8, ck.TILE_N)}
         out = {}
         for kern in ("tiled", "streaming", "fused"):
             for arm in ck.ARMS:
-                for emit_name, (bin_w, surv) in emitters.items():
+                for emit_name, (bin_w, surv, tile) in emitters.items():
                     if kern == "fused" and (arm == "pq" or bin_w):
                         continue
                     for dp in ((32,) if arm == "pq" else (128, 256)):
                         res = ck.kernel_resources(
                             kern, arm, bin_w=bin_w, survivors=surv, dp=dp,
-                            device=dev)
+                            tile_n=tile, device=dev)
                         out[f"{kern}/{arm}/{emit_name}/dp{dp}"] = [
                             res[f] for f in ck.RESOURCE_FIELDS]
         return out
@@ -1208,7 +1244,8 @@ def main(argv=None) -> int:
                         for n, log in _cuda.build_logs.items()},
               # every build a launch can take, read from the built kernel:
               # [registers, static shared, local, dynamic shared bytes,
-              # CTAs per SM]
+              # CTAs per SM, emitter code, passes a tile]
+              "resource_fields": list(ck.RESOURCE_FIELDS),
               "resources": build_resources()})
 
     if "kernel" in phases:
@@ -2357,16 +2394,34 @@ def main(argv=None) -> int:
         ones in turns, and certified searches through them."""
         rng = np.random.default_rng(11)
         cases = []
+        # seconds of each part of the phase
+        t_part = time.perf_counter()
+        part_s = {}
+
+        def part_done(name):
+            nonlocal t_part
+            now = time.perf_counter()
+            part_s[name] = round(now - t_part, 1)
+            t_part = now
+
         # small shapes: dim 24 with ragged rows, 4 and 8 groups a tile,
-        # exact ties; dim 300 (three chunks: the multi-chunk builds)
+        # exact ties; dim 300 (three chunks: the multi-chunk builds), each
+        # at every deep count; then 256 and 512 groups a tile (the widest
+        # tile of the packed builds, and the four-pass build's geometry)
+        # with ties between the first and last groups of each tile
+        shapes = [((37, 5 * 128 + 60, 24, 512), SMALL_SURVIVOR_COUNTS),
+                  ((37, 9 * 128 + 60, 24, 1024), SMALL_SURVIVOR_COUNTS),
+                  ((11, 3 * 128 + 40, 300, 512), SMALL_SURVIVOR_COUNTS),
+                  ((37, 2 * 32768 + 60, 24, 32768), SURVIVOR_COUNTS),
+                  ((37, 2 * 65536 + 60, 24, 65536), SURVIVOR_COUNTS)]
         for arm in ck.ARMS:
-            for n_q, n, dim, tile in ((37, 5 * 128 + 60, 24, 512),
-                                      (37, 9 * 128 + 60, 24, 1024),
-                                      (11, 3 * 128 + 40, 300, 512)):
+            for (n_q, n, dim, tile), counts in shapes:
+                ties = wide_ties(tile, n) if tile > 1024 else ()
                 if arm == "pq":
-                    args, tol_q = pq_case(dev, n_q, n, 7, 200, tile, 2), None
+                    args = pq_case(dev, n_q, n, 7, 200, tile, 2, ties)
+                    tol_q = None
                 elif arm in ck.INT_ARMS:
-                    args = int_case(dev, arm, n_q, n, dim, tile, 5)
+                    args = int_case(dev, arm, n_q, n, dim, tile, 5, ties)
                     tol_q = None
                 else:
                     q = torch.from_numpy((rng.normal(size=(n_q, dim)) * 10)
@@ -2375,11 +2430,13 @@ def main(argv=None) -> int:
                                           .astype(np.float32)).to(dev)
                     db[3] = db[10]
                     db[90] = db[10]
+                    for dst, src in ties:
+                        db[dst] = db[src]
                     args = (ck.pad_queries(q), *ck.prepare_db_arm(db, tile,
                                                                   arm))
                     tol_q = tolerance_q(q, db, arm=arm)
                 n_tiles = args[-1].shape[1] // tile
-                for surv in SURVIVOR_COUNTS:
+                for surv in counts:
                     kw = {"tile_n": tile, "arm": arm, "survivors": surv}
                     plain = ck.binned_select_plain(*args, **kw)
                     tiled = ck.binned_select(*args, **kw)
@@ -2413,10 +2470,12 @@ def main(argv=None) -> int:
                                          survivors=12),
                         ck.binned_select(*args, tile_n=tile, arm=arm,
                                          survivors=8))
+        part_done("small_shapes")
         emit({"phase": "survivors_kernels", "cases": cases})
 
-        # the fused skip at 1 and 8 survivors on the far-tile case: the
-        # same skipped cells as the plain version, some of them skipped
+        # the fused skip at 1, 3, 5 and 8 survivors (builds A, B, C) on the
+        # far-tile case: the same skipped cells as the plain version, some
+        # of them skipped
         fq, fdb = far_tile_case(dev)
         far = {}
         for arm in ck.ARMS:
@@ -2431,7 +2490,7 @@ def main(argv=None) -> int:
                          *ck.prepare_db_arm(fdb, ck.TILE_N, arm))
                 tol_q = tolerance_q(fq, fdb, arm=arm)
             n_tiles = fargs[-1].shape[1] // ck.TILE_N
-            for surv in (1, 8):
+            for surv in (1, 3, 5, 8):
                 kw = {"tile_n": ck.TILE_N, "arm": arm, "survivors": surv}
                 plain = ck.binned_select_plain(*fargs, **kw)
                 skipped = deep_fused_compare(
@@ -2443,6 +2502,7 @@ def main(argv=None) -> int:
                 far[f"{arm}_s{surv}"] = skipped
             del fargs, plain
         del fq, fdb
+        part_done("far_tiles")
 
         # the main placement, a 512-query subset: every entry at 1, 3 and
         # 8 survivors against its plain version.  pq's placement is the pq
@@ -2484,7 +2544,8 @@ def main(argv=None) -> int:
                                            plain, tol_q, 130, n_tiles)
                 del plain, tiled
             # every entry at 4,096 queries in turns with its two-survivor
-            # build: 2, then 1, 3, 8, then 2 again (CUDA events, mean of 2)
+            # build: 2, then each of SURVIVOR_COUNTS, then 2 again (CUDA
+            # events, mean of 2)
             entries = {"tiled": (ck.binned_select, {}),
                        "db_major": (ck.binned_select,
                                     {"grid_order": "db_major"}),
@@ -2523,13 +2584,17 @@ def main(argv=None) -> int:
                 records[f"{key}_deep_{arm}"].update(
                     ms=times[key]["s8_ms"],
                     plain_ms=plain_ms + (early_ms if key == "fused" else 0),
-                    bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+                    bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                    ms_by_survivors={s: times[key][f"s{s}_ms"]
+                                     for s in SURVIVOR_COUNTS},
+                    two_survivor_ms=times[key]["s2_ms"])
             out["plain_s8_ms"] = plain_ms
             out["bound_s8"] = bound
             main[arm] = out
             del args, sargs
             torch.cuda.empty_cache()
 
+        part_done("main_subset_and_timings")
         # certified searches through the deep build: bf16x3 at 4 and 8
         # survivors on every query (recall@100 = 1.0 against the oracle,
         # the two-survivor run's indices), the launch count read around
@@ -2563,13 +2628,19 @@ def main(argv=None) -> int:
                         runs[label]["launches"][f"{kern}_deep_{arm}"]
             searches[f"{arm}_s3"] = runs
         for arm in arms:
+            db_times = main[arm]["times_4096"]["db_major"]
             records[f"db_major_deep_{arm}"].update(
                 {f: records[f"tiled_deep_{arm}"][f]
                  for f in ("plain_ms", "bound_ms", "bound_by")},
-                ms=main[arm]["times_4096"]["db_major"]["s8_ms"])
+                ms=db_times["s8_ms"],
+                ms_by_survivors={s: db_times[f"s{s}_ms"]
+                                 for s in SURVIVOR_COUNTS},
+                two_survivor_ms=db_times["s2_ms"])
             checks[f"db_major_deep_{arm}"].max_abs_err = \
                 checks[f"tiled_deep_{arm}"].max_abs_err
-        emit({"phase": "survivors", "far_tile_skipped_cells": far,
+        part_done("searches")
+        emit({"phase": "survivors", "part_seconds": part_s,
+              "far_tile_skipped_cells": far,
               "main_subset_queries": sub, "arms_at_main": arms, "main": main,
               "searches": searches})
 

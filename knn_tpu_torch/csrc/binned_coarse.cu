@@ -34,9 +34,9 @@
 // highest (K2), s8 for int8 (K5) and int4 (K6) -- through a cp.async ring,
 // the group's scores through a shared-memory tile into the emitter, which
 // runs the insertion network (or the lane merge) for each thread's 16
-// (query, lane) bins in registers (the deep grouped build, surv != 2: for 4
-// of them a pass, the tile walked once per pass, binned_select.cuh); pq
-// (K7) runs binned_pq.cuh's walk.  The
+// (query, lane) bins in registers (the deep grouped builds, surv != 2: 16,
+// 8 or 4 of them a pass by the survivor count, the tile walked once per
+// pass, binned_select.cuh); pq (K7) runs binned_pq.cuh's walk.  The
 // [32, tile_n] score tile never exists anywhere.  The per-score arithmetic
 // is the mainloop's and binned_select.cuh's, shared with the streaming
 // kernels (binned_stream.cu).
@@ -174,8 +174,11 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
       return launch_arm<kArm, 0>(grid, p0, p1, p2, p3, out, dp, db_major,
                                  ncodes, stream);
     case kGroupedDeep:
-      return launch_arm<kArm, kGroupedDeep>(grid, p0, p1, p2, p3, out, dp,
-                                            db_major, ncodes, stream);
+      return with_deep_build<kArm>(
+          deep_depth<kArm>(survivors, tile_n), [&](auto build) {
+            return launch_arm<kArm, decltype(build)::value>(
+                grid, p0, p1, p2, p3, out, dp, db_major, ncodes, stream);
+          });
     case kLaneDepthSmall:
       return launch_arm<kArm, kLaneDepthSmall>(grid, p0, p1, p2, p3, out, dp,
                                                db_major, ncodes, stream);
@@ -201,13 +204,26 @@ cudaError_t attrs_build(int dp, int ncodes, int* out) {
   }
 }
 
+// ... and the build of a launch at the binning (bin_w, survivors) on tiles
+// of tile_n rows: its resources (out[0 .. 4]), its emitter code (out[5]:
+// emit_depth's, a deep build's deep_code) and its passes a tile (out[6]).
 template <Arm kArm>
-cudaError_t attrs(int bin_w, int survivors, int dp, int ncodes, int* out) {
-  switch (emit_depth(bin_w, survivors)) {
+cudaError_t attrs(int bin_w, int survivors, int dp, int ncodes, int tile_n,
+                  int* out) {
+  const int depth = emit_depth(bin_w, survivors);
+  out[5] = depth;
+  out[6] = 1;
+  switch (depth) {
     case 0:
       return attrs_build<kArm, 0>(dp, ncodes, out);
     case kGroupedDeep:
-      return attrs_build<kArm, kGroupedDeep>(dp, ncodes, out);
+      return with_deep_build<kArm>(
+          deep_depth<kArm>(survivors, tile_n), [&](auto build) {
+            constexpr int kBuild = decltype(build)::value;
+            out[5] = kBuild;
+            out[6] = deep_passes(kBuild);
+            return attrs_build<kArm, kBuild>(dp, ncodes, out);
+          });
     case kLaneDepthSmall:
       return attrs_build<kArm, kLaneDepthSmall>(dp, ncodes, out);
     default:
@@ -217,32 +233,23 @@ cudaError_t attrs(int bin_w, int survivors, int dp, int ncodes, int* out) {
 
 }  // namespace
 
-// The resources of the tiled build that binned_select_<arm> launches for
-// the binning (bin_w, survivors) at dp dims (pq: ncodes codes): out[0 ..
-// 4] = registers a thread, static shared bytes, local bytes, dynamic
-// shared bytes, CTAs per SM (binned_select.cuh kernel_attrs).  arm is the
-// Arm code.  Returns the cudaError (0 = out is set).
-extern "C" int binned_select_attrs(int arm, int bin_w, int survivors, int dp,
-                                   int ncodes, int* out) {
-  Geom geo;
-  if (!make_geom(bin_w ? bin_w : kBinW, bin_w, survivors, &geo))
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (arm) {
-#define ARM_CASE(ARM)              \
-  case static_cast<int>(ARM):      \
-    return static_cast<int>(attrs<ARM>(bin_w, survivors, dp, ncodes, out));
-    ARM_CASE(Arm::kBf16x3)
-    ARM_CASE(Arm::kInt8)
-    ARM_CASE(Arm::kInt4)
-    ARM_CASE(Arm::kBf16x3f)
-    ARM_CASE(Arm::kHighest)
-    ARM_CASE(Arm::kDefault)
-    ARM_CASE(Arm::kPq)
-#undef ARM_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// The tiled build that binned_select_<arm> launches for the binning
+// (bin_w, survivors) on tiles of tile_n rows at dp dims (pq: ncodes
+// codes): out[0 .. 6] = registers a thread, static shared bytes, local
+// bytes, dynamic shared bytes, CTAs per SM (binned_select.cuh
+// kernel_attrs), the emitter build (0 two survivors, 3 / 9 the lane lists,
+// a deep build's deep_code) and its passes a db tile.  Returns the
+// cudaError (0 = out is set).
+#define ATTRS_ENTRY(NAME, ARM)                                                \
+  extern "C" int binned_select_attrs_##NAME(int bin_w, int survivors, int dp, \
+                                            int ncodes, int tile_n,           \
+                                            int* out) {                       \
+    Geom geo;                                                                 \
+    if (!make_geom(tile_n, bin_w, survivors, &geo))                           \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    return static_cast<int>(                                                  \
+        attrs<ARM>(bin_w, survivors, dp, ncodes, tile_n, out));              \
   }
-}
 
 // C entries for ctypes, one per arm.  Operands p0 .. p3:
 //   bf16x3, bf16x3f: q [n_q, dp] f32; th, tl [n_tiles*tile_n, dp] bf16;
@@ -279,13 +286,13 @@ extern "C" int binned_select_attrs(int arm, int bin_w, int survivors, int dp,
                                         static_cast<cudaStream_t>(stream)));  \
   }
 
-TILED_ENTRY(bf16x3, Arm::kBf16x3)
-TILED_ENTRY(bf16x3f, Arm::kBf16x3f)
-TILED_ENTRY(highest, Arm::kHighest)
-TILED_ENTRY(default, Arm::kDefault)
-TILED_ENTRY(int8, Arm::kInt8)
-TILED_ENTRY(int4, Arm::kInt4)
-TILED_ENTRY(pq, Arm::kPq)
+#define ARM_ENTRIES(NAME, ARM) TILED_ENTRY(NAME, ARM) ATTRS_ENTRY(NAME, ARM)
+
+// Each arm's entries are compiled apart (BINNED_PART = the Arm code; the
+// whole source without it): ops/_cuda.py runs one nvcc per arm, all at
+// once, and links them into one library.
+#if BINNED_HAS_ARM(0)
+ARM_ENTRIES(bf16x3, Arm::kBf16x3)
 
 // One tensor-core k-step of the bf16x3 kernels on its own (the rounding
 // probe of binned_mma.cuh's model): d = c + a . b^T, a [16][16] bf16, b
@@ -299,6 +306,18 @@ extern "C" int mma_probe_bf16(const void* a, const void* b, const void* c,
       static_cast<float*>(d));
   return static_cast<int>(cudaGetLastError());
 }
+#endif
+#if BINNED_HAS_ARM(1)
+ARM_ENTRIES(int8, Arm::kInt8)
+#endif
+#if BINNED_HAS_ARM(2)
+ARM_ENTRIES(int4, Arm::kInt4)
+#endif
+#if BINNED_HAS_ARM(3)
+ARM_ENTRIES(bf16x3f, Arm::kBf16x3f)
+#endif
+#if BINNED_HAS_ARM(4)
+ARM_ENTRIES(highest, Arm::kHighest)
 
 // One FP64 tensor-core k-step of the highest kernels on its own (the
 // rounding probe of binned_mma.cuh's f64 step model): d = c + a . b^T, a
@@ -311,3 +330,10 @@ extern "C" int dmma_probe_f64(const void* a, const void* b, const void* c,
       static_cast<const double*>(c), static_cast<double*>(d));
   return static_cast<int>(cudaGetLastError());
 }
+#endif
+#if BINNED_HAS_ARM(5)
+ARM_ENTRIES(default, Arm::kDefault)
+#endif
+#if BINNED_HAS_ARM(6)
+ARM_ENTRIES(pq, Arm::kPq)
+#endif

@@ -586,37 +586,47 @@ __device__ __forceinline__ void mma_store_chunk(const MmaAcc& acc, float* S,
 // [32][kMmaRow] f64) on the FP64 tensor cores, 16 m16n8k8 steps in dim
 // order into one f64 accumulator per cell, each rounded once to f32 into
 // S.  Step s: fragment slot t holds dim 8s + 2t, slot t + 4 dim 8s + 2t + 1
-// (one float2 per db row, one double2 per query).
+// (one float2 per db row, one double2 per query).  kParts: the 4 n-tiles
+// in that many parts, each its own walk of the 16 steps (the db fragments
+// loaded once a part): the deep builds take 4, 8 accumulator registers in
+// place of 32, for their emitter state (with fewer parts their 76-88
+// registers of it spill); every cell's sum is the same.
+template <int kParts>
 __device__ __forceinline__ void dmma_chunk(const float* st, const double* qd,
                                            int warp, int lane, float* S,
                                            bool first) {
+  constexpr int kTiles = 4 / kParts;   // n-tiles a part
   const int g = lane >> 2, t = lane & 3;
-  double acc[4][4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0;
   const float* a_lo = st + (warp * 16 + g) * kMmaRow + 2 * t;
   const float* a_hi = a_lo + 8 * kMmaRow;
   const double* b = qd + g * kMmaRow + 2 * t;
 #pragma unroll
-  for (int s = 0; s < kDimChunk / kDmmaK; ++s) {
-    const float2 lo = *reinterpret_cast<const float2*>(a_lo + kDmmaK * s);
-    const float2 hi = *reinterpret_cast<const float2*>(a_hi + kDmmaK * s);
-    const double a[4] = {lo.x, hi.x, lo.y, hi.y};
+  for (int part = 0; part < kParts; ++part) {
+    double acc[kTiles][4];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const double2 bv = *reinterpret_cast<const double2*>(
-          b + nt * 8 * kMmaRow + kDmmaK * s);
-      mma_f64(acc[nt], a, bv.x, bv.y);
+    for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0;
+#pragma unroll
+    for (int s = 0; s < kDimChunk / kDmmaK; ++s) {
+      const float2 lo = *reinterpret_cast<const float2*>(a_lo + kDmmaK * s);
+      const float2 hi = *reinterpret_cast<const float2*>(a_hi + kDmmaK * s);
+      const double a[4] = {lo.x, hi.x, lo.y, hi.y};
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt) {
+        const double2 bv = *reinterpret_cast<const double2*>(
+            b + (part * kTiles + nt) * 8 * kMmaRow + kDmmaK * s);
+        mma_f64(acc[nt], a, bv.x, bv.y);
+      }
     }
+#pragma unroll
+    for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        store_score(S, (part * kTiles + nt) * 8 + 2 * t + (e & 1),
+                    warp * 16 + g + (e >> 1) * 8,
+                    __double2float_rn(acc[nt][e]), first);
   }
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      store_score(S, nt * 8 + 2 * t + (e & 1), warp * 16 + g + (e >> 1) * 8,
-                  __double2float_rn(acc[nt][e]), first);
 }
 
 // The B fragments of one 128-dim chunk of the query rows qi [32][kImmaRow]
@@ -688,9 +698,16 @@ __device__ __forceinline__ void mma_walk(
   const void* db1 = kInt ? nullptr : p2;
   const float* tnorm = p3;
   const size_t n_rows = static_cast<size_t>(out.n_tiles) * tile_n;
-  // the deep grouped build walks each tile once per row of its quads
-  constexpr bool kDeep = kDepth == kGroupedDeep;
-  constexpr int kPasses = Emitter<kDepth>::kPasses;
+  // a deep grouped build walks each tile once per pass, kQuadQ / kPasses
+  // rows of the threads' quads a pass, sized from its state (binned_select.
+  // cuh's build table: one pass at 1, 3 and 4 survivors, 16 cells of 3-6
+  // registers, 8-bit group indices packed four to a register below 257
+  // groups a tile; two at 5-8, 8 cells of 11; four past 256 groups, 4
+  // cells of 17 with int indices): every pass stages the tile's chunks and
+  // runs its products again
+  using Em = EmitterOf<kDepth>;
+  constexpr bool kDeep = kDepth < 0;
+  constexpr int kPasses = Em::kPasses;
   unsigned char* qs = smem + kStages * kStage;
   unsigned char* unpacked = qs + kMmaQBytes<kArm>;   // int4's int8 rows
   float* S = reinterpret_cast<float*>(unpacked + kMmaUnpackBytes<kArm>);
@@ -756,7 +773,7 @@ __device__ __forceinline__ void mma_walk(
   const int frag_row = warp * 16 + (lane >> 2);   // and frag_row + 8
   float carry[kQuadQ][kQuadL][kMaxCarry];
   if constexpr (kFused) reset_carry(carry, depth);
-  Emitter<kDepth> em(S);
+  Em em(S);
   for (int ti = t_begin; ti < t_end; ++ti) {
     for (int pass = 0; pass < kPasses; ++pass) {
       em.begin_pass(pass);
@@ -830,9 +847,9 @@ __device__ __forceinline__ void mma_walk(
               __syncthreads();
             }
             if constexpr (kUsesDmma<kArm>) {
-              dmma_chunk(reinterpret_cast<const float*>(st),
-                         reinterpret_cast<const double*>(qs), warp, lane, S,
-                         c == 0);
+              dmma_chunk<kDeep ? 4 : 1>(reinterpret_cast<const float*>(st),
+                                        reinterpret_cast<const double*>(qs),
+                                        warp, lane, S, c == 0);
             } else {
               const __nv_bfloat16* sth =
                   reinterpret_cast<const __nv_bfloat16*>(st);
@@ -863,15 +880,18 @@ __device__ __forceinline__ void mma_walk(
               return tn_rows[r] - 2.0f * qt;
             }, g, ti, out, place);
         } else if constexpr (kDeep) {
-          // this pass's row of the thread's quad
-          float a[kQuadL];
+          // this pass's rows of the thread's quad
+          float a[Em::kRows][kQuadL];
 #pragma unroll
-          for (int j = 0; j < kQuadL; ++j) {
-            const float v =
-                S[(warp * kQuadQ + pass) * kScoreStride + lane + 32 * j];
-            a[j] = kInt ? v : tn[j] - 2.0f * v;
-          }
-          em.group_row(a, g, out.geo.surv);
+          for (int r = 0; r < Em::kRows; ++r)
+#pragma unroll
+            for (int j = 0; j < kQuadL; ++j) {
+              const float v = S[(warp * kQuadQ + pass * Em::kRows + r) *
+                                    kScoreStride +
+                                lane + 32 * j];
+              a[r][j] = kInt ? v : tn[j] - 2.0f * v;
+            }
+          em.group_rows(a, g, out.geo.surv);
         } else {
           Acc a;
 #pragma unroll
@@ -897,8 +917,9 @@ __device__ __forceinline__ void mma_walk(
 
 // One k-step on its own, for the rounding probe: d = c + a . b^T with a
 // [16][16] bf16 (row, k), b [8][16] bf16 (n, k), c and d [16][8] f32, all
-// row-major in global memory; one warp.
-__global__ void mma_probe_kernel(const __nv_bfloat16* __restrict__ a,
+// row-major in global memory; one warp.  (static: each arm's part of a
+// library has its own copy.)
+static __global__ void mma_probe_kernel(const __nv_bfloat16* __restrict__ a,
                                  const __nv_bfloat16* __restrict__ b,
                                  const float* __restrict__ c,
                                  float* __restrict__ d) {
@@ -926,7 +947,7 @@ __global__ void mma_probe_kernel(const __nv_bfloat16* __restrict__ a,
 // One f64 k-step on its own, for highest's rounding probe: d = c + a . b^T
 // with a [16][8] f64 (row, k), b [8][8] f64 (n, k), c and d [16][8] f64,
 // row-major in global memory; one warp, one m16n8k8.
-__global__ void dmma_probe_kernel(const double* __restrict__ a,
+static __global__ void dmma_probe_kernel(const double* __restrict__ a,
                                   const double* __restrict__ b,
                                   const double* __restrict__ c,
                                   double* __restrict__ d) {

@@ -53,10 +53,9 @@
 //     emitters read S group by group in their own thread layout (queries
 //     quad*4 + i, lanes lane_col + 32 j) into Emitter<kDepth>::group,
 //     unchanged: grouped ties and the lane merge as in every other arm, a lane
-//     score the grouped score of its row by construction.  The deep grouped
+//     score the grouped score of its row by construction.  A deep grouped
 //     build (survivors other than 2, binned_select.cuh) walks each tile
-//     once per row of the threads' query quads, its emitter reading that
-//     row of S alone.
+//     once per pass, its emitter reading that pass's rows of S alone.
 //
 // Arithmetic per 4,096 queries x 1M rows x m = 32, C = 256 (Q*N*m = 1.31e11
 // lookups; the bound is one shared-memory wavefront per warp lookup, 15.67
@@ -180,9 +179,12 @@ __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
     return min(kGroups, n_groups - b * kGroups) * kBinW;
   };
 
-  // the deep grouped build walks each tile once per row of its quads
-  constexpr bool kDeep = kDepth == kGroupedDeep;
-  constexpr int kPasses = Emitter<kDepth>::kPasses;
+  // a deep grouped build walks each tile once per pass, kQuadQ / kPasses
+  // rows of the threads' quads a pass (binned_select.cuh's build table):
+  // every pass runs the tile's lookups again
+  using Em = EmitterOf<kDepth>;
+  constexpr bool kDeep = kDepth < 0;
+  constexpr int kPasses = Em::kPasses;
   // the next step to stage: (tile nt, pass npass, row block nb, subspace ns)
   int nt = t_begin, npass = 0, nb = 0, ns = 0;
   auto stage_next = [&](unsigned char* st) {
@@ -206,7 +208,7 @@ __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
   int buf = 0;
 
   // lane binning: its tile after the stages
-  Emitter<kDepth> em(reinterpret_cast<float*>(stages + 2 * stage_bytes));
+  Em em(reinterpret_cast<float*>(stages + 2 * stage_bytes));
   for (int ti = t_begin; ti < t_end; ++ti) {
     for (int pass = 0; pass < kPasses; ++pass) {
       em.begin_pass(pass);
@@ -242,13 +244,17 @@ __device__ __forceinline__ void pq_tiles(const float* __restrict__ lut_t,
           load_group_rows(tnorm, rows0 + static_cast<size_t>(gg) * kBinW,
                           p.lane_col, tn);
           if constexpr (kDeep) {
-            // this pass's row of the thread's quad
-            float a[kQuadL];
+            // this pass's rows of the thread's quad
+            float a[Em::kRows][kQuadL];
 #pragma unroll
-            for (int j = 0; j < kQuadL; ++j)
-              a[j] = tn[j] - 2.0f * S[(p.quad * kQuadQ + pass) * kPqStride +
-                                      gg * kBinW + p.lane_col + 32 * j];
-            em.group_row(a, b * kGroups + gg, o.geo.surv);
+            for (int r = 0; r < Em::kRows; ++r)
+#pragma unroll
+              for (int j = 0; j < kQuadL; ++j)
+                a[r][j] = tn[j] - 2.0f * S[(p.quad * kQuadQ +
+                                            pass * Em::kRows + r) *
+                                               kPqStride +
+                                           gg * kBinW + p.lane_col + 32 * j];
+            em.group_rows(a, b * kGroups + gg, o.geo.surv);
           } else {
             Acc a;
 #pragma unroll

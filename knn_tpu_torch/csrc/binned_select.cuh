@@ -100,14 +100,16 @@
 // kBlockQ = 32 query rows and the 128 lanes of a column group; for the
 // emitters each thread owns a 4-query x 4-lane tile of the group's scores
 // (queries quad*4 + i, lanes lane_col + 32*j), read from the mainloop's
-// shared score tile (the deep grouped build: one of the 4 queries a pass,
-// below).
+// shared score tile (the deep grouped builds: 1, 2 or 4 of the 4 queries a
+// pass, below).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace binned {
 
@@ -130,6 +132,15 @@ enum class Arm : int {
   kDefault = 5,
   kPq = 6
 };
+
+// A source compiled with BINNED_PART = an Arm code holds that arm's entries
+// alone: ops/_cuda.py compiles the arms apart, all at once, and links them
+// into the source's one library.
+#ifdef BINNED_PART
+#define BINNED_HAS_ARM(code) (BINNED_PART == (code))
+#else
+#define BINNED_HAS_ARM(code) 1
+#endif
 
 constexpr int kDimChunk = 128;            // dims per chunk (DIM_CHUNK)
 
@@ -254,7 +265,8 @@ __device__ __forceinline__ void store_tile(const Vals& vals, const Gidx& gidx,
 //     (_emit_select_grouped_scores, pallas_knn.py:575-610).  Two builds:
 //     surv = 2 (the default, Emitter<0>: insert_group / store_tile above,
 //     all 16 of a thread's cells in registers, 80 registers) and the deep
-//     build for any other surv in 1 .. 8 (Emitter<kGroupedDeep>, below).
+//     builds for any other surv in 1 .. 8 (DeepEmitter, below: one to four
+//     passes a tile by the survivor count).
 //     Outputs per tile: cd / ci column j*128 + b for survivor j (out_w =
 //     surv*128), bounds column b (bound_w = 128);
 //   lane (K8): bin b = tile rows b*bin_w .. (b+1)*bin_w - 1, bin_w a multiple
@@ -297,8 +309,9 @@ constexpr int kLaneDepthSmall = kSurvivors + 1;
 constexpr int kGroupedDeep = -1;                   // grouped, surv != 2
 
 // The emitter build of a launch: 0 for grouped binning at two survivors,
-// kGroupedDeep for grouped binning at any other count, else the lane
-// lists' length for `surv` survivors.
+// kGroupedDeep for grouped binning at any other count (then deep_depth,
+// below, picks the deep build), else the lane lists' length for `surv`
+// survivors.
 __host__ inline int emit_depth(int bin_w, int surv) {
   if (bin_w == 0) return surv == kSurvivors ? 0 : kGroupedDeep;
   return surv + 1 <= kLaneDepthSmall ? kLaneDepthSmall : kLaneDepth;
@@ -350,10 +363,10 @@ struct Place {
   int lane_col;
 };
 
-// kDepth = 0: grouped binning at two survivors; kGroupedDeep: grouped
-// binning at any other count; kDepth > 0: lane binning, each lane's list
-// kDepth >= surv + 1 long.  Every emitter walks each db tile in kPasses
-// passes over its groups (one but the deep grouped build's), begin_pass
+// kDepth = 0: grouped binning at two survivors; kDepth > 0: lane binning,
+// each lane's list kDepth >= surv + 1 long; kDepth < 0: the deep grouped
+// builds (DeepEmitter, EmitterOf).  Every emitter walks each db tile in
+// kPasses passes over its groups (one but some deep builds'), begin_pass
 // before a pass, end_pass after it, end_tile after the last.
 template <int kDepth>
 struct Emitter;
@@ -412,96 +425,278 @@ __device__ __forceinline__ bool lane_before(float va, int ra, float vb,
 // written: 8 f32 = one 32-byte sector.
 constexpr int kLaneVec = 8;
 
-// Grouped binning at surv = 1 .. 8 survivors but 2 (the reference's any
-// survivors up to MAX_SURVIVORS, _geometry:296-300).  A cell -- one (query,
-// lane) bin -- keeps up to 8 survivor values, their group indices and the
-// bound: 17 registers, 272 for the 16 cells of a thread, past the 255 a
-// thread may hold before the mainloop's own, and shared memory is taken by
-// the mainloop's ring (up to 224 KB of 227).  So this build walks each db
-// tile in kQuadQ = 4 passes, the thread's query row quad*4 + pass in pass
-// `pass` (4 cells, 68 registers of state, fewer than the two-survivor
-// build's 80): every pass runs the tile's products again, 4x the walk's
-// work, no spill.  The network is insert_group's with the survivor count a
-// runtime value (the steps past `surv` predicated off), the bound its own
-// register; a pass stores its row's block at its end, and a fused launch
-// re-writes the whole block as a skipped tile's at the tile's end when the
-// early-out skips it (the same carry and rule as the two-survivor build,
-// fed each row's lane minima at the end of its pass).
-template <>
-struct Emitter<kGroupedDeep> {
-  static constexpr int kPasses = kQuadQ;
-  float vals[kQuadL][kMaxSurvivors];   // survivors, ascending
-  int gidx[kQuadL][kMaxSurvivors];     // ... and their groups
-  float bnd[kQuadL];                   // the bin bound
-  int row;                             // this pass's row of the quad
+// ---------------------------------------------------------------------------
+// The deep grouped build: grouped binning at surv = 1 .. 8 survivors but 2
+// (the reference's any survivors up to MAX_SURVIVORS, _geometry:296-300,
+// capped above).  It computes insert_group's network with `surv` slots:
+// per cell -- one (query, lane) bin -- the surv smallest scores over the
+// tile's groups with strict `<` (the earlier group wins a tie) and the next
+// value as the bound, the same fminf / fmaxf / select steps in the same
+// order, so its outputs are the plain version's (coarse_knn._select_tile)
+// bit for bit.
+//
+// What sizes it.  A thread owns 16 cells (kQuadQ x kQuadL), the mainloop's
+// ring takes the shared memory (up to 224 KB of 227), and the mainloop
+// holds most of the 255 registers a thread may have: the two-survivor
+// build keeps its 16 cells in 80 registers (3 values and 2 group indices a
+// cell) at 240 registers in all for bf16x3, 255 for highest.  A cell at 8
+// survivors with an int a group index takes 17 registers, 272 for 16 cells
+// -- more than a thread has.  So each build keeps as many cells a pass as
+// its state fits beside the mainloop with no spill, and walks each db tile
+// once per pass: every pass recomputes the tile's products (and, in the
+// query-major grid, re-reads the tile, from HBM once 132 tiles are in
+// flight).  A build of four passes at every count (4x the products)
+// took 3.7-4.9x the two-survivor entry; these take one or two below 257
+// groups a tile.
+//
+// Group indices.  A tile of at most kPackedGroups = 256 groups (tile_n <=
+// 32,768: the tuner's largest; the default is 16,384) numbers them in 8
+// bits, so the packed builds keep the indices of a pass's cells four to a
+// register, each read and written at a constant byte with __byte_perm
+// (PRMT; the write predicated on the step's `less`, the read from the words
+// as they were before the group): ceil(cells x slots / 4) registers.  A
+// packed step costs ~1.6x an int one on an H100, the price of the
+// registers it frees.
+//
+// The builds (deep_depth picks one on the host from surv and tile_n, after
+// emit_depth; a build is (survivor slots, rows of the quad a pass, packed),
+// its emitter code deep_code of them; registers as ptxas gives them for
+// the tiled Dp = 128 builds, sm_90a, none spilling):
+//
+//   build  surv         slots rows packed  state a thread        passes
+//   A      1            1     4    no      16 x (1 + 1 + 1) = 48  1
+//   B      3            3     4    yes     16 x (3 + 1) + 12 = 76 1
+//   B4     4            4     4    yes     16 x (4 + 1) + 16 = 96 1
+//   C      5 .. 8       8     2    yes     8 x (8 + 1) + 16 = 88  2
+//   W      3 .. 8,      8     1    no      4 x (8 + 8 + 1) = 68   4
+//          > 256 groups
+//
+// highest and pq take C for 4 survivors too (B4 spills there: highest's
+// f64 accumulators, pq's 128 accumulators a thread; pq's C, B, A and W
+// hold 255 registers with no spill), and highest's deep builds sum their FP64
+// products in four parts of one n-tile each (binned_mma.cuh dmma_chunk:
+// 8 accumulator registers in place of 32; B and C spill otherwise).  A,
+// B and B4 run their network for exactly their count; C and W branch
+// once a group (surv is uniform) to the network compiled for the count,
+// so no step past surv is issued.  A needs no packing (48 registers, under
+// the two-survivor build's 80), so it takes any tile width; W is the
+// four-pass build, one row of the quad a pass with int indices, kept for
+// the geometry past 256 groups.  C's pass p takes rows 2p and 2p + 1 of the
+// quad.  On an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md) every tiled,
+// db-major, streaming and fused entry at 1 and 3 survivors takes
+// 0.85-1.28x its two-survivor entry, at 4 1.1-1.5x (highest and pq, C:
+// 2.0-2.5x), at 8 2.1-2.65x for bf16x3, bf16x3f, highest and pq and
+// 2.8-3.2x for default and the int arms, whose step costs are small
+// beside the network's.
+//
+// A pass stores its rows' blocks at its end; a fused launch re-writes the
+// whole block as a skipped tile's at the tile's end when the early-out
+// skips it (the two-survivor build's carry and rule, fed each row's lane
+// minima at the end of the pass that holds the row: at one pass, the
+// two-survivor build's own order).
+// ---------------------------------------------------------------------------
+
+constexpr int kPackedGroups = 256;   // groups a tile of 8-bit indices holds
+
+// A deep build's emitter code (a kDepth < 0): -(100 slots + 10 rows +
+// packed), and its parts.
+__host__ __device__ constexpr int deep_code(int slots, int rows,
+                                            bool packed) {
+  return -(100 * slots + 10 * rows + (packed ? 1 : 0));
+}
+__host__ __device__ constexpr int deep_slots(int code) { return -code / 100; }
+__host__ __device__ constexpr int deep_rows(int code) {
+  return -code / 10 % 10;
+}
+__host__ __device__ constexpr bool deep_packed(int code) {
+  return -code % 10 == 1;
+}
+__host__ __device__ constexpr int deep_passes(int code) {
+  return kQuadQ / deep_rows(code);
+}
+
+// The builds of the table above, by arm.
+constexpr int kDeepOne = deep_code(1, kQuadQ, false);                 // A
+template <Arm kArm>
+constexpr int kDeepThree = deep_code(3, kQuadQ, true);                // B
+template <Arm kArm>
+constexpr int kDeepMany = deep_code(kMaxSurvivors, 2, true);          // C
+template <Arm kArm>
+constexpr int kDeepFour = kArm == Arm::kHighest || kArm == Arm::kPq
+                              ? kDeepMany<kArm>
+                              : deep_code(4, kQuadQ, true);           // B4
+constexpr int kDeepWide = deep_code(kMaxSurvivors, 1, false);         // W
+
+// The deep build a grouped launch of arm kArm at surv survivors (1 .. 8
+// but 2) on tiles of tile_n rows takes.
+template <Arm kArm>
+__host__ constexpr int deep_depth(int surv, int tile_n) {
+  if (surv == 1) return kDeepOne;
+  if (tile_n / kBinW > kPackedGroups) return kDeepWide;
+  if (surv == 3) return kDeepThree<kArm>;
+  return surv == 4 ? kDeepFour<kArm> : kDeepMany<kArm>;
+}
+
+// f(std::integral_constant<int, code>()) for the deep build ``code`` of arm
+// kArm: one instantiation per build the arm has.
+template <Arm kArm, class F>
+__host__ auto with_deep_build(int code, F&& f) {
+  if (code == kDeepOne) return f(std::integral_constant<int, kDeepOne>());
+  if (code == kDeepThree<kArm>)
+    return f(std::integral_constant<int, kDeepThree<kArm>>());
+  if (code == kDeepFour<kArm>)
+    return f(std::integral_constant<int, kDeepFour<kArm>>());
+  if (code == kDeepMany<kArm>)
+    return f(std::integral_constant<int, kDeepMany<kArm>>());
+  return f(std::integral_constant<int, kDeepWide>());
+}
+
+template <int kDepth>
+struct DeepEmitter {
+  static constexpr int kSlots = deep_slots(kDepth);
+  static constexpr int kRows = deep_rows(kDepth);
+  static constexpr bool kPacked = deep_packed(kDepth);
+  static constexpr int kPasses = kQuadQ / kRows;
+  static_assert(kSlots >= 1 && kSlots <= kMaxSurvivors &&
+                    kQuadQ % kRows == 0,
+                "not a deep build");
+  // the build serves one count (A, B: every slot runs) or any up to 8 (C,
+  // W: the slots past surv are predicated off)
+  static constexpr bool kExact = kSlots < kMaxSurvivors;
+  static constexpr int kIdx = kRows * kQuadL * kSlots;   // indices a pass
+  static constexpr int kIdxWords = kPacked ? (kIdx + 3) / 4 : kIdx;
+  float vals[kRows][kQuadL][kSlots];   // survivors, ascending
+  float bnd[kRows][kQuadL];            // the bin bound
+  unsigned idx[kIdxWords];             // the survivors' groups
+  int pass;                            // rows pass*kRows .. of the quad
   float tmin[kQuadQ], thr[kQuadQ];     // fused: the rows' skip statistics
 
-  __device__ explicit Emitter(float*) {}
+  __device__ explicit DeepEmitter(float*) {}
 
-  __device__ __forceinline__ void begin_pass(int pass) {
-    row = pass;
-#pragma unroll
-    for (int j = 0; j < kQuadL; ++j) {
-#pragma unroll
-      for (int k = 0; k < kMaxSurvivors; ++k) {
-        vals[j][k] = __int_as_float(0x7f800000);
-        gidx[j][k] = 0;
-      }
-      bnd[j] = __int_as_float(0x7f800000);
-    }
+  // The group of slot k of cell (r, j) in the index words w: byte n % 4
+  // of word n / 4 (packed), else word n, n = (r kQuadL + j) kSlots + k.
+  static __device__ __forceinline__ unsigned gidx_in(
+      const unsigned (&w)[kIdxWords], int r, int j, int k) {
+    const int n = (r * kQuadL + j) * kSlots + k;
+    if constexpr (kPacked)
+      return __byte_perm(w[n / 4], 0u, 0x4440u + n % 4);
+    else
+      return w[n];
   }
 
-  // Group g's scores s[j] of this pass's row (lanes lane_col + 32*j) into
-  // the network, insert_group's steps for the first `surv` slots.
-  __device__ __forceinline__ void group_row(const float (&s)[kQuadL], int g,
-                                            int surv) {
+  // ... set to g (< 256 when packed).
+  __device__ __forceinline__ void set_gidx(int r, int j, int k, unsigned g) {
+    const int n = (r * kQuadL + j) * kSlots + k;
+    if constexpr (kPacked)   // byte n % 4 of g's byte 0, the rest kept
+      idx[n / 4] = __byte_perm(idx[n / 4], g,
+                               (0x3210u & ~(0xFu << 4 * (n % 4))) |
+                                   (4u << 4 * (n % 4)));
+    else
+      idx[n] = g;
+  }
+
+  __device__ __forceinline__ void begin_pass(int p) {
+    pass = p;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int j = 0; j < kQuadL; ++j) {
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k)
+          vals[r][j][k] = __int_as_float(0x7f800000);
+        bnd[r][j] = __int_as_float(0x7f800000);
+      }
+#pragma unroll
+    for (int w = 0; w < kIdxWords; ++w) idx[w] = 0;
+  }
+
+  // Group g's scores s[r][j] of this pass's rows into the network with
+  // kActive slots: insert_group's steps, cell by cell.  A slot's old group
+  // is read from the words as they were before the group (no step writes
+  // another slot's byte), so the reads wait on no write and the writes of
+  // a packed word chain beside the values' steps, not in front of them.
+  template <int kActive>
+  __device__ __forceinline__ void insert_rows(const float (&s)[kRows][kQuadL],
+                                              int g) {
+    unsigned before[kIdxWords];
+#pragma unroll
+    for (int w = 0; w < kIdxWords; ++w) before[w] = idx[w];
 #pragma unroll
     for (int j = 0; j < kQuadL; ++j) {
-      float cur_v = s[j];
-      int cur_g = g;
 #pragma unroll
-      for (int k = 0; k < kMaxSurvivors; ++k) {
-        if (k < surv) {
-          const bool less = cur_v < vals[j][k];
-          const float disp_v = fmaxf(cur_v, vals[j][k]);
-          const int disp_g = less ? gidx[j][k] : cur_g;
-          vals[j][k] = fminf(cur_v, vals[j][k]);
-          gidx[j][k] = less ? cur_g : gidx[j][k];
+      for (int r = 0; r < kRows; ++r) {
+        float cur_v = s[r][j];
+        unsigned cur_g = g;
+#pragma unroll
+        for (int k = 0; k < kActive; ++k) {
+          const bool less = cur_v < vals[r][j][k];
+          const float disp_v = fmaxf(cur_v, vals[r][j][k]);
+          const unsigned old_g = gidx_in(before, r, j, k);
+          vals[r][j][k] = fminf(cur_v, vals[r][j][k]);
+          if (less) set_gidx(r, j, k, cur_g);
           cur_v = disp_v;
-          cur_g = disp_g;
+          cur_g = less ? old_g : cur_g;
         }
+        bnd[r][j] = fminf(bnd[r][j], cur_v);
       }
-      bnd[j] = fminf(bnd[j], cur_v);
     }
   }
 
-  // This pass's row of tile ti's block: survivors to cd / ci at column
+  // Group g's scores s[r][j] of this pass's rows (rows pass*kRows + r of
+  // the quad, lanes lane_col + 32*j) into the network with `surv` slots:
+  // a build of one count runs its own; one of several branches once a
+  // group (surv is uniform) to the network compiled for the count, so no
+  // step past surv is issued.
+  __device__ __forceinline__ void group_rows(const float (&s)[kRows][kQuadL],
+                                             int g, int surv) {
+    if constexpr (kExact) {
+      insert_rows<kSlots>(s, g);
+    } else {
+      switch (surv) {
+        case 3: insert_rows<3>(s, g); break;
+        case 4: insert_rows<4>(s, g); break;
+        case 5: insert_rows<5>(s, g); break;
+        case 6: insert_rows<6>(s, g); break;
+        case 7: insert_rows<7>(s, g); break;
+        default: insert_rows<kMaxSurvivors>(s, g); break;
+      }
+    }
+  }
+
+  // This pass's rows of tile ti's block: survivors to cd / ci at column
   // ti*surv*128 + k*128 + lane (INT32_MAX where the value is not finite),
   // the bound to bounds at ti*128 + lane.
   __device__ __forceinline__ void end_pass(int ti, const Out& o,
                                            const Place& p) {
-    const int qrow = p.q0 + p.quad * kQuadQ + row;
-    if (qrow >= o.n_q) return;
     const int surv = o.geo.surv;
     const size_t out_w = static_cast<size_t>(o.n_tiles) * o.geo.out_w;
     const size_t bound_w = static_cast<size_t>(o.n_tiles) * kBinW;
 #pragma unroll
-    for (int j = 0; j < kQuadL; ++j) {
-      const int lane = p.lane_col + 32 * j;
+    for (int r = 0; r < kRows; ++r) {
+      const int qrow = p.q0 + p.quad * kQuadQ + pass * kRows + r;
+      if (qrow >= o.n_q) continue;
 #pragma unroll
-      for (int k = 0; k < kMaxSurvivors; ++k) {
-        if (k < surv) {
-          const size_t at = qrow * out_w +
-                            static_cast<size_t>(ti) * o.geo.out_w +
-                            k * kBinW + lane;
-          const float v = vals[j][k];
-          o.cd[at] = v;
-          o.ci[at] = isfinite(v) ? ti * o.tile_n + gidx[j][k] * kBinW + lane
-                                 : INT32_MAX;
+      for (int j = 0; j < kQuadL; ++j) {
+        const int lane = p.lane_col + 32 * j;
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          if (kExact || k < surv) {
+            const size_t at = qrow * out_w +
+                              static_cast<size_t>(ti) * o.geo.out_w +
+                              k * kBinW + lane;
+            const float v = vals[r][j][k];
+            o.cd[at] = v;
+            o.ci[at] = isfinite(v) ? ti * o.tile_n +
+                                         static_cast<int>(
+                                             gidx_in(idx, r, j, k)) *
+                                             kBinW +
+                                         lane
+                                   : INT32_MAX;
+          }
         }
+        o.bounds[qrow * bound_w + static_cast<size_t>(ti) * kBinW + lane] =
+            bnd[r][j];
       }
-      o.bounds[qrow * bound_w + static_cast<size_t>(ti) * kBinW + lane] =
-          bnd[j];
     }
   }
 
@@ -850,29 +1045,41 @@ __device__ __forceinline__ bool fused_skip(
   return block_skip(tmin, thr, p, n_q, warp_ok);
 }
 
-// The deep grouped build's part at a pass's end: its row's statistics and
-// carry, from the row's lane minima (survivor 0 of each bin).
+// The deep grouped build's part at a pass's end: its rows' statistics and
+// carry, from each row's lane minima (survivor 0 of each bin).
+template <int kDepth>
 __device__ __forceinline__ void fused_pass(
-    Emitter<kGroupedDeep>& em, float (&carry)[kQuadQ][kQuadL][kMaxCarry],
+    DeepEmitter<kDepth>& em, float (&carry)[kQuadQ][kQuadL][kMaxCarry],
     int depth) {
   if (depth == 0) return;
-  float tmin = __int_as_float(0x7f800000), thr = -tmin;
+  constexpr int kRows = DeepEmitter<kDepth>::kRows;
 #pragma unroll
-  for (int j = 0; j < kQuadL; ++j)
-    carry_cell(carry[em.row][j], depth, em.vals[j][0], tmin, thr);
+  for (int r = 0; r < kRows; ++r) {
+    const int row = em.pass * kRows + r;   // of the quad
+    float tmin = __int_as_float(0x7f800000), thr = -tmin;
 #pragma unroll
-  for (int i = 0; i < kQuadQ; ++i) {
-    em.tmin[i] = i == em.row ? tmin : em.tmin[i];
-    em.thr[i] = i == em.row ? thr : em.thr[i];
+    for (int j = 0; j < kQuadL; ++j)
+      carry_cell(carry[row][j], depth, em.vals[r][j][0], tmin, thr);
+#pragma unroll
+    for (int i = 0; i < kQuadQ; ++i) {
+      em.tmin[i] = i == row ? tmin : em.tmin[i];
+      em.thr[i] = i == row ? thr : em.thr[i];
+    }
   }
 }
 
-// ... and its decision at the tile's end, from every pass's row.
+// ... and its decision at the tile's end, from every pass's rows.
+template <int kDepth>
 __device__ __forceinline__ bool fused_skip(
-    Emitter<kGroupedDeep>& em, float (&)[kQuadQ][kQuadL][kMaxCarry],
+    DeepEmitter<kDepth>& em, float (&)[kQuadQ][kQuadL][kMaxCarry],
     int depth, const Place& p, int n_q, int* warp_ok) {
   if (depth == 0) return false;
   return block_skip(em.tmin, em.thr, p, n_q, warp_ok);
 }
+
+// The emitter of a build: the deep builds' (kDepth < 0), else Emitter.
+template <int kDepth>
+using EmitterOf = std::conditional_t<(kDepth < 0), DeepEmitter<kDepth>,
+                                     Emitter<kDepth>>;
 
 }  // namespace binned

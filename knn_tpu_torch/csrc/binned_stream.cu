@@ -39,7 +39,7 @@
 // SMs.  So the tile loop is split into contiguous segments, one per CTA: the
 // wrapper (ops/coarse_knn.stream_segment_tiles) picks n_seg = min(n_tiles,
 // floor(wave / query blocks)) segments, where wave = SMs x the CTAs per SM
-// that stream_select_attrs reads from the occupancy API for the built kernel
+// that stream_select_attrs_<arm> reads from the occupancy API for the built kernel
 // of the arm (the mainloop's shared memory, binned_mma.cuh: 72-224 KB by
 // arm and Dp, compiled for one CTA per SM; pq 194 KB at 256 codes, one).
 // The streaming output does not depend on the split.
@@ -183,20 +183,22 @@ cudaError_t launch(const void* p0, const void* p1, const void* p2,
     return cudaErrorInvalidValue;
   const dim3 grid((n_tiles + seg_tiles - 1) / seg_tiles,
                   (n_q + kBlockQ - 1) / kBlockQ);
+  const int slots = emit_depth(bin_w, survivors);
+  if (slots == kGroupedDeep)
+    return with_deep_build<kArm>(
+        deep_depth<kArm>(survivors, tile_n), [&](auto build) {
+          return launch_binning<kArm, kFused, decltype(build)::value>(
+              grid, p0, p1, p2, p3, out, dp, seg_tiles, depth, ncodes,
+              stream);
+        });
   if constexpr (kFused) {
-    if (emit_depth(bin_w, survivors) == kGroupedDeep)
-      return launch_binning<kArm, true, kGroupedDeep>(
-          grid, p0, p1, p2, p3, out, dp, seg_tiles, depth, ncodes, stream);
     return launch_binning<kArm, true, 0>(grid, p0, p1, p2, p3, out, dp,
                                          seg_tiles, depth, ncodes, stream);
   } else {
-    switch (emit_depth(bin_w, survivors)) {
+    switch (slots) {
       case 0:
         return launch_binning<kArm, false, 0>(grid, p0, p1, p2, p3, out, dp,
                                               seg_tiles, 0, ncodes, stream);
-      case kGroupedDeep:
-        return launch_binning<kArm, false, kGroupedDeep>(
-            grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
       case kLaneDepthSmall:
         return launch_binning<kArm, false, kLaneDepthSmall>(
             grid, p0, p1, p2, p3, out, dp, seg_tiles, 0, ncodes, stream);
@@ -225,21 +227,31 @@ cudaError_t attrs_build(int dp, int ncodes, int* out) {
   }
 }
 
+// ... and the build of a launch at the binning (bin_w, survivors) on tiles
+// of tile_n rows: its resources (out[0 .. 4]), its emitter code (out[5])
+// and its passes a tile (out[6]), as binned_coarse.cu's attrs.
 template <Arm kArm>
 cudaError_t attrs(int fused, int bin_w, int survivors, int dp, int ncodes,
-                  int* out) {
+                  int tile_n, int* out) {
   const int slots = emit_depth(bin_w, survivors);
+  out[5] = slots;
+  out[6] = 1;
+  if (slots == kGroupedDeep)
+    return with_deep_build<kArm>(
+        deep_depth<kArm>(survivors, tile_n), [&](auto build) {
+          constexpr int kBuild = decltype(build)::value;
+          out[5] = kBuild;
+          out[6] = deep_passes(kBuild);
+          return fused ? attrs_build<kArm, true, kBuild>(dp, ncodes, out)
+                       : attrs_build<kArm, false, kBuild>(dp, ncodes, out);
+        });
   if (fused) {
     if (slots > 0) return cudaErrorInvalidValue;
-    return slots == kGroupedDeep
-               ? attrs_build<kArm, true, kGroupedDeep>(dp, ncodes, out)
-               : attrs_build<kArm, true, 0>(dp, ncodes, out);
+    return attrs_build<kArm, true, 0>(dp, ncodes, out);
   }
   switch (slots) {
     case 0:
       return attrs_build<kArm, false, 0>(dp, ncodes, out);
-    case kGroupedDeep:
-      return attrs_build<kArm, false, kGroupedDeep>(dp, ncodes, out);
     case kLaneDepthSmall:
       return attrs_build<kArm, false, kLaneDepthSmall>(dp, ncodes, out);
     default:
@@ -249,34 +261,22 @@ cudaError_t attrs(int fused, int bin_w, int survivors, int dp, int ncodes,
 
 }  // namespace
 
-// The resources of the streaming (fused = 0) or fused (fused = 1) build
-// that stream_select_<arm> / fused_select_<arm> launch for the binning
-// (bin_w, survivors) at dp dims (pq: ncodes codes), as binned_coarse.cu's
-// binned_select_attrs reports its tiled builds'.  Returns the cudaError (0
-// = out is set).
-extern "C" int stream_select_attrs(int fused, int arm, int bin_w,
-                                   int survivors, int dp, int ncodes,
-                                   int* out) {
-  Geom geo;
-  if (!make_geom(bin_w ? bin_w : kBinW, bin_w, survivors, &geo))
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (arm) {
-#define ARM_CASE(ARM)         \
-  case static_cast<int>(ARM): \
-    return static_cast<int>(  \
-        attrs<ARM>(fused, bin_w, survivors, dp, ncodes, out));
-    ARM_CASE(Arm::kBf16x3)
-    ARM_CASE(Arm::kInt8)
-    ARM_CASE(Arm::kInt4)
-    ARM_CASE(Arm::kBf16x3f)
-    ARM_CASE(Arm::kHighest)
-    ARM_CASE(Arm::kDefault)
-    ARM_CASE(Arm::kPq)
-#undef ARM_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// The streaming (fused = 0) or fused (fused = 1) build that
+// stream_select_<arm> / fused_select_<arm> launch for the binning (bin_w,
+// survivors) on tiles of tile_n rows at dp dims (pq: ncodes codes): out[0
+// .. 6] as binned_coarse.cu's binned_select_attrs_<arm> reports its tiled
+// builds'.  Returns the cudaError (0 = out is set).
+#define ATTRS_ENTRY(NAME, ARM)                                                \
+  extern "C" int stream_select_attrs_##NAME(int fused, int bin_w,             \
+                                            int survivors, int dp,            \
+                                            int ncodes, int tile_n,           \
+                                            int* out) {                       \
+    Geom geo;                                                                 \
+    if (!make_geom(tile_n, bin_w, survivors, &geo))                           \
+      return static_cast<int>(cudaErrorInvalidValue);                         \
+    return static_cast<int>(                                                  \
+        attrs<ARM>(fused, bin_w, survivors, dp, ncodes, tile_n, out));       \
   }
-}
 
 // C entries for ctypes.  Operands p0 .. p3 as the tiled entries of the same
 // arm take them (binned_coarse.cu): f32 family q [n_q, dp] f32, then th, tl
@@ -317,12 +317,28 @@ extern "C" int stream_select_attrs(int fused, int arm, int bin_w,
                                               0, stream));                    \
   }
 
-#define STREAM_ENTRIES(NAME, ARM) STREAM_ENTRY(NAME, ARM) FUSED_ENTRY(NAME, ARM)
+#define STREAM_ENTRIES(NAME, ARM) \
+  STREAM_ENTRY(NAME, ARM) FUSED_ENTRY(NAME, ARM) ATTRS_ENTRY(NAME, ARM)
 
+// Each arm's entries are compiled apart (BINNED_PART, binned_select.cuh).
+#if BINNED_HAS_ARM(0)
 STREAM_ENTRIES(bf16x3, Arm::kBf16x3)
-STREAM_ENTRIES(bf16x3f, Arm::kBf16x3f)
-STREAM_ENTRIES(highest, Arm::kHighest)
-STREAM_ENTRIES(default, Arm::kDefault)
+#endif
+#if BINNED_HAS_ARM(1)
 STREAM_ENTRIES(int8, Arm::kInt8)
+#endif
+#if BINNED_HAS_ARM(2)
 STREAM_ENTRIES(int4, Arm::kInt4)
-STREAM_ENTRY(pq, Arm::kPq)
+#endif
+#if BINNED_HAS_ARM(3)
+STREAM_ENTRIES(bf16x3f, Arm::kBf16x3f)
+#endif
+#if BINNED_HAS_ARM(4)
+STREAM_ENTRIES(highest, Arm::kHighest)
+#endif
+#if BINNED_HAS_ARM(5)
+STREAM_ENTRIES(default, Arm::kDefault)
+#endif
+#if BINNED_HAS_ARM(6)
+STREAM_ENTRY(pq, Arm::kPq) ATTRS_ENTRY(pq, Arm::kPq)
+#endif

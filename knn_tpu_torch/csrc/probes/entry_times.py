@@ -1,6 +1,7 @@
 """Times every coarse entry of the given arms on one card.
 
     python3 knn_tpu_torch/csrc/probes/entry_times.py [--arms default,int8,int4]
+        [--survivors 1,3,4,5,8]
 
 Imports ``knn_tpu_torch`` from the checkout that holds this file (three
 directories up), so a copy of the file placed in another checkout of the
@@ -12,8 +13,14 @@ needs no training), for each arm: the grouped tiled, db-major, streaming
 and fused (not pq) entries and the lane tiled, db-major and streaming
 entries (128-row bins, 2 survivors),
 each timed with CUDA events (mean of 3 launches after one warm-up), in
-turns grouped, lane, lane, grouped.  Prints the card's name and power
-limit, then one JSON line per (arm, entry).
+turns grouped, lane, lane, grouped; with ``--survivors``, the grouped
+entries at those counts (the deep grouped builds) between the lane runs
+and the second grouped one.  Prints the card's name and power limit, then
+one JSON line per (arm, entry).
+
+Parent and change in turns: place a copy of this file in a checkout of the
+parent commit (``git archive`` into a directory ``.gitignore`` lists) and
+run the two copies p c c p in one call on one card.
 """
 
 from __future__ import annotations
@@ -49,7 +56,12 @@ def time_ms(fn, reps=3):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arms", default="default,int8,int4")
-    arms = ap.parse_args().arms.split(",")
+    ap.add_argument("--survivors", default="",
+                    help="comma list of grouped survivor counts (not 2) to "
+                    "time beside the two-survivor entries")
+    args_ = ap.parse_args()
+    arms = args_.arms.split(",")
+    deep = [int(s) for s in args_.survivors.split(",") if s]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
@@ -83,21 +95,28 @@ def main() -> None:
             if (arm, entry) == ("pq", "fused"):
                 continue          # refused, as in the JAX package
 
-            def grouped():
-                return fn(*args, tile_n=ck.TILE_N, arm=arm, **kw)
+            def grouped(survivors=None):
+                return fn(*args, tile_n=ck.TILE_N, arm=arm, **kw,
+                          survivors=survivors)
 
             def lanes():
                 return fn(*args, tile_n=ck.TILE_N, arm=arm, **kw, **lane)
             out = {"checkout": ROOT.name, "arm": arm, "entry": entry,
                    "queries": n_q, "rows": n}
-            if entry == "fused":   # grouped binning only
-                out["grouped_ms"] = [time_ms(grouped), time_ms(grouped)]
-            else:
-                g1 = time_ms(grouped)
+            g1 = time_ms(grouped)
+            if entry != "fused":   # grouped binning only
                 out["lane_ms"] = [time_ms(lanes), time_ms(lanes)]
-                out["grouped_ms"] = [g1, time_ms(grouped)]
+            if deep:
+                out["deep_ms"] = {s: time_ms(lambda: grouped(s))
+                                  for s in deep}
+            out["grouped_ms"] = [g1, time_ms(grouped)]
+            if entry != "fused":
                 out["lane_over_grouped"] = (sum(out["lane_ms"])
                                             / sum(out["grouped_ms"]))
+            if deep:
+                g = sum(out["grouped_ms"]) / 2
+                out["deep_over_grouped"] = {s: ms / g for s, ms
+                                            in out["deep_ms"].items()}
             print(json.dumps(out), flush=True)
         del args
         torch.cuda.empty_cache()

@@ -209,7 +209,6 @@ F32_ARMS = {"bf16x3": (torch.bfloat16, 4), "bf16x3f": (torch.bfloat16, 4),
 #: (csrc/binned_select.cuh, enum Arm); every wrapper counts its launches
 #: per arm
 ARMS = ("bf16x3", *INT_ARMS, "bf16x3f", "highest", "default", "pq")
-_ARM_CODES = {arm: code for code, arm in enumerate(ARMS)}
 FINAL_SELECTS = ("exact", "approx")
 
 #: query rows per CTA of every coarse kernel; the fused kernels' skip
@@ -1044,9 +1043,12 @@ def _stream_ctas_per_sm(device: torch.device, kernel: str, precision: str,
     with more shared memory, holds no more."""
     key = (device.index, kernel, precision, tuple(emit), tuple(pq_shape))
     if key not in _ctas_per_sm:
+        # an arm's builds share its shared memory, so any tile its binning
+        # takes gives the CTAs of every one
         ctas = kernel_resources(kernel, precision, bin_w=emit[0],
                                 survivors=emit[1],
                                 ncodes=pq_shape[1] or 256,
+                                tile_n=emit[0] or TILE_N,
                                 device=device)["ctas_per_sm"]
         if ctas < 1:
             raise RuntimeError(
@@ -1057,21 +1059,28 @@ def _stream_ctas_per_sm(device: torch.device, kernel: str, precision: str,
 
 #: the fields of :func:`kernel_resources`, in the C entries' order
 RESOURCE_FIELDS = ("registers", "static_shared_bytes", "local_bytes",
-                   "dynamic_shared_bytes", "ctas_per_sm")
+                   "dynamic_shared_bytes", "ctas_per_sm", "emitter",
+                   "passes")
 
 
 def kernel_resources(kernel: str, arm: str, *, bin_w: int = 0,
                      survivors: int = SURVIVORS, dp: int = DIM_CHUNK,
-                     ncodes: int = 256, device=None) -> dict:
+                     ncodes: int = 256, tile_n: int = TILE_N,
+                     device=None) -> dict:
     """The resources of the build that a ``kernel`` ("tiled", "streaming"
     or "fused") launch of arm ``arm`` takes at the C entries' binning
-    ``bin_w`` (0 = grouped) and ``survivors`` and ``dp`` padded dims (pq:
-    ``dp`` subspaces of ``ncodes`` codes), read from the built kernel on a
-    CUDA ``device`` (default: the current one): registers a thread,
-    static shared, local (spill and stack), dynamic shared bytes and CTAs
-    per SM (cudaFuncGetAttributes and the occupancy API, after the kernel
-    is let have its dynamic shared memory).  Raises RuntimeError with the
-    CUDA error when the device refuses the build, as its launch would."""
+    ``bin_w`` (0 = grouped) and ``survivors`` on tiles of ``tile_n`` rows
+    and ``dp`` padded dims (pq: ``dp`` subspaces of ``ncodes`` codes),
+    read from the built kernel on a CUDA ``device`` (default: the current
+    one): registers a thread, static shared, local (spill and stack),
+    dynamic shared bytes and CTAs per SM (cudaFuncGetAttributes and the
+    occupancy API, after the kernel is let have its dynamic shared
+    memory), then the emitter build the launch takes (0 the two-survivor
+    build, 3 / 9 the lane lists, < 0 a deep build: ``csrc/binned_select.
+    cuh``'s ``deep_code``, -(100 survivor slots + 10 rows of a thread's
+    query quad a pass + 1 where group indices are packed)) and its passes
+    over each db tile.  Raises RuntimeError with the CUDA error
+    when the device refuses the build, as its launch would."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
     device = torch.device("cuda" if device is None else device)
@@ -1080,22 +1089,22 @@ def kernel_resources(kernel: str, arm: str, *, bin_w: int = 0,
                          f"not {device}")
     out = (ctypes.c_int * len(RESOURCE_FIELDS))()
     if kernel == "tiled":
-        fn = _cuda.load("binned_coarse").binned_select_attrs
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        args = (_ARM_CODES[arm], bin_w, survivors, dp, ncodes)
+        fn = getattr(_cuda.load("binned_coarse"),
+                     f"binned_select_attrs_{arm}")
+        args = (bin_w, survivors, dp, ncodes, tile_n)
     else:
-        fn = _cuda.load("binned_stream").stream_select_attrs
-        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        args = (int(kernel == "fused"), _ARM_CODES[arm], bin_w, survivors,
-                dp, ncodes)
+        fn = getattr(_cuda.load("binned_stream"),
+                     f"stream_select_attrs_{arm}")
+        args = (int(kernel == "fused"), bin_w, survivors, dp, ncodes, tile_n)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         rc = fn(*args, ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(
             f"the {kernel} {arm} build (bin_w={bin_w}, survivors="
-            f"{survivors}, dp={dp}) cannot launch on {device}: cudaError "
-            f"{rc}")
+            f"{survivors}, dp={dp}, tile_n={tile_n}) cannot launch on "
+            f"{device}: cudaError {rc}")
     return dict(zip(RESOURCE_FIELDS, out))
 
 

@@ -315,12 +315,12 @@ def _resource_gate(knn, candidates, n: int, d: int, k: int, margin: int):
         build = (knobs["kernel"], prec,
                  0 if knobs["binning"] == "grouped" else bin_w, surv,
                  # pq: its default placement's subspaces (4 dims each)
-                 -(-d // 4) if prec == "pq" else dp)
+                 -(-d // 4) if prec == "pq" else dp, eff)
         if build not in checked:
             try:
                 checked[build] = ck.kernel_resources(
                     build[0], prec, bin_w=build[2], survivors=build[3],
-                    dp=build[4], device=knn.device)
+                    dp=build[4], tile_n=build[5], device=knn.device)
             except RuntimeError as e:
                 checked[build] = {"error": str(e)}
         res = checked[build]

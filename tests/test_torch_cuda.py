@@ -192,13 +192,16 @@ def test_cuda_fused_kernel_disarmed_is_bitwise_k10(cuda_device):
 # --- K5 (int8) and K6 (int4): integer exact up to one rounding, so held
 # bitwise against the plain version
 
-def _int_case(device, arm, n_q, n, dim, tile_n, seed):
+def _int_case(device, arm, n_q, n, dim, tile_n, seed, ties=()):
     # integer-valued rows with exact ties: duplicated rows across groups of
-    # one bin, and uint8-range values at unit scale (int8 via the shift)
+    # one bin (and the rows ``ties`` names, (to, from) slices), and
+    # uint8-range values at unit scale (int8 via the shift)
     rng = np.random.default_rng(seed)
     db = rng.integers(0, 256, size=(n, dim)).astype(np.float32)
     db[128:160] = db[:32]
     db[256:288] = db[:32]
+    for dst, src in ties:
+        db[dst] = db[src]
     q = rng.integers(0, 256, size=(n_q, dim)).astype(np.float32)
     q[:4] = db[:4]
     qi, qsc = ck.quantize_queries(torch.from_numpy(q).to(device), 128.0)
@@ -662,14 +665,17 @@ def _assert_lane_ci_separated(cd, ci_p, ci_r, bounds, geo, tol):
     np.testing.assert_array_equal(view(ci_p)[sep], view(ci_r)[sep])
 
 
-def _pq_case(device, n_q, n, m, ncodes, tile_n, seed):
+def _pq_case(device, n_q, n, m, ncodes, tile_n, seed, ties=()):
     # a random LUT and codes with exact ties: rows 3 and 90 equal to row 10
-    # (one 128-row bin), rows 128-159 equal to rows 0-31 (another bin)
+    # (one 128-row bin), rows 128-159 equal to rows 0-31 (another bin), and
+    # the rows ``ties`` names ((to, from) slices)
     rng = np.random.default_rng(seed)
     lut = (rng.normal(size=(n_q, m * ncodes)) * 10).astype(np.float32)
     codes = rng.integers(0, ncodes, size=(n, m)).astype(np.uint8)
     codes[3] = codes[90] = codes[10]
     codes[128:160] = codes[:32]
+    for dst, src in ties:
+        codes[dst] = codes[src]
     parts = ck.prepare_db_pq(torch.from_numpy(codes).to(device), tile_n)
     return (torch.from_numpy(lut).to(device), *parts)
 
@@ -908,18 +914,36 @@ def test_cuda_pq_and_lane_search_certified_match_the_exact_search(
 
 # --- grouped binning at 1-8 survivors (the deep grouped build) -------------
 
-#: survivor counts the deep build is checked at (2 is the default build)
-DEEP_SURVIVORS = [1, 3, 8]
+#: survivor counts the deep builds are checked at (2 is the default build):
+#: each build of csrc/binned_select.cuh's table and its edges
+DEEP_SURVIVORS = [1, 3, 4, 5, 8]
+
+
+def _wide_ties(tile_n, n):
+    """(to, from) row slices tying rows 0-31 of each tile's first group to
+    the same lanes of its last group and, past 256 groups (the packed
+    builds' 8-bit group indices), of groups 255 and 256."""
+    ties = []
+    for t0 in range(0, n - tile_n + 1, tile_n):
+        src = slice(t0, t0 + 32)
+        groups = [tile_n // 128 - 1] + ([255, 256] if tile_n > 256 * 128
+                                        else [])
+        ties += [(slice(t0 + g * 128, t0 + g * 128 + 32), src)
+                 for g in groups]
+    return ties
 
 
 def _deep_operands(device, arm, tile_n, seed, dim):
     n_q, n = 37, 2 * tile_n + 60
+    ties = _wide_ties(tile_n, n)
     if arm == "pq":
-        return _pq_case(device, n_q, n, 7, 200, tile_n, seed), None
+        return _pq_case(device, n_q, n, 7, 200, tile_n, seed, ties), None
     if arm in ("int8", "int4"):
-        return _int_case(device, arm, n_q, n, dim, tile_n, seed), None
+        return _int_case(device, arm, n_q, n, dim, tile_n, seed, ties), None
     q, db = _data(np.random.default_rng(seed), n_q, n, dim)
     db[3] = db[90] = db[128 + 3] = db[10]
+    for dst, src in ties:
+        db[dst] = db[src]
     return (_f32_operands(device, arm, q, db, tile_n),
             _tol(q, db, arm, kernel=True))
 
@@ -927,13 +951,17 @@ def _deep_operands(device, arm, tile_n, seed, dim):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arm", LANE_ARMS)
 @pytest.mark.parametrize("survivors", DEEP_SURVIVORS)
-@pytest.mark.parametrize("dim,tile_n", [(24, 512), (24, 1024), (300, 512)])
+@pytest.mark.parametrize("dim,tile_n", [(24, 512), (24, 1024), (300, 512),
+                                        (24, 32768), (24, 65536)])
 def test_cuda_deep_grouped_entries_match_plain(cuda_device, arm, survivors,
                                                dim, tile_n):
     # every grouped entry (tiled, db-major, streaming, fused but pq's) at
-    # 1, 3 and 8 survivors against its plain version: int and pq bitwise,
-    # the f32 family within the kernel's tolerance; one arithmetic across
-    # the entries; the deep launches counted apart from the default build's
+    # 1, 3, 4, 5 and 8 survivors against its plain version: int and pq
+    # bitwise, the f32 family within the kernel's tolerance; one arithmetic
+    # across the entries; 256 and 512 groups a tile (the widest the packed
+    # builds take, and the four-pass build's geometry) with exact ties
+    # between the first and last groups; the deep launches counted apart
+    # from the default build's
     args, tol = _deep_operands(cuda_device, arm, tile_n, survivors + dim, dim)
     kw = {"tile_n": tile_n, "arm": arm, "survivors": survivors}
     plain = [a.cpu().numpy() for a in ck.binned_select_plain(*args, **kw)]
@@ -964,7 +992,7 @@ def test_cuda_deep_grouped_entries_match_plain(cuda_device, arm, survivors,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arm", ["bf16x3", *F32_ARMS, "int8", "int4"])
-@pytest.mark.parametrize("survivors", [1, 8])
+@pytest.mark.parametrize("survivors", [1, 3, 5, 8])
 def test_cuda_deep_fused_entries_skip_the_plain_cells(cuda_device, arm,
                                                       survivors):
     # K11's carry is the same at every survivor count (depth ceil(keep /
@@ -997,14 +1025,70 @@ def test_cuda_deep_fused_entries_skip_the_plain_cells(cuda_device, arm,
         _assert_scores(got[2], want[2], tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", LANE_ARMS)
+def test_cuda_deep_calls_move_only_the_deep_counters(cuda_device, arm):
+    # a deep call counts in .deep_launches alone (and a db-major one in
+    # .db_major_launches): the two-survivor (.launches) and lane
+    # (.lane_launches) counters, which chip_smoke.py reads to show which
+    # build a path ran, stay where they were
+    args, _ = _deep_operands(cuda_device, arm, 512, 7, 24)
+    wrappers = (ck.binned_select, ck.stream_select, ck.fused_select)
+
+    def counters():
+        return {fn: {name: dict(getattr(fn, name)) for name in
+                     ("launches", "lane_launches", "deep_launches",
+                      "db_major_launches") if hasattr(fn, name)}
+                for fn in wrappers}
+    before = counters()
+    for surv in DEEP_SURVIVORS:
+        kw = {"tile_n": 512, "arm": arm, "survivors": surv}
+        ck.binned_select(*args, **kw)
+        ck.binned_select(*args, **kw, grid_order="db_major")
+        ck.stream_select(*args, **kw)
+        if arm != "pq":
+            ck.fused_select(*args, **kw, keep=130)
+    after = counters()
+    n = len(DEEP_SURVIVORS)
+    added = {ck.binned_select: {"deep_launches": 2 * n,
+                                "db_major_launches": n},
+             ck.stream_select: {"deep_launches": n},
+             ck.fused_select: {"deep_launches": n * (arm != "pq")}}
+    for fn in wrappers:
+        for name, counts in after[fn].items():
+            want = dict(before[fn][name])
+            want[arm] += added[fn].get(name, 0)
+            assert counts == want, (fn.__name__, name)
+
+
 #: local memory a build may take by design: the fused builds keep K11's
 #: carry in thread-local memory (16 cells x MAX_CARRY_DEPTH floats, 512 B);
-#: at 255 registers the highest builds (their f64 accumulators) and pq's
-#: streaming one (128 accumulators a thread) spill a few words -- 16-56 B
-#: and 8 B in the two-survivor builds as they were before the deep build
-#: came, up to 24 B and 0 B in the deep ones (H100 builds, sm_90a)
+#: at 255 registers the two-survivor highest builds (their f64
+#: accumulators) and pq's streaming one (128 accumulators a thread) spill a
+#: few words -- 16-56 B and 8 B (H100 builds, sm_90a); the deep builds
+#: spill nothing
 CARRY_BYTES = 4 * 4 * ck.MAX_CARRY_DEPTH * 4
 SPILL_BYTES = {"highest": 64, "pq": 8}
+
+
+def _deep_plan(arm, survivors, tile_n):
+    """(slots, rows a pass, packed) of the deep build csrc/binned_select.cuh's
+    table gives a grouped launch at ``survivors`` on ``tile_n``-row tiles."""
+    if survivors == 1:
+        return 1, 4, False                  # A, any tile width
+    if tile_n > 256 * 128:
+        return 8, 1, False                  # W: past 8-bit group indices
+    if survivors == 3:
+        return 3, 4, True                   # B
+    if survivors == 4 and arm not in ("highest", "pq"):
+        return 4, 4, True                   # B4
+    return 8, 2, True                       # C
+
+
+def _deep_code(slots, rows, packed):
+    """csrc/binned_select.cuh's deep_code: the emitter code
+    kernel_resources reports for a deep build."""
+    return -(100 * slots + 10 * rows + int(packed))
 
 
 @pytest.mark.cuda
@@ -1014,15 +1098,26 @@ SPILL_BYTES = {"highest": 64, "pq": 8}
     if (kernel, arm) != ("fused", "pq")])    # refused, as in the reference
 def test_cuda_grouped_builds_take_no_local_memory_beyond_the_stated(
         cuda_device, arm, kernel):
-    # the two-survivor build and the deep one, at Dp 128 and above: no
-    # spill but the stated (the deep build's 4-cell passes keep its state
-    # below the default build's), every build one CTA per SM
-    allowed = ((CARRY_BYTES if kernel == "fused" else 0)
-               + SPILL_BYTES.get(arm, 0))
-    for survivors in (2, 3):
+    # the two-survivor build and every deep one, at Dp 128 and above: no
+    # spill but the stated (the deep builds none), every build one CTA per
+    # SM, and each deep launch on the build and passes of the header's
+    # table (4 / rows passes a db tile)
+    carry = CARRY_BYTES if kernel == "fused" else 0
+    for survivors, tile_n in ((2, 16384), (1, 16384), (3, 16384),
+                              (4, 16384), (5, 16384), (8, 16384),
+                              (1, 65536), (3, 65536), (8, 65536)):
         for dp in ((32,) if arm == "pq" else (128, 256)):
             res = ck.kernel_resources(kernel, arm, survivors=survivors, dp=dp,
-                                      device=cuda_device)
-            assert res["local_bytes"] <= allowed, (survivors, dp, res)
-            assert res["ctas_per_sm"] >= 1, (survivors, dp, res)
-            assert res["registers"] <= 255
+                                      tile_n=tile_n, device=cuda_device)
+            key = (survivors, tile_n, dp, res)
+            if survivors == 2:
+                assert res["emitter"] == 0 and res["passes"] == 1, key
+                assert res["local_bytes"] <= carry + SPILL_BYTES.get(arm, 0), \
+                    key
+            else:
+                slots, rows, packed = _deep_plan(arm, survivors, tile_n)
+                assert res["emitter"] == _deep_code(slots, rows, packed), key
+                assert res["passes"] == 4 // rows, key
+                assert res["local_bytes"] <= carry, key
+            assert res["ctas_per_sm"] >= 1, key
+            assert res["registers"] <= 255, key

@@ -36,9 +36,11 @@ U32 = 2.0 ** -24
 SURVIVOR_COUNTS = (1, 3, 8)
 
 
-def _hard_scores(rng, n_q, n):
+def _hard_scores(rng, n_q, n, tile_n):
     """f32 scores with exact ties across groups, -0 and +0, +inf (a bin
-    short of finite scores) and large magnitudes."""
+    short of finite scores) and large magnitudes; in every tile the last
+    group ties the first, and past 256 groups (the kernels' 8-bit group
+    indices) groups 255 and 256 tie it too."""
     s = (rng.normal(size=(n_q, n)) * 100).astype(np.float32)
     s[:, 128:256] = s[:, :128]                   # group 1 ties group 0
     s[:, 5::128] = s[:, 5:6]                     # lane 5: one value in all
@@ -47,22 +49,28 @@ def _hard_scores(rng, n_q, n):
     s[:, 9::128] = np.inf                        # lane 9: no finite score
     s[:, 11::256] = np.inf                       # lane 11: half of them
     s[0] = np.round(s[0])                        # many ties in a row
+    for t0 in range(0, n, tile_n):
+        first = s[:, t0 : t0 + 128]
+        s[:, t0 + tile_n - 128 : t0 + tile_n] = first
+        if tile_n > 256 * 128:
+            s[:, t0 + 255 * 128 : t0 + 257 * 128] = np.tile(first, 2)
     return s
 
 
-@pytest.mark.parametrize("survivors", [1, 2, 3, 5, 8])
-@pytest.mark.parametrize("tile_n", [512, 1024])
+@pytest.mark.parametrize("survivors", range(1, 9))
+@pytest.mark.parametrize("tile_n", [512, 1024, 32768, 65536])
 def test_plain_grouped_emitter_bitwise_the_reference_emitter(survivors,
                                                              tile_n):
     # the reference's _emit_select_grouped_scores (pallas_knn.py:575-610)
-    # and the port's plain emitter (the deep build's network, step for
+    # and the port's plain emitter (the deep builds' network, step for
     # step) on the same scores: the same indices, and the same values with
     # -0 equal to +0 (on a tie of signed zeros jnp.minimum and
     # torch.minimum may keep different ones; strict `<` keeps the earlier
-    # group's index either way)
+    # group's index either way).  256 and 512 groups a tile: the packed
+    # deep builds' widest tile and the four-pass build's geometry
     rng = np.random.default_rng(survivors * 100 + tile_n)
     n_tiles = 2
-    s = _hard_scores(rng, 6, n_tiles * tile_n)
+    s = _hard_scores(rng, 6, n_tiles * tile_n, tile_n)
     ref = []
     for ti in range(n_tiles):
         out = jpk._emit_select_grouped_scores(
