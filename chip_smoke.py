@@ -61,7 +61,32 @@ exits non-zero and prints no result):
              the kept CUDA streams against fresh ones (wall and the
              allocator's new segments) and the device idle share of the
              pipelined run (torch.profiler);
-6. f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
+6. selectors — the counted certificate at the ``main`` shape and
+             placement: ``search_certified(selector="exact")`` and
+             ``("approx")`` (no coarse kernel launched), each with the
+             ``pallas`` run's indices for every query, recall@100 = 1.0 and
+             the oracle's indices on the first 256 queries and float64
+             distances within 1e-12 of the oracle's, fallbacks; warm q/s of
+             exact, approx and pallas timed in turns; where an exact call's
+             time goes (coarse distance blocks, coarse top-m, float64 refine
+             on the host, the count pass) and a profile of a 512-query call; a
+             ``compute_dtype="bfloat16"`` program on the same placement:
+             ``search`` recall@100 on 256 queries, the certified exact
+             selector's indices, and which half-precision matmul form ran
+             (ops.distance.half_matmul_form);
+7. metrics — dot: a ``metric="dot"`` placement of the ``main`` rows
+             (norm-augmented to 129 dims, Dp = 256), its certified search
+             launching K1 once and no other kernel, recall@100 = 1.0 and
+             the indices of a float64 MIPS oracle on 256 queries, the exact
+             selector's indices equal; K1 at Dp = 256 against its plain
+             version on 512 queries, timed at 4,096 against its plain
+             version and its bound; l1: ``search`` on 256 queries, recall@100
+             >= 0.999 against a float64 L1 oracle; radius: ``radius_search``
+             on 256 queries at a radius between two oracle distances,
+             counts and masks equal the oracle's; the estimators
+             (KNNRegressor, NearestNeighbors, RadiusNeighborsClassifier) on
+             100,000 rows equal to their ShardedKNN outputs;
+8. f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
              (K3): each of their nine entries (tiled, streaming, fused)
              against its plain version within coarse_knn.
              kernel_plain_tolerance_scale (||q||^2 + max||t||^2) (bf16x3f
@@ -92,7 +117,7 @@ exits non-zero and prints no result):
              bf16x3, bf16x3f and highest at Dp = 128 (must stay below 1);
              every entry's ms per launch against its plain version and its
              bound;
-7. quant  — the int8 (K5) and int4 (K6) arms: each of the six int
+9. quant  — the int8 (K5) and int4 (K6) arms: each of the six int
              entries (tiled, streaming, fused x int8, int4) against its
              plain version on the card, bitwise (cd, ci, bounds), on
              integer data with exact ties at dim 24 (ragged rows), dim 300
@@ -113,14 +138,15 @@ exits non-zero and prints no result):
              and the db-major grid's ms per launch at Q=4,096 against their
              plain versions and the int bound;
              the device idle share of the int8 tiled run;
-8. pq     — K7, the pq arm: its tiled, db-major and streaming entries
+10. pq     — K7, the pq arm: its tiled, db-major and streaming entries
              bitwise their plain version (grouped binning, and lane
              binning at 2 and 8 survivors, 128- and 256-row bins) on a
              random LUT and codes with exact ties at the ``kernel``
              phase's shapes and at m = 196, C = 200 with 45 queries and a
              1,280-row tile (a full 1,024-row block of K7's walk and a
-             shorter one); the pq placement of the ``main`` data trained
-             on every row (its seconds), the three entries bitwise their
+             shorter one); the pq placement of the ``main`` data (codebooks
+             trained on its first 100,000 rows, every row encoded; its
+             seconds), the three entries bitwise their
              plain version at Q=4,096 and timed against it and the bound;
              ``search_certified(precision="pq")`` through tiled, db-major
              and streaming (each run's own kernel launched once and no
@@ -129,7 +155,7 @@ exits non-zero and prints no result):
              lattice case (65,536 x 128 rows whose every 4-dim subspace
              takes one of 256 points: the training recovers them, the
              residuals are 0, so most queries certify) the same way;
-9. lane   — K8, lane binning: every arm's tiled, db-major and streaming
+11. lane   — K8, lane binning: every arm's tiled, db-major and streaming
              lane entries against their plain versions (int8, int4 and pq
              bitwise, the f32 family within its tolerance with ci equal on
              separated slots) at 1 to 8 survivors and 128-, 256- and
@@ -143,7 +169,7 @@ exits non-zero and prints no result):
              every query, the oracle's, distances within RANK_SLACK,
              fallbacks, q/s), and the counted certificate through the
              default arm's lane entries;
-10. survivors — grouped binning at 1 and 3-8 survivors (the deep builds):
+12. survivors — grouped binning at 1 and 3-8 survivors (the deep builds):
              every entry of every arm against its plain version (int, pq
              bitwise; the f32 family within its tolerance) on small shapes
              at every count, on 256- and 512-group tiles with ties between
@@ -154,14 +180,14 @@ exits non-zero and prints no result):
              ones, ``search_certified`` at 4 and 8 survivors against the
              oracle (recall@100 1.0), and every deep entry driven through a
              search at 3;
-11. tune   — the autotuner: the quick grid on the ``main`` rows and the
+13. tune   — the autotuner: the quick grid on the ``main`` rows and the
              standard grid at 100,000 rows, every candidate timed, gated
              out by the bitwise gate or refused by the resource gate (one
              that raised fails the phase), a second call timing 0
              candidates, and a search resolving its knobs from the cache.
              The script runs with an empty HOME of its own, so no cached
              winner picks the knobs of another phase;
-12. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
+14. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
              --mode certified --selector pallas``, run in-process through
              run_job) on make_mnist_like CSVs (20,000 train, 2,000 test,
              2,000 val), then again with ``--pallas-precision int8`` and
@@ -169,10 +195,10 @@ exits non-zero and prints no result):
              |s_kernel - s_f64| / tolerance ratio of bf16x3, bf16x3f and
              highest at Dp = 896 on the job's rows (must stay below 1), and
              K2's three entries timed there;
-13. kernels — one JSON line per the contract: each ported kernel (K1,
-             K10, K11, the entries of K4, K2, K3, K5, K6, K7, the db-major
-             grid K9, the lane entries K8 and the deep grouped entries of
-             every arm)
+15. kernels — one JSON line per the contract: each ported kernel (K1,
+             K10, K11, K1 at Dp = 256 on the dot path, the entries of K4,
+             K2, K3, K5, K6, K7, the db-major grid K9, the lane entries K8
+             and the deep grouped entries of every arm)
              with its launches on its own path, its max error against its
              plain version, its time, its plain version's time and its
              bound (one per arm).
@@ -181,7 +207,8 @@ Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases`` runs a subset (e.g. ``--phases device,build,kernel``,
 ``--phases device,build,kernel,stream``, ``--phases device,build,quant``,
 ``--phases device,build,f32arms``, ``--phases device,build,pq``,
-``--phases device,build,lane`` or ``--phases device,build,survivors,tune``).
+``--phases device,build,lane``, ``--phases device,build,survivors,tune`` or
+``--phases device,build,selectors,metrics``).
 """
 
 from __future__ import annotations
@@ -196,6 +223,10 @@ import tempfile
 import time
 
 import numpy as np
+
+#: rows of the main placement its pq codebooks train on (every row is
+#: encoded against them)
+PQ_TRAIN_ROWS = 100_000
 
 #: H100 SXM data-sheet peaks (dense): bf16, FP64 and int8 tensor cores and
 #: HBM3
@@ -705,6 +736,18 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def host_timed(fn):
+    """(fn(), seconds) on the host clock, the card synchronized before and
+    after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 #: per f32-family arm: products of 2*Q*N*Dp FLOPs, their peak rate, db
 #: bytes per row and dim.  bf16x3 / bf16x3f three bf16 products of th, tl;
 #: default one of th; highest one f64 product of the f32 rows on the FP64
@@ -719,17 +762,19 @@ F32_WORK = {"bf16x3": (3, PEAK_BF16_FLOPS, 4),
             "highest": (1, PEAK_FP64_TC_FLOPS, 4)}
 
 
-def f32_bound(n_q, n, dp, n_tiles, survivors, arm="bf16x3"):
+def f32_bound(n_q, n, dp, n_tiles, survivors, arm="bf16x3", d_real=None):
     """Least time for an f32-family arm's work on an H100 (K1, K4, K2, K3
     and their streaming / fused entries): the larger of its bytes (each
     input read once, each output written once) over HBM bandwidth and its
     products (F32_WORK) over the dense tensor-core rate of their type.
-    Counted over the ``n`` real db rows: the PAD_VAL rows that fill the
-    last tile are work the function does not need."""
+    Counted over the ``n`` real db rows and the ``d_real`` real dims (None:
+    all ``dp``): the PAD_VAL rows that fill the last tile and the zero
+    columns that pad a row to Dp are work the function does not need."""
     products, peak, db_bytes = F32_WORK[arm]
-    flops = products * 2 * n_q * n * dp
+    d = dp if d_real is None else d_real
+    flops = products * 2 * n_q * n * d
     w = n_tiles * survivors * 128
-    nbytes = (n_q * dp * 4 + db_bytes * n * dp + n * 4
+    nbytes = (n_q * d * 4 + db_bytes * n * d + n * 4
               + n_q * w * 8 + n_q * n_tiles * 128 * 4)
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return {"flops": flops, "bytes": nbytes,
@@ -934,11 +979,11 @@ def bitwise(name, got, want):
     return err
 
 
-def profile_search(knn, q_np, **knobs) -> dict:
-    """One more certified search (``knobs`` passed on) under
-    torch.profiler: device time by kernel name, the device's busy time
-    (union of kernel intervals) and its idle share of the call's wall
-    time, and whether the trace holds the coarse kernel.  A few tiny
+def profile_search(knn, q_np, selector="pallas", **knobs) -> dict:
+    """One more certified search through ``selector`` (``knobs`` passed
+    on) under torch.profiler: device time by kernel name, the device's
+    busy time (union of kernel intervals) and its idle share of the call's
+    wall time, and whether the trace holds the coarse kernel.  A few tiny
     kernels run inside the trace first: after several traces in one
     process, a trace's first kernels went unrecorded."""
     import torch
@@ -952,7 +997,7 @@ def profile_search(knn, q_np, **knobs) -> dict:
             warm.add_(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        knn.search_certified(q_np, margin=28, selector="pallas", **knobs)
+        knn.search_certified(q_np, margin=28, selector=selector, **knobs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1041,7 +1086,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="device,build,kernel,main,profile,stream,"
-                    "quant,f32arms,pq,lane,survivors,tune,classify",
+                    "selectors,metrics,quant,f32arms,pq,lane,survivors,tune,"
+                    "classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1077,6 +1123,12 @@ def main(argv=None) -> int:
         "k11": kernel_record("fused_select_bf16x3",
                              "knn_tpu_torch/csrc/binned_stream.cu",
                              "knn_tpu/ops/pallas_knn.py:722"),
+        # K1 at Dp 256: the dot metric's certified search on the
+        # norm-augmented rows (129 dims); its launches are the main
+        # counter's, read around the dot run alone (metrics phase)
+        "k1_dp256": kernel_record("binned_select_bf16x3 (dot, Dp 256)",
+                                  "knn_tpu_torch/csrc/binned_coarse.cu",
+                                  "knn_tpu/ops/pallas_knn.py:856"),
     }
     # the other arms' entries: (kernel, arm) -> C library, TPU kernel line
     # (K5, K6 int8 / int4; K4 bf16x3f; K2 highest; K3 default)
@@ -1950,9 +2002,34 @@ def main(argv=None) -> int:
             return (*ck.quantize_queries(q, off),
                     *knn._coarse_parts(ck.TILE_N, arm))
         if arm == "pq":
-            pq = knn._pq_placement()
+            pq = main_pq(S)
             return (ck.pq_luts(q, pq["books"]), *pq["parts"])
         return (S["qp"], *knn._coarse_parts(ck.TILE_N, arm))
+
+    def main_pq(S):
+        """The main placement's pq placement (4 dims a subspace, 256
+        codes), placed on first use and kept: codebooks trained on its
+        first PQ_TRAIN_ROWS rows (ops.pq.train_pq), every row encoded
+        against them (ops.pq.encode_pq) and the certificate's bound
+        statistics taken over every row (ops.pq.pq_bound_stats), so the
+        certificate stays sound; ``knn._pq_placement()`` returns it
+        after.  Training on every row held the script ~200 s on an H100
+        machine's host (PERF.md)."""
+        from knn_tpu_torch.ops import pq as ppq
+
+        knn = S["knn"]
+        if (ppq.PQ_DSUB_DEFAULT, ppq.PQ_NCODES_DEFAULT) not in knn._pq:
+            t0 = time.perf_counter()
+            db = knn.placement.db_host
+            res = ppq.train_pq(db[:PQ_TRAIN_ROWS], device=dev)
+            codes = ppq.encode_pq(db, res.codebooks, device=dev,
+                                  dsub=res.dsub)
+            stats = ppq.pq_bound_stats(res.codebooks, codes, db,
+                                       dsub=res.dsub)
+            entry = knn._place_pq(res.codebooks, codes, stats,
+                                  dsub=res.dsub, ncodes=ppq.PQ_NCODES_DEFAULT)
+            entry["train_s"] = time.perf_counter() - t0
+        return knn._pq_placement()
 
     def arm_bound(S, arm, args, geo):
         """The arm's bound at the main shape (f32_bound, int_bound or
@@ -2011,11 +2088,12 @@ def main(argv=None) -> int:
                               "bitwise": True})
         emit({"phase": "pq_kernels", "cases": cases})
 
-        # the main placement, trained on every row
+        # the main placement's pq placement, trained on a sample, every row
+        # encoded
         knn, n_q = S["knn"], S["n_q"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pq = knn._pq_placement()
+        pq = main_pq(S)
         torch.cuda.synchronize()
         placement_s = time.perf_counter() - t0
         args = arm_operands(S, "pq")
@@ -2127,6 +2205,10 @@ def main(argv=None) -> int:
         del knn196, placed
         emit({"phase": "pq", "n": S["n"], "queries": n_q, "k": S["k"],
               "placement_s": placement_s, "train_s": pq["train_s"],
+              "train_rows": PQ_TRAIN_ROWS,
+              # placement_s / train_s time main_pq's own steps, not
+              # ShardedKNN._pq_placement (the lattice case runs that)
+              "placed_by": "chip_smoke.main_pq",
               "m": int(pq["books"].shape[0]), "ncodes": pq["ncodes"],
               "dsub": pq["dsub"], "norm_err_max": pq["stats"]["norm_err_max"],
               "r_sub_max": float(np.max(pq["stats"]["r_sub"])),
@@ -2725,12 +2807,377 @@ def main(argv=None) -> int:
                                             st["fallback_queries"]}
         emit(out)
 
-    if phases & {"main", "stream", "quant", "f32arms", "pq", "lane",
-                  "survivors", "tune"}:
+    def f64_mips_oracle(q, db, k, chunk=65536):
+        """Exact lexicographic top-k of -q.t on the card in float64,
+        (value, index) order."""
+        from knn_tpu_torch.ops.topk import merge_topk
+
+        q64 = q.double()
+        best_d = torch.full((q.shape[0], k), torch.inf, dtype=torch.float64,
+                            device=q.device)
+        best_i = torch.full((q.shape[0], k), 2 ** 62, dtype=torch.int64,
+                            device=q.device)
+        for lo in range(0, db.shape[0], chunk):
+            d = -(q64 @ db[lo : lo + chunk].double().T)
+            idx = torch.arange(lo, lo + d.shape[1], device=q.device)
+            best_d, best_i = merge_topk(best_d, best_i, d, idx.expand_as(d), k)
+        return best_d.cpu().numpy(), best_i.cpu().numpy()
+
+    def f64_l1_oracle(q, db, k, chunk=4096):
+        """Exact lexicographic top-k of the L1 distance on the card in
+        float64."""
+        from knn_tpu_torch.ops.topk import merge_topk
+
+        q64 = q.double()
+        best_d = torch.full((q.shape[0], k), torch.inf, dtype=torch.float64,
+                            device=q.device)
+        best_i = torch.full((q.shape[0], k), 2 ** 62, dtype=torch.int64,
+                            device=q.device)
+        for lo in range(0, db.shape[0], chunk):
+            t = db[lo : lo + chunk].double()
+            d = (q64[:, None, :] - t[None, :, :]).abs().sum(-1)
+            idx = torch.arange(lo, lo + t.shape[0], device=q.device)
+            best_d, best_i = merge_topk(best_d, best_i, d, idx.expand_as(d), k)
+        return best_d.cpu().numpy(), best_i.cpu().numpy()
+
+    def safe_radius_sq(dists, norm_scale):
+        """A squared radius between two of the [Q, M] ascending distances
+        ``dists``, below every query's M-th (so every in-radius row is among
+        the M) and in the upper half of those values, in the widest gap
+        there; the gap must clear the f32 count's tolerance (8 eps_f32 the
+        ``norm_scale``, ops.certified.certification_tolerance) on both
+        sides.  Returns (radius^2, gap)."""
+        vals = np.unique(dists[dists < dists[:, -1].min()])
+        vals = vals[len(vals) // 2 :]
+        g = int(np.argmax(np.diff(vals)))
+        gap = float(vals[g + 1] - vals[g])
+        if gap <= 16 * float(np.finfo(np.float32).eps) * norm_scale:
+            raise AssertionError(f"no radius clears the f32 tolerance: widest "
+                                 f"gap {gap}")
+        return 0.5 * float(vals[g] + vals[g + 1]), gap
+
+    def counted_run(knn, q_np, selector, label, **kw):
+        """search_certified through a counted selector with the launch
+        counts read around it alone: the counted path runs no coarse
+        kernel, so every count must stay 0."""
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = knn.search_certified(q_np, margin=28, selector=selector, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if any(launches.values()):
+            raise AssertionError(f"{label}: launched {launches}")
+        return out, wall
+
+    def phase_selectors(S):
+        """The counted exact / approx selectors and a bf16 placement on
+        the main rows, beside the pallas selector."""
+        from knn_tpu_torch import ShardedKNN
+        from knn_tpu_torch.ops import distance as pdist
+        from knn_tpu_torch.ops.certified import (certification_tolerance,
+                                                 count_below)
+        from knn_tpu_torch.ops.refine import refine_exact
+
+        knn, q_np, n_q, k, n_or = S["knn"], S["q_np"], S["n_q"], S["k"], S["n_or"]
+        part_s, t_part = {}, [time.perf_counter()]
+
+        def part(name):
+            now = time.perf_counter()
+            part_s[name] = now - t_part[0]
+            t_part[0] = now
+
+        if "tiled" not in S:
+            (d, i, _), _ = timed_search(S)
+            S["tiled"] = (d, i)
+        pallas_i = S["tiled"][1]
+        out = {"phase": "selectors", "n": S["n"], "queries": n_q, "k": k,
+               "part_seconds": part_s}
+        for sel in ("exact", "approx"):
+            (d, i, st), wall = counted_run(knn, q_np, sel, sel)
+            if not np.array_equal(i, pallas_i):
+                raise AssertionError(f"{sel}: indices differ from pallas's")
+            # the counted selectors' distances are float64-refined: the
+            # oracle's within 1e-12 relative
+            recall, same, _ = oracle_check(S, d, i, sel)
+            rel = float(np.max(np.abs(d[:n_or] - S["od"])
+                               / np.maximum(S["od"], 1e-30)))
+            if rel > 1e-12:
+                raise AssertionError(f"{sel}: f64 distances off the oracle's "
+                                     f"by {rel}")
+            out[sel] = {"recall_at_k": recall, "same_indices": same,
+                        "same_indices_as_pallas_all_queries": True,
+                        "max_rel_dist_err_f64": rel,
+                        "certified": st["certified"],
+                        "fallback_queries": st["fallback_queries"],
+                        "host_exact_queries": st.get("host_exact_queries", 0),
+                        "qps_first_call": n_q / wall}
+        part("first_calls")
+        # warm q/s, the three selectors in turns (two rounds)
+        walls = {sel: [] for sel in ("pallas", "exact", "approx")}
+        for _ in range(2):
+            for sel in walls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                knn.search_certified(q_np, margin=28, selector=sel)
+                torch.cuda.synchronize()
+                walls[sel].append(time.perf_counter() - t0)
+        out["warm_qps"] = {sel: [n_q / w for w in ws]
+                           for sel, ws in walls.items()}
+        part("turns")
+        # where a counted call's time goes: the coarse distance blocks
+        # (matmul and norms), the coarse top-m (the stable sort, coarse
+        # minus distance), the float64 refine on the host, the count pass
+        q, db, m = S["q_dev"], knn.placement.db, k + 28
+        rows = max(1, (1 << 27) // S["n"])
+
+        def dist_blocks():
+            for lo in range(0, n_q, rows):
+                pdist.pairwise_sq_l2(q[lo : lo + rows], db)
+
+        _, t_dist = host_timed(dist_blocks)
+        ci, t_coarse = host_timed(lambda: knn._exact_topk(q, m, "l2")[1])
+        t0 = time.perf_counter()
+        ci = ci.cpu().numpy()
+        d_m, _ = refine_exact(knn.placement.db_host, q_np, ci, m)
+        t_refine = time.perf_counter() - t0
+        thr = torch.from_numpy(
+            (d_m[:, k - 1] + certification_tolerance(
+                q_np, None, db_norm_max=knn.placement.db_norm_max)
+             ).astype(np.float32))
+        _, t_count = host_timed(lambda: count_below(db, q, thr))
+        out["exact_breakdown_s"] = {
+            "coarse_distance_blocks": t_dist, "coarse_top_m": t_coarse - t_dist,
+            "refine_f64_host": t_refine, "count": t_count}
+        part("breakdown")
+        # the trace of a 512-query call: a 4,096-query one records ~50,000
+        # kernel events, whose processing after two earlier traces in the
+        # process took minutes
+        out["profile_exact_512"] = profile_search(knn, q_np[:512],
+                                                  selector="exact")
+        part("profile")
+        # a bf16 placement of the same rows: search ranks in bf16 products
+        # with f32 accumulation, the certificate stays exact
+        bknn = ShardedKNN(knn.placement, k=k, compute_dtype="bfloat16")
+        reset_launches()
+        bd, bi = bknn.search(q_np[:n_or])
+        if any(read_launches().values()):
+            raise AssertionError("bf16 search: a coarse kernel was launched")
+        bi = bi.cpu().numpy()
+        b_recall = float(np.mean([len(set(a) & set(b)) / k
+                                  for a, b in zip(bi, S["oi"])]))
+        (d, i, st), wall = counted_run(bknn, q_np, "exact", "bf16 exact")
+        if not np.array_equal(i, pallas_i):
+            raise AssertionError("bf16 exact: indices differ from pallas's")
+        recall, same, _ = oracle_check(S, d, i, "bf16 exact")
+        out["bfloat16"] = {
+            "matmul_form": pdist.half_matmul_form(dev),
+            "search_recall_at_k": b_recall,
+            "search_queries": n_or,
+            "certified_exact": {"recall_at_k": recall, "same_indices": same,
+                                "certified": st["certified"],
+                                "fallback_queries": st["fallback_queries"],
+                                "qps_first_call": n_q / wall}}
+        del bknn
+        part("bfloat16")
+        emit(out)
+
+    def phase_metrics(S):
+        """dot (K1 at Dp 256), l1, radius and the estimators on the main
+        rows."""
+        from knn_tpu_torch import (KNNRegressor, NearestNeighbors,
+                                   RadiusNeighborsClassifier, ShardedKNN)
+        from knn_tpu_torch.models.regressor import _weighted_targets
+        from knn_tpu_torch.ops.radius import SENTINEL_IDX
+        from knn_tpu_torch.ops.vote import majority_vote
+
+        db_np, q_np = S["knn"].placement.db_host, S["q_np"]
+        n, n_q, k, n_or = S["n"], S["n_q"], S["k"], S["n_or"]
+        out = {"phase": "metrics"}
+
+        # dot: the norm-augmented placement, K1 at Dp 256
+        t0 = time.perf_counter()
+        dknn = ShardedKNN(db_np, k=k, metric="dot")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        dpl = dknn.placement
+        dp = dpl.th.shape[1]
+        if dp != 256:
+            raise AssertionError(f"dot placement at Dp {dp}, not 256")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, i, st = dknn.search_certified(q_np, margin=28, selector="pallas")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = ck.kernel_launches_per_batch("tiled", n, ck.TILE_N)
+        if launches["k1"] != want or sum(launches.values()) != want:
+            raise AssertionError(f"dot: launches {launches}, expected {want} "
+                                 f"of k1 and no other kernel")
+        qa = dknn._to_device(q_np)
+        od, oi = f64_mips_oracle(qa[:n_or, :-1], dpl.db[:, :-1], k)
+        recall = float(np.mean([len(set(a) & set(b)) / k
+                                for a, b in zip(i[:n_or], oi)]))
+        if recall != 1.0 or not np.array_equal(i[:n_or], oi):
+            raise AssertionError(f"dot: recall@{k} {recall} against the f64 "
+                                 f"MIPS oracle")
+        aug = 2 * od + (q_np[:n_or].astype(np.float64) ** 2).sum(-1)[:, None] \
+            + dpl.db_norm_max
+        rel = float(np.max(np.abs(d[:n_or] - od) / aug))
+        if rel > ck.RANK_SLACK:
+            raise AssertionError(f"dot: values off the oracle by {rel} of the "
+                                 f"augmented distance")
+        (_, ei, est), _ = counted_run(dknn, q_np, "exact", "dot exact")
+        if not np.array_equal(ei, i):
+            raise AssertionError("dot: the exact selector's indices differ "
+                                 "from pallas's")
+        # K1 at Dp 256 against its plain version on 512 queries, then both
+        # timed at the main path's 4,096
+        args = (ck.pad_queries(qa[:512]), dpl.th, dpl.tl, dpl.tnorm)
+        kern = ck.binned_select(*args, tile_n=ck.TILE_N, arm="bf16x3")
+        plain = ck.binned_select_plain(*args, tile_n=ck.TILE_N, arm="bf16x3")
+        tol_q = tolerance_q(qa[:512], tmax=dpl.db_norm_max)
+        err = max(checks["k1_dp256"].values("cd@dot", kern[0], plain[0], tol_q),
+                  checks["k1_dp256"].values("bounds@dot", kern[2], plain[2],
+                                            tol_q))
+        check_ci("ci@dot", kern, plain, tol_q, dpl.th.shape[0] // ck.TILE_N)
+        del kern, plain
+        args = (ck.pad_queries(qa), dpl.th, dpl.tl, dpl.tnorm)
+        ms = time_cuda(lambda: ck.binned_select(*args, tile_n=ck.TILE_N,
+                                                arm="bf16x3"), 3)
+        plain_ms = time_cuda(lambda: ck.binned_select_plain(
+            *args, tile_n=ck.TILE_N, arm="bf16x3"), 1)
+        # the bound counts the 129 augmented dims, not the 256 padded ones
+        bound = f32_bound(n_q, n, dp, dpl.th.shape[0] // ck.TILE_N,
+                          ck.SURVIVORS, d_real=dpl.dim_in + 1)
+        records["k1_dp256"].update(launches=launches["k1"], ms=ms,
+                                   plain_ms=plain_ms,
+                                   bound_ms=bound["bound_ms"],
+                                   bound_by=bound["bound_by"])
+        out["dot"] = {"dp": dp, "setup_s": setup_s, "qps_first_call": n_q / wall,
+                      "launches": {key: v for key, v in launches.items() if v},
+                      "recall_at_k": recall,
+                      "oracle_queries": n_or, "same_indices": True,
+                      "max_err_over_augmented_distance": rel,
+                      "certified": st["certified"],
+                      "fallback_queries": st["fallback_queries"],
+                      "exact_selector_same_indices": True,
+                      "exact_selector_fallback_queries":
+                          est["fallback_queries"],
+                      "k1_dp256_ms": ms, "k1_dp256_plain_ms": plain_ms,
+                      "k1_dp256_max_abs_err": err, "k1_dp256_bound": bound}
+        del dknn, dpl, qa, args
+        torch.cuda.empty_cache()
+
+        # l1: the exact search on 256 queries against the f64 L1 oracle
+        lknn = ShardedKNN(db_np, k=k, metric="l1")
+        reset_launches()
+        (_, li), wall = host_timed(lambda: lknn.search(q_np[:n_or]))
+        if any(read_launches().values()):
+            raise AssertionError("l1: a coarse kernel was launched")
+        _, loi = f64_l1_oracle(S["q_dev"][:n_or], lknn.placement.db, k)
+        li = li.cpu().numpy()
+        l1_recall = float(np.mean([len(set(a) & set(b)) / k
+                                   for a, b in zip(li, loi)]))
+        if l1_recall < 0.999:
+            raise AssertionError(f"l1: recall@{k} {l1_recall} < 0.999")
+        out["l1"] = {"queries": n_or, "recall_at_k": l1_recall,
+                     "same_indices_queries": int((li == loi).all(-1).sum()),
+                     "search_s": wall}
+        del lknn
+        torch.cuda.empty_cache()
+
+        # radius on the main placement: a radius between two oracle
+        # distances below every query's 100th, so every in-radius row is
+        # among the oracle's 100 and no row sits near the boundary
+        if "od" not in S:
+            od, oi = f64_oracle(S["q_dev"][:n_or], S["knn"].placement.db, k)
+            S["od"], S["oi"] = od.cpu().numpy(), oi.cpu().numpy()
+        od, oi = S["od"], S["oi"]
+        q_norm_max = float((q_np[:n_or].astype(np.float64) ** 2).sum(-1).max())
+        r2, gap = safe_radius_sq(od, q_norm_max
+                                 + S["knn"].placement.db_norm_max)
+        reset_launches()
+        rd, ri, rc = S["knn"].radius_search(q_np[:n_or], float(np.sqrt(r2)),
+                                            max_neighbors=k)
+        want_in = od < r2
+        # the in-radius sets: the f32 order among rows closer together
+        # than its rounding may differ from the f64 one
+        if not (np.array_equal(rc, want_in.sum(-1))
+                and np.array_equal(ri != SENTINEL_IDX, want_in)
+                and np.array_equal(np.sort(np.where(want_in, ri, -1), -1),
+                                   np.sort(np.where(want_in, oi, -1), -1))):
+            raise AssertionError("radius: counts or masks differ from the "
+                                 "f64 oracle's")
+        out["radius"] = {"queries": n_or, "radius_sq": r2,
+                         "gap_around_radius": gap,
+                         "in_radius_total": int(rc.sum()),
+                         "max_count": int(rc.max()),
+                         "queries_with_neighbors": int((rc > 0).sum()),
+                         "counts_equal_oracle": True,
+                         "masks_equal_oracle": True,
+                         "launches": sum(read_launches().values())}
+
+        # the estimators on 100,000 rows, each against its ShardedKNN
+        X, Q = db_np[:100_000], q_np[:n_or]
+        y = X[:, 0] * 0.5 + X[:, 1]
+        labels = (np.arange(X.shape[0]) % 10).astype(np.int32)
+        ek = 10
+        base = ShardedKNN(X, k=32)
+        bd, bi = base.search(Q)
+        bd = bd.cpu().numpy()
+        er2, _ = safe_radius_sq(bd, float(
+            (Q.astype(np.float64) ** 2).sum(-1).max()
+            + (X.astype(np.float64) ** 2).sum(-1).max()))
+        er = float(np.sqrt(er2))
+        reset_launches()
+        t0 = time.perf_counter()
+        reg = KNNRegressor(k=ek, weights="distance").fit(X, y).predict(Q)
+        nn = NearestNeighbors(k=ek, max_neighbors=32).fit(X)
+        graph = nn.kneighbors_graph(Q)
+        rnn = nn.radius_neighbors(Q, er)
+        rclf = RadiusNeighborsClassifier(er, max_neighbors=32,
+                                         outlier_label=-1).fit(X, labels)
+        rpred = rclf.predict(Q)
+        est_s = time.perf_counter() - t0
+        if any(read_launches().values()):
+            raise AssertionError("estimators: a coarse kernel was launched")
+        sk = ShardedKNN(X, k=ek)
+        qd = torch.from_numpy(Q).to(dev)
+        sd, si = sk.search(qd)
+        want_reg = _weighted_targets(sd, torch.from_numpy(y).to(dev)[si],
+                                     "distance", "l2", queries=qd).cpu().numpy()
+        si = si.cpu().numpy()
+        rd, ri, rc = base.radius_search(Q, er, max_neighbors=32)
+        lab = np.where(ri == SENTINEL_IDX, -1, labels[np.clip(ri, 0, None)])
+        want_cls = majority_vote(torch.from_numpy(lab), 10).numpy()
+        want_cls = np.where(rc == 0, -1, want_cls)
+        if not (np.allclose(reg, want_reg, rtol=1e-6, atol=0)
+                and np.array_equal(graph[1], si.ravel())
+                and np.array_equal(rnn[2], rc)
+                and np.array_equal(np.sort(rnn[1], -1), np.sort(ri, -1))
+                and np.array_equal(rpred, want_cls)):
+            raise AssertionError("estimators differ from their ShardedKNN "
+                                 "outputs")
+        out["estimators"] = {"rows": X.shape[0], "queries": Q.shape[0],
+                             "k": ek, "radius": er,
+                             "radius_in_total": int(rc.sum()),
+                             "equal_sharded": True, "seconds": est_s}
+        del base, sk, nn, rclf
+        emit(out)
+
+    if phases & {"main", "stream", "selectors", "metrics", "quant",
+                  "f32arms", "pq", "lane", "survivors", "tune"}:
         if "main" in phases:
             phase_main(sift_data())
         if "stream" in phases:
             phase_stream(sift_data())
+        if "selectors" in phases:
+            phase_selectors(sift_data())
+        if "metrics" in phases:
+            phase_metrics(sift_data())
         # before quant: after the int8 trace (tens of thousands of events)
         # later traces in the process lost their first kernels
         if "f32arms" in phases:

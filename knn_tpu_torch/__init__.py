@@ -7,31 +7,47 @@ Its TPU kernels become hand-written Hopper kernels (``csrc/``), built with
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 
-- :class:`ShardedKNN` — a database placed once; ``search``,
-  ``search_certified`` (certified-exact through a coarse kernel: the
+- :class:`ShardedKNN` — a database placed once (any metric of
+  ``ops.metrics.METRICS``, optionally ranking in a ``compute_dtype``);
+  ``search``, ``radius_search``, ``search_certified`` (certified-exact for
+  l2, cosine and dot: ``selector="pallas"`` through a coarse kernel — the
   ``tiled`` (query-major or ``db_major`` grid), ``streaming`` or
   ``fused`` entry of the ``bf16x3`` (K1, K10, K11), ``bf16x3f`` (K4),
   ``highest`` (K2), ``int8`` (K5), ``int4`` (K6) or ``pq`` (K7, tiled and
   streaming) arm, in grouped or ``lane`` binning (K8), optionally through
-  the two-stage ``overlap`` pipeline), ``predict``, ``predict_certified``;
+  the two-stage ``overlap`` pipeline — or the counted ``"exact"`` /
+  ``"approx"`` selectors), ``predict``, ``predict_certified``;
 - :func:`knn_search_pallas` — one certified search against a database
   placed for the call;
 - :func:`knn_search_certified` with :func:`pallas_candidate_fn` — the
   counted certificate over any coarse kernel (``default``, K3, included),
   :func:`count_below` its counting pass;
-- :class:`KNNClassifier` — fit/predict/score;
+- :func:`radius_search` — bounded fixed-radius search on one tensor;
+- :class:`KNNClassifier`, :class:`KNNRegressor`,
+  :class:`NearestNeighbors`, :class:`RadiusNeighborsClassifier`,
+  :class:`RadiusNeighborsRegressor` — the estimators;
 - :func:`run_job` with :class:`JobConfig` — the reference job
-  (``python -m knn_tpu_torch.cli``).
+  (``python -m knn_tpu_torch.cli``); :func:`make_database` and
+  ``knn_tpu_torch.data.vecs`` for benchmark data.
 """
 
+from knn_tpu_torch.data.datasets import make_database
 from knn_tpu_torch.models.classifier import KNNClassifier
+from knn_tpu_torch.models.neighbors import NearestNeighbors
+from knn_tpu_torch.models.radius import (RadiusNeighborsClassifier,
+                                         RadiusNeighborsRegressor)
+from knn_tpu_torch.models.regressor import KNNRegressor
 from knn_tpu_torch.ops.certified import (count_below, knn_search_certified,
                                          pallas_candidate_fn)
 from knn_tpu_torch.ops.coarse_knn import knn_search_pallas
+from knn_tpu_torch.ops.radius import radius_search
 from knn_tpu_torch.parallel.sharded import ShardedKNN, unpack_certified
 from knn_tpu_torch.pipeline import JobResult, run_job
 from knn_tpu_torch.utils.config import JobConfig
 
-__all__ = ["JobConfig", "JobResult", "KNNClassifier", "ShardedKNN",
-           "count_below", "knn_search_certified", "knn_search_pallas",
-           "pallas_candidate_fn", "run_job", "unpack_certified"]
+__all__ = ["JobConfig", "JobResult", "KNNClassifier", "KNNRegressor",
+           "NearestNeighbors", "RadiusNeighborsClassifier",
+           "RadiusNeighborsRegressor", "ShardedKNN", "count_below",
+           "knn_search_certified", "knn_search_pallas", "make_database",
+           "pallas_candidate_fn", "radius_search", "run_job",
+           "unpack_certified"]

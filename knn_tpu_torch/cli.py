@@ -16,7 +16,7 @@ import argparse
 import sys
 from typing import Optional, Sequence
 
-from knn_tpu_torch.ops.metrics import PORTED_METRICS
+from knn_tpu_torch.ops.metrics import METRICS
 from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS, JobConfig
 
 
@@ -29,18 +29,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val", default=None, help="labeled validation CSV; enables accuracy scoring")
     p.add_argument("--out", default="Test_label.csv", help="predicted-label output path")
     p.add_argument("--k", type=int, default=50, help="neighbor count (ref K, knn_mpi.cpp:109)")
-    p.add_argument("--metric", default="l2", choices=sorted(PORTED_METRICS))
+    p.add_argument("--metric", default="l2", choices=sorted(METRICS))
     p.add_argument("--dim", type=int, default=None, help="expected feature dim (validated)")
     p.add_argument("--num-classes", type=int, default=None, help="label count (inferred if omitted)")
     p.add_argument("--no-normalize", action="store_true", help="skip min-max normalization (ref Normalize=false)")
     p.add_argument("--train-tile", type=int, default=None, help="db rows per distance tile in the exact path")
     p.add_argument("--batch-size", type=int, default=None, help="queries per step")
+    p.add_argument("--compute-dtype", default=None,
+                   help="matmul dtype, e.g. bfloat16")
     p.add_argument(
         "--mode", default="exact", choices=("exact", "certified"),
-        help="certified = the one-pass coarse kernel + exclusion-bound "
-        "certificate + float64 repair (exact results)")
+        help="certified = a coarse pass + certificate + float64 repair "
+        "(exact results)")
     p.add_argument("--selector", default="pallas", choices=SELECTORS,
-                   help="coarse selector for --mode certified")
+                   help="certificate for --mode certified: pallas (the "
+                   "one-pass coarse kernel, default) or the counted exact "
+                   "/ approx")
+    p.add_argument("--tune-cache", default=None, metavar="PATH",
+                   help="autotuner winner cache the pallas selector's "
+                   "kernel knobs resolve from (default: "
+                   "~/.cache/knn_tpu_torch/autotune.json)")
     p.add_argument("--pallas-precision", default=None,
                    choices=CERTIFIED_PRECISIONS,
                    help="coarse-kernel precision (default bf16x3; also "
@@ -68,8 +76,10 @@ def args_to_config(args: argparse.Namespace) -> JobConfig:
         device=args.device,
         train_tile=args.train_tile,
         batch_size=args.batch_size,
+        compute_dtype=args.compute_dtype,
         mode=args.mode,
         selector=args.selector,
+        tune_cache=args.tune_cache,
         pallas_precision=args.pallas_precision,
     )
 

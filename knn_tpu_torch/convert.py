@@ -7,10 +7,15 @@ arrays, the same way: cosine rows are normalized once in float64
 (``sharded.py:612-621``), the f64 ``db_norm_max`` certificate term is
 computed once (``_db_norm_max``), and the bf16x3 coarse pass's db parts
 are split once at placement (the JAX package re-splits per call inside
-its jitted program; the values are the same).  A uint8 source is marked
-unless the metric is cosine (``sharded.py:561-571``), so the int8 arm
-places its bytes byte-exact (ops.quantize.from_uint8); the f32 rows hold
-them exactly, so nothing of the caller's array is kept.
+its jitted program; the values are the same).  dot rows are
+norm-augmented (``sharded.py:622-642``): each row gains the column
+``sqrt(max(M - ||t||^2, 0))``, ``M`` the largest float64 squared row
+norm (kept as ``dot_shift``), so the augmented squared L2 of a query
+with a zero column is ``||q||^2 + M - 2 q.t`` and the l2 certificate
+ranks inner products.  A uint8 source is marked unless the metric is
+cosine or dot (``sharded.py:561-571``), so the int8 arm places its bytes
+byte-exact (ops.quantize.from_uint8); the f32 rows hold them exactly, so
+nothing of the caller's array is kept.
 Tests build both sides from one numpy array through this function, and
 carry a trained product quantizer across with :func:`pq_from_numpy`.
 """
@@ -25,14 +30,15 @@ import torch
 
 from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.ops.coarse_knn import TILE_N, prepare_db
-from knn_tpu_torch.ops.metrics import L2_FAMILY, PORTED_METRICS
+from knn_tpu_torch.ops.metrics import canonical_metric
 
 
 @dataclasses.dataclass
 class Placement:
     """A database placed on one device for search and certified search."""
 
-    #: f32 rows [N, D] on the device (unit rows for cosine)
+    #: f32 rows [N, D] on the device (unit rows for cosine; for dot the
+    #: rows with their augmentation column, D = dim_in + 1)
     db: torch.Tensor
     #: the same rows on host, for float64 refinement and repair
     db_host: np.ndarray
@@ -47,13 +53,20 @@ class Placement:
     metric: str
     labels: Optional[torch.Tensor] = None
     num_classes: Optional[int] = None
-    #: the rows came as uint8 (bvecs payloads) and the metric is not
-    #: cosine: the int8 arm places them byte-exact at unit scale
+    #: the rows came as uint8 (bvecs payloads) and the metric is neither
+    #: cosine nor dot: the int8 arm places them byte-exact at unit scale
     uint8_source: bool = False
+    #: dot only: M, the largest float64 squared norm of the caller's rows
+    dot_shift: float = 0.0
 
     @property
     def n_train(self) -> int:
         return self.db.shape[0]
+
+    @property
+    def dim_in(self) -> int:
+        """The caller's row width (a dot placement holds one more)."""
+        return self.db.shape[1] - (1 if self.metric == "dot" else 0)
 
     @property
     def device(self) -> torch.device:
@@ -74,17 +87,17 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
     [N] with ``num_classes``) on ``device`` (None = cuda).  The rows must
     be finite: the certificate has no order for a NaN score."""
     dev = resolve_device(device)
-    metric = metric.lower()
-    if metric not in PORTED_METRICS:
-        raise ValueError(
-            f"metric {metric!r} is not ported; expected one of {PORTED_METRICS}")
+    metric = canonical_metric(metric)
     uint8_source = (isinstance(train, np.ndarray) and train.dtype == np.uint8
-                    and metric != "cosine")
+                    and metric not in ("cosine", "dot"))
     host = np.ascontiguousarray(np.asarray(train, dtype=np.float32))
     if host.ndim != 2 or host.shape[0] == 0:
         raise ValueError(f"train must be a non-empty [N, D] array, got {host.shape}")
+    dot_shift = 0.0
     if metric == "cosine":
         host = row_normalize_f64(host)
+    elif metric == "dot":
+        host, dot_shift = dot_augment(host)
     # a row holding a NaN or an inf has a non-finite float64 norm
     db_norm_max = float((host.astype(np.float64) ** 2).sum(-1).max())
     if not np.isfinite(db_norm_max):
@@ -101,10 +114,22 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
                 f"labels shape {labels.shape} != (n_train,) = ({host.shape[0]},)")
         lab = torch.from_numpy(labels).to(dev)
     return Placement(db=db, db_host=host, th=th, tl=tl, tnorm=tnorm,
-                     db_norm_max=db_norm_max,
-                     metric="l2" if metric in L2_FAMILY else metric,
+                     db_norm_max=db_norm_max, metric=metric,
                      labels=lab, num_classes=num_classes,
-                     uint8_source=uint8_source)
+                     uint8_source=uint8_source, dot_shift=dot_shift)
+
+
+def dot_augment(rows: np.ndarray):
+    """``(rows with the column sqrt(max(M - ||t||^2, 0)), M)`` for f32
+    ``rows`` [N, D], ``M`` the largest float64 squared row norm — the
+    JAX package's arithmetic step for step (sharded.py:634-641), so the
+    rows are bitwise its placement's."""
+    t64 = rows.astype(np.float64)
+    norm2 = np.einsum("nd,nd->n", t64, t64)
+    shift = float(norm2.max())
+    aug = np.sqrt(np.maximum(shift - norm2, 0.0))
+    return np.concatenate([rows, aug[:, None].astype(np.float32)],
+                          axis=1), shift
 
 
 def pq_from_numpy(knn, codebooks: np.ndarray, codes: np.ndarray,

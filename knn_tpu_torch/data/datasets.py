@@ -94,6 +94,15 @@ def make_mnist_like(
     return train, train_labels, test, test_labels, val, val_labels
 
 
+def make_database(
+    n: int, dim: int, *, seed: int = 0, scale: float = 128.0
+) -> np.ndarray:
+    """[n, dim] float32 uniform vectors in [0, scale) — a SIFT-like value
+    range for benchmark workloads."""
+    rng = np.random.default_rng(seed)
+    return (rng.random(size=(n, dim)) * scale).astype(np.float32)
+
+
 def save_labeled_csv(path: str, feats: np.ndarray, labels: np.ndarray) -> None:
     """Write the reference's labeled format: ``label,f0,...`` per row
     (the shape knn_mpi.cpp:154-175 parses)."""
@@ -110,6 +119,7 @@ def save_unlabeled_csv(path: str, feats: np.ndarray) -> None:
 
 
 __all__ = [
+    "make_database",
     "make_blobs",
     "make_mnist_like",
     "save_labeled_csv",

@@ -170,6 +170,20 @@ def count_below(db: torch.Tensor, queries: torch.Tensor,
     return acc
 
 
+def _approx_candidates(queries: torch.Tensor, db: torch.Tensor, m: int, *,
+                       compute_dtype=None, recall_target: float = 0.99
+                       ) -> torch.Tensor:
+    """[Q, m] candidate indices of the ``approx`` selector
+    (certified._approx_candidates:104-122): ops.topk.knn_search_approx's
+    MIPS-form squared L2 and its top-m, which is exact on this backend
+    (``recall_target`` without effect, ROADMAP divergence 21)."""
+    from knn_tpu_torch.ops.topk import knn_search_approx
+
+    _, idx = knn_search_approx(queries, db, m, recall_target=recall_target,
+                               compute_dtype=compute_dtype)
+    return idx
+
+
 def pallas_candidate_fn(**knobs):
     """A ``candidate_fn`` for :func:`knn_search_certified` that runs the
     port's coarse kernel (ops.coarse_knn.pallas_knn_candidates) at any

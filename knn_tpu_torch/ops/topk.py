@@ -1,6 +1,6 @@
 """Top-k neighbor selection in PyTorch — the port of knn_tpu/ops/topk.py
 (``topk_smallest``, ``topk_pairs``, ``merge_topk``, ``knn_search``,
-``knn_search_tiled``).
+``knn_search_tiled``, ``knn_search_approx``).
 
 Tie-breaking is the JAX package's: ties go to the **lower train index**,
 i.e. the k-nearest set is the lexicographic smallest k pairs
@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from knn_tpu_torch.ops.distance import pairwise_distance
+from knn_tpu_torch.ops.distance import _dot, pairwise_distance
 
 #: index sentinel for "no candidate" (jnp.iinfo(jnp.int32).max)
 I32MAX = 2 ** 31 - 1
@@ -52,24 +52,42 @@ def merge_topk(best_d, best_i, new_d, new_i, k: int):
                       torch.cat([best_i, new_i], dim=-1), k)
 
 
+def _mask_padding(d: torch.Tensor, n_valid: Optional[int], fill: float,
+                  lo: int = 0) -> torch.Tensor:
+    """Columns at global index >= ``n_valid`` (``lo`` the first column's)
+    are padding: their values become ``fill`` before any select."""
+    if n_valid is None:
+        return d
+    cols = lo + torch.arange(d.shape[-1], device=d.device)[None, :]
+    return torch.where(cols < n_valid, d, fill)
+
+
 def knn_search(queries: torch.Tensor, train: torch.Tensor, k: int,
-               metric: str = "l2"):
-    """Exact KNN with the full [Q, T] distance matrix: [Q, k] dists + idx."""
-    return topk_smallest(pairwise_distance(queries, train, metric), k)
+               metric: str = "l2", *, compute_dtype=None,
+               n_valid: Optional[int] = None):
+    """Exact KNN with the full [Q, T] distance matrix: [Q, k] dists + idx.
+    Rows at index >= ``n_valid`` are padding, forced to +inf before the
+    select."""
+    d = pairwise_distance(queries, train, metric, compute_dtype=compute_dtype)
+    return topk_smallest(_mask_padding(d, n_valid, torch.inf), k)
 
 
 def knn_search_tiled(queries: torch.Tensor, train: torch.Tensor, k: int,
-                     metric: str = "l2", *, train_tile: Optional[int] = None):
+                     metric: str = "l2", *, train_tile: Optional[int] = None,
+                     compute_dtype=None, n_valid: Optional[int] = None):
     """Exact KNN streaming over train tiles with a running top-k merge —
     the Python loop takes the place of the JAX package's ``lax.scan``.
     The last tile pads with zero rows masked to +inf, so every tile
-    selects from ``train_tile`` columns as in the JAX package.  Results
-    equal :func:`knn_search`, lower-index tie-breaks included."""
+    selects from ``train_tile`` columns as in the JAX package; ``n_valid``
+    masks trailing rows as well.  Results equal :func:`knn_search`,
+    lower-index tie-breaks included."""
     n_train = train.shape[0]
     if k > n_train:
         raise ValueError(f"k={k} > n_train={n_train}")
     if train_tile is None or train_tile >= n_train:
-        return knn_search(queries, train, k, metric)
+        return knn_search(queries, train, k, metric,
+                          compute_dtype=compute_dtype, n_valid=n_valid)
+    limit = n_train if n_valid is None else min(n_train, int(n_valid))
     n_q = queries.shape[0]
     dev = queries.device
     best_d = torch.full((n_q, k), torch.inf, dtype=torch.float32, device=dev)
@@ -79,9 +97,10 @@ def knn_search_tiled(queries: torch.Tensor, train: torch.Tensor, k: int,
         if tile.shape[0] < train_tile:
             tile = torch.nn.functional.pad(
                 tile, (0, 0, 0, train_tile - tile.shape[0]))
-        d = pairwise_distance(queries, tile, metric)
+        d = pairwise_distance(queries, tile, metric,
+                              compute_dtype=compute_dtype)
+        d = _mask_padding(d, limit, torch.inf, lo)
         gidx = lo + torch.arange(train_tile, device=dev)[None, :]
-        d = torch.where(gidx < n_train, d, torch.inf)
         if train_tile > k:
             # reduce the tile to its own top-k first (exact: every global
             # top-k member inside the tile is in the tile's top-k)
@@ -91,3 +110,23 @@ def knn_search_tiled(queries: torch.Tensor, train: torch.Tensor, k: int,
             best_d, best_i = merge_topk(
                 best_d, best_i, d, gidx.expand_as(d), k)
     return best_d, best_i
+
+
+def knn_search_approx(queries: torch.Tensor, train: torch.Tensor, k: int, *,
+                      recall_target: float = 0.95, compute_dtype=None):
+    """L2 KNN through the MIPS score ``q.t - ||t||^2 / 2`` (topk.py:158-188):
+    its k largest, then ``max(||q||^2 - 2 score, 0)``.  The JAX package
+    selects with ``lax.approx_max_k``, which is an exact top-k on every
+    backend but the TPU; CUDA has no ApproxTopK, so this is the exact
+    top-k of the score (ties to the lower index) and ``recall_target`` is
+    accepted without effect (ROADMAP divergence 21)."""
+    del recall_target  # no approximate selector on this backend
+    t32 = train.float()
+    half_t_norm = 0.5 * (t32 * t32).sum(-1)[None, :]
+    score = _dot(queries, train, compute_dtype) - half_t_norm
+    # a stable descending sort keeps the lower index first among ties
+    top, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    top, idx = top[..., :k], idx[..., :k]
+    q32 = queries.float()
+    q_norm = (q32 * q32).sum(-1, keepdim=True)
+    return torch.clamp_min(q_norm - 2.0 * top, 0.0), idx

@@ -7,8 +7,13 @@ and every :meth:`ShardedKNN.search` / :meth:`~ShardedKNN.predict` /
 db shard the JAX package's merge tree and ``pmin`` are identities, so
 they are absent here; everything else follows the JAX code path:
 
-- ``search`` — exact f32 expanded-square distances and a stable top-k
-  (ties to the lower index);
+- ``search`` — exact distances of the placement's metric in its
+  ``compute_dtype`` (f32 accumulation) and a stable top-k (ties to the
+  lower index);
+- ``search_certified(selector="exact" | "approx")`` — the counted
+  certificate (:meth:`ShardedKNN._certify_counted`): a coarse top-m, the
+  float64 refine of all m candidates, and one f32 count of the rows below
+  an adaptive threshold (ops.certified.count_below);
 - ``search_certified(selector="pallas")`` — the one-pass certificate:
   the coarse kernel (of knn_tpu_torch.ops.coarse_knn, by ``kernel``,
   ``precision``, ``grid_order`` and ``binning``: the tiled, streaming or
@@ -60,7 +65,8 @@ from knn_tpu_torch.ops.coarse_knn import (
     prepare_db_pq,
     prepare_db_quant,
 )
-from knn_tpu_torch.ops.metrics import L2_FAMILY
+from knn_tpu_torch.ops.distance import dtype_name
+from knn_tpu_torch.ops.metrics import canonical_metric
 from knn_tpu_torch.ops.pq import (PQ_DSUB_DEFAULT, PQ_NCODES_DEFAULT,
                                   bound_consts_pq, score_error_bound_pq_t)
 from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats_t,
@@ -133,18 +139,27 @@ class ShardedKNN:
 
     ``train`` is a host [N, D] array or a :class:`~knn_tpu_torch.convert.
     Placement`; ``labels`` [N] with ``num_classes`` enable the predict
-    methods.  Metrics: the l2 family and cosine (cosine rows are
-    normalized at placement, so the certificate runs on unit vectors)."""
+    methods.  Metrics: every name of ops.metrics.METRICS (cosine rows are
+    normalized at placement, so the certificate runs on unit vectors; dot
+    rows are norm-augmented, so it runs on the augmented rows; l1 has no
+    certificate).  ``compute_dtype`` (None / "float32", "bfloat16",
+    "float16" or their torch dtypes) is the input dtype of the matmuls
+    ``search``, ``predict`` and the counted selectors' coarse pass rank
+    with (ops.distance._dot: f32 accumulation); the certificates' counts
+    and repairs stay f32."""
 
     def __init__(self, train, *, k: int, metric: str = "l2",
-                 train_tile: Optional[int] = None, labels=None,
-                 num_classes: Optional[int] = None,
+                 train_tile: Optional[int] = None, compute_dtype=None,
+                 labels=None, num_classes: Optional[int] = None,
                  device: DeviceLike = None):
+        #: the compute dtype's name, the JAX package's ``_dtype_key``
+        #: (None: float32)
+        self._dtype_key = dtype_name(compute_dtype)
         if isinstance(train, Placement):
             if labels is not None or device is not None:
                 raise ValueError(
                     "a Placement already carries its labels and device")
-            asked = "l2" if metric.lower() in L2_FAMILY else metric.lower()
+            asked = canonical_metric(metric)
             if asked != train.metric:
                 raise ValueError(
                     f"metric {metric!r} does not match the placement's "
@@ -180,22 +195,37 @@ class ShardedKNN:
     def _to_device(self, queries) -> torch.Tensor:
         """Queries on the device.  A host array goes up from pinned memory
         on the current stream without waiting for the work queued there
-        (a pageable copy would synchronize the stream)."""
+        (a pageable copy would synchronize the stream).  A dot placement's
+        queries of the caller's width gain the zero column of the
+        augmentation (q'.t' = q.t, sharded.py:828-842); augmented ones
+        pass as they are."""
         if isinstance(queries, torch.Tensor):
-            return queries.to(self.device, torch.float32)
-        host = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(queries, np.float32)))
-        if self.device.type != "cuda":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+            q = queries.to(self.device, torch.float32)
+        else:
+            q = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(queries, np.float32)))
+            if self.device.type == "cuda":
+                q = q.pin_memory().to(self.device, non_blocking=True)
+        if self.metric == "dot" and q.ndim == 2 and \
+                q.shape[1] == self.placement.dim_in:
+            q = torch.nn.functional.pad(q, (0, 1))
+        return q
 
-    def _exact_topk(self, q: torch.Tensor, k: int, metric: str):
+    def _blocked(self, fn, q: torch.Tensor):
+        """``fn(q_rows) -> tuple of tensors`` over row blocks of ``q`` that
+        keep one [rows, n_train] distance block within
+        ``_EXACT_BLOCK_ELEMS`` (each query's result does not depend on its
+        block), each output concatenated."""
         rows = max(1, _EXACT_BLOCK_ELEMS // max(1, self.n_train))
-        outs = [knn_search_tiled(q[lo : lo + rows], self.placement.db, k,
-                                 metric, train_tile=self.train_tile)
-                for lo in range(0, q.shape[0], rows)]
-        return (torch.cat([o[0] for o in outs]),
-                torch.cat([o[1] for o in outs]))
+        outs = [fn(q[lo : lo + rows]) for lo in range(0, q.shape[0], rows)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    def _exact_topk(self, q: torch.Tensor, k: int, metric: str,
+                    compute_dtype=None):
+        return self._blocked(
+            lambda qb: knn_search_tiled(qb, self.placement.db, k, metric,
+                                        train_tile=self.train_tile,
+                                        compute_dtype=compute_dtype), q)
 
     def search(self, queries, *, k: Optional[int] = None,
                return_sqrt: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -204,7 +234,8 @@ class ShardedKNN:
         k = self.k if k is None else k
         if k > self.n_train:
             raise ValueError(f"k={k} exceeds n_train={self.n_train}")
-        d, i = self._exact_topk(self._to_device(queries), k, self.metric)
+        d, i = self._exact_topk(self._to_device(queries), k, self.metric,
+                                self._dtype_key)
         if return_sqrt:
             from knn_tpu_torch.ops.distance import metric_values
 
@@ -218,6 +249,67 @@ class ShardedKNN:
         _, gi = self.search(queries)
         safe = torch.clamp(gi, max=self.n_train - 1)
         return majority_vote(self.placement.labels[safe], self.num_classes)
+
+    def radius_search(self, queries, radius: float, *, max_neighbors: int):
+        """All db rows within ``radius`` per query, bounded at
+        ``max_neighbors`` — the JAX package's ``radius_search``
+        (sharded.py:1053-1175).  Returns host arrays ``(dists [Q, M], idx
+        [Q, M], counts [Q])``: the nearest-M select masked to the radius
+        (beyond-radius slots ``+inf`` / ``-1``) and the within-radius
+        count, so truncation (``counts > M``, ``M = min(max_neighbors,
+        n_train)``) is visible.  l2 (Euclidean radius, squared values) and
+        cosine (cosine-distance radius; the count runs on unit vectors
+        against ``2 * radius``) count with ops.certified.count_below at the
+        threshold lifted by one f32 ulp to ``<=``; the mask and the count
+        are two computations, so a row within an ulp of the radius may
+        fall on different sides of each.  l1 runs ops.radius.radius_search
+        on the placement (mask and count from one pairwise pass).  dot has
+        no radius; a placement with a compute dtype other than f32 is
+        refused (its bf16 mask would disagree with the f32 count)."""
+        from knn_tpu_torch.ops.certified import count_below
+        from knn_tpu_torch.ops.radius import SENTINEL_IDX, radius_threshold
+
+        if self._dtype_key not in (None, "float32"):
+            raise ValueError(
+                f"radius_search needs a float32 placement; this program "
+                f"was built with compute_dtype={self._dtype_key!r} and "
+                f"its mask/count arithmetics would disagree at the "
+                f"radius boundary")
+        if self.metric == "l1":
+            from knn_tpu_torch.ops.radius import radius_search as _single
+
+            if int(max_neighbors) < 1:
+                raise ValueError(
+                    f"max_neighbors must be >= 1, got {max_neighbors}")
+            out = _single(self._to_device(queries), self.placement.db, radius,
+                          max_neighbors=min(int(max_neighbors), self.n_train),
+                          metric="l1", train_tile=self.train_tile)
+            return tuple(t.cpu().numpy() for t in out)
+        thr = radius_threshold(radius, self.metric)  # ranking space
+        if self.metric == "cosine":
+            count_thr = 2.0 * thr  # unit rows: ||q^-t^||^2 = 2 (1 - sim)
+            q_count = row_normalize_f64(np.asarray(queries, np.float32))
+        elif self.metric == "l2":
+            count_thr, q_count = thr, queries
+        else:
+            raise ValueError(
+                f"radius_search supports l2/cosine/l1, not {self.metric!r}")
+        m = min(int(max_neighbors), self.n_train)
+        if m < 1:
+            raise ValueError(f"max_neighbors must be >= 1, got {max_neighbors}")
+        d, i = self.search(queries, k=m)
+        d, i = d.cpu().numpy(), i.cpu().numpy()
+        # strictly below the next f32 above the threshold: <= in f32
+        qc = self._to_device(q_count)
+        thr_vec = torch.full(
+            (qc.shape[0],),
+            float(np.nextafter(np.float32(count_thr), np.float32(np.inf))),
+            dtype=torch.float32)
+        counts = count_below(self.placement.db, qc, thr_vec,
+                             tile=self.train_tile or 131072).cpu().numpy()
+        within = d <= thr
+        return (np.where(within, d, np.inf), np.where(within, i, SENTINEL_IDX),
+                counts)
 
     # -- certified path ----------------------------------------------------
     def _coarse_parts(self, tile: int, precision: str = "bf16x3",
@@ -586,15 +678,33 @@ class ShardedKNN:
                          return_sqrt: bool = False,
                          pq_dsub: Optional[int] = None,
                          pq_ncodes: Optional[int] = None,
-                         tune_cache: Optional[str] = None):
-        """Exact lexicographic top-k via the one-pass certificate.  Returns
+                         tune_cache: Optional[str] = None,
+                         recall_target: Optional[float] = None):
+        """Exact lexicographic top-k via a certificate.  Returns
         ``(dists_f64 [Q, k] or None, idx [Q, k] int64, stats)`` on host.
 
-        Indices are the exact lexicographic top-k.  Distances are the
-        device's f32 direct-difference values (relative error <
-        RANK_SLACK) except near-tied or repaired entries, which are
-        float64-exact.  Cosine runs the certificate on unit vectors and
-        returns ``1 - similarity``.  The coarse-kernel knobs (``tile_n``,
+        ``selector`` picks the certificate (sharded.py:1374-1660):
+
+        - ``"pallas"`` (the default; the JAX package's is ``"approx"``,
+          ROADMAP divergence 5): the one-pass certificate through a coarse
+          kernel, below;
+        - ``"exact"`` / ``"approx"``: the counted certificate
+          (:meth:`_certify_counted`) — a coarse top-m in the placement's
+          compute dtype (``exact``: ops.topk.knn_search_tiled; ``approx``:
+          the MIPS-form ops.topk.knn_search_approx, whose top-m is exact on
+          this backend, ``recall_target`` without effect, ROADMAP
+          divergence 21), the float64 refine of all m candidates, and one
+          f32 count pass against an adaptive threshold; two passes over
+          the db, float64-exact distances.
+
+        Indices are the exact lexicographic top-k whatever the selector.
+        The pallas selector's distances are the device's f32
+        direct-difference values (relative error < RANK_SLACK) except
+        near-tied or repaired entries, which are float64-exact.  Cosine
+        runs the certificate on unit vectors and returns ``1 -
+        similarity``; dot runs it on the norm-augmented rows (queries gain
+        a zero column) and maps the values back to ``-q.t`` in float64; l1
+        has no certificate.  The coarse-kernel knobs (``tile_n``,
         ``bin_w``, ``survivors``, ``precision``, ``final_select``,
         ``binning``, ``grid_order``, ``final_recall_target``, ``kernel``)
         left at None resolve through ``knn_tpu_torch.tuning.resolve_full``:
@@ -629,15 +739,29 @@ class ShardedKNN:
         the port reads no environment switch for them."""
         from knn_tpu_torch.ops.certified import repair_uncertified
 
+        del recall_target  # no approximate top-k here (divergence 21)
+        if self.metric not in ("l2", "cosine", "dot"):
+            # |q-t|_1 has no gram-matrix form for either certificate to bound
+            raise ValueError(
+                "search_certified supports the l2, cosine and dot "
+                "metrics only")
         if selector not in SELECTORS:
             raise ValueError(
-                f"selector {selector!r} is not ported; expected {SELECTORS}")
+                f"unknown selector {selector!r}; expected {SELECTORS}")
         q_np = np.asarray(queries, dtype=np.float32)
         if not np.isfinite(q_np).all():
             # a NaN score has no place in the certificate's order
             raise ValueError("search_certified: queries must be finite")
         if self.metric == "cosine":
             q_np = row_normalize_f64(q_np)
+        q_norm2 = None
+        if self.metric == "dot":
+            # the zero column of the augmentation, and the f64 ||q||^2 of
+            # the values' back-map (sharded.py:1493-1501)
+            q64 = q_np.astype(np.float64)
+            q_norm2 = np.einsum("nd,nd->n", q64, q64)
+            q_np = np.concatenate(
+                [q_np, np.zeros((q_np.shape[0], 1), np.float32)], axis=1)
         n_q = q_np.shape[0]
         m = min(self.k + margin, self.n_train)
         db_np = self.placement.db_host
@@ -653,27 +777,35 @@ class ShardedKNN:
             batches.append((lo, chunk, pad))
         d = np.empty((n_q, self.k))
         i = np.empty((n_q, self.k), dtype=np.int64)
-        # one knob-resolution home: explicit args > the persisted winner
-        # for this placement's shape on this card > library defaults (the
-        # certificate runs in squared-L2 space, cosine on unit vectors)
-        knobs, tune_info = tuning.resolve_full(
-            self.n_train, self.placement.db.shape[1], self.k, metric="l2",
-            device_kind=tuning.device_kind_of(self.device),
-            cache_path=tune_cache,
-            overrides=dict(
-                tile_n=tile_n, precision=precision, bin_w=bin_w,
-                survivors=survivors, final_select=final_select,
-                binning=binning, final_recall_target=final_recall_target,
-                grid_order=grid_order, kernel=kernel))
-        bad, n_corrected, pipeline = self._certify_pallas(
-            batches, bs, m, d, i, q_np, db_np,
-            want_distances=return_distances, overlap=bool(overlap),
-            overlap_depth=2 if overlap_depth is None else overlap_depth,
-            pq_dsub=pq_dsub, pq_ncodes=pq_ncodes, **knobs)
+        if selector == "pallas":
+            # one knob-resolution home: explicit args > the persisted
+            # winner for this placement's shape and compute dtype on this
+            # card > library defaults (the certificate runs in squared-L2
+            # space: cosine on unit vectors, dot on augmented rows)
+            knobs, tune_info = tuning.resolve_full(
+                self.n_train, self.placement.db.shape[1], self.k,
+                metric="l2", dtype=self._dtype_key,
+                device_kind=tuning.device_kind_of(self.device),
+                cache_path=tune_cache,
+                overrides=dict(
+                    tile_n=tile_n, precision=precision, bin_w=bin_w,
+                    survivors=survivors, final_select=final_select,
+                    binning=binning, final_recall_target=final_recall_target,
+                    grid_order=grid_order, kernel=kernel))
+            bad, n_corrected, pipeline = self._certify_pallas(
+                batches, bs, m, d, i, q_np, db_np,
+                want_distances=return_distances, overlap=bool(overlap),
+                overlap_depth=2 if overlap_depth is None else overlap_depth,
+                pq_dsub=pq_dsub, pq_ncodes=pq_ncodes, **knobs)
+        else:
+            bad = self._certify_counted(batches, bs, m, d, i, q_np, db_np,
+                                        selector)
 
         def _select(qb, widen):
-            # widened exact re-select in f32 squared L2 (cosine: on the
-            # unit vectors of the placement)
+            # widened exact re-select in f32 squared L2 whatever the
+            # compute dtype: its scores carry the re-certification's
+            # exclusion value, and certification_tolerance covers f32
+            # error only (cosine: unit vectors; dot: augmented rows)
             fs, fi = self._exact_topk(self._to_device(qb), widen, "l2")
             return fs.cpu().numpy(), fi.cpu().numpy()
 
@@ -684,35 +816,114 @@ class ShardedKNN:
             "fallback_queries": int(bad.size),
             "certified": n_q - int(bad.size),
             **repair,
-            "rank_corrected_queries": n_corrected,
-            "pallas_knobs": knobs,
-            "tuning": tune_info,
         }
-        if pipeline is not None:
-            stats["pipeline"] = pipeline
+        if selector == "pallas":
+            stats.update(rank_corrected_queries=n_corrected,
+                         pallas_knobs=knobs, tuning=tune_info)
+            if pipeline is not None:
+                stats["pipeline"] = pipeline
         if return_distances and self.metric == "cosine":
             d *= 0.5  # unit-vector squared L2 -> 1 - cosine similarity
+        if return_distances and self.metric == "dot":
+            # augmented squared L2 -> -q.t: ||q'-t'||^2 = ||q||^2 + M - 2 q.t
+            d -= q_norm2[:, None] + self.placement.dot_shift
+            d *= 0.5
         if return_distances and return_sqrt:
             from knn_tpu_torch.ops.distance import metric_values
 
             d = metric_values(d, self.metric)
         return (d if return_distances else None), i, stats
 
+    def _certify_counted(self, batches, bs, m, d, i, q_np, db_np, selector):
+        """The counted certificate, the JAX package's ``_certify_counted``
+        (sharded.py:1665-1769) on one device; fills ``d``/``i`` and returns
+        the flagged query indices.
+
+        1. every batch's coarse top-m is enqueued (``exact``: the f32 or
+           ``compute_dtype`` expanded square and a stable top-m; ``approx``:
+           ops.certified._approx_candidates);
+        2. per batch, the host takes its candidates, refines all m in
+           float64 (ranks k..m feed the gap search) and enqueues its count:
+           each query counts the db rows strictly below an ADAPTIVE
+           threshold, the midpoint of the first gap past rank k that
+           clears ``2 tol + 4 eps_f32 |d|`` (``js`` that rank), else ``d_k
+           + tol`` (``js = k``);
+        3. a query whose count exceeds its ``js`` is flagged: an outsider
+           may sit at or below its ``js``-th candidate."""
+        from knn_tpu_torch.ops.certified import (_approx_candidates,
+                                                 certification_tolerance,
+                                                 count_below)
+        from knn_tpu_torch.ops.refine import refine_exact
+
+        k, db = self.k, self.placement.db
+        if selector == "exact":
+            def coarse(q):
+                return self._exact_topk(q, m, "l2", self._dtype_key)[1]
+        else:
+            def coarse(q):
+                return self._blocked(
+                    lambda qb: (_approx_candidates(
+                        qb, db, m, compute_dtype=self._dtype_key),), q)[0]
+
+        # stage 1: every batch's coarse select, enqueued on the device
+        coarse_out = []
+        for _, chunk, _ in batches:
+            q = self._to_device(chunk)
+            coarse_out.append((q, coarse(q)))
+        # stage 2: per batch, the float64 refine and its count, enqueued
+        eps = float(np.finfo(np.float32).eps)
+        count_out = []
+        for (lo, _, pad), (q, ci_t) in zip(batches, coarse_out):
+            take = bs - pad
+            ci = ci_t.cpu().numpy()[:take]
+            m_avail = ci.shape[1]
+            d_m, i_m = refine_exact(db_np, q_np[lo : lo + take], ci, m_avail)
+            d[lo : lo + take], i[lo : lo + take] = d_m[:, :k], i_m[:, :k]
+            tol = certification_tolerance(
+                q_np[lo : lo + take], db_np,
+                db_norm_max=self.placement.db_norm_max)
+            gaps = d_m[:, k:] - d_m[:, k - 1 : -1]
+            # the midpoint is cast to f32 for the count: the gap must also
+            # clear that rounding, and never end at a sentinel (+inf) rank
+            f32_round = 4.0 * eps * np.abs(d_m[:, k:])
+            open_gap = (gaps > 2.0 * tol[:, None] + f32_round) & np.isfinite(
+                d_m[:, k:])
+            if open_gap.shape[1] == 0:  # m == k: the fixed threshold
+                has = np.zeros(take, dtype=bool)
+                js = np.full(take, k)
+            else:
+                has = open_gap.any(axis=-1)
+                js = np.where(has, k + open_gap.argmax(axis=-1), k)
+            dj = np.take_along_axis(d_m, js[:, None] - 1, axis=-1)[:, 0]
+            d_js = np.take_along_axis(
+                d_m, np.minimum(js, m_avail - 1)[:, None], axis=-1)[:, 0]
+            thr = np.full(q.shape[0], -np.inf, dtype=np.float32)
+            thr[:take] = np.where(has, 0.5 * (dj + d_js), dj + tol)
+            counts = count_below(db, q, torch.from_numpy(thr),
+                                 tile=self.train_tile or 131072)
+            count_out.append((lo, take, js, counts))
+        # stage 3: the certificates (count <= the query's rank bound)
+        flagged = [lo + np.flatnonzero(c.cpu().numpy()[:take] > js)
+                   for lo, take, js, c in count_out]
+        return np.concatenate(flagged) if flagged else np.empty(0, np.int64)
+
     def predict_certified(self, queries, *, margin: int = 28,
                           selector: str = "pallas",
                           batch_size: Optional[int] = None,
                           tile_n: Optional[int] = None,
                           precision: Optional[str] = None,
-                          kernel: Optional[str] = None):
+                          kernel: Optional[str] = None,
+                          tune_cache: Optional[str] = None):
         """Certified-exact classification: exact neighbor sets from
-        :meth:`search_certified`, then the reference vote.  Returns
-        (labels [Q] int32 numpy, stats)."""
+        :meth:`search_certified` (any selector; the pallas kernel's knobs
+        left at None resolve through ``tune_cache`` as there), then the
+        reference vote.  Returns (labels [Q] int32 numpy, stats)."""
         if self.placement.labels is None:
             raise RuntimeError("ShardedKNN built without labels; predict unavailable")
         _, idx, stats = self.search_certified(
             queries, margin=margin, selector=selector, batch_size=batch_size,
             tile_n=tile_n, precision=precision, kernel=kernel,
-            return_distances=False)
+            tune_cache=tune_cache, return_distances=False)
         labels = self.placement.labels[torch.from_numpy(idx).to(self.device)]
         return majority_vote(labels, self.num_classes).cpu().numpy(), stats
 

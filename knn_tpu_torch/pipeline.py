@@ -100,8 +100,10 @@ def _run_torch(cfg: JobConfig, timer: PhaseTimer, device, train, train_labels,
     num_classes = _infer_num_classes(cfg, train_labels, val_labels_real)
     with timer.phase("distribute"):
         program = ShardedKNN(train, k=cfg.k, metric=cfg.metric,
-                             train_tile=cfg.train_tile, labels=train_labels,
-                             num_classes=num_classes, device=device)
+                             train_tile=cfg.train_tile,
+                             compute_dtype=cfg.compute_dtype,
+                             labels=train_labels, num_classes=num_classes,
+                             device=device)
 
     certified_stats = {"fallback_queries": 0, "certified": 0}
 
@@ -113,7 +115,7 @@ def _run_torch(cfg: JobConfig, timer: PhaseTimer, device, train, train_labels,
             chunk = queries[start : start + bs]
             if cfg.mode == "certified":
                 labels_out, stats = program.predict_certified(
-                    chunk, selector=cfg.selector,
+                    chunk, selector=cfg.selector, tune_cache=cfg.tune_cache,
                     precision=cfg.pallas_precision)
                 for key, v in stats.items():
                     if isinstance(v, (int, np.integer)):

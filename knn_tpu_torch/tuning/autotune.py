@@ -30,8 +30,9 @@ What differs from the JAX package:
 - One regime: winners are keyed and searched for latency (serving).  The
   JAX package's ``throughput`` profile keys winners for its kNN join,
   which the port does not have yet; :func:`knob_grid` keeps the profile's
-  grid only so it can be held against the JAX package's.  The key's dtype
-  is always float32, the port's only compute dtype.
+  grid only so it can be held against the JAX package's.  A search keys
+  its winner at float32 (it tunes an f32 placement); a resolve reads the
+  placement's own compute dtype, as the JAX package's does.
 - A Hopper resource gate replaces the VMEM gate (knn_tpu/analysis/vmem.py):
   each candidate's build is read from the built kernel
   (``coarse_knn.kernel_resources``: registers, shared and local bytes,
@@ -123,7 +124,7 @@ def device_kind_of(device=None) -> str:
 
 def resolve_full(
     n: int, d: int, k: int, *, metric: str = "l2",
-    device_kind: Optional[str] = None,
+    dtype: Optional[str] = None, device_kind: Optional[str] = None,
     overrides: Optional[Dict[str, object]] = None,
     cache_path: Optional[str] = None,
 ) -> Tuple[Dict[str, object], Dict[str, object]]:
@@ -132,11 +133,12 @@ def resolve_full(
     cached winner > ``DEFAULT_KNOBS``.  ``info`` carries ``source``
     ("cache" | "default"), the cache key and path, and which
     knobs an override pinned.  ``device_kind`` None reads the current
-    card's (:func:`device_kind_of`)."""
+    card's (:func:`device_kind_of`); ``dtype`` is the placement's compute
+    dtype name (None = float32), a field of the cache key."""
     _bump("resolve_calls")
     if device_kind is None:
         device_kind = device_kind_of()
-    key = cache_key(device_kind, n, d, k, metric)
+    key = cache_key(device_kind, n, d, k, metric, dtype)
     cache = TuneCache(cache_path)
     knobs = dict(DEFAULT_KNOBS)
     entry = cache.get(key)

@@ -1,7 +1,7 @@
 """On-disk winner cache of the port's kernel autotuner — a copy of
 knn_tpu/tuning/cache.py for the CUDA kernels.
 
-One JSON file maps ``cache_key(device_kind, n, d, k, metric)`` to
+One JSON file maps ``cache_key(device_kind, n, d, k, metric, dtype)`` to
 the measured winning knob set plus its provenance (timings, gate verdict,
 torch version, timestamp), so a later ``ShardedKNN.search_certified`` on
 the same card and shape resolves its knobs from disk with zero re-timing.
@@ -78,14 +78,14 @@ def kernel_version_token() -> str:
 
 
 def cache_key(device_kind: str, n: int, d: int, k: int,
-              metric: str) -> str:
+              metric: str, dtype: Optional[str] = None) -> str:
     """The shape key a winner is valid for; any field mismatch misses.
-    The dtype field is the JAX package's key layout, always float32 (the
-    port's only compute dtype); the trailing ``kv<token>`` ties the entry
-    to the kernel sources that were measured
+    ``dtype`` is the placement's compute dtype name (None = float32), in
+    the JAX package's key layout; the trailing ``kv<token>`` ties the
+    entry to the kernel sources that were measured
     (:func:`kernel_version_token`)."""
     return (f"{device_kind}|n{int(n)}|d{int(d)}|k{int(k)}|"
-            f"{metric.lower()}|float32|kv{kernel_version_token()}")
+            f"{metric.lower()}|{dtype or 'float32'}|kv{kernel_version_token()}")
 
 
 class TuneCache:

@@ -5,7 +5,8 @@ Field ↔ reference mapping (knn_mpi.cpp:108-119):
   dim          <- ``dim``                 :108 (None = infer from file)
   k            <- ``K``                   :109
   num_classes  <- ``class_cnt``           :113 (None = infer from labels)
-  metric       <- ``Euclidean_distance``  :114 ('l2', plus cosine)
+  metric       <- ``Euclidean_distance``  :114 ('l2' / 'l1', plus cosine
+                                            and dot)
   normalize    <- ``Normalize``           :115
   validation   <- ``Validation``          :116
   train_file / val_file / test_file      :117-119
@@ -21,7 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-from knn_tpu_torch.ops.metrics import PORTED_METRICS
+from knn_tpu_torch.ops.metrics import METRICS
 
 #: kernel matmul precisions with a certified tolerance model (the JAX
 #: package's list), all of which the port's coarse pass runs; ``default``
@@ -30,9 +31,9 @@ from knn_tpu_torch.ops.metrics import PORTED_METRICS
 CERTIFIED_PRECISIONS = ("bf16x3", "bf16x3f", "highest", "int8", "int4",
                         "pq")
 
-#: certified-mode selectors the port runs (the JAX package also has the
-#: counted "approx" and "exact" selectors — a later slice)
-SELECTORS = ("pallas",)
+#: certified-mode selectors: the counted "exact" and "approx"
+#: certificates and the one-pass "pallas" one (parallel.sharded)
+SELECTORS = ("exact", "approx", "pallas")
 
 
 @dataclass
@@ -53,20 +54,28 @@ class JobConfig:
     device: Optional[str] = None
     train_tile: Optional[int] = None
     batch_size: Optional[int] = None
-    #: "exact" ranks every candidate in float32; "certified" runs the
-    #: one-pass self-certifying coarse kernel + f64 repair — exact
-    #: neighbor sets (ShardedKNN.search_certified)
+    #: matmul input dtype of the exact path and the counted selectors'
+    #: coarse pass ("bfloat16", "float16"; None = float32)
+    compute_dtype: Optional[str] = None
+    #: "exact" ranks every candidate in the compute dtype; "certified"
+    #: runs a certificate + f64 repair — exact neighbor sets
+    #: (ShardedKNN.search_certified; l2 family and cosine)
     mode: str = "exact"
+    #: certified-mode selector: "pallas" (the one-pass kernel certificate,
+    #: the port's default: ROADMAP divergence 5), "exact" or "approx"
+    #: (the counted certificate)
     selector: str = "pallas"
+    #: autotuner winner-cache file the pallas selector's knobs resolve
+    #: from (``python -m knn_tpu_torch.cli tune --cache``); None = the
+    #: user default path
+    tune_cache: Optional[str] = None
     #: explicit coarse-kernel precision; None = the library default
     pallas_precision: Optional[str] = None
 
     def __post_init__(self):
         self.metric = self.metric.lower()
-        if self.metric not in PORTED_METRICS:
-            raise ValueError(
-                f"metric {self.metric!r} not in {PORTED_METRICS} (the port "
-                f"runs the l2 family and cosine so far)")
+        if self.metric not in METRICS:
+            raise ValueError(f"metric {self.metric!r} not in {METRICS}")
         if self.k < 1:
             raise ValueError(f"k must be >= 1, got {self.k}")
         if self.validation and not self.val_file:
@@ -74,11 +83,13 @@ class JobConfig:
         if self.mode not in ("exact", "certified"):
             raise ValueError(f"mode {self.mode!r} not in ('exact', 'certified')")
         if self.selector not in SELECTORS:
-            raise ValueError(
-                f"selector {self.selector!r} is not ported; use one of "
-                f"{SELECTORS}")
+            raise ValueError(f"selector {self.selector!r} unknown")
         if self.pallas_precision is not None and \
                 self.pallas_precision not in CERTIFIED_PRECISIONS:
             raise ValueError(
                 f"pallas_precision {self.pallas_precision!r} not in "
                 f"{CERTIFIED_PRECISIONS}")
+        if self.mode == "certified" and self.metric not in (
+                "l2", "sql2", "euclidean", "cosine"):
+            raise ValueError(
+                "mode='certified' requires the l2 or cosine metric")

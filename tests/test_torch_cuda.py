@@ -1121,3 +1121,124 @@ def test_cuda_grouped_builds_take_no_local_memory_beyond_the_stated(
                 assert res["local_bytes"] <= carry, key
             assert res["ctas_per_sm"] >= 1, key
             assert res["registers"] <= 255, key
+
+
+# --- the counted selectors, compute_dtype, l1 / dot, radius, estimators -------
+
+
+def _lex_topk(d, k):
+    return np.lexsort((np.broadcast_to(np.arange(d.shape[1]), d.shape), d),
+                      axis=-1)[:, :k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine", "dot"])
+@pytest.mark.parametrize("selector", ["exact", "approx"])
+def test_cuda_counted_selectors_equal_the_cpu_path(cuda_device, selector,
+                                                   metric):
+    from knn_tpu_torch import ShardedKNN
+
+    rng = np.random.default_rng(40)
+    q, db = _data(rng, 37, 3000, 24)
+    out = {dev: ShardedKNN(db, k=9, metric=metric, device=dev
+                           ).search_certified(q, selector=selector,
+                                              batch_size=16)
+           for dev in ("cpu", cuda_device)}
+    (dc, ic, _), (dg, ig, st) = out["cpu"], out[cuda_device]
+    np.testing.assert_array_equal(ig, ic)
+    np.testing.assert_allclose(dg, dc, rtol=1e-12,
+                               atol=1e-12 * np.abs(dc).max())
+    if metric == "l2":
+        np.testing.assert_array_equal(ig, _lex_topk(
+            ((q[:, None].astype(np.float64) - db[None]) ** 2).sum(-1), 9))
+    assert st["certified"] + st["fallback_queries"] == 37
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+def test_cuda_half_scores_are_f32_inside_the_half_model(cuda_device, dt):
+    from knn_tpu_torch.ops import distance as pdist
+
+    rng = np.random.default_rng(41)
+    q, db = _data(rng, 33, 500, 40)
+    form = pdist.half_matmul_form(cuda_device)
+    assert form == "mm_out_dtype"
+    got = pdist.pairwise_sq_l2(torch.from_numpy(q).to(cuda_device),
+                               torch.from_numpy(db).to(cuda_device),
+                               compute_dtype=dt)
+    assert got.dtype == torch.float32
+    q64, t64 = q.astype(np.float64), db.astype(np.float64)
+    exact = ((q64[:, None] - t64[None]) ** 2).sum(-1)
+    norms = (q64 ** 2).sum(-1)[:, None] + (t64 ** 2).sum(-1)[None]
+    unit = 2.0 ** -8 if dt == "bfloat16" else 2.0 ** -11
+    assert (np.abs(got.cpu().numpy() - exact) <= unit * norms).all()
+    cpu = pdist.pairwise_sq_l2(torch.from_numpy(q), torch.from_numpy(db),
+                               compute_dtype=dt).numpy()
+    # f32 accumulation either way: the forms differ by f32 rounding only
+    assert np.abs(got.cpu().numpy() - cpu).max() <= 64 * EPS32 * norms.max()
+
+
+@pytest.mark.cuda
+def test_cuda_dot_certified_search_runs_k1_at_dp256(cuda_device):
+    from knn_tpu_torch import ShardedKNN
+
+    rng = np.random.default_rng(42)
+    q, db = _data(rng, 64, 20000, 128)
+    knn = ShardedKNN(db, k=10, metric="dot", device=cuda_device)
+    assert knn.placement.th.shape[1] == 256
+    before = ck.binned_select.launches["bf16x3"]
+    d, i, st = knn.search_certified(q)
+    assert ck.binned_select.launches["bf16x3"] - before == \
+        ck.kernel_launches_per_batch("tiled", 20000, ck.TILE_N)
+    ip = -(q.astype(np.float64) @ db.astype(np.float64).T)
+    oi = _lex_topk(ip, 10)
+    np.testing.assert_array_equal(i, oi)
+    od = np.take_along_axis(ip, oi, -1)
+    aug = 2 * od + (q.astype(np.float64) ** 2).sum(-1)[:, None] + \
+        knn.placement.db_norm_max
+    assert (np.abs(d - od) <= ck.RANK_SLACK * aug).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "l1", "cosine"])
+def test_cuda_search_and_radius_equal_the_cpu_path(cuda_device, metric):
+    from knn_tpu_torch import ShardedKNN
+
+    rng = np.random.default_rng(43)
+    q, db = _data(rng, 20, 900, 12, scale=1.0)
+    radius = {"l2": 3.1, "l1": 9.0, "cosine": 0.9}[metric]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        knn = ShardedKNN(db, k=7, metric=metric, device=dev)
+        d, i = knn.search(q)
+        out[dev] = (d.cpu().numpy(), i.cpu().numpy(),
+                    *knn.radius_search(q, radius, max_neighbors=40))
+    (dc, ic, rdc, ric, cc), (dg, ig, rdg, rig, cg) = out["cpu"], out[cuda_device]
+    np.testing.assert_allclose(dg, dc, rtol=1e-5, atol=1e-5)
+    # radii off the data's values: the in-radius sets agree
+    np.testing.assert_array_equal(cg, cc)
+    np.testing.assert_array_equal(np.sort(rig, -1), np.sort(ric, -1))
+    assert (cg > 0).any()
+
+
+@pytest.mark.cuda
+def test_cuda_estimators_equal_the_cpu_path(cuda_device):
+    from knn_tpu_torch import (KNNRegressor, NearestNeighbors,
+                               RadiusNeighborsClassifier)
+
+    rng = np.random.default_rng(44)
+    q, X = _data(rng, 25, 800, 10, scale=1.0)
+    y = X[:, 0] * 3
+    labels = (np.arange(800) % 3).astype(np.int32)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        res[dev] = (
+            KNNRegressor(k=5, weights="distance", device=dev).fit(X, y)
+            .predict(q),
+            NearestNeighbors(k=5, device=dev).fit(X).kneighbors_graph(q)[1],
+            RadiusNeighborsClassifier(2.5, max_neighbors=400, outlier_label=0,
+                                      device=dev).fit(X, labels).predict(q))
+    c, g = res["cpu"], res[cuda_device]
+    np.testing.assert_allclose(g[0], c[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(g[1], c[1])
+    np.testing.assert_array_equal(g[2], c[2])

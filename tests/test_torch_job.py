@@ -22,7 +22,9 @@ from knn_tpu.ops.vote import majority_vote as jax_vote
 from knn_tpu.parallel.mesh import make_mesh
 from knn_tpu.pipeline import run_job as jax_run_job
 from knn_tpu.utils.config import JobConfig as JaxJobConfig
-from knn_tpu_torch import KNNClassifier, JobConfig, ShardedKNN, run_job
+from knn_tpu_torch import (JobConfig, KNNClassifier, KNNRegressor,
+                           NearestNeighbors, RadiusNeighborsClassifier,
+                           RadiusNeighborsRegressor, ShardedKNN, run_job)
 from knn_tpu_torch.ops.normalize import normalize_transductive
 from knn_tpu_torch.ops.topk import knn_search_tiled, topk_pairs
 from knn_tpu_torch.ops.vote import majority_vote
@@ -114,6 +116,94 @@ def test_cli_job_on_cpu(tmp_path):
     assert labels.shape == (120,)
 
 
+@pytest.mark.parametrize("flags", [
+    ("--mode", "certified", "--selector", "exact"),
+    ("--mode", "certified", "--selector", "approx"),
+    ("--mode", "certified", "--selector", "exact", "--batch-size", "50"),
+    ("--compute-dtype", "bfloat16"),
+    ("--metric", "l1"),
+    ("--metric", "dot"),
+    ("--metric", "manhattan", "--train-tile", "256"),
+    ("--mode", "certified", "--selector", "pallas", "--tune-cache", "CACHE"),
+])
+def test_cli_job_options_match_jax(tmp_path, flags):
+    from knn_tpu.cli import args_to_config as jax_args_to_config
+    from knn_tpu.cli import build_parser as jax_parser
+    from knn_tpu_torch.cli import args_to_config, build_parser
+
+    tr, trl, te, _, va, val = _mnist(seed=3)
+    files = {n: str(tmp_path / f"{n}.csv") for n in ("train", "test", "val")}
+    save_labeled_csv(files["train"], tr, trl)
+    save_unlabeled_csv(files["test"], te)
+    save_labeled_csv(files["val"], va, val)
+    flags = [str(tmp_path / "tune.json") if f == "CACHE" else f
+             for f in flags]
+    argv = ["--train", files["train"], "--test", files["test"], "--val",
+            files["val"], "--k", "11", *flags]
+    jcfg = jax_args_to_config(jax_parser().parse_args(
+        argv + ["--out", str(tmp_path / "jax.csv")]))
+    jres = jax_run_job(jcfg, mesh=make_mesh(1, 1))
+    cfg = args_to_config(build_parser().parse_args(
+        argv + ["--out", str(tmp_path / "port.csv"), "--device", "cpu"]))
+    res = run_job(cfg)
+    np.testing.assert_array_equal(res.val_labels, jres.val_labels)
+    with open(tmp_path / "jax.csv", "rb") as a, open(tmp_path / "port.csv", "rb") as b:
+        assert a.read() == b.read()
+    assert cfg.compute_dtype == jcfg.compute_dtype
+    assert cfg.tune_cache == jcfg.tune_cache
+
+
+def test_certified_job_reads_only_its_tune_cache(tmp_path, monkeypatch):
+    # a winner for the job's shape in the named file: the job's knobs come
+    # from it, and no cache path but that one is opened, under HOME or
+    # anywhere else
+    from knn_tpu_torch import tuning
+    from knn_tpu_torch.tuning import cache as tcache
+
+    home = tmp_path / "home"
+    home.mkdir()
+    monkeypatch.setenv("HOME", str(home))
+    tr, trl, te, _, va, val = _mnist(seed=4)
+    save_labeled_csv(str(tmp_path / "tr.csv"), tr, trl)
+    save_unlabeled_csv(str(tmp_path / "te.csv"), te)
+    cache = str(tmp_path / "tune.json")
+    key = tuning.cache_key("cpu", tr.shape[0], tr.shape[1], 9, "l2")
+    tuning.TuneCache(cache).put(key, {"knobs": {"tile_n": 512},
+                                      "winner_ms": 1.0})
+    opened = []
+    real = tcache.TuneCache.__init__
+
+    def spy(self, path=None):
+        real(self, path)
+        opened.append(self.path)
+
+    monkeypatch.setattr(tcache.TuneCache, "__init__", spy)
+    res = run_job(JobConfig(train_file=str(tmp_path / "tr.csv"),
+                            test_file=str(tmp_path / "te.csv"), val_file=None,
+                            validation=False, k=9, mode="certified",
+                            tune_cache=cache, device="cpu",
+                            output_file=str(tmp_path / "out.csv")))
+    assert opened and set(opened) == {cache}
+    assert res.certified_stats["tuning"]["source"] == "cache"
+    assert res.certified_stats["pallas_knobs"]["tile_n"] == 512
+    assert not any(home.iterdir())
+    # without it, the job reads the default path and nothing else
+    opened.clear()
+    run_job(JobConfig(train_file=str(tmp_path / "tr.csv"),
+                      test_file=str(tmp_path / "te.csv"), val_file=None,
+                      validation=False, k=9, mode="certified", device="cpu",
+                      output_file=str(tmp_path / "out2.csv")))
+    assert set(opened) == {tcache.default_cache_path()}
+
+
+def test_job_config_refuses_as_the_reference_does():
+    with pytest.raises(ValueError, match="l2 or cosine"):
+        JobConfig(metric="dot", mode="certified", validation=False)
+    with pytest.raises(ValueError, match="selector"):
+        JobConfig(selector="fast", validation=False)
+    assert JobConfig(metric="MANHATTAN", validation=False).metric == "manhattan"
+
+
 def test_vote_and_normalize_match_jax():
     rng = np.random.default_rng(4)
     labels = rng.integers(0, 5, size=(200, 9)).astype(np.int32)
@@ -190,6 +280,10 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.ops.coarse_knn, knn_tpu_torch.ops.certified\n"
         "import knn_tpu_torch.ops.refine, knn_tpu_torch.data.datasets\n"
         "import knn_tpu_torch.models.classifier, knn_tpu_torch.parallel.sharded\n"
+        "import knn_tpu_torch.models.regressor, knn_tpu_torch.models.neighbors\n"
+        "import knn_tpu_torch.models.radius, knn_tpu_torch.ops.radius\n"
+        "import knn_tpu_torch.ops.distance, knn_tpu_torch.ops.topk\n"
+        "import knn_tpu_torch.data.vecs, knn_tpu_torch.ops.metrics\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'knn_tpu' or m.startswith('knn_tpu.'))\n"
         "print(bad)\n")
@@ -216,5 +310,12 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):
                           validation=False, k=2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--train", csv, "--test", csv, "--k", "2"])
+    for cls in (KNNRegressor, NearestNeighbors):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(k=2)
+    for cls in (RadiusNeighborsClassifier, RadiusNeighborsRegressor):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(1.0)
     assert ShardedKNN(X, k=2, device="cpu").device.type == "cpu"
     assert KNNClassifier(k=2, device="cpu").device.type == "cpu"
+    assert NearestNeighbors(k=2, device="cpu").device.type == "cpu"
