@@ -195,7 +195,34 @@ exits non-zero and prints no result):
              |s_kernel - s_f64| / tolerance ratio of bf16x3, bf16x3f and
              highest at Dp = 896 on the job's rows (must stay below 1), and
              K2's three entries timed there;
-15. kernels — one JSON line per the contract: each ported kernel (K1,
+15. index  — a ``MutableIndex`` of the ``main`` rows (k=100, reserve 32):
+             4,096 rows inserted in three writes across the tail's rungs
+             (256, 2,048, 4,096), the whole reserve deleted and a 33rd
+             delete refused (MutationBudgetError), ``search_certified`` on
+             1,024 queries launching K1 once and no other kernel, bitwise a
+             fresh index of the survivors built on the card, recall@100 =
+             1.0 with the float64 oracle's indices on 256 queries, bitwise
+             again after ``compact()`` and across a background compaction
+             while this thread searches; the tail's float64 host refine's
+             share of a call; ``search()``'s recall;
+16. ivf    — an ``IVFIndex`` of 131,072 x 128 clustered rows
+             (``make_blobs(131072 + 128, 128, 362, seed=0)``, the last 128
+             rows the queries; 362 lists, nprobe 90): the exact selector
+             and the pallas selector through K2, K1, K5 in each of tiled,
+             streaming and fused (K10, K11), every combination bitwise,
+             recall@100 = 1.0 with the oracle's indices, one launch per
+             probe group, the host split of each call and the placement of
+             one group's block; ``nprobe = ncentroids`` on the uniform
+             ``main`` rows cut to 131,072, 64 queries, bitwise
+             ``refine_shared_exact`` brute force; the default nprobe there
+             (every query repaired); an insert, delete and compact cycle
+             exact;
+17. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
+             4,096-row superblocks: ``mode="stream"`` bitwise the looped
+             ``search`` (rows/s, overlap_ratio), ``mode="certified"``
+             bitwise the looped ``search_certified`` with K1 launched 4
+             times;
+18. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, K1 at Dp = 256 on the dot path, the entries of K4,
              K2, K3, K5, K6, K7, the db-major grid K9, the lane entries K8
              and the deep grouped entries of every arm)
@@ -207,8 +234,9 @@ Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases`` runs a subset (e.g. ``--phases device,build,kernel``,
 ``--phases device,build,kernel,stream``, ``--phases device,build,quant``,
 ``--phases device,build,f32arms``, ``--phases device,build,pq``,
-``--phases device,build,lane``, ``--phases device,build,survivors,tune`` or
-``--phases device,build,selectors,metrics``).
+``--phases device,build,lane``, ``--phases device,build,survivors,tune``,
+``--phases device,build,selectors,metrics`` or
+``--phases device,build,index,ivf,join``).
 """
 
 from __future__ import annotations
@@ -1087,7 +1115,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="device,build,kernel,main,profile,stream,"
                     "selectors,metrics,quant,f32arms,pq,lane,survivors,tune,"
-                    "classify",
+                    "index,ivf,join,classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3168,8 +3196,320 @@ def main(argv=None) -> int:
         del base, sk, nn, rclf
         emit(out)
 
+    def nonzero_launches(launches):
+        return {key: n for key, n in launches.items() if n}
+
+    def live_oracle(q_dev, rows_np, ids_np, k):
+        """(ids [Q, k], d [Q, k]) of the float64 oracle over ``rows_np``
+        (in the order a fresh index would hold them), on the card."""
+        rows_dev = torch.from_numpy(np.ascontiguousarray(rows_np)).to(dev)
+        od, oi = f64_oracle(q_dev, rows_dev, k)
+        del rows_dev
+        return ids_np[oi.cpu().numpy()], od.cpu().numpy()
+
+    def all_equal(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def phase_index(S):
+        """MutableIndex over the main rows (k=100, reserve 32): 4,096 rows
+        inserted in three writes that cross ladder rungs, the whole reserve
+        deleted (a 33rd delete refused), search_certified through K1
+        bitwise a fresh index of the survivors and the f64 oracle,
+        compaction, a background compaction under searches, search()'s
+        recall."""
+        from knn_tpu_torch.index import MutableIndex, MutationBudgetError
+
+        k, n, dim = S["k"], S["n"], S["dim"]
+        db = S["knn"].placement.db_host
+        q = S["q_np"][:1024]
+        out = {"phase": "index", "n": n, "dim": dim, "k": k, "reserve": 32,
+               "queries": 1024, "nvidia_smi": smi}
+        t0 = time.perf_counter()
+        idx = MutableIndex(db, k=k, reserve=32)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        new = (np.random.default_rng(2).random(size=(4096, dim))
+               * 128.0).astype(np.float32)
+        rungs = []
+        for lo, hi in ((0, 200), (200, 1100), (1100, 4096)):
+            idx.insert(new[lo:hi], np.arange(n + lo, n + hi))
+            rungs.append(idx.stats()["tail_capacity"])
+        if rungs != [256, 2048, 4096]:
+            raise AssertionError(f"index: tail rungs {rungs}")
+        # the whole reserve: the nearest rows of the first queries, then
+        # tail rows
+        _, i0, _ = idx.search_certified(q[:64])
+        dead = list(dict.fromkeys(int(x) for x in i0[:, 0]))[:24]
+        dead += [n + j for j in range(0, 4096, 256)][: 32 - len(dead)]
+        idx.delete(dead)
+        try:
+            idx.delete([n + 1])
+        except MutationBudgetError as e:
+            refusal = f"MutationBudgetError: {e}"
+        else:
+            raise AssertionError("index: a 33rd delete was not refused")
+        rows = np.concatenate([db, new])
+        ids = np.arange(n + 4096)
+        live = ~np.isin(ids, dead)
+        walls = {}
+        splits = {}
+
+        def certified(index, label, queries=q):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = index.search_certified(
+                queries, timings=splits.setdefault(label, {}))
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            launches = nonzero_launches(read_launches())
+            if launches != {"k1": 1}:
+                raise AssertionError(f"index {label}: launches {launches}, "
+                                     f"expected K1 once and nothing else")
+            return res
+
+        mutated = certified(idx, "mutated")
+        t0 = time.perf_counter()
+        fresh = MutableIndex(rows[live], ids[live], k=k, reserve=32)
+        torch.cuda.synchronize()
+        fresh_build_s = time.perf_counter() - t0
+        if not all_equal(mutated[:2], certified(fresh, "fresh")[:2]):
+            raise AssertionError("index: mutated differs from fresh")
+        del fresh
+        oi, od = live_oracle(S["q_dev"][:256], rows[live], ids[live], k)
+        d_m, i_m = mutated[:2]
+        recall = float(np.mean([len(set(a) & set(b)) / k
+                                for a, b in zip(i_m[:256], oi)]))
+        rel = float(np.max(np.abs(d_m[:256] - od) / np.maximum(od, 1e-30)))
+        if recall != 1.0 or not np.array_equal(i_m[:256], oi) or rel > 1e-12:
+            raise AssertionError(f"index: oracle recall {recall}, rel {rel}")
+        rep = idx.compact()
+        if not all_equal(mutated[:2], certified(idx, "compacted")[:2]):
+            raise AssertionError("index: the compacted index differs")
+        # a background compaction while this thread searches: every search
+        # across the swap returns the same answer, bitwise
+        extra = new[:64] + np.float32(0.5)
+        extra_ids = np.arange(n + 10_000, n + 10_064)
+        idx.insert(extra, extra_ids)
+        dead2 = [int(i_m[0, 0]), int(extra_ids[1])]
+        idx.delete(dead2)
+        q256 = q[:256]
+        ref = idx.search_certified(q256)
+        swaps0 = idx.stats()["compactions"]
+        t0 = time.perf_counter()
+        idx.start_compactor(interval_s=0.05)
+        searches = 0
+        while idx.stats()["compactions"] == swaps0 or searches < 3:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("index: background compaction stalled")
+            if not all_equal(ref[:2], idx.search_certified(q256)[:2]):
+                raise AssertionError("index: a search across the swap "
+                                     "differs")
+            searches += 1
+        idx.close()  # re-raises a failed compaction's error
+        if not all_equal(ref[:2], idx.search_certified(q256)[:2]):
+            raise AssertionError("index: the search after the swap differs")
+        rows2 = np.concatenate([rows[live], extra])
+        ids2 = np.concatenate([ids[live], extra_ids])
+        live2 = ~np.isin(ids2, dead2)
+        oi2, _ = live_oracle(S["q_dev"][:256], rows2[live2], ids2[live2], k)
+        _, i_s = idx.search(q256)
+        recall_search = float(np.mean([len(set(a) & set(b)) / k
+                                       for a, b in zip(i_s, oi2)]))
+        if not np.array_equal(ref[1], oi2):
+            raise AssertionError("index: certified ids after the swap are "
+                                 "not the oracle's")
+        out.update(
+            fresh_build_s=fresh_build_s,
+            tail_rungs=rungs, deleted=len(dead), delete_33_refused=refusal,
+            certified_qps={key: q.shape[0] / w for key, w in walls.items()},
+            walls_s=walls, host_split_s=splits,
+            tail_refine_share=(splits["mutated"]["tail_refine"]
+                               / sum(splits["mutated"].values())),
+            fallback_queries=mutated[2]["fallback_queries"],
+            index_stats=mutated[2]["index"], launches_per_call={"k1": 1},
+            bitwise_fresh=True, bitwise_after_compact=True,
+            oracle_queries=256, recall_at_k=recall, same_indices=True,
+            max_rel_dist_err_f64=rel, compaction=rep,
+            background={"searches_bitwise": searches,
+                        "stats": idx.stats()},
+            search_recall_at_k=recall_search)
+        emit(out)
+
+    def phase_ivf(S):
+        """IVFIndex at 131,072 x 128 on clustered data (362 blobs): the
+        exact selector and the pallas selector through K2, K1, K5, K10 and
+        K11, all bitwise; the nprobe = ncentroids anchor on the uniform
+        main rows; an insert, delete and compact cycle."""
+        from knn_tpu_torch.data.datasets import make_blobs
+        from knn_tpu_torch.ivf import IVFIndex
+        from knn_tpu_torch.ops.refine import refine_shared_exact
+
+        n, k = 131072, S["k"]
+        feats, _ = make_blobs(n + 128, S["dim"], 362, seed=0)
+        rows, q = feats[:n], feats[n:]
+        q_dev = torch.from_numpy(q).to(dev)
+        out = {"phase": "ivf", "n": n, "dim": S["dim"], "k": k,
+               "queries": 128, "nvidia_smi": smi}
+        t0 = time.perf_counter()
+        idx = IVFIndex(rows, k=k)
+        out["train_s"] = time.perf_counter() - t0
+        oi, od = live_oracle(q_dev, rows, np.arange(n), k)
+        combos = [("exact", None, None)] + [
+            ("pallas", prec, kern) for prec in ("highest", "bf16x3", "int8")
+            for kern in ("tiled", "streaming", "fused")]
+        # the kernel each pallas combination's launches are counted under
+        own = {("highest", "tiled"): "tiled_highest",
+               ("highest", "streaming"): "streaming_highest",
+               ("highest", "fused"): "fused_highest",
+               ("bf16x3", "tiled"): "k1", ("bf16x3", "streaming"): "k10",
+               ("bf16x3", "fused"): "k11", ("int8", "tiled"): "tiled_int8",
+               ("int8", "streaming"): "streaming_int8",
+               ("int8", "fused"): "fused_int8"}
+        runs, ref = {}, None
+        for sel, prec, kern in combos:
+            kw = {"selector": sel}
+            if sel == "pallas":
+                kw.update(precision=prec, kernel=kern)
+            label = sel if sel == "exact" else f"{prec}_{kern}"
+            timings = {}
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, i, st = idx.search_certified(q, timings=timings, **kw)
+            wall = time.perf_counter() - t0
+            launches = nonzero_launches(read_launches())
+            want = {} if sel == "exact" else {own[(prec, kern)]: st["groups"]}
+            if launches != want:
+                raise AssertionError(f"ivf {label}: launches {launches}, "
+                                     f"expected {want}")
+            if ref is None:
+                ref = (d, i)
+                recall = float(np.mean([len(set(a) & set(b)) / k
+                                        for a, b in zip(i, oi)]))
+                rel = float(np.max(np.abs(d - od) / np.maximum(od, 1e-30)))
+                if recall != 1.0 or not np.array_equal(i, oi) or rel > 1e-12:
+                    raise AssertionError(
+                        f"ivf: oracle recall {recall}, rel {rel}")
+            elif not all_equal(ref, (d, i)):
+                raise AssertionError(f"ivf {label}: differs from exact")
+            runs[label] = {
+                "wall_s": wall, "qps": q.shape[0] / wall,
+                "launches": launches, "host_split_s": timings,
+                **{key: st[key] for key in (
+                    "groups", "certified_queries", "fallback_queries",
+                    "probe_fraction", "bytes_streamed_ratio",
+                    "recall_at_k")}}
+        # one block's placement alone (the pallas selector places each
+        # probe group's block afresh): the device step's placement share
+        from knn_tpu_torch import ShardedKNN
+
+        snap = idx._snapshot()
+        probes, _ = idx._probe(q[:1].astype(np.float64), snap, idx.nprobe)
+        block = snap.all_rows[snap.positions_for(tuple(probes[0].tolist()))]
+        _, place_s = host_timed(lambda: ShardedKNN(block, k=k))
+        # the anchor: nprobe = ncentroids on the uniform main rows is
+        # float64 brute force, bitwise
+        uni = np.ascontiguousarray(S["knn"].placement.db_host[:n])
+        qu = S["q_np"][:64]
+        t0 = time.perf_counter()
+        uidx = IVFIndex(uni, k=k)
+        anchor_train_s = time.perf_counter() - t0
+        d_a, i_a, st_a = uidx.search_certified(qu, nprobe=uidx.ncentroids)
+        t0 = time.perf_counter()
+        if not all_equal((d_a, i_a), refine_shared_exact(
+                uni, qu, np.arange(n, dtype=np.int64), k)):
+            raise AssertionError("ivf: nprobe = ncentroids is not brute "
+                                 "force bitwise")
+        brute_s = time.perf_counter() - t0
+        # uniform data at the default nprobe: the residual bound fails
+        # and every query is repaired on the host (16 queries: ~0.25 s each)
+        timings = {}
+        _, _, st_u = uidx.search_certified(qu[:16], timings=timings)
+        del uidx
+        # one insert, delete and compact cycle stays exact
+        extra = (rows[:256] + np.float32(0.25)).astype(np.float32)
+        idx.insert(extra, np.arange(n, n + 256))
+        gone = [int(x) for x in ref[1][:4, 0]] + [n + 3]
+        idx.delete(gone)
+        rows2 = np.concatenate([rows, extra])
+        ids2 = np.arange(n + 256)
+        live2 = ~np.isin(ids2, gone)
+        oi2, _ = live_oracle(q_dev, rows2[live2], ids2[live2], k)
+        before = idx.search_certified(q)
+        if not np.array_equal(before[1], oi2):
+            raise AssertionError("ivf: mutated ids are not the oracle's")
+        rep = idx.compact()
+        after = idx.search_certified(q, selector="pallas", precision="bf16x3")
+        if not all_equal(before[:2], after[:2]):
+            raise AssertionError("ivf: the compacted index differs")
+        out.update(
+            ncentroids=idx.ncentroids, nprobe=idx.nprobe, runs=runs,
+            bitwise_all_combinations=True, recall_at_k=recall,
+            same_indices=True, max_rel_dist_err_f64=rel,
+            block_rows=int(block.shape[0]), block_placement_s=place_s,
+            anchor={"rows": n, "queries": 64, "train_s": anchor_train_s,
+                    "ncentroids": st_a["ncentroids"],
+                    "probe_fraction": st_a["probe_fraction"],
+                    "bitwise_brute_force": True, "brute_force_s": brute_s},
+            uniform_default_nprobe={
+                key: st_u[key] for key in ("queries", "fallback_queries",
+                                           "probe_fraction", "wall_s")},
+            uniform_host_split_s=timings,
+            mutation={"inserted": 256, "deleted": len(gone),
+                      "oracle_ids": True, "bitwise_after_compact": True,
+                      "compaction": rep})
+        emit(out)
+
+    def phase_join(S):
+        """knn_join on the main placement: A = 16,384 rows, superblocks of
+        4,096 — the stream bitwise the looped search at that block shape,
+        the certified join bitwise the looped search_certified, K1 once a
+        superblock."""
+        from knn_tpu_torch.join import knn_join
+
+        knn, k = S["knn"], S["k"]
+        a = (np.random.default_rng(3).random(size=(16384, S["dim"]))
+             * 128.0).astype(np.float32)
+        out = {"phase": "join", "n": S["n"], "rows": a.shape[0], "k": k,
+               "superblock_rows": 4096, "nvidia_smi": smi}
+        reset_launches()
+        torch.cuda.synchronize()
+        d, i, st = knn_join(knn, a, mode="stream", superblock_rows=4096)
+        if nonzero_launches(read_launches()):
+            raise AssertionError("join stream launched a coarse kernel")
+        looped = [tuple(t.cpu().numpy() for t in knn.search(a[lo:lo + 4096]))
+                  for lo in range(0, a.shape[0], 4096)]
+        if not all_equal((d, i), [np.concatenate(x) for x in zip(*looped)]):
+            raise AssertionError("join stream differs from the looped search")
+        # the certified join: the main path's certified search per block
+        reset_launches()
+        torch.cuda.synchronize()
+        dc, ic, stc = knn_join(knn, a, mode="certified", superblock_rows=4096)
+        launches = nonzero_launches(read_launches())
+        if launches != {"k1": 4}:
+            raise AssertionError(f"join certified: launches {launches}")
+        looped = [knn.search_certified(a[lo:lo + 4096])[:2]
+                  for lo in range(0, a.shape[0], 4096)]
+        if not all_equal((dc, ic), [np.concatenate(x) for x in zip(*looped)]):
+            raise AssertionError("join certified differs from the looped "
+                                 "search_certified")
+        agree = float((i == ic).mean())
+        out.update(
+            stream={key: st[key] for key in (
+                "rows_per_s", "overlap_ratio", "wall_s", "superblocks",
+                "dispatches", "depth", "order")},
+            certified={key: stc[key] for key in (
+                "rows_per_s", "wall_s", "superblocks", "dispatches",
+                "fallback_queries")},
+            certified_launches=launches, stream_bitwise_looped=True,
+            certified_bitwise_looped=True,
+            stream_ids_equal_certified_share=agree)
+        emit(out)
+
     if phases & {"main", "stream", "selectors", "metrics", "quant",
-                  "f32arms", "pq", "lane", "survivors", "tune"}:
+                  "f32arms", "pq", "lane", "survivors", "tune", "index",
+                  "ivf", "join"}:
         if "main" in phases:
             phase_main(sift_data())
         if "stream" in phases:
@@ -3192,6 +3532,12 @@ def main(argv=None) -> int:
             phase_survivors(sift_data())
         if "tune" in phases:
             phase_tune(sift_data())
+        if "index" in phases:
+            phase_index(sift_data())
+        if "ivf" in phases:
+            phase_ivf(sift_data())
+        if "join" in phases:
+            phase_join(sift_data())
         sift.clear()  # frees the placement before the classify job
         torch.cuda.empty_cache()
 

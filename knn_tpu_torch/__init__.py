@@ -26,12 +26,23 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 - :class:`KNNClassifier`, :class:`KNNRegressor`,
   :class:`NearestNeighbors`, :class:`RadiusNeighborsClassifier`,
   :class:`RadiusNeighborsRegressor` — the estimators;
+- :class:`MutableIndex` (``knn_tpu_torch.index``) — inserts, deletes and
+  snapshot-swap compaction over a placement, its certified search bitwise
+  a fresh index of the surviving rows;
+- :class:`IVFIndex` (``knn_tpu_torch.ivf``) — the probed IVF tier with its
+  residual certificate and exact float64 repair;
+- :func:`knn_join` (``knn_tpu_torch.join``) — the bulk join of a query
+  set against a placement or an IVF index;
 - :func:`run_job` with :class:`JobConfig` — the reference job
-  (``python -m knn_tpu_torch.cli``); :func:`make_database` and
+  (``python -m knn_tpu_torch.cli``, with the ``tune``, ``join`` and
+  ``index --selftest`` subcommands); :func:`make_database` and
   ``knn_tpu_torch.data.vecs`` for benchmark data.
 """
 
 from knn_tpu_torch.data.datasets import make_database
+from knn_tpu_torch.index import MutableIndex
+from knn_tpu_torch.ivf import IVFIndex
+from knn_tpu_torch.join import knn_join
 from knn_tpu_torch.models.classifier import KNNClassifier
 from knn_tpu_torch.models.neighbors import NearestNeighbors
 from knn_tpu_torch.models.radius import (RadiusNeighborsClassifier,
@@ -45,9 +56,9 @@ from knn_tpu_torch.parallel.sharded import ShardedKNN, unpack_certified
 from knn_tpu_torch.pipeline import JobResult, run_job
 from knn_tpu_torch.utils.config import JobConfig
 
-__all__ = ["JobConfig", "JobResult", "KNNClassifier", "KNNRegressor",
-           "NearestNeighbors", "RadiusNeighborsClassifier",
-           "RadiusNeighborsRegressor", "ShardedKNN", "count_below",
-           "knn_search_certified", "knn_search_pallas", "make_database",
-           "pallas_candidate_fn", "radius_search", "run_job",
-           "unpack_certified"]
+__all__ = ["IVFIndex", "JobConfig", "JobResult", "KNNClassifier",
+           "KNNRegressor", "MutableIndex", "NearestNeighbors",
+           "RadiusNeighborsClassifier", "RadiusNeighborsRegressor",
+           "ShardedKNN", "count_below", "knn_join", "knn_search_certified",
+           "knn_search_pallas", "make_database", "pallas_candidate_fn",
+           "radius_search", "run_job", "unpack_certified"]

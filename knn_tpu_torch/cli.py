@@ -1,10 +1,13 @@
 """Command line of the port on one GPU — the job path of knn_tpu/cli.py
-(``main``) and its ``tune`` subcommand, as ``python -m knn_tpu_torch.cli``::
+(``main``) and its ``tune``, ``join`` and ``index --selftest``
+subcommands, as ``python -m knn_tpu_torch.cli``::
 
     python -m knn_tpu_torch.cli --train train.csv --test test.csv \\
         --val val.csv --k 50 --mode certified --selector pallas \\
         --out Test_label.csv
     python -m knn_tpu_torch.cli tune --n 100000 --dim 128 --k 100
+    python -m knn_tpu_torch.cli join --n 100000 --rows 16384 --k 10
+    python -m knn_tpu_torch.cli index --selftest
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it exits with an error.
@@ -155,12 +158,159 @@ def run_tune(args: argparse.Namespace) -> int:
     return 0
 
 
+def build_join_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch join",
+        description="Bulk all-pairs kNN join (knn_tpu_torch.join): every "
+        "row of a host query set joined against the corpus through the "
+        "double-buffered superblock stream (mode=stream) or the "
+        "certified per-superblock loop (mode=certified).  Prints the plan "
+        "and measured stats as one JSON line.")
+    p.add_argument("--n", type=int, default=100_000, help="corpus rows (B)")
+    p.add_argument("--rows", type=int, default=16_384,
+                   help="query rows (A) — the join's outer set")
+    p.add_argument("--dim", type=int, default=128, help="feature dim")
+    p.add_argument("--k", type=int, default=10, help="neighbor count")
+    p.add_argument("--metric", default="l2",
+                   choices=("l2", "sql2", "euclidean", "cosine", "dot"))
+    p.add_argument("--mode", default="stream",
+                   choices=("stream", "certified"),
+                   help="stream = double-buffered raw top-k; certified = "
+                   "search_certified per superblock (exact, slower)")
+    p.add_argument("--superblock", type=int, default=None,
+                   help="query superblock rows (default: the h2d budget "
+                   "model with --query-budget-bytes, else 4096)")
+    p.add_argument("--depth", type=int, default=None,
+                   help="superblocks in flight (default 2)")
+    p.add_argument("--query-budget-bytes", type=int, default=None,
+                   help="size superblocks from this h2d staging budget "
+                   "(analysis.hbm.plan_superblocks)")
+    p.add_argument("--hbm-budget-bytes", type=int, default=None,
+                   help="refused: the host-RAM db tier is not ported")
+    p.add_argument("--seed", type=int, default=0, help="synthetic data seed")
+    p.add_argument("--json", default=None, metavar="PATH",
+                   help="also write the stats record to this path")
+    p.add_argument("--cpu-devices", type=int, default=None, metavar="N",
+                   help="refused: JAX's virtual devices; use --device cpu")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                   "PyTorch path)")
+    return p
+
+
+def run_join(args: argparse.Namespace) -> int:
+    """The ``join`` subcommand (knn_tpu/cli.py:344-422): synthetic data at
+    the requested shape, knn_tpu_torch.join.knn_join, one summary line and
+    one JSON line (the engine's stats: plan against executed counts,
+    overlap_ratio, rows/s)."""
+    import json
+
+    import numpy as np
+
+    from knn_tpu_torch.join import knn_join
+    from knn_tpu_torch.parallel.sharded import ShardedKNN
+
+    if args.hbm_budget_bytes is not None:
+        raise SystemExit(
+            "join --hbm-budget-bytes: the host-RAM db tier "
+            "(ShardedKNN(hbm_budget_bytes=)) is not ported yet")
+    if args.cpu_devices is not None:
+        raise SystemExit(
+            "join --cpu-devices: JAX's virtual CPU devices have no "
+            "counterpart here; pass --device cpu")
+    rng = np.random.default_rng(args.seed)
+    db = rng.random(size=(args.n, args.dim)).astype(np.float32)
+    qa = rng.random(size=(args.rows, args.dim)).astype(np.float32)
+    prog = ShardedKNN(db, k=args.k, metric=args.metric, device=args.device)
+    _, _, stats = knn_join(
+        prog, qa, mode=args.mode, superblock_rows=args.superblock,
+        depth=args.depth, query_budget_bytes=args.query_budget_bytes)
+    print(f"joined {stats['rows']} x {args.n} rows (k={args.k}, "
+          f"{args.metric}, {stats['mode']}): "
+          f"{stats['rows_per_s']} rows/s over "
+          f"{stats['superblocks']} superblocks x "
+          f"{stats['db_segments']} db segments "
+          f"({stats['order']}, overlap {stats['overlap_ratio']})")
+    print(json.dumps(stats))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(stats, f, indent=2)
+    return 0
+
+
+def build_index_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch index",
+        description="Mutable-index self-test (knn_tpu_torch.index): "
+        "--selftest builds a small synthetic MutableIndex, runs an "
+        "insert/delete/compact cycle and checks the mutation oracle "
+        "(search_certified bitwise against a fresh index of the "
+        "surviving rows) — exit 0 on a bitwise match.  --port/--snapshot "
+        "(the status render) wait for the port's obs layer.")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--port", type=int, default=None,
+                     help="refused: the /statusz render is not ported")
+    src.add_argument("--snapshot", default=None, metavar="PATH",
+                     help="refused: the snapshot render is not ported")
+    src.add_argument("--selftest", action="store_true",
+                     help="run the insert/delete/compact oracle check")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                   "PyTorch path)")
+    return p
+
+
+def run_index(args: argparse.Namespace) -> int:
+    """The ``index`` subcommand: the mutation-oracle self-test of
+    knn_tpu/cli.py:1311-1350 on the port."""
+    import json
+
+    import numpy as np
+
+    from knn_tpu_torch.index import MutableIndex
+
+    if not args.selftest:
+        raise SystemExit(
+            "index --port/--snapshot: the status render reads the obs "
+            "health registry, which is not ported yet; use --selftest")
+    rng = np.random.default_rng(0)
+    db = rng.normal(size=(600, 16)).astype(np.float32) * 10
+    q = rng.normal(size=(8, 16)).astype(np.float32) * 10
+    idx = MutableIndex(db, k=5, reserve=8, device=args.device)
+    new = rng.normal(size=(6, 16)).astype(np.float32) * 10
+    idx.insert(new, np.arange(1000, 1006))
+    idx.delete([3, 11, 40])
+    d_m, i_m, _ = idx.search_certified(q)
+    surv = np.ones(600, bool)
+    surv[[3, 11, 40]] = False
+    rows = np.concatenate([db[surv], new])
+    ids = np.concatenate([np.arange(600)[surv], np.arange(1000, 1006)])
+    fresh = MutableIndex(rows, ids, k=5, reserve=8, device=args.device)
+    d_f, i_f, _ = fresh.search_certified(q)
+    oracle_ok = bool(np.array_equal(d_m, d_f) and np.array_equal(i_m, i_f))
+    rep = idx.compact()
+    d_c, i_c, _ = idx.search_certified(q)
+    compact_ok = bool(np.array_equal(d_c, d_f)
+                      and np.array_equal(i_c, i_f))
+    out = {"ok": oracle_ok and compact_ok,
+           "oracle_bitwise": oracle_ok,
+           "post_compact_bitwise": compact_ok,
+           "compaction": rep, "stats": idx.stats()}
+    print(json.dumps(out, sort_keys=True, default=str))
+    return 0 if out["ok"] else 1
+
+
+#: the subcommands, by leading token: the job's flat interface stays as it is
+SUBCOMMANDS = {"tune": (build_tune_parser, run_tune),
+               "join": (build_join_parser, run_join),
+               "index": (build_index_parser, run_index)}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv[:1] == ["tune"]:
-        # subcommand by leading token: the job's flat interface stays as
-        # it is
-        return run_tune(build_tune_parser().parse_args(argv[1:]))
+    if argv[:1] and argv[0] in SUBCOMMANDS:
+        build, run = SUBCOMMANDS[argv[0]]
+        return run(build().parse_args(argv[1:]))
     args = build_parser().parse_args(argv)
     from knn_tpu_torch.pipeline import run_job
 

@@ -1,1 +1,11 @@
-"""knn_tpu_torch.ivf — see the modules for their knn_tpu counterparts."""
+"""knn_tpu_torch.ivf — the IVF tier on one GPU (the port of knn_tpu/ivf):
+:class:`IVFIndex` (k-means list-major placement, probed search with a
+residual certificate and exact float64 repair, delta tails and
+re-cluster compaction) and its seeded k-means.  The serving frontend
+(``IVFServingEngine``), ``quantize_centroids`` and the ``ivf`` bench-block
+validator are later slices."""
+
+from knn_tpu_torch.ivf.index import SELECTORS, IVFIndex
+from knn_tpu_torch.ivf.kmeans import KMeansResult, train_kmeans
+
+__all__ = ["IVFIndex", "KMeansResult", "SELECTORS", "train_kmeans"]

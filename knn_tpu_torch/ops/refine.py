@@ -1,6 +1,6 @@
 """Exact candidate refinement: restore recall@k = 1.0 after a fast coarse
 pass.  A numpy-only copy of knn_tpu/ops/refine.py (rank_correct_runs,
-refine_exact); the port never imports the JAX package.
+refine_exact, refine_shared_exact); the port never imports the JAX package.
 
 The TPU path ranks with float32 (or bfloat16) distances; at 1M-database
 scale a handful of near-boundary neighbors can swap order vs the float64
@@ -150,3 +150,21 @@ def refine_exact(
         np.take_along_axis(i_sorted, srt2, axis=-1),
     )
 
+
+
+def refine_shared_exact(
+    db: np.ndarray,
+    queries: np.ndarray,
+    positions: np.ndarray,
+    k: int,
+    metric: str = "l2",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`refine_exact` where every query shares ONE candidate set
+    (a 1-D position array) — the IVF certified-fallback shape, where a
+    flagged query re-scores every live row.  Bitwise-identical to
+    ``refine_exact(db, queries, np.broadcast_to(positions, (Q, M)), k)``
+    (it IS that call; the broadcast view materializes only per chunk
+    inside refine_exact's gather, never as a [Q, M] index array)."""
+    positions = np.asarray(positions, dtype=np.int64).reshape(-1)
+    cand = np.broadcast_to(positions, (queries.shape[0], positions.shape[0]))
+    return refine_exact(db, queries, cand, k, metric)

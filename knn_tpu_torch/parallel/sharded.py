@@ -46,7 +46,7 @@ import torch
 
 from knn_tpu_torch import tuning
 from knn_tpu_torch.convert import Placement, placement_from_numpy, row_normalize_f64
-from knn_tpu_torch.device import DeviceLike
+from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.ops.coarse_knn import (
     BIN_W,
     DIM_CHUNK,
@@ -83,6 +83,78 @@ from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
 _EXACT_BLOCK_ELEMS = 1 << 27
 
 
+def _row_blocked(fn, q: torch.Tensor, n_rows: int):
+    """``fn(q_rows) -> tuple of tensors`` over row blocks of ``q`` that
+    keep one [rows, n_rows] distance block within ``_EXACT_BLOCK_ELEMS``
+    (each query's result does not depend on its block), each output
+    concatenated."""
+    rows = max(1, _EXACT_BLOCK_ELEMS // max(1, n_rows))
+    outs = [fn(q[lo : lo + rows]) for lo in range(0, q.shape[0], rows)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _on_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` (host array or tensor) as f32 on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, torch.float32)
+    return torch.from_numpy(
+        np.ascontiguousarray(np.asarray(x, np.float32))).to(device)
+
+
+def query_stream_program(k: int, metric: str = "l2", *,
+                         train_tile: Optional[int] = None,
+                         compute_dtype=None):
+    """The resident exact search over one query block — the JAX package's
+    ``query_stream_program`` (sharded.py:348-380) on one device:
+    ``prog(q, db) -> (d [Q, k], i [Q, k])`` device tensors, the
+    placement's metric in ``compute_dtype`` (f32 accumulation) and a
+    stable top-k, in query row blocks of ``_EXACT_BLOCK_ELEMS``.
+    :meth:`ShardedKNN.search` runs this program, so a join that streams
+    query blocks through it is bitwise the looped search at the same
+    block shape."""
+    def prog(q: torch.Tensor, db: torch.Tensor):
+        return _row_blocked(
+            lambda qb: knn_search_tiled(qb, db, k, metric,
+                                        train_tile=train_tile,
+                                        compute_dtype=compute_dtype),
+            q, db.shape[0])
+
+    return prog
+
+
+def segment_search_program(k: int, metric: str = "l2", *,
+                           train_tile: Optional[int] = None,
+                           compute_dtype=None, device: DeviceLike = None):
+    """The exact tiled search of one padded db segment — the one-device
+    form of the JAX package's ``_hosttier_program`` / ``segment_search_program``
+    (sharded.py:275-346): ``prog(q, seg, n_valid) -> (d [Q, k], i [Q,
+    k])`` on ``device`` (None = cuda; host arrays are placed there).
+    Rows at or above the runtime ``n_valid`` are padding: they are masked
+    to +inf before the select, and any of them still in the top-k (fewer
+    than k valid rows) come back as ``+inf`` with the int32-max sentinel
+    index.  A new ``n_valid`` (a grown delta tail, another probe set)
+    never changes the segment's shape."""
+    dev = resolve_device(device)
+
+    def prog(q, seg, n_valid: int):
+        q, seg = _on_device(q, dev), _on_device(seg, dev)
+        n_valid = int(n_valid)
+        if not 0 <= n_valid <= seg.shape[0]:
+            raise ValueError(
+                f"n_valid={n_valid} outside [0, {seg.shape[0]}] segment rows")
+        d, i = _row_blocked(
+            lambda qb: knn_search_tiled(qb, seg, k, metric,
+                                        train_tile=train_tile,
+                                        compute_dtype=compute_dtype,
+                                        n_valid=n_valid),
+            q, seg.shape[0])
+        pad = i >= n_valid
+        return (torch.where(pad, torch.inf, d),
+                torch.where(pad, torch.full_like(i, I32MAX), i))
+
+    return prog
+
+
 def _analysis_window(k: int, m: int) -> int:
     """Width of the device rank-analysis window — one home for the
     certify output's column count and its unpack."""
@@ -112,17 +184,16 @@ def _overlap_ratio(intervals) -> float:
     return overlapped / wall if wall > 0 else 0.0
 
 
-def _fetch_async(packed):
-    """Starts the device->host copies of one batch's certify output
-    ``(gi, tight, bad, dk or None)`` on the current stream into pinned
-    host buffers and records an event behind them.  Returns the host
-    tensors and the event: the host waits on that event alone, not on the
-    batches enqueued after it.  On the CPU: the tensors and None."""
-    gi = packed[0].to(torch.int32)
-    if gi.device.type != "cuda":
-        return (gi, *packed[1:]), None
+def _host_copies(tensors):
+    """Starts the device->host copies of ``tensors`` (None entries pass)
+    on the current stream into pinned host buffers and records an event
+    behind them.  Returns the host tensors and the event: the host waits
+    on that event alone, not on the work enqueued after it.  On the CPU:
+    the tensors and None."""
+    if tensors[0].device.type != "cuda":
+        return tuple(tensors), None
     host = []
-    for t in (gi, *packed[1:]):
+    for t in tensors:
         if t is None:
             host.append(None)
             continue
@@ -132,6 +203,12 @@ def _fetch_async(packed):
     event = torch.cuda.Event()
     event.record()
     return tuple(host), event
+
+
+def _fetch_async(packed):
+    """:func:`_host_copies` of one batch's certify output ``(gi, tight,
+    bad, dk or None)``, gi as int32."""
+    return _host_copies((packed[0].to(torch.int32), *packed[1:]))
 
 
 class ShardedKNN:
@@ -211,21 +288,24 @@ class ShardedKNN:
             q = torch.nn.functional.pad(q, (0, 1))
         return q
 
-    def _blocked(self, fn, q: torch.Tensor):
-        """``fn(q_rows) -> tuple of tensors`` over row blocks of ``q`` that
-        keep one [rows, n_train] distance block within
-        ``_EXACT_BLOCK_ELEMS`` (each query's result does not depend on its
-        block), each output concatenated."""
-        rows = max(1, _EXACT_BLOCK_ELEMS // max(1, self.n_train))
-        outs = [fn(q[lo : lo + rows]) for lo in range(0, q.shape[0], rows)]
-        return tuple(torch.cat(parts) for parts in zip(*outs))
+    def _place_queries(self, queries) -> Tuple[torch.Tensor, int]:
+        """``(queries on the device, their count)`` — the JAX package's
+        ``_place_queries`` (sharded.py:830-843) on one device, the dot
+        placement's zero column included (:meth:`_to_device`); the index
+        tiers and the join place their query blocks through it."""
+        q = self._to_device(queries)
+        return q, q.shape[0]
+
+    def _host_train(self) -> np.ndarray:
+        """The placement's unpadded rows on the host, for float64
+        refinement (the JAX package's ``_host_train``, sharded.py:1178)."""
+        return self.placement.db_host
 
     def _exact_topk(self, q: torch.Tensor, k: int, metric: str,
                     compute_dtype=None):
-        return self._blocked(
-            lambda qb: knn_search_tiled(qb, self.placement.db, k, metric,
-                                        train_tile=self.train_tile,
-                                        compute_dtype=compute_dtype), q)
+        return query_stream_program(
+            k, metric, train_tile=self.train_tile,
+            compute_dtype=compute_dtype)(q, self.placement.db)
 
     def search(self, queries, *, k: Optional[int] = None,
                return_sqrt: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -861,9 +941,10 @@ class ShardedKNN:
                 return self._exact_topk(q, m, "l2", self._dtype_key)[1]
         else:
             def coarse(q):
-                return self._blocked(
+                return _row_blocked(
                     lambda qb: (_approx_candidates(
-                        qb, db, m, compute_dtype=self._dtype_key),), q)[0]
+                        qb, db, m, compute_dtype=self._dtype_key),), q,
+                    self.n_train)[0]
 
         # stage 1: every batch's coarse select, enqueued on the device
         coarse_out = []

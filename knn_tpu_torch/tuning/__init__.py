@@ -19,8 +19,11 @@ from knn_tpu_torch.tuning.autotune import (
     DEFAULT_KNOBS,
     PROFILES,
     autotune,
+    autotune_ivf,
     counters,
     device_kind_of,
+    ivf_grid,
+    ivf_label,
     knob_grid,
     reset_counters,
     resolve,
@@ -36,8 +39,11 @@ from knn_tpu_torch.tuning.cache import (
 __all__ = [
     "DEFAULT_KNOBS",
     "autotune",
+    "autotune_ivf",
     "counters",
     "device_kind_of",
+    "ivf_grid",
+    "ivf_label",
     "knob_grid",
     "reset_counters",
     "resolve",

@@ -45,9 +45,13 @@ What differs from the JAX package:
   (``ShardedKNN._pallas_setup``), whose quantized, highest and pq
   placements are built once per call and shared by every candidate of
   their precision (pq trains its codebooks once).
+- :func:`autotune_ivf` searches the IVF tier's (ncentroids, nprobe) grid
+  (:func:`ivf_grid`) under the same bitwise gate, against float64 brute
+  force; a candidate is recorded ineligible only for a ``ValueError``
+  (the JAX package records every exception), so a device fault raises.
 - Not yet ported: roofline pruning (``prune=`` is refused by name) and the
   entries' roofline attribution wait for ``obs/roofline`` (ROADMAP queue A
-  item 7); ``autotune_ivf`` waits for ``ivf/index`` (queue A item 5).
+  item 7).
 """
 
 from __future__ import annotations
@@ -518,3 +522,148 @@ def autotune(
     cache.put(key, entry)
     return {**entry, "cached": False, "cache_key": key,
             "cache_path": cache.path}
+
+
+def ivf_label(cand: Dict[str, int]) -> str:
+    """Stable IVF candidate label: ``c{ncentroids}p{nprobe}``."""
+    return f"c{cand['ncentroids']}p{cand['nprobe']}"
+
+
+def ivf_grid(n: int) -> List[Dict[str, int]]:
+    """The bounded, deterministic (ncentroids, nprobe) grid of
+    :func:`autotune_ivf` (knn_tpu/tuning/autotune.py:905-926): ncentroids
+    at half, once and twice the ``round(sqrt(n))`` heuristic (clamped so
+    lists average >= 8 rows), nprobe at 1/8, 1/4, 1/2 and all of each.
+    The ``nprobe == ncentroids`` arm of every ncentroids is always present:
+    it must reproduce exact brute force bitwise, anchoring the gate."""
+    import math
+
+    base = max(2, int(round(math.sqrt(max(1, int(n))))))
+    cap = max(2, int(n) // 8)
+    cands: List[Dict[str, int]] = []
+    seen = set()
+    for cc in (base // 2, base, base * 2):
+        cc = max(2, min(int(cc), cap))
+        if cc in seen:
+            continue
+        seen.add(cc)
+        for pp in sorted({max(1, cc // 8), max(1, cc // 4),
+                          max(1, cc // 2), cc}):
+            cands.append({"ncentroids": cc, "nprobe": pp})
+    return cands
+
+
+def autotune_ivf(
+    db, queries, k: int, *, metric: str = "l2", runs: int = 2,
+    grid: Optional[Sequence[Dict[str, int]]] = None,
+    selector: str = "exact", train_iters: int = 5, seed: int = 0,
+    device_kind: Optional[str] = None, device=None,
+) -> Dict[str, object]:
+    """Searches the IVF (ncentroids, nprobe) grid on ``device`` (default
+    ``cuda``) under the same bitwise end-result gate as :func:`autotune`:
+    a candidate's certified search must reproduce exact brute force
+    (``ops.refine.refine_shared_exact`` over every row) exactly or it is
+    marked ineligible — the certified fallback makes every sound candidate
+    pass, so a mismatch means a broken placement.  The score is the mean
+    wall ms over ``runs`` (the IVF search is host-orchestrated), each run
+    between ``torch.cuda.synchronize`` fences, with each candidate's
+    probe_fraction / fallback_rate / bytes_streamed_ratio recorded.  One
+    index is trained per ncentroids and shared by its nprobe ladder.  A
+    candidate that raises ``ValueError`` (a shape its geometry refuses) is
+    recorded ineligible; any other exception — a device fault — raises."""
+    from knn_tpu_torch.device import resolve_device
+    from knn_tpu_torch.ivf import IVFIndex
+    from knn_tpu_torch.ops.refine import refine_shared_exact
+
+    dev = resolve_device(device)
+    db = np.asarray(db, dtype=np.float32)
+    queries = np.asarray(queries, dtype=np.float32)
+    n, d = db.shape
+    if device_kind is None:
+        device_kind = device_kind_of(dev)
+    _bump("tune_searches")
+    candidates = list(grid) if grid is not None else ivf_grid(n)
+    for c in candidates:
+        unknown = set(c) - {"ncentroids", "nprobe"}
+        if unknown:
+            raise ValueError(f"unknown knobs in ivf candidate: {unknown}")
+
+    # the reference: exact brute force over the full corpus — the f64
+    # refine anchor IVFIndex.search_certified resolves to
+    ref_d, ref_i = refine_shared_exact(
+        db, queries, np.arange(n, dtype=np.int64), k, metric=metric)
+
+    timings: Dict[str, Optional[float]] = {}
+    errors: Dict[str, str] = {}
+    stats_per: Dict[str, dict] = {}
+    best_label, best_ms, best_knobs = None, None, None
+    by_cc: Dict[int, List[int]] = {}
+    for cand in candidates:
+        by_cc.setdefault(int(cand["ncentroids"]), []).append(
+            int(cand["nprobe"]))
+    for cc, probes in sorted(by_cc.items()):
+        try:
+            index = IVFIndex(db, k=k, ncentroids=cc, nprobe=max(probes),
+                             metric=metric, train_iters=train_iters,
+                             seed=seed, device=dev)
+        except ValueError as e:  # per arm, recorded
+            for pp in probes:
+                label = ivf_label({"ncentroids": cc, "nprobe": pp})
+                timings[label] = None
+                errors[label] = f"{type(e).__name__}: {e}"
+            continue
+        for pp in sorted(set(probes)):
+            label = ivf_label({"ncentroids": cc, "nprobe": pp})
+            if label in timings:
+                continue  # duplicate candidate
+            try:
+                d_c, i_c, st = index.search_certified(
+                    queries, k=k, nprobe=pp, selector=selector)
+                if not (np.array_equal(i_c, ref_i)
+                        and np.array_equal(d_c, ref_d)):
+                    _bump("candidates_gated_out")
+                    timings[label] = None
+                    errors[label] = "bitwise gate: result != reference"
+                    continue
+                reps = []
+                for _ in range(max(1, runs)):
+                    _fence(dev)
+                    t0 = time.perf_counter()
+                    _, _, st = index.search_certified(
+                        queries, k=k, nprobe=pp, selector=selector)
+                    _fence(dev)
+                    reps.append(time.perf_counter() - t0)
+            except ValueError as e:  # per candidate, recorded
+                timings[label] = None
+                errors[label] = f"{type(e).__name__}: {e}"
+                continue
+            _bump("candidates_timed")
+            ms = float(np.mean(reps)) * 1e3
+            timings[label] = round(ms, 3)
+            stats_per[label] = {
+                kk: st[kk] for kk in
+                ("probe_fraction", "fallback_rate", "recall_at_k",
+                 "bytes_streamed_ratio", "certified_queries",
+                 "fallback_queries")}
+            if best_ms is None or ms < best_ms:
+                best_label, best_ms = label, ms
+                best_knobs = {"ncentroids": cc, "nprobe": pp}
+    if best_knobs is None:
+        raise RuntimeError(
+            f"autotune_ivf: no eligible candidate for n={n} d={d} k={k} "
+            f"(errors: {errors})")
+    return {
+        "knobs": best_knobs,
+        "winner": best_label,
+        "winner_ms": round(best_ms, 3),
+        "timings_ms": timings,
+        "errors": errors,
+        "stats_per_candidate": stats_per,
+        "gate": "bitwise-vs-reference",
+        "runs": int(runs),
+        "n_queries": int(queries.shape[0]),
+        "selector": selector,
+        "device_kind": device_kind,
+        "backend": dev.type,
+        "measured_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+    }

@@ -1242,3 +1242,110 @@ def test_cuda_estimators_equal_the_cpu_path(cuda_device):
     np.testing.assert_allclose(g[0], c[0], rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(g[1], c[1])
     np.testing.assert_array_equal(g[2], c[2])
+
+
+# -- the index tiers and the join ---------------------------------------------
+@pytest.fixture
+def no_card(monkeypatch):
+    """A machine without a GPU, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_tiers_need_a_gpu_unless_cpu_is_asked(no_card):
+    from knn_tpu_torch import tuning
+    from knn_tpu_torch.cli import main
+    from knn_tpu_torch.index import MutableIndex
+    from knn_tpu_torch.ivf import IVFIndex
+    from knn_tpu_torch.parallel.sharded import segment_search_program
+
+    X = np.random.default_rng(50).normal(size=(40, 4)).astype(np.float32)
+    for make in (lambda: MutableIndex(X, k=2),
+                 lambda: IVFIndex(X, k=2),
+                 lambda: segment_search_program(2),
+                 lambda: tuning.autotune_ivf(X, X[:3], 2, runs=1),
+                 lambda: main(["join", "--n", "40", "--rows", "4",
+                               "--dim", "4", "--k", "2"]),
+                 lambda: main(["index", "--selftest"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    MutableIndex(X, k=2, device="cpu")
+    IVFIndex(X, k=2, device="cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_segment_program_masks_rows_at_and_above_n_valid(cuda_device):
+    """Rows at and above n_valid never come back, however near: with fewer
+    valid rows than k the rest are +inf with the int32-max sentinel; the
+    valid rows equal the CPU program's (values to f32 tolerance)."""
+    from knn_tpu_torch.ops.topk import I32MAX
+    from knn_tpu_torch.parallel.sharded import segment_search_program
+
+    rng = np.random.default_rng(51)
+    q, seg = _data(rng, 16, 512, 24)
+    seg[300:] = q[0]  # invalid rows right on top of query 0
+    out = {}
+    for dev in ("cpu", cuda_device):
+        prog = segment_search_program(10, device=dev)
+        out[dev] = [tuple(t.cpu().numpy() for t in prog(q, seg, nv))
+                    for nv in (300, 6)]
+    for (dg, ig), (dc, ic) in zip(out[cuda_device], out["cpu"]):
+        assert ((ig < 300) | (ig == I32MAX)).all()
+        np.testing.assert_array_equal(np.isinf(dg), ig == I32MAX)
+        np.testing.assert_allclose(dg[np.isfinite(dg)], dc[np.isfinite(dc)],
+                                   rtol=1e-5)
+    dg, ig = out[cuda_device][1]
+    assert (ig[:, 6:] == I32MAX).all() and np.isinf(dg[:, 6:]).all()
+    assert set(np.sort(ig[:, :6], -1).ravel()) == set(range(6))
+
+
+@pytest.mark.cuda
+def test_cuda_mutation_oracle(cuda_device):
+    """A small mutation oracle on the card: after inserts, deletes and a
+    compaction, search_certified (the default pallas selector, K1) is
+    bitwise a fresh index of the survivors and the same index on the CPU;
+    the IVF tier and the certified join likewise."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.index import MutableIndex
+    from knn_tpu_torch.ivf import IVFIndex
+    from knn_tpu_torch.join import knn_join
+
+    rng = np.random.default_rng(52)
+    db = (rng.normal(size=(3000, 24)) * 10).astype(np.float32)
+    q = (rng.normal(size=(40, 24)) * 10).astype(np.float32)
+    new = (rng.normal(size=(70, 24)) * 10).astype(np.float32)
+    dead = [3, 250, 2999, 3001]
+    res = {}
+    for dev in ("cpu", cuda_device):
+        idx = MutableIndex(db, k=10, reserve=8, delta_min_rows=64,
+                           device=dev)
+        idx.insert(new[:50], np.arange(3000, 3050))
+        idx.insert(new[50:], np.arange(3050, 3070))  # crosses a rung
+        idx.delete(dead)
+        before = idx.search_certified(q)
+        _, ids = idx.search(q)
+        idx.compact()
+        after = idx.search_certified(q, precision="int8", kernel="fused")
+        res[dev] = (before, after, ids)
+    surv = np.ones(3070, bool)
+    surv[dead] = False
+    rows = np.concatenate([db, new])[surv]
+    fresh = MutableIndex(rows, np.arange(3070)[surv], k=10, reserve=8,
+                         device=cuda_device).search_certified(q)
+    for got in (res[cuda_device][0], res[cuda_device][1], res["cpu"][0]):
+        np.testing.assert_array_equal(got[0], fresh[0])
+        np.testing.assert_array_equal(got[1], fresh[1])
+    # search ranks in f32: near ties may swap against the f64 ranking
+    assert (res[cuda_device][2] == fresh[1]).mean() > 0.99
+    ivf = {dev: IVFIndex(db, k=10, device=dev).search_certified(
+        q, selector="pallas", precision="bf16x3") for dev in ("cpu",
+                                                              cuda_device)}
+    np.testing.assert_array_equal(ivf[cuda_device][0], ivf["cpu"][0])
+    np.testing.assert_array_equal(ivf[cuda_device][1], ivf["cpu"][1])
+    knn = ShardedKNN(db, k=10, device=cuda_device)
+    jd, ji, st = knn_join(knn, q, mode="certified", superblock_rows=16)
+    ld = [knn.search_certified(q[lo:lo + 16]) for lo in range(0, 40, 16)]
+    np.testing.assert_array_equal(jd, np.concatenate([x[0] for x in ld]))
+    np.testing.assert_array_equal(ji, np.concatenate([x[1] for x in ld]))
+    sd, si, sst = knn_join(knn, q, superblock_rows=16)
+    np.testing.assert_array_equal(si, ji)
+    assert sst["dispatches"] == 3

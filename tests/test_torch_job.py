@@ -284,6 +284,10 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.models.radius, knn_tpu_torch.ops.radius\n"
         "import knn_tpu_torch.ops.distance, knn_tpu_torch.ops.topk\n"
         "import knn_tpu_torch.data.vecs, knn_tpu_torch.ops.metrics\n"
+        "import knn_tpu_torch.index, knn_tpu_torch.index.mutable\n"
+        "import knn_tpu_torch.ivf.index, knn_tpu_torch.join\n"
+        "import knn_tpu_torch.join.engine, knn_tpu_torch.analysis\n"
+        "import knn_tpu_torch.analysis.hbm, knn_tpu_torch.analysis.widths\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'knn_tpu' or m.startswith('knn_tpu.'))\n"
         "print(bad)\n")
