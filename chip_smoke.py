@@ -204,7 +204,13 @@ exits non-zero and prints no result):
              1.0 with the float64 oracle's indices on 256 queries, bitwise
              again after ``compact()`` and across a background compaction
              while this thread searches; the tail's float64 host refine's
-             share of a call; ``search()``'s recall;
+             share of a call; ``search()``'s recall; then its serving
+             frontend (``MutableServingEngine``, graphs on the 16..512
+             ladder) through a ``QueryQueue``: reads, ``submit_write``
+             inserts and deletes, a background compaction whose new engine
+             captures its graphs beside live reads, every read bitwise the
+             direct search of its epoch and, after the swap, bitwise a
+             fresh index of the survivors;
 16. ivf    — an ``IVFIndex`` of 131,072 x 128 clustered rows
              (``make_blobs(131072 + 128, 128, 362, seed=0)``, the last 128
              rows the queries; 362 lists, nprobe 90): the exact selector
@@ -216,13 +222,30 @@ exits non-zero and prints no result):
              ``main`` rows cut to 131,072, 64 queries, bitwise
              ``refine_shared_exact`` brute force; the default nprobe there
              (every query repaired); an insert, delete and compact cycle
-             exact;
+             exact; its serving frontend (``IVFServingEngine``, pallas
+             bf16x3) through a ``QueryQueue``, bitwise ``search_certified``
+             with K1 launched per probe group;
 17. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
              4,096-row superblocks: ``mode="stream"`` bitwise the looped
              ``search`` (rows/s, overlap_ratio), ``mode="certified"``
              bitwise the looped ``search_certified`` with K1 launched 4
              times;
-18. kernels — one JSON line per the contract: each ported kernel (K1,
+18. serving — ``ServingEngine`` on the ``main`` placement with the bench
+             ladder 16..512 (``bench.py:805-818``): six CUDA graphs after
+             ``warmup()``, the 48-request log-uniform trace (seed 42)
+             replayed twice at depth 2 (no capture the second time), every
+             request bitwise an eager ``search`` of its padded batch,
+             recall@100 = 1.0 against the float64 oracle on the trace's
+             first 256 rows, sustained q/s, p50/p95/p99, warmup seconds
+             and the graph pool's bytes; ``predict`` through the engine on
+             the placement with labels equal to ``ShardedKNN.predict``;
+             256 concurrent 1-8-row requests through a ``QueryQueue``, each
+             bitwise its coalesced batch's search; a knee sweep (3 rates x
+             1 s, sizes 1-8, SLO 100 ms); ``streaming_certified_knn`` of
+             the 4,096 queries in 1,024-query segments, two segments
+             removed and resumed, bitwise the direct ``search_certified``,
+             K1 launched once a segment;
+19. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, K1 at Dp = 256 on the dot path, the entries of K4,
              K2, K3, K5, K6, K7, the db-major grid K9, the lane entries K8
              and the deep grouped entries of every arm)
@@ -235,8 +258,9 @@ Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases device,build,kernel,stream``, ``--phases device,build,quant``,
 ``--phases device,build,f32arms``, ``--phases device,build,pq``,
 ``--phases device,build,lane``, ``--phases device,build,survivors,tune``,
-``--phases device,build,selectors,metrics`` or
-``--phases device,build,index,ivf,join``).
+``--phases device,build,selectors,metrics``,
+``--phases device,build,index,ivf,join`` or
+``--phases device,build,serving``).
 """
 
 from __future__ import annotations
@@ -1115,7 +1139,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="device,build,kernel,main,profile,stream,"
                     "selectors,metrics,quant,f32arms,pq,lane,survivors,tune,"
-                    "index,ivf,join,classify",
+                    "index,ivf,join,serving,classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3319,6 +3343,8 @@ def main(argv=None) -> int:
         if not np.array_equal(ref[1], oi2):
             raise AssertionError("index: certified ids after the swap are "
                                  "not the oracle's")
+        out["serving_frontend"] = index_frontend(S, idx, rows2[live2],
+                                                 ids2[live2])
         out.update(
             fresh_build_s=fresh_build_s,
             tail_rungs=rungs, deleted=len(dead), delete_33_refused=refusal,
@@ -3335,6 +3361,103 @@ def main(argv=None) -> int:
                         "stats": idx.stats()},
             search_recall_at_k=recall_search)
         emit(out)
+
+    def index_frontend(S, idx, rows, ids):
+        """The mutated 1M index's serving frontend (MutableServingEngine,
+        graphs on the 16..512 ladder) through a QueryQueue: reads,
+        submit_write inserts and deletes, then a background compaction
+        whose replacement engine captures its graphs while reads go on.
+        Every read is bitwise the direct search of its padded batch at its
+        epoch (the snapshot before the swap, or after it); the reads after
+        the swap are bitwise a fresh index of the survivors."""
+        from knn_tpu_torch.index import MutableIndex
+        from knn_tpu_torch.serving import QueryQueue, bucket_for
+
+        n, k, dim = S["n"], S["k"], S["dim"]
+        q = S["q_np"]
+        blocks = [q[lo:lo + size] for lo, size in
+                  zip(range(0, 2048, 128), (1, 7, 16, 33, 64, 100, 128, 5))]
+
+        def direct(index, block):
+            padded = np.zeros((bucket_for(eng.buckets, block.shape[0]), dim),
+                              np.float32)
+            padded[:block.shape[0]] = block
+            d, i = index.search(padded)
+            return d[:block.shape[0]], i[:block.shape[0]]
+
+        eng = idx.serving_engine(min_bucket=16, max_bucket=512)
+        _, warm_s = host_timed(eng.warmup)
+        qq = QueryQueue(eng, max_wait_ms=1.0)
+        reads0 = [qq.submit(b).result() for b in blocks]
+        if not all(all_equal(r, direct(idx, b))
+                   for r, b in zip(reads0, blocks)):
+            raise AssertionError("index frontend: a read differs from the "
+                                 "direct search")
+        new = (np.random.default_rng(4).random(size=(256, dim))
+               * 128.0).astype(np.float32)
+        new_ids = np.arange(n + 30_000, n + 30_256)
+        w1 = qq.submit_write("insert", vectors=new, ids=new_ids).result()
+        gone = [int(reads0[0][1][0, 0]), int(new_ids[5])]
+        w2 = qq.submit_write("delete", ids=gone).result()
+        pre = [direct(idx, b) for b in blocks]
+        epoch0 = idx.epoch
+        idx.start_compactor(interval_s=0.05)
+        reads, t0 = [], time.perf_counter()
+        while idx.epoch == epoch0 or len(reads) < 3 * len(blocks):
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("index frontend: compaction stalled")
+            j = len(reads) % len(blocks)
+            reads.append((j, qq.submit(blocks[j]).result()))
+        idx.close()
+        post = [direct(idx, b) for b in blocks]
+        last = [qq.submit(b).result() for b in blocks]
+        qq.close()
+        fst = qq.stats()
+        n_pre = sum(all_equal(r, pre[j]) for j, r in reads)
+        n_post = sum(all_equal(r, post[j]) for j, r in reads)
+        if any(not (all_equal(r, pre[j]) or all_equal(r, post[j]))
+               for j, r in reads):
+            raise AssertionError("index frontend: a read across the swap is "
+                                 "neither epoch's direct search")
+        if not all(all_equal(r, p) for r, p in zip(last, post)):
+            raise AssertionError("index frontend: a read after the swap "
+                                 "differs from the direct search")
+        if fst["engine"]["compile_count"] != 6:
+            raise AssertionError(
+                f"index frontend: the swapped-in engine holds "
+                f"{fst['engine']['compile_count']} graphs, not 6")
+        # the survivors, as a fresh index holds them: the compacted
+        # placement's row order
+        surv = ~np.isin(ids, gone)
+        rows_s = np.concatenate([rows[surv], new[~np.isin(new_ids, gone)]])
+        ids_s = np.concatenate([ids[surv], new_ids[~np.isin(new_ids, gone)]])
+        snap = idx._snapshot()
+        if not np.array_equal(np.sort(snap.base_ids), np.sort(ids_s)):
+            raise AssertionError("index frontend: the compacted ids are not "
+                                 "the survivors")
+        fresh = MutableIndex(snap.main._host_train(), snap.base_ids, k=k,
+                             reserve=32)
+        if not all(all_equal(p, direct(fresh, b))
+                   for p, b in zip(post, blocks)):
+            raise AssertionError("index frontend: reads after the swap "
+                                 "differ from a fresh index of the survivors")
+        del fresh
+        oi, _ = live_oracle(S["q_dev"][:256], rows_s, ids_s, k)
+        if not np.array_equal(idx.search_certified(q[:256])[1], oi):
+            raise AssertionError("index frontend: certified ids after the "
+                                 "writes are not the oracle's")
+        return {"warmup_s": warm_s, "ladder": list(eng.buckets),
+                "reads_before_writes": len(blocks),
+                "writes": {"insert": w1, "delete": w2},
+                "reads_across_swap": len(reads),
+                "reads_equal_pre_swap": n_pre, "reads_equal_post_swap": n_post,
+                "pre_equals_post": all(all_equal(a, b)
+                                       for a, b in zip(pre, post)),
+                "bitwise_fresh_after_swap": True,
+                "queue": {key: fst[key] for key in (
+                    "requests", "dispatches", "writes", "latency_ms")},
+                "engine_graphs_after_swap": fst["engine"]["compile_count"],
+                "epoch": idx.epoch}
 
     def phase_ivf(S):
         """IVFIndex at 131,072 x 128 on clustered data (362 blobs): the
@@ -3443,6 +3566,26 @@ def main(argv=None) -> int:
         after = idx.search_certified(q, selector="pallas", precision="bf16x3")
         if not all_equal(before[:2], after[:2]):
             raise AssertionError("ivf: the compacted index differs")
+        # the serving frontend through a QueryQueue (K1 per probe group),
+        # bitwise the direct search_certified
+        from knn_tpu_torch.serving import QueryQueue
+
+        ieng = idx.serving_engine(buckets=(8, 16), selector="pallas",
+                                  precision="bf16x3")
+        reset_launches()
+        with QueryQueue(ieng, max_wait_ms=1.0) as qq:
+            futs = [qq.submit(q[lo:lo + 16]) for lo in range(0, 64, 16)]
+            served = [f.result() for f in futs]
+            ivf_q = qq.stats()
+        ivf_launches = nonzero_launches(read_launches())
+        if set(ivf_launches) != {"k1"}:
+            raise AssertionError(f"ivf frontend: launches {ivf_launches}")
+        direct = idx.search_certified(q[:64], selector="pallas",
+                                      precision="bf16x3")
+        if not all_equal([np.concatenate(x) for x in zip(*served)],
+                         direct[:2]):
+            raise AssertionError("ivf frontend: served reads differ from "
+                                 "the direct search_certified")
         out.update(
             ncentroids=idx.ncentroids, nprobe=idx.nprobe, runs=runs,
             bitwise_all_combinations=True, recall_at_k=recall,
@@ -3458,7 +3601,12 @@ def main(argv=None) -> int:
             uniform_host_split_s=timings,
             mutation={"inserted": 256, "deleted": len(gone),
                       "oracle_ids": True, "bitwise_after_compact": True,
-                      "compaction": rep})
+                      "compaction": rep},
+            serving_frontend={"requests": 4, "queries": 64,
+                              "k1_launches": ivf_launches["k1"],
+                              "dispatches": ivf_q["dispatches"],
+                              "latency_ms": ivf_q["latency_ms"],
+                              "bitwise_direct": True})
         emit(out)
 
     def phase_join(S):
@@ -3507,9 +3655,246 @@ def main(argv=None) -> int:
             stream_ids_equal_certified_share=agree)
         emit(out)
 
+    def phase_serving(S):
+        """The serving stack at the main shape (1M x 128, k=100): a
+        ServingEngine on the main placement with the JAX package's bench
+        ladder (16..512, bench.py:805-818) captures one CUDA graph per rung
+        in warmup, holding no more than its graph pool and 128 MiB; a
+        48-request log-uniform trace (seed 42) replayed at depth 2 through
+        the graphs, twice through an aot=False engine, then through the
+        graphs again (which captures nothing), every request bitwise an
+        eager search of its padded batch and the f64 oracle's neighbours
+        on the trace's first 256 rows; predict through the engine against
+        ShardedKNN.predict; 256 concurrent 1-8-row requests through a
+        QueryQueue, scattered bitwise; a short knee sweep; a certified
+        stream of 4,096 queries in 1,024-query segments resumed after two,
+        bitwise the direct search_certified."""
+        import dataclasses
+        import shutil
+
+        from knn_tpu_torch import ShardedKNN, loadgen
+        from knn_tpu_torch.serving import (QueryQueue, ServingEngine,
+                                           bucket_for, latency_summary)
+        from knn_tpu_torch.streaming import streaming_certified_knn
+
+        knn, k, n, q_np = S["knn"], S["k"], S["n"], S["q_np"]
+        out = {"phase": "serving", "n": n, "dim": S["dim"], "k": k,
+               "nvidia_smi": smi}
+        # the allocator's free cached blocks (earlier phases') go first, so
+        # the reserved bytes after warmup are what the warmup holds: the
+        # graph pool and the warm-up runs' cached blocks
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        eng = ServingEngine(knn, min_bucket=16, max_bucket=512)
+        _, warm_s = host_timed(eng.warmup)
+        st = eng.stats()
+        if not (st["compile_count"] == st["executables"] == 6
+                and eng.graphs):
+            raise AssertionError(f"serving: warmup built {st}")
+        pool_bytes = eng.graph_pool_bytes()
+        reserved_delta = torch.cuda.memory_reserved() - reserved0
+        # each capture releases its eager warm-up's cached blocks: what
+        # warmup holds is the pool and at most 128 MiB more (the capture
+        # stream's cuBLAS workspace, the static inputs)
+        if pool_bytes is None or reserved_delta > pool_bytes + (128 << 20):
+            raise AssertionError(
+                f"serving: warmup reserved {reserved_delta} bytes against "
+                f"a graph pool of {pool_bytes}")
+        # the bench trace: log-uniform sizes in [1, 512], seed 42
+        t_rng = np.random.default_rng(42)
+        sizes = np.exp(t_rng.uniform(0.0, np.log(512), size=48)).astype(
+            np.int64).clip(1, 512)
+        reqs = []
+        for size in sizes:
+            lo = int(t_rng.integers(0, max(1, q_np.shape[0] - int(size))))
+            reqs.append(q_np[lo:lo + int(size)])
+        # the same trace through the eager program (aot=False) in turns
+        # with the graphs: graphs, eager, eager, graphs; each replay's
+        # latency summary is its own 48 requests
+        eager = ServingEngine(knn, min_bucket=16, max_bucket=512, aot=False)
+        eager.warmup()
+        turns = []
+        for e in (eng, eager, eager, eng):
+            res, rep = e.replay(reqs, depth=2)
+            rep["latency_ms"] = latency_summary(list(e._latencies_s)[-48:])
+            turns.append((res, rep))
+        (res1, rep1), (res_e1, rep_e1), (res_e2, rep_e2), (res2, rep2) = turns
+        if rep2["compile_count"] != 6:
+            raise AssertionError(
+                f"serving: the second replay captured "
+                f"{rep2['compile_count'] - 6} graphs")
+        # every request bitwise an eager search of its padded batch (all
+        # four replays), and the oracle on the trace's first 256 rows
+        for j, req in enumerate(reqs):
+            rows = bucket_for(eng.buckets, req.shape[0])
+            padded = np.zeros((rows, req.shape[1]), np.float32)
+            padded[:req.shape[0]] = req
+            de, ie = (t.cpu().numpy()[:req.shape[0]]
+                      for t in knn.search(padded))
+            if not all(all_equal(res[j], (de, ie))
+                       for res in (res1, res_e1, res_e2, res2)):
+                raise AssertionError("serving: a replayed request differs "
+                                     "from its eager search")
+        del eager
+        i_trace = np.concatenate([r[1] for r in res1])[:256]
+        q_trace = np.concatenate(reqs)[:256]
+        _, oi = f64_oracle(torch.from_numpy(q_trace).to(dev),
+                           knn.placement.db, k)
+        oi = oi.cpu().numpy()
+        recall = float(np.mean([len(set(a) & set(b)) / k
+                                for a, b in zip(i_trace, oi)]))
+        same_order = float((i_trace == oi).all(axis=1).mean())
+        if recall != 1.0:
+            raise AssertionError(f"serving: recall@{k} {recall} against "
+                                 f"the f64 oracle")
+        # predict through the engine on a labelled placement (the main
+        # placement's tensors with labels)
+        labels = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 10, n).astype(np.int32)).to(dev)
+        lab_knn = ShardedKNN(dataclasses.replace(
+            knn.placement, labels=labels, num_classes=10), k=k)
+        peng = ServingEngine(lab_knn, min_bucket=16, max_bucket=512)
+        peng.warmup(ops=("predict",))
+        for size in (7, 100, 512, 600):
+            got = peng.predict(q_np[:size])
+            want = []
+            for lo in range(0, size, 512):
+                chunk = q_np[lo:min(size, lo + 512)]
+                padded = np.zeros((bucket_for(peng.buckets, chunk.shape[0]),
+                                   chunk.shape[1]), np.float32)
+                padded[:chunk.shape[0]] = chunk
+                want.append(lab_knn.predict(padded).cpu().numpy()
+                            [:chunk.shape[0]])
+            if not np.array_equal(got, np.concatenate(want)):
+                raise AssertionError(f"serving: predict of {size} rows "
+                                     f"differs from ShardedKNN.predict")
+        del peng, lab_knn
+        # 256 concurrent 1-8-row requests: every future's rows bitwise its
+        # coalesced batch's eager search (one submitting thread and a long
+        # max-wait: batches are the FIFO cut at max_rows, then the close)
+        q_rng = np.random.default_rng(11)
+        rsz = q_rng.integers(1, 9, 256)
+        starts = q_rng.integers(0, q_np.shape[0] - 8, 256)
+        qq = QueryQueue(eng, max_wait_ms=5000.0)
+        t0 = time.perf_counter()
+        futs = [qq.submit(q_np[a:a + b]) for a, b in zip(starts, rsz)]
+        qq.close()
+        got = [f.result() for f in futs]
+        queue_wall = time.perf_counter() - t0
+        qst = qq.stats()
+        batches, cur, rows = [], [], 0
+        for j, size in enumerate(rsz):
+            if cur and rows + size > qq.max_rows:
+                batches.append(cur)
+                cur, rows = [], 0
+            cur.append(j)
+            rows += size
+            if rows >= qq.max_rows:
+                batches.append(cur)
+                cur, rows = [], 0
+        if cur:
+            batches.append(cur)
+        if qst["dispatches"] != len(batches):
+            raise AssertionError(f"serving queue: {qst['dispatches']} "
+                                 f"dispatches, expected {len(batches)}")
+        for batch in batches:
+            cat = np.concatenate([q_np[starts[j]:starts[j] + rsz[j]]
+                                  for j in batch])
+            padded = np.zeros((bucket_for(eng.buckets, cat.shape[0]),
+                               cat.shape[1]), np.float32)
+            padded[:cat.shape[0]] = cat
+            de, ie = (t.cpu().numpy() for t in knn.search(padded))
+            lo = 0
+            for j in batch:
+                want = (de[lo:lo + rsz[j]], ie[lo:lo + rsz[j]])
+                if not all_equal(got[j], want):
+                    raise AssertionError("serving queue: a scattered "
+                                         "result differs from its batch")
+                lo += rsz[j]
+        # a short knee sweep: 3 rates x 1 s, sizes 1-8, SLO 100 ms
+        with QueryQueue(eng, max_wait_ms=2.0) as q0:
+            anchor = loadgen.closed_loop_anchor(q0, q_np)
+        base = loadgen.WorkloadSpec(
+            rate_qps=1.0, duration_s=1.0, seed=0,
+            tenants=loadgen.parse_tenants("default:1"))
+        rates = loadgen.rates_around(anchor, (0.1, 0.4, 1.0))
+        knee = loadgen.knee_sweep(
+            lambda: QueryQueue(eng, max_wait_ms=2.0), base, rates,
+            queries=q_np[:64], slo_p99_ms=100.0)
+        problems = loadgen.validate_knee_block(knee)
+        if problems or any(s["errors"] for s in knee["rate_steps"]):
+            raise AssertionError(f"serving: knee block {problems} "
+                                 f"{knee['rate_steps']}")
+        # the certified stream: 4,096 queries in 1,024-query segments,
+        # stopped after two (the last two segments' files gone) and
+        # resumed, bitwise the direct search_certified
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+        db_np = knn.placement.db_host
+        try:
+            reset_launches()
+            (d_s, i_s, st_s), stream_s = host_timed(
+                lambda: streaming_certified_knn(db_np, q_np, k, ckpt,
+                                                segment_size=1024))
+            launches_full = nonzero_launches(read_launches())
+            for b in (2, 3):
+                os.remove(os.path.join(ckpt, f"batch_{b:06d}.npz"))
+            reset_launches()
+            (d_r, i_r, st_r), resume_s = host_timed(
+                lambda: streaming_certified_knn(db_np, q_np, k, ckpt,
+                                                segment_size=1024))
+            launches_resumed = nonzero_launches(read_launches())
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        d_dir, i_dir, _ = knn.search_certified(q_np)
+        per_segment = ck.kernel_launches_per_batch("tiled", n, ck.TILE_N)
+        if launches_full != {"k1": 4 * per_segment} \
+                or launches_resumed != {"k1": 2 * per_segment}:
+            raise AssertionError(
+                f"serving stream: launches {launches_full} then "
+                f"{launches_resumed}, expected K1 x{4 * per_segment} then "
+                f"x{2 * per_segment}")
+        if not (all_equal((d_r, i_r), (d_dir, i_dir))
+                and all_equal((d_s, i_s), (d_dir, i_dir))):
+            raise AssertionError("serving stream: the resumed stream "
+                                 "differs from the direct search_certified")
+        lat1, lat2 = rep1["latency_ms"], rep2["latency_ms"]
+        out.update(
+            ladder=list(eng.buckets), warmup_s=warm_s,
+            graphs=st["executables"], graph_pool_bytes=pool_bytes,
+            reserved_bytes_after_warmup=reserved_delta,
+            trace_requests=48, trace_queries=int(sizes.sum()), depth=2,
+            sustained_qps_first=rep1["sustained_qps"],
+            sustained_qps_second=rep2["sustained_qps"],
+            latency_ms_first=lat1, latency_ms_second=lat2,
+            eager={"sustained_qps": [rep_e1["sustained_qps"],
+                                     rep_e2["sustained_qps"]],
+                   "latency_ms": [rep_e1["latency_ms"],
+                                  rep_e2["latency_ms"]],
+                   "bitwise_graphs": True},
+            per_bucket_dispatches=rep2["per_bucket_dispatches"],
+            new_captures_second_replay=rep2["compile_count"] - 6,
+            bitwise_eager=True, oracle_rows=256, recall_at_k=recall,
+            oracle_same_order_share=same_order,
+            predict_equals_sharded=True,
+            queue={"requests": 256, "rows": int(rsz.sum()),
+                   "dispatches": qst["dispatches"],
+                   "wall_s": queue_wall, "scatter_bitwise": True,
+                   "latency_ms": qst["latency_ms"]},
+            knee={"anchor_qps": anchor, **knee},
+            stream={"queries": 4096, "segment": 1024,
+                    "k1_launches_full": launches_full["k1"],
+                    "k1_launches_resumed": launches_resumed["k1"],
+                    "full_s": stream_s, "resumed_s": resume_s,
+                    "fallback_queries": st_r.get("fallback_queries"),
+                    "bitwise_direct": True})
+        emit(out)
+        del eng
+        torch.cuda.empty_cache()
+
     if phases & {"main", "stream", "selectors", "metrics", "quant",
                   "f32arms", "pq", "lane", "survivors", "tune", "index",
-                  "ivf", "join"}:
+                  "ivf", "join", "serving"}:
         if "main" in phases:
             phase_main(sift_data())
         if "stream" in phases:
@@ -3538,6 +3923,8 @@ def main(argv=None) -> int:
             phase_ivf(sift_data())
         if "join" in phases:
             phase_join(sift_data())
+        if "serving" in phases:
+            phase_serving(sift_data())
         sift.clear()  # frees the placement before the classify job
         torch.cuda.empty_cache()
 

@@ -33,6 +33,10 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
   residual certificate and exact float64 repair;
 - :func:`knn_join` (``knn_tpu_torch.join``) — the bulk join of a query
   set against a placement or an IVF index;
+- ``knn_tpu_torch.serving`` (``ServingEngine``: a CUDA graph per bucket
+  rung; ``QueryQueue`` with admission control), the tiers'
+  ``serving_engine()``, ``knn_tpu_torch.streaming`` (resumable batch
+  streams) and ``knn_tpu_torch.loadgen`` (open-loop load and the knee);
 - :func:`run_job` with :class:`JobConfig` — the reference job
   (``python -m knn_tpu_torch.cli``, with the ``tune``, ``join`` and
   ``index --selftest`` subcommands); :func:`make_database` and

@@ -1,6 +1,6 @@
 """Command line of the port on one GPU — the job path of knn_tpu/cli.py
-(``main``) and its ``tune``, ``join`` and ``index --selftest``
-subcommands, as ``python -m knn_tpu_torch.cli``::
+(``main``) and its ``tune``, ``join``, ``index --selftest`` and
+``loadgen`` subcommands, as ``python -m knn_tpu_torch.cli``::
 
     python -m knn_tpu_torch.cli --train train.csv --test test.csv \\
         --val val.csv --k 50 --mode certified --selector pallas \\
@@ -8,6 +8,9 @@ subcommands, as ``python -m knn_tpu_torch.cli``::
     python -m knn_tpu_torch.cli tune --n 100000 --dim 128 --k 100
     python -m knn_tpu_torch.cli join --n 100000 --rows 16384 --k 10
     python -m knn_tpu_torch.cli index --selftest
+    python -m knn_tpu_torch.cli loadgen --synthetic 500 --slo-p99-ms 20
+    python -m knn_tpu_torch.cli loadgen --n 100000 --dim 64 \\
+        --rates 50,100,200
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it exits with an error.
@@ -57,6 +60,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="coarse-kernel precision (default bf16x3; also "
                    "bf16x3f, highest, int8, int4 and pq, whose codebooks "
                    "train on the train rows)")
+    p.add_argument(
+        "--serve-buckets", default=None, metavar="SPEC",
+        help="shape-bucketed serving: 'auto' or a comma list like "
+        "'64,128,256' — query chunks pad up a ladder of per-bucket "
+        "executables (CUDA graphs on the card, built at warmup); "
+        "per-bucket capture counts and latency percentiles land in the "
+        "JSON metrics")
+    p.add_argument(
+        "--max-wait-ms", type=float, default=2.0,
+        help="micro-batching deadline of a concurrent serving queue "
+        "(knn_tpu_torch.serving.QueryQueue); the sequential job has no "
+        "concurrent callers, so here it is only echoed into the serving "
+        "metrics")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path on the CPU)")
@@ -84,6 +100,8 @@ def args_to_config(args: argparse.Namespace) -> JobConfig:
         selector=args.selector,
         tune_cache=args.tune_cache,
         pallas_precision=args.pallas_precision,
+        serve_buckets=args.serve_buckets,
+        max_wait_ms=args.max_wait_ms,
     )
 
 
@@ -300,10 +318,212 @@ def run_index(args: argparse.Namespace) -> int:
     return 0 if out["ok"] else 1
 
 
+def build_loadgen_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch loadgen",
+        description="Open-loop load generation and knee sweep "
+        "(knn_tpu_torch.loadgen): drive a serving target with a seeded "
+        "Poisson / bursty / replayed multi-tenant workload through a "
+        "stepped-rate sweep, and print the latency-vs-throughput knee "
+        "block (rate steps, admitted p50/p95/p99, shed fraction, knee "
+        "q/s) as one trailing JSON line.  --synthetic CAPACITY runs "
+        "against the built-in single-server model (no device); otherwise "
+        "a synthetic-data ShardedKNN + ServingEngine + QueryQueue is built "
+        "at --n/--dim/--k on --device.  Admission control: --max-depth, "
+        "--shed, --quota, --deadline-ms.")
+    p.add_argument("--synthetic", type=float, default=None,
+                   metavar="QPS", help="drive the synthetic target with "
+                   "this service capacity instead of a real engine")
+    p.add_argument("--n", type=int, default=100_000, help="database rows")
+    p.add_argument("--dim", type=int, default=64, help="feature dim")
+    p.add_argument("--k", type=int, default=10, help="neighbor count")
+    p.add_argument("--metric", default="l2",
+                   choices=("l2", "sql2", "euclidean", "cosine"))
+    p.add_argument("--rates", default=None, metavar="R1,R2,...",
+                   help="offered request rates (q/s) to step through; "
+                   "unset = a ladder around a measured closed-loop anchor "
+                   "(real target) or the synthetic capacity")
+    p.add_argument("--duration", type=float, default=1.0, metavar="S",
+                   help="seconds per rate step")
+    p.add_argument("--slo-p99-ms", type=float, default=100.0,
+                   help="admitted-request p99 bound defining the knee")
+    p.add_argument("--tenants", default="default:1",
+                   help="tenant mix: name[:weight[:priority]],...")
+    p.add_argument("--batch-sizes", default="1,2,4,8",
+                   help="request row counts, drawn uniformly per request")
+    p.add_argument("--arrival", default="poisson",
+                   choices=("poisson", "onoff"),
+                   help="arrival process (bursty on/off via --on-s/"
+                   "--off-s/--burst)")
+    p.add_argument("--on-s", type=float, default=0.25)
+    p.add_argument("--off-s", type=float, default=0.25)
+    p.add_argument("--burst", type=float, default=4.0,
+                   help="on-phase rate multiplier for --arrival onoff")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="per-request deadline applied to every tenant; "
+                   "implies deadline-aware shedding (--shed)")
+    p.add_argument("--max-wait-ms", type=float, default=2.0,
+                   help="micro-batching deadline of the driven queue")
+    p.add_argument("--max-depth", type=int, default=None,
+                   help="admission: bounded queue depth (explicit "
+                   "rejection past it)")
+    p.add_argument("--shed", action="store_true",
+                   help="admission: deadline-aware load shedding")
+    p.add_argument("--quota", action="append", default=[],
+                   metavar="TENANT:RATE[:BURST]",
+                   help="admission: per-tenant token-bucket quota "
+                   "(repeatable)")
+    p.add_argument("--replay", default=None, metavar="PATH",
+                   help="replay a recorded JSONL trace instead of "
+                   "generating arrivals (single run, no sweep)")
+    p.add_argument("--save-trace", default=None, metavar="PATH",
+                   help="record the generated schedule (first rate step) "
+                   "to this JSONL file for a later --replay")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw JSON block only")
+    p.add_argument("--cpu-devices", type=int, default=None, metavar="N",
+                   help="refused: JAX's virtual devices; use --device cpu")
+    p.add_argument("--device", default=None,
+                   help="torch device of the real target (default cuda; "
+                   "'cpu' runs the plain PyTorch path)")
+    return p
+
+
+def run_loadgen(args: argparse.Namespace) -> int:
+    """The ``loadgen`` subcommand (knn_tpu/cli.py:1101-1238): a knee sweep
+    (or one replay run) against the synthetic model or a freshly built
+    serving stack, a summary, and one trailing JSON line.  Admission
+    flags map onto ``AdmissionConfig``; without any of them admission is
+    off (there is no environment switch)."""
+    import json
+
+    import numpy as np
+
+    from knn_tpu_torch import loadgen
+    from knn_tpu_torch.serving.admission import AdmissionConfig, parse_quotas
+
+    if args.cpu_devices is not None:
+        raise SystemExit(
+            "loadgen --cpu-devices: JAX's virtual CPU devices have no "
+            "counterpart here; pass --device cpu")
+    tenants = tuple(
+        loadgen.TenantSpec(
+            t.name, weight=t.weight, priority=t.priority,
+            batch_sizes=tuple(int(b) for b in
+                              args.batch_sizes.split(",") if b.strip()),
+            deadline_ms=args.deadline_ms)
+        for t in loadgen.parse_tenants(args.tenants))
+    try:
+        quotas = parse_quotas(",".join(args.quota))
+    except ValueError as e:
+        print(f"--quota: {e}", file=sys.stderr)
+        return 1
+    # only nonzero tenant levels make a priority table (an all-zero one
+    # would defeat the queue's FIFO path)
+    priorities = {t.name: t.priority for t in tenants if t.priority}
+    admission = None
+    if (args.max_depth is not None or args.shed or quotas or priorities
+            or args.deadline_ms is not None):
+        # --deadline-ms implies shedding: deadlines nobody enforces would
+        # report shed=0 as "all deadlines met"
+        admission = AdmissionConfig(
+            max_depth=args.max_depth,
+            shed=args.shed or args.deadline_ms is not None,
+            quotas=quotas, priorities=priorities)
+    rates_given = ([float(r) for r in args.rates.split(",") if r.strip()]
+                   if args.rates else None) or None
+
+    dim = args.dim
+    if args.synthetic is not None:
+        if admission is not None and (admission.quotas
+                                      or admission.priorities):
+            print("warning: --synthetic models max-depth and deadline "
+                  "shedding only — quotas and priorities are ignored "
+                  "(use a real engine to exercise them)",
+                  file=sys.stderr)
+
+        def make_target():
+            return loadgen.SyntheticTarget(
+                args.synthetic,
+                max_depth=None if admission is None
+                else admission.max_depth,
+                shed_deadlines=admission.shed if admission else False)
+        anchor = args.synthetic
+        pool = np.zeros((max(64, *(max(t.batch_sizes) for t in tenants)),
+                         dim), np.float32)
+    else:
+        from knn_tpu_torch.parallel.sharded import ShardedKNN
+        from knn_tpu_torch.serving.engine import ServingEngine
+        from knn_tpu_torch.serving.queue import QueryQueue
+
+        rng = np.random.default_rng(args.seed)
+        db = (rng.random((args.n, dim)) * 128.0).astype(np.float32)
+        pool = (rng.random((4096, dim)) * 128.0).astype(np.float32)
+        prog = ShardedKNN(db, k=args.k, metric=args.metric,
+                          device=args.device)
+        engine = ServingEngine(prog)
+        print("warming serving engine ...", file=sys.stderr)
+        engine.warmup()
+
+        def make_target():
+            return QueryQueue(engine, max_wait_ms=args.max_wait_ms,
+                              admission=admission)
+
+        anchor = None
+        if rates_given is None and not args.replay:
+            # the closed-loop anchor probe through an admission-free
+            # queue, only when the rate ladder needs it
+            with QueryQueue(engine, max_wait_ms=args.max_wait_ms) as q0:
+                anchor = loadgen.closed_loop_anchor(q0, pool)
+
+    base = loadgen.WorkloadSpec(
+        rate_qps=1.0, duration_s=args.duration, seed=args.seed,
+        arrival=args.arrival, tenants=tenants, on_s=args.on_s,
+        off_s=args.off_s, burst=args.burst)
+    if args.replay:
+        reqs = loadgen.load_trace(args.replay)
+        target = make_target()
+        try:
+            rep = loadgen.run_workload(target, reqs, queries=pool)
+        finally:
+            close = getattr(target, "close", None)
+            if callable(close):
+                close()
+        if not args.json:
+            lat = rep.get("latency_ms") or {}
+            print(f"replayed {rep['offered']} requests: ok={rep['ok']} "
+                  f"rejected={rep['rejected']} shed={rep['shed']} "
+                  f"p99={lat.get('p99')} ms "
+                  f"achieved={rep['achieved_qps']} q/s")
+        print(json.dumps(rep))
+        return 0
+    rates = rates_given or loadgen.rates_around(anchor)
+    if args.save_trace:
+        loadgen.save_trace(loadgen.generate(base.at_rate(rates[0])),
+                           args.save_trace)
+        print(f"trace saved: {args.save_trace}", file=sys.stderr)
+    block = loadgen.knee_sweep(make_target, base, rates, queries=pool,
+                               slo_p99_ms=args.slo_p99_ms)
+    if not args.json:
+        for s in block["rate_steps"]:
+            print(f"rate {s['rate_qps']:>9.2f} q/s: ok={s['ok']:>5} "
+                  f"rejected={s['rejected']:>4} shed={s['shed']:>4} "
+                  f"p99={s['admitted_p99_ms']} ms "
+                  f"achieved={s['achieved_qps']} q/s "
+                  f"{'WITHIN' if s['within_slo'] else 'OVER'} SLO")
+        print(f"knee: {block['knee_qps']} q/s sustained "
+              f"(offered {block['knee_rate_qps']} q/s) at p99 <= "
+              f"{block['slo_p99_ms']} ms")
+    print(json.dumps(block))
+    return 0
+
+
 #: the subcommands, by leading token: the job's flat interface stays as it is
 SUBCOMMANDS = {"tune": (build_tune_parser, run_tune),
                "join": (build_join_parser, run_join),
-               "index": (build_index_parser, run_index)}
+               "index": (build_index_parser, run_index),
+               "loadgen": (build_loadgen_parser, run_loadgen)}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -5,17 +5,18 @@ knn_tpu/index).
 
 - :mod:`~knn_tpu_torch.index.artifact` — the error vocabulary
   (:class:`MutationUnsupportedError`, :class:`MutationBudgetError`);
-- :mod:`~knn_tpu_torch.index.mutable` — :class:`MutableIndex`;
+- :mod:`~knn_tpu_torch.index.mutable` — :class:`MutableIndex` and its
+  serving frontend :class:`MutableServingEngine`;
 - :mod:`~knn_tpu_torch.index.tier` — what it shares with the IVF tier:
   the write id rules, the compaction thresholds and the background
   compactor, whose recorded error ``close()`` re-raises.
 
-The serving frontend (``MutableServingEngine``) and the ``mutation``
-bench-block validator are not ported yet.
+The ``mutation`` bench-block validator is not ported yet.
 """
 
 from knn_tpu_torch.index.artifact import (MutationBudgetError,
                                           MutationUnsupportedError)
-from knn_tpu_torch.index.mutable import MutableIndex
+from knn_tpu_torch.index.mutable import MutableIndex, MutableServingEngine
 
-__all__ = ["MutableIndex", "MutationBudgetError", "MutationUnsupportedError"]
+__all__ = ["MutableIndex", "MutableServingEngine", "MutationBudgetError",
+           "MutationUnsupportedError"]

@@ -1,7 +1,7 @@
 """Mutable index on one GPU: delta-tail inserts, tombstone deletes and
-snapshot-swap compaction over an immutable placement — the port of
-knn_tpu/index/mutable.py (``MutableIndex``; its serving frontend is a later
-slice).
+snapshot-swap compaction over an immutable placement, and its serving
+frontend — the port of knn_tpu/index/mutable.py (``MutableIndex``,
+``MutableServingEngine``).
 
 - **Delta tail** — :meth:`MutableIndex.insert` appends rows to a small
   device-resident tail searched beside the main placement.  The tail pads
@@ -17,7 +17,16 @@ slice).
 - **Snapshot-swap compaction** — :meth:`MutableIndex.compact` builds a
   fresh placement from the surviving rows off the search path and swaps
   it in under the index lock: the epoch bumps, searches already running
-  finish on the snapshot they pinned.
+  finish on the snapshot they pinned.  With a serving frontend, the
+  replacement :class:`~knn_tpu_torch.serving.engine.ServingEngine` is
+  built and warmed (on the card: its CUDA graphs captured) before the
+  swap, off the serving path.
+- **Serving** — :meth:`MutableIndex.serving_engine` returns a
+  :class:`MutableServingEngine`, the ``QueryQueue``-facing frontend: each
+  request pins one snapshot, rides the snapshot's bucketed engine for the
+  main placement, and searches the delta tail padded to the same rung;
+  writes enter through :meth:`MutableServingEngine.apply_write`
+  (``QueryQueue.submit_write``).
 
 Exactness contract: after any interleaving of inserts, deletes and
 compactions, :meth:`MutableIndex.search_certified` is bitwise-identical to
@@ -53,8 +62,9 @@ import torch
 from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.index.artifact import (MutationBudgetError,
                                           MutationUnsupportedError)
-from knn_tpu_torch.index.tier import (Compactor, check_fresh, check_live,
-                                     checked_rows, thresholds_tripped)
+from knn_tpu_torch.index.tier import (Compactor, Frontend, check_fresh,
+                                     check_live, checked_rows,
+                                     thresholds_tripped)
 from knn_tpu_torch.ops.topk import I32MAX
 
 #: delta-tail capacity ladder defaults (rows)
@@ -77,12 +87,14 @@ class _Snapshot:
 
     __slots__ = ("epoch", "main", "base_ids", "tail", "tail_ids",
                  "tail_len", "tail_parts_count", "tomb_ids", "n_base",
-                 "all_ids", "k_eff")
+                 "all_ids", "engine", "k_eff")
 
     def __init__(self, epoch, main, base_ids, tail, tail_ids,
-                 tail_parts_count, tomb_ids, k_eff):
+                 tail_parts_count, tomb_ids, engine, k_eff):
         self.epoch = epoch
         self.main = main
+        #: the serving engine over ``main`` (None without a frontend)
+        self.engine = engine
         self.base_ids = base_ids
         self.tail = tail  # [T, D] f32 or None
         self.tail_ids = tail_ids
@@ -217,6 +229,10 @@ class MutableIndex:
         #: serializes compactions (taken before _lock, which compact()
         #: holds only for the snapshot and the swap)
         self._compact_lock = threading.Lock()
+        #: the serving frontend's engine over the main placement and the
+        #: kwargs compaction rebuilds it with (None until serving_engine())
+        self._inner_engine = None
+        self._engine_kwargs: Optional[dict] = None
 
     # -- construction helpers ---------------------------------------------
     def _k_eff_for(self, n_rows: int) -> int:
@@ -247,7 +263,7 @@ class MutableIndex:
                 self._epoch, self._main, self._base_ids, tail, tail_ids,
                 len(self._tail_parts),
                 np.asarray(sorted(self._tombstones), np.int64),
-                self._main.k)
+                self._inner_engine, self._main.k)
             self._snap_cache = snap
             return snap
 
@@ -534,6 +550,20 @@ class MutableIndex:
             new_main = ShardedKNN(new_base,
                                   k=self._k_eff_for(new_base.shape[0]),
                                   **self._ctor)
+            from knn_tpu_torch.serving.engine import ServingEngine
+
+            new_engine = None
+            with self._lock:
+                kw = self._engine_kwargs
+                old_engine = self._inner_engine
+            if kw is not None:
+                # built and warmed off the serving path (on the card its
+                # graphs are captured here, beside live replays): the first
+                # request after the swap finds every rung ready
+                new_engine = ServingEngine(new_main, **kw)
+                new_engine.warmup(tuple(
+                    sorted(getattr(old_engine, "warmed_ops", ()))
+                    or ("search",)))
             t_swap = time.perf_counter()
             with self._lock:
                 self._main = new_main
@@ -546,6 +576,13 @@ class MutableIndex:
                 self._tombstones = {t for t in self._tombstones
                                     if t not in tomb_snap}
                 self._epoch += 1
+                if new_engine is None and self._engine_kwargs is not None:
+                    # a frontend made during the build: its rungs build
+                    # at their first requests
+                    new_engine = ServingEngine(new_main,
+                                               **self._engine_kwargs)
+                if new_engine is not None:
+                    self._inner_engine = new_engine
                 self._snap_cache = None
                 self._tail_place = None
                 self._compactions += 1
@@ -604,6 +641,27 @@ class MutableIndex:
         self.close()
         return False
 
+    # -- serving -----------------------------------------------------------
+    def serving_engine(self, **engine_kwargs) -> "MutableServingEngine":
+        """A :class:`MutableServingEngine` over this index — the
+        ``QueryQueue``-facing frontend that searches the delta tail beside
+        every bucketed main dispatch and applies writes.  The engine kwargs
+        (``buckets``, ``min_bucket``, ``max_bucket``, ``aot``, ...) are
+        kept, so compaction builds and warms the replacement engine with
+        them.  One frontend per index."""
+        from knn_tpu_torch.serving.engine import ServingEngine
+
+        with self._lock:
+            if self._engine_kwargs is not None:
+                raise RuntimeError(
+                    "serving_engine() was already called for this index")
+            # construction builds nothing, so it runs under the lock: the
+            # engine and the placement it serves change together
+            self._inner_engine = ServingEngine(self._main, **engine_kwargs)
+            self._engine_kwargs = dict(engine_kwargs)
+            self._snap_cache = None
+        return MutableServingEngine(self)
+
     # -- reporting ---------------------------------------------------------
     def stats(self) -> dict:
         with self._lock:
@@ -628,3 +686,103 @@ class MutableIndex:
                 **({"last_compaction": dict(self._last_compaction)}
                    if self._last_compaction else {}),
             }
+
+
+class _MutablePending:
+    """An in-flight index-serving request: the inner engine's bucketed
+    main dispatch plus the delta-tail search, merged and masked at result
+    time (the tail's outputs are fetched first)."""
+
+    __slots__ = ("_snap", "_pending", "_tail", "_k", "_result")
+
+    def __init__(self, snap: _Snapshot, pending,
+                 tail: Optional[_TailHandle], k: int):
+        self._snap = snap
+        self._pending = pending
+        self._tail = tail
+        self._k = k
+        self._result = None
+
+    @property
+    def trace_id(self):
+        return self._pending.trace_id
+
+    @property
+    def tenant(self):
+        return self._pending.tenant
+
+    def result(self):
+        if self._result is not None:
+            return self._result
+        tail_parts = None
+        if self._tail is not None:
+            tail_parts = self._tail.fetch()
+        d_m, i_m = self._pending.result()
+        d_parts = [np.asarray(d_m)]
+        p_parts = [np.asarray(i_m).astype(np.int64)]
+        if tail_parts is not None:
+            d_parts.append(tail_parts[0])
+            p_parts.append(tail_parts[1])
+        self._result = MutableIndex._merge_filter(
+            self._snap, d_parts, p_parts, self._k)
+        return self._result
+
+
+class MutableServingEngine(Frontend):
+    """The serving frontend of a :class:`MutableIndex`: the ``ServingEngine``
+    surface ``QueryQueue`` drives (``buckets``, ``_dim``, ``submit() ->
+    handle``, ``stats()``), each request pinned to one index snapshot — a
+    swap is atomic from a request's view — with the delta tail searched
+    beside each bucketed main dispatch, padded to the same rung.  Writes
+    enter through :meth:`apply_write` (``QueryQueue.submit_write``).  A
+    request's ``(d, ids)`` is bitwise :meth:`MutableIndex.search` of its
+    snapshot's padded batch (the main placement's and the tail's rows are
+    ranked per query)."""
+
+    @property
+    def buckets(self):
+        return self.index._snapshot().engine.buckets
+
+    @property
+    def warmed_ops(self):
+        return getattr(self.index._snapshot().engine, "warmed_ops", set())
+
+    def warmup(self, ops: Sequence[str] = ("search",)) -> dict:
+        """Build the inner engine's executables and run the delta-tail
+        program at every rung, so neither the first request nor the first
+        request after an insert pays a first launch's set-up."""
+        snap = self.index._snapshot()
+        counts = snap.engine.warmup(ops)
+        warmed = 0
+        for b in snap.engine.buckets:
+            q = np.zeros((int(b), self._dim), np.float32)
+            self.index._dispatch_tail(snap, q).fetch()
+            warmed += 1
+        counts["tail_buckets"] = warmed
+        return counts
+
+    def submit(self, queries, *, op: str = "search",
+               trace_id=None, tenant=None) -> _MutablePending:
+        from knn_tpu_torch.serving.buckets import bucket_for
+
+        q = self._checked(queries, op)
+        snap = self.index._snapshot()
+        pending = snap.engine.submit(q, op="search", trace_id=trace_id,
+                                     tenant=tenant)
+        tail_h = None
+        if snap.tail_len:
+            b = bucket_for(snap.engine.buckets, q.shape[0])
+            rows = int(b) if b is not None else q.shape[0]
+            if rows > q.shape[0]:
+                padded = np.zeros((rows, self._dim), np.float32)
+                padded[: q.shape[0]] = q
+            else:
+                padded = q
+            tail_h = self.index._dispatch_tail(snap, padded)
+            tail_h.rows = q.shape[0]
+        return _MutablePending(snap, pending, tail_h, self.k)
+
+    def stats(self, **kw) -> dict:
+        out = self.index._snapshot().engine.stats(**kw)
+        out["index"] = self.index.stats()
+        return out

@@ -1,5 +1,6 @@
 """What both index tiers (MutableIndex, IVFIndex) share: the id rules of
-their writes, the compaction thresholds, and the background compactor —
+their writes, the compaction thresholds, their serving frontends' query
+check and write routing, and the background compactor —
 one thread that compacts whenever the tier says a compaction is due,
 under the contract that a failure never vanishes: the last exception is
 kept (``stats()["last_compaction_error"]``) and :meth:`Compactor.close`
@@ -62,6 +63,45 @@ def thresholds_tripped(tail_rows: int, tombstones: int,
              and tail_rows >= compact_tail_rows)
             or (compact_tombstones is not None
                 and tombstones >= compact_tombstones))
+
+
+class Frontend:
+    """What both tiers' serving frontends share besides ``submit``: the
+    request check, ``search`` over ``submit``, and the write routing
+    ``QueryQueue.submit_write`` reaches through :meth:`apply_write`."""
+
+    def __init__(self, index):
+        self.index = index
+        self.k = index.k
+        self._dim = index.dim
+
+    def _checked(self, queries, op: str) -> np.ndarray:
+        """A request's queries as ``[Q, dim]`` f32, refusing (``ValueError``)
+        any op but ``search`` and a shape mismatch."""
+        if op != "search":
+            raise ValueError(
+                f"{type(self).__name__} serves op='search' only, got {op!r}")
+        q = np.ascontiguousarray(np.asarray(queries, np.float32))
+        if q.ndim != 2 or q.shape[1] != self._dim:
+            raise ValueError(
+                f"queries shape {q.shape} incompatible with database "
+                f"dim {self._dim}")
+        return q
+
+    def search(self, queries, *, return_sqrt: bool = False):
+        d, ids = self.submit(queries).result()
+        if return_sqrt:
+            d = np.sqrt(d)
+        return d, ids
+
+    def apply_write(self, kind: str, *, vectors=None, ids=None) -> dict:
+        """The write op the queue routes (insert / delete)."""
+        if kind == "insert":
+            return self.index.insert(vectors, ids)
+        if kind == "delete":
+            return self.index.delete(ids)
+        raise ValueError(
+            f"unknown write kind {kind!r}; expected insert|delete")
 
 
 class Compactor:

@@ -1,6 +1,6 @@
 """The approximate-first IVF tier with a certified escape hatch on one GPU —
-the port of knn_tpu/ivf/index.py (``IVFIndex``; its serving frontend is a
-later slice).
+the port of knn_tpu/ivf/index.py (``IVFIndex`` and its serving frontend
+``IVFServingEngine``).
 
 - **Coarse quantizer**: the seeded k-means of :mod:`knn_tpu_torch.ivf.
   kmeans` (host float64 init and update, k=1 assign on the device).
@@ -28,6 +28,11 @@ later slice).
 - **Mutability**: delta tails per list absorb inserts (epoch visibility,
   id tombstones, budgeted refusal); compaction re-clusters the survivors
   and swaps the snapshot atomically.
+- **Serving**: :meth:`IVFIndex.serving_engine` returns an
+  :class:`IVFServingEngine`, the ``QueryQueue``-facing frontend: each
+  request runs ``search_certified`` against the snapshot it pins, so a
+  served answer is bitwise the direct certified search; writes enter
+  through ``apply_write``.
 
 The probe, the gathers, the float64 refine and the repair run on the
 host, as in the JAX package (their arithmetic is what the bitwise
@@ -36,21 +41,24 @@ is an argument (no ``KNN_TPU_IVF_*`` switch), no obs (gauges, margin
 histogram, drift monitor), the query block is not padded up a rung (a
 new query count compiles nothing here), and the background compactor
 records its last exception (``stats()["last_compaction_error"]``, re-raised
-by :meth:`IVFIndex.close`).
+by :meth:`IVFIndex.close`); the serving frontend has no audit sampler and
+takes the search knobs (``selector``, ``precision``, ``kernel``, ...) its
+requests run with, where the JAX package's runs the defaults.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.index.artifact import MutationBudgetError
-from knn_tpu_torch.index.tier import (Compactor, check_fresh, check_live,
-                                     checked_rows, thresholds_tripped)
+from knn_tpu_torch.index.tier import (Compactor, Frontend, check_fresh,
+                                     check_live, checked_rows,
+                                     thresholds_tripped)
 from knn_tpu_torch.ivf.kmeans import train_kmeans
 from knn_tpu_torch.ops.certified import certification_tolerance
 from knn_tpu_torch.ops.refine import refine_exact, refine_shared_exact
@@ -642,6 +650,12 @@ class IVFIndex:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    # -- serving -----------------------------------------------------------
+    def serving_engine(self, **kw) -> "IVFServingEngine":
+        """An :class:`IVFServingEngine` over this index (``buckets``, and
+        the ``selector`` and ``precision`` its requests run with)."""
+        return IVFServingEngine(self, **kw)
+
     # -- reporting ---------------------------------------------------------
     def stats(self) -> dict:
         with self._lock:
@@ -666,3 +680,68 @@ class IVFIndex:
                 **({"last_search": dict(self._last_search)}
                    if self._last_search else {}),
             }
+
+
+class _IVFPending:
+    """A completed IVF serving request: the probed search runs at submit
+    time against the snapshot it pins; ``result()`` hands the arrays back
+    (the handle surface the queue drives)."""
+
+    __slots__ = ("trace_id", "tenant", "_result")
+
+    def __init__(self, trace_id, tenant, result):
+        self.trace_id = trace_id
+        self.tenant = tenant
+        self._result = result
+
+    def result(self):
+        return self._result
+
+
+class IVFServingEngine(Frontend):
+    """The serving frontend of an :class:`IVFIndex`: the ``ServingEngine``
+    surface ``QueryQueue`` drives (``buckets``, ``_dim``, ``submit() ->
+    handle``, ``apply_write``, ``stats``), each request pinned to one
+    index snapshot so a background compaction's swap is atomic from its
+    view.  ``selector`` and ``precision`` are what every request's
+    ``search_certified`` runs with (None: the index defaults, the JAX
+    package's frontend)."""
+
+    def __init__(self, index: IVFIndex, *, buckets: Sequence[int] = (8, 16),
+                 selector: Optional[str] = None,
+                 precision: Optional[str] = None):
+        import itertools
+
+        super().__init__(index)
+        self._buckets = tuple(int(b) for b in buckets)
+        self._search_kwargs = {
+            name: value for name, value in (("selector", selector),
+                                            ("precision", precision))
+            if value is not None}
+        self._seq = itertools.count()
+
+    @property
+    def buckets(self):
+        return self._buckets
+
+    @property
+    def warmed_ops(self):
+        return {"search"}
+
+    def warmup(self, ops: Sequence[str] = ("search",)) -> dict:
+        """One probed search per bucket before live traffic arrives."""
+        for b in self._buckets:
+            q = np.zeros((int(b), self._dim), np.float32)
+            self.index.search_certified(q, **self._search_kwargs)
+        return {"search": len(self._buckets)}
+
+    def submit(self, queries, *, op: str = "search",
+               trace_id=None, tenant=None) -> _IVFPending:
+        q = self._checked(queries, op)
+        tid = trace_id if trace_id is not None else f"ivf-{next(self._seq)}"
+        d, ids, _stats = self.index.search_certified(
+            q, k=self.k, **self._search_kwargs)
+        return _IVFPending(tid, tenant, (d, ids))
+
+    def stats(self, **kw) -> dict:
+        return {"index": self.index.stats()}

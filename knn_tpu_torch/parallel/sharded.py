@@ -37,6 +37,7 @@ second, at most ``overlap_depth`` batches in flight.
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from typing import Optional, Tuple
@@ -267,6 +268,13 @@ class ShardedKNN:
         #: use and kept: the caching allocator reuses a freed block only on
         #: the stream it was made on, so new streams per call allocate anew
         self._streams = None
+        #: (k, placed rows) -> search() calls of that shape
+        self._dispatch_shapes: dict = {}
+        #: search_bucketed's serving engines, by ladder
+        self._serving_engines: dict = {}
+        #: guards both dicts above: the queue's batcher, the compactor and
+        #: the join may search at once
+        self._engines_lock = threading.Lock()
 
     # -- exact path --------------------------------------------------------
     def _to_device(self, queries) -> torch.Tensor:
@@ -314,13 +322,70 @@ class ShardedKNN:
         k = self.k if k is None else k
         if k > self.n_train:
             raise ValueError(f"k={k} exceeds n_train={self.n_train}")
-        d, i = self._exact_topk(self._to_device(queries), k, self.metric,
-                                self._dtype_key)
+        q = self._to_device(queries)
+        shape_key = (k, q.shape[0])
+        with self._engines_lock:
+            self._dispatch_shapes[shape_key] = (
+                self._dispatch_shapes.get(shape_key, 0) + 1)
+        d, i = self._exact_topk(q, k, self.metric, self._dtype_key)
         if return_sqrt:
             from knn_tpu_torch.ops.distance import metric_values
 
             d = metric_values(d, self.metric)
         return d, i
+
+    def search_bucketed(self, queries, *, buckets=None, min_bucket: int = 32,
+                        max_bucket: int = 4096, return_sqrt: bool = False):
+        """Bucketed exact search (numpy results, bitwise a :meth:`search`
+        of the same padded batch): the batch pads up a geometric ladder of
+        bucket sizes, so any traffic pattern of batch shapes meets at most
+        ``len(buckets)`` executables (on the card, CUDA graphs) — the JAX
+        package's ``search_bucketed`` (sharded.py:985-1024).  The engine
+        behind it is built once per ladder and kept; see
+        :meth:`compile_cache_stats` and knn_tpu_torch.serving."""
+        from knn_tpu_torch.serving.buckets import normalize_ladder
+        from knn_tpu_torch.serving.engine import ServingEngine
+
+        ladder = None if buckets is None else normalize_ladder(buckets)
+        # an explicit ladder determines the engine: min/max do not key
+        # duplicate engines with identical executables
+        key = ladder if ladder is not None else (None, min_bucket, max_bucket)
+        with self._engines_lock:
+            engine = self._serving_engines.get(key)
+            if engine is None:
+                engine = ServingEngine(self, buckets=ladder,
+                                       min_bucket=min_bucket,
+                                       max_bucket=max_bucket)
+                self._serving_engines[key] = engine
+        return engine.search(queries, return_sqrt=return_sqrt)
+
+    def compile_cache_stats(self) -> dict:
+        """Executable-cache reporting for serving — the JAX package's
+        ``compile_cache_stats`` (sharded.py:1026-1052).  ``program_cache``
+        counts the serving engines' executables (the port has no cached
+        program family of its own: ``size`` the executables, ``misses``
+        their builds, ``hits`` the lookups that found one built);
+        ``distinct_shapes`` / ``dispatches`` / ``shape_counts`` are this
+        placement's :meth:`search` calls by ``(k, placed rows)``."""
+        with self._engines_lock:
+            engines = list(self._serving_engines.values())
+            shapes = dict(self._dispatch_shapes)
+        stats = [e.stats() for e in engines]
+        out = {
+            "program_cache": {
+                "hits": int(sum(e.cache_hits for e in engines)),
+                "misses": int(sum(s["compile_count"] for s in stats)),
+                "size": int(sum(s["executables"] for s in stats)),
+            },
+            "distinct_shapes": len(shapes),
+            "dispatches": int(sum(shapes.values())),
+            "shape_counts": {
+                f"k{k}xq{q}": int(c) for (k, q), c in sorted(shapes.items())
+            },
+        }
+        if stats:
+            out["serving_engines"] = stats
+        return out
 
     def predict(self, queries) -> torch.Tensor:
         """Predicted labels [Q] int32 — needs ``labels`` at construction."""

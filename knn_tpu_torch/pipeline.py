@@ -41,6 +41,9 @@ class JobResult:
     config: JobConfig
     #: certified mode only: summed certificate stats over the batches
     certified_stats: Optional[dict] = None
+    #: ``serve_buckets`` only: the engine's per-bucket capture (compile)
+    #: and dispatch counts and latency percentiles, with ``max_wait_ms``
+    serving_stats: Optional[dict] = None
 
     @property
     def queries_per_sec(self) -> float:
@@ -60,6 +63,8 @@ class JobResult:
         }
         if self.certified_stats is not None:
             out["certified_stats"] = self.certified_stats
+        if self.serving_stats is not None:
+            out["serving"] = self.serving_stats
         return out
 
     def metrics_json(self) -> str:
@@ -107,6 +112,18 @@ def _run_torch(cfg: JobConfig, timer: PhaseTimer, device, train, train_labels,
 
     certified_stats = {"fallback_queries": 0, "certified": 0}
 
+    engine = None
+    if cfg.serve_buckets is not None:
+        # shape-bucketed serving: every chunk rides one of the ladder's
+        # executables, all built at warmup (on the card, CUDA graphs)
+        from knn_tpu_torch.serving.buckets import parse_buckets
+        from knn_tpu_torch.serving.engine import ServingEngine
+
+        with timer.phase("serving_warmup"):
+            engine = ServingEngine(program,
+                                   buckets=parse_buckets(cfg.serve_buckets))
+            engine.warmup(ops=("predict",))
+
     def classify(queries):
         n = queries.shape[0]
         bs = cfg.batch_size or n
@@ -123,6 +140,9 @@ def _run_torch(cfg: JobConfig, timer: PhaseTimer, device, train, train_labels,
                     else:  # the resolved knob set: kept as-is
                         certified_stats[key] = v
                 out.append(labels_out)
+            elif engine is not None:
+                # the engine pads the (possibly short tail) chunk itself
+                out.append(engine.predict(chunk))
             else:
                 out.append(program.predict(chunk).cpu().numpy())
         return np.concatenate(out)
@@ -133,8 +153,11 @@ def _run_torch(cfg: JobConfig, timer: PhaseTimer, device, train, train_labels,
             val_pred = classify(val)
     with timer.phase("knn_test"):
         test_pred = classify(test)
+    serving_stats = None
+    if engine is not None:
+        serving_stats = {"max_wait_ms": cfg.max_wait_ms, **engine.stats()}
     return test_pred, val_pred, (
-        certified_stats if cfg.mode == "certified" else None)
+        certified_stats if cfg.mode == "certified" else None), serving_stats
 
 
 def run_job(cfg: JobConfig) -> JobResult:
@@ -157,7 +180,7 @@ def run_job(cfg: JobConfig) -> JobResult:
         raise ValueError(
             f"train label {int(train_labels.max())} outside [0, {cfg.num_classes})")
 
-    test_pred, val_pred, certified_stats = _run_torch(
+    test_pred, val_pred, certified_stats, serving_stats = _run_torch(
         cfg, timer, device, train, train_labels, test, val, val_labels_real)
 
     val_acc = None
@@ -177,4 +200,5 @@ def run_job(cfg: JobConfig) -> JobResult:
         n_val=0 if val is None else val.shape[0],
         config=cfg,
         certified_stats=certified_stats,
+        serving_stats=serving_stats,
     )

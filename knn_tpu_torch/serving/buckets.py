@@ -1,0 +1,104 @@
+"""Shape-bucket ladder — the executable-cache contract of the serving
+engine; the port's copy of knn_tpu/serving/buckets.py, verbatim in its
+semantics and errors.
+
+Every distinct query-batch shape costs the serving engine one executable
+(on the card a CUDA graph captured at that shape, knn_tpu_torch.serving.
+engine).  A realistic traffic stream has O(unique batch sizes) shapes;
+padding each request up to a small geometric ladder of bucket sizes
+collapses that to O(log(max/min)) executables, after which no request
+captures again.
+
+Dependency-free (no numpy/torch) so the CLI/config layers can validate
+``--serve-buckets`` flags without paying the torch import.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple, Union
+
+#: default ladder bounds: 8 buckets (32..4096) cover single-query traffic
+#: through bench-sized sweeps; requests above the top bucket are split.
+DEFAULT_MIN_BUCKET = 32
+DEFAULT_MAX_BUCKET = 4096
+DEFAULT_GROWTH = 2.0
+
+
+def bucket_ladder(
+    min_bucket: int = DEFAULT_MIN_BUCKET,
+    max_bucket: int = DEFAULT_MAX_BUCKET,
+    growth: float = DEFAULT_GROWTH,
+) -> Tuple[int, ...]:
+    """Geometric bucket sizes from ``min_bucket`` up to and including
+    ``max_bucket``: each rung is ``ceil(prev * growth)``, and the top rung
+    is forced to exactly ``max_bucket`` so the ladder always covers the
+    full configured range."""
+    if min_bucket < 1:
+        raise ValueError(f"min_bucket must be >= 1, got {min_bucket}")
+    if max_bucket < min_bucket:
+        raise ValueError(
+            f"max_bucket={max_bucket} must be >= min_bucket={min_bucket}")
+    if growth <= 1.0:
+        raise ValueError(f"growth must be > 1, got {growth}")
+    sizes: List[int] = []
+    b = min_bucket
+    while b < max_bucket:
+        sizes.append(b)
+        b = max(int(b * growth + 0.999999), b + 1)
+    sizes.append(max_bucket)
+    return tuple(sizes)
+
+
+def normalize_ladder(buckets: Sequence[int]) -> Tuple[int, ...]:
+    """Validate an explicit ladder: positive ints, deduplicated, ascending."""
+    sizes = sorted({int(b) for b in buckets})
+    if not sizes:
+        raise ValueError("bucket ladder is empty")
+    if sizes[0] < 1:
+        raise ValueError(f"bucket sizes must be >= 1, got {sizes[0]}")
+    return tuple(sizes)
+
+
+def parse_buckets(spec: Union[str, Sequence[int], None]) -> Optional[Tuple[int, ...]]:
+    """``--serve-buckets`` flag -> ladder.  ``None``/empty -> None (serving
+    disabled); ``"auto"`` -> the default geometric ladder; ``"a,b,c"`` or a
+    sequence of ints -> explicit validated ladder."""
+    if spec is None:
+        return None
+    if isinstance(spec, str):
+        s = spec.strip().lower()
+        if not s:
+            return None
+        if s == "auto":
+            return bucket_ladder()
+        try:
+            sizes = [int(part) for part in s.split(",") if part.strip()]
+        except ValueError:
+            raise ValueError(
+                f"bad bucket spec {spec!r}; expected 'auto' or a "
+                f"comma-separated int list like '64,128,256'"
+            ) from None
+        return normalize_ladder(sizes)
+    return normalize_ladder(spec)
+
+
+def bucket_for(ladder: Sequence[int], n: int) -> Optional[int]:
+    """Smallest bucket >= ``n``, or None when ``n`` exceeds the top bucket
+    (callers split such requests via :func:`split_sizes`)."""
+    if n < 1:
+        raise ValueError(f"request size must be >= 1, got {n}")
+    for b in ladder:
+        if b >= n:
+            return b
+    return None
+
+
+def split_sizes(n: int, max_bucket: int) -> List[int]:
+    """Chunk an oversized request into ``max_bucket``-row pieces plus a
+    bucketable tail — every piece then hits a precompiled executable."""
+    if n < 1:
+        raise ValueError(f"request size must be >= 1, got {n}")
+    out = [max_bucket] * (n // max_bucket)
+    if n % max_bucket:
+        out.append(n % max_bucket)
+    return out

@@ -12,9 +12,9 @@ Field ↔ reference mapping (knn_mpi.cpp:108-119):
   train_file / val_file / test_file      :117-119
   output_file  <- the hard-coded ``Test_label.csv``  :390
 
-The JAX package's mesh, merge, serving and native-backend fields belong
-to later slices of the port; ``device`` is the port's own (``None`` =
-``cuda``, see knn_tpu_torch.device).
+The JAX package's mesh, merge and native-backend fields belong to later
+slices of the port; ``device`` is the port's own (``None`` = ``cuda``, see
+knn_tpu_torch.device).
 """
 
 from __future__ import annotations
@@ -71,6 +71,15 @@ class JobConfig:
     tune_cache: Optional[str] = None
     #: explicit coarse-kernel precision; None = the library default
     pallas_precision: Optional[str] = None
+    #: shape-bucketed serving (knn_tpu_torch.serving): "auto" for the
+    #: default geometric ladder, or a comma list like "64,128,256".  The
+    #: exact job classifies through the engine's per-bucket executables
+    #: (CUDA graphs on the card, built at warmup) and the job metrics gain
+    #: a ``serving`` section.  None = direct dispatch.
+    serve_buckets: Optional[str] = None
+    #: micro-batching deadline (knn_tpu_torch.serving.QueryQueue): echoed
+    #: into the serving metrics; only a concurrent-request queue reads it
+    max_wait_ms: float = 2.0
 
     def __post_init__(self):
         self.metric = self.metric.lower()
@@ -93,3 +102,17 @@ class JobConfig:
                 "l2", "sql2", "euclidean", "cosine"):
             raise ValueError(
                 "mode='certified' requires the l2 or cosine metric")
+        if self.serve_buckets is not None:
+            # the ladder module imports neither numpy nor torch
+            from knn_tpu_torch.serving.buckets import parse_buckets
+
+            if parse_buckets(self.serve_buckets) is None:
+                self.serve_buckets = None  # empty spec = serving off
+            if self.serve_buckets is not None and self.mode == "certified":
+                raise ValueError(
+                    "serve_buckets routes through the exact bucketed "
+                    "programs; mode='certified' has its own batching "
+                    "(batch_size) and does not compose with it")
+        if self.max_wait_ms < 0:
+            raise ValueError(
+                f"max_wait_ms must be >= 0, got {self.max_wait_ms}")

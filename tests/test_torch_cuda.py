@@ -1349,3 +1349,214 @@ def test_cuda_mutation_oracle(cuda_device):
     sd, si, sst = knn_join(knn, q, superblock_rows=16)
     np.testing.assert_array_equal(si, ji)
     assert sst["dispatches"] == 3
+
+
+# -- serving: CUDA graphs per rung ---------------------------------------------
+def test_serving_entry_points_need_a_gpu_unless_cpu_is_asked(no_card):
+    from knn_tpu_torch.cli import main
+    from knn_tpu_torch.streaming import streaming_certified_knn, streaming_knn
+
+    X = np.random.default_rng(60).normal(size=(40, 4)).astype(np.float32)
+    for make in (lambda: streaming_knn(X, X[:3], 2, "unused"),
+                 lambda: streaming_certified_knn(X, X[:3], 2, "unused"),
+                 lambda: main(["loadgen", "--n", "40", "--dim", "4",
+                               "--k", "2", "--rates", "5",
+                               "--duration", "0.1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def _padded(q, rows):
+    out = np.zeros((rows, q.shape[1]), np.float32)
+    out[: q.shape[0]] = q
+    return out
+
+
+def _eager_bucketed(fn, q, ladder):
+    """``fn`` (an eager ShardedKNN method) over ``q`` as the engine splits
+    and pads it: max-bucket chunks, each padded to its rung, pad rows
+    sliced away, host arrays."""
+    from knn_tpu_torch.serving import bucket_for
+
+    parts = []
+    for lo in range(0, q.shape[0], ladder[-1]):
+        chunk = q[lo:lo + ladder[-1]]
+        out = fn(_padded(chunk, bucket_for(ladder, chunk.shape[0])))
+        out = out if isinstance(out, tuple) else (out,)
+        parts.append([t.cpu().numpy()[: chunk.shape[0]] for t in out])
+    return [np.concatenate(x) for x in zip(*parts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "dot"])
+def test_cuda_graph_replay_is_bitwise_the_eager_program(cuda_device, metric):
+    """Each of three rungs is one captured graph; a replay is bitwise an
+    eager ShardedKNN.search of the same padded batch (distances and
+    indices), a second pass over the rungs captures nothing, and predict's
+    replay equals ShardedKNN.predict of the padded batch."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(61)
+    q, db = _data(rng, 40, 3000, 24)
+    labels = rng.integers(0, 4, 3000).astype(np.int32)
+    prog = ShardedKNN(db, k=10, metric=metric, labels=labels, num_classes=4,
+                      device=cuda_device)
+    ladder = (8, 16, 32)
+    eng = ServingEngine(prog, buckets=ladder)
+    assert eng.graphs
+    assert eng.warmup(ops=("search", "predict")) == {"search": 3,
+                                                     "predict": 3}
+    for n in (3, 8, 11, 32, 40):
+        d, i = eng.search(q[:n])
+        de, ie = _eager_bucketed(prog.search, q[:n], ladder)
+        np.testing.assert_array_equal(d, de)
+        np.testing.assert_array_equal(i, ie)
+        (want,) = _eager_bucketed(prog.predict, q[:n], ladder)
+        np.testing.assert_array_equal(eng.predict(q[:n]), want)
+    assert eng.stats()["compile_count"] == 6
+    pool = eng.graph_pool_bytes()
+    assert pool is None or pool > 0
+
+
+@pytest.mark.cuda
+def test_cuda_two_in_flight_requests_on_one_rung_keep_their_rows(cuda_device):
+    """Two requests submitted back to back ride the same graph; each
+    handle gets its own rows (the static outputs are copied out per
+    request before the next replay)."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(62)
+    q, db = _data(rng, 64, 20000, 32)
+    prog = ShardedKNN(db, k=16, device=cuda_device)
+    eng = ServingEngine(prog, buckets=(32,))
+    eng.warmup()
+    handles = [eng.submit(q[j * 16:(j + 1) * 16]) for j in range(4)]
+    outs = [h.result() for h in handles]
+    for j, (d, i) in enumerate(outs):
+        de, ie = prog.search(_padded(q[j * 16:(j + 1) * 16], 32))
+        np.testing.assert_array_equal(d, de.cpu().numpy()[:16])
+        np.testing.assert_array_equal(i, ie.cpu().numpy()[:16])
+    assert not np.array_equal(outs[0][1], outs[1][1])
+    assert eng.stats()["per_bucket_dispatches"] == {32: 4}
+
+
+@pytest.mark.cuda
+def test_cuda_eager_engine_is_bitwise_the_graph_replay(cuda_device):
+    """``aot=False`` on the card runs the eager program at every rung and
+    answers bitwise what the captured graphs answer, capturing nothing."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(64)
+    q, db = _data(rng, 70, 20000, 32)
+    prog = ShardedKNN(db, k=12, device=cuda_device)
+    ladder = (8, 16, 32)
+    graphed = ServingEngine(prog, buckets=ladder)
+    eager = ServingEngine(prog, buckets=ladder, aot=False)
+    assert graphed.graphs and not eager.graphs
+    graphed.warmup()
+    eager.warmup()
+    for n in (5, 16, 27, 70):
+        for a, b in zip(graphed.search(q[:n]), eager.search(q[:n])):
+            np.testing.assert_array_equal(a, b)
+    assert eager.graph_pool_bytes() is None
+    assert eager.stats()["per_bucket_dispatches"] == \
+        graphed.stats()["per_bucket_dispatches"]
+
+
+@pytest.mark.cuda
+def test_cuda_warmup_holds_no_blocks_beyond_its_graph_pool(cuda_device):
+    """The eager runs before each capture leave no cached blocks behind:
+    after warmup() the allocator reserves the graph pool and at most
+    128 MiB more (the capture stream's cuBLAS workspace, the static
+    inputs); one stranded block of the warm-up (the [1M, 64] f32 squares
+    of the rows) would be 244 MiB."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(65)
+    _, db = _data(rng, 1, 1000000, 64)
+    prog = ShardedKNN(db, k=16, device=cuda_device)
+    eng = ServingEngine(prog, buckets=(16, 32, 64))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    eng.warmup()
+    delta = torch.cuda.memory_reserved() - reserved0
+    pool = eng.graph_pool_bytes()
+    assert pool is not None and pool > 0
+    assert delta <= pool + (128 << 20), (delta, pool)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_on_a_second_thread_while_the_first_searches(
+        cuda_device):
+    """A second engine captures its graphs on another thread while this
+    thread replays the first engine's graphs: both answer bitwise their
+    eager programs, and the capture raises nothing."""
+    import threading
+
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(63)
+    q, db = _data(rng, 64, 20000, 32)
+    prog_a = ShardedKNN(db, k=8, device=cuda_device)
+    prog_b = ShardedKNN(db[::-1].copy(), k=8, device=cuda_device)
+    eng_a = ServingEngine(prog_a, buckets=(8, 16, 32, 64))
+    eng_a.warmup()
+    eng_b = ServingEngine(prog_b, buckets=(8, 16, 32, 64))
+    errors = []
+
+    def capture():
+        try:
+            eng_b.warmup()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t = threading.Thread(target=capture)
+    t.start()
+    served = []
+    while t.is_alive() or len(served) < 8:
+        n = 1 + len(served) % 64
+        served.append((n, eng_a.search(q[:n])))
+    t.join()
+    assert not errors, errors
+    assert eng_b.stats()["compile_count"] == 4
+    for n, (d, i) in served[:8] + served[-4:]:
+        r = 8 if n <= 8 else 16 if n <= 16 else 32 if n <= 32 else 64
+        de, ie = prog_a.search(_padded(q[:n], r))
+        np.testing.assert_array_equal(d, de.cpu().numpy()[:n])
+        np.testing.assert_array_equal(i, ie.cpu().numpy()[:n])
+    d, i = eng_b.search(q[:20])
+    de, ie = prog_b.search(_padded(q[:20], 32))
+    np.testing.assert_array_equal(d, de.cpu().numpy()[:20])
+    np.testing.assert_array_equal(i, ie.cpu().numpy()[:20])
+
+
+@pytest.mark.cuda
+def test_cuda_mutable_frontend_across_a_compaction(cuda_device):
+    """The MutableIndex frontend on the card through a QueryQueue: a
+    write, a compaction that captures the replacement engine's graphs
+    (two rungs), and reads whose ids equal the index's direct search
+    before and after; the inserted rows are their queries' nearest."""
+    from knn_tpu_torch.index import MutableIndex
+    from knn_tpu_torch.serving import QueryQueue
+
+    rng = np.random.default_rng(64)
+    q, db = _data(rng, 8, 4000, 24)
+    idx = MutableIndex(db, k=10, reserve=8, device=cuda_device)
+    eng = idx.serving_engine(buckets=(8, 16))
+    eng.warmup()
+    with QueryQueue(eng, max_wait_ms=1.0) as qq:
+        assert qq.submit_write("insert", vectors=q[:2] + 0.01,
+                               ids=[9000, 9001]).result()["tail_rows"] == 2
+        before = qq.submit(q).result()
+        np.testing.assert_array_equal(before[1], idx.search(q)[1])
+        idx.compact()
+        assert eng.stats()["compile_count"] == 2  # the new engine's
+        after = qq.submit(q).result()
+    assert after[1][:2, 0].tolist() == [9000, 9001]
+    np.testing.assert_array_equal(after[1], idx.search(q)[1])

@@ -288,6 +288,12 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.ivf.index, knn_tpu_torch.join\n"
         "import knn_tpu_torch.join.engine, knn_tpu_torch.analysis\n"
         "import knn_tpu_torch.analysis.hbm, knn_tpu_torch.analysis.widths\n"
+        "import knn_tpu_torch.serving, knn_tpu_torch.serving.admission\n"
+        "import knn_tpu_torch.serving.buckets, knn_tpu_torch.serving.engine\n"
+        "import knn_tpu_torch.serving.queue, knn_tpu_torch.streaming\n"
+        "import knn_tpu_torch.loadgen, knn_tpu_torch.loadgen.workload\n"
+        "import knn_tpu_torch.loadgen.driver, knn_tpu_torch.loadgen.knee\n"
+        "import knn_tpu_torch.loadgen.synthetic, knn_tpu_torch.ivf\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'knn_tpu' or m.startswith('knn_tpu.'))\n"
         "print(bad)\n")
