@@ -44,7 +44,24 @@ exits non-zero and prints no result):
              oracle on the first 256 queries; then ``profile`` traces one
              more certified search with torch.profiler (device time by
              kernel, device busy time, device idle share);
-5. stream  — at the ``main`` shape and placement: ``search_certified``
+5. obs     — the telemetry core (knn_tpu_torch.obs) at the ``main`` shape
+             and placement: warm ``main`` calls with obs on and off in
+             turns (on / off / off / on, three rounds; three more, up to
+             nine, while the medians differ by more than 3%), bitwise the
+             same, both q/s medians and their ratio (>= 0.97); the
+             ``CERTIFIED_*`` counters against one call's stats and the
+             counted certificate's margin histogram against its certified
+             queries (512 queries through ``selector="exact"``); one
+             ``device_trace("main")`` with obs on and one with it off: K1
+             in the trace, the top device operations, the idle share, and
+             the same host synchronizations and device-to-host copies; the
+             roofline share of the call and of the K1 launch, each <= 1;
+             32 requests through a ``QueryQueue`` over a 65,536-row
+             engine's graphs, each with its own trace id and span chain;
+             ``/metrics`` and ``/statusz`` scraped from
+             ``start_metrics_server`` on an ephemeral port (the inventory
+             names the card);
+6. stream  — at the ``main`` shape and placement: ``search_certified``
              with ``grid_order="db_major"`` (K9), ``kernel="streaming"``,
              ``kernel="fused"`` and ``kernel="fused", overlap=True,
              batch_size=1024, overlap_depth=2``; each run's d and i bitwise
@@ -61,7 +78,7 @@ exits non-zero and prints no result):
              the kept CUDA streams against fresh ones (wall and the
              allocator's new segments) and the device idle share of the
              pipelined run (torch.profiler);
-6. selectors — the counted certificate at the ``main`` shape and
+7. selectors — the counted certificate at the ``main`` shape and
              placement: ``search_certified(selector="exact")`` and
              ``("approx")`` (no coarse kernel launched), each with the
              ``pallas`` run's indices for every query, recall@100 = 1.0 and
@@ -74,7 +91,7 @@ exits non-zero and prints no result):
              ``search`` recall@100 on 256 queries, the certified exact
              selector's indices, and which half-precision matmul form ran
              (ops.distance.half_matmul_form);
-7. metrics — dot: a ``metric="dot"`` placement of the ``main`` rows
+8. metrics — dot: a ``metric="dot"`` placement of the ``main`` rows
              (norm-augmented to 129 dims, Dp = 256), its certified search
              launching K1 once and no other kernel, recall@100 = 1.0 and
              the indices of a float64 MIPS oracle on 256 queries, the exact
@@ -86,7 +103,7 @@ exits non-zero and prints no result):
              counts and masks equal the oracle's; the estimators
              (KNNRegressor, NearestNeighbors, RadiusNeighborsClassifier) on
              100,000 rows equal to their ShardedKNN outputs;
-8. f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
+9. f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
              (K3): each of their nine entries (tiled, streaming, fused)
              against its plain version within coarse_knn.
              kernel_plain_tolerance_scale (||q||^2 + max||t||^2) (bf16x3f
@@ -117,7 +134,7 @@ exits non-zero and prints no result):
              bf16x3, bf16x3f and highest at Dp = 128 (must stay below 1);
              every entry's ms per launch against its plain version and its
              bound;
-9. quant  — the int8 (K5) and int4 (K6) arms: each of the six int
+10. quant  — the int8 (K5) and int4 (K6) arms: each of the six int
              entries (tiled, streaming, fused x int8, int4) against its
              plain version on the card, bitwise (cd, ci, bounds), on
              integer data with exact ties at dim 24 (ragged rows), dim 300
@@ -138,7 +155,7 @@ exits non-zero and prints no result):
              and the db-major grid's ms per launch at Q=4,096 against their
              plain versions and the int bound;
              the device idle share of the int8 tiled run;
-10. pq     — K7, the pq arm: its tiled, db-major and streaming entries
+11. pq     — K7, the pq arm: its tiled, db-major and streaming entries
              bitwise their plain version (grouped binning, and lane
              binning at 2 and 8 survivors, 128- and 256-row bins) on a
              random LUT and codes with exact ties at the ``kernel``
@@ -155,7 +172,7 @@ exits non-zero and prints no result):
              lattice case (65,536 x 128 rows whose every 4-dim subspace
              takes one of 256 points: the training recovers them, the
              residuals are 0, so most queries certify) the same way;
-11. lane   — K8, lane binning: every arm's tiled, db-major and streaming
+12. lane   — K8, lane binning: every arm's tiled, db-major and streaming
              lane entries against their plain versions (int8, int4 and pq
              bitwise, the f32 family within its tolerance with ci equal on
              separated slots) at 1 to 8 survivors and 128-, 256- and
@@ -169,7 +186,7 @@ exits non-zero and prints no result):
              every query, the oracle's, distances within RANK_SLACK,
              fallbacks, q/s), and the counted certificate through the
              default arm's lane entries;
-12. survivors — grouped binning at 1 and 3-8 survivors (the deep builds):
+13. survivors — grouped binning at 1 and 3-8 survivors (the deep builds):
              every entry of every arm against its plain version (int, pq
              bitwise; the f32 family within its tolerance) on small shapes
              at every count, on 256- and 512-group tiles with ties between
@@ -180,14 +197,14 @@ exits non-zero and prints no result):
              ones, ``search_certified`` at 4 and 8 survivors against the
              oracle (recall@100 1.0), and every deep entry driven through a
              search at 3;
-13. tune   — the autotuner: the quick grid on the ``main`` rows and the
+14. tune   — the autotuner: the quick grid on the ``main`` rows and the
              standard grid at 100,000 rows, every candidate timed, gated
              out by the bitwise gate or refused by the resource gate (one
              that raised fails the phase), a second call timing 0
              candidates, and a search resolving its knobs from the cache.
              The script runs with an empty HOME of its own, so no cached
              winner picks the knobs of another phase;
-14. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
+15. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
              --mode certified --selector pallas``, run in-process through
              run_job) on make_mnist_like CSVs (20,000 train, 2,000 test,
              2,000 val), then again with ``--pallas-precision int8`` and
@@ -195,7 +212,7 @@ exits non-zero and prints no result):
              |s_kernel - s_f64| / tolerance ratio of bf16x3, bf16x3f and
              highest at Dp = 896 on the job's rows (must stay below 1), and
              K2's three entries timed there;
-15. index  — a ``MutableIndex`` of the ``main`` rows (k=100, reserve 32):
+16. index  — a ``MutableIndex`` of the ``main`` rows (k=100, reserve 32):
              4,096 rows inserted in three writes across the tail's rungs
              (256, 2,048, 4,096), the whole reserve deleted and a 33rd
              delete refused (MutationBudgetError), ``search_certified`` on
@@ -211,7 +228,7 @@ exits non-zero and prints no result):
              captures its graphs beside live reads, every read bitwise the
              direct search of its epoch and, after the swap, bitwise a
              fresh index of the survivors;
-16. ivf    — an ``IVFIndex`` of 131,072 x 128 clustered rows
+17. ivf    — an ``IVFIndex`` of 131,072 x 128 clustered rows
              (``make_blobs(131072 + 128, 128, 362, seed=0)``, the last 128
              rows the queries; 362 lists, nprobe 90): the exact selector
              and the pallas selector through K2, K1, K5 in each of tiled,
@@ -225,12 +242,12 @@ exits non-zero and prints no result):
              exact; its serving frontend (``IVFServingEngine``, pallas
              bf16x3) through a ``QueryQueue``, bitwise ``search_certified``
              with K1 launched per probe group;
-17. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
+18. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
              4,096-row superblocks: ``mode="stream"`` bitwise the looped
              ``search`` (rows/s, overlap_ratio), ``mode="certified"``
              bitwise the looped ``search_certified`` with K1 launched 4
              times;
-18. serving — ``ServingEngine`` on the ``main`` placement with the bench
+19. serving — ``ServingEngine`` on the ``main`` placement with the bench
              ladder 16..512 (``bench.py:805-818``): six CUDA graphs after
              ``warmup()``, the 48-request log-uniform trace (seed 42)
              replayed twice at depth 2 (no capture the second time), every
@@ -245,7 +262,7 @@ exits non-zero and prints no result):
              the 4,096 queries in 1,024-query segments, two segments
              removed and resumed, bitwise the direct ``search_certified``,
              K1 launched once a segment;
-19. kernels — one JSON line per the contract: each ported kernel (K1,
+20. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, K1 at Dp = 256 on the dot path, the entries of K4,
              K2, K3, K5, K6, K7, the db-major grid K9, the lane entries K8
              and the deep grouped entries of every arm)
@@ -259,8 +276,8 @@ Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases device,build,f32arms``, ``--phases device,build,pq``,
 ``--phases device,build,lane``, ``--phases device,build,survivors,tune``,
 ``--phases device,build,selectors,metrics``,
-``--phases device,build,index,ivf,join`` or
-``--phases device,build,serving``).
+``--phases device,build,index,ivf,join``,
+``--phases device,build,serving`` or ``--phases device,build,main,obs``).
 """
 
 from __future__ import annotations
@@ -276,19 +293,16 @@ import time
 
 import numpy as np
 
+# the H100's peaks and the per-kernel bounds (f32_bound: K1, K4, K2, K3 and
+# their streaming / fused entries; int_bound: K5, K6; pq_bound: K7) and the
+# device-trace summary live in the port's obs package
+from knn_tpu_torch.obs.profiler import device_trace
+from knn_tpu_torch.obs.roofline import f32_bound, int_bound, pq_bound
+
 #: rows of the main placement its pq codebooks train on (every row is
 #: encoded against them)
 PQ_TRAIN_ROWS = 100_000
 
-#: H100 SXM data-sheet peaks (dense): bf16, FP64 and int8 tensor cores and
-#: HBM3
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP64_TC_FLOPS = 67e12
-PEAK_INT8_OPS = 1979e12
-PEAK_F32_FLOPS = 67e12   # CUDA cores; an FMA counts as two
-PEAK_HBM_BYTES = 3.35e12
-#: shared-memory words one SM loads per clock (32 banks of 4 bytes)
-SMEM_WORDS_PER_CLOCK = 32
 EPS32 = float(np.finfo(np.float32).eps)
 U32 = 2.0 ** -24
 #: kernel scores of PAD_VAL rows are ~1e35 and above; compare them by class
@@ -800,80 +814,6 @@ def host_timed(fn):
     return out, time.perf_counter() - t0
 
 
-#: per f32-family arm: products of 2*Q*N*Dp FLOPs, their peak rate, db
-#: bytes per row and dim.  bf16x3 / bf16x3f three bf16 products of th, tl;
-#: default one of th; highest one f64 product of the f32 rows on the FP64
-#: tensor cores -- the route that keeps its proof.  3xTF32 (a hi / lo split
-#: on the tf32 tensor cores, 6.36 ms at the main shape) is no route for
-#: this arm: its f32 accumulation errs by up to 20 u per m16n8k8 step
-#: (csrc/binned_mma.cuh's step model), 320 u P over a chunk's hi.hi
-#: products alone, five times highest's whole 64 u budget in s
-F32_WORK = {"bf16x3": (3, PEAK_BF16_FLOPS, 4),
-            "bf16x3f": (3, PEAK_BF16_FLOPS, 4),
-            "default": (1, PEAK_BF16_FLOPS, 2),
-            "highest": (1, PEAK_FP64_TC_FLOPS, 4)}
-
-
-def f32_bound(n_q, n, dp, n_tiles, survivors, arm="bf16x3", d_real=None):
-    """Least time for an f32-family arm's work on an H100 (K1, K4, K2, K3
-    and their streaming / fused entries): the larger of its bytes (each
-    input read once, each output written once) over HBM bandwidth and its
-    products (F32_WORK) over the dense tensor-core rate of their type.
-    Counted over the ``n`` real db rows and the ``d_real`` real dims (None:
-    all ``dp``): the PAD_VAL rows that fill the last tile and the zero
-    columns that pad a row to Dp are work the function does not need."""
-    products, peak, db_bytes = F32_WORK[arm]
-    d = dp if d_real is None else d_real
-    flops = products * 2 * n_q * n * d
-    w = n_tiles * survivors * 128
-    nbytes = (n_q * d * 4 + db_bytes * n * d + n * 4
-              + n_q * w * 8 + n_q * n_tiles * 128 * 4)
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
-    return {"flops": flops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-
-def int_bound(n_q, n, dp, n_tiles, survivors, arm):
-    """Least time for an int arm's work (K5, K6) on an H100: the larger of
-    its bytes (int8 queries and their scales, the real rows' int8 or
-    packed int4 values, norms and scales read once; cd, ci, bounds
-    written once) over HBM bandwidth and its Q*N*Dp int8 multiply-adds
-    (two operations each) over the dense int8 tensor-core rate.  Counted
-    over the ``n`` real db rows."""
-    ops = 2 * n_q * n * dp
-    w = n_tiles * survivors * 128
-    row_bytes = dp if arm == "int8" else dp // 2
-    nbytes = (n_q * dp + n_q * 4 + n * row_bytes + 2 * n * 4
-              + n_q * w * 8 + n_q * n_tiles * 128 * 4)
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
-    return {"ops": ops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-
-def pq_bound(n_q, n, m, ncodes, n_tiles, out_w, bound_w, n_sm, clock_hz):
-    """Least time for K7's work on an H100: the largest of its bytes (the
-    f32 LUT, the real rows' uint8 codes and norm-row floats read once;
-    cd, ci, bounds written once) over HBM bandwidth, its Q*N*m table
-    lookups over the shared-memory word rate (SMEM_WORDS_PER_CLOCK x SMs
-    x the SM clock; a lookup is a data-dependent gather, which no tensor
-    core does: the TPU's one-hot matmul would be 2*Q*N*m*C FLOPs), and its
-    Q*N*m f32 adds over the CUDA cores' f32 rate.  Counted over the ``n``
-    real db rows."""
-    lookups = n_q * n * m
-    nbytes = (n_q * m * ncodes * 4 + n * m + n * 4
-              + n_q * n_tiles * out_w * 8 + n_q * n_tiles * bound_w * 4)
-    t_lookup = lookups / (SMEM_WORDS_PER_CLOCK * n_sm * clock_hz)
-    t_add = lookups / (PEAK_F32_FLOPS / 2)
-    t_ops, t_bytes = max(t_lookup, t_add), nbytes / PEAK_HBM_BYTES
-    return {"lookups": lookups, "bytes": nbytes, "sm_clock_hz": clock_hz,
-            "lookup_ms": t_lookup * 1e3, "add_ms": t_add * 1e3,
-            "bytes_ms": t_bytes * 1e3,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-
 def pq_case(dev, n_q, n, m, ncodes, tile_n, seed, ties=()):
     """A random LUT [n_q, m*ncodes] and codes [n, m] with exact ties (rows
     3 and 90 equal to row 10 of one 128-row bin, rows 128-159 equal to
@@ -1031,53 +971,47 @@ def bitwise(name, got, want):
     return err
 
 
-def profile_search(knn, q_np, selector="pallas", **knobs) -> dict:
-    """One more certified search through ``selector`` (``knobs`` passed
-    on) under torch.profiler: device time by kernel name, the device's
-    busy time (union of kernel intervals) and its idle share of the call's
-    wall time, and whether the trace holds the coarse kernel.  A few tiny
-    kernels run inside the trace first: after several traces in one
-    process, a trace's first kernels went unrecorded."""
+def traced_search(knn, q_np, selector="pallas", section="search",
+                  require=None, **knobs) -> dict:
+    """One more certified search through ``selector`` (``knobs`` passed on)
+    under ``obs.profiler.device_trace`` (a Chrome trace in a temporary
+    directory, dropped afterwards): its summary — device time by kernel
+    name, busy time (the union of kernel intervals), the idle share of the
+    call's wall time, the host's synchronizations and device-to-host
+    copies — and the wall time, measured between two synchronizations
+    inside the traced block.  ``require``: a kernel-name substring the
+    trace must hold; a trace without it is taken again, at most three
+    times in all (a trace late in a process has lost its first kernels),
+    and ``attempts`` says how many were taken."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        warm = torch.zeros(8, device="cuda")
-        for _ in range(8):
-            warm.add_(1)
+    for attempt in range(1, 4):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        knn.search_certified(q_np, margin=28, selector=selector, **knobs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = {}
-    spans = []
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-        spans.append((e.time_range.start, e.time_range.end))
-    busy = 0.0
-    cur_s = cur_e = None
-    for s, e in sorted(spans):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"phase": "profile", "wall_ms": wall * 1e3,
-            "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / 1e3 / (wall * 1e3),
-            "kernels_ms": {name[:80]: us / 1e3 for name, us in top},
-            "kernel_events": len(kernels),
+        with tempfile.TemporaryDirectory() as tmp:
+            with device_trace(section, out_dir=tmp) as cap:
+                t0 = time.perf_counter()
+                knn.search_certified(q_np, margin=28, selector=selector,
+                                     **knobs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            s = cap.summary(wall_s=wall)
+        if require is None or any(require in n for n in s["kernel_names"]):
+            break
+    return {**s, "attempts": attempt}
+
+
+def profile_search(knn, q_np, selector="pallas", **knobs) -> dict:
+    """:func:`traced_search` as a ``profile`` phase line, with whether the
+    trace holds the coarse kernel."""
+    s = traced_search(knn, q_np, selector, **knobs)
+    return {"phase": "profile", "wall_ms": s["wall_ms"],
+            "device_busy_ms": s["device_busy_ms"],
+            "device_idle_share": s["device_idle_share"],
+            "kernels_ms": s["kernels_ms"],
+            "kernel_events": s["kernel_events"],
+            "syncs": s["syncs"], "d2h_copies": s["d2h_copies"],
             "coarse_kernel_traced": any(
-                key in name for name in by_name
+                key in name for name in s["kernel_names"]
                 for key in ("binned_select_", "stream_select_"))}
 
 
@@ -1137,7 +1071,7 @@ def kernel_record(name, source, replaces):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="device,build,kernel,main,profile,stream,"
+                    default="device,build,kernel,main,profile,obs,stream,"
                     "selectors,metrics,quant,f32arms,pq,lane,survivors,tune,"
                     "index,ivf,join,serving,classify",
                     help="comma list of phases to run")
@@ -1575,6 +1509,195 @@ def main(argv=None) -> int:
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
         if "profile" in phases:
             emit(profile_search(knn, S["q_np"]))
+
+    def phase_obs(S):
+        """The telemetry core on the main path: warm main calls with obs on
+        and off in turns (bitwise the same, q/s medians and their ratio),
+        the certified counters against the stats, the counted
+        certificate's margin histogram, a device trace of a main call with
+        obs on and one with it off (the same synchronizations and
+        device-to-host copies), the roofline shares of the call and of K1,
+        the metrics server's /metrics and /statusz, and 32 requests through
+        a QueryQueue, each with its own trace id."""
+        import urllib.request
+
+        from knn_tpu_torch import ShardedKNN, obs
+        from knn_tpu_torch.obs import names as mn
+        from knn_tpu_torch.obs import roofline
+        from knn_tpu_torch.serving import QueryQueue, ServingEngine
+
+        t_phase = time.perf_counter()
+        knn, n_q = S["knn"], S["n_q"]
+        ref = S.get("tiled")
+        walls = {"on": [], "off": []}
+
+        def paired_rounds(n_rounds):
+            nonlocal ref
+            for mode in ("on", "off", "off", "on") * n_rounds:
+                obs.reset(enabled=mode == "on")
+                (d, i, _), wall = timed_search(S)
+                walls[mode].append(wall)
+                if ref is None:
+                    ref = (d, i)
+                elif not (np.array_equal(d, ref[0])
+                          and np.array_equal(i, ref[1])):
+                    raise AssertionError(
+                        f"obs {mode}: d, i differ from the main run")
+
+        def median_qps(mode):
+            return float(np.median([n_q / w for w in walls[mode]]))
+
+        paired_rounds(3)
+        rounds = 3
+        # within the noise: two more sets of paired rounds before the
+        # verdict when the first three disagree by more than 3%
+        while median_qps("on") < 0.97 * median_qps("off") and rounds < 9:
+            paired_rounds(3)
+            rounds += 3
+        qps_on, qps_off = median_qps("on"), median_qps("off")
+        if qps_on < 0.97 * qps_off:
+            raise AssertionError(
+                f"obs on {qps_on:.0f} q/s < 0.97 x obs off {qps_off:.0f}")
+
+        obs.reset(enabled=True)
+        obs.reset_event_log()
+        (d, i, stats), _ = timed_search(S)
+        counters = {
+            "certified_queries": obs.counter(
+                mn.CERTIFIED_QUERIES, selector="pallas").get(),
+            "certified_fallbacks": obs.counter(
+                mn.CERTIFIED_FALLBACKS, selector="pallas").get(),
+            "rank_corrected": obs.counter(mn.CERTIFIED_RANK_CORRECTED).get()}
+        if (counters["certified_queries"] != n_q
+                or counters["certified_fallbacks"] != stats["fallback_queries"]
+                or counters["rank_corrected"]
+                != stats["rank_corrected_queries"]):
+            raise AssertionError(f"obs counters {counters} != stats {stats}")
+        # the pallas certificate records no margin (its bound stays on the
+        # card); the counted one does, for each query it certifies
+        n_ex = 512
+        _, _, st_ex = knn.search_certified(S["q_np"][:n_ex], margin=28,
+                                           selector="exact")
+        margins = obs.histogram(mn.CERTIFIED_MARGIN,
+                                path="sharded").summary()
+        if margins["count"] != st_ex["certified"] or obs.counter(
+                mn.CERTIFIED_QUERIES, selector="exact").get() != n_ex:
+            raise AssertionError(
+                f"margin count {margins['count']} != certified "
+                f"{st_ex['certified']}")
+
+        # one warm main call traced with obs on, one with it off
+        trace_on = traced_search(knn, S["q_np"], section="main",
+                                 require="binned_select_")
+        obs.reset(enabled=False)
+        trace_off = traced_search(knn, S["q_np"], section="main",
+                                  require="binned_select_")
+        obs.reset(enabled=True)
+        for key in ("syncs", "d2h_copies", "memcpy_async_calls"):
+            if trace_on[key] != trace_off[key]:
+                raise AssertionError(
+                    f"obs on/off {key}: {trace_on[key]} != {trace_off[key]}")
+        if not any("binned_select_" in name
+                   for name in trace_on["kernel_names"]):
+            raise AssertionError("the main trace holds no K1 launch "
+                                 "(binned_select_bf16x3)")
+
+        # the roofline shares: the measured call and the K1 launch
+        block = roofline.attribute(
+            roofline.pallas_cost_model(n=S["n"], d=S["dim"], k=S["k"],
+                                       nq=n_q, device_kind=kind), qps_on)
+        k1_ms = records["k1"]["ms"] or time_cuda(
+            lambda: ck.binned_select(S["qp"], knn.placement.th,
+                                     knn.placement.tl, knn.placement.tnorm,
+                                     tile_n=ck.TILE_N, arm="bf16x3"), 3)
+        k1_pct = S["bound"]["bound_ms"] / k1_ms
+        if roofline.validate_block(block) or block["roofline_pct"] > 1.0 \
+                or k1_pct > 1.0:
+            raise AssertionError(
+                f"roofline: call {block['roofline_pct']}, K1 {k1_pct}, "
+                f"{roofline.validate_block(block)}")
+        label = roofline.config_label(S["n"], S["dim"], S["k"],
+                                      device_kind=kind)
+        roofline.publish(label, block)
+
+        # 32 requests through a queue over a small engine's graphs
+        rng = np.random.default_rng(5)
+        small = ShardedKNN((rng.random((65_536, S["dim"])) * 128.0).astype(
+            np.float32), k=10)
+        eng = ServingEngine(small, buckets=(8, 16, 32, 64, 128))
+        eng.warmup()
+        obs.reset_event_log()
+        with QueryQueue(eng, max_wait_ms=2.0) as qq:
+            futs = [qq.submit(S["q_np"][4 * j: 4 * j + 4])
+                    for j in range(32)]
+            res = [f.result(timeout=120) for f in futs]
+            ready = obs.health.probe()
+        ids = [f.trace_id for f in futs]
+        events = obs.get_event_log().recent()
+        queued = {e["trace_id"] for e in events
+                  if e.get("span") == "serving.queued_request"}
+        batches = {e["batch_trace_id"]: e["member_trace_ids"]
+                   for e in events if e.get("name") == "queue.dispatch"}
+        requests = {e.get("trace_id") for e in events
+                    if e.get("span") == "serving.request"}
+        if (None in ids or len(set(ids)) != 32 or queued != set(ids)
+                or sorted(t for m in batches.values() for t in m)
+                != sorted(ids) or not set(batches) <= requests
+                or not ready["ready"]
+                or any(r[1].shape != (4, 10) for r in res)):
+            raise AssertionError(
+                f"queue trace ids: {len(set(ids))} distinct, queued spans "
+                f"{len(queued)}, batches {len(batches)}, ready {ready}")
+
+        # the exporters, scraped from an ephemeral port
+        server = obs.start_metrics_server(0)
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            text = urllib.request.urlopen(f"{base}/metrics",
+                                          timeout=30).read().decode()
+            statusz = json.loads(urllib.request.urlopen(
+                f"{base}/statusz", timeout=30).read())
+        finally:
+            server.shutdown()
+            server.server_close()
+        samples = 0
+        for line in text.splitlines():
+            if line.startswith("#"):
+                continue
+            float(line.rsplit(" ", 1)[1])  # "name{labels} value"
+            samples += 1
+        inv = statusz["devices"]
+        if (samples == 0 or "knn_tpu_queue_requests_total 32.0" not in text
+                or f'knn_tpu_roofline_pct{{config="{label}"}}' not in text
+                or inv.get("kinds") != ["NVIDIA H100 80GB HBM3"]
+                or label not in statusz["roofline"]):
+            raise AssertionError(f"/metrics or /statusz malformed: {inv}")
+        del eng, small, res
+        torch.cuda.empty_cache()
+        top = dict(list(trace_on["kernels_ms"].items())[:5])
+        emit({"phase": "obs", "rounds": rounds,
+              "qps_on_median": qps_on, "qps_off_median": qps_off,
+              "qps_on_over_off": qps_on / qps_off,
+              "walls_on_s": walls["on"], "walls_off_s": walls["off"],
+              "bitwise_on_off": True, "counters": counters,
+              "fallback_queries": stats["fallback_queries"],
+              "exact_margin_count": margins["count"],
+              "exact_certified": st_ex["certified"],
+              "trace_on": {k: trace_on[k] for k in (
+                  "wall_ms", "device_busy_ms", "device_idle_share",
+                  "syncs", "d2h_copies", "memcpy_async_calls", "attempts")},
+              "trace_off": {k: trace_off[k] for k in (
+                  "wall_ms", "device_busy_ms", "device_idle_share",
+                  "syncs", "d2h_copies", "memcpy_async_calls", "attempts")},
+              "top_device_ops_ms": top,
+              "roofline": {k: block[k] for k in (
+                  "ceiling_qps", "bound_class", "roofline_pct",
+                  "measured_qps", "model_version")},
+              "k1_roofline_pct": k1_pct, "k1_ms": k1_ms,
+              "k1_bound_ms": S["bound"]["bound_ms"],
+              "metrics_samples": samples, "statusz_devices": inv,
+              "queue_requests": len(ids), "queue_batches": len(batches),
+              "phase_s": time.perf_counter() - t_phase})
 
     def phase_stream(S):
         knn, pl, qp = S["knn"], S["knn"].placement, S["qp"]
@@ -3892,11 +4015,13 @@ def main(argv=None) -> int:
         del eng
         torch.cuda.empty_cache()
 
-    if phases & {"main", "stream", "selectors", "metrics", "quant",
+    if phases & {"main", "obs", "stream", "selectors", "metrics", "quant",
                   "f32arms", "pq", "lane", "survivors", "tune", "index",
                   "ivf", "join", "serving"}:
         if "main" in phases:
             phase_main(sift_data())
+        if "obs" in phases:
+            phase_obs(sift_data())
         if "stream" in phases:
             phase_stream(sift_data())
         if "selectors" in phases:

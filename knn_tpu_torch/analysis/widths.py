@@ -1,6 +1,9 @@
 """Per-precision db operand byte widths — the port's copy of the parts of
-knn_tpu/analysis/widths.py (and of ``obs.roofline.db_operand_nbytes``)
-that the IVF tier's stats read, until the port has an obs layer.
+knn_tpu/analysis/widths.py (and of the JAX package's
+``obs.roofline.db_operand_nbytes``) that the IVF tier's stats read, kept at
+the JAX package's widths so ``bytes_streamed_ratio`` is its value (the
+bytes the port places per arm are knn_tpu_torch.obs.roofline's
+``db_operand_nbytes``).
 
 What the coarse kernels stream per db row (ops.coarse_knn.prepare_db*):
 bf16x3 the bf16 hi and lo parts (2 + 2 B/elem), bf16x3f one 3x-wide bf16

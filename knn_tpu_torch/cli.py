@@ -1,6 +1,7 @@
 """Command line of the port on one GPU — the job path of knn_tpu/cli.py
-(``main``) and its ``tune``, ``join``, ``index --selftest`` and
-``loadgen`` subcommands, as ``python -m knn_tpu_torch.cli``::
+(``main``) and its ``tune``, ``join``, ``index --selftest``, ``loadgen``,
+``metrics``, ``doctor`` and ``roofline`` subcommands, as ``python -m
+knn_tpu_torch.cli``::
 
     python -m knn_tpu_torch.cli --train train.csv --test test.csv \\
         --val val.csv --k 50 --mode certified --selector pallas \\
@@ -11,6 +12,14 @@
     python -m knn_tpu_torch.cli loadgen --synthetic 500 --slo-p99-ms 20
     python -m knn_tpu_torch.cli loadgen --n 100000 --dim 64 \\
         --rates 50,100,200
+    python -m knn_tpu_torch.cli metrics --snapshot snap.json
+    python -m knn_tpu_torch.cli doctor --port 9100
+    python -m knn_tpu_torch.cli roofline --n 1000000 --dim 128 \\
+        --device-kind "NVIDIA H100 80GB HBM3"
+
+The job's ``--metrics-port`` / ``--metrics-snapshot`` / ``--obs-log`` are
+the telemetry exporters (knn_tpu_torch.obs); ``metrics`` and ``doctor``
+read them back and, like ``roofline``, touch no device.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it exits with an error.
@@ -77,6 +86,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path on the CPU)")
     p.add_argument("--metrics-json", default=None, help="write structured run metrics to this path")
+    p.add_argument(
+        "--metrics-port", type=int, default=None, metavar="PORT",
+        help="serve live telemetry over HTTP while the job runs: /metrics "
+        "(Prometheus text), /metrics.json, /healthz, /statusz "
+        "(knn_tpu_torch.obs; read with `python -m knn_tpu_torch.cli "
+        "metrics --port PORT`; 0 picks a free port)")
+    p.add_argument(
+        "--metrics-snapshot", default=None, metavar="PATH",
+        help="write an atomic JSON telemetry snapshot (tmp + rename) at "
+        "job end")
+    p.add_argument(
+        "--obs-log", default=None, metavar="PATH",
+        help="append structured telemetry events (spans, phases) to this "
+        "JSONL file, rotated to two generations")
     return p
 
 
@@ -264,14 +287,19 @@ def build_index_parser() -> argparse.ArgumentParser:
         "insert/delete/compact cycle and checks the mutation oracle "
         "(search_certified bitwise against a fresh index of the "
         "surviving rows) — exit 0 on a bitwise match.  --port/--snapshot "
-        "(the status render) wait for the port's obs layer.")
+        "render the index section of a process's /statusz or of a "
+        "snapshot (exit 2 when no index is registered).")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--port", type=int, default=None,
-                     help="refused: the /statusz render is not ported")
+                     help="fetch /statusz from http://HOST:PORT")
     src.add_argument("--snapshot", default=None, metavar="PATH",
-                     help="refused: the snapshot render is not ported")
+                     help="read an atomic JSON snapshot file")
     src.add_argument("--selftest", action="store_true",
                      help="run the insert/delete/compact oracle check")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="endpoint host for --port (default localhost)")
+    p.add_argument("--json", action="store_true",
+                   help="print the index section's JSON")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path)")
@@ -279,8 +307,8 @@ def build_index_parser() -> argparse.ArgumentParser:
 
 
 def run_index(args: argparse.Namespace) -> int:
-    """The ``index`` subcommand: the mutation-oracle self-test of
-    knn_tpu/cli.py:1311-1350 on the port."""
+    """The ``index`` subcommand (knn_tpu/cli.py:1269-1350): the status
+    render of the registered indexes, or the mutation-oracle self-test."""
     import json
 
     import numpy as np
@@ -288,9 +316,7 @@ def run_index(args: argparse.Namespace) -> int:
     from knn_tpu_torch.index import MutableIndex
 
     if not args.selftest:
-        raise SystemExit(
-            "index --port/--snapshot: the status render reads the obs "
-            "health registry, which is not ported yet; use --selftest")
+        return _run_index_status(args)
     rng = np.random.default_rng(0)
     db = rng.normal(size=(600, 16)).astype(np.float32) * 10
     q = rng.normal(size=(8, 16)).astype(np.float32) * 10
@@ -316,6 +342,42 @@ def run_index(args: argparse.Namespace) -> int:
            "compaction": rep, "stats": idx.stats()}
     print(json.dumps(out, sort_keys=True, default=str))
     return 0 if out["ok"] else 1
+
+
+def _run_index_status(args: argparse.Namespace) -> int:
+    import json
+    import urllib.request
+
+    from knn_tpu_torch.obs import health
+
+    if args.port is not None:
+        url = f"http://{args.host}:{args.port}/statusz"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                report = json.loads(r.read().decode())
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"statusz endpoint {url} unreachable: {e}",
+                  file=sys.stderr)
+            return 1
+    else:
+        try:
+            with open(args.snapshot) as f:
+                payload = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"cannot read snapshot {args.snapshot}: {e}",
+                  file=sys.stderr)
+            return 1
+        report = health.report_from_snapshot(payload)
+    section = report.get("index") or []
+    if args.json:
+        print(json.dumps(section, indent=1, sort_keys=True, default=str))
+    else:
+        if not section:
+            print("no mutable index registered in this process")
+        for line in health.render_text(report).splitlines():
+            if line.startswith("index["):
+                print(line)
+    return 0 if section else 2
 
 
 def build_loadgen_parser() -> argparse.ArgumentParser:
@@ -519,11 +581,273 @@ def run_loadgen(args: argparse.Namespace) -> int:
     return 0
 
 
+def build_metrics_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch metrics",
+        description="Read telemetry from a running process's "
+        "--metrics-port endpoint or from an atomic JSON snapshot file "
+        "(knn_tpu_torch.obs) and print it as Prometheus text or JSON.")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--port", type=int, default=None,
+                     help="fetch from http://HOST:PORT (a process "
+                     "started with --metrics-port)")
+    src.add_argument("--snapshot", default=None, metavar="PATH",
+                     help="read an atomic JSON snapshot file "
+                     "(--metrics-snapshot / obs.write_json_snapshot)")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="endpoint host for --port (default localhost)")
+    p.add_argument("--format", default="prom", choices=("prom", "json"),
+                   help="output format (Prometheus text | snapshot JSON)")
+    return p
+
+
+def run_metrics(args: argparse.Namespace) -> int:
+    """The ``metrics`` subcommand (knn_tpu/cli.py:423-478): no device is
+    touched."""
+    import json
+    import urllib.request
+
+    if args.port is not None:
+        path = "/metrics" if args.format == "prom" else "/metrics.json"
+        url = f"http://{args.host}:{args.port}{path}"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                sys.stdout.write(r.read().decode())
+        except OSError as e:
+            print(f"metrics endpoint {url} unreachable: {e}",
+                  file=sys.stderr)
+            return 1
+        return 0
+    try:
+        with open(args.snapshot) as f:
+            payload = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        print(f"cannot read snapshot {args.snapshot}: {e}", file=sys.stderr)
+        return 1
+    if args.format == "json":
+        print(json.dumps(payload, indent=1, sort_keys=True))
+    else:
+        from knn_tpu_torch.obs import prometheus_text
+
+        sys.stdout.write(prometheus_text(payload.get("metrics", {})))
+    return 0
+
+
+def build_doctor_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch doctor",
+        description="Render the health / self-diagnosis report "
+        "(knn_tpu_torch.obs.health) of a running process (/statusz) or "
+        "of an atomic JSON snapshot.  Exit 0 healthy, 2 not ready, 1 "
+        "unreadable source.")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--port", type=int, default=None,
+                     help="fetch /statusz from http://HOST:PORT (a "
+                     "process started with --metrics-port)")
+    src.add_argument("--snapshot", default=None, metavar="PATH",
+                     help="read an atomic JSON snapshot file")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="endpoint host for --port (default localhost)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw report JSON instead of the "
+                   "human-readable rendering")
+    return p
+
+
+def run_doctor(args: argparse.Namespace) -> int:
+    """The ``doctor`` subcommand (knn_tpu/cli.py:481-530)."""
+    import json
+    import urllib.request
+
+    from knn_tpu_torch.obs import health
+
+    if args.port is not None:
+        url = f"http://{args.host}:{args.port}/statusz"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                report = json.loads(r.read().decode())
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"statusz endpoint {url} unreachable: {e}",
+                  file=sys.stderr)
+            return 1
+    else:
+        try:
+            with open(args.snapshot) as f:
+                payload = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"cannot read snapshot {args.snapshot}: {e}",
+                  file=sys.stderr)
+            return 1
+        report = health.report_from_snapshot(payload)
+    if args.json:
+        print(json.dumps(report, indent=1, sort_keys=True, default=str))
+    else:
+        sys.stdout.write(health.render_text(report))
+    return 0 if report.get("readiness", {}).get("ready") else 2
+
+
+def build_roofline_parser() -> argparse.ArgumentParser:
+    from knn_tpu_torch.obs.roofline import (BOUND_CLASSES, PEAKS_BY_KIND,
+                                            PRECISIONS)
+
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch roofline",
+        description="Render the analytic roofline (knn_tpu_torch.obs."
+        "roofline) of one configuration: the terms' bytes and operations "
+        "at the device's peaks, the ceiling q/s and the bound class "
+        f"({', '.join(BOUND_CLASSES)}).  No device is touched.")
+    p.add_argument("--n", type=int, required=True, help="database rows")
+    p.add_argument("--dim", type=int, required=True, help="feature dim")
+    p.add_argument("--k", type=int, default=100, help="neighbor count")
+    p.add_argument("--nq", type=int, default=4096,
+                   help="queries per call (the rate's numerator)")
+    p.add_argument("--selector", default="pallas",
+                   choices=("pallas", "exact", "approx"),
+                   help="pallas = the coarse-kernel model (knob flags "
+                   "below); exact / approx = the counted selectors")
+    p.add_argument("--device-kind", default=None,
+                   choices=sorted(PEAKS_BY_KIND),
+                   help="peak-table row to model against; unset = the "
+                   "generic-CPU peaks, flagged estimated")
+    p.add_argument("--precision", default=None, choices=PRECISIONS,
+                   help="coarse-kernel arm (pallas selector)")
+    p.add_argument("--kernel", default=None,
+                   choices=("tiled", "streaming", "fused"))
+    p.add_argument("--grid-order", default=None,
+                   choices=("query_major", "db_major"))
+    p.add_argument("--binning", default=None, choices=("grouped", "lane"))
+    p.add_argument("--tile-n", type=int, default=None)
+    p.add_argument("--bin-w", type=int, default=None)
+    p.add_argument("--survivors", type=int, default=None)
+    p.add_argument("--margin", type=int, default=28)
+    p.add_argument("--dtype", default=None,
+                   choices=("bfloat16", "float16", "float32"),
+                   help="placement compute dtype (exact / approx)")
+    p.add_argument("--qps", type=float, default=None,
+                   help="a measured q/s to attribute: adds roofline_pct")
+    p.add_argument("--nprobe", type=int, default=None,
+                   help="IVF lists probed per query (with --ncentroids)")
+    p.add_argument("--ncentroids", type=int, default=None,
+                   help="IVF list count (required with --nprobe)")
+    p.add_argument("--pq-dsub", type=int, default=None,
+                   help="pq dims per subspace (default 4)")
+    p.add_argument("--pq-ncodes", type=int, default=None,
+                   help="pq codes per subspace (default 256)")
+    p.add_argument("--best", nargs="?", const=10, type=int, default=None,
+                   metavar="N",
+                   help="rank the autotuner's full knob grid by modeled "
+                   "ceiling and print the top N (the offline twin of "
+                   "autotune's prune=); the knob flags are ignored")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw model JSON instead of the "
+                   "rendering")
+    return p
+
+
+def _run_roofline_best(args) -> int:
+    """``roofline --best``: ``tuning.knob_grid("full")`` ranked by modeled
+    ceiling (knn_tpu/cli.py:804-870)."""
+    import json
+
+    from knn_tpu_torch import tuning
+    from knn_tpu_torch.obs import roofline
+    from knn_tpu_torch.tuning.autotune import _label
+
+    ranked = []
+    seen = set()
+    for cand in tuning.knob_grid("full"):
+        knobs = {**tuning.DEFAULT_KNOBS, **cand}
+        # the final select does not enter the model: one line a geometry
+        mkey = (knobs["precision"], knobs["kernel"], knobs["grid_order"],
+                knobs["binning"], knobs["tile_n"], knobs["survivors"],
+                knobs["bin_w"])
+        if mkey in seen:
+            continue
+        seen.add(mkey)
+        try:
+            model = roofline.pallas_cost_model(
+                n=args.n, d=args.dim, k=args.k, nq=args.nq,
+                precision=knobs["precision"], kernel=knobs["kernel"],
+                grid_order=knobs["grid_order"], binning=knobs["binning"],
+                tile_n=knobs["tile_n"], survivors=knobs["survivors"],
+                bin_w=knobs["bin_w"], margin=args.margin,
+                device_kind=args.device_kind, nprobe=args.nprobe,
+                ncentroids=args.ncentroids, pq_dsub=args.pq_dsub,
+                pq_ncodes=args.pq_ncodes)
+        except ValueError:
+            continue  # a combination the model refuses
+        if not model.get("ceiling_qps"):
+            continue
+        ranked.append({"config": _label(knobs),
+                       "ceiling_qps": model["ceiling_qps"],
+                       "bound_class": model["bound_class"],
+                       "estimated": model["estimated"]})
+    ranked.sort(key=lambda r: -r["ceiling_qps"])
+    top = ranked[: max(1, int(args.best))]
+    payload = {"best": top, "modeled": len(ranked),
+               "model_version": roofline.MODEL_VERSION}
+    if args.json:
+        print(json.dumps(payload, indent=1, sort_keys=True))
+        return 0
+    est = (" (ESTIMATED generic fallback peaks)"
+           if top and top[0]["estimated"] else "")
+    print(f"top {len(top)} of {len(ranked)} modeled configs for "
+          f"n={args.n} d={args.dim} k={args.k} nq={args.nq} on "
+          f"{args.device_kind or 'generic-cpu'}{est}  "
+          f"[roofline v{roofline.MODEL_VERSION}]")
+    for rank, rec in enumerate(top, 1):
+        print(f"  {rank:2d}. {rec['ceiling_qps']:>12,.0f} q/s  "
+              f"{rec['bound_class']:<18} {rec['config']}")
+    print(json.dumps(payload))
+    return 0
+
+
+def run_roofline(args: argparse.Namespace) -> int:
+    """The ``roofline`` subcommand (knn_tpu/cli.py:727-918): the rendering
+    (or the raw JSON) and one trailing JSON line."""
+    import json
+
+    from knn_tpu_torch.obs import roofline
+
+    if (args.nprobe is None) != (args.ncentroids is None):
+        print("--nprobe and --ncentroids must be set together",
+              file=sys.stderr)
+        return 2
+    if args.best is not None:
+        return _run_roofline_best(args)
+    if args.selector == "pallas":
+        model = roofline.pallas_cost_model(
+            n=args.n, d=args.dim, k=args.k, nq=args.nq,
+            precision=args.precision, kernel=args.kernel,
+            grid_order=args.grid_order, binning=args.binning,
+            tile_n=args.tile_n, survivors=args.survivors, bin_w=args.bin_w,
+            margin=args.margin, device_kind=args.device_kind,
+            nprobe=args.nprobe, ncentroids=args.ncentroids,
+            pq_dsub=args.pq_dsub, pq_ncodes=args.pq_ncodes)
+    else:
+        model = roofline.counted_cost_model(
+            n=args.n, d=args.dim, k=args.k, nq=args.nq,
+            selector=args.selector, dtype=args.dtype, margin=args.margin, device_kind=args.device_kind,
+            nprobe=args.nprobe, ncentroids=args.ncentroids)
+    block = roofline.attribute(model, args.qps)
+    if args.json:
+        print(json.dumps(block, indent=1, sort_keys=True))
+        return 0
+    sys.stdout.write(roofline.render_text(block))
+    print(json.dumps({k: block.get(k) for k in (
+        "ceiling_qps", "bound_class", "roofline_pct", "estimated",
+        "model_version")}))
+    return 0
+
+
 #: the subcommands, by leading token: the job's flat interface stays as it is
 SUBCOMMANDS = {"tune": (build_tune_parser, run_tune),
                "join": (build_join_parser, run_join),
                "index": (build_index_parser, run_index),
-               "loadgen": (build_loadgen_parser, run_loadgen)}
+               "loadgen": (build_loadgen_parser, run_loadgen),
+               "metrics": (build_metrics_parser, run_metrics),
+               "doctor": (build_doctor_parser, run_doctor),
+               "roofline": (build_roofline_parser, run_roofline)}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -532,15 +856,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         build, run = SUBCOMMANDS[argv[0]]
         return run(build().parse_args(argv[1:]))
     args = build_parser().parse_args(argv)
+    from knn_tpu_torch import obs
     from knn_tpu_torch.pipeline import run_job
 
-    result = run_job(args_to_config(args))
+    server = None
+    if args.obs_log:
+        obs.reset_event_log(args.obs_log)
+    if args.metrics_port is not None:
+        server = obs.start_metrics_server(args.metrics_port)
+        port = server.server_address[1]  # resolved when PORT was 0
+        print(f"metrics: http://127.0.0.1:{port}/metrics")
+    try:
+        result = run_job(args_to_config(args))
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
     if result.val_accuracy is not None:
         print(f"accuracy = {result.val_accuracy}")  # knn_mpi.cpp:348
     print(f"Running time is {result.total_time} second")  # knn_mpi.cpp:398
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             f.write(result.metrics_json())
+    if args.metrics_snapshot:
+        obs.write_json_snapshot(args.metrics_snapshot)
     return 0
 
 

@@ -38,11 +38,20 @@ cross-part merge is the lexicographic (distance, position) order.
 Where the port differs from the JAX package (ROADMAP queue C): every knob
 is an argument (no ``KNN_TPU_DELTA_*`` / ``KNN_TPU_COMPACT_*`` switch);
 ``search_certified`` defaults to the ``"pallas"`` selector, as the port's
-``ShardedKNN`` does (the final ``(d, ids)`` are the same); no obs gauges,
-spans or health registration; no transient retry (a CUDA error raises at
-once); and the background compactor records its last exception
-(``stats()["last_compaction_error"]``) and :meth:`MutableIndex.close`
-re-raises it, where the JAX package's only trace is an obs event.
+``ShardedKNN`` does (the final ``(d, ids)`` are the same); no transient
+retry (a CUDA error raises at once); the background compactor records its
+last exception (``stats()["last_compaction_error"]``) and
+:meth:`MutableIndex.close` re-raises it, beside the JAX package's
+``index.compact_error`` event; and the drift monitor and ``index_health``
+gauges wait for the second obs slice (ROADMAP divergence 22).
+
+Telemetry (knn_tpu_torch.obs, mutable.py:302-305, 405, 439, 716-722, 903,
+969 of the JAX package): the ``INDEX_EPOCH`` / ``INDEX_TAIL_ROWS`` /
+``INDEX_TOMBSTONES`` gauges follow every write and swap, a compaction
+counts ``INDEX_COMPACTIONS``, observes its swap into
+``INDEX_SWAP_SECONDS`` and records an ``index.compact`` span, the
+frontend adds ``serving.request`` slices for its snapshot pin and its
+merge, and the index registers with obs.health.
 
 Threads and streams: compaction builds its placement on the compactor
 thread while searches run on others.  Every tier works on the default
@@ -58,6 +67,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from knn_tpu_torch import obs
+from knn_tpu_torch.obs import names as _mn
 
 from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.index.artifact import (MutationBudgetError,
@@ -233,6 +245,10 @@ class MutableIndex:
         #: kwargs compaction rebuilds it with (None until serving_engine())
         self._inner_engine = None
         self._engine_kwargs: Optional[dict] = None
+        obs.gauge(_mn.INDEX_EPOCH).set(0.0)
+        obs.gauge(_mn.INDEX_TAIL_ROWS).set(0.0)
+        obs.gauge(_mn.INDEX_TOMBSTONES).set(0.0)
+        obs.health.register_index(self)
 
     # -- construction helpers ---------------------------------------------
     def _k_eff_for(self, n_rows: int) -> int:
@@ -295,6 +311,7 @@ class MutableIndex:
             tail_len = self._tail_len
             epoch = self._epoch
             self._lock.notify_all()  # wake the compactor
+        obs.gauge(_mn.INDEX_TAIL_ROWS).set(float(tail_len))
         return {"epoch": epoch, "tail_rows": tail_len}
 
     def delete(self, ids) -> dict:
@@ -326,6 +343,7 @@ class MutableIndex:
             n_tombs = len(self._tombstones)
             epoch = self._epoch
             self._lock.notify_all()
+        obs.gauge(_mn.INDEX_TOMBSTONES).set(float(n_tombs))
         return {"epoch": epoch, "tombstones": n_tombs}
 
     # -- delta-tail device search -----------------------------------------
@@ -596,6 +614,16 @@ class MutableIndex:
                     "wall_s": round(time.perf_counter() - t0, 4),
                     "swap_s": round(time.perf_counter() - t_swap, 6),
                 }
+        obs.counter(_mn.INDEX_COMPACTIONS).inc()
+        obs.histogram(_mn.INDEX_SWAP_SECONDS).observe(report["swap_s"])
+        obs.gauge(_mn.INDEX_EPOCH).set(float(report["epoch"]))
+        obs.gauge(_mn.INDEX_TAIL_ROWS).set(float(report["carry_tail_rows"]))
+        obs.gauge(_mn.INDEX_TOMBSTONES).set(
+            float(report["carry_tombstones"]))
+        obs.record_span("index.compact", None, report["wall_s"],
+                        epoch=report["epoch"], rows=report["rows"],
+                        rows_dropped=dropped, tail_rows_merged=merged,
+                        swap_s=report["swap_s"])
         return dict(report)
 
     def _compact_due(self) -> bool:
@@ -718,6 +746,7 @@ class _MutablePending:
         if self._tail is not None:
             tail_parts = self._tail.fetch()
         d_m, i_m = self._pending.result()
+        t0 = time.perf_counter()
         d_parts = [np.asarray(d_m)]
         p_parts = [np.asarray(i_m).astype(np.int64)]
         if tail_parts is not None:
@@ -725,6 +754,10 @@ class _MutablePending:
             p_parts.append(tail_parts[1])
         self._result = MutableIndex._merge_filter(
             self._snap, d_parts, p_parts, self._k)
+        # the merge runs after the engine's request span closed: a slice of
+        # its own keeps the request's spans tiling its latency
+        obs.record_span("serving.request", self._pending.trace_id,
+                        time.perf_counter() - t0, op="index_merge")
         return self._result
 
 
@@ -765,10 +798,15 @@ class MutableServingEngine(Frontend):
                trace_id=None, tenant=None) -> _MutablePending:
         from knn_tpu_torch.serving.buckets import bucket_for
 
+        t_ent = time.perf_counter()
         q = self._checked(queries, op)
         snap = self.index._snapshot()
+        t_pre = time.perf_counter()
         pending = snap.engine.submit(q, op="search", trace_id=trace_id,
                                      tenant=tenant)
+        # the prologue (checks, snapshot pin) before the engine's clock
+        obs.record_span("serving.request", pending.trace_id,
+                        t_pre - t_ent, op="index_snapshot")
         tail_h = None
         if snap.tail_len:
             b = bucket_for(snap.engine.buckets, q.shape[0])

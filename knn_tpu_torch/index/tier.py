@@ -5,8 +5,10 @@ one thread that compacts whenever the tier says a compaction is due,
 under the contract that a failure never vanishes: the last exception is
 kept (``stats()["last_compaction_error"]``) and :meth:`Compactor.close`
 re-raises it after waiting for the thread, however long a compaction in
-flight takes.  The JAX package's loops swallow every exception; a CUDA
-fault here must reach the caller."""
+flight takes, and each failure is also an ``index.compact_error`` event
+(knn_tpu_torch.obs, as the JAX package's loop emits it).  The JAX
+package's loops swallow every exception; a CUDA fault here must reach
+the caller."""
 
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+
+from knn_tpu_torch import obs
 
 #: pause after a failed compaction, so a persistent fault does not spin
 FAILURE_BACKOFF_S = 0.25
@@ -140,6 +144,8 @@ class Compactor:
                 try:
                     compact()
                 except Exception as e:  # noqa: BLE001 — kept, re-raised by close()
+                    obs.emit_event("index.compact_error",
+                                   error=f"{type(e).__name__}: {e}")
                     with self._lock:
                         self.error = e
                         self._lock.wait(timeout=FAILURE_BACKOFF_S)

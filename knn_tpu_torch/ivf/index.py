@@ -37,13 +37,21 @@ the port of knn_tpu/ivf/index.py (``IVFIndex`` and its serving frontend
 The probe, the gathers, the float64 refine and the repair run on the
 host, as in the JAX package (their arithmetic is what the bitwise
 contract rests on).  Where the port differs (ROADMAP queue C): every knob
-is an argument (no ``KNN_TPU_IVF_*`` switch), no obs (gauges, margin
-histogram, drift monitor), the query block is not padded up a rung (a
+is an argument (no ``KNN_TPU_IVF_*`` switch), the drift monitor and
+``index_health`` wait for the second obs slice (divergence 22), the query
+block is not padded up a rung (a
 new query count compiles nothing here), and the background compactor
 records its last exception (``stats()["last_compaction_error"]``, re-raised
 by :meth:`IVFIndex.close`); the serving frontend has no audit sampler and
 takes the search knobs (``selector``, ``precision``, ``kernel``, ...) its
 requests run with, where the JAX package's runs the defaults.
+
+Telemetry (knn_tpu_torch.obs, ivf/index.py:218, 485-513, 571-581, 717,
+866 of the JAX package): each certified query's margin to the unprobed
+lists' bound goes to ``CERTIFIED_MARGIN{path="ivf"}``, every search sets
+the ``IVF_*`` gauges by selector, a compaction records an
+``index.compact`` span, a frontend request a ``serving.request`` span,
+and the index registers with obs.health.
 """
 
 from __future__ import annotations
@@ -53,6 +61,8 @@ import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from knn_tpu_torch import obs
 
 from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.index.artifact import MutationBudgetError
@@ -208,6 +218,7 @@ class IVFIndex:
         self._snap_cache: Optional[_IVFSnapshot] = None
         self._install(base, ids_arr, self._train(base))
         self._live = set(ids_arr.tolist())
+        obs.health.register_index(self)
 
     # -- placement ---------------------------------------------------------
     def _train(self, rows: np.ndarray):
@@ -455,6 +466,9 @@ class IVFIndex:
         groups: dict = {}
         for qi in range(n_q):
             groups.setdefault(tuple(probes[qi].tolist()), []).append(qi)
+        # each certified answer's headroom to the unprobed lists' bound
+        # (relative; ~0 is one insert away from a fallback)
+        margins: Optional[list] = [] if obs.enabled() else None
         for key, members in groups.items():
             qi = np.asarray(members, np.int64)
             t1 = time.perf_counter()
@@ -474,8 +488,18 @@ class IVFIndex:
             d_out[qi] = d_ref
             pos_out[qi] = p_ref
             s_k = np.sqrt(d_ref[:, k - 1])
-            bound_ok = s_k < unprobed_lb[qi] * (1.0 - _BOUND_SLACK)
+            lb = unprobed_lb[qi]
+            bound_ok = s_k < lb * (1.0 - _BOUND_SLACK)
             flagged[qi] = ~(complete & bound_ok)
+            if margins is not None:
+                fin = np.isfinite(lb)
+                if fin.any():
+                    margins.extend(
+                        ((lb[fin] - s_k[fin])
+                         / np.maximum(np.abs(lb[fin]), 1e-30)).tolist())
+        if margins:
+            obs.histogram(obs.names.CERTIFIED_MARGIN,
+                          path="ivf").observe_many(margins)
         n_bad = int(flagged.sum())
         misses = 0
         recall_sum = float(n_q - n_bad)  # certified queries: exactly 1.0
@@ -535,6 +559,15 @@ class IVFIndex:
                                      if brute_b else 0.0),
             "wall_s": round(wall, 6),
         }
+        if obs.enabled():
+            for name, key in (
+                (obs.names.IVF_FALLBACK_RATE, "fallback_rate"),
+                (obs.names.IVF_RECALL_AT_K, "recall_at_k"),
+                (obs.names.IVF_PROBE_FRACTION, "probe_fraction"),
+                (obs.names.IVF_BYTES_STREAMED_RATIO,
+                 "bytes_streamed_ratio"),
+            ):
+                obs.gauge(name, selector=selector).set(stats[key])
         with self._lock:
             self._last_search = stats
         return stats
@@ -622,6 +655,8 @@ class IVFIndex:
                     "wall_s": round(time.perf_counter() - t0, 4),
                 }
                 self._last_compaction = report
+        obs.record_span("index.compact", f"ivf-compact-{report['epoch']}",
+                        report["wall_s"], rows=report["rows"])
         return report
 
     def _compact_due(self) -> bool:
@@ -739,8 +774,11 @@ class IVFServingEngine(Frontend):
                trace_id=None, tenant=None) -> _IVFPending:
         q = self._checked(queries, op)
         tid = trace_id if trace_id is not None else f"ivf-{next(self._seq)}"
+        t0 = time.perf_counter()
         d, ids, _stats = self.index.search_certified(
             q, k=self.k, **self._search_kwargs)
+        obs.record_span("serving.request", tid, time.perf_counter() - t0,
+                        op="ivf_search")
         return _IVFPending(tid, tenant, (d, ids))
 
     def stats(self, **kw) -> dict:

@@ -24,9 +24,10 @@ Two modes (:data:`JOIN_MODES`):
 Every run returns ``(d, i, stats)``; ``stats`` carries the executed
 superblock / segment / dispatch counts (checked against the
 :mod:`knn_tpu_torch.analysis.hbm` plan), ``rows_per_s`` and
-``overlap_ratio``.  Where the port differs (ROADMAP queue C): the knobs are
-arguments (no ``KNN_TPU_JOIN_*`` switch), no transient retry, no obs span,
-and the host-RAM tier's ``_stream_tiered`` is not ported (no port
+``overlap_ratio``; each run records a ``join.bulk`` span
+(knn_tpu_torch.obs).  Where the port differs (ROADMAP queue C): the knobs
+are arguments (no ``KNN_TPU_JOIN_*`` switch), no transient retry, and the
+host-RAM tier's ``_stream_tiered`` is not ported (no port
 placement has that tier yet).
 """
 
@@ -37,6 +38,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from knn_tpu_torch import obs
 from knn_tpu_torch.analysis import hbm
 
 #: query-superblock width when neither explicit rows nor a query-byte
@@ -269,4 +271,6 @@ def knn_join(
         "plan": plan,
         **executed,
     }
+    obs.record_span("join.bulk", f"join-{id(program):x}", wall,
+                    rows=n_a, mode=mode)
     return d_out, i_out, stats

@@ -9,7 +9,7 @@ above it, so its knee is known by construction.  ``submit`` has the
 targets (``tenant``/``deadline_ms``/``priority``, a Future,
 ``dispatch_t`` stamped at service start), and the optional ``max_depth``
 / ``shed_deadlines`` knobs mimic admission.  Each future's ``trace_id``
-is None (there is no trace layer yet).
+is minted as the queue's is (knn_tpu_torch.obs; None with obs off).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import time
 from concurrent.futures import Future
 from typing import Optional
 
+from knn_tpu_torch.obs import new_trace_id
 from knn_tpu_torch.serving.admission import DeadlineError, QueueFullError
 
 
@@ -60,7 +61,7 @@ class SyntheticTarget:
                     tenant=tenant)
             self._depth += 1
         fut: Future = Future()
-        fut.trace_id = None
+        fut.trace_id = new_trace_id()
         deadline = None if deadline_ms is None else now + deadline_ms / 1e3
         self._q.put((fut, tenant, deadline))
         return fut
@@ -76,7 +77,7 @@ class SyntheticTarget:
             raise ValueError(
                 f"unknown write kind {kind!r}; expected insert|delete")
         fut: Future = Future()
-        fut.trace_id = None
+        fut.trace_id = new_trace_id()
         with self._lock:
             self.writes[kind] = self.writes.get(kind, 0) + 1
         fut.dispatch_t = time.monotonic()

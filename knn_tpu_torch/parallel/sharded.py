@@ -33,6 +33,17 @@ its own, and the host waits on that event alone.  ``overlap=True`` runs
 the two-stage pipeline of the JAX package (sharded.py:1966-2011): the
 coarse kernel on one CUDA stream, the select/rescore/certify tail on a
 second, at most ``overlap_depth`` batches in flight.
+
+Telemetry (knn_tpu_torch.obs, sharded.py:1632-1642, 1767-1769,
+1923-1942, 2007-2008 of the JAX package): every certified call adds its
+queries and repair counts to the ``CERTIFIED_*`` counters by selector,
+the counted certificate observes each certified query's margin into
+``CERTIFIED_MARGIN{path="sharded"}``, the int and pq arms their per-query
+ε into ``CERTIFIED_QUANT_BOUND`` (recomputed on the host from the
+queries and the placement's host stats), and the pipeline sets
+``PIPELINE_OVERLAP_RATIO`` and records a ``certified.pipeline`` span.
+Only values already on the host are recorded: no obs line reads a
+device tensor.
 """
 
 from __future__ import annotations
@@ -45,7 +56,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from knn_tpu_torch import tuning
+from knn_tpu_torch import obs, tuning
 from knn_tpu_torch.convert import Placement, placement_from_numpy, row_normalize_f64
 from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.ops.coarse_knn import (
@@ -75,6 +86,7 @@ from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats_t,
                                         quantize_rows_int4,
                                         score_error_bound_device)
 from knn_tpu_torch.ops.topk import I32MAX, knn_search_tiled
+from knn_tpu_torch.obs import names as _mn
 from knn_tpu_torch.ops.vote import majority_vote
 from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
 
@@ -714,6 +726,22 @@ class ShardedKNN:
             include_distances=want_distances, binning=binning,
             grid_order=grid_order, kernel=kernel, pq_dsub=pq_dsub,
             pq_ncodes=pq_ncodes, final_recall_target=final_recall_target)
+        if precision in ("int8", "int4", "pq") and obs.enabled():
+            # the certificate's per-query quantization bound, recomputed on
+            # the host (O(Q D)) from the placement's host stats: the device
+            # copy stays on the device
+            if precision == "pq":
+                from knn_tpu_torch.ops.pq import score_error_bound_pq
+
+                eps = score_error_bound_pq(
+                    q_np, self._pq_placement(pq_dsub, pq_ncodes)["stats"])
+            else:
+                from knn_tpu_torch.ops.quantize import score_error_bound
+
+                pl = self._quant_placement(precision)
+                eps = score_error_bound(q_np, pl["stats"],
+                                        offset=pl["offset"])
+            obs.histogram(_mn.CERTIFIED_QUANT_BOUND).observe_many(eps)
         bad_mask = np.zeros(q_np.shape[0], dtype=bool)
         n_corrected = 0
 
@@ -800,9 +828,14 @@ class ShardedKNN:
             main.wait_stream(coarse_stream)
             main.wait_stream(tail_stream)
         wall = time.perf_counter() - t_wall0
+        ratio = _overlap_ratio(intervals)
         pipeline = {"depth": depth, "batches": len(batches),
-                    "overlap_ratio": round(_overlap_ratio(intervals), 4),
+                    "overlap_ratio": round(ratio, 4),
                     "wall_s": round(wall, 4)}
+        obs.gauge(_mn.PIPELINE_OVERLAP_RATIO).set(ratio)
+        obs.record_span("certified.pipeline", None, wall,
+                        batches=len(batches), depth=depth,
+                        overlap_ratio=round(ratio, 4))
         return np.flatnonzero(bad_mask), n_corrected, pipeline
 
     def search_certified(self, queries, *, margin: int = 28,
@@ -967,6 +1000,19 @@ class ShardedKNN:
                          pallas_knobs=knobs, tuning=tune_info)
             if pipeline is not None:
                 stats["pipeline"] = pipeline
+        # the per-call stats stay the API; the registry accumulates the
+        # process-lifetime counts a scraper reads
+        obs.counter(_mn.CERTIFIED_QUERIES, selector=selector).inc(n_q)
+        obs.counter(_mn.CERTIFIED_FALLBACKS, selector=selector).inc(
+            int(bad.size))
+        obs.counter(_mn.CERTIFIED_GENUINE_MISSES, selector=selector).inc(
+            repair.get("fallback_genuine_misses", 0))
+        obs.counter(_mn.CERTIFIED_FALSE_ALARMS, selector=selector).inc(
+            repair.get("fallback_false_alarms", 0))
+        obs.counter(_mn.CERTIFIED_HOST_EXACT, selector=selector).inc(
+            repair.get("host_exact_queries", 0))
+        if selector == "pallas":
+            obs.counter(_mn.CERTIFIED_RANK_CORRECTED).inc(n_corrected)
         if return_distances and self.metric == "cosine":
             d *= 0.5  # unit-vector squared L2 -> 1 - cosine similarity
         if return_distances and self.metric == "dot":
@@ -994,7 +1040,9 @@ class ShardedKNN:
            clears ``2 tol + 4 eps_f32 |d|`` (``js`` that rank), else ``d_k
            + tol`` (``js = k``);
         3. a query whose count exceeds its ``js`` is flagged: an outsider
-           may sit at or below its ``js``-th candidate."""
+           may sit at or below its ``js``-th candidate; each certified
+           query's relative margin ``(threshold - d_k) / |threshold|``
+           goes to ``CERTIFIED_MARGIN{path="sharded"}``."""
         from knn_tpu_torch.ops.certified import (_approx_candidates,
                                                  certification_tolerance,
                                                  count_below)
@@ -1043,14 +1091,23 @@ class ShardedKNN:
             dj = np.take_along_axis(d_m, js[:, None] - 1, axis=-1)[:, 0]
             d_js = np.take_along_axis(
                 d_m, np.minimum(js, m_avail - 1)[:, None], axis=-1)[:, 0]
+            mid = np.where(has, 0.5 * (dj + d_js), dj + tol)
             thr = np.full(q.shape[0], -np.inf, dtype=np.float32)
-            thr[:take] = np.where(has, 0.5 * (dj + d_js), dj + tol)
+            thr[:take] = mid
             counts = count_below(db, q, torch.from_numpy(thr),
                                  tile=self.train_tile or 131072)
-            count_out.append((lo, take, js, counts))
+            count_out.append((lo, take, js, counts, mid, d_m[:, k - 1]))
         # stage 3: the certificates (count <= the query's rank bound)
-        flagged = [lo + np.flatnonzero(c.cpu().numpy()[:take] > js)
-                   for lo, take, js, c in count_out]
+        flagged = []
+        for lo, take, js, c, mid, d_k in count_out:
+            over = c.cpu().numpy()[:take] > js
+            flagged.append(lo + np.flatnonzero(over))
+            ok = ~over
+            if obs.enabled() and ok.any():
+                denom = np.maximum(np.abs(mid[ok]), 1e-30)
+                obs.histogram(_mn.CERTIFIED_MARGIN, path="sharded"
+                              ).observe_many(
+                    ((mid[ok] - d_k[ok]) / denom).tolist())
         return np.concatenate(flagged) if flagged else np.empty(0, np.int64)
 
     def predict_certified(self, queries, *, margin: int = 28,

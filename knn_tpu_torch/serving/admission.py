@@ -30,9 +30,13 @@ stats slots): use a bounded set of tenant classes, never per-request ids.
 
 Where the port differs (ROADMAP queue C): every field of
 :class:`AdmissionConfig` is an argument with the reference's default —
-there is no ``from_env`` and no environment switch; and there is no obs
-layer yet, so no admission counters or wait-estimate gauge (the
-``stats()`` section carries the same counts).
+there is no ``from_env`` and no environment switch.
+
+Telemetry (knn_tpu_torch.obs, admission.py:265, 291, 304, 350, 361 of the
+JAX package): ``ADMISSION_ADMITTED`` / ``ADMISSION_REJECTED`` /
+``ADMISSION_SHED`` by tenant (and reason), beside the same counts in
+``stats()``, and the ``ADMISSION_WAIT_ESTIMATE`` gauge each time the
+estimate is taken.
 """
 
 from __future__ import annotations
@@ -40,6 +44,9 @@ from __future__ import annotations
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
+
+from knn_tpu_torch import obs
+from knn_tpu_torch.obs import names as mn
 
 #: tenant label used for untagged traffic in the admission accounting
 UNTAGGED = "-"
@@ -188,6 +195,7 @@ class AdmissionController:
             "shed": {},  # reason -> count
             "per_tenant": {},  # tenant -> {admitted, rejected, shed}
         }
+        self._g_wait = obs.gauge(mn.ADMISSION_WAIT_ESTIMATE)
 
     # -- estimator ---------------------------------------------------------
     def observe_service(self, rows: int, seconds: float) -> None:
@@ -209,7 +217,9 @@ class AdmissionController:
             row_s = self._row_s
         if row_s is None:
             return None
-        return self._base_wait_s + rows * row_s
+        est = self._base_wait_s + rows * row_s
+        self._g_wait.set(est)
+        return est
 
     # -- admission decision ------------------------------------------------
     def _tenant_slot(self, tenant: str) -> dict:
@@ -221,6 +231,8 @@ class AdmissionController:
             r = self._stats["rejected"]
             r[exc.reason] = r.get(exc.reason, 0) + 1
             self._tenant_slot(tenant)["rejected"] += 1
+        obs.counter(mn.ADMISSION_REJECTED, tenant=tenant,
+                    reason=exc.reason).inc()
         raise exc
 
     def admit(self, *, tenant: Optional[str], depth: int,
@@ -262,6 +274,7 @@ class AdmissionController:
         with self._lock:
             self._stats["admitted"] += 1
             self._tenant_slot(label)["admitted"] += 1
+        obs.counter(mn.ADMISSION_ADMITTED, tenant=label).inc()
         return deadline_s
 
     def record_shed(self, tenant: Optional[str],
@@ -272,6 +285,7 @@ class AdmissionController:
             s = self._stats["shed"]
             s[reason] = s.get(reason, 0) + 1
             self._tenant_slot(label)["shed"] += 1
+        obs.counter(mn.ADMISSION_SHED, tenant=label, reason=reason).inc()
 
     # -- ordering ----------------------------------------------------------
     def priority_of(self, tenant: Optional[str]) -> int:

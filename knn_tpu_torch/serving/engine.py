@@ -52,13 +52,23 @@ graphs, and the pool with them, are freed with the engine.  A failed
 capture raises; the engine never falls back to the eager program on the
 card.
 
+Telemetry (knn_tpu_torch.obs; engine.py:155, 245-247, 313-333, 399,
+424-459, 527-533, 592-594 of the JAX package): :meth:`ServingEngine.submit`
+mints a trace id when the caller gives none and records the
+``serving.dispatch`` span (``serving.compile`` around a capture, outside
+``torch.cuda.graph``), :meth:`PendingSearch.result` the ``serving.join``
+and ``serving.request`` spans; the ``SERVING_*`` counters (a capture
+counts under ``SERVING_COMPILES``), the tenant series and the latency
+histogram (trace-id exemplars) follow each request, and the engine
+registers with obs.health.  No obs call reads a device tensor.
+
 Where the port differs (ROADMAP queue C): CUDA graphs stand in for the AOT
 compiles; ``donate_queries`` is accepted and reported in ``stats()`` but
-changes nothing (the graph's static input is reused already); there is no
-obs layer yet — no spans, counters, histograms, audit sampler, health
-registration or SLO section, and ``stats()`` has the JAX package's
-telemetry-off shape; and no transient retry: a CUDA error raises at its
-first occurrence.
+changes nothing (the graph's static input is reused already); the audit
+sampler and the ``slo`` / ``quality`` / ``slowest_requests`` sections of
+``stats()`` wait for the second obs slice, so ``stats()`` keeps the JAX
+package's telemetry-off shape (divergence 30); and no transient retry: a
+CUDA error raises at its first occurrence.
 """
 
 from __future__ import annotations
@@ -71,6 +81,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from knn_tpu_torch import obs
+from knn_tpu_torch.obs import names as mn
 from knn_tpu_torch.parallel.sharded import _host_copies
 from knn_tpu_torch.serving.buckets import (
     DEFAULT_MAX_BUCKET,
@@ -192,7 +204,7 @@ class PendingSearch:
         self._t0 = t0
         self._error_counted = False
         self._res = None
-        #: request-scoped id (None: there is no trace layer yet)
+        #: request-scoped trace id (minted in submit; None with obs off)
         self.trace_id = trace_id
         #: tenant tag (None = untagged)
         self.tenant = tenant
@@ -200,6 +212,7 @@ class PendingSearch:
     def result(self):
         if self._res is not None:
             return self._res
+        t_join = time.perf_counter()
         try:
             parts = []
             for host, event, rows, _keep in self._chunks:
@@ -215,13 +228,22 @@ class PendingSearch:
         except Exception:
             if not self._error_counted:
                 self._error_counted = True
-                self._engine._record_error()
+                self._engine._record_error(self._op, tenant=self.tenant)
             raise
         # the host buffers are read: the inputs kept alive for their copies
         # can go; latency, like errors, counts once per request
         self._chunks = None
         self._res = res
-        self._engine._record_latency(time.perf_counter() - self._t0)
+        done = time.perf_counter()
+        # join: the wait for the device and the copies inside result();
+        # the request span is the whole submit-to-result wall
+        obs.record_span("serving.join", self.trace_id, done - t_join,
+                        op=self._op,
+                        **({} if self.tenant is None
+                           else {"tenant": self.tenant}))
+        self._engine._record_latency(done - self._t0, self._op,
+                                     trace_id=self.trace_id, rows=self._n,
+                                     tenant=self.tenant)
         return res
 
 
@@ -289,8 +311,10 @@ class ServingEngine:
         self._queries = 0
         self._errors = 0
         self._latencies_s: deque = deque(maxlen=int(latency_window))
-        #: ops whose buckets have all been built (warmup())
+        #: ops whose buckets have all been built (warmup()); the readiness
+        #: probe (/healthz) gates on this being non-empty
         self.warmed_ops: set = set()
+        obs.health.register_engine(self)
 
     # -- executables -------------------------------------------------------
     def _program_fn(self, op: str):
@@ -337,11 +361,14 @@ class ServingEngine:
         graph, outs = capture_graph(fn, q, self._pool)
         return _Executable(fn, graph, q, outs)
 
-    def _executable(self, op: str, bucket: int) -> _Executable:
+    def _executable(self, op: str, bucket: int,
+                    trace_id: Optional[str] = None) -> _Executable:
         """The executable of ``(op, bucket)``, built (captured) on first
         use.  The engine lock is never held across a capture: a cold
         bucket must not stall dispatches to warm ones; concurrent first
-        requests to one key wait on a per-key event."""
+        requests to one key wait on a per-key event.  The build runs in a
+        ``serving.compile`` span under the trace id of the request that
+        triggered it (None for warmup)."""
         key = (op, self._placed_rows(bucket))
         while True:
             with self._lock:
@@ -356,10 +383,13 @@ class ServingEngine:
                     break  # this thread owns the build
             ev.wait()  # another thread builds this key; re-check
         try:
-            ex = self._build(op, key[1])
+            with obs.span("serving.compile", trace_id=trace_id, op=op,
+                          bucket=int(bucket), placed_rows=int(key[1])):
+                ex = self._build(op, key[1])
             with self._lock:
                 self._execs[key] = ex
                 self._compiles[bucket] += 1
+            obs.counter(mn.SERVING_COMPILES, op=op, bucket=bucket).inc()
             return ex
         finally:
             # waiters re-check _execs; after a raised build they find the
@@ -407,7 +437,8 @@ class ServingEngine:
                        if tuple(s["segment_pool_id"]) == pool))
 
     # -- dispatch ----------------------------------------------------------
-    def _dispatch_chunk(self, op: str, chunk: np.ndarray):
+    def _dispatch_chunk(self, op: str, chunk: np.ndarray,
+                        trace_id: Optional[str] = None):
         """Pad one <= max_bucket chunk to its bucket and enqueue it.
         Returns (host outputs, event or None, real rows, kept inputs)."""
         n = chunk.shape[0]
@@ -415,7 +446,7 @@ class ServingEngine:
         assert bucket is not None  # callers split oversize requests first
         padded = np.zeros((bucket, self._placed_dim), dtype=np.float32)
         padded[:n, : self._dim] = chunk
-        ex = self._executable(op, bucket)
+        ex = self._executable(op, bucket, trace_id)
         if self.device.type != "cuda":
             host, event = _host_copies(ex.fn(torch.from_numpy(padded)))
             keep = ()
@@ -433,14 +464,16 @@ class ServingEngine:
             keep = (src,)
         with self._lock:
             self._dispatches[bucket] += 1
+        obs.counter(mn.SERVING_DISPATCHES, op=op, bucket=bucket).inc()
         return host, event, n, keep
 
     def submit(self, queries, *, op: str = "search",
                trace_id: Optional[str] = None,
                tenant: Optional[str] = None) -> PendingSearch:
         """Enqueue ``queries`` and return a handle; oversize requests split
-        into max-bucket chunks, enqueued back to back.  ``trace_id`` and
-        ``tenant`` ride on the handle (there is no trace layer yet)."""
+        into max-bucket chunks, enqueued back to back.  ``trace_id`` scopes
+        the request's spans (None mints one when obs is on); ``tenant``
+        tags it for the per-tenant series (None: no tenant series)."""
         if op not in OPS:
             raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
         q = np.ascontiguousarray(np.asarray(queries, dtype=np.float32))
@@ -448,19 +481,33 @@ class ServingEngine:
             raise ValueError(
                 f"queries shape {q.shape} incompatible with database dim "
                 f"{self._dim}")
+        if trace_id is None:
+            trace_id = obs.new_trace_id()
         t0 = time.perf_counter()
         try:
-            chunks = []
-            lo = 0
-            for size in split_sizes(q.shape[0], self.buckets[-1]):
-                chunks.append(self._dispatch_chunk(op, q[lo : lo + size]))
-                lo += size
+            with obs.span("serving.dispatch", trace_id=trace_id, op=op,
+                          rows=int(q.shape[0]),
+                          **({"tenant": tenant}
+                             if tenant is not None else {})) as sp:
+                chunks = []
+                lo = 0
+                rungs = []
+                for size in split_sizes(q.shape[0], self.buckets[-1]):
+                    rungs.append(int(bucket_for(self.buckets, size)))
+                    chunks.append(self._dispatch_chunk(
+                        op, q[lo : lo + size], trace_id))
+                    lo += size
+                sp.set("buckets", rungs)
         except Exception:
-            self._record_error()
+            self._record_error(op, tenant=tenant)
             raise
         with self._lock:
             self._requests += 1
             self._queries += int(q.shape[0])
+        obs.counter(mn.SERVING_REQUESTS, op=op).inc()
+        obs.counter(mn.SERVING_QUERIES, op=op).inc(int(q.shape[0]))
+        if tenant is not None:
+            obs.counter(mn.TENANT_REQUESTS, tenant=tenant).inc()
         return PendingSearch(self, op, chunks, q.shape[0], t0, trace_id,
                              tenant)
 
@@ -513,13 +560,31 @@ class ServingEngine:
         return results, report
 
     # -- accounting --------------------------------------------------------
-    def _record_latency(self, seconds: float) -> None:
+    def _record_latency(self, seconds: float, op: str = "search", *,
+                        trace_id: Optional[str] = None,
+                        rows: Optional[int] = None,
+                        tenant: Optional[str] = None) -> None:
         with self._lock:
             self._latencies_s.append((time.monotonic(), seconds))
+        # the registry's counterpart of stats()["latency_ms"], each with its
+        # own bounded window; the exemplar keeps the worst samples' trace
+        # ids joinable to their spans
+        obs.histogram(mn.SERVING_REQUEST_LATENCY, op=op).observe(
+            seconds, exemplar=trace_id)
+        if tenant is not None:
+            obs.histogram(mn.TENANT_REQUEST_LATENCY, tenant=tenant).observe(
+                seconds, exemplar=trace_id)
+        obs.record_span("serving.request", trace_id, seconds, op=op,
+                        **({} if rows is None else {"rows": int(rows)}),
+                        **({} if tenant is None else {"tenant": tenant}))
 
-    def _record_error(self) -> None:
+    def _record_error(self, op: str = "search", *,
+                      tenant: Optional[str] = None) -> None:
         with self._lock:
             self._errors += 1
+        obs.counter(mn.SERVING_ERRORS, op=op).inc()
+        if tenant is not None:
+            obs.counter(mn.TENANT_ERRORS, tenant=tenant).inc()
 
     def _tuning_info(self) -> Optional[dict]:
         """Resolved coarse-kernel knobs and their provenance for this

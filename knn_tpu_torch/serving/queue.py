@@ -22,9 +22,17 @@ per-tenant quota, unmeetable deadline), queued requests whose deadline
 expires are shed before dispatch, and dispatch order becomes aged
 priority instead of FIFO.
 
-Where the port differs (ROADMAP queue C): no obs layer yet, so no spans,
-gauges, counters or health registration, and each future's ``trace_id``
-is None (the JAX package's value with telemetry off).
+Telemetry (knn_tpu_torch.obs; queue.py:157-175, 204, 246-252, 278,
+290-307, 504-611 of the JAX package): each request gets its own trace id
+at submit (``fut.trace_id``), kept through coalescing — the batch's
+engine dispatch has an id of its own, and the ``queue.dispatch`` event
+lists its members' ids; the ``serving.admission``, ``serving.queue_wait``,
+``serving.deliver``, ``serving.queued_request`` and ``serving.write``
+spans, the depth gauges, the ``QUEUE_*`` counters, the wait and latency
+histograms and the tenant series follow each request, and the queue
+registers with obs.health (its worker threads feed readiness).  The
+batcher, the completer, the client threads and a compactor write the
+registry at once; its locks keep the counts exact.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from knn_tpu_torch import obs
+from knn_tpu_torch.obs import names as mn
 from knn_tpu_torch.serving.admission import (
     AdmissionConfig,
     AdmissionController,
@@ -51,13 +61,15 @@ class _Pending:
     with it (each request keeps its own arrival time, so the max-wait
     deadline is per request)."""
 
-    __slots__ = ("q", "fut", "t_arr", "tenant", "deadline", "priority")
+    __slots__ = ("q", "fut", "t_arr", "tid", "tenant", "deadline",
+                 "priority")
 
-    def __init__(self, q, fut, t_arr, tenant=None, deadline=None,
+    def __init__(self, q, fut, t_arr, tid=None, tenant=None, deadline=None,
                  priority=0):
         self.q = q
         self.fut = fut
         self.t_arr = t_arr
+        self.tid = tid  # this request's trace id, coalescing-proof
         self.tenant = tenant
         self.deadline = deadline  # absolute monotonic seconds, or None
         self.priority = priority
@@ -132,6 +144,9 @@ class QueryQueue:
         self._closed = False
         self._stats = {"requests": 0, "dispatches": 0, "coalesced_rows": 0,
                        "errors": 0}
+        #: queue-depth gauges: the backlog the max-wait deadline holds
+        self._g_depth_req = obs.gauge(mn.QUEUE_DEPTH_REQUESTS)
+        self._g_depth_rows = obs.gauge(mn.QUEUE_DEPTH_ROWS)
         #: arrival-to-result latency of queued requests, a bounded window
         #: of (monotonic ts, seconds) pairs (deque.append is atomic)
         self._lat: deque = deque(maxlen=4096)
@@ -142,6 +157,8 @@ class QueryQueue:
             target=self._completer, name="knn-serving-completer", daemon=True)
         self._batcher_t.start()
         self._completer_t.start()
+        # worker-thread liveness feeds the readiness probe (/healthz)
+        obs.health.register_queue(self)
 
     # -- client side -------------------------------------------------------
     def submit(self, queries, *, tenant: Optional[str] = None,
@@ -165,7 +182,8 @@ class QueryQueue:
             raise ValueError(
                 f"deadline_ms must be > 0, got {deadline_ms}")
         fut: Future = Future()
-        fut.trace_id = None
+        tid = obs.new_trace_id()  # this request's id, coalescing-proof
+        fut.trace_id = tid
         # arrival is stamped before the cond: lock wait is part of what
         # the caller experiences
         now = time.monotonic()
@@ -183,13 +201,24 @@ class QueryQueue:
                     rows=self._out_rows, deadline_s=deadline, now=now)
                 prio = (self._ctrl.priority_of(tenant)
                         if priority is None else int(priority))
-            self._pending.append(_Pending(q, fut, now, tenant, deadline,
+            self._pending.append(_Pending(q, fut, now, tid, tenant, deadline,
                                           prio))
             self._pending_rows += q.shape[0]
             self._out_req += 1
             self._out_rows += q.shape[0]
             self._stats["requests"] += 1
+            self._g_depth_req.set(len(self._pending))
+            self._g_depth_rows.set(self._pending_rows)
             self._cond.notify_all()
+        if tid is not None:
+            # lock wait and the admit decision, inside the queue-wait window
+            obs.record_span(
+                "serving.admission", tid, time.monotonic() - now,
+                rows=int(q.shape[0]),
+                **({"tenant": tenant} if tenant is not None else {}))
+        obs.counter(mn.QUEUE_REQUESTS).inc()
+        if tenant is not None:
+            obs.counter(mn.TENANT_REQUESTS, tenant=tenant).inc()
         return fut
 
     def submit_write(self, kind: str, *, vectors=None, ids=None,
@@ -213,19 +242,25 @@ class QueryQueue:
             if self._closed:
                 raise RuntimeError("QueryQueue is closed")
         fut: Future = Future()
-        fut.trace_id = None
+        tid = obs.new_trace_id()
+        fut.trace_id = tid
+        t0 = time.monotonic()
         try:
             out = apply(kind, vectors=vectors, ids=ids)
         except Exception as e:  # noqa: BLE001 — an outcome, not a crash
-            self._count_write(kind, error=True)
+            self._count_write(kind, error=True, tenant=tenant)
             fut.set_exception(e)
         else:
-            self._count_write(kind, error=False)
+            self._count_write(kind, error=False, tenant=tenant)
             fut.set_result(out)
         fut.dispatch_t = time.monotonic()
+        obs.record_span(
+            "serving.write", tid, time.monotonic() - t0, kind=kind,
+            **({"tenant": tenant} if tenant is not None else {}))
         return fut
 
-    def _count_write(self, kind: str, *, error: bool) -> None:
+    def _count_write(self, kind: str, *, error: bool,
+                     tenant: Optional[str] = None) -> None:
         with self._cond:
             w = self._stats.setdefault(
                 "writes", {"insert": 0, "delete": 0, "errors": 0})
@@ -233,6 +268,10 @@ class QueryQueue:
                 w["errors"] += 1
             elif kind in ("insert", "delete"):
                 w[kind] += 1
+        if tenant is not None:
+            obs.counter(mn.TENANT_REQUESTS, tenant=tenant).inc()
+            if error:
+                obs.counter(mn.TENANT_ERRORS, tenant=tenant).inc()
 
     def close(self) -> None:
         """Flush every pending request, then stop both threads."""
@@ -332,6 +371,8 @@ class QueryQueue:
                             live.append(p)
                     if shed and len(live) != len(self._pending):
                         self._pending = live
+                        self._g_depth_req.set(len(self._pending))
+                        self._g_depth_rows.set(self._pending_rows)
                         return [], shed
                 if self._pending:
                     if self._closed or self._pending_rows >= self.max_rows:
@@ -361,6 +402,8 @@ class QueryQueue:
             self._pending = [p for p in self._pending
                              if id(p) not in taken]
             self._pending_rows -= sum(p.q.shape[0] for p in batch)
+            self._g_depth_req.set(len(self._pending))
+            self._g_depth_rows.set(self._pending_rows)
             return batch, shed
 
     def _retire(self, items: List[_Pending]) -> None:
@@ -394,11 +437,26 @@ class QueryQueue:
                 arrays = [p.q for p in batch]
                 cat = arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
                 offsets = np.cumsum([0] + [a.shape[0] for a in arrays])
+                # every member's queue-wait span closes at dispatch, under
+                # its own trace id; the coalesced engine request gets a
+                # batch id of its own, linked in the event below
                 t_disp = time.monotonic()
                 for p in batch:
+                    obs.record_span(
+                        "serving.queue_wait", p.tid, t_disp - p.t_arr,
+                        rows=int(p.q.shape[0]),
+                        **({"tenant": p.tenant}
+                           if p.tenant is not None else {}))
+                    obs.histogram(mn.QUEUE_WAIT).observe(
+                        t_disp - p.t_arr, exemplar=p.tid)
                     # the loadgen driver reads the dispatch time
                     p.fut.dispatch_t = t_disp
                 handle = self.engine.submit(cat, op=self.op)
+                obs.emit_event(
+                    "queue.dispatch", op=self.op,
+                    batch_trace_id=handle.trace_id,
+                    member_trace_ids=[p.tid for p in batch],
+                    rows=int(offsets[-1]), requests=len(batch))
             except Exception as e:  # noqa: BLE001 — resolve, don't kill
                 self._record_errors(batch)
                 for p in batch:
@@ -408,6 +466,8 @@ class QueryQueue:
             with self._cond:
                 self._stats["dispatches"] += 1
                 self._stats["coalesced_rows"] += int(offsets[-1])
+            obs.counter(mn.QUEUE_DISPATCHES).inc()
+            obs.counter(mn.QUEUE_COALESCED_ROWS).inc(int(offsets[-1]))
             self._done.put((handle, batch, offsets, t_disp))
         self._done.put(None)
 
@@ -444,8 +504,31 @@ class QueryQueue:
                 else:
                     self._resolve(p.fut, res[lo:hi])
                 self._lat.append((done_t, done_t - p.t_arr))
+                # arrival to result under the request's own trace id
+                obs.histogram(mn.QUEUE_REQUEST_LATENCY).observe(
+                    done_t - p.t_arr, exemplar=p.tid)
+                if p.tenant is not None:
+                    obs.histogram(mn.TENANT_REQUEST_LATENCY,
+                                  tenant=p.tenant).observe(
+                        done_t - p.t_arr, exemplar=p.tid)
+                if p.tid is not None:
+                    # deliver: batch completion to this member's future;
+                    # the request span ends here, at delivery
+                    t_res = time.monotonic()
+                    ten = ({"tenant": p.tenant}
+                           if p.tenant is not None else {})
+                    obs.record_span("serving.deliver", p.tid,
+                                    t_res - done_t, **ten)
+                    obs.record_span("serving.queued_request", p.tid,
+                                    t_res - p.t_arr, op=self.op,
+                                    rows=int(p.q.shape[0]),
+                                    batch_trace_id=handle.trace_id, **ten)
             self._retire(batch)
 
     def _record_errors(self, batch: List[_Pending]) -> None:
         with self._cond:
             self._stats["errors"] += len(batch)
+        obs.counter(mn.QUEUE_ERRORS).inc(len(batch))
+        for p in batch:
+            if p.tenant is not None:
+                obs.counter(mn.TENANT_ERRORS, tenant=p.tenant).inc()

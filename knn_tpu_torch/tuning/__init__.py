@@ -25,6 +25,7 @@ from knn_tpu_torch.tuning.autotune import (
     ivf_grid,
     ivf_label,
     knob_grid,
+    prune_candidates,
     reset_counters,
     resolve,
     resolve_full,
@@ -34,6 +35,7 @@ from knn_tpu_torch.tuning.cache import (
     cache_key,
     default_cache_path,
     kernel_version_token,
+    roofline_token,
 )
 
 __all__ = [
@@ -45,6 +47,7 @@ __all__ = [
     "ivf_grid",
     "ivf_label",
     "knob_grid",
+    "prune_candidates",
     "reset_counters",
     "resolve",
     "resolve_full",
@@ -53,4 +56,5 @@ __all__ = [
     "cache_key",
     "default_cache_path",
     "kernel_version_token",
+    "roofline_token",
 ]

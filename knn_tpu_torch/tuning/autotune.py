@@ -49,9 +49,16 @@ What differs from the JAX package:
   (:func:`ivf_grid`) under the same bitwise gate, against float64 brute
   force; a candidate is recorded ineligible only for a ``ValueError``
   (the JAX package records every exception), so a device fault raises.
-- Not yet ported: roofline pruning (``prune=`` is refused by name) and the
-  entries' roofline attribution wait for ``obs/roofline`` (ROADMAP queue A
-  item 7).
+- Roofline (knn_tpu_torch.obs.roofline, the H100 model): every timed
+  candidate gets its attribution (``roofline_per_candidate``), the
+  winner's block rides its cache entry (``roofline_pct`` /
+  ``bound_class`` hoisted) and is published once per process — by the
+  search and by a warm-cache :func:`resolve_full`; ``prune=`` runs
+  :func:`prune_candidates` before any timing.  ``prune`` is an argument
+  only (the JAX package's ``KNN_TPU_TUNE_PRUNE`` has no counterpart).
+- The module counters are mirrored into the registry (``TUNING_*``); the
+  Hopper gate's refusals count under
+  ``TUNING_CANDIDATES_VMEM_REFUSED``, the JAX package's VMEM gate's name.
 """
 
 from __future__ import annotations
@@ -63,6 +70,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from knn_tpu_torch import obs
+from knn_tpu_torch.obs import names as _mn
 from knn_tpu_torch.tuning.cache import TuneCache, cache_key
 
 #: the JAX package's tuning profiles, as grids (:func:`knob_grid`)
@@ -92,7 +101,22 @@ _COUNTERS = {
     "tune_searches": 0,      # autotune() runs that actually searched
     "candidates_timed": 0,   # candidates timed (0 on a warm cache)
     "candidates_gated_out": 0,  # candidates rejected by the bitwise gate
+    "candidates_pruned": 0,  # skipped before timing by the roofline model
     "candidates_smem_refused": 0,  # refused by the Hopper resource gate
+}
+
+#: module counter -> registry twin: the dict above stays the in-process
+#: surface (reset_counters() and all), the registry series are the
+#: scrapable lifetime mirror (never reset by reset_counters)
+_OBS_TWIN = {
+    "resolve_calls": _mn.TUNING_RESOLVES,
+    "cache_hits": _mn.TUNING_CACHE_HITS,
+    "cache_misses": _mn.TUNING_CACHE_MISSES,
+    "tune_searches": _mn.TUNING_SEARCHES,
+    "candidates_timed": _mn.TUNING_CANDIDATES_TIMED,
+    "candidates_gated_out": _mn.TUNING_GATE_FAILURES,
+    "candidates_pruned": _mn.TUNING_CANDIDATES_PRUNED,
+    "candidates_smem_refused": _mn.TUNING_CANDIDATES_VMEM_REFUSED,
 }
 
 
@@ -112,6 +136,7 @@ def reset_counters() -> None:
 def _bump(name: str, by: int = 1) -> None:
     with _counters_lock:
         _COUNTERS[name] += by
+    obs.counter(_OBS_TWIN[name]).inc(by)
 
 
 def device_kind_of(device=None) -> str:
@@ -172,6 +197,22 @@ def resolve_full(
     if source == "cache":
         info["winner_ms"] = entry.get("winner_ms")
         info["measured_at"] = entry.get("measured_at")
+        # the winner's roofline verdict rides the resolve and is published
+        # once per (process, config): a warm-cache hot path must not
+        # re-emit it every call
+        for fld in ("roofline_pct", "bound_class"):
+            if entry.get(fld) is not None:
+                info[fld] = entry[fld]
+        rl_block = entry.get("roofline")
+        if isinstance(rl_block, dict):
+            from knn_tpu_torch.obs import roofline as _roofline
+
+            label = _roofline.config_label(n, d, k, metric=metric,
+                                           dtype=dtype,
+                                           device_kind=device_kind)
+            info["roofline_ceiling_qps"] = rl_block.get("ceiling_qps")
+            if not _roofline.was_published(label):
+                _roofline.publish(label, rl_block)
     return knobs, info
 
 
@@ -339,6 +380,71 @@ def _resource_gate(knn, candidates, n: int, d: int, k: int, margin: int):
     return refused, info
 
 
+def _cost_model(knobs: Dict[str, object], n: int, d: int, k: int, nq: int,
+                margin: int, device_kind: str, backend: str) -> dict:
+    from knn_tpu_torch.obs import roofline
+
+    return roofline.pallas_cost_model(
+        n=n, d=d, k=k, nq=nq, precision=knobs["precision"],
+        kernel=knobs["kernel"], grid_order=knobs["grid_order"],
+        binning=knobs["binning"], tile_n=knobs["tile_n"],
+        survivors=knobs["survivors"], bin_w=knobs["bin_w"], margin=margin,
+        device_kind=device_kind, backend=backend)
+
+
+def prune_candidates(
+    candidates: Sequence[Dict[str, object]], *, n: int, d: int, k: int,
+    nq: int, threshold: float, device_kind: Optional[str] = None,
+    backend: Optional[str] = None, margin: int = 28,
+) -> Tuple[List[Dict[str, object]], Dict[str, dict], Optional[float]]:
+    """Roofline pruning for :func:`autotune` (autotune.py:402-459 of the
+    JAX package, on the H100 model): ``(kept, pruned, best_ceiling_qps)``.
+    Each candidate's modeled ceiling is computed before any timing;
+    candidates below ``threshold x best`` leave the timing loop, each with
+    its ceiling recorded in ``pruned``.  The best-modeled candidate is
+    always kept; a candidate the model cannot price is kept (a model gap
+    widens the search, never hides a candidate); every pruned record
+    carries ``ceiling_qps < threshold * best``."""
+    models: List[Tuple[Dict[str, object], Optional[dict]]] = []
+    for cand in candidates:
+        knobs = {**DEFAULT_KNOBS, **cand}
+        try:
+            model = _cost_model(knobs, n, d, k, nq, margin, device_kind,
+                                backend)
+            if not model.get("ceiling_qps"):
+                model = None
+        except Exception:  # noqa: BLE001 — a model gap never prunes
+            model = None
+        models.append((cand, model))
+    ceilings = [m["ceiling_qps"] for _, m in models if m is not None]
+    best = max(ceilings) if ceilings else None
+    kept: List[Dict[str, object]] = []
+    pruned: Dict[str, dict] = {}
+    for cand, model in models:
+        if best is None or model is None or \
+                model["ceiling_qps"] >= threshold * best:
+            kept.append(cand)
+            continue
+        pruned[_label({**DEFAULT_KNOBS, **cand})] = {
+            "ceiling_qps": model["ceiling_qps"],
+            "bound_class": model.get("bound_class"),
+            "best_ceiling_qps": best,
+            "threshold": threshold,
+        }
+    return kept, pruned, best
+
+
+def _candidate_roofline(knobs: Dict[str, object], n: int, d: int, k: int,
+                        nq: int, margin: int, ms: float, device_kind: str,
+                        backend: str) -> dict:
+    """One timed candidate's attribution: its modeled ceiling on this
+    device kind, the measured fraction of it and its bound class."""
+    from knn_tpu_torch.obs import roofline
+
+    model = _cost_model(knobs, n, d, k, nq, margin, device_kind, backend)
+    return roofline.attribute(model, nq / (ms / 1e3) if ms > 0 else None)
+
+
 def _search_once(queries, knn, k, margin, knobs):
     """Full certified search under one knob set: (d, i) — the bitwise
     gate's surface (the final answers every knob must keep)."""
@@ -408,16 +514,19 @@ def autotune(
     ineligible with the error, not fatal.  Before any timing, the **Hopper
     resource gate** (:func:`_resource_gate`, CUDA only) refuses a
     candidate whose build the card cannot launch: ``smem-refused: ...`` in
-    ``errors``, the builds read in ``entry["smem"]``.  ``prune`` (the JAX
-    package's roofline pruning) is refused: it waits for the port's
-    roofline model."""
+    ``errors``, the builds read in ``entry["smem"]``.
+
+    **Roofline pruning** (``prune``, a threshold in (0, 1]; None: off):
+    before the gate and any timing, :func:`prune_candidates` drops the
+    candidates whose modeled ceiling sits below ``prune x`` the best one,
+    recorded in ``entry["pruning"]`` and as ``roofline-pruned: ...`` in
+    ``errors``.  Every timed candidate's attribution is in
+    ``entry["roofline_per_candidate"]``, the winner's in
+    ``entry["roofline"]``."""
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
-    if prune is not None:
-        raise ValueError(
-            "autotune(prune=...): roofline pruning is not ported; it waits "
-            "for the port's roofline model (obs/roofline, ROADMAP queue A "
-            "item 7)")
+    if prune is not None and not 0 < float(prune):
+        raise ValueError(f"prune must be a threshold > 0, got {prune}")
     if metric.lower() not in ("l2", "sql2", "euclidean"):
         raise ValueError(
             f"autotune runs the squared-L2 kernel; metric {metric!r} is "
@@ -452,6 +561,30 @@ def autotune(
 
     timings: Dict[str, Optional[float]] = {}
     errors: Dict[str, str] = {}
+    rooflines: Dict[str, dict] = {}
+    backend = knn.device.type
+    n_q = queries.shape[0]
+    pruning_info = None
+    if prune is not None:
+        # before any timing: pre-seeded timings keep the pruned candidates
+        # out of the loop below, with the audit trail in the entry
+        threshold = min(float(prune), 1.0)
+        candidates, pruned_rec, best_ceiling = prune_candidates(
+            candidates, n=n, d=d, k=k, nq=n_q, threshold=threshold,
+            device_kind=device_kind, backend=backend, margin=margin)
+        for label, rec in pruned_rec.items():
+            timings[label] = None
+            errors[label] = (
+                f"roofline-pruned: modeled ceiling {rec['ceiling_qps']} "
+                f"< {threshold} x best {rec['best_ceiling_qps']}")
+        if pruned_rec:
+            _bump("candidates_pruned", len(pruned_rec))
+        pruning_info = {"threshold": threshold,
+                        "best_ceiling_qps": best_ceiling,
+                        "candidates_modeled": len(candidates)
+                        + len(pruned_rec),
+                        "candidates_pruned": len(pruned_rec),
+                        "pruned": pruned_rec}
     smem_info = None
     if knn.device.type == "cuda":
         refused, smem_info = _resource_gate(knn, candidates, n, d, k,
@@ -494,6 +627,11 @@ def autotune(
             _bump("candidates_timed")
             ms = float(np.mean(reps)) * 1e3
             timings[label] = round(ms, 3)
+            try:
+                rooflines[label] = _candidate_roofline(
+                    knobs, n, d, k, n_q, margin, ms, device_kind, backend)
+            except Exception as e:  # noqa: BLE001 — advisory only
+                rooflines[label] = {"error": f"{type(e).__name__}: {e}"}
             if best_ms is None or ms < best_ms:
                 best_label, best_ms, best_knobs = label, ms, knobs
         except Exception as e:  # noqa: BLE001 — per candidate, recorded
@@ -502,12 +640,16 @@ def autotune(
     if best_knobs is None:
         raise RuntimeError(
             f"autotune: no eligible candidate for {key} (errors: {errors})")
+    winner_rl = rooflines.get(best_label)
+    if not isinstance(winner_rl, dict) or "ceiling_qps" not in winner_rl:
+        winner_rl = None
     entry = {
         "knobs": best_knobs,
         "winner": best_label,
         "winner_ms": round(best_ms, 3),
         "timings_ms": timings,
         "errors": errors,
+        "roofline_per_candidate": rooflines,
         "gate": "bitwise-vs-reference",
         "runs": int(runs),
         "n_queries": int(queries.shape[0]),
@@ -517,9 +659,21 @@ def autotune(
         "torch_version": torch.__version__,
         "measured_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
     }
+    if pruning_info is not None:
+        entry["pruning"] = pruning_info
     if smem_info is not None:
         entry["smem"] = smem_info
+    if winner_rl is not None:
+        entry["roofline"] = winner_rl
+        entry["roofline_pct"] = winner_rl["roofline_pct"]
+        entry["bound_class"] = winner_rl["bound_class"]
     cache.put(key, entry)
+    if winner_rl is not None:
+        from knn_tpu_torch.obs import roofline as _roofline
+
+        _roofline.publish(
+            _roofline.config_label(n, d, k, metric=metric,
+                                   device_kind=device_kind), winner_rl)
     return {**entry, "cached": False, "cache_key": key,
             "cache_path": cache.path}
 

@@ -11,7 +11,7 @@ File format (``version`` guards future migrations)::
     {
       "version": 1,
       "entries": {
-        "NVIDIA H100 80GB HBM3|n1000000|d128|k100|l2|float32|kvtorch1-...": {
+        "NVIDIA H100 80GB HBM3|n1000000|d128|k100|l2|float32|rltorch1|kvtorch1-...": {
           "knobs": {"kernel": "tiled", "precision": "bf16x3", ...},
           "winner_ms": 61.8,
           "timings_ms": {"<candidate label>": ms | null (ineligible)},
@@ -26,9 +26,10 @@ Reads are memoized on (mtime, size), so a resolve costs a ``stat``, not a
 parse; writes are atomic (tmp + rename).  Differences from the JAX
 package's cache: the key's kernel token hashes the port's CUDA sources
 (:func:`kernel_version_token`), so a rebuilt kernel re-keys every winner
-and no entry of the JAX package can match; the key has no roofline-model
-token (the port has no roofline model yet, ROADMAP queue A item 7); the
-path is an argument (default :func:`default_cache_path`), never an
+and no entry of the JAX package can match; the key's roofline token is
+the port's H100 model version (:func:`roofline_token`, ``rltorch<n>``),
+so an entry attributed under another model misses, as the JAX package's
+``rl<n>`` does; the path is an argument (default :func:`default_cache_path`), never an
 environment switch.
 """
 
@@ -77,15 +78,26 @@ def kernel_version_token() -> str:
     return f"torch{PORT_VERSION}-{h.hexdigest()[:12]}"
 
 
+def roofline_token() -> str:
+    """The roofline model version baked into every key: entries carry the
+    winner's attribution, so one rendered under another model
+    (knn_tpu_torch.obs.roofline.MODEL_VERSION) must miss."""
+    from knn_tpu_torch.obs.roofline import MODEL_VERSION
+
+    return f"torch{MODEL_VERSION}"
+
+
 def cache_key(device_kind: str, n: int, d: int, k: int,
               metric: str, dtype: Optional[str] = None) -> str:
     """The shape key a winner is valid for; any field mismatch misses.
     ``dtype`` is the placement's compute dtype name (None = float32), in
-    the JAX package's key layout; the trailing ``kv<token>`` ties the
-    entry to the kernel sources that were measured
+    the JAX package's key layout; the trailing ``rl<token>|kv<token>`` tie
+    the entry to the roofline model its attribution was rendered under
+    (:func:`roofline_token`) and the kernel sources that were measured
     (:func:`kernel_version_token`)."""
     return (f"{device_kind}|n{int(n)}|d{int(d)}|k{int(k)}|"
-            f"{metric.lower()}|{dtype or 'float32'}|kv{kernel_version_token()}")
+            f"{metric.lower()}|{dtype or 'float32'}|rl{roofline_token()}"
+            f"|kv{kernel_version_token()}")
 
 
 class TuneCache:

@@ -5,7 +5,9 @@ clock says nothing until the queued work has finished: the timer
 synchronizes CUDA when a phase opens and when it closes, so each phase is
 billed its own device work.  A PhaseTimer may be shared across threads
 (mutation is locked); phases must not nest within one thread (nesting
-double-counts the phase sum and raises instead).
+double-counts the phase sum and raises instead).  Each closed phase is
+also observed into ``knn_tpu_phase_seconds{phase=...}`` and emitted as a
+``phase`` event (knn_tpu_torch.obs), as the JAX package's timer does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from typing import Dict, Optional
 
 import torch
 
+from knn_tpu_torch import obs
 from knn_tpu_torch.device import synchronize
+from knn_tpu_torch.obs import names as _mn
 
 
 class PhaseTimer:
@@ -57,6 +61,8 @@ class PhaseTimer:
                 self.phases[name] = self.phases.get(name, 0.0) + (end - start)
                 if self._t_end is None or end > self._t_end:
                     self._t_end = end
+            obs.histogram(_mn.PHASE_SECONDS, phase=name).observe(end - start)
+            obs.emit_event("phase", phase=name, dur_s=round(end - start, 6))
 
     @property
     def total(self) -> float:

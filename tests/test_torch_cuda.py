@@ -1560,3 +1560,56 @@ def test_cuda_mutable_frontend_across_a_compaction(cuda_device):
         after = qq.submit(q).result()
     assert after[1][:2, 0].tolist() == [9000, 9001]
     np.testing.assert_array_equal(after[1], idx.search(q)[1])
+
+
+@pytest.mark.cuda
+def test_cuda_device_trace_names_k1_and_obs_moves_no_sync(cuda_device,
+                                                          tmp_path):
+    """obs.profiler.device_trace of a certified search on the card holds
+    K1, and the host's synchronizations and device-to-host copies are the
+    same with obs on and off (obs reads no device tensor); the results are
+    bitwise the same."""
+    from knn_tpu_torch import ShardedKNN, obs
+    from knn_tpu_torch.obs import profiler
+
+    rng = np.random.default_rng(11)
+    q, db = _data(rng, 64, 40_000, 64)
+    knn = ShardedKNN(db, k=10, device=cuda_device)
+    knn.search_certified(q)  # warm: builds, allocations
+    runs = {}
+    try:
+        for on in (True, False):
+            obs.reset(enabled=on)
+            # a trace late in a process can lose its first kernels: one
+            # without K1 is taken again, three times at most
+            for _ in range(3):
+                torch.cuda.synchronize()
+                with profiler.device_trace("search",
+                                           out_dir=str(tmp_path)) as cap:
+                    out = knn.search_certified(q)
+                    torch.cuda.synchronize()
+                s = cap.summary()
+                if any("binned_select_" in n for n in s["kernel_names"]):
+                    break
+            runs[on] = (out, s)
+    finally:
+        obs.reset()
+    (d1, i1, _), s_on = runs[True]
+    (d0, i0, _), s_off = runs[False]
+    assert np.array_equal(d1, d0) and np.array_equal(i1, i0)
+    assert any("binned_select_" in n for n in s_on["kernel_names"])
+    assert s_on["syncs"] == s_off["syncs"]
+    assert s_on["d2h_copies"] == s_off["d2h_copies"] > 0
+    assert 0.0 <= s_on["device_idle_share"] < 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_health_inventory_names_the_card(cuda_device):
+    from knn_tpu_torch import obs
+
+    inv = obs.health.report()["devices"]
+    assert inv["available"] and inv["backend"] == "cuda"
+    assert inv["count"] == torch.cuda.device_count()
+    assert inv["kinds"] == sorted({torch.cuda.get_device_name(i)
+                                   for i in range(inv["count"])})
+    assert inv["devices"][0]["total_memory_bytes"] > 0

@@ -294,6 +294,9 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.loadgen, knn_tpu_torch.loadgen.workload\n"
         "import knn_tpu_torch.loadgen.driver, knn_tpu_torch.loadgen.knee\n"
         "import knn_tpu_torch.loadgen.synthetic, knn_tpu_torch.ivf\n"
+        "import knn_tpu_torch.obs, knn_tpu_torch.obs.roofline\n"
+        "import knn_tpu_torch.obs.health, knn_tpu_torch.obs.profiler\n"
+        "import knn_tpu_torch.obs.export, knn_tpu_torch.obs.trace\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'knn_tpu' or m.startswith('knn_tpu.'))\n"
         "print(bad)\n")

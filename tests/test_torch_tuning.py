@@ -334,8 +334,10 @@ def test_deep_survivors_candidate_rides_the_gate(data, cache_path):
 
 def test_unported_tuner_parts_are_refused_by_name(data, cache_path):
     db, q = data
-    with pytest.raises(ValueError, match="roofline pruning is not ported"):
-        _tune(db, q, cache_path, prune=0.5)
+    # pruning is ported (tests/test_torch_roofline.py); a threshold that
+    # is no threshold is refused by name
+    with pytest.raises(ValueError, match="prune must be a threshold"):
+        _tune(db, q, cache_path, prune=0.0)
     with pytest.raises(ValueError, match="squared-L2"):
         _tune(db, q, cache_path, metric="cosine")
 
@@ -362,8 +364,9 @@ def test_cache_key_is_the_reference_latency_layout_at_float32():
     assert tuning.PROFILES == jax_tuning.PROFILES
     # the JAX package's latency key, field for field, up to its tokens
     ref = jax_tuning.cache_key(kind, 1_000_000, 128, 100, "L2", None)
-    assert key.rsplit("|kv", 1)[0] == ref.split("|rl", 1)[0]
+    assert key.split("|rl", 1)[0] == ref.split("|rl", 1)[0]
     assert key == (f"{kind}|n1000000|d128|k100|l2|float32"
+                   f"|rl{tuning.roofline_token()}"
                    f"|kv{tuning.kernel_version_token()}")
 
 
