@@ -43,7 +43,9 @@ exits non-zero and prints no result):
              1.0 and index equality against a float64 direct-difference
              oracle on the first 256 queries; then ``profile`` traces one
              more certified search with torch.profiler (device time by
-             kernel, device busy time, device idle share);
+             kernel, device busy time, device idle share), one trace that
+             must hold K1 and at least one of its warm-up kernels (a trace
+             that lost them may have lost the block's first kernels);
 5. obs     — the telemetry core (knn_tpu_torch.obs) at the ``main`` shape
              and placement: warm ``main`` calls with obs on and off in
              turns (on / off / off / on, three rounds; three more, up to
@@ -211,7 +213,10 @@ exits non-zero and prints no result):
              ``highest``; labels must equal the port's ``--mode exact``; the
              |s_kernel - s_f64| / tolerance ratio of bf16x3, bf16x3f and
              highest at Dp = 896 on the job's rows (must stay below 1), and
-             K2's three entries timed there;
+             K2's three entries timed there; then with ``--backend native``
+             (the C++ CPU backend), whose labels must equal the certified
+             job's; every job's three CSVs must go through the native
+             reader (``native.calls``);
 16. index  — a ``MutableIndex`` of the ``main`` rows (k=100, reserve 32):
              4,096 rows inserted in three writes across the tail's rungs
              (256, 2,048, 4,096), the whole reserve deleted and a 33rd
@@ -242,12 +247,30 @@ exits non-zero and prints no result):
              exact; its serving frontend (``IVFServingEngine``, pallas
              bf16x3) through a ``QueryQueue``, bitwise ``search_certified``
              with K1 launched per probe group;
-18. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
+18. hosttier — the host-RAM tier: the ``main`` rows behind a 128 MiB
+             budget (``ShardedKNN(hbm_budget_bytes=)``, k=100, 4,096
+             queries): 4 sweeps of 260,111-row segments planned, run and
+             counted (``HOSTTIER_SWEEPS``), one dispatch shape, no coarse
+             kernel, recall@100 = 1.0 against the float64 oracle on the
+             first 256 queries, against the resident ``search`` bitwise
+             or within 64 eps_f32 (|q|^2 + max |t|^2) with the indices
+             wherever the k-th and (k+1)-th are separated, the device
+             memory the call adds below the corpus's 516 MB, every
+             resident-only entry refused by name; the call's and each
+             sweep's seconds, the copies' GB/s;
+19. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
              4,096-row superblocks: ``mode="stream"`` bitwise the looped
              ``search`` (rows/s, overlap_ratio), ``mode="certified"``
              bitwise the looped ``search_certified`` with K1 launched 4
-             times;
-19. serving — ``ServingEngine`` on the ``main`` placement with the bench
+             times; the tiered join of the same rows against the
+             ``hosttier`` placement, db-major (4,096-row superblocks) and
+             query-major (one 16,384-row superblock), each bitwise the
+             looped host-tier ``search`` at its block shape;
+20. native — the C++ CPU backend built from ``knn_tpu_torch/native`` on
+             this machine: ``knn_search`` within 64 eps_f32 of the port's
+             CPU path (indices where separated), ``knn_predict`` equal to
+             it, and 16 queries at the ``main`` shape timed;
+21. serving — ``ServingEngine`` on the ``main`` placement with the bench
              ladder 16..512 (``bench.py:805-818``): six CUDA graphs after
              ``warmup()``, the 48-request log-uniform trace (seed 42)
              replayed twice at depth 2 (no capture the second time), every
@@ -262,7 +285,7 @@ exits non-zero and prints no result):
              the 4,096 queries in 1,024-query segments, two segments
              removed and resumed, bitwise the direct ``search_certified``,
              K1 launched once a segment;
-20. kernels — one JSON line per the contract: each ported kernel (K1,
+22. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, K1 at Dp = 256 on the dot path, the entries of K4,
              K2, K3, K5, K6, K7, the db-major grid K9, the lane entries K8
              and the deep grouped entries of every arm)
@@ -277,6 +300,7 @@ Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases device,build,lane``, ``--phases device,build,survivors,tune``,
 ``--phases device,build,selectors,metrics``,
 ``--phases device,build,index,ivf,join``,
+``--phases device,build,hosttier,join``, ``--phases device,native``,
 ``--phases device,build,serving`` or ``--phases device,build,main,obs``).
 """
 
@@ -290,13 +314,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
 # the H100's peaks and the per-kernel bounds (f32_bound: K1, K4, K2, K3 and
 # their streaming / fused entries; int_bound: K5, K6; pq_bound: K7) and the
 # device-trace summary live in the port's obs package
-from knn_tpu_torch.obs.profiler import device_trace
+from knn_tpu_torch.obs.profiler import WARMUP_KERNELS, device_trace
 from knn_tpu_torch.obs.roofline import f32_bound, int_bound, pq_bound
 
 #: rows of the main placement its pq codebooks train on (every row is
@@ -980,30 +1005,48 @@ def traced_search(knn, q_np, selector="pallas", section="search",
     call's wall time, the host's synchronizations and device-to-host
     copies — and the wall time, measured between two synchronizations
     inside the traced block.  ``require``: a kernel-name substring the
-    trace must hold; a trace without it is taken again, at most three
-    times in all (a trace late in a process has lost its first kernels),
-    and ``attempts`` says how many were taken."""
+    trace must hold, and with it at least one of the trace's warm-up
+    kernels (a trace that lost them all may have lost the block's first
+    kernels too).  One trace is taken; one that fails either check fails
+    the phase, its unfiltered events written to
+    ``trace_dumps/trace_<section>_missing.json`` beside this script
+    first."""
     import torch
 
-    for attempt in range(1, 4):
-        torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            with device_trace(section, out_dir=tmp) as cap:
-                t0 = time.perf_counter()
-                knn.search_certified(q_np, margin=28, selector=selector,
-                                     **knobs)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            s = cap.summary(wall_s=wall)
-        if require is None or any(require in n for n in s["kernel_names"]):
-            break
-    return {**s, "attempts": attempt}
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(section, out_dir=tmp) as cap:
+            t0 = time.perf_counter()
+            knn.search_certified(q_np, margin=28, selector=selector, **knobs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        s = cap.summary(wall_s=wall)
+        held = require is None or any(require in n
+                                      for n in s["kernel_names"])
+        if require is not None and (not held
+                                    or s["device_events_before"] < 1):
+            out = Path(__file__).resolve().parent / "trace_dumps"
+            out.mkdir(exist_ok=True)
+            dump = out / f"trace_{section}_missing.json"
+            dump.write_text(json.dumps([
+                (e.name[:80], getattr(e.device_type, "name", ""),
+                 e.time_range.start, e.time_range.end)
+                for e in cap.profiler.events()]))
+            raise AssertionError(
+                f"the {section} trace lost kernels: {require} "
+                f"{'held' if held else 'missing'}, "
+                f"{s['device_events_before']} of {WARMUP_KERNELS} warm-up "
+                f"kernels, "
+                f"{s['kernel_events']} device events in the block; its "
+                f"events are in {dump}")
+    return s
 
 
-def profile_search(knn, q_np, selector="pallas", **knobs) -> dict:
-    """:func:`traced_search` as a ``profile`` phase line, with whether the
-    trace holds the coarse kernel."""
-    s = traced_search(knn, q_np, selector, **knobs)
+def profile_search(knn, q_np, selector="pallas", require=None,
+                   **knobs) -> dict:
+    """:func:`traced_search` (``require`` passed on) as a ``profile`` phase
+    line, with whether the trace holds the coarse kernel."""
+    s = traced_search(knn, q_np, selector, require=require, **knobs)
     return {"phase": "profile", "wall_ms": s["wall_ms"],
             "device_busy_ms": s["device_busy_ms"],
             "device_idle_share": s["device_idle_share"],
@@ -1073,7 +1116,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="device,build,kernel,main,profile,obs,stream,"
                     "selectors,metrics,quant,f32arms,pq,lane,survivors,tune,"
-                    "index,ivf,join,serving,classify",
+                    "index,ivf,hosttier,join,serving,native,classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1350,6 +1393,7 @@ def main(argv=None) -> int:
         pl = knn.placement
         n_p, dp = pl.th.shape
         sift.update(n=n, dim=dim, n_q=n_q, k=k, q_np=q_np, knn=knn,
+                    db_np=db_np,
                     setup_s=setup_s, q_dev=q_dev, qp=ck.pad_queries(q_dev),
                     n_or=256,
                     # one bound for K1, K10 and K11: the same products
@@ -1508,7 +1552,7 @@ def main(argv=None) -> int:
               "same_indices": same, "max_rel_dist_err": rel,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
         if "profile" in phases:
-            emit(profile_search(knn, S["q_np"]))
+            emit(profile_search(knn, S["q_np"], require="binned_select_"))
 
     def phase_obs(S):
         """The telemetry core on the main path: warm main calls with obs on
@@ -1597,10 +1641,6 @@ def main(argv=None) -> int:
             if trace_on[key] != trace_off[key]:
                 raise AssertionError(
                     f"obs on/off {key}: {trace_on[key]} != {trace_off[key]}")
-        if not any("binned_select_" in name
-                   for name in trace_on["kernel_names"]):
-            raise AssertionError("the main trace holds no K1 launch "
-                                 "(binned_select_bf16x3)")
 
         # the roofline shares: the measured call and the K1 launch
         block = roofline.attribute(
@@ -1685,10 +1725,12 @@ def main(argv=None) -> int:
               "exact_certified": st_ex["certified"],
               "trace_on": {k: trace_on[k] for k in (
                   "wall_ms", "device_busy_ms", "device_idle_share",
-                  "syncs", "d2h_copies", "memcpy_async_calls", "attempts")},
+                  "syncs", "d2h_copies", "memcpy_async_calls",
+                  "device_events_before")},
               "trace_off": {k: trace_off[k] for k in (
                   "wall_ms", "device_busy_ms", "device_idle_share",
-                  "syncs", "d2h_copies", "memcpy_async_calls", "attempts")},
+                  "syncs", "d2h_copies", "memcpy_async_calls",
+                  "device_events_before")},
               "top_device_ops_ms": top,
               "roofline": {k: block[k] for k in (
                   "ceiling_qps", "bound_class", "roofline_pct",
@@ -3732,6 +3774,142 @@ def main(argv=None) -> int:
                               "bitwise_direct": True})
         emit(out)
 
+    def hosttier_program(S):
+        """The main rows behind a 128 MiB budget: the host-RAM tier (made
+        once, shared by the hosttier and join phases)."""
+        from knn_tpu_torch import ShardedKNN
+
+        if "tier" not in S:
+            t0 = time.perf_counter()
+            S["tier"] = ShardedKNN(S["db_np"], k=S["k"],
+                                   hbm_budget_bytes=128 << 20)
+            S["tier_setup_s"] = time.perf_counter() - t0
+        return S["tier"]
+
+    def phase_hosttier(S):
+        """The host-RAM tier on the main draw: 1M x 128 rows behind a 128
+        MiB budget, k=100, 4,096 queries.  The plan's sweeps (hbm.n_sweeps,
+        4) equal hosttier_stats()'s, the HOSTTIER_SWEEPS count and the
+        sweeps run; one dispatch shape; recall@100 = 1.0 against the f64
+        oracle on the first 256 queries; against the resident search,
+        bitwise or, where not, the indices wherever the resident k-th and
+        (k+1)-th distances are separated by more than 64 eps_f32 (|q|^2 +
+        max |t|^2) and every distance within that bound; the device memory
+        the call adds stays below the corpus's bytes; no coarse kernel;
+        every resident-only entry refuses the tier by name.  Times: the
+        call against the resident search's, each sweep, the copies' GB/s."""
+        from knn_tpu_torch import obs
+        from knn_tpu_torch.analysis import hbm
+        from knn_tpu_torch.index import MutableIndex
+        from knn_tpu_torch.index.artifact import MutationUnsupportedError
+        from knn_tpu_torch.obs import names as mn
+        from knn_tpu_torch.serving import ServingEngine
+
+        knn, k, n, dim, q_np = S["knn"], S["k"], S["n"], S["dim"], S["q_np"]
+        n_or, budget = S["n_or"], 128 << 20
+        tier = hosttier_program(S)
+        plan = tier.hosttier_stats()
+        want = hbm.n_sweeps(n, dim, budget)
+        corpus = hbm.placement_bytes(n, dim)
+        if plan["sweeps"] != want or want != 4:
+            raise AssertionError(f"hosttier plan {plan}, n_sweeps {want}")
+        # one-time set-up first (the staging buffers, the copy stream, the
+        # cuBLAS workspace when no earlier phase ran), at the call's shape
+        _, wall_first = host_timed(lambda: tier.search(q_np))
+        reset_launches()
+        sweeps0 = obs.counter(mn.HOSTTIER_SWEEPS).get()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (d, i), wall = host_timed(lambda: tier.search(q_np))
+        peak = torch.cuda.max_memory_allocated() - base
+        last = tier.hosttier_stats()["last_search"]
+        counted = obs.counter(mn.HOSTTIER_SWEEPS).get() - sweeps0
+        launches = nonzero_launches(read_launches())
+        shapes = tier.compile_cache_stats()["distinct_shapes"]
+        if last["sweeps"] != want or counted != want or shapes != 1 \
+                or launches:
+            raise AssertionError(
+                f"hosttier: sweeps {last['sweeps']}, counted {counted}, "
+                f"planned {want}, shapes {shapes}, launches {launches}")
+        if peak >= corpus:
+            raise AssertionError(
+                f"hosttier: the call added {peak} B of device memory, the "
+                f"corpus is {corpus} B")
+        _, wall_warm = host_timed(lambda: tier.search(q_np))
+        warm_last = tier.hosttier_stats()["last_search"]
+        (dr, ir), wall_res = host_timed(lambda: knn.search(q_np, k=k + 1))
+        _, wall_res_warm = host_timed(lambda: knn.search(q_np, k=k + 1))
+        d, i = d.cpu().numpy(), i.cpu().numpy()
+        dr, ir = dr.cpu().numpy(), ir.cpu().numpy()
+        bitwise = bool(np.array_equal(d, dr[:, :k])
+                       and np.array_equal(i, ir[:, :k]))
+        q64 = q_np.astype(np.float64)
+        tol = 64 * float(np.finfo(np.float32).eps) * (
+            (q64 ** 2).sum(-1) + float(knn.placement.db_norm_max))
+        dist_ratio = float((np.abs(d.astype(np.float64) - dr[:, :k])
+                            / tol[:, None]).max())
+        sep = (dr[:, k].astype(np.float64) - dr[:, k - 1]) > tol
+        sets_equal = all(set(a) == set(b) for a, b, s in
+                         zip(i, ir[:, :k], sep) if s)
+        if dist_ratio > 1.0 or not sets_equal:
+            raise AssertionError(
+                f"hosttier vs resident: distance error / bound "
+                f"{dist_ratio}, index sets equal where separated "
+                f"{sets_equal} ({int(sep.sum())} queries)")
+        if "oi" not in S:
+            od, oi = f64_oracle(S["q_dev"][:n_or], knn.placement.db, k)
+            S["od"], S["oi"] = od.cpu().numpy(), oi.cpu().numpy()
+        recall = float(np.mean([len(set(a) & set(b)) / k
+                                for a, b in zip(i[:n_or], S["oi"])]))
+        if recall != 1.0:
+            raise AssertionError(f"hosttier recall@{k} {recall}")
+        refused = {}
+        for what, call in (
+                ("search_certified", lambda: tier.search_certified(q_np[:4])),
+                ("predict", lambda: tier.predict(q_np[:4])),
+                ("radius_search", lambda: tier.radius_search(
+                    q_np[:4], 1.0, max_neighbors=3)),
+                ("search_bucketed", lambda: tier.search_bucketed(q_np[:4])),
+                ("ServingEngine", lambda: ServingEngine(tier))):
+            try:
+                call()
+            except ValueError as e:
+                if "host-RAM shard tier" not in str(e):
+                    raise
+                refused[what] = True
+            else:
+                raise AssertionError(f"hosttier: {what} was not refused")
+        mi = MutableIndex(S["db_np"], k=k, hbm_budget_bytes=budget)
+        try:
+            mi.insert(q_np[:2], [n, n + 1])
+        except MutationUnsupportedError:
+            refused["MutableIndex.insert"] = True
+        else:
+            raise AssertionError("hosttier: MutableIndex.insert was not "
+                                 "refused")
+        del mi
+        emit({"phase": "hosttier", "n": n, "dim": dim, "queries": q_np.shape[0],
+              "k": k, "budget_bytes": budget, "corpus_bytes": corpus,
+              "plan": {key: plan[key] for key in (
+                  "segment_rows", "bytes_per_sweep", "depth", "sweeps")},
+              "segments": tier._host_tier["segments"],
+              "sweeps_run": last["sweeps"], "sweeps_counted": counted,
+              "dispatch_shapes": shapes, "setup_s": S["tier_setup_s"],
+              "wall_s_first_call": wall_first, "wall_s": wall,
+              "wall_s_third_call": wall_warm,
+              "resident_wall_s": wall_res,
+              "resident_wall_s_second_call": wall_res_warm,
+              "sweep_walls_s": warm_last["sweep_walls_s"],
+              "h2d_s": warm_last["h2d_s"], "h2d_gbps": warm_last["h2d_gbps"],
+              "peak_added_bytes": peak, "peak_over_corpus": peak / corpus,
+              "bitwise_resident": bitwise,
+              "dist_err_over_bound": dist_ratio,
+              "separated_queries": int(sep.sum()),
+              "sets_equal_where_separated": True,
+              "recall_at_k": recall, "oracle_queries": n_or,
+              "refused": refused, "nvidia_smi": smi})
+
     def phase_join(S):
         """knn_join on the main placement: A = 16,384 rows, superblocks of
         4,096 — the stream bitwise the looped search at that block shape,
@@ -3766,6 +3944,38 @@ def main(argv=None) -> int:
             raise AssertionError("join certified differs from the looped "
                                  "search_certified")
         agree = float((i == ic).mean())
+        # the tiered join: the same rows against the main rows behind a
+        # 128 MiB budget, in both orders, bitwise the looped host-tier
+        # search at the same block shape
+        tier = hosttier_program(S)
+        tiered = {}
+        for sb, order in ((4096, "db_major"), (16384, "query_major")):
+            reset_launches()
+            torch.cuda.synchronize()
+            dt, it, stt = knn_join(tier, a, mode="stream", superblock_rows=sb)
+            if nonzero_launches(read_launches()):
+                raise AssertionError("the tiered join launched a coarse "
+                                     "kernel")
+            segs = len(tier._host_tier["segments"])
+            blocks = -(-a.shape[0] // sb)
+            if (stt["order"] != order or stt["db_segments"] != segs
+                    or stt["superblocks"] != blocks
+                    or stt["dispatches"] != segs * blocks):
+                raise AssertionError(f"tiered join {order}: {stt}")
+            looped = [tuple(t.cpu().numpy() for t in tier.search(a[lo:lo + sb]))
+                      for lo in range(0, a.shape[0], sb)]
+            if not all_equal((dt, it), [np.concatenate(x)
+                                        for x in zip(*looped)]):
+                raise AssertionError(f"tiered join {order} differs from the "
+                                     f"looped host-tier search")
+            tiered[order] = {key: stt[key] for key in (
+                "rows_per_s", "overlap_ratio", "wall_s", "superblocks",
+                "db_segments", "dispatches", "superblock_rows")}
+            tiered[order].update(
+                bitwise_looped=True,
+                h2d_bytes_planned=stt["plan"]["h2d_bytes"][order],
+                ids_equal_resident_stream_share=float((it == i).mean()))
+        out.update(tiered=tiered)
         out.update(
             stream={key: st[key] for key in (
                 "rows_per_s", "overlap_ratio", "wall_s", "superblocks",
@@ -4017,7 +4227,7 @@ def main(argv=None) -> int:
 
     if phases & {"main", "obs", "stream", "selectors", "metrics", "quant",
                   "f32arms", "pq", "lane", "survivors", "tune", "index",
-                  "ivf", "join", "serving"}:
+                  "ivf", "hosttier", "join", "serving"}:
         if "main" in phases:
             phase_main(sift_data())
         if "obs" in phases:
@@ -4046,6 +4256,8 @@ def main(argv=None) -> int:
             phase_index(sift_data())
         if "ivf" in phases:
             phase_ivf(sift_data())
+        if "hosttier" in phases:
+            phase_hosttier(sift_data())
         if "join" in phases:
             phase_join(sift_data())
         if "serving" in phases:
@@ -4053,7 +4265,55 @@ def main(argv=None) -> int:
         sift.clear()  # frees the placement before the classify job
         torch.cuda.empty_cache()
 
+    if "native" in phases:
+        from knn_tpu_torch import native
+        from knn_tpu_torch.models.classifier import knn_predict
+        from knn_tpu_torch.ops.topk import knn_search
+
+        t0 = time.perf_counter()
+        native.load()
+        build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(11)
+        tr = (rng.random((2000, 32)) * 16).astype(np.float32)
+        tr[1500:1600] = tr[:100]  # exact ties through both paths
+        lab = rng.integers(0, 7, 2000).astype(np.int32)
+        qs = (rng.random((200, 32)) * 16).astype(np.float32)
+        nd, ni = native.knn_search(tr, qs, 10)
+        pd, pi = knn_search(torch.from_numpy(qs), torch.from_numpy(tr), 10)
+        q64 = qs.astype(np.float64)
+        tol = 64 * float(np.finfo(np.float32).eps) * (
+            (q64 ** 2).sum(-1) + (tr.astype(np.float64) ** 2).sum(-1).max())
+        err = float((np.abs(nd - pd.numpy()) / tol[:, None]).max())
+        sep = np.ones(ni.shape, bool)
+        gap = np.diff(nd, axis=-1) > tol[:, None]
+        sep[:, :-1] &= gap
+        sep[:, 1:] &= gap
+        if err > 1.0 or not np.array_equal(ni[sep], pi.numpy()[sep]):
+            raise AssertionError(
+                f"native knn_search vs the CPU path: error / bound {err}")
+        np_pred = native.knn_predict(tr, lab, qs, k=9, num_classes=7)
+        pt_pred = knn_predict(torch.from_numpy(tr), torch.from_numpy(lab),
+                              torch.from_numpy(qs), k=9,
+                              num_classes=7).numpy()
+        if not np.array_equal(np_pred, pt_pred):
+            raise AssertionError("native knn_predict differs from the CPU "
+                                 "path")
+        # the C++ brute force at the main shape, 16 queries (the
+        # benchmark's CPU baseline): host seconds, every core
+        main_rows = (np.random.default_rng(0).random((1_000_000, 128))
+                     * 128.0).astype(np.float32)
+        _, base_s = host_timed(lambda: native.knn_search(
+            main_rows, main_rows[:16] + 0.5, 100))
+        del main_rows
+        emit({"phase": "native", "library": native.library_path().name,
+              "build_s": build_s, "search_err_over_bound": err,
+              "separated_share": float(sep.mean()),
+              "predict_equal_cpu_path": True,
+              "main_shape_16_queries_s": base_s,
+              "cpu_count": os.cpu_count()})
+
     if "classify" in phases:
+        from knn_tpu_torch import native
         from knn_tpu_torch.cli import args_to_config, build_parser
         from knn_tpu_torch.data.datasets import (make_mnist_like,
                                                  save_labeled_csv,
@@ -4074,15 +4334,24 @@ def main(argv=None) -> int:
                                        "--pallas-precision", "int8"),
                     "certified_highest": ("--mode", "certified",
                                           "--pallas-precision", "highest"),
-                    "exact": ("--mode", "exact")}
+                    "exact": ("--mode", "exact"),
+                    "native": ("--backend", "native")}
             for label, extra in runs.items():
                 argv = ["--train", files["train"], "--test", files["test"],
                         "--val", files["val"], "--k", "50", *extra,
                         "--selector", "pallas",
                         "--out", os.path.join(tmp, f"Test_label_{label}.csv")]
                 reset_launches()
+                native.calls["read_csv"] = 0
                 results[label] = run_job(args_to_config(build_parser().parse_args(argv)))
                 results[label + "_launches"] = read_launches()
+                # the three CSVs went through the native reader
+                if native.calls["read_csv"] != 3:
+                    raise AssertionError(
+                        f"the {label} job read {native.calls['read_csv']} "
+                        f"CSVs through the native reader, not 3")
+            if nonzero_launches(results["native_launches"]):
+                raise AssertionError("the native job launched a kernel")
         cert, exact = results["certified"], results["exact"]
         cert8 = results["certified_int8"]
         cert_hi = results["certified_highest"]
@@ -4095,6 +4364,11 @@ def main(argv=None) -> int:
             if not (np.array_equal(job.test_labels, exact.test_labels)
                     and np.array_equal(job.val_labels, exact.val_labels)):
                 raise AssertionError("certified labels differ from exact labels")
+        nat = results["native"]
+        if not (np.array_equal(nat.test_labels, cert.test_labels)
+                and np.array_equal(nat.val_labels, cert.val_labels)):
+            raise AssertionError("native labels differ from the certified "
+                                 "job's")
         # the certified arms' rounding against their tolerance at Dp = 896
         # (784 dims): the job's train rows and test queries
         te_dev = torch.from_numpy(np.asarray(te, np.float32)).to(dev)
@@ -4138,6 +4412,9 @@ def main(argv=None) -> int:
               "int8_certified_stats": {key: v for key, v in
                                        cert8.certified_stats.items()
                                        if key != "pallas_knobs"},
+              "native_labels_equal_certified": True,
+              "native_phase_times_s": nat.phase_times,
+              "csvs_through_native_reader": 3,
               "certified_qps": cert.queries_per_sec,
               "exact_qps": exact.queries_per_sec,
               "certified_stats": {key: v for key, v in cert.certified_stats.items()

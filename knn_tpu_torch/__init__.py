@@ -8,7 +8,9 @@ Its TPU kernels become hand-written Hopper kernels (``csrc/``), built with
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 
 - :class:`ShardedKNN` — a database placed once (any metric of
-  ``ops.metrics.METRICS``, optionally ranking in a ``compute_dtype``);
+  ``ops.metrics.METRICS``, optionally ranking in a ``compute_dtype``; with
+  ``hbm_budget_bytes`` one larger than the budget stays in host RAM and
+  ``search`` streams it through the card, the host-RAM tier);
   ``search``, ``radius_search``, ``search_certified`` (certified-exact for
   l2, cosine and dot: ``selector="pallas"`` through a coarse kernel — the
   ``tiled`` (query-major or ``db_major`` grid), ``streaming`` or
@@ -39,7 +41,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
   streams) and ``knn_tpu_torch.loadgen`` (open-loop load and the knee);
 - :func:`run_job` with :class:`JobConfig` — the reference job
   (``python -m knn_tpu_torch.cli``, with the ``tune``, ``join`` and
-  ``index --selftest`` subcommands); :func:`make_database` and
+  ``index --selftest`` subcommands; ``backend="native"`` runs it on the
+  C++ CPU backend, ``knn_tpu_torch.native``); :func:`make_database` and
   ``knn_tpu_torch.data.vecs`` for benchmark data.
 """
 

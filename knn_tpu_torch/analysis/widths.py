@@ -27,6 +27,10 @@ DB_ELEM_BYTES: Dict[str, float] = {
     "highest": 4, "default": 4,
 }
 
+#: f32 aux bytes beside each placed row (the hoisted squared norm) — the
+#: placement model of analysis.hbm (the JAX package's widths.py:86)
+AUX_BYTES_PER_ROW = 4
+
 #: f32 rows of the per-tile aux block by precision
 AUX_ROWS: Dict[str, int] = {"int8": 16}
 AUX_ROWS_DEFAULT = 8

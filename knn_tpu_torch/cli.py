@@ -32,7 +32,8 @@ import sys
 from typing import Optional, Sequence
 
 from knn_tpu_torch.ops.metrics import METRICS
-from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS, JobConfig
+from knn_tpu_torch.utils.config import (BACKENDS, CERTIFIED_PRECISIONS,
+                                        SELECTORS, JobConfig)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,6 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dim", type=int, default=None, help="expected feature dim (validated)")
     p.add_argument("--num-classes", type=int, default=None, help="label count (inferred if omitted)")
     p.add_argument("--no-normalize", action="store_true", help="skip min-max normalization (ref Normalize=false)")
+    p.add_argument("--backend", default="torch", choices=BACKENDS,
+                   help="torch (the device path) or native (the C++ CPU "
+                   "backend, built from knn_tpu_torch/native at first use)")
     p.add_argument("--train-tile", type=int, default=None, help="db rows per distance tile in the exact path")
     p.add_argument("--batch-size", type=int, default=None, help="queries per step")
     p.add_argument("--compute-dtype", default=None,
@@ -82,6 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
         "(knn_tpu_torch.serving.QueryQueue); the sequential job has no "
         "concurrent callers, so here it is only echoed into the serving "
         "metrics")
+    p.add_argument("--num-threads", type=int, default=0,
+                   help="native backend threads (0 = all cores)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path on the CPU)")
@@ -115,6 +121,7 @@ def args_to_config(args: argparse.Namespace) -> JobConfig:
         metric=args.metric,
         normalize=not args.no_normalize,
         validation=args.val is not None,
+        backend=args.backend,
         device=args.device,
         train_tile=args.train_tile,
         batch_size=args.batch_size,
@@ -125,6 +132,7 @@ def args_to_config(args: argparse.Namespace) -> JobConfig:
         pallas_precision=args.pallas_precision,
         serve_buckets=args.serve_buckets,
         max_wait_ms=args.max_wait_ms,
+        num_threads=args.num_threads,
     )
 
 
@@ -227,7 +235,9 @@ def build_join_parser() -> argparse.ArgumentParser:
                    help="size superblocks from this h2d staging budget "
                    "(analysis.hbm.plan_superblocks)")
     p.add_argument("--hbm-budget-bytes", type=int, default=None,
-                   help="refused: the host-RAM db tier is not ported")
+                   help="device byte budget of the corpus: one larger "
+                   "stays in host RAM and streams through the card in "
+                   "budget-sized segments (ShardedKNN(hbm_budget_bytes=))")
     p.add_argument("--seed", type=int, default=0, help="synthetic data seed")
     p.add_argument("--json", default=None, metavar="PATH",
                    help="also write the stats record to this path")
@@ -251,10 +261,6 @@ def run_join(args: argparse.Namespace) -> int:
     from knn_tpu_torch.join import knn_join
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
-    if args.hbm_budget_bytes is not None:
-        raise SystemExit(
-            "join --hbm-budget-bytes: the host-RAM db tier "
-            "(ShardedKNN(hbm_budget_bytes=)) is not ported yet")
     if args.cpu_devices is not None:
         raise SystemExit(
             "join --cpu-devices: JAX's virtual CPU devices have no "
@@ -262,7 +268,8 @@ def run_join(args: argparse.Namespace) -> int:
     rng = np.random.default_rng(args.seed)
     db = rng.random(size=(args.n, args.dim)).astype(np.float32)
     qa = rng.random(size=(args.rows, args.dim)).astype(np.float32)
-    prog = ShardedKNN(db, k=args.k, metric=args.metric, device=args.device)
+    prog = ShardedKNN(db, k=args.k, metric=args.metric, device=args.device,
+                      hbm_budget_bytes=args.hbm_budget_bytes)
     _, _, stats = knn_join(
         prog, qa, mode=args.mode, superblock_rows=args.superblock,
         depth=args.depth, query_budget_bytes=args.query_budget_bytes)

@@ -80,13 +80,31 @@ def row_normalize_f64(x: np.ndarray) -> np.ndarray:
     return (x / np.maximum(n, 1e-300)).astype(np.float32)
 
 
-def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
-                         *, metric: str = "l2",
-                         device: DeviceLike = None) -> Placement:
-    """The port's placement of ``train`` [N, D] (and optional int labels
-    [N] with ``num_classes``) on ``device`` (None = cuda).  The rows must
-    be finite: the certificate has no order for a NaN score."""
-    dev = resolve_device(device)
+@dataclasses.dataclass
+class HostRows:
+    """A database's rows on the host as a placement would hold them: f32
+    [N, D] unit rows for cosine, norm-augmented rows for dot (D = dim_in +
+    1), the caller's rows otherwise."""
+
+    rows: np.ndarray
+    metric: str
+    #: largest float64 squared row norm (the certificate's db term)
+    db_norm_max: float
+    #: the rows came as uint8 and the metric is neither cosine nor dot
+    uint8_source: bool = False
+    #: dot only: M, the largest float64 squared norm of the caller's rows
+    dot_shift: float = 0.0
+
+    @property
+    def dim_in(self) -> int:
+        return self.rows.shape[1] - (1 if self.metric == "dot" else 0)
+
+
+def host_rows(train, metric: str = "l2") -> HostRows:
+    """``train`` [N, D] prepared on the host for ``metric``, as the JAX
+    package prepares it before placing: cosine rows normalized in float64,
+    dot rows norm-augmented.  The rows must be finite: the certificate
+    has no order for a NaN score."""
     metric = canonical_metric(metric)
     uint8_source = (isinstance(train, np.ndarray) and train.dtype == np.uint8
                     and metric not in ("cosine", "dot"))
@@ -102,6 +120,17 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
     db_norm_max = float((host.astype(np.float64) ** 2).sum(-1).max())
     if not np.isfinite(db_norm_max):
         raise ValueError("train rows must be finite")
+    return HostRows(rows=host, metric=metric, db_norm_max=db_norm_max,
+                    uint8_source=uint8_source, dot_shift=dot_shift)
+
+
+def place_host_rows(rows: HostRows, labels=None,
+                    num_classes: Optional[int] = None, *,
+                    device: DeviceLike = None) -> Placement:
+    """The placement of prepared ``rows`` (and optional int labels [N]
+    with ``num_classes``) on ``device`` (None = cuda)."""
+    dev = resolve_device(device)
+    host = rows.rows
     db = torch.from_numpy(host).to(dev)
     th, tl, tnorm = prepare_db(db, TILE_N)
     lab = None
@@ -114,9 +143,21 @@ def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
                 f"labels shape {labels.shape} != (n_train,) = ({host.shape[0]},)")
         lab = torch.from_numpy(labels).to(dev)
     return Placement(db=db, db_host=host, th=th, tl=tl, tnorm=tnorm,
-                     db_norm_max=db_norm_max, metric=metric,
+                     db_norm_max=rows.db_norm_max, metric=rows.metric,
                      labels=lab, num_classes=num_classes,
-                     uint8_source=uint8_source, dot_shift=dot_shift)
+                     uint8_source=rows.uint8_source,
+                     dot_shift=rows.dot_shift)
+
+
+def placement_from_numpy(train, labels=None, num_classes: Optional[int] = None,
+                         *, metric: str = "l2",
+                         device: DeviceLike = None) -> Placement:
+    """The port's placement of ``train`` [N, D] (and optional int labels
+    [N] with ``num_classes``) on ``device`` (None = cuda): :func:`host_rows`
+    placed by :func:`place_host_rows`."""
+    resolve_device(device)  # no host work for a device that is not there
+    return place_host_rows(host_rows(train, metric), labels, num_classes,
+                           device=device)
 
 
 def dot_augment(rows: np.ndarray):

@@ -178,6 +178,7 @@ class MutableIndex:
         compact_tail_rows: Optional[int] = None,
         compact_tombstones: Optional[int] = None,
         device: DeviceLike = None,
+        hbm_budget_bytes: Optional[int] = None,
     ):
         from knn_tpu_torch.parallel.sharded import ShardedKNN
 
@@ -214,7 +215,8 @@ class MutableIndex:
         #: placement — one home, so a compacted placement can never differ
         #: from the original's configuration
         self._ctor = dict(metric=self.metric, train_tile=train_tile,
-                          compute_dtype=compute_dtype, device=self.device)
+                          compute_dtype=compute_dtype, device=self.device,
+                          hbm_budget_bytes=hbm_budget_bytes)
         if self.k > n:
             raise ValueError(f"k={k} > {n} database rows")
         self._main = ShardedKNN(train, k=self._k_eff_for(n), **self._ctor)
@@ -288,6 +290,15 @@ class MutableIndex:
         with self._lock:
             return self._epoch
 
+    # -- refusals ------------------------------------------------------------
+    def _require_mutable(self, what: str) -> None:
+        if self._main._host_tier is not None:
+            raise MutationUnsupportedError(
+                f"{what}: this placement runs the host-RAM shard tier "
+                f"(corpus exceeds the HBM budget); the delta tail has no "
+                f"resident placement to merge against — compact offline "
+                f"and rebuild, or raise the budget")
+
     # -- writes ------------------------------------------------------------
     def insert(self, vectors, ids) -> dict:
         """Append rows to the delta tail under fresh unique ids, visible to
@@ -295,6 +306,7 @@ class MutableIndex:
         :class:`MutationBudgetError` past the tail's top ladder rung and
         ``ValueError`` on id reuse — including ids tombstoned this epoch
         (their mask would shadow the new row; compaction frees the id)."""
+        self._require_mutable("insert")
         v, ids_arr = checked_rows(vectors, ids, self.dim)
         with self._lock:
             check_fresh(ids_arr, self._live, self._tombstones)
@@ -321,6 +333,7 @@ class MutableIndex:
         live top-k.  Refuses past the reserve budget
         (:class:`MutationBudgetError`) and on unknown or dead ids
         (``KeyError``)."""
+        self._require_mutable("delete")
         ids_arr = np.asarray(ids, dtype=np.int64).reshape(-1)
         with self._lock:
             check_live(ids_arr, self._live)
@@ -537,6 +550,7 @@ class MutableIndex:
         the new placement."""
         from knn_tpu_torch.parallel.sharded import ShardedKNN
 
+        self._require_mutable("compact")
         t0 = time.perf_counter()
         with self._compact_lock:
             snap = self._snapshot()

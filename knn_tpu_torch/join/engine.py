@@ -21,14 +21,22 @@ Two modes (:data:`JOIN_MODES`):
   forwarded; an :class:`~knn_tpu_torch.ivf.index.IVFIndex` works the same
   way), so the join equals the looped certified path bitwise.
 
+A stream join over a host-RAM-tier placement (``ShardedKNN(...,
+hbm_budget_bytes=)``) sweeps both A and B through the tier's segment
+program in the order the byte model picks (``plan_join``): ``db_major``
+copies each db segment up once and runs every superblock against it,
+``query_major`` places each superblock once and streams every segment
+past it; each superblock's top-k carry merges on the card in the
+lexicographic ``(distance, index)`` order, so the join is bitwise the
+looped host-tier ``search`` at the same block shape.
+
 Every run returns ``(d, i, stats)``; ``stats`` carries the executed
 superblock / segment / dispatch counts (checked against the
 :mod:`knn_tpu_torch.analysis.hbm` plan), ``rows_per_s`` and
 ``overlap_ratio``; each run records a ``join.bulk`` span
 (knn_tpu_torch.obs).  Where the port differs (ROADMAP queue C): the knobs
-are arguments (no ``KNN_TPU_JOIN_*`` switch), no transient retry, and the
-host-RAM tier's ``_stream_tiered`` is not ported (no port
-placement has that tier yet).
+are arguments (no ``KNN_TPU_JOIN_*`` switch) and there is no transient
+retry.
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ def _is_sharded(program) -> bool:
 
 def _query_dim(program) -> int:
     if _is_sharded(program):
-        return int(program.placement.dim_in)
+        return int(program.dim_in)
     return int(program.dim)  # IVFIndex
 
 
@@ -84,15 +92,18 @@ def default_plan(program, n_a: int, *,
                  query_budget_bytes: Optional[int] = None) -> dict:
     """The plan :func:`knn_join` would execute for ``n_a`` query rows
     against ``program``'s corpus: superblock width, sweep nesting order and
-    h2d byte totals (analysis.hbm.plan_join; the corpus is device-resident,
-    so ``db_segment_rows`` is 0)."""
+    h2d byte totals (analysis.hbm.plan_join; ``db_segment_rows`` is 0 for a
+    device-resident corpus, the segment width of a host-RAM-tier one)."""
     sb = _resolve_superblock(program, n_a, superblock_rows,
                              query_budget_bytes)
+    tier = getattr(program, "_host_tier", None)
+    seg_rows = 0 if tier is None else int(tier["segment_rows"])
     n_b = int(program.n_train if _is_sharded(program)
               else program.stats()["live_rows"])
-    plan = hbm.plan_join(n_a, n_b, _query_dim(program), superblock_rows=sb)
+    plan = hbm.plan_join(n_a, n_b, _query_dim(program), superblock_rows=sb,
+                         db_segment_rows=seg_rows)
     plan["superblock_rows"] = sb
-    plan["db_segment_rows"] = 0
+    plan["db_segment_rows"] = seg_rows
     return plan
 
 
@@ -153,6 +164,87 @@ def _stream_resident(program, q: np.ndarray, k: int, sb_rows: int,
     }
 
 
+def _stream_tiered(program, q: np.ndarray, k: int, sb_rows: int,
+                   depth: int, order: str, return_sqrt: bool,
+                   d_out, i_out) -> dict:
+    """Host-RAM-tier B: superblocks and db segments through the tier's
+    segment program in ``order`` (the JAX package's ``_stream_tiered``,
+    join/engine.py:218-335), the segments streamed as the tier's search
+    streams them (``ShardedKNN._stream_segments``).  ``db_major``: one pass
+    over the segments, each copied up once, every superblock placed and
+    run against it; ``query_major``: each superblock placed once, one pass
+    over the segments for each.  Each superblock's carry merges on the
+    card (ops.topk.merge_topk) and, after its last segment, is copied back
+    behind an event of its own, the oldest drained past ``depth``."""
+    import torch
+
+    from knn_tpu_torch.ops.distance import metric_values
+    from knn_tpu_torch.ops.topk import I32MAX, merge_topk
+    from knn_tpu_torch.parallel.sharded import _host_copies, _overlap_ratio
+
+    prog = program._hosttier_program(k)
+    n_a = q.shape[0]
+    blocks = [(lo, min(lo + sb_rows, n_a)) for lo in range(0, n_a, sb_rows)]
+    n_seg = len(program._host_tier["segments"])
+    carry = [None] * len(blocks)
+    started = [None] * len(blocks)
+    intervals: list = []
+    pending: list = []
+    dispatches = 0
+
+    def run(bi: int, qp, lo: int, hi: int, seg) -> None:
+        nonlocal dispatches
+        if started[bi] is None:
+            started[bi] = time.perf_counter()
+        d, i = prog(qp, seg, hi - lo)
+        gi = torch.where(i == I32MAX, i, i + lo)
+        carry[bi] = (d, gi) if carry[bi] is None else \
+            merge_topk(*carry[bi], d, gi, k)
+        dispatches += 1
+
+    def finish(bi: int) -> None:
+        d, i = carry[bi]
+        carry[bi] = None
+        if return_sqrt:  # the post-map ShardedKNN.search applies
+            d = metric_values(d, program.metric)
+        pending.append((bi, _host_copies((d, i))))
+        while len(pending) > depth:
+            collect()
+
+    def collect() -> None:
+        bi, ((d, i), event) = pending.pop(0)
+        if event is not None:
+            event.synchronize()
+        lo, hi = blocks[bi]
+        intervals.append((started[bi], time.perf_counter()))
+        d_out[lo:hi] = d[: hi - lo].numpy()
+        i_out[lo:hi] = i[: hi - lo].numpy()
+
+    def place_q(lo: int, hi: int):
+        return program._place_queries(_pad_block(q, lo, hi, sb_rows))[0]
+
+    if order == "db_major":
+        for s, (lo, hi, seg) in enumerate(program._stream_segments()):
+            for bi, (qlo, qhi) in enumerate(blocks):
+                run(bi, place_q(qlo, qhi), lo, hi, seg)
+                if s == n_seg - 1:
+                    finish(bi)
+    else:  # query_major
+        for bi, (qlo, qhi) in enumerate(blocks):
+            qp = place_q(qlo, qhi)
+            for lo, hi, seg in program._stream_segments():
+                run(bi, qp, lo, hi, seg)
+            finish(bi)
+    while pending:
+        collect()
+    return {
+        "superblocks": len(blocks),
+        "db_segments": n_seg,
+        "dispatches": dispatches,
+        "overlap_ratio": round(_overlap_ratio(intervals), 4),
+    }
+
+
 def _certified_loop(program, q: np.ndarray, k: int, sb_rows: int,
                     d_out, i_out, kw: dict) -> dict:
     """The unmodified certified path per superblock (ragged tail as it
@@ -206,10 +298,6 @@ def knn_join(
     if mode not in JOIN_MODES:
         raise ValueError(f"unknown join mode {mode!r}; expected one of "
                          f"{JOIN_MODES}")
-    if getattr(program, "_host_tier", None) is not None:
-        raise NotImplementedError(
-            "knn_join on a host-RAM-tier placement (_stream_tiered) is not "
-            "ported: the port has no host-RAM tier yet")
     sharded = _is_sharded(program)
     if not sharded and mode != "certified":
         raise ValueError(
@@ -227,9 +315,11 @@ def knn_join(
                 f"certified joins run the program's own certified path: "
                 f"k={k} != program.k={program.k}; construct the placement "
                 f"with the join k")
-        if mode == "stream" and k > int(program.n_train):
-            raise ValueError(
-                f"k={k} exceeds the {program.n_train} placed rows")
+        tier = program._host_tier
+        placed = (int(program.n_train) if tier is None
+                  else min(int(program.n_train), int(tier["segment_rows"])))
+        if mode == "stream" and k > placed:
+            raise ValueError(f"k={k} exceeds the {placed} placed rows")
     n_a = q.shape[0]
     if n_a < 1:
         raise ValueError("knn_join needs at least one query row")
@@ -248,6 +338,9 @@ def knn_join(
             certified_kw = {**certified_kw, "return_sqrt": True}
         executed = _certified_loop(program, q, k, sb_rows, d_out, i_out,
                                    certified_kw)
+    elif program._host_tier is not None:
+        executed = _stream_tiered(program, q, k, sb_rows, dep,
+                                  plan["order"], return_sqrt, d_out, i_out)
     else:
         executed = _stream_resident(program, q, k, sb_rows, dep,
                                     return_sqrt, d_out, i_out)

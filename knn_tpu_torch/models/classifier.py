@@ -1,5 +1,6 @@
-"""KNN classifier — the port of knn_tpu/models/classifier.py
-(``KNNClassifier``: fit, predict, kneighbors, score) on one device.
+"""KNN classifier — the port of knn_tpu/models/classifier.py (the free
+functions ``knn_predict`` and ``knn_kneighbors``, and ``KNNClassifier``:
+fit, predict, kneighbors, score) on one device.
 
 ``fit`` places the database once (parallel.ShardedKNN) and every predict
 reuses it.  ``mode="exact"`` ranks every row in the compute dtype (ties
@@ -10,7 +11,7 @@ exact neighbor sets, hence exact labels.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,7 +19,30 @@ import torch
 from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.ops.metrics import METRICS
 from knn_tpu_torch.ops.normalize import minmax_apply, minmax_stats
+from knn_tpu_torch.ops.topk import knn_search_tiled
+from knn_tpu_torch.ops.vote import majority_vote
 from knn_tpu_torch.parallel.sharded import SELECTORS, ShardedKNN
+
+
+def knn_predict(train: torch.Tensor, train_labels: torch.Tensor,
+                queries: torch.Tensor, *, k: int, num_classes: int,
+                metric: str = "l2", train_tile: Optional[int] = None,
+                compute_dtype=None) -> torch.Tensor:
+    """Predicted labels [Q] for one query batch on the tensors' device —
+    the reference's per-query loop (knn_mpi.cpp:315-338): distance fill ->
+    top-k select (ties to the lower index) -> majority vote."""
+    _, idx = knn_search_tiled(queries, train, k, metric,
+                              train_tile=train_tile,
+                              compute_dtype=compute_dtype)
+    return majority_vote(train_labels[idx], num_classes)
+
+
+def knn_kneighbors(train: torch.Tensor, queries: torch.Tensor, *, k: int,
+                   metric: str = "l2", train_tile: Optional[int] = None,
+                   compute_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(distances, indices) of the k nearest train rows per query."""
+    return knn_search_tiled(queries, train, k, metric, train_tile=train_tile,
+                            compute_dtype=compute_dtype)
 
 
 class KNNClassifier:

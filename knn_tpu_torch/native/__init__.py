@@ -1,0 +1,287 @@
+"""ctypes bindings for the port's native CPU backend — a copy of
+knn_tpu/native/__init__.py over the port's own copy of the C++ source
+(``src/knn_native.cpp``).
+
+The library is built at first use by the Makefile next to this file, with
+``g++``, into ``knn_tpu_torch/_build/libknn_native-<digest>.so`` (``digest``
+hashes the source and the Makefile, so an edited source never loads a
+stale library); nothing is built beside the source, and the JAX package's
+prebuilt library is never loaded.
+
+Where the port differs from the JAX package: a failed build raises with
+the compiler's output from every function that needs the library
+(:class:`NativeBuildError`); :func:`available` is the one place that
+answers False instead, for callers that choose a path (the CSV readers'
+fast path).  ``calls`` counts each function's calls, so a caller can show
+which path it took.
+
+API, one to one with the port's torch paths:
+  knn_search / knn_predict      <-> ops.topk.knn_search / models.knn_predict
+  minmax_stats / minmax_apply   <-> ops.normalize
+  read_csv                      <-> data.csv_io (fast path)
+  accuracy                      <-> acc_calc (knn_mpi.cpp:69-84)
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+_DIR = Path(__file__).resolve().parent
+SOURCE = _DIR / "src" / "knn_native.cpp"
+BUILD_DIR = _DIR.parent / "_build"
+
+_METRIC_CODES = {
+    "l2": 0, "sql2": 0, "euclidean": 0,
+    "l1": 1, "manhattan": 1,
+    "cosine": 2,
+    "dot": 3,
+}
+
+#: calls of each bound function in this process
+calls = dict.fromkeys(("knn_search", "knn_predict", "minmax_stats",
+                       "minmax_apply", "read_csv", "accuracy"), 0)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_build_error: Optional[str] = None
+
+
+class NativeBuildError(RuntimeError):
+    """The native library could not be built or loaded; the message holds
+    the compiler's output."""
+
+
+def library_path() -> Path:
+    """Where the library of this source and Makefile is built."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update((_DIR / "Makefile").read_bytes())
+    return BUILD_DIR / f"libknn_native-{h.hexdigest()[:12]}.so"
+
+
+def _build(path: Path) -> None:
+    """``make`` into a file of this process, renamed into place, so
+    concurrent builders never load a half-written library."""
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        out = subprocess.run(["make", "-C", str(_DIR), "-s", f"LIB={tmp}"],
+                             capture_output=True, text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise NativeBuildError(f"native build could not run: {e}") from e
+    if out.returncode != 0 or not tmp.exists():
+        tmp.unlink(missing_ok=True)
+        raise NativeBuildError(
+            f"native build failed (make exit {out.returncode}):\n"
+            f"{out.stdout}{out.stderr}")
+    os.replace(tmp, path)
+
+
+def load() -> ctypes.CDLL:
+    """The loaded library, built first if needed; raises
+    :class:`NativeBuildError` with the compiler's output if it cannot be."""
+    global _lib, _build_error
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _build_error is not None:
+            raise NativeBuildError(_build_error)
+        path = library_path()
+        try:
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+        except (NativeBuildError, OSError) as e:
+            _build_error = str(e)
+            raise NativeBuildError(_build_error) from e
+        f64p = ctypes.POINTER(ctypes.c_double)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.knn_native_search.restype = ctypes.c_int32
+        lib.knn_native_search.argtypes = [
+            f32p, ctypes.c_int64, ctypes.c_int64, f32p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, f64p, i64p,
+        ]
+        lib.knn_native_predict.restype = ctypes.c_int32
+        lib.knn_native_predict.argtypes = [
+            f32p, i32p, ctypes.c_int64, ctypes.c_int64, f32p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            i32p,
+        ]
+        lib.knn_native_minmax.restype = ctypes.c_int32
+        lib.knn_native_minmax.argtypes = [f32p, ctypes.c_int64,
+                                          ctypes.c_int64, f32p, f32p]
+        lib.knn_native_minmax_apply.restype = ctypes.c_int32
+        lib.knn_native_minmax_apply.argtypes = [f32p, ctypes.c_int64,
+                                                ctypes.c_int64, f32p, f32p]
+        lib.knn_native_read_csv.restype = ctypes.POINTER(ctypes.c_float)
+        lib.knn_native_read_csv.argtypes = [ctypes.c_char_p, i64p, i64p]
+        lib.knn_native_free.restype = None
+        lib.knn_native_free.argtypes = [ctypes.c_void_p]
+        lib.knn_native_accuracy.restype = ctypes.c_double
+        lib.knn_native_accuracy.argtypes = [i32p, i32p, ctypes.c_int64]
+        lib.knn_native_version.restype = ctypes.c_int32
+        lib.knn_native_version.argtypes = []
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    """True when the library is loaded (building it if needed); False
+    after a failed build, whose output :func:`load` raises."""
+    try:
+        load()
+    except NativeBuildError:
+        return False
+    return True
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _metric_code(metric: str) -> int:
+    m = metric.lower()
+    if m not in _METRIC_CODES:
+        raise ValueError(f"unknown metric {metric!r}")
+    return _METRIC_CODES[m]
+
+
+def _as_f32c(x) -> np.ndarray:
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+def knn_search(
+    train, queries, k: int, metric: str = "l2", *, num_threads: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(distances [Q,k] float64, indices [Q,k] int64), lexicographic
+    (dist, index) order — same contract as ops.topk.knn_search."""
+    lib = load()
+    calls["knn_search"] += 1
+    train = _as_f32c(train)
+    queries = _as_f32c(queries)
+    n_train, dim = train.shape
+    n_q = queries.shape[0]
+    if queries.shape[1] != dim:
+        raise ValueError(f"dim mismatch: train {dim}, queries {queries.shape[1]}")
+    out_d = np.empty((n_q, k), dtype=np.float64)
+    out_i = np.empty((n_q, k), dtype=np.int64)
+    rc = lib.knn_native_search(
+        _f32p(train), n_train, dim, _f32p(queries), n_q, k,
+        _metric_code(metric), num_threads,
+        out_d.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        out_i.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    if rc != 0:
+        raise ValueError(f"knn_native_search failed with code {rc}")
+    return out_d, out_i
+
+
+def knn_predict(
+    train, labels, queries, *, k: int, num_classes: int, metric: str = "l2",
+    num_threads: int = 0,
+) -> np.ndarray:
+    """Predicted labels [Q] int32 with the reference vote semantics."""
+    lib = load()
+    calls["knn_predict"] += 1
+    train = _as_f32c(train)
+    queries = _as_f32c(queries)
+    labels = np.ascontiguousarray(labels, dtype=np.int32)
+    n_train, dim = train.shape
+    out = np.empty(queries.shape[0], dtype=np.int32)
+    rc = lib.knn_native_predict(
+        _f32p(train), labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n_train, dim, _f32p(queries), queries.shape[0], k, num_classes,
+        _metric_code(metric), num_threads,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    if rc != 0:
+        raise ValueError(
+            f"knn_native_predict failed with code {rc}"
+            + (" (label outside [0, num_classes))" if rc == 3 else "")
+        )
+    return out
+
+
+def minmax_stats(arrays: Sequence) -> Tuple[np.ndarray, np.ndarray]:
+    """Joint per-dim (min, max) over several [N, D] arrays — the
+    transductive extrema of knn_mpi.cpp:245-274 with ±inf init."""
+    lib = load()
+    calls["minmax_stats"] += 1
+    arrays = [_as_f32c(a) for a in arrays]
+    if not arrays:
+        raise ValueError("minmax_stats needs at least one array")
+    dim = arrays[0].shape[1]
+    lo = np.full(dim, np.inf, dtype=np.float32)
+    hi = np.full(dim, -np.inf, dtype=np.float32)
+    for a in arrays:
+        if a.shape[1] != dim:
+            raise ValueError("dim mismatch across arrays")
+        rc = lib.knn_native_minmax(_f32p(a), a.shape[0], dim, _f32p(lo), _f32p(hi))
+        if rc != 0:
+            raise ValueError(f"knn_native_minmax failed with code {rc}")
+    return lo, hi
+
+
+def minmax_apply(x, mins, maxs) -> np.ndarray:
+    """(x - min) / (max - min) with constant dims passed through
+    (knn_mpi.cpp:284 guard).  Returns a new array."""
+    lib = load()
+    calls["minmax_apply"] += 1
+    out = _as_f32c(x).copy()
+    mins = _as_f32c(mins)
+    maxs = _as_f32c(maxs)
+    rc = lib.knn_native_minmax_apply(
+        _f32p(out), out.shape[0], out.shape[1], _f32p(mins), _f32p(maxs)
+    )
+    if rc != 0:
+        raise ValueError(f"knn_native_minmax_apply failed with code {rc}")
+    return out
+
+
+#: the reader's error codes (knn_native_read_csv's *out_rows)
+CSV_ERRORS = {-1: "I/O error", -2: "ragged rows", -3: "parse error",
+              -4: "empty file"}
+
+
+def read_csv(path: str) -> np.ndarray:
+    """Fast CSV parse to [rows, cols] float32 (uniform-width rows)."""
+    lib = load()
+    calls["read_csv"] += 1
+    rows = ctypes.c_int64()
+    cols = ctypes.c_int64()
+    ptr = lib.knn_native_read_csv(os.fsencode(path), ctypes.byref(rows),
+                                  ctypes.byref(cols))
+    if not ptr:
+        reason = CSV_ERRORS.get(rows.value, "unknown error")
+        raise ValueError(f"{path}: {reason}")
+    try:
+        n = rows.value * cols.value
+        arr = np.ctypeslib.as_array(ptr, shape=(n,)).reshape(rows.value, cols.value).copy()
+    finally:
+        lib.knn_native_free(ptr)
+    return arr
+
+
+def accuracy(pred, real) -> float:
+    """acc_calc (knn_mpi.cpp:69-84)."""
+    lib = load()
+    calls["accuracy"] += 1
+    pred = np.ascontiguousarray(pred, dtype=np.int32)
+    real = np.ascontiguousarray(real, dtype=np.int32)
+    if pred.shape != real.shape:
+        raise ValueError("shape mismatch")
+    return float(
+        lib.knn_native_accuracy(
+            pred.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            real.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            pred.size,
+        )
+    )

@@ -15,8 +15,8 @@ catalogs hold the same triples (help strings do not move it).
 Names this package never writes (they stay in the catalog so the two
 catalogs stay one): ``JAX_COMPILES`` / ``JAX_COMPILE_SECONDS`` (there is
 no XLA here; a CUDA graph capture counts under ``SERVING_COMPILES``);
-the ``MERGE_*`` and ``FLEET_*`` names (multi-GPU, ROADMAP queue A item
-8); the ``HOSTTIER_*`` names (the host-RAM tier, item 9); and the names
+the ``MERGE_*`` and ``FLEET_*`` names (multi-GPU, ROADMAP queue A); and
+the names
 of the modules that wait for the second obs slice: ``SLO_*``,
 ``POSTMORTEMS_WRITTEN``, ``CALIBRATION_*``, ``CAMPAIGN_*``, ``AUDIT_*``,
 ``DRIFT_*`` and the drift module's ``INDEX_LIST_IMBALANCE`` /
@@ -181,14 +181,13 @@ FLEET_MERGE_STALENESS = "knn_tpu_fleet_merge_staleness_seconds"
 FLEET_STRAGGLER_HOST = "knn_tpu_fleet_straggler_host"
 
 #: the catalog names this package never writes (see the module docstring):
-#: the JAX package's XLA compile events, the multi-GPU merge, fleet and
-#: host-RAM tier names, and the second obs slice's modules' names
+#: the JAX package's XLA compile events, the multi-GPU merge and fleet
+#: names, and the second obs slice's modules' names
 UNWRITTEN = frozenset({
     JAX_COMPILES, JAX_COMPILE_SECONDS,
     MERGE_SELECTED, MERGE_BYTES, MERGE_STRAGGLER_GAP,
     FLEET_MEMBERS, FLEET_UNREACHABLE, FLEET_MERGE_STALENESS,
     FLEET_STRAGGLER_HOST,
-    HOSTTIER_SWEEPS, HOSTTIER_SEGMENT_ROWS, HOSTTIER_SWEEP_SECONDS,
     SLO_BURN_RATE, SLO_BREACHED, SLO_BREACH_TRANSITIONS, SLO_EVALUATIONS,
     POSTMORTEMS_WRITTEN,
     CALIBRATION_APPLIED, CALIBRATION_AGE, CALIBRATION_RESIDUAL,

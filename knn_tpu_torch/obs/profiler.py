@@ -6,19 +6,28 @@ where there is a card, CUDA activity), writes a Chrome trace under
 ``<out_dir>/<section>/trace.json`` and records a ``profiler.trace`` event.
 ``out_dir=None`` captures nothing and yields None, so a caller can skip
 its extra traced run.  The block runs inside a ``record_function`` range
-(:data:`BODY_MARKER`); a few tiny kernels run before it inside the trace,
-because after several traces in one process a trace's first kernels went
-unrecorded.
+(:data:`BODY_MARKER`), after :data:`WARMUP_KERNELS` tiny kernels inside
+the trace: after a trace of tens of thousands of events, a later trace in
+the same process can miss its first kernels altogether (CUPTI records
+none of them; ``csrc/probes/trace_clock.py --flood``), and the warm-up
+kernels take that loss.  A summary counts the warm-up kernels it holds
+(``device_events_before``): while one is there, the loss stopped short of
+the block.
 
 :func:`summarize` reads a trace's events — those of the block alone:
-device events starting at or after the marker's start, host runtime calls
-inside the marker — into the numbers a breakdown needs: device time by
+device events inside the marker's own device-side range (the
+``record_function`` range lands on the device timeline too, spanning the
+block's kernels on the device clock), host runtime calls inside the
+host-side range — into the numbers a breakdown needs: device time by
 kernel name, the device's busy time (the union of its kernel intervals)
 and idle share of the wall time, the host↔device synchronizations
 (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
 ``cudaEventSynchronize`` runtime calls) and the device-to-host copies
 (``Memcpy DtoH`` device events, beside the ``cudaMemcpyAsync`` runtime
-calls of any direction).
+calls of any direction).  Device events are never placed by the host
+clock: a device timeline offset from the host's would drop the block's
+first kernels in such a filter.  Without a device-side range (a CPU
+trace) every device event counts.
 
 ``torch`` is imported inside :func:`device_trace` only.  Where the port
 differs: the capture directory is the ``out_dir`` argument, not an
@@ -38,6 +47,10 @@ from knn_tpu_torch.obs import trace
 
 #: the record_function range around the traced block
 BODY_MARKER = "obs.device_trace"
+
+#: tiny kernels a trace runs before the block, to take the loss of a
+#: trace's first kernels
+WARMUP_KERNELS = 64
 
 #: host runtime calls that wait for the device
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -60,26 +73,33 @@ def summarize(events, wall_s: Optional[float] = None, top: int = 10) -> dict:
     with ``name``, ``device_type`` and ``time_range.start/.end`` in µs):
     ``kernels_ms`` (device ms by name, the ``top`` largest), ``device_busy_ms``
     (union of device intervals), ``wall_ms`` (``wall_s``, else the
-    marker's span), ``device_idle_share`` (1 - busy / wall), ``syncs`` by
-    runtime call and their ``sync_count``, ``d2h_copies`` and
-    ``memcpy_async_calls``.  Events before the :data:`BODY_MARKER` range
-    are left out (all events count when there is no marker)."""
+    marker's host span), ``device_idle_share`` (1 - busy / wall), ``syncs``
+    by runtime call and their ``sync_count``, ``d2h_copies`` and
+    ``memcpy_async_calls``; ``device_filter`` names the range the device
+    events were read in (``"device_marker"``, or ``"none"``) and
+    ``device_events_before`` counts those before it (a device trace's
+    warm-up kernels).  Host events outside
+    the :data:`BODY_MARKER` host range are left out (all count when there
+    is no marker)."""
     events = list(events)
-    marks = [e for e in events if e.name == BODY_MARKER and not _is_device(e)]
-    t_lo = min((e.time_range.start for e in marks), default=None)
-    t_hi = max((e.time_range.end for e in marks), default=None)
+    host_marks = [e for e in events
+                  if e.name == BODY_MARKER and not _is_device(e)]
+    dev_marks = [e for e in events if e.name == BODY_MARKER and _is_device(e)]
+    t_lo = min((e.time_range.start for e in host_marks), default=None)
+    t_hi = max((e.time_range.end for e in host_marks), default=None)
+    d_lo = min((e.time_range.start for e in dev_marks), default=None)
+    d_hi = max((e.time_range.end for e in dev_marks), default=None)
 
-    def in_body(e, host: bool) -> bool:
-        if t_lo is None:
-            return True
-        s = e.time_range.start
-        return s >= t_lo and (not host or s <= t_hi)
+    def host_in_body(e) -> bool:
+        return t_lo is None or t_lo <= e.time_range.start <= t_hi
 
-    # the marker's own range also lands on the device timeline: it is no
-    # kernel
-    dev = [e for e in events if _is_device(e) and in_body(e, False)
-           and e.name != BODY_MARKER]
-    host = [e for e in events if not _is_device(e) and in_body(e, True)]
+    def dev_in_body(e) -> bool:
+        return d_lo is None or d_lo <= e.time_range.start <= d_hi
+
+    # the marker's own device range is no kernel
+    dev_all = [e for e in events if _is_device(e) and e.name != BODY_MARKER]
+    dev = [e for e in dev_all if dev_in_body(e)]
+    host = [e for e in events if not _is_device(e) and host_in_body(e)]
     by_name: Dict[str, float] = {}
     spans = []
     for e in dev:
@@ -114,6 +134,9 @@ def summarize(events, wall_s: Optional[float] = None, top: int = 10) -> dict:
         "kernels_ms": {name[:80]: us / 1e3 for name, us in ranked},
         "kernel_events": len(dev),
         "kernel_names": sorted(by_name),
+        "device_filter": "none" if d_lo is None else "device_marker",
+        "device_events_before": (0 if d_lo is None else sum(
+            1 for e in dev_all if e.time_range.start < d_lo)),
         "syncs": syncs,
         "sync_count": sum(syncs.values()),
         "d2h_copies": sum(1 for e in dev
@@ -161,7 +184,7 @@ def device_trace(section: str,
     with profile(activities=activities) as prof:
         if cuda:
             warm = torch.zeros(8, device="cuda")
-            for _ in range(8):
+            for _ in range(WARMUP_KERNELS):
                 warm.add_(1)
             torch.cuda.synchronize()  # done before the block's range opens
         with record_function(BODY_MARKER):

@@ -28,9 +28,11 @@ I32MAX = 2 ** 31 - 1
 
 def topk_smallest(dists: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the k smallest entries along the last axis,
-    ascending; ties broken toward the lower index."""
+    ascending; ties broken toward the lower index.  Both are copies of the
+    k columns, so the whole row's sort is freed with the call (a view
+    would keep it alive as long as the result)."""
     vals, idx = torch.sort(dists, dim=-1, stable=True)
-    return vals[..., :k], idx[..., :k]
+    return vals[..., :k].contiguous(), idx[..., :k].contiguous()
 
 
 def topk_pairs(d: torch.Tensor, i: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -126,7 +128,7 @@ def knn_search_approx(queries: torch.Tensor, train: torch.Tensor, k: int, *,
     score = _dot(queries, train, compute_dtype) - half_t_norm
     # a stable descending sort keeps the lower index first among ties
     top, idx = torch.sort(score, dim=-1, descending=True, stable=True)
-    top, idx = top[..., :k], idx[..., :k]
+    top, idx = top[..., :k], idx[..., :k].contiguous()
     q32 = queries.float()
     q_norm = (q32 * q32).sum(-1, keepdim=True)
     return torch.clamp_min(q_norm - 2.0 * top, 0.0), idx

@@ -27,6 +27,20 @@ they are absent here; everything else follows the JAX code path:
   (ops.refine.rank_correct_runs), and flagged queries rerun through the
   widened exact select + float64 refine (ops.certified.repair_uncertified).
 
+The host-RAM tier (the JAX package's, sharded.py:650-975): with
+``hbm_budget_bytes`` a database whose placement (analysis.hbm's byte
+model) exceeds the budget is never placed.  Its prepared rows stay on the
+host, split into budget-sized segments (``hbm.plan_segments``), and
+``search`` sweeps them through :func:`segment_search_program`, every
+segment padded to one shape with ``PAD_VAL``: each segment is copied into
+one of ``hosttier_depth`` pinned staging buffers, up to the card on a side
+stream behind an event, searched, and its top-k merged into a carry on the
+card in the lexicographic ``(distance, index)`` order (ops.topk.merge_topk).
+At most ``hosttier_depth`` sweeps are in flight: a staging buffer is
+refilled once its copy has finished, a device buffer once the sweep that
+read it has.  The paths that read the whole database (certified search,
+predict, radius search, bucketed serving) refuse such a placement by name.
+
 Batches run on the card while the host repairs earlier ones: each batch's
 certify output is copied into pinned host memory behind a CUDA event of
 its own, and the host waits on that event alone.  ``overlap=True`` runs
@@ -57,12 +71,15 @@ import numpy as np
 import torch
 
 from knn_tpu_torch import obs, tuning
-from knn_tpu_torch.convert import Placement, placement_from_numpy, row_normalize_f64
+from knn_tpu_torch.analysis import hbm
+from knn_tpu_torch.convert import (Placement, host_rows, place_host_rows,
+                                   row_normalize_f64)
 from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.ops.coarse_knn import (
     BIN_W,
     DIM_CHUNK,
     INT_ARMS,
+    PAD_VAL,
     RANK_SLACK,
     TILE_N,
     _geometry,
@@ -85,7 +102,7 @@ from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats_t,
                                         pack_nibbles_t, quantize_rows,
                                         quantize_rows_int4,
                                         score_error_bound_device)
-from knn_tpu_torch.ops.topk import I32MAX, knn_search_tiled
+from knn_tpu_torch.ops.topk import I32MAX, knn_search_tiled, merge_topk
 from knn_tpu_torch.obs import names as _mn
 from knn_tpu_torch.ops.vote import majority_vote
 from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
@@ -95,13 +112,20 @@ from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
 #: result does not depend on the chunking)
 _EXACT_BLOCK_ELEMS = 1 << 27
 
+#: device bytes a host-tier sweep's search keeps per score of its [rows,
+#: segment rows] block (the f32 scores, their masked copy, the sorted
+#: values and their int64 order): the sweep sizes its query blocks so this
+#: workspace stays within the budget
+_HOSTTIER_SCORE_BYTES = 32
 
-def _row_blocked(fn, q: torch.Tensor, n_rows: int):
+
+def _row_blocked(fn, q: torch.Tensor, n_rows: int,
+                 block_elems: int = _EXACT_BLOCK_ELEMS):
     """``fn(q_rows) -> tuple of tensors`` over row blocks of ``q`` that
-    keep one [rows, n_rows] distance block within ``_EXACT_BLOCK_ELEMS``
-    (each query's result does not depend on its block), each output
+    keep one [rows, n_rows] distance block within ``block_elems`` (each
+    query's result does not depend on its block), each output
     concatenated."""
-    rows = max(1, _EXACT_BLOCK_ELEMS // max(1, n_rows))
+    rows = max(1, block_elems // max(1, n_rows))
     outs = [fn(q[lo : lo + rows]) for lo in range(0, q.shape[0], rows)]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
@@ -137,7 +161,8 @@ def query_stream_program(k: int, metric: str = "l2", *,
 
 def segment_search_program(k: int, metric: str = "l2", *,
                            train_tile: Optional[int] = None,
-                           compute_dtype=None, device: DeviceLike = None):
+                           compute_dtype=None, device: DeviceLike = None,
+                           block_elems: int = _EXACT_BLOCK_ELEMS):
     """The exact tiled search of one padded db segment — the one-device
     form of the JAX package's ``_hosttier_program`` / ``segment_search_program``
     (sharded.py:275-346): ``prog(q, seg, n_valid) -> (d [Q, k], i [Q,
@@ -146,7 +171,9 @@ def segment_search_program(k: int, metric: str = "l2", *,
     to +inf before the select, and any of them still in the top-k (fewer
     than k valid rows) come back as ``+inf`` with the int32-max sentinel
     index.  A new ``n_valid`` (a grown delta tail, another probe set)
-    never changes the segment's shape."""
+    never changes the segment's shape.  ``block_elems`` bounds one query
+    block's [rows, segment rows] distance block (the host-RAM tier sizes
+    it from its budget)."""
     dev = resolve_device(device)
 
     def prog(q, seg, n_valid: int):
@@ -160,7 +187,7 @@ def segment_search_program(k: int, metric: str = "l2", *,
                                         train_tile=train_tile,
                                         compute_dtype=compute_dtype,
                                         n_valid=n_valid),
-            q, seg.shape[0])
+            q, seg.shape[0], block_elems)
         pad = i >= n_valid
         return (torch.where(pad, torch.inf, d),
                 torch.where(pad, torch.full_like(i, I32MAX), i))
@@ -236,15 +263,47 @@ class ShardedKNN:
     "float16" or their torch dtypes) is the input dtype of the matmuls
     ``search``, ``predict`` and the counted selectors' coarse pass rank
     with (ops.distance._dot: f32 accumulation); the certificates' counts
-    and repairs stay f32."""
+    and repairs stay f32.
+
+    ``hbm_budget_bytes`` (None: no budget) runs a host array whose
+    placement would exceed it in the host-RAM tier (module docstring;
+    ``hbm.placement_bytes`` of the prepared rows), with ``hosttier_depth``
+    sweeps in flight; a :class:`Placement` or a tensor over the budget is
+    refused, one within it placed as without a budget."""
 
     def __init__(self, train, *, k: int, metric: str = "l2",
                  train_tile: Optional[int] = None, compute_dtype=None,
                  labels=None, num_classes: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 hbm_budget_bytes: Optional[int] = None,
+                 hosttier_depth: int = 2):
         #: the compute dtype's name, the JAX package's ``_dtype_key``
         #: (None: float32)
         self._dtype_key = dtype_name(compute_dtype)
+        budget = hbm_budget_bytes
+        if budget is not None and budget <= 0:
+            raise ValueError(f"hbm_budget_bytes must be > 0, got {budget}")
+        if int(hosttier_depth) < 1:
+            raise ValueError(
+                f"hosttier_depth must be >= 1, got {hosttier_depth}")
+        #: the host-RAM tier's plan (None: the database is placed)
+        self._host_tier: Optional[dict] = None
+        #: its prepared host rows, staging buffers and copy stream
+        self._host_rows = None
+        self._staging = None
+        self._copy_stream = None
+        self._last_hosttier: Optional[dict] = None
+        if budget is not None and isinstance(train, (Placement,
+                                                     torch.Tensor)):
+            n, width = ((train.n_train, train.db.shape[1])
+                        if isinstance(train, Placement) else
+                        tuple(train.shape))
+            if hbm.placement_bytes(n, width) > budget:
+                raise ValueError(
+                    f"hbm_budget_bytes={budget} cannot hold this {n}-row "
+                    f"placement, and the host-RAM tier needs a host-array "
+                    f"construction to stream from; pass the rows as a "
+                    f"numpy array (or raise the budget)")
         if isinstance(train, Placement):
             if labels is not None or device is not None:
                 raise ValueError(
@@ -256,17 +315,27 @@ class ShardedKNN:
                     f"{train.metric!r}")
             pl = train
         else:
-            pl = placement_from_numpy(train, labels, num_classes,
-                                      metric=metric, device=device)
-        if k > pl.n_train:
-            raise ValueError(f"k={k} > n_train={pl.n_train}")
+            resolve_device(device)  # no host work for a missing device
+            rows = host_rows(train, metric)
+            if budget is not None and \
+                    hbm.placement_bytes(*rows.rows.shape) > budget:
+                pl = None
+                self._plan_host_tier(rows, int(budget), int(hosttier_depth),
+                                     k, labels, num_classes, device)
+            else:
+                pl = place_host_rows(rows, labels, num_classes, device=device)
+        if pl is not None:
+            if k > pl.n_train:
+                raise ValueError(f"k={k} > n_train={pl.n_train}")
+            self.device = pl.device
+            self.metric = pl.metric
+            self.n_train = pl.n_train
+            self.num_classes = pl.num_classes
+            #: the caller's row width (a dot placement holds one more)
+            self.dim_in = pl.dim_in
         self.placement = pl
-        self.device = pl.device
         self.k = k
-        self.metric = pl.metric
         self.train_tile = train_tile
-        self.n_train = pl.n_train
-        self.num_classes = pl.num_classes
         #: coarse-pass db parts of each arm for tiles whose padding differs
         #: from the placement's, built on first use
         self._parts = {}
@@ -288,6 +357,187 @@ class ShardedKNN:
         #: the join may search at once
         self._engines_lock = threading.Lock()
 
+    # -- the host-RAM tier --------------------------------------------------
+    def _plan_host_tier(self, rows, budget: int, depth: int, k: int,
+                        labels, num_classes, device: DeviceLike) -> None:
+        """The tier's plan for prepared host ``rows`` over ``budget``
+        (sharded.py:693-723): the segments, their padded width and bytes."""
+        n, width = rows.rows.shape
+        segments = hbm.plan_segments(n, width, budget)
+        seg_rows = segments[0][1] - segments[0][0]
+        if k > min(n, seg_rows):
+            raise ValueError(
+                f"k={k} exceeds the {seg_rows}-row host-tier segment; "
+                f"raise hbm_budget_bytes")
+        if labels is not None:
+            if num_classes is None:
+                raise ValueError("labels given without num_classes")
+            if np.asarray(labels).shape != (n,):
+                raise ValueError(
+                    f"labels shape {np.asarray(labels).shape} != "
+                    f"(n_train,) = ({n},)")
+        self.device = resolve_device(device)
+        self.metric = rows.metric
+        self.n_train = n
+        self.num_classes = num_classes
+        self.dim_in = rows.dim_in
+        self._host_rows = rows
+        self._host_tier = {
+            "segments": segments,
+            "segment_rows": seg_rows,
+            "budget_bytes": budget,
+            "bytes_per_sweep": hbm.placement_bytes(seg_rows, width),
+            "depth": depth,
+            "itemsize": 4,
+        }
+        obs.gauge(_mn.HOSTTIER_SEGMENT_ROWS).set(float(seg_rows))
+
+    def _require_resident(self, what: str) -> None:
+        """The paths that read the whole database need it placed; the
+        host-RAM tier only ever has one segment on the card."""
+        if self._host_tier is not None:
+            raise ValueError(
+                f"{what} needs the full database resident on device, but "
+                f"this placement runs the host-RAM shard tier (corpus "
+                f"exceeds the {self._host_tier['budget_bytes']}-byte HBM "
+                f"budget); use search(), or raise the budget")
+
+    def hosttier_stats(self) -> Optional[dict]:
+        """The host-RAM tier's plan and its last search's measurements
+        (``sweeps``, per-sweep walls, bytes a sweep; on the card the
+        copies' seconds and GB/s); None when the database is placed."""
+        if self._host_tier is None:
+            return None
+        out = {k: v for k, v in self._host_tier.items() if k != "segments"}
+        out["sweeps"] = len(self._host_tier["segments"])
+        if self._last_hosttier is not None:
+            out["last_search"] = dict(self._last_hosttier)
+        return out
+
+    def _hosttier_buffers(self, seg_rows: int, width: int, depth: int):
+        """The pinned staging buffers and the copy stream, made at the
+        first sweep on the card and kept."""
+        if self._staging is None:
+            self._staging = [torch.empty((seg_rows, width),
+                                         dtype=torch.float32,
+                                         pin_memory=True)
+                             for _ in range(depth)]
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return self._staging, self._copy_stream
+
+    def _hosttier_program(self, k: int):
+        """The tier's segment program: its query blocks keep one sweep's
+        search workspace within the budget (``_HOSTTIER_SCORE_BYTES`` a
+        score)."""
+        return segment_search_program(
+            k, self.metric, train_tile=self.train_tile,
+            compute_dtype=self._dtype_key, device=self.device,
+            block_elems=max(1, self._host_tier["budget_bytes"]
+                            // _HOSTTIER_SCORE_BYTES))
+
+    def _stream_segments(self, marks: Optional[list] = None):
+        """Yields ``(lo, hi, seg)`` for every host-tier segment, ``seg`` its
+        rows padded to the segment width with ``PAD_VAL`` (on the card a
+        device tensor, on the CPU a host array).  The caller enqueues the
+        work that reads ``seg`` on the current stream before it asks for
+        the next segment.  On the card each segment is copied into a pinned
+        staging buffer, then up on the copy stream behind an event the
+        current stream waits for; a staging buffer is refilled once its
+        copy has finished, a device buffer once the work that read it has,
+        so at most ``depth`` segments are in flight; every copy has
+        finished when the generator ends.  ``marks`` gains each segment's
+        CUDA events (``start``, ``copied``, ``done``) on the card, its host
+        seconds on the CPU."""
+        ht = self._host_tier
+        rows = self._host_rows.rows
+        seg_rows, depth = ht["segment_rows"], ht["depth"]
+        width = rows.shape[1]
+        marks = [] if marks is None else marks
+        if self.device.type != "cuda":
+            for lo, hi in ht["segments"]:
+                t0 = time.perf_counter()
+                seg = np.full((seg_rows, width), PAD_VAL, np.float32)
+                seg[: hi - lo] = rows[lo:hi]
+                yield lo, hi, seg
+                marks.append(time.perf_counter() - t0)
+            return
+        staging, copy_stream = self._hosttier_buffers(seg_rows, width, depth)
+        compute = torch.cuda.current_stream(self.device)
+        dev_bufs = [torch.empty((seg_rows, width), dtype=torch.float32,
+                                device=self.device) for _ in range(depth)]
+        for buf in dev_bufs:  # written on the copy stream too
+            buf.record_stream(copy_stream)
+        first = len(marks)
+        try:
+            for s, (lo, hi) in enumerate(ht["segments"]):
+                slot = s % depth
+                if s >= depth:  # the staging buffer's last copy is done
+                    marks[first + s - depth]["copied"].synchronize()
+                host = staging[slot].numpy()
+                host[: hi - lo] = rows[lo:hi]
+                host[hi - lo:] = PAD_VAL
+                ev = {name: torch.cuda.Event(enable_timing=True)
+                      for name in ("start", "copied", "done")}
+                with torch.cuda.stream(copy_stream):
+                    if s >= depth:  # the work that read the buffer is done
+                        copy_stream.wait_event(
+                            marks[first + s - depth]["done"])
+                    ev["start"].record(copy_stream)
+                    dev_bufs[slot].copy_(staging[slot], non_blocking=True)
+                    ev["copied"].record(copy_stream)
+                compute.wait_event(ev["copied"])
+                yield lo, hi, dev_bufs[slot]
+                ev["done"].record(compute)
+                marks.append(ev)
+        finally:
+            copy_stream.synchronize()  # the staging buffers are free
+
+    def _search_host_tier(self, queries, k: int, return_sqrt: bool):
+        """One search over every host-tier segment (sharded.py:882-975):
+        device ``(d, i)`` [Q, k], bitwise the placed search wherever the
+        segment's per-pair distances are (always on the CPU with integer
+        rows; on the card the GEMM may pick another kernel for the
+        segment's shape)."""
+        ht = self._host_tier
+        prog = self._hosttier_program(k)
+        q = self._to_device(queries)
+        with self._engines_lock:
+            key = (k, q.shape[0])
+            self._dispatch_shapes[key] = self._dispatch_shapes.get(key, 0) + 1
+        best = None
+        marks: list = []
+        t_wall0 = time.perf_counter()
+        for lo, hi, seg in self._stream_segments(marks):
+            d, i = prog(q, seg, hi - lo)
+            # segment-local indices made global; the pad rows' sentinel
+            # stays put
+            gi = torch.where(i == I32MAX, i, i + lo)
+            best = (d, gi) if best is None else merge_topk(*best, d, gi, k)
+        last = {"sweeps": len(marks), "k": k, "queries": int(q.shape[0])}
+        if self.device.type == "cuda":
+            marks[-1]["done"].synchronize()
+            walls = [ev["start"].elapsed_time(ev["done"]) / 1e3
+                     for ev in marks]
+            h2d = [ev["start"].elapsed_time(ev["copied"]) / 1e3
+                   for ev in marks]
+            last["h2d_s"] = h2d
+            last["h2d_gbps"] = (ht["bytes_per_sweep"] * len(h2d)
+                                / sum(h2d) / 1e9 if sum(h2d) > 0 else None)
+        else:
+            walls = marks
+        last["wall_s"] = time.perf_counter() - t_wall0
+        last["sweep_walls_s"] = walls
+        for w in walls:
+            obs.counter(_mn.HOSTTIER_SWEEPS).inc()
+            obs.histogram(_mn.HOSTTIER_SWEEP_SECONDS).observe(w)
+        self._last_hosttier = last
+        d, i = best
+        if return_sqrt:
+            from knn_tpu_torch.ops.distance import metric_values
+
+            d = metric_values(d, self.metric)
+        return d, i
+
     # -- exact path --------------------------------------------------------
     def _to_device(self, queries) -> torch.Tensor:
         """Queries on the device.  A host array goes up from pinned memory
@@ -304,7 +554,7 @@ class ShardedKNN:
             if self.device.type == "cuda":
                 q = q.pin_memory().to(self.device, non_blocking=True)
         if self.metric == "dot" and q.ndim == 2 and \
-                q.shape[1] == self.placement.dim_in:
+                q.shape[1] == self.dim_in:
             q = torch.nn.functional.pad(q, (0, 1))
         return q
 
@@ -319,6 +569,8 @@ class ShardedKNN:
     def _host_train(self) -> np.ndarray:
         """The placement's unpadded rows on the host, for float64
         refinement (the JAX package's ``_host_train``, sharded.py:1178)."""
+        if self.placement is None:
+            return self._host_rows.rows
         return self.placement.db_host
 
     def _exact_topk(self, q: torch.Tensor, k: int, metric: str,
@@ -334,6 +586,13 @@ class ShardedKNN:
         k = self.k if k is None else k
         if k > self.n_train:
             raise ValueError(f"k={k} exceeds n_train={self.n_train}")
+        if self._host_tier is not None:
+            if k > self._host_tier["segment_rows"]:
+                raise ValueError(
+                    f"k={k} exceeds the "
+                    f"{self._host_tier['segment_rows']}-row host-tier "
+                    f"segment")
+            return self._search_host_tier(queries, k, return_sqrt)
         q = self._to_device(queries)
         shape_key = (k, q.shape[0])
         with self._engines_lock:
@@ -358,6 +617,7 @@ class ShardedKNN:
         from knn_tpu_torch.serving.buckets import normalize_ladder
         from knn_tpu_torch.serving.engine import ServingEngine
 
+        self._require_resident("search_bucketed")
         ladder = None if buckets is None else normalize_ladder(buckets)
         # an explicit ladder determines the engine: min/max do not key
         # duplicate engines with identical executables
@@ -401,6 +661,7 @@ class ShardedKNN:
 
     def predict(self, queries) -> torch.Tensor:
         """Predicted labels [Q] int32 — needs ``labels`` at construction."""
+        self._require_resident("predict")
         if self.placement.labels is None:
             raise RuntimeError("ShardedKNN built without labels; predict unavailable")
         _, gi = self.search(queries)
@@ -426,6 +687,7 @@ class ShardedKNN:
         from knn_tpu_torch.ops.certified import count_below
         from knn_tpu_torch.ops.radius import SENTINEL_IDX, radius_threshold
 
+        self._require_resident("radius_search")
         if self._dtype_key not in (None, "float32"):
             raise ValueError(
                 f"radius_search needs a float32 placement; this program "
@@ -918,6 +1180,7 @@ class ShardedKNN:
         from knn_tpu_torch.ops.certified import repair_uncertified
 
         del recall_target  # no approximate top-k here (divergence 21)
+        self._require_resident("search_certified")
         if self.metric not in ("l2", "cosine", "dot"):
             # |q-t|_1 has no gram-matrix form for either certificate to bound
             raise ValueError(
@@ -1121,6 +1384,7 @@ class ShardedKNN:
         :meth:`search_certified` (any selector; the pallas kernel's knobs
         left at None resolve through ``tune_cache`` as there), then the
         reference vote.  Returns (labels [Q] int32 numpy, stats)."""
+        self._require_resident("predict")
         if self.placement.labels is None:
             raise RuntimeError("ShardedKNN built without labels; predict unavailable")
         _, idx, stats = self.search_certified(

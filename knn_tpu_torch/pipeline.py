@@ -1,12 +1,16 @@
 """The reference job end to end on one GPU — the port of
-knn_tpu/pipeline.py (``run_job``, backend ``_run_jax``).
+knn_tpu/pipeline.py (``run_job``; the backends ``_run_jax``, here
+``_run_torch``, and ``_run_native``).
 
 Reference flow (knn_mpi.cpp:86-399): read CSVs -> transductive min-max
 normalize (joint extrema over train ∪ test ∪ val, reduced on the device,
 rescale on host) -> place the database once -> classify val and test in
 batches (exact, or certified-exact through the one-pass certificate) ->
 score val -> write ``Test_label.csv``; every phase timed with a CUDA
-synchronization at its boundaries.
+synchronization at its boundaries.  ``backend="native"`` runs the C++ CPU
+backend (knn_tpu_torch.native) instead: extrema, rescale and classify on
+the host with ``num_threads`` threads, no device; a library that does not
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -166,10 +170,38 @@ def _run_torch(cfg: JobConfig, timer: PhaseTimer, device, train, train_labels,
         certified_stats if cfg.mode == "certified" else None), serving_stats
 
 
+def _run_native(cfg: JobConfig, timer: PhaseTimer, train, train_labels,
+                test, val, val_labels_real):
+    from knn_tpu_torch import native
+
+    native.load()  # a failed build raises here with the compiler's output
+    num_classes = _infer_num_classes(cfg, train_labels, val_labels_real)
+    arrays = [a for a in (train, test, val) if a is not None]
+    if cfg.normalize:
+        with timer.phase("normalize"):
+            lo, hi = native.minmax_stats(arrays)
+            train = native.minmax_apply(train, lo, hi)
+            test = native.minmax_apply(test, lo, hi)
+            if val is not None:
+                val = native.minmax_apply(val, lo, hi)
+    val_pred = None
+    if val is not None:
+        with timer.phase("knn_val"):
+            val_pred = native.knn_predict(
+                train, train_labels, val, k=cfg.k, num_classes=num_classes,
+                metric=cfg.metric, num_threads=cfg.num_threads)
+    with timer.phase("knn_test"):
+        test_pred = native.knn_predict(
+            train, train_labels, test, k=cfg.k, num_classes=num_classes,
+            metric=cfg.metric, num_threads=cfg.num_threads)
+    return test_pred, val_pred
+
+
 def run_job(cfg: JobConfig) -> JobResult:
     """Run the full reference job under ``cfg`` on ``cfg.device`` (None =
-    cuda); returns what the reference prints/writes plus per-phase times."""
-    device = resolve_device(cfg.device)
+    cuda; the native backend runs on the host); returns what the
+    reference prints/writes plus per-phase times."""
+    device = None if cfg.backend == "native" else resolve_device(cfg.device)
     timer = PhaseTimer(device)
     with timer.phase("ingest"):
         train, train_labels = read_labeled_csv(cfg.train_file, cfg.dim)
@@ -186,8 +218,14 @@ def run_job(cfg: JobConfig) -> JobResult:
         raise ValueError(
             f"train label {int(train_labels.max())} outside [0, {cfg.num_classes})")
 
-    test_pred, val_pred, certified_stats, serving_stats = _run_torch(
-        cfg, timer, device, train, train_labels, test, val, val_labels_real)
+    if cfg.backend == "native":
+        test_pred, val_pred = _run_native(
+            cfg, timer, train, train_labels, test, val, val_labels_real)
+        certified_stats = serving_stats = None
+    else:
+        test_pred, val_pred, certified_stats, serving_stats = _run_torch(
+            cfg, timer, device, train, train_labels, test, val,
+            val_labels_real)
 
     val_acc = None
     if val_pred is not None:

@@ -277,6 +277,9 @@ class ServingEngine:
         latency_window: int = 4096,
     ):
         self.program = program
+        # a host-RAM-tier placement has no placed database to capture
+        # against: refused with the tier's own message
+        program._require_resident("ServingEngine")
         self.k = program.k if k is None else int(k)
         if self.k > program.n_train:
             raise ValueError(f"k={self.k} > n_train={program.n_train}")

@@ -1,5 +1,5 @@
 """Runtime job configuration — the port's copy of knn_tpu/utils/config.py
-(``JobConfig``, ``CERTIFIED_PRECISIONS``), cut to the single-GPU slice.
+(``JobConfig``, ``BACKENDS``, ``CERTIFIED_PRECISIONS``) on one GPU.
 
 Field ↔ reference mapping (knn_mpi.cpp:108-119):
   dim          <- ``dim``                 :108 (None = infer from file)
@@ -12,17 +12,24 @@ Field ↔ reference mapping (knn_mpi.cpp:108-119):
   train_file / val_file / test_file      :117-119
   output_file  <- the hard-coded ``Test_label.csv``  :390
 
-The JAX package's mesh, merge and native-backend fields belong to later
-slices of the port; ``device`` is the port's own (``None`` = ``cuda``, see
-knn_tpu_torch.device).
+The JAX package's mesh and merge fields belong to a later slice of the
+port; ``device`` is the port's own (``None`` = ``cuda``, see
+knn_tpu_torch.device).  The port's own backend is named ``"torch"`` where
+the JAX package's is ``"jax"`` (ROADMAP divergence 36).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Optional
 
 from knn_tpu_torch.ops.metrics import METRICS
+
+#: execution backends: the port's PyTorch path and the C++ CPU backend
+#: (knn_tpu_torch.native)
+BACKENDS = ("torch", "native")
 
 #: kernel matmul precisions with a certified tolerance model (the JAX
 #: package's list), all of which the port's coarse pass runs; ``default``
@@ -50,6 +57,7 @@ class JobConfig:
     metric: str = "l2"
     normalize: bool = True
     validation: bool = True
+    backend: str = "torch"
     #: torch device; None = "cuda" (raises without a GPU)
     device: Optional[str] = None
     train_tile: Optional[int] = None
@@ -80,11 +88,15 @@ class JobConfig:
     #: micro-batching deadline (knn_tpu_torch.serving.QueryQueue): echoed
     #: into the serving metrics; only a concurrent-request queue reads it
     max_wait_ms: float = 2.0
+    #: native backend threads (0 = hardware concurrency)
+    num_threads: int = 0
 
     def __post_init__(self):
         self.metric = self.metric.lower()
         if self.metric not in METRICS:
             raise ValueError(f"metric {self.metric!r} not in {METRICS}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
         if self.k < 1:
             raise ValueError(f"k must be >= 1, got {self.k}")
         if self.validation and not self.val_file:
@@ -113,6 +125,15 @@ class JobConfig:
                     "serve_buckets routes through the exact bucketed "
                     "programs; mode='certified' has its own batching "
                     "(batch_size) and does not compose with it")
+            if self.serve_buckets is not None and self.backend != "torch":
+                raise ValueError("serve_buckets requires the torch backend")
         if self.max_wait_ms < 0:
             raise ValueError(
                 f"max_wait_ms must be >= 0, got {self.max_wait_ms}")
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "JobConfig":
+        return cls(**json.loads(s))

@@ -70,3 +70,10 @@ class PhaseTimer:
             if self._t0 is None or self._t_end is None:
                 return 0.0
             return self._t_end - self._t0
+
+    def summary(self) -> Dict[str, float]:
+        """Every phase's seconds and their ``total``."""
+        with self._lock:
+            out = dict(self.phases)
+        out["total"] = self.total
+        return out

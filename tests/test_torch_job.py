@@ -297,6 +297,11 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.obs, knn_tpu_torch.obs.roofline\n"
         "import knn_tpu_torch.obs.health, knn_tpu_torch.obs.profiler\n"
         "import knn_tpu_torch.obs.export, knn_tpu_torch.obs.trace\n"
+        "import knn_tpu_torch.native, knn_tpu_torch.data.csv_io\n"
+        "import knn_tpu_torch.utils.config, knn_tpu_torch.utils.timing\n"
+        "import knn_tpu_torch.obs.names, knn_tpu_torch.index.artifact\n"
+        "knn_tpu_torch.native.load()\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'knn_tpu' or m.startswith('knn_tpu.'))\n"
         "print(bad)\n")

@@ -191,6 +191,79 @@ def test_certified_join_on_ivf_tier_bitwise_jax(mesh):
         knn_join(idx, q, mode="stream")
 
 
+# -- the host-RAM-tier corpus, both nesting orders -----------------------------
+def _int_rows(rng, n):
+    """Integer-valued rows: every f32 product exact, so the tier, the
+    resident search and the JAX tier agree bitwise."""
+    return rng.integers(0, 10, size=(n, DIM)).astype(np.float32)
+
+
+@pytest.mark.parametrize("sb,order", [(16, "db_major"), (48, "query_major")])
+def test_tiered_join_bitwise_looped_host_tier_search_and_jax(mesh, sb, order):
+    """B over the budget (the JAX package's test_superhbm_b_join_* shapes):
+    the join nests the order plan_join picks (db_major with three
+    superblocks, query_major with one), its counts equal the plan and the
+    JAX join's, and it is bitwise the looped host-tier search at the same
+    block shape, the resident search's and the JAX tiered join's."""
+    rng = np.random.default_rng(21)
+    db, q = _int_rows(rng, 400), _int_rows(rng, 48)
+    db[300:320] = db[:20]
+    budget = hbm.placement_bytes(64, DIM)
+    prog = ShardedKNN(db, k=5, device="cpu", hbm_budget_bytes=budget)
+    segs = hbm.n_sweeps(400, DIM, budget)
+    assert segs == 7
+    d, i, st = knn_join(prog, q, mode="stream", superblock_rows=sb)
+    plan = default_plan(prog, 48, superblock_rows=sb)
+    assert st["order"] == plan["order"] == order
+    assert st["db_segments"] == plan["db_segments"] == segs
+    assert st["superblocks"] == plan["superblocks"] == 48 // sb
+    assert st["dispatches"] == plan["dispatches"] == segs * (48 // sb)
+    assert plan["db_segment_rows"] == 64
+    ref_d, ref_i = _looped_search(prog, q, sb)
+    np.testing.assert_array_equal(i, ref_i)
+    np.testing.assert_array_equal(d, ref_d)
+    res_d, res_i = _looped_search(ShardedKNN(db, k=5, device="cpu"), q, sb)
+    np.testing.assert_array_equal(i, res_i)
+    np.testing.assert_array_equal(d, res_d)
+    jprog = JaxShardedKNN(db, mesh=mesh, k=5, hbm_budget_bytes=budget)
+    jd, ji, jst = jax_knn_join(jprog, q, mode="stream", superblock_rows=sb)
+    np.testing.assert_array_equal(i, np.asarray(ji))
+    np.testing.assert_array_equal(d, np.asarray(jd))
+    assert plan == jax_default_plan(jprog, 48, superblock_rows=sb)
+    for key in ("order", "superblocks", "db_segments", "dispatches"):
+        assert st[key] == jst[key], key
+
+
+def test_tiered_join_return_sqrt_and_depth():
+    rng = np.random.default_rng(22)
+    db, q = _int_rows(rng, 300), _int_rows(rng, 40)
+    prog = ShardedKNN(db, k=4, device="cpu",
+                      hbm_budget_bytes=hbm.placement_bytes(50, DIM))
+    ref = None
+    for depth in (1, 2, 5):
+        d, i, st = knn_join(prog, q, mode="stream", superblock_rows=16,
+                            depth=depth, return_sqrt=True)
+        if ref is None:
+            ref = (d, i)
+        np.testing.assert_array_equal(i, ref[1])
+        np.testing.assert_array_equal(d, ref[0])
+    sd, si = _looped_search(prog, q, 16, return_sqrt=True)
+    np.testing.assert_array_equal(ref[1], si)
+    np.testing.assert_array_equal(ref[0], sd)
+
+
+@pytest.mark.parametrize("n_a,n_b,sb,seg", [
+    (48, 400, 16, 64), (48, 400, 48, 64), (16384, 1_000_000, 4096, 260_111),
+    (16384, 1_000_000, 16384, 260_111), (5, 7, 2, 3)])
+def test_plan_join_with_db_segments_equals_jax(n_a, n_b, sb, seg):
+    assert hbm.plan_join(n_a, n_b, 128, superblock_rows=sb,
+                         db_segment_rows=seg) == \
+        jax_hbm.plan_join(n_a, n_b, 128, superblock_rows=sb,
+                          db_segment_rows=seg)
+    assert hbm.n_superblocks(n_a, 128, hbm.query_block_bytes(sb, 128)) == \
+        jax_hbm.n_superblocks(n_a, 128, hbm.query_block_bytes(sb, 128))
+
+
 # -- the plan and the byte model ----------------------------------------------
 def test_query_budget_boundary_matrix_matches_jax_plans(corpus, mesh):
     """Budget holds A exactly -> 1 superblock; one row short -> 2; many
@@ -288,6 +361,14 @@ def test_cli_join_on_cpu(capsys):
     assert cli_main(["join", "--n", "500", "--rows", "40", "--dim", "8",
                      "--k", "4", "--mode", "certified",
                      "--device", "cpu"]) == 0
-    for flag in ("--hbm-budget-bytes", "--cpu-devices"):
-        with pytest.raises(SystemExit, match="not ported|--device cpu"):
-            cli_main(["join", flag, "4", "--device", "cpu"])
+    # the host-RAM tier: 2,000 rows behind a 500-row budget, 4 segments
+    assert cli_main(["join", "--n", "2000", "--rows", "300", "--dim", "8",
+                     "--k", "4", "--superblock", "128", "--hbm-budget-bytes",
+                     str(hbm.placement_bytes(500, 8)), "--device", "cpu"]) == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["db_segments"] == 4 and stats["superblocks"] == 3
+    assert stats["plan"]["db_segment_rows"] == 500
+    with pytest.raises(ValueError, match="cannot hold"):
+        cli_main(["join", "--hbm-budget-bytes", "4", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli_main(["join", "--cpu-devices", "4", "--device", "cpu"])

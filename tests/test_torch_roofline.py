@@ -354,6 +354,47 @@ def test_summarize_counts_the_marked_block():
         pytest.approx(1 - 0.051)
 
 
+@pytest.mark.parametrize("offset_us", [-400.0, 0.0, 250.0])
+def test_summarize_reads_device_events_on_the_device_clock(offset_us):
+    """C1: a device timeline offset from the host's (here by -400 µs,
+    which puts the block's first kernels before the host marker opens)
+    loses no kernel: device events are read in the marker's device-side
+    range, host runtime calls in its host range."""
+    def dev(name, s, e):
+        return _ev(name, s + offset_us, e + offset_us, True)
+
+    evs = [_ev(profiler.BODY_MARKER, 1000, 2000),
+           dev(profiler.BODY_MARKER, 1005, 1950),
+           dev("binned_select_bf16x3<...>", 1010, 1400),
+           dev("sort", 1500, 1600),
+           dev("Memcpy DtoH (Device -> Pinned)", 1900, 1950),
+           dev("before the block", 900, 950),
+           _ev("cudaStreamSynchronize", 1960, 1990),
+           _ev("cudaStreamSynchronize", 500, 510)]  # before the block
+    s = profiler.summarize(evs)
+    assert s["device_filter"] == "device_marker"
+    assert s["kernel_names"] == sorted(
+        ["binned_select_bf16x3<...>", "sort",
+         "Memcpy DtoH (Device -> Pinned)"])
+    assert s["kernel_events"] == 3 and s["device_events_before"] == 1
+    assert s["device_busy_ms"] == pytest.approx(0.54)
+    assert s["d2h_copies"] == 1 and s["sync_count"] == 1
+    assert s["wall_ms"] == pytest.approx(1.0)
+    # the host-range filter this replaces would drop the first kernel at
+    # the -400 µs offset
+    host_lo = 1000
+    kept = [e for e in evs if e.device_type.name == "CUDA"
+            and e.name.startswith("binned") and e.time_range.start >= host_lo]
+    assert bool(kept) == (offset_us >= 0)
+
+
+def test_summarize_without_a_device_range_counts_every_device_event():
+    evs = [_ev(profiler.BODY_MARKER, 10, 110),
+           _ev("binned_select_bf16x3<...>", 5, 50, True)]
+    s = profiler.summarize(evs)
+    assert s["device_filter"] == "none" and s["kernel_events"] == 1
+
+
 def test_device_trace_off_captures_nothing_and_on_writes_a_trace(tmp_path):
     with profiler.device_trace("main") as cap:
         assert cap is None
