@@ -254,8 +254,10 @@ exits non-zero and prints no result):
              kernel, recall@100 = 1.0 against the float64 oracle on the
              first 256 queries, against the resident ``search`` bitwise
              or within 64 eps_f32 (|q|^2 + max |t|^2) with the indices
-             wherever the k-th and (k+1)-th are separated, the device
-             memory the call adds below the corpus's 516 MB, every
+             wherever the k-th and (k+1)-th are separated, the tier's
+             two segment buffers held and at most one budget more a call
+             (besides the queries and the carry), below the corpus's
+             516 MB in all, every
              resident-only entry refused by name; the call's and each
              sweep's seconds, the copies' GB/s;
 19. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
@@ -3794,8 +3796,10 @@ def main(argv=None) -> int:
         oracle on the first 256 queries; against the resident search,
         bitwise or, where not, the indices wherever the resident k-th and
         (k+1)-th distances are separated by more than 64 eps_f32 (|q|^2 +
-        max |t|^2) and every distance within that bound; the device memory
-        the call adds stays below the corpus's bytes; no coarse kernel;
+        max |t|^2) and every distance within that bound; the tier holds
+        its `depth` segment buffers and a call adds at most one budget
+        besides the queries and the carry, below the corpus's bytes in
+        all; no coarse kernel;
         every resident-only entry refuses the tier by name.  Times: the
         call against the resident search's, each sweep, the copies' GB/s."""
         from knn_tpu_torch import obs
@@ -3813,9 +3817,17 @@ def main(argv=None) -> int:
         corpus = hbm.placement_bytes(n, dim)
         if plan["sweeps"] != want or want != 4:
             raise AssertionError(f"hosttier plan {plan}, n_sweeps {want}")
-        # one-time set-up first (the staging buffers, the copy stream, the
-        # cuBLAS workspace when no earlier phase ran), at the call's shape
-        _, wall_first = host_timed(lambda: tier.search(q_np))
+        # the device memory the tier holds: its first call makes the
+        # `depth` segment buffers it keeps (a matmul first, so a process
+        # that ran no earlier phase has its cuBLAS workspace already)
+        torch.mm(S["q_dev"][:8], S["q_dev"][:8].T)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        wall_first = host_timed(lambda: tier.search(q_np))[1]
+        first_added = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - base
+        buffers = tier.hosttier_stats()["last_search"]["device_buffer_bytes"]
         reset_launches()
         sweeps0 = obs.counter(mn.HOSTTIER_SWEEPS).get()
         torch.cuda.synchronize()
@@ -3832,10 +3844,17 @@ def main(argv=None) -> int:
             raise AssertionError(
                 f"hosttier: sweeps {last['sweeps']}, counted {counted}, "
                 f"planned {want}, shapes {shapes}, launches {launches}")
-        if peak >= corpus:
+        # the tier's contract: `depth` segment buffers held, and a call
+        # adds at most one budget besides the queries and the top-k carry
+        # (128 B a kept neighbour: the carry, a sweep's top-k, their merge)
+        allowance = budget + q_np.nbytes + 128 * q_np.shape[0] * k
+        seg_bytes = plan["segment_rows"] * dim * 4
+        if held != buffers or buffers != plan["depth"] * seg_bytes \
+                or peak > allowance or buffers + peak >= corpus:
             raise AssertionError(
-                f"hosttier: the call added {peak} B of device memory, the "
-                f"corpus is {corpus} B")
+                f"hosttier: holds {held} B (buffers {buffers} B, "
+                f"{plan['depth']} x {seg_bytes}), a call adds {peak} B "
+                f"(allowed {allowance}), the corpus is {corpus} B")
         _, wall_warm = host_timed(lambda: tier.search(q_np))
         warm_last = tier.hosttier_stats()["last_search"]
         (dr, ir), wall_res = host_timed(lambda: knn.search(q_np, k=k + 1))
@@ -3902,7 +3921,10 @@ def main(argv=None) -> int:
               "resident_wall_s_second_call": wall_res_warm,
               "sweep_walls_s": warm_last["sweep_walls_s"],
               "h2d_s": warm_last["h2d_s"], "h2d_gbps": warm_last["h2d_gbps"],
-              "peak_added_bytes": peak, "peak_over_corpus": peak / corpus,
+              "held_bytes": held, "first_call_added_bytes": first_added,
+              "peak_added_bytes": peak, "peak_allowed_bytes": allowance,
+              "card_bytes_over_budget": (held + peak) / budget,
+              "card_bytes_over_corpus": (held + peak) / corpus,
               "bitwise_resident": bitwise,
               "dist_err_over_bound": dist_ratio,
               "separated_queries": int(sep.sum()),

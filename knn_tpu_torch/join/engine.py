@@ -116,14 +116,56 @@ def _pad_block(q: np.ndarray, lo: int, hi: int, rows: int) -> np.ndarray:
     return blk
 
 
+class _CopyBack:
+    """The drain-oldest copy-back both stream joins share: each finished
+    superblock's device ``(d, i)`` (``return_sqrt``: mapped to the
+    metric's values first, as ``ShardedKNN.search`` maps them) is copied
+    into pinned host memory behind an event of its own; once ``depth`` are
+    pending, the oldest is waited for and written into the outputs."""
+
+    def __init__(self, depth: int, metric: str, return_sqrt: bool,
+                 d_out, i_out):
+        self.depth, self.metric, self.return_sqrt = depth, metric, return_sqrt
+        self.d_out, self.i_out = d_out, i_out
+        self.pending: list = []
+        self.intervals: list = []
+
+    def wait_room(self) -> None:
+        """Drains the oldest until fewer than ``depth`` are pending."""
+        while len(self.pending) >= self.depth:
+            self._collect()
+
+    def put(self, lo: int, hi: int, t0: float, d, i) -> None:
+        from knn_tpu_torch.ops.distance import metric_values
+        from knn_tpu_torch.parallel.sharded import _host_copies
+
+        if self.return_sqrt:
+            d = metric_values(d, self.metric)
+        self.pending.append((lo, hi, t0, _host_copies((d, i))))
+
+    def _collect(self) -> None:
+        lo, hi, t0, ((d, i), event) = self.pending.pop(0)
+        if event is not None:
+            event.synchronize()
+        self.intervals.append((t0, time.perf_counter()))
+        self.d_out[lo:hi] = d[: hi - lo].numpy()
+        self.i_out[lo:hi] = i[: hi - lo].numpy()
+
+    def drain(self) -> float:
+        """Collects every pending block; the dispatch-timeline overlap."""
+        from knn_tpu_torch.parallel.sharded import _overlap_ratio
+
+        while self.pending:
+            self._collect()
+        return round(_overlap_ratio(self.intervals), 4)
+
+
 def _stream_resident(program, q: np.ndarray, k: int, sb_rows: int,
                      depth: int, return_sqrt: bool, d_out, i_out) -> dict:
     """Resident-B stream: query superblocks through the search program,
     each block's results copied back behind its own event, drain-oldest
     at ``depth``."""
-    from knn_tpu_torch.ops.distance import metric_values
-    from knn_tpu_torch.parallel.sharded import (_host_copies, _overlap_ratio,
-                                                query_stream_program)
+    from knn_tpu_torch.parallel.sharded import query_stream_program
 
     prog = query_stream_program(k, program.metric,
                                 train_tile=program.train_tile,
@@ -131,36 +173,17 @@ def _stream_resident(program, q: np.ndarray, k: int, sb_rows: int,
     db = program.placement.db
     n_a = q.shape[0]
     blocks = [(lo, min(lo + sb_rows, n_a)) for lo in range(0, n_a, sb_rows)]
-
-    def launch(lo: int, hi: int):
-        qp, _ = program._place_queries(_pad_block(q, lo, hi, sb_rows))
-        d, i = prog(qp, db)
-        if return_sqrt:  # the post-map ShardedKNN.search applies
-            d = metric_values(d, program.metric)
-        return _host_copies((d, i))
-
-    pending: list = []
-    intervals: list = []
-
-    def collect() -> None:
-        lo, hi, t0, ((d, i), event) = pending.pop(0)
-        if event is not None:
-            event.synchronize()
-        intervals.append((t0, time.perf_counter()))
-        d_out[lo:hi] = d[: hi - lo].numpy()
-        i_out[lo:hi] = i[: hi - lo].numpy()
-
+    back = _CopyBack(depth, program.metric, return_sqrt, d_out, i_out)
     for lo, hi in blocks:
-        while len(pending) >= depth:
-            collect()
-        pending.append((lo, hi, time.perf_counter(), launch(lo, hi)))
-    while pending:
-        collect()
+        back.wait_room()
+        t0 = time.perf_counter()
+        qp, _ = program._place_queries(_pad_block(q, lo, hi, sb_rows))
+        back.put(lo, hi, t0, *prog(qp, db))
     return {
         "superblocks": len(blocks),
         "db_segments": 1,
         "dispatches": len(blocks),
-        "overlap_ratio": round(_overlap_ratio(intervals), 4),
+        "overlap_ratio": back.drain(),
     }
 
 
@@ -170,17 +193,15 @@ def _stream_tiered(program, q: np.ndarray, k: int, sb_rows: int,
     """Host-RAM-tier B: superblocks and db segments through the tier's
     segment program in ``order`` (the JAX package's ``_stream_tiered``,
     join/engine.py:218-335), the segments streamed as the tier's search
-    streams them (``ShardedKNN._stream_segments``).  ``db_major``: one pass
-    over the segments, each copied up once, every superblock placed and
-    run against it; ``query_major``: each superblock placed once, one pass
-    over the segments for each.  Each superblock's carry merges on the
-    card (ops.topk.merge_topk) and, after its last segment, is copied back
-    behind an event of its own, the oldest drained past ``depth``."""
+    streams them (``ShardedKNN._stream_segments``, under the tier's lock).
+    ``db_major``: one pass over the segments, each copied up once, every
+    superblock placed and run against it; ``query_major``: each superblock
+    placed once, one pass over the segments for each.  Each superblock's
+    carry merges on the card (ops.topk.merge_topk) and, after its last
+    segment, is copied back as the resident stream's blocks are."""
     import torch
 
-    from knn_tpu_torch.ops.distance import metric_values
     from knn_tpu_torch.ops.topk import I32MAX, merge_topk
-    from knn_tpu_torch.parallel.sharded import _host_copies, _overlap_ratio
 
     prog = program._hosttier_program(k)
     n_a = q.shape[0]
@@ -188,8 +209,7 @@ def _stream_tiered(program, q: np.ndarray, k: int, sb_rows: int,
     n_seg = len(program._host_tier["segments"])
     carry = [None] * len(blocks)
     started = [None] * len(blocks)
-    intervals: list = []
-    pending: list = []
+    back = _CopyBack(depth, program.metric, return_sqrt, d_out, i_out)
     dispatches = 0
 
     def run(bi: int, qp, lo: int, hi: int, seg) -> None:
@@ -203,45 +223,32 @@ def _stream_tiered(program, q: np.ndarray, k: int, sb_rows: int,
         dispatches += 1
 
     def finish(bi: int) -> None:
-        d, i = carry[bi]
+        back.wait_room()
+        back.put(*blocks[bi], started[bi], *carry[bi])
         carry[bi] = None
-        if return_sqrt:  # the post-map ShardedKNN.search applies
-            d = metric_values(d, program.metric)
-        pending.append((bi, _host_copies((d, i))))
-        while len(pending) > depth:
-            collect()
-
-    def collect() -> None:
-        bi, ((d, i), event) = pending.pop(0)
-        if event is not None:
-            event.synchronize()
-        lo, hi = blocks[bi]
-        intervals.append((started[bi], time.perf_counter()))
-        d_out[lo:hi] = d[: hi - lo].numpy()
-        i_out[lo:hi] = i[: hi - lo].numpy()
 
     def place_q(lo: int, hi: int):
         return program._place_queries(_pad_block(q, lo, hi, sb_rows))[0]
 
-    if order == "db_major":
-        for s, (lo, hi, seg) in enumerate(program._stream_segments()):
+    with program._tier_lock:
+        if order == "db_major":
+            for s, (lo, hi, seg) in enumerate(program._stream_segments()):
+                for bi, (qlo, qhi) in enumerate(blocks):
+                    run(bi, place_q(qlo, qhi), lo, hi, seg)
+                    if s == n_seg - 1:
+                        finish(bi)
+        else:  # query_major
             for bi, (qlo, qhi) in enumerate(blocks):
-                run(bi, place_q(qlo, qhi), lo, hi, seg)
-                if s == n_seg - 1:
-                    finish(bi)
-    else:  # query_major
-        for bi, (qlo, qhi) in enumerate(blocks):
-            qp = place_q(qlo, qhi)
-            for lo, hi, seg in program._stream_segments():
-                run(bi, qp, lo, hi, seg)
-            finish(bi)
-    while pending:
-        collect()
+                qp = place_q(qlo, qhi)
+                for lo, hi, seg in program._stream_segments():
+                    run(bi, qp, lo, hi, seg)
+                finish(bi)
+        overlap = back.drain()
     return {
         "superblocks": len(blocks),
         "db_segments": n_seg,
         "dispatches": dispatches,
-        "overlap_ratio": round(_overlap_ratio(intervals), 4),
+        "overlap_ratio": overlap,
     }
 
 

@@ -77,15 +77,23 @@ def _dot(queries: torch.Tensor, train: torch.Tensor, compute_dtype=None
     return q.float() @ t.float().T
 
 
+def _sq_norms(t32: torch.Tensor) -> torch.Tensor:
+    """Each f32 row's squared norm, as a [1, T] row."""
+    return (t32 * t32).sum(-1)[None, :]
+
+
 def pairwise_sq_l2(queries: torch.Tensor, train: torch.Tensor, *,
-                   compute_dtype=None) -> torch.Tensor:
+                   compute_dtype=None, t_norm: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Squared L2 distance matrix [Q, T] in f32, clamped at 0 to hide the
     small negative values the expanded square can produce; the norms
-    are f32 whatever ``compute_dtype``."""
+    are f32 whatever ``compute_dtype``.  ``t_norm`` is the train rows'
+    [1, T] squared norms where the caller already has them."""
     q32 = queries.float()
     t32 = train.float()
     q_norm = (q32 * q32).sum(-1, keepdim=True)
-    t_norm = (t32 * t32).sum(-1)[None, :]
+    if t_norm is None:
+        t_norm = _sq_norms(t32)
     d = q_norm + t_norm - 2.0 * _dot(q32, t32, compute_dtype)
     return torch.clamp_min(d, 0.0)
 
@@ -128,8 +136,8 @@ def _row_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 def pairwise_cosine(queries: torch.Tensor, train: torch.Tensor, *,
                     compute_dtype=None) -> torch.Tensor:
     """Cosine distance 1 - cos(q, t) in [0, 2]."""
-    return 1.0 - _dot(_row_normalize(queries), _row_normalize(train),
-                      compute_dtype)
+    return pairwise_distance(queries, train, "cosine",
+                             compute_dtype=compute_dtype)
 
 
 def pairwise_dot(queries: torch.Tensor, train: torch.Tensor, *,
@@ -138,21 +146,41 @@ def pairwise_dot(queries: torch.Tensor, train: torch.Tensor, *,
     return -_dot(queries, train, compute_dtype)
 
 
-def pairwise_distance(queries: torch.Tensor, train: torch.Tensor,
-                      metric: str = "l2", *, compute_dtype=None
-                      ) -> torch.Tensor:
-    """Dispatch over the metric names of :data:`METRICS` (l1 ignores
-    ``compute_dtype``, as in the JAX package)."""
+def prepare_train(train: torch.Tensor, metric: str = "l2"):
+    """What :func:`pairwise_distance` computes of the train rows alone:
+    ``(rows, t_norm)`` — the f32 rows and their [1, T] squared norms for
+    the l2 family, the f32-normalized rows for cosine, the rows as they
+    are otherwise (``t_norm`` None).  Made once, it serves any number of
+    query blocks against the same rows with the same values."""
     m = metric.lower()
     if m in L2_FAMILY:
-        return pairwise_sq_l2(queries, train, compute_dtype=compute_dtype)
-    if m in L1_FAMILY:
-        return pairwise_l1(queries, train)
+        t32 = train.float()
+        return t32, _sq_norms(t32)
     if m == "cosine":
-        return pairwise_cosine(queries, train, compute_dtype=compute_dtype)
-    if m == "dot":
-        return pairwise_dot(queries, train, compute_dtype=compute_dtype)
-    raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
+        return _row_normalize(train), None
+    return train, None
+
+
+def pairwise_distance(queries: torch.Tensor, train: torch.Tensor,
+                      metric: str = "l2", *, compute_dtype=None,
+                      prepared=None) -> torch.Tensor:
+    """Dispatch over the metric names of :data:`METRICS` (l1 ignores
+    ``compute_dtype``, as in the JAX package).  ``prepared`` is
+    :func:`prepare_train` of ``train`` where the caller made it once for
+    many query blocks; the values do not change."""
+    m = metric.lower()
+    if m not in METRICS:
+        raise ValueError(
+            f"unknown metric {metric!r}; expected one of {METRICS}")
+    rows, t_norm = prepare_train(train, m) if prepared is None else prepared
+    if m in L2_FAMILY:
+        return pairwise_sq_l2(queries, rows, compute_dtype=compute_dtype,
+                              t_norm=t_norm)
+    if m in L1_FAMILY:
+        return pairwise_l1(queries, rows)
+    if m == "cosine":
+        return 1.0 - _dot(_row_normalize(queries), rows, compute_dtype)
+    return pairwise_dot(queries, rows, compute_dtype=compute_dtype)
 
 
 def metric_values(d, metric: str = "l2"):

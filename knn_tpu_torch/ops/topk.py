@@ -66,11 +66,13 @@ def _mask_padding(d: torch.Tensor, n_valid: Optional[int], fill: float,
 
 def knn_search(queries: torch.Tensor, train: torch.Tensor, k: int,
                metric: str = "l2", *, compute_dtype=None,
-               n_valid: Optional[int] = None):
+               n_valid: Optional[int] = None, prepared=None):
     """Exact KNN with the full [Q, T] distance matrix: [Q, k] dists + idx.
     Rows at index >= ``n_valid`` are padding, forced to +inf before the
-    select."""
-    d = pairwise_distance(queries, train, metric, compute_dtype=compute_dtype)
+    select.  ``prepared``: ops.distance.prepare_train of ``train``, made
+    once for many query blocks."""
+    d = pairwise_distance(queries, train, metric, compute_dtype=compute_dtype,
+                          prepared=prepared)
     return topk_smallest(_mask_padding(d, n_valid, torch.inf), k)
 
 

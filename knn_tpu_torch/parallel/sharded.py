@@ -34,12 +34,18 @@ host, split into budget-sized segments (``hbm.plan_segments``), and
 ``search`` sweeps them through :func:`segment_search_program`, every
 segment padded to one shape with ``PAD_VAL``: each segment is copied into
 one of ``hosttier_depth`` pinned staging buffers, up to the card on a side
-stream behind an event, searched, and its top-k merged into a carry on the
-card in the lexicographic ``(distance, index)`` order (ops.topk.merge_topk).
-At most ``hosttier_depth`` sweeps are in flight: a staging buffer is
-refilled once its copy has finished, a device buffer once the sweep that
-read it has.  The paths that read the whole database (certified search,
-predict, radius search, bucketed serving) refuse such a placement by name.
+stream behind an event into that slot's device buffer, searched, and its
+top-k merged into a carry on the card in the lexicographic ``(distance,
+index)`` order (ops.topk.merge_topk).  At most ``hosttier_depth`` sweeps
+are in flight: a staging buffer is refilled once its copy has finished, a
+device buffer once the sweep that read it has.  The budget bounds a
+segment, not the card: the tier keeps its ``hosttier_depth`` device
+buffers from its first search on, and a sweep's search adds a workspace
+sized to at most one budget (its query blocks, the segment's norms), so a
+search holds about ``hosttier_depth + 1`` budgets on the card (cosine one
+more: its normalized segment), besides the queries and the top-k carry.
+The paths that read the whole database (certified search, predict, radius
+search, bucketed serving) refuse such a placement by name.
 
 Batches run on the card while the host repairs earlier ones: each batch's
 certify output is copied into pinned host memory behind a CUDA event of
@@ -94,7 +100,7 @@ from knn_tpu_torch.ops.coarse_knn import (
     prepare_db_pq,
     prepare_db_quant,
 )
-from knn_tpu_torch.ops.distance import dtype_name
+from knn_tpu_torch.ops.distance import dtype_name, prepare_train
 from knn_tpu_torch.ops.metrics import canonical_metric
 from knn_tpu_torch.ops.pq import (PQ_DSUB_DEFAULT, PQ_NCODES_DEFAULT,
                                   bound_consts_pq, score_error_bound_pq_t)
@@ -102,7 +108,8 @@ from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats_t,
                                         pack_nibbles_t, quantize_rows,
                                         quantize_rows_int4,
                                         score_error_bound_device)
-from knn_tpu_torch.ops.topk import I32MAX, knn_search_tiled, merge_topk
+from knn_tpu_torch.ops.topk import (I32MAX, knn_search, knn_search_tiled,
+                                   merge_topk)
 from knn_tpu_torch.obs import names as _mn
 from knn_tpu_torch.ops.vote import majority_vote
 from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
@@ -113,10 +120,11 @@ from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
 _EXACT_BLOCK_ELEMS = 1 << 27
 
 #: device bytes a host-tier sweep's search keeps per score of its [rows,
-#: segment rows] block (the f32 scores, their masked copy, the sorted
-#: values and their int64 order): the sweep sizes its query blocks so this
-#: workspace stays within the budget
-_HOSTTIER_SCORE_BYTES = 32
+#: segment rows] block at its peak (the f32 scores, their masked copy, the
+#: sort's values, int64 order and own buffers; 52.3-52.5 on an H100 at 16
+#: and 64 rows against 260,111 x 128, csrc/probes/hosttier_memory.py): the
+#: sweep sizes its query blocks so this workspace stays within one budget
+_HOSTTIER_SCORE_BYTES = 56
 
 
 def _row_blocked(fn, q: torch.Tensor, n_rows: int,
@@ -171,9 +179,10 @@ def segment_search_program(k: int, metric: str = "l2", *,
     to +inf before the select, and any of them still in the top-k (fewer
     than k valid rows) come back as ``+inf`` with the int32-max sentinel
     index.  A new ``n_valid`` (a grown delta tail, another probe set)
-    never changes the segment's shape.  ``block_elems`` bounds one query
-    block's [rows, segment rows] distance block (the host-RAM tier sizes
-    it from its budget)."""
+    never changes the segment's shape.  Untiled, the segment's side of
+    the distance (its norms) is made once a call for every query block;
+    ``block_elems`` bounds one block's [rows, segment rows] scores (the
+    host-RAM tier sizes it from its budget)."""
     dev = resolve_device(device)
 
     def prog(q, seg, n_valid: int):
@@ -182,12 +191,20 @@ def segment_search_program(k: int, metric: str = "l2", *,
         if not 0 <= n_valid <= seg.shape[0]:
             raise ValueError(
                 f"n_valid={n_valid} outside [0, {seg.shape[0]}] segment rows")
-        d, i = _row_blocked(
-            lambda qb: knn_search_tiled(qb, seg, k, metric,
+        if train_tile is None or train_tile >= seg.shape[0]:
+            prepared = prepare_train(seg, metric)
+
+            def block(qb):
+                return knn_search(qb, seg, k, metric,
+                                  compute_dtype=compute_dtype,
+                                  n_valid=n_valid, prepared=prepared)
+        else:
+            def block(qb):
+                return knn_search_tiled(qb, seg, k, metric,
                                         train_tile=train_tile,
                                         compute_dtype=compute_dtype,
-                                        n_valid=n_valid),
-            q, seg.shape[0], block_elems)
+                                        n_valid=n_valid)
+        d, i = _row_blocked(block, q, seg.shape[0], block_elems)
         pad = i >= n_valid
         return (torch.where(pad, torch.inf, d),
                 torch.where(pad, torch.full_like(i, I32MAX), i))
@@ -269,7 +286,10 @@ class ShardedKNN:
     placement would exceed it in the host-RAM tier (module docstring;
     ``hbm.placement_bytes`` of the prepared rows), with ``hosttier_depth``
     sweeps in flight; a :class:`Placement` or a tensor over the budget is
-    refused, one within it placed as without a budget."""
+    refused, one within it placed as without a budget.  The budget sizes
+    the tier's segments: a search holds about ``hosttier_depth + 1``
+    budgets on the card (module docstring).  One tier search runs at a
+    time; concurrent callers wait for each other."""
 
     def __init__(self, train, *, k: int, metric: str = "l2",
                  train_tile: Optional[int] = None, compute_dtype=None,
@@ -288,11 +308,15 @@ class ShardedKNN:
                 f"hosttier_depth must be >= 1, got {hosttier_depth}")
         #: the host-RAM tier's plan (None: the database is placed)
         self._host_tier: Optional[dict] = None
-        #: its prepared host rows, staging buffers and copy stream
+        #: its prepared host rows; on the card its slots (a pinned staging
+        #: buffer, a device segment buffer and their last events each) and
+        #: copy stream, made at the first search
         self._host_rows = None
-        self._staging = None
+        self._slots = None
         self._copy_stream = None
         self._last_hosttier: Optional[dict] = None
+        #: one tier search or tiered join at a time: they share the slots
+        self._tier_lock = threading.Lock()
         if budget is not None and isinstance(train, (Placement,
                                                      torch.Tensor)):
             n, width = ((train.n_train, train.db.shape[1])
@@ -414,16 +438,27 @@ class ShardedKNN:
             out["last_search"] = dict(self._last_hosttier)
         return out
 
-    def _hosttier_buffers(self, seg_rows: int, width: int, depth: int):
-        """The pinned staging buffers and the copy stream, made at the
-        first sweep on the card and kept."""
-        if self._staging is None:
-            self._staging = [torch.empty((seg_rows, width),
-                                         dtype=torch.float32,
-                                         pin_memory=True)
-                             for _ in range(depth)]
+    def _hosttier_slots(self):
+        """The tier's ``depth`` slots and copy stream, made at the first
+        search on the card and kept: each slot a pinned staging buffer, a
+        device segment buffer and the events of its last copy (``copied``)
+        and of the last work that read it (``done``).  The device buffers
+        may reuse blocks that work still queued on the current stream
+        reads, so the copy stream waits for that work once, here."""
+        if self._slots is None:
+            shape = (self._host_tier["segment_rows"],
+                     self._host_rows.rows.shape[1])
             self._copy_stream = torch.cuda.Stream(self.device)
-        return self._staging, self._copy_stream
+            self._slots = [
+                {"host": torch.empty(shape, dtype=torch.float32,
+                                     pin_memory=True),
+                 "dev": torch.empty(shape, dtype=torch.float32,
+                                    device=self.device),
+                 "copied": None, "done": None}
+                for _ in range(self._host_tier["depth"])]
+            self._copy_stream.wait_stream(
+                torch.cuda.current_stream(self.device))
+        return self._slots, self._copy_stream
 
     def _hosttier_program(self, k: int):
         """The tier's segment program: its query blocks keep one sweep's
@@ -438,59 +473,54 @@ class ShardedKNN:
     def _stream_segments(self, marks: Optional[list] = None):
         """Yields ``(lo, hi, seg)`` for every host-tier segment, ``seg`` its
         rows padded to the segment width with ``PAD_VAL`` (on the card a
-        device tensor, on the CPU a host array).  The caller enqueues the
-        work that reads ``seg`` on the current stream before it asks for
-        the next segment.  On the card each segment is copied into a pinned
-        staging buffer, then up on the copy stream behind an event the
-        current stream waits for; a staging buffer is refilled once its
-        copy has finished, a device buffer once the work that read it has,
-        so at most ``depth`` segments are in flight; every copy has
-        finished when the generator ends.  ``marks`` gains each segment's
-        CUDA events (``start``, ``copied``, ``done``) on the card, its host
+        device tensor, on the CPU a host array).  The caller holds
+        ``_tier_lock`` and enqueues the work that reads ``seg`` on the
+        current stream before it asks for the next segment.  On the card
+        segment s goes through slot s % depth: its rows are written into
+        the slot's staging buffer once the slot's last copy has finished,
+        and copied up on the copy stream once the last work that read the
+        slot's device buffer (in this call or an earlier one) has, behind
+        an event the current stream waits for; so at most ``depth``
+        segments are in flight.  ``marks`` gains each segment's CUDA
+        events (``start``, ``copied``, ``done``) on the card, its host
         seconds on the CPU."""
         ht = self._host_tier
         rows = self._host_rows.rows
         seg_rows, depth = ht["segment_rows"], ht["depth"]
-        width = rows.shape[1]
         marks = [] if marks is None else marks
         if self.device.type != "cuda":
             for lo, hi in ht["segments"]:
                 t0 = time.perf_counter()
-                seg = np.full((seg_rows, width), PAD_VAL, np.float32)
+                seg = np.full((seg_rows, rows.shape[1]), PAD_VAL, np.float32)
                 seg[: hi - lo] = rows[lo:hi]
                 yield lo, hi, seg
                 marks.append(time.perf_counter() - t0)
             return
-        staging, copy_stream = self._hosttier_buffers(seg_rows, width, depth)
+        slots, copy_stream = self._hosttier_slots()
         compute = torch.cuda.current_stream(self.device)
-        dev_bufs = [torch.empty((seg_rows, width), dtype=torch.float32,
-                                device=self.device) for _ in range(depth)]
-        for buf in dev_bufs:  # written on the copy stream too
-            buf.record_stream(copy_stream)
-        first = len(marks)
-        try:
-            for s, (lo, hi) in enumerate(ht["segments"]):
-                slot = s % depth
-                if s >= depth:  # the staging buffer's last copy is done
-                    marks[first + s - depth]["copied"].synchronize()
-                host = staging[slot].numpy()
-                host[: hi - lo] = rows[lo:hi]
-                host[hi - lo:] = PAD_VAL
-                ev = {name: torch.cuda.Event(enable_timing=True)
-                      for name in ("start", "copied", "done")}
-                with torch.cuda.stream(copy_stream):
-                    if s >= depth:  # the work that read the buffer is done
-                        copy_stream.wait_event(
-                            marks[first + s - depth]["done"])
-                    ev["start"].record(copy_stream)
-                    dev_bufs[slot].copy_(staging[slot], non_blocking=True)
-                    ev["copied"].record(copy_stream)
-                compute.wait_event(ev["copied"])
-                yield lo, hi, dev_bufs[slot]
+        for s, (lo, hi) in enumerate(ht["segments"]):
+            slot = slots[s % depth]
+            if slot["copied"] is not None:
+                slot["copied"].synchronize()
+            host = slot["host"].numpy()
+            host[: hi - lo] = rows[lo:hi]
+            host[hi - lo:] = PAD_VAL
+            ev = {name: torch.cuda.Event(enable_timing=True)
+                  for name in ("start", "copied", "done")}
+            with torch.cuda.stream(copy_stream):
+                if slot["done"] is not None:
+                    copy_stream.wait_event(slot["done"])
+                ev["start"].record(copy_stream)
+                slot["dev"].copy_(slot["host"], non_blocking=True)
+                ev["copied"].record(copy_stream)
+            slot["copied"] = ev["copied"]
+            compute.wait_event(ev["copied"])
+            try:
+                yield lo, hi, slot["dev"]
+            finally:  # also when the caller stops early
                 ev["done"].record(compute)
-                marks.append(ev)
-        finally:
-            copy_stream.synchronize()  # the staging buffers are free
+                slot["done"] = ev["done"]
+            marks.append(ev)
 
     def _search_host_tier(self, queries, k: int, return_sqrt: bool):
         """One search over every host-tier segment (sharded.py:882-975):
@@ -506,31 +536,37 @@ class ShardedKNN:
             self._dispatch_shapes[key] = self._dispatch_shapes.get(key, 0) + 1
         best = None
         marks: list = []
-        t_wall0 = time.perf_counter()
-        for lo, hi, seg in self._stream_segments(marks):
-            d, i = prog(q, seg, hi - lo)
-            # segment-local indices made global; the pad rows' sentinel
-            # stays put
-            gi = torch.where(i == I32MAX, i, i + lo)
-            best = (d, gi) if best is None else merge_topk(*best, d, gi, k)
-        last = {"sweeps": len(marks), "k": k, "queries": int(q.shape[0])}
-        if self.device.type == "cuda":
-            marks[-1]["done"].synchronize()
-            walls = [ev["start"].elapsed_time(ev["done"]) / 1e3
-                     for ev in marks]
-            h2d = [ev["start"].elapsed_time(ev["copied"]) / 1e3
-                   for ev in marks]
-            last["h2d_s"] = h2d
-            last["h2d_gbps"] = (ht["bytes_per_sweep"] * len(h2d)
-                                / sum(h2d) / 1e9 if sum(h2d) > 0 else None)
-        else:
-            walls = marks
-        last["wall_s"] = time.perf_counter() - t_wall0
-        last["sweep_walls_s"] = walls
+        with self._tier_lock:
+            t_wall0 = time.perf_counter()
+            for lo, hi, seg in self._stream_segments(marks):
+                d, i = prog(q, seg, hi - lo)
+                # segment-local indices made global; the pad rows'
+                # sentinel stays put
+                gi = torch.where(i == I32MAX, i, i + lo)
+                best = (d, gi) if best is None else \
+                    merge_topk(*best, d, gi, k)
+            last = {"sweeps": len(marks), "k": k,
+                    "queries": int(q.shape[0])}
+            if self.device.type == "cuda":
+                marks[-1]["done"].synchronize()
+                walls = [ev["start"].elapsed_time(ev["done"]) / 1e3
+                         for ev in marks]
+                h2d = [ev["start"].elapsed_time(ev["copied"]) / 1e3
+                       for ev in marks]
+                last["h2d_s"] = h2d
+                last["h2d_gbps"] = (ht["bytes_per_sweep"] * len(h2d)
+                                    / sum(h2d) / 1e9 if sum(h2d) > 0
+                                    else None)
+                last["device_buffer_bytes"] = sum(
+                    slot["dev"].nbytes for slot in self._slots)
+            else:
+                walls = marks
+            last["wall_s"] = time.perf_counter() - t_wall0
+            last["sweep_walls_s"] = walls
+            self._last_hosttier = last
         for w in walls:
             obs.counter(_mn.HOSTTIER_SWEEPS).inc()
             obs.histogram(_mn.HOSTTIER_SWEEP_SECONDS).observe(w)
-        self._last_hosttier = last
         d, i = best
         if return_sqrt:
             from knn_tpu_torch.ops.distance import metric_values

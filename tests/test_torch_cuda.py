@@ -1614,6 +1614,11 @@ def test_cuda_health_inventory_names_the_card(cuda_device):
     assert inv["devices"][0]["total_memory_bytes"] > 0
 
 
+#: device bytes a tier search may keep per neighbour of its [Q, k] carry
+#: beside the budget (the carry, a sweep's top-k and their merge's sorts)
+_CARRY_BYTES_PER_NEIGHBOUR = 128
+
+
 def _int_rows(rng, n, dim):
     """Integer-valued rows: every f32 product and sum of the l2 gram form
     is exact in any order, on the card as on the host."""
@@ -1626,8 +1631,8 @@ def test_cuda_host_tier_is_bitwise_the_resident_search(cuda_device, depth):
     """The host-RAM tier on the card: 50,000 x 32 integer rows behind a
     6,000-row budget (9 sweeps through the pinned staging buffers and the
     copy stream), bitwise the resident search and the float64 oracle's
-    indices, at every depth; the call adds less device memory than the
-    corpus holds."""
+    indices, at every depth; the tier holds ``depth`` segment buffers and
+    a call adds at most one budget besides the queries and the carry."""
     from knn_tpu_torch import ShardedKNN
     from knn_tpu_torch.analysis import hbm
 
@@ -1637,14 +1642,22 @@ def test_cuda_host_tier_is_bitwise_the_resident_search(cuda_device, depth):
     tier = ShardedKNN(db, k=10, device=cuda_device, hbm_budget_bytes=budget,
                       hosttier_depth=depth)
     assert tier.hosttier_stats()["sweeps"] == 9
-    tier.search(q[:8])  # one-time set-up (cuBLAS workspace, copy stream)
+    seg_bytes = tier.hosttier_stats()["segment_rows"] * 32 * 4
+    torch.mm(torch.ones(8, 8, device=cuda_device),
+             torch.ones(8, 8, device=cuda_device))  # the cuBLAS workspace
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    tier.search(q[:8])  # makes the slots
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    assert held == depth * seg_bytes == \
+        tier.hosttier_stats()["last_search"]["device_buffer_bytes"]
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     d, i = tier.search(q)
     torch.cuda.synchronize()
-    assert torch.cuda.max_memory_allocated() - base < \
-        hbm.placement_bytes(50_000, 32)
+    added = torch.cuda.max_memory_allocated() - base
+    assert added <= budget + q.nbytes + _CARRY_BYTES_PER_NEIGHBOUR * 300 * 10
     last = tier.hosttier_stats()["last_search"]
     assert last["sweeps"] == 9 and len(last["h2d_s"]) == 9
     assert last["h2d_gbps"] > 0
@@ -1657,19 +1670,44 @@ def test_cuda_host_tier_is_bitwise_the_resident_search(cuda_device, depth):
     np.testing.assert_array_equal(i.cpu().numpy(), order)
 
 
+def _lagging(prog):
+    """``prog`` behind a 10M-cycle spin (~5 ms) of the current stream
+    before each call.  The dispatches are a few blocks of few kernels, so
+    the launch queue holds many of them and the host runs far ahead of the
+    card: a copy that does not wait for the work reading its buffer
+    overwrites a segment before it is read."""
+    def run(*args):
+        torch.cuda._sleep(10_000_000)
+        return prog(*args)
+
+    return run
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sb,order", [(64, "db_major"), (300, "query_major")])
-def test_cuda_tiered_join_is_bitwise_the_looped_tier_search(cuda_device, sb,
-                                                            order):
+@pytest.mark.parametrize("n_b,seg,dim,n_q,sb,order,lag", [
+    (40_000, 9_000, 16, 300, 64, "db_major", False),
+    (40_000, 9_000, 16, 300, 300, "query_major", False),
+    (1_000, 20, 64, 80, 20, "query_major", True)])
+def test_cuda_tiered_join_is_bitwise_the_looped_tier_search(
+        cuda_device, n_b, seg, dim, n_q, sb, order, lag):
+    """The tiered join in both orders, query-major also over four
+    superblocks and 50 segments with the card behind the host, bitwise the
+    looped tier search and (integer rows) the resident search."""
     from knn_tpu_torch import ShardedKNN, knn_join
     from knn_tpu_torch.analysis import hbm
 
     rng = np.random.default_rng(71)
-    db, q = _int_rows(rng, 40_000, 16), _int_rows(rng, 300, 16)
+    db, q = _int_rows(rng, n_b, dim), _int_rows(rng, n_q, dim)
     tier = ShardedKNN(db, k=5, device=cuda_device,
-                      hbm_budget_bytes=hbm.placement_bytes(9_000, 16))
+                      hbm_budget_bytes=hbm.placement_bytes(seg, dim))
+    made = tier._hosttier_program
+    if lag:
+        tier._hosttier_program = lambda k: _lagging(made(k))
     d, i, st = knn_join(tier, q, mode="stream", superblock_rows=sb)
-    assert st["order"] == order and st["db_segments"] == 5
+    assert st["order"] == order
+    assert st["db_segments"] == -(-n_b // seg)
+    assert st["superblocks"] == -(-n_q // sb)
+    tier._hosttier_program = made
     looped = [tier.search(np.pad(q[lo:lo + sb],
                                  ((0, max(0, lo + sb - q.shape[0])), (0, 0))))
               for lo in range(0, q.shape[0], sb)]
@@ -1677,3 +1715,40 @@ def test_cuda_tiered_join_is_bitwise_the_looped_tier_search(cuda_device, sb,
     li = np.concatenate([x[1].cpu().numpy() for x in looped])[:q.shape[0]]
     np.testing.assert_array_equal(d, ld)
     np.testing.assert_array_equal(i, li)
+    rd, ri = ShardedKNN(db, k=5, device=cuda_device).search(q)
+    np.testing.assert_array_equal(i, ri.cpu().numpy())
+    np.testing.assert_array_equal(d, rd.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_concurrent_tier_searches_equal_sequential(cuda_device):
+    """Four threads search one tier at once, the card lagging the host:
+    each result is bitwise its sequential search (the tier's slots are
+    taken one search at a time)."""
+    import threading
+
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.analysis import hbm
+
+    rng = np.random.default_rng(72)
+    db = _int_rows(rng, 2_000, 64)
+    qs = [_int_rows(rng, 8, 64) for _ in range(4)]
+    tier = ShardedKNN(db, k=5, device=cuda_device,
+                      hbm_budget_bytes=hbm.placement_bytes(100, 64))
+    want = [tuple(t.cpu().numpy() for t in tier.search(q)) for q in qs]
+    made = tier._hosttier_program
+    tier._hosttier_program = lambda k: _lagging(made(k))
+    got = [None] * len(qs)
+
+    def run(j):
+        got[j] = tuple(t.cpu().numpy() for t in tier.search(qs[j]))
+
+    threads = [threading.Thread(target=run, args=(j,))
+               for j in range(len(qs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for (wd, wi), (gd, gi) in zip(want, got):
+        np.testing.assert_array_equal(gd, wd)
+        np.testing.assert_array_equal(gi, wi)

@@ -362,3 +362,71 @@ def test_hosttier_stats_keys_equal_jax(mesh):
         assert st[key] == jst[key], key
     for key in ("sweeps", "k", "queries"):
         assert st["last_search"][key] == jst["last_search"][key], key
+
+
+@pytest.mark.parametrize("metric", ["l2", "sql2", "cosine", "dot", "l1"])
+def test_prepared_train_side_keeps_every_value(metric):
+    """The segment program makes the segment's side of the distance once
+    a sweep (ops.distance.prepare_train): the distances and the search
+    are bitwise those made without it, on real-valued rows."""
+    from knn_tpu_torch.ops.distance import pairwise_distance, prepare_train
+    from knn_tpu_torch.ops.topk import knn_search
+
+    rng = np.random.default_rng(21)
+    q = torch.from_numpy(rng.normal(size=(9, DIM)).astype(np.float32))
+    t = torch.from_numpy(rng.normal(size=(50, DIM)).astype(np.float32))
+    prep = prepare_train(t, metric)
+    assert torch.equal(pairwise_distance(q, t, metric, prepared=prep),
+                       pairwise_distance(q, t, metric))
+    for a, b in zip(knn_search(q, t, 5, metric, n_valid=41, prepared=prep),
+                    knn_search(q, t, 5, metric, n_valid=41)):
+        assert torch.equal(a, b)
+
+
+def test_segment_program_prepares_the_segment_once_a_sweep(monkeypatch):
+    """A sweep's query blocks share one prepare_train of the segment:
+    one call a sweep, however many blocks the budget makes."""
+    from knn_tpu_torch.ops import distance
+    from knn_tpu_torch.parallel import sharded
+
+    calls = []
+    real = distance.prepare_train
+    monkeypatch.setattr(sharded, "prepare_train",
+                        lambda *a: calls.append(1) or real(*a))
+    rng = np.random.default_rng(22)
+    db, q = _int_rows(rng, 300), _int_rows(rng, 40)
+    prog = ShardedKNN(db, k=4, device="cpu",
+                      hbm_budget_bytes=_budget_for_rows(64))
+    d, i = _np(prog.search(q))
+    sweeps = prog.hosttier_stats()["sweeps"]
+    assert len(calls) == sweeps == 5
+    od, oi = _oracle(db, q, 4)
+    np.testing.assert_array_equal(i, oi)
+    np.testing.assert_array_equal(d.astype(np.float64), od)
+
+
+def test_concurrent_tier_searches_equal_sequential():
+    """Threads searching one tier at once each get their sequential
+    search's answer (one tier search at a time)."""
+    import threading
+
+    rng = np.random.default_rng(23)
+    db = _int_rows(rng, 300)
+    qs = [_int_rows(rng, 6) for _ in range(4)]
+    prog = ShardedKNN(db, k=4, device="cpu",
+                      hbm_budget_bytes=_budget_for_rows(64))
+    want = [_np(prog.search(q)) for q in qs]
+    got = [None] * len(qs)
+
+    def run(j):
+        got[j] = _np(prog.search(qs[j]))
+
+    threads = [threading.Thread(target=run, args=(j,))
+               for j in range(len(qs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for (wd, wi), (gd, gi) in zip(want, got):
+        np.testing.assert_array_equal(gd, wd)
+        np.testing.assert_array_equal(gi, wi)
