@@ -59,7 +59,9 @@ exits non-zero and prints no result):
              the same host synchronizations and device-to-host copies; the
              roofline share of the call and of the K1 launch, each <= 1;
              32 requests through a ``QueryQueue`` over a 65,536-row
-             engine's graphs, each with its own trace id and span chain;
+             engine's graphs, each with its own trace id and span chain,
+             and each request's waterfall rebuilt (obs.waterfall), its
+             segments tiling its latency within the stated tolerance;
              ``/metrics`` and ``/statusz`` scraped from
              ``start_metrics_server`` on an ephemeral port (the inventory
              names the card);
@@ -246,7 +248,10 @@ exits non-zero and prints no result):
              (every query repaired); an insert, delete and compact cycle
              exact; its serving frontend (``IVFServingEngine``, pallas
              bf16x3) through a ``QueryQueue``, bitwise ``search_certified``
-             with K1 launched per probe group;
+             with K1 launched per probe group, every served answer audited
+             against the float64 oracle (recall 1.0, 0 deficient, none
+             dropped); the drift sketch: the norm PSI of the held-out
+             queries below that of the same queries scaled x4;
 18. hosttier — the host-RAM tier: the ``main`` rows behind a 128 MiB
              budget (``ShardedKNN(hbm_budget_bytes=)``, k=100, 4,096
              queries): 4 sweeps of 260,111-row segments planned, run and
@@ -286,7 +291,17 @@ exits non-zero and prints no result):
              1 s, sizes 1-8, SLO 100 ms); ``streaming_certified_knn`` of
              the 4,096 queries in 1,024-query segments, two segments
              removed and resumed, bitwise the direct ``search_certified``,
-             K1 launched once a segment;
+             K1 launched once a segment; then the audit sampler
+             (obs.audit) on the engine's graphs: the float64 oracle's host
+             rows/s, 32 requests of 1-8 rows at rate 1.0 and that budget
+             (replayed + dropped = sampled, recall 1.0, 0 deficient, every
+             waterfall complete, ``stats()`` with ``slo``,
+             ``slowest_requests`` and ``quality``), the bench trace at the
+             default budget (requests over 5 rows dropped under
+             ``budget``), and a seeded fault on one tenant under 1 s / 4 s
+             SLO windows: one ``audit_recall:<tenant>`` firing transition
+             and one postmortem bundle, read back by ``cli waterfall`` and
+             ``cli audit``;
 22. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, K1 at Dp = 256 on the dot path, the entries of K4,
              K2, K3, K5, K6, K7, the db-major grid K9, the lane entries K8
@@ -1690,6 +1705,28 @@ def main(argv=None) -> int:
             raise AssertionError(
                 f"queue trace ids: {len(set(ids))} distinct, queued spans "
                 f"{len(queued)}, batches {len(batches)}, ready {ready}")
+        # every queued request's waterfall rebuilds from the spans, its
+        # segments tiling its arrival-to-result latency within tolerance
+        from knn_tpu_torch.obs import waterfall
+
+        t_step = time.perf_counter()
+        wfs = waterfall.reconstruct(events)
+        broken = [t for t in ids
+                  if t not in wfs or not wfs[t]["complete"]
+                  or wfs[t]["kind"] != "queued"]
+        if broken:
+            raise AssertionError(f"queue waterfalls: {len(broken)} of 32 "
+                                 f"do not tile: {wfs.get(broken[0])}")
+        agg = waterfall.attribute({t: wfs[t] for t in ids})
+        queue_wf = {
+            "requests": len(ids),
+            "max_gap_over_tolerance": max(
+                max(wfs[t]["unattributed_s"], wfs[t]["overlap_s"])
+                / wfs[t]["tolerance_s"] for t in ids),
+            "p50_dominant": agg["overall"]["p50_band"]["dominant"],
+            "p99_dominant": agg["overall"]["p99_band"]["dominant"],
+            "p99_share": agg["overall"]["p99_band"]["share"],
+            "elapsed_s": time.perf_counter() - t_step}
 
         # the exporters, scraped from an ephemeral port
         server = obs.start_metrics_server(0)
@@ -1741,6 +1778,7 @@ def main(argv=None) -> int:
               "k1_bound_ms": S["bound"]["bound_ms"],
               "metrics_samples": samples, "statusz_devices": inv,
               "queue_requests": len(ids), "queue_batches": len(batches),
+              "queue_waterfalls": queue_wf,
               "phase_s": time.perf_counter() - t_phase})
 
     def phase_stream(S):
@@ -3695,7 +3733,7 @@ def main(argv=None) -> int:
         from knn_tpu_torch import ShardedKNN
 
         snap = idx._snapshot()
-        probes, _ = idx._probe(q[:1].astype(np.float64), snap, idx.nprobe)
+        probes, _, _ = idx._probe(q[:1].astype(np.float64), snap, idx.nprobe)
         block = snap.all_rows[snap.positions_for(tuple(probes[0].tolist()))]
         _, place_s = host_timed(lambda: ShardedKNN(block, k=k))
         # the anchor: nprobe = ncentroids on the uniform main rows is
@@ -3734,25 +3772,66 @@ def main(argv=None) -> int:
         if not all_equal(before[:2], after[:2]):
             raise AssertionError("ivf: the compacted index differs")
         # the serving frontend through a QueryQueue (K1 per probe group),
-        # bitwise the direct search_certified
+        # bitwise the direct search_certified, every served answer audited
+        # (rate 1.0; the budget holds the four requests' rows, so none
+        # drops) and the drift sketch fed by every search
+        from knn_tpu_torch import obs
+        from knn_tpu_torch.obs import audit
+        from knn_tpu_torch.obs.drift import QueryDriftMonitor
         from knn_tpu_torch.serving import QueryQueue
 
+        t_step = time.perf_counter()
+        obs.reset(enabled=True)
         ieng = idx.serving_engine(buckets=(8, 16), selector="pallas",
                                   precision="bf16x3")
+        n_live = idx.stats()["live_rows"]
+        aud = audit.reset_auditor(rate=1.0, budget_rows_s=64.0 * n_live)
         reset_launches()
-        with QueryQueue(ieng, max_wait_ms=1.0) as qq:
-            futs = [qq.submit(q[lo:lo + 16]) for lo in range(0, 64, 16)]
-            served = [f.result() for f in futs]
-            ivf_q = qq.stats()
-        ivf_launches = nonzero_launches(read_launches())
+        try:
+            with QueryQueue(ieng, max_wait_ms=1.0) as qq:
+                futs = [qq.submit(q[lo:lo + 16]) for lo in range(0, 64, 16)]
+                served = [f.result() for f in futs]
+                ivf_q = qq.stats()
+            ivf_launches = nonzero_launches(read_launches())
+            if not aud.drain(timeout=600):
+                raise AssertionError("ivf frontend: the audit did not drain")
+            ivf_audit = aud.summary()
+        finally:
+            audit.reset_auditor()
         if set(ivf_launches) != {"k1"}:
             raise AssertionError(f"ivf frontend: launches {ivf_launches}")
+        if (ivf_audit["replayed_queries"] != 64 or ivf_audit["dropped"]
+                or ivf_audit["deficient_queries"] != 0
+                or ivf_audit["last_recall_at_k"] != 1.0
+                or obs.histogram(obs.names.AUDIT_RECALL, tenant="-")
+                .summary().get("min") != 1.0):
+            raise AssertionError(f"ivf frontend audit: {ivf_audit}")
+        audit_s = time.perf_counter() - t_step
         direct = idx.search_certified(q[:64], selector="pallas",
                                       precision="bf16x3")
         if not all_equal([np.concatenate(x) for x in zip(*served)],
                          direct[:2]):
             raise AssertionError("ivf frontend: served reads differ from "
                                  "the direct search_certified")
+        # drift: the index's sketch since the compaction (held-out rows of
+        # the same blobs) against a monitor of the same baseline fed the
+        # same queries scaled x4 through the same search
+        t_step = time.perf_counter()
+        held = idx.stats()["drift"]
+        b64 = idx._base.astype(np.float64)
+        kept, idx._drift = idx._drift, QueryDriftMonitor(
+            train_norms=np.sqrt(np.einsum("nd,nd->n", b64, b64)),
+            assign_baseline=idx._base_counts)
+        try:
+            idx.search_certified(q[:16] * np.float32(4.0),
+                                 selector="pallas", precision="bf16x3")
+            scaled = idx.stats()["drift"]
+        finally:
+            idx._drift = kept
+        if not held["norm_psi"] < scaled["norm_psi"]:
+            raise AssertionError(f"ivf drift: held-out {held} vs x4 "
+                                 f"{scaled}")
+        drift_s = time.perf_counter() - t_step
         out.update(
             ncentroids=idx.ncentroids, nprobe=idx.nprobe, runs=runs,
             bitwise_all_combinations=True, recall_at_k=recall,
@@ -3773,7 +3852,10 @@ def main(argv=None) -> int:
                               "k1_launches": ivf_launches["k1"],
                               "dispatches": ivf_q["dispatches"],
                               "latency_ms": ivf_q["latency_ms"],
-                              "bitwise_direct": True})
+                              "bitwise_direct": True,
+                              "audit": ivf_audit, "audit_elapsed_s": audit_s},
+            drift={"held_out": held, "scaled_x4": scaled,
+                   "elapsed_s": drift_s})
         emit(out)
 
     def hosttier_program(S):
@@ -4010,6 +4092,227 @@ def main(argv=None) -> int:
             stream_ids_equal_certified_share=agree)
         emit(out)
 
+    def serving_audit(S, eng, reqs):
+        """The audit sampler, the SLO engine, the flight recorder and the
+        waterfalls on the main engine's graphs.  (1) the oracle's host
+        rate: one float64 ``refine_shared_exact`` pass over the placed
+        rows for 4 queries (rows/s, peak traced host bytes); (2) a clean
+        run: 32 requests of 1-8 rows with chosen trace ids at rate 1.0 and
+        a budget of the measured rate (at least the largest request's
+        rows, so a record can replay): replayed + dropped == sampled,
+        replayed > 0, recall 1.0, 0 deficient, every request's waterfall
+        complete, ``stats()`` with ``slo``, ``slowest_requests`` and
+        ``quality``; (3) the bench trace at the default budget: every
+        request over 5 rows dropped under ``budget``; (4) a seeded fault
+        on one tenant under 1 s / 4 s windows (the real clock, waited
+        out): one ``audit_recall:<tenant>`` firing transition, one
+        bundle, read back by ``read_bundle``, ``cli waterfall --bundle``
+        and ``cli audit --bundle``."""
+        import contextlib
+        import io
+        import shutil
+        import tracemalloc
+
+        from knn_tpu_torch import obs
+        from knn_tpu_torch.cli import main as cli_main
+        from knn_tpu_torch.obs import audit, blackbox, waterfall
+        from knn_tpu_torch.obs import names as mn
+        from knn_tpu_torch.ops.refine import refine_shared_exact
+
+        knn, k, n, q_np = S["knn"], S["k"], S["n"], S["q_np"]
+        out = {}
+        scored = []
+
+        def count_scored(rec):  # the fault seam as a counter: identity
+            scored.append((rec.trace_id, int(rec.queries.shape[0])))
+            return rec
+
+        # (1) the oracle's host rate and peak host bytes
+        t_step = time.perf_counter()
+        db_host = knn._host_train()
+        tracemalloc.start()
+        t0 = time.perf_counter()
+        refine_shared_exact(db_host, q_np[:4], np.arange(n), k)
+        rate_s = time.perf_counter() - t0
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        rate = 4 * n / rate_s
+        budget = max(rate, 8.0 * n)
+        emit({"phase": "serving_audit_rate", "oracle_queries": 4,
+              "rows": n, "seconds": rate_s, "rows_per_s": rate,
+              "peak_traced_host_bytes": peak, "budget_rows_s": budget,
+              "nvidia_smi": smi, "elapsed_s": time.perf_counter() - t_step})
+
+        # (2) the clean run
+        t_step = time.perf_counter()
+        obs.reset(enabled=True)
+        obs.reset_event_log()
+        obs.reset_slo_engine()
+        a = audit.reset_auditor(rate=1.0, budget_rows_s=budget)
+        audit.set_fault(count_scored)
+        rng = np.random.default_rng(13)
+        sizes = rng.integers(1, 9, 32)
+        starts = rng.integers(0, q_np.shape[0] - 8, 32)
+        tids = [f"audit-clean-{j:02d}" for j in range(32)]
+        try:
+            for tid, lo, size in zip(tids, starts, sizes):
+                eng.submit(q_np[lo:lo + size], trace_id=tid).result()
+            if not a.drain(timeout=600):
+                raise AssertionError("audit: the clean run did not drain")
+        finally:
+            audit.clear_fault()
+        summ = a.summary()
+        dropped = sum(summ["dropped"].values())
+        rows_of = dict(zip(tids, sizes.tolist()))
+        recall_min = obs.histogram(mn.AUDIT_RECALL, tenant="-").summary()
+        err = obs.histogram(mn.AUDIT_DISTANCE_ERROR, tenant="-").summary()
+        if (summ["sampled_requests"] != 32
+                or len(scored) + dropped != 32 or not scored
+                or summ["replayed_queries"]
+                != sum(rows_of[t] for t, _ in scored)
+                or summ["deficient_queries"] != 0
+                or recall_min.get("min") != 1.0
+                or set(summ["dropped"]) - {"budget"}):
+            raise AssertionError(f"audit clean run: {summ}, "
+                                 f"{len(scored)} scored")
+        events = obs.get_event_log().recent()
+        wfs = waterfall.reconstruct(events)
+        bad = [t for t in tids if t not in wfs or not wfs[t]["complete"]]
+        if bad:
+            raise AssertionError(f"audit clean run: {len(bad)} requests "
+                                 f"do not rebuild within tolerance: "
+                                 f"{[wfs.get(t) for t in bad[:2]]}")
+        st = eng.stats()
+        if not ({"slo", "slowest_requests", "quality"} <= set(st)
+                and st["quality"]["replayed_queries"]
+                == summ["replayed_queries"]):
+            raise AssertionError(f"serving stats sections: {sorted(st)}")
+        agg = waterfall.attribute({t: wfs[t] for t in tids})
+        seg_ms = {name: float(np.mean([
+            next(x["dur_s"] for x in wfs[t]["segments"] if x["name"] == name)
+            for t in tids]) * 1e3) for name in waterfall.DIRECT_SEGMENTS}
+        out["clean"] = {
+            "requests": 32, "rows": int(sizes.sum()), "summary": summ,
+            "replayed_requests": len(scored), "dropped_requests": dropped,
+            "recall_min": recall_min.get("min"),
+            "max_distance_rel_error": err.get("max"),
+            "waterfalls_complete": len(tids),
+            "max_gap_over_tolerance": max(
+                max(wfs[t]["unattributed_s"], wfs[t]["overlap_s"])
+                / wfs[t]["tolerance_s"] for t in tids),
+            "mean_segment_ms": seg_ms,
+            "p99_dominant": (agg["overall"]["p99_band"] or {}).get(
+                "dominant"),
+            "stats_sections": ["quality", "slo", "slowest_requests"],
+            "elapsed_s": time.perf_counter() - t_step}
+
+        # (3) the bench trace at the default budget
+        t_step = time.perf_counter()
+        a = audit.reset_auditor(rate=1.0)
+        scored.clear()
+        audit.set_fault(count_scored)
+        try:
+            for j, req in enumerate(reqs):
+                eng.submit(req, trace_id=f"audit-trace-{j:02d}").result()
+            if not a.drain(timeout=600):
+                raise AssertionError("audit: the trace did not drain")
+        finally:
+            audit.clear_fault()
+        summ = a.summary()
+        over = sum(1 for r in reqs if r.shape[0] * n > a.summary()[
+            "budget_rows_s"])
+        dropped = sum(summ["dropped"].values())
+        if (summ["sampled_requests"] != len(reqs)
+                or len(scored) + dropped != len(reqs)
+                or summ["dropped"].get("budget", 0) < over
+                or set(summ["dropped"]) - {"budget"}
+                or summ["deficient_queries"] != 0):
+            raise AssertionError(f"audit trace: {summ}, over budget {over}")
+        out["trace_default_budget"] = {
+            "requests": len(reqs), "over_budget_requests": over,
+            "summary": summ, "replayed_requests": len(scored),
+            "elapsed_s": time.perf_counter() - t_step}
+
+        # (4) a seeded fault on one tenant: one transition, one bundle
+        t_step = time.perf_counter()
+        pm_dir = tempfile.mkdtemp(prefix="chip_smoke_pm_")
+        tenant = "acme"
+        try:
+            obs.reset(enabled=True)
+            obs.reset_event_log()
+            eng_slo = obs.reset_slo_engine(windows=(("fast", 1.0),
+                                                    ("slow", 4.0)))
+            blackbox.configure(postmortem_dir=pm_dir, keep=8)
+            a = audit.reset_auditor(rate=1.0, budget_rows_s=budget)
+
+            def shift_ids(rec):  # every served id moved to the next row
+                rec.served_ids = (np.asarray(rec.served_ids) + 1) % n
+                return rec
+
+            audit.set_fault(shift_ids)
+            t_base = time.monotonic()
+            eng_slo.evaluate()
+            try:
+                for j in range(3):
+                    eng.submit(q_np[j:j + 1], tenant=tenant,
+                               trace_id=f"audit-fault-{j}").result()
+                if not a.drain(timeout=600):
+                    raise AssertionError("audit: the faulted run did not "
+                                         "drain")
+            finally:
+                audit.clear_fault()
+            # the slow window confirms once 2 s (half of 4 s) have passed
+            time.sleep(max(0.0, 2.5 - (time.monotonic() - t_base)))
+            rep = eng_slo.evaluate()
+            eng_slo.evaluate()  # still breached: no second transition
+            firing = [(e["objective"], e.get("tenant"))
+                      for e in obs.get_event_log().recent()
+                      if e.get("name") == "slo.alert"
+                      and e.get("state") == "firing"]
+            bundles = sorted(os.listdir(pm_dir))
+            if (firing != [(f"audit_recall:{tenant}", tenant)]
+                    or rep["breached"] != [f"audit_recall:{tenant}"]
+                    or len(bundles) != 1):
+                raise AssertionError(f"audit breach: firing {firing}, "
+                                     f"breached {rep['breached']}, "
+                                     f"bundles {bundles}")
+            path = os.path.join(pm_dir, bundles[0])
+            payload = blackbox.read_bundle(path)
+            ev = payload["audit"]
+            if not (ev["failures"] and ev["summary"]["deficient_queries"]
+                    == 3 and payload["objective"]
+                    == f"audit_recall:{tenant}"
+                    and payload["env"]["slo_windows"]
+                    == [["fast", 1.0], ["slow", 4.0]]):
+                raise AssertionError(f"audit bundle: {ev['summary']}")
+            rcs = {}
+            for cmd in ("waterfall", "audit"):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rcs[cmd] = cli_main([cmd, "--bundle", path])
+                rcs[cmd + "_lines"] = len(buf.getvalue().splitlines())
+                if cmd == "waterfall" and "audit-fault-0" not in \
+                        buf.getvalue():
+                    raise AssertionError("cli waterfall --bundle: no "
+                                         "waterfall of the faulted request")
+            if rcs["waterfall"] != 0 or rcs["audit"] != 2:
+                raise AssertionError(f"cli on the bundle: {rcs}")
+            out["breach"] = {
+                "tenant": tenant, "firing": firing,
+                "bundles": len(bundles),
+                "bundle_bytes": os.path.getsize(path),
+                "bundle_events": len(payload["events"]),
+                "deficient_queries": ev["summary"]["deficient_queries"],
+                "cli_exit": rcs,
+                "elapsed_s": time.perf_counter() - t_step}
+        finally:
+            audit.clear_fault()
+            audit.reset_auditor()
+            blackbox.configure()
+            obs.reset_slo_engine()
+            shutil.rmtree(pm_dir, ignore_errors=True)
+        return out
+
     def phase_serving(S):
         """The serving stack at the main shape (1M x 128, k=100): a
         ServingEngine on the main placement with the JAX package's bench
@@ -4213,8 +4516,10 @@ def main(argv=None) -> int:
                 and all_equal((d_s, i_s), (d_dir, i_dir))):
             raise AssertionError("serving stream: the resumed stream "
                                  "differs from the direct search_certified")
+        audit_out = serving_audit(S, eng, reqs)
         lat1, lat2 = rep1["latency_ms"], rep2["latency_ms"]
         out.update(
+            audit=audit_out,
             ladder=list(eng.buckets), warmup_s=warm_s,
             graphs=st["executables"], graph_pool_bytes=pool_bytes,
             reserved_bytes_after_warmup=reserved_delta,

@@ -1,7 +1,7 @@
 """Command line of the port on one GPU — the job path of knn_tpu/cli.py
 (``main``) and its ``tune``, ``join``, ``index --selftest``, ``loadgen``,
-``metrics``, ``doctor`` and ``roofline`` subcommands, as ``python -m
-knn_tpu_torch.cli``::
+``metrics``, ``doctor``, ``audit``, ``waterfall`` and ``roofline``
+subcommands, as ``python -m knn_tpu_torch.cli``::
 
     python -m knn_tpu_torch.cli --train train.csv --test test.csv \\
         --val val.csv --k 50 --mode certified --selector pallas \\
@@ -14,12 +14,15 @@ knn_tpu_torch.cli``::
         --rates 50,100,200
     python -m knn_tpu_torch.cli metrics --snapshot snap.json
     python -m knn_tpu_torch.cli doctor --port 9100
+    python -m knn_tpu_torch.cli audit --bundle postmortem-....json
+    python -m knn_tpu_torch.cli waterfall --log events.jsonl --top 4
     python -m knn_tpu_torch.cli roofline --n 1000000 --dim 128 \\
         --device-kind "NVIDIA H100 80GB HBM3"
 
 The job's ``--metrics-port`` / ``--metrics-snapshot`` / ``--obs-log`` are
-the telemetry exporters (knn_tpu_torch.obs); ``metrics`` and ``doctor``
-read them back and, like ``roofline``, touch no device.
+the telemetry exporters (knn_tpu_torch.obs); ``metrics``, ``doctor``,
+``audit`` and ``waterfall`` read them (and postmortem bundles) back and,
+like ``roofline``, touch no device.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it exits with an error.
@@ -693,6 +696,235 @@ def run_doctor(args: argparse.Namespace) -> int:
     return 0 if report.get("readiness", {}).get("ready") else 2
 
 
+def build_audit_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch audit",
+        description="Render the quality-observability state "
+        "(knn_tpu_torch.obs.audit): the shadow audit sampler's sampled/"
+        "replayed/deficient/dropped tallies and drift sketches from a "
+        "running process's /statusz, an atomic JSON snapshot, or a "
+        "flight-recorder postmortem bundle's embedded audit evidence; no "
+        "device is touched.  Exit 0 clean, 2 deficient or dropped audits "
+        "on record, 1 unreadable source.",
+    )
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--port", type=int, default=None,
+                     help="fetch /statusz from http://HOST:PORT (a "
+                     "process started with --metrics-port)")
+    src.add_argument("--snapshot", default=None, metavar="PATH",
+                     help="read an atomic JSON snapshot file "
+                     "(--metrics-snapshot / obs.write_json_snapshot)")
+    src.add_argument("--bundle", default=None, metavar="PATH",
+                     help="read a flight-recorder postmortem bundle "
+                     "(obs.blackbox.configure(postmortem_dir=...)) and "
+                     "render its embedded audit evidence, failing records "
+                     "included")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="endpoint host for --port (default localhost)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw quality JSON instead of the "
+                   "human-readable rendering")
+    return p
+
+
+def run_audit(args: argparse.Namespace) -> int:
+    """The ``audit`` subcommand (knn_tpu/cli.py:609-720): no device is
+    touched."""
+    import json
+    import urllib.request
+
+    failures: list = []
+    if args.port is not None:
+        url = f"http://{args.host}:{args.port}/statusz"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                report = json.loads(r.read().decode())
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"statusz endpoint {url} unreachable: {e}",
+                  file=sys.stderr)
+            return 1
+        quality = report.get("quality") or {}
+    elif args.snapshot is not None:
+        from knn_tpu_torch.obs import health
+
+        try:
+            with open(args.snapshot) as f:
+                payload = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"cannot read snapshot {args.snapshot}: {e}",
+                  file=sys.stderr)
+            return 1
+        quality = health.report_from_snapshot(payload).get("quality") or {}
+    else:
+        from knn_tpu_torch.obs import blackbox
+
+        try:
+            payload = blackbox.read_bundle(args.bundle)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            print(f"cannot read bundle {args.bundle}: {e}",
+                  file=sys.stderr)
+            return 1
+        audit_sec = payload.get("audit") or {}
+        quality = audit_sec.get("summary") or {}
+        failures = audit_sec.get("failures") or []
+    if args.json:
+        print(json.dumps({"quality": quality, "failures": failures},
+                         indent=1, sort_keys=True, default=str))
+    else:
+        if not quality:
+            print("audit: no quality section on record "
+                  "(sampler never armed, or pre-quality source)")
+        else:
+            print(f"audit: rate={quality.get('rate')} "
+                  f"budget_rows_s={quality.get('budget_rows_s')}")
+            print(f"  sampled={quality.get('sampled_requests')} "
+                  f"replayed={quality.get('replayed_queries')}q "
+                  f"deficient={quality.get('deficient_queries')} "
+                  f"rows_scored={quality.get('rows_scored')} "
+                  f"last_recall@k={quality.get('last_recall_at_k')}")
+            dropped = quality.get("dropped") or {}
+            if dropped:
+                drops = " ".join(f"{r}={c}"
+                                 for r, c in sorted(dropped.items()))
+                print(f"  dropped: {drops}")
+            for i, dr in enumerate(quality.get("drift") or []):
+                print(f"  drift[{i}]: "
+                      f"queries={dr.get('queries_observed')} "
+                      f"norm_psi={dr.get('norm_psi')} "
+                      f"assign_psi={dr.get('centroid_assign_psi')}")
+        if failures:
+            print(f"failing audit record(s) ({len(failures)}):")
+            for f_rec in failures:
+                if "error" in f_rec:
+                    print(f"  {f_rec.get('trace_id')} "
+                          f"tenant={f_rec.get('tenant')} "
+                          f"error={f_rec['error']}")
+                    continue
+                print(f"  {f_rec.get('trace_id')} "
+                      f"tenant={f_rec.get('tenant')} "
+                      f"epoch={f_rec.get('epoch')} "
+                      f"deficient={f_rec.get('deficient_queries')} "
+                      f"max_displacement="
+                      f"{f_rec.get('max_rank_displacement')}")
+                print(f"    recall@k={f_rec.get('recall_at_k')}")
+                print(f"    worst q{f_rec.get('worst_query')}: "
+                      f"served={f_rec.get('worst_served_ids')} "
+                      f"oracle={f_rec.get('worst_oracle_ids')}")
+    deficient = int(quality.get("deficient_queries") or 0)
+    dropped_n = sum((quality.get("dropped") or {}).values())
+    return 2 if (deficient or dropped_n or failures) else 0
+
+
+def build_waterfall_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch waterfall",
+        description="Render per-request latency waterfalls and the "
+        "aggregated critical-path attribution "
+        "(knn_tpu_torch.obs.waterfall) from a flight-recorder postmortem "
+        "bundle, a JSONL event log (--obs-log; the rotated .1 generation "
+        "is merged), or a running process's /waterfallz endpoint; no "
+        "device is touched.  Exit 0 rendered, 1 unreadable source.",
+    )
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--bundle", default=None, metavar="PATH",
+                     help="read a postmortem bundle written by the "
+                     "flight recorder (obs.blackbox)")
+    src.add_argument("--log", default=None, metavar="PATH",
+                     help="read a JSONL event log (--obs-log / "
+                     "obs.reset_event_log(path)); <PATH>.1 is merged when "
+                     "present")
+    src.add_argument("--port", type=int, default=None,
+                     help="fetch /waterfallz from http://HOST:PORT (a "
+                     "process started with --metrics-port)")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="endpoint host for --port (default localhost)")
+    p.add_argument("--trace-id", action="append", default=[],
+                   metavar="ID", help="render only these request ids "
+                   "(repeatable; default: the --top slowest)")
+    p.add_argument("--top", type=int, default=8,
+                   help="how many waterfalls to render, slowest first")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw forensics payload JSON instead "
+                   "of the rendering")
+    return p
+
+
+def run_waterfall(args: argparse.Namespace) -> int:
+    """The ``waterfall`` subcommand (knn_tpu/cli.py:919-1021): no device
+    is touched."""
+    import json
+    import urllib.request
+
+    from knn_tpu_torch.obs import waterfall
+
+    if args.port is not None:
+        url = f"http://{args.host}:{args.port}/waterfallz"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                payload = json.loads(r.read().decode())
+        except (OSError, json.JSONDecodeError) as e:
+            print(f"waterfallz endpoint {url} unreachable: {e}",
+                  file=sys.stderr)
+            return 1
+        wfs = payload.get("waterfalls") or {}
+        agg = payload.get("attribution") or waterfall.attribute(wfs)
+        dvr = payload.get("device_vs_roofline")
+    elif args.bundle is not None:
+        from knn_tpu_torch.obs import blackbox
+
+        try:
+            payload = blackbox.read_bundle(args.bundle)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            print(f"cannot read bundle {args.bundle}: {e}",
+                  file=sys.stderr)
+            return 1
+        # the bundle embeds the raw event ring — reconstruct from it so
+        # offline rendering uses the same code path as live
+        wfs = waterfall.reconstruct(payload.get("events") or [])
+        agg = payload.get("attribution") or waterfall.attribute(wfs)
+        dvr = payload.get("device_vs_roofline")
+        if not args.json:
+            # header stays off the --json stdout: that output must
+            # parse as one JSON document
+            print(f"postmortem bundle: "
+                  f"objective={payload.get('objective')} "
+                  f"state={payload.get('state')} "
+                  f"written_at={payload.get('written_at')} "
+                  f"pid={payload.get('pid')}")
+    else:
+        try:
+            events = waterfall.read_jsonl_events(args.log)
+        except (OSError, ValueError) as e:
+            print(f"cannot read event log {args.log}: {e}",
+                  file=sys.stderr)
+            return 1
+        wfs = waterfall.reconstruct(events)
+        agg = waterfall.attribute(wfs)
+        dvr = waterfall.device_vs_roofline(wfs)
+        payload = {"waterfalls": wfs, "attribution": agg,
+                   "device_vs_roofline": dvr}
+    if args.json:
+        print(json.dumps(payload, indent=1, sort_keys=True, default=str))
+        return 0
+    if args.trace_id:
+        picked = [wfs[t] for t in args.trace_id if t in wfs]
+        missing = [t for t in args.trace_id if t not in wfs]
+        for t in missing:
+            print(f"trace id {t}: no reconstructable request in this "
+                  f"source", file=sys.stderr)
+    else:
+        picked = sorted(wfs.values(),
+                        key=lambda w: -(w.get("total_s") or 0.0))
+        picked = picked[: max(0, args.top)]
+    print(waterfall.render_attribution(agg, dvr))
+    for w in picked:
+        print(waterfall.render_waterfall(w))
+    if not picked:
+        print("no reconstructable requests in this source",
+              file=sys.stderr)
+    return 0
+
+
 def build_roofline_parser() -> argparse.ArgumentParser:
     from knn_tpu_torch.obs.roofline import (BOUND_CLASSES, PEAKS_BY_KIND,
                                             PRECISIONS)
@@ -854,6 +1086,8 @@ SUBCOMMANDS = {"tune": (build_tune_parser, run_tune),
                "loadgen": (build_loadgen_parser, run_loadgen),
                "metrics": (build_metrics_parser, run_metrics),
                "doctor": (build_doctor_parser, run_doctor),
+               "audit": (build_audit_parser, run_audit),
+               "waterfall": (build_waterfall_parser, run_waterfall),
                "roofline": (build_roofline_parser, run_roofline)}
 
 

@@ -37,21 +37,28 @@ the port of knn_tpu/ivf/index.py (``IVFIndex`` and its serving frontend
 The probe, the gathers, the float64 refine and the repair run on the
 host, as in the JAX package (their arithmetic is what the bitwise
 contract rests on).  Where the port differs (ROADMAP queue C): every knob
-is an argument (no ``KNN_TPU_IVF_*`` switch), the drift monitor and
-``index_health`` wait for the second obs slice (divergence 22), the query
-block is not padded up a rung (a
-new query count compiles nothing here), and the background compactor
-records its last exception (``stats()["last_compaction_error"]``, re-raised
-by :meth:`IVFIndex.close`); the serving frontend has no audit sampler and
-takes the search knobs (``selector``, ``precision``, ``kernel``, ...) its
-requests run with, where the JAX package's runs the defaults.
+is an argument (no environment switch), the query block is not padded up a
+rung (a new query count compiles nothing here), and the background
+compactor records its last exception (``stats()["last_compaction_error"]``,
+re-raised by :meth:`IVFIndex.close`); the serving frontend takes the
+search knobs (``selector``, ``precision``) its requests run with, where
+the JAX package's runs the defaults.
 
-Telemetry (knn_tpu_torch.obs, ivf/index.py:218, 485-513, 571-581, 717,
-866 of the JAX package): each certified query's margin to the unprobed
-lists' bound goes to ``CERTIFIED_MARGIN{path="ivf"}``, every search sets
-the ``IVF_*`` gauges by selector, a compaction records an
-``index.compact`` span, a frontend request a ``serving.request`` span,
-and the index registers with obs.health.
+Telemetry (knn_tpu_torch.obs, ivf/index.py:218, 243-256, 465-468,
+485-513, 571-586, 717, 794-795, 862-923 of the JAX package): each
+certified query's margin to the unprobed lists' bound goes to
+``CERTIFIED_MARGIN{path="ivf"}``, every search sets the ``IVF_*`` gauges
+by selector and the ``index_health`` gauges (list imbalance, delta-tail
+fraction, tombstone density), a compaction records an ``index.compact``
+span, a frontend request a ``serving.request`` span, and the index
+registers with obs.health.  While telemetry is on, each placement (the
+first and every compaction's) builds a drift monitor (obs.drift) over its
+rows' norms and its k-means counts; every search observes its queries'
+norms and nearest centroids, and ``stats()["drift"]`` reports the PSIs.
+The frontend's audit sampler pins the snapshot before the search and
+replays a sampled request over that snapshot's live rows on the audit
+worker (a compaction between the pin and the search drops the record as
+``epoch_moved``).
 """
 
 from __future__ import annotations
@@ -242,6 +249,16 @@ class IVFIndex:
         self._base_counts = km.counts.copy()
         self._list_base_pos = tuple(
             perm[starts[l]:starts[l + 1]] for l in range(self.ncentroids))
+        # the train-time drift baseline: built only while telemetry is on
+        # (obs off builds no sketch at all)
+        self._drift = None
+        if obs.enabled():
+            from knn_tpu_torch.obs.drift import QueryDriftMonitor
+
+            b64 = base.astype(np.float64)
+            self._drift = QueryDriftMonitor(
+                train_norms=np.sqrt(np.einsum("nd,nd->n", b64, b64)),
+                assign_baseline=km.counts)
 
     def _assign_host(self, rows: np.ndarray) -> np.ndarray:
         """Nearest-centroid assignment of delta-tail rows, host f64 with
@@ -318,10 +335,11 @@ class IVFIndex:
         return cap
 
     def _probe(self, q64: np.ndarray, snap: _IVFSnapshot, nprobe: int):
-        """(probes [Q, P] sorted list ids, unprobed_lb [Q] f64): the probe
-        pick and each query's lower bound over every unprobed non-empty
-        list, ``min_l (||q - c_l|| - r_l)``, in f64 with the
-        direct-difference form (no cancellation)."""
+        """(probes [Q, P] sorted list ids, unprobed_lb [Q] f64, nearest [Q]
+        int64): the probe pick, each query's lower bound over every
+        unprobed non-empty list, ``min_l (||q - c_l|| - r_l)``, in f64 with
+        the direct-difference form (no cancellation), and the nearest
+        centroid (the drift sketch's assignment stream)."""
         n_q = q64.shape[0]
         c = snap.ncentroids
         cd = np.empty((n_q, c))
@@ -334,7 +352,7 @@ class IVFIndex:
         lb = cd - snap.residuals[None, :]
         np.put_along_axis(lb, order[:, :nprobe], np.inf, axis=-1)
         lb[:, snap.list_sizes == 0] = np.inf
-        return probes, lb.min(axis=-1)
+        return probes, lb.min(axis=-1), order[:, 0]
 
     def _coarse_counted(self, q_grp: np.ndarray, pos: np.ndarray,
                         snap: _IVFSnapshot, kk: int, m: int, steps: dict):
@@ -452,9 +470,13 @@ class IVFIndex:
         steps = dict.fromkeys(("probe", "gather", "device", "refine",
                                "repair"), 0.0)
         t0 = time.perf_counter()
-        probes, unprobed_lb = self._probe(q.astype(np.float64), snap,
-                                          nprobe_r)
+        q64 = q.astype(np.float64)
+        probes, unprobed_lb, nearest = self._probe(q64, snap, nprobe_r)
         steps["probe"] = time.perf_counter() - t0
+        drift = self._drift
+        if drift is not None:
+            drift.observe(norms=np.sqrt(np.einsum("qd,qd->q", q64, q64)),
+                          assignments=nearest)
         d_out = np.full((n_q, k), np.inf)
         pos_out = np.full((n_q, k), snap.n_all, np.int64)
         flagged = np.zeros(n_q, bool)
@@ -568,6 +590,10 @@ class IVFIndex:
                  "bytes_streamed_ratio"),
             ):
                 obs.gauge(name, selector=selector).set(stats[key])
+            from knn_tpu_torch.obs.drift import index_health
+
+            index_health(snap.list_sizes, int(snap.tail_assign.shape[0]),
+                         snap.n_all, snap.n_live)
         with self._lock:
             self._last_search = stats
         return stats
@@ -714,6 +740,8 @@ class IVFIndex:
                    if self._last_compaction else {}),
                 **({"last_search": dict(self._last_search)}
                    if self._last_search else {}),
+                **({"drift": self._drift.status()}
+                   if self._drift is not None else {}),
             }
 
 
@@ -774,12 +802,67 @@ class IVFServingEngine(Frontend):
                trace_id=None, tenant=None) -> _IVFPending:
         q = self._checked(queries, op)
         tid = trace_id if trace_id is not None else f"ivf-{next(self._seq)}"
+        # audit sampling: the snapshot is pinned before the search, so the
+        # replay judges the served answer against the corpus it came from
+        audit_q = q.copy() if obs.audit.sampled(tid) else None
+        snap = self.index._snapshot() if audit_q is not None else None
         t0 = time.perf_counter()
         d, ids, _stats = self.index.search_certified(
             q, k=self.k, **self._search_kwargs)
         obs.record_span("serving.request", tid, time.perf_counter() - t0,
                         op="ivf_search")
+        if audit_q is not None:
+            self._submit_audit(tid, tenant, audit_q, d, ids, snap,
+                               _stats.get("epoch"))
         return _IVFPending(tid, tenant, (d, ids))
+
+    def _submit_audit(self, tid, tenant, q_audit, d, ids, snap,
+                      search_epoch) -> None:
+        """Enqueue one sampled, already-served request for the audit
+        worker's exact replay (obs.audit): its oracle scans every live
+        row of the pinned snapshot in float64, on the worker only.  The
+        request was served already, so a failure here drops the record
+        with an ``audit.submit_error`` event."""
+        try:
+            if search_epoch != snap.epoch:
+                # a compaction swapped between the pin and the search: the
+                # evidence cannot be judged, and is dropped loudly
+                obs.counter(obs.names.AUDIT_DROPPED,
+                            reason="epoch_moved").inc()
+                return
+            k = self.k
+
+            def oracle(queries, served_ids):
+                from knn_tpu_torch.ops.refine import _pairwise_f64
+
+                od, o_pos = refine_shared_exact(
+                    snap.all_rows, queries, snap.live_positions, k)
+                oi = snap.all_ids[np.clip(o_pos, 0, snap.n_all - 1)]
+                order = np.argsort(snap.all_ids, kind="stable")
+                sorted_ids = snap.all_ids[order]
+                sid = np.asarray(served_ids, np.int64)[:, :k]
+                j = np.clip(np.searchsorted(sorted_ids, sid), 0,
+                            sorted_ids.shape[0] - 1)
+                pos = order[j]
+                valid = (sorted_ids[j] == sid) & snap.live_mask[pos]
+                se = _pairwise_f64(
+                    queries, snap.all_rows[np.where(valid, pos, 0)], "l2")
+                return od, oi, np.where(valid, se, np.inf)
+
+            obs.audit.submit(obs.audit.AuditRecord(
+                trace_id=tid,
+                tenant=tenant,
+                k=k,
+                queries=q_audit,
+                served_d=np.asarray(d),
+                served_ids=np.asarray(ids),
+                epoch=int(snap.epoch),
+                cost_rows=int(q_audit.shape[0]) * int(snap.n_live),
+                oracle=oracle,
+            ))
+        except Exception:  # noqa: BLE001 - audit must not fail serving
+            obs.emit_event("audit.submit_error", op="ivf_search",
+                           trace_id=tid)
 
     def stats(self, **kw) -> dict:
         return {"index": self.index.stats()}

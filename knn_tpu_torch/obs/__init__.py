@@ -24,22 +24,43 @@ the tuner, pipeline phases) write through here:
   capture and its host/device breakdown.
 - **Health** (:mod:`~knn_tpu_torch.obs.health`): readiness and the
   self-diagnosis report.
+- **SLO engine** (:mod:`~knn_tpu_torch.obs.slo`): multi-window burn rates
+  over the registry, edge-triggered alerts, per tenant where asked
+  (``reset_slo_engine(objectives=, windows=)``, ``load_objectives(path)``).
+- **Shadow audit sampler** (:mod:`~knn_tpu_torch.obs.audit`): a
+  trace-id-hashed sample of served requests replayed against the float64
+  oracle off the serving path (``audit.reset_auditor(rate=,
+  budget_rows_s=)``).
+- **Drift** (:mod:`~knn_tpu_torch.obs.drift`): query-norm and
+  centroid-assignment PSI against the IVF index's training baseline, and
+  the index-health gauges.
+- **Waterfalls** (:mod:`~knn_tpu_torch.obs.waterfall`): per-request
+  latency rebuilt from the spans, critical-path attribution, the slowest
+  requests (``/waterfallz``, ``cli waterfall``).
+- **Flight recorder** (:mod:`~knn_tpu_torch.obs.blackbox`): one atomic
+  postmortem bundle per SLO breach
+  (``blackbox.configure(postmortem_dir=, keep=)``; ``cli audit`` /
+  ``cli waterfall --bundle``).
 
 No module here imports ``torch`` at import time (health and the profiler
 import it inside the functions that need it) and none imports ``jax`` or
-``knn_tpu``.  The JAX package's ``slo``, ``waterfall``, ``audit``,
-``blackbox``, ``drift``, ``sentinel``, ``calibrate``, ``traceread`` and
-``fleet`` wait for the second obs slice (ROADMAP queue A item 7), and its
-XLA compile hook has no counterpart (a CUDA graph capture counts under
+``knn_tpu``.  The JAX package's ``sentinel``, ``calibrate``, ``traceread``
+and ``fleet`` wait for ROADMAP queue A item 5, and its XLA compile hook
+has no counterpart (a CUDA graph capture counts under
 ``SERVING_COMPILES``).
 """
 
 from knn_tpu_torch.obs import (  # noqa: F401
+    audit,
+    blackbox,
+    drift,
     health,
     ident,
     names,
     profiler,
     roofline,
+    slo,
+    waterfall,
 )
 from knn_tpu_torch.obs.export import (  # noqa: F401
     compact_snapshot,
@@ -61,6 +82,14 @@ from knn_tpu_torch.obs.registry import (  # noqa: F401
     reset,
     snapshot,
 )
+from knn_tpu_torch.obs.slo import (  # noqa: F401
+    Objective,
+    SLOEngine,
+    get_slo_engine,
+    load_objectives,
+    reset_slo_engine,
+    slo_report,
+)
 from knn_tpu_torch.obs.trace import (  # noqa: F401
     EventLog,
     emit_event,
@@ -73,10 +102,12 @@ from knn_tpu_torch.obs.trace import (  # noqa: F401
 
 __all__ = [
     "NOOP", "Counter", "EventLog", "Gauge", "Histogram",
-    "MetricsRegistry", "compact_snapshot", "counter", "emit_event",
-    "enabled", "gauge", "get_event_log", "get_registry", "health",
-    "histogram", "ident", "names", "new_trace_id", "profiler",
-    "prometheus_text", "record_span", "reset", "reset_event_log",
-    "roofline", "snapshot", "span", "start_metrics_server",
+    "MetricsRegistry", "Objective", "SLOEngine", "audit", "blackbox",
+    "compact_snapshot", "counter", "drift", "emit_event", "enabled",
+    "gauge", "get_event_log", "get_registry", "get_slo_engine", "health",
+    "histogram", "ident", "load_objectives", "names", "new_trace_id",
+    "profiler", "prometheus_text", "record_span", "reset",
+    "reset_event_log", "reset_slo_engine", "roofline", "slo",
+    "slo_report", "snapshot", "span", "start_metrics_server", "waterfall",
     "write_json_snapshot",
 ]

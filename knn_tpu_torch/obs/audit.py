@@ -1,0 +1,412 @@
+"""Shadow audit sampler — the port of knn_tpu/obs/audit.py: the
+end-to-end ground-truth check a certificate cannot give.
+
+A certificate only covers the snapshot it saw, and whole classes of wrong
+answers lie outside it (epoch races, merge-order bugs, stale snapshots, a
+CUDA graph's output buffer read after the next replay overwrote it).  This
+module replays a deterministic sample of live requests, chosen by a hash
+of the trace id (``sha1(trace_id)[:13] / 16**13 < rate``, so the same id
+samples alike here, in the JAX package and on every replica), against the
+float64 exact oracle (``ops.refine`` over all live rows) and scores what
+was actually served:
+
+- **recall@k** per tenant: the fraction of served neighbours whose exact
+  distance is within the oracle's k-th (tie-tolerant);
+- **rank displacement**: how far each served neighbour sits from its
+  oracle rank (0 everywhere when the served set is the exact set);
+- **distance error**: the relative error of each served distance against
+  its float64 recompute, the arithmetic-drift signal.
+
+The replay never runs on a serving thread: ``sampled()`` and the record's
+enqueue are the only hot-path costs (one hash, and on the sampled fraction
+one bounded-queue put), and the oracle runs on one daemon worker under a
+hard row budget (``budget_rows_s`` rows a second, a token bucket whose
+capacity is one second of budget).  Over-budget and over-queue records are
+dropped loudly (``knn_tpu_audit_dropped_total{reason}``).
+
+Off by default: a rate of 0 arms nothing, and with telemetry off
+(``obs.reset(enabled=False)``) the layer is dark whatever the rate — no
+worker thread, no query copy, served results bitwise the same.
+
+Deficient queries (recall < 1) feed the grouped ``audit_recall`` SLO
+objective; its edge-triggered breach writes a postmortem bundle
+(:mod:`knn_tpu_torch.obs.blackbox`) whose ``audit`` section embeds the
+failing records kept in the bounded failure ring here
+(:meth:`Auditor.evidence`).
+
+Where the port differs (ROADMAP queue C): the rate and the budget are
+arguments of :func:`reset_auditor` (and :class:`Auditor`) where the JAX
+package reads them from environment variables; the same values are
+refused, with ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import queue
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+
+from knn_tpu_torch.obs import names, registry
+
+#: the quality block's schema version (the JAX package's)
+QUALITY_VERSION = 1
+
+#: default oracle row budget: generous for small shapes,
+#: a real bound against a full-corpus scan storm in production
+DEFAULT_BUDGET_ROWS_S = 5_000_000.0
+#: pending replay records (each holds a query copy) — bounded so a
+#: stalled worker can never grow host memory
+QUEUE_CAP = 64
+#: failing audit records retained for postmortem bundles
+FAILURE_CAP = 16
+
+#: relative + absolute tie tolerance when judging a served distance
+#: against the oracle's k-th (f64 recompute vs f64 oracle)
+_TIE_REL = 1e-9
+_TIE_ABS = 1e-12
+
+
+@dataclasses.dataclass
+class AuditRecord:
+    """One sampled request, pinned to the snapshot/epoch it was served
+    from.  ``oracle(queries, served_ids)`` returns
+    ``(oracle_d, oracle_ids, served_exact_d)`` — the exact top-k and
+    the f64 recompute of what was served — and runs ONLY on the audit
+    worker thread."""
+
+    trace_id: str
+    tenant: Optional[str]
+    k: int
+    queries: np.ndarray
+    served_d: np.ndarray
+    served_ids: np.ndarray
+    epoch: Optional[int]
+    cost_rows: int
+    oracle: Callable[[np.ndarray, np.ndarray],
+                     Tuple[np.ndarray, np.ndarray, np.ndarray]]
+
+
+def _parse_rate(rate) -> float:
+    """The sampling rate as a float in [0, 1]; anything else raises."""
+    try:
+        value = float(rate)
+    except (TypeError, ValueError):
+        raise ValueError(f"audit rate {rate!r} is not a float in [0, 1]")
+    if not (0.0 <= value <= 1.0):
+        raise ValueError(f"audit rate {rate!r} is not a float in [0, 1]")
+    return value
+
+
+def _parse_budget(budget) -> float:
+    """The row budget as a positive float; anything else raises."""
+    try:
+        value = float(budget)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"audit budget_rows_s {budget!r} is not a positive float")
+    if value <= 0:
+        raise ValueError(
+            f"audit budget_rows_s {budget!r} is not a positive float")
+    return value
+
+
+class Auditor:
+    """The audit sampler + off-path replay worker.
+
+    ``rate`` is the sampled fraction of requests (0 = off) and
+    ``budget_rows_s`` the oracle rows scored a second.  One process-wide
+    instance (:func:`get_auditor`), re-armed with :func:`reset_auditor`.
+    All mutable state is guarded by ``self._lock`` except the queue (its
+    own lock) and the counters the worker feeds into the registry."""
+
+    def __init__(self, rate: float = 0.0,
+                 budget_rows_s: float = DEFAULT_BUDGET_ROWS_S) -> None:
+        self._rate = _parse_rate(rate)
+        self._budget = _parse_budget(budget_rows_s)
+        self._lock = threading.Lock()
+        self._idle = threading.Condition(self._lock)
+        self._queue: "queue.Queue[Optional[AuditRecord]]" = \
+            queue.Queue(maxsize=QUEUE_CAP)
+        self._worker: Optional[threading.Thread] = None
+        self._pending = 0
+        # token bucket: budget rows/s, burst-capped at one second
+        self._tokens = self._budget
+        self._refill_at = time.monotonic()
+        # plain tallies beside the registry twins: the stats/doctor
+        # sections read these without a registry scrape
+        self._sampled = 0
+        self._replayed = 0
+        self._deficient = 0
+        self._rows_scored = 0
+        self._dropped: Dict[str, int] = {}
+        self._last_recall: Optional[float] = None
+        self._failures: deque = deque(maxlen=FAILURE_CAP)
+
+    # --- the hot-path side (serving threads) ---------------------------
+    @property
+    def rate(self) -> float:
+        return self._rate
+
+    def enabled(self) -> bool:
+        return self._rate > 0.0 and registry.enabled()
+
+    def sampled(self, trace_id: Optional[str]) -> bool:
+        """Deterministic per-request sampling decision: the same
+        trace id samples identically everywhere.  False whenever the
+        layer is off (rate 0, or telemetry off)."""
+        if trace_id is None or not self.enabled():
+            return False
+        if self._rate >= 1.0:
+            return True
+        digest = hashlib.sha1(trace_id.encode()).hexdigest()[:13]
+        return int(digest, 16) / float(16 ** 13) < self._rate
+
+    def submit(self, rec: AuditRecord) -> bool:
+        """Enqueue a sampled request for replay; cheap (no oracle
+        work).  Returns False when the record was dropped (budget or
+        backlog), counting the drop loudly either way."""
+        if not self.enabled():
+            return False
+        tenant = rec.tenant or "-"
+        registry.counter(names.AUDIT_SAMPLED, tenant=tenant).inc()
+        with self._lock:
+            self._sampled += 1
+            now = time.monotonic()
+            self._tokens = min(
+                self._budget,
+                self._tokens + (now - self._refill_at) * self._budget)
+            self._refill_at = now
+            if rec.cost_rows > self._tokens:
+                self._drop_locked("budget")
+                return False
+            self._tokens -= rec.cost_rows
+            self._ensure_worker_locked()
+            self._pending += 1
+        try:
+            self._queue.put_nowait(rec)
+        except queue.Full:
+            with self._lock:
+                self._pending -= 1
+                self._drop_locked("queue_full")
+                self._idle.notify_all()
+            return False
+        return True
+
+    def _drop_locked(self, reason: str) -> None:
+        self._dropped[reason] = self._dropped.get(reason, 0) + 1
+        registry.counter(names.AUDIT_DROPPED, reason=reason).inc()
+
+    def _ensure_worker_locked(self) -> None:
+        if self._worker is None or not self._worker.is_alive():
+            self._worker = threading.Thread(
+                target=self._run, name="knn-audit", daemon=True)
+            self._worker.start()
+
+    # --- the replay side (the one worker thread) -----------------------
+    def _run(self) -> None:
+        while True:
+            rec = self._queue.get()
+            if rec is None:
+                return
+            try:
+                self._score(rec)
+            except Exception as e:  # noqa: BLE001 - audit must not die
+                with self._lock:
+                    self._drop_locked("error")
+                    self._failures.append({
+                        "trace_id": rec.trace_id,
+                        "tenant": rec.tenant or "-",
+                        "error": f"{type(e).__name__}: {e}",
+                    })
+            finally:
+                with self._lock:
+                    self._pending -= 1
+                    self._idle.notify_all()
+
+    def _score(self, rec: AuditRecord) -> None:
+        fault = _FAULT
+        if fault is not None:
+            rec = fault(rec)
+        k = int(rec.k)
+        oracle_d, oracle_ids, served_exact = rec.oracle(
+            rec.queries, rec.served_ids)
+        oracle_d = np.asarray(oracle_d, np.float64)[:, :k]
+        served_exact = np.asarray(served_exact, np.float64)[:, :k]
+        served_d = np.asarray(rec.served_d, np.float64)[:, :k]
+        # tie-tolerant recall@k: a served neighbor counts when its f64
+        # exact distance is within the oracle's k-th (ties included)
+        thr = oracle_d[:, k - 1:k]
+        good = served_exact <= thr + _TIE_REL * np.abs(thr) + _TIE_ABS
+        recall = good.mean(axis=1)
+        # rank displacement: the served neighbor's exact rank minus the
+        # slot it was served in (0 everywhere for the exact answer)
+        ranks = (served_exact[:, :, None]
+                 > oracle_d[:, None, :]
+                 + _TIE_REL * np.abs(oracle_d[:, None, :])
+                 + _TIE_ABS).sum(axis=2)
+        disp = np.clip(ranks - np.arange(k)[None, :], 0, None)
+        # relative distance error: served (device-precision) distance
+        # vs its own f64 recompute — arithmetic drift, not ranking
+        denom = np.maximum(np.abs(served_exact), _TIE_ABS)
+        finite = np.isfinite(served_d) & np.isfinite(served_exact)
+        err = np.where(finite,
+                       np.abs(served_d - served_exact) / denom, 1.0)
+        deficient = int((recall < 1.0).sum())
+        tenant = rec.tenant or "-"
+        n_q = int(recall.shape[0])
+        registry.counter(names.AUDIT_REPLAYED, tenant=tenant).inc(n_q)
+        registry.counter(names.AUDIT_ROWS_SCORED).inc(rec.cost_rows)
+        registry.histogram(names.AUDIT_RECALL, tenant=tenant
+                           ).observe_many(recall.tolist())
+        registry.histogram(names.AUDIT_RANK_DISPLACEMENT, tenant=tenant
+                           ).observe_many(disp.ravel().tolist())
+        registry.histogram(names.AUDIT_DISTANCE_ERROR, tenant=tenant
+                           ).observe_many(err.ravel().tolist())
+        if deficient:
+            registry.counter(names.AUDIT_DEFICIENT, tenant=tenant
+                             ).inc(deficient)
+        with self._lock:
+            self._replayed += n_q
+            self._rows_scored += int(rec.cost_rows)
+            self._deficient += deficient
+            self._last_recall = float(recall.mean())
+            if deficient:
+                worst = int(np.argmin(recall))
+                self._failures.append({
+                    "trace_id": rec.trace_id,
+                    "tenant": tenant,
+                    "epoch": rec.epoch,
+                    "k": k,
+                    "deficient_queries": deficient,
+                    "recall_at_k": [round(float(r), 6) for r in recall],
+                    "worst_query": worst,
+                    "worst_served_ids":
+                        [int(i) for i in rec.served_ids[worst][:k]],
+                    "worst_oracle_ids":
+                        [int(i) for i in oracle_ids[worst][:k]],
+                    "max_rank_displacement": int(disp.max()),
+                })
+
+    # --- introspection --------------------------------------------------
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Block until every enqueued record is scored (False on
+        ``timeout``)."""
+        deadline = time.monotonic() + timeout
+        with self._idle:
+            while self._pending > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._idle.wait(remaining)
+        return True
+
+    def worker_alive(self) -> bool:
+        with self._lock:
+            return self._worker is not None and self._worker.is_alive()
+
+    def summary(self) -> dict:
+        """The quality stats section (engine stats, /statusz, doctor) —
+        JSON-safe, registry-free reads."""
+        with self._lock:
+            return {
+                "rate": self._rate,
+                "budget_rows_s": self._budget,
+                "sampled_requests": self._sampled,
+                "replayed_queries": self._replayed,
+                "deficient_queries": self._deficient,
+                "dropped": dict(self._dropped),
+                "rows_scored": self._rows_scored,
+                "pending": self._pending,
+                "worker_alive": (self._worker is not None
+                                 and self._worker.is_alive()),
+                "last_recall_at_k": self._last_recall,
+            }
+
+    def evidence(self) -> dict:
+        """What the postmortem bundle embeds: the audit summary plus
+        the bounded ring of failing records (newest last)."""
+        with self._lock:
+            failures = list(self._failures)
+        return {"summary": self.summary(), "failures": failures}
+
+    def close(self, timeout: float = 5.0) -> None:
+        with self._lock:
+            worker = self._worker
+            self._worker = None
+        if worker is not None and worker.is_alive():
+            self._queue.put(None)
+            worker.join(timeout)
+
+
+# --- the process-wide instance + module-level conveniences --------------
+_auditor_lock = threading.Lock()
+_auditor: Optional[Auditor] = None
+
+#: fault seam: a callable AuditRecord -> AuditRecord applied on the
+#: worker thread before scoring — a seeded index-perturbation fault is
+#: injected here, never on the serving path
+_FAULT: Optional[Callable[[AuditRecord], AuditRecord]] = None
+
+
+def get_auditor() -> Auditor:
+    global _auditor
+    with _auditor_lock:
+        if _auditor is None:
+            _auditor = Auditor()
+        return _auditor
+
+
+def reset_auditor(rate: float = 0.0,
+                  budget_rows_s: float = DEFAULT_BUDGET_ROWS_S) -> Auditor:
+    """Tear down the worker and arm a fresh auditor with ``rate`` and
+    ``budget_rows_s`` (``ValueError`` for a rate outside [0, 1] or a
+    budget <= 0, before the old auditor is touched)."""
+    global _auditor
+    new = Auditor(rate, budget_rows_s)
+    with _auditor_lock:
+        old, _auditor = _auditor, new
+    if old is not None:
+        old.close()
+    return new
+
+
+def set_fault(fn: Callable[[AuditRecord], AuditRecord]) -> None:
+    global _FAULT
+    _FAULT = fn
+
+
+def clear_fault() -> None:
+    global _FAULT
+    _FAULT = None
+
+
+def audit_rate() -> float:
+    return get_auditor().rate
+
+
+def enabled() -> bool:
+    return get_auditor().enabled()
+
+
+def sampled(trace_id: Optional[str]) -> bool:
+    return get_auditor().sampled(trace_id)
+
+
+def submit(rec: AuditRecord) -> bool:
+    return get_auditor().submit(rec)
+
+
+def status() -> dict:
+    """The /statusz + doctor quality section: never arms the layer —
+    when no auditor exists and the rate is 0, says so without starting
+    anything."""
+    a = get_auditor()
+    out = a.summary()
+    out["enabled"] = a.enabled()
+    return out

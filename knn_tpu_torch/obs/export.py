@@ -7,9 +7,10 @@ histograms as Prometheus summaries (window quantiles plus lifetime
 ``_sum`` / ``_count``), with their cumulative ``_bucket`` lines and the
 worst exemplar on a comment line.  The JSON snapshot writer is atomic
 (temporary file and rename).  :func:`start_metrics_server` serves
-``/metrics``, ``/metrics.json``, ``/healthz`` and ``/statusz`` from a
-daemon thread; the JAX package's ``/waterfallz`` and ``/fleetz`` wait for
-the second obs slice (ROADMAP queue A item 7) and answer 404 here.
+``/metrics``, ``/metrics.json``, ``/healthz``, ``/statusz`` and
+``/waterfallz`` (the request waterfalls, read by ``cli waterfall
+--port``) from a daemon thread; the JAX package's ``/fleetz`` waits for
+the fleet plane (ROADMAP queue A item 5) and answers 404 here.
 """
 
 from __future__ import annotations
@@ -146,8 +147,10 @@ def write_json_snapshot(path: str, snapshot: Optional[dict] = None) -> dict:
 def start_metrics_server(port: int, host: str = "127.0.0.1"):
     """Serve ``/metrics`` (Prometheus text), ``/metrics.json`` (the
     snapshot), ``/healthz`` (200 once an engine is warmed and the queue
-    workers live, else 503: obs.health.probe) and ``/statusz`` (the full
-    health report) from a daemon thread; returns the server
+    workers live, else 503: obs.health.probe), ``/statusz`` (the full
+    health report) and ``/waterfallz`` (every request waterfall the event
+    ring rebuilds, their attribution and the slowest requests:
+    obs.waterfall.live_report) from a daemon thread; returns the server
     (``.shutdown()`` and ``.server_close()`` stop it,
     ``.server_address[1]`` is the bound port: pass 0 for any free one)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -176,6 +179,12 @@ def start_metrics_server(port: int, host: str = "127.0.0.1"):
                 ctype = "application/json"
             elif path == "/statusz":
                 body = json.dumps(health.report(), indent=1,
+                                  sort_keys=True, default=str).encode()
+                ctype = "application/json"
+            elif path == "/waterfallz":
+                from knn_tpu_torch.obs import waterfall
+
+                body = json.dumps(waterfall.live_report(), indent=1,
                                   sort_keys=True, default=str).encode()
                 ctype = "application/json"
             else:

@@ -12,17 +12,19 @@ queue's batcher and completer threads are alive.
 :func:`report` adds the device inventory (``torch.cuda``: name, count,
 memory, and the power limit where ``nvidia-smi`` gives it — only when
 ``torch`` is already imported, so a status probe never starts a backend),
-per-engine / per-queue / per-index state, the tune cache and the published
-roofline attributions.  ``export.write_json_snapshot`` embeds the same
-report, so ``doctor --snapshot`` renders it offline.
+per-engine / per-queue / per-index state, the tune cache, the published
+roofline attributions, one SLO evaluation (``slo``, ``active_breaches``,
+the last alert events), the slowest recent requests with their waterfalls,
+the flight recorder's bundles (``postmortems``) and ``quality``: the audit
+sampler's state and the drift sketch of every registered IVF index.
+``export.write_json_snapshot`` embeds the same report, so ``doctor
+--snapshot`` renders it offline.
 
-Where the port differs: the sections of the modules that wait for the
-second obs slice — ``slo``, ``quality`` (the audit sampler and drift),
-``slowest_requests``, ``postmortems``, ``calibration`` — take the shape
-the JAX package gives them when those subsystems are off, and
-``multihost`` is absent, as in a single-host JAX process.  The text
-renderer keeps the JAX package's wording, so the two ``doctor`` commands
-print the same lines for the same snapshot.
+Where the port differs: ``calibration`` takes the shape the JAX package
+gives it without a calibration store (none is ported), and ``multihost``
+is absent, as in a single-host JAX process.  The text renderer keeps the
+JAX package's wording, so the two ``doctor`` commands print the same lines
+for the same snapshot.
 """
 
 from __future__ import annotations
@@ -35,7 +37,10 @@ import time
 import weakref
 from typing import List, Optional
 
-from knn_tpu_torch.obs import ident, names, registry, roofline
+from knn_tpu_torch.obs import ident, names, registry, roofline, slo, trace
+
+#: alert events included in the report (newest last)
+REPORT_ALERTS = 20
 
 _lock = threading.Lock()
 _engines: List[weakref.ref] = []
@@ -81,10 +86,14 @@ def _live(refs: List[weakref.ref]) -> list:
         return [o for o in (r() for r in refs) if o is not None]
 
 
+def _live_components():
+    return _live(_engines), _live(_queues)
+
+
 def probe() -> dict:
     """The /healthz payload: ``ready`` is the 200-vs-503 verdict, the
     reasons say why not."""
-    engines, queues = _live(_engines), _live(_queues)
+    engines, queues = _live_components()
     reasons = []
     if not registry.enabled():
         reasons.append("telemetry disabled (obs.reset(enabled=False)): "
@@ -235,27 +244,75 @@ def _index_status() -> list:
     return out
 
 
-#: the second-slice sections, in the shape the JAX package reports with
-#: those subsystems off (its calibrate.status(), audit.status() and
-#: blackbox.status() without a store, a rate or a directory)
+def _slowest_requests() -> list:
+    """The slowest-requests exemplar table with inline waterfalls — never
+    fatal: a status probe must render even when the forensics layer
+    cannot."""
+    try:
+        from knn_tpu_torch.obs import waterfall
+
+        return waterfall.slowest_table()
+    except Exception as e:  # noqa: BLE001 - introspection must not raise
+        return [{"error": f"{type(e).__name__}: {e}"}]
+
+
+def _postmortems() -> dict:
+    try:
+        from knn_tpu_torch.obs import blackbox
+
+        return blackbox.status()
+    except Exception as e:  # noqa: BLE001
+        return {"error": f"{type(e).__name__}: {e}"}
+
+
+def _quality_status() -> dict:
+    """The audit sampler's quality section plus the drift sketch of every
+    registered IVF index — never fatal, and never arms anything: a
+    sampler at rate 0 reports itself off without starting a worker."""
+    try:
+        from knn_tpu_torch.obs import audit
+
+        out = audit.status()
+        drifts = []
+        for idx in _live(_indexes):
+            mon = getattr(idx, "_drift", None)
+            if mon is not None:
+                try:
+                    drifts.append(mon.status())
+                except Exception as e:  # noqa: BLE001
+                    drifts.append({"error": f"{type(e).__name__}: {e}"})
+        if drifts:
+            out["drift"] = drifts
+        return out
+    except Exception as e:  # noqa: BLE001 - introspection must not raise
+        return {"error": f"{type(e).__name__}: {e}"}
+
+
 def _calibration_off() -> dict:
+    """The calibration section in the shape the JAX package gives it with
+    no store (its calibrate.status())."""
     return {"store": None, "exists": False, "entries": 0,
             "model_token": f"cal{roofline.MODEL_VERSION}",
             "worst_residual_pct": None}
 
 
-def _quality_off() -> dict:
-    return {"enabled": False, "rate": 0.0}
-
-
-def _postmortems_off() -> dict:
-    return {"dir": None, "keep": 0, "bundles": []}
-
-
-def report() -> dict:
+def report(slo_section: Optional[dict] = None,
+           slowest: Optional[list] = None) -> dict:
     """The full /statusz payload (see the module docstring); everything
-    in it serializes to JSON."""
+    in it serializes to JSON.
+
+    ``slo_section`` injects an already-computed SLO report instead of
+    evaluating a fresh pass — the flight recorder passes the evaluation
+    that fired it, so building a bundle never observes (and re-fires on)
+    a second transition mid-dump.  ``slowest`` likewise injects a prebuilt
+    slowest-requests table, so the bundle path rebuilds the event ring
+    once."""
     pr = probe()
+    if slo_section is None:
+        slo_section = slo.slo_report()
+    alerts = [e for e in trace.get_event_log().recent()
+              if e.get("name") == "slo.alert"][-REPORT_ALERTS:]
+    engines, queues = _live_components()
     return {
         "generated_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
         "pid": os.getpid(),
@@ -264,18 +321,22 @@ def report() -> dict:
         "liveness": {"live": pr["live"]},
         "readiness": {"ready": pr["ready"], "reasons": pr["reasons"]},
         "devices": _device_inventory(),
-        "engines": [_engine_status(e) for e in _live(_engines)],
-        "queues": [_queue_status(q) for q in _live(_queues)],
+        # each engine contributes raw stats only: the one SLO evaluation
+        # above stands for all of them
+        "engines": [_engine_status(e) for e in engines],
+        "queues": [_queue_status(q) for q in queues],
         "tune_cache": _tune_cache_status(),
         "roofline": roofline.last_reports(),
         "calibration": _calibration_off(),
-        "slo": {},
-        "active_breaches": [],
-        "alerts": [],
-        "slowest_requests": [],
-        "postmortems": _postmortems_off(),
+        "slo": slo_section,
+        "active_breaches": (slo_section.get("breached", [])
+                            if slo_section else []),
+        "alerts": alerts,
+        "slowest_requests": (_slowest_requests() if slowest is None
+                             else slowest),
+        "postmortems": _postmortems(),
         "index": _index_status(),
-        "quality": _quality_off(),
+        "quality": _quality_status(),
     }
 
 
@@ -310,9 +371,8 @@ def report_from_snapshot(payload: dict) -> dict:
 
 def render_text(rep: dict) -> str:
     """Human-readable rendering of a report (``doctor``, live or from a
-    snapshot), line for line the JAX package's: the second slice's
-    sections render their off state, in the JAX package's words (which
-    name its switches), so both print the same lines for one snapshot."""
+    snapshot), line for line the JAX package's, in its words (which name
+    its switches), so both print the same lines for one snapshot."""
     lines = []
     ready = rep.get("readiness", {}).get("ready")
     verdict = {True: "READY", False: "NOT READY", None: "UNKNOWN"}[ready]
@@ -356,17 +416,34 @@ def render_text(rep: dict) -> str:
         pct = r.get("roofline_pct")
         pct_s = f"{pct * 100:.1f}% of " if pct is not None else ""
         est = " [estimated peaks]" if r.get("estimated") else ""
-        cal_s = " [calibrated]" if r.get("calibration_applied") else ""
+        cal_s = (" [calibrated]" if r.get("calibration_applied")
+                 else "")
         lines.append(f"roofline {cfg}: {pct_s}"
                      f"{r.get('ceiling_qps')} q/s ceiling "
                      f"({r.get('bound_class')}){est}{cal_s}")
-    if rep.get("calibration"):
+    cal = rep.get("calibration") or {}
+    if cal.get("store"):
+        worst = cal.get("worst_residual_pct")
+        worst_s = (f", worst term residual {worst}% "
+                   f"({cal.get('worst_residual_key')})"
+                   if worst is not None else "")
+        lines.append(f"calibration: {cal.get('entries')} entr"
+                     f"{'y' if cal.get('entries') == 1 else 'ies'} at "
+                     f"{cal['store']} [{cal.get('model_token')}]"
+                     f"{worst_s}")
+    elif cal.get("error"):
+        # a store that cannot report is not the same as no store: the
+        # operator configured one and deserves the failure
+        lines.append(f"calibration: status unavailable "
+                     f"({cal['error']})")
+    elif cal:
         lines.append("calibration: no store configured "
                      "(KNN_TPU_CALIBRATION unset) — roofline verdicts "
                      "are analytic only")
     for i, ix in enumerate(rep.get("index") or []):
         if "error" in ix:
-            lines.append(f"index[{i}]: status unavailable ({ix['error']})")
+            lines.append(f"index[{i}]: status unavailable "
+                         f"({ix['error']})")
             continue
         lc = ix.get("last_compaction") or {}
         lines.append(
@@ -378,8 +455,96 @@ def render_text(rep: dict) -> str:
             f"compactions={ix.get('compactions')}"
             + (f" (last swap {lc.get('swap_s')}s)" if lc else "")
             + (" compactor=up" if ix.get("compactor_alive") else ""))
-    if rep.get("quality"):
+    qual = rep.get("quality") or {}
+    if qual.get("enabled"):
+        dropped = qual.get("dropped") or {}
+        drop_s = (f" dropped={dropped}" if dropped else "")
+        lines.append(
+            f"quality: audit rate={qual.get('rate')} "
+            f"sampled={qual.get('sampled_requests')} "
+            f"replayed={qual.get('replayed_queries')}q "
+            f"deficient={qual.get('deficient_queries')} "
+            f"last_recall@k={qual.get('last_recall_at_k')}{drop_s}")
+    elif qual and "error" not in qual:
         lines.append("quality: audit sampler off "
                      "(KNN_TPU_AUDIT_RATE unset)")
-    lines.append("slo breaches: none")
+    for i, dr in enumerate(qual.get("drift") or []):
+        lines.append(
+            f"drift[{i}]: queries={dr.get('queries_observed')} "
+            f"norm_psi={dr.get('norm_psi')} "
+            f"assign_psi={dr.get('centroid_assign_psi')}")
+    mh = rep.get("multihost")
+    if mh:
+        walls = mh.get("host_walls_s") or []
+        sh = mh.get("straggler_host")
+        # the named slow host: per-host walls (not just max-min) are in
+        # the report, so the argmax renders here and the fleet view can
+        # attribute the gap to a member
+        sh_s = f" straggler=host{sh}" if sh is not None else ""
+        lines.append(
+            f"multihost: {mh.get('hosts')} host(s) "
+            f"[{mh.get('transport')}] dcn_merge={mh.get('dcn_merge')} "
+            f"bytes={mh.get('dcn_merge_bytes')} "
+            f"straggler_gap={mh.get('straggler_gap_s')}s{sh_s} "
+            f"(walls {', '.join(str(w) for w in walls)})")
+    breaches = rep.get("active_breaches", [])
+    lines.append(f"slo breaches: {', '.join(breaches) if breaches else 'none'}")
+    def _slo_line(name, o, indent="  "):
+        state = "BREACHED" if o.get("breached") else "ok"
+        if o.get("kind") == "quantile":
+            return (f"{indent}slo {name}: {state} {o.get('quantile')}="
+                    f"{o.get('value_s')}s (threshold "
+                    f"{o.get('threshold_s')}s, window "
+                    f"{o.get('window_samples')} samples / "
+                    f"{o.get('window_span_s')}s)")
+        burns = {w: d.get("burn_rate")
+                 for w, d in (o.get("windows") or {}).items()}
+        return (f"{indent}slo {name}: {state} burn={burns} "
+                f"(target {o.get('target')})")
+
+    for o_name, o in (rep.get("slo", {}).get("objectives", {}) or {}).items():
+        if o.get("group_by") is not None:
+            # grouped objective: one line per label value (the
+            # per-tenant drill-down), a summary line when idle
+            groups = o.get("groups") or {}
+            if not groups:
+                lines.append(f"  slo {o_name}: no {o.get('group_by')} "
+                             f"traffic")
+                continue
+            breached = o.get("breached") or []
+            lines.append(f"  slo {o_name} (per {o.get('group_by')}): "
+                         f"{len(breached)}/{len(groups)} breached")
+            for gval, gentry in sorted(groups.items()):
+                lines.append(_slo_line(f"{o_name}:{gval}", gentry,
+                                       indent="    "))
+            continue
+        lines.append(_slo_line(o_name, o))
+    alerts = rep.get("alerts", [])
+    if alerts:
+        lines.append(f"last {len(alerts)} alert event(s):")
+        for a in alerts:
+            lines.append(f"  [{a.get('ts')}] {a.get('objective')} "
+                         f"{a.get('state')}")
+    slowest = [r for r in rep.get("slowest_requests") or []
+               if "trace_id" in r]
+    if slowest:
+        lines.append(f"slowest recent request(s) ({len(slowest)}):")
+        from knn_tpu_torch.obs import waterfall as _wf
+
+        for r in slowest:
+            tag = f"  {r.get('latency_ms')} ms  {r.get('trace_id')}"
+            if r.get("tenant") is not None:
+                tag += f"  tenant={r['tenant']}"
+            lines.append(tag)
+            if r.get("waterfall"):
+                for ln in _wf.render_waterfall(r["waterfall"]).splitlines():
+                    lines.append("    " + ln)
+    pm = rep.get("postmortems") or {}
+    if pm.get("dir"):
+        lines.append(f"postmortems: {pm['dir']} "
+                     f"({len(pm.get('bundles') or [])} bundle(s), "
+                     f"keep {pm.get('keep')})")
+        for b in pm.get("bundles") or []:
+            lines.append(f"  {b.get('file')} ({b.get('bytes')} B, "
+                         f"{b.get('modified_at')})")
     return "\n".join(lines) + "\n"

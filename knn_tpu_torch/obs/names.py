@@ -13,14 +13,15 @@ triples into a short token; it equals the JAX package's, since the two
 catalogs hold the same triples (help strings do not move it).
 
 Names this package never writes (they stay in the catalog so the two
-catalogs stay one): ``JAX_COMPILES`` / ``JAX_COMPILE_SECONDS`` (there is
-no XLA here; a CUDA graph capture counts under ``SERVING_COMPILES``);
-the ``MERGE_*`` and ``FLEET_*`` names (multi-GPU, ROADMAP queue A); and
-the names
-of the modules that wait for the second obs slice: ``SLO_*``,
-``POSTMORTEMS_WRITTEN``, ``CALIBRATION_*``, ``CAMPAIGN_*``, ``AUDIT_*``,
-``DRIFT_*`` and the drift module's ``INDEX_LIST_IMBALANCE`` /
-``INDEX_TAIL_FRACTION`` / ``INDEX_TOMBSTONE_DENSITY``.
+catalogs stay one, and :data:`UNWRITTEN` lists them): ``JAX_COMPILES`` /
+``JAX_COMPILE_SECONDS`` (there is no XLA here; a CUDA graph capture counts
+under ``SERVING_COMPILES``); the ``MERGE_*`` and ``FLEET_*`` names
+(multi-GPU and the fleet plane, ROADMAP queue A); and ``CALIBRATION_*`` /
+``CAMPAIGN_*`` (the calibration store and campaigns, queue A item 5).
+The SLO engine, the flight recorder, the audit sampler and the drift
+monitor write ``SLO_*``, ``POSTMORTEMS_WRITTEN``, ``AUDIT_*``, ``DRIFT_*``
+and ``INDEX_LIST_IMBALANCE`` / ``INDEX_TAIL_FRACTION`` /
+``INDEX_TOMBSTONE_DENSITY``.
 """
 
 from __future__ import annotations
@@ -182,21 +183,14 @@ FLEET_STRAGGLER_HOST = "knn_tpu_fleet_straggler_host"
 
 #: the catalog names this package never writes (see the module docstring):
 #: the JAX package's XLA compile events, the multi-GPU merge and fleet
-#: names, and the second obs slice's modules' names
+#: names, and the calibration store's and campaigns' names
 UNWRITTEN = frozenset({
     JAX_COMPILES, JAX_COMPILE_SECONDS,
     MERGE_SELECTED, MERGE_BYTES, MERGE_STRAGGLER_GAP,
     FLEET_MEMBERS, FLEET_UNREACHABLE, FLEET_MERGE_STALENESS,
     FLEET_STRAGGLER_HOST,
-    SLO_BURN_RATE, SLO_BREACHED, SLO_BREACH_TRANSITIONS, SLO_EVALUATIONS,
-    POSTMORTEMS_WRITTEN,
     CALIBRATION_APPLIED, CALIBRATION_AGE, CALIBRATION_RESIDUAL,
     CAMPAIGN_ARMS, CAMPAIGN_STAGES,
-    AUDIT_SAMPLED, AUDIT_REPLAYED, AUDIT_DEFICIENT, AUDIT_DROPPED,
-    AUDIT_ROWS_SCORED, AUDIT_RECALL, AUDIT_RANK_DISPLACEMENT,
-    AUDIT_DISTANCE_ERROR,
-    DRIFT_NORM_PSI, DRIFT_ASSIGN_PSI, DRIFT_QUERIES,
-    INDEX_LIST_IMBALANCE, INDEX_TAIL_FRACTION, INDEX_TOMBSTONE_DENSITY,
 })
 
 #: name -> (type, label names, help).  Types: "counter" (monotone,

@@ -1,0 +1,621 @@
+"""Per-request latency waterfalls rebuilt from the span stream — the port
+of knn_tpu/obs/waterfall.py, the layer that turns the flat trace events
+(knn_tpu_torch.obs.trace) back into "where did this request's time go".
+
+The serving layer emits per-request trace ids, the queue / admission /
+dispatch / compile / join / deliver spans, and the ``queue.dispatch``
+events that link coalesced members to their batch-level engine request;
+this module is the reconstruction:
+
+- :func:`reconstruct` — events (the in-memory ring, a JSONL log, or a live
+  endpoint's dump) -> one **waterfall** per request: ordered segments
+  ``admission -> queue_wait -> dispatch -> compile -> device -> join ->
+  deliver`` whose durations must tile the request's measured
+  arrival-to-result latency within a stated tolerance.  A remainder is an
+  explicit ``unattributed`` segment, never absorbed into a neighbour, and
+  segments summing past the total are reported as ``overlap_s``.
+- :func:`attribute` — which segment dominates at the p50 band and at the
+  p99 tail, overall and per tenant / per bucket.
+- :func:`device_vs_roofline` — the tail's device segment against the
+  roofline ceiling: a fat device segment whose implied q/s sits far under
+  the ceiling reads ``queued_behind_device``, not device-bound.  The
+  default ceiling is the best one published in this process by the port's
+  H100 roofline (:mod:`knn_tpu_torch.obs.roofline`).
+- :func:`slowest_table` — the worst recent requests by histogram exemplar,
+  each with its inline waterfall: the ``stats()`` / ``/statusz`` / doctor
+  table.
+- :func:`stitch_multihost` — cross-host waterfalls from
+  ``multihost.merge`` spans (no port process writes them yet; the
+  function is pure and reads the JAX package's events).
+- :func:`read_jsonl_events` — the JSONL reader that merges the rotated
+  ``<path>.1`` generation before the live file.
+
+Everything here reads copies (ring snapshots, registry snapshots) and
+imports neither ``torch`` nor a device runtime: a postmortem bundle or a
+JSONL log rebuilds on a box with no card.
+
+Segment semantics (durations, never mixed-clock arithmetic):
+
+- ``admission``  — submit entry to queue append; carved out of queue_wait.
+- ``queue_wait`` — arrival to batch dispatch, minus the admission slice.
+- ``dispatch``   — the batch's pad / copy / launch span, minus any capture
+  carved out below.
+- ``compile``    — the CUDA graph capture(s) the batch paid (zero once
+  warmed).
+- ``device``     — the batch request span minus its dispatch and join
+  spans: the window between dispatch return and the result's join.
+- ``join``       — time blocked in ``result()``.
+- ``deliver``    — batch completion to this member's future resolution.
+
+Where the port differs (ROADMAP queue C): a dispatch only enqueues work
+on the card (the graph replay and the copies out are asynchronous), and
+``result()`` waits on the request's CUDA event, so the device's time
+lands in ``join``; ``device`` holds only the host's gap between the
+dispatch's return and the ``result()`` call.  No ``device`` segment is
+made up from a device clock.  Direct (queue-less) engine requests rebuild
+from their own spans (dispatch / compile / device / join).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict, List, Optional, Sequence
+
+from knn_tpu_torch.obs import names, registry, trace
+
+#: absolute + relative completeness tolerance: segments must cover the
+#: measured total to within max gap/overlap of
+#: ``TOLERANCE_ABS_S + TOLERANCE_REL * total`` — stated, not implied
+#: (span stamps bracket small unattributed strips: per-member span
+#: recording in the batcher, the completer's batch stamp; on a loaded
+#: CPU harness those are real milliseconds, never silently absorbed)
+TOLERANCE_ABS_S = 0.010
+TOLERANCE_REL = 0.10
+
+#: canonical segment order (docstring above); ``unattributed`` rides
+#: last when the known segments leave a gap
+SEGMENTS = ("admission", "queue_wait", "dispatch", "compile", "device",
+            "join", "deliver")
+
+#: segments a direct (queue-less) engine request can carry
+DIRECT_SEGMENTS = ("dispatch", "compile", "device", "join")
+
+#: histograms whose exemplars feed the slowest-requests table
+_EXEMPLAR_HISTS = (names.SERVING_REQUEST_LATENCY,
+                   names.QUEUE_REQUEST_LATENCY,
+                   names.TENANT_REQUEST_LATENCY)
+
+#: implied-device-throughput floor (fraction of the roofline ceiling)
+#: below which a dominant "device" segment is reclassified as pipeline
+#: wait — compute that slow isn't compute
+DEVICE_PCT_MIN = 0.25
+
+
+def tolerance_s(total_s: float, *, abs_s: float = TOLERANCE_ABS_S,
+                rel: float = TOLERANCE_REL) -> float:
+    """The stated tiling tolerance for a request of ``total_s``."""
+    return abs_s + rel * max(0.0, float(total_s))
+
+
+# -- event sources ---------------------------------------------------------
+def read_jsonl_events(path: str) -> List[dict]:
+    """Events from a JSONL log, MERGING the rotated ``<path>.1``
+    generation (older) before the live file — the EventLog rotation
+    contract holds at most two generations, both valid JSONL, so a
+    request whose spans straddle the rotation boundary reconstructs
+    from the merge.  Malformed lines are loud errors (a silently
+    skipped span would read as an unattributed gap)."""
+    events: List[dict] = []
+    found = False
+    for p in (path + ".1", path):
+        if not os.path.exists(p):
+            continue
+        found = True
+        with open(p) as f:
+            for ln, line in enumerate(f, 1):
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    events.append(json.loads(line))
+                except json.JSONDecodeError as e:
+                    raise ValueError(f"{p}:{ln}: not JSON: {e}") from e
+    if not found:
+        raise FileNotFoundError(f"no event log at {path} (or {path}.1)")
+    return events
+
+
+def _index(events: Sequence[dict]):
+    """(spans by trace id by span name, batch id -> member ids)."""
+    spans: Dict[str, Dict[str, List[dict]]] = {}
+    members: Dict[str, List[str]] = {}
+    for e in events:
+        if e.get("type") == "span" and e.get("trace_id"):
+            spans.setdefault(e["trace_id"], {}).setdefault(
+                e.get("span"), []).append(e)
+        elif e.get("name") == "queue.dispatch" and e.get("batch_trace_id"):
+            members.setdefault(e["batch_trace_id"], []).extend(
+                e.get("member_trace_ids") or ())
+    return spans, members
+
+
+def _dur(spanmap: Dict[str, List[dict]], name: str) -> float:
+    return float(sum(e.get("dur_s") or 0.0 for e in spanmap.get(name, ())))
+
+
+def _attr(spanmap: Dict[str, List[dict]], key: str, *span_names):
+    for name in span_names:
+        for e in reversed(spanmap.get(name, ())):
+            if e.get(key) is not None:
+                return e[key]
+    return None
+
+
+def _build(trace_id: str, kind: str, total_s: float, raw: Dict[str, float],
+           *, end_ts=None, tenant=None, rows=None, bucket=None, op=None,
+           batch_trace_id=None) -> dict:
+    """Assemble one waterfall: ordered nonnegative segments, the
+    explicit unattributed remainder, and the completeness verdict."""
+    order = SEGMENTS if kind == "queued" else DIRECT_SEGMENTS
+    segments = [{"name": n, "dur_s": round(max(0.0, raw.get(n, 0.0)), 6)}
+                for n in order]
+    known = sum(s["dur_s"] for s in segments)
+    gap = total_s - known
+    tol = tolerance_s(total_s)
+    unattributed = round(max(0.0, gap), 6)
+    overlap = round(max(0.0, -gap), 6)
+    if unattributed > 0.0:
+        segments.append({"name": "unattributed", "dur_s": unattributed})
+    return {
+        "trace_id": trace_id,
+        "kind": kind,
+        "op": op,
+        "tenant": tenant,
+        "rows": rows,
+        "bucket": bucket,
+        "batch_trace_id": batch_trace_id,
+        "total_s": round(total_s, 6),
+        "segments": segments,
+        "unattributed_s": unattributed,
+        "overlap_s": overlap,
+        "tolerance_s": round(tol, 6),
+        "complete": bool(unattributed <= tol and overlap <= tol),
+        "end_ts": end_ts,
+    }
+
+
+def reconstruct(events: Sequence[dict]) -> Dict[str, dict]:
+    """One waterfall per REQUEST found in ``events`` (trace id ->
+    waterfall).  Queued members reconstruct through their batch's
+    engine-level spans (linked by ``batch_trace_id``); direct engine
+    requests from their own; batch-internal engine requests are the
+    plumbing, not roots, and are skipped.  Missing spans (rotated away,
+    never emitted) surface as ``unattributed`` gap — ``complete`` goes
+    false past the stated tolerance instead of fabricating segments."""
+    spans, dispatch_members = _index(events)
+    batch_ids = set(dispatch_members)
+    for tid, sm in spans.items():
+        for e in sm.get("serving.queued_request", ()):
+            if e.get("batch_trace_id"):
+                batch_ids.add(e["batch_trace_id"])
+    out: Dict[str, dict] = {}
+    for tid, sm in spans.items():
+        qr_list = sm.get("serving.queued_request")
+        if qr_list:
+            qr = qr_list[-1]
+            batch_id = qr.get("batch_trace_id")
+            bm = spans.get(batch_id, {}) if batch_id else {}
+            admission = _dur(sm, "serving.admission")
+            raw = {
+                "admission": admission,
+                "queue_wait": max(
+                    0.0, _dur(sm, "serving.queue_wait") - admission),
+                "deliver": _dur(sm, "serving.deliver"),
+            }
+            b_disp = _dur(bm, "serving.dispatch")
+            b_comp = _dur(bm, "serving.compile")
+            b_join = _dur(bm, "serving.join")
+            b_req = _dur(bm, "serving.request")
+            raw["compile"] = b_comp
+            raw["dispatch"] = max(0.0, b_disp - b_comp)
+            raw["join"] = b_join
+            raw["device"] = max(0.0, b_req - b_disp - b_join)
+            out[tid] = _build(
+                tid, "queued", float(qr.get("dur_s") or 0.0), raw,
+                end_ts=qr.get("ts"),
+                tenant=_attr(sm, "tenant", "serving.queued_request",
+                             "serving.queue_wait", "serving.admission"),
+                rows=_attr(sm, "rows", "serving.queued_request",
+                           "serving.queue_wait"),
+                bucket=(max(_attr(bm, "buckets", "serving.dispatch"))
+                        if _attr(bm, "buckets", "serving.dispatch")
+                        else None),
+                op=_attr(sm, "op", "serving.queued_request"),
+                batch_trace_id=batch_id)
+            continue
+        req_list = sm.get("serving.request")
+        if req_list:
+            # an engine-level request: a direct caller's, or the
+            # batch-level request coalesced members rode (kind
+            # "batch" — reconstructable for the slowest table, but
+            # excluded from attribution so a batch never double-counts
+            # against its members)
+            req = req_list[-1]
+            disp = _dur(sm, "serving.dispatch")
+            comp = _dur(sm, "serving.compile")
+            join = _dur(sm, "serving.join")
+            total = float(req.get("dur_s") or 0.0)
+            raw = {
+                "compile": comp,
+                "dispatch": max(0.0, disp - comp),
+                "join": join,
+                "device": max(0.0, total - disp - join),
+            }
+            out[tid] = _build(
+                tid, "batch" if tid in batch_ids else "direct",
+                total, raw, end_ts=req.get("ts"),
+                tenant=_attr(sm, "tenant", "serving.request",
+                             "serving.dispatch"),
+                rows=_attr(sm, "rows", "serving.request",
+                           "serving.dispatch"),
+                bucket=(max(_attr(sm, "buckets", "serving.dispatch"))
+                        if _attr(sm, "buckets", "serving.dispatch")
+                        else None),
+                op=_attr(sm, "op", "serving.request"))
+    return out
+
+
+# -- cross-host stitching ------------------------------------------------
+def stitch_multihost(events: Sequence[dict]) -> Dict[str, dict]:
+    """One CROSS-HOST waterfall per request from ``multihost.merge``
+    spans (trace id -> waterfall).  The DCN merge path propagates one
+    canonical trace id through the coordinator-KV exchange and every
+    process emits a ``multihost.merge`` span under it carrying ALL
+    per-host wall times — so a single host's event stream (or N merged
+    JSONL streams) reconstructs the whole replica's request:
+
+    - ``host<h>.local`` — host h's measured local search wall,
+    - ``host<h>.wait``  — host h idle waiting for the straggler
+      (``max(walls) - walls[h]``): the straggler gap as explicit
+      per-host segments instead of one max-minus-min scalar,
+    - ``dcn_merge``     — exchange + host-side top-k merge.
+
+    Every lane tiles ``local + wait + dcn_merge`` against the span's
+    measured arrival-to-result total within :func:`tolerance_s`;
+    shortfalls surface as ``unattributed_s``/``overlap_s`` and flip
+    ``complete``, never get absorbed.  When several hosts' streams are
+    merged, the span with the largest measured total is authoritative
+    (its lane saw the full wait)."""
+    by_tid: Dict[str, List[dict]] = {}
+    for e in events:
+        if (e.get("type") == "span" and e.get("span") == "multihost.merge"
+                and e.get("trace_id")):
+            by_tid.setdefault(e["trace_id"], []).append(e)
+    out: Dict[str, dict] = {}
+    for tid, evs in by_tid.items():
+        e = max(evs, key=lambda x: float(x.get("dur_s") or 0.0))
+        walls = [float(w) for w in (e.get("walls_s") or ())]
+        if not walls:
+            continue
+        total = float(e.get("dur_s") or 0.0)
+        max_wall = max(walls)
+        straggler = e.get("straggler_host")
+        if straggler is None:
+            straggler = int(max(range(len(walls)), key=lambda h: walls[h]))
+        merge_s = total - max_wall
+        segments = []
+        for h, w in enumerate(walls):
+            segments.append({"name": f"host{h}.local", "host": h,
+                             "dur_s": round(w, 6)})
+            wait = max_wall - w
+            if wait > 0:
+                segments.append({"name": f"host{h}.wait", "host": h,
+                                 "dur_s": round(wait, 6)})
+        if merge_s > 0:
+            segments.append({"name": "dcn_merge",
+                             "dur_s": round(merge_s, 6)})
+        # every lane sums to max_wall + max(0, merge_s); the residual
+        # against the measured total is stated, never absorbed
+        lane_total = max_wall + max(0.0, merge_s)
+        gap = total - lane_total
+        tol = tolerance_s(total)
+        out[tid] = {
+            "trace_id": tid,
+            "kind": "multihost",
+            "hosts": e.get("hosts", len(walls)),
+            "reporting_host": e.get("host"),
+            "straggler_host": int(straggler),
+            "straggler_gap_s": round(max_wall - min(walls), 6),
+            "total_s": round(total, 6),
+            "segments": segments,
+            "unattributed_s": round(max(0.0, gap), 6),
+            "overlap_s": round(max(0.0, -gap), 6),
+            "tolerance_s": round(tol, 6),
+            "complete": bool(abs(gap) <= tol),
+            "end_ts": e.get("ts"),
+        }
+    return out
+
+
+# -- aggregation -----------------------------------------------------------
+def _percentile(sorted_vals: List[float], q: float) -> float:
+    """Nearest-rank percentile over an already-sorted list (numpy-free,
+    as the JAX package's)."""
+    if not sorted_vals:
+        return 0.0
+    idx = min(len(sorted_vals) - 1,
+              max(0, int(round(q / 100.0 * (len(sorted_vals) - 1)))))
+    return sorted_vals[idx]
+
+
+def _band_stats(band: List[dict]) -> Optional[dict]:
+    """Mean per-segment share of total over a band of waterfalls, and
+    the dominant segment (critical-path attribution)."""
+    if not band:
+        return None
+    shares: Dict[str, float] = {}
+    for w in band:
+        total = w["total_s"] or 0.0
+        if total <= 0:
+            continue
+        for s in w["segments"]:
+            shares[s["name"]] = shares.get(s["name"], 0.0) \
+                + s["dur_s"] / total
+    n = sum(1 for w in band if (w["total_s"] or 0.0) > 0)
+    if not n or not shares:
+        return None
+    shares = {k: round(v / n, 4) for k, v in shares.items()}
+    dominant = max(shares, key=lambda k: shares[k])
+    return {
+        "requests": len(band),
+        "mean_total_ms": round(
+            sum(w["total_s"] for w in band) / len(band) * 1e3, 3),
+        "share": dict(sorted(shares.items(), key=lambda kv: -kv[1])),
+        "dominant": dominant,
+    }
+
+
+def _bands(ws: List[dict]) -> Optional[dict]:
+    """p50-band vs p99-tail attribution for one group of waterfalls."""
+    ws = [w for w in ws if (w["total_s"] or 0.0) > 0]
+    if not ws:
+        return None
+    totals = sorted(w["total_s"] for w in ws)
+    p50 = _percentile(totals, 50)
+    p99 = _percentile(totals, 99)
+    p50_band = [w for w in ws if w["total_s"] <= p50] or ws[:1]
+    tail = [w for w in ws if w["total_s"] >= p99] \
+        or [max(ws, key=lambda w: w["total_s"])]
+    return {
+        "requests": len(ws),
+        "p50_ms": round(p50 * 1e3, 3),
+        "p99_ms": round(p99 * 1e3, 3),
+        "p50_band": _band_stats(p50_band),
+        "p99_band": _band_stats(tail),
+    }
+
+
+def attribute(waterfalls) -> dict:
+    """Critical-path attribution across many requests: which segment
+    dominates at the p50 band vs the p99 tail — overall, per tenant,
+    and per bucket.  The number the "why is p99 40x p50 at the knee"
+    question needs: a queue_wait-dominated tail is a scheduling
+    problem, a device-dominated one a kernel (roofline) problem."""
+    ws = (list(waterfalls.values()) if isinstance(waterfalls, dict)
+          else list(waterfalls))
+    # batch-level engine requests are plumbing their members already
+    # account for — attributing both would double-count the batch
+    ws = [w for w in ws if w and w.get("kind") != "batch"]
+    out = {"requests": len(ws), "overall": _bands(ws),
+           "incomplete": sum(1 for w in ws if not w.get("complete"))}
+    by_tenant: Dict[str, List[dict]] = {}
+    by_bucket: Dict[str, List[dict]] = {}
+    for w in ws:
+        if w.get("tenant") is not None:
+            by_tenant.setdefault(str(w["tenant"]), []).append(w)
+        if w.get("bucket") is not None:
+            by_bucket.setdefault(str(w["bucket"]), []).append(w)
+    out["by_tenant"] = {t: _bands(g) for t, g in sorted(by_tenant.items())}
+    out["by_bucket"] = {b: _bands(g)
+                        for b, g in sorted(by_bucket.items(),
+                                           key=lambda kv: int(kv[0]))}
+    return out
+
+
+def device_vs_roofline(waterfalls, ceiling_qps: Optional[float] = None
+                       ) -> dict:
+    """Tell a device-bound tail from a queue-bound one: the p99 tail's
+    dominant segment, plus the device segment's IMPLIED throughput
+    (rows / device seconds) against the analytic roofline ceiling.  A
+    dominant device segment whose implied q/s sits far under the
+    ceiling is not compute — it is pipeline/queue wait wearing the
+    device's clothes (``queued_behind_device``).  ``ceiling_qps``
+    defaults to the best ceiling the port's H100 roofline published in
+    this process (knn_tpu_torch.obs.roofline); None disables the percent
+    and the verdict falls back to segment shares alone."""
+    ws = (list(waterfalls.values()) if isinstance(waterfalls, dict)
+          else list(waterfalls))
+    ws = [w for w in ws if w and (w["total_s"] or 0.0) > 0
+          and w.get("kind") != "batch"]
+    if ceiling_qps is None:
+        try:
+            from knn_tpu_torch.obs import roofline
+
+            ceilings = [r.get("ceiling_qps")
+                        for r in roofline.last_reports().values()
+                        if r.get("ceiling_qps")]
+            ceiling_qps = max(ceilings) if ceilings else None
+        except Exception:  # pragma: no cover - attribution must not die
+            ceiling_qps = None
+    if not ws:
+        return {"requests": 0, "ceiling_qps": ceiling_qps,
+                "verdict": None}
+    totals = sorted(w["total_s"] for w in ws)
+    p99 = _percentile(totals, 99)
+    tail = [w for w in ws if w["total_s"] >= p99] \
+        or [max(ws, key=lambda w: w["total_s"])]
+    stats = _band_stats(tail)
+    dominant = stats["dominant"] if stats else None
+    implied = sorted(
+        w["rows"] / d for w in tail
+        if w.get("rows")
+        for d in [next((s["dur_s"] for s in w["segments"]
+                        if s["name"] == "device"), 0.0)]
+        if d > 0)
+    device_qps = (round(_percentile(implied, 50), 2) if implied else None)
+    pct = (round(device_qps / ceiling_qps, 4)
+           if device_qps and ceiling_qps else None)
+    if dominant in ("device", "join"):
+        verdict = ("queued_behind_device"
+                   if pct is not None and pct < DEVICE_PCT_MIN
+                   else "device_bound")
+    elif dominant in ("queue_wait", "admission"):
+        verdict = "queue_bound"
+    elif dominant is None:
+        verdict = None
+    else:
+        verdict = "host_bound"
+    return {
+        "requests": len(ws),
+        "tail_requests": len(tail),
+        "tail_dominant_segment": dominant,
+        "tail_device_qps": device_qps,
+        "ceiling_qps": ceiling_qps,
+        "tail_device_roofline_pct": pct,
+        "verdict": verdict,
+    }
+
+
+# -- the slowest-requests table -------------------------------------------
+def slowest_table(*, top: int = 8, with_waterfalls: bool = True,
+                  events: Optional[Sequence[dict]] = None,
+                  waterfalls: Optional[Dict[str, dict]] = None
+                  ) -> List[dict]:
+    """Worst recent requests by latency-histogram exemplar (the trace
+    ids the bounded exemplar stores retained), deduped across the
+    serving/queue/tenant histograms, worst first.  With
+    ``with_waterfalls`` each row carries its inline waterfall when the
+    event ring (or the supplied ``events``/``waterfalls``) still holds
+    the request's spans."""
+    snap = registry.snapshot()
+    best: Dict[str, dict] = {}
+    for name in _EXEMPLAR_HISTS:
+        m = snap.get(name)
+        if not m:
+            continue
+        for s in m["series"]:
+            for ex in (s["value"] or {}).get("exemplars", ()):
+                tid = ex.get("trace_id")
+                if not tid:
+                    continue
+                row = best.get(tid)
+                if row is None or ex["value"] > row["latency_s"]:
+                    best[tid] = {
+                        "trace_id": tid,
+                        "latency_s": ex["value"],
+                        "latency_ms": round(ex["value"] * 1e3, 3),
+                        "ts": ex.get("ts"),
+                        "source": name,
+                        **({"tenant": s["labels"]["tenant"]}
+                           if "tenant" in s["labels"] else {}),
+                    }
+    rows = sorted(best.values(), key=lambda r: -r["latency_s"])[:int(top)]
+    if rows and with_waterfalls:
+        if waterfalls is None:
+            evts = (trace.get_event_log().recent()
+                    if events is None else events)
+            waterfalls = reconstruct(evts)
+        for r in rows:
+            r["waterfall"] = waterfalls.get(r["trace_id"])
+    return rows
+
+
+def live_report(events: Optional[Sequence[dict]] = None) -> dict:
+    """The full forensics payload over the live ring (or ``events``):
+    every reconstructable waterfall, the critical-path attribution, the
+    device-vs-roofline verdict, and the slowest-requests table — what
+    ``/waterfallz`` serves and a postmortem bundle embeds."""
+    evts = trace.get_event_log().recent() if events is None else events
+    wfs = reconstruct(evts)
+    stitched = stitch_multihost(evts)
+    return {
+        "generated_at": time.strftime(
+            "%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "requests": len(wfs),
+        "waterfalls": wfs,
+        "attribution": attribute(wfs),
+        "device_vs_roofline": device_vs_roofline(wfs),
+        "slowest": slowest_table(events=evts, waterfalls=wfs),
+        # cross-host waterfalls stitched from multihost.merge spans —
+        # absent (None) when no DCN merge ran in this process
+        "multihost": ({"requests": len(stitched), "waterfalls": stitched}
+                      if stitched else None),
+    }
+
+
+# -- rendering (shared by `cli waterfall` and doctor) ----------------------
+_BAR_WIDTH = 28
+
+
+def render_waterfall(w: dict) -> str:
+    """One request's waterfall as an indented text bar chart."""
+    head = (f"{w.get('trace_id')}: total "
+            f"{(w.get('total_s') or 0.0) * 1e3:.3f} ms  "
+            f"[{w.get('kind')}]")
+    for key in ("tenant", "rows", "bucket", "op"):
+        if w.get(key) is not None:
+            head += f" {key}={w[key]}"
+    if not w.get("complete"):
+        head += (f"  INCOMPLETE (gap {w.get('unattributed_s')}s, "
+                 f"overlap {w.get('overlap_s')}s, "
+                 f"tolerance {w.get('tolerance_s')}s)")
+    lines = [head]
+    total = w.get("total_s") or 0.0
+    for s in w.get("segments", ()):
+        frac = s["dur_s"] / total if total > 0 else 0.0
+        bar = "#" * max(1 if s["dur_s"] > 0 else 0,
+                        int(round(frac * _BAR_WIDTH)))
+        lines.append(f"  {s['name']:<13} {s['dur_s'] * 1e3:>10.3f} ms "
+                     f"{frac * 100:5.1f}%  {bar}")
+    return "\n".join(lines)
+
+
+def render_attribution(agg: dict, dvr: Optional[dict] = None) -> str:
+    """The aggregated critical-path story as text."""
+    lines = [f"attribution over {agg.get('requests', 0)} request(s)"
+             + (f" ({agg['incomplete']} incomplete)"
+                if agg.get("incomplete") else "")]
+
+    def _one(label, bands, indent="  "):
+        if not bands:
+            return
+        for band in ("p50_band", "p99_band"):
+            st = bands.get(band)
+            if not st:
+                continue
+            # re-sort by share: a JSON round-trip (sort_keys) may have
+            # alphabetized the dict a live endpoint served
+            ranked = sorted(st["share"].items(), key=lambda kv: -kv[1])
+            shares = ", ".join(f"{k}={v * 100:.0f}%"
+                               for k, v in ranked[:4])
+            lines.append(
+                f"{indent}{label} {band.replace('_band', '')}: dominant "
+                f"{st['dominant']} (mean {st['mean_total_ms']} ms over "
+                f"{st['requests']} req: {shares})")
+
+    _one("overall", agg.get("overall"))
+    for t, bands in (agg.get("by_tenant") or {}).items():
+        _one(f"tenant {t}", bands, indent="    ")
+    for b, bands in (agg.get("by_bucket") or {}).items():
+        _one(f"bucket {b}", bands, indent="    ")
+    if dvr and dvr.get("verdict"):
+        pct = dvr.get("tail_device_roofline_pct")
+        lines.append(
+            f"  tail verdict: {dvr['verdict']} (dominant "
+            f"{dvr.get('tail_dominant_segment')}, device "
+            f"{dvr.get('tail_device_qps')} q/s"
+            + (f" = {pct * 100:.1f}% of {dvr.get('ceiling_qps')} q/s "
+               f"ceiling" if pct is not None else "") + ")")
+    return "\n".join(lines)

@@ -69,12 +69,14 @@ class JobResult:
             out["certified_stats"] = self.certified_stats
         if self.serving_stats is not None:
             out["serving"] = self.serving_stats
-        # the process-wide telemetry view (knn_tpu_torch.obs): absent with
-        # obs off, so that shape is the pre-obs one
+        # the process-wide telemetry view (knn_tpu_torch.obs) and one SLO
+        # evaluation over it: absent with obs off, so that shape is the
+        # pre-obs one
         from knn_tpu_torch import obs
 
         if obs.enabled():
             out["obs"] = obs.compact_snapshot()
+            out["slo"] = obs.slo_report()
         return out
 
     def metrics_json(self) -> str:

@@ -53,22 +53,27 @@ capture raises; the engine never falls back to the eager program on the
 card.
 
 Telemetry (knn_tpu_torch.obs; engine.py:155, 245-247, 313-333, 399,
-424-459, 527-533, 592-594 of the JAX package): :meth:`ServingEngine.submit`
-mints a trace id when the caller gives none and records the
-``serving.dispatch`` span (``serving.compile`` around a capture, outside
-``torch.cuda.graph``), :meth:`PendingSearch.result` the ``serving.join``
-and ``serving.request`` spans; the ``SERVING_*`` counters (a capture
-counts under ``SERVING_COMPILES``), the tenant series and the latency
-histogram (trace-id exemplars) follow each request, and the engine
-registers with obs.health.  No obs call reads a device tensor.
+424-461, 527-586, 592-594, 615-672 of the JAX package):
+:meth:`ServingEngine.submit` mints a trace id when the caller gives none
+and records the ``serving.dispatch`` span (``serving.compile`` around a
+capture, outside ``torch.cuda.graph``), :meth:`PendingSearch.result` the
+``serving.join`` and ``serving.request`` spans; the ``SERVING_*`` counters
+(a capture counts under ``SERVING_COMPILES``), the tenant series and the
+latency histogram (trace-id exemplars) follow each request, and the engine
+registers with obs.health.  No obs call reads a device tensor.  The shadow
+audit sampler (obs.audit) picks ``search`` requests by trace id: ``submit``
+copies a sampled request's queries, and ``result`` hands the host arrays
+the caller receives (never a graph's static output buffer, which the next
+replay overwrites) to the audit worker, whose oracle is the float64
+``ops.refine.refine_shared_exact`` over ``ShardedKNN._host_train()``.
+``stats()`` carries the ``slo`` section (one evaluation; ``include_slo=
+False`` skips it), ``slowest_requests`` while telemetry is on, and
+``quality`` while the sampler is armed.
 
 Where the port differs (ROADMAP queue C): CUDA graphs stand in for the AOT
 compiles; ``donate_queries`` is accepted and reported in ``stats()`` but
-changes nothing (the graph's static input is reused already); the audit
-sampler and the ``slo`` / ``quality`` / ``slowest_requests`` sections of
-``stats()`` wait for the second obs slice, so ``stats()`` keeps the JAX
-package's telemetry-off shape (divergence 30); and no transient retry: a
-CUDA error raises at its first occurrence.
+changes nothing (the graph's static input is reused already); and no
+transient retry: a CUDA error raises at its first occurrence.
 """
 
 from __future__ import annotations
@@ -195,7 +200,8 @@ class PendingSearch:
 
     def __init__(self, engine: "ServingEngine", op: str, chunks, n: int,
                  t0: float, trace_id: Optional[str] = None,
-                 tenant: Optional[str] = None):
+                 tenant: Optional[str] = None,
+                 audit_queries: Optional[np.ndarray] = None):
         self._engine = engine
         self._op = op
         #: [(host outputs, event or None, real rows, kept-alive inputs)]
@@ -208,6 +214,9 @@ class PendingSearch:
         self.trace_id = trace_id
         #: tenant tag (None = untagged)
         self.tenant = tenant
+        #: the queries copied at submit when the audit sampler picked this
+        #: request (obs.audit); None = not sampled
+        self._audit_queries = audit_queries
 
     def result(self):
         if self._res is not None:
@@ -244,6 +253,8 @@ class PendingSearch:
         self._engine._record_latency(done - self._t0, self._op,
                                      trace_id=self.trace_id, rows=self._n,
                                      tenant=self.tenant)
+        if self._audit_queries is not None:
+            self._engine._submit_audit(self, res)
         return res
 
 
@@ -486,6 +497,12 @@ class ServingEngine:
                 f"{self._dim}")
         if trace_id is None:
             trace_id = obs.new_trace_id()
+        # the audit sampler's only hot-path costs: one trace-id hash and,
+        # for a sampled request, one copy of its queries (a later in-place
+        # change by the caller cannot reach the replay)
+        audit_q = (q.copy()
+                   if op == "search" and obs.audit.sampled(trace_id)
+                   else None)
         t0 = time.perf_counter()
         try:
             with obs.span("serving.dispatch", trace_id=trace_id, op=op,
@@ -512,7 +529,7 @@ class ServingEngine:
         if tenant is not None:
             obs.counter(mn.TENANT_REQUESTS, tenant=tenant).inc()
         return PendingSearch(self, op, chunks, q.shape[0], t0, trace_id,
-                             tenant)
+                             tenant, audit_queries=audit_q)
 
     def search(self, queries, *, return_sqrt: bool = False):
         """Bucketed exact search: (distances [Q, k], indices [Q, k]) as
@@ -581,6 +598,55 @@ class ServingEngine:
                         **({} if rows is None else {"rows": int(rows)}),
                         **({} if tenant is None else {"tenant": tenant}))
 
+    def _submit_audit(self, handle: PendingSearch, res) -> None:
+        """Enqueue one sampled, already-served request for the audit
+        worker's exact replay (obs.audit): one bounded queue put under the
+        sampler's row budget.  The oracle below — a float64 scan of every
+        placed row (``refine_shared_exact``) and the float64 recompute of
+        the served rows (``_pairwise_f64``) — runs only on the audit
+        worker.  The request was served already, so a failure here drops
+        the record with an ``audit.submit_error`` event and never reaches
+        the caller."""
+        try:
+            d, i = res
+            program = self.program
+            k = self.k
+            metric = program.metric
+
+            def oracle(queries, served_ids):
+                from knn_tpu_torch.ops.refine import (_pairwise_f64,
+                                                      refine_shared_exact)
+
+                db = program._host_train()
+                # a dot placement is one column wider than the request
+                # (the norm augmentation): its rows are the first D columns
+                if db.shape[1] != queries.shape[1]:
+                    db = db[:, : queries.shape[1]]
+                n = db.shape[0]
+                od, oi = refine_shared_exact(
+                    db, queries, np.arange(n), k, metric=metric)
+                ids = np.asarray(served_ids, np.int64)[:, :k]
+                valid = (ids >= 0) & (ids < n)
+                safe = np.where(valid, ids, 0)
+                se = _pairwise_f64(queries, db[safe], metric)
+                return od, oi, np.where(valid, se, np.inf)
+
+            q_audit = handle._audit_queries
+            obs.audit.submit(obs.audit.AuditRecord(
+                trace_id=handle.trace_id,
+                tenant=handle.tenant,
+                k=k,
+                queries=q_audit,
+                served_d=np.asarray(d),
+                served_ids=np.asarray(i),
+                epoch=None,
+                cost_rows=int(q_audit.shape[0]) * int(program.n_train),
+                oracle=oracle,
+            ))
+        except Exception:  # noqa: BLE001 - audit must not fail serving
+            obs.emit_event("audit.submit_error", op=handle._op,
+                           trace_id=handle.trace_id)
+
     def _record_error(self, op: str = "search", *,
                       tenant: Optional[str] = None) -> None:
         with self._lock:
@@ -614,14 +680,29 @@ class ServingEngine:
 
     def stats(self, *, include_slo: bool = True) -> dict:
         """Capture (compile) / dispatch accounting and request latency
-        percentiles — the JAX package's telemetry-off ``stats()`` shape
-        (``include_slo`` is taken for its signature; there is no SLO
-        section yet)."""
-        del include_slo
+        percentiles.  With telemetry on it also carries ``slo`` (one
+        burn-rate evaluation over the process's objectives; skipped with
+        ``include_slo=False``, as the health report does, which evaluates
+        once for every engine) and ``slowest_requests`` (the exemplar
+        table, no inline waterfalls), and ``quality`` while the audit
+        sampler is armed; with telemetry off the shape is the JAX
+        package's telemetry-off one."""
         tuning_info = self._tuning_info()
+        slo_section = (obs.slo_report()
+                       if include_slo and obs.enabled() else None)
+        slowest = None
+        quality = None
+        if obs.enabled():
+            slowest = obs.waterfall.slowest_table(with_waterfalls=False)
+            if obs.audit.audit_rate() > 0:
+                quality = obs.audit.status()
         with self._lock:
             return {
                 **({"tuning": tuning_info} if tuning_info else {}),
+                **({"slo": slo_section} if slo_section else {}),
+                **({"quality": quality} if quality else {}),
+                **({"slowest_requests": slowest}
+                   if slowest is not None else {}),
                 "buckets": list(self.buckets),
                 "compile_count": int(sum(self._compiles.values())),
                 "executables": len(self._execs),

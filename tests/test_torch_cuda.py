@@ -1752,3 +1752,118 @@ def test_cuda_concurrent_tier_searches_equal_sequential(cuda_device):
     for (wd, wi), (gd, gi) in zip(want, got):
         np.testing.assert_array_equal(gd, wd)
         np.testing.assert_array_equal(gi, wi)
+
+
+@pytest.mark.cuda
+def test_cuda_audited_graph_engine_scores_what_the_caller_received(
+        cuda_device):
+    """The audit sampler on a graphed engine: two back-to-back requests
+    ride one rung, the worker is held until the second replay is done, and
+    the first record still holds the first caller's arrays (never the
+    graph's static output buffer); both audit recall 1.0."""
+    import threading
+
+    from knn_tpu_torch import ShardedKNN, obs
+    from knn_tpu_torch.obs import audit
+    from knn_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(71)
+    q, db = _data(rng, 32, 20000, 32)
+    prog = ShardedKNN(db, k=16, device=cuda_device)
+    eng = ServingEngine(prog, buckets=(16,))
+    eng.warmup()
+    assert eng.graphs
+    obs.reset(enabled=True)
+    audit.reset_auditor(rate=1.0, budget_rows_s=1e12)
+    release, seen = threading.Event(), {}
+
+    def hold(rec):
+        assert release.wait(120)
+        seen[rec.trace_id] = (rec.served_d.copy(), rec.served_ids.copy())
+        return rec
+
+    audit.set_fault(hold)
+    try:
+        res_a = eng.submit(q[:16], trace_id="audit-a").result()
+        res_b = eng.submit(q[16:], trace_id="audit-b").result()
+        release.set()
+        assert audit.get_auditor().drain(timeout=120)
+    finally:
+        audit.clear_fault()
+        release.set()
+    s = audit.get_auditor().summary()
+    audit.reset_auditor()
+    assert not np.array_equal(res_a[1], res_b[1])
+    for tid, (d, i) in (("audit-a", res_a), ("audit-b", res_b)):
+        np.testing.assert_array_equal(seen[tid][0], d)
+        np.testing.assert_array_equal(seen[tid][1], i)
+    de, ie = prog.search(q[:16])
+    np.testing.assert_array_equal(res_a[1], ie.cpu().numpy())
+    assert s["replayed_queries"] == 32 and s["deficient_queries"] == 0
+    assert s["last_recall_at_k"] == 1.0 and s["dropped"] == {}
+
+
+@pytest.mark.cuda
+def test_cuda_audited_ivf_frontend_launches_k1(cuda_device):
+    """The IVF frontend with pallas / bf16x3 on the card: K1 launched for
+    the probe groups, every served answer audited at recall 1.0, and the
+    drift sketch observed the queries."""
+    from knn_tpu_torch import obs
+    from knn_tpu_torch.ivf import IVFIndex
+    from knn_tpu_torch.obs import audit
+
+    rng = np.random.default_rng(72)
+    cents = rng.normal(size=(16, 32)).astype(np.float32) * 20
+    rows = (cents[rng.integers(0, 16, 8000)]
+            + rng.normal(size=(8000, 32)).astype(np.float32))
+    q = (cents[rng.integers(0, 16, 48)]
+         + rng.normal(size=(48, 32)).astype(np.float32))
+    obs.reset(enabled=True)
+    idx = IVFIndex(rows, k=10, ncentroids=16, nprobe=4, device=cuda_device)
+    eng = idx.serving_engine(buckets=(16,), selector="pallas",
+                             precision="bf16x3")
+    audit.reset_auditor(rate=1.0, budget_rows_s=1e12)
+    before = ck.binned_select.launches["bf16x3"]
+    try:
+        served = [eng.submit(q[j:j + 16], trace_id=f"ivf-{j}").result()
+                  for j in range(0, 48, 16)]
+        assert audit.get_auditor().drain(timeout=120)
+        s = audit.get_auditor().summary()
+    finally:
+        audit.reset_auditor()
+    assert ck.binned_select.launches["bf16x3"] > before
+    assert s["replayed_queries"] == 48 and s["deficient_queries"] == 0
+    assert s["last_recall_at_k"] == 1.0 and s["dropped"] == {}
+    assert idx.stats()["drift"]["queries_observed"] == 48
+    direct = idx.search_certified(q[:16], selector="pallas",
+                                  precision="bf16x3")
+    np.testing.assert_array_equal(served[0][1], direct[1])
+
+
+@pytest.mark.cuda
+def test_cuda_device_time_lands_in_the_join_segment(cuda_device):
+    """ROADMAP divergence: a dispatch only enqueues the graph replay, so
+    a request whose replay waits behind ~50 ms of device work shows that
+    time in ``join``; ``device`` holds only the host's gap between the
+    dispatch's return and the ``result()`` call, and the segments tile."""
+    from knn_tpu_torch import ShardedKNN, obs
+    from knn_tpu_torch.obs import waterfall
+
+    rng = np.random.default_rng(73)
+    q, db = _data(rng, 8, 20000, 32)
+    eng_prog = ShardedKNN(db, k=8, device=cuda_device)
+    from knn_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(eng_prog, buckets=(8,))
+    eng.warmup()
+    obs.reset(enabled=True)
+    obs.reset_event_log(None)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms of device time at 2 GHz
+    h = eng.submit(q, trace_id="join-holds-device")
+    h.result()
+    w = waterfall.reconstruct(obs.get_event_log().recent())[h.trace_id]
+    seg = {s["name"]: s["dur_s"] for s in w["segments"]}
+    assert seg["join"] >= 0.02, seg
+    assert seg["device"] < seg["join"], seg
+    assert w["complete"], w

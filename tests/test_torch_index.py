@@ -281,10 +281,22 @@ def test_metric_refusal(metric):
         MutableIndex(db, k=K, metric=metric, device="cpu")
 
 
-def test_stats_keys_are_the_reference_keys():
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_stats_keys_are_the_reference_keys(mode):
+    """Telemetry on and off in both packages: the same keys (the port adds
+    ``last_compaction_error``, divergence 25) and values."""
+    from knn_tpu import obs as jobs
+    from knn_tpu_torch import obs as pobs
+
     db = np.random.default_rng(4).normal(size=(100, DIM)).astype(np.float32)
-    port = MutableIndex(db, k=K, device="cpu").stats()
-    ref = JaxMutableIndex(db, mesh=make_mesh(1, 1), k=K).stats()
+    try:
+        for pkg in (jobs, pobs):
+            pkg.reset(enabled=mode == "on")
+        port = MutableIndex(db, k=K, device="cpu").stats()
+        ref = JaxMutableIndex(db, mesh=make_mesh(1, 1), k=K).stats()
+    finally:
+        jobs.reset()
+        pobs.reset()
     assert set(port) == set(ref) | {"last_compaction_error"}
     assert {key: port[key] for key in ref} == ref
 

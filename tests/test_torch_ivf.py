@@ -212,12 +212,28 @@ def test_write_contract_refusals(clustered):
 
 
 def test_index_stats_match_jax(clustered, pair):
+    """The keys, ``drift`` among them, and the values; the drift sketches
+    of two fresh indexes that served the same queries are equal (counts
+    exactly, PSI within 1e-12 relative)."""
+    rows, qs = clustered
     port, ref = pair
     st_p, st_j = port.stats(), ref.stats()
-    assert set(st_p) - {"last_compaction_error"} <= set(st_j)
+    assert set(st_p) - {"last_compaction_error"} == set(st_j)
+    assert "drift" in st_p
     for key in ("ncentroids", "nprobe", "train_iters", "seed", "base_rows",
                 "tail_rows", "tombstones", "live_rows", "metric"):
         assert st_p[key] == st_j[key], key
+    kw = dict(k=K, ncentroids=NCLUSTERS, nprobe=2, train_iters=2, seed=0)
+    fresh = (IVFIndex(rows, device="cpu", **kw),
+             JaxIVFIndex(rows, mesh=make_mesh(1, 1), **kw))
+    for block in (qs[:5], qs[5:] * 3.0):
+        for idx in fresh:
+            idx.search_certified(block)
+    dr_p, dr_j = (idx.stats()["drift"] for idx in fresh)
+    assert set(dr_p) == set(dr_j)
+    for key, value in dr_j.items():
+        assert dr_p[key] == pytest.approx(value, rel=1e-12, abs=0), key
+    assert dr_p["queries_observed"] == qs.shape[0]
     defaults = IVFIndex(clustered[0], k=K, device="cpu").stats()
     ref_defaults = JaxIVFIndex(clustered[0], mesh=make_mesh(1, 1),
                                k=K).stats()

@@ -43,6 +43,7 @@ def _reset_all():
     for pkg in PKGS.values():
         pkg.reset(enabled=True)
         pkg.reset_event_log(None)
+        pkg.reset_slo_engine()
         pkg.health.reset()
         pkg.roofline.reset()
 
@@ -742,7 +743,8 @@ def test_no_obs_module_imports_torch_jax_or_knn_tpu_at_top_level():
     files = sorted((REPO / "knn_tpu_torch" / "obs").glob("*.py"))
     assert {f.stem for f in files} >= {
         "__init__", "names", "ident", "registry", "trace", "export",
-        "profiler", "roofline", "health"}
+        "profiler", "roofline", "health", "slo", "audit", "drift",
+        "waterfall", "blackbox"}
     for f in files:
         for mod in _top_level_imports(f):
             root = mod.split(".")[0]

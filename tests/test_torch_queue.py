@@ -251,15 +251,39 @@ def test_default_queue_is_unbounded_and_keeps_its_stats_shape():
     assert qq.stats()["requests"] == 100
 
 
-def test_admission_off_stats_shape_equals_jax(served):
-    _, engine, q = served
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_admission_off_stats_shape_equals_jax(served, mode):
+    """The queue's stats keys over a stub engine, and over each package's
+    real engine with the engine's own keys (its ``slo`` and
+    ``slowest_requests`` sections with telemetry on), telemetry on and
+    off in both packages."""
+    from knn_tpu.parallel import ShardedKNN as JaxShardedKNN
+    from knn_tpu.parallel import make_mesh
+    from knn_tpu.serving import ServingEngine as JaxServingEngine
+    from knn_tpu_torch import obs as pobs
+
+    prog, _, q = served
+    jprog = JaxShardedKNN(prog._host_train(), mesh=make_mesh(1, 1), k=K)
     shapes = []
-    for cls in (QueryQueue, JaxQueue):
-        qq = cls(_GatedEngine(), max_wait_ms=600_000.0)
-        qq.submit(q[:5])
-        qq.close()
-        shapes.append(set(qq.stats()))
-    assert shapes[0] == shapes[1]
+    try:
+        for pkg in (obs, pobs):
+            pkg.reset(enabled=mode == "on")
+            pkg.reset_slo_engine()
+        for cls, engine in ((QueryQueue, ServingEngine(prog,
+                                                       buckets=BUCKETS)),
+                            (JaxQueue, JaxServingEngine(jprog,
+                                                        buckets=BUCKETS))):
+            for eng in (_GatedEngine(), engine):
+                qq = cls(eng, max_wait_ms=600_000.0)
+                qq.submit(q[:5])
+                qq.close()
+                st = qq.stats()
+                shapes.append((set(st), set(st["engine"])))
+    finally:
+        obs.reset(enabled=False)
+        pobs.reset()
+    assert shapes[:2] == shapes[2:]
+    assert ({"slo", "slowest_requests"} <= shapes[1][1]) == (mode == "on")
 
 
 def test_conflicting_depth_bounds_raise_and_one_sided_merge():

@@ -8,7 +8,7 @@ same padded batch (one program, pad rows sliced away); neighbour indices
 equal the JAX engine's exactly, and its f32 distances agree within
 64 eps_f32 (||q||^2 + max||t||^2) per query (the two frameworks sum in
 different orders); per-bucket compile and dispatch counts, warmup counts
-and the obs-off report keys equal the JAX engine's.
+and the report keys (telemetry on and off) equal the JAX engine's.
 """
 
 import numpy as np
@@ -161,15 +161,38 @@ def test_counts_equal_the_jax_engine_on_one_trace(served):
     assert rep["latency_ms"]["count"] == 20
 
 
-def test_replay_report_keys_are_the_reference_obs_off_keys(served):
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_replay_report_keys_are_the_reference_keys(served, mode):
+    """The report's keys with telemetry on in both packages (the ``slo``
+    and ``slowest_requests`` sections, their objectives and a slowest
+    row's fields) and with it off in both."""
+    from knn_tpu_torch import obs as pobs
+
     q = served["q"]
     reqs = [q[:n] for n in (3, 9, 17)]
-    _, rep = ServingEngine(served["prog"], buckets=BUCKETS).replay(reqs)
-    _, jrep = JaxServingEngine(served["jprog"], buckets=BUCKETS).replay(reqs)
+    try:
+        for pkg in (obs, pobs):
+            pkg.reset(enabled=mode == "on")
+            pkg.reset_slo_engine()
+        _, rep = ServingEngine(served["prog"], buckets=BUCKETS).replay(reqs)
+        _, jrep = JaxServingEngine(served["jprog"],
+                                   buckets=BUCKETS).replay(reqs)
+    finally:
+        obs.reset(enabled=False)
+        pobs.reset()
     assert set(rep) == set(jrep)
+    assert ({"slo", "slowest_requests"} <= set(rep)) == (mode == "on")
     assert set(rep["latency_ms"]) == set(jrep["latency_ms"])
     # the tuner keys no profile (ROADMAP divergence 20)
     assert set(rep["tuning"]) == set(jrep["tuning"]) - {"profile"}
+    if mode == "on":
+        assert set(rep["slo"]) == set(jrep["slo"])
+        assert set(rep["slo"]["objectives"]) == set(
+            jrep["slo"]["objectives"])
+        assert len(rep["slowest_requests"]) == len(
+            jrep["slowest_requests"]) == 3
+        assert [set(r) for r in rep["slowest_requests"]] == [
+            set(r) for r in jrep["slowest_requests"]]
 
 
 def test_warmup_counts_equal_jax_and_a_warmed_trace_builds_nothing(served):

@@ -83,7 +83,12 @@ def test_mutable_frontend_is_the_padded_direct_search_and_jax_ids(data):
     assert i[:2, 0].tolist() == [8000, 8001]
     np.testing.assert_array_equal(eng.search(q, return_sqrt=True)[0],
                                   np.sqrt(d))
-    st, jst = eng.stats(), jeng.stats()
+    st = eng.stats()
+    obs.reset(enabled=True)  # the JAX frontend's telemetry-on stats shape
+    try:
+        jst = jeng.stats()
+    finally:
+        obs.reset(enabled=False)
     assert st["index"]["tail_rows"] == 2 and st["index"]["tombstones"] == 2
     assert set(st) <= set(jst) | {"index"}
     assert set(st["index"]) == set(idx.stats())
