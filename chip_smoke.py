@@ -64,8 +64,32 @@ exits non-zero and prints no result):
              segments tiling its latency within the stated tolerance;
              ``/metrics`` and ``/statusz`` scraped from
              ``start_metrics_server`` on an ephemeral port (the inventory
-             names the card);
-6. stream  — at the ``main`` shape and placement: ``search_certified``
+             names the card); the fleet plane over that exporter: the live
+             member's /metrics.json and /statusz (obs.fleet.collect_live)
+             merged with a snapshot taken under
+             ``set_identity(process_index=1)``, the merged counters equal
+             to the two members' sums, each member's own device inventory
+             naming the card,
+             ``/fleetz``, and ``cli fleet --snapshot-dir`` exiting 0 on two
+             snapshots and 2 once one is torn;
+6. campaign — the measured-ceiling loop (knn_tpu_torch.campaign) at the
+             ``main`` shape, launch counts read around it: the
+             ``bf16x3_tiled`` (K1) and ``bf16x3_streaming`` (K10) arms,
+             each through all seven stages on the card (tune on the 4,096
+             queries over tiles of 124,928, 249,856 and 16,384 rows under
+             the Hopper resource gate, the timed ``search_certified`` calls
+             on a placement made once with the batch's fallbacks counted,
+             a device trace read back from disk by obs.traceread holding
+             the arm's kernel with profiler.summarize's busy time, the fit
+             of each sample — host phase and device trace — against the
+             H100 roofline, the store, the curated artifact); two store
+             entries under distinct keys, each calibrated ceiling within
+             RESIDUAL_TOLERANCE_PCT of its measured q/s and at least the
+             arm's own wall rate; the ``main`` block re-rendered under the
+             store carries the applied calibration, its calibrated ceiling
+             at least every q/s the main search reached in this run, and
+             ``health`` names the entries;
+7. stream  — at the ``main`` shape and placement: ``search_certified``
              with ``grid_order="db_major"`` (K9), ``kernel="streaming"``,
              ``kernel="fused"`` and ``kernel="fused", overlap=True,
              batch_size=1024, overlap_depth=2``; each run's d and i bitwise
@@ -82,7 +106,7 @@ exits non-zero and prints no result):
              the kept CUDA streams against fresh ones (wall and the
              allocator's new segments) and the device idle share of the
              pipelined run (torch.profiler);
-7. selectors — the counted certificate at the ``main`` shape and
+8. selectors — the counted certificate at the ``main`` shape and
              placement: ``search_certified(selector="exact")`` and
              ``("approx")`` (no coarse kernel launched), each with the
              ``pallas`` run's indices for every query, recall@100 = 1.0 and
@@ -95,7 +119,7 @@ exits non-zero and prints no result):
              ``search`` recall@100 on 256 queries, the certified exact
              selector's indices, and which half-precision matmul form ran
              (ops.distance.half_matmul_form);
-8. metrics — dot: a ``metric="dot"`` placement of the ``main`` rows
+9. metrics — dot: a ``metric="dot"`` placement of the ``main`` rows
              (norm-augmented to 129 dims, Dp = 256), its certified search
              launching K1 once and no other kernel, recall@100 = 1.0 and
              the indices of a float64 MIPS oracle on 256 queries, the exact
@@ -107,7 +131,7 @@ exits non-zero and prints no result):
              counts and masks equal the oracle's; the estimators
              (KNNRegressor, NearestNeighbors, RadiusNeighborsClassifier) on
              100,000 rows equal to their ShardedKNN outputs;
-9. f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
+10.f32arms — the f32-family arms bf16x3f (K4), highest (K2) and default
              (K3): each of their nine entries (tiled, streaming, fused)
              against its plain version within coarse_knn.
              kernel_plain_tolerance_scale (||q||^2 + max||t||^2) (bf16x3f
@@ -138,7 +162,7 @@ exits non-zero and prints no result):
              bf16x3, bf16x3f and highest at Dp = 128 (must stay below 1);
              every entry's ms per launch against its plain version and its
              bound;
-10. quant  — the int8 (K5) and int4 (K6) arms: each of the six int
+11. quant  — the int8 (K5) and int4 (K6) arms: each of the six int
              entries (tiled, streaming, fused x int8, int4) against its
              plain version on the card, bitwise (cd, ci, bounds), on
              integer data with exact ties at dim 24 (ragged rows), dim 300
@@ -159,7 +183,7 @@ exits non-zero and prints no result):
              and the db-major grid's ms per launch at Q=4,096 against their
              plain versions and the int bound;
              the device idle share of the int8 tiled run;
-11. pq     — K7, the pq arm: its tiled, db-major and streaming entries
+12. pq     — K7, the pq arm: its tiled, db-major and streaming entries
              bitwise their plain version (grouped binning, and lane
              binning at 2 and 8 survivors, 128- and 256-row bins) on a
              random LUT and codes with exact ties at the ``kernel``
@@ -176,7 +200,7 @@ exits non-zero and prints no result):
              lattice case (65,536 x 128 rows whose every 4-dim subspace
              takes one of 256 points: the training recovers them, the
              residuals are 0, so most queries certify) the same way;
-12. lane   — K8, lane binning: every arm's tiled, db-major and streaming
+13. lane   — K8, lane binning: every arm's tiled, db-major and streaming
              lane entries against their plain versions (int8, int4 and pq
              bitwise, the f32 family within its tolerance with ci equal on
              separated slots) at 1 to 8 survivors and 128-, 256- and
@@ -190,7 +214,7 @@ exits non-zero and prints no result):
              every query, the oracle's, distances within RANK_SLACK,
              fallbacks, q/s), and the counted certificate through the
              default arm's lane entries;
-13. survivors — grouped binning at 1 and 3-8 survivors (the deep builds):
+14. survivors — grouped binning at 1 and 3-8 survivors (the deep builds):
              every entry of every arm against its plain version (int, pq
              bitwise; the f32 family within its tolerance) on small shapes
              at every count, on 256- and 512-group tiles with ties between
@@ -201,14 +225,14 @@ exits non-zero and prints no result):
              ones, ``search_certified`` at 4 and 8 survivors against the
              oracle (recall@100 1.0), and every deep entry driven through a
              search at 3;
-14. tune   — the autotuner: the quick grid on the ``main`` rows and the
+15. tune   — the autotuner: the quick grid on the ``main`` rows and the
              standard grid at 100,000 rows, every candidate timed, gated
              out by the bitwise gate or refused by the resource gate (one
              that raised fails the phase), a second call timing 0
              candidates, and a search resolving its knobs from the cache.
              The script runs with an empty HOME of its own, so no cached
              winner picks the knobs of another phase;
-15. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
+16. classify — the reference job (``python -m knn_tpu_torch.cli ... --k 50
              --mode certified --selector pallas``, run in-process through
              run_job) on make_mnist_like CSVs (20,000 train, 2,000 test,
              2,000 val), then again with ``--pallas-precision int8`` and
@@ -219,7 +243,7 @@ exits non-zero and prints no result):
              (the C++ CPU backend), whose labels must equal the certified
              job's; every job's three CSVs must go through the native
              reader (``native.calls``);
-16. index  — a ``MutableIndex`` of the ``main`` rows (k=100, reserve 32):
+17. index  — a ``MutableIndex`` of the ``main`` rows (k=100, reserve 32):
              4,096 rows inserted in three writes across the tail's rungs
              (256, 2,048, 4,096), the whole reserve deleted and a 33rd
              delete refused (MutationBudgetError), ``search_certified`` on
@@ -235,7 +259,7 @@ exits non-zero and prints no result):
              captures its graphs beside live reads, every read bitwise the
              direct search of its epoch and, after the swap, bitwise a
              fresh index of the survivors;
-17. ivf    — an ``IVFIndex`` of 131,072 x 128 clustered rows
+18. ivf    — an ``IVFIndex`` of 131,072 x 128 clustered rows
              (``make_blobs(131072 + 128, 128, 362, seed=0)``, the last 128
              rows the queries; 362 lists, nprobe 90): the exact selector
              and the pallas selector through K2, K1, K5 in each of tiled,
@@ -243,7 +267,7 @@ exits non-zero and prints no result):
              recall@100 = 1.0 with the oracle's indices, one launch per
              probe group, the host split of each call and the placement of
              one group's block; ``nprobe = ncentroids`` on the uniform
-             ``main`` rows cut to 131,072, 64 queries, bitwise
+             ``main`` rows cut to 65,536, 32 queries, bitwise
              ``refine_shared_exact`` brute force; the default nprobe there
              (every query repaired); an insert, delete and compact cycle
              exact; its serving frontend (``IVFServingEngine``, pallas
@@ -252,7 +276,7 @@ exits non-zero and prints no result):
              against the float64 oracle (recall 1.0, 0 deficient, none
              dropped); the drift sketch: the norm PSI of the held-out
              queries below that of the same queries scaled x4;
-18. hosttier — the host-RAM tier: the ``main`` rows behind a 128 MiB
+19. hosttier — the host-RAM tier: the ``main`` rows behind a 128 MiB
              budget (``ShardedKNN(hbm_budget_bytes=)``, k=100, 4,096
              queries): 4 sweeps of 260,111-row segments planned, run and
              counted (``HOSTTIER_SWEEPS``), one dispatch shape, no coarse
@@ -265,7 +289,7 @@ exits non-zero and prints no result):
              516 MB in all, every
              resident-only entry refused by name; the call's and each
              sweep's seconds, the copies' GB/s;
-19. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
+20. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
              4,096-row superblocks: ``mode="stream"`` bitwise the looped
              ``search`` (rows/s, overlap_ratio), ``mode="certified"``
              bitwise the looped ``search_certified`` with K1 launched 4
@@ -273,11 +297,11 @@ exits non-zero and prints no result):
              ``hosttier`` placement, db-major (4,096-row superblocks) and
              query-major (one 16,384-row superblock), each bitwise the
              looped host-tier ``search`` at its block shape;
-20. native — the C++ CPU backend built from ``knn_tpu_torch/native`` on
+21. native — the C++ CPU backend built from ``knn_tpu_torch/native`` on
              this machine: ``knn_search`` within 64 eps_f32 of the port's
              CPU path (indices where separated), ``knn_predict`` equal to
              it, and 16 queries at the ``main`` shape timed;
-21. serving — ``ServingEngine`` on the ``main`` placement with the bench
+22. serving — ``ServingEngine`` on the ``main`` placement with the bench
              ladder 16..512 (``bench.py:805-818``): six CUDA graphs after
              ``warmup()``, the 48-request log-uniform trace (seed 42)
              replayed twice at depth 2 (no capture the second time), every
@@ -302,7 +326,7 @@ exits non-zero and prints no result):
              SLO windows: one ``audit_recall:<tenant>`` firing transition
              and one postmortem bundle, read back by ``cli waterfall`` and
              ``cli audit``;
-22. kernels — one JSON line per the contract: each ported kernel (K1,
+23. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, K1 at Dp = 256 on the dot path, the entries of K4,
              K2, K3, K5, K6, K7, the db-major grid K9, the lane entries K8
              and the deep grouped entries of every arm)
@@ -318,7 +342,8 @@ Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases device,build,selectors,metrics``,
 ``--phases device,build,index,ivf,join``,
 ``--phases device,build,hosttier,join``, ``--phases device,native``,
-``--phases device,build,serving`` or ``--phases device,build,main,obs``).
+``--phases device,build,serving``, ``--phases device,build,main,obs`` or
+``--phases device,build,main,obs,campaign``).
 """
 
 from __future__ import annotations
@@ -1131,8 +1156,9 @@ def kernel_record(name, source, replaces):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="device,build,kernel,main,profile,obs,stream,"
-                    "selectors,metrics,quant,f32arms,pq,lane,survivors,tune,"
+                    default="device,build,kernel,main,profile,obs,campaign,"
+                    "stream,selectors,metrics,quant,f32arms,pq,lane,"
+                    "survivors,tune,"
                     "index,ivf,hosttier,join,serving,native,classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
@@ -1548,6 +1574,7 @@ def main(argv=None) -> int:
         # the same call again: the first one also pays one-time library
         # and allocator set-up
         _, wall_warm = timed_search(S)
+        S.setdefault("measured_qps", []).extend((n_q / wall, n_q / wall_warm))
         if d.shape != (n_q, k) or i.shape != (n_q, k) or not np.isfinite(d).all():
             raise AssertionError(f"bad result shapes {d.shape} {i.shape}")
         recall, same, rel = oracle_check(S, d, i, "main")
@@ -1616,6 +1643,8 @@ def main(argv=None) -> int:
             paired_rounds(3)
             rounds += 3
         qps_on, qps_off = median_qps("on"), median_qps("off")
+        S.setdefault("measured_qps", []).extend(
+            n_q / w for mode in walls for w in walls[mode])
         if qps_on < 0.97 * qps_off:
             raise AssertionError(
                 f"obs on {qps_on:.0f} q/s < 0.97 x obs off {qps_off:.0f}")
@@ -1728,7 +1757,8 @@ def main(argv=None) -> int:
             "p99_share": agg["overall"]["p99_band"]["share"],
             "elapsed_s": time.perf_counter() - t_step}
 
-        # the exporters, scraped from an ephemeral port
+        # the exporters, scraped from an ephemeral port; then the fleet
+        # plane over it (after the paired rounds: nothing here is timed)
         server = obs.start_metrics_server(0)
         try:
             base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -1736,6 +1766,7 @@ def main(argv=None) -> int:
                                           timeout=30).read().decode()
             statusz = json.loads(urllib.request.urlopen(
                 f"{base}/statusz", timeout=30).read())
+            fleet_out = fleet_checks(base)
         finally:
             server.shutdown()
             server.server_close()
@@ -1778,8 +1809,225 @@ def main(argv=None) -> int:
               "k1_bound_ms": S["bound"]["bound_ms"],
               "metrics_samples": samples, "statusz_devices": inv,
               "queue_requests": len(ids), "queue_batches": len(batches),
-              "queue_waterfalls": queue_wf,
+              "queue_waterfalls": queue_wf, "fleet": fleet_out,
               "phase_s": time.perf_counter() - t_phase})
+
+    def phase_campaign(S):
+        """The measured-ceiling loop at the main shape: the campaign's
+        bf16x3_tiled (K1) and bf16x3_streaming (K10) arms, every stage on
+        the card, with the launch counts read around it; two store
+        entries under distinct keys, each arm's calibrated ceiling within
+        the tolerance of its measured q/s, each trace read back holding
+        the arm's kernel with profiler.summarize's busy time; the main
+        block re-rendered under the store applies it with a calibrated
+        ceiling at least every q/s the main search reached in this run
+        (main, obs and two calls here), and health names the entries."""
+        from knn_tpu_torch import campaign, obs
+        from knn_tpu_torch.obs import calibrate, roofline
+
+        t_phase = time.perf_counter()
+        arms = ("bf16x3_tiled", "bf16x3_streaming")
+        shape = dict(n=S["n"], d=S["dim"], k=S["k"], nq=S["n_q"])
+        with tempfile.TemporaryDirectory() as out:
+            calibrate.configure(os.path.join(out, "calibration.json"))
+            try:
+                reset_launches()
+                summary = campaign.run_campaign(
+                    rehearse=True, arms=arms, shape=shape, device="cuda",
+                    out_dir=out, round_no=18)
+                launches = read_launches()
+                # the main search's rates: this run's earlier phases and
+                # two calls here (the phase may run alone)
+                rates = list(S.get("measured_qps", ())) + [
+                    S["n_q"] / timed_search(S)[1] for _ in range(2)]
+                main_block = roofline.attribute(roofline.pallas_cost_model(
+                    nq=S["n_q"], device_kind=kind,
+                    **{f: shape[f] for f in ("n", "d", "k")}), max(rates))
+                cal_status = obs.health.report()["calibration"]
+            finally:
+                calibrate.configure(None)
+        keys = [a["entry_key"] for a in summary["arms"]]
+        others = {key: v for key, v in launches.items()
+                  if key not in ("k1", "k10") and v}
+        if launches["k1"] < 1 or launches["k10"] < 1 or others:
+            raise AssertionError(
+                f"campaign: launches {launches}: K1 and K10 each at least "
+                f"once and no other kernel")
+        arms_out = {}
+        for r in summary["results"]:
+            line = r["line"]
+            stages = {st["stage"]: st for st in line["campaign"]["stages"]}
+            cap = stages["capture"].get("live_capture") or {}
+            rec = stages["reconcile"]
+            cal = stages["calibrate"]
+            tol_busy = 1e-6 + 1e-9 * (cap.get("kernel_events") or 0)
+            busy_gap = (abs(cap["device_busy_s"] - cap["summarize_busy_s"])
+                        if cap else None)
+            bench = stages["bench"]
+            if (not r["ok"] or list(stages) != list(campaign.STAGES)
+                    or any(st["status"] != "ok" for st in stages.values())
+                    or not cap.get("kernel_held")
+                    or not cap.get("device_tracks_matched")
+                    or busy_gap is None or busy_gap > tol_busy
+                    or rec["source"] != "device_trace"
+                    or any("error" in f for f in rec["fits"].values())
+                    or cal["reconstruction_residual_pct"]
+                    > calibrate.RESIDUAL_TOLERANCE_PCT
+                    or cal["ceiling_below"]
+                    or bench["tile_n"] not in stages["tune"]["tiles"]
+                    or bench["certified"] + bench["fallback_queries"]
+                    < S["n_q"]):
+                raise AssertionError(
+                    f"campaign arm {r['arm']}: ok {r['ok']}, errors "
+                    f"{r['errors']}, stages "
+                    f"{[(s, st['status']) for s, st in stages.items()]}, "
+                    f"capture {cap or stages['capture']}, fits "
+                    f"{rec['fits']}, busy gap {busy_gap}")
+            arms_out[r["arm"]] = {
+                "key": r["entry_key"],
+                "tune": {f: stages["tune"].get(f) for f in (
+                    "winner", "winner_ms", "candidates", "pruned",
+                    "resource_gate", "refused", "tiles", "n_queries")},
+                "bench": {f: bench[f] for f in (
+                    "place_s", "tile_n", "certified", "fallback_queries")},
+                "host_phase_qps": rec["fits"]["host_phase"]["qps"],
+                "host_phase_device_s": rec["fits"]["host_phase"]["device_s"],
+                "device_trace_qps": rec["fits"]["device_trace"]["qps"],
+                "device_trace_device_s":
+                    rec["fits"]["device_trace"]["device_s"],
+                "fits": {src: {f: fit[f] for f in (
+                    "method", "model_residual_pct", "factors")}
+                    for src, fit in rec["fits"].items()},
+                "stored": rec["source"],
+                "ceiling_qps_calibrated": cal["ceiling_qps"],
+                "ceiling_qps_analytic":
+                    line["roofline"]["ceiling_qps_analytic"],
+                "reconstruction_residual_pct":
+                    cal["reconstruction_residual_pct"],
+                "trace": {"kernel_events": cap["kernel_events"],
+                          "events_before_body": cap["events_before_body"],
+                          "traceread_busy_s": cap["device_busy_s"],
+                          "summarize_busy_s": cap["summarize_busy_s"]},
+            }
+        if (len(set(keys)) != len(arms)
+                or not main_block["calibration"].get("applied")
+                or main_block["roofline_pct"] > 1.0
+                or sorted(cal_status.get("keys") or ()) != sorted(keys)):
+            raise AssertionError(
+                f"campaign: keys {keys}, the main block's calibration "
+                f"{main_block['calibration']}, its calibrated ceiling "
+                f"{main_block['ceiling_qps']} against the main search's "
+                f"best {max(rates)} q/s, health {cal_status}")
+        emit({"phase": "campaign", "n": S["n"], "dim": S["dim"],
+              "k": S["k"], "queries": S["n_q"], "launches": {
+                  key: launches[key] for key in ("k1", "k10")},
+              "arms": arms_out, "store_keys": keys,
+              "main_block_calibrated": {
+                  f: main_block[f] for f in ("ceiling_qps",
+                                             "ceiling_qps_analytic",
+                                             "bound_class", "measured_qps",
+                                             "roofline_pct")},
+              "main_search_qps": rates,
+              "main_block_calibration_method":
+                  main_block["calibration"]["method"],
+              "health_calibration_entries": cal_status["entries"],
+              "tolerance_pct": calibrate.RESIDUAL_TOLERANCE_PCT,
+              "nvidia_smi": smi,
+              "phase_s": time.perf_counter() - t_phase})
+
+    def fleet_checks(base):
+        """The fleet plane over the obs phase's exporter at ``base``: the
+        live member (process 0 of 2) collected from its /metrics.json and
+        /statusz, a second member written as a snapshot under
+        ``set_identity(process_index=1)``; the merged counters equal the
+        two members' sums and each member's own device inventory names
+        the card; /fleetz serves the merge; ``cli fleet --snapshot-dir`` exits 0
+        on two snapshots and 2 once one is torn."""
+        import contextlib
+        import io
+        import urllib.request
+
+        from knn_tpu_torch import obs
+        from knn_tpu_torch.cli import main as cli_main
+        from knn_tpu_torch.obs import fleet
+
+        t_step = time.perf_counter()
+        ep = base.split("://", 1)[1]
+        obs.ident.set_identity(process_count=2)
+        try:
+            live = fleet.collect_live([ep], timeout_s=30)
+            if live[0]["error"] or (live[0]["health"] or {}).get(
+                    "devices", {}).get("kinds") != [kind]:
+                raise AssertionError(f"fleet: the live member: {live[0]}")
+            with tempfile.TemporaryDirectory() as snapdir:
+                obs.write_json_snapshot(os.path.join(snapdir, "m0.json"))
+                obs.ident.set_identity(process_index=1)
+                m1 = os.path.join(snapdir, "m1.json")
+                obs.write_json_snapshot(m1)
+                obs.ident.set_identity(process_index=0)
+                second = fleet.collect_snapshot_files([m1])
+                rep = fleet.merge(live + second)
+                members = [live[0], second[0]]
+                sums = {}
+                for rec in members:
+                    for name, m in rec["metrics"].items():
+                        if m.get("type") != "counter":
+                            continue
+                        for s in m["series"]:
+                            key = (name, tuple(sorted(s["labels"].items())))
+                            sums.setdefault(key, []).append(
+                                float(s["value"]))
+                merged = {(name, tuple(sorted(s["labels"].items()))):
+                          s["value"]
+                          for name, series in rep["counters"].items()
+                          for s in series}
+                bad = {key: (merged.get(key), vals)
+                       for key, vals in sums.items()
+                       if merged.get(key) != sum(vals)}
+                # each member's own inventory names the card (the smoke
+                # stamps no device kind)
+                kinds = {tuple((rec.get("health") or {}).get(
+                    "devices", {}).get("kinds") or ()) for rec in members}
+                if (rep["partial"] or rep["member_count"] != 2 or bad
+                        or set(merged) != set(sums) or kinds != {(kind,)}
+                        or sorted(m["identity"]["process_index"]
+                                  for m in rep["members"]) != [0, 1]):
+                    raise AssertionError(
+                        f"fleet: merge of the live member and a snapshot: "
+                        f"partial {rep['partial']}, members "
+                        f"{rep['member_count']}, kinds {kinds}, counters "
+                        f"off their sums {list(bad.items())[:3]}")
+                fleet.configure(members=[ep])
+                fz = json.loads(urllib.request.urlopen(
+                    f"{base}/fleetz", timeout=30).read())
+                fleet.configure()
+                with contextlib.redirect_stdout(io.StringIO()) as out_txt:
+                    rc_ok = cli_main(["fleet", "--snapshot-dir", snapdir])
+                    good = open(os.path.join(snapdir, "m0.json")).read()
+                    with open(os.path.join(snapdir, "torn.json"), "w") as f:
+                        f.write(good[: len(good) // 2])
+                    rc_torn = cli_main(["fleet", "--snapshot-dir", snapdir])
+                if (not fz.get("enabled") or fz.get("member_count") != 1
+                        or rc_ok != 0 or rc_torn != 2):
+                    raise AssertionError(
+                        f"fleet: /fleetz {fz.get('member_count')} "
+                        f"member(s), cli fleet exits {rc_ok} on two "
+                        f"snapshots and {rc_torn} with one torn: "
+                        f"{out_txt.getvalue()[-2000:]}")
+        finally:
+            obs.ident.reset_identity()
+            fleet.configure()
+        return {"members": rep["member_count"],
+                "member_keys": [m["key"] for m in rep["members"]],
+                "device_kinds": [list(x) for x in sorted(kinds)],
+                "counter_series": len(merged),
+                "counters_equal_member_sums": True,
+                "staleness_s": rep["staleness_s"],
+                "slo_breached": (rep.get("slo") or {}).get("breached"),
+                "fleetz_members": fz["member_count"],
+                "cli_exit_two_snapshots": rc_ok,
+                "cli_exit_one_torn": rc_torn,
+                "elapsed_s": time.perf_counter() - t_step}
 
     def phase_stream(S):
         knn, pl, qp = S["knn"], S["knn"].placement, S["qp"]
@@ -3737,16 +3985,20 @@ def main(argv=None) -> int:
         block = snap.all_rows[snap.positions_for(tuple(probes[0].tolist()))]
         _, place_s = host_timed(lambda: ShardedKNN(block, k=k))
         # the anchor: nprobe = ncentroids on the uniform main rows is
-        # float64 brute force, bitwise
-        uni = np.ascontiguousarray(S["knn"].placement.db_host[:n])
-        qu = S["q_np"][:64]
+        # float64 brute force, bitwise (half the clustered set's rows and
+        # 32 queries: the campaign phase took the seconds of the rest;
+        # 256 lists of ~256 rows where 131,072 rows had 362 of ~362, and
+        # with every list probed the answer does not depend on the count)
+        n_anchor = n // 2
+        uni = np.ascontiguousarray(S["knn"].placement.db_host[:n_anchor])
+        qu = S["q_np"][:32]
         t0 = time.perf_counter()
         uidx = IVFIndex(uni, k=k)
         anchor_train_s = time.perf_counter() - t0
         d_a, i_a, st_a = uidx.search_certified(qu, nprobe=uidx.ncentroids)
         t0 = time.perf_counter()
         if not all_equal((d_a, i_a), refine_shared_exact(
-                uni, qu, np.arange(n, dtype=np.int64), k)):
+                uni, qu, np.arange(n_anchor, dtype=np.int64), k)):
             raise AssertionError("ivf: nprobe = ncentroids is not brute "
                                  "force bitwise")
         brute_s = time.perf_counter() - t0
@@ -3837,7 +4089,8 @@ def main(argv=None) -> int:
             bitwise_all_combinations=True, recall_at_k=recall,
             same_indices=True, max_rel_dist_err_f64=rel,
             block_rows=int(block.shape[0]), block_placement_s=place_s,
-            anchor={"rows": n, "queries": 64, "train_s": anchor_train_s,
+            anchor={"rows": n_anchor, "queries": 32,
+                    "train_s": anchor_train_s,
                     "ncentroids": st_a["ncentroids"],
                     "probe_fraction": st_a["probe_fraction"],
                     "bitwise_brute_force": True, "brute_force_s": brute_s},
@@ -4552,13 +4805,16 @@ def main(argv=None) -> int:
         del eng
         torch.cuda.empty_cache()
 
-    if phases & {"main", "obs", "stream", "selectors", "metrics", "quant",
+    if phases & {"main", "obs", "campaign", "stream", "selectors",
+                  "metrics", "quant",
                   "f32arms", "pq", "lane", "survivors", "tune", "index",
                   "ivf", "hosttier", "join", "serving"}:
         if "main" in phases:
             phase_main(sift_data())
         if "obs" in phases:
             phase_obs(sift_data())
+        if "campaign" in phases:
+            phase_campaign(sift_data())
         if "stream" in phases:
             phase_stream(sift_data())
         if "selectors" in phases:

@@ -1,7 +1,7 @@
 """Command line of the port on one GPU — the job path of knn_tpu/cli.py
 (``main``) and its ``tune``, ``join``, ``index --selftest``, ``loadgen``,
-``metrics``, ``doctor``, ``audit``, ``waterfall`` and ``roofline``
-subcommands, as ``python -m knn_tpu_torch.cli``::
+``metrics``, ``doctor``, ``audit``, ``waterfall``, ``roofline``, ``fleet``
+and ``campaign`` subcommands, as ``python -m knn_tpu_torch.cli``::
 
     python -m knn_tpu_torch.cli --train train.csv --test test.csv \\
         --val val.csv --k 50 --mode certified --selector pallas \\
@@ -18,11 +18,14 @@ subcommands, as ``python -m knn_tpu_torch.cli``::
     python -m knn_tpu_torch.cli waterfall --log events.jsonl --top 4
     python -m knn_tpu_torch.cli roofline --n 1000000 --dim 128 \\
         --device-kind "NVIDIA H100 80GB HBM3"
+    python -m knn_tpu_torch.cli fleet --snapshot-dir snaps/
+    python -m knn_tpu_torch.cli campaign --rehearse --out camp/
 
 The job's ``--metrics-port`` / ``--metrics-snapshot`` / ``--obs-log`` are
 the telemetry exporters (knn_tpu_torch.obs); ``metrics``, ``doctor``,
-``audit`` and ``waterfall`` read them (and postmortem bundles) back and,
-like ``roofline``, touch no device.
+``audit``, ``waterfall`` and ``fleet`` read them (and postmortem bundles)
+back and, like ``roofline``, touch no device.  ``campaign --rehearse``
+runs the measured-ceiling loop (knn_tpu_torch.campaign) on the device.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it exits with an error.
@@ -1079,6 +1082,174 @@ def run_roofline(args: argparse.Namespace) -> int:
     return 0
 
 
+def build_fleet_parser() -> argparse.ArgumentParser:
+    from knn_tpu_torch.obs.fleet import DEFAULT_STALE_S, DEFAULT_TIMEOUT_S
+
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch fleet",
+        description="Collect every fleet member's telemetry and render ONE "
+        "merged report (knn_tpu_torch.obs.fleet): counters summed, gauges "
+        "kept per host with min/max/argmax, quantiles from element-wise "
+        "summed histogram buckets, the named straggler host, and stitched "
+        "cross-host waterfalls; no device is touched.  Exit 0 healthy, 2 "
+        "partial fleet / nothing merged / fleet SLO breached, 1 unreadable "
+        "source.")
+    p.add_argument("--members", default=None, metavar="HOST:PORT,...",
+                   help="comma/space-separated live member endpoints")
+    p.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                   help="merge offline from a directory of atomic JSON "
+                   "snapshots (*.json) and optional event logs (*.jsonl, "
+                   "stitched into cross-host waterfalls)")
+    p.add_argument("--snapshot", action="append", default=None,
+                   metavar="PATH",
+                   help="merge offline from explicit snapshot files "
+                   "(repeatable)")
+    p.add_argument("--stale-s", type=float, default=DEFAULT_STALE_S,
+                   help="refuse members older than the newest by more "
+                   "than this many seconds (default %(default)s)")
+    p.add_argument("--timeout", type=float, default=DEFAULT_TIMEOUT_S,
+                   help="per-member HTTP timeout for live collection")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw merged report JSON instead of the "
+                   "human-readable rendering")
+    return p
+
+
+def run_fleet(args: argparse.Namespace) -> int:
+    """The ``fleet`` subcommand (knn_tpu/cli.py:532-610)."""
+    import json
+    import os
+
+    from knn_tpu_torch.obs import fleet
+
+    members = fleet.parse_members(args.members) if args.members else None
+    if args.snapshot_dir is not None and not os.path.isdir(
+            args.snapshot_dir):
+        print(f"cannot read snapshot dir {args.snapshot_dir}: not a "
+              f"directory", file=sys.stderr)
+        return 1
+    if members is None and args.snapshot_dir is None \
+            and args.snapshot is None:
+        print("no fleet source: pass --members/--snapshot-dir/--snapshot",
+              file=sys.stderr)
+        return 1
+    try:
+        report = fleet.fleet_report(
+            members, snapshot_dir=args.snapshot_dir,
+            snapshot_files=args.snapshot, timeout_s=args.timeout,
+            stale_s=args.stale_s)
+    except OSError as e:
+        print(f"fleet collection failed: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(report, indent=1, sort_keys=True, default=str))
+    else:
+        print(fleet.render_text(report))
+    if not report.get("enabled", True):
+        return 2
+    unhealthy = (report["partial"] or report["member_count"] == 0
+                 or bool((report.get("slo") or {}).get("breached")))
+    return 2 if unhealthy else 0
+
+
+def build_campaign_parser() -> argparse.ArgumentParser:
+    from knn_tpu_torch.campaign import ARM_KNOBS, DEFAULT_REHEARSE_ARMS
+
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch campaign",
+        description="Run the measured-ceiling campaign "
+        "(knn_tpu_torch.campaign) on the device: per arm — gates, autotune "
+        "(roofline pruning and the Hopper resource gate live), the timed "
+        "search, a device trace read back from disk, the fit against the "
+        "roofline's terms, the calibration store, one validated JSONL "
+        "artifact.  Only --rehearse runs: the hardware arm waits for the "
+        "port's benchmark.  Exit 0 every arm green, 1 an arm failed, 2 a "
+        "refused request.")
+    p.add_argument("--rehearse", action="store_true",
+                   help="run the loop on synthetic data at --n/--dim/--k/"
+                   "--nq (the only mode the port has)")
+    p.add_argument("--arms", default=None, metavar="A1,A2,...",
+                   help=f"arms to run (default: "
+                   f"{','.join(DEFAULT_REHEARSE_ARMS)}); known: "
+                   f"{', '.join(sorted(ARM_KNOBS))}")
+    p.add_argument("--round", type=int, default=None, dest="round_no",
+                   help="measurement-round stamp for artifact provenance")
+    p.add_argument("--out", default=None, metavar="DIR",
+                   help="artifact directory (default: artifacts/campaign)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="synthetic-data seed")
+    for flag, help_ in (("--n", "db rows"), ("--dim", "dims"),
+                        ("--k", "neighbours"), ("--nq", "queries a call")):
+        p.add_argument(flag, type=int, default=None,
+                       help=f"{help_} (default: the rehearse shape's)")
+    p.add_argument("--calibration", default=None, metavar="PATH",
+                   help="calibration store file (default: "
+                   "<out>/calibration.json)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the arms run (default cuda)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw summary JSON only")
+    p.add_argument("--verbose", action="store_true",
+                   help="stage progress on stderr")
+    p.add_argument("--cpu-devices", type=int, default=None, metavar="N",
+                   help="refused: the port has no virtual CPU devices "
+                   "(use --device cpu)")
+    return p
+
+
+def run_campaign_cmd(args: argparse.Namespace) -> int:
+    """The ``campaign`` subcommand (knn_tpu/cli.py:1351-1446): a line per
+    arm and one trailing JSON line (the summary)."""
+    import json
+
+    from knn_tpu_torch import campaign
+    from knn_tpu_torch.obs import calibrate
+
+    if args.cpu_devices is not None:
+        print("campaign: --cpu-devices has no counterpart in the port (one "
+              "card, or --device cpu)", file=sys.stderr)
+        return 2
+    arms = ([a.strip() for a in args.arms.split(",") if a.strip()]
+            if args.arms else None)
+    shape = {f: getattr(args, a) for f, a in (("n", "n"), ("d", "dim"),
+                                              ("k", "k"), ("nq", "nq"))
+             if getattr(args, a) is not None}
+    prev = calibrate.store_path()
+    if args.calibration:
+        calibrate.configure(args.calibration)
+    try:
+        summary = campaign.run_campaign(
+            rehearse=args.rehearse, arms=arms, out_dir=args.out,
+            round_no=args.round_no, seed=args.seed, shape=shape,
+            verbose=args.verbose, device=args.device)
+    except ValueError as e:  # unknown / refused arm, the hardware arm
+        print(f"campaign: {e}", file=sys.stderr)
+        return 2
+    finally:
+        calibrate.configure(prev)
+    compact = {k: summary[k] for k in (
+        "campaign_version", "rehearse", "round", "out_dir", "device",
+        "arms", "ok")}
+    if args.json:
+        print(json.dumps(compact, indent=1, sort_keys=True))
+        return 0 if summary["ok"] else 1
+    for r in summary["results"]:
+        line = r.get("line") or {}
+        att = line.get("roofline") or {}
+        cal = att.get("calibration") or {}
+        print(f"arm {r['arm']}: {'OK' if r['ok'] else 'FAILED'}  "
+              f"measured={line.get('value')} q/s  "
+              f"ceiling={att.get('ceiling_qps')} "
+              f"(analytic {att.get('ceiling_qps_analytic')})  "
+              f"calibrated={cal.get('applied')}  "
+              f"model_residual={line.get('model_residual_pct')}%  "
+              f"-> {r.get('artifact')}")
+        for err in r.get("errors") or []:
+            print(f"  error: {err}", file=sys.stderr)
+    print(json.dumps(compact))
+    return 0 if summary["ok"] else 1
+
+
 #: the subcommands, by leading token: the job's flat interface stays as it is
 SUBCOMMANDS = {"tune": (build_tune_parser, run_tune),
                "join": (build_join_parser, run_join),
@@ -1088,7 +1259,9 @@ SUBCOMMANDS = {"tune": (build_tune_parser, run_tune),
                "doctor": (build_doctor_parser, run_doctor),
                "audit": (build_audit_parser, run_audit),
                "waterfall": (build_waterfall_parser, run_waterfall),
-               "roofline": (build_roofline_parser, run_roofline)}
+               "roofline": (build_roofline_parser, run_roofline),
+               "fleet": (build_fleet_parser, run_fleet),
+               "campaign": (build_campaign_parser, run_campaign_cmd)}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

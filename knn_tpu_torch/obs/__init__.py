@@ -41,25 +41,38 @@ the tuner, pipeline phases) write through here:
   postmortem bundle per SLO breach
   (``blackbox.configure(postmortem_dir=, keep=)``; ``cli audit`` /
   ``cli waterfall --bundle``).
+- **Measured ceilings** (:mod:`~knn_tpu_torch.obs.traceread`,
+  :mod:`~knn_tpu_torch.obs.calibrate`): captured traces read back from
+  disk, measured device time reconciled against the roofline's terms, and
+  the per-term factors every roofline block consults
+  (``calibrate.configure(store=)``; driven by ``knn_tpu_torch.campaign``,
+  ``cli campaign``).
+- **Fleet plane** (:mod:`~knn_tpu_torch.obs.fleet`): N processes'
+  telemetry merged into one report — counters summed, gauges per host,
+  quantiles from summed buckets, fleet SLO edges with member-embedding
+  bundles (``fleet.configure(members=, stale_s=)``, ``/fleetz``, ``cli
+  fleet``); ``ident.set_identity`` stamps each member.
 
 No module here imports ``torch`` at import time (health and the profiler
 import it inside the functions that need it) and none imports ``jax`` or
-``knn_tpu``.  The JAX package's ``sentinel``, ``calibrate``, ``traceread``
-and ``fleet`` wait for ROADMAP queue A item 5, and its XLA compile hook
-has no counterpart (a CUDA graph capture counts under
-``SERVING_COMPILES``).
+``knn_tpu``.  The JAX package's ``sentinel`` waits for the port's
+benchmark (ROADMAP queue A item 5), and its XLA compile hook has no
+counterpart (a CUDA graph capture counts under ``SERVING_COMPILES``).
 """
 
 from knn_tpu_torch.obs import (  # noqa: F401
     audit,
     blackbox,
+    calibrate,
     drift,
+    fleet,
     health,
     ident,
     names,
     profiler,
     roofline,
     slo,
+    traceread,
     waterfall,
 )
 from knn_tpu_torch.obs.export import (  # noqa: F401
@@ -103,11 +116,12 @@ from knn_tpu_torch.obs.trace import (  # noqa: F401
 __all__ = [
     "NOOP", "Counter", "EventLog", "Gauge", "Histogram",
     "MetricsRegistry", "Objective", "SLOEngine", "audit", "blackbox",
-    "compact_snapshot", "counter", "drift", "emit_event", "enabled",
-    "gauge", "get_event_log", "get_registry", "get_slo_engine", "health",
+    "calibrate", "compact_snapshot", "counter", "drift", "emit_event",
+    "enabled", "fleet", "gauge", "get_event_log", "get_registry", "get_slo_engine", "health",
     "histogram", "ident", "load_objectives", "names", "new_trace_id",
     "profiler", "prometheus_text", "record_span", "reset",
     "reset_event_log", "reset_slo_engine", "roofline", "slo",
-    "slo_report", "snapshot", "span", "start_metrics_server", "waterfall",
+    "slo_report", "snapshot", "span", "start_metrics_server", "traceread",
+    "waterfall",
     "write_json_snapshot",
 ]

@@ -34,8 +34,10 @@ in ``/statusz`` (``postmortems``).
 Where the port differs (ROADMAP queue C): the directory and ``keep`` are
 arguments of :func:`configure` where the JAX package reads environment
 variables, and a bundle's ``env`` holds those arguments (and the audit
-rate, budget and SLO windows) in place of the environment; its
-``calibration`` keeps the off shape (no calibration store is ported).
+rate, budget and SLO windows) in place of the environment.  A bundle's
+``calibration`` is the live store section of its ``statusz`` report.  The
+fleet plane (knn_tpu_torch.obs.fleet) writes its own bundles into the same
+directory under the same retention.
 """
 
 from __future__ import annotations

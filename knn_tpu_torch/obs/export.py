@@ -9,8 +9,8 @@ worst exemplar on a comment line.  The JSON snapshot writer is atomic
 (temporary file and rename).  :func:`start_metrics_server` serves
 ``/metrics``, ``/metrics.json``, ``/healthz``, ``/statusz`` and
 ``/waterfallz`` (the request waterfalls, read by ``cli waterfall
---port``) from a daemon thread; the JAX package's ``/fleetz`` waits for
-the fleet plane (ROADMAP queue A item 5) and answers 404 here.
+--port``) and ``/fleetz`` (the merged fleet report over the configured
+members, obs.fleet.live_fleet_report) from a daemon thread.
 """
 
 from __future__ import annotations
@@ -148,9 +148,10 @@ def start_metrics_server(port: int, host: str = "127.0.0.1"):
     """Serve ``/metrics`` (Prometheus text), ``/metrics.json`` (the
     snapshot), ``/healthz`` (200 once an engine is warmed and the queue
     workers live, else 503: obs.health.probe), ``/statusz`` (the full
-    health report) and ``/waterfallz`` (every request waterfall the event
+    health report), ``/waterfallz`` (every request waterfall the event
     ring rebuilds, their attribution and the slowest requests:
-    obs.waterfall.live_report) from a daemon thread; returns the server
+    obs.waterfall.live_report) and ``/fleetz`` (the merged fleet report:
+    obs.fleet.live_fleet_report) from a daemon thread; returns the server
     (``.shutdown()`` and ``.server_close()`` stop it,
     ``.server_address[1]`` is the bound port: pass 0 for any free one)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -185,6 +186,12 @@ def start_metrics_server(port: int, host: str = "127.0.0.1"):
                 from knn_tpu_torch.obs import waterfall
 
                 body = json.dumps(waterfall.live_report(), indent=1,
+                                  sort_keys=True, default=str).encode()
+                ctype = "application/json"
+            elif path == "/fleetz":
+                from knn_tpu_torch.obs import fleet
+
+                body = json.dumps(fleet.live_fleet_report(), indent=1,
                                   sort_keys=True, default=str).encode()
                 ctype = "application/json"
             else:

@@ -20,9 +20,11 @@ sampler's state and the drift sketch of every registered IVF index.
 ``export.write_json_snapshot`` embeds the same report, so ``doctor
 --snapshot`` renders it offline.
 
-Where the port differs: ``calibration`` takes the shape the JAX package
-gives it without a calibration store (none is ported), and ``multihost``
-is absent, as in a single-host JAX process.  The text renderer keeps the
+``calibration`` is the calibration store's state
+(:func:`knn_tpu_torch.obs.calibrate.status`: the store, the keys of its
+entries under the current model token, the worst per-term residual).
+Where the port differs: ``multihost`` is absent, as in a single-host JAX
+process.  The text renderer keeps the
 JAX package's wording, so the two ``doctor`` commands print the same lines
 for the same snapshot.
 """
@@ -288,12 +290,15 @@ def _quality_status() -> dict:
         return {"error": f"{type(e).__name__}: {e}"}
 
 
-def _calibration_off() -> dict:
-    """The calibration section in the shape the JAX package gives it with
-    no store (its calibrate.status())."""
-    return {"store": None, "exists": False, "entries": 0,
-            "model_token": f"cal{roofline.MODEL_VERSION}",
-            "worst_residual_pct": None}
+def _calibration_status() -> dict:
+    """The calibration store's state — never fatal: a broken store must
+    not take the status probe down with it."""
+    try:
+        from knn_tpu_torch.obs import calibrate
+
+        return calibrate.status()
+    except Exception as e:  # noqa: BLE001 - introspection must not raise
+        return {"error": f"{type(e).__name__}: {e}"}
 
 
 def report(slo_section: Optional[dict] = None,
@@ -327,7 +332,7 @@ def report(slo_section: Optional[dict] = None,
         "queues": [_queue_status(q) for q in queues],
         "tune_cache": _tune_cache_status(),
         "roofline": roofline.last_reports(),
-        "calibration": _calibration_off(),
+        "calibration": _calibration_status(),
         "slo": slo_section,
         "active_breaches": (slo_section.get("breached", [])
                             if slo_section else []),

@@ -15,13 +15,13 @@ catalogs hold the same triples (help strings do not move it).
 Names this package never writes (they stay in the catalog so the two
 catalogs stay one, and :data:`UNWRITTEN` lists them): ``JAX_COMPILES`` /
 ``JAX_COMPILE_SECONDS`` (there is no XLA here; a CUDA graph capture counts
-under ``SERVING_COMPILES``); the ``MERGE_*`` and ``FLEET_*`` names
-(multi-GPU and the fleet plane, ROADMAP queue A); and ``CALIBRATION_*`` /
-``CAMPAIGN_*`` (the calibration store and campaigns, queue A item 5).
-The SLO engine, the flight recorder, the audit sampler and the drift
-monitor write ``SLO_*``, ``POSTMORTEMS_WRITTEN``, ``AUDIT_*``, ``DRIFT_*``
-and ``INDEX_LIST_IMBALANCE`` / ``INDEX_TAIL_FRACTION`` /
-``INDEX_TOMBSTONE_DENSITY``.
+under ``SERVING_COMPILES``) and the ``MERGE_*`` names (multi-GPU, ROADMAP
+queue A item 6).  The SLO engine, the flight recorder, the audit sampler
+and the drift monitor write ``SLO_*``, ``POSTMORTEMS_WRITTEN``,
+``AUDIT_*``, ``DRIFT_*`` and ``INDEX_LIST_IMBALANCE`` /
+``INDEX_TAIL_FRACTION`` / ``INDEX_TOMBSTONE_DENSITY``; the calibration
+overlay, the campaign and the fleet plane write ``CALIBRATION_*``,
+``CAMPAIGN_*`` and ``FLEET_*``.
 """
 
 from __future__ import annotations
@@ -182,15 +182,10 @@ FLEET_MERGE_STALENESS = "knn_tpu_fleet_merge_staleness_seconds"
 FLEET_STRAGGLER_HOST = "knn_tpu_fleet_straggler_host"
 
 #: the catalog names this package never writes (see the module docstring):
-#: the JAX package's XLA compile events, the multi-GPU merge and fleet
-#: names, and the calibration store's and campaigns' names
+#: the JAX package's XLA compile events and the multi-GPU merge names
 UNWRITTEN = frozenset({
     JAX_COMPILES, JAX_COMPILE_SECONDS,
     MERGE_SELECTED, MERGE_BYTES, MERGE_STRAGGLER_GAP,
-    FLEET_MEMBERS, FLEET_UNREACHABLE, FLEET_MERGE_STALENESS,
-    FLEET_STRAGGLER_HOST,
-    CALIBRATION_APPLIED, CALIBRATION_AGE, CALIBRATION_RESIDUAL,
-    CAMPAIGN_ARMS, CAMPAIGN_STAGES,
 })
 
 #: name -> (type, label names, help).  Types: "counter" (monotone,

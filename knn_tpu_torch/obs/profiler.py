@@ -49,8 +49,9 @@ from knn_tpu_torch.obs import trace
 BODY_MARKER = "obs.device_trace"
 
 #: tiny kernels a trace runs before the block, to take the loss of a
-#: trace's first kernels
-WARMUP_KERNELS = 64
+#: trace's first kernels (64 did not suffice: the second trace of a
+#: campaign after six earlier traces in one process lost 66 kernels)
+WARMUP_KERNELS = 512
 
 #: host runtime calls that wait for the device
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",

@@ -33,13 +33,23 @@ card's — ``hbm_bound``, ``tensor_core_bound``, ``cuda_core_bound``,
 ``smem_bound``, ``h2d_bound`` — in place of ``mxu_bound`` /
 ``vpu_select_bound``; a term counts the work the function needs (one db
 read), where the JAX model counts the kernel's re-streams per query block;
-the terms are a bound, not a serialized sum; there is no calibration
-overlay yet (``calibration: {applied: false}`` on every block); the JAX
+the terms are a bound, not a serialized sum (:func:`_combined`); the JAX
 package's ``xla_cost_model`` is :func:`counted_cost_model` here (the
 counted ``exact`` / ``approx`` selectors); and ``db_hosts > 1`` (the DCN
-merge term) is refused until multi-GPU (ROADMAP queue A item 8).  An
+merge term) is refused until multi-GPU (ROADMAP queue A item 6).  An
 unknown device kind gets :data:`GENERIC_CPU_PEAKS` with ``estimated``
 set, as in the JAX package.
+
+Every block consults the calibration overlay
+(:mod:`knn_tpu_torch.obs.calibrate`, the store set by
+``calibrate.configure(store=)``): where the store holds an entry for the
+block's key, each term is re-timed by its measured factor, ``ceiling_qps``
+and ``bound_class`` become the calibrated ones (``ceiling_qps_analytic``
+keeps the data-sheet ceiling) and ``term_times_calibrated_s`` and
+``calibration: {applied: true, factors, source, ...}`` go on the block;
+else ``calibration: {applied: false}``, with a ``note`` on the probed (IVF)
+and join blocks no entry covers, or an ``error`` when the store cannot be
+read.
 """
 
 from __future__ import annotations
@@ -328,24 +338,103 @@ def _refuse_hosts(db_hosts: int) -> None:
     if int(db_hosts) > 1:
         raise ValueError(
             "db_hosts > 1: the cross-host merge term waits for the port's "
-            "multi-GPU path (ROADMAP queue A item 8)")
+            "multi-GPU path (ROADMAP queue A item 6)")
+
+
+def _combined(cls_times: Dict[str, float]) -> float:
+    """The ceiling's time from per-bound-class term times: the largest
+    term (the terms are a bound, not a serialized sum).  The one formula
+    the ceiling, the calibration overlay and the reconciler
+    (calibrate._combined_time) use."""
+    return max(cls_times.values())
+
+
+def _bound_class(cls_times: Dict[str, float]) -> str:
+    """The largest term's class, ties in BOUND_CLASSES order."""
+    return max(cls_times,
+               key=lambda c: (cls_times[c], -BOUND_CLASSES.index(c)))
 
 
 def _finish(model: dict, nq: int, times: Dict[str, float]) -> dict:
     """Fill the verdict from the term times: the bound class is the
     largest term (ties in BOUND_CLASSES order), the ceiling ``nq`` over
-    it."""
+    it; then the calibration overlay (:func:`_consult_calibration`)."""
     for term, t in times.items():
         model["terms"].setdefault(term, {})["time_s"] = t
     cls = {_TERM_CLASS[t]: v for t, v in times.items()}
-    bound = max(cls, key=lambda c: (cls[c], -BOUND_CLASSES.index(c)))
-    t = cls[bound]
-    model["bound_class"] = bound
+    t = _combined(cls)
+    model["bound_class"] = _bound_class(cls)
     model["ceiling_qps"] = round(nq / t, 1) if t > 0 else None
     model["ceiling_qps_analytic"] = model["ceiling_qps"]
     model["term_times_s"] = {c: round(v, 6) for c, v in cls.items()}
-    model["calibration"] = {"applied": False}
+    model.pop("term_times_calibrated_s", None)
+    _consult_calibration(model, nq, cls)
     return model
+
+
+def _consult_calibration(model: dict, nq: int,
+                         cls: Dict[str, float]) -> None:
+    """Overlay the stored measured-term factors onto this block where the
+    calibration store covers its key.  Failure-proof: a broken store
+    degrades to the analytic verdict with the reason on the block."""
+    from knn_tpu_torch.obs import calibrate
+
+    if "h2d_bound" in cls:
+        # a join block's device terms are one superblock's search; its
+        # verdict adds the host link, which no entry measured
+        model["calibration"] = {
+            "applied": False,
+            "note": "join blocks use the analytic h2d model"}
+        return
+    if "probe" in model.get("terms", {}):
+        # every measured entry covers a full-db stream; its factors on a
+        # pruned stream would claim a measured ceiling for an unmeasured
+        # shape
+        model["calibration"] = {
+            "applied": False,
+            "note": "probed blocks use the analytic IVF model"}
+        return
+    try:
+        entry = calibrate.lookup_for_block(model)
+    except Exception as e:  # noqa: BLE001 — the overlay must not kill the model
+        model["calibration"] = {"applied": False,
+                                "error": f"{type(e).__name__}: {e}"}
+        return
+    if entry is None:
+        model["calibration"] = {"applied": False}
+        return
+    factors = entry.get("factors")
+    if not isinstance(factors, dict) or set(factors) - set(_TERM_CLASS):
+        # a hand-edited store (or one fit against other terms) degrades
+        # to analytic, never mis-applies
+        model["calibration"] = {
+            "applied": False,
+            "error": "entry factors are not the roofline's terms"}
+        return
+    term_of = {c: t for t, c in _TERM_CLASS.items()}
+    cal = {c: v * float(factors.get(term_of[c], 1.0))
+           for c, v in cls.items()}
+    t = _combined(cal)
+    if t <= 0:
+        model["calibration"] = {"applied": False,
+                                "error": "non-positive calibrated time"}
+        return
+    model["ceiling_qps"] = round(nq / t, 1)
+    model["bound_class"] = _bound_class(cal)
+    model["term_times_calibrated_s"] = {c: round(v, 6)
+                                        for c, v in cal.items()}
+    model["calibration"] = {
+        "applied": True,
+        "factors": dict(factors),
+        "method": entry.get("method"),
+        "source": entry.get("source"),
+        "age_s": calibrate.entry_age_s(entry),
+        "samples": entry.get("samples"),
+        "model_residual_pct": entry.get("model_residual_pct"),
+        "term_residual_pct": entry.get("term_residual_pct"),
+        "measured_at": entry.get("measured_at"),
+        "provenance": entry.get("provenance"),
+    }
 
 
 def _hbm_term(by: Dict[str, float], extra: float, peaks) -> Tuple[dict, float]:
@@ -571,9 +660,9 @@ def join_cost_model(
     host→device query rows (analysis.hbm.plan_join) over the host link
     (estimated, :data:`ESTIMATED_PEAKS`).  The engine double-buffers, so
     the bound is the larger of the device bound and the h2d time, and
-    ``ceiling_qps`` is rows of A a second.  A host-tiered corpus (the JAX
-    model's ``db_segment_rows``) waits for the host-RAM tier (ROADMAP queue
-    A item 9)."""
+    ``ceiling_qps`` is rows of A a second; the verdict stays analytic
+    (``calibration`` carries the note).  A host-tiered corpus (the JAX
+    model's ``db_segment_rows``) is not priced here."""
     from knn_tpu_torch.analysis import hbm as _hbm
 
     sb = int(superblock_rows)
@@ -594,7 +683,7 @@ def join_cost_model(
     times = {t: model["terms"][t]["time_s"]
              for t in ("hbm", "tensor_core", "cuda_core", "smem")
              if t in model["terms"]}
-    t_dev = max(times.values())
+    t_dev = _combined({_TERM_CLASS[t]: v for t, v in times.items()})
     model["terms"]["h2d"] = {"bytes": int(per_sb),
                              "total_bytes": int(h2d_total),
                              "rate_gbps": peaks["h2d_gbps"],
@@ -636,7 +725,9 @@ def validate_block(block) -> list:
     well formed: a dict with an int ``model_version``, a ``bound_class`` of
     :data:`BOUND_CLASSES`, a positive (or None) ``ceiling_qps``, a
     ``terms`` dict whose every time is a non-negative number, a bool
-    ``estimated``, and a non-negative (or None) ``roofline_pct``."""
+    ``estimated``, a non-negative (or None) ``roofline_pct``, and a
+    well-formed ``calibration`` where it has one
+    (calibrate.validate_calibration)."""
     if not isinstance(block, dict):
         return [f"roofline block is {type(block).__name__}, not a dict"]
     errs = []
@@ -673,6 +764,10 @@ def validate_block(block) -> list:
     if pct is not None and (not _number(pct) or pct < 0):
         errs.append(f"roofline_pct must be a non-negative number, got "
                     f"{pct!r}")
+    if "calibration" in block:
+        from knn_tpu_torch.obs import calibrate
+
+        errs.extend(calibrate.validate_calibration(block["calibration"]))
     return errs
 
 
@@ -705,6 +800,11 @@ def publish(label: str, block: dict) -> None:
                 names.ROOFLINE_BOUND, config=label,
                 **{"class": cls}).set(1.0 if cls == bound else 0.0)
     registry.counter(names.ROOFLINE_EVALUATIONS).inc()
+    cal = block.get("calibration")
+    if isinstance(cal, dict):
+        from knn_tpu_torch.obs import calibrate
+
+        calibrate.publish(label, cal)
     compact = {
         "roofline_pct": pct,
         "ceiling_qps": block.get("ceiling_qps"),
@@ -713,7 +813,8 @@ def publish(label: str, block: dict) -> None:
         "measured_qps": block.get("measured_qps"),
         "estimated": bool(block.get("estimated")),
         "model_version": block.get("model_version"),
-        "calibration_applied": False,
+        "calibration_applied": bool(
+            cal.get("applied")) if isinstance(cal, dict) else False,
     }
     with _lock:
         _LAST.pop(label, None)
@@ -805,8 +906,23 @@ def render_text(block: dict) -> str:
             f"  probed:      {pr.get('rows_probed', 0) / 1e6:10.3f} Mrow "
             f"of {(cfg.get('n') or 0) / 1e6:.3f} M    "
             f"(nprobe {pr.get('nprobe')}/{pr.get('ncentroids')} lists)")
-    lines.append(f"ceiling: {block.get('ceiling_qps')} q/s "
-                 f"({block.get('bound_class')}) [calibration: absent]")
+    cal = block.get("calibration")
+    if isinstance(cal, dict) and cal.get("applied"):
+        lines.append(
+            f"ceiling: {block.get('ceiling_qps')} q/s CALIBRATED "
+            f"({block.get('bound_class')}; analytic "
+            f"{block.get('ceiling_qps_analytic')} q/s, model off by "
+            f"{cal.get('model_residual_pct')}%, {cal.get('method')} fit, "
+            f"source {cal.get('source')}, age {cal.get('age_s')}s)")
+    else:
+        why = ""
+        if isinstance(cal, dict) and cal.get("error"):
+            why = f", overlay error: {cal['error']}"
+        elif isinstance(cal, dict) and cal.get("note"):
+            why = f", {cal['note']}"
+        lines.append(f"ceiling: {block.get('ceiling_qps')} q/s "
+                     f"({block.get('bound_class')}) "
+                     f"[calibration: absent{why}]")
     if block.get("roofline_pct") is not None:
         lines.append(f"measured: {block.get('measured_qps')} q/s = "
                      f"{block['roofline_pct'] * 100:.1f}% of roofline")

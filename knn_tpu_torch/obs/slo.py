@@ -44,8 +44,9 @@ its path, and :func:`reset_slo_engine` takes ``objectives=`` and
 ``windows=`` — where the JAX package reads an environment variable; a chip
 run passes windows of seconds, which the defaults' 60 s / 600 s would
 never confirm within it.  The fleet helpers :func:`evaluate_fleet` and
-:class:`FleetSLOEngine` are pure functions over the merged report's dicts;
-the fleet plane that calls them is not ported yet.
+:class:`FleetSLOEngine` are pure functions over the merged report's dicts,
+called by the fleet plane (knn_tpu_torch.obs.fleet) with the objectives in
+force (:func:`objectives_in_force`).
 """
 
 from __future__ import annotations
@@ -621,6 +622,12 @@ def reset_slo_engine(objectives: Optional[Sequence[Objective]] = None,
         _config.update(objectives=objs, windows=new.windows)
         _engine = new if registry.enabled() else NOOP_SLO
         return _engine
+
+
+def objectives_in_force() -> Optional[Tuple[Objective, ...]]:
+    """The objectives of the last :func:`reset_slo_engine` (None: the
+    defaults)."""
+    return _config["objectives"]
 
 
 def windows_in_force() -> Tuple[Tuple[str, float], ...]:

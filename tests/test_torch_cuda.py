@@ -1867,3 +1867,79 @@ def test_cuda_device_time_lands_in_the_join_segment(cuda_device):
     assert seg["join"] >= 0.02, seg
     assert seg["device"] < seg["join"], seg
     assert w["complete"], w
+
+
+@pytest.mark.cuda
+def test_cuda_traceread_busy_equals_profiler_summary(cuda_device, tmp_path):
+    """A device trace of a certified search on the card, read back from
+    disk: device tracks matched, the warm-up kernels before the body, K1
+    in the body, and the busy time profiler.summarize gives the same
+    trace."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.obs import profiler, traceread
+
+    rng = np.random.default_rng(17)
+    q, db = _data(rng, 256, 40_000, 64)
+    knn = ShardedKNN(db, k=10, device=cuda_device)
+    knn.search_certified(q)  # warm: builds, allocations
+    torch.cuda.synchronize()
+    with profiler.device_trace("search", out_dir=str(tmp_path)) as cap:
+        knn.search_certified(q)
+        torch.cuda.synchronize()
+    summ = cap.summary()
+    s = traceread.read_section(str(tmp_path), "search")
+    assert s["device_tracks_matched"] and s["events_before_body"] >= 1
+    assert s["kernel_events"] == summ["kernel_events"]
+    assert abs(s["device_busy_s"] - summ["device_busy_ms"] / 1e3) <= \
+        1e-6 + 1e-9 * s["kernel_events"]
+    events = traceread.read_trace_events(s["trace_files"][0])
+    assert any("binned_select_" in n
+               for n in traceread.body_event_names(events))
+    sample = traceread.sample_from_trace(str(tmp_path), "search", nq=256)
+    assert sample["source"] == "device_trace" and sample["qps"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_campaign_arms_calibrate_at_a_small_shape(cuda_device,
+                                                       tmp_path):
+    """The campaign's two bf16x3 arms on the card: every stage ok, the
+    trace read back holds each arm's kernel with the busy time
+    profiler.summarize gives, both samples fit, the device-trace fit
+    stored under two keys, and each calibrated ceiling within the
+    tolerance of its measured q/s and at least the arm's own wall
+    rate."""
+    from knn_tpu_torch import campaign
+    from knn_tpu_torch.obs import calibrate
+
+    # large enough that the host-phase sample stays inside the factor
+    # clamp of the modeled microseconds
+    s = campaign.run_campaign(
+        rehearse=True, arms=("bf16x3_tiled", "bf16x3_streaming"),
+        out_dir=str(tmp_path), device="cuda",
+        shape=dict(n=200_000, d=128, k=10, nq=1024))
+    assert s["ok"], s["arms"]
+    keys = [a["entry_key"] for a in s["arms"]]
+    assert len(set(keys)) == 2
+    assert keys[0].startswith(torch.cuda.get_device_name(0) + "|")
+    for r in s["results"]:
+        line = r["line"]
+        stages = {st["stage"]: st for st in line["campaign"]["stages"]}
+        assert all(st["status"] == "ok" for st in stages.values())
+        cap = stages["capture"]["live_capture"]
+        assert cap["device_tracks_matched"] and cap["kernel_held"]
+        assert abs(cap["device_busy_s"] - cap["summarize_busy_s"]) <= \
+            1e-6 + 1e-9 * cap["kernel_events"]
+        assert stages["reconcile"]["source"] == "device_trace"
+        fits = stages["reconcile"]["fits"]
+        assert set(fits) == {"device_trace", "host_phase"}
+        assert all("error" not in f for f in fits.values()), fits
+        assert stages["calibrate"]["reconstruction_residual_pct"] <= \
+            calibrate.RESIDUAL_TOLERANCE_PCT
+        # the stored (trace) ceiling is at least the arm's own wall rate
+        assert stages["calibrate"]["ceiling_below"] == []
+        assert line["roofline"]["ceiling_qps"] >= fits["host_phase"]["qps"]
+        bench = stages["bench"]
+        assert bench["tile_n"] in stages["tune"]["tiles"]
+        assert bench["certified"] + bench["fallback_queries"] >= 1024
+        assert line["roofline"]["calibration"]["applied"]
+        assert line["device_kind"] == torch.cuda.get_device_name(0)

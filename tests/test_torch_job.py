@@ -302,7 +302,9 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.obs.names, knn_tpu_torch.index.artifact\n"
         "import knn_tpu_torch.obs.slo, knn_tpu_torch.obs.audit\n"
         "import knn_tpu_torch.obs.drift, knn_tpu_torch.obs.waterfall\n"
-        "import knn_tpu_torch.obs.blackbox\n"
+        "import knn_tpu_torch.obs.blackbox, knn_tpu_torch.obs.traceread\n"
+        "import knn_tpu_torch.obs.calibrate, knn_tpu_torch.obs.fleet\n"
+        "import knn_tpu_torch.campaign\n"
         "knn_tpu_torch.native.load()\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -335,8 +335,12 @@ def test_http_metrics_endpoint():
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(f"{base}/healthz", timeout=10)
         assert e.value.code == 503  # no engine registered
+        # /fleetz: no fleet member configured, said so
+        fz = json.loads(urllib.request.urlopen(f"{base}/fleetz",
+                                               timeout=10).read())
+        assert fz["enabled"] is False and "members" in fz["reason"]
         with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(f"{base}/fleetz", timeout=10)
+            urllib.request.urlopen(f"{base}/nowhere", timeout=10)
         assert e.value.code == 404
     finally:
         server.shutdown()

@@ -163,9 +163,9 @@ def test_counted_and_join_models():
 
 
 def test_refusals_by_name():
-    with pytest.raises(ValueError, match="queue A item 8"):
+    with pytest.raises(ValueError, match="queue A item 6"):
         rl.pallas_cost_model(n=N, d=DP, k=10, nq=NQ, db_hosts=2)
-    with pytest.raises(ValueError, match="queue A item 8"):
+    with pytest.raises(ValueError, match="queue A item 6"):
         rl.counted_cost_model(n=N, d=DP, k=10, nq=NQ, db_hosts=4)
     with pytest.raises(ValueError, match="together"):
         rl.pallas_cost_model(n=N, d=DP, k=10, nq=NQ, nprobe=4)
