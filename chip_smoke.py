@@ -7,6 +7,10 @@ Phases, each printing one JSON line (a failed check raises, so the script
 exits non-zero and prints no result):
 
 1. device  — the card's name, ``nvidia-smi`` name and power limit, versions;
+   lint    — ``python -m knn_tpu_torch.cli lint --json`` in a subprocess
+             with no card visible (``CUDA_VISIBLE_DEVICES=""``): exit 0, no
+             finding, the five registered checkers, at least one justified
+             suppression, the report's counts on the phase's line;
 2. build   — builds every CUDA kernel of the port from ``knn_tpu_torch/csrc``
              with nvcc (one process per arm of each source, all at once);
              every bf16x3, bf16x3f and default build must hold bf16
@@ -288,7 +292,8 @@ exits non-zero and prints no result):
              (besides the queries and the carry), below the corpus's
              516 MB in all, every
              resident-only entry refused by name; the call's and each
-             sweep's seconds, the copies' GB/s;
+             sweep's seconds, the copies' GB/s; the lock-order hammer over
+             the tier (``tier_lock_order``);
 20. join   — ``knn_join`` of 16,384 rows against the ``main`` placement in
              4,096-row superblocks: ``mode="stream"`` bitwise the looped
              ``search`` (rows/s, overlap_ratio), ``mode="certified"``
@@ -325,7 +330,28 @@ exits non-zero and prints no result):
              ``budget``), and a seeded fault on one tenant under 1 s / 4 s
              SLO windows: one ``audit_recall:<tenant>`` firing transition
              and one postmortem bundle, read back by ``cli waterfall`` and
-             ``cli audit``;
+             ``cli audit``; and the lock-order hammer on the warm graphs
+             (the engine's ``_lock`` and ``_launch_lock``, a queue's
+             ``_cond`` and admission controller, the SLO engine, the
+             registry, one histogram, the audit sampler at rate 1.0
+             instrumented by knn_tpu_torch.analysis.lockorder; 8 threads x
+             4 barrier rounds of one 1-8-row request): no thread raises,
+             every instrumented lock taken, a batch a round at least,
+             edges recorded, no cycle, every request bitwise its coalesced
+             batch's eager search, one graph replay per queue batch and no
+             capture (the index phase runs the same over the mutable
+             frontend across a background compaction, with the index's
+             ``_lock`` and ``_compact_lock`` and the placement's
+             ``_engines_lock``, the locks instrumented through reads
+             across the swap, some served on the old epoch; the hosttier
+             phase over the host-RAM tier's ``_tier_lock`` /
+             ``_engines_lock`` with direct searches);
+    catalog — every bench block the run built (the ``main``, ``obs`` and
+             re-rendered roofline blocks, each campaign arm's roofline,
+             calibration and campaign block, the fleet block, the knee,
+             the tune entries) validated by
+             knn_tpu_torch.analysis.artifacts in both styles (each phase
+             fails on a refusal; this line lists them);
 23. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, K1 at Dp = 256 on the dot path, the entries of K4,
              K2, K3, K5, K6, K7, the db-major grid K9, the lane entries K8
@@ -335,7 +361,8 @@ exits non-zero and prints no result):
              bound (one per arm).
 
 Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
-``--phases`` runs a subset (e.g. ``--phases device,build,kernel``,
+``--phases`` runs a subset (e.g. ``--phases device,lint``,
+``--phases device,build,kernel``,
 ``--phases device,build,kernel,stream``, ``--phases device,build,quant``,
 ``--phases device,build,f32arms``, ``--phases device,build,pq``,
 ``--phases device,build,lane``, ``--phases device,build,survivors,tune``,
@@ -378,6 +405,218 @@ PAD_SCALE = 1e30
 
 #: the script's start, for each phase line's ``elapsed_s``
 T0 = time.perf_counter()
+
+#: the repo this script runs from (the lint phase lints it)
+REPO = Path(__file__).resolve().parent
+
+#: every bench block of the run validated through the artifact catalog
+CATALOG_CHECKS: list = []
+
+
+def catalog_check(label, name, block):
+    """Validate one block this run built through the artifact catalog
+    (knn_tpu_torch.analysis.artifacts) in both styles; any violation
+    fails the phase."""
+    from knn_tpu_torch.analysis import artifacts
+
+    errs = {style: artifacts.validate(name, block, style=style)
+            for style in ("legacy", "normalized")}
+    if any(errs.values()):
+        raise AssertionError(f"catalog: {label} ({name}): {errs}")
+    CATALOG_CHECKS.append(f"{label}: {name}")
+
+
+def lint_phase():
+    """``python -m knn_tpu_torch.cli lint --json`` in a subprocess with no
+    card visible: exit 0, no finding, the five registered checkers, at
+    least one justified suppression."""
+    from knn_tpu_torch import analysis
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "knn_tpu_torch.cli", "lint", "--json"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    try:
+        rep = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        rep = {}
+    if (proc.returncode != 0 or rep.get("findings") != []
+            or sorted(rep.get("checkers") or ()) != sorted(analysis.CHECKERS)
+            or len(analysis.CHECKERS) != 5
+            or not rep.get("suppressed", 0) >= 1):
+        raise AssertionError(f"lint: rc {proc.returncode}, "
+                             f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    return {"phase": "lint", "rc": proc.returncode,
+            "checkers": rep["checkers"], "findings": len(rep["findings"]),
+            "suppressed": rep["suppressed"],
+            "seconds": time.perf_counter() - t0}
+
+
+def lock_order_hammer(queue, frontend, pool, named, eager_fns, *,
+                      calls=(), threads=8, requests=4, before=None,
+                      during=None):
+    """The lock-order hammer over one serving stack: the locks ``named``
+    (name -> object, or (object, attribute)) instrumented with one
+    knn_tpu_torch.analysis.lockorder recorder; ``threads`` threads meet
+    at a barrier before each of ``requests`` rounds, and in a round each
+    submits one request of 1-8 rows of ``pool`` (disjoint slices) through
+    ``queue``, runs ``calls`` and waits for its request, so the queue
+    forms at least one batch a round.  ``before`` runs once the locks are
+    instrumented, ``during`` after the rounds while they still are (its
+    return value is returned as ``during``).  Every batch the queue hands
+    ``frontend.submit`` in the rounds is recorded, and each request's
+    result must equal, bit for bit, its rows of one of ``eager_fns``
+    applied to its batch (an eager search of the batch padded to its
+    rung; two where a swap may fall between dispatches).  No thread may
+    raise, every instrumented lock must be taken, and the order graph
+    must hold edges and no cycle.  The locks are restored after.  Returns
+    the edge count, the edges, the locks seen and the batches."""
+    import threading
+
+    from knn_tpu_torch.analysis.lockorder import LockOrderRecorder, instrument
+
+    rec = LockOrderRecorder()
+    saved = []
+    for name, obj in named.items():
+        target, attrs = ((obj[0], (obj[1],)) if isinstance(obj, tuple)
+                         else (obj, ("_lock", "_cond")))
+        attr = next(a for a in attrs if getattr(target, a, None) is not None)
+        saved.append((target, attr, getattr(target, attr)))
+    batches = []
+    real_submit = frontend.submit
+
+    def recording_submit(q, **kw):
+        batches.append(np.array(q, copy=True))
+        return real_submit(q, **kw)
+
+    def rows_of(i, j):
+        lo = 8 * (i * requests + j)
+        return pool[lo:lo + 1 + (i + j) % 8]
+
+    barrier = threading.Barrier(threads)
+    results, errors, out_lock = {}, [], threading.Lock()
+
+    def run(i):
+        try:
+            for j in range(requests):
+                barrier.wait(120)
+                fut = queue.submit(rows_of(i, j))
+                for fn in calls:
+                    fn()
+                res = fut.result(timeout=120)
+                with out_lock:
+                    results[(i, j)] = res
+        except BaseException as e:  # noqa: BLE001 — raised below
+            with out_lock:
+                errors.append(e)
+            barrier.abort()
+
+    frontend.submit = recording_submit
+    instrument(rec, **named)
+    during_out = None
+    try:
+        try:
+            if before is not None:
+                before()
+            ts = [threading.Thread(target=run, args=(i,),
+                                   name=f"hammer-{i}")
+                  for i in range(threads)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+        finally:
+            del frontend.submit
+        if not errors and during is not None:
+            during_out = during()
+    finally:
+        for target, attr, lock in saved:
+            setattr(target, attr, lock)
+    if errors:
+        raise AssertionError(f"lock order: a hammer thread raised: "
+                             f"{errors[:3]!r}")
+    missing = sorted(set(named) - rec.seen())
+    if missing:
+        raise AssertionError(f"lock order: instrumented locks never taken: "
+                             f"{missing}")
+    if len(batches) < requests:
+        raise AssertionError(f"lock order: {len(batches)} batches for "
+                             f"{requests} rounds")
+    edges = rec.edges()
+    if not edges:
+        raise AssertionError("lock order: the hammer recorded no lock "
+                             "interleaving")
+    rec.assert_acyclic()
+    where = {}
+    for b, cat in enumerate(batches):
+        for off in range(cat.shape[0]):
+            where.setdefault(cat[off].tobytes(), (b, off))
+    wants = {}
+    for (i, j), res in sorted(results.items()):
+        rows = rows_of(i, j)
+        b, off = where[rows[0].tobytes()]
+        if not np.array_equal(batches[b][off:off + rows.shape[0]], rows):
+            raise AssertionError(f"lock order: request {(i, j)} is not a "
+                                 f"slice of its batch")
+        if b not in wants:
+            wants[b] = [fn(batches[b]) for fn in eager_fns]
+        if not any(all(np.array_equal(x, y[off:off + rows.shape[0]])
+                       for x, y in zip(res, want)) for want in wants[b]):
+            raise AssertionError(f"lock order: request {(i, j)} differs "
+                                 f"from the eager search of its batch")
+    return {"edges": len(edges),
+            "edge_list": sorted(f"{a}->{b}" for a, b in edges),
+            "locks_seen": sorted(rec.seen()),
+            "locks_instrumented": sorted(named),
+            "requests": len(results), "batches": len(batches),
+            "batch_rows": [int(c.shape[0]) for c in batches],
+            "during": during_out}
+
+
+def tier_lock_order(tier, pool):
+    """The lock-order hammer over the host-RAM tier, the one placement
+    that takes ShardedKNN._tier_lock: 8 threads x 4 rounds, each
+    thread a search of 1-8 rows straight through ``tier.search`` (the
+    tier serves no queue or graph), then compile_cache_stats(),
+    hosttier_stats() and the SLO engine's evaluate(), with the tier's
+    _tier_lock and _engines_lock, the registry, the sweep histogram
+    and the SLO engine instrumented; every search bitwise the same
+    rows' search run alone."""
+    import concurrent.futures
+
+    from knn_tpu_torch import obs
+    from knn_tpu_torch.obs import names as mn
+
+    def search(rows):
+        return tuple(t.cpu().numpy() for t in tier.search(rows))
+
+    class Direct:
+        """A queue and frontend in one: each request answered at once
+        by ``search``."""
+
+        def submit(self, rows):
+            fut = concurrent.futures.Future()
+            fut.set_result(search(rows))
+            return fut
+
+    t0 = time.perf_counter()
+    direct = Direct()
+    slo_eng = obs.reset_slo_engine()
+    try:
+        out = lock_order_hammer(
+            direct, direct, pool,
+            {"tier": (tier, "_tier_lock"),
+             "engines": (tier, "_engines_lock"),
+             "registry": obs.get_registry(),
+             "sweep_hist": obs.histogram(mn.HOSTTIER_SWEEP_SECONDS),
+             "slo": slo_eng},
+            [search], calls=(tier.compile_cache_stats,
+                             tier.hosttier_stats, slo_eng.evaluate))
+    finally:
+        obs.reset_slo_engine()
+    out["elapsed_s"] = time.perf_counter() - t0
+    return out
 
 
 def emit(obj: dict) -> None:
@@ -1156,7 +1395,8 @@ def kernel_record(name, source, replaces):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="device,build,kernel,main,profile,obs,campaign,"
+                    default="device,lint,build,kernel,main,profile,obs,"
+                    "campaign,"
                     "stream,selectors,metrics,quant,f32arms,pq,lane,"
                     "survivors,tune,"
                     "index,ivf,hosttier,join,serving,native,classify",
@@ -1296,6 +1536,9 @@ def main(argv=None) -> int:
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "python": sys.version.split()[0],
               "sms": torch.cuda.get_device_properties(0).multi_processor_count})
+
+    if "lint" in phases:
+        emit(lint_phase())
 
     def build_resources():
         """[registers, static shared, local, dynamic shared bytes, CTAs per
@@ -1579,6 +1822,12 @@ def main(argv=None) -> int:
             raise AssertionError(f"bad result shapes {d.shape} {i.shape}")
         recall, same, rel = oracle_check(S, d, i, "main")
         S["tiled"] = (d, i)
+        # the main call's roofline block, held against the catalog
+        from knn_tpu_torch.obs import roofline
+
+        catalog_check("main", "roofline", roofline.attribute(
+            roofline.pallas_cost_model(n=n, d=dim, k=k, nq=n_q,
+                                       device_kind=kind), n_q / wall_warm))
         records["k1"].update(launches=launches["k1"], ms=ms, plain_ms=plain_ms,
                              bound_ms=bound["bound_ms"],
                              bound_by=bound["bound_by"])
@@ -1702,6 +1951,7 @@ def main(argv=None) -> int:
             raise AssertionError(
                 f"roofline: call {block['roofline_pct']}, K1 {k1_pct}, "
                 f"{roofline.validate_block(block)}")
+        catalog_check("obs", "roofline", block)
         label = roofline.config_label(S["n"], S["dim"], S["k"],
                                       device_kind=kind)
         roofline.publish(label, block)
@@ -1854,8 +2104,17 @@ def main(argv=None) -> int:
                 f"campaign: launches {launches}: K1 and K10 each at least "
                 f"once and no other kernel")
         arms_out = {}
+        catalog_check("campaign main block", "roofline", main_block)
         for r in summary["results"]:
             line = r["line"]
+            for name, block in (("roofline", line["roofline"]),
+                                ("calibration",
+                                 line["roofline"].get("calibration")),
+                                ("campaign", line["campaign"])):
+                catalog_check(f"campaign {r['arm']}", name, block)
+            if line["sentinel"] != campaign.SENTINEL_ABSENT:
+                raise AssertionError(f"campaign {r['arm']}: sentinel "
+                                     f"{line['sentinel']!r}")
             stages = {st["stage"]: st for st in line["campaign"]["stages"]}
             cap = stages["capture"].get("live_capture") or {}
             rec = stages["reconcile"]
@@ -1997,6 +2256,8 @@ def main(argv=None) -> int:
                         f"partial {rep['partial']}, members "
                         f"{rep['member_count']}, kinds {kinds}, counters "
                         f"off their sums {list(bad.items())[:3]}")
+                catalog_check("obs fleet", "fleet",
+                              fleet.artifact_block(rep))
                 fleet.configure(members=[ep])
                 fz = json.loads(urllib.request.urlopen(
                     f"{base}/fleetz", timeout=30).read())
@@ -3285,6 +3546,9 @@ def main(argv=None) -> int:
                         or again["knobs"] != entry["knobs"]:
                     raise AssertionError(f"tune {label}: the second call "
                                          f"re-timed: {second}")
+                catalog_check(f"tune {label}", "tuning_cache_entry", entry)
+                catalog_check(f"tune {label} cached", "tuning_cache_entry",
+                              again)
                 out[label] = {
                     "rows": int(rows.shape[0]), "queries": int(q_np.shape[0]),
                     "candidates": len(labels), "timed": len(timed),
@@ -3823,8 +4087,12 @@ def main(argv=None) -> int:
         Every read is bitwise the direct search of its padded batch at its
         epoch (the snapshot before the swap, or after it); the reads after
         the swap are bitwise a fresh index of the survivors."""
+        from knn_tpu_torch import obs
         from knn_tpu_torch.index import MutableIndex
+        from knn_tpu_torch.obs import audit
+        from knn_tpu_torch.obs import names as mn
         from knn_tpu_torch.serving import QueryQueue, bucket_for
+        from knn_tpu_torch.serving import engine as engine_mod
 
         n, k, dim = S["n"], S["k"], S["dim"]
         q = S["q_np"]
@@ -3854,13 +4122,87 @@ def main(argv=None) -> int:
         w2 = qq.submit_write("delete", ids=gone).result()
         pre = [direct(idx, b) for b in blocks]
         epoch0 = idx.epoch
-        idx.start_compactor(interval_s=0.05)
-        reads, t0 = [], time.perf_counter()
-        while idx.epoch == epoch0 or len(reads) < 3 * len(blocks):
-            if time.perf_counter() - t0 > 120:
-                raise AssertionError("index frontend: compaction stalled")
-            j = len(reads) % len(blocks)
-            reads.append((j, qq.submit(blocks[j]).result()))
+        # the lock-order hammer across the background compaction: the
+        # index's lock and compaction lock, the placement's engines lock
+        # (a direct search beside the queue takes it), the epoch's engine,
+        # the queue, the SLO engine, the registry, one histogram and the
+        # audit sampler; each request bitwise the direct search of its
+        # batch at the snapshot before the swap or after it.  The reads
+        # across the swap run while the locks are still instrumented, so
+        # the build, the captures and the swap are recorded too.
+        snap0 = idx._snapshot()
+
+        def at_snapshot(cat):
+            idx._snapshot = lambda: snap0
+            try:
+                return padded_search(idx.search, snap0.engine.buckets, cat)
+            finally:
+                del idx._snapshot
+
+        reads, captures, t0 = [], [], time.perf_counter()
+
+        def across_swap():
+            """Reads through the queue until the swap and 3 rounds of the
+            blocks: (block, result, epoch after the result, seconds)."""
+            while idx.epoch == epoch0 or len(reads) < 3 * len(blocks):
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError("index frontend: compaction "
+                                         "stalled")
+                j = len(reads) % len(blocks)
+                r = qq.submit(blocks[j]).result()
+                reads.append((j, r, idx.epoch, time.perf_counter() - t0))
+
+        def timed_capture(*a, **kw):
+            """The replacement engine's captures, timed (start, end)."""
+            t_c = time.perf_counter() - t0
+            try:
+                return real_capture(*a, **kw)
+            finally:
+                captures.append((t_c, time.perf_counter() - t0))
+
+        real_capture = engine_mod.capture_graph
+        engine_mod.capture_graph = timed_capture
+        slo_eng = obs.reset_slo_engine()
+        aud = audit.reset_auditor(rate=1.0)
+        try:
+            lock_out = lock_order_hammer(
+                qq, eng, q[2048:2304],
+                {"index": idx, "index_compact": (idx, "_compact_lock"),
+                 "engines": (snap0.main, "_engines_lock"),
+                 "engine": snap0.engine,
+                 "engine_launch": (snap0.engine, "_launch_lock"),
+                 "queue": qq, "slo": slo_eng,
+                 "registry": obs.get_registry(),
+                 "latency_hist": obs.histogram(
+                     mn.SERVING_REQUEST_LATENCY, op="search"),
+                 "audit": aud},
+                [at_snapshot,
+                 lambda cat: padded_search(idx.search, eng.buckets, cat)],
+                calls=(qq.stats, slo_eng.evaluate,
+                       lambda: idx.search(q[:8])),
+                before=lambda: idx.start_compactor(interval_s=0.05),
+                during=across_swap)
+        finally:
+            engine_mod.capture_graph = real_capture
+            audit.reset_auditor()
+            obs.reset_slo_engine()
+        del snap0
+        lock_out["elapsed_s"] = time.perf_counter() - t0
+        # reads served on the old epoch while the compaction built and
+        # captured: the epoch had not moved when their results came back;
+        # of them, those that came back between the replacement engine's
+        # first capture and its last
+        before_swap = [t for _, _, e, t in reads if e == epoch0]
+        after_swap = [t for _, _, e, t in reads if e != epoch0]
+        in_captures = [t for t in before_swap
+                       if captures and captures[0][0] < t < captures[-1][1]]
+        if not before_swap or len(captures) != 6 or not in_captures:
+            raise AssertionError(
+                f"index frontend: {len(before_swap)} reads on the old "
+                f"epoch, {len(in_captures)} of them during the "
+                f"{len(captures)} captures {captures} (read times "
+                f"{before_swap[-8:]})")
+        reads = [(j, r) for j, r, _, _ in reads]
         idx.close()
         post = [direct(idx, b) for b in blocks]
         last = [qq.submit(b).result() for b in blocks]
@@ -3903,6 +4245,13 @@ def main(argv=None) -> int:
                 "reads_before_writes": len(blocks),
                 "writes": {"insert": w1, "delete": w2},
                 "reads_across_swap": len(reads),
+                "reads_before_swap": len(before_swap),
+                "reads_before_swap_s": before_swap[-1],
+                "last_read_before_to_first_after_s":
+                    after_swap[0] - before_swap[-1],
+                "reads_during_captures": len(in_captures),
+                "captures_s": captures,
+                "compaction_wall_s": idx.stats()["last_compaction"]["wall_s"],
                 "reads_equal_pre_swap": n_pre, "reads_equal_post_swap": n_post,
                 "pre_equals_post": all(all_equal(a, b)
                                        for a, b in zip(pre, post)),
@@ -3910,7 +4259,7 @@ def main(argv=None) -> int:
                 "queue": {key: fst[key] for key in (
                     "requests", "dispatches", "writes", "latency_ms")},
                 "engine_graphs_after_swap": fst["engine"]["compile_count"],
-                "epoch": idx.epoch}
+                "epoch": idx.epoch, "lock_order": lock_out}
 
     def phase_ivf(S):
         """IVFIndex at 131,072 x 128 on clustered data (362 blobs): the
@@ -4243,6 +4592,7 @@ def main(argv=None) -> int:
             raise AssertionError("hosttier: MutableIndex.insert was not "
                                  "refused")
         del mi
+        lock_out = tier_lock_order(tier, q_np[:256])
         emit({"phase": "hosttier", "n": n, "dim": dim, "queries": q_np.shape[0],
               "k": k, "budget_bytes": budget, "corpus_bytes": corpus,
               "plan": {key: plan[key] for key in (
@@ -4265,7 +4615,8 @@ def main(argv=None) -> int:
               "separated_queries": int(sep.sum()),
               "sets_equal_where_separated": True,
               "recall_at_k": recall, "oracle_queries": n_or,
-              "refused": refused, "nvidia_smi": smi})
+              "refused": refused, "lock_order": lock_out,
+              "nvidia_smi": smi})
 
     def phase_join(S):
         """knn_join on the main placement: A = 16,384 rows, superblocks of
@@ -4566,6 +4917,70 @@ def main(argv=None) -> int:
             shutil.rmtree(pm_dir, ignore_errors=True)
         return out
 
+    def padded_search(search, buckets, block):
+        """``search`` of ``block`` padded to its rung, as host arrays of the
+        block's rows."""
+        from knn_tpu_torch.serving import bucket_for
+
+        padded = np.zeros((bucket_for(buckets, block.shape[0]),
+                           block.shape[1]), np.float32)
+        padded[:block.shape[0]] = block
+        return tuple((t.cpu().numpy() if isinstance(t, torch.Tensor)
+                      else np.asarray(t))[:block.shape[0]]
+                     for t in search(padded))
+
+    def serving_lock_order(S, eng):
+        """The lock-order hammer on the warm CUDA-graph engine at the main
+        shape: its _lock and _launch_lock, a QueryQueue's _cond and its
+        admission controller, the SLO engine, the registry, one registry
+        histogram and the audit sampler (rate 1.0) instrumented; 8 threads
+        x 4 rounds of one 1-8-row request; every request bitwise the
+        eager search of its coalesced batch, one graph replay per queue
+        batch and no capture.  The engine's program is the exact search (divergence
+        27), so no coarse kernel launches."""
+        from knn_tpu_torch import obs
+        from knn_tpu_torch.obs import audit
+        from knn_tpu_torch.obs import names as mn
+        from knn_tpu_torch.serving import AdmissionConfig, QueryQueue
+
+        t_step = time.perf_counter()
+        knn = S["knn"]
+        slo_eng = obs.reset_slo_engine()
+        aud = audit.reset_auditor(rate=1.0)
+        hist = obs.histogram(mn.SERVING_REQUEST_LATENCY, op="search")
+        st0 = eng.stats()
+        reset_launches()
+        try:
+            with QueryQueue(eng, max_wait_ms=1.0, admission=AdmissionConfig(
+                    max_depth=4096)) as hq:
+                out = lock_order_hammer(
+                    hq, eng, S["q_np"][:256],
+                    {"engine": eng, "engine_launch": (eng, "_launch_lock"),
+                     "queue": hq, "admission": hq._ctrl, "slo": slo_eng,
+                     "registry": obs.get_registry(), "latency_hist": hist,
+                     "audit": aud},
+                    [lambda cat: padded_search(knn.search, eng.buckets,
+                                               cat)],
+                    calls=(hq.stats, slo_eng.evaluate))
+                q_disp = hq.stats()["dispatches"]
+        finally:
+            audit.reset_auditor()
+            obs.reset_slo_engine()
+        launches = nonzero_launches(read_launches())
+        st1 = eng.stats()
+        replays = (sum(st1["per_bucket_dispatches"].values())
+                   - sum(st0["per_bucket_dispatches"].values()))
+        if (replays != q_disp or q_disp != out["batches"] or launches
+                or st1["compile_count"] != st0["compile_count"]):
+            raise AssertionError(
+                f"serving lock order: {replays} graph replays for "
+                f"{q_disp} queue dispatches ({out['batches']} batches), "
+                f"captures {st0['compile_count']} -> "
+                f"{st1['compile_count']}, coarse launches {launches}")
+        out.update(graph_replays=replays, coarse_launches=launches,
+                   elapsed_s=time.perf_counter() - t_step)
+        return out
+
     def phase_serving(S):
         """The serving stack at the main shape (1M x 128, k=100): a
         ServingEngine on the main placement with the JAX package's bench
@@ -4737,6 +5152,7 @@ def main(argv=None) -> int:
         if problems or any(s["errors"] for s in knee["rate_steps"]):
             raise AssertionError(f"serving: knee block {problems} "
                                  f"{knee['rate_steps']}")
+        catalog_check("serving knee", "loadgen_knee", knee)
         # the certified stream: 4,096 queries in 1,024-query segments,
         # stopped after two (the last two segments' files gone) and
         # resumed, bitwise the direct search_certified
@@ -4769,10 +5185,11 @@ def main(argv=None) -> int:
                 and all_equal((d_s, i_s), (d_dir, i_dir))):
             raise AssertionError("serving stream: the resumed stream "
                                  "differs from the direct search_certified")
+        lock_out = serving_lock_order(S, eng)
         audit_out = serving_audit(S, eng, reqs)
         lat1, lat2 = rep1["latency_ms"], rep2["latency_ms"]
         out.update(
-            audit=audit_out,
+            audit=audit_out, lock_order=lock_out,
             ladder=list(eng.buckets), warmup_s=warm_s,
             graphs=st["executables"], graph_pool_bytes=pool_bytes,
             reserved_bytes_after_warmup=reserved_delta,
@@ -5014,6 +5431,8 @@ def main(argv=None) -> int:
                                              "bound_ms")):
                 raise AssertionError(f"kernel record {key} is incomplete: "
                                      f"{rec}")
+    emit({"phase": "catalog", "blocks_validated": len(CATALOG_CHECKS),
+          "blocks": CATALOG_CHECKS})
     emit({"phase": "done", "phases": sorted(phases)})
     emit({"kernels": list(records.values())})
     print(smi, flush=True)

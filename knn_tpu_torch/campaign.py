@@ -103,6 +103,7 @@ SENTINEL_ABSENT = {
             "the port's waits for its benchmark",
 }
 
+
 def _stage(log: List[dict], name: str, status: str, **detail) -> dict:
     """Record one stage outcome (and count it)."""
     rec = {"stage": name, "status": status, **detail}

@@ -1,7 +1,7 @@
 """Command line of the port on one GPU — the job path of knn_tpu/cli.py
 (``main``) and its ``tune``, ``join``, ``index --selftest``, ``loadgen``,
-``metrics``, ``doctor``, ``audit``, ``waterfall``, ``roofline``, ``fleet``
-and ``campaign`` subcommands, as ``python -m knn_tpu_torch.cli``::
+``metrics``, ``doctor``, ``audit``, ``waterfall``, ``roofline``, ``fleet``,
+``campaign`` and ``lint`` subcommands, as ``python -m knn_tpu_torch.cli``::
 
     python -m knn_tpu_torch.cli --train train.csv --test test.csv \\
         --val val.csv --k 50 --mode certified --selector pallas \\
@@ -20,12 +20,16 @@ and ``campaign`` subcommands, as ``python -m knn_tpu_torch.cli``::
         --device-kind "NVIDIA H100 80GB HBM3"
     python -m knn_tpu_torch.cli fleet --snapshot-dir snaps/
     python -m knn_tpu_torch.cli campaign --rehearse --out camp/
+    python -m knn_tpu_torch.cli lint --json
 
 The job's ``--metrics-port`` / ``--metrics-snapshot`` / ``--obs-log`` are
 the telemetry exporters (knn_tpu_torch.obs); ``metrics``, ``doctor``,
 ``audit``, ``waterfall`` and ``fleet`` read them (and postmortem bundles)
 back and, like ``roofline``, touch no device.  ``campaign --rehearse``
 runs the measured-ceiling loop (knn_tpu_torch.campaign) on the device.
+``lint`` runs the static-analysis suite (knn_tpu_torch.analysis) over the
+source tree: it parses the code it judges, needs no GPU and no JAX, and
+creates no CUDA context.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it exits with an error.
@@ -1250,6 +1254,61 @@ def run_campaign_cmd(args: argparse.Namespace) -> int:
     return 0 if summary["ok"] else 1
 
 
+def build_lint_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="knn_tpu_torch lint",
+        description="Run the port's static-analysis suite "
+        "(knn_tpu_torch.analysis): switch / metric / artifact lockstep, "
+        "locked-mutation and torch-hygiene checkers over the source "
+        "tree, with no GPU and no JAX.  Exit 0 green (every suppression "
+        "justified), 1 findings (or a broken/stale suppression file).",
+    )
+    p.add_argument("--root", default=None, metavar="DIR",
+                   help="tree to lint (default: the repo this package "
+                   "is imported from); a root carrying its own "
+                   "switch / metric / artifact catalogs is judged "
+                   "against those")
+    p.add_argument("--checker", action="append", default=None,
+                   metavar="NAME",
+                   help="run only this checker (repeatable; default "
+                   "all; see --list)")
+    p.add_argument("--list", action="store_true",
+                   help="list the registered checkers and exit")
+    p.add_argument("--json", action="store_true",
+                   help="print the full report as ONE JSON document "
+                   "instead of the text rendering")
+    return p
+
+
+def run_lint(args: argparse.Namespace) -> int:
+    """The ``lint`` subcommand: knn_tpu_torch.analysis parses source with
+    stdlib ``ast`` and never imports the code it judges (only the
+    stdlib-only declaration catalogs), so it touches no device."""
+    import json
+    import os
+
+    from knn_tpu_torch import analysis
+
+    if args.list:
+        for name, (_fn, desc) in analysis.CHECKERS.items():
+            print(f"{name:<18} {desc}")
+        return 0
+    root = args.root
+    if root is None:
+        # knn_tpu_torch/cli.py -> knn_tpu_torch/ -> the repo root
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        report = analysis.run(root, names=args.checker)
+    except ValueError as e:  # unknown --checker name
+        print(f"lint: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(report.as_dict(), indent=1, sort_keys=True))
+    else:
+        sys.stdout.write(report.render_text())
+    return 0 if report.ok else 1
+
+
 #: the subcommands, by leading token: the job's flat interface stays as it is
 SUBCOMMANDS = {"tune": (build_tune_parser, run_tune),
                "join": (build_join_parser, run_join),
@@ -1261,7 +1320,8 @@ SUBCOMMANDS = {"tune": (build_tune_parser, run_tune),
                "waterfall": (build_waterfall_parser, run_waterfall),
                "roofline": (build_roofline_parser, run_roofline),
                "fleet": (build_fleet_parser, run_fleet),
-               "campaign": (build_campaign_parser, run_campaign_cmd)}
+               "campaign": (build_campaign_parser, run_campaign_cmd),
+               "lint": (build_lint_parser, run_lint)}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -36,7 +36,9 @@ final distances are float64-refined per pair (ops.refine) and the
 cross-part merge is the lexicographic (distance, position) order.
 
 Where the port differs from the JAX package (ROADMAP queue C): every knob
-is an argument (no ``KNN_TPU_DELTA_*`` / ``KNN_TPU_COMPACT_*`` switch);
+is an argument (no ``KNN_TPU_DELTA_MIN_ROWS``, ``KNN_TPU_DELTA_MAX_ROWS``,
+``KNN_TPU_DELTA_RESERVE``, ``KNN_TPU_COMPACT_TAIL_ROWS``,
+``KNN_TPU_COMPACT_TOMBSTONES`` or ``KNN_TPU_COMPACT_INTERVAL_S`` switch);
 ``search_certified`` defaults to the ``"pallas"`` selector, as the port's
 ``ShardedKNN`` does (the final ``(d, ids)`` are the same); no transient
 retry (a CUDA error raises at once); the background compactor records its

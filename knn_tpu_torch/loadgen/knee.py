@@ -22,12 +22,20 @@ from typing import Callable, List, Sequence
 from knn_tpu_torch.loadgen import driver
 from knn_tpu_torch.loadgen.workload import WorkloadSpec, generate
 
-#: block schema version
+#: block schema version — the version token the artifact-schema
+#: catalog's ``loadgen_knee`` entry consumes
 BLOCK_VERSION = 1
 
-#: fields every rate step must carry
-STEP_FIELDS = ("rate_qps", "offered", "ok", "achieved_qps",
-               "shed_fraction", "within_slo")
+
+def _step_fields():
+    from knn_tpu_torch.analysis.artifacts import element_required
+
+    return element_required("loadgen_knee", "rate_steps")
+
+
+#: fields every rate step must carry — DERIVED from the artifact-schema
+#: catalog (knn_tpu_torch.analysis.artifacts)
+STEP_FIELDS = _step_fields()
 
 
 def run_step(target, spec: WorkloadSpec, *, queries,
@@ -123,38 +131,12 @@ def knee_block(steps: Sequence[dict], *, slo_p99_ms: float) -> dict:
 def validate_knee_block(block) -> List[str]:
     """Structural validation of a knee block: the list of violations
     (empty = valid), in the JAX package's words.  A block that recorded
-    its own failure (an ``error`` key) is exempt."""
-    if not isinstance(block, dict):
-        return [f"knee block must be a dict, got {type(block).__name__}"]
-    if "error" in block:
-        return []
-    errors: List[str] = []
-    version = block.get("version")
-    if version != BLOCK_VERSION:
-        errors.append(f"version must be {BLOCK_VERSION}, got {version!r}")
-    slo = block.get("slo_p99_ms")
-    if not (isinstance(slo, (int, float)) and slo > 0):
-        errors.append(
-            f"slo_p99_ms must be a positive number, got {slo!r}")
-    steps = block.get("rate_steps")
-    if not (isinstance(steps, list) and steps):
-        errors.append("rate_steps must be a non-empty list")
-    else:
-        for i, s in enumerate(steps):
-            if not isinstance(s, dict):
-                errors.append(f"rate_steps[{i}] must be a dict")
-                continue
-            for fld in STEP_FIELDS:
-                if fld not in s:
-                    errors.append(f"rate_steps[{i}] missing {fld!r}")
-    knee = block.get("knee_qps")
-    if knee is not None and not isinstance(knee, (int, float)):
-        errors.append(f"knee_qps must be a number or null, got {knee!r}")
-    if knee is not None and isinstance(steps, list) and steps:
-        if not [s for s in steps
-                if isinstance(s, dict) and s.get("within_slo")]:
-            errors.append("knee_qps set but no step is within_slo")
-    return errors
+    its own failure (an ``error`` key) is exempt.  A shim over the
+    artifact-schema catalog (knn_tpu_torch.analysis.artifacts, the
+    ``loadgen_knee`` entry)."""
+    from knn_tpu_torch.analysis.artifacts import validate
+
+    return validate("loadgen_knee", block, style="legacy")
 
 
 def closed_loop_anchor(queue, pool, *, requests: int = 32,

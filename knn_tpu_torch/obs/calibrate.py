@@ -355,66 +355,28 @@ def status() -> dict:
     return out
 
 
-def _number(v) -> bool:
-    return isinstance(v, (int, float)) and not isinstance(v, bool)
-
-
 def validate_calibration(cal) -> List[str]:
     """Structural check of a block's ``calibration`` field; a list of
     errors, empty when well formed.  An absent overlay is explicit: a dict
     with ``applied: false``.  An applied one has a positive factor for
     every term of :data:`TERMS`, a ``source`` of :data:`SOURCES` and a
-    numeric ``model_residual_pct``."""
-    if not isinstance(cal, dict):
-        return [f"calibration is {type(cal).__name__}, not dict"]
-    if not isinstance(cal.get("applied"), bool):
-        return [f"calibration.applied {cal.get('applied')!r} is not a bool"]
-    if not cal["applied"]:
-        return []
-    errs = []
-    factors = cal.get("factors")
-    if not isinstance(factors, dict):
-        errs.append("applied calibration missing factors dict")
-    else:
-        for t in TERMS:
-            f = factors.get(t)
-            if not _number(f) or f <= 0:
-                errs.append(f"calibration factor {t} {f!r} is not a "
-                            f"positive number")
-    if cal.get("source") not in SOURCES:
-        errs.append(f"calibration source {cal.get('source')!r} not in "
-                    f"{SOURCES}")
-    if not _number(cal.get("model_residual_pct")):
-        errs.append(f"calibration.model_residual_pct "
-                    f"{cal.get('model_residual_pct')!r} is not a number")
-    return errs
+    numeric ``model_residual_pct``.  A shim over the artifact-schema
+    catalog (knn_tpu_torch.analysis.artifacts, the ``calibration``
+    entry)."""
+    from knn_tpu_torch.analysis.artifacts import validate
+
+    return validate("calibration", cal, style="legacy")
 
 
 def validate_campaign_block(block) -> List[str]:
     """Structural check of an artifact's ``campaign`` block: an int
     ``campaign_version``, an ``arm``, a non-empty ``stages`` list whose
     every record has a ``stage`` and a ``status`` of ok / error / skipped,
-    and a bool ``rehearse``."""
-    if not isinstance(block, dict):
-        return [f"campaign block is {type(block).__name__}, not dict"]
-    errs = []
-    v = block.get("campaign_version")
-    if not isinstance(v, int) or isinstance(v, bool):
-        errs.append("missing/non-int campaign_version")
-    if not block.get("arm"):
-        errs.append("missing arm name")
-    stages = block.get("stages")
-    if not isinstance(stages, list) or not stages:
-        errs.append("missing stages list")
-    else:
-        for s in stages:
-            if not isinstance(s, dict) or not s.get("stage") or \
-                    s.get("status") not in ("ok", "error", "skipped"):
-                errs.append(f"malformed stage record {s!r}")
-                break
-    if not isinstance(block.get("rehearse"), bool):
-        errs.append("missing/non-bool rehearse flag")
-    return errs
+    and a bool ``rehearse``.  A shim over the artifact-schema catalog
+    (the ``campaign`` entry)."""
+    from knn_tpu_torch.analysis.artifacts import validate
+
+    return validate("campaign", block, style="legacy")
 
 
 def reset() -> None:

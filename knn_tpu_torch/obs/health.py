@@ -24,9 +24,12 @@ sampler's state and the drift sketch of every registered IVF index.
 (:func:`knn_tpu_torch.obs.calibrate.status`: the store, the keys of its
 entries under the current model token, the worst per-term residual).
 Where the port differs: ``multihost`` is absent, as in a single-host JAX
-process.  The text renderer keeps the
-JAX package's wording, so the two ``doctor`` commands print the same lines
-for the same snapshot.
+process.  The text renderer keeps the JAX package's wording, so the two
+``doctor`` commands print the same lines for the same snapshot, except
+where that wording names an environment switch the port does not read: an
+absent calibration store and an audit sampler that is off name the
+arguments that arm them (:data:`CALIBRATION_ARGUMENT`,
+:data:`AUDIT_ARGUMENT`), as ``fleet`` names its own.
 """
 
 from __future__ import annotations
@@ -43,6 +46,12 @@ from knn_tpu_torch.obs import ident, names, registry, roofline, slo, trace
 
 #: alert events included in the report (newest last)
 REPORT_ALERTS = 20
+
+#: the arguments that arm the calibration overlay and the audit sampler
+#: (ROADMAP divergences 43 and 39), named where the JAX package's text
+#: names its environment switches
+CALIBRATION_ARGUMENT = "calibrate.configure(store=...)"
+AUDIT_ARGUMENT = "audit.reset_auditor(rate=...)"
 
 _lock = threading.Lock()
 _engines: List[weakref.ref] = []
@@ -376,8 +385,8 @@ def report_from_snapshot(payload: dict) -> dict:
 
 def render_text(rep: dict) -> str:
     """Human-readable rendering of a report (``doctor``, live or from a
-    snapshot), line for line the JAX package's, in its words (which name
-    its switches), so both print the same lines for one snapshot."""
+    snapshot), line for line the JAX package's, in its words except where
+    those name a switch: there the port names its argument."""
     lines = []
     ready = rep.get("readiness", {}).get("ready")
     verdict = {True: "READY", False: "NOT READY", None: "UNKNOWN"}[ready]
@@ -443,7 +452,7 @@ def render_text(rep: dict) -> str:
                      f"({cal['error']})")
     elif cal:
         lines.append("calibration: no store configured "
-                     "(KNN_TPU_CALIBRATION unset) — roofline verdicts "
+                     f"({CALIBRATION_ARGUMENT}) — roofline verdicts "
                      "are analytic only")
     for i, ix in enumerate(rep.get("index") or []):
         if "error" in ix:
@@ -471,8 +480,7 @@ def render_text(rep: dict) -> str:
             f"deficient={qual.get('deficient_queries')} "
             f"last_recall@k={qual.get('last_recall_at_k')}{drop_s}")
     elif qual and "error" not in qual:
-        lines.append("quality: audit sampler off "
-                     "(KNN_TPU_AUDIT_RATE unset)")
+        lines.append(f"quality: audit sampler off ({AUDIT_ARGUMENT})")
     for i, dr in enumerate(qual.get("drift") or []):
         lines.append(
             f"drift[{i}]: queries={dr.get('queries_observed')} "

@@ -716,59 +716,18 @@ def attribute(model: dict, measured_qps: Optional[float]) -> dict:
     return out
 
 
-def _number(v) -> bool:
-    return isinstance(v, (int, float)) and not isinstance(v, bool)
-
-
 def validate_block(block) -> list:
     """Structural check of a roofline block; a list of errors, empty when
     well formed: a dict with an int ``model_version``, a ``bound_class`` of
     :data:`BOUND_CLASSES`, a positive (or None) ``ceiling_qps``, a
     ``terms`` dict whose every time is a non-negative number, a bool
     ``estimated``, a non-negative (or None) ``roofline_pct``, and a
-    well-formed ``calibration`` where it has one
-    (calibrate.validate_calibration)."""
-    if not isinstance(block, dict):
-        return [f"roofline block is {type(block).__name__}, not a dict"]
-    errs = []
-    for key in ("model_version", "bound_class", "ceiling_qps", "terms",
-                "estimated"):
-        if key not in block:
-            errs.append(f"missing field: {key}")
-    if errs:
-        return errs
-    if not isinstance(block["model_version"], int) \
-            or isinstance(block["model_version"], bool):
-        errs.append(f"model_version must be an int, got "
-                    f"{block['model_version']!r}")
-    if block["bound_class"] not in BOUND_CLASSES:
-        errs.append(f"bound_class {block['bound_class']!r} not in "
-                    f"{BOUND_CLASSES}")
-    cq = block["ceiling_qps"]
-    if cq is not None and (not _number(cq) or cq <= 0):
-        errs.append(f"ceiling_qps must be a positive number, got {cq!r}")
-    terms = block["terms"]
-    if not isinstance(terms, dict) or not terms:
-        errs.append("terms must be a non-empty dict")
-    else:
-        for name, term in terms.items():
-            if name == "probe":
-                continue
-            t = term.get("time_s") if isinstance(term, dict) else None
-            if not _number(t) or t < 0:
-                errs.append(f"terms.{name}.time_s must be a non-negative "
-                            f"number, got {t!r}")
-    if not isinstance(block["estimated"], bool):
-        errs.append(f"estimated must be a bool, got {block['estimated']!r}")
-    pct = block.get("roofline_pct")
-    if pct is not None and (not _number(pct) or pct < 0):
-        errs.append(f"roofline_pct must be a non-negative number, got "
-                    f"{pct!r}")
-    if "calibration" in block:
-        from knn_tpu_torch.obs import calibrate
+    well-formed ``calibration`` where it has one.  A shim over the
+    artifact-schema catalog (knn_tpu_torch.analysis.artifacts, the
+    ``roofline`` entry)."""
+    from knn_tpu_torch.analysis.artifacts import validate
 
-        errs.extend(calibrate.validate_calibration(block["calibration"]))
-    return errs
+    return validate("roofline", block, style="legacy")
 
 
 def config_label(n: int, d: int, k: int, *, metric: str = "l2",

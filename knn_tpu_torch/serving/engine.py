@@ -87,6 +87,7 @@ import numpy as np
 import torch
 
 from knn_tpu_torch import obs
+from knn_tpu_torch.analysis.annotations import hot_path
 from knn_tpu_torch.obs import names as mn
 from knn_tpu_torch.parallel.sharded import _host_copies
 from knn_tpu_torch.serving.buckets import (
@@ -365,14 +366,17 @@ class ServingEngine:
         fn = self._program_fn(op)
         if not self.graphs:
             return _Executable(fn)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        # two cold keys may build at once: one pool for every capture
+        with self._lock:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            pool = self._pool
         # the static input is made on the default stream, which the
         # capture stream waits for
         with torch.cuda.stream(torch.cuda.default_stream(self.device)):
             q = torch.zeros((rows, self._placed_dim), dtype=torch.float32,
                             device=self.device)
-        graph, outs = capture_graph(fn, q, self._pool)
+        graph, outs = capture_graph(fn, q, pool)
         return _Executable(fn, graph, q, outs)
 
     def _executable(self, op: str, bucket: int,
@@ -451,6 +455,7 @@ class ServingEngine:
                        if tuple(s["segment_pool_id"]) == pool))
 
     # -- dispatch ----------------------------------------------------------
+    @hot_path
     def _dispatch_chunk(self, op: str, chunk: np.ndarray,
                         trace_id: Optional[str] = None):
         """Pad one <= max_bucket chunk to its bucket and enqueue it.
@@ -481,6 +486,7 @@ class ServingEngine:
         obs.counter(mn.SERVING_DISPATCHES, op=op, bucket=bucket).inc()
         return host, event, n, keep
 
+    @hot_path(allow=("np.asarray", "np.ascontiguousarray", "int"))
     def submit(self, queries, *, op: str = "search",
                trace_id: Optional[str] = None,
                tenant: Optional[str] = None) -> PendingSearch:

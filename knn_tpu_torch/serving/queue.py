@@ -48,6 +48,7 @@ from typing import List, Optional
 import numpy as np
 
 from knn_tpu_torch import obs
+from knn_tpu_torch.analysis.annotations import hot_path
 from knn_tpu_torch.obs import names as mn
 from knn_tpu_torch.serving.admission import (
     AdmissionConfig,
@@ -161,6 +162,7 @@ class QueryQueue:
         obs.health.register_queue(self)
 
     # -- client side -------------------------------------------------------
+    @hot_path(allow=("np.asarray", "np.ascontiguousarray", "int"))
     def submit(self, queries, *, tenant: Optional[str] = None,
                deadline_ms: Optional[float] = None,
                priority: Optional[int] = None) -> Future:
@@ -422,6 +424,7 @@ class QueryQueue:
                 tenant=p.tenant, reason="expired"))
         self._retire(shed)
 
+    @hot_path(allow=("int",))
     def _batcher(self) -> None:
         while True:
             batch, shed = self._take_batch()

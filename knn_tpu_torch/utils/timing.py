@@ -28,7 +28,9 @@ class PhaseTimer:
     """Accumulates named phase durations; ``total`` covers first start to
     last stop (the reference's single Wtime pair, knn_mpi.cpp:134,396).
     ``device``: the CUDA device to synchronize at phase boundaries (None
-    or a CPU device: no synchronization)."""
+    or a CPU device: no synchronization).  Thread-safety: guarded by
+    ``self._lock`` (machine-checked by the ``locked-mutation`` checker,
+    knn_tpu_torch.analysis); re-entrant nesting within a thread raises."""
 
     def __init__(self, device: Optional[torch.device] = None):
         self.device = device

@@ -1,0 +1,580 @@
+"""The port's artifact-schema catalog (knn_tpu_torch.analysis.artifacts)
+against the JAX package's (knn_tpu.analysis.artifacts), and the port's
+validators as shims over it.
+
+For every schema the two packages share, a valid block and its generated
+mutations (each required field dropped or null, each typed field given a
+wrong type, each ranged field out of range, a non-dict block, an
+``error`` key) go through both ``validate``s in both styles; the strings
+must be equal, one for one.  Exact: the engine does no arithmetic.  The
+listed divergences (ROADMAP queue C) are the fields where the port's
+block really differs: the calibration factors are the H100's five terms
+(divergence 49), and the port refuses a bool where a number or version
+token is declared on its calibration and campaign blocks, as its
+validators always did; each has its own test, as do the port's own
+schemas (``roofline``, ``tuning_cache_entry``) and a campaign line's
+``sentinel`` (divergence 48).
+"""
+
+import copy
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+
+from knn_tpu.analysis import artifacts as jart
+from knn_tpu.index import artifact as jmut
+from knn_tpu.ivf import artifact as jivf
+from knn_tpu.join import artifact as jjoin
+from knn_tpu.loadgen import knee as jknee
+from knn_tpu.ops import pq_artifact as jpq
+
+from knn_tpu_torch.analysis import artifacts as art
+from knn_tpu_torch.index import artifact as mut
+from knn_tpu_torch.ivf import artifact as ivf
+from knn_tpu_torch.join import artifact as join
+from knn_tpu_torch.loadgen import knee
+from knn_tpu_torch.obs import calibrate, roofline
+from knn_tpu_torch.ops import pq_artifact as pq
+
+from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
+
+STYLES = ("legacy", "normalized")
+
+#: calibration factors of one package and not the other (divergence 49)
+JAX_ONLY_FACTORS = {"factors.mxu", "factors.vpu_select"}
+PORT_ONLY_FACTORS = {"factors.tensor_core", "factors.cuda_core",
+                     "factors.smem", "factors.h2d"}
+
+_STEP = {"rate_qps": 10.0, "offered": 5, "ok": 5, "achieved_qps": 9.0,
+         "shed_fraction": 0.0, "within_slo": True}
+
+#: one block per shared schema, valid in both packages
+VALID = {
+    "calibration": {
+        "applied": True,
+        "factors": {t: 1.25 for t in ("hbm", "mxu", "vpu_select",
+                                      "tensor_core", "cuda_core", "smem",
+                                      "h2d")},
+        "source": "device_trace", "model_residual_pct": 3.5,
+        "method": "bound_term", "age_s": 1.0, "samples": 1},
+    "campaign": {
+        "campaign_version": 1, "arm": "bf16x3_tiled", "round": 19,
+        "rehearse": True,
+        "stages": [{"stage": "gates", "status": "ok"},
+                   {"stage": "tune", "status": "skipped"}]},
+    "loadgen_knee": {
+        "version": 1, "slo_p99_ms": 50.0, "rate_steps": [dict(_STEP)],
+        "knee_qps": 9.0, "knee_rate_qps": 10.0},
+    "mutation": {
+        "mutation_version": 1,
+        "write_mix": {"insert_fraction": 0.5, "delete_fraction": 0.25},
+        "rate_qps": 100.0, "duration_s": 2.0, "admitted_p99_ms": 4.5,
+        "compactions": 1, "epoch": 1, "reads": {"n": 1}, "writes": {"n": 1},
+        "slo_breach_transitions": 0},
+    "ivf": {
+        "ivf_version": 1, "ncentroids": 64, "nprobe": 8, "queries": 128,
+        "k": 10, "probe_fraction": 0.125, "recall_at_k": 1.0,
+        "fallback_rate": 0.0, "bytes_streamed_ratio": 0.2, "qps": 900.0},
+    "pq": {
+        "pq_version": 1, "dsub": 4, "ncodes": 256, "nsub": 32,
+        "lut_bytes": 4096, "bound_max": 1.5, "queries": 64},
+    "join": {
+        "join_version": 1, "mode": "stream", "rows": 4096, "k": 10,
+        "superblock_rows": 1024, "depth": 2, "order": "query_major",
+        "superblocks": 4, "db_segments": 1, "dispatches": 4,
+        "rows_per_s": 1e5, "overlap_ratio": 0.5},
+    "quality": {
+        "quality_version": 1, "audit_rate": 0.5,
+        "audit_sampled_requests": 8, "audit_replayed_queries": 40,
+        "audit_deficient_queries": 0, "audit_dropped_records": 1,
+        "audit_recall_at_k": 1.0, "audit_rank_displacement_p99": 0.0,
+        "audit_distance_rel_error_p99": 0.0},
+    "fleet": {
+        "fleet_version": 1, "catalog_version": "abc123",
+        "member_count": 2, "expected_members": 2, "unreachable_count": 0,
+        "skewed_count": 0, "partial": False, "staleness_s": 0.5,
+        "straggler_host": 1, "straggler_gap_s": 0.25,
+        "stitched_requests": 3, "slo_breached": 0},
+}
+
+SHARED = sorted(VALID)
+
+_WRONG = {"int": "x", "number": "x", "str": 5, "bool": "yes", "dict": "x",
+          "list": "x", "version": "x"}
+_DROP = object()
+
+
+def _with(block, path, value):
+    """``block`` with ``path`` set to ``value`` (``_DROP``: removed); None
+    when an ancestor is absent."""
+    out = copy.deepcopy(block)
+    cur = out
+    parts = path.split(".")
+    for p in parts[:-1]:
+        if not isinstance(cur, dict) or p not in cur:
+            return None
+        cur = cur[p]
+    if not isinstance(cur, dict):
+        return None
+    if value is _DROP:
+        if parts[-1] not in cur:
+            return None
+        del cur[parts[-1]]
+    else:
+        cur[parts[-1]] = value
+    return out
+
+
+def mutations(name):
+    """(label, touched path or None, block) for the generated mutations of
+    ``VALID[name]`` over the union of both packages' declared fields."""
+    valid = VALID[name]
+    fields = {}
+    for schema in (jart.BY_NAME[name], art.BY_NAME[name]):
+        for f in schema.fields:
+            fields.setdefault(f.path, f)
+    out = [("valid", None, valid), ("not a dict", None, "nope"),
+           ("none", None, None), ("list", None, [1]),
+           ("error key", None, {**valid, "error": "boom"}),
+           ("empty", None, {})]
+    for key in jart.BY_NAME[name].missing_order:
+        out.append((f"missing {key}", key, _with(valid, key, _DROP)))
+    for path, f in sorted(fields.items()):
+        cases = [("dropped", _DROP), ("null", None)]
+        if f.kind in _WRONG:
+            cases.append(("wrong type", _WRONG[f.kind]))
+        if f.kind == "int":
+            cases.append(("float for int", 1.5))
+        if f.choices is not None:
+            cases.append(("not a choice", "no-such-choice"))
+        if f.ge is not None:
+            cases.append(("below ge", f.ge - 1))
+        if f.gt is not None:
+            cases.append(("at gt", f.gt))
+        if f.le is not None:
+            cases.append(("above le", f.le + 1))
+        if f.kind == "list" and f.nonempty:
+            cases.append(("empty list", []))
+        if f.truthy:
+            cases.append(("falsy", ""))
+        for label, value in cases:
+            b = _with(valid, path, value)
+            if b is not None:
+                out.append((f"{path} {label}", path, b))
+    if name == "loadgen_knee":
+        out += [("step not a dict", "rate_steps",
+                 {**valid, "rate_steps": ["x", dict(_STEP)]}),
+                ("step missing a field", "rate_steps",
+                 {**valid, "rate_steps": [{"rate_qps": 1.0}]}),
+                ("knee with no step within", "rate_steps",
+                 {**valid, "rate_steps": [{**_STEP, "within_slo": False}]})]
+    if name == "campaign":
+        out += [("malformed stage", "stages",
+                 {**valid, "stages": [{"stage": "tune", "status": "won"}]})]
+    if name == "mutation":
+        out += [("never compacted", "compactions",
+                 {**valid, "compactions": 0}),
+                ("compaction waived", "compactions",
+                 {**valid, "compactions": 0, "compactions_waived": True})]
+    if name == "calibration":
+        out += [("unapplied", "applied", {"applied": False}),
+                ("unapplied with junk", "applied",
+                 {"applied": False, "factors": "x"})]
+    return out
+
+
+def _divergent(name, path):
+    return name == "calibration" and path in (JAX_ONLY_FACTORS
+                                              | PORT_ONLY_FACTORS)
+
+
+@pytest.mark.parametrize("name", SHARED)
+def test_shared_schema_equals_jax_on_every_mutation(name):
+    cases = mutations(name)
+    assert len(cases) > 20
+    refused = 0
+    for label, path, block in cases:
+        for style in STYLES:
+            got = art.validate(name, block, style=style)
+            want = jart.validate(name, block, style=style)
+            if _divergent(name, path):
+                # each package refuses its own factors' faults only
+                port_field = path in PORT_ONLY_FACTORS
+                if label.endswith(("dropped", "null", "wrong type",
+                                   "at gt")):
+                    assert bool(got) == port_field, (label, got)
+                    assert bool(want) == (not port_field), (label, want)
+                continue
+            assert got == want, (name, label, style)
+            refused += bool(got)
+    assert art.validate(name, VALID[name]) == []
+    assert refused > 10
+
+
+@pytest.mark.parametrize("name", SHARED)
+def test_shared_schema_declarations_equal_jax(name):
+    p, j = art.BY_NAME[name], jart.BY_NAME[name]
+    assert p.version_field == j.version_field
+    assert art.version_value(name) == jart.version_value(name)
+    assert p.version_exact == j.version_exact
+    assert p.missing_order == j.missing_order
+    assert p.missing_legacy == j.missing_legacy
+    assert p.not_dict_legacy == j.not_dict_legacy
+    assert p.error_exempt == j.error_exempt
+    assert [dataclasses.astuple(h) for h in p.hoists] == \
+        [dataclasses.astuple(h) for h in j.hoists]
+    assert [dataclasses.astuple(c) for c in p.curated] == \
+        [dataclasses.astuple(c) for c in j.curated]
+    assert p.fingerprints == j.fingerprints
+    pf = {f.path: f for f in p.fields}
+    jf = {f.path: f for f in j.fields}
+    diverge = set()
+    if name == "calibration":
+        diverge = JAX_ONLY_FACTORS | PORT_ONLY_FACTORS
+    assert set(pf) ^ set(jf) <= diverge | {"sentinel"}
+    for path in set(pf) & set(jf):
+        a, b = pf[path], jf[path]
+        assert (a.kind, a.required, a.nullable, a.truthy, a.ge, a.gt, a.le,
+                a.legacy, a.nonempty, a.nested, a.element_style,
+                a.element_required) == \
+            (b.kind, b.required, b.nullable, b.truthy, b.ge, b.gt, b.le,
+             b.legacy, b.nonempty, b.nested, b.element_style,
+             b.element_required), path
+
+
+def test_bools_the_port_refuses_and_jax_accepts():
+    """Divergence: the port's calibration factors, its residual and the
+    campaign's version token refuse a bool, as the port's validators did
+    before they were shims; the JAX package's accept ``True``."""
+    cal = VALID["calibration"]
+    for path in ("factors.hbm", "model_residual_pct"):
+        b = _with(cal, path, True)
+        assert art.validate("calibration", b, style="legacy")
+        assert calibrate.validate_calibration(b)
+    assert jart.validate("calibration", _with(cal, "factors.hbm", True)) \
+        == []
+    b = {**VALID["campaign"], "campaign_version": True}
+    assert calibrate.validate_campaign_block(b) == \
+        ["missing/non-int campaign_version"]
+    assert jart.validate("campaign", b, style="legacy") == []
+
+
+def test_calibration_factors_are_the_h100_terms():
+    """Divergence 49: the calibration schema's factors are
+    ``calibrate.TERMS``; the port refuses a missing tensor_core factor the
+    JAX package does not know, and accepts a block without mxu."""
+    paths = [f.path for f in art.BY_NAME["calibration"].fields
+             if f.path.startswith("factors.")]
+    assert paths == [f"factors.{t}" for t in calibrate.TERMS]
+    port_only = {"applied": True, "source": "host_phase",
+                 "model_residual_pct": 0.0,
+                 "factors": dict.fromkeys(calibrate.TERMS, 1.0)}
+    assert calibrate.validate_calibration(port_only) == []
+    assert jart.validate("calibration", port_only, style="legacy") == [
+        "calibration factor mxu None is not a positive number",
+        "calibration factor vpu_select None is not a positive number"]
+    no_tc = _with(port_only, "factors.tensor_core", _DROP)
+    assert calibrate.validate_calibration(no_tc) == [
+        "calibration factor tensor_core None is not a positive number"]
+
+
+# --- the shims ----------------------------------------------------------
+SHIMS = [
+    ("mutation", mut.validate_mutation_block, jmut.validate_mutation_block,
+     (mut.MUTATION_VERSION, mut.MUTATION_REQUIRED),
+     (jmut.MUTATION_VERSION, jmut.MUTATION_REQUIRED)),
+    ("ivf", ivf.validate_ivf_block, jivf.validate_ivf_block,
+     (ivf.IVF_VERSION, ivf.IVF_REQUIRED),
+     (jivf.IVF_VERSION, jivf.IVF_REQUIRED)),
+    ("join", join.validate_join_block, jjoin.validate_join_block,
+     (join.JOIN_VERSION, join.JOIN_REQUIRED),
+     (jjoin.JOIN_VERSION, jjoin.JOIN_REQUIRED)),
+    ("pq", pq.validate_pq_block, jpq.validate_pq_block,
+     (pq.PQ_VERSION, pq.PQ_REQUIRED), (jpq.PQ_VERSION, jpq.PQ_REQUIRED)),
+    ("loadgen_knee", knee.validate_knee_block, jknee.validate_knee_block,
+     (knee.BLOCK_VERSION, knee.STEP_FIELDS),
+     (jknee.BLOCK_VERSION, jknee.STEP_FIELDS)),
+]
+
+
+@pytest.mark.parametrize("shim", SHIMS, ids=[s[0] for s in SHIMS])
+def test_shims_equal_the_jax_shims(shim):
+    name, port_fn, jax_fn, port_consts, jax_consts = shim
+    assert port_consts == jax_consts
+    for label, _path, block in mutations(name):
+        assert port_fn(block) == jax_fn(block), label
+    assert port_fn(VALID[name]) == []
+
+
+def test_shim_modules_import_no_torch():
+    import ast
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for rel in ("index/artifact.py", "ivf/artifact.py", "join/artifact.py",
+                "ops/pq_artifact.py", "analysis/artifacts.py",
+                "analysis/core.py", "analysis/switches.py",
+                "analysis/lockorder.py", "analysis/annotations.py"):
+        tree = ast.parse(open(os.path.join(repo, "knn_tpu_torch", rel)).read())
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import)
+                 for a in n.names}
+        names |= {(n.module or "").split(".")[0] for n in top
+                  if isinstance(n, ast.ImportFrom)}
+        assert not names & {"torch", "jax", "knn_tpu", "numpy"}, (rel, names)
+
+
+# --- the port's own schemas ------------------------------------------------
+def _hand_validate_calibration(cal):
+    """The port's hand validator before the catalog (obs/calibrate.py),
+    kept here as the reference the catalog's legacy strings are held
+    to."""
+    def number(v):
+        return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+    if not isinstance(cal, dict):
+        return [f"calibration is {type(cal).__name__}, not dict"]
+    if not isinstance(cal.get("applied"), bool):
+        return [f"calibration.applied {cal.get('applied')!r} is not a bool"]
+    if not cal["applied"]:
+        return []
+    errs = []
+    factors = cal.get("factors")
+    if not isinstance(factors, dict):
+        errs.append("applied calibration missing factors dict")
+    else:
+        for t in calibrate.TERMS:
+            f = factors.get(t)
+            if not number(f) or f <= 0:
+                errs.append(f"calibration factor {t} {f!r} is not a "
+                            f"positive number")
+    if cal.get("source") not in calibrate.SOURCES:
+        errs.append(f"calibration source {cal.get('source')!r} not in "
+                    f"{calibrate.SOURCES}")
+    if not number(cal.get("model_residual_pct")):
+        errs.append(f"calibration.model_residual_pct "
+                    f"{cal.get('model_residual_pct')!r} is not a number")
+    return errs
+
+
+def _hand_validate_block(block):
+    """The port's hand roofline validator before the catalog
+    (obs/roofline.py)."""
+    def number(v):
+        return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+    if not isinstance(block, dict):
+        return [f"roofline block is {type(block).__name__}, not a dict"]
+    errs = []
+    for key in ("model_version", "bound_class", "ceiling_qps", "terms",
+                "estimated"):
+        if key not in block:
+            errs.append(f"missing field: {key}")
+    if errs:
+        return errs
+    if not isinstance(block["model_version"], int) \
+            or isinstance(block["model_version"], bool):
+        errs.append(f"model_version must be an int, got "
+                    f"{block['model_version']!r}")
+    if block["bound_class"] not in roofline.BOUND_CLASSES:
+        errs.append(f"bound_class {block['bound_class']!r} not in "
+                    f"{roofline.BOUND_CLASSES}")
+    cq = block["ceiling_qps"]
+    if cq is not None and (not number(cq) or cq <= 0):
+        errs.append(f"ceiling_qps must be a positive number, got {cq!r}")
+    terms = block["terms"]
+    if not isinstance(terms, dict) or not terms:
+        errs.append("terms must be a non-empty dict")
+    else:
+        for name, term in terms.items():
+            if name == "probe":
+                continue
+            t = term.get("time_s") if isinstance(term, dict) else None
+            if not number(t) or t < 0:
+                errs.append(f"terms.{name}.time_s must be a non-negative "
+                            f"number, got {t!r}")
+    if not isinstance(block["estimated"], bool):
+        errs.append(f"estimated must be a bool, got {block['estimated']!r}")
+    pct = block.get("roofline_pct")
+    if pct is not None and (not number(pct) or pct < 0):
+        errs.append(f"roofline_pct must be a non-negative number, got "
+                    f"{pct!r}")
+    if "calibration" in block:
+        errs.extend(_hand_validate_calibration(block["calibration"]))
+    return errs
+
+
+def _roofline_blocks():
+    h100 = "NVIDIA H100 80GB HBM3"
+    cal = {"applied": True, "factors": dict.fromkeys(calibrate.TERMS, 1.1),
+           "source": "host_phase", "model_residual_pct": 10.0}
+    base = roofline.attribute(roofline.pallas_cost_model(
+        n=1000, d=16, k=5, nq=8), 50.0)
+    return [
+        base,
+        roofline.pallas_cost_model(n=10**6, d=128, k=100, nq=4096,
+                                   device_kind=h100),
+        roofline.counted_cost_model(n=10**6, d=128, k=100, nq=4096),
+        roofline.join_cost_model(n_a=100, n_b=1000, d=16, k=5,
+                                 superblock_rows=32),
+        roofline.pallas_cost_model(n=10**6, d=128, k=100, nq=4096,
+                                   nprobe=2, ncentroids=64, precision="pq"),
+        {**base, "calibration": cal},
+    ]
+
+
+def _roofline_mutations(block):
+    out = [block, "nope", [1], None, {}]
+    for key in list(block):
+        out.append({k: v for k, v in block.items() if k != key})
+        for value in (None, "x", True, -1, 0, 1.5, [], {}):
+            out.append({**block, key: value})
+    for term in block["terms"]:
+        for value in (None, -1.0, "x", True, 0):
+            t = copy.deepcopy(block)
+            t["terms"][term]["time_s"] = value
+            out.append(t)
+        t = copy.deepcopy(block)
+        t["terms"][term] = "not a dict"
+        out.append(t)
+    cal = block.get("calibration") or {"applied": True}
+    for key in ("applied", "factors", "source", "model_residual_pct"):
+        for value in (None, "x", True, -1.0, {}):
+            out.append({**block, "calibration": {**cal, key: value}})
+    for t in calibrate.TERMS:
+        f = dict((cal.get("factors") or {}))
+        for value in (None, 0, -2.0, True, "x"):
+            out.append({**block, "calibration": {
+                **cal, "applied": True, "factors": {**f, t: value}}})
+    return out
+
+
+@pytest.mark.parametrize("i", range(6))
+def test_roofline_legacy_equals_the_hand_validator(i):
+    """The port's own ``roofline`` schema reproduces its hand validator's
+    strings byte for byte on real blocks and their mutations (NaN aside:
+    the catalog refuses a NaN ceiling, time or share, which the hand
+    validator let through)."""
+    block = _roofline_blocks()[i]
+    assert roofline.validate_block(block) == []
+    for b in _roofline_mutations(block):
+        assert roofline.validate_block(b) == _hand_validate_block(b), b
+        assert art.validate("roofline", b, style="legacy") == \
+            _hand_validate_block(b)
+        assert bool(art.validate("roofline", b, style="normalized")) == \
+            bool(_hand_validate_block(b))
+    nan = {**block, "roofline_pct": float("nan")}
+    assert roofline.validate_block(nan) and not _hand_validate_block(nan)
+
+
+def test_roofline_is_the_ports_own_block():
+    """Divergence: the port's roofline has the H100 bound classes and the
+    terms its shape priced; the JAX schema refuses it, and the port
+    refuses a TPU class."""
+    block = _roofline_blocks()[1]
+    assert block["bound_class"] in roofline.BOUND_CLASSES
+    assert art.validate("roofline", block) == []
+    assert jart.validate("roofline", block, style="legacy")
+    assert art.validate("roofline", {**block, "bound_class": "mxu_bound"},
+                        style="legacy") == [
+        f"bound_class 'mxu_bound' not in {roofline.BOUND_CLASSES}"]
+
+
+def test_tuning_cache_entry_is_the_ports_own_block(tmp_path):
+    """Divergence 20: a real tuner entry (the plain versions on the CPU)
+    validates, its key carries ``rl<token>``, and an entry whose key lacks
+    the token is refused, where the JAX schema has no such rule."""
+    from knn_tpu_torch import tuning
+    from knn_tpu_torch.tuning.cache import roofline_token
+
+    rng = np.random.default_rng(3)
+    db = (rng.random((600, 8)) * 64).astype(np.float32)
+    q = (rng.random((8, 8)) * 64).astype(np.float32)
+    entry = tuning.autotune(db, q, 3, margin=4, runs=1, grid=[{}],
+                            cache_path=str(tmp_path / "t.json"),
+                            device="cpu")
+    again = tuning.autotune(db, q, 3, margin=4, runs=1, grid=[{}],
+                            cache_path=str(tmp_path / "t.json"),
+                            device="cpu")
+    assert again["cached"]
+    for e in (entry, again, json.loads(json.dumps(entry))):
+        for style in STYLES:
+            assert art.validate("tuning_cache_entry", e, style=style) == []
+    assert f"|rl{roofline_token()}|" in entry["cache_key"]
+    bad = {**entry, "cache_key": entry["cache_key"].replace(
+        f"|rl{roofline_token()}", "")}
+    assert art.validate("tuning_cache_entry", bad) == [
+        f"cache_key {bad['cache_key']!r} does not carry the roofline "
+        f"token rl{roofline_token()}"]
+    assert not any("cache_key" in e
+                   for e in jart.validate("tuning_cache_entry", bad))
+    assert art.validate("tuning_cache_entry", {**entry, "runs": 0}) == \
+        ["field runs must be a positive int, got 0"]
+    fields = {f.path for f in art.BY_NAME["tuning_cache_entry"].fields}
+    assert {"smem", "torch_version"} <= fields
+    assert not fields & {"jax_version", "vmem", "profile"}
+
+
+def test_campaign_sentinel_is_the_ports_absent_verdict():
+    """Divergence 48: a campaign line's ``sentinel`` is
+    ``campaign.SENTINEL_ABSENT``, which the JAX sentinel schema refuses;
+    the port's catalog declares no sentinel schema until obs.sentinel is
+    ported, and its ``campaign`` schema reads the block, not the line."""
+    from knn_tpu_torch import campaign
+
+    absent = dict(campaign.SENTINEL_ABSENT)
+    assert absent["verdict"] == "absent" and absent["note"]
+    assert jart.validate("sentinel", absent)
+    assert not any(s.block_path == "sentinel" for s in art.CATALOG)
+    assert "sentinel" not in art.known_keys("campaign")
+
+
+def test_rehearse_line_validates_through_the_catalog(tmp_path):
+    """A rehearse campaign arm on the CPU: its artifact line's roofline,
+    calibration, campaign block and sentinel each validate in both
+    styles, and the stage records carry no ``grid_level`` (divergence
+    50)."""
+    from knn_tpu_torch import campaign
+
+    calibrate.configure(str(tmp_path / "cal.json"))
+    try:
+        s = campaign.run_campaign(rehearse=True, arms=("bf16x3_tiled",),
+                                  out_dir=str(tmp_path), device="cpu",
+                                  shape=dict(n=2048, d=32, k=5, nq=64))
+    finally:
+        calibrate.configure(None)
+    line = s["results"][0]["line"]
+    for name, block in (("roofline", line["roofline"]),
+                        ("calibration", line["roofline"]["calibration"]),
+                        ("campaign", line["campaign"])):
+        for style in STYLES:
+            assert art.validate(name, block, style=style) == [], name
+    assert line["sentinel"] == campaign.SENTINEL_ABSENT
+    stage_keys = {k for st in line["campaign"]["stages"] for k in st}
+    assert "grid_level" not in stage_keys
+    assert stage_keys <= art.known_keys("campaign")
+
+
+def test_catalog_surface():
+    assert [s.name for s in art.CATALOG] == [
+        "roofline", "calibration", "campaign", "loadgen_knee", "mutation", "ivf", "pq", "join", "quality", "fleet",
+        "tuning_cache_entry"]
+    for s in art.CATALOG:
+        if s.version_field:
+            assert isinstance(art.version_value(s.name), int)
+    assert art.required_keys("mutation") == jart.required_keys("mutation")
+    assert art.element_required("loadgen_knee", "rate_steps") == \
+        jart.element_required("loadgen_knee", "rate_steps")
+    with pytest.raises(KeyError):
+        art.element_required("loadgen_knee", "no_such_list")
+    jcur = dict(jart.curated_fields())
+    assert all(jcur[f] == d for f, d in art.curated_fields())
+    ported = dict(art.curated_fields())
+    assert [f for f, _ in art.curated_fields()] == \
+        [f for f, _ in jart.curated_fields() if f in ported]
+    assert art.known_keys("ivf") == jart.known_keys("ivf")
+    later = {"bench_line", "sentinel", "multihost", "multichip_record"}
+    assert set(jart.BY_NAME) - set(art.BY_NAME) == later

@@ -33,6 +33,7 @@ from knn_tpu_torch.obs import audit, blackbox
 from knn_tpu_torch.obs import names as mn
 
 from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
+from test_torch_obs import port_wording
 
 WAIT = 60.0
 
@@ -531,7 +532,7 @@ def test_health_quality_section_and_doctor_text_equal_jax(tmp_path, capsys):
     rep = obs.health.report()
     assert rep["quality"]["enabled"] and rep["quality"]["replayed_queries"]
     text = obs.health.render_text(rep)
-    assert text == jobs.health.render_text(rep)
+    assert text == port_wording(jobs.health.render_text(rep))
     assert "quality: audit rate=1.0" in text and "drift[0]:" in text
     path = tmp_path / "snap.json"
     obs.write_json_snapshot(str(path))
@@ -540,7 +541,7 @@ def test_health_quality_section_and_doctor_text_equal_jax(tmp_path, capsys):
     for main in (pmain, jmain):
         rc = main(argv)
         outs.append((rc, capsys.readouterr().out))
-    assert outs[0] == outs[1]
+    assert outs[0] == (outs[1][0], port_wording(outs[1][1]))
     assert "quality: audit rate=1.0" in outs[0][1]
     audit.reset_auditor()
     assert "audit sampler off" in obs.health.render_text(obs.health.report())

@@ -1943,3 +1943,94 @@ def test_cuda_campaign_arms_calibrate_at_a_small_shape(cuda_device,
         assert bench["certified"] + bench["fallback_queries"] >= 1024
         assert line["roofline"]["calibration"]["applied"]
         assert line["device_kind"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_engine_lock_order_acyclic_under_hammer(cuda_device):
+    """The lock-order hammer (chip_smoke.lock_order_hammer) over a warm
+    CUDA-graph engine: its _lock and _launch_lock, a QueryQueue's _cond
+    and admission controller, the SLO engine, the registry, one histogram
+    and the audit sampler at rate 1.0; 8 threads x 4 requests of 1-8
+    rows, every request bitwise the eager search of its coalesced batch,
+    one graph replay per queue batch and no new capture."""
+    import chip_smoke
+    from knn_tpu_torch import ShardedKNN, obs
+    from knn_tpu_torch.obs import audit
+    from knn_tpu_torch.obs import names as mn
+    from knn_tpu_torch.serving import (AdmissionConfig, QueryQueue,
+                                       ServingEngine, bucket_for)
+
+    rng = np.random.default_rng(71)
+    q, db = _data(rng, 256, 20000, 32)
+    knn = ShardedKNN(db, k=16, device=cuda_device)
+    eng = ServingEngine(knn, min_bucket=16, max_bucket=512)
+    eng.warmup()
+    assert eng.graphs
+    st0 = eng.stats()
+
+    def eager(cat):
+        padded = np.zeros((bucket_for(eng.buckets, cat.shape[0]), 32),
+                          np.float32)
+        padded[:cat.shape[0]] = cat
+        return tuple(t.cpu().numpy()[:cat.shape[0]]
+                     for t in knn.search(padded))
+
+    obs.reset(enabled=True)
+    slo_eng = obs.reset_slo_engine()
+    aud = audit.reset_auditor(rate=1.0)
+    try:
+        with QueryQueue(eng, max_wait_ms=1.0, admission=AdmissionConfig(
+                max_depth=4096)) as qq:
+            out = chip_smoke.lock_order_hammer(
+                qq, eng, q,
+                {"engine": eng, "engine_launch": (eng, "_launch_lock"),
+                 "queue": qq, "admission": qq._ctrl, "slo": slo_eng,
+                 "registry": obs.get_registry(),
+                 "latency_hist": obs.histogram(
+                     mn.SERVING_REQUEST_LATENCY, op="search"),
+                 "audit": aud},
+                [eager], calls=(qq.stats, slo_eng.evaluate))
+            dispatches = qq.stats()["dispatches"]
+    finally:
+        audit.reset_auditor()
+        obs.reset_slo_engine()
+    st1 = eng.stats()
+    replays = (sum(st1["per_bucket_dispatches"].values())
+               - sum(st0["per_bucket_dispatches"].values()))
+    assert out["requests"] == 32 and out["edges"] >= 1
+    assert "engine_launch" in out["locks_seen"]
+    assert replays == dispatches == out["batches"]
+    assert st1["compile_count"] == st0["compile_count"] == 6
+
+
+@pytest.mark.cuda
+def test_cuda_catalog_validates_a_real_searchs_roofline_block(cuda_device):
+    """The artifact catalog on a roofline block attributed to a real
+    certified search on the card (and its calibration-off overlay):
+    valid in both styles, as the shim says."""
+    import time
+
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.analysis import artifacts
+    from knn_tpu_torch.obs import roofline
+
+    rng = np.random.default_rng(72)
+    q, db = _data(rng, 512, 50000, 64)
+    knn = ShardedKNN(db, k=10, device=cuda_device)
+    knn.search_certified(q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, st = knn.search_certified(q)
+    wall = time.perf_counter() - t0
+    assert st["certified"] + st["fallback_queries"] == 512
+    block = roofline.attribute(roofline.pallas_cost_model(
+        n=50000, d=64, k=10, nq=512,
+        device_kind=torch.cuda.get_device_name(0)), 512 / wall)
+    assert block["bound_class"] in roofline.BOUND_CLASSES
+    for style in ("legacy", "normalized"):
+        assert artifacts.validate("roofline", block, style=style) == []
+        assert artifacts.validate("calibration", block["calibration"],
+                                  style=style) == []
+    assert roofline.validate_block(block) == []
+    assert roofline.validate_block({**block, "roofline_pct": -1.0}) == [
+        "roofline_pct must be a non-negative number, got -1.0"]

@@ -305,6 +305,20 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.obs.blackbox, knn_tpu_torch.obs.traceread\n"
         "import knn_tpu_torch.obs.calibrate, knn_tpu_torch.obs.fleet\n"
         "import knn_tpu_torch.campaign\n"
+        "import knn_tpu_torch.analysis.core, knn_tpu_torch.analysis.annotations\n"
+        "import knn_tpu_torch.analysis.lockorder\n"
+        "import knn_tpu_torch.analysis.check_concurrency\n"
+        "import knn_tpu_torch.analysis.check_metrics\n"
+        "import knn_tpu_torch.analysis.switches\n"
+        "import knn_tpu_torch.analysis.check_switches\n"
+        "import knn_tpu_torch.analysis.check_torch\n"
+        "import knn_tpu_torch.analysis.artifacts\n"
+        "import knn_tpu_torch.analysis.check_artifacts\n"
+        "import knn_tpu_torch.ivf.artifact, knn_tpu_torch.join.artifact\n"
+        "import knn_tpu_torch.ops.pq_artifact\n"
+        "from knn_tpu_torch.analysis import artifacts as _a\n"
+        "[_a.version_value(s.name) for s in _a.CATALOG if s.version_field]\n"
+        "knn_tpu_torch.analysis.run('.')\n"
         "knn_tpu_torch.native.load()\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

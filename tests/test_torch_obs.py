@@ -622,7 +622,7 @@ def test_health_ready_after_warmup_and_index_section(small_prog):
     assert obs.gauge(mn.HEALTH_READY).get() == 1.0
     text = obs.health.render_text(rep)
     assert text.startswith("health: READY")
-    assert text == jobs.health.render_text(rep)
+    assert text == port_wording(jobs.health.render_text(rep))
 
 
 def test_http_server_concurrent_load_never_tears(small_prog):
@@ -689,6 +689,27 @@ def _cli(main, argv, capsys):
     return rc, capsys.readouterr().out
 
 
+def port_wording(text):
+    """The JAX package's health text in the port's words: where it names
+    an environment switch the port does not read, the port names the
+    argument that arms the feature (ROADMAP divergences 39 and 43)."""
+    return (text.replace("KNN_TPU_CALIBRATION unset",
+                         obs.health.CALIBRATION_ARGUMENT)
+            .replace("KNN_TPU_AUDIT_RATE unset", obs.health.AUDIT_ARGUMENT))
+
+
+def test_health_names_the_arguments_not_the_switches():
+    rep = {"calibration": {"store": None, "entries": 0},
+           "quality": {"enabled": False}}
+    text = obs.health.render_text(rep)
+    assert "calibration: no store configured (calibrate.configure(" \
+        "store=...)) — roofline verdicts are analytic only" in text
+    assert "quality: audit sampler off (audit.reset_auditor(rate=...))" \
+        in text
+    assert "KNN_TPU_" not in text
+    assert text == port_wording(jobs.health.render_text(rep))
+
+
 @pytest.mark.parametrize("ready", [False, True])
 def test_cli_metrics_and_doctor_print_what_jax_prints(tmp_path, capsys,
                                                       small_prog, ready):
@@ -706,7 +727,8 @@ def test_cli_metrics_and_doctor_print_what_jax_prints(tmp_path, capsys,
                  ["metrics", "--snapshot", str(path), "--format", "json"],
                  ["doctor", "--snapshot", str(path)],
                  ["doctor", "--snapshot", str(path), "--json"]):
-        assert _cli(pmain, argv, capsys) == _cli(jmain, argv, capsys), argv
+        rc, out = _cli(jmain, argv, capsys)
+        assert _cli(pmain, argv, capsys) == (rc, port_wording(out)), argv
     rc, out = _cli(pmain, ["doctor", "--snapshot", str(path)], capsys)
     assert rc == (0 if ready else 2)
     assert ("engine[0]: warmed=['search']" in out) == ready

@@ -36,6 +36,7 @@ from knn_tpu_torch.obs import names as mn
 from knn_tpu_torch.obs import waterfall
 
 from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
+from test_torch_obs import port_wording
 
 K = 5
 DIM = 12
@@ -297,7 +298,7 @@ def test_live_queue_trace_tiles_and_stats_carry_slowest(engines):
     deep = [r for r in rep["slowest_requests"] if r.get("waterfall")]
     assert deep
     text = obs.health.render_text(rep)
-    assert text == jobs.health.render_text(rep)
+    assert text == port_wording(jobs.health.render_text(rep))
     assert "slowest recent request" in text and deep[0]["trace_id"] in text
 
 
