@@ -50,6 +50,36 @@ exits non-zero and prints no result):
              kernel, device busy time, device idle share), one trace that
              must hold K1 and at least one of its warm-up kernels (a trace
              that lost them may have lost the block's first kernels);
+4b. mesh   — the db-sharded mesh (knn_tpu_torch.parallel) at the ``main``
+             shape and draw: ``ShardedKNN(mesh=make_mesh(1, 4,
+             devices=[cuda:0] * 4))`` (four logical shards of 250,000 rows
+             on the one card), ``search_certified()`` with the default
+             knobs under ``merge="ring"`` and ``"allgather"``: K1 launched
+             4 times (once a shard) and no other kernel, the indices
+             bitwise the ``main`` (1, 1) placement's and the oracle's on
+             256 queries (recall@100 = 1.0), every row whose distances
+             differ from the (1, 1) placement's one that either placement
+             repaired (it holds a value f32 cannot represent; there within
+             RANK_SLACK, equal where both are float64), ring bitwise
+             allgather; ``make_host_mesh(1, 2, 2)`` under the four
+             ``(merge, dcn_merge)`` pairs, each bitwise the flat mesh;
+             two processes on the card (``MultiHostKNN`` over a TCPStore,
+             500,000 rows each, K1 / K5 / K2 once a process): bf16x3 on the
+             4,096 queries with the flat mesh's indices, int8 (K5, on the
+             draw cast to uint8, the quant phase's byte-exact placement,
+             where its lists certify queries) and highest (K2) on the
+             first 1,024 queries (a cut for time: the int8 repair), each
+             held against the (1, 1) placement's same arm and draw as
+             above (the rows whose distances differ counted), each
+             process certifying at least one query,
+             ``MERGE_BYTES{level="dcn"}``
+             = merge_bytes(4096, 100, 2, "allgather"), ``health``'s
+             multihost section naming 2 hosts, one stitched cross-host
+             waterfall per request, the store exchange's seconds and bytes
+             (the host-mediated TCP store on one machine: no NVLink, no
+             InfiniBand); a failed child fails the phase; the mesh and
+             (1, 1) calls timed in turns (logical shards of one card: no
+             speed claim follows);
 5. obs     — the telemetry core (knn_tpu_torch.obs) at the ``main`` shape
              and placement: warm ``main`` calls with obs on and off in
              turns (on / off / off / on, three rounds; three more, up to
@@ -369,8 +399,9 @@ Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 ``--phases device,build,selectors,metrics``,
 ``--phases device,build,index,ivf,join``,
 ``--phases device,build,hosttier,join``, ``--phases device,native``,
-``--phases device,build,serving``, ``--phases device,build,main,obs`` or
-``--phases device,build,main,obs,campaign``).
+``--phases device,build,serving``, ``--phases device,build,main,obs``,
+``--phases device,build,main,obs,campaign`` or
+``--phases device,build,main,mesh``).
 """
 
 from __future__ import annotations
@@ -411,6 +442,61 @@ REPO = Path(__file__).resolve().parent
 
 #: every bench block of the run validated through the artifact catalog
 CATALOG_CHECKS: list = []
+
+#: one of the mesh phase's two processes: its half of the ``main`` rows in
+#: a MultiHostKNN over a TCPStore; writes its results into ``out_dir``
+MESH_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+
+pid, port, out_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from knn_tpu_torch import obs
+from knn_tpu_torch.obs import names as mn
+from knn_tpu_torch.ops import coarse_knn as ck
+from knn_tpu_torch.parallel import multihost
+
+obs.reset(enabled=True)
+obs.reset_event_log(path=f"{out_dir}/events{pid}.jsonl")
+multihost.initialize(f"localhost:{port}", 2, pid, timeout_s=300)
+n, dim, n_q, k = 1_000_000, 128, 4096, 100
+rng = np.random.default_rng(0)
+db = (rng.random(size=(n, dim)) * 128.0).astype(np.float32)
+q = (rng.random(size=(n_q, dim)) * 128.0).astype(np.float32)
+half = n // 2
+knn = multihost.MultiHostKNN(db[pid * half:(pid + 1) * half], k=k)
+# int8 runs on the main draw cast to uint8, the quant phase's byte-exact
+# placement, where K5's lists certify queries and so reach the merge (on
+# the f32 draw int8 certifies none: every list would be a host repair)
+knn8 = multihost.MultiHostKNN(
+    db[pid * half:(pid + 1) * half].astype(np.uint8), k=k)
+q8 = q.astype(np.uint8).astype(np.float32)
+del db
+res = {"pid": pid}
+for arm, rows in (("bf16x3", n_q), ("int8", 1024), ("highest", 1024)):
+    before = dict(ck.binned_select.launches)
+    t0 = time.perf_counter()
+    d, i, st = (knn8 if arm == "int8" else knn).search_certified(
+        (q8 if arm == "int8" else q)[:rows], margin=28, precision=arm)
+    wall = time.perf_counter() - t0
+    launched = {a: ck.binned_select.launches[a] - before[a]
+                for a in before if ck.binned_select.launches[a] != before[a]}
+    np.save(f"{out_dir}/d_{arm}_{pid}.npy", d)
+    np.save(f"{out_dir}/i_{arm}_{pid}.npy", i)
+    rep = multihost.last_report()
+    res[arm] = {"wall_s": wall, "launches": launched,
+                "per_host": st["per_host"],
+                "straggler_gap_s": st["straggler_gap_s"],
+                "exchange_s": rep["exchange_s"],
+                "exchange_bytes": rep["exchange_bytes"],
+                "dcn_bytes_total": obs.counter(
+                    mn.MERGE_BYTES, level="dcn",
+                    strategy="allgather").get()}
+res["health"] = obs.health.report()["multihost"]
+res["foreign"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "knn_tpu"))
+print("RESULT " + json.dumps(res), flush=True)
+"""
 
 
 def catalog_check(label, name, block):
@@ -1395,7 +1481,7 @@ def kernel_record(name, source, replaces):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="device,lint,build,kernel,main,profile,obs,"
+                    default="device,lint,build,kernel,main,profile,mesh,obs,"
                     "campaign,"
                     "stream,selectors,metrics,quant,f32arms,pq,lane,"
                     "survivors,tune,"
@@ -1711,6 +1797,13 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    def timed_on(knn, q, **knobs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = knn.search_certified(q, margin=28, selector="pallas", **knobs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
     # the kernel configurations of search_certified that every arm runs
     kernel_configs = {"tiled": {"kernel": "tiled"},
                       "tiled_db_major": {"kernel": "tiled",
@@ -1822,6 +1915,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"bad result shapes {d.shape} {i.shape}")
         recall, same, rel = oracle_check(S, d, i, "main")
         S["tiled"] = (d, i)
+        S["tiled_stats"] = stats
         # the main call's roofline block, held against the catalog
         from knn_tpu_torch.obs import roofline
 
@@ -1846,6 +1940,222 @@ def main(argv=None) -> int:
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
         if "profile" in phases:
             emit(profile_search(knn, S["q_np"], require="binned_select_"))
+
+    def phase_mesh(S):
+        """Docstring item 4b: the flat and host meshes on logical shards of
+        the card, two processes merging through the store, the times."""
+        from knn_tpu_torch import ShardedKNN
+        from knn_tpu_torch.obs.waterfall import stitch_multihost
+        from knn_tpu_torch.parallel.crossover import merge_bytes
+        from knn_tpu_torch.parallel.mesh import make_host_mesh, make_mesh
+
+        t_phase = time.perf_counter()
+        n, n_q, k, q_np = S["n"], S["n_q"], S["k"], S["q_np"]
+        if "tiled" not in S:
+            (d, i, st), _ = timed_search(S)
+            S["tiled"], S["tiled_stats"] = (d, i), st
+        one = (*S["tiled"], S["tiled_stats"])
+        # the (1, 1) placement's int8 and highest results on the first
+        # 1,024 queries (also builds their kernels before the children
+        # load them); int8 on the main draw cast to uint8 (the quant
+        # phase's byte-exact placement: K5 certifies queries there, none
+        # on the f32 draw)
+        n_cut = 1024
+        q8 = q_np.astype(np.uint8).astype(np.float32)
+        knn8 = ShardedKNN(S["knn"].placement.db_host.astype(np.uint8), k=k)
+        one_arm = {"int8": knn8.search_certified(q8[:n_cut], margin=28,
+                                                 precision="int8"),
+                   "highest": S["knn"].search_certified(
+                       q_np[:n_cut], margin=28, precision="highest")}
+        del knn8
+
+        def held(name, d, i, st, rd, ri, rst):
+            """Raises unless the indices are bitwise the reference's and
+            every row whose distances differ is one that either placement
+            repaired: a repaired query carries float64 distances, which f32
+            cannot represent, a certified one f32 direct differences.
+            There the distances must be within RANK_SLACK, equal where both
+            are float64.  Returns the rows whose d differ."""
+            if not np.array_equal(i, ri):
+                raise AssertionError(f"{name}: indices differ")
+            differ = (d != rd).any(axis=1)
+            rows = int(differ.sum())
+            if not rows:
+                return 0
+            if st["fallback_queries"] == rst["fallback_queries"] == 0:
+                raise AssertionError(f"{name}: distances differ")
+            repaired = ((d != d.astype(np.float32)).any(axis=1)
+                        | (rd != rd.astype(np.float32)).any(axis=1))
+            if (differ & ~repaired).any():
+                raise AssertionError(
+                    f"{name}: {int((differ & ~repaired).sum())} rows that "
+                    f"neither placement repaired differ")
+            rel = float(np.max(np.abs(d - rd) / np.maximum(rd, 1e-30)))
+            both = (d != d.astype(np.float32)) & (rd != rd.astype(np.float32))
+            if rel > ck.RANK_SLACK or not np.array_equal(d[both], rd[both]):
+                raise AssertionError(f"{name}: distances {rel} apart")
+            return rows
+
+        # the two processes start first: their import, draw and placement
+        # overlap the in-process meshes below
+        work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        child = os.path.join(work, "child.py")
+        with open(child, "w") as f:
+            f.write(MESH_CHILD)
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        procs = [subprocess.Popen(
+            [sys.executable, child, str(pid), str(port), work], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for pid in (0, 1)]
+        try:
+            devs = [torch.device("cuda", torch.cuda.current_device())] * 4
+            flat, out = {}, {}
+            for merge in ("ring", "allgather"):
+                knn = ShardedKNN(S["db_np"], k=k, merge=merge,
+                                 mesh=make_mesh(1, 4, devices=devs))
+                reset_launches()
+                (d, i, st), wall = timed_on(knn, q_np)
+                launches = read_launches()
+                if launches["k1"] != 4 or sum(launches.values()) != 4:
+                    raise AssertionError(
+                        f"mesh 1x4 {merge}: launches {launches}, expected 4 "
+                        f"of k1 (one a shard) and no other kernel")
+                recall, same, rel = oracle_check(S, d, i, f"mesh {merge}")
+                out[f"flat_{merge}"] = {
+                    "k1_launches": launches["k1"], "wall_s": wall,
+                    "recall_at_k": recall, "same_indices": same,
+                    "max_rel_dist_err": rel,
+                    "fallback_queries": st["fallback_queries"],
+                    "fallback_queries_one_device": one[2]["fallback_queries"],
+                    "d_rows_not_bitwise_one_device": held(
+                        f"mesh {merge}", d, i, st, *one)}
+                flat[merge] = (d, i, st)
+                if merge == "ring":
+                    del knn
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(flat["ring"][:2], flat["allgather"][:2])):
+                raise AssertionError("mesh: ring and allgather differ")
+            mesh_knn = knn
+            for merge, dcn in [(a, b) for a in ("ring", "allgather")
+                               for b in ("ring", "allgather")]:
+                hknn = ShardedKNN(S["db_np"], k=k, merge=merge,
+                                  dcn_merge=dcn,
+                                  mesh=make_host_mesh(1, 2, 2, devices=devs))
+                reset_launches()
+                (d, i, st), wall = timed_on(hknn, q_np)
+                launches = read_launches()
+                if launches["k1"] != 4 or sum(launches.values()) != 4 or \
+                        not np.array_equal(d, flat["ring"][0]) or \
+                        not np.array_equal(i, flat["ring"][1]):
+                    raise AssertionError(
+                        f"host mesh {merge}/{dcn}: launches {launches} or "
+                        f"a result other than the flat mesh's")
+                out[f"host_{merge}_{dcn}"] = {"k1_launches": launches["k1"],
+                                              "bitwise_flat": True}
+                del hknn
+            torch.cuda.empty_cache()
+            results = []
+            for p in procs:
+                stdout, stderr = p.communicate(timeout=300)
+                line = [ln for ln in stdout.splitlines()
+                        if ln.startswith("RESULT ")]
+                if p.returncode != 0 or not line:
+                    raise AssertionError(
+                        f"mesh child {len(results)}: rc {p.returncode}, "
+                        f"{stderr[-3000:]}")
+                results.append(json.loads(line[-1][len("RESULT "):]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        two = {}
+        for arm in ("bf16x3", "int8", "highest"):
+            d0, i0, d1, i1 = (np.load(os.path.join(work, f"{x}_{arm}_{p}.npy"))
+                              for p in (0, 1) for x in ("d", "i"))
+            if not (np.array_equal(d0, d1) and np.array_equal(i0, i1)):
+                raise AssertionError(f"two processes: {arm} results differ")
+            r0 = results[0][arm]
+            st = {"fallback_queries": sum(r0["per_host"]["fallback_queries"])}
+            if arm == "bf16x3":
+                rows = held("two processes bf16x3", d0, i0, st, *one)
+                if not np.array_equal(i0, flat["ring"][1]):
+                    raise AssertionError(
+                        "two processes: bf16x3 indices other than the flat "
+                        "mesh's")
+                want = merge_bytes(n_q, k, 2, "allgather")
+                if r0["dcn_bytes_total"] != want or want != 6_553_600:
+                    raise AssertionError(
+                        f"two processes: MERGE_BYTES dcn "
+                        f"{r0['dcn_bytes_total']} != {want}")
+            else:
+                rows = held(f"two processes {arm}", d0, i0, st,
+                            *one_arm[arm])
+            if any(r[arm]["launches"] != {arm: 1} for r in results):
+                raise AssertionError(
+                    f"two processes {arm}: launches "
+                    f"{[r[arm]['launches'] for r in results]}")
+            if min(r0["per_host"]["certified"]) < 1:
+                raise AssertionError(
+                    f"two processes {arm}: a process certified no query "
+                    f"({r0['per_host']}): its kernel's lists never reached "
+                    f"the merge")
+            two[arm] = {
+                "queries": d0.shape[0],
+                "draw": ("main, cast to uint8" if arm == "int8" else "main"),
+                "d_rows_not_bitwise_one_device": rows,
+                "fallback_queries_one_device": (
+                    one if arm == "bf16x3" else one_arm[arm])[2][
+                        "fallback_queries"],
+                "launches_per_process": results[0][arm]["launches"],
+                "fallback_queries_per_host":
+                    r0["per_host"]["fallback_queries"],
+                "certified_per_host": r0["per_host"]["certified"],
+                "walls_s": r0["per_host"]["walls_s"],
+                "straggler_gap_s": r0["straggler_gap_s"],
+                "exchange_s": r0["exchange_s"],
+                "exchange_bytes": r0["exchange_bytes"],
+                "exchange_bytes_per_s": (r0["exchange_bytes"]
+                                         / r0["exchange_s"]
+                                         if r0["exchange_s"] else None)}
+        for r in results:
+            if r["health"]["hosts"] != 2 or r["foreign"]:
+                raise AssertionError(
+                    f"two processes: health {r['health']}, foreign imports "
+                    f"{r['foreign']}")
+        events = []
+        for p in (0, 1):
+            with open(os.path.join(work, f"events{p}.jsonl")) as f:
+                events += [json.loads(ln) for ln in f if ln.strip()]
+        stitched = stitch_multihost(events)
+        if len(stitched) != 3 or not all(w["kind"] == "multihost"
+                                         for w in stitched.values()):
+            raise AssertionError(f"two processes: {len(stitched)} stitched "
+                                 f"waterfalls for 3 requests")
+        # the mesh and (1, 1) calls in turns: logical shards of one card
+        times = {"one": [], "mesh": []}
+        for order in (("one", "mesh"), ("mesh", "one")) * 2:
+            for label in order:
+                times[label].append(timed_on(
+                    mesh_knn if label == "mesh" else S["knn"], q_np)[1])
+        del mesh_knn
+        torch.cuda.empty_cache()
+        emit({"phase": "mesh", "n": n, "queries": n_q, "k": k,
+              "shards": 4, "devices": "cuda:0 x 4 (logical)",
+              "runs": out, "two_processes": {
+                  "rows_each": n // 2, "transport":
+                      "host-mediated TCP store, two processes on one "
+                      "machine (not NVLink, not InfiniBand)",
+                  "arms": two,
+                  "dcn_merge_bytes": results[0]["bf16x3"]["dcn_bytes_total"],
+                  "health": results[0]["health"],
+                  "stitched_waterfalls": len(stitched)},
+              "seconds_mesh_vs_one_in_turns": times,
+              "phase_s": time.perf_counter() - t_phase})
 
     def phase_obs(S):
         """The telemetry core on the main path: warm main calls with obs on
@@ -5222,12 +5532,14 @@ def main(argv=None) -> int:
         del eng
         torch.cuda.empty_cache()
 
-    if phases & {"main", "obs", "campaign", "stream", "selectors",
+    if phases & {"main", "mesh", "obs", "campaign", "stream", "selectors",
                   "metrics", "quant",
                   "f32arms", "pq", "lane", "survivors", "tune", "index",
                   "ivf", "hosttier", "join", "serving"}:
         if "main" in phases:
             phase_main(sift_data())
+        if "mesh" in phases:
+            phase_mesh(sift_data())
         if "obs" in phases:
             phase_obs(sift_data())
         if "campaign" in phases:

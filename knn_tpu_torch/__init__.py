@@ -10,7 +10,10 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 - :class:`ShardedKNN` — a database placed once (any metric of
   ``ops.metrics.METRICS``, optionally ranking in a ``compute_dtype``; with
   ``hbm_budget_bytes`` one larger than the budget stays in host RAM and
-  ``search`` streams it through the card, the host-RAM tier);
+  ``search`` streams it through the card, the host-RAM tier; with
+  ``mesh=`` (:func:`make_mesh`, :func:`make_host_mesh`) the rows shard
+  over the mesh's db axes and the shards' lists merge, and
+  ``knn_tpu_torch.parallel.multihost`` merges processes through a store);
   ``search``, ``radius_search``, ``search_certified`` (certified-exact for
   l2, cosine and dot: ``selector="pallas"`` through a coarse kernel — the
   ``tiled`` (query-major or ``db_major`` grid), ``streaming`` or
@@ -59,6 +62,7 @@ from knn_tpu_torch.ops.certified import (count_below, knn_search_certified,
                                          pallas_candidate_fn)
 from knn_tpu_torch.ops.coarse_knn import knn_search_pallas
 from knn_tpu_torch.ops.radius import radius_search
+from knn_tpu_torch.parallel.mesh import make_host_mesh, make_mesh
 from knn_tpu_torch.parallel.sharded import ShardedKNN, unpack_certified
 from knn_tpu_torch.pipeline import JobResult, run_job
 from knn_tpu_torch.utils.config import JobConfig
@@ -67,5 +71,6 @@ __all__ = ["IVFIndex", "JobConfig", "JobResult", "KNNClassifier",
            "KNNRegressor", "MutableIndex", "NearestNeighbors",
            "RadiusNeighborsClassifier", "RadiusNeighborsRegressor",
            "ShardedKNN", "count_below", "knn_join", "knn_search_certified",
-           "knn_search_pallas", "make_database", "pallas_candidate_fn",
+           "knn_search_pallas", "make_database", "make_host_mesh",
+           "make_mesh", "pallas_candidate_fn",
            "radius_search", "run_job", "unpack_certified"]

@@ -573,6 +573,7 @@ def known_keys(name: str) -> set:
 # --------------------------------------------------------------------------
 _RL = "knn_tpu_torch.obs.roofline"
 _CAL = "knn_tpu_torch.obs.calibrate"
+_XO = "knn_tpu_torch.parallel.crossover"
 
 #: every schema's documentation: the README's port section heading that
 #: lists the cataloged blocks
@@ -1157,6 +1158,89 @@ CATALOG: Tuple[BlockSchema, ...] = (
                             "block; obs.fleet.artifact_block writes "
                             "none, and the port's benchmark will"),
             Field("error", "any"),
+        ),
+    ),
+    # --- the multi-host merge and host-RAM tier block ----------------------
+    BlockSchema(
+        name="multihost",
+        block_path="multihost",
+        doc=_DOC,
+        validator="knn_tpu_torch.parallel.crossover:validate_multihost_block",
+        # the JAX package's bench.py emits it; the port's benchmark will
+        emitters=(),
+        fingerprints=(frozenset({"hosts", "merge"}),
+                      frozenset({"sweeps", "budget_bytes",
+                                 "segment_rows"})),
+        not_dict_legacy="multihost block is {vtype}, not dict",
+        refusal_label="multihost",
+        curate=True,
+        sweep=True,
+        hoists=(
+            Hoist("hosts", "multihost_hosts", truthy=True, bench=False),
+            Hoist("merge.dcn.strategy", "multihost_merge", truthy=True,
+                  bench=False),
+            Hoist("hosttier.sweeps", "hosttier_sweeps", truthy=True),
+        ),
+        checks=(
+            Field("hosts", "int", required=True, ge=1,
+                  legacy="hosts {value!r} is not a positive int"),
+            Field("chips_per_host", "int", ge=1,
+                  legacy="chips_per_host {value!r} is not a positive "
+                         "int"),
+            Field("merge", "dict", required=True,
+                  legacy="missing merge breakdown"),
+            Field("merge.intra", "dict",
+                  legacy="merge.intra is not a dict"),
+            Field("merge.intra.strategy", required=True,
+                  choices=Ref(_XO, "STRATEGIES"),
+                  legacy="merge.intra.strategy {value!r} not in "
+                         "{choices}"),
+            Field("merge.intra.source", required=True,
+                  choices=Ref(_XO, "SOURCES"),
+                  legacy="merge.intra.source {value!r} not in "
+                         "{choices}"),
+            Field("merge.dcn", "dict",
+                  legacy="merge.dcn is not a dict"),
+            Field("merge.dcn.strategy", required=True,
+                  choices=Ref(_XO, "STRATEGIES"),
+                  legacy="merge.dcn.strategy {value!r} not in "
+                         "{choices}"),
+            Field("merge.dcn.source", required=True,
+                  choices=Ref(_XO, "SOURCES"),
+                  legacy="merge.dcn.source {value!r} not in "
+                         "{choices}"),
+            Field("dcn_merge_bytes", "int", ge=0,
+                  legacy="dcn_merge_bytes {value!r} is not a "
+                         "non-negative int"),
+            Field("hosttier", "dict",
+                  legacy="hosttier is not a dict"),
+            Field("hosttier.sweeps", "int", required=True, ge=1,
+                  legacy="hosttier.sweeps {value!r} is not a positive "
+                         "int"),
+            Field("hosttier.budget_bytes", "int", required=True, gt=0,
+                  legacy="hosttier.budget_bytes {value!r} is not a "
+                         "positive int"),
+            Field("hosttier.segment_rows", "int", required=True, ge=1,
+                  legacy="hosttier.segment_rows {value!r} is not a "
+                         "positive int"),
+            Field("hosttier.bytes_per_sweep", "any"),
+            Field("hosttier.sweep_walls_s", "any"),
+            Field("hosttier.qps", "any"),
+            Field("error", "any"),
+        ),
+    ),
+    # --- a multi-chip run record (MULTICHIP_r*.json) -----------------------
+    BlockSchema(
+        name="multichip_record",
+        block_path="",
+        doc=_DOC,
+        emitters=(),
+        checks=(
+            Field("n_devices", "int", required=True, ge=1),
+            Field("rc", "int", required=True),
+            Field("ok", "bool", required=True),
+            Field("skipped", "bool", required=True),
+            Field("tail", "str", required=True, nullable=True),
         ),
     ),
     # --- tuning-cache entries (the port's own shape) ----------------------

@@ -57,9 +57,6 @@ def _s(name, kind, description, port, **kw) -> Switch:
 _BENCH = ("not ported: a knob of the JAX package's bench.py; the port's "
           "benchmark (ROADMAP queue A item 1) is not written yet, and its "
           "knobs will be arguments")
-_MERGE = ("not ported: the multi-GPU merge tree waits for ROADMAP queue A "
-          "item 6")
-
 SWITCHES: Tuple[Switch, ...] = (
     # --- root namespaces -------------------------------------------------
     _s("KNN_TPU_", "family",
@@ -175,10 +172,12 @@ SWITCHES: Tuple[Switch, ...] = (
     _s("KNN_TPU_MERGE", "str",
        "Override the measured ring/allgather crossover for the "
        "flat / per-host ICI merge level (explicit caller arg still "
-       "wins; malformed values raise).", _MERGE),
+       "wins; malformed values raise).",
+       "ShardedKNN(merge=) (divergence 56)"),
     _s("KNN_TPU_DCN_MERGE", "str",
        "Same override for the cross-host DCN merge level of "
-       "hierarchical placements.", _MERGE),
+       "hierarchical placements.",
+       "ShardedKNN(dcn_merge=) (divergence 56)"),
     # --- host-RAM shard tier ---------------------------------------------
     _s("KNN_TPU_HOSTTIER_BUDGET_BYTES", "int",
        "Per-host HBM byte budget: a corpus placing past it serves "

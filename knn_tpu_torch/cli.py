@@ -62,6 +62,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="torch", choices=BACKENDS,
                    help="torch (the device path) or native (the C++ CPU "
                    "backend, built from knn_tpu_torch/native at first use)")
+    p.add_argument("--query-shards", type=int, default=None,
+                   help="mesh query-axis size (default: every card left; "
+                   "1 with --device)")
+    p.add_argument("--db-shards", type=int, default=1,
+                   help="mesh db-axis size (shards the train rows; with "
+                   "--device, a logical mesh on that device)")
+    p.add_argument("--merge", default="allgather", choices=("allgather", "ring"))
     p.add_argument("--train-tile", type=int, default=None, help="db rows per distance tile in the exact path")
     p.add_argument("--batch-size", type=int, default=None, help="queries per step")
     p.add_argument("--compute-dtype", default=None,
@@ -132,6 +139,9 @@ def args_to_config(args: argparse.Namespace) -> JobConfig:
         normalize=not args.no_normalize,
         validation=args.val is not None,
         backend=args.backend,
+        query_shards=args.query_shards,
+        db_shards=args.db_shards,
+        merge=args.merge,
         device=args.device,
         train_tile=args.train_tile,
         batch_size=args.batch_size,

@@ -1,9 +1,9 @@
 """KNN classifier — the port of knn_tpu/models/classifier.py (the free
 functions ``knn_predict`` and ``knn_kneighbors``, and ``KNNClassifier``:
-fit, predict, kneighbors, score) on one device.
+fit, predict, kneighbors, score), on one device or a mesh.
 
-``fit`` places the database once (parallel.ShardedKNN) and every predict
-reuses it.  ``mode="exact"`` ranks every row in the compute dtype (ties
+``fit`` places the database once (parallel.ShardedKNN, over ``mesh`` when
+one is given) and every predict reuses it.  ``mode="exact"`` ranks every row in the compute dtype (ties
 to the lower index); ``mode="certified"`` runs a certificate (``selector``
 "pallas", the one-pass kernel one, or the counted "exact" / "approx"):
 exact neighbor sets, hence exact labels.
@@ -64,6 +64,11 @@ class KNNClassifier:
       mode: 'exact' | 'certified'.
       selector: certified-mode selector ('pallas' | 'exact' | 'approx').
       device: torch device; None = 'cuda' (raises without a GPU).
+      mesh: a parallel.mesh.make_mesh / make_host_mesh mesh: fit places
+        the database over it once and every predict / kneighbors runs
+        the sharded programs (the device is the mesh's first).
+      merge: the db-axis merge strategy on a mesh ('allgather' | 'ring';
+        None: the measured crossover).
     """
 
     def __init__(self, k: int = 5, metric: str = "l2",
@@ -71,7 +76,8 @@ class KNNClassifier:
                  train_tile: Optional[int] = None,
                  batch_size: Optional[int] = None, compute_dtype=None,
                  mode: str = "exact", selector: str = "pallas",
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None,
+                 merge: Optional[str] = "allgather"):
         if mode not in ("exact", "certified"):
             raise ValueError(f"unknown mode {mode!r}")
         if metric.lower() not in METRICS:
@@ -84,7 +90,12 @@ class KNNClassifier:
         if mode == "certified" and selector not in SELECTORS:
             raise ValueError(
                 f"unknown selector {selector!r}; expected {SELECTORS}")
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh= or device=, not both")
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else resolve_device(device))
+        self.mesh = mesh
+        self.merge = merge
         self.k = k
         self.metric = metric
         self.num_classes = num_classes
@@ -112,11 +123,12 @@ class KNNClassifier:
             self._mins, self._maxs = minmax_stats([X])
             X = minmax_apply(X, self._mins, self._maxs)
         self._dim = X.shape[1]
+        placement = (dict(mesh=self.mesh, merge=self.merge)
+                     if self.mesh is not None else dict(device=self.device))
         self._program = ShardedKNN(
             X.cpu().numpy(), k=self.k, metric=self.metric,
             train_tile=self.train_tile, compute_dtype=self.compute_dtype,
-            labels=y,
-            num_classes=self.num_classes, device=self.device)
+            labels=y, num_classes=self.num_classes, **placement)
         return self
 
     def _prep_queries(self, Q) -> torch.Tensor:

@@ -29,13 +29,21 @@ class NearestNeighbors:
         contract of ops.radius).
       metric / train_tile / compute_dtype: as ShardedKNN.
       device: torch device; None = 'cuda' (raises without a GPU).
+      mesh / merge: place the database over a mesh once (the device is
+        its first), with this db-axis merge strategy.
     """
 
     def __init__(self, k: int = 5, *, radius: Optional[float] = None,
                  max_neighbors: int = 128, metric: str = "l2",
                  train_tile: Optional[int] = None, compute_dtype=None,
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 device: DeviceLike = None, mesh=None,
+                 merge: Optional[str] = "allgather"):
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh= or device=, not both")
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else resolve_device(device))
+        self.mesh = mesh
+        self.merge = merge
         self.k = k
         self.radius = radius
         self.max_neighbors = max_neighbors
@@ -59,9 +67,11 @@ class NearestNeighbors:
         if self.k > X.shape[0]:
             raise ValueError(f"k={self.k} > n_samples={X.shape[0]}")
         self._fit_X = X
+        placement = (dict(mesh=self.mesh, merge=self.merge)
+                     if self.mesh is not None else dict(device=self.device))
         self._program = ShardedKNN(
             X, k=self.k, metric=self.metric, train_tile=self.train_tile,
-            compute_dtype=self.compute_dtype, device=self.device)
+            compute_dtype=self.compute_dtype, **placement)
         return self
 
     def _require_fit(self):

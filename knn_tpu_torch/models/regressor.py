@@ -64,14 +64,22 @@ def knn_regress(train: torch.Tensor, train_targets: torch.Tensor,
 class KNNRegressor:
     """fit/predict regressor: ``fit`` places the database once
     (parallel.ShardedKNN) and ``predict`` runs its search and the
-    weighting; ``device`` None = cuda (raises without a GPU)."""
+    weighting; ``device`` None = cuda (raises without a GPU); ``mesh``
+    places the database over a mesh once (the device is its first),
+    ``merge`` its db-axis merge strategy."""
 
     def __init__(self, k: int = 5, metric: str = "l2",
                  weights: str = "uniform", train_tile: Optional[int] = None,
-                 compute_dtype=None, device: DeviceLike = None):
+                 compute_dtype=None, device: DeviceLike = None, mesh=None,
+                 merge: Optional[str] = "allgather"):
         if weights not in ("uniform", "distance"):
             raise ValueError(f"unknown weights {weights!r}")
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh= or device=, not both")
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else resolve_device(device))
+        self.mesh = mesh
+        self.merge = merge
         self.k = k
         self.metric = metric
         self.weights = weights
@@ -89,9 +97,11 @@ class KNNRegressor:
             raise ValueError(f"bad shapes: X {X.shape}, y {y.shape}")
         if self.k > X.shape[0]:
             raise ValueError(f"k={self.k} > n_train={X.shape[0]}")
+        placement = (dict(mesh=self.mesh, merge=self.merge)
+                     if self.mesh is not None else dict(device=self.device))
         self._program = ShardedKNN(
             X, k=self.k, metric=self.metric, train_tile=self.train_tile,
-            compute_dtype=self.compute_dtype, device=self.device)
+            compute_dtype=self.compute_dtype, **placement)
         self._targets = torch.from_numpy(y).to(self.device)
         return self
 

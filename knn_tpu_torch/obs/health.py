@@ -23,8 +23,9 @@ sampler's state and the drift sketch of every registered IVF index.
 ``calibration`` is the calibration store's state
 (:func:`knn_tpu_torch.obs.calibrate.status`: the store, the keys of its
 entries under the current model token, the worst per-term residual).
-Where the port differs: ``multihost`` is absent, as in a single-host JAX
-process.  The text renderer keeps the JAX package's wording, so the two
+``multihost`` is the last cross-process merge's report
+(knn_tpu_torch.parallel.multihost.last_report), None until one ran.  The
+text renderer keeps the JAX package's wording, so the two
 ``doctor`` commands print the same lines for the same snapshot, except
 where that wording names an environment switch the port does not read: an
 absent calibration store and an audit sampler that is off name the
@@ -349,9 +350,25 @@ def report(slo_section: Optional[dict] = None,
         "slowest_requests": (_slowest_requests() if slowest is None
                              else slowest),
         "postmortems": _postmortems(),
+        # the last cross-process merge: per-process walls, the straggler
+        # gap, the merge volume and strategy — None until a MultiHostKNN
+        # merge ran in this process
+        "multihost": _multihost_status(),
         "index": _index_status(),
         "quality": _quality_status(),
     }
+
+
+def _multihost_status() -> Optional[dict]:
+    """parallel.multihost's last report; None when the module was never
+    imported (no merge ran), so a report never pays its torch import."""
+    mod = sys.modules.get("knn_tpu_torch.parallel.multihost")
+    if mod is None:
+        return None
+    try:
+        return mod.last_report()
+    except Exception:  # noqa: BLE001 - introspection must not kill /statusz
+        return None
 
 
 def report_from_snapshot(payload: dict) -> dict:

@@ -15,8 +15,9 @@ catalogs hold the same triples (help strings do not move it).
 Names this package never writes (they stay in the catalog so the two
 catalogs stay one, and :data:`UNWRITTEN` lists them): ``JAX_COMPILES`` /
 ``JAX_COMPILE_SECONDS`` (there is no XLA here; a CUDA graph capture counts
-under ``SERVING_COMPILES``) and the ``MERGE_*`` names (multi-GPU, ROADMAP
-queue A item 6).  The SLO engine, the flight recorder, the audit sampler
+under ``SERVING_COMPILES``).  The mesh placement and the store merge
+(parallel.sharded, parallel.multihost) write the ``MERGE_*`` names.  The
+SLO engine, the flight recorder, the audit sampler
 and the drift monitor write ``SLO_*``, ``POSTMORTEMS_WRITTEN``,
 ``AUDIT_*``, ``DRIFT_*`` and ``INDEX_LIST_IMBALANCE`` /
 ``INDEX_TAIL_FRACTION`` / ``INDEX_TOMBSTONE_DENSITY``; the calibration
@@ -182,11 +183,8 @@ FLEET_MERGE_STALENESS = "knn_tpu_fleet_merge_staleness_seconds"
 FLEET_STRAGGLER_HOST = "knn_tpu_fleet_straggler_host"
 
 #: the catalog names this package never writes (see the module docstring):
-#: the JAX package's XLA compile events and the multi-GPU merge names
-UNWRITTEN = frozenset({
-    JAX_COMPILES, JAX_COMPILE_SECONDS,
-    MERGE_SELECTED, MERGE_BYTES, MERGE_STRAGGLER_GAP,
-})
+#: the JAX package's XLA compile events
+UNWRITTEN = frozenset({JAX_COMPILES, JAX_COMPILE_SECONDS})
 
 #: name -> (type, label names, help).  Types: "counter" (monotone,
 #: float-valued so second-counters work), "gauge", "histogram" (bounded

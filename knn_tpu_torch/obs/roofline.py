@@ -35,8 +35,11 @@ card's — ``hbm_bound``, ``tensor_core_bound``, ``cuda_core_bound``,
 read), where the JAX model counts the kernel's re-streams per query block;
 the terms are a bound, not a serialized sum (:func:`_combined`); the JAX
 package's ``xla_cost_model`` is :func:`counted_cost_model` here (the
-counted ``exact`` / ``approx`` selectors); and ``db_hosts > 1`` (the DCN
-merge term) is refused until multi-GPU (ROADMAP queue A item 6).  An
+counted ``exact`` / ``approx`` selectors); and the DCN term of ``db_hosts
+> 1`` (:func:`_dcn_term`: parallel.crossover.merge_bytes of the
+cross-host merge) is priced at a card's cross-node rate from a public
+H100 system data sheet (:data:`DCN_GBPS_BY_KIND`), never the TPU's DCN
+figure, and enters the bound as ``dcn_bound``.  An
 unknown device kind gets :data:`GENERIC_CPU_PEAKS` with ``estimated``
 set, as in the JAX package.
 
@@ -66,12 +69,12 @@ MODEL_VERSION = 1
 
 #: the card's resources a configuration can exhaust, in tie-break order
 BOUND_CLASSES = ("hbm_bound", "tensor_core_bound", "cuda_core_bound",
-                 "smem_bound", "h2d_bound")
+                 "smem_bound", "h2d_bound", "dcn_bound")
 
 #: term name -> its bound class
 _TERM_CLASS = {"hbm": "hbm_bound", "tensor_core": "tensor_core_bound",
                "cuda_core": "cuda_core_bound", "smem": "smem_bound",
-               "h2d": "h2d_bound"}
+               "h2d": "h2d_bound", "dcn": "dcn_bound"}
 
 H100 = "NVIDIA H100 80GB HBM3"
 
@@ -334,11 +337,53 @@ def _probe_setup(n: int, d: int, nq: int, nprobe: Optional[int],
     }
 
 
-def _refuse_hosts(db_hosts: int) -> None:
-    if int(db_hosts) > 1:
-        raise ValueError(
-            "db_hosts > 1: the cross-host merge term waits for the port's "
-            "multi-GPU path (ROADMAP queue A item 6)")
+#: a card's cross-node bandwidth (GB/s) for the DCN term, by device kind:
+#: the NVIDIA DGX H100 data sheet lists eight single-port ConnectX-7
+#: adapters at up to 400 Gb/s for its eight H100s, one 400 Gb/s (50 GB/s)
+#: port a card.  A data-sheet rate, not a measurement: the port's
+#: two-process lane trades through a TCP store on one machine
+DCN_GBPS_BY_KIND: Dict[str, float] = {H100: 50.0}
+DCN_GBPS_SOURCE = ("NVIDIA DGX H100 data sheet: 8x single-port ConnectX-7, "
+                   "400 Gb/s each, one per H100")
+
+
+def _dcn_term(nq: int, k: int, db_hosts: int, dcn_merge: Optional[str],
+              device_kind: Optional[str],
+              dcn_gbps: Optional[float]) -> Optional[dict]:
+    """The cross-host merge term (the JAX package's ``_dcn_term``,
+    roofline.py:506-526), None on one host: the DCN level's candidate
+    volume (parallel.crossover.merge_bytes at ``dcn_merge``, None the
+    measured crossover's pick) over ``dcn_gbps`` — the caller's, else the
+    kind's data-sheet rate (:data:`DCN_GBPS_BY_KIND`); an unknown kind
+    takes the H100's, marked ``estimated``."""
+    from knn_tpu_torch.parallel import crossover
+
+    hosts = max(1, int(db_hosts))
+    if hosts <= 1:
+        return None
+    strategy = dcn_merge or crossover.choose_merge(k, hosts)
+    nbytes = crossover.merge_bytes(nq, k, hosts, strategy)
+    if dcn_gbps is not None:
+        rate, source = float(dcn_gbps), "argument"
+    else:
+        rate = DCN_GBPS_BY_KIND.get(device_kind or "", DCN_GBPS_BY_KIND[H100])
+        source = DCN_GBPS_SOURCE
+    return {"bytes": int(nbytes), "strategy": strategy, "hosts": hosts,
+            "rate_gbps": rate, "rate_source": source,
+            "estimated": dcn_gbps is None
+            and device_kind not in DCN_GBPS_BY_KIND,
+            "time_s": nbytes / (rate * 1e9)}
+
+
+def _add_dcn(model: dict, times: Dict[str, float], nq: int, k: int,
+             db_hosts: int, dcn_merge: Optional[str],
+             device_kind: Optional[str], dcn_gbps: Optional[float]) -> None:
+    """A multi-host block's DCN term into its terms and times."""
+    dcn = _dcn_term(nq, k, db_hosts, dcn_merge, device_kind, dcn_gbps)
+    if dcn is not None:
+        model["config"]["db_hosts"] = dcn["hosts"]
+        model["terms"]["dcn"] = dcn
+        times["dcn"] = dcn["time_s"]
 
 
 def _combined(cls_times: Dict[str, float]) -> float:
@@ -379,6 +424,13 @@ def _consult_calibration(model: dict, nq: int,
     degrades to the analytic verdict with the reason on the block."""
     from knn_tpu_torch.obs import calibrate
 
+    if "dcn_bound" in cls:
+        # no calibration entry covers the DCN term (the campaign measures
+        # one-host arms): scaling three of the terms would mislead
+        model["calibration"] = {
+            "applied": False,
+            "note": "multi-host blocks use the analytic DCN model"}
+        return
     if "h2d_bound" in cls:
         # a join block's device terms are one superblock's search; its
         # verdict adds the host link, which no entry measured
@@ -453,6 +505,7 @@ def pallas_cost_model(
     bin_w: Optional[int] = None, margin: int = 28,
     device_kind: Optional[str] = None, backend: Optional[str] = None,
     peaks: Optional[Dict[str, float]] = None, db_hosts: int = 1,
+    dcn_merge: Optional[str] = None, dcn_gbps: Optional[float] = None,
     nprobe: Optional[int] = None, ncentroids: Optional[int] = None,
     pq_dsub: Optional[int] = None, pq_ncodes: Optional[int] = None,
 ) -> dict:
@@ -465,10 +518,10 @@ def pallas_cost_model(
     and fused read and write the same bytes; db_major only reorders):
     they are recorded in ``config``.  ``nprobe`` / ``ncentroids`` price an
     IVF search: the probed fraction of the rows plus the centroid scan.
-    The JAX model's ``block_q`` (every CUDA kernel takes 32-row query
-    blocks), ``num_devices`` and ``dcn_merge`` have no counterpart on one
-    card."""
-    _refuse_hosts(db_hosts)
+    ``db_hosts > 1`` adds the cross-host merge term (:func:`_dcn_term`,
+    ``dcn_merge`` its strategy, ``dcn_gbps`` its rate).  The JAX model's
+    ``block_q`` (every CUDA kernel takes 32-row query blocks) and
+    ``num_devices`` have no counterpart."""
     precision = precision or "bf16x3"
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
@@ -553,6 +606,7 @@ def pallas_cost_model(
                                ncentroids=probe["ncentroids"],
                                probe_fraction=probe["probe_fraction"])
         terms["probe"] = probe
+    _add_dcn(model, times, nq, k, db_hosts, dcn_merge, device_kind, dcn_gbps)
     return _finish(model, nq, times)
 
 
@@ -567,6 +621,7 @@ def counted_cost_model(
     dtype: Optional[str] = None, margin: int = 28,
     device_kind: Optional[str] = None, backend: Optional[str] = None,
     peaks: Optional[Dict[str, float]] = None, db_hosts: int = 1,
+    dcn_merge: Optional[str] = None, dcn_gbps: Optional[float] = None,
     nprobe: Optional[int] = None, ncentroids: Optional[int] = None,
 ) -> dict:
     """The roofline of the counted certificate
@@ -579,8 +634,8 @@ def counted_cost_model(
     and the count pass's f32 products; bytes are the f32 db (or its
     ``dtype`` rows) read once a pass, the queries, the top-m candidates
     out and the counts.  The host's float64 refine is not device work and
-    is not priced; query batching does not change the work."""
-    _refuse_hosts(db_hosts)
+    is not priced; query batching does not change the work.  ``db_hosts >
+    1`` adds the cross-host merge term (:func:`_dcn_term`)."""
     if selector not in ("exact", "approx"):
         raise ValueError(f"counted selector {selector!r} not in "
                          f"('exact', 'approx')")
@@ -636,6 +691,7 @@ def counted_cost_model(
                                ncentroids=probe["ncentroids"],
                                probe_fraction=probe["probe_fraction"])
         terms["probe"] = probe
+    _add_dcn(model, times, nq, k, db_hosts, dcn_merge, device_kind, dcn_gbps)
     return _finish(model, nq, times)
 
 

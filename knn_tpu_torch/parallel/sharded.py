@@ -1,11 +1,18 @@
-"""Placed KNN program on one GPU — the port of knn_tpu/parallel/sharded.py
-(``ShardedKNN``) for one device and no mesh.
+"""Placed KNN program on a device mesh — the port of
+knn_tpu/parallel/sharded.py (``ShardedKNN``).
 
 The database is placed once (knn_tpu_torch.convert.placement_from_numpy)
 and every :meth:`ShardedKNN.search` / :meth:`~ShardedKNN.predict` /
-:meth:`~ShardedKNN.search_certified` call reuses the placement.  With one
-db shard the JAX package's merge tree and ``pmin`` are identities, so
-they are absent here; everything else follows the JAX code path:
+:meth:`~ShardedKNN.search_certified` call reuses the placement.  On the
+one-device mesh (the default; ``device=`` names it) the JAX package's merge
+tree and ``pmin`` are identities; on any other mesh (parallel.mesh) the
+queries split over the query axis, each db shard is a one-device
+placement of its block of rows (PAD_VAL rows pad the last, masked by
+index), each runs the programs below on its rows and device, and the
+shards' lists merge (:func:`_merge_shards`: ring or allgather over each
+host's shards, then across hosts), the exclusion bounds take their
+minimum and the counts their sum (sharded.py:71-129, 2162-2540).  The
+programs follow the JAX code path:
 
 - ``search`` — exact distances of the placement's metric in its
   ``compute_dtype`` (f32 accumulation) and a stable top-k (ties to the
@@ -78,8 +85,8 @@ import torch
 
 from knn_tpu_torch import obs, tuning
 from knn_tpu_torch.analysis import hbm
-from knn_tpu_torch.convert import (Placement, host_rows, place_host_rows,
-                                   row_normalize_f64)
+from knn_tpu_torch.convert import (HostRows, Placement, host_rows,
+                                   place_host_rows, row_normalize_f64)
 from knn_tpu_torch.device import DeviceLike, resolve_device
 from knn_tpu_torch.ops.coarse_knn import (
     BIN_W,
@@ -108,10 +115,15 @@ from knn_tpu_torch.ops.quantize import (bound_consts, db_bound_stats_t,
                                         pack_nibbles_t, quantize_rows,
                                         quantize_rows_int4,
                                         score_error_bound_device)
-from knn_tpu_torch.ops.topk import (I32MAX, knn_search, knn_search_tiled,
-                                   merge_topk)
+from knn_tpu_torch.ops.topk import (I32MAX, knn_search, knn_search_approx,
+                                   knn_search_tiled, merge_topk, topk_pairs)
 from knn_tpu_torch.obs import names as _mn
 from knn_tpu_torch.ops.vote import majority_vote
+from knn_tpu_torch.parallel.collectives import (Placed, gather, reduce_min,
+                                                reduce_sum)
+from knn_tpu_torch.parallel.crossover import merge_bytes, resolve_merge
+from knn_tpu_torch.parallel.mesh import (QUERY_AXIS, Mesh, db_topology,
+                                         grid3, make_mesh, pad_to_multiple)
 from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
 
 #: upper bound on the elements of one [queries, rows] f32 distance block
@@ -148,12 +160,13 @@ def _on_device(x, device: torch.device) -> torch.Tensor:
 
 def query_stream_program(k: int, metric: str = "l2", *,
                          train_tile: Optional[int] = None,
-                         compute_dtype=None):
+                         compute_dtype=None, n_valid: Optional[int] = None):
     """The resident exact search over one query block — the JAX package's
     ``query_stream_program`` (sharded.py:348-380) on one device:
     ``prog(q, db) -> (d [Q, k], i [Q, k])`` device tensors, the
     placement's metric in ``compute_dtype`` (f32 accumulation) and a
-    stable top-k, in query row blocks of ``_EXACT_BLOCK_ELEMS``.
+    stable top-k, in query row blocks of ``_EXACT_BLOCK_ELEMS``; rows at
+    index >= ``n_valid`` are padding, masked before the select.
     :meth:`ShardedKNN.search` runs this program, so a join that streams
     query blocks through it is bitwise the looped search at the same
     block shape."""
@@ -161,7 +174,8 @@ def query_stream_program(k: int, metric: str = "l2", *,
         return _row_blocked(
             lambda qb: knn_search_tiled(qb, db, k, metric,
                                         train_tile=train_tile,
-                                        compute_dtype=compute_dtype),
+                                        compute_dtype=compute_dtype,
+                                        n_valid=n_valid),
             q, db.shape[0])
 
     return prog
@@ -268,19 +282,100 @@ def _fetch_async(packed):
     return _host_copies((packed[0].to(torch.int32), *packed[1:]))
 
 
-class ShardedKNN:
-    """A database placed once on one device (default ``cuda``) with k.
+def _ring_merge(ds, is_, k: int):
+    """The ring over the per-shard lists ``ds`` / ``is_`` (one a shard,
+    each on its device): one accumulator starts at shard 1 and takes P-1
+    hops, 1 → 2 → … → P-1 → 0, merging into each shard's list on that
+    shard's device, so the global top-k lands on shard 0's device.  The
+    JAX package's ring (sharded.py:71-84) runs P such accumulators at
+    once, one a device, because every device reads its own; a single
+    controller reads position 0's alone, so it runs that one."""
+    n = len(ds)
+    acc_d, acc_i = ds[1], is_[1]
+    for j in list(range(2, n)) + [0]:
+        dev = ds[j].device
+        acc_d, acc_i = merge_topk(ds[j], is_[j],
+                                  acc_d.to(dev, non_blocking=True),
+                                  acc_i.to(dev, non_blocking=True), k)
+    return acc_d, acc_i
 
-    ``train`` is a host [N, D] array or a :class:`~knn_tpu_torch.convert.
-    Placement`; ``labels`` [N] with ``num_classes`` enable the predict
-    methods.  Metrics: every name of ops.metrics.METRICS (cosine rows are
-    normalized at placement, so the certificate runs on unit vectors; dot
-    rows are norm-augmented, so it runs on the augmented rows; l1 has no
-    certificate).  ``compute_dtype`` (None / "float32", "bfloat16",
-    "float16" or their torch dtypes) is the input dtype of the matmuls
-    ``search``, ``predict`` and the counted selectors' coarse pass rank
-    with (ops.distance._dot: f32 accumulation); the certificates' counts
-    and repairs stay f32.
+
+def _allgather_merge(ds, is_, k: int):
+    """Every list gathered onto shard 0's device ([Qs, P·k]) and one top-k
+    of the union there.  The JAX package's allgather (sharded.py:87-93)
+    gathers onto every device; a single controller reads position 0's
+    result alone, so it gathers once."""
+    dev = ds[0].device
+    return topk_pairs(gather(ds, dev, axis=1), gather(is_, dev, axis=1), k)
+
+
+def _merge_shards(d, gi, keep: int, merge: str, dcn_merge: Optional[str]):
+    """The two-level top-k merge tree over one query shard's lists ``d[h][c]``
+    / ``gi[h][c]`` (host h, device c; sharded.py:107-129): each host's
+    lists merge by ``merge`` onto its first device, then the hosts' by
+    ``dcn_merge`` (or ``merge``) onto position (0, 0), once each.  The
+    lexicographic ``(distance, index)`` merge is associative and
+    commutative, so every strategy pair and the flat merge agree bitwise.
+    Returns the merged list, on position (0, 0)'s device."""
+    level = {"ring": _ring_merge, "allgather": _allgather_merge}
+    host_d, host_i = [], []
+    for row_d, row_i in zip(d, gi):
+        if len(row_d) > 1:
+            row_d, row_i = level[merge](row_d, row_i, keep)
+        else:
+            row_d, row_i = row_d[0], row_i[0]
+        host_d.append(row_d)
+        host_i.append(row_i)
+    if len(host_d) > 1:
+        return level[dcn_merge or merge](host_d, host_i, keep)
+    return host_d[0], host_i[0]
+
+
+def _mask_shard(d, li, n_valid: int, offset: int):
+    """A shard's local top list with global indices: local rows at or past
+    ``n_valid`` are pad rows, ``+inf`` with the int32-max sentinel
+    (sharded.py:222-225)."""
+    pad = li >= n_valid
+    return (torch.where(pad, torch.inf, d),
+            torch.where(pad, torch.full_like(li, I32MAX), li + offset))
+
+
+class ShardedKNN:
+    """A database placed once on a device mesh (default: one device,
+    ``cuda``) with k.
+
+    ``train`` is a host [N, D] array, a :class:`~knn_tpu_torch.convert.
+    Placement` (one device), or rows placed over ``mesh`` along its db
+    axes (parallel.collectives.shard; ``n_train`` the leading rows that
+    are real, the rest the caller's padding); ``labels`` [N] with
+    ``num_classes`` enable the predict methods.  Metrics: every name of
+    ops.metrics.METRICS (cosine rows are normalized at placement, so the
+    certificate runs on unit vectors; dot rows are norm-augmented, so it
+    runs on the augmented rows; l1 has no certificate).  ``compute_dtype``
+    (None / "float32", "bfloat16", "float16" or their torch dtypes) is the
+    input dtype of the matmuls ``search``, ``predict`` and the counted
+    selectors' coarse pass rank with (ops.distance._dot: f32
+    accumulation); the certificates' counts and repairs stay f32.
+
+    ``mesh`` (parallel.mesh.make_mesh / make_host_mesh; ``device=`` is
+    shorthand for the one-device mesh on it) shards the queries over its
+    query axis and the rows over its db axes, as the JAX package's
+    ``ShardedKNN(mesh=)`` does: the rows are padded with ``PAD_VAL`` to a
+    multiple of the db shards (the pad rows masked by index), each db
+    shard is placed on its devices once, each shard runs the one-device
+    programs on its rows (the exact search, the coarse kernel of the
+    one-pass certificate, the counted selectors' passes), and the
+    per-shard top-k lists merge in the lexicographic ``(distance, index)``
+    order — ``merge`` over each host's shards, ``dcn_merge`` across hosts,
+    "ring" (an accumulator hops shard to shard, merging on each) or
+    "allgather" (every list gathered onto the first device, one top-k);
+    None: the measured crossover, parallel.crossover.  Each level merges
+    once a query shard, onto its first device, bitwise the same result
+    either way.  The
+    certificate's exclusion bounds take the minimum across db shards, the
+    counts the sum.  ``precision="pq"``, the host-RAM tier, the pipeline
+    (``overlap=True``) and the paths of the index tiers, serving and the
+    join are refused on a mesh with more than one db shard.
 
     ``hbm_budget_bytes`` (None: no budget) runs a host array whose
     placement would exceed it in the host-RAM tier (module docstring;
@@ -292,11 +387,14 @@ class ShardedKNN:
     time; concurrent callers wait for each other."""
 
     def __init__(self, train, *, k: int, metric: str = "l2",
+                 mesh: Optional[Mesh] = None, merge: Optional[str] = None,
+                 dcn_merge: Optional[str] = None,
                  train_tile: Optional[int] = None, compute_dtype=None,
                  labels=None, num_classes: Optional[int] = None,
+                 n_train: Optional[int] = None,
                  device: DeviceLike = None,
                  hbm_budget_bytes: Optional[int] = None,
-                 hosttier_depth: int = 2):
+                 hosttier_depth: int = 2, _shard: Optional[tuple] = None):
         #: the compute dtype's name, the JAX package's ``_dtype_key``
         #: (None: float32)
         self._dtype_key = dtype_name(compute_dtype)
@@ -306,6 +404,39 @@ class ShardedKNN:
         if int(hosttier_depth) < 1:
             raise ValueError(
                 f"hosttier_depth must be >= 1, got {hosttier_depth}")
+        if mesh is not None and device is not None:
+            raise ValueError("pass mesh= or device=, not both")
+        if isinstance(train, Placement) and device is not None:
+            raise ValueError(
+                "a Placement already carries its labels and device")
+        if mesh is None:
+            mesh = make_mesh(1, 1, devices=[
+                train.device if isinstance(train, Placement) else device])
+        hosts, chips = db_topology(mesh)
+        self.mesh = mesh
+        # strategies resolve explicit > the measured crossover table;
+        # ``merge`` is the level over each host's shards, ``dcn_merge``
+        # the cross-host level, each by its own shard count
+        self.merge, self.merge_source = resolve_merge(merge, k, chips)
+        self.dcn_merge, self.dcn_merge_source = (
+            resolve_merge(dcn_merge, k, hosts) if hosts > 1 else (None, None))
+        if _shard is None:
+            obs.counter(_mn.MERGE_SELECTED, level="intra",
+                        strategy=self.merge, source=self.merge_source).inc()
+            if self.dcn_merge is not None:
+                obs.counter(_mn.MERGE_SELECTED, level="dcn",
+                            strategy=self.dcn_merge,
+                            source=self.dcn_merge_source).inc()
+        #: a db shard of a mesh placement: its real rows (the rest are
+        #: pad rows) and its first row's global index
+        self._n_valid, self._row_offset = None, 0
+        #: the mesh's shard placements by (db shard, device), and the rows
+        #: of one db shard (pad rows included)
+        self._shards: dict = {}
+        self._rows_per_shard = None
+        #: the host rows of a mesh placement with several db shards
+        self._rows = None
+        self._labels_t = None
         #: the host-RAM tier's plan (None: the database is placed)
         self._host_tier: Optional[dict] = None
         #: its prepared host rows; on the card its slots (a pinned staging
@@ -317,49 +448,32 @@ class ShardedKNN:
         self._last_hosttier: Optional[dict] = None
         #: one tier search or tiered join at a time: they share the slots
         self._tier_lock = threading.Lock()
-        if budget is not None and isinstance(train, (Placement,
-                                                     torch.Tensor)):
-            n, width = ((train.n_train, train.db.shape[1])
-                        if isinstance(train, Placement) else
-                        tuple(train.shape))
-            if hbm.placement_bytes(n, width) > budget:
+        if isinstance(train, Placed):
+            if canonical_metric(metric) not in ("l2", "l1"):
                 raise ValueError(
-                    f"hbm_budget_bytes={budget} cannot hold this {n}-row "
-                    f"placement, and the host-RAM tier needs a host-array "
-                    f"construction to stream from; pass the rows as a "
-                    f"numpy array (or raise the budget)")
-        if isinstance(train, Placement):
-            if labels is not None or device is not None:
+                    f"rows placed over a mesh carry no placement-time "
+                    f"normalization or augmentation; metric {metric!r} "
+                    f"needs a host array")
+            rows_all = train.gather().numpy()
+            n_train = rows_all.shape[0] if n_train is None else int(n_train)
+            if not 0 < n_train <= rows_all.shape[0]:
                 raise ValueError(
-                    "a Placement already carries its labels and device")
-            asked = canonical_metric(metric)
-            if asked != train.metric:
-                raise ValueError(
-                    f"metric {metric!r} does not match the placement's "
-                    f"{train.metric!r}")
-            pl = train
-        else:
-            resolve_device(device)  # no host work for a missing device
-            rows = host_rows(train, metric)
-            if budget is not None and \
-                    hbm.placement_bytes(*rows.rows.shape) > budget:
-                pl = None
-                self._plan_host_tier(rows, int(budget), int(hosttier_depth),
-                                     k, labels, num_classes, device)
-            else:
-                pl = place_host_rows(rows, labels, num_classes, device=device)
-        if pl is not None:
-            if k > pl.n_train:
-                raise ValueError(f"k={k} > n_train={pl.n_train}")
-            self.device = pl.device
-            self.metric = pl.metric
-            self.n_train = pl.n_train
-            self.num_classes = pl.num_classes
-            #: the caller's row width (a dot placement holds one more)
-            self.dim_in = pl.dim_in
-        self.placement = pl
+                    f"n_train={n_train} outside (0, {rows_all.shape[0]}]")
+            train = rows_all[:n_train]
+        elif n_train is not None:
+            raise ValueError("n_train is only for rows placed over a mesh")
         self.k = k
         self.train_tile = train_tile
+        if hosts * chips > 1:
+            self._init_db_sharded(train, k, metric, labels, num_classes,
+                                  budget)
+        else:
+            self._init_one_shard(train, k, metric, labels, num_classes,
+                                 budget, int(hosttier_depth))
+        if _shard is not None:
+            self._n_valid, self._row_offset = _shard
+        elif self.placement is not None:
+            self._n_valid = self.n_train
         #: coarse-pass db parts of each arm for tiles whose padding differs
         #: from the placement's, built on first use
         self._parts = {}
@@ -380,6 +494,282 @@ class ShardedKNN:
         #: guards both dicts above: the queue's batcher, the compactor and
         #: the join may search at once
         self._engines_lock = threading.Lock()
+
+    def _init_one_shard(self, train, k, metric, labels, num_classes, budget,
+                        depth) -> None:
+        """The placement of a mesh with one db shard, on its first device
+        (the other query shards' devices get theirs at first use)."""
+        device = self.mesh.devices.flat[0]
+        if self.mesh.size > 1 and budget is not None:
+            raise ValueError(
+                "hbm_budget_bytes: the host-RAM tier runs on a one-device "
+                "mesh only (on a mesh it is queued, ROADMAP queue A)")
+        if budget is not None and isinstance(train, (Placement,
+                                                     torch.Tensor)):
+            n, width = ((train.n_train, train.db.shape[1])
+                        if isinstance(train, Placement) else
+                        tuple(train.shape))
+            if hbm.placement_bytes(n, width) > budget:
+                raise ValueError(
+                    f"hbm_budget_bytes={budget} cannot hold this {n}-row "
+                    f"placement, and the host-RAM tier needs a host-array "
+                    f"construction to stream from; pass the rows as a "
+                    f"numpy array (or raise the budget)")
+        if isinstance(train, Placement):
+            if labels is not None:
+                raise ValueError(
+                    "a Placement already carries its labels and device")
+            asked = canonical_metric(metric)
+            if asked != train.metric:
+                raise ValueError(
+                    f"metric {metric!r} does not match the placement's "
+                    f"{train.metric!r}")
+            pl = train
+        else:
+            rows = host_rows(train, metric)
+            if budget is not None and \
+                    hbm.placement_bytes(*rows.rows.shape) > budget:
+                pl = None
+                self._plan_host_tier(rows, int(budget), depth, k, labels,
+                                     num_classes, device)
+            else:
+                pl = place_host_rows(rows, labels, num_classes, device=device)
+        if pl is not None:
+            if k > pl.n_train:
+                raise ValueError(f"k={k} > n_train={pl.n_train}")
+            self.device = pl.device
+            self.metric = pl.metric
+            self.n_train = pl.n_train
+            self.num_classes = pl.num_classes
+            #: the caller's row width (a dot placement holds one more)
+            self.dim_in = pl.dim_in
+            self._rows_per_shard = pl.n_train
+        self.placement = pl
+
+    def _init_db_sharded(self, train, k, metric, labels, num_classes,
+                         budget) -> None:
+        """The placement of a mesh with several db shards (the JAX
+        package's sharded.py:596-648): the prepared host rows padded with
+        ``PAD_VAL`` to a multiple of the db shards, shard j's block placed
+        on every device at db position j."""
+        if isinstance(train, Placement):
+            raise ValueError(
+                "a Placement holds one device's rows; pass the host rows to "
+                "shard them over the mesh")
+        if budget is not None:
+            raise ValueError(
+                "hbm_budget_bytes: the host-RAM tier on a mesh with several "
+                "db shards is queued (ROADMAP queue A)")
+        rows = host_rows(train, metric)
+        n = rows.rows.shape[0]
+        n_shards = self.db_shards
+        padded, _ = pad_to_multiple(rows.rows, n_shards, fill=PAD_VAL)
+        per = padded.shape[0] // n_shards
+        if k > per:
+            raise ValueError(
+                f"k={k} exceeds db shard size {per}; use fewer db shards")
+        if k > n:
+            raise ValueError(f"k={k} > n_train={n}")
+        lab = None
+        if labels is not None:
+            if num_classes is None:
+                raise ValueError("labels given without num_classes")
+            labels = np.asarray(labels, dtype=np.int32)
+            if labels.shape != (n,):
+                raise ValueError(
+                    f"labels shape {labels.shape} != (n_train,) = ({n},)")
+            lab = labels
+        self.device = self.mesh.devices.flat[0]
+        self.metric = rows.metric
+        self.n_train = n
+        self.num_classes = num_classes
+        self.dim_in = rows.dim_in
+        self.placement = None
+        self._rows = rows
+        self._rows_per_shard = per
+        if lab is not None:
+            self._labels_t = torch.from_numpy(lab).to(self.device)
+        grid = grid3(self.mesh)
+        chips = grid.shape[2]
+        for pos in np.ndindex(*grid.shape):
+            j = pos[1] * chips + pos[2]
+            dev = grid[pos]
+            if (j, dev) in self._shards:
+                continue
+            block = padded[j * per:(j + 1) * per]
+            self._shards[(j, dev)] = self._shard_knn(
+                block, dev, k, n_valid=int(np.clip(n - j * per, 0, per)),
+                offset=j * per)
+
+    def _shard_knn(self, block: np.ndarray, dev: torch.device, k: int, *,
+                   n_valid: int, offset: int) -> "ShardedKNN":
+        """One db shard's one-device placement: ``block`` (pad rows
+        included) on ``dev``, with the whole database's certificate terms,
+        of which the first ``n_valid`` rows are real."""
+        rows = self._host_rows_of()
+        db = torch.from_numpy(np.ascontiguousarray(block)).to(dev)
+        th, tl, tnorm = prepare_db(db, TILE_N)
+        pl = Placement(db=db, db_host=block, th=th, tl=tl, tnorm=tnorm,
+                       db_norm_max=rows.db_norm_max, metric=rows.metric,
+                       uint8_source=rows.uint8_source,
+                       dot_shift=rows.dot_shift)
+        return ShardedKNN(pl, k=k, metric=pl.metric,
+                          train_tile=self.train_tile,
+                          compute_dtype=self._dtype_key,
+                          _shard=(n_valid, offset))
+
+    def _host_rows_of(self) -> HostRows:
+        """The prepared host rows of the whole database."""
+        if self._rows is not None:
+            return self._rows
+        if self._host_rows is not None:
+            return self._host_rows
+        pl = self.placement
+        return HostRows(rows=pl.db_host, metric=pl.metric,
+                        db_norm_max=pl.db_norm_max,
+                        uint8_source=pl.uint8_source, dot_shift=pl.dot_shift)
+
+    # -- the mesh -----------------------------------------------------------
+    @property
+    def db_shards(self) -> int:
+        """Total db shards: hosts x devices per host."""
+        hosts, chips = db_topology(self.mesh)
+        return hosts * chips
+
+    def _shard_rows(self) -> int:
+        """Rows of one db shard, pad rows included (the JAX package's
+        ``_shard_rows``)."""
+        return self._rows_per_shard
+
+    def _on_mesh(self) -> bool:
+        """Whether calls run the mesh programs: on every mesh but the
+        one-device (1, 1)."""
+        return self.mesh.size > 1
+
+    def _shard_at(self, j: int, dev: torch.device) -> "ShardedKNN":
+        """Db shard ``j``'s placement on ``dev``.  With one db shard it is
+        this placement (on its device) or its replica on another query
+        shard's device, made at first use."""
+        sub = self._shards.get((j, dev))
+        if sub is None:
+            self._require_resident("a query shard")
+            with self._engines_lock:
+                sub = self._shards.get((j, dev))
+                if sub is None:
+                    if dev == self.device:
+                        sub = ShardedKNN(self.placement, k=self.k,
+                                         metric=self.metric,
+                                         train_tile=self.train_tile,
+                                         compute_dtype=self._dtype_key,
+                                         _shard=(self.n_train, 0))
+                    else:
+                        sub = self._shard_knn(self.placement.db_host, dev,
+                                              self.k, n_valid=self.n_train,
+                                              offset=0)
+                    self._shards[(j, dev)] = sub
+        return sub
+
+    def _mesh_shards(self):
+        """Every (query shard, host, device) position's ``(device,
+        shard placement)``, as ``[r][h][c]`` lists."""
+        grid = grid3(self.mesh)
+        chips = grid.shape[2]
+        return [[[(grid[r, h, c], self._shard_at(h * chips + c, grid[r, h, c]))
+                  for c in range(chips)] for h in range(grid.shape[1])]
+                for r in range(grid.shape[0])]
+
+    def _mesh_queries(self, queries):
+        """``(blocks, n_q, placed rows)``: the queries on the first device
+        (:meth:`_to_device`), padded with zero rows to a multiple of the
+        query shards and split one block a query shard (the JAX package's
+        ``_place_queries``)."""
+        q = self._to_device(queries)
+        n_qs = self.mesh.shape[QUERY_AXIS]
+        qp, n_q = pad_to_multiple(q, n_qs)
+        return torch.chunk(qp, n_qs), n_q, qp.shape[0]
+
+    def _mesh_run(self, queries, local, keep: int):
+        """Per query shard, every db shard's ``local(shard, q) -> (d, li)``
+        on its own device (its current stream: nothing waits for the host
+        between shards), its indices made global and its pad rows masked,
+        then the merge tree (``keep`` wide).  Returns ``(d, gi)`` on the
+        first device, the query padding cut."""
+        blocks, n_q, _ = self._mesh_queries(queries)
+        outs_d, outs_i = [], []
+        for qb, row in zip(blocks, self._mesh_shards()):
+            d = [[None] * len(row[0]) for _ in row]
+            gi = [[None] * len(row[0]) for _ in row]
+            for h, host in enumerate(row):
+                for c, (dev, sub) in enumerate(host):
+                    dl, li = local(sub, qb.to(dev, non_blocking=True))
+                    d[h][c], gi[h][c] = _mask_shard(dl, li, sub._n_valid,
+                                                    sub._row_offset)
+            md, mi = _merge_shards(d, gi, keep, self.merge, self.dcn_merge)
+            outs_d.append(md.to(self.device, non_blocking=True))
+            outs_i.append(mi.to(self.device, non_blocking=True))
+        return torch.cat(outs_d)[:n_q], torch.cat(outs_i)[:n_q]
+
+    def _mesh_topk(self, queries, k: int, metric: str, compute_dtype=None,
+                   selector: str = "exact"):
+        """The exact (or the counted ``approx`` selector's) top-k over the
+        mesh: each db shard's search of its rows, pad rows masked inside
+        the select, merged (sharded.py:197-236)."""
+        if selector == "approx":
+            def local(sub, q):
+                return _row_blocked(
+                    lambda qb: knn_search_approx(
+                        qb, sub.placement.db, k,
+                        compute_dtype=compute_dtype),
+                    q, sub.n_train)
+        else:
+            def local(sub, q):
+                return query_stream_program(
+                    k, metric, train_tile=self.train_tile,
+                    compute_dtype=compute_dtype,
+                    n_valid=sub._n_valid)(q, sub.placement.db)
+        return self._mesh_run(queries, local, k)
+
+    def _count(self, q: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+        """Per query, the db rows strictly below its threshold
+        (ops.certified.count_below): on a mesh each db shard counts its
+        real rows and the counts sum across db shards (the JAX package's
+        ``_count_program``, sharded.py:2508-2540).  ``q`` lies on the first
+        device; returns int32 counts there."""
+        from knn_tpu_torch.ops.certified import count_below
+
+        tile = self.train_tile or 131072
+        if not self._on_mesh():
+            return count_below(self.placement.db, q, thr, tile=tile)
+        blocks, n_q, _ = self._mesh_queries(q)
+        thr_p, _ = pad_to_multiple(thr.to(self.device, torch.float32),
+                                   len(blocks), fill=-np.inf)
+        outs = []
+        for qb, tb, row in zip(blocks, torch.chunk(thr_p, len(blocks)),
+                               self._mesh_shards()):
+            parts = [count_below(sub.placement.db,
+                                 qb.to(dev, non_blocking=True),
+                                 tb.to(dev, non_blocking=True), tile=tile,
+                                 n_valid=sub._n_valid)
+                     for host in row for dev, sub in host]
+            outs.append(reduce_sum(parts, self.device))
+        return torch.cat(outs)[:n_q]
+
+    def _record_merge_bytes(self, n_rows: int, k: int) -> None:
+        """The modeled merge volume of each level into ``MERGE_BYTES``
+        (crossover.merge_bytes, sharded.py:804-816)."""
+        hosts, chips = db_topology(self.mesh)
+        if chips > 1:
+            obs.counter(_mn.MERGE_BYTES, level="intra",
+                        strategy=self.merge).inc(
+                merge_bytes(n_rows, k, chips, self.merge))
+        if hosts > 1 and self.dcn_merge is not None:
+            obs.counter(_mn.MERGE_BYTES, level="dcn",
+                        strategy=self.dcn_merge).inc(
+                merge_bytes(n_rows, k, hosts, self.dcn_merge))
+
+    def _labels(self) -> Optional[torch.Tensor]:
+        return self._labels_t if self.placement is None \
+            else self.placement.labels
 
     # -- the host-RAM tier --------------------------------------------------
     def _plan_host_tier(self, rows, budget: int, depth: int, k: int,
@@ -417,8 +807,15 @@ class ShardedKNN:
         obs.gauge(_mn.HOSTTIER_SEGMENT_ROWS).set(float(seg_rows))
 
     def _require_resident(self, what: str) -> None:
-        """The paths that read the whole database need it placed; the
-        host-RAM tier only ever has one segment on the card."""
+        """The paths that read the whole database need it placed on one
+        device; the host-RAM tier only ever has one segment on the card,
+        and a mesh with several db shards holds a block a shard."""
+        if self.placement is None and self._host_tier is None:
+            raise ValueError(
+                f"{what} needs the whole database on one device, but this "
+                f"placement shards it over {self.db_shards} db shards of a "
+                f"mesh (the tiers, serving and the join on a mesh are "
+                f"queued, ROADMAP queue A)")
         if self._host_tier is not None:
             raise ValueError(
                 f"{what} needs the full database resident on device, but "
@@ -605,12 +1002,12 @@ class ShardedKNN:
     def _host_train(self) -> np.ndarray:
         """The placement's unpadded rows on the host, for float64
         refinement (the JAX package's ``_host_train``, sharded.py:1178)."""
-        if self.placement is None:
-            return self._host_rows.rows
-        return self.placement.db_host
+        return self._host_rows_of().rows
 
     def _exact_topk(self, q: torch.Tensor, k: int, metric: str,
                     compute_dtype=None):
+        if self._on_mesh():
+            return self._mesh_topk(q, k, metric, compute_dtype)
         return query_stream_program(
             k, metric, train_tile=self.train_tile,
             compute_dtype=compute_dtype)(q, self.placement.db)
@@ -629,11 +1026,17 @@ class ShardedKNN:
                     f"{self._host_tier['segment_rows']}-row host-tier "
                     f"segment")
             return self._search_host_tier(queries, k, return_sqrt)
+        if k > self._shard_rows():
+            raise ValueError(
+                f"k={k} exceeds shard rows {self._shard_rows()}")
         q = self._to_device(queries)
-        shape_key = (k, q.shape[0])
+        n_qs = self.mesh.shape[QUERY_AXIS]
+        placed = -(-q.shape[0] // n_qs) * n_qs
+        shape_key = (k, placed)
         with self._engines_lock:
             self._dispatch_shapes[shape_key] = (
                 self._dispatch_shapes.get(shape_key, 0) + 1)
+        self._record_merge_bytes(placed, k)
         d, i = self._exact_topk(q, k, self.metric, self._dtype_key)
         if return_sqrt:
             from knn_tpu_torch.ops.distance import metric_values
@@ -697,12 +1100,20 @@ class ShardedKNN:
 
     def predict(self, queries) -> torch.Tensor:
         """Predicted labels [Q] int32 — needs ``labels`` at construction."""
-        self._require_resident("predict")
-        if self.placement.labels is None:
-            raise RuntimeError("ShardedKNN built without labels; predict unavailable")
-        _, gi = self.search(queries)
+        if self._on_mesh():
+            if self._labels() is None:
+                raise RuntimeError(
+                    "ShardedKNN built without labels; predict unavailable")
+            _, gi = self._exact_topk(self._to_device(queries), self.k,
+                                     self.metric, self._dtype_key)
+        else:
+            self._require_resident("predict")
+            if self.placement.labels is None:
+                raise RuntimeError(
+                    "ShardedKNN built without labels; predict unavailable")
+            _, gi = self.search(queries)
         safe = torch.clamp(gi, max=self.n_train - 1)
-        return majority_vote(self.placement.labels[safe], self.num_classes)
+        return majority_vote(self._labels()[safe], self.num_classes)
 
     def radius_search(self, queries, radius: float, *, max_neighbors: int):
         """All db rows within ``radius`` per query, bounded at
@@ -720,10 +1131,10 @@ class ShardedKNN:
         on the placement (mask and count from one pairwise pass).  dot has
         no radius; a placement with a compute dtype other than f32 is
         refused (its bf16 mask would disagree with the f32 count)."""
-        from knn_tpu_torch.ops.certified import count_below
         from knn_tpu_torch.ops.radius import SENTINEL_IDX, radius_threshold
 
-        self._require_resident("radius_search")
+        if not self._on_mesh():
+            self._require_resident("radius_search")
         if self._dtype_key not in (None, "float32"):
             raise ValueError(
                 f"radius_search needs a float32 placement; this program "
@@ -736,7 +1147,11 @@ class ShardedKNN:
             if int(max_neighbors) < 1:
                 raise ValueError(
                     f"max_neighbors must be >= 1, got {max_neighbors}")
-            out = _single(self._to_device(queries), self.placement.db, radius,
+            # no sharded l1 count: mask and count from one pairwise pass
+            # over the whole database (sharded.py:1093-1115)
+            db = (self.placement.db if self.placement is not None else
+                  torch.from_numpy(self._host_train()).to(self.device))
+            out = _single(self._to_device(queries), db, radius,
                           max_neighbors=min(int(max_neighbors), self.n_train),
                           metric="l1", train_tile=self.train_tile)
             return tuple(t.cpu().numpy() for t in out)
@@ -752,6 +1167,11 @@ class ShardedKNN:
         m = min(int(max_neighbors), self.n_train)
         if m < 1:
             raise ValueError(f"max_neighbors must be >= 1, got {max_neighbors}")
+        if m > self._shard_rows():
+            # never narrow silently: counts > M must mean truncation
+            raise ValueError(
+                f"max_neighbors={m} exceeds db shard size "
+                f"{self._shard_rows()}; use fewer db shards")
         d, i = self.search(queries, k=m)
         d, i = d.cpu().numpy(), i.cpu().numpy()
         # strictly below the next f32 above the threshold: <= in f32
@@ -760,8 +1180,7 @@ class ShardedKNN:
             (qc.shape[0],),
             float(np.nextafter(np.float32(count_thr), np.float32(np.inf))),
             dtype=torch.float32)
-        counts = count_below(self.placement.db, qc, thr_vec,
-                             tile=self.train_tile or 131072).cpu().numpy()
+        counts = self._count(qc, thr_vec).cpu().numpy()
         within = d <= thr
         return (np.where(within, d, np.inf), np.where(within, i, SENTINEL_IDX),
                 counts)
@@ -797,7 +1216,7 @@ class ShardedKNN:
                    else "bf16", rows)
             if key not in self._parts:
                 if precision in INT_ARMS:
-                    n = self.n_train
+                    n = self._n_valid
                     t, aux = self._quant_placement(precision)["parts"]
                     self._parts[key] = prepare_db_quant(t[:n], aux[1, :n],
                                                         aux[0, :n], tile)
@@ -836,18 +1255,24 @@ class ShardedKNN:
         fallback repair."""
         if precision not in self._quant:
             pl = self.placement
+            # a db shard's pad rows take prepare_db_quant's pad fill
+            real = pl.db[: self._n_valid]
             byte_exact = precision == "int8" and pl.uint8_source
             offset = 128.0 if byte_exact else 0.0
-            shifted = pl.db - offset
+            shifted = real - offset
             if byte_exact:  # ops.quantize.from_uint8 on the device
                 values = shifted.to(torch.int8)
-                scales = torch.ones(self.n_train, device=self.device)
+                scales = torch.ones(real.shape[0], device=self.device)
+            elif not real.shape[0]:  # a shard of pad rows only
+                values = torch.zeros(real.shape, dtype=torch.int8,
+                                     device=self.device)
+                scales = torch.zeros(0, device=self.device)
             elif precision == "int8":
                 values, scales = quantize_rows(shifted, eager=True)
             else:
                 values, scales = quantize_rows_int4(shifted, eager=True)
             del shifted
-            stats, norms = db_bound_stats_t(values, scales, pl.db, offset)
+            stats, norms = db_bound_stats_t(values, scales, real, offset)
             if precision == "int4":
                 dpad = _round_up(values.shape[1], DIM_CHUNK) - values.shape[1]
                 values = pack_nibbles_t(
@@ -928,7 +1353,8 @@ class ShardedKNN:
                       kernel: str = "tiled",
                       pq_dsub: Optional[int] = None,
                       pq_ncodes: Optional[int] = None,
-                      final_recall_target: Optional[float] = None):
+                      final_recall_target: Optional[float] = None,
+                      split: bool = False):
         """((coarse, tail), m, analysis_window) for the one-pass certified
         path — the one home of the kernel-geometry margin cap.  The pair
         is the JAX package's program split at the candidate boundary
@@ -936,7 +1362,11 @@ class ShardedKNN:
         and returns the coarse kernel's ``(cd, ci, bounds)``; ``tail(q,
         cd, ci, bounds)`` the select/rescore/certify, returning
         :func:`_certify_pack`'s tensors.  The sequential path and the
-        pipeline run the same pair, so their outputs are bitwise equal."""
+        pipeline run the same pair, so their outputs are bitwise equal.
+        ``split`` returns ``(coarse, rescore, pack)`` in place of the pair:
+        a mesh merges the shards' ranked candidates between the two
+        halves of the tail, and ``pack(q, d32, gi, lb, n_train=,
+        db_shards=)`` certifies the merged lists."""
         if precision not in CERTIFIED_PRECISIONS:
             # default has no certified tolerance model: refuse rather than
             # certify with one (sharded.py:1799-1806)
@@ -987,15 +1417,25 @@ class ShardedKNN:
                 final_select=final_select, db_parts=parts, offset=offset,
                 db_pq=db_pq)
 
-        def tail(q: torch.Tensor, cd, ci, bounds):
-            d32, li, lb = local_select_rescore(
+        def rescore(q: torch.Tensor, cd, ci, bounds):
+            return local_select_rescore(
                 q, db, cd, ci, bounds, m, final_select=final_select,
                 final_recall_target=final_recall_target)
+
+        def pack(q: torch.Tensor, d32, li, lb, *, n_train: int = rows,
+                 db_shards: int = 1):
             return _certify_pack(q, d32, li, lb, db_norm_max=db_norm_max,
-                                 m=m, k=self.k, w=w, n_train=rows,
+                                 m=m, k=self.k, w=w, n_train=n_train,
                                  include_distances=include_distances,
                                  precision=precision, consts=consts,
-                                 offset=offset, pq_dsub=dsub)
+                                 offset=offset, pq_dsub=dsub,
+                                 db_shards=db_shards)
+
+        if split:
+            return (coarse, rescore, pack), m, w
+
+        def tail(q: torch.Tensor, cd, ci, bounds):
+            return pack(q, *rescore(q, cd, ci, bounds))
 
         return (coarse, tail), m, w
 
@@ -1018,12 +1458,27 @@ class ShardedKNN:
         from knn_tpu_torch.ops.refine import rank_correct_runs
 
         k = self.k
-        (coarse, tail), m, w = self._pallas_setup(
-            m - k, tile_n, precision, bin_w=bin_w, survivors=survivors,
-            final_select=final_select,
-            include_distances=want_distances, binning=binning,
-            grid_order=grid_order, kernel=kernel, pq_dsub=pq_dsub,
-            pq_ncodes=pq_ncodes, final_recall_target=final_recall_target)
+        setup = dict(bin_w=bin_w, survivors=survivors,
+                     final_select=final_select,
+                     include_distances=want_distances, binning=binning,
+                     grid_order=grid_order, kernel=kernel, pq_dsub=pq_dsub,
+                     pq_ncodes=pq_ncodes,
+                     final_recall_target=final_recall_target)
+        if self._on_mesh():
+            if overlap:
+                raise ValueError(
+                    "overlap=True: the two-stage pipeline on a mesh is "
+                    "queued (ROADMAP queue A); run it sequentially")
+            run, m, w = self._mesh_pallas(m - k, tile_n, precision, setup)
+            src = self._mesh_shards()[0][0][0][1]
+        else:
+            (coarse, tail), m, w = self._pallas_setup(
+                m - k, tile_n, precision, **setup)
+
+            def run(q):
+                return tail(q, *coarse(q))
+
+            src = self
         if precision in ("int8", "int4", "pq") and obs.enabled():
             # the certificate's per-query quantization bound, recomputed on
             # the host (O(Q D)) from the placement's host stats: the device
@@ -1032,11 +1487,11 @@ class ShardedKNN:
                 from knn_tpu_torch.ops.pq import score_error_bound_pq
 
                 eps = score_error_bound_pq(
-                    q_np, self._pq_placement(pq_dsub, pq_ncodes)["stats"])
+                    q_np, src._pq_placement(pq_dsub, pq_ncodes)["stats"])
             else:
                 from knn_tpu_torch.ops.quantize import score_error_bound
 
-                pl = self._quant_placement(precision)
+                pl = src._quant_placement(precision)
                 eps = score_error_bound(q_np, pl["stats"],
                                         offset=pl["offset"])
             obs.histogram(_mn.CERTIFIED_QUANT_BOUND).observe_many(eps)
@@ -1068,7 +1523,7 @@ class ShardedKNN:
             fetched = []
             for _, chunk, _ in batches:
                 q = self._to_device(chunk)
-                fetched.append(_fetch_async(tail(q, *coarse(q))))
+                fetched.append(_fetch_async(run(q)))
             for (lo, _, pad), f in zip(batches, fetched):
                 repair(lo, pad, f)
             return np.flatnonzero(bad_mask), n_corrected, None
@@ -1135,6 +1590,78 @@ class ShardedKNN:
                         batches=len(batches), depth=depth,
                         overlap_ratio=round(ratio, 4))
         return np.flatnonzero(bad_mask), n_corrected, pipeline
+
+    def _mesh_quant(self, precision: str) -> None:
+        """Every db shard's int8 / int4 placement built, with the bound
+        statistics of the whole database: each statistic is a maximum over
+        rows (ops.quantize.db_bound_stats_t), so the shards' maxima give
+        the JAX package's values (sharded.py:1203-1299), and every shard's
+        certificate reads the same constants."""
+        subs = {id(sub): sub for row in self._mesh_shards() for host in row
+                for _, sub in host}.values()
+        entries = [(sub, sub._quant_placement(precision)) for sub in subs]
+        if all(e.get("merged") for _, e in entries):
+            return
+        stats = dict(entries[0][1]["stats"])
+        for key in ("t2hat_max", "et2_max", "db_norm_max"):
+            stats[key] = max(e["stats"][key] for _, e in entries)
+        consts = bound_consts(stats)
+        for sub, e in entries:
+            e.update(stats=stats, merged=True,
+                     consts=torch.from_numpy(consts).to(sub.device))
+
+    def _mesh_pallas(self, margin: int, tile_n, precision: str, setup: dict):
+        """``(run, m, w)`` of the one-pass certificate on the mesh — the
+        JAX package's ``_pallas_certified_program`` (sharded.py:2162-2258):
+        ``run(q)`` runs, per query shard, every db shard's coarse kernel
+        and select/rescore on its own rows and device, masks its pad rows
+        and makes its indices global, merges the ranked candidates
+        (``m + 1`` wide) by the merge tree, takes the minimum of the
+        exclusion bounds across db shards, and certifies the merged lists
+        on the query shard's first device (:func:`_certify_pack` with the
+        merge-drop check of several db shards).  The query shards'
+        outputs join on the first device."""
+        if precision in INT_ARMS:
+            self._mesh_quant(precision)
+        shards = self._mesh_shards()
+        setups = {}
+        for row in shards:
+            for host in row:
+                for _, sub in host:
+                    if id(sub) not in setups:
+                        setups[id(sub)] = sub._pallas_setup(
+                            margin, tile_n, precision, split=True, **setup)
+        _, m, w = next(iter(setups.values()))
+
+        def run(q: torch.Tensor):
+            blocks, n_q, _ = self._mesh_queries(q)
+            outs = []
+            for qb, row in zip(blocks, shards):
+                d = [[None] * len(row[0]) for _ in row]
+                gi = [[None] * len(row[0]) for _ in row]
+                lbs = []
+                for h, host in enumerate(row):
+                    for c, (dev, sub) in enumerate(host):
+                        (coarse, rescore, _), _, _ = setups[id(sub)]
+                        qd = qb.to(dev, non_blocking=True)
+                        d32, li, lb = rescore(qd, *coarse(qd))
+                        d[h][c], gi[h][c] = _mask_shard(
+                            d32, li, sub._n_valid, sub._row_offset)
+                        lbs.append(lb)
+                md, mi = _merge_shards(d, gi, m + 1, self.merge,
+                                       self.dcn_merge)
+                dev0, sub0 = row[0][0]
+                pack = setups[id(sub0)][0][2]
+                outs.append(pack(qb.to(dev0, non_blocking=True), md, mi,
+                                 reduce_min(lbs, dev0), n_train=self.n_train,
+                                 db_shards=self.db_shards))
+            return tuple(
+                None if outs[0][t] is None else torch.cat(
+                    [o[t].to(self.device, non_blocking=True)
+                     for o in outs])[:n_q]
+                for t in range(len(outs[0])))
+
+        return run, m, w
 
     def search_certified(self, queries, *, margin: int = 28,
                          selector: str = "pallas",
@@ -1216,7 +1743,8 @@ class ShardedKNN:
         from knn_tpu_torch.ops.certified import repair_uncertified
 
         del recall_target  # no approximate top-k here (divergence 21)
-        self._require_resident("search_certified")
+        if not self._on_mesh():
+            self._require_resident("search_certified")
         if self.metric not in ("l2", "cosine", "dot"):
             # |q-t|_1 has no gram-matrix form for either certificate to bound
             raise ValueError(
@@ -1240,8 +1768,12 @@ class ShardedKNN:
             q_np = np.concatenate(
                 [q_np, np.zeros((q_np.shape[0], 1), np.float32)], axis=1)
         n_q = q_np.shape[0]
-        m = min(self.k + margin, self.n_train)
-        db_np = self.placement.db_host
+        # the margin is bounded by the db and by the shard rows the coarse
+        # and fallback selects draw from
+        shard_rows = self._shard_rows()
+        m = min(self.k + margin, self.n_train, shard_rows)
+        rows = self._host_rows_of()
+        db_np = rows.rows
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         bs = n_q if batch_size is None else batch_size
@@ -1260,7 +1792,7 @@ class ShardedKNN:
             # card > library defaults (the certificate runs in squared-L2
             # space: cosine on unit vectors, dot on augmented rows)
             knobs, tune_info = tuning.resolve_full(
-                self.n_train, self.placement.db.shape[1], self.k,
+                self.n_train, db_np.shape[1], self.k,
                 metric="l2", dtype=self._dtype_key,
                 device_kind=tuning.device_kind_of(self.device),
                 cache_path=tune_cache,
@@ -1269,6 +1801,11 @@ class ShardedKNN:
                     survivors=survivors, final_select=final_select,
                     binning=binning, final_recall_target=final_recall_target,
                     grid_order=grid_order, kernel=kernel))
+            if knobs["precision"] == "pq" and self.db_shards > 1:
+                raise ValueError(
+                    "precision='pq' on a mesh with several db shards is "
+                    "queued (ROADMAP queue A): its codebooks train on the "
+                    "whole database")
             bad, n_corrected, pipeline = self._certify_pallas(
                 batches, bs, m, d, i, q_np, db_np,
                 want_distances=return_distances, overlap=bool(overlap),
@@ -1288,7 +1825,8 @@ class ShardedKNN:
 
         repair = repair_uncertified(
             d, i, self.k, m, bad, q_np, db_np, select_fn=_select,
-            max_widen=self.n_train, db_norm_max=self.placement.db_norm_max)
+            max_widen=min(self.n_train, shard_rows),
+            db_norm_max=rows.db_norm_max)
         stats = {
             "fallback_queries": int(bad.size),
             "certified": n_q - int(bad.size),
@@ -1316,13 +1854,60 @@ class ShardedKNN:
             d *= 0.5  # unit-vector squared L2 -> 1 - cosine similarity
         if return_distances and self.metric == "dot":
             # augmented squared L2 -> -q.t: ||q'-t'||^2 = ||q||^2 + M - 2 q.t
-            d -= q_norm2[:, None] + self.placement.dot_shift
+            d -= q_norm2[:, None] + rows.dot_shift
             d *= 0.5
         if return_distances and return_sqrt:
             from knn_tpu_torch.ops.distance import metric_values
 
             d = metric_values(d, self.metric)
         return (d if return_distances else None), i, stats
+
+    def exact_pair_distances(self, queries, rows, idx,
+                             return_sqrt: bool = False) -> np.ndarray:
+        """float64 distances of query ``rows[j]`` to db row ``idx[j]``, in
+        the values :meth:`search_certified` returns for them (cosine: the
+        unit-vector squared L2 halved; dot: the augmented squared L2 mapped
+        back to ``-q.t``), with rank_correct_runs' and the back-map's
+        arithmetic step for step — a float64 distance of a certified result
+        and this one are bitwise equal."""
+        q = np.asarray(queries, dtype=np.float32)
+        hr = self._host_rows_of()
+        if self.metric == "cosine":
+            q = row_normalize_f64(q)
+        if self.metric == "dot":
+            q64 = q.astype(np.float64)
+            q_norm2 = np.einsum("nd,nd->n", q64, q64)
+            q = np.concatenate([q, np.zeros((q.shape[0], 1), np.float32)], 1)
+        rows, idx = np.asarray(rows), np.asarray(idx)
+        diff = hr.rows[idx].astype(np.float64) - q[rows].astype(np.float64)
+        d = np.einsum("nd,nd->n", diff, diff)
+        if self.metric == "cosine":
+            d *= 0.5
+        if self.metric == "dot":
+            d -= q_norm2[rows] + hr.dot_shift
+            d *= 0.5
+        if return_sqrt:
+            from knn_tpu_torch.ops.distance import metric_values
+
+            d = metric_values(d, self.metric)
+        return d
+
+    def certify_space(self, queries, d: np.ndarray,
+                      return_sqrt: bool = False) -> np.ndarray:
+        """``d`` [Q, k] as :meth:`search_certified` returns it, mapped back
+        to the squared-L2 space its rank analysis runs in (the inverse of
+        the cosine and dot back-maps, and of ``return_sqrt``): the values
+        whose relative gaps the rank slack judges."""
+        d = np.asarray(d, np.float64)
+        if return_sqrt and self.metric != "dot":
+            d = d * d
+        if self.metric == "cosine":
+            return 2.0 * d
+        if self.metric == "dot":
+            q64 = np.asarray(queries, np.float32).astype(np.float64)
+            q_norm2 = np.einsum("nd,nd->n", q64, q64)
+            return 2.0 * d + (q_norm2 + self._host_rows_of().dot_shift)[:, None]
+        return d
 
     def _certify_counted(self, batches, bs, m, d, i, q_np, db_np, selector):
         """The counted certificate, the JAX package's ``_certify_counted``
@@ -1343,15 +1928,20 @@ class ShardedKNN:
            query's relative margin ``(threshold - d_k) / |threshold|``
            goes to ``CERTIFIED_MARGIN{path="sharded"}``."""
         from knn_tpu_torch.ops.certified import (_approx_candidates,
-                                                 certification_tolerance,
-                                                 count_below)
+                                                 certification_tolerance)
         from knn_tpu_torch.ops.refine import refine_exact
 
-        k, db = self.k, self.placement.db
+        k = self.k
         if selector == "exact":
             def coarse(q):
                 return self._exact_topk(q, m, "l2", self._dtype_key)[1]
+        elif self._on_mesh():
+            def coarse(q):
+                return self._mesh_topk(q, m, "l2", self._dtype_key,
+                                       selector="approx")[1]
         else:
+            db = self.placement.db
+
             def coarse(q):
                 return _row_blocked(
                     lambda qb: (_approx_candidates(
@@ -1374,7 +1964,7 @@ class ShardedKNN:
             d[lo : lo + take], i[lo : lo + take] = d_m[:, :k], i_m[:, :k]
             tol = certification_tolerance(
                 q_np[lo : lo + take], db_np,
-                db_norm_max=self.placement.db_norm_max)
+                db_norm_max=self._host_rows_of().db_norm_max)
             gaps = d_m[:, k:] - d_m[:, k - 1 : -1]
             # the midpoint is cast to f32 for the count: the gap must also
             # clear that rounding, and never end at a sentinel (+inf) rank
@@ -1393,8 +1983,7 @@ class ShardedKNN:
             mid = np.where(has, 0.5 * (dj + d_js), dj + tol)
             thr = np.full(q.shape[0], -np.inf, dtype=np.float32)
             thr[:take] = mid
-            counts = count_below(db, q, torch.from_numpy(thr),
-                                 tile=self.train_tile or 131072)
+            counts = self._count(q, torch.from_numpy(thr))
             count_out.append((lo, take, js, counts, mid, d_m[:, k - 1]))
         # stage 3: the certificates (count <= the query's rank bound)
         flagged = []
@@ -1420,14 +2009,15 @@ class ShardedKNN:
         :meth:`search_certified` (any selector; the pallas kernel's knobs
         left at None resolve through ``tune_cache`` as there), then the
         reference vote.  Returns (labels [Q] int32 numpy, stats)."""
-        self._require_resident("predict")
-        if self.placement.labels is None:
+        if not self._on_mesh():
+            self._require_resident("predict")
+        if self._labels() is None:
             raise RuntimeError("ShardedKNN built without labels; predict unavailable")
         _, idx, stats = self.search_certified(
             queries, margin=margin, selector=selector, batch_size=batch_size,
             tile_n=tile_n, precision=precision, kernel=kernel,
             tune_cache=tune_cache, return_distances=False)
-        labels = self.placement.labels[torch.from_numpy(idx).to(self.device)]
+        labels = self._labels()[torch.from_numpy(idx).to(self.device)]
         return majority_vote(labels, self.num_classes).cpu().numpy(), stats
 
 
@@ -1435,9 +2025,12 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
                   w: int, n_train: int, include_distances: bool,
                   precision: str = "bf16x3",
                   consts: Optional[torch.Tensor] = None,
-                  offset: float = 0.0, pq_dsub: Optional[int] = None):
-    """The certify tail of the JAX package's ``_certify_pack_spmd`` for one
-    shard, from ranked candidates ``(d32 [Q, m+1], li [Q, m+1], lb [Q])``:
+                  offset: float = 0.0, pq_dsub: Optional[int] = None,
+                  db_shards: int = 1):
+    """The certify tail of the JAX package's ``_certify_pack_spmd``, from
+    ranked candidates ``(d32 [Q, m+1], li [Q, m+1], lb [Q])`` (one shard's,
+    or the merged lists of ``db_shards`` shards with global indices and
+    the minimum of their bounds):
 
     - the rank window [0, w): ``tight`` marks adjacent pairs closer than
       RANK_SLACK; ``stop`` is the first big gap at or after the top-k
@@ -1455,7 +2048,10 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
       bound of its ``consts`` at ``pq_dsub`` dims per subspace
       (ops.pq.score_error_bound_pq_t, sharded.py:2356-2360);
     - ``bad = s_k + RANK_SLACK d_k + tol >= lb`` (plus unresolved rows),
-      with ``s_k = d_k - ||q||^2`` the k-th distance in kernel space.
+      with ``s_k = d_k - ||q||^2`` the k-th distance in kernel space; with
+      several db shards also ``d_k (1 + RANK_SLACK) >= d32_m (1 -
+      RANK_SLACK)`` (sharded.py:2370-2373): a candidate the merge dropped
+      has direct-difference distance at least the (m+1)-th kept.
 
     Returns separate tensors ``(gi [Q, w], tight [Q, w-1], bad [Q],
     dk [Q, k] or None)`` in place of the packed int32 array the JAX
@@ -1488,6 +2084,8 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
     d_k = dw[:, k - 1]
     s_k = d_k - q_norm
     bad = (s_k + RANK_SLACK * d_k + tol >= lb) | unresolved
+    if db_shards > 1:
+        bad = bad | (d_k + RANK_SLACK * d_k >= d32[:, m] * (1.0 - RANK_SLACK))
     return gi[:, :w], tight_use, bad, (d32[:, :k] if include_distances else None)
 
 
@@ -1505,3 +2103,82 @@ def unpack_certified(packed, k: int, w: int, with_distances: bool):
         dk_np = dk[:, :k].cpu().numpy()
     return (gi.to(torch.int32).cpu().numpy(), tight.cpu().numpy(),
             bad.cpu().numpy(), dk_np)
+
+
+def sharded_knn(queries, train, k: int, *, mesh: Mesh, metric: str = "l2",
+                merge: Optional[str] = None,
+                train_tile: Optional[int] = None, compute_dtype=None):
+    """Exact KNN over ``mesh``: ``(distances, global indices)`` [Q, k] on
+    the mesh's first device — a one-shot :class:`ShardedKNN`
+    (sharded.py:2065-2089)."""
+    return ShardedKNN(train, mesh=mesh, k=k, metric=metric, merge=merge,
+                      train_tile=train_tile,
+                      compute_dtype=compute_dtype).search(queries)
+
+
+def sharded_knn_predict(train, train_labels, queries, *, k: int,
+                        num_classes: int, mesh: Mesh, metric: str = "l2",
+                        merge: Optional[str] = None,
+                        train_tile: Optional[int] = None,
+                        compute_dtype=None) -> torch.Tensor:
+    """Distributed classify — distance, select and vote over ``mesh``
+    (knn_mpi.cpp:308-393; sharded.py:2135-2159): one-shot."""
+    return ShardedKNN(train, mesh=mesh, k=k, metric=metric, merge=merge,
+                      train_tile=train_tile, compute_dtype=compute_dtype,
+                      labels=train_labels,
+                      num_classes=num_classes).predict(queries)
+
+
+def sharded_minmax(arrays, *, mesh: Mesh):
+    """Per-dimension ``(min, max)`` over the union of several [N_i, D]
+    arrays, each split over every mesh position (edge rows pad it to a
+    multiple of the mesh size, which leaves the extrema alone), the local
+    extrema reduced onto the first device by the min / max pair of
+    knn_mpi.cpp:276-277 (sharded.py:2569-2600).  Returns f32 tensors on the mesh's first
+    device; empty arrays are the reduce identity (+inf, -inf)."""
+    from knn_tpu_torch.ops.normalize import local_minmax
+
+    from knn_tpu_torch.parallel.collectives import reduce_max
+
+    arrays = list(arrays)
+    if not arrays:
+        raise ValueError("sharded_minmax needs at least one array")
+    first = mesh.devices.flat[0]
+    dim = arrays[0].shape[-1]
+    nonempty = [a for a in arrays if a.shape[0] > 0]
+    if not nonempty:
+        return (torch.full((dim,), torch.inf, device=first),
+                torch.full((dim,), -torch.inf, device=first))
+    devices = list(mesh.devices.flat)
+    lows, highs = [None] * len(devices), [None] * len(devices)
+    for a in nonempty:
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        target = max(-(-t.shape[0] // len(devices)) * len(devices),
+                     len(devices))
+        if target != t.shape[0]:
+            t = torch.cat([t, t[-1:].expand(target - t.shape[0], -1)])
+        for p, (dev, block) in enumerate(zip(devices,
+                                             torch.chunk(t, len(devices)))):
+            lo, hi = local_minmax(block.to(dev, non_blocking=True))
+            lows[p] = lo if lows[p] is None else torch.minimum(lows[p], lo)
+            highs[p] = hi if highs[p] is None else torch.maximum(highs[p], hi)
+    return reduce_min(lows, first), reduce_max(highs, first)
+
+
+def sharded_normalize_transductive(train, test=None, val=None, *,
+                                   mesh: Mesh):
+    """The reference's normalize phase (knn_mpi.cpp:229-306) over
+    ``mesh``: joint extrema over train ∪ test ∪ val, then the rescale with
+    constant dims passed through.  Returns ``(train', test', val')`` as
+    tensors on the mesh's first device, None passed through."""
+    from knn_tpu_torch.ops.normalize import minmax_apply
+
+    present = [a for a in (train, test, val) if a is not None]
+    lo, hi = sharded_minmax(present, mesh=mesh)
+    first = mesh.devices.flat[0]
+    return tuple(
+        None if a is None else minmax_apply(
+            (a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(a))).to(first), lo, hi)
+        for a in (train, test, val))

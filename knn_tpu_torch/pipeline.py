@@ -21,11 +21,10 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 from knn_tpu_torch.data.csv_io import read_labeled_csv, read_unlabeled_csv, write_labels
 from knn_tpu_torch.device import resolve_device
-from knn_tpu_torch.ops.normalize import minmax_stats, np_minmax_apply
+from knn_tpu_torch.ops.normalize import np_minmax_apply
 from knn_tpu_torch.utils.config import JobConfig
 from knn_tpu_torch.utils.timing import PhaseTimer
 
@@ -98,17 +97,31 @@ def _accuracy(pred: np.ndarray, real: np.ndarray) -> float:
     return float(np.mean(pred == real))
 
 
+def _job_mesh(cfg: JobConfig, device):
+    """The job's mesh (knn_tpu/pipeline.py:120-125): ``query_shards`` x
+    ``db_shards`` over the visible cards, or — with ``cfg.device`` named —
+    over that device repeated (a logical mesh; ``query_shards`` None is 1
+    there)."""
+    from knn_tpu_torch.parallel.mesh import make_mesh
+
+    if cfg.device is None:
+        return make_mesh(cfg.query_shards, cfg.db_shards)
+    q = cfg.query_shards or 1
+    return make_mesh(q, cfg.db_shards, devices=[device] * (q * cfg.db_shards))
+
+
 def _run_torch(cfg: JobConfig, timer: PhaseTimer, device, train, train_labels,
                test, val, val_labels_real):
-    from knn_tpu_torch.parallel.sharded import ShardedKNN
+    from knn_tpu_torch.parallel.sharded import ShardedKNN, sharded_minmax
 
+    mesh = _job_mesh(cfg, device)
     if cfg.normalize:
         with timer.phase("normalize"):
-            # joint extrema on the device (the reference's Allreduce
+            # joint extrema over the mesh (the reference's Allreduce
             # pair); the rescale runs on host
-            present = [torch.from_numpy(a).to(device)
-                       for a in (train, test, val) if a is not None]
-            lo, hi = (x.cpu().numpy() for x in minmax_stats(present))
+            present = [a for a in (train, test, val) if a is not None]
+            lo, hi = (x.cpu().numpy()
+                      for x in sharded_minmax(present, mesh=mesh))
             train = np_minmax_apply(train, lo, hi)
             test = np_minmax_apply(test, lo, hi)
             if val is not None:
@@ -116,11 +129,10 @@ def _run_torch(cfg: JobConfig, timer: PhaseTimer, device, train, train_labels,
 
     num_classes = _infer_num_classes(cfg, train_labels, val_labels_real)
     with timer.phase("distribute"):
-        program = ShardedKNN(train, k=cfg.k, metric=cfg.metric,
-                             train_tile=cfg.train_tile,
+        program = ShardedKNN(train, k=cfg.k, metric=cfg.metric, mesh=mesh,
+                             merge=cfg.merge, train_tile=cfg.train_tile,
                              compute_dtype=cfg.compute_dtype,
-                             labels=train_labels, num_classes=num_classes,
-                             device=device)
+                             labels=train_labels, num_classes=num_classes)
 
     certified_stats = {"fallback_queries": 0, "certified": 0}
 

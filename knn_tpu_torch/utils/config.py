@@ -12,9 +12,11 @@ Field ↔ reference mapping (knn_mpi.cpp:108-119):
   train_file / val_file / test_file      :117-119
   output_file  <- the hard-coded ``Test_label.csv``  :390
 
-The JAX package's mesh and merge fields belong to a later slice of the
-port; ``device`` is the port's own (``None`` = ``cuda``, see
-knn_tpu_torch.device).  The port's own backend is named ``"torch"`` where
+The mesh fields (``query_shards``, ``db_shards``, ``merge``) are the JAX
+package's; ``device`` is the port's own (``None`` = ``cuda``, see
+knn_tpu_torch.device): with ``device=None`` the mesh spans the visible
+cards, with a device named it repeats that device (a logical mesh,
+parallel.mesh).  The port's own backend is named ``"torch"`` where
 the JAX package's is ``"jax"`` (ROADMAP divergence 36).
 """
 
@@ -58,6 +60,12 @@ class JobConfig:
     normalize: bool = True
     validation: bool = True
     backend: str = "torch"
+    # --- the mesh (parallel.mesh): the queries shard over query_shards
+    # (None: every card left), the train rows over db_shards ---
+    query_shards: Optional[int] = None
+    db_shards: int = 1
+    #: db-axis merge strategy: "allgather" | "ring"
+    merge: str = "allgather"
     #: torch device; None = "cuda" (raises without a GPU)
     device: Optional[str] = None
     train_tile: Optional[int] = None
@@ -99,6 +107,14 @@ class JobConfig:
             raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
         if self.k < 1:
             raise ValueError(f"k must be >= 1, got {self.k}")
+        if self.db_shards < 1 or (self.query_shards is not None
+                                  and self.query_shards < 1):
+            raise ValueError(
+                f"query_shards={self.query_shards} and db_shards="
+                f"{self.db_shards} must be >= 1")
+        if self.merge not in ("allgather", "ring"):
+            raise ValueError(
+                f"merge {self.merge!r} not in ('allgather', 'ring')")
         if self.validation and not self.val_file:
             raise ValueError("validation=True requires val_file")
         if self.mode not in ("exact", "certified"):
@@ -127,6 +143,10 @@ class JobConfig:
                     "(batch_size) and does not compose with it")
             if self.serve_buckets is not None and self.backend != "torch":
                 raise ValueError("serve_buckets requires the torch backend")
+            if self.serve_buckets is not None and self.db_shards > 1:
+                raise ValueError(
+                    "serve_buckets on a mesh with several db shards is "
+                    "queued (ROADMAP queue A)")
         if self.max_wait_ms < 0:
             raise ValueError(
                 f"max_wait_ms must be >= 0, got {self.max_wait_ms}")

@@ -745,7 +745,10 @@ def test_switch_catalog_is_the_jax_catalog_with_port_fields():
         assert s.port.startswith("not ported:") or "divergence" in s.port
     assert sw.BY_NAME["KNN_TPU_CALIBRATION"].port == \
         "calibrate.configure(store=) (divergence 43)"
-    assert sw.BY_NAME["KNN_TPU_MERGE"].port.startswith("not ported:")
+    assert sw.BY_NAME["KNN_TPU_MERGE"].port == \
+        "ShardedKNN(merge=) (divergence 56)"
+    assert sw.BY_NAME["KNN_TPU_DCN_MERGE"].port == \
+        "ShardedKNN(dcn_merge=) (divergence 56)"
 
 
 SWITCH_CASES = {
@@ -863,7 +866,9 @@ def test_unwritten_is_exactly_what_the_port_never_writes():
 
     written = written_names(Context(REPO), mn)
     assert set(mn.CATALOG) - written == mn.UNWRITTEN
-    assert {mn.JAX_COMPILES, mn.MERGE_BYTES} <= mn.UNWRITTEN
+    assert mn.UNWRITTEN == {mn.JAX_COMPILES, mn.JAX_COMPILE_SECONDS}
+    assert not {mn.MERGE_SELECTED, mn.MERGE_BYTES,
+                mn.MERGE_STRAGGLER_GAP} & mn.UNWRITTEN
 
 
 # --- torch-hygiene ------------------------------------------------------

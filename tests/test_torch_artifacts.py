@@ -29,6 +29,7 @@ from knn_tpu.ivf import artifact as jivf
 from knn_tpu.join import artifact as jjoin
 from knn_tpu.loadgen import knee as jknee
 from knn_tpu.ops import pq_artifact as jpq
+from knn_tpu.parallel import crossover as jxo
 
 from knn_tpu_torch.analysis import artifacts as art
 from knn_tpu_torch.index import artifact as mut
@@ -37,6 +38,7 @@ from knn_tpu_torch.join import artifact as join
 from knn_tpu_torch.loadgen import knee
 from knn_tpu_torch.obs import calibrate, roofline
 from knn_tpu_torch.ops import pq_artifact as pq
+from knn_tpu_torch.parallel import crossover as xo
 
 from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
 
@@ -97,6 +99,16 @@ VALID = {
         "skewed_count": 0, "partial": False, "staleness_s": 0.5,
         "straggler_host": 1, "straggler_gap_s": 0.25,
         "stitched_requests": 3, "slo_breached": 0},
+    "multihost": {
+        "hosts": 2, "chips_per_host": 4,
+        "merge": {"intra": {"strategy": "ring", "source": "measured"},
+                  "dcn": {"strategy": "allgather", "source": "explicit"}},
+        "dcn_merge_bytes": 6553600,
+        "hosttier": {"sweeps": 4, "budget_bytes": 134217728,
+                     "segment_rows": 260111, "bytes_per_sweep": 1,
+                     "sweep_walls_s": [0.1], "qps": 1.0}},
+    "multichip_record": {"n_devices": 4, "rc": 0, "ok": True,
+                         "skipped": False, "tail": "done"},
 }
 
 SHARED = sorted(VALID)
@@ -296,6 +308,8 @@ SHIMS = [
     ("loadgen_knee", knee.validate_knee_block, jknee.validate_knee_block,
      (knee.BLOCK_VERSION, knee.STEP_FIELDS),
      (jknee.BLOCK_VERSION, jknee.STEP_FIELDS)),
+    ("multihost", xo.validate_multihost_block, jxo.validate_multihost_block,
+     (xo.STRATEGIES, xo.SOURCES), (jxo.STRATEGIES, jxo.SOURCES)),
 ]
 
 
@@ -315,6 +329,7 @@ def test_shim_modules_import_no_torch():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for rel in ("index/artifact.py", "ivf/artifact.py", "join/artifact.py",
                 "ops/pq_artifact.py", "analysis/artifacts.py",
+                "parallel/crossover.py",
                 "analysis/core.py", "analysis/switches.py",
                 "analysis/lockorder.py", "analysis/annotations.py"):
         tree = ast.parse(open(os.path.join(repo, "knn_tpu_torch", rel)).read())
@@ -561,7 +576,7 @@ def test_rehearse_line_validates_through_the_catalog(tmp_path):
 def test_catalog_surface():
     assert [s.name for s in art.CATALOG] == [
         "roofline", "calibration", "campaign", "loadgen_knee", "mutation", "ivf", "pq", "join", "quality", "fleet",
-        "tuning_cache_entry"]
+        "multihost", "multichip_record", "tuning_cache_entry"]
     for s in art.CATALOG:
         if s.version_field:
             assert isinstance(art.version_value(s.name), int)
@@ -576,5 +591,5 @@ def test_catalog_surface():
     assert [f for f, _ in art.curated_fields()] == \
         [f for f, _ in jart.curated_fields() if f in ported]
     assert art.known_keys("ivf") == jart.known_keys("ivf")
-    later = {"bench_line", "sentinel", "multihost", "multichip_record"}
+    later = {"bench_line", "sentinel"}
     assert set(jart.BY_NAME) - set(art.BY_NAME) == later

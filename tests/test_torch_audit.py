@@ -595,7 +595,7 @@ def test_cli_audit_prints_what_jax_prints(tmp_path, capsys, monkeypatch):
     jax_b = jblackbox.read_bundle(str(tmp_path / "jpm" /
                                       os.listdir(tmp_path / "jpm")[0]))
     assert set(port_b) == set(jax_b)
-    assert set(port_b["statusz"]) == set(jax_b["statusz"]) - {"multihost"}
+    assert set(port_b["statusz"]) == set(jax_b["statusz"])
     # the calibration section's off shape (its token names each model)
     assert set(port_b["calibration"]) == set(jax_b["calibration"])
     assert port_b["calibration"]["store"] is jax_b["calibration"]["store"]

@@ -2034,3 +2034,60 @@ def test_cuda_catalog_validates_a_real_searchs_roofline_block(cuda_device):
     assert roofline.validate_block(block) == []
     assert roofline.validate_block({**block, "roofline_pct": -1.0}) == [
         "roofline_pct must be a non-negative number, got -1.0"]
+
+
+@pytest.mark.cuda
+def test_cuda_logical_mesh_launches_k1_per_shard_bitwise_one_device(
+        cuda_device):
+    """A (1, 4) logical mesh on one card: every batch launches K1 once a
+    db shard, nothing else, and the certified result is bitwise the
+    (1, 1) placement's wherever neither placement repaired a query (a
+    repaired row holds a value f32 cannot represent); ring
+    and allgather are bitwise each other."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(73)
+    q, db = _data(rng, 256, 40000, 64)
+    one = ShardedKNN(db, k=10, device=cuda_device)
+    rd, ri, rst = one.search_certified(q, batch_size=128)
+    dev = torch.device(cuda_device)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dev.index is None else dev
+    outs = {}
+    for merge in ("ring", "allgather"):
+        knn = ShardedKNN(db, k=10, merge=merge,
+                         mesh=make_mesh(1, 4, devices=[dev] * 4))
+        before = dict(ck.binned_select.launches)
+        others = (dict(ck.stream_select.launches),
+                  dict(ck.fused_select.launches))
+        d, i, st = knn.search_certified(q, batch_size=128)
+        assert ck.binned_select.launches["bf16x3"] == \
+            before["bf16x3"] + 4 * 2
+        assert {a: n for a, n in ck.binned_select.launches.items()
+                if a != "bf16x3"} == {a: n for a, n in before.items()
+                                      if a != "bf16x3"}
+        assert (dict(ck.stream_select.launches),
+                dict(ck.fused_select.launches)) == others
+        np.testing.assert_array_equal(i, ri)
+        if st["fallback_queries"] == rst["fallback_queries"] == 0:
+            np.testing.assert_array_equal(d, rd)
+        # a row's distances differ only where one side repaired it (it
+        # then holds a value f32 cannot represent)
+        repaired = ((d != d.astype(np.float32)).any(1)
+                    | (rd != rd.astype(np.float32)).any(1))
+        assert not ((d != rd).any(1) & ~repaired).any()
+        np.testing.assert_allclose(d, rd, rtol=ck.RANK_SLACK, atol=1e-12)
+        both = (d != d.astype(np.float32)) & (rd != rd.astype(np.float32))
+        np.testing.assert_array_equal(d[both], rd[both])
+        outs[merge] = (d, i)
+    np.testing.assert_array_equal(outs["ring"][0], outs["allgather"][0])
+    np.testing.assert_array_equal(outs["ring"][1], outs["allgather"][1])
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_device_mesh_raises(cuda_device):
+    from knn_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="mixes"):
+        make_mesh(1, 2, devices=["cpu", cuda_device])

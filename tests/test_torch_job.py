@@ -316,6 +316,13 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.analysis.check_artifacts\n"
         "import knn_tpu_torch.ivf.artifact, knn_tpu_torch.join.artifact\n"
         "import knn_tpu_torch.ops.pq_artifact\n"
+        "import knn_tpu_torch.parallel.mesh, knn_tpu_torch.parallel.collectives\n"
+        "import knn_tpu_torch.parallel.crossover\n"
+        "import knn_tpu_torch.parallel.multihost\n"
+        "from knn_tpu_torch import parallel as _p\n"
+        "[getattr(_p, name) for name in _p.__all__]\n"
+        "from knn_tpu_torch.parallel import crossover as _x\n"
+        "_x.validate_multihost_block({'hosts': 1})\n"
         "from knn_tpu_torch.analysis import artifacts as _a\n"
         "[_a.version_value(s.name) for s in _a.CATALOG if s.version_field]\n"
         "knn_tpu_torch.analysis.run('.')\n"

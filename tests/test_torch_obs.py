@@ -618,7 +618,8 @@ def test_health_ready_after_warmup_and_index_section(small_prog):
     for section in ("calibration", "quality", "postmortems", "slo",
                     "slowest_requests"):
         assert section in rep
-    assert "multihost" not in rep
+    # the last cross-process merge's report: None until one ran here
+    assert rep["multihost"] is None or rep["multihost"]["hosts"] >= 1
     assert obs.gauge(mn.HEALTH_READY).get() == 1.0
     text = obs.health.render_text(rep)
     assert text.startswith("health: READY")

@@ -23,6 +23,7 @@ from knn_tpu_torch.obs import names as mn
 from knn_tpu_torch.obs import profiler
 from knn_tpu_torch.obs import roofline as rl
 from knn_tpu_torch.ops import coarse_knn as ck
+from knn_tpu_torch.parallel import crossover as xo
 
 from test_torch_cuda import empty_default_tune_cache  # noqa: F401 (autouse)
 
@@ -163,10 +164,17 @@ def test_counted_and_join_models():
 
 
 def test_refusals_by_name():
-    with pytest.raises(ValueError, match="queue A item 6"):
-        rl.pallas_cost_model(n=N, d=DP, k=10, nq=NQ, db_hosts=2)
-    with pytest.raises(ValueError, match="queue A item 6"):
-        rl.counted_cost_model(n=N, d=DP, k=10, nq=NQ, db_hosts=4)
+    # db_hosts > 1 is priced now (the DCN term), no longer refused
+    two = rl.pallas_cost_model(n=N, d=DP, k=10, nq=NQ, db_hosts=2,
+                               device_kind=H100)
+    assert two["terms"]["dcn"]["bytes"] == xo.merge_bytes(
+        NQ, 10, 2, two["terms"]["dcn"]["strategy"])
+    assert two["calibration"]["applied"] is False
+    four = rl.counted_cost_model(n=N, d=DP, k=10, nq=NQ, db_hosts=4,
+                                 dcn_merge="ring", dcn_gbps=10.0)
+    assert four["terms"]["dcn"]["rate_source"] == "argument"
+    assert four["terms"]["dcn"]["time_s"] == \
+        xo.merge_bytes(NQ, 10, 4, "ring") / 10e9
     with pytest.raises(ValueError, match="together"):
         rl.pallas_cost_model(n=N, d=DP, k=10, nq=NQ, nprobe=4)
     with pytest.raises(ValueError, match="precision"):
