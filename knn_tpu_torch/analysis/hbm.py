@@ -73,28 +73,36 @@ def query_block_bytes(n_rows: int, dim: int) -> int:
     return n_rows * dim * QUERY_ITEMSIZE
 
 
-def superblock_rows_for_budget(budget_bytes: int, dim: int) -> int:
+def superblock_rows_for_budget(budget_bytes: int, dim: int, *,
+                               query_multiple: int = 1) -> int:
     """The largest query-superblock row count whose h2d block fits
-    ``budget_bytes``."""
+    ``budget_bytes``, rounded down to ``query_multiple`` (a mesh's query
+    shards: a placed block divides evenly across the query axis)."""
     if budget_bytes <= 0:
         raise ValueError(f"budget_bytes must be > 0, got {budget_bytes}")
-    return int(budget_bytes) // (int(dim) * QUERY_ITEMSIZE)
+    rows = int(budget_bytes) // (int(dim) * QUERY_ITEMSIZE)
+    return (rows // query_multiple) * query_multiple
 
 
-def plan_superblocks(n_a: int, dim: int,
-                     budget_bytes: int) -> List[Tuple[int, int]]:
+def plan_superblocks(n_a: int, dim: int, budget_bytes: int, *,
+                     query_multiple: int = 1) -> List[Tuple[int, int]]:
     """``[(lo, hi), ...]`` query-superblock extents covering ``[0, n_a)``,
-    every superblock the same padded width.  Raises when the budget cannot
-    hold even one query row."""
+    every superblock the same padded width, a multiple of
+    ``query_multiple`` rows.  Raises when the budget cannot hold even
+    ``query_multiple`` query rows."""
     n_a = int(n_a)
     if n_a <= 0:
         raise ValueError(f"n_a must be > 0, got {n_a}")
-    sb = superblock_rows_for_budget(budget_bytes, dim)
+    sb = superblock_rows_for_budget(budget_bytes, dim,
+                                    query_multiple=query_multiple)
     if sb < 1:
+        rows = ("1 query row" if query_multiple == 1
+                else f"{query_multiple} query rows")
         raise ValueError(
-            f"query budget {budget_bytes} B cannot hold even 1 query row "
-            f"of dim {dim} at {QUERY_ITEMSIZE} B/elem; raise the budget")
-    sb = min(sb, n_a)
+            f"query budget {budget_bytes} B cannot hold even {rows} "
+            f"of dim {dim} at {QUERY_ITEMSIZE} B/elem; raise the budget"
+            + ("" if query_multiple == 1 else " or use fewer query shards"))
+    sb = min(sb, -(-n_a // query_multiple) * query_multiple)
     return [(lo, min(lo + sb, n_a)) for lo in range(0, n_a, sb)]
 
 

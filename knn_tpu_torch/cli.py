@@ -269,6 +269,24 @@ def build_join_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _cli_mesh(device, *, tiered: bool = False):
+    """The placement mesh of ``join``, ``loadgen`` and ``index --selftest``
+    (knn_tpu/cli.py:397-405, 1172-1180, 1317-1335 build theirs on
+    ``make_mesh()``): every visible card on the query axis for ``--device``
+    None or ``cuda``, else the one-device mesh on ``--device``.  On one
+    card, and on the CPU, it is the (1, 1) mesh.  A ``tiered`` placement
+    (``--hbm-budget-bytes``) takes the first card's (1, 1) mesh: the
+    host-RAM tier on a mesh is queued (ROADMAP queue A item 4.2)."""
+    from knn_tpu_torch.parallel.mesh import make_mesh
+
+    if device is not None and str(device) != "cuda":
+        return make_mesh(1, 1, devices=[device])
+    mesh = make_mesh()
+    if tiered and mesh.size > 1:
+        mesh = make_mesh(1, 1, devices=[mesh.devices.flat[0]])
+    return mesh
+
+
 def run_join(args: argparse.Namespace) -> int:
     """The ``join`` subcommand (knn_tpu/cli.py:344-422): synthetic data at
     the requested shape, knn_tpu_torch.join.knn_join, one summary line and
@@ -288,7 +306,10 @@ def run_join(args: argparse.Namespace) -> int:
     rng = np.random.default_rng(args.seed)
     db = rng.random(size=(args.n, args.dim)).astype(np.float32)
     qa = rng.random(size=(args.rows, args.dim)).astype(np.float32)
-    prog = ShardedKNN(db, k=args.k, metric=args.metric, device=args.device,
+    prog = ShardedKNN(db, k=args.k, metric=args.metric,
+                      mesh=_cli_mesh(
+                          args.device,
+                          tiered=args.hbm_budget_bytes is not None),
                       hbm_budget_bytes=args.hbm_budget_bytes)
     _, _, stats = knn_join(
         prog, qa, mode=args.mode, superblock_rows=args.superblock,
@@ -347,7 +368,8 @@ def run_index(args: argparse.Namespace) -> int:
     rng = np.random.default_rng(0)
     db = rng.normal(size=(600, 16)).astype(np.float32) * 10
     q = rng.normal(size=(8, 16)).astype(np.float32) * 10
-    idx = MutableIndex(db, k=5, reserve=8, device=args.device)
+    mesh = _cli_mesh(args.device)
+    idx = MutableIndex(db, k=5, reserve=8, mesh=mesh)
     new = rng.normal(size=(6, 16)).astype(np.float32) * 10
     idx.insert(new, np.arange(1000, 1006))
     idx.delete([3, 11, 40])
@@ -356,7 +378,7 @@ def run_index(args: argparse.Namespace) -> int:
     surv[[3, 11, 40]] = False
     rows = np.concatenate([db[surv], new])
     ids = np.concatenate([np.arange(600)[surv], np.arange(1000, 1006)])
-    fresh = MutableIndex(rows, ids, k=5, reserve=8, device=args.device)
+    fresh = MutableIndex(rows, ids, k=5, reserve=8, mesh=mesh)
     d_f, i_f, _ = fresh.search_certified(q)
     oracle_ok = bool(np.array_equal(d_m, d_f) and np.array_equal(i_m, i_f))
     rep = idx.compact()
@@ -549,9 +571,12 @@ def run_loadgen(args: argparse.Namespace) -> int:
         rng = np.random.default_rng(args.seed)
         db = (rng.random((args.n, dim)) * 128.0).astype(np.float32)
         pool = (rng.random((4096, dim)) * 128.0).astype(np.float32)
-        prog = ShardedKNN(db, k=args.k, metric=args.metric,
-                          device=args.device)
-        engine = ServingEngine(prog)
+        mesh = _cli_mesh(args.device)
+        prog = ShardedKNN(db, k=args.k, metric=args.metric, mesh=mesh)
+        # graphs of a mesh over several cards are queued (ROADMAP
+        # divergence 64): such a mesh serves its eager program
+        engine = ServingEngine(prog,
+                               aot=len(mesh.distinct_devices) == 1)
         print("warming serving engine ...", file=sys.stderr)
         engine.warmup()
 

@@ -1,6 +1,6 @@
-"""Mutable index on one GPU: delta-tail inserts, tombstone deletes and
-snapshot-swap compaction over an immutable placement, and its serving
-frontend — the port of knn_tpu/index/mutable.py (``MutableIndex``,
+"""Mutable index on one GPU or a mesh: delta-tail inserts, tombstone
+deletes and snapshot-swap compaction over an immutable placement, and its
+serving frontend — the port of knn_tpu/index/mutable.py (``MutableIndex``,
 ``MutableServingEngine``).
 
 - **Delta tail** — :meth:`MutableIndex.insert` appends rows to a small
@@ -8,7 +8,10 @@ frontend — the port of knn_tpu/index/mutable.py (``MutableIndex``,
   up a geometric capacity ladder and is searched by
   :func:`~knn_tpu_torch.parallel.sharded.segment_search_program`, whose
   valid-row count is a runtime argument, so a growing tail keeps its
-  shape while it stays on its rung.
+  shape while it stays on its rung.  On a mesh the tail is placed over
+  the db axis (every rung a db-shard multiple from a floor of ``(k +
+  reserve) x db shards``, so each shard ranks k + reserve rows) and the
+  segment program merges the shards' lists.
 - **Tombstone deletes** — :meth:`MutableIndex.delete` marks ids dead.  The
   main placement selects ``k_eff = k + reserve``, so after dead rows are
   masked out of the merged candidate list the surviving top-k is the
@@ -73,12 +76,14 @@ import torch
 from knn_tpu_torch import obs
 from knn_tpu_torch.obs import names as _mn
 
-from knn_tpu_torch.device import DeviceLike, resolve_device
+from knn_tpu_torch.device import DeviceLike
 from knn_tpu_torch.index.artifact import (MutationBudgetError,
                                           MutationUnsupportedError)
 from knn_tpu_torch.index.tier import (Compactor, Frontend, check_fresh,
-                                     check_live, checked_rows,
-                                     thresholds_tripped)
+                                     check_live, checked_rows, ladder_rung,
+                                     thresholds_tripped, tier_mesh)
+from knn_tpu_torch.parallel.collectives import shard
+from knn_tpu_torch.parallel.mesh import db_axes, db_topology
 from knn_tpu_torch.ops.topk import I32MAX
 
 #: delta-tail capacity ladder defaults (rows)
@@ -155,10 +160,14 @@ class _TailHandle:
 class MutableIndex:
     """A mutable KNN index over an immutable main placement (a port
     :class:`~knn_tpu_torch.parallel.sharded.ShardedKNN` on ``device``,
-    default ``cuda``) plus a device-resident delta tail and an id
+    default ``cuda``, or on ``mesh`` with its ``merge`` / ``dcn_merge``
+    strategies; not both) plus a device-resident delta tail and an id
     tombstone set (see the module docstring).  ``search`` /
     ``search_certified`` return ``(distances, ids)`` in external id space
-    (``ids`` at construction, ``insert``'s ids afterwards).
+    (``ids`` at construction, ``insert``'s ids afterwards).  A ``k`` above
+    a db shard's rows is refused ("use fewer db shards"); a placement over
+    several hosts (parallel.mesh.make_host_mesh) searches, and refuses
+    every write: it has no write replication.
 
     Thread-safety: guarded by ``self._lock`` (a Condition: writers notify
     the background compactor).  Searches pin a consistent snapshot under
@@ -181,6 +190,9 @@ class MutableIndex:
         compact_tombstones: Optional[int] = None,
         device: DeviceLike = None,
         hbm_budget_bytes: Optional[int] = None,
+        mesh=None,
+        merge: Optional[str] = None,
+        dcn_merge: Optional[str] = None,
     ):
         from knn_tpu_torch.parallel.sharded import ShardedKNN
 
@@ -189,7 +201,11 @@ class MutableIndex:
                 f"MutableIndex supports the l2 metric family only, got "
                 f"{metric!r} (cosine re-normalizes rows at placement "
                 f"and L1 has no certified bound)")
-        self.device = resolve_device(device)
+        self.mesh = tier_mesh(mesh, device)
+        self.device = self.mesh.devices.flat[0]
+        hosts, chips = db_topology(self.mesh)
+        self._db_shards = hosts * chips
+        self._multihost = hosts > 1
         train = np.ascontiguousarray(np.asarray(train, np.float32))
         if train.ndim != 2:
             raise ValueError(f"train must be 2-D, got {train.shape}")
@@ -217,11 +233,18 @@ class MutableIndex:
         #: placement — one home, so a compacted placement can never differ
         #: from the original's configuration
         self._ctor = dict(metric=self.metric, train_tile=train_tile,
-                          compute_dtype=compute_dtype, device=self.device,
+                          compute_dtype=compute_dtype, mesh=self.mesh,
+                          merge=merge, dcn_merge=dcn_merge,
                           hbm_budget_bytes=hbm_budget_bytes)
-        if self.k > n:
-            raise ValueError(f"k={k} > {n} database rows")
-        self._main = ShardedKNN(train, k=self._k_eff_for(n), **self._ctor)
+        k_eff = self._k_eff_for(n)
+        if k_eff < self.k:
+            if self.k > n:
+                raise ValueError(f"k={k} > {n} database rows")
+            raise ValueError(
+                f"k={k} exceeds the per-shard row count "
+                f"({-(-n // self._db_shards)} rows over "
+                f"{self._db_shards} db shards); use fewer db shards")
+        self._main = ShardedKNN(train, k=k_eff, **self._ctor)
         #: tail searches always select k + reserve
         self._k_tail = self.k + self._reserve
         if self._delta_min < 1 or self._delta_max < self._delta_min:
@@ -257,8 +280,10 @@ class MutableIndex:
     # -- construction helpers ---------------------------------------------
     def _k_eff_for(self, n_rows: int) -> int:
         """The widened select width for an ``n_rows`` main placement:
-        k + reserve, capped by the rows."""
-        return min(self.k + self._reserve, n_rows)
+        k + reserve, capped by the rows a db shard can rank."""
+        padded = -(-n_rows // self._db_shards) * self._db_shards
+        return min(self.k + self._reserve, n_rows,
+                   padded // self._db_shards)
 
     @property
     def budget(self) -> int:
@@ -300,6 +325,11 @@ class MutableIndex:
                 f"(corpus exceeds the HBM budget); the delta tail has no "
                 f"resident placement to merge against — compact offline "
                 f"and rebuild, or raise the budget")
+        if self._multihost:
+            raise MutationUnsupportedError(
+                f"{what}: multi-host placements have no write "
+                f"replication protocol yet — a single-host write would "
+                f"silently serve stale results from the other hosts")
 
     # -- writes ------------------------------------------------------------
     def insert(self, vectors, ids) -> dict:
@@ -364,16 +394,18 @@ class MutableIndex:
     # -- delta-tail device search -----------------------------------------
     def _capacity_for(self, tail_len: int) -> int:
         """Smallest ladder rung holding ``tail_len`` rows: rungs double
-        from a floor that lets the tail rank k + reserve rows."""
-        cap = max(self._delta_min, self._k_tail)
-        while cap < tail_len:
-            cap *= 2
-        return cap
+        from a floor that lets every db shard rank k + reserve rows, each
+        a db-shard multiple."""
+        return ladder_rung(tail_len,
+                           max(self._delta_min,
+                               self._k_tail * self._db_shards),
+                           self._db_shards)
 
     def _tail_device(self, snap: _Snapshot) -> dict:
-        """The snapshot's tail placed on the device at its ladder-rung
-        capacity (cached per (epoch, tail_len): inserts re-place, a stable
-        tail is copied once)."""
+        """The snapshot's tail placed at its ladder-rung capacity over the
+        mesh's db axes (parallel.collectives.shard; one block on the
+        (1, 1) mesh) — cached per (epoch, tail_len): inserts re-place, a
+        stable tail is copied once."""
         key = (snap.epoch, snap.tail_len)
         with self._lock:
             tp = self._tail_place
@@ -383,8 +415,8 @@ class MutableIndex:
         arr = np.zeros((capacity, self.dim), np.float32)
         if snap.tail_len:
             arr[: snap.tail_len] = snap.tail
-        placed = {"key": key, "capacity": capacity,
-                  "tp": torch.from_numpy(arr).to(self.device),
+        tp = shard(arr, self.mesh, db_axes(self.mesh))
+        placed = {"key": key, "capacity": capacity, "tp": tp,
                   "nv": snap.tail_len}
         with self._lock:
             self._tail_place = placed
@@ -393,15 +425,17 @@ class MutableIndex:
     def _dispatch_tail(self, snap: _Snapshot, q_np: np.ndarray
                        ) -> _TailHandle:
         """Enqueues the tail search — the segment program at the tail's
-        rung, its valid-row count a runtime argument — over the snapshot's
-        placed tail; the handle's fetch merges on the host."""
+        rung, its valid-row count a runtime argument, on the main
+        placement's mesh and strategies — over the snapshot's placed tail;
+        the handle's fetch merges on the host."""
         from knn_tpu_torch.parallel.sharded import segment_search_program
 
         dev = self._tail_device(snap)
         prog = segment_search_program(
             self._k_tail, snap.main.metric,
             train_tile=self._ctor["train_tile"],
-            compute_dtype=snap.main._dtype_key, device=self.device)
+            compute_dtype=snap.main._dtype_key, mesh=self.mesh,
+            merge=snap.main.merge, dcn_merge=snap.main.dcn_merge)
         qp, n_q = snap.main._place_queries(q_np)
         return _TailHandle(prog(qp, dev["tp"], dev["nv"]), n_q, snap.n_base)
 

@@ -1,4 +1,6 @@
-"""What both index tiers (MutableIndex, IVFIndex) share: the id rules of
+"""What both index tiers (MutableIndex, IVFIndex) share: their placement
+on a device or a mesh (:func:`tier_mesh`), the ladder of padded shapes
+their device searches run at (:func:`ladder_rung`), the id rules of
 their writes, the compaction thresholds, their serving frontends' query
 check and write routing, and the background compactor —
 one thread that compacts whenever the tier says a compaction is due,
@@ -21,6 +23,32 @@ from knn_tpu_torch import obs
 
 #: pause after a failed compaction, so a persistent fault does not spin
 FAILURE_BACKOFF_S = 0.25
+
+
+def tier_mesh(mesh, device):
+    """The mesh a tier places on: ``mesh`` (a parallel.mesh.Mesh), else the
+    one-device (1, 1) mesh on ``device`` (None: cuda, raising without a
+    GPU); both given raises, as ``ShardedKNN`` does."""
+    from knn_tpu_torch.device import resolve_device
+    from knn_tpu_torch.parallel.mesh import make_mesh
+
+    if mesh is not None and device is not None:
+        raise ValueError("pass mesh= or device=, not both")
+    if mesh is None:
+        mesh = make_mesh(1, 1, devices=[resolve_device(device)])
+    return mesh
+
+
+def ladder_rung(rows: int, floor: int, multiple: int = 1) -> int:
+    """The smallest rung of a doubling ladder that holds ``rows``: rungs
+    double from ``floor`` rounded up to a multiple of ``multiple`` (a
+    tier's db shards, so a rung divides evenly across them; the JAX
+    package's ``_capacity_for`` / ``_seg_rung``), so a growing tail or a
+    new probe set meets a handful of shapes, never one per size."""
+    cap = -(-int(floor) // int(multiple)) * int(multiple)
+    while cap < rows:
+        cap *= 2
+    return cap
 
 
 def checked_rows(vectors, ids, dim: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,6 +1,6 @@
-"""The approximate-first IVF tier with a certified escape hatch on one GPU —
-the port of knn_tpu/ivf/index.py (``IVFIndex`` and its serving frontend
-``IVFServingEngine``).
+"""The approximate-first IVF tier with a certified escape hatch on one GPU
+or a mesh — the port of knn_tpu/ivf/index.py (``IVFIndex`` and its
+serving frontend ``IVFServingEngine``).
 
 - **Coarse quantizer**: the seeded k-means of :mod:`knn_tpu_torch.ivf.
   kmeans` (host float64 init and update, k=1 assign on the device).
@@ -9,12 +9,16 @@ the port of knn_tpu/ivf/index.py (``IVFIndex`` and its serving frontend
   delta-tail rows) into one block per probe set and ranks it on the
   device: ``selector="exact"`` through the padded segment program
   (:func:`knn_tpu_torch.parallel.sharded.segment_search_program`, the
-  block padded up a ladder of rungs, its valid rows a runtime argument),
-  ``selector="pallas"`` through
+  block padded up a ladder of rungs, its valid rows a runtime argument;
+  on a mesh the block splits over the db shards, every rung a db-shard
+  multiple from a floor of ``m x db shards``, and the query group pads up
+  a ladder from the query-shard count), ``selector="pallas"`` through
   :func:`knn_tpu_torch.ops.coarse_knn.knn_search_pallas` (one coarse
   kernel launch per probe group: K2 at the default ``precision=
   "highest"``, K1 / K10 / K11 / K5 ... through ``precision=`` and
-  ``kernel=``), which certifies itself over the block.
+  ``kernel=``; on the mesh's first device, as the JAX package calls it
+  with no mesh), which certifies itself over the block.  On a mesh the
+  k-means assign steps run the sharded k=1 search.
 - **Certificate**: for a row ``x`` of an unprobed list ``l`` with centroid
   ``c_l`` and residual radius ``r_l = max ||x - c_l||``, ``||q - x|| >=
   ||q - c_l|| - r_l``.  If the refined k-th distance beats that bound for
@@ -71,11 +75,12 @@ import numpy as np
 
 from knn_tpu_torch import obs
 
-from knn_tpu_torch.device import DeviceLike, resolve_device
+from knn_tpu_torch.device import DeviceLike
 from knn_tpu_torch.index.artifact import MutationBudgetError
 from knn_tpu_torch.index.tier import (Compactor, Frontend, check_fresh,
-                                     check_live, checked_rows,
-                                     thresholds_tripped)
+                                     check_live, checked_rows, ladder_rung,
+                                     thresholds_tripped, tier_mesh)
+from knn_tpu_torch.parallel.mesh import QUERY_AXIS, db_topology
 from knn_tpu_torch.ivf.kmeans import train_kmeans
 from knn_tpu_torch.ops.certified import certification_tolerance
 from knn_tpu_torch.ops.refine import refine_exact, refine_shared_exact
@@ -144,7 +149,7 @@ class _IVFSnapshot:
 
 class IVFIndex:
     """A mutable, certified IVF placement over one canonical corpus, on
-    ``device`` (default ``cuda``).
+    ``device`` (default ``cuda``) or ``mesh`` (not both).
 
     ``search_certified`` returns ``(d, ids, stats)`` with ``d`` the exact
     squared-L2 float64 distances (``return_sqrt=True`` for Euclidean) —
@@ -173,13 +178,17 @@ class IVFIndex:
         compact_tail_rows: Optional[int] = None,
         compact_tombstones: Optional[int] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         if metric.lower() != "l2":
             raise ValueError(
                 f"IVFIndex supports metric='l2' only (the residual "
                 f"certificate is a Euclidean triangle inequality), got "
                 f"{metric!r}")
-        self.device = resolve_device(device)
+        self.mesh = tier_mesh(mesh, device)
+        self.device = self.mesh.devices.flat[0]
+        hosts, chips = db_topology(self.mesh)
+        self._db_shards = hosts * chips
         base = np.ascontiguousarray(np.asarray(train, np.float32))
         if base.ndim != 2:
             raise ValueError(f"train must be [N, D], got {base.shape}")
@@ -229,7 +238,7 @@ class IVFIndex:
 
     # -- placement ---------------------------------------------------------
     def _train(self, rows: np.ndarray):
-        return train_kmeans(rows, self.ncentroids, device=self.device,
+        return train_kmeans(rows, self.ncentroids, mesh=self.mesh,
                             iters=self.train_iters, seed=self.seed,
                             train_tile=self.train_tile)
 
@@ -327,12 +336,16 @@ class IVFIndex:
     # -- search ------------------------------------------------------------
     def _seg_rung(self, rows: int, m: int) -> int:
         """Smallest segment ladder rung holding ``rows``: rungs double from
-        a floor that can rank ``m`` rows, so steady-state probing reuses a
-        handful of block shapes, never one per probe set."""
-        cap = max(self._seg_min, m)
-        while cap < rows:
-            cap *= 2
-        return cap
+        a floor that lets every db shard rank ``m`` rows, each a db-shard
+        multiple, so steady-state probing reuses a handful of block shapes,
+        never one per probe set."""
+        return ladder_rung(rows, max(self._seg_min, m * self._db_shards),
+                           self._db_shards)
+
+    def _q_rung(self, rows: int) -> int:
+        """A query group's padded rows on a mesh: rungs double from the
+        query-shard count (the JAX package's ``_q_rung``)."""
+        return ladder_rung(rows, self.mesh.shape[QUERY_AXIS])
 
     def _probe(self, q64: np.ndarray, snap: _IVFSnapshot, nprobe: int):
         """(probes [Q, P] sorted list ids, unprobed_lb [Q] f64, nearest [Q]
@@ -369,16 +382,19 @@ class IVFIndex:
 
         real = int(pos.shape[0])
         n_g = q_grp.shape[0]
-        prog = segment_search_program(m, self.metric,
-                                      train_tile=self.train_tile,
-                                      device=self.device)
+        prog = segment_search_program(
+            m, self.metric, train_tile=self.train_tile, mesh=self.mesh)
         t0 = time.perf_counter()
         seg = np.zeros((self._seg_rung(real, m), self.dim), np.float32)
         seg[:real] = snap.all_rows[pos]
+        q_pad = q_grp
+        if self.mesh.shape[QUERY_AXIS] > 1:
+            q_pad = np.zeros((self._q_rung(n_g), self.dim), np.float32)
+            q_pad[:n_g] = q_grp
         t1 = time.perf_counter()
-        d32, i32 = prog(q_grp, seg, real)
-        d32 = d32.cpu().numpy()
-        i32 = i32.cpu().numpy()
+        d32, i32 = prog(q_pad, seg, real)
+        d32 = d32.cpu().numpy()[:n_g]
+        i32 = i32.cpu().numpy()[:n_g]
         t2 = time.perf_counter()
         steps["gather"] += t1 - t0
         steps["device"] += t2 - t1

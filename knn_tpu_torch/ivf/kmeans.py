@@ -1,17 +1,18 @@
 """Seeded, deterministic k-means — the port's copy of knn_tpu/ivf/kmeans.py,
-which trains the codebooks of the pq coarse arm (knn_tpu_torch.ops.pq).
+which trains the IVF tier's coarse quantizer (knn_tpu_torch.ivf.index) and
+the codebooks of the pq coarse arm (knn_tpu_torch.ops.pq).
 
 The numpy arithmetic is the reference's, verbatim: the farthest-point
 init (:func:`_farthest_point_init`), the host float64 segment-mean update
 (``np.add.at``, deterministic in index order) and the float64 residuals.
 The **assign** step is the port's own exact search: a
 :class:`~knn_tpu_torch.parallel.sharded.ShardedKNN` placement of the
-current centroids searched with ``k=1`` on the caller's device, whose
-stable top-k breaks a distance tie to the lower centroid index
-(ops/topk.py), as the reference's select does.
-
-The rest of the IVF tier (lists, probing, ``quantize_centroids``) is a
-later slice of the port.
+current centroids searched with ``k=1`` on the caller's device or mesh
+(the centroids sharded over its db axes), whose stable top-k and
+lexicographic ``(distance, index)`` merge break a distance tie to the
+lower centroid index (ops/topk.py), on one shard or across two, as the
+reference's select does.  :func:`quantize_centroids` is the int8 row
+quantization of the centroid table (ops.quantize).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
-from knn_tpu_torch.device import DeviceLike, resolve_device
+from knn_tpu_torch.device import DeviceLike
 
 
 class KMeansResult(NamedTuple):
@@ -40,15 +41,16 @@ class KMeansResult(NamedTuple):
 
 
 def assign_lists(rows: np.ndarray, centroids: np.ndarray, *,
-                 device: DeviceLike = None,
+                 device: DeviceLike = None, mesh=None,
                  train_tile: Optional[int] = None) -> np.ndarray:
     """[N] nearest-centroid assignment by the port's exact k=1 search on
-    ``device`` (None = cuda); a distance tie goes to the lower centroid
-    index."""
+    ``device`` (None = cuda) or ``mesh`` (not both; the JAX package's SPMD
+    assign step); a distance tie goes to the lower centroid index, also
+    between centroids on two db shards."""
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
     knn = ShardedKNN(np.asarray(centroids, np.float32), k=1, metric="l2",
-                     train_tile=train_tile, device=device)
+                     train_tile=train_tile, device=device, mesh=mesh)
     _, idx = knn.search(np.asarray(rows, np.float32))
     return idx.reshape(-1).cpu().numpy().astype(np.int64)
 
@@ -84,11 +86,15 @@ def _farthest_point_init(rows64: np.ndarray, ncentroids: int,
 
 
 def train_kmeans(rows: np.ndarray, ncentroids: int, *,
-                 device: DeviceLike = None, iters: int = 5, seed: int = 0,
+                 device: DeviceLike = None, mesh=None, iters: int = 5,
+                 seed: int = 0,
                  train_tile: Optional[int] = None) -> KMeansResult:
     """Seeded Lloyd: deterministic farthest-point init, k=1 assign on
-    ``device`` (None = cuda), host f64 segment-mean update."""
-    dev = resolve_device(device)
+    ``device`` (None = cuda) or ``mesh`` (not both), host f64 segment-mean
+    update."""
+    from knn_tpu_torch.index.tier import tier_mesh
+
+    mesh = tier_mesh(mesh, device)
     rows = np.ascontiguousarray(np.asarray(rows, np.float32))
     n, d = rows.shape
     ncentroids = int(min(max(1, ncentroids), n))
@@ -98,7 +104,7 @@ def train_kmeans(rows: np.ndarray, ncentroids: int, *,
     assign = np.zeros(n, np.int64)
     it = 0
     for it in range(1, max(1, int(iters)) + 1):
-        assign = assign_lists(rows, centroids, device=dev,
+        assign = assign_lists(rows, centroids, mesh=mesh,
                               train_tile=train_tile)
         sums = np.zeros((ncentroids, d), np.float64)
         np.add.at(sums, assign, rows64)
@@ -107,7 +113,18 @@ def train_kmeans(rows: np.ndarray, ncentroids: int, *,
         nz = counts > 0
         new[nz] = sums[nz] / counts[nz, None]
         centroids = new.astype(np.float32)
-    assign = assign_lists(rows, centroids, device=dev, train_tile=train_tile)
+    assign = assign_lists(rows, centroids, mesh=mesh, train_tile=train_tile)
     counts = np.bincount(assign, minlength=ncentroids).astype(np.int64)
     residuals, inertia = _residuals(rows64, centroids, assign, ncentroids)
     return KMeansResult(centroids, assign, counts, residuals, inertia, it)
+
+
+def quantize_centroids(centroids: np.ndarray):
+    """Int8 row quantization of the centroid table by the db's scheme
+    (ops.quantize.quantize_rows_np: per-row symmetric scale, values in
+    [-127, 127]) — the JAX package's ``quantize_centroids``
+    (ivf/kmeans.py:121): a ``QuantizedRows`` of values int8 [C, D],
+    scales f32 [C] and offset 0."""
+    from knn_tpu_torch.ops.quantize import quantize_rows_np
+
+    return quantize_rows_np(np.asarray(centroids, np.float32))

@@ -1,6 +1,6 @@
-"""The bulk kNN-join engine on one GPU — the port of knn_tpu/join/engine.py
-(``knn_join``, ``default_plan``).  Query-side double buffering over the
-existing search programs; no new kernels.
+"""The bulk kNN-join engine on one GPU or a mesh — the port of
+knn_tpu/join/engine.py (``knn_join``, ``default_plan``).  Query-side
+double buffering over the existing search programs; no new kernels.
 
 Two modes (:data:`JOIN_MODES`):
 
@@ -15,11 +15,15 @@ Two modes (:data:`JOIN_MODES`):
   enqueued while the host waits for block i.  ``overlap_ratio`` is the
   dispatch-timeline concurrency the certified pipeline also reports.
   Results are bitwise the looped ``ShardedKNN.search`` at the same padded
-  block shape.
+  block shape.  On a mesh the program is the mesh's (the superblock split
+  over the query shards, the placement's db shards merged; a
+  query-byte budget sizes superblocks in query-shard multiples), and
+  ``k`` may not exceed a db shard's rows.
 - ``"certified"``: each superblock runs the placement's unmodified
   ``search_certified`` (any selector, precision and kernel; kwargs
   forwarded; an :class:`~knn_tpu_torch.ivf.index.IVFIndex` works the same
-  way), so the join equals the looped certified path bitwise.
+  way), so the join equals the looped certified path bitwise; on a mesh
+  each superblock launches the coarse kernel once a db shard.
 
 A stream join over a host-RAM-tier placement (``ShardedKNN(...,
 hbm_budget_bytes=)``) sweeps both A and B through the tier's segment
@@ -28,7 +32,9 @@ copies each db segment up once and runs every superblock against it,
 ``query_major`` places each superblock once and streams every segment
 past it; each superblock's top-k carry merges on the card in the
 lexicographic ``(distance, index)`` order, so the join is bitwise the
-looped host-tier ``search`` at the same block shape.
+looped host-tier ``search`` at the same block shape.  (The host-RAM
+tier on a mesh is queued, ROADMAP queue A item 4.2: ``ShardedKNN``
+refuses that placement.)
 
 Every run returns ``(d, i, stats)``; ``stats`` carries the executed
 superblock / segment / dispatch counts (checked against the
@@ -69,6 +75,13 @@ def _query_dim(program) -> int:
     return int(program.dim)  # IVFIndex
 
 
+def _query_multiple(program) -> int:
+    """The query shards of the program's mesh (1 on one device)."""
+    from knn_tpu_torch.parallel.mesh import QUERY_AXIS
+
+    return int(program.mesh.shape[QUERY_AXIS])
+
+
 def _resolve_superblock(program, n_a: int, superblock_rows: Optional[int],
                         query_budget_bytes: Optional[int]) -> int:
     """Superblock width: explicit rows > a query-byte budget through the
@@ -76,8 +89,9 @@ def _resolve_superblock(program, n_a: int, superblock_rows: Optional[int],
     rows = superblock_rows
     if rows is None:
         if query_budget_bytes is not None:
-            segs = hbm.plan_superblocks(n_a, _query_dim(program),
-                                        query_budget_bytes)
+            segs = hbm.plan_superblocks(
+                n_a, _query_dim(program), query_budget_bytes,
+                query_multiple=_query_multiple(program))
             rows = segs[0][1] - segs[0][0]
         else:
             rows = DEFAULT_SUPERBLOCK_ROWS
@@ -162,15 +176,12 @@ class _CopyBack:
 
 def _stream_resident(program, q: np.ndarray, k: int, sb_rows: int,
                      depth: int, return_sqrt: bool, d_out, i_out) -> dict:
-    """Resident-B stream: query superblocks through the search program,
-    each block's results copied back behind its own event, drain-oldest
-    at ``depth``."""
-    from knn_tpu_torch.parallel.sharded import query_stream_program
-
-    prog = query_stream_program(k, program.metric,
-                                train_tile=program.train_tile,
-                                compute_dtype=program._dtype_key)
-    db = program.placement.db
+    """Resident-B stream: query superblocks through the search program
+    (the mesh's on a mesh), each block's results copied back behind its
+    own event, drain-oldest at ``depth``."""
+    prog = program._stream_program(k, program.metric, program._dtype_key)
+    db = program.placed_db() if program._on_mesh() \
+        else program.placement.db
     n_a = q.shape[0]
     blocks = [(lo, min(lo + sb_rows, n_a)) for lo in range(0, n_a, sb_rows)]
     back = _CopyBack(depth, program.metric, return_sqrt, d_out, i_out)
@@ -327,6 +338,11 @@ def knn_join(
                   else min(int(program.n_train), int(tier["segment_rows"])))
         if mode == "stream" and k > placed:
             raise ValueError(f"k={k} exceeds the {placed} placed rows")
+        shard_rows = program._shard_rows()
+        if mode == "stream" and tier is None and k > shard_rows:
+            raise ValueError(
+                f"k={k} exceeds db shard size {shard_rows}; use fewer db "
+                f"shards")
     n_a = q.shape[0]
     if n_a < 1:
         raise ValueError("knn_join needs at least one query row")

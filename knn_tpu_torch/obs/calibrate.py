@@ -33,8 +33,9 @@ and the formula solved against is the port's ceiling, the largest term
 (:func:`knn_tpu_torch.obs.roofline._combined`), where the JAX package's
 three TPU terms add the select to the stream.  Under the largest term the
 bound term's factor is ``measured / t_bound``; it is taken when the result
-covers every hidden term, else the fit is uniform.  The validators are
-this module's own (the JAX package's artifact catalog is not ported).
+covers every hidden term, else the fit is uniform.  The validators
+(``validate_calibration``) are shims over the port's artifact-schema
+catalog (knn_tpu_torch.analysis.artifacts).
 No torch import.
 """
 

@@ -1,5 +1,5 @@
 """Top-K majority vote with the reference's tie-break — the port of
-knn_tpu/ops/vote.py (``majority_vote``).
+knn_tpu/ops/vote.py (``majority_vote``, ``vote_counts``).
 
 The reference votes with a per-query class histogram and a running argmax
 with strict ``>`` over neighbors in ascending-distance order
@@ -31,3 +31,12 @@ def majority_vote(neighbor_labels: torch.Tensor, num_classes: int) -> torch.Tens
     # reach steps are distinct, so the argmin is unique
     masked = torch.where(counts == max_count, first_reach, k + 1)
     return torch.argmin(masked, dim=-1).to(torch.int32)
+
+
+def vote_counts(neighbor_labels: torch.Tensor,
+                num_classes: int) -> torch.Tensor:
+    """Class histogram over the K neighbors, [..., num_classes] int32
+    (out-of-range labels count nowhere, as ``jax.nn.one_hot`` drops
+    them)."""
+    classes = torch.arange(num_classes, device=neighbor_labels.device)
+    return (neighbor_labels[..., None] == classes).sum(-2, dtype=torch.int32)

@@ -120,10 +120,11 @@ from knn_tpu_torch.ops.topk import (I32MAX, knn_search, knn_search_approx,
 from knn_tpu_torch.obs import names as _mn
 from knn_tpu_torch.ops.vote import majority_vote
 from knn_tpu_torch.parallel.collectives import (Placed, gather, reduce_min,
-                                                reduce_sum)
+                                                reduce_sum, shard)
 from knn_tpu_torch.parallel.crossover import merge_bytes, resolve_merge
-from knn_tpu_torch.parallel.mesh import (QUERY_AXIS, Mesh, db_topology,
-                                         grid3, make_mesh, pad_to_multiple)
+from knn_tpu_torch.parallel.mesh import (QUERY_AXIS, Mesh, db_axes,
+                                         db_topology, grid3, make_mesh,
+                                         pad_to_multiple)
 from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
 
 #: upper bound on the elements of one [queries, rows] f32 distance block
@@ -160,16 +161,55 @@ def _on_device(x, device: torch.device) -> torch.Tensor:
 
 def query_stream_program(k: int, metric: str = "l2", *,
                          train_tile: Optional[int] = None,
-                         compute_dtype=None, n_valid: Optional[int] = None):
+                         compute_dtype=None, n_valid: Optional[int] = None,
+                         mesh: Optional[Mesh] = None,
+                         merge: Optional[str] = None,
+                         dcn_merge: Optional[str] = None):
     """The resident exact search over one query block — the JAX package's
-    ``query_stream_program`` (sharded.py:348-380) on one device:
-    ``prog(q, db) -> (d [Q, k], i [Q, k])`` device tensors, the
+    ``query_stream_program`` / ``_knn_program`` (sharded.py:239-272,
+    348-380): ``prog(q, db) -> (d [Q, k], i [Q, k])`` device tensors, the
     placement's metric in ``compute_dtype`` (f32 accumulation) and a
     stable top-k, in query row blocks of ``_EXACT_BLOCK_ELEMS``; rows at
     index >= ``n_valid`` are padding, masked before the select.
-    :meth:`ShardedKNN.search` runs this program, so a join that streams
-    query blocks through it is bitwise the looped search at the same
-    block shape."""
+
+    Without ``mesh`` ``db`` is one device's tensor.  With ``mesh`` it is
+    the rows placed over the mesh's db axes (a
+    :class:`~knn_tpu_torch.parallel.collectives.Placed`, one block a db
+    shard on each of its devices: ``ShardedKNN.placed_db``): the queries
+    split over the query axis (zero rows pad them to a multiple of the
+    query shards), each db shard searches its block on its own device
+    with the rows at or past ``n_valid`` masked at its global offset, and
+    the shards' lists merge by ``merge`` / ``dcn_merge`` (None: the
+    measured crossover; every strategy gives one result bitwise).  The
+    outputs lie on the mesh's first device.  :meth:`ShardedKNN.search`
+    runs this program, so a join that streams query blocks through it is
+    bitwise the looped search at the same block shape."""
+    if mesh is not None:
+        hosts, chips = db_topology(mesh)
+        merge = resolve_merge(merge, k, chips)[0]
+        one = {}
+
+        def prog(q: torch.Tensor, db):
+            shard_rows = db.shape[0] // (hosts * chips)
+            total = db.shape[0] if n_valid is None else int(n_valid)
+            if k > shard_rows:
+                raise ValueError(
+                    f"k={k} exceeds db shard size {shard_rows}; use fewer "
+                    f"db shards")
+
+            def local(j, pos, qb):
+                n_local = min(max(total - j * shard_rows, 0), shard_rows)
+                if n_local not in one:
+                    one[n_local] = query_stream_program(
+                        k, metric, train_tile=train_tile,
+                        compute_dtype=compute_dtype, n_valid=n_local)
+                return one[n_local](qb, db.parts[pos])
+
+            return _run_on_mesh(mesh, q, local, k, merge, dcn_merge,
+                                shard_rows=shard_rows, n_valid=total)
+
+        return prog
+
     def prog(q: torch.Tensor, db: torch.Tensor):
         return _row_blocked(
             lambda qb: knn_search_tiled(qb, db, k, metric,
@@ -184,11 +224,13 @@ def query_stream_program(k: int, metric: str = "l2", *,
 def segment_search_program(k: int, metric: str = "l2", *,
                            train_tile: Optional[int] = None,
                            compute_dtype=None, device: DeviceLike = None,
-                           block_elems: int = _EXACT_BLOCK_ELEMS):
-    """The exact tiled search of one padded db segment — the one-device
-    form of the JAX package's ``_hosttier_program`` / ``segment_search_program``
-    (sharded.py:275-346): ``prog(q, seg, n_valid) -> (d [Q, k], i [Q,
-    k])`` on ``device`` (None = cuda; host arrays are placed there).
+                           block_elems: int = _EXACT_BLOCK_ELEMS,
+                           mesh: Optional[Mesh] = None,
+                           merge: Optional[str] = None,
+                           dcn_merge: Optional[str] = None):
+    """The exact tiled search of one padded db segment — the JAX package's
+    ``_hosttier_program`` / ``segment_search_program`` (sharded.py:275-346):
+    ``prog(q, seg, n_valid) -> (d [Q, k], i [Q, k])``.
     Rows at or above the runtime ``n_valid`` are padding: they are masked
     to +inf before the select, and any of them still in the top-k (fewer
     than k valid rows) come back as ``+inf`` with the int32-max sentinel
@@ -196,10 +238,71 @@ def segment_search_program(k: int, metric: str = "l2", *,
     never changes the segment's shape.  Untiled, the segment's side of
     the distance (its norms) is made once a call for every query block;
     ``block_elems`` bounds one block's [rows, segment rows] scores (the
-    host-RAM tier sizes it from its budget)."""
+    host-RAM tier sizes it from its budget).
+
+    One device (``device``, None = cuda; host arrays are placed there), or
+    ``mesh`` (not both): the segment (a host array or tensor whose rows
+    divide into the db shards, or a
+    :class:`~knn_tpu_torch.parallel.collectives.Placed` over the mesh's db
+    axes) splits over the db shards, each shard searches its block on its
+    devices with the rows at or past ``n_valid`` masked at its global
+    offset (:func:`_mask_shard`), the queries split over the query axis,
+    and the shards' lists merge by ``merge`` / ``dcn_merge``
+    (:func:`_merge_shards`); the outputs lie on the mesh's first
+    device.  A one-position mesh runs the one-device body on its device
+    (a :class:`~knn_tpu_torch.parallel.collectives.Placed` segment gives
+    its one block)."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass mesh= or device=, not both")
+    if mesh is not None and mesh.size == 1:
+        device, mesh = mesh.devices.flat[0], None
+    if mesh is not None:
+        hosts, chips = db_topology(mesh)
+        n_shards = hosts * chips
+        merge = resolve_merge(merge, k, chips)[0]
+        first = mesh.devices.flat[0]
+        one = {}
+
+        def prog(q, seg, n_valid: int):
+            n_valid = int(n_valid)
+            if not 0 <= n_valid <= seg.shape[0]:
+                raise ValueError(
+                    f"n_valid={n_valid} outside [0, {seg.shape[0]}] segment "
+                    f"rows")
+            if seg.shape[0] % n_shards:
+                raise ValueError(
+                    f"{seg.shape[0]} segment rows do not divide into "
+                    f"{n_shards} db shards")
+            shard_rows = seg.shape[0] // n_shards
+            if k > shard_rows:
+                raise ValueError(
+                    f"k={k} exceeds db shard size {shard_rows}; use fewer "
+                    f"db shards")
+            if not isinstance(seg, Placed):
+                seg = shard(seg if isinstance(seg, torch.Tensor) else
+                            _on_device(seg, torch.device("cpu")),
+                            mesh, db_axes(mesh))
+
+            def local(j, pos, qb):
+                dev = mesh.devices[pos]
+                if dev not in one:
+                    one[dev] = segment_search_program(
+                        k, metric, train_tile=train_tile,
+                        compute_dtype=compute_dtype, device=dev,
+                        block_elems=block_elems)
+                n_local = min(max(n_valid - j * shard_rows, 0), shard_rows)
+                return one[dev](qb, seg.parts[pos], n_local)
+
+            return _run_on_mesh(mesh, _on_device(q, first), local, k, merge,
+                                dcn_merge, shard_rows=shard_rows,
+                                n_valid=n_valid)
+
+        return prog
     dev = resolve_device(device)
 
     def prog(q, seg, n_valid: int):
+        if isinstance(seg, Placed):
+            seg = seg.block(0)
         q, seg = _on_device(q, dev), _on_device(seg, dev)
         n_valid = int(n_valid)
         if not 0 <= n_valid <= seg.shape[0]:
@@ -340,6 +443,47 @@ def _mask_shard(d, li, n_valid: int, offset: int):
             torch.where(pad, torch.full_like(li, I32MAX), li + offset))
 
 
+def _run_on_mesh(mesh: Mesh, q: torch.Tensor, local, keep: int, merge: str,
+                 dcn_merge: Optional[str], *, shard_rows: int, n_valid: int):
+    """The mesh programs' shared body (the JAX package's ``shard_map`` over
+    ``(P(QUERY_AXIS), P(db_axes))``): ``q`` (on the mesh's first device)
+    padded with zero rows to a multiple of the query shards and split one
+    block a query shard; per query shard, every db shard j's
+    ``local(j, position, q block on its device) -> (d, local indices)`` on
+    its own device (its current stream: nothing waits for the host between
+    shards), its rows at or past ``n_valid`` masked at its global offset
+    ``j * shard_rows`` (:func:`_mask_shard`), then the merge tree
+    (``keep`` wide).  Returns ``(d, gi)`` on the first device, the query
+    padding cut."""
+    first = mesh.devices.flat[0]
+    n_qs = mesh.shape[QUERY_AXIS]
+    qp, n_q = pad_to_multiple(q, n_qs)
+    grid = grid3(mesh)
+    hosts, chips = grid.shape[1], grid.shape[2]
+    outs_d, outs_i = [], []
+    for r, qb in enumerate(torch.chunk(qp, n_qs)):
+        d = [[None] * chips for _ in range(hosts)]
+        gi = [[None] * chips for _ in range(hosts)]
+        for h in range(hosts):
+            for c in range(chips):
+                j = h * chips + c
+                dev = grid[r, h, c]
+                dl, li = local(j, _position(mesh, r, h, c),
+                               qb.to(dev, non_blocking=True))
+                n_local = min(max(n_valid - j * shard_rows, 0), shard_rows)
+                d[h][c], gi[h][c] = _mask_shard(dl, li, n_local,
+                                                j * shard_rows)
+        md, mi = _merge_shards(d, gi, keep, merge, dcn_merge)
+        outs_d.append(md.to(first, non_blocking=True))
+        outs_i.append(mi.to(first, non_blocking=True))
+    return torch.cat(outs_d)[:n_q], torch.cat(outs_i)[:n_q]
+
+
+def _position(mesh: Mesh, r: int, h: int, c: int) -> tuple:
+    """The mesh index of grid3's position ``[r, h, c]``."""
+    return (r, h, c) if len(mesh.axis_names) == 3 else (r, c)
+
+
 class ShardedKNN:
     """A database placed once on a device mesh (default: one device,
     ``cuda``) with k.
@@ -373,9 +517,13 @@ class ShardedKNN:
     once a query shard, onto its first device, bitwise the same result
     either way.  The
     certificate's exclusion bounds take the minimum across db shards, the
-    counts the sum.  ``precision="pq"``, the host-RAM tier, the pipeline
-    (``overlap=True``) and the paths of the index tiers, serving and the
-    join are refused on a mesh with more than one db shard.
+    counts the sum.  The tiers (index.MutableIndex, ivf.IVFIndex, the
+    join, streaming, serving.ServingEngine) run on such a placement
+    through :func:`query_stream_program` / :func:`segment_search_program`
+    on its mesh and its certified search; ``precision="pq"``, the host-RAM
+    tier, the pipeline (``overlap=True``) and ``search_bucketed`` are
+    refused on a mesh with more than one db shard (ROADMAP queue A item
+    4.2).
 
     ``hbm_budget_bytes`` (None: no budget) runs a host array whose
     placement would exceed it in the host-RAM tier (module docstring;
@@ -434,6 +582,8 @@ class ShardedKNN:
         #: of one db shard (pad rows included)
         self._shards: dict = {}
         self._rows_per_shard = None
+        #: the rows as the mesh holds them (placed_db), made at first use
+        self._placed: Optional[Placed] = None
         #: the host rows of a mesh placement with several db shards
         self._rows = None
         self._labels_t = None
@@ -503,7 +653,8 @@ class ShardedKNN:
         if self.mesh.size > 1 and budget is not None:
             raise ValueError(
                 "hbm_budget_bytes: the host-RAM tier runs on a one-device "
-                "mesh only (on a mesh it is queued, ROADMAP queue A)")
+                "mesh only (on a mesh it is queued, ROADMAP queue A item "
+                "4.2)")
         if budget is not None and isinstance(train, (Placement,
                                                      torch.Tensor)):
             n, width = ((train.n_train, train.db.shape[1])
@@ -559,7 +710,7 @@ class ShardedKNN:
         if budget is not None:
             raise ValueError(
                 "hbm_budget_bytes: the host-RAM tier on a mesh with several "
-                "db shards is queued (ROADMAP queue A)")
+                "db shards is queued (ROADMAP queue A item 4.2)")
         rows = host_rows(train, metric)
         n = rows.rows.shape[0]
         n_shards = self.db_shards
@@ -690,24 +841,51 @@ class ShardedKNN:
 
     def _mesh_run(self, queries, local, keep: int):
         """Per query shard, every db shard's ``local(shard, q) -> (d, li)``
-        on its own device (its current stream: nothing waits for the host
-        between shards), its indices made global and its pad rows masked,
-        then the merge tree (``keep`` wide).  Returns ``(d, gi)`` on the
-        first device, the query padding cut."""
-        blocks, n_q, _ = self._mesh_queries(queries)
-        outs_d, outs_i = [], []
-        for qb, row in zip(blocks, self._mesh_shards()):
-            d = [[None] * len(row[0]) for _ in row]
-            gi = [[None] * len(row[0]) for _ in row]
-            for h, host in enumerate(row):
-                for c, (dev, sub) in enumerate(host):
-                    dl, li = local(sub, qb.to(dev, non_blocking=True))
-                    d[h][c], gi[h][c] = _mask_shard(dl, li, sub._n_valid,
-                                                    sub._row_offset)
-            md, mi = _merge_shards(d, gi, keep, self.merge, self.dcn_merge)
-            outs_d.append(md.to(self.device, non_blocking=True))
-            outs_i.append(mi.to(self.device, non_blocking=True))
-        return torch.cat(outs_d)[:n_q], torch.cat(outs_i)[:n_q]
+        on its own device, its indices made global and its pad rows masked,
+        then the merge tree (``keep`` wide) — :func:`_run_on_mesh` over
+        this placement's shards.  Returns ``(d, gi)`` on the first device,
+        the query padding cut."""
+        def on_shard(j, pos, qb):
+            return local(self._shard_at(j, self.mesh.devices[pos]), qb)
+
+        return _run_on_mesh(self.mesh, self._to_device(queries), on_shard,
+                            keep, self.merge, self.dcn_merge,
+                            shard_rows=self._shard_rows(),
+                            n_valid=self.n_train)
+
+    def placed_db(self) -> Placed:
+        """The f32 rows as the mesh holds them: a
+        :class:`~knn_tpu_torch.parallel.collectives.Placed` over the
+        mesh's db axes whose position p holds its db shard's rows (pad
+        rows included) on p's device — the operand of
+        :func:`query_stream_program` on this mesh (the JAX package's
+        ``_tp``)."""
+        if self._placed is None:
+            self._require_resident("placed_db", mesh_ok=True)
+            parts = np.empty(self.mesh.devices.shape, dtype=object)
+            grid = grid3(self.mesh)
+            chips = grid.shape[2]
+            for r, h, c in np.ndindex(*grid.shape):
+                dev = grid[r, h, c]
+                parts[_position(self.mesh, r, h, c)] = self._shard_at(
+                    h * chips + c, dev).placement.db
+            rows = self._shard_rows() * self.db_shards
+            self._placed = Placed(self.mesh, parts, db_axes(self.mesh), 0,
+                                  (rows, parts.flat[0].shape[1]))
+        return self._placed
+
+    def _stream_program(self, k: int, metric: str, compute_dtype=None):
+        """:func:`query_stream_program` for this placement: on the mesh
+        with its strategies and rows (operand :meth:`placed_db`), else on
+        the one device (operand ``placement.db``)."""
+        if not self._on_mesh():
+            return query_stream_program(k, metric,
+                                        train_tile=self.train_tile,
+                                        compute_dtype=compute_dtype)
+        return query_stream_program(
+            k, metric, train_tile=self.train_tile,
+            compute_dtype=compute_dtype, n_valid=self.n_train,
+            mesh=self.mesh, merge=self.merge, dcn_merge=self.dcn_merge)
 
     def _mesh_topk(self, queries, k: int, metric: str, compute_dtype=None,
                    selector: str = "exact"):
@@ -721,13 +899,9 @@ class ShardedKNN:
                         qb, sub.placement.db, k,
                         compute_dtype=compute_dtype),
                     q, sub.n_train)
-        else:
-            def local(sub, q):
-                return query_stream_program(
-                    k, metric, train_tile=self.train_tile,
-                    compute_dtype=compute_dtype,
-                    n_valid=sub._n_valid)(q, sub.placement.db)
-        return self._mesh_run(queries, local, k)
+            return self._mesh_run(queries, local, k)
+        return self._stream_program(k, metric, compute_dtype)(
+            self._to_device(queries), self.placed_db())
 
     def _count(self, q: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
         """Per query, the db rows strictly below its threshold
@@ -806,22 +980,24 @@ class ShardedKNN:
         }
         obs.gauge(_mn.HOSTTIER_SEGMENT_ROWS).set(float(seg_rows))
 
-    def _require_resident(self, what: str) -> None:
-        """The paths that read the whole database need it placed on one
-        device; the host-RAM tier only ever has one segment on the card,
-        and a mesh with several db shards holds a block a shard."""
-        if self.placement is None and self._host_tier is None:
-            raise ValueError(
-                f"{what} needs the whole database on one device, but this "
-                f"placement shards it over {self.db_shards} db shards of a "
-                f"mesh (the tiers, serving and the join on a mesh are "
-                f"queued, ROADMAP queue A)")
+    def _require_resident(self, what: str, *, mesh_ok: bool = False) -> None:
+        """The paths that read the whole placed database refuse the
+        host-RAM tier, which only ever has one segment on the card; those
+        not ``mesh_ok`` also refuse a mesh with several db shards, which
+        holds a block a shard (``search_bucketed`` and the pipeline there
+        are queued, ROADMAP queue A item 4.2)."""
         if self._host_tier is not None:
             raise ValueError(
                 f"{what} needs the full database resident on device, but "
                 f"this placement runs the host-RAM shard tier (corpus "
                 f"exceeds the {self._host_tier['budget_bytes']}-byte HBM "
                 f"budget); use search(), or raise the budget")
+        if self.placement is None and not mesh_ok:
+            raise ValueError(
+                f"{what} needs the whole database on one device, but this "
+                f"placement shards it over {self.db_shards} db shards of a "
+                f"mesh ({what} on such a mesh is queued, ROADMAP queue A "
+                f"item 4.2)")
 
     def hosttier_stats(self) -> Optional[dict]:
         """The host-RAM tier's plan and its last search's measurements
@@ -1008,9 +1184,8 @@ class ShardedKNN:
                     compute_dtype=None):
         if self._on_mesh():
             return self._mesh_topk(q, k, metric, compute_dtype)
-        return query_stream_program(
-            k, metric, train_tile=self.train_tile,
-            compute_dtype=compute_dtype)(q, self.placement.db)
+        return self._stream_program(k, metric, compute_dtype)(
+            q, self.placement.db)
 
     def search(self, queries, *, k: Optional[int] = None,
                return_sqrt: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1468,7 +1643,7 @@ class ShardedKNN:
             if overlap:
                 raise ValueError(
                     "overlap=True: the two-stage pipeline on a mesh is "
-                    "queued (ROADMAP queue A); run it sequentially")
+                    "queued (ROADMAP queue A item 4.2); run it sequentially")
             run, m, w = self._mesh_pallas(m - k, tile_n, precision, setup)
             src = self._mesh_shards()[0][0][0][1]
         else:
@@ -1804,8 +1979,8 @@ class ShardedKNN:
             if knobs["precision"] == "pq" and self.db_shards > 1:
                 raise ValueError(
                     "precision='pq' on a mesh with several db shards is "
-                    "queued (ROADMAP queue A): its codebooks train on the "
-                    "whole database")
+                    "queued (ROADMAP queue A item 4.2): its codebooks train "
+                    "on the whole database")
             bad, n_corrected, pipeline = self._certify_pallas(
                 batches, bs, m, d, i, q_np, db_np,
                 want_distances=return_distances, overlap=bool(overlap),

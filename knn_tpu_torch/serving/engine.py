@@ -1,6 +1,6 @@
-"""The serving engine on one GPU: shape-bucketed executables over a placed
-:class:`~knn_tpu_torch.parallel.sharded.ShardedKNN`, with dispatch-ahead —
-the port of knn_tpu/serving/engine.py.
+"""The serving engine on one GPU or a mesh: shape-bucketed executables
+over a placed :class:`~knn_tpu_torch.parallel.sharded.ShardedKNN`, with
+dispatch-ahead — the port of knn_tpu/serving/engine.py.
 
 - **Shape bucketing** (serving.buckets): each request pads up to the
   smallest ladder bucket with whole zero queries whose outputs are sliced
@@ -18,6 +18,14 @@ the port of knn_tpu/serving/engine.py.
   matmuls, the stable sort, the vote — as one graph.  On the CPU, or with
   ``aot=False``, the executable is the eager program.  Compiles (captures)
   and dispatches are counted per bucket, as the JAX package counts them.
+  On a mesh the program is the mesh's (``ShardedKNN._exact_topk``: the
+  queries split over the query shards, the db shards' lists merged), a
+  bucket's placed rows round up to a multiple of the query shards, and
+  buckets below that count share one executable.  A logical mesh of one
+  card (parallel.mesh) runs every shard on the capturing stream, so its
+  graph holds the whole mesh program; a mesh over several cards runs the
+  eager program (``aot=False``) — ``aot=True`` there is refused by name,
+  since one graph per card is not built yet (ROADMAP queue C).
 - **Dispatch-ahead**: :meth:`ServingEngine.submit` enqueues and returns a
   :class:`PendingSearch` at once; :meth:`PendingSearch.result` waits on
   the request's own CUDA event.  :meth:`ServingEngine.replay` keeps at
@@ -291,7 +299,7 @@ class ServingEngine:
         self.program = program
         # a host-RAM-tier placement has no placed database to capture
         # against: refused with the tier's own message
-        program._require_resident("ServingEngine")
+        program._require_resident("ServingEngine", mesh_ok=True)
         self.k = program.k if k is None else int(k)
         if self.k > program.n_train:
             raise ValueError(f"k={self.k} > n_train={program.n_train}")
@@ -306,10 +314,18 @@ class ServingEngine:
         self._aot = bool(aot)
         #: CUDA graphs on the card with aot; the eager program otherwise
         self.graphs = self._aot and self.device.type == "cuda"
+        if self.graphs and len(program.mesh.distinct_devices) > 1:
+            raise ValueError(
+                "aot=True on a mesh over several cards: a CUDA graph of the "
+                "mesh program needs one graph a card, which is queued "
+                "(ROADMAP queue C); pass aot=False to serve the eager "
+                "program")
         #: the request dim submit validates and pads against; a dot
         #: placement is one column wider (the zero augmentation column)
-        self._dim = int(program.placement.dim_in)
-        self._placed_dim = int(program.placement.db.shape[1])
+        self._dim = int(program.dim_in)
+        self._placed_dim = int(
+            program.placement.db.shape[1] if program.placement is not None
+            else program._host_rows_of().rows.shape[1])
         self._lock = threading.Lock()
         self._launch_lock = threading.Lock()
         self._execs: Dict[Tuple[str, int], _Executable] = {}
@@ -346,7 +362,8 @@ class ServingEngine:
 
         if op == "search":
             return search
-        if p.placement.labels is None:
+        labels = p._labels()
+        if labels is None:
             raise RuntimeError(
                 "ServingEngine op='predict' needs a ShardedKNN built with "
                 "labels")
@@ -354,13 +371,17 @@ class ServingEngine:
         def predict(q):
             _, gi = search(q)
             safe = torch.clamp(gi, max=p.n_train - 1)
-            return (majority_vote(p.placement.labels[safe], p.num_classes),)
+            return (majority_vote(labels[safe], p.num_classes),)
 
         return predict
 
     def _placed_rows(self, bucket: int) -> int:
-        """One device: every bucket is its own placed shape."""
-        return int(bucket)
+        """A bucket's rows rounded up to a multiple of the mesh's query
+        shards (one device: every bucket is its own placed shape)."""
+        from knn_tpu_torch.parallel.mesh import QUERY_AXIS
+
+        qs = self.program.mesh.shape[QUERY_AXIS]
+        return -(-int(bucket) // qs) * qs
 
     def _build(self, op: str, rows: int) -> _Executable:
         fn = self._program_fn(op)
@@ -463,7 +484,8 @@ class ServingEngine:
         n = chunk.shape[0]
         bucket = bucket_for(self.buckets, n)
         assert bucket is not None  # callers split oversize requests first
-        padded = np.zeros((bucket, self._placed_dim), dtype=np.float32)
+        padded = np.zeros((self._placed_rows(bucket), self._placed_dim),
+                          dtype=np.float32)
         padded[:n, : self._dim] = chunk
         ex = self._executable(op, bucket, trace_id)
         if self.device.type != "cuda":

@@ -11,8 +11,8 @@ preempted run loses at most one batch.
 stats)`` and persists each segment's certificate stats beside its
 results.  :func:`streaming_knn` and :func:`streaming_certified_knn` place
 the database once (a :class:`~knn_tpu_torch.parallel.sharded.ShardedKNN`
-on ``device``, default ``cuda``) and stream through ``search`` /
-``search_certified``.
+on ``device``, default ``cuda``, or on ``mesh``) and stream through
+``search`` / ``search_certified``.
 
 Per-batch retry (``max_retries``) keeps the JAX package's classifier
 vocabulary for a caller's ``search_fn``: known-transient failures get the
@@ -21,8 +21,10 @@ full retry window, deterministic ones (out of memory, invalid argument,
 repeats verbatim.  Where the port differs (ROADMAP queue C): a CUDA error
 — a device fault, a cuBLAS status, CUDA's out of memory — raises on its
 first occurrence whatever its text (after an illegal access the context
-is unusable, so a retry could only repeat it); and the entry points take
-no ``mesh`` or ``merge`` (one device).
+is unusable, so a retry could only repeat it).  The entry points place
+on ``device`` or on ``mesh`` (not both; ``merge`` its strategy, the JAX
+package's default ``"allgather"``); their manifests echo the placement's
+device type and the strategy.
 """
 
 from __future__ import annotations
@@ -347,9 +349,13 @@ def streaming_certified_knn(
     batch_size: Optional[int] = None,
     return_distances: bool = True,
     device=None,
+    mesh=None,
+    merge: str = "allgather",
     **certified_kwargs,
 ):
-    """Place ``db`` once on ``device`` (None: cuda), stream ``queries``
+    """Place ``db`` once on ``device`` (None: cuda) or ``mesh`` (not both;
+    ``merge`` its db-axis strategy, the JAX package's default), stream
+    ``queries``
     through ``search_certified`` in resumable ``segment_size`` chunks.
     ``batch_size`` is the certified search's inner device batch;
     ``segment_size`` the durable checkpoint unit.  Every certified knob
@@ -360,7 +366,8 @@ def streaming_certified_knn(
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
     program = ShardedKNN(db, k=k, metric=metric, train_tile=train_tile,
-                         compute_dtype=compute_dtype, device=device)
+                         compute_dtype=compute_dtype, device=device,
+                         mesh=mesh, merge=merge)
     stream = StreamingCertifiedSearch(
         lambda chunk: program.search_certified(
             chunk, selector=selector, margin=margin, batch_size=batch_size,
@@ -375,6 +382,7 @@ def streaming_certified_knn(
             "inner_batch_size": batch_size,
             "return_distances": return_distances,
             "metric": metric,
+            "merge": merge,
             "train_tile": train_tile,
             "compute_dtype": (None if compute_dtype is None
                               else str(compute_dtype)),
@@ -398,19 +406,24 @@ def streaming_knn(
     compute_dtype=None,
     max_retries: int = 2,
     device=None,
+    mesh=None,
+    merge: str = "allgather",
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Place ``db`` once on ``device`` (None: cuda), stream ``queries``
-    through ``ShardedKNN.search`` with checkpointing, and resume from
+    """Place ``db`` once on ``device`` (None: cuda) or ``mesh`` (not both;
+    ``merge`` its db-axis strategy), stream ``queries`` through
+    ``ShardedKNN.search`` with checkpointing, and resume from
     ``checkpoint_dir`` if an earlier run was interrupted."""
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
     program = ShardedKNN(db, k=k, metric=metric, train_tile=train_tile,
-                         compute_dtype=compute_dtype, device=device)
+                         compute_dtype=compute_dtype, device=device,
+                         mesh=mesh, merge=merge)
     stream = StreamingSearch(
         program.search, k, checkpoint_dir,
         batch_size=batch_size, db_fingerprint=_fingerprint(db),
         search_config={
             "metric": metric,
+            "merge": merge,
             "train_tile": train_tile,
             "compute_dtype": (None if compute_dtype is None
                               else str(compute_dtype)),

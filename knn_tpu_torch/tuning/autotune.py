@@ -487,6 +487,23 @@ def _fence(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _ivf_device(mesh, device):
+    """The device :func:`autotune_ivf` runs on: ``device``, or the one
+    device of a (1, 1) ``mesh`` (not both).  A mesh of several positions
+    is refused by name: the tuner's cache keys one card's shape, and the
+    tuner on a mesh is queued (ROADMAP queue A item 4.3)."""
+    if mesh is None:
+        return device
+    if device is not None:
+        raise ValueError("pass mesh= or device=, not both")
+    if mesh.size > 1:
+        raise ValueError(
+            f"autotune_ivf on a mesh of {mesh.size} positions is queued "
+            f"(ROADMAP queue A item 4.3): the tune cache keys one card's "
+            f"shape")
+    return mesh.devices.flat[0]
+
+
 def autotune(
     db, queries, k: int, *, metric: str = "l2", margin: int = 28,
     grid: Optional[Sequence[Dict[str, object]]] = None,
@@ -711,10 +728,11 @@ def autotune_ivf(
     db, queries, k: int, *, metric: str = "l2", runs: int = 2,
     grid: Optional[Sequence[Dict[str, int]]] = None,
     selector: str = "exact", train_iters: int = 5, seed: int = 0,
-    device_kind: Optional[str] = None, device=None,
+    device_kind: Optional[str] = None, device=None, mesh=None,
 ) -> Dict[str, object]:
     """Searches the IVF (ncentroids, nprobe) grid on ``device`` (default
-    ``cuda``) under the same bitwise end-result gate as :func:`autotune`:
+    ``cuda``; ``mesh`` a one-device mesh at most, :func:`_ivf_device`)
+    under the same bitwise end-result gate as :func:`autotune`:
     a candidate's certified search must reproduce exact brute force
     (``ops.refine.refine_shared_exact`` over every row) exactly or it is
     marked ineligible — the certified fallback makes every sound candidate
@@ -729,7 +747,7 @@ def autotune_ivf(
     from knn_tpu_torch.ivf import IVFIndex
     from knn_tpu_torch.ops.refine import refine_shared_exact
 
-    dev = resolve_device(device)
+    dev = resolve_device(_ivf_device(mesh, device))
     db = np.asarray(db, dtype=np.float32)
     queries = np.asarray(queries, dtype=np.float32)
     n, d = db.shape

@@ -2091,3 +2091,116 @@ def test_cuda_mixed_device_mesh_raises(cuda_device):
 
     with pytest.raises(ValueError, match="mixes"):
         make_mesh(1, 2, devices=["cpu", cuda_device])
+
+
+def _logical_mesh(cuda_device, shape):
+    from knn_tpu_torch.parallel.mesh import make_host_mesh, make_mesh
+
+    dev = torch.device(cuda_device)
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dev.index is None else dev
+    devs = [dev] * int(np.prod(shape))
+    return (make_mesh(*shape, devices=devs) if len(shape) == 2
+            else make_host_mesh(*shape, devices=devs))
+
+
+@pytest.mark.cuda
+def test_cuda_logical_mesh_tiers_launch_k1_per_shard(cuda_device):
+    """MutableIndex and the certified join on a (1, 4) logical mesh: every
+    certified batch launches K1 once a db shard and no other kernel;
+    certified indices are bitwise the (1, 1) placement's; the stream join
+    is bitwise the looped mesh search; a (1, 2, 2) host mesh is bitwise the
+    flat mesh."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.index import MutableIndex
+    from knn_tpu_torch.join import knn_join
+
+    rng = np.random.default_rng(83)
+    q, db = _data(rng, 96, 20000, 32)
+    new = (rng.normal(size=(300, 32)) * 10).astype(np.float32)
+    mesh = _logical_mesh(cuda_device, (1, 4))
+    idx = MutableIndex(db, k=10, mesh=mesh)
+    one = MutableIndex(db, k=10, device=cuda_device)
+    for x in (idx, one):
+        x.insert(new, np.arange(10 ** 6, 10 ** 6 + 300))
+        x.delete([5, 77, 10 ** 6 + 3])
+    counts = {fn: dict(fn.launches) for fn in (
+        ck.binned_select, ck.stream_select, ck.fused_select)}
+    d, i, st = idx.search_certified(q, batch_size=48)
+    assert ck.binned_select.launches["bf16x3"] == \
+        counts[ck.binned_select]["bf16x3"] + 4 * 2
+    assert {fn: {a: n for a, n in fn.launches.items()
+                 if (fn, a) != (ck.binned_select, "bf16x3")}
+            for fn in counts} == {fn: {a: n for a, n in c.items()
+                                       if (fn, a) != (ck.binned_select,
+                                                      "bf16x3")}
+                                  for fn, c in counts.items()}
+    rd, ri, _ = one.search_certified(q, batch_size=48)
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_array_equal(d, rd)  # both refined in float64
+    host = MutableIndex(db, k=10, mesh=_logical_mesh(cuda_device,
+                                                     (1, 2, 2)))
+    flat = MutableIndex(db, k=10, mesh=mesh)
+    for a, b in zip(host.search_certified(q)[:2],
+                    flat.search_certified(q)[:2]):
+        np.testing.assert_array_equal(a, b)
+    knn = ShardedKNN(db, k=10, mesh=mesh)
+    before = ck.binned_select.launches["bf16x3"]
+    cd, ci, _ = knn_join(knn, q, mode="certified", superblock_rows=32)
+    assert ck.binned_select.launches["bf16x3"] == before + 4 * 3
+    looped = [knn.search_certified(q[lo:lo + 32]) for lo in (0, 32, 64)]
+    np.testing.assert_array_equal(ci, np.concatenate([x[1] for x in looped]))
+    sd, si, _ = knn_join(knn, q, mode="stream", superblock_rows=32)
+    loop = [knn.search(q[lo:lo + 32]) for lo in (0, 32, 64)]
+    np.testing.assert_array_equal(
+        sd, np.concatenate([x[0].cpu().numpy() for x in loop]))
+    np.testing.assert_array_equal(
+        si, np.concatenate([x[1].cpu().numpy() for x in loop]))
+
+
+@pytest.mark.cuda
+def test_cuda_logical_mesh_serving_graph_is_bitwise_eager(cuda_device):
+    """ServingEngine on a (2, 2) logical mesh: each placed shape is one
+    captured graph of the whole mesh program (buckets below the two query
+    shards share one), a replay is bitwise the eager mesh search of the
+    padded batch, a second pass captures nothing; MutableServingEngine
+    over a mesh index reads bitwise the index's search."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.index import MutableIndex
+    from knn_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(89)
+    q, db = _data(rng, 40, 6000, 24)
+    labels = rng.integers(0, 4, 6000).astype(np.int32)
+    mesh = _logical_mesh(cuda_device, (2, 2))
+    prog = ShardedKNN(db, k=10, labels=labels, num_classes=4, mesh=mesh)
+    eng = ServingEngine(prog, buckets=(1, 2, 8, 16))
+    assert eng.graphs
+    assert eng.warmup(ops=("search", "predict")) == {"search": 3,
+                                                     "predict": 3}
+    for n in (1, 2, 5, 16, 21):
+        d, i = eng.search(q[:n])
+        e = eng.search(q[:n])
+        np.testing.assert_array_equal(d, e[0])
+        if n <= 16:
+            b = next(b for b in (2, 8, 16) if b >= n)
+            padded = np.zeros((b, 24), np.float32)
+            padded[:n] = q[:n]
+            wd, wi = prog.search(padded)
+            np.testing.assert_array_equal(d, wd.cpu().numpy()[:n])
+            np.testing.assert_array_equal(i, wi.cpu().numpy()[:n])
+            np.testing.assert_array_equal(
+                eng.predict(q[:n]), prog.predict(padded).cpu().numpy()[:n])
+    # buckets 1 and 2 share one placed shape: one capture each op
+    assert eng.stats()["compile_count"] == 6
+    assert eng.stats()["executables"] == 6
+    idx = MutableIndex(db, k=10, mesh=mesh)
+    front = idx.serving_engine(buckets=(8, 16))
+    front.warmup()
+    idx.insert(q[:2] + 0.5, [9000, 9001])
+    got = front.submit(q[:5]).result()
+    padded = np.zeros((8, 24), np.float32)
+    padded[:5] = q[:5]
+    want = idx.search(padded)
+    np.testing.assert_array_equal(got[0], want[0][:5])
+    np.testing.assert_array_equal(got[1], want[1][:5])

@@ -460,15 +460,29 @@ def test_refusals_by_name():
         ShardedKNN(db, mesh=port_mesh((1, 8)), k=5).radius_search(
             q, 5.0, max_neighbors=50)
     from knn_tpu_torch.convert import placement_from_numpy
-    from knn_tpu_torch.serving.engine import ServingEngine
 
     with pytest.raises(ValueError, match="one device's rows"):
         ShardedKNN(placement_from_numpy(db, device="cpu"), mesh=m, k=5)
-    with pytest.raises(ValueError, match="db shards of a mesh"):
-        ServingEngine(knn)
     # a query-only mesh keeps one placement and everything on it
     qonly = ShardedKNN(db, mesh=port_mesh((8, 1)), k=5)
     assert qonly.placement is not None
     d, i = qonly.search_bucketed(q, min_bucket=8, max_bucket=32)
     ri = ShardedKNN(db, k=5, device="cpu").search(q)[1]
     np.testing.assert_array_equal(np.asarray(i), ri.numpy())
+
+
+def test_serving_engine_runs_on_a_db_sharded_mesh():
+    """The engine serves a placement with several db shards (queue A item
+    4.1): every request bitwise the mesh search of its padded batch."""
+    from knn_tpu_torch.serving.engine import ServingEngine
+
+    db, q = _data(8)
+    knn = ShardedKNN(db, mesh=port_mesh((2, 4)), k=5)
+    eng = ServingEngine(knn, buckets=(4, 8))
+    d, i = eng.search(q[:3])
+    padded = np.zeros((4, db.shape[1]), np.float32)
+    padded[:3] = q[:3]
+    wd, wi = knn.search(padded)
+    np.testing.assert_array_equal(d, wd.numpy()[:3])
+    np.testing.assert_array_equal(i, wi.numpy()[:3])
+    assert eng.stats()["executables"] == 1

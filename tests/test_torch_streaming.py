@@ -234,14 +234,40 @@ def test_fingerprint_equals_the_reference(data):
 
 
 def test_entries_take_no_mesh(tmp_path, data):
-    """Divergence: one device, so no ``mesh`` / ``merge`` argument."""
+    """The entries take ``mesh`` and ``merge`` (divergence 32 closed): with
+    ``device`` as well they raise, as ``ShardedKNN`` does, and on a
+    logical (2, 2) mesh each stream is bitwise the direct search of a
+    placement on that mesh."""
+    from knn_tpu_torch.parallel.mesh import make_mesh as port_mesh
+
     db, queries = data
-    with pytest.raises(TypeError, match="mesh"):
-        streaming_knn(db, queries, 3, str(tmp_path / "m"), mesh=None,
+    with pytest.raises(ValueError, match="not both"):
+        streaming_knn(db, queries, 3, str(tmp_path / "m"),
+                      mesh=port_mesh(1, 2, devices=["cpu"] * 2),
                       device="cpu")
-    with pytest.raises(TypeError, match="merge"):
-        streaming_certified_knn(db, queries, 3, str(tmp_path / "m"),
-                                merge="allgather", device="cpu")
+    with pytest.raises(ValueError, match="not both"):
+        streaming_certified_knn(db, queries, 3, str(tmp_path / "c"),
+                                merge="ring", device="cpu",
+                                mesh=port_mesh(1, 2, devices=["cpu"] * 2))
+    mesh = port_mesh(2, 2, devices=["cpu"] * 4)
+    direct = ShardedKNN(db, k=3, mesh=mesh, merge="ring")
+    d, i = streaming_knn(db, queries, 3, str(tmp_path / "s"), mesh=mesh,
+                         merge="ring", batch_size=32)
+    want = [direct.search(np.pad(queries[lo:lo + 32],
+                                 ((0, max(0, lo + 32 - 70)), (0, 0))))
+            for lo in range(0, 70, 32)]
+    np.testing.assert_array_equal(
+        d, np.concatenate([w[0].numpy() for w in want])[:70])
+    np.testing.assert_array_equal(
+        i, np.concatenate([w[1].numpy() for w in want])[:70])
+    cd, ci, st = streaming_certified_knn(
+        db, queries, 3, str(tmp_path / "p"), mesh=mesh, merge="ring",
+        segment_size=32)
+    rd, ri, _ = direct.search_certified(queries)
+    np.testing.assert_array_equal(ci, ri)
+    np.testing.assert_array_equal(cd, rd)
+    with open(os.path.join(str(tmp_path / "p"), "manifest.json")) as f:
+        assert json.load(f)["search_config"]["merge"] == "ring"
 
 
 # -- the certified stream -------------------------------------------------------
