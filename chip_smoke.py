@@ -107,6 +107,37 @@ exits non-zero and prints no result):
              shard's rows against its plain version and timed; the mesh /
              (1, 1) seconds of each tier call in turns (logical shards of
              one card: no speed claim follows);
+4d. mesh_paths — (run after ``tiers_mesh``, on its 1 x 4 logical
+             placement of the ``main`` draw; launch counts reset before
+             each path) the host-RAM tier on the 1 x 4 and a 2 x 2 logical
+             mesh behind the ``hosttier`` phase's 128 MiB budget, 4,096
+             queries: sweeps ``hbm.n_sweeps(..., shard_multiple=db
+             shards)``, no coarse kernel, recall@100 = 1.0 against the f64
+             oracle (256 queries), against the resident mesh search every
+             distance within 64 eps_f32 (||q||^2 + max||t||^2) and the
+             index sets equal where its k-th and (k+1)-th are twice that
+             apart, the slots holding each db block once a slot (below one
+             corpus); the tiered join of the 4,096 queries by 1,024
+             bitwise the looped mesh tier search; pq with the ``pq``
+             phase's trained state carried across (``pq_from_numpy``),
+             1,024 queries (a cut: every uniform query falls back to the
+             host repair), tiled, db-major and streaming: the entry 4
+             times a batch (once a db shard) and no other kernel, indices
+             bitwise the (1, 1) pq placement's and the oracle's (256), K7
+             on one 250,000-row shard bitwise its plain version and timed,
+             the mesh's own training on 65,536 rows' first 32 dims (8
+             subspaces) bitwise the (1, 1) training's codebooks; the pipeline (4,096 queries in four
+             1,024-query batches, depth 2) under ``kernel="fused"`` and
+             ``"tiled"``: K11 / K1 16 times a call, bitwise the sequential
+             mesh call, indices bitwise the (1, 1) pipelined call's
+             (distances as in ``mesh``), K11 on one shard at the
+             pipeline's geometry against its plain version and timed; int8
+             on the draw cast to uint8 (1,024 queries in four batches, a
+             cut: the int8 repair) bitwise its sequential call, K5 16
+             times; ``search_bucketed`` over the bench trace's first 16
+             requests, each bitwise the eager mesh search of its padded
+             batch; the mesh / (1, 1) seconds of each path in turns (no
+             speed claim: one card);
 5. obs     — the telemetry core (knn_tpu_torch.obs) at the ``main`` shape
              and placement: warm ``main`` calls with obs on and off in
              turns (on / off / off / on, twelve rounds; twelve more, up
@@ -1376,6 +1407,36 @@ def int_case(dev, arm, n_q, n, dim, tile_n, seed, ties=()):
     return qi, qsc, t, aux
 
 
+def held(name, d, i, st, rd, ri, rst):
+    """Raises unless the certified indices ``i`` are bitwise the
+    reference's ``ri`` and every row whose distances differ is one that
+    either placement repaired: a repaired query carries float64 distances,
+    which f32 cannot represent, a certified one f32 direct differences.
+    There the distances must be within RANK_SLACK, equal where both are
+    float64.  Returns the rows whose d differ."""
+    from knn_tpu_torch.ops.coarse_knn import RANK_SLACK
+
+    if not np.array_equal(i, ri):
+        raise AssertionError(f"{name}: indices differ")
+    differ = (d != rd).any(axis=1)
+    rows = int(differ.sum())
+    if not rows:
+        return 0
+    if st["fallback_queries"] == rst["fallback_queries"] == 0:
+        raise AssertionError(f"{name}: distances differ")
+    repaired = ((d != d.astype(np.float32)).any(axis=1)
+                | (rd != rd.astype(np.float32)).any(axis=1))
+    if (differ & ~repaired).any():
+        raise AssertionError(
+            f"{name}: {int((differ & ~repaired).sum())} rows that neither "
+            f"placement repaired differ")
+    rel = float(np.max(np.abs(d - rd) / np.maximum(rd, 1e-30)))
+    both = (d != d.astype(np.float32)) & (rd != rd.astype(np.float32))
+    if rel > RANK_SLACK or not np.array_equal(d[both], rd[both]):
+        raise AssertionError(f"{name}: distances {rel} apart")
+    return rows
+
+
 def bitwise(name, got, want):
     """Raises unless every tensor of ``got`` equals ``want``'s bitwise;
     returns the largest |difference| of the finite scores (0.0)."""
@@ -1514,8 +1575,8 @@ def main(argv=None) -> int:
                     "campaign,"
                     "stream,selectors,metrics,quant,f32arms,pq,lane,"
                     "survivors,tune,"
-                    "index,ivf,hosttier,join,serving,tiers_mesh,native,"
-                    "classify",
+                    "index,ivf,hosttier,join,serving,tiers_mesh,"
+                    "mesh_paths,native,classify",
                     help="comma list of phases to run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1565,6 +1626,16 @@ def main(argv=None) -> int:
             "binned_select_bf16x3 (tiers, 1 x 4 mesh shard)",
             "knn_tpu_torch/csrc/binned_coarse.cu",
             "knn_tpu/ops/pallas_knn.py:856"),
+        # K7 (tiled entry) on one db shard of the pq placement on a 1 x 4
+        # mesh, and K11 on one shard at the mesh pipeline's geometry; their
+        # launches are the counters' on the mesh paths (mesh_paths phase)
+        "k7_mesh": kernel_record("binned_select_pq (1 x 4 mesh shard)",
+                                 "knn_tpu_torch/csrc/binned_coarse.cu",
+                                 "knn_tpu/ops/pallas_knn.py:443"),
+        "k11_mesh": kernel_record(
+            "fused_select_bf16x3 (1 x 4 mesh shard, pipeline)",
+            "knn_tpu_torch/csrc/binned_stream.cu",
+            "knn_tpu/ops/pallas_knn.py:722"),
     }
     # the other arms' entries: (kernel, arm) -> C library, TPU kernel line
     # (K5, K6 int8 / int4; K4 bf16x3f; K2 highest; K3 default)
@@ -2006,33 +2077,6 @@ def main(argv=None) -> int:
                    "highest": S["knn"].search_certified(
                        q_np[:n_cut], margin=28, precision="highest")}
         del knn8
-
-        def held(name, d, i, st, rd, ri, rst):
-            """Raises unless the indices are bitwise the reference's and
-            every row whose distances differ is one that either placement
-            repaired: a repaired query carries float64 distances, which f32
-            cannot represent, a certified one f32 direct differences.
-            There the distances must be within RANK_SLACK, equal where both
-            are float64.  Returns the rows whose d differ."""
-            if not np.array_equal(i, ri):
-                raise AssertionError(f"{name}: indices differ")
-            differ = (d != rd).any(axis=1)
-            rows = int(differ.sum())
-            if not rows:
-                return 0
-            if st["fallback_queries"] == rst["fallback_queries"] == 0:
-                raise AssertionError(f"{name}: distances differ")
-            repaired = ((d != d.astype(np.float32)).any(axis=1)
-                        | (rd != rd.astype(np.float32)).any(axis=1))
-            if (differ & ~repaired).any():
-                raise AssertionError(
-                    f"{name}: {int((differ & ~repaired).sum())} rows that "
-                    f"neither placement repaired differ")
-            rel = float(np.max(np.abs(d - rd) / np.maximum(rd, 1e-30)))
-            both = (d != d.astype(np.float32)) & (rd != rd.astype(np.float32))
-            if rel > ck.RANK_SLACK or not np.array_equal(d[both], rd[both]):
-                raise AssertionError(f"{name}: distances {rel} apart")
-            return rows
 
         # the two processes start first: their import, draw and placement
         # overlap the in-process meshes below
@@ -2559,6 +2603,8 @@ def main(argv=None) -> int:
             "bitwise_eager_mesh_search": True,
             "sustained_qps": rep2["sustained_qps"],
             "seconds_mesh_vs_one_in_turns": serve_turns}
+        # the placement stays for the mesh_paths phase
+        S["mesh_knn"] = knn
         del eng, one_eng, knn
         torch.cuda.empty_cache()
         records["k1_tiers_mesh"].update(
@@ -2570,6 +2616,344 @@ def main(argv=None) -> int:
                              "ms": k1_ms, "plain_ms": k1_plain_ms,
                              "bound": k1_bound, "max_abs_err": k1_err},
                    phase_s=time.perf_counter() - t_phase)
+        emit(out)
+
+    def phase_mesh_paths(S):
+        """Docstring item 4d: the host-RAM tier, pq, the pipeline and
+        search_bucketed on the 1 x 4 logical mesh of the card at the main
+        shape (the tier also on 2 x 2), each path's launches read around
+        it alone."""
+        from knn_tpu_torch import ShardedKNN
+        from knn_tpu_torch.analysis import hbm
+        from knn_tpu_torch.convert import pq_from_numpy
+        from knn_tpu_torch.join import knn_join
+        from knn_tpu_torch.ops import pq as ppq
+        from knn_tpu_torch.parallel.mesh import make_mesh
+
+        t_phase = time.perf_counter()
+        n, dim, k, q_all = S["n"], S["dim"], S["k"], S["q_np"]
+        db, one, n_or = S["db_np"], S["knn"], S["n_or"]
+        devs = [torch.device("cuda", torch.cuda.current_device())] * 4
+        mesh = make_mesh(1, 4, devices=devs)
+        knn = S.get("mesh_knn")
+        if knn is None:
+            knn = S["mesh_knn"] = ShardedKNN(db, k=k, mesh=mesh,
+                                             merge="allgather")
+        out = {"phase": "mesh_paths", "n": n, "dim": dim, "k": k,
+               "mesh": "1 x 4", "devices": "cuda:0 x 4 (logical)",
+               "nvidia_smi": smi}
+        if "oi" not in S:
+            od, oi = f64_oracle(S["q_dev"][:n_or], one.placement.db, k)
+            S["od"], S["oi"] = od.cpu().numpy(), oi.cpu().numpy()
+
+        def run(label, fn, want):
+            """``fn()`` with the launch counts read around it alone: exactly
+            ``want`` (record key -> launches).  Returns (result, seconds)."""
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = nonzero_launches(read_launches())
+            if got != want:
+                raise AssertionError(f"mesh_paths {label}: launches {got}, "
+                                     f"expected {want}")
+            return res, wall
+
+        def in_turns(a, b):
+            """(seconds of a, seconds of b) in turns a b b a."""
+            times = {"mesh": [], "one": []}
+            for label, fn in (("mesh", a), ("one", b), ("one", b),
+                              ("mesh", a)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[label].append(time.perf_counter() - t0)
+            return times
+
+        # -- the host-RAM tier on 1 x 4 and 2 x 2 behind 128 MiB
+        budget = 128 << 20
+        corpus = hbm.placement_bytes(n, dim)
+        (dr, ir), _ = run("resident mesh search",
+                          lambda: knn.search(q_all, k=k + 1), {})
+        dr, ir = dr.cpu().numpy().astype(np.float64), ir.cpu().numpy()
+        q64 = q_all.astype(np.float64)
+        tol = 64 * float(np.finfo(np.float32).eps) * (
+            (q64 ** 2).sum(-1) + float(one.placement.db_norm_max))
+        sep = (dr[:, k] - dr[:, k - 1]) > 2 * tol
+        tiers = {}
+        for label, shape in (("1 x 4", (1, 4)), ("2 x 2", (2, 2))):
+            m = make_mesh(*shape, devices=devs)
+            tier = ShardedKNN(db, k=k, mesh=m, hbm_budget_bytes=budget)
+            plan = tier.hosttier_stats()
+            want = hbm.n_sweeps(n, dim, budget, shard_multiple=shape[1])
+            (d, i), wall = run(f"tier {label}", lambda: tier.search(q_all),
+                               {})
+            last = tier.hosttier_stats()["last_search"]
+            # one card holds each db block once a slot, whatever the
+            # query shards
+            slot_bytes = plan["depth"] * plan["segment_rows"] * dim * 4
+            if plan["sweeps"] != want or last["sweeps"] != want \
+                    or last["device_buffer_bytes"] != slot_bytes \
+                    or slot_bytes >= corpus:
+                raise AssertionError(
+                    f"mesh_paths tier {label}: sweeps {last['sweeps']} / "
+                    f"{plan['sweeps']}, planned {want}; slots "
+                    f"{last['device_buffer_bytes']} B (want {slot_bytes}, "
+                    f"corpus {corpus})")
+            d, i = d.cpu().numpy().astype(np.float64), i.cpu().numpy()
+            ratio = float((np.abs(d - dr[:, :k]) / tol[:, None]).max())
+            sets = all(set(a) == set(b) for a, b, s in
+                       zip(i, ir[:, :k], sep) if s)
+            recall = float(np.mean([len(set(a) & set(b)) / k
+                                    for a, b in zip(i[:n_or], S["oi"])]))
+            if ratio > 1.0 or not sets or recall != 1.0:
+                raise AssertionError(
+                    f"mesh_paths tier {label}: distance error / bound "
+                    f"{ratio}, sets equal where separated {sets}, "
+                    f"recall@{k} {recall}")
+            tiers[label] = {
+                "db_shards": shape[1], "query_shards": shape[0],
+                "segment_rows": plan["segment_rows"], "sweeps": want,
+                "wall_s": wall, "sweep_walls_s": last["sweep_walls_s"],
+                "h2d_gbps": last["h2d_gbps"], "slot_bytes": slot_bytes,
+                "corpus_bytes": corpus, "dist_err_over_bound": ratio,
+                "separated_queries": int(sep.sum()),
+                "bitwise_resident": bool(
+                    np.array_equal(d, dr[:, :k])
+                    and np.array_equal(i, ir[:, :k])),
+                "recall_at_k": recall}
+            if shape == (1, 4):
+                tier14 = tier
+            else:
+                del tier
+        # the tiered join: 1,024-row superblocks, bitwise the looped tier
+        (jd, ji, jst), join_s = run(
+            "tiered join", lambda: knn_join(tier14, q_all,
+                                            superblock_rows=1024), {})
+        loop = [tier14.search(q_all[lo:lo + 1024])
+                for lo in range(0, q_all.shape[0], 1024)]
+        if not (np.array_equal(jd, np.concatenate(
+                [x[0].cpu().numpy() for x in loop]))
+                and np.array_equal(ji, np.concatenate(
+                    [x[1].cpu().numpy() for x in loop]))):
+            raise AssertionError("mesh_paths: the tiered join is not its "
+                                 "looped mesh tier search")
+        del loop
+        tier_turns = in_turns(lambda: tier14.search(q_all),
+                              lambda: hosttier_program(S).search(q_all))
+        out["tier"] = {"budget_bytes": budget, "queries": q_all.shape[0],
+                       "meshes": tiers, "launches": 0,
+                       "join": {"superblock_rows": 1024,
+                                "order": jst["order"],
+                                "superblocks": jst["superblocks"],
+                                "db_segments": jst["db_segments"],
+                                "wall_s": join_s,
+                                "bitwise_looped_tier_search": True},
+                       "seconds_mesh_vs_one_in_turns": tier_turns}
+        del tier14
+        torch.cuda.empty_cache()
+
+        # -- pq: the main pq state carried across, 1,024 queries
+        q = q_all[:1024]
+        pq = main_pq(S)
+        t0 = time.perf_counter()
+        pq_from_numpy(knn, pq["books"].cpu().numpy(),
+                      pq["codes"].cpu().numpy(), pq["stats"], pq["dsub"],
+                      dim, ncodes=pq["ncodes"])
+        carry_s = time.perf_counter() - t0
+        pq_runs = {}
+        k7_launches = 0
+        for label, kw, own in (
+                ("tiled", {"kernel": "tiled"}, {"tiled_pq": 4}),
+                ("tiled_db_major", {"kernel": "tiled",
+                                    "grid_order": "db_major"},
+                 {"tiled_pq": 4, "db_major_pq": 4}),
+                ("streaming", {"kernel": "streaming"}, {"streaming_pq": 4})):
+            (d, i, st), wall = run(
+                f"pq {label}", lambda kw=kw: knn.search_certified(
+                    q, margin=28, precision="pq", **kw), own)
+            k7_launches += own.get("tiled_pq", 0)
+            (rd, ri, rst), one_s = run(
+                f"pq {label} (1, 1)", lambda kw=kw: one.search_certified(
+                    q, margin=28, precision="pq", **kw),
+                {key: 1 for key in own})
+            if not np.array_equal(i, ri) or \
+                    not np.array_equal(i[:n_or], S["oi"]):
+                raise AssertionError(f"mesh_paths pq {label}: indices "
+                                     f"differ from the (1, 1) placement's "
+                                     f"or the oracle's")
+            pq_runs[label] = {"wall_s": wall, "one_wall_s": one_s,
+                              "launches": own,
+                              "certified": st["certified"],
+                              "fallback_queries": st["fallback_queries"]}
+        pq_turns = in_turns(
+            lambda: knn.search_certified(q, margin=28, precision="pq"),
+            lambda: one.search_certified(q, margin=28, precision="pq"))
+        # K7 on one shard: bitwise its plain version, timed
+        sub = knn._shards[(0, devs[0])]
+        entry = sub._pq_placement()
+        q_dev = torch.from_numpy(q).to(dev)
+        args = (ck.pq_luts(q_dev, entry["books"]), *entry["parts"])
+        ka = {"tile_n": ck.TILE_N, "arm": "pq"}
+        plain, k7_plain_ms = timed_once(
+            lambda: ck.binned_select_plain(*args, **ka))
+        k7_err = bitwise("binned_select_pq@mesh shard",
+                         ck.binned_select(*args, **ka), plain)
+        checks["k7_mesh"].max_abs_err = k7_err
+        del plain
+        k7_ms = time_cuda(lambda: ck.binned_select(*args, **ka), 3)
+        geo = ck.emit_geometry(ck.TILE_N)
+        m_sub = args[1].shape[1]
+        k7_bound = pq_bound(q.shape[0], sub._n_valid, m_sub,
+                            args[0].shape[1] // m_sub,
+                            args[-1].shape[1] // ck.TILE_N, geo[2], geo[3],
+                            n_sm, sm_clock_hz())
+        k7_rows, k7_padded = sub._n_valid, args[1].shape[0]
+        del args, sub, entry
+        # the mesh's own training bitwise the (1, 1)'s, on 65,536 rows and
+        # their first 32 dims: 8 of the 32 subspaces, each trained as the
+        # main placement's are (cuts for time: a subspace's farthest-point
+        # init alone takes ~0.4 s of host time)
+        rows = np.ascontiguousarray(db[:65_536, :32])
+        own_res, own_s = host_timed(lambda: ppq.train_pq(rows, mesh=mesh))
+        one_res, one_train_s = host_timed(
+            lambda: ppq.train_pq(rows, device=dev))
+        if not (np.array_equal(own_res.codebooks, one_res.codebooks)
+                and np.array_equal(own_res.codes, one_res.codes)):
+            raise AssertionError("mesh_paths: the mesh's pq training differs "
+                                 "from the (1, 1) training")
+        del own_res, one_res, rows
+        out["pq"] = {"queries": q.shape[0], "carried_s": carry_s,
+                     "runs": pq_runs,
+                     "seconds_mesh_vs_one_in_turns": pq_turns,
+                     "k7_shard": {"rows": k7_rows, "padded_rows": k7_padded,
+                                  "queries": q.shape[0], "ms": k7_ms,
+                                  "plain_ms": k7_plain_ms, "bound": k7_bound,
+                                  "bitwise_plain": True},
+                     "training_65536": {"dims": 32, "subspaces": 8,
+                                        "mesh_s": own_s,
+                                        "one_s": one_train_s,
+                                        "bitwise_one": True}}
+        records["k7_mesh"].update(
+            launches=k7_launches, ms=k7_ms, plain_ms=k7_plain_ms,
+            bound_ms=k7_bound["bound_ms"], bound_by=k7_bound["bound_by"])
+
+        # -- the pipeline: four 1,024-query batches, depth 2
+        pipe = {}
+        for kern, key in (("fused", "k11"), ("tiled", "k1")):
+            kw = dict(margin=28, kernel=kern, batch_size=1024)
+            (d, i, st), seq_s = run(f"{kern} sequential",
+                                    lambda kw=kw: knn.search_certified(
+                                        q_all, **kw), {key: 16})
+            (pd, pi, pst), pipe_s = run(
+                f"{kern} pipeline", lambda kw=kw: knn.search_certified(
+                    q_all, overlap=True, overlap_depth=2, **kw), {key: 16})
+            if not (np.array_equal(pd, d) and np.array_equal(pi, i)):
+                raise AssertionError(f"mesh_paths {kern}: the pipeline is "
+                                     f"not the sequential mesh call")
+            if pst["pipeline"]["batches"] != 4 or \
+                    pst["pipeline"]["depth"] != 2:
+                raise AssertionError(f"mesh_paths {kern}: pipeline stats "
+                                     f"{pst['pipeline']}")
+            (rd, ri, rst), one_s = run(
+                f"{kern} pipeline (1, 1)", lambda kw=kw: one.search_certified(
+                    q_all, overlap=True, overlap_depth=2, **kw), {key: 4})
+            rows_differ = held(f"mesh_paths {kern} pipeline", pd, pi, pst,
+                               rd, ri, rst)
+            pipe[kern] = {"launches": 16, "sequential_s": seq_s,
+                          "pipeline_s": pipe_s, "one_pipeline_s": one_s,
+                          "bitwise_sequential": True,
+                          "indices_bitwise_one": True,
+                          "d_rows_not_bitwise_one": rows_differ,
+                          "pipeline": pst["pipeline"],
+                          "fallback_queries": pst["fallback_queries"]}
+        kw = dict(margin=28, kernel="fused", batch_size=1024, overlap=True,
+                  overlap_depth=2)
+        pipe_turns = in_turns(lambda: knn.search_certified(q_all, **kw),
+                              lambda: one.search_certified(q_all, **kw))
+        # K11 on one shard at the pipeline's geometry (a 1,024-query
+        # batch, keep m + 2 = 130)
+        sub = knn._shards[(0, devs[0])]
+        spl = sub.placement
+        q1 = S["q_dev"][:1024]
+        parts = (spl.th, spl.tl, spl.tnorm)
+        k11_case = compare_k11(checks["k11_mesh"], q1, spl.db, ck.TILE_N, 130,
+                               parts=parts)
+        qp1 = ck.pad_queries(q1)
+        k11_ms = time_cuda(lambda: ck.fused_select(
+            qp1, *parts, tile_n=ck.TILE_N, keep=130, arm="bf16x3"), 3)
+        seg = ck.kernel_segment_tiles(1024, spl.th.shape[0] // ck.TILE_N,
+                                      q1.device, "fused", "bf16x3")
+        _, k11_plain_ms = timed_once(lambda: ck.fused_select_plain(
+            qp1, *parts, tile_n=ck.TILE_N, keep=130, block_q=ck.QUERY_BLOCK,
+            seg_tiles=seg, arm="bf16x3"))
+        n_p, dp = spl.th.shape
+        k11_bound = f32_bound(1024, spl.n_train, dp, n_p // ck.TILE_N,
+                              ck.SURVIVORS)
+        k11_rows = spl.n_train
+        del sub, spl, parts, qp1
+        records["k11_mesh"].update(
+            launches=pipe["fused"]["launches"], ms=k11_ms,
+            plain_ms=k11_plain_ms, bound_ms=k11_bound["bound_ms"],
+            bound_by=k11_bound["bound_by"])
+        # int8 on the draw cast to uint8: 1,024 queries in four batches
+        u8 = ShardedKNN(db.astype(np.uint8), k=k, mesh=mesh)
+        q8 = q.astype(np.uint8).astype(np.float32)
+        kw8 = dict(margin=28, precision="int8", kernel="tiled",
+                   batch_size=256)
+        (d8, i8, st8), int8_seq_s = run(
+            "int8 sequential", lambda: u8.search_certified(q8, **kw8),
+            {"tiled_int8": 16})
+        (p8d, p8i, p8st), int8_pipe_s = run(
+            "int8 pipeline", lambda: u8.search_certified(
+                q8, overlap=True, overlap_depth=2, **kw8),
+            {"tiled_int8": 16})
+        if not (np.array_equal(p8d, d8) and np.array_equal(p8i, i8)):
+            raise AssertionError("mesh_paths int8: the pipeline is not the "
+                                 "sequential mesh call")
+        del u8
+        pipe["int8"] = {"queries": 1024, "batches": 4, "launches": 16,
+                        "sequential_s": int8_seq_s,
+                        "pipeline_s": int8_pipe_s, "bitwise_sequential": True,
+                        "certified": p8st["certified"],
+                        "fallback_queries": p8st["fallback_queries"]}
+        out["pipeline"] = {
+            "queries": q_all.shape[0], "batch_size": 1024, "depth": 2,
+            "runs": pipe, "seconds_mesh_vs_one_in_turns": pipe_turns,
+            "k11_shard": {"rows": k11_rows, "queries": 1024, "keep": 130,
+                          "ms": k11_ms, "plain_ms": k11_plain_ms,
+                          "bound": k11_bound, **k11_case}}
+        torch.cuda.empty_cache()
+
+        # -- search_bucketed: the bench trace's first 16 requests
+        t_rng = np.random.default_rng(42)
+        sizes = np.exp(t_rng.uniform(0.0, np.log(512), size=48)).astype(
+            np.int64).clip(1, 512)
+        reqs = []
+        for size in sizes[:16]:
+            lo = int(t_rng.integers(0, max(1, q_all.shape[0] - int(size))))
+            reqs.append(q_all[lo:lo + int(size)])
+        ladder = dict(min_bucket=16, max_bucket=512)
+        (served, bucketed_s) = host_timed(
+            lambda: [knn.search_bucketed(r, **ladder) for r in reqs])
+        buckets = knn._serving_engines[(None, 16, 512)].buckets
+        for req, res in zip(reqs, served):
+            if not all_equal(res, padded_search(knn.search, buckets, req)):
+                raise AssertionError("mesh_paths search_bucketed: a request "
+                                     "differs from the eager mesh search")
+        bucket_turns = in_turns(
+            lambda: [knn.search_bucketed(r, **ladder) for r in reqs],
+            lambda: [one.search_bucketed(r, **ladder) for r in reqs])
+        out["search_bucketed"] = {
+            "requests": len(reqs), "ladder": list(buckets),
+            "first_pass_s": bucketed_s,
+            "bitwise_eager_mesh_search": True,
+            "compile_cache": knn.compile_cache_stats()["program_cache"],
+            "seconds_mesh_vs_one_in_turns": bucket_turns}
+        out["phase_s"] = time.perf_counter() - t_phase
         emit(out)
 
     def phase_obs(S):
@@ -5957,7 +6341,8 @@ def main(argv=None) -> int:
         del eng
         torch.cuda.empty_cache()
 
-    if phases & {"main", "mesh", "tiers_mesh", "obs", "campaign", "stream",
+    if phases & {"main", "mesh", "tiers_mesh", "mesh_paths", "obs",
+                  "campaign", "stream",
                   "selectors",
                   "metrics", "quant",
                   "f32arms", "pq", "lane", "survivors", "tune", "index",
@@ -6004,6 +6389,8 @@ def main(argv=None) -> int:
         # above (obs on / off) run in the order they were calibrated in
         if "tiers_mesh" in phases:
             phase_tiers_mesh(sift_data())
+        if "mesh_paths" in phases:
+            phase_mesh_paths(sift_data())
         sift.clear()  # frees the placement before the classify job
         torch.cuda.empty_cache()
 

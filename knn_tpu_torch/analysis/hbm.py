@@ -1,10 +1,12 @@
 """Analytic device-memory and host-to-device byte accounting — the port's
-copy of knn_tpu/analysis/hbm.py for one card: the bytes a database
-placement holds (:func:`placement_bytes`), the host-RAM tier's segment plan
-under a byte budget (:func:`plan_segments`, :func:`n_sweeps`), query block
+copy of knn_tpu/analysis/hbm.py: the bytes a database placement holds
+(:func:`placement_bytes`), the host-RAM tier's segment plan under a
+per-host byte budget, each segment a multiple of the db shards
+(:func:`plan_segments`, :func:`n_sweeps`), query block
 bytes and the join's superblock plan (:func:`plan_superblocks`), and the
 join's sweep-nesting plan (:func:`plan_join`, with a resident or a
-streamed corpus).  Queries are float32 rows.
+streamed corpus).  Queries are float32 rows.  On one device
+(``hosts=1``, ``shard_multiple=1``) the plan is the one-card plan.
 
 The placement bytes are the JAX package's model (the f32 rows plus one
 f32 aux value per row): the tier streams the f32 rows, and plans the same
@@ -25,43 +27,57 @@ QUERY_ITEMSIZE = 4
 AUX_BYTES_PER_ROW = _widths.AUX_BYTES_PER_ROW
 
 
-def placement_bytes(n_rows: int, dim: int) -> int:
-    """Device bytes a ``[n_rows, dim]`` float32 placement occupies: the
-    value matrix plus the per-row aux value."""
+def placement_bytes(n_rows: int, dim: int, itemsize: int = 4) -> int:
+    """Device bytes a ``[n_rows, dim]`` placement occupies across the mesh:
+    the value matrix at ``itemsize`` bytes an element plus the per-row aux
+    value."""
     n_rows, dim = int(n_rows), int(dim)
     if n_rows < 0 or dim <= 0:
         raise ValueError(f"bad placement shape ({n_rows}, {dim})")
-    return n_rows * (dim * QUERY_ITEMSIZE + AUX_BYTES_PER_ROW)
+    return n_rows * (dim * int(itemsize) + AUX_BYTES_PER_ROW)
 
 
-def rows_for_budget(budget_bytes: int, dim: int) -> int:
-    """The largest row count whose placement fits ``budget_bytes``."""
+def rows_for_budget(budget_bytes: int, dim: int, *, itemsize: int = 4,
+                    hosts: int = 1, shard_multiple: int = 1) -> int:
+    """The largest row count whose per-host placement share fits
+    ``budget_bytes`` (the budget is per host: ``hosts`` of them hold a
+    segment), rounded down to ``shard_multiple`` (the db shards: a
+    segment divides evenly over them)."""
     if budget_bytes <= 0:
         raise ValueError(f"budget_bytes must be > 0, got {budget_bytes}")
-    return int(budget_bytes) // placement_bytes(1, dim)
+    per_row = int(dim) * int(itemsize) + AUX_BYTES_PER_ROW
+    rows = (int(budget_bytes) * max(1, int(hosts))) // per_row
+    return (rows // shard_multiple) * shard_multiple
 
 
-def plan_segments(n_rows: int, dim: int,
-                  budget_bytes: int) -> List[Tuple[int, int]]:
+def plan_segments(n_rows: int, dim: int, budget_bytes: int, *,
+                  itemsize: int = 4, hosts: int = 1,
+                  shard_multiple: int = 1) -> List[Tuple[int, int]]:
     """``[(lo, hi), ...]`` row segments covering ``[0, n_rows)``, every
-    segment's placed bytes within ``budget_bytes`` and every segment the
-    same padded width (``segment_rows``: the ragged tail pads up, so every
-    sweep has one shape).  Raises when the budget cannot hold one row."""
+    segment's per-host placed bytes within ``budget_bytes``, every segment
+    the same padded width (``segment_rows``, a multiple of
+    ``shard_multiple``: the ragged tail pads up, so every sweep has one
+    shape).  Raises when the budget cannot hold one ``shard_multiple`` of
+    rows."""
     n_rows = int(n_rows)
     if n_rows <= 0:
         raise ValueError(f"n_rows must be > 0, got {n_rows}")
-    seg = rows_for_budget(budget_bytes, dim)
-    if seg < 1:
+    seg = rows_for_budget(budget_bytes, dim, itemsize=itemsize, hosts=hosts,
+                          shard_multiple=shard_multiple)
+    if seg < shard_multiple or seg < 1:
         raise ValueError(
-            f"hbm budget {budget_bytes} B cannot hold even 1 row of dim "
-            f"{dim} at {QUERY_ITEMSIZE} B/elem; raise the budget")
-    seg = min(seg, n_rows)
+            f"hbm budget {budget_bytes} B/host cannot hold even "
+            f"{shard_multiple} rows of dim {dim} at {itemsize} B/elem; "
+            f"raise the budget or use fewer db shards")
+    seg = min(seg, -(-n_rows // shard_multiple) * shard_multiple)
     return [(lo, min(lo + seg, n_rows)) for lo in range(0, n_rows, seg)]
 
 
-def n_sweeps(n_rows: int, dim: int, budget_bytes: int) -> int:
+def n_sweeps(n_rows: int, dim: int, budget_bytes: int, *, itemsize: int = 4,
+             hosts: int = 1, shard_multiple: int = 1) -> int:
     """The sweep count the plan implies."""
-    return len(plan_segments(n_rows, dim, budget_bytes))
+    return len(plan_segments(n_rows, dim, budget_bytes, itemsize=itemsize,
+                             hosts=hosts, shard_multiple=shard_multiple))
 
 
 def query_block_bytes(n_rows: int, dim: int) -> int:

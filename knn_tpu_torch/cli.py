@@ -269,22 +269,18 @@ def build_join_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _cli_mesh(device, *, tiered: bool = False):
+def _cli_mesh(device):
     """The placement mesh of ``join``, ``loadgen`` and ``index --selftest``
     (knn_tpu/cli.py:397-405, 1172-1180, 1317-1335 build theirs on
     ``make_mesh()``): every visible card on the query axis for ``--device``
     None or ``cuda``, else the one-device mesh on ``--device``.  On one
-    card, and on the CPU, it is the (1, 1) mesh.  A ``tiered`` placement
-    (``--hbm-budget-bytes``) takes the first card's (1, 1) mesh: the
-    host-RAM tier on a mesh is queued (ROADMAP queue A item 4.2)."""
+    card, and on the CPU, it is the (1, 1) mesh.  A tiered placement
+    (``--hbm-budget-bytes``) takes the same mesh, as the JAX CLI's does."""
     from knn_tpu_torch.parallel.mesh import make_mesh
 
     if device is not None and str(device) != "cuda":
         return make_mesh(1, 1, devices=[device])
-    mesh = make_mesh()
-    if tiered and mesh.size > 1:
-        mesh = make_mesh(1, 1, devices=[mesh.devices.flat[0]])
-    return mesh
+    return make_mesh()
 
 
 def run_join(args: argparse.Namespace) -> int:
@@ -307,9 +303,7 @@ def run_join(args: argparse.Namespace) -> int:
     db = rng.random(size=(args.n, args.dim)).astype(np.float32)
     qa = rng.random(size=(args.rows, args.dim)).astype(np.float32)
     prog = ShardedKNN(db, k=args.k, metric=args.metric,
-                      mesh=_cli_mesh(
-                          args.device,
-                          tiered=args.hbm_budget_bytes is not None),
+                      mesh=_cli_mesh(args.device),
                       hbm_budget_bytes=args.hbm_budget_bytes)
     _, _, stats = knn_join(
         prog, qa, mode=args.mode, superblock_rows=args.superblock,

@@ -181,10 +181,12 @@ def pq_from_numpy(knn, codebooks: np.ndarray, codes: np.ndarray,
     (``pq_bound_stats``), ``dsub`` and ``dim`` — into the pq placement of
     the port's ``ShardedKNN`` ``knn`` (its rows must be the ones the codes
     encode), so both packages score the same codes whatever their k-means
-    would train.  ``ncodes`` names the placement's geometry (None: the
-    codebooks' C).  Returns the placement (``ShardedKNN._place_pq``)."""
-    if dim != knn.placement.db_host.shape[1]:
+    would train (on a mesh each db shard takes its block of the codes).
+    ``ncodes`` names the placement's geometry (None: the codebooks' C).
+    Returns the placement (``ShardedKNN._place_pq``)."""
+    width = knn._host_train().shape[1]
+    if dim != width:
         raise ValueError(
             f"the codes encode {dim}-dim rows, the placement holds "
-            f"{knn.placement.db_host.shape[1]}-dim ones")
+            f"{width}-dim ones")
     return knn._place_pq(codebooks, codes, stats, dsub=dsub, ncodes=ncodes)

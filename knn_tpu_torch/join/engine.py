@@ -32,9 +32,10 @@ copies each db segment up once and runs every superblock against it,
 ``query_major`` places each superblock once and streams every segment
 past it; each superblock's top-k carry merges on the card in the
 lexicographic ``(distance, index)`` order, so the join is bitwise the
-looped host-tier ``search`` at the same block shape.  (The host-RAM
-tier on a mesh is queued, ROADMAP queue A item 4.2: ``ShardedKNN``
-refuses that placement.)
+looped host-tier ``search`` at the same block shape.  On a mesh the
+tier's segment program is the mesh's (each segment's blocks over the db
+shards, the queries over the query shards, the shards' lists merged onto
+the first device, where the carry merges).
 
 Every run returns ``(d, i, stats)``; ``stats`` carries the executed
 superblock / segment / dispatch counts (checked against the
@@ -339,7 +340,7 @@ def knn_join(
         if mode == "stream" and k > placed:
             raise ValueError(f"k={k} exceeds the {placed} placed rows")
         shard_rows = program._shard_rows()
-        if mode == "stream" and tier is None and k > shard_rows:
+        if mode == "stream" and k > shard_rows:
             raise ValueError(
                 f"k={k} exceeds db shard size {shard_rows}; use fewer db "
                 f"shards")

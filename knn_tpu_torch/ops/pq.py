@@ -4,7 +4,7 @@ port's copy of knn_tpu/ops/pq.py, behind the coarse kernels'
 
 The numpy functions are copied verbatim.  Training is the seeded,
 deterministic k-means of knn_tpu_torch.ivf.kmeans (farthest-point init,
-exact k=1 assign on the caller's device, host float64 update), one
+exact k=1 assign on the caller's device or mesh, host float64 update), one
 ``seed + s`` per subspace.  A row becomes ``m = ceil(d / dsub)`` bytes,
 one code per subspace; the kernel scores it through a per-query lookup
 table
@@ -77,11 +77,12 @@ def _pad_dim(x: np.ndarray, width: int) -> np.ndarray:
     return out
 
 
-def train_pq(rows: np.ndarray, *, device: DeviceLike = None, dsub: int = 4,
-             ncodes: int = 256, iters: int = 5, seed: int = 0,
+def train_pq(rows: np.ndarray, *, device: DeviceLike = None, mesh=None,
+             dsub: int = 4, ncodes: int = 256, iters: int = 5, seed: int = 0,
              train_tile: Optional[int] = None) -> PQResult:
     """Train per-subspace codebooks with the seeded deterministic k-means
-    (assign on ``device``, None = cuda) and encode ``rows``.  ``seed + s``
+    (assign on ``device``, None = cuda, or on ``mesh``: not both, as
+    ivf.kmeans.train_kmeans takes them) and encode ``rows``.  ``seed + s``
     seeds subspace ``s``."""
     from knn_tpu_torch.ivf.kmeans import train_kmeans
 
@@ -100,7 +101,7 @@ def train_pq(rows: np.ndarray, *, device: DeviceLike = None, dsub: int = 4,
     c_eff = min(int(ncodes), n)
     for s in range(m):
         sub = padded[:, s * dsub : (s + 1) * dsub]
-        km = train_kmeans(sub, c_eff, device=device, iters=iters,
+        km = train_kmeans(sub, c_eff, device=device, mesh=mesh, iters=iters,
                           seed=seed + s, train_tile=train_tile)
         books.append(km.centroids)
         codes.append(km.assign)
@@ -111,12 +112,13 @@ def train_pq(rows: np.ndarray, *, device: DeviceLike = None, dsub: int = 4,
 
 
 def encode_pq(rows: np.ndarray, codebooks: np.ndarray, *,
-              device: DeviceLike = None, dsub: int,
+              device: DeviceLike = None, mesh=None, dsub: int,
               train_tile: Optional[int] = None) -> np.ndarray:
     """Encode new rows against trained codebooks (the same k=1 assign as
-    training, per subspace).  Returns uint8 [N, m].  Freshly encoded rows
-    can exceed the hoisted ``r_s`` maxima: refresh the stats
-    (:func:`pq_bound_stats`) before certifying against them."""
+    training, per subspace, on ``device`` or ``mesh``).  Returns uint8
+    [N, m].  Freshly encoded rows can exceed the hoisted ``r_s`` maxima:
+    refresh the stats (:func:`pq_bound_stats`) before certifying against
+    them."""
     from knn_tpu_torch.ivf.kmeans import assign_lists
 
     rows = np.asarray(rows, np.float32)
@@ -126,7 +128,7 @@ def encode_pq(rows: np.ndarray, codebooks: np.ndarray, *,
     for s in range(m):
         sub = padded[:, s * dsub : (s + 1) * dsub]
         cols.append(assign_lists(sub, codebooks[s], device=device,
-                                 train_tile=train_tile))
+                                 mesh=mesh, train_tile=train_tile))
     return np.stack(cols, axis=1).astype(np.uint8)
 
 

@@ -110,10 +110,8 @@ def make_mesh(query_shards: Optional[int] = None, db_shards: int = 1, *,
     """A 2-D :class:`Mesh` with axes ``(QUERY_AXIS, DB_AXIS)``.
 
     ``query_shards=None`` takes every device left after ``db_shards``.  A
-    one-device mesh (1, 1) runs ShardedKNN's one-device programs (the
-    only ones that also run the host-RAM tier, pq, the pipeline and
-    serving); every other mesh runs its mesh programs, one one-device
-    placement a shard.
+    one-device mesh (1, 1) runs ShardedKNN's one-device programs; every
+    other mesh runs its mesh programs, one one-device placement a shard.
     ``devices`` defaults to the visible cards; a list that repeats a
     device makes a logical mesh (module docstring)."""
     devices = _devices(devices)

@@ -36,30 +36,34 @@ programs follow the JAX code path:
 
 The host-RAM tier (the JAX package's, sharded.py:650-975): with
 ``hbm_budget_bytes`` a database whose placement (analysis.hbm's byte
-model) exceeds the budget is never placed.  Its prepared rows stay on the
-host, split into budget-sized segments (``hbm.plan_segments``), and
-``search`` sweeps them through :func:`segment_search_program`, every
-segment padded to one shape with ``PAD_VAL``: each segment is copied into
-one of ``hosttier_depth`` pinned staging buffers, up to the card on a side
-stream behind an event into that slot's device buffer, searched, and its
-top-k merged into a carry on the card in the lexicographic ``(distance,
-index)`` order (ops.topk.merge_topk).  At most ``hosttier_depth`` sweeps
-are in flight: a staging buffer is refilled once its copy has finished, a
-device buffer once the sweep that read it has.  The budget bounds a
-segment, not the card: the tier keeps its ``hosttier_depth`` device
-buffers from its first search on, and a sweep's search adds a workspace
-sized to at most one budget (its query blocks, the segment's norms), so a
-search holds about ``hosttier_depth + 1`` budgets on the card (cosine one
-more: its normalized segment), besides the queries and the top-k carry.
-The paths that read the whole database (certified search, predict, radius
-search, bucketed serving) refuse such a placement by name.
+model) exceeds the budget a host is never placed.  Its prepared rows stay
+on the host, split into segments of at most a budget a host, each a
+multiple of the db shards (``hbm.plan_segments``), and ``search`` sweeps
+them through :func:`segment_search_program` on the placement's device or
+mesh, every segment padded to one shape with ``PAD_VAL``: each segment is
+copied into one of ``hosttier_depth`` pinned staging buffers, up to every
+distinct device of the mesh on a side stream of its own behind an event
+into that slot's buffer there (the blocks of the db shards the device
+holds), searched, and its top-k merged into a carry on the first device
+in the lexicographic ``(distance, index)`` order (ops.topk.merge_topk).
+At most ``hosttier_depth`` sweeps are in flight: a staging buffer is
+refilled once its copies have finished, a device buffer once the sweep
+that read it has.  The budget bounds a segment, not the card: the tier
+keeps its ``hosttier_depth`` device buffers from its first search on, and
+a sweep's search adds a workspace sized to at most one budget (its query
+blocks, the segment's norms), so a search holds about ``hosttier_depth +
+1`` budgets on the card (cosine one more: its normalized segment),
+besides the queries and the top-k carry.  The paths that read the whole
+database (certified search, predict, radius search, bucketed serving)
+refuse such a placement by name.
 
 Batches run on the card while the host repairs earlier ones: each batch's
 certify output is copied into pinned host memory behind a CUDA event of
 its own, and the host waits on that event alone.  ``overlap=True`` runs
-the two-stage pipeline of the JAX package (sharded.py:1966-2011): the
-coarse kernel on one CUDA stream, the select/rescore/certify tail on a
-second, at most ``overlap_depth`` batches in flight.
+the two-stage pipeline of the JAX package (sharded.py:1966-2011) on any
+mesh: every shard's coarse kernel on a coarse CUDA stream of its device,
+the select/rescore/merge/certify tail on a tail stream, at most
+``overlap_depth`` batches in flight.
 
 Telemetry (knn_tpu_torch.obs, sharded.py:1632-1642, 1767-1769,
 1923-1942, 2007-2008 of the JAX package): every certified call adds its
@@ -75,6 +79,7 @@ device tensor.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -479,6 +484,26 @@ def _run_on_mesh(mesh: Mesh, q: torch.Tensor, local, keep: int, merge: str,
     return torch.cat(outs_d)[:n_q], torch.cat(outs_i)[:n_q]
 
 
+def _tensors(x):
+    """Every tensor in the nested tuples / lists ``x`` (None passes)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
+@contextlib.contextmanager
+def _current_streams(streams: dict, which: int, first: torch.device):
+    """Makes stream ``which`` of each device's pair in ``streams`` its
+    device's current stream, ``first``'s last, so that ``first`` is the
+    current device inside (where the host copies record their events)."""
+    with contextlib.ExitStack() as stack:
+        for dev in sorted(streams, key=lambda d: d == first):
+            stack.enter_context(torch.cuda.stream(streams[dev][which]))
+        yield
+
+
 def _position(mesh: Mesh, r: int, h: int, c: int) -> tuple:
     """The mesh index of grid3's position ``[r, h, c]``."""
     return (r, h, c) if len(mesh.axis_names) == 3 else (r, c)
@@ -518,20 +543,22 @@ class ShardedKNN:
     either way.  The
     certificate's exclusion bounds take the minimum across db shards, the
     counts the sum.  The tiers (index.MutableIndex, ivf.IVFIndex, the
-    join, streaming, serving.ServingEngine) run on such a placement
-    through :func:`query_stream_program` / :func:`segment_search_program`
-    on its mesh and its certified search; ``precision="pq"``, the host-RAM
-    tier, the pipeline (``overlap=True``) and ``search_bucketed`` are
-    refused on a mesh with more than one db shard (ROADMAP queue A item
-    4.2).
+    join, streaming, serving.ServingEngine, ``search_bucketed``) run on
+    such a placement through :func:`query_stream_program` /
+    :func:`segment_search_program` on its mesh and its certified search;
+    ``precision="pq"`` trains its codebooks once on every row and places
+    each db shard's codes on it, and the pipeline (``overlap=True``) runs
+    every shard's coarse kernel on its device's coarse stream.
 
     ``hbm_budget_bytes`` (None: no budget) runs a host array whose
-    placement would exceed it in the host-RAM tier (module docstring;
-    ``hbm.placement_bytes`` of the prepared rows), with ``hosttier_depth``
-    sweeps in flight; a :class:`Placement` or a tensor over the budget is
-    refused, one within it placed as without a budget.  The budget sizes
-    the tier's segments: a search holds about ``hosttier_depth + 1``
-    budgets on the card (module docstring).  One tier search runs at a
+    placement would exceed it a host in the host-RAM tier on any mesh
+    (module docstring; ``hbm.placement_bytes`` of the prepared rows,
+    padded to the db shards), with ``hosttier_depth`` sweeps in flight;
+    rows already placed (a :class:`Placement`, a tensor, rows placed over
+    the mesh) beyond the budget are refused, ones within it placed as
+    without a budget.  The budget sizes the tier's segments: a search
+    holds about ``hosttier_depth + 1`` budgets on the card (module
+    docstring).  One tier search runs at a
     time; concurrent callers wait for each other."""
 
     def __init__(self, train, *, k: int, metric: str = "l2",
@@ -590,11 +617,11 @@ class ShardedKNN:
         #: the host-RAM tier's plan (None: the database is placed)
         self._host_tier: Optional[dict] = None
         #: its prepared host rows; on the card its slots (a pinned staging
-        #: buffer, a device segment buffer and their last events each) and
-        #: copy stream, made at the first search
+        #: buffer, a device buffer a distinct device of the mesh and their
+        #: last events) and a copy stream a device, made at the first search
         self._host_rows = None
         self._slots = None
-        self._copy_stream = None
+        self._copy_streams = None
         self._last_hosttier: Optional[dict] = None
         #: one tier search or tiered join at a time: they share the slots
         self._tier_lock = threading.Lock()
@@ -604,6 +631,8 @@ class ShardedKNN:
                     f"rows placed over a mesh carry no placement-time "
                     f"normalization or augmentation; metric {metric!r} "
                     f"needs a host array")
+            if budget is not None:
+                self._refuse_placed_over_budget(*train.shape, budget)
             rows_all = train.gather().numpy()
             n_train = rows_all.shape[0] if n_train is None else int(n_train)
             if not 0 < n_train <= rows_all.shape[0]:
@@ -616,7 +645,7 @@ class ShardedKNN:
         self.train_tile = train_tile
         if hosts * chips > 1:
             self._init_db_sharded(train, k, metric, labels, num_classes,
-                                  budget)
+                                  budget, int(hosttier_depth))
         else:
             self._init_one_shard(train, k, metric, labels, num_classes,
                                  budget, int(hosttier_depth))
@@ -650,22 +679,11 @@ class ShardedKNN:
         """The placement of a mesh with one db shard, on its first device
         (the other query shards' devices get theirs at first use)."""
         device = self.mesh.devices.flat[0]
-        if self.mesh.size > 1 and budget is not None:
-            raise ValueError(
-                "hbm_budget_bytes: the host-RAM tier runs on a one-device "
-                "mesh only (on a mesh it is queued, ROADMAP queue A item "
-                "4.2)")
         if budget is not None and isinstance(train, (Placement,
                                                      torch.Tensor)):
-            n, width = ((train.n_train, train.db.shape[1])
-                        if isinstance(train, Placement) else
-                        tuple(train.shape))
-            if hbm.placement_bytes(n, width) > budget:
-                raise ValueError(
-                    f"hbm_budget_bytes={budget} cannot hold this {n}-row "
-                    f"placement, and the host-RAM tier needs a host-array "
-                    f"construction to stream from; pass the rows as a "
-                    f"numpy array (or raise the budget)")
+            self._refuse_placed_over_budget(
+                *((train.n_train, train.db.shape[1])
+                  if isinstance(train, Placement) else train.shape), budget)
         if isinstance(train, Placement):
             if labels is not None:
                 raise ValueError(
@@ -682,7 +700,7 @@ class ShardedKNN:
                     hbm.placement_bytes(*rows.rows.shape) > budget:
                 pl = None
                 self._plan_host_tier(rows, int(budget), depth, k, labels,
-                                     num_classes, device)
+                                     num_classes)
             else:
                 pl = place_host_rows(rows, labels, num_classes, device=device)
         if pl is not None:
@@ -698,23 +716,28 @@ class ShardedKNN:
         self.placement = pl
 
     def _init_db_sharded(self, train, k, metric, labels, num_classes,
-                         budget) -> None:
+                         budget, depth) -> None:
         """The placement of a mesh with several db shards (the JAX
         package's sharded.py:596-648): the prepared host rows padded with
         ``PAD_VAL`` to a multiple of the db shards, shard j's block placed
-        on every device at db position j."""
+        on every device at db position j — or, past ``budget`` a host
+        (sharded.py:672-724), the host-RAM tier's plan."""
         if isinstance(train, Placement):
             raise ValueError(
                 "a Placement holds one device's rows; pass the host rows to "
                 "shard them over the mesh")
-        if budget is not None:
-            raise ValueError(
-                "hbm_budget_bytes: the host-RAM tier on a mesh with several "
-                "db shards is queued (ROADMAP queue A item 4.2)")
+        if budget is not None and isinstance(train, torch.Tensor):
+            self._refuse_placed_over_budget(*train.shape, budget)
         rows = host_rows(train, metric)
         n = rows.rows.shape[0]
         n_shards = self.db_shards
         padded, _ = pad_to_multiple(rows.rows, n_shards, fill=PAD_VAL)
+        if budget is not None and hbm.placement_bytes(*padded.shape) > \
+                budget * db_topology(self.mesh)[0]:
+            self.placement = None
+            self._plan_host_tier(rows, int(budget), depth, k, labels,
+                                 num_classes)
+            return
         per = padded.shape[0] // n_shards
         if k > per:
             raise ValueError(
@@ -751,6 +774,18 @@ class ShardedKNN:
             self._shards[(j, dev)] = self._shard_knn(
                 block, dev, k, n_valid=int(np.clip(n - j * per, 0, per)),
                 offset=j * per)
+
+    def _refuse_placed_over_budget(self, n: int, width: int,
+                                   budget: int) -> None:
+        """Rows already placed (a :class:`Placement` or a tensor) have no
+        host copy for the tier to stream from: over the budget a host they
+        are refused (sharded.py:672-689)."""
+        if hbm.placement_bytes(n, width) > budget * db_topology(self.mesh)[0]:
+            raise ValueError(
+                f"hbm_budget_bytes={budget} cannot hold this {n}-row "
+                f"placement, and the host-RAM tier needs a host-array "
+                f"construction to stream from; pass the rows as a numpy "
+                f"array (or raise the budget)")
 
     def _shard_knn(self, block: np.ndarray, dev: torch.device, k: int, *,
                    n_valid: int, offset: int) -> "ShardedKNN":
@@ -861,7 +896,7 @@ class ShardedKNN:
         :func:`query_stream_program` on this mesh (the JAX package's
         ``_tp``)."""
         if self._placed is None:
-            self._require_resident("placed_db", mesh_ok=True)
+            self._require_resident("placed_db")
             parts = np.empty(self.mesh.devices.shape, dtype=object)
             grid = grid3(self.mesh)
             chips = grid.shape[2]
@@ -947,16 +982,23 @@ class ShardedKNN:
 
     # -- the host-RAM tier --------------------------------------------------
     def _plan_host_tier(self, rows, budget: int, depth: int, k: int,
-                        labels, num_classes, device: DeviceLike) -> None:
-        """The tier's plan for prepared host ``rows`` over ``budget``
-        (sharded.py:693-723): the segments, their padded width and bytes."""
+                        labels, num_classes) -> None:
+        """The tier's plan for prepared host ``rows`` over ``budget`` a host
+        (sharded.py:693-723): the segments, each a multiple of the db
+        shards, their padded width and bytes."""
+        hosts, chips = db_topology(self.mesh)
         n, width = rows.rows.shape
-        segments = hbm.plan_segments(n, width, budget)
+        segments = hbm.plan_segments(n, width, budget, hosts=hosts,
+                                     shard_multiple=hosts * chips)
         seg_rows = segments[0][1] - segments[0][0]
-        if k > min(n, seg_rows):
+        per = seg_rows // (hosts * chips)
+        if k > min(n, per):
             raise ValueError(
                 f"k={k} exceeds the {seg_rows}-row host-tier segment; "
-                f"raise hbm_budget_bytes")
+                f"raise hbm_budget_bytes" if per == seg_rows else
+                f"k={k} exceeds db shard size {per} of the {seg_rows}-row "
+                f"host-tier segment; use fewer db shards or raise "
+                f"hbm_budget_bytes")
         if labels is not None:
             if num_classes is None:
                 raise ValueError("labels given without num_classes")
@@ -964,12 +1006,13 @@ class ShardedKNN:
                 raise ValueError(
                     f"labels shape {np.asarray(labels).shape} != "
                     f"(n_train,) = ({n},)")
-        self.device = resolve_device(device)
+        self.device = self.mesh.devices.flat[0]
         self.metric = rows.metric
         self.n_train = n
         self.num_classes = num_classes
         self.dim_in = rows.dim_in
         self._host_rows = rows
+        self._rows_per_shard = per
         self._host_tier = {
             "segments": segments,
             "segment_rows": seg_rows,
@@ -980,24 +1023,16 @@ class ShardedKNN:
         }
         obs.gauge(_mn.HOSTTIER_SEGMENT_ROWS).set(float(seg_rows))
 
-    def _require_resident(self, what: str, *, mesh_ok: bool = False) -> None:
+    def _require_resident(self, what: str) -> None:
         """The paths that read the whole placed database refuse the
-        host-RAM tier, which only ever has one segment on the card; those
-        not ``mesh_ok`` also refuse a mesh with several db shards, which
-        holds a block a shard (``search_bucketed`` and the pipeline there
-        are queued, ROADMAP queue A item 4.2)."""
+        host-RAM tier, which only ever has one segment on the devices
+        (sharded.py:766-775)."""
         if self._host_tier is not None:
             raise ValueError(
                 f"{what} needs the full database resident on device, but "
                 f"this placement runs the host-RAM shard tier (corpus "
-                f"exceeds the {self._host_tier['budget_bytes']}-byte HBM "
-                f"budget); use search(), or raise the budget")
-        if self.placement is None and not mesh_ok:
-            raise ValueError(
-                f"{what} needs the whole database on one device, but this "
-                f"placement shards it over {self.db_shards} db shards of a "
-                f"mesh ({what} on such a mesh is queued, ROADMAP queue A "
-                f"item 4.2)")
+                f"exceeds the {self._host_tier['budget_bytes']}-byte "
+                f"per-host HBM budget); use search(), or raise the budget")
 
     def hosttier_stats(self) -> Optional[dict]:
         """The host-RAM tier's plan and its last search's measurements
@@ -1012,51 +1047,89 @@ class ShardedKNN:
         return out
 
     def _hosttier_slots(self):
-        """The tier's ``depth`` slots and copy stream, made at the first
-        search on the card and kept: each slot a pinned staging buffer, a
-        device segment buffer and the events of its last copy (``copied``)
-        and of the last work that read it (``done``).  The device buffers
-        may reuse blocks that work still queued on the current stream
-        reads, so the copy stream waits for that work once, here."""
+        """The tier's ``depth`` slots and a copy stream a distinct device
+        of the mesh, made at the first search on the card and kept.  A slot
+        is a pinned staging buffer of one segment, one device buffer a
+        distinct device holding the blocks of the db shards placed there
+        (one block a shard, shared by its query shards: a logical mesh of
+        one card holds one segment), the views the segment program reads
+        (a :class:`~knn_tpu_torch.parallel.collectives.Placed` on a mesh),
+        and per device the events of its last copy (``copied``) and of the
+        last work that read it (``done``).  The device buffers may reuse
+        blocks that work still queued on a device's current stream reads,
+        so each copy stream waits for that work once, here."""
         if self._slots is None:
-            shape = (self._host_tier["segment_rows"],
-                     self._host_rows.rows.shape[1])
-            self._copy_stream = torch.cuda.Stream(self.device)
-            self._slots = [
-                {"host": torch.empty(shape, dtype=torch.float32,
-                                     pin_memory=True),
-                 "dev": torch.empty(shape, dtype=torch.float32,
-                                    device=self.device),
-                 "copied": None, "done": None}
-                for _ in range(self._host_tier["depth"])]
-            self._copy_stream.wait_stream(
-                torch.cuda.current_stream(self.device))
-        return self._slots, self._copy_stream
+            width = self._host_rows.rows.shape[1]
+            seg_rows = self._host_tier["segment_rows"]
+            per = self._shard_rows()
+            grid = grid3(self.mesh)
+            chips = grid.shape[2]
+            # the db shards each distinct device holds, in shard order
+            held: dict = {}
+            for r, h, c in np.ndindex(*grid.shape):
+                held.setdefault(grid[r, h, c], set()).add(h * chips + c)
+            self._copy_streams = {dev: torch.cuda.Stream(dev) for dev in held}
+            self._slots = []
+            for _ in range(self._host_tier["depth"]):
+                slot = {"host": torch.empty((seg_rows, width),
+                                            dtype=torch.float32,
+                                            pin_memory=True),
+                        "dev": {}, "copies": {}, "copied": {}, "done": {}}
+                block = {}
+                for dev, js in held.items():
+                    buf = torch.empty((len(js) * per, width),
+                                      dtype=torch.float32, device=dev)
+                    slot["dev"][dev] = buf
+                    slot["copies"][dev] = []
+                    for b, j in enumerate(sorted(js)):
+                        block[(j, dev)] = buf[b * per:(b + 1) * per]
+                        slot["copies"][dev].append(
+                            (block[(j, dev)], j * per, (j + 1) * per))
+                if self._on_mesh():
+                    parts = np.empty(self.mesh.devices.shape, dtype=object)
+                    for r, h, c in np.ndindex(*grid.shape):
+                        parts[_position(self.mesh, r, h, c)] = block[
+                            (h * chips + c, grid[r, h, c])]
+                    slot["seg"] = Placed(self.mesh, parts, db_axes(self.mesh),
+                                         0, (seg_rows, width))
+                else:
+                    slot["seg"] = slot["dev"][self.device]
+                self._slots.append(slot)
+            for dev, stream in self._copy_streams.items():
+                stream.wait_stream(torch.cuda.current_stream(dev))
+        return self._slots, self._copy_streams
 
     def _hosttier_program(self, k: int):
-        """The tier's segment program: its query blocks keep one sweep's
-        search workspace within the budget (``_HOSTTIER_SCORE_BYTES`` a
-        score)."""
-        return segment_search_program(
-            k, self.metric, train_tile=self.train_tile,
-            compute_dtype=self._dtype_key, device=self.device,
-            block_elems=max(1, self._host_tier["budget_bytes"]
-                            // _HOSTTIER_SCORE_BYTES))
+        """The tier's segment program on this placement's device or mesh
+        (the JAX package's ``_hosttier_program``): its query blocks keep
+        one sweep's search workspace within the budget
+        (``_HOSTTIER_SCORE_BYTES`` a score)."""
+        kw = dict(train_tile=self.train_tile, compute_dtype=self._dtype_key,
+                  block_elems=max(1, self._host_tier["budget_bytes"]
+                                  // _HOSTTIER_SCORE_BYTES))
+        if self._on_mesh():
+            return segment_search_program(k, self.metric, mesh=self.mesh,
+                                          merge=self.merge,
+                                          dcn_merge=self.dcn_merge, **kw)
+        return segment_search_program(k, self.metric, device=self.device,
+                                      **kw)
 
     def _stream_segments(self, marks: Optional[list] = None):
         """Yields ``(lo, hi, seg)`` for every host-tier segment, ``seg`` its
-        rows padded to the segment width with ``PAD_VAL`` (on the card a
-        device tensor, on the CPU a host array).  The caller holds
-        ``_tier_lock`` and enqueues the work that reads ``seg`` on the
-        current stream before it asks for the next segment.  On the card
-        segment s goes through slot s % depth: its rows are written into
-        the slot's staging buffer once the slot's last copy has finished,
-        and copied up on the copy stream once the last work that read the
-        slot's device buffer (in this call or an earlier one) has, behind
-        an event the current stream waits for; so at most ``depth``
-        segments are in flight.  ``marks`` gains each segment's CUDA
-        events (``start``, ``copied``, ``done``) on the card, its host
-        seconds on the CPU."""
+        rows padded to the segment width with ``PAD_VAL``: on the card the
+        slot's device tensor (on a mesh its
+        :class:`~knn_tpu_torch.parallel.collectives.Placed` blocks), on the
+        CPU a host array.  The caller holds ``_tier_lock`` and enqueues the
+        work that reads ``seg`` on the devices' current streams before it
+        asks for the next segment.  On the card segment s goes through slot
+        s % depth: its rows are written into the slot's staging buffer once
+        the slot's last copies have finished, and copied up on each
+        device's copy stream once the last work that read that device's
+        buffer (in this call or an earlier one) has, behind an event the
+        device's current stream waits for; so at most ``depth`` segments
+        are in flight on every device.  ``marks`` gains each segment's CUDA
+        events (``start``, ``copied``, ``done``) by device on the card, its
+        host seconds on the CPU."""
         ht = self._host_tier
         rows = self._host_rows.rows
         seg_rows, depth = ht["segment_rows"], ht["depth"]
@@ -1069,30 +1142,34 @@ class ShardedKNN:
                 yield lo, hi, seg
                 marks.append(time.perf_counter() - t0)
             return
-        slots, copy_stream = self._hosttier_slots()
-        compute = torch.cuda.current_stream(self.device)
+        slots, copy_streams = self._hosttier_slots()
+        compute = {dev: torch.cuda.current_stream(dev) for dev in copy_streams}
         for s, (lo, hi) in enumerate(ht["segments"]):
             slot = slots[s % depth]
-            if slot["copied"] is not None:
-                slot["copied"].synchronize()
+            for copied in slot["copied"].values():
+                copied.synchronize()
             host = slot["host"].numpy()
             host[: hi - lo] = rows[lo:hi]
             host[hi - lo:] = PAD_VAL
-            ev = {name: torch.cuda.Event(enable_timing=True)
-                  for name in ("start", "copied", "done")}
-            with torch.cuda.stream(copy_stream):
-                if slot["done"] is not None:
-                    copy_stream.wait_event(slot["done"])
-                ev["start"].record(copy_stream)
-                slot["dev"].copy_(slot["host"], non_blocking=True)
-                ev["copied"].record(copy_stream)
-            slot["copied"] = ev["copied"]
-            compute.wait_event(ev["copied"])
+            ev = {dev: {name: torch.cuda.Event(enable_timing=True)
+                        for name in ("start", "copied", "done")}
+                  for dev in copy_streams}
+            for dev, stream in copy_streams.items():
+                with torch.cuda.stream(stream):
+                    if dev in slot["done"]:
+                        stream.wait_event(slot["done"][dev])
+                    ev[dev]["start"].record(stream)
+                    for dst, a, b in slot["copies"][dev]:
+                        dst.copy_(slot["host"][a:b], non_blocking=True)
+                    ev[dev]["copied"].record(stream)
+                slot["copied"][dev] = ev[dev]["copied"]
+                compute[dev].wait_event(ev[dev]["copied"])
             try:
-                yield lo, hi, slot["dev"]
+                yield lo, hi, slot["seg"]
             finally:  # also when the caller stops early
-                ev["done"].record(compute)
-                slot["done"] = ev["done"]
+                for dev, stream in compute.items():
+                    ev[dev]["done"].record(stream)
+                    slot["done"][dev] = ev[dev]["done"]
             marks.append(ev)
 
     def _search_host_tier(self, queries, k: int, return_sqrt: bool):
@@ -1104,15 +1181,20 @@ class ShardedKNN:
         ht = self._host_tier
         prog = self._hosttier_program(k)
         q = self._to_device(queries)
+        n_qs = self.mesh.shape[QUERY_AXIS]
+        placed = -(-q.shape[0] // n_qs) * n_qs
         with self._engines_lock:
-            key = (k, q.shape[0])
+            key = (k, placed)
             self._dispatch_shapes[key] = self._dispatch_shapes.get(key, 0) + 1
         best = None
         marks: list = []
         with self._tier_lock:
             t_wall0 = time.perf_counter()
             for lo, hi, seg in self._stream_segments(marks):
+                # on a mesh the carry merges on its first device, where
+                # the segment program's merged lists land
                 d, i = prog(q, seg, hi - lo)
+                self._record_merge_bytes(placed, k)
                 # segment-local indices made global; the pad rows'
                 # sentinel stays put
                 gi = torch.where(i == I32MAX, i, i + lo)
@@ -1121,17 +1203,21 @@ class ShardedKNN:
             last = {"sweeps": len(marks), "k": k,
                     "queries": int(q.shape[0])}
             if self.device.type == "cuda":
-                marks[-1]["done"].synchronize()
-                walls = [ev["start"].elapsed_time(ev["done"]) / 1e3
-                         for ev in marks]
-                h2d = [ev["start"].elapsed_time(ev["copied"]) / 1e3
-                       for ev in marks]
+                for ev in marks[-1].values():
+                    ev["done"].synchronize()
+                # a sweep's wall on the first device; its copies' seconds
+                # the slowest device's
+                walls = [ev[self.device]["start"].elapsed_time(
+                    ev[self.device]["done"]) / 1e3 for ev in marks]
+                h2d = [max(e["start"].elapsed_time(e["copied"]) / 1e3
+                           for e in ev.values()) for ev in marks]
                 last["h2d_s"] = h2d
                 last["h2d_gbps"] = (ht["bytes_per_sweep"] * len(h2d)
                                     / sum(h2d) / 1e9 if sum(h2d) > 0
                                     else None)
                 last["device_buffer_bytes"] = sum(
-                    slot["dev"].nbytes for slot in self._slots)
+                    buf.nbytes for slot in self._slots
+                    for buf in slot["dev"].values())
             else:
                 walls = marks
             last["wall_s"] = time.perf_counter() - t_wall0
@@ -1195,11 +1281,13 @@ class ShardedKNN:
         if k > self.n_train:
             raise ValueError(f"k={k} exceeds n_train={self.n_train}")
         if self._host_tier is not None:
-            if k > self._host_tier["segment_rows"]:
+            seg, per = self._host_tier["segment_rows"], self._shard_rows()
+            if k > per:
                 raise ValueError(
-                    f"k={k} exceeds the "
-                    f"{self._host_tier['segment_rows']}-row host-tier "
-                    f"segment")
+                    f"k={k} exceeds the {seg}-row host-tier segment"
+                    if per == seg else
+                    f"k={k} exceeds db shard size {per} of the {seg}-row "
+                    f"host-tier segment; use fewer db shards")
             return self._search_host_tier(queries, k, return_sqrt)
         if k > self._shard_rows():
             raise ValueError(
@@ -1227,7 +1315,9 @@ class ShardedKNN:
         ``len(buckets)`` executables (on the card, CUDA graphs) — the JAX
         package's ``search_bucketed`` (sharded.py:985-1024).  The engine
         behind it is built once per ladder and kept; see
-        :meth:`compile_cache_stats` and knn_tpu_torch.serving."""
+        :meth:`compile_cache_stats` and knn_tpu_torch.serving.  On a mesh
+        the engine runs the mesh's search program; the host-RAM tier is
+        refused."""
         from knn_tpu_torch.serving.buckets import normalize_ladder
         from knn_tpu_torch.serving.engine import ServingEngine
 
@@ -1275,6 +1365,7 @@ class ShardedKNN:
 
     def predict(self, queries) -> torch.Tensor:
         """Predicted labels [Q] int32 — needs ``labels`` at construction."""
+        self._require_resident("predict")
         if self._on_mesh():
             if self._labels() is None:
                 raise RuntimeError(
@@ -1282,7 +1373,6 @@ class ShardedKNN:
             _, gi = self._exact_topk(self._to_device(queries), self.k,
                                      self.metric, self._dtype_key)
         else:
-            self._require_resident("predict")
             if self.placement.labels is None:
                 raise RuntimeError(
                     "ShardedKNN built without labels; predict unavailable")
@@ -1308,8 +1398,7 @@ class ShardedKNN:
         refused (its bf16 mask would disagree with the f32 count)."""
         from knn_tpu_torch.ops.radius import SENTINEL_IDX, radius_threshold
 
-        if not self._on_mesh():
-            self._require_resident("radius_search")
+        self._require_resident("radius_search")
         if self._dtype_key not in (None, "float32"):
             raise ValueError(
                 f"radius_search needs a float32 placement; this program "
@@ -1467,15 +1556,17 @@ class ShardedKNN:
         first use and kept per ``(dsub, ncodes)`` — the JAX package's
         ``_pq_placement`` (sharded.py:1301-1355): per-subspace codebooks
         trained on every host row with the seeded k-means
-        (ops.pq.train_pq, its assign steps on this placement's device) and
-        the rows encoded as uint8 codes [N, m].  Defaults (4, 256); the
-        JAX package reads them from environment switches (ROADMAP queue
-        C).  Returns ``parts``, the kernel operands ``(codes, tnorm)``
-        padded as the f32 placement's bf16 parts are (zero codes, PAD_VAL
-        norm rows; coarse_knn.prepare_db_pq), ``codes`` (the unpadded
-        rows of it), ``books`` (f32 [m, C, dsub]) and ``consts``
-        (ops.pq.bound_consts_pq) on the device, ``stats``, ``dsub``,
-        ``ncodes`` and ``train_s`` (the training's seconds)."""
+        (ops.pq.train_pq, its assign steps on this placement's device or
+        mesh) and the rows encoded as uint8 codes [N, m], placed by
+        :meth:`_place_pq`.  Defaults (4, 256); the JAX package reads them
+        from environment switches (ROADMAP queue C).  On one device
+        returns ``parts``, the kernel operands ``(codes, tnorm)`` padded as
+        the f32 placement's bf16 parts are (zero codes, PAD_VAL norm rows;
+        coarse_knn.prepare_db_pq), ``codes`` (the unpadded rows of it),
+        ``books`` (f32 [m, C, dsub]) and ``consts``
+        (ops.pq.bound_consts_pq) on the device; every placement returns
+        ``stats``, ``dsub``, ``ncodes`` and ``train_s`` (the training's
+        seconds)."""
         from knn_tpu_torch.ops.pq import train_pq
 
         dsub = int(dsub or PQ_DSUB_DEFAULT)
@@ -1483,8 +1574,10 @@ class ShardedKNN:
         key = (dsub, ncodes)
         if key not in self._pq:
             t0 = time.perf_counter()
-            res = train_pq(self.placement.db_host, device=self.device,
-                           dsub=dsub, ncodes=ncodes)
+            on = ({"mesh": self.mesh} if self._on_mesh()
+                  else {"device": self.device})
+            res = train_pq(self._host_train(), dsub=dsub, ncodes=ncodes,
+                           **on)
             entry = self._place_pq(res.codebooks, res.codes, res.stats,
                                    dsub=dsub, ncodes=ncodes)
             entry["train_s"] = time.perf_counter() - t0
@@ -1499,7 +1592,12 @@ class ShardedKNN:
         codebooks' C; training keeps the requested C even where fewer rows
         capped the codebooks, as the JAX package keys its cache), and
         returns it (knn_tpu_torch.convert.pq_from_numpy carries a JAX
-        ``PQResult`` across with it)."""
+        ``PQResult`` across with it).  On a mesh (the JAX package's
+        sharded.py:1335-1353) each db shard's placement takes its block of
+        the codes as its operand (zero codes on its pad rows) and the
+        codebooks and bound constants of the whole database; the entry
+        returned here keeps ``stats``, ``dsub``, ``ncodes``, ``train_s``
+        and ``books`` (host f32)."""
         codebooks = np.asarray(codebooks, np.float32)
         codes = np.ascontiguousarray(np.asarray(codes, np.uint8))
         if codes.shape != (self.n_train, codebooks.shape[0]):
@@ -1507,6 +1605,19 @@ class ShardedKNN:
                 f"codes {codes.shape} do not match {self.n_train} rows of "
                 f"{codebooks.shape[0]} subspaces")
         ncodes = int(ncodes or codebooks.shape[1])
+        if self._on_mesh():
+            per = self._shard_rows()
+            padded = np.zeros((per * self.db_shards, codes.shape[1]),
+                              np.uint8)
+            padded[: self.n_train] = codes
+            for sub in self._distinct_shards():
+                lo = sub._row_offset
+                sub._place_pq(codebooks, padded[lo:lo + per], stats,
+                              dsub=dsub, ncodes=ncodes)
+            entry = {"stats": stats, "dsub": int(dsub), "ncodes": ncodes,
+                     "books": codebooks, "train_s": None}
+            self._pq[(int(dsub), ncodes)] = entry
+            return entry
         codes_t = torch.from_numpy(codes).to(self.device)
         parts = prepare_db_pq(codes_t, self.placement.th.shape[0])
         entry = {"parts": parts, "codes": parts[0][: self.n_train],
@@ -1640,18 +1751,15 @@ class ShardedKNN:
                      pq_ncodes=pq_ncodes,
                      final_recall_target=final_recall_target)
         if self._on_mesh():
-            if overlap:
-                raise ValueError(
-                    "overlap=True: the two-stage pipeline on a mesh is "
-                    "queued (ROADMAP queue A item 4.2); run it sequentially")
-            run, m, w = self._mesh_pallas(m - k, tile_n, precision, setup)
+            (coarse, tail), m, w = self._mesh_pallas(m - k, tile_n,
+                                                     precision, setup)
             src = self._mesh_shards()[0][0][0][1]
         else:
-            (coarse, tail), m, w = self._pallas_setup(
+            (coarse, one_tail), m, w = self._pallas_setup(
                 m - k, tile_n, precision, **setup)
 
-            def run(q):
-                return tail(q, *coarse(q))
+            def tail(q, cand):
+                return one_tail(q, *cand)
 
             src = self
         if precision in ("int8", "int4", "pq") and obs.enabled():
@@ -1698,7 +1806,7 @@ class ShardedKNN:
             fetched = []
             for _, chunk, _ in batches:
                 q = self._to_device(chunk)
-                fetched.append(_fetch_async(run(q)))
+                fetched.append(_fetch_async(tail(q, coarse(q))))
             for (lo, _, pad), f in zip(batches, fetched):
                 repair(lo, pad, f)
             return np.flatnonzero(bad_mask), n_corrected, None
@@ -1706,14 +1814,16 @@ class ShardedKNN:
         depth = max(1, int(overlap_depth))
         cuda = self.device.type == "cuda"
         if cuda:
-            main = torch.cuda.current_stream(self.device)
+            # a (coarse, tail) stream pair a distinct device of the mesh
+            # (one pair on a logical mesh of one card)
             if self._streams is None:
-                self._streams = (torch.cuda.Stream(self.device),
-                                 torch.cuda.Stream(self.device))
-            coarse_stream, tail_stream = self._streams
-            # the placement and anything queued before this call
-            coarse_stream.wait_stream(main)
-            tail_stream.wait_stream(main)
+                self._streams = {dev: (torch.cuda.Stream(dev),
+                                       torch.cuda.Stream(dev))
+                                 for dev in self.mesh.distinct_devices}
+            for dev, pair in self._streams.items():
+                # the placement and anything queued before this call
+                for stream in pair:
+                    stream.wait_stream(torch.cuda.current_stream(dev))
         intervals = []
         pending = deque()
         t_wall0 = time.perf_counter()
@@ -1732,29 +1842,34 @@ class ShardedKNN:
             t0 = time.perf_counter()
             if not cuda:
                 q = self._to_device(chunk)
-                fetched = _fetch_async(tail(q, *coarse(q)))
+                fetched = _fetch_async(tail(q, coarse(q)))
             else:
-                with torch.cuda.stream(coarse_stream):
+                with _current_streams(self._streams, 0, self.device):
                     q = self._to_device(chunk)
                     cand = coarse(q)
-                    coarse_done = torch.cuda.Event()
-                    coarse_done.record()
-                with torch.cuda.stream(tail_stream):
-                    tail_stream.wait_event(coarse_done)
-                    # made on the coarse stream, read on the tail stream:
-                    # the allocator must not hand them out again before
-                    # the tail is done with them
-                    for t in (q, *cand):
-                        t.record_stream(tail_stream)
-                    fetched = _fetch_async(tail(q, *cand))
+                    coarse_done = []
+                    for dev, (cs, _) in self._streams.items():
+                        coarse_done.append(torch.cuda.Event())
+                        coarse_done[-1].record(cs)
+                with _current_streams(self._streams, 1, self.device):
+                    for _, ts in self._streams.values():
+                        for ev in coarse_done:
+                            ts.wait_event(ev)
+                    # made on a coarse stream, read on its device's tail
+                    # stream: the allocator must not hand them out again
+                    # before the tail is done with them
+                    for t in _tensors((q, cand)):
+                        t.record_stream(self._streams[t.device][1])
+                    fetched = _fetch_async(tail(q, cand))
             pending.append((lo, pad, fetched, t0))
         while pending:
             finalize(pending.popleft())
         if cuda:
             # work queued after this call (the fallback repair's widened
             # select) starts after every batch of both streams
-            main.wait_stream(coarse_stream)
-            main.wait_stream(tail_stream)
+            for dev, pair in self._streams.items():
+                for stream in pair:
+                    torch.cuda.current_stream(dev).wait_stream(stream)
         wall = time.perf_counter() - t_wall0
         ratio = _overlap_ratio(intervals)
         pipeline = {"depth": depth, "batches": len(batches),
@@ -1766,15 +1881,20 @@ class ShardedKNN:
                         overlap_ratio=round(ratio, 4))
         return np.flatnonzero(bad_mask), n_corrected, pipeline
 
+    def _distinct_shards(self) -> list:
+        """Every shard placement of the mesh once (positions that share a
+        device and a db shard share one), in grid order."""
+        return list({id(sub): sub for row in self._mesh_shards()
+                     for host in row for _, sub in host}.values())
+
     def _mesh_quant(self, precision: str) -> None:
         """Every db shard's int8 / int4 placement built, with the bound
         statistics of the whole database: each statistic is a maximum over
         rows (ops.quantize.db_bound_stats_t), so the shards' maxima give
         the JAX package's values (sharded.py:1203-1299), and every shard's
         certificate reads the same constants."""
-        subs = {id(sub): sub for row in self._mesh_shards() for host in row
-                for _, sub in host}.values()
-        entries = [(sub, sub._quant_placement(precision)) for sub in subs]
+        entries = [(sub, sub._quant_placement(precision))
+                   for sub in self._distinct_shards()]
         if all(e.get("merged") for _, e in entries):
             return
         stats = dict(entries[0][1]["stats"])
@@ -1786,43 +1906,59 @@ class ShardedKNN:
                      consts=torch.from_numpy(consts).to(sub.device))
 
     def _mesh_pallas(self, margin: int, tile_n, precision: str, setup: dict):
-        """``(run, m, w)`` of the one-pass certificate on the mesh — the
-        JAX package's ``_pallas_certified_program`` (sharded.py:2162-2258):
-        ``run(q)`` runs, per query shard, every db shard's coarse kernel
-        and select/rescore on its own rows and device, masks its pad rows
-        and makes its indices global, merges the ranked candidates
+        """``((coarse, tail), m, w)`` of the one-pass certificate on the
+        mesh — the JAX package's ``_pallas_certified_program``
+        (sharded.py:2162-2258) split at the candidate boundary as its
+        ``_pallas_coarse_program`` / ``_pallas_tail_program``
+        (sharded.py:2388-2480) split it: ``coarse(q)`` runs, per query
+        shard, every db shard's coarse kernel on its own rows and device;
+        ``tail(q, cand)`` runs each shard's select/rescore, masks its pad
+        rows and makes its indices global, merges the ranked candidates
         (``m + 1`` wide) by the merge tree, takes the minimum of the
         exclusion bounds across db shards, and certifies the merged lists
         on the query shard's first device (:func:`_certify_pack` with the
-        merge-drop check of several db shards).  The query shards'
-        outputs join on the first device."""
+        merge-drop check of several db shards).  The query shards' outputs
+        join on the first device.  ``tail(q, coarse(q))`` is the
+        sequential run; the pipeline runs the halves on two streams."""
         if precision in INT_ARMS:
             self._mesh_quant(precision)
+        elif precision == "pq":
+            # trained once on every row, placed on every shard
+            self._pq_placement(setup["pq_dsub"], setup["pq_ncodes"])
         shards = self._mesh_shards()
         setups = {}
-        for row in shards:
-            for host in row:
-                for _, sub in host:
-                    if id(sub) not in setups:
-                        setups[id(sub)] = sub._pallas_setup(
-                            margin, tile_n, precision, split=True, **setup)
+        for sub in self._distinct_shards():
+            setups[id(sub)] = sub._pallas_setup(margin, tile_n, precision,
+                                                split=True, **setup)
         _, m, w = next(iter(setups.values()))
 
-        def run(q: torch.Tensor):
+        def coarse(q: torch.Tensor):
             blocks, n_q, _ = self._mesh_queries(q)
-            outs = []
+            cand = []
             for qb, row in zip(blocks, shards):
-                d = [[None] * len(row[0]) for _ in row]
-                gi = [[None] * len(row[0]) for _ in row]
-                lbs = []
-                for h, host in enumerate(row):
-                    for c, (dev, sub) in enumerate(host):
-                        (coarse, rescore, _), _, _ = setups[id(sub)]
+                per = []
+                for host in row:
+                    for dev, sub in host:
                         qd = qb.to(dev, non_blocking=True)
-                        d32, li, lb = rescore(qd, *coarse(qd))
-                        d[h][c], gi[h][c] = _mask_shard(
-                            d32, li, sub._n_valid, sub._row_offset)
-                        lbs.append(lb)
+                        per.append((qd, setups[id(sub)][0][0](qd)))
+                cand.append((qb, per))
+            return n_q, cand
+
+        def tail(q: torch.Tensor, cand):
+            n_q, blocks = cand
+            outs = []
+            for (qb, per), row in zip(blocks, shards):
+                chips = len(row[0])
+                d = [[None] * chips for _ in row]
+                gi = [[None] * chips for _ in row]
+                lbs = []
+                for j, (qd, c) in enumerate(per):
+                    h, cc = divmod(j, chips)
+                    sub = row[h][cc][1]
+                    d32, li, lb = setups[id(sub)][0][1](qd, *c)
+                    d[h][cc], gi[h][cc] = _mask_shard(
+                        d32, li, sub._n_valid, sub._row_offset)
+                    lbs.append(lb)
                 md, mi = _merge_shards(d, gi, m + 1, self.merge,
                                        self.dcn_merge)
                 dev0, sub0 = row[0][0]
@@ -1836,7 +1972,7 @@ class ShardedKNN:
                      for o in outs])[:n_q]
                 for t in range(len(outs[0])))
 
-        return run, m, w
+        return (coarse, tail), m, w
 
     def search_certified(self, queries, *, margin: int = 28,
                          selector: str = "pallas",
@@ -1918,8 +2054,7 @@ class ShardedKNN:
         from knn_tpu_torch.ops.certified import repair_uncertified
 
         del recall_target  # no approximate top-k here (divergence 21)
-        if not self._on_mesh():
-            self._require_resident("search_certified")
+        self._require_resident("search_certified")
         if self.metric not in ("l2", "cosine", "dot"):
             # |q-t|_1 has no gram-matrix form for either certificate to bound
             raise ValueError(
@@ -1976,11 +2111,6 @@ class ShardedKNN:
                     survivors=survivors, final_select=final_select,
                     binning=binning, final_recall_target=final_recall_target,
                     grid_order=grid_order, kernel=kernel))
-            if knobs["precision"] == "pq" and self.db_shards > 1:
-                raise ValueError(
-                    "precision='pq' on a mesh with several db shards is "
-                    "queued (ROADMAP queue A item 4.2): its codebooks train "
-                    "on the whole database")
             bad, n_corrected, pipeline = self._certify_pallas(
                 batches, bs, m, d, i, q_np, db_np,
                 want_distances=return_distances, overlap=bool(overlap),
@@ -2184,8 +2314,7 @@ class ShardedKNN:
         :meth:`search_certified` (any selector; the pallas kernel's knobs
         left at None resolve through ``tune_cache`` as there), then the
         reference vote.  Returns (labels [Q] int32 numpy, stats)."""
-        if not self._on_mesh():
-            self._require_resident("predict")
+        self._require_resident("predict")
         if self._labels() is None:
             raise RuntimeError("ShardedKNN built without labels; predict unavailable")
         _, idx, stats = self.search_certified(

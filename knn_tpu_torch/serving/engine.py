@@ -299,7 +299,7 @@ class ServingEngine:
         self.program = program
         # a host-RAM-tier placement has no placed database to capture
         # against: refused with the tier's own message
-        program._require_resident("ServingEngine", mesh_ok=True)
+        program._require_resident("ServingEngine")
         self.k = program.k if k is None else int(k)
         if self.k > program.n_train:
             raise ValueError(f"k={self.k} > n_train={program.n_train}")

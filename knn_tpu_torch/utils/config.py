@@ -143,10 +143,6 @@ class JobConfig:
                     "(batch_size) and does not compose with it")
             if self.serve_buckets is not None and self.backend != "torch":
                 raise ValueError("serve_buckets requires the torch backend")
-            if self.serve_buckets is not None and self.db_shards > 1:
-                raise ValueError(
-                    "serve_buckets on a mesh with several db shards is "
-                    "queued (ROADMAP queue A)")
         if self.max_wait_ms < 0:
             raise ValueError(
                 f"max_wait_ms must be >= 0, got {self.max_wait_ms}")

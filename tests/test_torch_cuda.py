@@ -2204,3 +2204,133 @@ def test_cuda_logical_mesh_serving_graph_is_bitwise_eager(cuda_device):
     want = idx.search(padded)
     np.testing.assert_array_equal(got[0], want[0][:5])
     np.testing.assert_array_equal(got[1], want[1][:5])
+
+
+@pytest.mark.cuda
+def test_cuda_k7_on_a_mesh_shard_is_bitwise_its_plain_version(cuda_device):
+    """pq on a (1, 4) logical mesh: each certified batch launches the
+    tiled pq entry once a db shard and nothing else; on a shard of 5,000
+    rows (not a multiple of the tile) K7 is bitwise its plain version; the
+    indices are the (1, 1) pq placement's."""
+    from knn_tpu_torch import ShardedKNN
+
+    rng = np.random.default_rng(91)
+    q, db = _data(rng, 64, 20000, 32)
+    knn = ShardedKNN(db, k=10, mesh=_logical_mesh(cuda_device, (1, 4)))
+    counts = {fn: dict(fn.launches) for fn in (
+        ck.binned_select, ck.stream_select, ck.fused_select)}
+    _, i, _ = knn.search_certified(q, precision="pq", pq_ncodes=64,
+                                   batch_size=32)
+    for fn, before in counts.items():
+        for arm, n in fn.launches.items():
+            want = 4 * 2 if (fn, arm) == (ck.binned_select, "pq") else 0
+            assert n == before[arm] + want
+    one = ShardedKNN(db, k=10, device=cuda_device)
+    _, ri, _ = one.search_certified(q, precision="pq", pq_ncodes=64,
+                                    batch_size=32)
+    np.testing.assert_array_equal(i, ri)
+    sub = knn._distinct_shards()[1]
+    entry = sub._pq_placement(None, 64)
+    assert sub._n_valid == 5000 and entry["parts"][0].shape[0] == 16384
+    args = (ck.pq_luts(torch.from_numpy(q).to(cuda_device), entry["books"]),
+            *entry["parts"])
+    for grid in ("query_major", "db_major"):
+        kern = ck.binned_select(*args, tile_n=ck.TILE_N, arm="pq",
+                                grid_order=grid)
+        plain = ck.binned_select_plain(*args, tile_n=ck.TILE_N, arm="pq")
+        for a, b in zip(kern, plain):
+            assert torch.equal(a, b)
+    for a, b in zip(ck.stream_select(*args, tile_n=ck.TILE_N, arm="pq"),
+                    ck.binned_select_plain(*args, tile_n=ck.TILE_N,
+                                           arm="pq")):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_k11_on_a_mesh_shard_at_the_pipeline_geometry(cuda_device):
+    """K11 on one db shard of a (1, 4) logical mesh at the pipeline's batch
+    and keep: the plain version's skipped cells, the rest within the
+    kernel tolerance."""
+    from knn_tpu_torch import ShardedKNN
+
+    rng = np.random.default_rng(92)
+    q, db = _data(rng, 128, 40000, 64)
+    knn = ShardedKNN(db, k=10, mesh=_logical_mesh(cuda_device, (1, 4)))
+    pl = knn._distinct_shards()[2].placement
+    qp = ck.pad_queries(torch.from_numpy(q).to(cuda_device))
+    n_tiles = pl.th.shape[0] // ck.TILE_N
+    seg = ck.kernel_segment_tiles(q.shape[0], n_tiles, cuda_device, "fused")
+    kern = ck.fused_select(qp, pl.th, pl.tl, pl.tnorm, tile_n=ck.TILE_N,
+                           keep=40, arm="bf16x3")
+    plain = ck.fused_select_plain(qp, pl.th, pl.tl, pl.tnorm,
+                                  tile_n=ck.TILE_N, keep=40,
+                                  block_q=ck.QUERY_BLOCK, seg_tiles=seg,
+                                  arm="bf16x3")
+    assert torch.equal(ck.skipped_cells(kern[0], n_tiles, ck.QUERY_BLOCK),
+                       ck.skipped_cells(plain[0], n_tiles, ck.QUERY_BLOCK))
+    kern = [a.cpu().numpy() for a in kern]
+    plain = [a.cpu().numpy() for a in plain]
+    tol = _tol(q, pl.db_host, kernel=True)
+    _assert_scores(kern[0], plain[0], tol)
+    _assert_scores(kern[2], plain[2], tol)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_tier_slots_hold_each_block_once_a_device(cuda_device):
+    """The host-RAM tier on a (2, 2) logical mesh of one card, the card
+    behind the host: one copy stream and one buffer a slot on the card,
+    holding each db shard's block once (its two query shards share it);
+    bitwise the resident mesh search on integer rows."""
+    from knn_tpu_torch import ShardedKNN
+    from knn_tpu_torch.analysis import hbm
+
+    rng = np.random.default_rng(93)
+    db, q = _int_rows(rng, 3_000, 32), _int_rows(rng, 40, 32)
+    mesh = _logical_mesh(cuda_device, (2, 2))
+    tier = ShardedKNN(db, k=5, mesh=mesh,
+                      hbm_budget_bytes=hbm.placement_bytes(400, 32))
+    made = tier._hosttier_program
+    tier._hosttier_program = lambda k: _lagging(made(k))
+    d, i = tier.search(q)
+    tier._hosttier_program = made
+    st = tier.hosttier_stats()
+    assert st["segment_rows"] == 400 and st["sweeps"] == 8
+    assert len(tier._copy_streams) == 1
+    slot_rows = [sum(b.shape[0] for b in s["dev"].values())
+                 for s in tier._slots]
+    assert slot_rows == [400] * st["depth"]
+    assert st["last_search"]["device_buffer_bytes"] == \
+        st["depth"] * 400 * 32 * 4
+    rd, ri = ShardedKNN(db, k=5, mesh=mesh).search(q)
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,precision", [
+    ("fused", "bf16x3"), ("tiled", "bf16x3"), ("streaming", "bf16x3"),
+    ("tiled", "int8"), ("tiled", "pq")])
+def test_cuda_mesh_pipeline_is_bitwise_the_sequential_mesh_call(
+        cuda_device, kernel, precision):
+    """overlap=True on a (1, 4) logical mesh: the entry once a db shard a
+    batch, and (d, i) and the stats bitwise the sequential mesh call's."""
+    from knn_tpu_torch import ShardedKNN
+
+    rng = np.random.default_rng(94)
+    q, db = _data(rng, 256, 30000, 32)
+    if precision == "int8":
+        q, db = np.abs(q).astype(np.uint8), np.abs(db).astype(np.uint8)
+    knn = ShardedKNN(db, k=10, mesh=_logical_mesh(cuda_device, (1, 4)))
+    wrapper = {"tiled": ck.binned_select, "streaming": ck.stream_select,
+               "fused": ck.fused_select}[kernel]
+    kw = dict(kernel=kernel, precision=precision, batch_size=64,
+              pq_ncodes=64)
+    outs = []
+    for overlap in (False, True):
+        before = wrapper.launches[precision]
+        outs.append(knn.search_certified(q, overlap=overlap, **kw))
+        assert wrapper.launches[precision] == before + 4 * 4
+    (d, i, st), (od, oi, ost) = outs
+    np.testing.assert_array_equal(od, d)
+    np.testing.assert_array_equal(oi, i)
+    assert ost.pop("pipeline")["batches"] == 4
+    assert ost == st

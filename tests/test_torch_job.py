@@ -319,6 +319,7 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.parallel.mesh, knn_tpu_torch.parallel.collectives\n"
         "import knn_tpu_torch.parallel.crossover\n"
         "import knn_tpu_torch.parallel.multihost\n"
+        "import knn_tpu_torch.ops.pq, knn_tpu_torch.ivf.kmeans\n"
         "from knn_tpu_torch import parallel as _p\n"
         "[getattr(_p, name) for name in _p.__all__]\n"
         "from knn_tpu_torch.parallel import crossover as _x\n"

@@ -442,14 +442,21 @@ def test_refusals_by_name():
     db, q = _data(8)
     m = port_mesh((2, 4))
     knn = ShardedKNN(db, mesh=m, k=5)
-    with pytest.raises(ValueError, match="precision='pq' on a mesh"):
-        knn.search_certified(q, precision="pq")
-    with pytest.raises(ValueError, match="overlap=True"):
-        knn.search_certified(q, overlap=True)
-    with pytest.raises(ValueError, match="db shards of a mesh"):
-        knn.search_bucketed(q)
-    with pytest.raises(ValueError, match="host-RAM tier on a mesh"):
-        ShardedKNN(db, mesh=m, k=5, hbm_budget_bytes=1000)
+    # pq, the pipeline, search_bucketed and the host-RAM tier run on the
+    # mesh (tests/test_torch_mesh_{pq, overlap, hosttier}.py hold them)
+    _, i, _ = knn.search_certified(q, precision="pq", pq_ncodes=16)
+    _, oi, st = knn.search_certified(q, overlap=True, batch_size=4)
+    assert st["pipeline"]["batches"] == -(-q.shape[0] // 4)
+    np.testing.assert_array_equal(i, oi)
+    np.testing.assert_array_equal(knn.search_bucketed(q)[1],
+                                  knn.search(q)[1].numpy())
+    from knn_tpu_torch.analysis import hbm
+    from tiers_mesh_common import assert_exact
+
+    tier = ShardedKNN(db, mesh=m, k=5,
+                      hbm_budget_bytes=hbm.placement_bytes(64, db.shape[1]))
+    assert_exact(*tier.search(q), *knn.search(q), q, db, 5)
+    assert tier.hosttier_stats()["sweeps"] > 1
     with pytest.raises(ValueError, match="exceeds db shard size"):
         ShardedKNN(db, mesh=port_mesh((1, 8)), k=39)
     with pytest.raises(ValueError, match="not both"):

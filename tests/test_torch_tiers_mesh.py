@@ -74,18 +74,26 @@ def test_refusals_by_name_on_a_mesh():
     knn = ShardedKNN(small, mesh=port_mesh((1, 8)), k=5)
     with pytest.raises(ValueError, match="use fewer db shards"):
         knn_join(knn, q, k=6, mode="stream")
-    # the tiered join: the host-RAM tier on a mesh is queued
-    with pytest.raises(ValueError, match="host-RAM tier on a mesh"):
-        ShardedKNN(db, mesh=m, k=K, hbm_budget_bytes=1000)
-    with pytest.raises(ValueError, match="host-RAM tier on a mesh"):
-        MutableIndex(db, mesh=m, k=K, hbm_budget_bytes=1000)
+    # the host-RAM tier, its join, pq, the pipeline and search_bucketed
+    # run on the mesh (tests/test_torch_mesh_{hosttier, pq, overlap}.py
+    # hold them against the JAX package)
+    from knn_tpu_torch.analysis import hbm
+
+    budget = hbm.placement_bytes(128, DIM)
+    tier = ShardedKNN(db, mesh=m, k=K, hbm_budget_bytes=budget)
+    idx = MutableIndex(db, mesh=m, k=K, reserve=4, hbm_budget_bytes=budget)
+    d, i = tier.search(q)
+    np.testing.assert_array_equal(np.asarray(idx.search(q)[1]), i.numpy())
+    jd, ji, st = knn_join(tier, q, superblock_rows=4)
+    np.testing.assert_array_equal(ji, i.numpy())
+    assert st["db_segments"] == tier.hosttier_stats()["sweeps"] > 1
     knn = ShardedKNN(db, mesh=m, k=K)
-    with pytest.raises(ValueError, match="precision='pq' on a mesh"):
-        knn.search_certified(q, precision="pq")
-    with pytest.raises(ValueError, match="overlap=True"):
-        knn.search_certified(q, overlap=True)
-    with pytest.raises(ValueError, match="search_bucketed on such a mesh"):
-        knn.search_bucketed(q)
+    _, pi, _ = knn.search_certified(q, precision="pq", pq_ncodes=16)
+    _, oi, ost = knn.search_certified(q, overlap=True, batch_size=4)
+    np.testing.assert_array_equal(pi, oi)
+    assert ost["pipeline"]["batches"] == -(-q.shape[0] // 4)
+    np.testing.assert_array_equal(knn.search_bucketed(q)[1],
+                                  knn.search(q)[1].numpy())
     from knn_tpu_torch.tuning import autotune, autotune_ivf
 
     with pytest.raises(TypeError, match="mesh"):
@@ -160,10 +168,10 @@ def test_cli_placements_stay_runnable_on_a_mesh_of_several_devices(
         monkeypatch, capsys):
     """With no ``--device`` the CLI places on ``make_mesh()``, every
     visible device on the query axis; two CPU devices stand in for two
-    cards here.  ``join --hbm-budget-bytes`` runs on the first device's
-    (1, 1) mesh (the host-RAM tier on a mesh is queued) and ``loadgen``
-    serves a mesh over several devices with ``aot=False`` (CUDA graphs
-    of such a mesh are queued, ROADMAP divergence 64)."""
+    cards here.  ``join --hbm-budget-bytes`` runs the host-RAM tier on
+    that two-device mesh and ``loadgen`` serves a mesh over several
+    devices with ``aot=False`` (CUDA graphs of such a mesh are queued,
+    ROADMAP divergence 64)."""
     import json
 
     from knn_tpu_torch.analysis import hbm
@@ -181,8 +189,8 @@ def test_cli_placements_stay_runnable_on_a_mesh_of_several_devices(
     monkeypatch.setattr(pmesh, "make_mesh", make_mesh)
     budget = hbm.placement_bytes(500, 8)
     db = np.zeros((2000, 8), np.float32)
-    with pytest.raises(ValueError, match="one-device mesh only"):
-        ShardedKNN(db, mesh=pmesh.make_mesh(), k=4, hbm_budget_bytes=budget)
+    tier = ShardedKNN(db, mesh=pmesh.make_mesh(), k=4, hbm_budget_bytes=budget)
+    assert tier.mesh.size == 2 and tier.hosttier_stats()["sweeps"] == 4
     assert main(["join", "--n", "2000", "--rows", "300", "--dim", "8",
                  "--k", "4", "--superblock", "128",
                  "--hbm-budget-bytes", str(budget)]) == 0
