@@ -1437,6 +1437,26 @@ def held(name, d, i, st, rd, ri, rst):
     return rows
 
 
+def nonzero_launches(launches):
+    return {key: n for key, n in launches.items() if n}
+
+
+def in_turns(a, b, reps=1):
+    """{"mesh": seconds of a, "one": seconds of b} in turns a b b a,
+    ``reps`` rounds."""
+    import torch
+
+    times = {"mesh": [], "one": []}
+    for _ in range(reps):
+        for label, fn in (("mesh", a), ("one", b), ("one", b), ("mesh", a)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    return times
+
+
 def bitwise(name, got, want):
     """Raises unless every tensor of ``got`` equals ``want``'s bitwise;
     returns the largest |difference| of the finite scores (0.0)."""
@@ -1725,6 +1745,21 @@ def main(argv=None) -> int:
     def read_launches():
         return {key: getattr(fn, attr)[arm]
                 for key, (fn, attr, arm) in counters.items()}
+
+    def counted(phase, label, fn, want):
+        """``fn()`` with the launch counts read around it alone: exactly
+        ``want`` (record key -> launches).  Returns (result, seconds)."""
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = nonzero_launches(read_launches())
+        if got != want:
+            raise AssertionError(f"{phase} {label}: launches {got}, "
+                                 f"expected {want}")
+        return res, wall
 
     if "device" in phases:
         emit({"phase": "device", "device": kind, "nvidia_smi": smi,
@@ -2271,34 +2306,11 @@ def main(argv=None) -> int:
             placement or IVF's gathered block).  Returns (result,
             seconds)."""
             nonlocal k1_total, k1_on_shards
-            reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            got = nonzero_launches(read_launches())
-            want = {"k1": k1_want} if k1_want else {}
-            if got != want:
-                raise AssertionError(f"tiers_mesh {label}: launches {got}, "
-                                     f"expected {want}")
+            res = counted("tiers_mesh", label, fn,
+                          {"k1": k1_want} if k1_want else {})
             k1_total += k1_want
             k1_on_shards += k1_want if on_shards else 0
-            return res, wall
-
-        def in_turns(a, b, reps=2):
-            """(seconds of a, seconds of b) in turns a b b a, ``reps``
-            rounds."""
-            times = {"mesh": [], "one": []}
-            for _ in range(reps):
-                for label, fn in (("mesh", a), ("one", b), ("one", b),
-                                  ("mesh", a)):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    fn()
-                    torch.cuda.synchronize()
-                    times[label].append(time.perf_counter() - t0)
-            return times
+            return res
 
         # -- MutableIndex: writes across three tail rungs, the reserve
         # deleted, 1,024 queries; the same writes on the (1, 1) placement
@@ -2362,7 +2374,7 @@ def main(argv=None) -> int:
             raise AssertionError("tiers_mesh: the compacted mesh index "
                                  "differs")
         mutable_turns = in_turns(lambda: idx.search_certified(q),
-                                 lambda: one.search_certified(q))
+                                 lambda: one.search_certified(q), reps=2)
         del one
         # the K1 record: one shard of the compacted index against the
         # plain version, then both timed
@@ -2647,31 +2659,7 @@ def main(argv=None) -> int:
             S["od"], S["oi"] = od.cpu().numpy(), oi.cpu().numpy()
 
         def run(label, fn, want):
-            """``fn()`` with the launch counts read around it alone: exactly
-            ``want`` (record key -> launches).  Returns (result, seconds)."""
-            reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            got = nonzero_launches(read_launches())
-            if got != want:
-                raise AssertionError(f"mesh_paths {label}: launches {got}, "
-                                     f"expected {want}")
-            return res, wall
-
-        def in_turns(a, b):
-            """(seconds of a, seconds of b) in turns a b b a."""
-            times = {"mesh": [], "one": []}
-            for label, fn in (("mesh", a), ("one", b), ("one", b),
-                              ("mesh", a)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times[label].append(time.perf_counter() - t0)
-            return times
+            return counted("mesh_paths", label, fn, want)
 
         # -- the host-RAM tier on 1 x 4 and 2 x 2 behind 128 MiB
         budget = 128 << 20
@@ -5055,9 +5043,6 @@ def main(argv=None) -> int:
                              "equal_sharded": True, "seconds": est_s}
         del base, sk, nn, rclf
         emit(out)
-
-    def nonzero_launches(launches):
-        return {key: n for key, n in launches.items() if n}
 
     def live_oracle(q_dev, rows_np, ids_np, k):
         """(ids [Q, k], d [Q, k]) of the float64 oracle over ``rows_np``

@@ -1053,8 +1053,8 @@ class ShardedKNN:
         distinct device holding the blocks of the db shards placed there
         (one block a shard, shared by its query shards: a logical mesh of
         one card holds one segment), the views the segment program reads
-        (a :class:`~knn_tpu_torch.parallel.collectives.Placed` on a mesh),
-        and per device the events of its last copy (``copied``) and of the
+        (a :class:`~knn_tpu_torch.parallel.collectives.Placed` over the
+        mesh's db axes, one block on the (1, 1) mesh), and per device the events of its last copy (``copied``) and of the
         last work that read it (``done``).  The device buffers may reuse
         blocks that work still queued on a device's current stream reads,
         so each copy stream waits for that work once, here."""
@@ -1085,41 +1085,34 @@ class ShardedKNN:
                         block[(j, dev)] = buf[b * per:(b + 1) * per]
                         slot["copies"][dev].append(
                             (block[(j, dev)], j * per, (j + 1) * per))
-                if self._on_mesh():
-                    parts = np.empty(self.mesh.devices.shape, dtype=object)
-                    for r, h, c in np.ndindex(*grid.shape):
-                        parts[_position(self.mesh, r, h, c)] = block[
-                            (h * chips + c, grid[r, h, c])]
-                    slot["seg"] = Placed(self.mesh, parts, db_axes(self.mesh),
-                                         0, (seg_rows, width))
-                else:
-                    slot["seg"] = slot["dev"][self.device]
+                parts = np.empty(self.mesh.devices.shape, dtype=object)
+                for r, h, c in np.ndindex(*grid.shape):
+                    parts[_position(self.mesh, r, h, c)] = block[
+                        (h * chips + c, grid[r, h, c])]
+                slot["seg"] = Placed(self.mesh, parts, db_axes(self.mesh),
+                                     0, (seg_rows, width))
                 self._slots.append(slot)
             for dev, stream in self._copy_streams.items():
                 stream.wait_stream(torch.cuda.current_stream(dev))
         return self._slots, self._copy_streams
 
     def _hosttier_program(self, k: int):
-        """The tier's segment program on this placement's device or mesh
-        (the JAX package's ``_hosttier_program``): its query blocks keep
-        one sweep's search workspace within the budget
-        (``_HOSTTIER_SCORE_BYTES`` a score)."""
+        """The tier's segment program on this placement's mesh (the JAX
+        package's ``_hosttier_program``; the (1, 1) mesh runs the one-device
+        body): its query blocks keep one sweep's search workspace within
+        the budget (``_HOSTTIER_SCORE_BYTES`` a score)."""
         kw = dict(train_tile=self.train_tile, compute_dtype=self._dtype_key,
                   block_elems=max(1, self._host_tier["budget_bytes"]
                                   // _HOSTTIER_SCORE_BYTES))
-        if self._on_mesh():
-            return segment_search_program(k, self.metric, mesh=self.mesh,
-                                          merge=self.merge,
-                                          dcn_merge=self.dcn_merge, **kw)
-        return segment_search_program(k, self.metric, device=self.device,
-                                      **kw)
+        return segment_search_program(k, self.metric, mesh=self.mesh,
+                                      merge=self.merge,
+                                      dcn_merge=self.dcn_merge, **kw)
 
     def _stream_segments(self, marks: Optional[list] = None):
         """Yields ``(lo, hi, seg)`` for every host-tier segment, ``seg`` its
         rows padded to the segment width with ``PAD_VAL``: on the card the
-        slot's device tensor (on a mesh its
-        :class:`~knn_tpu_torch.parallel.collectives.Placed` blocks), on the
-        CPU a host array.  The caller holds ``_tier_lock`` and enqueues the
+        slot's :class:`~knn_tpu_torch.parallel.collectives.Placed` blocks,
+        on the CPU a host array.  The caller holds ``_tier_lock`` and enqueues the
         work that reads ``seg`` on the devices' current streams before it
         asks for the next segment.  On the card segment s goes through slot
         s % depth: its rows are written into the slot's staging buffer once
@@ -1574,10 +1567,8 @@ class ShardedKNN:
         key = (dsub, ncodes)
         if key not in self._pq:
             t0 = time.perf_counter()
-            on = ({"mesh": self.mesh} if self._on_mesh()
-                  else {"device": self.device})
             res = train_pq(self._host_train(), dsub=dsub, ncodes=ncodes,
-                           **on)
+                           mesh=self.mesh)
             entry = self._place_pq(res.codebooks, res.codes, res.stats,
                                    dsub=dsub, ncodes=ncodes)
             entry["train_s"] = time.perf_counter() - t0

@@ -126,6 +126,33 @@ def test_tier_on_a_mesh_matches_jax_resident_and_oracle(shape):
             np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
 
 
+def test_tier_plans_at_the_staged_four_bytes():
+    """Divergence 65: the port stages every row as f32, so it plans the
+    tier at 4 B an element whatever the caller's dtype.  The JAX package
+    plans a 16-bit database at its own 2 B (fewer, larger segments); a
+    uint8 one it widens to f32 first, as the port does.  The answers are
+    the same on integer rows."""
+    budget = hbm.placement_bytes(64, DIM)
+    rng = np.random.default_rng(9)
+    q = rng.integers(0, 100, size=(11, DIM)).astype(np.float32)
+    for dtype, jax_itemsize in ((np.float16, 2), (np.uint8, 4)):
+        db = rng.integers(0, 100, size=(301, DIM)).astype(dtype)
+        tier = ShardedKNN(db, mesh=port_mesh((2, 4)), k=K,
+                          hbm_budget_bytes=budget)
+        jt = JaxShardedKNN(db, mesh=jax_mesh_of((2, 4)), k=K,
+                           hbm_budget_bytes=budget)
+        assert tier.hosttier_stats()["sweeps"] == hbm.n_sweeps(
+            301, DIM, budget, itemsize=4, shard_multiple=4)
+        assert jt.hosttier_stats()["sweeps"] == hbm.n_sweeps(
+            301, DIM, budget, itemsize=jax_itemsize, shard_multiple=4)
+        d, i = tier.search(q)
+        jd, ji = jt.search(q)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+    assert hbm.n_sweeps(301, DIM, budget, itemsize=2, shard_multiple=4) < \
+        hbm.n_sweeps(301, DIM, budget, itemsize=4, shard_multiple=4)
+
+
 def test_tier_cosine_and_k_override_on_a_mesh():
     db, q = _rows(5, 257, False)
     shape = (2, 4)
