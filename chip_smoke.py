@@ -106,7 +106,16 @@ exits non-zero and prints no result):
              compaction, each bitwise its epoch's direct search; K1 on one
              shard's rows against its plain version and timed; the mesh /
              (1, 1) seconds of each tier call in turns (logical shards of
-             one card: no speed claim follows);
+             one card: no speed claim follows); ``autotune_ivf(mesh=)`` on
+             the ivf anchor (32 lists, candidates nprobe 32 and 8, its
+             first 8 queries, ``runs=1``, ``selector="pallas"``): both
+             candidates through the bitwise gate, the winner's certified
+             search bitwise the (1, 1) index's, and the selector's kernel
+             (knn_search_pallas over each probe group's gathered block at
+             IVF's default precision highest: K2's tiled entry, on the
+             mesh's first device, as the JAX package runs it) launched once
+             a probe group of each gated and timed search and no other
+             kernel;
 4d. mesh_paths — (run after ``tiers_mesh``, on its 1 x 4 logical
              placement of the ``main`` draw; launch counts reset before
              each path) the host-RAM tier on the 1 x 4 and a 2 x 2 logical
@@ -180,7 +189,11 @@ exits non-zero and prints no result):
              arm's own wall rate; the ``main`` block re-rendered under the
              store carries the applied calibration, its calibrated ceiling
              at least every q/s the main search reached in this run, and
-             ``health`` names the entries;
+             ``health`` names the entries; each arm's line carries the
+             sentinel's verdict (obs.sentinel against this checkout's
+             history): ``no_baseline`` under its ``cuda`` key, every
+             curated field it carries listed, valid under the ``sentinel``
+             schema and the line under ``bench_line``;
 7. stream  — at the ``main`` shape and placement: ``search_certified``
              with ``grid_order="db_major"`` (K9), ``kernel="streaming"``,
              ``kernel="fused"`` and ``kernel="fused", overlap=True,
@@ -436,10 +449,19 @@ exits non-zero and prints no result):
              ``_engines_lock`` with direct searches);
     catalog — every bench block the run built (the ``main``, ``obs`` and
              re-rendered roofline blocks, each campaign arm's roofline,
-             calibration and campaign block, the fleet block, the knee,
-             the tune entries) validated by
+             calibration, campaign and sentinel block and its line, the
+             fleet block, the knee, the tune entries) validated by
              knn_tpu_torch.analysis.artifacts in both styles (each phase
-             fails on a refusal; this line lists them);
+             fails on a refusal; this line lists them); the ``main``
+             phase's warm call as a record in ``bench.py``'s line shape
+             (its own ``bench_line`` line, written to no file): valid,
+             ``obs.roofline.block_for_bench_line`` of it the bound seconds,
+             ceiling and bound class of the block ``main`` published,
+             ``curate_line`` refusing nothing and hoisting that block's
+             ``roofline_pct`` and ``bound_class``, a non-empty
+             ``line_summary``, the sentinel's verdict ``no_baseline``; and
+             ``sweep_records`` / ``sweep_multichip`` over the repo's
+             history giving :data:`HISTORY_SWEEP` / HISTORY_MULTICHIP;
 23. kernels — one JSON line per the contract: each ported kernel (K1,
              K10, K11, K1 at Dp = 256 on the dot path, the entries of K4,
              K2, K3, K5, K6, K7, the db-major grid K9, the lane entries K8
@@ -502,6 +524,13 @@ REPO = Path(__file__).resolve().parent
 
 #: every bench block of the run validated through the artifact catalog
 CATALOG_CHECKS: list = []
+
+#: the repo's bench history (TPU_BENCH_r*.jsonl, BENCH_r*.json) swept
+#: through the catalog: blocks validated by schema, none refused; and its
+#: MULTICHIP_r*.json records (tests/test_torch_artifacts.py pins the same
+#: counts against the JAX package's sweep)
+HISTORY_SWEEP = {"bench_line": 12}
+HISTORY_MULTICHIP = 5
 
 #: one of the mesh phase's two processes: its half of the ``main`` rows in
 #: a MultiHostKNN over a TCPStore; writes its results into ``out_dir``
@@ -570,6 +599,90 @@ def catalog_check(label, name, block):
     if any(errs.values()):
         raise AssertionError(f"catalog: {label} ({name}): {errs}")
     CATALOG_CHECKS.append(f"{label}: {name}")
+
+
+def bench_line_record(*, n, dim, k, n_q, qps, knobs, kind, recall,
+                      commit):
+    """One certified call as a line in ``bench.py``'s line shape: the
+    shape in the metric name, the rate, the mode, the card, the resolved
+    knobs and the batch (written to no file)."""
+    return {"metric": f"knn_qps_main_n{n}_d{dim}_k{k}", "value": qps,
+            "unit": "queries/s", "mode": "certified_pallas",
+            "backend": "cuda", "device_kind": kind, "devices": 1,
+            "batch": n_q, "pallas_knobs": dict(knobs),
+            "recall_at_k": recall, "measured_at_commit": commit}
+
+
+def bench_line_checks(record, block):
+    """The bench-line half of the catalog on one record and the roofline
+    ``block`` its call published: the record valid in both styles;
+    ``obs.roofline.block_for_bench_line`` of it the block's bound seconds,
+    ceiling, bound class and share; ``curate_line`` refusing nothing and
+    hoisting the block's ``roofline_pct`` and ``bound_class``; a non-empty
+    ``line_summary``; the sentinel's verdict ``no_baseline`` under the
+    record's ``cuda`` key (no H100 history), every curated field it
+    carries listed.  Any miss raises."""
+    from knn_tpu_torch.analysis import artifacts
+    from knn_tpu_torch.obs import roofline, sentinel
+
+    catalog_check("main bench line", "bench_line", record)
+    derived = roofline.block_for_bench_line(record)
+    bound_s = max(block["term_times_s"].values())
+    if derived is None or (
+            max(derived["term_times_s"].values()), derived["bound_class"],
+            derived["ceiling_qps"], derived["roofline_pct"]) != (
+            bound_s, block["bound_class"], block["ceiling_qps"],
+            block["roofline_pct"]):
+        raise AssertionError(f"bench line: block_for_bench_line "
+                             f"{derived and derived['term_times_s']} against "
+                             f"the published {block['term_times_s']}")
+    curated = json.loads(json.dumps(record))
+    refusal = artifacts.curate_line(curated)
+    if refusal is not None or not curated["roofline"].get("derived") or (
+            curated["roofline_pct"], curated["bound_class"]) != (
+            block["roofline_pct"], block["bound_class"]):
+        raise AssertionError(f"bench line: curate_line {refusal!r}, hoisted "
+                             f"{curated.get('roofline_pct')} / "
+                             f"{curated.get('bound_class')}")
+    catalog_check("main bench line curated", "bench_line", curated)
+    catalog_check("main bench line derived", "roofline", curated["roofline"])
+    summary = artifacts.line_summary(curated)
+    verdict = sentinel.verdict_for_line(record, repo_dir=str(REPO))
+    carried = sorted(f for f, _ in sentinel.CURATED_FIELDS
+                     if isinstance(sentinel.curated_value(record, f),
+                                   (int, float)))
+    if (not summary or verdict["verdict"] != "no_baseline"
+            or verdict["baseline_key"] != f"{record['metric']}|cuda|default"
+            or sorted(verdict["fields"]) != carried):
+        raise AssertionError(f"bench line: summary {summary!r}, sentinel "
+                             f"{verdict}")
+    catalog_check("main bench line", "sentinel", verdict)
+    return {"bound_s": bound_s, "bound_class": block["bound_class"],
+            "ceiling_qps": block["ceiling_qps"],
+            "roofline_pct": block["roofline_pct"],
+            "curated_roofline_pct": curated["roofline_pct"],
+            "line_summary": summary, "sentinel": verdict["verdict"],
+            "baseline_key": verdict["baseline_key"],
+            "sentinel_fields": sorted(verdict["fields"])}
+
+
+def history_sweep():
+    """``artifacts.sweep_records`` over the repo's bench history and
+    ``sweep_multichip`` over its MULTICHIP records: the counts
+    :data:`HISTORY_SWEEP` / :data:`HISTORY_MULTICHIP`, no problem."""
+    from knn_tpu_torch.analysis import artifacts
+    from knn_tpu_torch.obs import sentinel
+
+    counts, problems = artifacts.sweep_records(
+        list(sentinel.iter_history_lines(str(REPO))))
+    mc_n, mc_problems = artifacts.sweep_multichip(str(REPO))
+    got = {name: c["validated"] for name, c in counts.items()
+           if c["validated"]}
+    if (problems or mc_problems or got != HISTORY_SWEEP
+            or mc_n != HISTORY_MULTICHIP):
+        raise AssertionError(f"history sweep: {got}, {mc_n} multichip, "
+                             f"problems {(problems + mc_problems)[:3]}")
+    return {"validated": got, "multichip_records": mc_n}
 
 
 def lint_phase():
@@ -2060,12 +2173,19 @@ def main(argv=None) -> int:
         recall, same, rel = oracle_check(S, d, i, "main")
         S["tiled"] = (d, i)
         S["tiled_stats"] = stats
-        # the main call's roofline block, held against the catalog
-        from knn_tpu_torch.obs import roofline
+        # the main call's roofline block, held against the catalog, and the
+        # warm call as a bench line (the catalog's bench-line half)
+        from knn_tpu_torch.obs import ident, roofline
 
-        catalog_check("main", "roofline", roofline.attribute(
+        main_block = roofline.attribute(
             roofline.pallas_cost_model(n=n, d=dim, k=k, nq=n_q,
-                                       device_kind=kind), n_q / wall_warm))
+                                       device_kind=kind), n_q / wall_warm)
+        catalog_check("main", "roofline", main_block)
+        record = bench_line_record(
+            n=n, dim=dim, k=k, n_q=n_q, qps=n_q / wall_warm,
+            knobs=stats["pallas_knobs"], kind=kind, recall=recall,
+            commit=ident.identity()["commit"])
+        bench_line = bench_line_checks(record, main_block)
         records["k1"].update(launches=launches["k1"], ms=ms, plain_ms=plain_ms,
                              bound_ms=bound["bound_ms"],
                              bound_by=bound["bound_by"])
@@ -2082,6 +2202,7 @@ def main(argv=None) -> int:
               "oracle_queries": S["n_or"], "recall_at_k": recall,
               "same_indices": same, "max_rel_dist_err": rel,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        emit({"phase": "bench_line", "record": record, **bench_line})
         if "profile" in phases:
             emit(profile_search(knn, S["q_np"], require="binned_select_"))
 
@@ -2287,6 +2408,7 @@ def main(argv=None) -> int:
         from knn_tpu_torch.parallel.mesh import make_host_mesh, make_mesh
         from knn_tpu_torch.serving import ServingEngine, bucket_for
         from knn_tpu_torch.streaming import streaming_certified_knn
+        from knn_tpu_torch.tuning import ivf_label
 
         t_phase = time.perf_counter()
         n, dim, k, q_all = S["n"], S["dim"], S["k"], S["q_np"]
@@ -2506,6 +2628,48 @@ def main(argv=None) -> int:
                       "runs": ivf, "bitwise_brute_force": True,
                       "oracle_ids": True,
                       "seconds_mesh_vs_one_in_turns": ivf_turns}
+
+        # -- the IVF tuner on the mesh: two candidates of the anchor's 32
+        # lists under the pallas selector, one timed run each, on the first
+        # 8 queries (a cut for time: every uniform query is a probe group
+        # of its own at nprobe 8, each group's block placed afresh and all
+        # repaired on the host, 0.17 s a group).  Its index trains as uidx
+        # did (same seed and iterations), so uidx gives each candidate's
+        # probe groups; every gated and timed search launches the
+        # selector's kernel (knn_search_pallas over a group's gathered
+        # block at IVF's default precision, highest: K2's tiled entry) once
+        # a probe group, on the mesh's first device, and no other kernel
+        from knn_tpu_torch.tuning import autotune_ivf
+
+        qt = qu[:8]
+        tune_grid = [{"ncentroids": 32, "nprobe": p} for p in (32, 8)]
+        groups = {c["nprobe"]: uidx.search_certified(
+            qt, nprobe=c["nprobe"], selector="pallas")[2]["groups"]
+            for c in tune_grid}
+        want_k2 = 2 * sum(groups.values())  # the gate's search + one run
+        entry, tune_s = counted(
+            "tiers_mesh", "autotune_ivf", lambda: autotune_ivf(
+                uni, qt, k, mesh=mesh, runs=1, grid=tune_grid,
+                selector="pallas", train_iters=2, seed=0),
+            {"tiled_highest": want_k2})
+        win = entry["knobs"]["nprobe"]
+        if (entry["errors"] or None in entry["timings_ms"].values()
+                or len(entry["timings_ms"]) != 2 or not all_equal(
+                    uidx.search_certified(qt, nprobe=win,
+                                          selector="pallas")[:2],
+                    uone.search_certified(qt, nprobe=win,
+                                          selector="pallas")[:2])):
+            raise AssertionError(f"tiers_mesh autotune_ivf: {entry}")
+        out["autotune_ivf"] = {
+            "queries": 8, "grid": [ivf_label(c) for c in tune_grid],
+            "runs": 1,
+            "selector": "pallas", "winner": entry["winner"],
+            "timings_ms": entry["timings_ms"], "gate_passed": 2,
+            "probe_groups": {ivf_label(c): groups[c["nprobe"]]
+                             for c in tune_grid},
+            "k2_launches": want_k2, "winner_bitwise_one_device": True,
+            "stats_per_candidate": entry["stats_per_candidate"],
+            "seconds": tune_s}
         del uidx, uone
 
         # -- the join of the 4,096 queries and the certified stream on a
@@ -3180,7 +3344,7 @@ def main(argv=None) -> int:
         ceiling at least every q/s the main search reached in this run
         (main, obs and two calls here), and health names the entries."""
         from knn_tpu_torch import campaign, obs
-        from knn_tpu_torch.obs import calibrate, roofline
+        from knn_tpu_torch.obs import calibrate, roofline, sentinel
 
         t_phase = time.perf_counter()
         arms = ("bf16x3_tiled", "bf16x3_streaming")
@@ -3219,9 +3383,21 @@ def main(argv=None) -> int:
                                  line["roofline"].get("calibration")),
                                 ("campaign", line["campaign"])):
                 catalog_check(f"campaign {r['arm']}", name, block)
-            if line["sentinel"] != campaign.SENTINEL_ABSENT:
+            # the sentinel's verdict: no H100 history, so no baseline
+            # under the line's cuda key, every curated field it carries
+            # listed (a verdict of "error" fails)
+            sent = line["sentinel"]
+            catalog_check(f"campaign {r['arm']}", "sentinel", sent)
+            catalog_check(f"campaign {r['arm']}", "bench_line", line)
+            carried = sorted(f for f, _ in sentinel.CURATED_FIELDS
+                             if isinstance(sentinel.curated_value(line, f),
+                                           (int, float)))
+            if (sent["verdict"] != "no_baseline"
+                    or sent["baseline_key"]
+                    != f"{line['metric']}|cuda|default"
+                    or sorted(sent["fields"]) != carried):
                 raise AssertionError(f"campaign {r['arm']}: sentinel "
-                                     f"{line['sentinel']!r}")
+                                     f"{sent!r}, carried {carried}")
             stages = {st["stage"]: st for st in line["campaign"]["stages"]}
             cap = stages["capture"].get("live_capture") or {}
             rec = stages["reconcile"]
@@ -3270,6 +3446,9 @@ def main(argv=None) -> int:
                     line["roofline"]["ceiling_qps_analytic"],
                 "reconstruction_residual_pct":
                     cal["reconstruction_residual_pct"],
+                "sentinel": {"verdict": sent["verdict"],
+                             "baseline_key": sent["baseline_key"],
+                             "fields": sorted(sent["fields"])},
                 "trace": {"kernel_events": cap["kernel_events"],
                           "events_before_body": cap["events_before_body"],
                           "traceread_busy_s": cap["device_busy_s"],
@@ -6545,7 +6724,8 @@ def main(argv=None) -> int:
                                              "bound_ms")):
                 raise AssertionError(f"kernel record {key} is incomplete: "
                                      f"{rec}")
-    emit({"phase": "catalog", "blocks_validated": len(CATALOG_CHECKS),
+    emit({"phase": "catalog", "history_sweep": history_sweep(),
+          "blocks_validated": len(CATALOG_CHECKS),
           "blocks": CATALOG_CHECKS})
     emit({"phase": "done", "phases": sorted(phases)})
     emit({"kernels": list(records.values())})

@@ -1,35 +1,38 @@
 """The artifact-schema registry — ONE declarative catalog for every
-bench block the port emits, and the generic engine that validates them
-(the port's copy of knn_tpu/analysis/artifacts.py).
+bench block the port emits, and the generic engine that validates,
+hoists, curates and prints them (the port's copy of
+knn_tpu/analysis/artifacts.py).
 
 - :data:`CATALOG` — one :class:`BlockSchema` per artifact block, each
   declaring its fields (types/required/ranges), version token, top-level
   hoist keys, sentinel curated-field direction, emitters + fingerprints
   (for the ``artifact-lockstep`` checker), and docs anchor.  The blocks
-  the port shares with the JAX package (``calibration``, ``campaign``,
-  ``loadgen_knee``, ``mutation``, ``ivf``, ``pq``, ``join``,
-  ``quality``, ``fleet``) keep the JAX schemas' checks and legacy
-  strings byte for byte; where the port's block really differs the
-  schema declares the port's (the calibration factors are the H100's
-  five terms, ROADMAP divergence 49; the campaign's stage records carry
-  no ``grid_level``, divergence 50).  ``roofline`` and
+  the port shares with the JAX package (``bench_line``, ``calibration``,
+  ``campaign``, ``loadgen_knee``, ``mutation``, ``ivf``, ``pq``,
+  ``multihost``, ``join``, ``quality``, ``fleet``, ``sentinel``,
+  ``multichip_record``) keep the JAX schemas' checks and legacy strings
+  byte for byte; where the port's block really differs the schema
+  declares the port's (the calibration factors are the H100's five
+  terms, ROADMAP divergence 49; the campaign's stage records carry no
+  ``grid_level``, divergence 50; a bench line may carry the campaign's
+  ``device_trace_qps``, divergence 66).  ``roofline`` and
   ``tuning_cache_entry`` are the port's own blocks (the H100 bound
   classes; the tuner's entry with the Hopper resource gate's record and
-  the ``rl<token>`` key).  A campaign line's ``sentinel`` is
-  ``campaign.SENTINEL_ABSENT`` while the sentinel is not ported
-  (divergence 48), and no schema declares it until then;
+  the ``rl<token>`` key);
 - :func:`validate` — the generic engine.  ``style="legacy"`` reproduces
   each hand validator's error strings BYTE-IDENTICALLY (the port's
   ``validate_*`` entry points are one-line shims over it);
   ``style="normalized"`` is the engine's one canonical phrasing
   (``missing field: X`` / ``field X must be ..., got ...``);
-- :func:`curated_fields` — the sentinel's ``CURATED_FIELDS``, derived.
-
-The hoists and curated fields stay declared on the schemas as data: the
-refresher loop, the history sweeps and the ``bench_line`` / ``sentinel``
-schemas belong to the port's benchmark and its sentinel (ROADMAP queue
-A items 1 and 5), and the ``multihost`` / ``multichip_record`` schemas
-to its multi-GPU slice (item 6).
+- :func:`curate_line` / :func:`apply_hoists` / :func:`line_summary` —
+  the table-driven validate/refuse/hoist/print loop the refresher
+  (``knn_tpu_torch/scripts/refresh_bench_artifacts.py``) runs;
+- :func:`curated_fields` — the sentinel's ``CURATED_FIELDS``, derived;
+- :func:`sweep_records` / :func:`sweep_multichip` — the
+  ``perf_sentinel --lint`` history sweep: every block on every
+  checked-in history line and every ``MULTICHIP_r*.json`` record
+  validated against the catalog (exact-version schemas exempt blocks
+  stamped with a strictly older version token).
 
 Everything here is stdlib-only: the catalog loads where ``cli lint``
 runs, with no GPU and no JAX.  Version tokens and choice sets stay in
@@ -40,7 +43,10 @@ the catalog declares, it never duplicates.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import importlib
+import json
+import os
 from typing import Dict, List, Optional, Tuple
 
 __all__ = [
@@ -59,6 +65,12 @@ __all__ = [
     "element_required",
     "known_keys",
     "curated_fields",
+    "apply_hoists",
+    "apply_scope_hoists",
+    "curate_line",
+    "line_summary",
+    "sweep_records",
+    "sweep_multichip",
 ]
 
 
@@ -223,6 +235,11 @@ class BlockSchema:
     curate: bool = False
     #: participates in the perf_sentinel --lint history sweep
     sweep: bool = False
+    #: name of the per-line print segment function (``_SUMMARIES``)
+    summary: Optional[str] = None
+    #: name of the pre-curation hook (``_PREPARES``) — roofline's
+    #: back-derivation for lines that carry no block
+    prepare: Optional[str] = None
     #: legacy validator entry point, "module:function" (the shim)
     validator: str = ""
 
@@ -545,6 +562,183 @@ _RULES = {
 }
 
 
+# --------------------------------------------------------------------------
+# hoists, curation, printing
+# --------------------------------------------------------------------------
+def apply_hoists(rec: dict, block: dict, schema: BlockSchema,
+                 scope: str) -> None:
+    """Apply one schema's ``scope`` hoists from ``block`` onto ``rec``
+    (setdefault semantics — an existing top-level value always wins)."""
+    for h in schema.hoists:
+        if scope == "bench" and not h.bench:
+            continue
+        if scope == "refresher" and not h.refresher:
+            continue
+        _, gval = _resolve_path(block, h.gate or h.src)
+        if (not gval) if h.truthy else (gval is None):
+            continue
+        _, val = _resolve_path(block, h.src)
+        if h.numeric and not isinstance(val, (int, float)):
+            continue
+        rec.setdefault(h.dst, val)
+
+
+def _block_on_line(rec: dict, schema: BlockSchema):
+    cur = rec
+    for part in schema.block_path.split("."):
+        if not isinstance(cur, dict):
+            return None
+        cur = cur.get(part)
+    return cur
+
+
+def _parent_block(rec: dict, schema: BlockSchema):
+    parts = schema.block_path.split(".")
+    if len(parts) < 2:
+        return None
+    cur = rec
+    for part in parts[:-1]:
+        if not isinstance(cur, dict):
+            return None
+        cur = cur.get(part)
+    return cur
+
+
+def _curation_exempt(rec: dict, schema: BlockSchema, block) -> bool:
+    if schema.error_exempt == "curation":
+        return isinstance(block, dict) and "error" in block
+    if schema.error_exempt == "parent":
+        parent = _parent_block(rec, schema)
+        return isinstance(parent, dict) and "error" in parent
+    return False
+
+
+def apply_scope_hoists(rec: dict, scope: str = "bench") -> None:
+    """The one hoist loop a benchmark runs over its assembled line: for
+    every cataloged block present, hoist the declared keys."""
+    for schema in CATALOG:
+        if not schema.block_path or not schema.hoists:
+            continue
+        block = _block_on_line(rec, schema)
+        if isinstance(block, dict):
+            apply_hoists(rec, block, schema, scope)
+
+
+def curate_line(rec: dict) -> Optional[str]:
+    """The refresher's per-line loop: prepare (back-derive), validate
+    (legacy error strings — the refusal message is byte-stable),
+    and hoist every cataloged block on a fresh curated line.  Returns
+    the refusal message for the first malformed block, None when the
+    line curates clean."""
+    for schema in CATALOG:
+        if not schema.curate:
+            continue
+        needs_validation = True
+        if schema.prepare is not None:
+            block, needs_validation = _PREPARES[schema.prepare](rec)
+        else:
+            block = _block_on_line(rec, schema)
+        if not isinstance(block, dict):
+            continue
+        if _curation_exempt(rec, schema, block):
+            continue
+        if needs_validation:
+            errs = validate(schema.name, block, style="legacy")
+            if errs:
+                return (f"malformed {schema.refusal_label} block: "
+                        f"{'; '.join(errs)}")
+        apply_hoists(rec, block, schema, "refresher")
+    return None
+
+
+def _prepare_roofline(rec: dict):
+    """A line that carries no roofline block back-derives one from its own
+    config fields (``obs.roofline.block_for_bench_line``: the H100 model,
+    or the generic estimate for a kind it has no peaks for); a derived
+    block is trusted (the model built it), never re-validated."""
+    block = rec.get("roofline")
+    if block is not None:
+        return block, True
+    from knn_tpu_torch.obs import roofline
+
+    derived = roofline.block_for_bench_line(rec)
+    if derived is not None:
+        rec["roofline"] = dict(derived, derived=True)
+        return rec["roofline"], False
+    return None, False
+
+
+_PREPARES = {"roofline_derive": _prepare_roofline}
+
+
+# --- per-line print segments (the refresher's readout) --------------------
+def _summary_roofline(r: dict) -> str:
+    # percent-of-roofline + bound class beside the sentinel verdict
+    if isinstance(r.get("roofline_pct"), (int, float)):
+        return (f" roofline={r['roofline_pct'] * 100:.1f}%"
+                f"/{r.get('bound_class')}")
+    return ""
+
+
+def _summary_calibration(r: dict) -> str:
+    # the analytic model's measured residual, when the line's roofline
+    # block carries an applied calibration overlay
+    if isinstance(r.get("model_residual_pct"), (int, float)):
+        return f" calib={r['model_residual_pct']}%"
+    return ""
+
+
+def _summary_knee(r: dict) -> str:
+    # the measured serving knee: max SLO-meeting sustained request rate
+    if isinstance(r.get("knee_qps"), (int, float)):
+        return f" knee={r['knee_qps']}q/s"
+    return ""
+
+
+def _summary_mutation(r: dict) -> str:
+    # the mixed-traffic admitted-read p99 beside read-only numbers
+    if isinstance(r.get("mutation_admitted_p99_ms"), (int, float)):
+        return f" mutation={r['mutation_admitted_p99_ms']}ms/p99"
+    return ""
+
+
+def _summary_ivf(r: dict) -> str:
+    # the probe-pruned tier: certified qps beside the measured recall
+    if isinstance(r.get("ivf_qps"), (int, float)):
+        seg = f" ivf={r['ivf_qps']}q/s"
+        if isinstance(r.get("recall_at_k"), (int, float)):
+            seg += f"@recall{r['recall_at_k']}"
+        return seg
+    return ""
+
+
+def _summary_multihost(r: dict) -> str:
+    # host count x DCN merge strategy + host-RAM tier sweep count
+    if isinstance(r.get("multihost_hosts"), int):
+        return (f" multihost={r['multihost_hosts']}x"
+                f"{r.get('multihost_merge')}"
+                + (f"/{r['hosttier_sweeps']}sweeps"
+                   if isinstance(r.get("hosttier_sweeps"), int) else ""))
+    return ""
+
+
+_SUMMARIES = {
+    "roofline": _summary_roofline,
+    "calibration": _summary_calibration,
+    "knee": _summary_knee,
+    "mutation": _summary_mutation,
+    "ivf": _summary_ivf,
+    "multihost": _summary_multihost,
+}
+
+
+def line_summary(rec: dict) -> str:
+    """The per-line artifact readout the refresher prints beside the
+    sentinel verdict, one segment per cataloged block, catalog order."""
+    return "".join(_SUMMARIES[s.summary](rec) for s in CATALOG
+                   if s.summary is not None)
+
+
 def curated_fields() -> Tuple[Tuple[str, str], ...]:
     """The sentinel's ``CURATED_FIELDS``, derived from the catalog in
     the legacy hand-list's exact order (each block's contribution
@@ -569,6 +763,90 @@ def known_keys(name: str) -> set:
 
 
 # --------------------------------------------------------------------------
+# the history sweep (perf_sentinel --lint)
+# --------------------------------------------------------------------------
+def sweep_records(records, style: str = "normalized"):
+    """Validate every cataloged block on every history record.  Returns
+    ``(counts, problems)``: per-schema ``validated`` /
+    ``advisory_error`` / ``version_exempt`` counts and a list of
+    ``{"schema", "label", "metric", "source", "error"}`` violations.
+
+    A block whose exact-version schema finds an int version token
+    STRICTLY below the current constant predates the schema: it is
+    counted, not condemned.  Version-tolerant schemas (roofline accepts
+    any int ``model_version``) validate every round."""
+    counts = {s.name: {"validated": 0, "advisory_error": 0,
+                       "version_exempt": 0}
+              for s in CATALOG if s.sweep}
+    problems: List[dict] = []
+    for rec in records:
+        if not isinstance(rec, dict):
+            continue
+        for schema in CATALOG:
+            if not schema.sweep:
+                continue
+            if schema.block_path:
+                block = _block_on_line(rec, schema)
+                if block is None:
+                    continue
+            else:
+                if schema.name != "bench_line":
+                    continue
+                block = rec
+            if isinstance(block, dict) and "error" in block and \
+                    schema.error_exempt == "curation":
+                # a benchmark's advisory degradation ({"error": ...}) is
+                # a designed outcome, not a lint hit
+                counts[schema.name]["advisory_error"] += 1
+                continue
+            if _curation_exempt(rec, schema, block):
+                continue
+            if schema.version_exact and schema.version_field and \
+                    isinstance(block, dict):
+                tok = block.get(schema.version_field)
+                if isinstance(tok, int) and \
+                        tok < version_value(schema.name):
+                    counts[schema.name]["version_exempt"] += 1
+                    continue
+            counts[schema.name]["validated"] += 1
+            for err in validate(schema.name, block, style=style):
+                problems.append({
+                    "schema": schema.name,
+                    "label": schema.refusal_label or schema.name,
+                    "metric": rec.get("metric"),
+                    "source": rec.get("_source"),
+                    "error": err,
+                })
+    return counts, problems
+
+
+def sweep_multichip(repo_dir: str):
+    """Validate every checked-in ``MULTICHIP_r*.json`` driver record
+    against its schema.  Returns ``(n_validated, problems)``."""
+    n = 0
+    problems: List[dict] = []
+    for path in sorted(glob.glob(
+            os.path.join(repo_dir, "MULTICHIP_r*.json"))):
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            problems.append({"schema": "multichip_record",
+                             "label": "multichip",
+                             "metric": None,
+                             "source": os.path.basename(path),
+                             "error": f"unreadable: {e}"})
+            continue
+        n += 1
+        for err in validate("multichip_record", doc):
+            problems.append({"schema": "multichip_record",
+                             "label": "multichip", "metric": None,
+                             "source": os.path.basename(path),
+                             "error": err})
+    return n, problems
+
+
+# --------------------------------------------------------------------------
 # THE CATALOG
 # --------------------------------------------------------------------------
 _RL = "knn_tpu_torch.obs.roofline"
@@ -579,7 +857,120 @@ _XO = "knn_tpu_torch.parallel.crossover"
 #: lists the cataloged blocks
 _DOC = "README.md#Artifact blocks"
 
+#: sentinel verdict vocabulary ("error": the verdict computation raised —
+#: a designed degradation, part of the contract)
+SENTINEL_VERDICTS = ("ok", "warn", "regress", "no_baseline", "error")
+
 CATALOG: Tuple[BlockSchema, ...] = (
+    # --- bench top-level lines -----------------------------------------
+    BlockSchema(
+        name="bench_line",
+        block_path="",
+        doc=_DOC,
+        # the JAX package's bench.py emits it; the port's benchmark will
+        # (the campaign's rehearse lines and the refresher's curated lines
+        # are bench lines too, held against this schema by their tests)
+        emitters=(),
+        fingerprints=(frozenset({"metric", "value", "unit"}),),
+        sweep=True,
+        curated=(
+            Curated("value", "higher", 0),
+            Curated("device_phase_qps", "higher", 1),
+            Curated("serving_sustained_qps", "higher", 2),
+            Curated("mfu", "higher", 3),
+            Curated("mfu_device", "higher", 4),
+        ),
+        checks=(
+            Field("metric", "str", required=True),
+            Field("value", "number", nullable=True),
+            Field("unit", "str", nullable=True),
+            Field("vs_baseline", "number", nullable=True),
+            Field("mode", "str", nullable=True),
+            Field("device_phase_qps", "number", nullable=True),
+            # the port's campaign line: the rate its device trace read
+            # (divergence 66)
+            Field("device_trace_qps", "number", nullable=True),
+            Field("serving_sustained_qps", "number", nullable=True),
+            Field("serving_latency_ms", "dict", nullable=True),
+            Field("obs_overhead_pct", "number", nullable=True),
+            # the artifact blocks themselves (each validated under its
+            # own schema; declared here so the emitters' line literals
+            # resolve)
+            Field("roofline", "any"),
+            Field("loadgen_knee", "any"),
+            Field("mutation", "any"),
+            Field("ivf", "any"),
+            Field("pq", "any"),
+            Field("join", "any"),
+            Field("quality", "any"),
+            Field("multihost", "any"),
+            Field("campaign", "any"),
+            Field("sentinel", "any"),
+            Field("tuning", "any"),
+            # the hoisted keys (every Hoist dst is a declared line key)
+            Field("roofline_pct", "number", nullable=True),
+            Field("bound_class", "str", nullable=True),
+            Field("roofline_estimated", "bool", nullable=True),
+            Field("model_residual_pct", "number", nullable=True),
+            Field("knee_qps", "number", nullable=True),
+            Field("mutation_admitted_p99_ms", "number", nullable=True),
+            Field("ivf_qps", "number", nullable=True),
+            Field("bytes_streamed_ratio", "number", nullable=True),
+            Field("join_rows_per_s", "number", nullable=True),
+            Field("audit_recall_at_k", "number", nullable=True),
+            Field("multihost_hosts", "int", nullable=True),
+            Field("multihost_merge", "str", nullable=True),
+            Field("multihost_qps", "number", nullable=True),
+            Field("hosttier_sweeps", "int", nullable=True),
+            # soundness gate + recall provenance
+            Field("pallas_gate_ok", "bool", nullable=True),
+            Field("gate_note", "str", nullable=True),
+            Field("gate_queries", "int", nullable=True),
+            Field("gate_rows", "int", nullable=True),
+            Field("gate_stats", "dict", nullable=True),
+            Field("session_gate_ok", "bool", nullable=True,
+                  emit_note="stamped by the archived round-5 session "
+                            "driver (scripts/archive/tpu_session.py); "
+                            "declared so r05 history lines sweep "
+                            "clean, no live emitter writes it"),
+            Field("recall_at_k", "number", nullable=True),
+            Field("recall_unverified", "bool", nullable=True),
+            Field("recall_below_one", "bool", nullable=True),
+            # run shape / environment
+            Field("compute_dtype", "str", nullable=True),
+            Field("metric_fn", "str", nullable=True),
+            Field("runs", "int", nullable=True),
+            Field("qps_std", "number", nullable=True),
+            Field("qps_labels_only", "number", nullable=True),
+            Field("mfu", "number", nullable=True),
+            Field("mfu_device", "number", nullable=True),
+            Field("mfu_reason", "str", nullable=True),
+            Field("peak_flops_assumed", "number", nullable=True),
+            Field("selectors", "dict", nullable=True),
+            Field("cpu_baseline_qps", "number", nullable=True),
+            Field("cpu_baseline_cached", "bool", nullable=True),
+            Field("cpu_queries", "int", nullable=True),
+            Field("cpu_per_query_s", "number", nullable=True),
+            Field("devices", "int", nullable=True),
+            Field("device_kind", "str", nullable=True),
+            Field("backend", "str", nullable=True),
+            Field("cpu_fallback_shrunk", "bool", nullable=True),
+            Field("curated_tpu_line", "dict", nullable=True),
+            Field("batch", "int", nullable=True),
+            Field("train_tile", "int", nullable=True),
+            Field("pallas_knobs", "dict", nullable=True),
+            Field("approx_knobs", "dict", nullable=True),
+            Field("precision", "str", nullable=True),
+            Field("quant_bound_max", "number", nullable=True),
+            Field("quant_scales_dtype", "str", nullable=True),
+            Field("quant_bound_error", "str", nullable=True),
+            Field("error", "str", nullable=True),
+            # curation provenance (stamped by the refresher)
+            Field("measured_round", "int", nullable=True),
+            Field("measured_at_commit", "str", nullable=True),
+            Field("stale", "bool", nullable=True),
+        ),
+    ),
     # --- roofline (the port's own block: the H100 model) -----------------
     BlockSchema(
         name="roofline",
@@ -596,6 +987,8 @@ CATALOG: Tuple[BlockSchema, ...] = (
         refusal_label="roofline",
         curate=True,
         sweep=True,
+        summary="roofline",
+        prepare="roofline_derive",
         missing_order=("model_version", "bound_class", "ceiling_qps",
                        "terms", "estimated"),
         missing_legacy="missing field: {key}",
@@ -658,6 +1051,7 @@ CATALOG: Tuple[BlockSchema, ...] = (
         refusal_label="calibration",
         curate=True,
         sweep=True,
+        summary="calibration",
         hoists=(
             Hoist("model_residual_pct", "model_residual_pct",
                   gate="applied", truthy=True, numeric=True),
@@ -779,6 +1173,7 @@ CATALOG: Tuple[BlockSchema, ...] = (
         refusal_label="loadgen_knee",
         curate=True,
         sweep=True,
+        summary="knee",
         hoists=(Hoist("knee_qps", "knee_qps"),),
         curated=(Curated("knee_qps", "higher", 6),),
         checks=(
@@ -823,6 +1218,7 @@ CATALOG: Tuple[BlockSchema, ...] = (
         refusal_label="mutation",
         curate=True,
         sweep=True,
+        summary="mutation",
         missing_order=("mutation_version", "write_mix", "rate_qps",
                        "duration_s", "admitted_p99_ms", "compactions",
                        "epoch", "reads", "writes",
@@ -896,6 +1292,7 @@ CATALOG: Tuple[BlockSchema, ...] = (
         refusal_label="ivf",
         curate=True,
         sweep=True,
+        summary="ivf",
         missing_order=("ivf_version", "ncentroids", "nprobe", "queries",
                        "k", "probe_fraction", "recall_at_k",
                        "fallback_rate", "bytes_streamed_ratio", "qps"),
@@ -993,6 +1390,76 @@ CATALOG: Tuple[BlockSchema, ...] = (
             Field("queries", "int", required=True, ge=1,
                   legacy="{path} must be a positive int, got "
                          "{value!r}"),
+            Field("error", "any"),
+        ),
+    ),
+    # --- the multi-host merge and host-RAM tier block ----------------------
+    BlockSchema(
+        name="multihost",
+        block_path="multihost",
+        doc=_DOC,
+        validator="knn_tpu_torch.parallel.crossover:validate_multihost_block",
+        # the JAX package's bench.py emits it; the port's benchmark will
+        emitters=(),
+        fingerprints=(frozenset({"hosts", "merge"}),
+                      frozenset({"sweeps", "budget_bytes",
+                                 "segment_rows"})),
+        not_dict_legacy="multihost block is {vtype}, not dict",
+        refusal_label="multihost",
+        curate=True,
+        sweep=True,
+        summary="multihost",
+        hoists=(
+            Hoist("hosts", "multihost_hosts", truthy=True, bench=False),
+            Hoist("merge.dcn.strategy", "multihost_merge", truthy=True,
+                  bench=False),
+            Hoist("hosttier.sweeps", "hosttier_sweeps", truthy=True),
+        ),
+        checks=(
+            Field("hosts", "int", required=True, ge=1,
+                  legacy="hosts {value!r} is not a positive int"),
+            Field("chips_per_host", "int", ge=1,
+                  legacy="chips_per_host {value!r} is not a positive "
+                         "int"),
+            Field("merge", "dict", required=True,
+                  legacy="missing merge breakdown"),
+            Field("merge.intra", "dict",
+                  legacy="merge.intra is not a dict"),
+            Field("merge.intra.strategy", required=True,
+                  choices=Ref(_XO, "STRATEGIES"),
+                  legacy="merge.intra.strategy {value!r} not in "
+                         "{choices}"),
+            Field("merge.intra.source", required=True,
+                  choices=Ref(_XO, "SOURCES"),
+                  legacy="merge.intra.source {value!r} not in "
+                         "{choices}"),
+            Field("merge.dcn", "dict",
+                  legacy="merge.dcn is not a dict"),
+            Field("merge.dcn.strategy", required=True,
+                  choices=Ref(_XO, "STRATEGIES"),
+                  legacy="merge.dcn.strategy {value!r} not in "
+                         "{choices}"),
+            Field("merge.dcn.source", required=True,
+                  choices=Ref(_XO, "SOURCES"),
+                  legacy="merge.dcn.source {value!r} not in "
+                         "{choices}"),
+            Field("dcn_merge_bytes", "int", ge=0,
+                  legacy="dcn_merge_bytes {value!r} is not a "
+                         "non-negative int"),
+            Field("hosttier", "dict",
+                  legacy="hosttier is not a dict"),
+            Field("hosttier.sweeps", "int", required=True, ge=1,
+                  legacy="hosttier.sweeps {value!r} is not a positive "
+                         "int"),
+            Field("hosttier.budget_bytes", "int", required=True, gt=0,
+                  legacy="hosttier.budget_bytes {value!r} is not a "
+                         "positive int"),
+            Field("hosttier.segment_rows", "int", required=True, ge=1,
+                  legacy="hosttier.segment_rows {value!r} is not a "
+                         "positive int"),
+            Field("hosttier.bytes_per_sweep", "any"),
+            Field("hosttier.sweep_walls_s", "any"),
+            Field("hosttier.qps", "any"),
             Field("error", "any"),
         ),
     ),
@@ -1160,87 +1627,23 @@ CATALOG: Tuple[BlockSchema, ...] = (
             Field("error", "any"),
         ),
     ),
-    # --- the multi-host merge and host-RAM tier block ----------------------
+    # --- sentinel verdict ------------------------------------------------
     BlockSchema(
-        name="multihost",
-        block_path="multihost",
+        name="sentinel",
+        block_path="sentinel",
         doc=_DOC,
-        validator="knn_tpu_torch.parallel.crossover:validate_multihost_block",
-        # the JAX package's bench.py emits it; the port's benchmark will
-        emitters=(),
-        fingerprints=(frozenset({"hosts", "merge"}),
-                      frozenset({"sweeps", "budget_bytes",
-                                 "segment_rows"})),
-        not_dict_legacy="multihost block is {vtype}, not dict",
-        refusal_label="multihost",
-        curate=True,
+        # the verdict, and the campaign line's {"verdict": "error", ...}
+        # when the sentinel raised
+        emitters=("knn_tpu_torch/obs/sentinel.py",
+                  "knn_tpu_torch/campaign.py"),
+        fingerprints=(frozenset({"verdict", "baseline_key"}),),
         sweep=True,
-        hoists=(
-            Hoist("hosts", "multihost_hosts", truthy=True, bench=False),
-            Hoist("merge.dcn.strategy", "multihost_merge", truthy=True,
-                  bench=False),
-            Hoist("hosttier.sweeps", "hosttier_sweeps", truthy=True),
-        ),
         checks=(
-            Field("hosts", "int", required=True, ge=1,
-                  legacy="hosts {value!r} is not a positive int"),
-            Field("chips_per_host", "int", ge=1,
-                  legacy="chips_per_host {value!r} is not a positive "
-                         "int"),
-            Field("merge", "dict", required=True,
-                  legacy="missing merge breakdown"),
-            Field("merge.intra", "dict",
-                  legacy="merge.intra is not a dict"),
-            Field("merge.intra.strategy", required=True,
-                  choices=Ref(_XO, "STRATEGIES"),
-                  legacy="merge.intra.strategy {value!r} not in "
-                         "{choices}"),
-            Field("merge.intra.source", required=True,
-                  choices=Ref(_XO, "SOURCES"),
-                  legacy="merge.intra.source {value!r} not in "
-                         "{choices}"),
-            Field("merge.dcn", "dict",
-                  legacy="merge.dcn is not a dict"),
-            Field("merge.dcn.strategy", required=True,
-                  choices=Ref(_XO, "STRATEGIES"),
-                  legacy="merge.dcn.strategy {value!r} not in "
-                         "{choices}"),
-            Field("merge.dcn.source", required=True,
-                  choices=Ref(_XO, "SOURCES"),
-                  legacy="merge.dcn.source {value!r} not in "
-                         "{choices}"),
-            Field("dcn_merge_bytes", "int", ge=0,
-                  legacy="dcn_merge_bytes {value!r} is not a "
-                         "non-negative int"),
-            Field("hosttier", "dict",
-                  legacy="hosttier is not a dict"),
-            Field("hosttier.sweeps", "int", required=True, ge=1,
-                  legacy="hosttier.sweeps {value!r} is not a positive "
-                         "int"),
-            Field("hosttier.budget_bytes", "int", required=True, gt=0,
-                  legacy="hosttier.budget_bytes {value!r} is not a "
-                         "positive int"),
-            Field("hosttier.segment_rows", "int", required=True, ge=1,
-                  legacy="hosttier.segment_rows {value!r} is not a "
-                         "positive int"),
-            Field("hosttier.bytes_per_sweep", "any"),
-            Field("hosttier.sweep_walls_s", "any"),
-            Field("hosttier.qps", "any"),
-            Field("error", "any"),
-        ),
-    ),
-    # --- a multi-chip run record (MULTICHIP_r*.json) -----------------------
-    BlockSchema(
-        name="multichip_record",
-        block_path="",
-        doc=_DOC,
-        emitters=(),
-        checks=(
-            Field("n_devices", "int", required=True, ge=1),
-            Field("rc", "int", required=True),
-            Field("ok", "bool", required=True),
-            Field("skipped", "bool", required=True),
-            Field("tail", "str", required=True, nullable=True),
+            Field("verdict", "str", required=True,
+                  choices=SENTINEL_VERDICTS),
+            Field("baseline_key", "str", nullable=True),
+            Field("fields", "dict", nullable=True),
+            Field("error", "str", nullable=True),
         ),
     ),
     # --- tuning-cache entries (the port's own shape) ----------------------
@@ -1281,6 +1684,20 @@ CATALOG: Tuple[BlockSchema, ...] = (
             # the key carries rl<token>: an entry is valid under one
             # roofline model (divergence 20)
             Rule("tuning_cache_key"),
+        ),
+    ),
+    # --- a multi-chip run record (MULTICHIP_r*.json) -----------------------
+    BlockSchema(
+        name="multichip_record",
+        block_path="",
+        doc=_DOC,
+        emitters=(),
+        checks=(
+            Field("n_devices", "int", required=True, ge=1),
+            Field("rc", "int", required=True),
+            Field("ok", "bool", required=True),
+            Field("skipped", "bool", required=True),
+            Field("tail", "str", required=True, nullable=True),
         ),
     ),
 )

@@ -14,8 +14,9 @@ Six invariants over the catalog:
    appears in at least one emitter file, or carries a written
    ``emit_note`` justification (>= 10 chars, the suppression
    discipline).  The catalog can't rot into fiction;
-3. **refresher hoist lockstep** — ``scripts/refresh_bench_artifacts.py``
-   either speaks the catalog (imports ``analysis.artifacts`` /
+3. **refresher hoist lockstep** —
+   ``knn_tpu_torch/scripts/refresh_bench_artifacts.py`` either speaks the
+   catalog (imports ``analysis.artifacts`` /
    calls ``curate_line``) — in which case every declared hoist is
    performed by construction — or names every refresher-scope hoist
    key literally.  A hand-rolled refresher that drops a declared hoist
@@ -28,16 +29,15 @@ Six invariants over the catalog:
    list declares it;
 6. **docs anchors** — every block type's ``doc`` anchor names a real
    heading in a real doc file (in README.md, a heading of its port
-   section), and, once the catalog declares a ``bench_line`` schema,
-   every hoist destination / curated field is a declared ``bench_line``
-   key (hoists land on cataloged ground).
+   section), and every hoist destination / curated field is a declared
+   ``bench_line`` key (hoists land on cataloged ground).
 
 Checks 1–4 and 6 only run against files that exist under the lint root
-(fixture trees stay green); check 5 judges the catalog itself.  Checks 3
-and 4 arm themselves when the port's refresher and sentinel exist
-(ROADMAP queue A items 1 and 5: neither is ported yet).  The catalog is
-read from the lint ROOT's copy when present (``Context.load_module``)
-so ``--root`` judges another checkout against ITS declarations.
+(fixture trees stay green); check 5 judges the catalog itself.  In this
+checkout the refresher and ``obs/sentinel.py`` exist, so checks 3 and 4
+judge them on every lint.  The catalog is read from the lint ROOT's copy
+when present (``Context.load_module``) so ``--root`` judges another
+checkout against ITS declarations.
 """
 
 from __future__ import annotations

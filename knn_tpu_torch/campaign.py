@@ -44,10 +44,12 @@ in every timed call (a store key names no placement, so a fit that held
 one would lower the ceiling of every resident search of the shape); the
 hardware arm (``rehearse=False``, which shells out to a benchmark) is
 refused until the port has its benchmark, and with it its grid level;
-the ``join_bq512`` arm is refused (the port has no ``block_q``); the
-capture stage parses no checked-in fixture; and a line's ``sentinel`` is
-:data:`SENTINEL_ABSENT` (the sentinel is not ported).  ``torch`` is
-imported inside the arm only.
+the ``join_bq512`` arm is refused (the port has no ``block_q``); and the
+capture stage parses no checked-in fixture.  Each arm's line carries its
+``sentinel`` verdict against the bench history of this checkout
+(:data:`REPO`; obs.sentinel, keyed by backend, so a card's line meets no
+TPU baseline), or ``{"verdict": "error", ...}`` if the sentinel raised.
+``torch`` is imported inside the arm only.
 """
 
 from __future__ import annotations
@@ -59,9 +61,9 @@ import tempfile
 import time
 from typing import Dict, List, Optional, Sequence
 
-from knn_tpu_torch.obs import calibrate, ident, names, profiler, registry
+from knn_tpu_torch.obs import (calibrate, ident, names, profiler, registry,
+                               sentinel, traceread)
 from knn_tpu_torch.obs import roofline as _rl
-from knn_tpu_torch.obs import traceread
 
 #: campaign artifact schema version (calibrate.validate_campaign_block)
 CAMPAIGN_VERSION = 1
@@ -96,12 +98,8 @@ REHEARSE_SHAPE = dict(n=2048, d=32, k=5, nq=64)
 KERNEL_TRACE_NAMES = {"tiled": "binned_select_", "streaming": "stream_select_",
                       "fused": "fused_select_"}
 
-#: a line's ``sentinel`` field while the sentinel is not ported
-SENTINEL_ABSENT = {
-    "verdict": "absent",
-    "note": "obs.sentinel is not ported: it judges a bench history, and "
-            "the port's waits for its benchmark",
-}
+#: the checkout whose bench history judges each arm's line
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _stage(log: List[dict], name: str, status: str, **detail) -> dict:
@@ -372,11 +370,15 @@ def _rehearse_arm(arm: str, *, out_dir: str, shape: Dict[str, int],
         "campaign": campaign_block,
         "measured_round": round_no if round_no is not None else 0,
         "measured_at_commit": prov["commit"],
-        "sentinel": dict(SENTINEL_ABSENT),
     }
     errors = (_rl.validate_block(att)
               + calibrate.validate_calibration(att.get("calibration"))
               + calibrate.validate_campaign_block(campaign_block))
+    try:
+        line["sentinel"] = sentinel.verdict_for_line(line, repo_dir=REPO)
+    except Exception as e:  # noqa: BLE001 — verdict must not kill the arm
+        line["sentinel"] = {"verdict": "error",
+                            "error": f"{type(e).__name__}: {e}"}
     fname = (f"campaign_r{round_no:02d}_{arm}.jsonl"
              if round_no is not None else f"campaign_{arm}.jsonl")
     path = os.path.join(out_dir, fname)

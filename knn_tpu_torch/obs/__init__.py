@@ -52,12 +52,15 @@ the tuner, pipeline phases) write through here:
   quantiles from summed buckets, fleet SLO edges with member-embedding
   bundles (``fleet.configure(members=, stale_s=)``, ``/fleetz``, ``cli
   fleet``); ``ident.set_identity`` stamps each member.
+- **Regression sentinel** (:mod:`~knn_tpu_torch.obs.sentinel`): robust
+  median / MAD baselines over the bench history, keyed like for like
+  (metric, backend, precision family), and the ``sentinel`` verdict a
+  bench line carries (``knn_tpu_torch/scripts/perf_sentinel.py``).
 
 No module here imports ``torch`` at import time (health and the profiler
 import it inside the functions that need it) and none imports ``jax`` or
-``knn_tpu``.  The JAX package's ``sentinel`` waits for the port's
-benchmark (ROADMAP queue A item 5), and its XLA compile hook has no
-counterpart (a CUDA graph capture counts under ``SERVING_COMPILES``).
+``knn_tpu``.  The JAX package's XLA compile hook has no counterpart (a
+CUDA graph capture counts under ``SERVING_COMPILES``).
 """
 
 from knn_tpu_torch.obs import (  # noqa: F401

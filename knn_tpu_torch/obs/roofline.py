@@ -57,6 +57,7 @@ read.
 
 from __future__ import annotations
 
+import re
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -141,6 +142,9 @@ SURVIVORS_GROUPED_DEFAULT = 2
 MAX_SURVIVORS = 8
 PQ_DSUB_DEFAULT = 4
 PQ_NCODES_DEFAULT = 256
+
+#: a bench line's metric name: its shape (the JAX package's pattern)
+_METRIC_RE = re.compile(r"^knn_qps_.+_n(?P<n>\d+)_d(?P<d>\d+)_k(?P<k>\d+)$")
 
 _lock = threading.Lock()
 #: config label -> last published compact attribution (bounded)
@@ -859,6 +863,60 @@ def reset() -> None:
     with _lock:
         _LAST.clear()
         _PUBLISHED.clear()
+
+
+def block_for_bench_line(rec: dict) -> Optional[dict]:
+    """The roofline share of one bench line from its own fields: the shape
+    in its metric name, ``mode``, ``pallas_knobs``, ``device_kind``,
+    ``backend``, ``batch`` and its rate (``device_phase_qps`` or
+    ``value``) — what the refresher curates onto a line that carries no
+    roofline block (``analysis.artifacts._prepare_roofline``).  A
+    ``certified_pallas`` line is priced through :func:`pallas_cost_model`
+    with the port's knobs (``block_q`` has no counterpart and is ignored,
+    divergence 20), an ``exact`` / ``certified_approx`` line through
+    :func:`counted_cost_model` (the JAX package's ``xla_cost_model``);
+    the line's ``devices`` has no counterpart either (the model prices
+    one card's work).  A kind this module has no peaks for — a TPU line
+    of the history — gets the generic fallback with ``estimated`` set,
+    never a TPU peak.  None for any other mode, a metric name without the
+    shape, or a configuration the models refuse."""
+    m = _METRIC_RE.match(str(rec.get("metric") or ""))
+    if not m:
+        return None
+    n, d, k = (int(m.group(g)) for g in ("n", "d", "k"))
+    mode = rec.get("mode")
+    device_kind = rec.get("device_kind")
+    backend = rec.get("backend")
+    nq = int(rec.get("batch") or 4096)
+    ivf = rec.get("ivf") if isinstance(rec.get("ivf"), dict) else {}
+    probe_kw = ({"nprobe": int(ivf["nprobe"]),
+                 "ncentroids": int(ivf["ncentroids"])}
+                if ivf.get("nprobe") and ivf.get("ncentroids") else {})
+    try:
+        if mode == "certified_pallas":
+            knobs = rec.get("pallas_knobs") or {}
+            model = pallas_cost_model(
+                n=n, d=d, k=k, nq=nq,
+                precision=knobs.get("precision") or rec.get("precision"),
+                kernel=knobs.get("kernel"),
+                grid_order=knobs.get("grid_order"),
+                binning=knobs.get("binning"), tile_n=knobs.get("tile_n"),
+                survivors=knobs.get("survivors"), bin_w=knobs.get("bin_w"),
+                margin=int(knobs.get("margin") or 28),
+                device_kind=device_kind, backend=backend, **probe_kw)
+            measured = rec.get("device_phase_qps") or rec.get("value")
+        elif mode in ("exact", "certified_approx"):
+            model = counted_cost_model(
+                n=n, d=d, k=k, nq=nq,
+                selector="exact" if mode == "exact" else "approx",
+                dtype=rec.get("compute_dtype"), device_kind=device_kind,
+                backend=backend, **probe_kw)
+            measured = rec.get("value")
+        else:
+            return None
+    except (ValueError, TypeError):
+        return None
+    return attribute(model, measured)
 
 
 def render_text(block: dict) -> str:

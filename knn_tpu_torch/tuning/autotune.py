@@ -487,23 +487,6 @@ def _fence(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _ivf_device(mesh, device):
-    """The device :func:`autotune_ivf` runs on: ``device``, or the one
-    device of a (1, 1) ``mesh`` (not both).  A mesh of several positions
-    is refused by name: the tuner's cache keys one card's shape, and the
-    tuner on a mesh is queued (ROADMAP queue A item 4.3)."""
-    if mesh is None:
-        return device
-    if device is not None:
-        raise ValueError("pass mesh= or device=, not both")
-    if mesh.size > 1:
-        raise ValueError(
-            f"autotune_ivf on a mesh of {mesh.size} positions is queued "
-            f"(ROADMAP queue A item 4.3): the tune cache keys one card's "
-            f"shape")
-    return mesh.devices.flat[0]
-
-
 def autotune(
     db, queries, k: int, *, metric: str = "l2", margin: int = 28,
     grid: Optional[Sequence[Dict[str, object]]] = None,
@@ -731,8 +714,9 @@ def autotune_ivf(
     device_kind: Optional[str] = None, device=None, mesh=None,
 ) -> Dict[str, object]:
     """Searches the IVF (ncentroids, nprobe) grid on ``device`` (default
-    ``cuda``; ``mesh`` a one-device mesh at most, :func:`_ivf_device`)
-    under the same bitwise end-result gate as :func:`autotune`:
+    ``cuda``) or ``mesh`` (not both; ``IVFIndex(mesh=)``, as the JAX
+    package's builds it) under the same bitwise end-result gate as
+    :func:`autotune`:
     a candidate's certified search must reproduce exact brute force
     (``ops.refine.refine_shared_exact`` over every row) exactly or it is
     marked ineligible — the certified fallback makes every sound candidate
@@ -743,11 +727,12 @@ def autotune_ivf(
     index is trained per ncentroids and shared by its nprobe ladder.  A
     candidate that raises ``ValueError`` (a shape its geometry refuses) is
     recorded ineligible; any other exception — a device fault — raises."""
-    from knn_tpu_torch.device import resolve_device
+    from knn_tpu_torch.index.tier import tier_mesh
     from knn_tpu_torch.ivf import IVFIndex
     from knn_tpu_torch.ops.refine import refine_shared_exact
 
-    dev = resolve_device(_ivf_device(mesh, device))
+    mesh = tier_mesh(mesh, device)
+    dev = mesh.devices.flat[0]
     db = np.asarray(db, dtype=np.float32)
     queries = np.asarray(queries, dtype=np.float32)
     n, d = db.shape
@@ -777,7 +762,7 @@ def autotune_ivf(
         try:
             index = IVFIndex(db, k=k, ncentroids=cc, nprobe=max(probes),
                              metric=metric, train_iters=train_iters,
-                             seed=seed, device=dev)
+                             seed=seed, mesh=mesh)
         except ValueError as e:  # per arm, recorded
             for pp in probes:
                 label = ivf_label({"ncentroids": cc, "nprobe": pp})

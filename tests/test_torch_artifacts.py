@@ -11,9 +11,18 @@ listed divergences (ROADMAP queue C) are the fields where the port's
 block really differs: the calibration factors are the H100's five terms
 (divergence 49), and the port refuses a bool where a number or version
 token is declared on its calibration and campaign blocks, as its
-validators always did; each has its own test, as do the port's own
-schemas (``roofline``, ``tuning_cache_entry``) and a campaign line's
-``sentinel`` (divergence 48).
+validators always did; a bench line may carry the campaign's
+``device_trace_qps`` (divergence 66); each has its own test, as do the
+port's own schemas (``roofline``, ``tuning_cache_entry``).
+
+The bench-line half: ``curate_line``, ``apply_hoists``, ``line_summary``,
+``sweep_records`` and ``sweep_multichip`` against the JAX package's on
+the repo's history (``TPU_BENCH_r*.jsonl``, ``BENCH_r*.json``,
+``MULTICHIP_r*.json``) for every block the two catalogs declare alike
+(the roofline block a line without one back-derives is the H100 model's,
+``obs.roofline.block_for_bench_line``, and is compared with that), and
+the ``artifact-lockstep`` checker's invariants 3 and 4, armed by the
+port's refresher and sentinel.
 """
 
 import copy
@@ -109,6 +118,19 @@ VALID = {
                      "sweep_walls_s": [0.1], "qps": 1.0}},
     "multichip_record": {"n_devices": 4, "rc": 0, "ok": True,
                          "skipped": False, "tail": "done"},
+    "sentinel": {"verdict": "no_baseline",
+                 "baseline_key": "knn_qps_x|cuda|default",
+                 "fields": {"value": {"verdict": "no_baseline"}}},
+    "bench_line": {
+        "metric": "knn_qps_main_n1000000_d128_k100", "value": 60000.0,
+        "unit": "queries/s", "mode": "certified_pallas", "backend": "cuda",
+        "device_kind": "NVIDIA H100 80GB HBM3", "batch": 4096,
+        "device_phase_qps": 61000.0, "device_trace_qps": 62000.0,
+        "pallas_knobs": {"tile_n": 16384},
+        "roofline_pct": 0.05, "bound_class": "tensor_core_bound",
+        "recall_at_k": 1.0, "runs": 2, "devices": 1, "pallas_gate_ok": True,
+        "measured_round": 1, "measured_at_commit": "abc1234",
+        "stale": False, "sentinel": {"verdict": "ok"}},
 }
 
 SHARED = sorted(VALID)
@@ -197,32 +219,44 @@ def mutations(name):
     return out
 
 
+#: bench-line fields of the port's schema alone (divergence 66)
+PORT_ONLY_LINE = {"device_trace_qps"}
+
+
 def _divergent(name, path):
-    return name == "calibration" and path in (JAX_ONLY_FACTORS
-                                              | PORT_ONLY_FACTORS)
+    return (name == "calibration" and path in (JAX_ONLY_FACTORS
+                                               | PORT_ONLY_FACTORS)) or \
+        (name == "bench_line" and path in PORT_ONLY_LINE)
 
 
 @pytest.mark.parametrize("name", SHARED)
 def test_shared_schema_equals_jax_on_every_mutation(name):
     cases = mutations(name)
-    assert len(cases) > 20
+    # the sentinel block declares four fields; every other schema five or
+    # more
+    n_fields = len(art.BY_NAME[name].fields)
+    assert len(cases) > min(20, 4 * n_fields)
     refused = 0
     for label, path, block in cases:
         for style in STYLES:
             got = art.validate(name, block, style=style)
             want = jart.validate(name, block, style=style)
             if _divergent(name, path):
-                # each package refuses its own factors' faults only
-                port_field = path in PORT_ONLY_FACTORS
-                if label.endswith(("dropped", "null", "wrong type",
-                                   "at gt")):
+                # each package refuses its own fields' faults only
+                port_field = path in PORT_ONLY_FACTORS | PORT_ONLY_LINE
+                if name == "bench_line":
+                    # optional and nullable: the port refuses a wrong type
+                    assert bool(got) == label.endswith("wrong type"), label
+                    assert want == [], (label, want)
+                elif label.endswith(("dropped", "null", "wrong type",
+                                     "at gt")):
                     assert bool(got) == port_field, (label, got)
                     assert bool(want) == (not port_field), (label, want)
                 continue
             assert got == want, (name, label, style)
             refused += bool(got)
     assert art.validate(name, VALID[name]) == []
-    assert refused > 10
+    assert refused > min(10, n_fields)
 
 
 @pytest.mark.parametrize("name", SHARED)
@@ -245,7 +279,12 @@ def test_shared_schema_declarations_equal_jax(name):
     diverge = set()
     if name == "calibration":
         diverge = JAX_ONLY_FACTORS | PORT_ONLY_FACTORS
-    assert set(pf) ^ set(jf) <= diverge | {"sentinel"}
+    if name == "bench_line":
+        diverge = PORT_ONLY_LINE
+    assert set(pf) ^ set(jf) == diverge
+    assert (p.block_path, p.sweep, p.curate, p.summary, p.prepare,
+            p.refusal_label) == (j.block_path, j.sweep, j.curate, j.summary,
+                                 j.prepare, j.refusal_label)
     for path in set(pf) & set(jf):
         a, b = pf[path], jf[path]
         assert (a.kind, a.required, a.nullable, a.truthy, a.ge, a.gt, a.le,
@@ -534,17 +573,21 @@ def test_tuning_cache_entry_is_the_ports_own_block(tmp_path):
 
 
 def test_campaign_sentinel_is_the_ports_absent_verdict():
-    """Divergence 48: a campaign line's ``sentinel`` is
-    ``campaign.SENTINEL_ABSENT``, which the JAX sentinel schema refuses;
-    the port's catalog declares no sentinel schema until obs.sentinel is
-    ported, and its ``campaign`` schema reads the block, not the line."""
+    """Divergence 48 is closed: a campaign line's ``sentinel`` is
+    obs.sentinel's verdict, validated by the ``sentinel`` schema the two
+    packages declare alike; the placeholder the port carried before, an
+    ``absent`` verdict, is refused by both."""
     from knn_tpu_torch import campaign
 
-    absent = dict(campaign.SENTINEL_ABSENT)
-    assert absent["verdict"] == "absent" and absent["note"]
-    assert jart.validate("sentinel", absent)
-    assert not any(s.block_path == "sentinel" for s in art.CATALOG)
+    assert not hasattr(campaign, "SENTINEL_ABSENT")
+    absent = {"verdict": "absent", "note": "not ported"}
+    for style in STYLES:
+        assert art.validate("sentinel", absent, style=style) == \
+            jart.validate("sentinel", absent, style=style) != []
+    assert art.SENTINEL_VERDICTS == jart.SENTINEL_VERDICTS
+    assert art.BY_NAME["sentinel"].block_path == "sentinel"
     assert "sentinel" not in art.known_keys("campaign")
+    assert "sentinel" in art.known_keys("bench_line")
 
 
 def test_rehearse_line_validates_through_the_catalog(tmp_path):
@@ -564,19 +607,21 @@ def test_rehearse_line_validates_through_the_catalog(tmp_path):
     line = s["results"][0]["line"]
     for name, block in (("roofline", line["roofline"]),
                         ("calibration", line["roofline"]["calibration"]),
-                        ("campaign", line["campaign"])):
+                        ("campaign", line["campaign"]),
+                        ("sentinel", line["sentinel"]),
+                        ("bench_line", line)):
         for style in STYLES:
             assert art.validate(name, block, style=style) == [], name
-    assert line["sentinel"] == campaign.SENTINEL_ABSENT
+    assert line["sentinel"]["verdict"] == "no_baseline"
+    assert line["sentinel"]["baseline_key"] == \
+        "knn_qps_rehearse_n2048_d32_k5|cpu|default"
     stage_keys = {k for st in line["campaign"]["stages"] for k in st}
     assert "grid_level" not in stage_keys
     assert stage_keys <= art.known_keys("campaign")
 
 
 def test_catalog_surface():
-    assert [s.name for s in art.CATALOG] == [
-        "roofline", "calibration", "campaign", "loadgen_knee", "mutation", "ivf", "pq", "join", "quality", "fleet",
-        "multihost", "multichip_record", "tuning_cache_entry"]
+    assert [s.name for s in art.CATALOG] == [s.name for s in jart.CATALOG]
     for s in art.CATALOG:
         if s.version_field:
             assert isinstance(art.version_value(s.name), int)
@@ -585,11 +630,286 @@ def test_catalog_surface():
         jart.element_required("loadgen_knee", "rate_steps")
     with pytest.raises(KeyError):
         art.element_required("loadgen_knee", "no_such_list")
-    jcur = dict(jart.curated_fields())
-    assert all(jcur[f] == d for f, d in art.curated_fields())
-    ported = dict(art.curated_fields())
-    assert [f for f, _ in art.curated_fields()] == \
-        [f for f, _ in jart.curated_fields() if f in ported]
+    assert art.curated_fields() == jart.curated_fields()
     assert art.known_keys("ivf") == jart.known_keys("ivf")
-    later = {"bench_line", "sentinel"}
-    assert set(jart.BY_NAME) - set(art.BY_NAME) == later
+    assert set(jart.BY_NAME) == set(art.BY_NAME)
+    assert art.__all__ == jart.__all__
+
+
+# --- the bench-line half: curation, hoists, print, sweeps ----------------
+def _history():
+    from knn_tpu_torch.obs import sentinel
+
+    recs = list(sentinel.iter_history_lines(REPO))
+    assert len(recs) == 12
+    return recs
+
+
+REPO = __file__.rsplit("/tests/", 1)[0]
+
+#: the keys a back-derived roofline block sets on a curated line: the
+#: port's is the H100 model, the JAX package's the TPU one
+_ROOFLINE_KEYS = ("roofline", "roofline_pct", "bound_class")
+
+#: the schemas the two catalogs declare alike (the port's roofline and
+#: tuning_cache_entry are its own; the bench line's one extra field is
+#: divergence 66)
+ALIKE = sorted(set(SHARED) - {"bench_line"})
+
+
+def test_curate_line_equals_jax_on_the_history():
+    """Every history line through both ``curate_line``s: the same refusal
+    (none), the same hoists and fields, a roofline derived where the JAX
+    package derives one — the H100 model's, estimated for a TPU or CPU
+    kind — and every line's refusal byte-equal once a block is broken."""
+    from knn_tpu_torch.obs import roofline
+
+    derived = 0
+    for rec in _history():
+        p, j = copy.deepcopy(rec), copy.deepcopy(rec)
+        assert art.curate_line(p) == jart.curate_line(j) is None
+        assert ("roofline" in p) == ("roofline" in j)
+        if "roofline" in p:
+            derived += 1
+            block = p["roofline"]
+            assert block["derived"] is True and block["estimated"] is True
+            assert block == dict(roofline.block_for_bench_line(rec),
+                                 derived=True)
+            assert p["roofline_pct"] == block["roofline_pct"]
+            assert p["bound_class"] == block["bound_class"]
+        strip = {k: v for k, v in p.items() if k not in _ROOFLINE_KEYS}
+        assert strip == {k: v for k, v in j.items()
+                         if k not in _ROOFLINE_KEYS}
+        for name in ALIKE:
+            schema = art.BY_NAME[name]
+            if not schema.curate or "." in schema.block_path:
+                continue
+            for bad in ({"version": "x"}, "nope"):
+                a = {**copy.deepcopy(rec), schema.block_path: bad}
+                b = copy.deepcopy(a)
+                assert art.curate_line(a) == jart.curate_line(b), name
+    assert derived == 11
+
+
+@pytest.mark.parametrize("name", ALIKE)
+def test_apply_hoists_equals_jax(name):
+    ps, js = art.BY_NAME[name], jart.BY_NAME[name]
+    for label, _path, block in mutations(name):
+        if not isinstance(block, dict):
+            continue
+        for scope in ("bench", "refresher"):
+            p, j = {}, {}
+            art.apply_hoists(p, block, ps, scope)
+            jart.apply_hoists(j, block, js, scope)
+            assert p == j, (label, scope)
+        line = {ps.block_path: block} if ps.block_path else dict(block)
+        p, j = copy.deepcopy(line), copy.deepcopy(line)
+        art.apply_scope_hoists(p)
+        jart.apply_scope_hoists(j)
+        assert p == j, label
+
+
+def test_line_summary_equals_jax():
+    lines = [dict(r) for r in _history()]
+    lines.append({"roofline_pct": 0.0512, "bound_class": "hbm_bound",
+                  "model_residual_pct": -1.5, "knee_qps": 171.3,
+                  "mutation_admitted_p99_ms": 14.2, "ivf_qps": 900.0,
+                  "recall_at_k": 1.0, "multihost_hosts": 2,
+                  "multihost_merge": "ring", "hosttier_sweeps": 4})
+    lines.append({"ivf_qps": 5, "multihost_hosts": 2})
+    for rec in lines:
+        assert art.line_summary(rec) == jart.line_summary(rec)
+    assert art.line_summary(lines[-2]) == (
+        " roofline=5.1%/hbm_bound calib=-1.5% knee=171.3q/s "
+        "mutation=14.2ms/p99 ivf=900.0q/s@recall1.0 "
+        "multihost=2xring/4sweeps")
+
+
+def test_sweeps_equal_jax_on_the_history():
+    """The ``perf_sentinel --lint`` sweep of the repo's history: the same
+    counts and problems as the JAX package's (roofline: no history line
+    carries one), the counts ``chip_smoke.py`` checks on the card, and
+    the same MULTICHIP records."""
+    import chip_smoke
+
+    recs = _history()
+    for style in STYLES:
+        got, got_problems = art.sweep_records(recs, style=style)
+        want, want_problems = jart.sweep_records(recs, style=style)
+        assert got == want and got_problems == want_problems == []
+    assert {name: c["validated"] for name, c in got.items()
+            if c["validated"]} == chip_smoke.HISTORY_SWEEP
+    assert got["roofline"] == {"validated": 0, "advisory_error": 0,
+                               "version_exempt": 0}
+    assert art.sweep_multichip(REPO) == jart.sweep_multichip(REPO) == \
+        (chip_smoke.HISTORY_MULTICHIP, [])
+
+
+def test_sweeps_equal_jax_on_every_alike_block(tmp_path):
+    """Lines carrying each alike block, valid and mutated, an advisory
+    error and a pre-schema version: the same counts and problems; a torn
+    MULTICHIP record is one problem in both."""
+    lines = []
+    for name in ALIKE:
+        schema = art.BY_NAME[name]
+        if not schema.block_path or "." in schema.block_path:
+            continue
+        for label, _path, block in mutations(name):
+            lines.append({"metric": f"knn_qps_{name}", "value": 1.0,
+                          schema.block_path: block, "_source": label})
+        if schema.version_exact:
+            old = {**VALID[name], schema.version_field: 0}
+            lines.append({"metric": "knn_qps_old", schema.block_path: old})
+    lines.append({"metric": 5, "value": "x"})
+    for style in STYLES:
+        got = art.sweep_records(lines, style=style)
+        assert got == jart.sweep_records(lines, style=style)
+    counts, problems = got
+    on_lines = [n for n in ALIKE if art.BY_NAME[n].block_path
+                and "." not in art.BY_NAME[n].block_path]
+    assert problems and all(counts[n]["validated"] for n in on_lines)
+    assert len(on_lines) == 10
+    assert sum(c["version_exempt"] for c in counts.values()) > 3
+    (tmp_path / "MULTICHIP_r01.json").write_text(
+        json.dumps(VALID["multichip_record"]))
+    (tmp_path / "MULTICHIP_r02.json").write_text("{torn")
+    (tmp_path / "MULTICHIP_r03.json").write_text(json.dumps({"rc": "x"}))
+    n, probs = art.sweep_multichip(str(tmp_path))
+    assert (n, probs) == jart.sweep_multichip(str(tmp_path))
+    assert n == 2 and len(probs) > 2
+
+
+def test_block_for_bench_line_is_the_h100_attribution():
+    """A port-shaped line (``bench.py``'s line shape, the port's knobs)
+    is priced as ``attribute(pallas_cost_model(...), value)`` on the same
+    inputs; ``exact`` / ``certified_approx`` through the counted model;
+    no ``block_q``; None where the reference gives None."""
+    knobs = {"tile_n": 16384, "precision": "bf16x3", "bin_w": 128,
+             "survivors": 2, "final_select": "exact", "binning": "grouped",
+             "final_recall_target": None, "grid_order": "query_major",
+             "kernel": "tiled"}
+    line = {"metric": "knn_qps_main_n1000000_d128_k100", "value": 61234.5,
+            "mode": "certified_pallas", "backend": "cuda",
+            "device_kind": roofline.H100, "pallas_knobs": knobs,
+            "batch": 4096}
+    want = roofline.attribute(roofline.pallas_cost_model(
+        n=1_000_000, d=128, k=100, nq=4096, precision="bf16x3",
+        kernel="tiled", grid_order="query_major", binning="grouped",
+        tile_n=16384, survivors=2, bin_w=128, device_kind=roofline.H100,
+        backend="cuda"), 61234.5)
+    assert roofline.block_for_bench_line(line) == want
+    assert want["estimated"] is False
+    assert roofline.block_for_bench_line(
+        {**line, "pallas_knobs": {**knobs, "block_q": 512}}) == want
+    assert roofline.block_for_bench_line(
+        {**line, "device_phase_qps": 70000.0})["measured_qps"] == 70000.0
+    exact = {**line, "mode": "exact", "compute_dtype": "bfloat16"}
+    assert roofline.block_for_bench_line(exact) == roofline.attribute(
+        roofline.counted_cost_model(
+            n=1_000_000, d=128, k=100, nq=4096, selector="exact",
+            dtype="bfloat16", device_kind=roofline.H100, backend="cuda"),
+        61234.5)
+    approx = roofline.block_for_bench_line({**line,
+                                            "mode": "certified_approx"})
+    assert approx["selector"] == "approx"
+    tpu = roofline.block_for_bench_line({**line, "device_kind": "TPU v5 lite",
+                                         "backend": "tpu"})
+    assert tpu["estimated"] is True
+    assert tpu["peaks"] == roofline.GENERIC_CPU_PEAKS
+    for bad in ({**line, "mode": "campaign_rehearse"},
+                {**line, "metric": "knn_qps_main"},
+                {**line, "pallas_knobs": {"precision": "f64"}},
+                {**line, "mode": "exact", "compute_dtype": "int2"}):
+        assert roofline.block_for_bench_line(bad) is None
+    assert roofline._METRIC_RE.pattern == __import__(
+        "knn_tpu.obs.roofline", fromlist=["_METRIC_RE"])._METRIC_RE.pattern
+
+
+# --- the artifact-lockstep checker, invariants 3 and 4 armed ----------------
+def test_lint_green_with_the_refresher_and_sentinel_armed():
+    import os
+
+    from knn_tpu_torch import analysis
+    from knn_tpu_torch.analysis import check_artifacts as ca
+
+    for rel in (ca._REFRESHER_REL, ca._SENTINEL_REL):
+        assert os.path.exists(os.path.join(REPO, rel)), rel
+    rep = analysis.run(REPO, names=["artifact-lockstep"])
+    assert rep.ok, [f.message for f in rep.findings]
+
+
+def _lockstep(tmp_path, files):
+    import os
+    import textwrap
+
+    from knn_tpu_torch import analysis
+
+    for rel, text in files.items():
+        path = os.path.join(tmp_path, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(textwrap.dedent(text))
+    return analysis.run(str(tmp_path), names=["artifact-lockstep"]).findings
+
+
+def test_sentinel_hand_list_missing_a_field_goes_red(tmp_path):
+    fields = [f for f, _ in art.curated_fields()]
+    hand = ", ".join(repr(f) for f in fields if f != "knee_qps")
+    findings = _lockstep(tmp_path, {
+        "knn_tpu_torch/obs/sentinel.py":
+            f"CURATED_FIELDS = ({hand},)\n"})
+    assert [(f.path, f.symbol) for f in findings] == [
+        ("knn_tpu_torch/obs/sentinel.py", "knee_qps")]
+    full = ", ".join(repr(f) for f in fields)
+    assert _lockstep(tmp_path, {
+        "knn_tpu_torch/obs/sentinel.py": f"CURATED_FIELDS = ({full},)\n"}) \
+        == []
+
+
+def test_refresher_dropping_a_hoist_goes_red(tmp_path):
+    hoists = sorted({h.dst for s in art.CATALOG for h in s.hoists
+                     if h.refresher})
+    kept = [h for h in hoists if h != "multihost_merge"]
+    findings = _lockstep(tmp_path, {
+        "knn_tpu_torch/scripts/refresh_bench_artifacts.py":
+            f"HOISTED = {kept!r}\n"})
+    assert [(f.path, f.symbol) for f in findings] == [
+        ("knn_tpu_torch/scripts/refresh_bench_artifacts.py",
+         "multihost_merge")]
+    # a refresher that curates through the catalog performs every hoist
+    assert _lockstep(tmp_path, {
+        "knn_tpu_torch/scripts/refresh_bench_artifacts.py":
+            "from knn_tpu_torch.analysis import artifacts\n"
+            "artifacts.curate_line({})\n"}) == []
+
+
+def test_chip_smoke_bench_line_checks_on_a_cpu_call():
+    """chip_smoke's catalog checks of the main call's bench line, run here
+    on a small CPU call's resolved knobs under the card's kind (the
+    record's shape is the checks' input, not the device): they pass and
+    report the block's bound, and a record the block does not price
+    fails them; the history sweep gives the pinned counts."""
+    import chip_smoke
+    from knn_tpu_torch.parallel.sharded import ShardedKNN
+
+    rng = np.random.default_rng(5)
+    db = (rng.random((3000, 16)) * 50).astype(np.float32)
+    q = (rng.random((64, 16)) * 50).astype(np.float32)
+    _, _, st = ShardedKNN(db, k=10, device="cpu").search_certified(q)
+    block = roofline.attribute(roofline.pallas_cost_model(
+        n=3000, d=16, k=10, nq=64, device_kind=roofline.H100), 1234.5)
+    record = chip_smoke.bench_line_record(
+        n=3000, dim=16, k=10, n_q=64, qps=1234.5, knobs=st["pallas_knobs"],
+        kind=roofline.H100, recall=1.0, commit=None)
+    assert record["metric"] == "knn_qps_main_n3000_d16_k10"
+    out = chip_smoke.bench_line_checks(record, block)
+    assert out["bound_s"] == max(block["term_times_s"].values())
+    assert out["sentinel"] == "no_baseline"
+    assert out["baseline_key"] == "knn_qps_main_n3000_d16_k10|cuda|default"
+    assert out["sentinel_fields"] == ["recall_at_k", "value"]
+    assert out["line_summary"].startswith(" roofline=")
+    with pytest.raises(AssertionError, match="block_for_bench_line"):
+        chip_smoke.bench_line_checks(dict(record, batch=128), block)
+    assert chip_smoke.history_sweep() == {
+        "validated": chip_smoke.HISTORY_SWEEP,
+        "multichip_records": chip_smoke.HISTORY_MULTICHIP}

@@ -26,10 +26,12 @@ import types
 import numpy as np
 import pytest
 
+from knn_tpu.analysis import artifacts as jartifacts
 from knn_tpu.obs import calibrate as jcal
 from knn_tpu.obs import roofline as jrl
 from knn_tpu.obs import traceread as jtr
 from knn_tpu_torch import obs
+from knn_tpu_torch.analysis import artifacts
 from knn_tpu_torch.obs import calibrate, health, profiler
 from knn_tpu_torch.obs import names as mn
 from knn_tpu_torch.obs import roofline as rl
@@ -666,7 +668,17 @@ def test_campaign_rehearse_full_loop_through_the_cli(tmp_path, capsys):
     assert calibrate.validate_calibration(cal) == []
     assert calibrate.validate_campaign_block(line["campaign"]) == []
     assert jcal.validate_campaign_block(line["campaign"]) == []
-    assert line["sentinel"] == campaign.SENTINEL_ABSENT
+    # the sentinel's verdict against the repo's history: a cpu line has
+    # no comparable baseline there
+    sent = line["sentinel"]
+    assert sent["verdict"] == "no_baseline"
+    assert sent["baseline_key"] == \
+        f"{line['metric']}|cpu|default"
+    assert set(sent["fields"]) == {"value", "device_phase_qps",
+                                   "roofline_pct", "model_residual_pct"}
+    for style in ("legacy", "normalized"):
+        assert artifacts.validate("sentinel", sent, style=style) == []
+        assert jartifacts.validate("sentinel", sent, style=style) == []
     snap = obs.snapshot()
     assert {s["labels"]["stage"] for s in snap[mn.CAMPAIGN_STAGES]["series"]} \
         == set(campaign.STAGES)

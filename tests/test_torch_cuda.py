@@ -2334,3 +2334,48 @@ def test_cuda_mesh_pipeline_is_bitwise_the_sequential_mesh_call(
     np.testing.assert_array_equal(oi, i)
     assert ost.pop("pipeline")["batches"] == 4
     assert ost == st
+
+
+@pytest.mark.cuda
+def test_cuda_autotune_ivf_on_a_logical_mesh_launches_per_probe_group(
+        cuda_device):
+    """``autotune_ivf(mesh=, selector="pallas")`` on a (1, 4) logical mesh
+    of one card: both candidates pass the bitwise gate; every gated and
+    timed search launches the IVF pallas selector's coarse kernel once for
+    each probe group — ``knn_search_pallas`` over the group's gathered
+    block at ``IVFIndex.search_certified``'s default precision, highest
+    (K2's tiled entry), on the mesh's first device, as the JAX package
+    calls it with no mesh — and no other kernel; the winner's certified
+    search on the mesh is bitwise the (1, 1) index's."""
+    from knn_tpu_torch.ivf import IVFIndex
+    from knn_tpu_torch.tuning import autotune_ivf
+
+    rng = np.random.default_rng(91)
+    q, db = _data(rng, 24, 8192, 32)
+    mesh = _logical_mesh(cuda_device, (1, 4))
+    kw = dict(k=10, ncentroids=16, train_iters=2, seed=0)
+    ref = IVFIndex(db, mesh=mesh, **kw)
+    groups = {p: ref.search_certified(q, nprobe=p,
+                                      selector="pallas")[2]["groups"]
+              for p in (16, 4)}
+    assert groups[16] == 1 and groups[4] > 1
+    counts = {fn: dict(fn.launches) for fn in (
+        ck.binned_select, ck.stream_select, ck.fused_select)}
+    entry = autotune_ivf(db, q, 10, mesh=mesh, runs=1, selector="pallas",
+                         grid=[{"ncentroids": 16, "nprobe": p}
+                               for p in (16, 4)],
+                         train_iters=2, seed=0)
+    assert entry["errors"] == {}
+    assert set(entry["timings_ms"]) == {"c16p16", "c16p4"}
+    assert all(v is not None for v in entry["timings_ms"].values())
+    # the gate's search and one timed run of each candidate
+    launched = {(fn.__name__, a): n - counts[fn][a]
+                for fn in counts for a, n in fn.launches.items()
+                if n != counts[fn][a]}
+    assert launched == {("binned_select", "highest"):
+                        2 * (groups[16] + groups[4])}
+    one = IVFIndex(db, device=cuda_device, **kw)
+    p = entry["knobs"]["nprobe"]
+    for a, b in zip(ref.search_certified(q, nprobe=p, selector="pallas")[:2],
+                    one.search_certified(q, nprobe=p, selector="pallas")[:2]):
+        np.testing.assert_array_equal(a, b)

@@ -320,6 +320,9 @@ def test_port_imports_neither_jax_nor_knn_tpu():
         "import knn_tpu_torch.parallel.crossover\n"
         "import knn_tpu_torch.parallel.multihost\n"
         "import knn_tpu_torch.ops.pq, knn_tpu_torch.ivf.kmeans\n"
+        "import knn_tpu_torch.obs.sentinel, knn_tpu_torch.scripts\n"
+        "import knn_tpu_torch.scripts.perf_sentinel\n"
+        "import knn_tpu_torch.scripts.refresh_bench_artifacts\n"
         "from knn_tpu_torch import parallel as _p\n"
         "[getattr(_p, name) for name in _p.__all__]\n"
         "from knn_tpu_torch.parallel import crossover as _x\n"

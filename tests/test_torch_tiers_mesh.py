@@ -6,6 +6,8 @@ join, serving}.py``; inputs, tolerances and helpers:
 ``tests/tiers_mesh_common.py``.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -98,10 +100,68 @@ def test_refusals_by_name_on_a_mesh():
 
     with pytest.raises(TypeError, match="mesh"):
         autotune(db, q, K, mesh=m)
-    with pytest.raises(ValueError, match="autotune_ivf on a mesh"):
-        autotune_ivf(db, q, K, mesh=m)
+    # the IVF tuner runs on the mesh (held against the JAX package's below)
+    rows, cq = clustered(3, n=240)
+    entry = autotune_ivf(rows, cq, K, mesh=m, runs=1, train_iters=2,
+                         grid=[{"ncentroids": 8, "nprobe": 8}])
+    assert entry["winner"] == "c8p8" and entry["backend"] == "cpu"
+    assert entry["errors"] == {}
     with pytest.raises(ValueError, match="pass mesh= or device="):
         autotune_ivf(db, q, K, mesh=one_device(), device="cpu")
+
+
+# -- the IVF tuner on a mesh ----------------------------------------------------
+class _Clock:
+    """A clock that advances one second a reading: every timed run of
+    every candidate lasts exactly 1 s, so the winner is the first
+    eligible candidate in grid order in both packages, and the
+    comparison holds the candidates' gates and stats, not the host's
+    speed."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 1.0
+        return self.t
+
+    strftime = staticmethod(time.strftime)
+    gmtime = staticmethod(time.gmtime)
+
+
+@pytest.mark.parametrize("shape,selector", [((2, 4), "exact"),
+                                            ((1, 8), "pallas")])
+def test_autotune_ivf_on_a_mesh_equals_jax(shape, selector, monkeypatch):
+    """``autotune_ivf(mesh=)`` on the port's logical mesh against the JAX
+    package's ``autotune_ivf(mesh=)`` on a mesh of the same shape, the
+    same grid, seed and ``train_iters``, under the counted and the pallas
+    selector (on the CPU the port's plain versions, the JAX package's
+    kernels in interpret mode): the same winner, every candidate through
+    the bitwise gate, the same per-candidate stats."""
+    import importlib
+
+    port_tune = importlib.import_module("knn_tpu_torch.tuning.autotune")
+    jax_tune = importlib.import_module("knn_tpu.tuning.autotune")
+    for mod in (port_tune, jax_tune):
+        monkeypatch.setattr(mod, "time", _Clock())
+    rows, cq = clustered(5)
+    grid = [{"ncentroids": 12, "nprobe": p} for p in (1, 3, 12)] + \
+        [{"ncentroids": 6, "nprobe": 2}]
+    kw = dict(runs=1, grid=grid, selector=selector,
+              train_iters=IVF_KW["train_iters"], seed=IVF_KW["seed"])
+    got = port_tune.autotune_ivf(rows, cq, K, mesh=port_mesh(shape), **kw)
+    want = jax_tune.autotune_ivf(rows, cq, K, mesh=jax_mesh_of(shape), **kw)
+    labels = {f"c{c['ncentroids']}p{c['nprobe']}" for c in grid}
+    assert got["errors"] == want["errors"] == {}
+    assert set(got["timings_ms"]) == labels
+    assert all(v == 1000.0 for v in got["timings_ms"].values())
+    assert got["timings_ms"] == want["timings_ms"]
+    assert got["winner"] == want["winner"] == "c6p2"
+    assert got["knobs"] == want["knobs"]
+    assert got["stats_per_candidate"] == want["stats_per_candidate"]
+    assert got["stats_per_candidate"]["c12p12"]["probe_fraction"] == 1.0
+    for key in ("gate", "runs", "n_queries", "selector"):
+        assert got[key] == want[key], key
 
 
 # -- telemetry ------------------------------------------------------------------
