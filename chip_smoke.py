@@ -79,7 +79,30 @@ exits non-zero and prints no result):
              (the host-mediated TCP store on one machine: no NVLink, no
              InfiniBand); a failed child fails the phase; the mesh and
              (1, 1) calls timed in turns (logical shards of one card: no
-             speed claim follows);
+             speed claim follows); then the process-spanning mesh
+             (``spanning``, :data:`SPAN_CHILD`): two processes, each on
+             cuda:0, ``backend="nccl"`` refused by name (one card), then
+             a gloo group: ``global_mesh(1, 2)`` with the full rows in
+             each, ``search_certified`` bf16x3 (4,096 queries), highest
+             and int8 on the uint8 cast (1,024 each): the arm's kernel
+             once a process, every process's ``(d, i, stats)`` equal and
+             bitwise process 0's one-process ``make_mesh(1, 2,
+             devices=[cuda:0] * 2)``, timed in turns with it, recall@100
+             = 1.0 with the oracle's indices on 256 queries (int8: the
+             uint8 draw's own oracle); ``shard_across_hosts`` of each
+             process's half, ``search`` (1,024) bitwise the logical
+             mesh's, a certified search on it refused by name;
+             ``global_host_mesh(1, 2, 2)`` (two logical positions a
+             process) under the four ``(merge, dcn_merge)`` pairs,
+             bitwise the flat spanning ``global_mesh(1, 4)`` of the same
+             four shards (itself the 1 x 2 mesh's indices), K1 twice a
+             process; then
+             four processes on ``global_mesh(2, 2)`` at the main draw's
+             first 262,144 rows (a cut for time), bf16x3 on 1,024
+             queries bitwise the one-process ``(2, 2)`` logical mesh, K1
+             once a process; each exchange's seconds and bytes/s (gloo
+             over loopback through the host: no interconnect, no NCCL);
+             no child imports jax, jaxlib or knn_tpu;
 4c. tiers_mesh — (run after ``serving``, the last phase on the main
              draw) the tiers on the 1 x 4 logical mesh at the ``main``
              shape (launch counts reset before each path: K1 once a db
@@ -539,7 +562,7 @@ import json, sys, time
 import numpy as np
 import torch
 
-pid, port, out_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+pid, port, out_dir = int(sys.argv[1]), sys.argv[3], sys.argv[4]
 from knn_tpu_torch import obs
 from knn_tpu_torch.obs import names as mn
 from knn_tpu_torch.ops import coarse_knn as ck
@@ -547,7 +570,8 @@ from knn_tpu_torch.parallel import multihost
 
 obs.reset(enabled=True)
 obs.reset_event_log(path=f"{out_dir}/events{pid}.jsonl")
-multihost.initialize(f"localhost:{port}", 2, pid, timeout_s=300)
+multihost.initialize(f"localhost:{port}", 2, pid, timeout_s=300,
+                     backend="gloo")
 n, dim, n_q, k = 1_000_000, 128, 4096, 100
 rng = np.random.default_rng(0)
 db = (rng.random(size=(n, dim)) * 128.0).astype(np.float32)
@@ -586,6 +610,239 @@ res["foreign"] = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "knn_tpu"))
 print("RESULT " + json.dumps(res), flush=True)
 """
+
+
+#: one process of the mesh phase's process-spanning runs: ``n_proc``
+#: processes, each driving cuda:0, join a gloo group (nccl, with every
+#: process on the one card, refused by name first) and run ShardedKNN on a
+#: mesh whose positions belong to the processes; process 0 also runs the
+#: one-process logical mesh of the same shape, in turns with the spanning
+#: calls, and holds the two bitwise.  Results go to ``out_dir``.
+SPAN_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+
+pid, n_proc, port, out_dir = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                              sys.argv[4])
+from knn_tpu_torch.ops import coarse_knn as ck
+from knn_tpu_torch.parallel import multihost
+from knn_tpu_torch.parallel.mesh import make_mesh
+from knn_tpu_torch.parallel.sharded import ShardedKNN
+
+dev = torch.device("cuda", 0)
+res = {"pid": pid, "n_proc": n_proc}
+try:
+    multihost.initialize(f"localhost:{port}", n_proc, pid, timeout_s=600,
+                         backend="nccl")
+    res["nccl_refused"] = None
+except ValueError as e:
+    res["nccl_refused"] = str(e)
+multihost.initialize(f"localhost:{port}", n_proc, pid, timeout_s=600,
+                     backend="gloo", devices=[dev])
+k, n_q = 100, 4096
+rng = np.random.default_rng(0)
+db = (rng.random(size=(1_000_000, 128)) * 128.0).astype(np.float32)
+q = (rng.random(size=(n_q, 128)) * 128.0).astype(np.float32)
+if n_proc == 4:  # the reduced four-process draw: the main draw's first rows
+    db = np.ascontiguousarray(db[:262_144])
+
+
+def sync():
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+
+
+def launches():
+    # every kernel counter: the tiled grouped entry by its arm, any other
+    # entry (streaming, fused, deep, lane, db-major) by wrapper and counter
+    out = {}
+    for fn in (ck.binned_select, ck.stream_select, ck.fused_select):
+        for attr in ("launches", "deep_launches", "lane_launches",
+                     "db_major_launches"):
+            for a, n in getattr(fn, attr, {}).items():
+                tiled = fn is ck.binned_select and attr == "launches"
+                out[a if tiled else f"{fn.__name__}.{attr}.{a}"] = n
+    return out
+
+
+def run(fn):
+    # (result, seconds, the kernels it launched, the in-mesh report)
+    before = launches()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = launches()
+    sync()
+    return (out, wall, {a: after[a] - before[a] for a in after
+                        if after[a] != before[a]}, multihost.last_report())
+
+
+def logical_turn(fn):
+    # process 0's one-process call while the others wait at the barrier
+    sync()
+    out, wall = None, None
+    if pid == 0:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sync()
+    return out, wall
+
+
+def same(a, b):
+    da, ia, sa = a
+    db_, ib, sb = b
+    return bool(np.array_equal(da, db_) and np.array_equal(ia, ib)
+                and json.dumps(sa, sort_keys=True)
+                == json.dumps(sb, sort_keys=True))
+
+
+def certified_case(label, prog, ref, qq, arm, rows):
+    call = lambda p: p.search_certified(qq[:rows], margin=28, precision=arm)
+    (d, i, st), wall, launched, rep = run(lambda: call(prog))
+    times = {"spanning": [wall], "logical": []}
+    want, lw = logical_turn(lambda: call(ref) if ref is not None else None)
+    times["logical"].append(lw)
+    times["logical"].append(logical_turn(
+        lambda: call(ref) if ref is not None else None)[1])
+    times["spanning"].append(run(lambda: call(prog))[1])
+    np.save(f"{out_dir}/d_{label}_{pid}.npy", d)
+    np.save(f"{out_dir}/i_{label}_{pid}.npy", i)
+    with open(f"{out_dir}/stats_{label}_{pid}.json", "w") as f:
+        json.dump(st, f, sort_keys=True)
+    res[label] = {
+        "queries": rows, "launches": launched, "seconds_in_turns": times,
+        "bitwise_logical": None if want is None else same((d, i, st), want),
+        "fallback_queries": st["fallback_queries"],
+        "transport": rep["transport"], "exchanges": rep["exchanges"],
+        "exchange_s": rep["exchange_s"],
+        "exchange_bytes": rep["exchange_bytes"],
+        "exchange_log": [dict(e, bytes_per_s=e["bytes"] / e["s"]
+                              if e["s"] > 0 else None)
+                         for e in rep["exchange_log"]],
+        "dcn_merge": rep["dcn_merge"],
+        "dcn_merge_bytes": rep["dcn_merge_bytes"]}
+    return d, i
+
+
+if n_proc == 2:
+    mesh = multihost.global_mesh(1, 2, devices=[dev])
+    res["mesh"] = repr(mesh)
+    logical = make_mesh(1, 2, devices=[dev, dev])
+    u8 = db.astype(np.uint8)
+    q8 = q.astype(np.uint8).astype(np.float32)
+    knn = ShardedKNN(db, k=k, mesh=mesh)
+    ref = ShardedKNN(db, k=k, mesh=logical) if pid == 0 else None
+    d_flat, i_flat = certified_case("bf16x3", knn, ref, q, "bf16x3", n_q)
+    certified_case("highest", knn, ref, q, "highest", 1024)
+    knn8 = ShardedKNN(u8, k=k, mesh=mesh)
+    ref8 = ShardedKNN(u8, k=k, mesh=logical) if pid == 0 else None
+    certified_case("int8", knn8, ref8, q8, "int8", 1024)
+    del knn8, ref8
+    # (b) each process's own half placed on its own position
+    half = db.shape[0] // 2
+    placed = multihost.shard_across_hosts(db[pid * half:(pid + 1) * half],
+                                          mesh)
+    sk = ShardedKNN(placed, k=k, mesh=mesh)
+    (d, i), wall, launched, rep = run(lambda: sk.search(q[:1024]))
+    want, lw = logical_turn(lambda: ref.search(q[:1024]))
+    try:
+        sk.search_certified(q[:8])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    res["placed_search"] = {
+        "queries": 1024, "launches": launched,
+        "seconds_in_turns": {"spanning": [wall], "logical": [lw]},
+        "bitwise_logical": None if want is None else bool(
+            torch.equal(d, want[0]) and torch.equal(i, want[1])),
+        "certified_refused": refused, "transport": rep["transport"],
+        "exchange_s": rep["exchange_s"],
+        "exchange_bytes": rep["exchange_bytes"]}
+    del sk, placed
+    # (c) the host axis is the process axis: two logical positions each,
+    # held against the flat spanning mesh of the same four shards (a
+    # mesh's exclusion bounds come from its shards' bins, so the 1 x 2
+    # mesh may repair other queries: its indices, not its distances)
+    fk = ShardedKNN(db, k=k, mesh=multihost.global_mesh(1, 4,
+                                                        devices=[dev, dev]))
+    (d_flat, i4, _), wall, launched, rep = run(
+        lambda: fk.search_certified(q, margin=28, precision="bf16x3"))
+    res["flat_1x4"] = {"launches": launched, "seconds": wall,
+                       "indices_of_1x2": bool(np.array_equal(i4, i_flat))}
+    i_flat = i4
+    del fk
+    hmesh = multihost.global_host_mesh(1, 2, 2, devices=[dev, dev])
+    res["host_mesh"] = repr(hmesh)
+    for merge, dcn in [(a, b) for a in ("ring", "allgather")
+                       for b in ("ring", "allgather")]:
+        hk = ShardedKNN(db, k=k, mesh=hmesh, merge=merge, dcn_merge=dcn)
+        (d, i, st), wall, launched, rep = run(
+            lambda: hk.search_certified(q, margin=28, precision="bf16x3"))
+        res[f"host_{merge}_{dcn}"] = {
+            "launches": launched, "seconds": wall,
+            "bitwise_flat": bool(np.array_equal(d, d_flat)
+                                 and np.array_equal(i, i_flat)),
+            "exchange_ops": sorted({e["op"] for e in rep["exchange_log"]}),
+            "dcn_merge": rep["dcn_merge"],
+            "dcn_merge_bytes": rep["dcn_merge_bytes"]}
+        del hk
+else:
+    mesh = multihost.global_mesh(2, 2, devices=[dev])
+    res["mesh"] = repr(mesh)
+    knn = ShardedKNN(db, k=k, mesh=mesh)
+    ref = (ShardedKNN(db, k=k, mesh=make_mesh(2, 2, devices=[dev] * 4))
+           if pid == 0 else None)
+    certified_case("bf16x3_2x2", knn, ref, q, "bf16x3", 1024)
+res["foreign"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "knn_tpu"))
+multihost.shutdown()
+print("RESULT " + json.dumps(res), flush=True)
+"""
+
+
+def spawn_children(script, n_proc, work, tag):
+    """``n_proc`` processes of ``script`` (argv: process index, count, a
+    free local port, ``work``), each with the repo on its path."""
+    import socket
+
+    child = os.path.join(work, f"{tag}.py")
+    with open(child, "w") as f:
+        f.write(script)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return [subprocess.Popen(
+        [sys.executable, child, str(pid), str(n_proc), str(port), work],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in range(n_proc)]
+
+
+def collect_children(procs, label, timeout):
+    """Each child's ``RESULT`` line; a child that fails, prints none or
+    outlives ``timeout`` seconds fails the phase (every child is stopped)."""
+    results = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=timeout)
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("RESULT ")]
+            if p.returncode != 0 or not line:
+                raise AssertionError(
+                    f"{label} child {len(results)}: rc {p.returncode}, "
+                    f"{stderr[-3000:]}")
+            results.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
 
 
 def catalog_check(label, name, block):
@@ -2234,22 +2491,16 @@ def main(argv=None) -> int:
                        q_np[:n_cut], margin=28, precision="highest")}
         del knn8
 
-        # the two processes start first: their import, draw and placement
-        # overlap the in-process meshes below
+        # the store's two processes and the spanning mesh's two start
+        # first: their import, draw and placement overlap the in-process
+        # meshes below
         work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-        child = os.path.join(work, "child.py")
-        with open(child, "w") as f:
-            f.write(MESH_CHILD)
-        import socket
-
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        env = dict(os.environ, PYTHONPATH=str(REPO))
-        procs = [subprocess.Popen(
-            [sys.executable, child, str(pid), str(port), work], cwd=REPO,
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for pid in (0, 1)]
+        span_work = {n_proc: os.path.join(work, f"span{n_proc}")
+                     for n_proc in (2, 4)}
+        for d in span_work.values():
+            os.makedirs(d)
+        procs = spawn_children(MESH_CHILD, 2, work, "store")
+        span_procs = spawn_children(SPAN_CHILD, 2, span_work[2], "span2")
         try:
             devs = [torch.device("cuda", torch.cuda.current_device())] * 4
             flat, out = {}, {}
@@ -2297,20 +2548,18 @@ def main(argv=None) -> int:
                                               "bitwise_flat": True}
                 del hknn
             torch.cuda.empty_cache()
-            results = []
-            for p in procs:
-                stdout, stderr = p.communicate(timeout=300)
-                line = [ln for ln in stdout.splitlines()
-                        if ln.startswith("RESULT ")]
-                if p.returncode != 0 or not line:
-                    raise AssertionError(
-                        f"mesh child {len(results)}: rc {p.returncode}, "
-                        f"{stderr[-3000:]}")
-                results.append(json.loads(line[-1][len("RESULT "):]))
+            results = collect_children(procs, "mesh", 300)
+            span2 = collect_children(span_procs, "spanning", 900)
+            # the four-process run after the two-process one: each times
+            # its calls against process 0's logical mesh in turns
+            span_procs = spawn_children(SPAN_CHILD, 4, span_work[4], "span4")
+            span4 = collect_children(span_procs, "spanning 4", 600)
         finally:
-            for p in procs:
+            for p in procs + span_procs:
                 if p.poll() is None:
                     p.kill()
+                    p.wait()
+        spanning = spanning_checks(S, span2, span4, span_work)
         two = {}
         for arm in ("bf16x3", "int8", "highest"):
             d0, i0, d1, i1 = (np.load(os.path.join(work, f"{x}_{arm}_{p}.npy"))
@@ -2384,7 +2633,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         emit({"phase": "mesh", "n": n, "queries": n_q, "k": k,
               "shards": 4, "devices": "cuda:0 x 4 (logical)",
-              "runs": out, "two_processes": {
+              "runs": out, "spanning": spanning, "two_processes": {
                   "rows_each": n // 2, "transport":
                       "host-mediated TCP store, two processes on one "
                       "machine (not NVLink, not InfiniBand)",
@@ -2394,6 +2643,97 @@ def main(argv=None) -> int:
                   "stitched_waterfalls": len(stitched)},
               "seconds_mesh_vs_one_in_turns": times,
               "phase_s": time.perf_counter() - t_phase})
+
+    def spanning_checks(S, span2, span4, span_work):
+        """The spanning-mesh children's results held: every process's
+        results equal, bitwise process 0's one-process logical mesh, the
+        arm's kernel once a process (twice on the host mesh, two
+        positions a process), the oracle's indices on 256 queries, the
+        refusals by name and no foreign import."""
+        k, n_or = S["k"], S["n_or"]
+
+        def loaded(n_proc, label, pid):
+            d = np.load(os.path.join(span_work[n_proc], f"d_{label}_{pid}.npy"))
+            i = np.load(os.path.join(span_work[n_proc], f"i_{label}_{pid}.npy"))
+            with open(os.path.join(span_work[n_proc],
+                                   f"stats_{label}_{pid}.json")) as f:
+                return d, i, f.read()
+
+        for res in (span2, span4):
+            for r in res:
+                if r["foreign"] or "backend='gloo'" not in str(
+                        r["nccl_refused"]):
+                    raise AssertionError(
+                        f"spanning: foreign imports {r['foreign']} or nccl "
+                        f"on one card not refused: {r['nccl_refused']}")
+        # the uint8 draw's own oracle (int8 runs on the main draw cast)
+        q8 = S["q_dev"][:n_or].to(torch.uint8).float()
+        od8, oi8 = f64_oracle(q8, S["knn"].placement.db.to(torch.uint8)
+                              .float(), k)
+        oracle = {"int8": (od8.cpu().numpy(), oi8.cpu().numpy())}
+        for n_proc, res, arms in ((2, span2, {"bf16x3": "bf16x3",
+                                              "highest": "highest",
+                                              "int8": "int8"}),
+                                  (4, span4, {"bf16x3_2x2": "bf16x3"})):
+            for label, arm in arms.items():
+                got = [loaded(n_proc, label, pid) for pid in range(n_proc)]
+                if any(not (np.array_equal(g[0], got[0][0])
+                            and np.array_equal(g[1], got[0][1])
+                            and g[2] == got[0][2]) for g in got):
+                    raise AssertionError(
+                        f"spanning {n_proc} processes {label}: the "
+                        f"processes' (d, i, stats) differ")
+                if res[0][label]["bitwise_logical"] is not True or any(
+                        r[label]["launches"] != {arm: 1} for r in res):
+                    raise AssertionError(
+                        f"spanning {n_proc} processes {label}: bitwise "
+                        f"logical {res[0][label]['bitwise_logical']}, "
+                        f"launches {[r[label]['launches'] for r in res]}")
+                d, i = got[0][0], got[0][1]
+                if label in oracle:
+                    od, oi = oracle[label]
+                    recall = float(np.mean([len(set(a) & set(b)) / k
+                                            for a, b in zip(i[:n_or], oi)]))
+                    if recall != 1.0 or not (i[:n_or] == oi).all():
+                        raise AssertionError(
+                            f"spanning {label}: recall@{k} {recall} against "
+                            f"the uint8 draw's oracle")
+                    res[0][label]["recall_at_k"] = recall
+                elif n_proc == 2:
+                    res[0][label]["recall_at_k"] = oracle_check(
+                        S, d, i, f"spanning {label}")[0]
+        placed = span2[0]["placed_search"]
+        if placed["bitwise_logical"] is not True or "needs a host copy" \
+                not in str(placed["certified_refused"]):
+            raise AssertionError(f"spanning shard_across_hosts: {placed}")
+        pairs = {key: span2[0][key] for key in span2[0]
+                 if key.startswith("host_") and key != "host_mesh"}
+        if any(not r["flat_1x4"]["indices_of_1x2"]
+               or r["flat_1x4"]["launches"] != {"bf16x3": 2} for r in span2):
+            raise AssertionError(
+                f"spanning flat 1 x 4: {[r['flat_1x4'] for r in span2]}")
+        for r in span2:
+            for key in pairs:
+                if not r[key]["bitwise_flat"] or \
+                        r[key]["launches"] != {"bf16x3": 2}:
+                    raise AssertionError(f"spanning {key}: {r[key]}")
+        if len(pairs) != 4:
+            raise AssertionError(f"spanning: {len(pairs)} host-mesh pairs")
+        return {
+            "transport": "torch.distributed gloo over loopback TCP, every "
+                         "process on cuda:0, exchanges staged through the "
+                         "host: no interconnect and no NCCL measured",
+            "two_processes": {key: span2[0][key] for key in span2[0]
+                              if key not in ("foreign", "pid")},
+            "four_processes": {key: span4[0][key] for key in span4[0]
+                               if key not in ("foreign", "pid")},
+            "children_foreign_imports": {
+                f"{len(res)}_processes": [r["foreign"] for r in res]
+                for res in (span2, span4)},
+            "seconds_per_process": {
+                label: [r[label]["seconds_in_turns"]["spanning"]
+                        for r in span2]
+                for label in ("bf16x3", "highest", "int8")}}
 
     def phase_tiers_mesh(S):
         """Docstring item 4c: the tiers on the 1 x 4 logical mesh of the

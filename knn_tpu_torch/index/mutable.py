@@ -201,7 +201,7 @@ class MutableIndex:
                 f"MutableIndex supports the l2 metric family only, got "
                 f"{metric!r} (cosine re-normalizes rows at placement "
                 f"and L1 has no certified bound)")
-        self.mesh = tier_mesh(mesh, device)
+        self.mesh = tier_mesh(mesh, device, "MutableIndex")
         self.device = self.mesh.devices.flat[0]
         hosts, chips = db_topology(self.mesh)
         self._db_shards = hosts * chips

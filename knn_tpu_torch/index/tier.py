@@ -25,15 +25,18 @@ from knn_tpu_torch import obs
 FAILURE_BACKOFF_S = 0.25
 
 
-def tier_mesh(mesh, device):
+def tier_mesh(mesh, device, what: str = "the index tiers"):
     """The mesh a tier places on: ``mesh`` (a parallel.mesh.Mesh), else the
     one-device (1, 1) mesh on ``device`` (None: cuda, raising without a
-    GPU); both given raises, as ``ShardedKNN`` does."""
+    GPU); both given raises, as ``ShardedKNN`` does.  A mesh that spans
+    processes is refused by name (``what`` names the tier): the tiers
+    there are queued."""
     from knn_tpu_torch.device import resolve_device
-    from knn_tpu_torch.parallel.mesh import make_mesh
+    from knn_tpu_torch.parallel.mesh import make_mesh, require_one_process
 
     if mesh is not None and device is not None:
         raise ValueError("pass mesh= or device=, not both")
+    require_one_process(mesh, what)
     if mesh is None:
         mesh = make_mesh(1, 1, devices=[resolve_device(device)])
     return mesh

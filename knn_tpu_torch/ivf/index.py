@@ -185,7 +185,7 @@ class IVFIndex:
                 f"IVFIndex supports metric='l2' only (the residual "
                 f"certificate is a Euclidean triangle inequality), got "
                 f"{metric!r}")
-        self.mesh = tier_mesh(mesh, device)
+        self.mesh = tier_mesh(mesh, device, "IVFIndex")
         self.device = self.mesh.devices.flat[0]
         hosts, chips = db_topology(self.mesh)
         self._db_shards = hosts * chips

@@ -318,6 +318,9 @@ def knn_join(
         raise ValueError(f"unknown join mode {mode!r}; expected one of "
                          f"{JOIN_MODES}")
     sharded = _is_sharded(program)
+    from knn_tpu_torch.parallel.mesh import require_one_process
+
+    require_one_process(getattr(program, "mesh", None), "knn_join")
     if not sharded and mode != "certified":
         raise ValueError(
             "IVF joins run mode='certified' only (the probed tier has no "

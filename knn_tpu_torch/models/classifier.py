@@ -92,7 +92,7 @@ class KNNClassifier:
                 f"unknown selector {selector!r}; expected {SELECTORS}")
         if mesh is not None and device is not None:
             raise ValueError("pass mesh= or device=, not both")
-        self.device = (mesh.devices.flat[0] if mesh is not None
+        self.device = (mesh.first_device if mesh is not None
                        else resolve_device(device))
         self.mesh = mesh
         self.merge = merge

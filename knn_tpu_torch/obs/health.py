@@ -24,7 +24,9 @@ sampler's state and the drift sketch of every registered IVF index.
 (:func:`knn_tpu_torch.obs.calibrate.status`: the store, the keys of its
 entries under the current model token, the worst per-term residual).
 ``multihost`` is the last cross-process merge's report
-(knn_tpu_torch.parallel.multihost.last_report), None until one ran.  The
+(knn_tpu_torch.parallel.multihost.last_report: the store's ``"kv"`` merge,
+or an in-mesh call on a mesh that spans processes, ``"in_mesh:gloo"`` /
+``"in_mesh:nccl"``, rendered with its exchanges), None until one ran.  The
 text renderer keeps the JAX package's wording, so the two
 ``doctor`` commands print the same lines for the same snapshot, except
 where that wording names an environment switch the port does not read: an
@@ -504,7 +506,17 @@ def render_text(rep: dict) -> str:
             f"norm_psi={dr.get('norm_psi')} "
             f"assign_psi={dr.get('centroid_assign_psi')}")
     mh = rep.get("multihost")
-    if mh:
+    if mh and str(mh.get("transport", "")).startswith("in_mesh"):
+        # an in-mesh call: one program across processes, no per-process
+        # walls to name a straggler by; its exchanges instead
+        lines.append(
+            f"multihost: {mh.get('hosts')} host(s) "
+            f"[{mh.get('transport')}] dcn_merge={mh.get('dcn_merge')} "
+            f"bytes={mh.get('dcn_merge_bytes')} "
+            f"exchanges={mh.get('exchanges')} "
+            f"exchange_bytes={mh.get('exchange_bytes')} "
+            f"exchange_s={mh.get('exchange_s')}")
+    elif mh:
         walls = mh.get("host_walls_s") or []
         sh = mh.get("straggler_host")
         # the named slow host: per-host walls (not just max-min) are in

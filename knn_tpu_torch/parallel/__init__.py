@@ -3,7 +3,8 @@ MPI backend (knn_mpi.cpp:123-129, 133-134, 224-227, 276-277, 340, 383,
 395-397) as a mesh of torch devices (parallel.mesh), collectives of
 device-to-device copies (parallel.collectives), the measured merge
 crossover (parallel.crossover), the db-sharded placement and its merge
-tree (parallel.sharded) and processes joined through a store
+tree (parallel.sharded) and processes joined through a store and a
+``torch.distributed`` group, with meshes that span them
 (parallel.multihost).
 
 Attribute access is lazy (PEP 562, as in the JAX package), so the

@@ -5,9 +5,14 @@ named axes, over which its SPMD programs shard queries (``QUERY_AXIS``)
 and database rows (``DB_AXIS``, and on a hierarchical mesh ``HOST_AXIS``
 before it).  The port's :class:`Mesh` is the same grid as a numpy object
 array of ``torch.device`` s with the same axis names; one process drives
-every device of it (parallel.sharded enqueues each shard's work on its
-own device's current stream) and processes join through a store
-(parallel.multihost).
+every device of it that it owns (parallel.sharded enqueues each shard's
+work on its own device's current stream).  A mesh may span processes
+(parallel.multihost.global_mesh): ``owners`` holds the process of each
+grid position, ``rank`` this process's; a process drives only its own
+positions, and every step that combines positions of different
+processes goes through the ``torch.distributed`` process group
+(parallel.collectives).  A mesh built by :func:`make_mesh` /
+:func:`make_host_mesh` without ``owners`` is this process's alone.
 
 Where the port differs (ROADMAP queue C): a mesh may name one device
 more than once (``devices=[torch.device("cuda:0")] * 4`` or ``["cpu"] *
@@ -15,7 +20,9 @@ more than once (``devices=[torch.device("cuda:0")] * 4`` or ``["cpu"] *
 device one after another: the port's counterpart of the JAX harness's
 virtual CPU devices.  It shows the merge tree and the per-shard programs;
 it shows no overlap and no interconnect.  A mesh whose devices mix the CPU
-and CUDA raises.
+and CUDA raises.  Processes of a spanning mesh may each repeat one card
+too (every process on cuda:0 under gloo): ``logical`` and equality key
+a device by ``(owner, device)``.
 """
 
 from __future__ import annotations
@@ -40,9 +47,14 @@ class Mesh:
     """A grid of devices with named axes — ``devices`` an object array of
     ``torch.device`` s, ``axis_names`` one name per array axis.
     ``shape`` maps each name to its size, as ``jax.sharding.Mesh.shape``
-    does; ``size`` is the number of grid positions."""
+    does; ``size`` is the number of grid positions.  ``owners`` (an int
+    array of the grid's shape; None: every position ``rank``'s) holds the
+    process that drives each position and ``rank`` this process's index:
+    a device is named by ``(owner, device)``, so two processes' ``cuda:0``
+    are two devices."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...]):
+    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...], *,
+                 owners: Optional[np.ndarray] = None, rank: int = 0):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(
@@ -52,28 +64,63 @@ class Mesh:
             raise ValueError(
                 f"a mesh holds devices of one type; this one mixes "
                 f"{sorted(types)}")
+        if owners is None:
+            owners = np.full(devices.shape, int(rank), dtype=np.int64)
+        owners = np.asarray(owners, dtype=np.int64)
+        if owners.shape != devices.shape:
+            raise ValueError(
+                f"owners {owners.shape} do not match the grid "
+                f"{devices.shape}")
         self.devices = devices
+        self.owners = owners
+        self.rank = int(rank)
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
         self.size = int(devices.size)
 
     @property
+    def spans_processes(self) -> bool:
+        """Whether positions of this mesh belong to several processes."""
+        return len(np.unique(self.owners)) > 1
+
+    def is_local(self, pos) -> bool:
+        """Whether this process drives grid position ``pos``."""
+        return int(self.owners[tuple(pos)]) == self.rank
+
+    @property
+    def local_positions(self) -> list:
+        """The grid positions this process drives, in grid order."""
+        return [pos for pos in np.ndindex(*self.devices.shape)
+                if self.is_local(pos)]
+
+    @property
     def distinct_devices(self) -> list:
-        """The mesh's devices, each once, in grid order."""
+        """This process's devices of the mesh, each once, in grid order."""
         seen = []
-        for d in self.devices.flat:
+        for pos in self.local_positions:
+            d = self.devices[pos]
             if d not in seen:
                 seen.append(d)
         return seen
 
     @property
+    def first_device(self) -> torch.device:
+        """This process's first device in grid order: where the mesh
+        programs' outputs land."""
+        return self.distinct_devices[0]
+
+    @property
     def logical(self) -> bool:
-        """Whether a device stands at more than one grid position."""
-        return len(self.distinct_devices) < self.size
+        """Whether a device (of one process) stands at more than one grid
+        position."""
+        named = {(int(o), str(d)) for o, d in zip(self.owners.flat,
+                                                  self.devices.flat)}
+        return len(named) < self.size
 
     def _key(self):
         return (self.axis_names, self.devices.shape,
-                tuple(str(d) for d in self.devices.flat))
+                tuple((int(o), str(d)) for o, d in zip(self.owners.flat,
+                                                       self.devices.flat)))
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self._key() == other._key()
@@ -83,19 +130,37 @@ class Mesh:
 
     def __repr__(self) -> str:
         shape = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        if self.spans_processes:
+            named = []
+            for o, d in zip(self.owners.flat, self.devices.flat):
+                if f"p{o}:{d}" not in named:
+                    named.append(f"p{o}:{d}")
+            return f"Mesh({shape}; {', '.join(named)}; rank {self.rank})"
         return f"Mesh({shape}; {', '.join(map(str, self.distinct_devices))})"
 
 
-def _devices(devices: Optional[Sequence]) -> list:
+def _devices(devices: Optional[Sequence], owners=None,
+             rank: int = 0) -> list:
     """``devices`` resolved to ``torch.device`` s (each checked as
     knn_tpu_torch.device checks one); None = every visible card, raising
-    without a GPU."""
+    without a GPU.  With ``owners`` (the process of each device) only this
+    process's (``rank``'s) are checked here: another process's device is
+    named as that process published it."""
     if devices is None:
+        if owners is not None:
+            raise ValueError("owners= names the process of each of devices=")
         resolve_device(None)  # raises without a GPU
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if owners is not None and len(owners) != len(devices):
+        raise ValueError(
+            f"{len(owners)} owners for {len(devices)} devices")
     out = []
-    for d in devices:
+    for j, d in enumerate(devices):
+        if owners is not None and int(owners[j]) != rank:
+            out.append(torch.device(d))
+            continue
         d = resolve_device(d)
         if d.type == "cuda" and d.index is None:
             d = torch.device("cuda", torch.cuda.current_device())
@@ -105,16 +170,32 @@ def _devices(devices: Optional[Sequence]) -> list:
     return out
 
 
+def _grid_mesh(devices: list, owners, rank: int, shape: tuple,
+               axes: tuple) -> Mesh:
+    """The first ``prod(shape)`` of ``devices`` (and their owners) as a
+    :class:`Mesh` of ``shape``."""
+    need = int(np.prod(shape))
+    grid = np.empty(need, dtype=object)
+    grid[:] = devices[:need]
+    own = None if owners is None else np.asarray(
+        [int(o) for o in owners[:need]], np.int64).reshape(shape)
+    return Mesh(grid.reshape(shape), axes, owners=own, rank=rank)
+
+
 def make_mesh(query_shards: Optional[int] = None, db_shards: int = 1, *,
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None,
+              owners: Optional[Sequence[int]] = None,
+              rank: int = 0) -> Mesh:
     """A 2-D :class:`Mesh` with axes ``(QUERY_AXIS, DB_AXIS)``.
 
     ``query_shards=None`` takes every device left after ``db_shards``.  A
     one-device mesh (1, 1) runs ShardedKNN's one-device programs; every
     other mesh runs its mesh programs, one one-device placement a shard.
     ``devices`` defaults to the visible cards; a list that repeats a
-    device makes a logical mesh (module docstring)."""
-    devices = _devices(devices)
+    device makes a logical mesh (module docstring).  ``owners`` (one
+    process index a device) with this process's ``rank`` makes a mesh
+    that spans processes, as parallel.multihost.global_mesh builds it."""
+    devices = _devices(devices, owners, rank)
     n = len(devices)
     if db_shards < 1:
         raise ValueError(f"db_shards={db_shards} must be >= 1")
@@ -127,21 +208,23 @@ def make_mesh(query_shards: Optional[int] = None, db_shards: int = 1, *,
     if need > n:
         raise ValueError(
             f"mesh {query_shards}x{db_shards} needs {need} devices, have {n}")
-    grid = np.empty(need, dtype=object)
-    grid[:] = devices[:need]
-    return Mesh(grid.reshape(query_shards, db_shards), (QUERY_AXIS, DB_AXIS))
+    return _grid_mesh(devices, owners, rank, (query_shards, db_shards),
+                      (QUERY_AXIS, DB_AXIS))
 
 
 def make_host_mesh(query_shards: Optional[int] = None, db_hosts: int = 1,
                    db_shards: int = 1, *,
-                   devices: Optional[Sequence] = None) -> Mesh:
+                   devices: Optional[Sequence] = None,
+                   owners: Optional[Sequence[int]] = None,
+                   rank: int = 0) -> Mesh:
     """A 3-D hierarchical :class:`Mesh` with axes ``(QUERY_AXIS,
     HOST_AXIS, DB_AXIS)``: database rows shard over hosts (major), then
     over each host's devices (minor).  In one process the host axis is a
     fold of the local devices: the same programs and merge tree, bitwise
-    the flat mesh's result.  Processes on other hosts join through
-    parallel.multihost instead."""
-    devices = _devices(devices)
+    the flat mesh's result.  Over processes (``owners`` and ``rank`` as
+    in :func:`make_mesh`; parallel.multihost.global_host_mesh) the host
+    axis is the process axis."""
+    devices = _devices(devices, owners, rank)
     n = len(devices)
     if db_hosts < 1 or db_shards < 1:
         raise ValueError(
@@ -157,10 +240,9 @@ def make_host_mesh(query_shards: Optional[int] = None, db_hosts: int = 1,
         raise ValueError(
             f"mesh {query_shards}x{db_hosts}x{db_shards} needs {need} "
             f"devices, have {n}")
-    grid = np.empty(need, dtype=object)
-    grid[:] = devices[:need]
-    return Mesh(grid.reshape(query_shards, db_hosts, db_shards),
-                (QUERY_AXIS, HOST_AXIS, DB_AXIS))
+    return _grid_mesh(devices, owners, rank,
+                      (query_shards, db_hosts, db_shards),
+                      (QUERY_AXIS, HOST_AXIS, DB_AXIS))
 
 
 def is_hier(mesh: Mesh) -> bool:
@@ -187,6 +269,23 @@ def grid3(mesh: Mesh) -> np.ndarray:
     q = mesh.shape[QUERY_AXIS]
     hosts, chips = db_topology(mesh)
     return mesh.devices.reshape(q, hosts, chips)
+
+
+def owners3(mesh: Mesh) -> np.ndarray:
+    """The owning process of each position of :func:`grid3`."""
+    q = mesh.shape[QUERY_AXIS]
+    hosts, chips = db_topology(mesh)
+    return mesh.owners.reshape(q, hosts, chips)
+
+
+def require_one_process(mesh: Optional[Mesh], what: str) -> None:
+    """Refuses, by name, a path that does not run on a mesh that spans
+    processes yet (ROADMAP queue A item 4.5)."""
+    if mesh is not None and mesh.spans_processes:
+        raise ValueError(
+            f"{what} on a mesh that spans processes is queued (ROADMAP "
+            f"queue A item 4.5): search, search_certified and predict run "
+            f"there; run {what} on a mesh of one process's devices")
 
 
 def default_mesh(db_shards: int = 1) -> Mesh:
@@ -226,6 +325,8 @@ __all__ = [
     "db_axes",
     "db_topology",
     "grid3",
+    "owners3",
+    "require_one_process",
     "default_mesh",
     "pad_to_multiple",
 ]

@@ -3,33 +3,44 @@ knn_tpu/parallel/multihost.py.
 
 The reference scales with ``mpiexec -n N``: every rank is an OS process
 (knn_mpi.cpp:123-125).  The JAX package joins one process a host through
-``jax.distributed.initialize`` and trades candidate lists through the
-coordinator's key-value store (multihost.py:181-243).  The port joins its
-processes through a ``torch.distributed.TCPStore`` (:func:`initialize`:
-process 0 holds the store at ``coordinator_address``) and trades through
-it the same way: :func:`dcn_allgather_arrays` is ``set``, a blocking
-``wait`` / ``get`` with a timeout, an ``add``-counted barrier and
-``delete_key`` — the JAX package's ``key_value_set`` /
-``blocking_key_value_get`` / ``wait_at_barrier`` / ``key_value_delete``.
-Each process searches its own rows on its own devices
-(:class:`MultiHostKNN`, a local :class:`~knn_tpu_torch.parallel.sharded.
-ShardedKNN` on a local mesh, whose db shards merge on the devices), and
-the per-process lists merge on the host (:func:`merge_topk_host`) in the
-same lexicographic order.  The transport is the host and TCP: it is not
-NCCL, NVLink or InfiniBand, and two processes on one machine measure no
-interconnect.
+``jax.distributed.initialize``; after that its mesh spans every host's
+devices and the same SPMD programs run on it (the in-mesh path), and
+:class:`MultiHostKNN` trades candidate lists through the coordinator's
+key-value store (multihost.py:181-243).  The port has both:
 
-Where the port differs (ROADMAP queue C): the in-mesh cross-process path
-— a mesh over other processes' devices (:func:`global_mesh`) or rows
-placed across processes (:func:`shard_across_hosts`) — needs device
-collectives across processes (NCCL) and is refused by name with more
-than one process; with one process both are the local forms.
+- :func:`initialize` joins the processes through a
+  ``torch.distributed.TCPStore`` (process 0 holds it at
+  ``coordinator_address``) and, on top of it, a ``torch.distributed``
+  process group of an explicit ``backend``: "nccl" (the default for
+  processes on cards: one card a process) or "gloo" (the default on the
+  CPU; on cards it stages every exchanged tensor through the host, which
+  is how two processes share one card).
+- **In-mesh**: :func:`global_mesh` / :func:`global_host_mesh` build a
+  mesh over every process's devices, in process order, each position
+  owned by the process that published the device;
+  :func:`shard_across_hosts` places each process's own rows on its own
+  positions.  ``ShardedKNN(mesh=)`` runs its programs at this process's
+  positions only, and every merge level, exclusion-bound minimum and
+  count that combines positions of several processes goes through the
+  group (parallel.collectives): every process returns the whole result.
+  :func:`last_report` names the transport ``"in_mesh:<backend>"``.
+- **Host-mediated**: :class:`MultiHostKNN` searches each process's own
+  rows on its own local mesh, and :func:`dcn_allgather_arrays` trades the
+  ``[Q, k]`` lists through the store — the JAX package's
+  ``key_value_set`` / ``blocking_key_value_get`` / ``wait_at_barrier`` /
+  ``key_value_delete`` — merged on the host (:func:`merge_topk_host`) in
+  the same lexicographic order; its transport is ``"kv"``.
+
+Both transports are the host and TCP between processes of one machine
+here: not NVLink or InfiniBand, and gloo is not NCCL.
 """
 
 from __future__ import annotations
 
 import io
 import itertools
+import json
+import socket
 import threading
 import time
 from datetime import timedelta
@@ -43,26 +54,51 @@ from knn_tpu_torch.device import DeviceLike
 from knn_tpu_torch.obs import ident as _ident
 from knn_tpu_torch.obs import names as _mn
 from knn_tpu_torch.parallel import crossover
-from knn_tpu_torch.parallel.collectives import shard
-from knn_tpu_torch.parallel.mesh import DB_AXIS, Mesh, make_mesh
+from knn_tpu_torch.parallel.collectives import Placed, shard
+from knn_tpu_torch.parallel.mesh import (DB_AXIS, HOST_AXIS, QUERY_AXIS,
+                                         Mesh, _devices, make_host_mesh,
+                                         make_mesh)
 
-#: seconds a store wait takes before it raises
+#: seconds a store wait, or a collective of the process group, takes
+#: before it raises
 DEFAULT_TIMEOUT_S = 180.0
 
-#: the joined runtime: the store, this process's index and the count
+#: the process group's transports: one card a process (nccl), or the
+#: host (gloo)
+BACKENDS = ("nccl", "gloo")
+
+#: the joined runtime: the store, this process's index and the count, the
+#: group's backend, the devices each process published
 _STATE: dict = {}
 _STATE_LOCK = threading.Lock()
+
+#: stores whose group was refused, by address: a second initialize (with
+#: another backend) joins through the same store
+_STORES: dict = {}
 
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None, *,
-               timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+               timeout_s: float = DEFAULT_TIMEOUT_S,
+               backend: Optional[str] = None,
+               devices: Optional[Sequence[DeviceLike]] = None) -> None:
     """Join this process to the others (the reference's ``MPI_Init``,
     knn_mpi.cpp:123): a ``TCPStore`` at ``coordinator_address``
     (``"host:port"``), held by process 0, which waits for all
-    ``num_processes``.  A no-op for one process or once joined, so a
-    program can call it unconditionally."""
+    ``num_processes``, and on top of it a ``torch.distributed`` process
+    group of ``backend`` over a ``PrefixStore`` of it, whose collectives
+    raise after ``timeout_s`` without a peer.
+
+    ``devices`` are the devices this process drives (default: every
+    visible card, or the CPU where none is visible); each process
+    publishes them, and their UUIDs, through the store.  ``backend``
+    None is "nccl" on cards and "gloo" on the CPU; it is never picked by
+    catching an error.  "nccl" on the CPU, or with one card published by
+    two processes, is refused by name before the group is made (NCCL
+    needs a card a process): ``backend="gloo"`` runs there.  A no-op for
+    one process or once joined, so a program can call it
+    unconditionally."""
     if num_processes is None or num_processes <= 1:
         return
     with _STATE_LOCK:
@@ -72,17 +108,104 @@ def initialize(coordinator_address: Optional[str] = None,
             raise ValueError(
                 "initialize needs coordinator_address and process_id for "
                 f"{num_processes} processes")
-        host, port = coordinator_address.rsplit(":", 1)
-        store = torch.distributed.TCPStore(
-            host, int(port), world_size=int(num_processes),
-            is_master=int(process_id) == 0,
-            timeout=timedelta(seconds=timeout_s), wait_for_workers=True)
-        _STATE.update(store=store, process_index=int(process_id),
-                      process_count=int(num_processes),
-                      address=coordinator_address, timeout_s=timeout_s)
-    _ident.set_identity(process_count=int(num_processes),
+        pid, n = int(process_id), int(num_processes)
+        local = _local_devices(devices)
+        if backend is None:
+            backend = "nccl" if local[0].type == "cuda" else "gloo"
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"backend {backend!r}: expected one of {BACKENDS}")
+        timeout = timedelta(seconds=timeout_s)
+        store = _STORES.get(coordinator_address)
+        if store is None:
+            host, port = coordinator_address.rsplit(":", 1)
+            store = torch.distributed.TCPStore(
+                host, int(port), world_size=n, is_master=pid == 0,
+                timeout=timeout, wait_for_workers=True)
+            _STORES[coordinator_address] = store
+        # every attempt publishes under its own keys: a refused backend
+        # and the next attempt never read each other's
+        attempt = store.add(f"knn_tpu/join/attempts/{pid}", 1)
+        mine = {"devices": [str(d) for d in local],
+                "ids": [_device_id(d) for d in local]}
+        store.set(f"knn_tpu/join/{attempt}/{pid}", json.dumps(mine))
+        published = []
+        for p in range(n):
+            key = f"knn_tpu/join/{attempt}/{p}"
+            store.wait([key], timeout)
+            published.append(json.loads(store.get(key)))
+        check_backend(backend, published)
+        if backend == "nccl":
+            torch.cuda.set_device(local[0])
+        torch.distributed.init_process_group(
+            backend, store=torch.distributed.PrefixStore(
+                f"knn_tpu/group/{attempt}", store),
+            rank=pid, world_size=n, timeout=timeout)
+        _STORES.pop(coordinator_address, None)
+        _STATE.update(store=store, process_index=pid, process_count=n,
+                      address=coordinator_address, timeout_s=timeout_s,
+                      backend=backend,
+                      devices=[p["devices"] for p in published],
+                      group_device=(local[0] if backend == "nccl"
+                                    else torch.device("cpu")))
+    _ident.set_identity(process_count=n,
                         coordinator_address=coordinator_address,
-                        process_index=int(process_id))
+                        process_index=pid)
+
+
+def _local_devices(devices) -> list:
+    """This process's devices: ``devices`` checked, or every visible card,
+    or the CPU where no card is visible."""
+    if devices is None:
+        if torch.cuda.is_available():
+            return _devices(None)
+        return [torch.device("cpu")]
+    return _devices(devices)
+
+
+def _device_id(dev: torch.device) -> str:
+    """A device's identity across processes: a card's UUID, or the CPU of
+    this machine."""
+    if dev.type == "cuda":
+        props = torch.cuda.get_device_properties(dev)
+        return f"cuda/{getattr(props, 'uuid', None) or props.name}"
+    return f"cpu/{socket.gethostname()}"
+
+
+def check_backend(backend: str, published: Sequence[dict]) -> None:
+    """Refuses, by name, a ``backend`` its processes' devices cannot run:
+    ``published`` holds each process's ``{"devices": [...], "ids":
+    [...]}`` in process order.  "nccl" needs cards, and a card of its own
+    for each process; "gloo" runs anywhere."""
+    if backend != "nccl":
+        return
+    for p, pub in enumerate(published):
+        if any(not d.startswith("cuda") for d in pub["devices"]):
+            raise ValueError(
+                f"backend='nccl' runs on cards; process {p} drives "
+                f"{pub['devices']}: pass backend='gloo' on the CPU")
+    seen: dict = {}
+    for p, pub in enumerate(published):
+        for d, uid in zip(pub["devices"], pub["ids"]):
+            other = seen.setdefault(uid, (p, d))
+            if other[0] != p:
+                raise ValueError(
+                    f"backend='nccl' cannot run two processes on one card: "
+                    f"process {other[0]}'s {other[1]} and process {p}'s {d} "
+                    f"are the same card ({uid}), and NCCL needs a card a "
+                    f"process; pass backend='gloo', which stages the "
+                    f"exchanged tensors through the host")
+
+
+def shutdown() -> None:
+    """Leaves the process group (the reference's ``MPI_Finalize``); the
+    store goes with the state.  A no-op when not joined."""
+    with _STATE_LOCK:
+        if not _STATE:
+            return
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        _STATE.clear()
 
 
 def process_index() -> int:
@@ -93,31 +216,157 @@ def process_count() -> int:
     return _STATE.get("process_count", 1)
 
 
-def _refuse_cross_process(what: str) -> None:
-    if process_count() > 1:
+def backend() -> Optional[str]:
+    """The process group's backend; None in one process."""
+    return _STATE.get("backend")
+
+
+def group_device() -> torch.device:
+    """Where tensors cross processes: the CPU under gloo, this process's
+    card under nccl."""
+    if "backend" not in _STATE:
+        raise RuntimeError(
+            "no process group: call multihost.initialize(...) with the "
+            "process count first")
+    return _STATE["group_device"]
+
+
+def _all_gather_object(obj) -> list:
+    """``obj`` of every process, in process order, through the group."""
+    out = [None] * process_count()
+    torch.distributed.all_gather_object(out, obj)
+    return out
+
+
+def _global_devices(devices) -> Tuple[list, list]:
+    """``(devices, owners)``: every process's devices in process order,
+    each with its process — ``devices`` this process's (None: the ones it
+    published at :func:`initialize`), every other process's as it passed
+    them to the same call."""
+    if devices is None:
+        lists = _STATE["devices"]
+    else:
+        lists = _all_gather_object([str(d) for d in _devices(devices)])
+    flat, owners = [], []
+    for p, lst in enumerate(lists):
+        flat += lst
+        owners += [p] * len(lst)
+    return flat, owners
+
+
+def _require_every_process(mesh: Mesh, what: str) -> Mesh:
+    missing = sorted(set(range(process_count()))
+                     - {int(o) for o in mesh.owners.flat})
+    if missing:
         raise ValueError(
-            f"{what}: a mesh over other processes' devices needs device "
-            f"collectives across processes (NCCL); that path is queued "
-            f"for a machine with several cards (ROADMAP queue A).  Use "
-            f"MultiHostKNN, which merges through the store")
+            f"{what}: {mesh.size} positions leave process(es) {missing} "
+            f"without a position; every process drives at least one")
+    return mesh
 
 
-def global_mesh(query_shards: Optional[int] = None,
-                db_shards: int = 1) -> Mesh:
-    """The (query, db) mesh over every visible card — the reference's
-    ``MPI_COMM_WORLD`` (knn_mpi.cpp:124-125) in one process; refused
-    across processes (module docstring)."""
-    _refuse_cross_process("global_mesh")
-    return make_mesh(query_shards, db_shards)
+def global_mesh(query_shards: Optional[int] = None, db_shards: int = 1, *,
+                devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
+    """The (query, db) mesh over every device of every process, in
+    process order — the reference's ``MPI_COMM_WORLD``
+    (knn_mpi.cpp:124-125), the JAX package's ``make_mesh(...,
+    devices=jax.devices())`` (multihost.py:89-94).  ``query_shards=None``
+    spreads every device left after ``db_shards`` over the query axis.
+    ``devices`` are this process's (None: those it published at
+    :func:`initialize`); a repeated device makes logical positions.
+    Every process calls it with the same shape; each position is owned
+    by the process whose device it is.  In one process: make_mesh."""
+    if process_count() == 1:
+        return make_mesh(query_shards, db_shards, devices=devices)
+    devs, owners = _global_devices(devices)
+    return _require_every_process(
+        make_mesh(query_shards, db_shards, devices=devs, owners=owners,
+                  rank=process_index()), "global_mesh")
+
+
+def global_host_mesh(query_shards: Optional[int] = None,
+                     db_hosts: Optional[int] = None, db_shards: int = 1, *,
+                     devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
+    """The hierarchical ``(query, host, db)`` mesh (parallel.mesh.
+    make_host_mesh) over every process's devices, in process order, with
+    the host axis the process axis (``db_hosts`` None: the process
+    count), as the JAX package's ``db_hosts = jax.process_count()``
+    (knn_tpu/parallel/mesh.py:75): each host's ``db_shards`` positions
+    belong to one process, whose lists merge on its own devices before
+    the host level crosses processes."""
+    if process_count() == 1:
+        return make_host_mesh(query_shards, db_hosts or 1, db_shards,
+                              devices=devices)
+    devs, owners = _global_devices(devices)
+    mesh = make_host_mesh(query_shards, db_hosts or process_count(),
+                          db_shards, devices=devs, owners=owners,
+                          rank=process_index())
+    own = mesh.owners
+    for r in range(mesh.shape[QUERY_AXIS]):
+        for h in range(mesh.shape[HOST_AXIS]):
+            if len(set(own[r, h].tolist())) > 1:
+                raise ValueError(
+                    f"global_host_mesh: host {h} of query shard {r} spans "
+                    f"processes {sorted(set(own[r, h].tolist()))}; the host "
+                    f"axis is the process axis: give db_shards the "
+                    f"positions of one process")
+    return _require_every_process(mesh, "global_host_mesh")
 
 
 def shard_across_hosts(local_rows, mesh: Mesh, axis_name=DB_AXIS):
     """This process's rows placed over ``mesh`` along ``axis_name`` (a
-    :class:`~knn_tpu_torch.parallel.collectives.Placed`, which
-    ``ShardedKNN(..., n_train=)`` takes) — the multi-host ``MPI_Scatter``
-    (knn_mpi.cpp:226-227) in one process; refused across processes."""
-    _refuse_cross_process("shard_across_hosts")
-    return shard(np.asarray(local_rows), mesh, axis_name)
+    name or a tuple of names, major first) — the multi-host
+    ``MPI_Scatter`` (knn_mpi.cpp:226-227) with no root, the JAX package's
+    ``make_array_from_process_local_data`` (multihost.py:97-137).  The
+    global rows are every process's ``local_rows`` concatenated in
+    process order (``local_rows.shape[0] * process_count`` of them; pad
+    every process to the same count first, and give ``ShardedKNN(...,
+    n_train=)`` the real count).  Returns a
+    :class:`~knn_tpu_torch.parallel.collectives.Placed` whose positions of
+    this process hold blocks of its own rows and whose other positions
+    are remote (None).  The axis size must be a multiple of the process
+    count, and each process's positions must hold its own rows.  In one
+    process: parallel.collectives.shard."""
+    local_rows = np.asarray(local_rows)
+    pc = process_count()
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    axis_size = int(np.prod([mesh.shape[a] for a in names]))
+    if axis_size % pc:
+        raise ValueError(
+            f"mesh axis {axis_name!r} (size {axis_size}) must be a multiple "
+            f"of process_count={pc} to scatter rows across hosts; with fewer "
+            "shards than processes the array would be replicated and every "
+            "host would need the full matrix")
+    if pc == 1 or not mesh.spans_processes:
+        return shard(local_rows, mesh, axis_name)
+    n_local = local_rows.shape[0]
+    per_process = axis_size // pc
+    if n_local % per_process:
+        raise ValueError(
+            f"{n_local} local rows do not divide into the {per_process} "
+            f"blocks a process holds on axis {axis_name!r}; pad first")
+    per = n_local // per_process
+    pid = process_index()
+    idx = [mesh.axis_names.index(a) for a in names]
+    sizes = [mesh.shape[a] for a in names]
+    parts = np.empty(mesh.devices.shape, dtype=object)
+    copies: dict = {}
+    for pos in mesh.local_positions:
+        j = int(np.ravel_multi_index([pos[i] for i in idx], sizes))
+        lo = j * per - pid * n_local
+        if not 0 <= lo <= n_local - per:
+            raise ValueError(
+                f"shard_across_hosts: position {pos} of process {pid} holds "
+                f"global rows {j * per}..{(j + 1) * per - 1}, which are "
+                f"process {j * per // n_local}'s; each process's positions "
+                f"must hold its own rows")
+        dev = mesh.devices[pos]
+        key = (j, str(dev))
+        if key not in copies:
+            copies[key] = torch.from_numpy(
+                np.ascontiguousarray(local_rows[lo:lo + per])).to(dev)
+        parts[pos] = copies[key]
+    return Placed(mesh, parts, axis_name, 0,
+                  (n_local * pc, *local_rows.shape[1:]))
 
 
 def process_row_slice(n_global_rows: int) -> slice:
@@ -160,6 +409,54 @@ def _update_report(**kw) -> None:
     with _REPORT_LOCK:
         _LAST_REPORT.clear()
         _LAST_REPORT.update(kw)
+
+
+#: the cross-process exchanges of the in-mesh call in progress (this
+#: process's view), and how deep its calls nest
+_IN_MESH: dict = {"depth": 0, "log": []}
+
+
+def record_exchange(op: str, nbytes: int, seconds: float) -> None:
+    """One cross-process exchange of an in-mesh call: the collective
+    (``all_gather``, ``all_reduce``, ``send`` / ``recv``), the bytes every
+    process put into it, and its seconds on this process's clock, host
+    staging included (parallel.collectives records each)."""
+    with _REPORT_LOCK:
+        _IN_MESH["log"].append({"op": op, "bytes": int(nbytes),
+                                "s": float(seconds)})
+
+
+def begin_in_mesh_call() -> None:
+    """An in-mesh call on a mesh that spans processes starts; a call made
+    inside it (the fallback repair's select) adds to its exchanges."""
+    with _REPORT_LOCK:
+        if _IN_MESH["depth"] == 0:
+            _IN_MESH["log"] = []
+        _IN_MESH["depth"] += 1
+
+
+def finish_in_mesh_call(*, dcn_merge: Optional[str],
+                        dcn_merge_source: Optional[str],
+                        dcn_merge_bytes: int) -> None:
+    """The outermost in-mesh call ends: its report — the transport
+    ``"in_mesh:<backend>"``, the strategy and modeled bytes of the merge
+    level that crosses processes, and the seconds and bytes of its
+    exchanges (``exchange_log`` one entry each) — becomes
+    :func:`last_report`."""
+    with _REPORT_LOCK:
+        _IN_MESH["depth"] -= 1
+        if _IN_MESH["depth"]:
+            return
+        log = list(_IN_MESH["log"])
+    _update_report(
+        hosts=process_count(), process_index=process_index(),
+        transport=f"in_mesh:{backend()}", dcn_merge=dcn_merge,
+        dcn_merge_source=dcn_merge_source,
+        dcn_merge_bytes=int(dcn_merge_bytes), straggler_gap_s=None,
+        straggler_host=None, host_walls_s=[], exchanges=len(log),
+        exchange_s=round(sum(e["s"] for e in log), 6),
+        exchange_bytes=int(sum(e["bytes"] for e in log)),
+        exchange_log=log)
 
 
 def _store():
@@ -300,8 +597,9 @@ class MultiHostKNN:
             # ring cannot take effect here, so it is refused, not ignored
             raise ValueError(
                 f"MultiHostKNN's store transport is an allgather; "
-                f"dcn_merge={dcn_merge!r} cannot take effect (a ring "
-                f"across processes needs the in-mesh path, queued)")
+                f"dcn_merge={dcn_merge!r} cannot take effect: a ring "
+                f"across processes runs in the mesh, ShardedKNN(rows, "
+                f"mesh=global_host_mesh(...), dcn_merge={dcn_merge!r})")
         self._local = ShardedKNN(local_rows, mesh=mesh, k=k, metric=metric,
                                  merge=merge, train_tile=train_tile,
                                  compute_dtype=compute_dtype)
@@ -554,10 +852,16 @@ class MultiHostKNN:
 
 
 __all__ = [
+    "BACKENDS",
     "initialize",
+    "shutdown",
+    "check_backend",
     "process_index",
     "process_count",
+    "backend",
+    "group_device",
     "global_mesh",
+    "global_host_mesh",
     "shard_across_hosts",
     "process_row_slice",
     "MultiHostKNN",

@@ -34,6 +34,20 @@ programs follow the JAX code path:
   (ops.refine.rank_correct_runs), and flagged queries rerun through the
   widened exact select + float64 refine (ops.certified.repair_uncertified).
 
+On a mesh that spans processes (parallel.multihost.global_mesh: each
+position owned by one process) every process places and runs only its
+own positions; a merge level whose lists belong to several processes
+crosses them through the ``torch.distributed`` group (allgather: one
+``all_gather`` of the lists; ring: ``send`` / ``recv`` hops of the
+accumulator), the exclusion bounds' minimum, the counts and the int
+arms' bound statistics are one ``all_reduce``, and the query shards'
+outputs cross in one ``all_gather``, so every process holds the whole
+result and runs the host repair on it, as each JAX process runs its
+host code on a replicated output.  Every process calls every entry in
+the same order with the same queries.  The tiers' paths, the host-RAM
+tier, pq, the pipeline, ``search_bucketed`` and the streaming kernels
+are refused there by name (parallel.mesh.require_one_process).
+
 The host-RAM tier (the JAX package's, sharded.py:650-975): with
 ``hbm_budget_bytes`` a database whose placement (analysis.hbm's byte
 model) exceeds the budget a host is never placed.  Its prepared rows stay
@@ -80,6 +94,7 @@ device tensor.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from collections import deque
@@ -124,12 +139,14 @@ from knn_tpu_torch.ops.topk import (I32MAX, knn_search, knn_search_approx,
                                    knn_search_tiled, merge_topk, topk_pairs)
 from knn_tpu_torch.obs import names as _mn
 from knn_tpu_torch.ops.vote import majority_vote
-from knn_tpu_torch.parallel.collectives import (Placed, gather, reduce_min,
-                                                reduce_sum, shard)
+from knn_tpu_torch.parallel.collectives import (Placed, exchange, gather,
+                                                reduce_max, reduce_min,
+                                                reduce_sum, send_recv, shard)
 from knn_tpu_torch.parallel.crossover import merge_bytes, resolve_merge
 from knn_tpu_torch.parallel.mesh import (QUERY_AXIS, Mesh, db_axes,
                                          db_topology, grid3, make_mesh,
-                                         pad_to_multiple)
+                                         owners3, pad_to_multiple,
+                                         require_one_process)
 from knn_tpu_torch.utils.config import CERTIFIED_PRECISIONS, SELECTORS
 
 #: upper bound on the elements of one [queries, rows] f32 distance block
@@ -259,13 +276,14 @@ def segment_search_program(k: int, metric: str = "l2", *,
     its one block)."""
     if mesh is not None and device is not None:
         raise ValueError("pass mesh= or device=, not both")
+    require_one_process(mesh, "segment_search_program")
     if mesh is not None and mesh.size == 1:
         device, mesh = mesh.devices.flat[0], None
     if mesh is not None:
         hosts, chips = db_topology(mesh)
         n_shards = hosts * chips
         merge = resolve_merge(merge, k, chips)[0]
-        first = mesh.devices.flat[0]
+        first = mesh.first_device
         one = {}
 
         def prog(q, seg, n_valid: int):
@@ -390,52 +408,141 @@ def _fetch_async(packed):
     return _host_copies((packed[0].to(torch.int32), *packed[1:]))
 
 
-def _ring_merge(ds, is_, k: int):
+def _checked_labels(labels, num_classes, n: int) -> Optional[np.ndarray]:
+    """``labels`` as int32 [n] (None without labels), checked against the
+    row count and ``num_classes``."""
+    if labels is None:
+        return None
+    if num_classes is None:
+        raise ValueError("labels given without num_classes")
+    labels = np.asarray(labels, dtype=np.int32)
+    if labels.shape != (n,):
+        raise ValueError(
+            f"labels shape {labels.shape} != (n_train,) = ({n},)")
+    return labels
+
+
+def _lists_like(rows: int, keep: int) -> tuple:
+    """``(shape, dtype)`` of one shard's ``(d, gi)`` lists of ``rows``
+    queries, ``keep`` wide: what a process that holds none of them
+    exchanges (parallel.collectives)."""
+    return (((rows, keep), torch.float32), ((rows, keep), torch.int64))
+
+
+def _over_processes(t: torch.Tensor, reduce_fn, mesh: Mesh) -> torch.Tensor:
+    """``reduce_fn`` (parallel.collectives.reduce_max / reduce_sum) of
+    this process's ``t`` and every other process's of ``mesh``, in every
+    process (one ``all_reduce``); ``t`` on a mesh of one process."""
+    if not mesh.spans_processes:
+        return t
+    from knn_tpu_torch.parallel import multihost
+
+    parts = [None] * multihost.process_count()
+    parts[mesh.rank] = t
+    return reduce_fn(parts, t.device, owners=list(range(len(parts))),
+                     like=(tuple(t.shape), t.dtype))
+
+
+def _rank() -> int:
+    """This process's index in the process group (0 alone)."""
+    from knn_tpu_torch.parallel import multihost
+
+    return multihost.process_index()
+
+
+def _ring_merge(ds, is_, k: int, owners=None, like=None):
     """The ring over the per-shard lists ``ds`` / ``is_`` (one a shard,
     each on its device): one accumulator starts at shard 1 and takes P-1
     hops, 1 → 2 → … → P-1 → 0, merging into each shard's list on that
     shard's device, so the global top-k lands on shard 0's device.  The
     JAX package's ring (sharded.py:71-84) runs P such accumulators at
     once, one a device, because every device reads its own; a single
-    controller reads position 0's alone, so it runs that one."""
+    controller reads position 0's alone, so it runs that one.  With
+    ``owners`` (the process of each shard; another process's list None
+    here) a hop between two processes is a ``send`` / ``recv`` of the
+    accumulator (parallel.collectives.send_recv), the lists ``like``:
+    the result lands on shard 0's process, ``(None, None)`` elsewhere."""
     n = len(ds)
-    acc_d, acc_i = ds[1], is_[1]
+    if owners is None:
+        owners, me = [0] * n, 0
+    else:
+        me = _rank()
+    acc = (ds[1], is_[1]) if owners[1] == me else None
+    prev = owners[1]
     for j in list(range(2, n)) + [0]:
-        dev = ds[j].device
-        acc_d, acc_i = merge_topk(ds[j], is_[j],
-                                  acc_d.to(dev, non_blocking=True),
-                                  acc_i.to(dev, non_blocking=True), k)
-    return acc_d, acc_i
+        o = owners[j]
+        if o != prev:
+            got = send_recv(acc, prev, o, like,
+                            ds[j].device if o == me else None)
+            acc = got if o == me else None
+        if o == me:
+            dev = ds[j].device
+            acc = merge_topk(ds[j], is_[j],
+                             acc[0].to(dev, non_blocking=True),
+                             acc[1].to(dev, non_blocking=True), k)
+        prev = o
+    return acc if owners[0] == me else (None, None)
 
 
-def _allgather_merge(ds, is_, k: int):
+def _allgather_merge(ds, is_, k: int, owners=None, like=None):
     """Every list gathered onto shard 0's device ([Qs, P·k]) and one top-k
     of the union there.  The JAX package's allgather (sharded.py:87-93)
     gathers onto every device; a single controller reads position 0's
-    result alone, so it gathers once."""
+    result alone, so it gathers once.  With ``owners`` spanning processes
+    the lists cross in one ``all_gather`` (parallel.collectives.exchange)
+    and shard 0's process takes the top-k: ``(None, None)`` elsewhere."""
+    if owners is not None and len(set(owners)) > 1:
+        me = _rank()
+        dev = ds[0].device if owners[0] == me else None
+        got = exchange([None if d is None else (d, i)
+                        for d, i in zip(ds, is_)], owners, like, dev)
+        if owners[0] != me:
+            return None, None
+        ds, is_ = [g[0] for g in got], [g[1] for g in got]
     dev = ds[0].device
     return topk_pairs(gather(ds, dev, axis=1), gather(is_, dev, axis=1), k)
 
 
-def _merge_shards(d, gi, keep: int, merge: str, dcn_merge: Optional[str]):
+def _merge_shards(d, gi, keep: int, merge: str, dcn_merge: Optional[str],
+                  owners=None, like=None):
     """The two-level top-k merge tree over one query shard's lists ``d[h][c]``
     / ``gi[h][c]`` (host h, device c; sharded.py:107-129): each host's
     lists merge by ``merge`` onto its first device, then the hosts' by
     ``dcn_merge`` (or ``merge``) onto position (0, 0), once each.  The
     lexicographic ``(distance, index)`` merge is associative and
     commutative, so every strategy pair and the flat merge agree bitwise.
-    Returns the merged list, on position (0, 0)'s device."""
+    Returns the merged list, on position (0, 0)'s device.
+
+    ``owners[h][c]`` (a mesh that spans processes) names each list's
+    process, another process's list None here (``like`` its shape): a
+    level whose lists belong to one process runs there alone, a level
+    that spans processes crosses them (:func:`_ring_merge`,
+    :func:`_allgather_merge`), and the merged list lands on position
+    (0, 0)'s process; ``(None, None)`` elsewhere."""
     level = {"ring": _ring_merge, "allgather": _allgather_merge}
-    host_d, host_i = [], []
-    for row_d, row_i in zip(d, gi):
+    if owners is None:
+        owners, me = [[0] * len(row) for row in d], 0
+    else:
+        me = _rank()
+
+    def run(strategy, ds, is_, own):
+        if len(set(own)) == 1:  # one process's lists: merged there
+            if own[0] != me:
+                return None, None
+            return level[strategy](ds, is_, keep)
+        return level[strategy](ds, is_, keep, own, like)
+
+    host_d, host_i, host_o = [], [], []
+    for row_d, row_i, row_o in zip(d, gi, owners):
         if len(row_d) > 1:
-            row_d, row_i = level[merge](row_d, row_i, keep)
+            row_d, row_i = run(merge, row_d, row_i, list(row_o))
         else:
             row_d, row_i = row_d[0], row_i[0]
         host_d.append(row_d)
         host_i.append(row_i)
+        host_o.append(row_o[0])
     if len(host_d) > 1:
-        return level[dcn_merge or merge](host_d, host_i, keep)
+        return run(dcn_merge or merge, host_d, host_i, host_o)
     return host_d[0], host_i[0]
 
 
@@ -459,18 +566,26 @@ def _run_on_mesh(mesh: Mesh, q: torch.Tensor, local, keep: int, merge: str,
     shards), its rows at or past ``n_valid`` masked at its global offset
     ``j * shard_rows`` (:func:`_mask_shard`), then the merge tree
     (``keep`` wide).  Returns ``(d, gi)`` on the first device, the query
-    padding cut."""
-    first = mesh.devices.flat[0]
+    padding cut.  On a mesh that spans processes ``local`` runs at this
+    process's positions only, the merge levels cross processes where
+    their lists do (:func:`_merge_shards`), and the query shards' merged
+    lists cross to every process (one ``all_gather``), so every process
+    returns the whole result."""
+    first = mesh.first_device
     n_qs = mesh.shape[QUERY_AXIS]
     qp, n_q = pad_to_multiple(q, n_qs)
     grid = grid3(mesh)
+    spans = mesh.spans_processes
+    own = owners3(mesh)
     hosts, chips = grid.shape[1], grid.shape[2]
-    outs_d, outs_i = [], []
+    outs = []
     for r, qb in enumerate(torch.chunk(qp, n_qs)):
         d = [[None] * chips for _ in range(hosts)]
         gi = [[None] * chips for _ in range(hosts)]
         for h in range(hosts):
             for c in range(chips):
+                if spans and own[r, h, c] != mesh.rank:
+                    continue
                 j = h * chips + c
                 dev = grid[r, h, c]
                 dl, li = local(j, _position(mesh, r, h, c),
@@ -478,10 +593,16 @@ def _run_on_mesh(mesh: Mesh, q: torch.Tensor, local, keep: int, merge: str,
                 n_local = min(max(n_valid - j * shard_rows, 0), shard_rows)
                 d[h][c], gi[h][c] = _mask_shard(dl, li, n_local,
                                                 j * shard_rows)
-        md, mi = _merge_shards(d, gi, keep, merge, dcn_merge)
-        outs_d.append(md.to(first, non_blocking=True))
-        outs_i.append(mi.to(first, non_blocking=True))
-    return torch.cat(outs_d)[:n_q], torch.cat(outs_i)[:n_q]
+        like = _lists_like(qb.shape[0], keep)
+        md, mi = _merge_shards(d, gi, keep, merge, dcn_merge,
+                               own[r].tolist() if spans else None, like)
+        outs.append(None if md is None else
+                    (md.to(first, non_blocking=True),
+                     mi.to(first, non_blocking=True)))
+    if spans:
+        outs = exchange(outs, [int(o) for o in own[:, 0, 0]], like, first)
+    return (torch.cat([o[0] for o in outs])[:n_q],
+            torch.cat([o[1] for o in outs])[:n_q])
 
 
 def _tensors(x):
@@ -502,6 +623,32 @@ def _current_streams(streams: dict, which: int, first: torch.device):
         for dev in sorted(streams, key=lambda d: d == first):
             stack.enter_context(torch.cuda.stream(streams[dev][which]))
         yield
+
+
+def _in_mesh_call(fn):
+    """A :class:`ShardedKNN` entry point that, on a mesh spanning
+    processes, makes one in-mesh report (multihost.last_report): the
+    exchanges of the call and of the calls it makes, the merge level that
+    crosses processes and its modeled bytes at the call's k for its
+    padded query rows."""
+    @functools.wraps(fn)
+    def call(self, queries, *args, **kwargs):
+        if not self.mesh.spans_processes:
+            return fn(self, queries, *args, **kwargs)
+        from knn_tpu_torch.parallel import multihost
+
+        n_qs = self.mesh.shape[QUERY_AXIS]
+        rows = -(-len(queries) // n_qs) * n_qs
+        multihost.begin_in_mesh_call()
+        try:
+            return fn(self, queries, *args, **kwargs)
+        finally:
+            strategy, source, nbytes = self._cross_level(
+                rows, kwargs.get("k") or self.k)
+            multihost.finish_in_mesh_call(dcn_merge=strategy,
+                                          dcn_merge_source=source,
+                                          dcn_merge_bytes=nbytes)
+    return call
 
 
 def _position(mesh: Mesh, r: int, h: int, c: int) -> tuple:
@@ -550,6 +697,13 @@ class ShardedKNN:
     each db shard's codes on it, and the pipeline (``overlap=True``) runs
     every shard's coarse kernel on its device's coarse stream.
 
+    On a mesh that spans processes (parallel.multihost.global_mesh)
+    ``train`` is the whole host array in every process, or the rows
+    ``multihost.shard_across_hosts`` placed (search and predict only:
+    no process holds a host copy for the certificates' refine); each
+    process holds and runs its own positions and returns the whole
+    result (module docstring).
+
     ``hbm_budget_bytes`` (None: no budget) runs a host array whose
     placement would exceed it a host in the host-RAM tier on any mesh
     (module docstring; ``hbm.placement_bytes`` of the prepared rows,
@@ -587,6 +741,8 @@ class ShardedKNN:
         if mesh is None:
             mesh = make_mesh(1, 1, devices=[
                 train.device if isinstance(train, Placement) else device])
+        if budget is not None:
+            require_one_process(mesh, "the host-RAM tier")
         hosts, chips = db_topology(mesh)
         self.mesh = mesh
         # strategies resolve explicit > the measured crossover table;
@@ -613,6 +769,9 @@ class ShardedKNN:
         self._placed: Optional[Placed] = None
         #: the host rows of a mesh placement with several db shards
         self._rows = None
+        #: rows placed across processes (multihost.shard_across_hosts):
+        #: no process holds a host copy of them
+        self._no_host_copy = False
         self._labels_t = None
         #: the host-RAM tier's plan (None: the database is placed)
         self._host_tier: Optional[dict] = None
@@ -625,25 +784,33 @@ class ShardedKNN:
         self._last_hosttier: Optional[dict] = None
         #: one tier search or tiered join at a time: they share the slots
         self._tier_lock = threading.Lock()
+        spanning_placed = isinstance(train, Placed) and \
+            train.mesh.spans_processes
         if isinstance(train, Placed):
             if canonical_metric(metric) not in ("l2", "l1"):
                 raise ValueError(
                     f"rows placed over a mesh carry no placement-time "
                     f"normalization or augmentation; metric {metric!r} "
                     f"needs a host array")
-            if budget is not None:
-                self._refuse_placed_over_budget(*train.shape, budget)
-            rows_all = train.gather().numpy()
-            n_train = rows_all.shape[0] if n_train is None else int(n_train)
-            if not 0 < n_train <= rows_all.shape[0]:
-                raise ValueError(
-                    f"n_train={n_train} outside (0, {rows_all.shape[0]}]")
-            train = rows_all[:n_train]
+            if not spanning_placed:
+                if budget is not None:
+                    self._refuse_placed_over_budget(*train.shape, budget)
+                rows_all = train.gather().numpy()
+                n_train = (rows_all.shape[0] if n_train is None
+                           else int(n_train))
+                if not 0 < n_train <= rows_all.shape[0]:
+                    raise ValueError(
+                        f"n_train={n_train} outside (0, "
+                        f"{rows_all.shape[0]}]")
+                train = rows_all[:n_train]
         elif n_train is not None:
             raise ValueError("n_train is only for rows placed over a mesh")
         self.k = k
         self.train_tile = train_tile
-        if hosts * chips > 1:
+        if spanning_placed:
+            self._init_spanning_placed(train, n_train, k, metric, labels,
+                                       num_classes)
+        elif hosts * chips > 1:
             self._init_db_sharded(train, k, metric, labels, num_classes,
                                   budget, int(hosttier_depth))
         else:
@@ -677,8 +844,9 @@ class ShardedKNN:
     def _init_one_shard(self, train, k, metric, labels, num_classes, budget,
                         depth) -> None:
         """The placement of a mesh with one db shard, on its first device
-        (the other query shards' devices get theirs at first use)."""
-        device = self.mesh.devices.flat[0]
+        (the other query shards' devices get theirs at first use; on a
+        mesh that spans processes, this process's first device)."""
+        device = self.mesh.first_device
         if budget is not None and isinstance(train, (Placement,
                                                      torch.Tensor)):
             self._refuse_placed_over_budget(
@@ -744,16 +912,8 @@ class ShardedKNN:
                 f"k={k} exceeds db shard size {per}; use fewer db shards")
         if k > n:
             raise ValueError(f"k={k} > n_train={n}")
-        lab = None
-        if labels is not None:
-            if num_classes is None:
-                raise ValueError("labels given without num_classes")
-            labels = np.asarray(labels, dtype=np.int32)
-            if labels.shape != (n,):
-                raise ValueError(
-                    f"labels shape {labels.shape} != (n_train,) = ({n},)")
-            lab = labels
-        self.device = self.mesh.devices.flat[0]
+        lab = _checked_labels(labels, num_classes, n)
+        self.device = self.mesh.first_device
         self.metric = rows.metric
         self.n_train = n
         self.num_classes = num_classes
@@ -764,8 +924,11 @@ class ShardedKNN:
         if lab is not None:
             self._labels_t = torch.from_numpy(lab).to(self.device)
         grid = grid3(self.mesh)
+        own = owners3(self.mesh)
         chips = grid.shape[2]
         for pos in np.ndindex(*grid.shape):
+            if own[pos] != self.mesh.rank:  # another process's position
+                continue
             j = pos[1] * chips + pos[2]
             dev = grid[pos]
             if (j, dev) in self._shards:
@@ -774,6 +937,74 @@ class ShardedKNN:
             self._shards[(j, dev)] = self._shard_knn(
                 block, dev, k, n_valid=int(np.clip(n - j * per, 0, per)),
                 offset=j * per)
+
+    def _init_spanning_placed(self, train: Placed, n_train, k, metric,
+                              labels, num_classes) -> None:
+        """Rows placed across processes (multihost.shard_across_hosts; the
+        JAX package's pre-placed global array, sharded.py:581-600): each
+        of this process's positions keeps its block where it lies, as its
+        shard's placement; ``n_train`` (None: every row) the leading rows
+        that are real.  No process holds the other processes' rows, so
+        the paths that need a host copy (the certificates' float64
+        refine) are refused by name (sharded.py:1182-1186)."""
+        if train.mesh != self.mesh:
+            raise ValueError(
+                "rows placed across processes run on the mesh they were "
+                "placed over; pass mesh= that mesh")
+        names = train._names()
+        want = db_axes(self.mesh)
+        want = (want,) if isinstance(want, str) else tuple(want)
+        if names != want:
+            raise ValueError(
+                f"rows placed across processes along {names} must lie "
+                f"along the mesh's db axes {want}")
+        rows_all, dim = train.shape[0], train.shape[1]
+        n_shards = self.db_shards
+        if rows_all % n_shards:
+            raise ValueError(
+                f"pre-placed train rows {rows_all} must be a multiple of "
+                f"db_shards={n_shards}; pad before placing")
+        n = rows_all if n_train is None else int(n_train)
+        if not 0 < n <= rows_all:
+            raise ValueError(f"n_train={n} outside (0, {rows_all}]")
+        per = rows_all // n_shards
+        if k > per:
+            raise ValueError(
+                f"k={k} exceeds db shard size {per}; use fewer db shards")
+        if k > n:
+            raise ValueError(f"k={k} > n_train={n}")
+        self.device = self.mesh.first_device
+        self.metric = canonical_metric(metric)
+        self.n_train = n
+        self.num_classes = num_classes
+        self.dim_in = dim
+        self.placement = None
+        self._no_host_copy = True
+        self._rows_per_shard = per
+        labels = _checked_labels(labels, num_classes, n)
+        if labels is not None:
+            self._labels_t = torch.from_numpy(labels).to(self.device)
+        # the certificate's db term of the whole database: the largest
+        # float64 squared row norm of every process's blocks
+        grid = grid3(self.mesh)
+        chips = grid.shape[2]
+        local = {}
+        for pos in self.mesh.local_positions:
+            r, h, c = (pos if len(pos) == 3 else (pos[0], 0, pos[1]))
+            j = h * chips + c
+            local[(j, grid[r, h, c])] = train.parts[pos]
+        valid = {j: int(np.clip(n - j * per, 0, per)) for j, _ in local}
+        norms = [float((b[:valid[j]].double() ** 2).sum(-1).max())
+                 for (j, _), b in local.items() if valid[j] > 0]
+        db_norm_max = float(_over_processes(
+            torch.tensor([max(norms, default=-np.inf)], dtype=torch.float64),
+            reduce_max, self.mesh)[0])
+        for (j, dev), block in local.items():
+            meta = HostRows(rows=block.cpu().numpy(), metric=self.metric,
+                            db_norm_max=db_norm_max)
+            self._shards[(j, dev)] = self._shard_knn(
+                meta.rows, dev, k, n_valid=valid[j], offset=j * per,
+                rows=meta, db=block)
 
     def _refuse_placed_over_budget(self, n: int, width: int,
                                    budget: int) -> None:
@@ -788,12 +1019,16 @@ class ShardedKNN:
                 f"array (or raise the budget)")
 
     def _shard_knn(self, block: np.ndarray, dev: torch.device, k: int, *,
-                   n_valid: int, offset: int) -> "ShardedKNN":
+                   n_valid: int, offset: int, rows: Optional[HostRows] = None,
+                   db: Optional[torch.Tensor] = None) -> "ShardedKNN":
         """One db shard's one-device placement: ``block`` (pad rows
-        included) on ``dev``, with the whole database's certificate terms,
-        of which the first ``n_valid`` rows are real."""
-        rows = self._host_rows_of()
-        db = torch.from_numpy(np.ascontiguousarray(block)).to(dev)
+        included) on ``dev`` (or ``db``, the block already there), with
+        the whole database's certificate terms (those of ``rows``, None:
+        the placement's host rows), of which the first ``n_valid`` rows
+        are real."""
+        rows = self._host_rows_of() if rows is None else rows
+        if db is None:
+            db = torch.from_numpy(np.ascontiguousarray(block)).to(dev)
         th, tl, tnorm = prepare_db(db, TILE_N)
         pl = Placement(db=db, db_host=block, th=th, tl=tl, tnorm=tnorm,
                        db_norm_max=rows.db_norm_max, metric=rows.metric,
@@ -806,6 +1041,11 @@ class ShardedKNN:
 
     def _host_rows_of(self) -> HostRows:
         """The prepared host rows of the whole database."""
+        if self._no_host_copy:
+            raise ValueError(
+                "certified search needs a host copy of the database, but "
+                "the pre-placed global array spans multiple processes; "
+                "construct ShardedKNN from a host array instead")
         if self._rows is not None:
             return self._rows
         if self._host_rows is not None:
@@ -857,10 +1097,14 @@ class ShardedKNN:
 
     def _mesh_shards(self):
         """Every (query shard, host, device) position's ``(device,
-        shard placement)``, as ``[r][h][c]`` lists."""
+        shard placement)``, as ``[r][h][c]`` lists; on a mesh that spans
+        processes another process's position is ``(device, None)``."""
         grid = grid3(self.mesh)
+        own = owners3(self.mesh)
         chips = grid.shape[2]
-        return [[[(grid[r, h, c], self._shard_at(h * chips + c, grid[r, h, c]))
+        return [[[(grid[r, h, c],
+                   self._shard_at(h * chips + c, grid[r, h, c])
+                   if own[r, h, c] == self.mesh.rank else None)
                   for c in range(chips)] for h in range(grid.shape[1])]
                 for r in range(grid.shape[0])]
 
@@ -899,14 +1143,18 @@ class ShardedKNN:
             self._require_resident("placed_db")
             parts = np.empty(self.mesh.devices.shape, dtype=object)
             grid = grid3(self.mesh)
+            own = owners3(self.mesh)
             chips = grid.shape[2]
             for r, h, c in np.ndindex(*grid.shape):
+                if own[r, h, c] != self.mesh.rank:  # remote: None
+                    continue
                 dev = grid[r, h, c]
                 parts[_position(self.mesh, r, h, c)] = self._shard_at(
                     h * chips + c, dev).placement.db
             rows = self._shard_rows() * self.db_shards
+            width = next(p for p in parts.flat if p is not None).shape[1]
             self._placed = Placed(self.mesh, parts, db_axes(self.mesh), 0,
-                                  (rows, parts.flat[0].shape[1]))
+                                  (rows, width))
         return self._placed
 
     def _stream_program(self, k: int, metric: str, compute_dtype=None):
@@ -959,16 +1207,44 @@ class ShardedKNN:
                                  qb.to(dev, non_blocking=True),
                                  tb.to(dev, non_blocking=True), tile=tile,
                                  n_valid=sub._n_valid)
-                     for host in row for dev, sub in host]
-            outs.append(reduce_sum(parts, self.device))
-        return torch.cat(outs)[:n_q]
+                     for host in row for dev, sub in host if sub is not None]
+            outs.append(reduce_sum(parts, self.device) if parts else
+                        torch.zeros(qb.shape[0], dtype=torch.int32,
+                                    device=self.device))
+        # over processes: each process's sums of its positions, then the
+        # group's (integer counts: exact in any order)
+        return _over_processes(torch.stack(outs), reduce_sum,
+                               self.mesh).reshape(-1)[:n_q]
+
+    def _intra_crosses(self) -> bool:
+        """Whether the level over a host's db shards crosses processes (a
+        flat mesh whose db axis spans them)."""
+        own = owners3(self.mesh)
+        return any(len(set(own[r, h].tolist())) > 1
+                   for r in range(own.shape[0]) for h in range(own.shape[1]))
+
+    def _cross_level(self, n_rows: int, k: int) -> tuple:
+        """``(strategy, its source, modeled bytes)`` of the merge level
+        that crosses processes (``(None, None, 0)`` where none does: a mesh
+        whose processes split only the queries)."""
+        hosts, chips = db_topology(self.mesh)
+        if chips > 1 and self._intra_crosses():
+            return (self.merge, self.merge_source,
+                    merge_bytes(n_rows, k, chips, self.merge))
+        if hosts > 1 and self.mesh.spans_processes:
+            return (self.dcn_merge, self.dcn_merge_source,
+                    merge_bytes(n_rows, k, hosts, self.dcn_merge))
+        return None, None, 0
 
     def _record_merge_bytes(self, n_rows: int, k: int) -> None:
         """The modeled merge volume of each level into ``MERGE_BYTES``
-        (crossover.merge_bytes, sharded.py:804-816)."""
+        (crossover.merge_bytes, sharded.py:804-816): the level that
+        crosses processes under ``level="dcn"`` (on a flat mesh whose db
+        axis spans processes, the db level)."""
         hosts, chips = db_topology(self.mesh)
         if chips > 1:
-            obs.counter(_mn.MERGE_BYTES, level="intra",
+            obs.counter(_mn.MERGE_BYTES,
+                        level="dcn" if self._intra_crosses() else "intra",
                         strategy=self.merge).inc(
                 merge_bytes(n_rows, k, chips, self.merge))
         if hosts > 1 and self.dcn_merge is not None:
@@ -1266,6 +1542,7 @@ class ShardedKNN:
         return self._stream_program(k, metric, compute_dtype)(
             q, self.placement.db)
 
+    @_in_mesh_call
     def search(self, queries, *, k: Optional[int] = None,
                return_sqrt: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """(distances, indices) [Q, k] of the k nearest rows, as tensors on
@@ -1315,6 +1592,7 @@ class ShardedKNN:
         from knn_tpu_torch.serving.engine import ServingEngine
 
         self._require_resident("search_bucketed")
+        require_one_process(self.mesh, "search_bucketed")
         ladder = None if buckets is None else normalize_ladder(buckets)
         # an explicit ladder determines the engine: min/max do not key
         # duplicate engines with identical executables
@@ -1356,6 +1634,7 @@ class ShardedKNN:
             out["serving_engines"] = stats
         return out
 
+    @_in_mesh_call
     def predict(self, queries) -> torch.Tensor:
         """Predicted labels [Q] int32 — needs ``labels`` at construction."""
         self._require_resident("predict")
@@ -1373,6 +1652,7 @@ class ShardedKNN:
         safe = torch.clamp(gi, max=self.n_train - 1)
         return majority_vote(self._labels()[safe], self.num_classes)
 
+    @_in_mesh_call
     def radius_search(self, queries, radius: float, *, max_neighbors: int):
         """All db rows within ``radius`` per query, bounded at
         ``max_neighbors`` — the JAX package's ``radius_search``
@@ -1566,6 +1846,7 @@ class ShardedKNN:
         ncodes = int(ncodes or PQ_NCODES_DEFAULT)
         key = (dsub, ncodes)
         if key not in self._pq:
+            require_one_process(self.mesh, 'precision="pq"')
             t0 = time.perf_counter()
             res = train_pq(self._host_train(), dsub=dsub, ncodes=ncodes,
                            mesh=self.mesh)
@@ -1589,6 +1870,7 @@ class ShardedKNN:
         codebooks and bound constants of the whole database; the entry
         returned here keeps ``stats``, ``dsub``, ``ncodes``, ``train_s``
         and ``books`` (host f32)."""
+        require_one_process(self.mesh, 'precision="pq"')
         codebooks = np.asarray(codebooks, np.float32)
         codes = np.ascontiguousarray(np.asarray(codes, np.uint8))
         if codes.shape != (self.n_train, codebooks.shape[0]):
@@ -1744,7 +2026,7 @@ class ShardedKNN:
         if self._on_mesh():
             (coarse, tail), m, w = self._mesh_pallas(m - k, tile_n,
                                                      precision, setup)
-            src = self._mesh_shards()[0][0][0][1]
+            src = self._distinct_shards()[0]
         else:
             (coarse, one_tail), m, w = self._pallas_setup(
                 m - k, tile_n, precision, **setup)
@@ -1874,9 +2156,11 @@ class ShardedKNN:
 
     def _distinct_shards(self) -> list:
         """Every shard placement of the mesh once (positions that share a
-        device and a db shard share one), in grid order."""
+        device and a db shard share one), in grid order; on a mesh that
+        spans processes, this process's."""
         return list({id(sub): sub for row in self._mesh_shards()
-                     for host in row for _, sub in host}.values())
+                     for host in row for _, sub in host
+                     if sub is not None}.values())
 
     def _mesh_quant(self, precision: str) -> None:
         """Every db shard's int8 / int4 placement built, with the bound
@@ -1889,8 +2173,13 @@ class ShardedKNN:
         if all(e.get("merged") for _, e in entries):
             return
         stats = dict(entries[0][1]["stats"])
-        for key in ("t2hat_max", "et2_max", "db_norm_max"):
-            stats[key] = max(e["stats"][key] for _, e in entries)
+        keys = ("t2hat_max", "et2_max", "db_norm_max")
+        local = torch.tensor([max(e["stats"][key] for _, e in entries)
+                              for key in keys], dtype=torch.float64)
+        # over processes: the maxima of every process's shards
+        for key, v in zip(keys, _over_processes(local, reduce_max,
+                                                self.mesh).tolist()):
+            stats[key] = v
         consts = bound_consts(stats)
         for sub, e in entries:
             e.update(stats=stats, merged=True,
@@ -1917,6 +2206,8 @@ class ShardedKNN:
             # trained once on every row, placed on every shard
             self._pq_placement(setup["pq_dsub"], setup["pq_ncodes"])
         shards = self._mesh_shards()
+        spans = self.mesh.spans_processes
+        own = owners3(self.mesh)
         setups = {}
         for sub in self._distinct_shards():
             setups[id(sub)] = sub._pallas_setup(margin, tile_n, precision,
@@ -1930,6 +2221,9 @@ class ShardedKNN:
                 per = []
                 for host in row:
                     for dev, sub in host:
+                        if sub is None:  # another process's position
+                            per.append(None)
+                            continue
                         qd = qb.to(dev, non_blocking=True)
                         per.append((qd, setups[id(sub)][0][0](qd)))
                 cand.append((qb, per))
@@ -1938,33 +2232,56 @@ class ShardedKNN:
         def tail(q: torch.Tensor, cand):
             n_q, blocks = cand
             outs = []
-            for (qb, per), row in zip(blocks, shards):
+            for r, ((qb, per), row) in enumerate(zip(blocks, shards)):
                 chips = len(row[0])
                 d = [[None] * chips for _ in row]
                 gi = [[None] * chips for _ in row]
                 lbs = []
-                for j, (qd, c) in enumerate(per):
+                for j, pc in enumerate(per):
+                    if pc is None:
+                        lbs.append(None)
+                        continue
+                    qd, c = pc
                     h, cc = divmod(j, chips)
                     sub = row[h][cc][1]
                     d32, li, lb = setups[id(sub)][0][1](qd, *c)
                     d[h][cc], gi[h][cc] = _mask_shard(
                         d32, li, sub._n_valid, sub._row_offset)
                     lbs.append(lb)
+                owners = own[r].tolist() if spans else None
+                rows = qb.shape[0]
                 md, mi = _merge_shards(d, gi, m + 1, self.merge,
-                                       self.dcn_merge)
+                                       self.dcn_merge, owners,
+                                       _lists_like(rows, m + 1))
                 dev0, sub0 = row[0][0]
+                lb = reduce_min(lbs, dev0,
+                                owners=own[r].reshape(-1).tolist()
+                                if spans else None,
+                                like=((rows,), torch.float32))
+                if sub0 is None:  # position (r, 0, 0) is another process's
+                    outs.append(None)
+                    continue
                 pack = setups[id(sub0)][0][2]
-                outs.append(pack(qb.to(dev0, non_blocking=True), md, mi,
-                                 reduce_min(lbs, dev0), n_train=self.n_train,
-                                 db_shards=self.db_shards))
+                out = pack(qb.to(dev0, non_blocking=True), md, mi, lb,
+                           n_train=self.n_train, db_shards=self.db_shards)
+                outs.append(tuple(None if t is None else
+                                  t.to(self.device, non_blocking=True)
+                                  for t in out))
+            if spans:
+                # the certify outputs of every query shard cross to every
+                # process: each repairs and returns the whole result
+                outs = exchange(outs, [int(o) for o in own[:, 0, 0]],
+                                _pack_like(rows, w, self.k,
+                                           setup["include_distances"]),
+                                self.device)
             return tuple(
                 None if outs[0][t] is None else torch.cat(
-                    [o[t].to(self.device, non_blocking=True)
-                     for o in outs])[:n_q]
+                    [o[t] for o in outs])[:n_q]
                 for t in range(len(outs[0])))
 
         return (coarse, tail), m, w
 
+    @_in_mesh_call
     def search_certified(self, queries, *, margin: int = 28,
                          selector: str = "pallas",
                          batch_size: Optional[int] = None,
@@ -2046,6 +2363,7 @@ class ShardedKNN:
 
         del recall_target  # no approximate top-k here (divergence 21)
         self._require_resident("search_certified")
+        self._host_rows_of()  # rows placed across processes: refused
         if self.metric not in ("l2", "cosine", "dot"):
             # |q-t|_1 has no gram-matrix form for either certificate to bound
             raise ValueError(
@@ -2102,6 +2420,12 @@ class ShardedKNN:
                     survivors=survivors, final_select=final_select,
                     binning=binning, final_recall_target=final_recall_target,
                     grid_order=grid_order, kernel=kernel))
+            if overlap:
+                require_one_process(self.mesh, "overlap=True")
+            if knobs["precision"] == "pq":
+                require_one_process(self.mesh, 'precision="pq"')
+            if knobs["kernel"] in ("streaming", "fused"):
+                require_one_process(self.mesh, f'kernel="{knobs["kernel"]}"')
             bad, n_corrected, pipeline = self._certify_pallas(
                 batches, bs, m, d, i, q_np, db_np,
                 want_distances=return_distances, overlap=bool(overlap),
@@ -2384,6 +2708,16 @@ def _certify_pack(q, d32, li, lb, *, db_norm_max: float, m: int, k: int,
     return gi[:, :w], tight_use, bad, (d32[:, :k] if include_distances else None)
 
 
+def _pack_like(rows: int, w: int, k: int, with_distances: bool) -> list:
+    """``(shape, dtype)`` of each of :func:`_certify_pack`'s outputs for a
+    query block of ``rows``: ``gi`` int64 [rows, w], ``tight`` bool
+    [rows, w-1], ``bad`` bool [rows] and ``dk`` f32 [rows, k] (None
+    without the distances)."""
+    return [((rows, w), torch.int64), ((rows, w - 1), torch.bool),
+            ((rows,), torch.bool),
+            ((rows, k), torch.float32) if with_distances else None]
+
+
 def unpack_certified(packed, k: int, w: int, with_distances: bool):
     """Host view of :func:`_certify_pack`'s output, with the JAX package's
     ``unpack_certified`` semantics: ``(gi [Q, w] int32, tight [Q, w-1]
@@ -2435,6 +2769,7 @@ def sharded_minmax(arrays, *, mesh: Mesh):
 
     from knn_tpu_torch.parallel.collectives import reduce_max
 
+    require_one_process(mesh, "sharded_minmax")
     arrays = list(arrays)
     if not arrays:
         raise ValueError("sharded_minmax needs at least one array")

@@ -97,6 +97,7 @@ import torch
 from knn_tpu_torch import obs
 from knn_tpu_torch.analysis.annotations import hot_path
 from knn_tpu_torch.obs import names as mn
+from knn_tpu_torch.parallel.mesh import require_one_process
 from knn_tpu_torch.parallel.sharded import _host_copies
 from knn_tpu_torch.serving.buckets import (
     DEFAULT_MAX_BUCKET,
@@ -300,6 +301,7 @@ class ServingEngine:
         # a host-RAM-tier placement has no placed database to capture
         # against: refused with the tier's own message
         program._require_resident("ServingEngine")
+        require_one_process(program.mesh, "ServingEngine")
         self.k = program.k if k is None else int(k)
         if self.k > program.n_train:
             raise ValueError(f"k={self.k} > n_train={program.n_train}")

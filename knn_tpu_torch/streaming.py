@@ -363,8 +363,10 @@ def streaming_certified_knn(
     through and is echoed into the manifest.  ``selector`` defaults to
     ``"pallas"``, the port's ``search_certified`` default (the JAX
     package's streaming entry defaults to it too)."""
+    from knn_tpu_torch.parallel.mesh import require_one_process
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
+    require_one_process(mesh, "streaming")
     program = ShardedKNN(db, k=k, metric=metric, train_tile=train_tile,
                          compute_dtype=compute_dtype, device=device,
                          mesh=mesh, merge=merge)
@@ -413,8 +415,10 @@ def streaming_knn(
     ``merge`` its db-axis strategy), stream ``queries`` through
     ``ShardedKNN.search`` with checkpointing, and resume from
     ``checkpoint_dir`` if an earlier run was interrupted."""
+    from knn_tpu_torch.parallel.mesh import require_one_process
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
+    require_one_process(mesh, "streaming")
     program = ShardedKNN(db, k=k, metric=metric, train_tile=train_tile,
                          compute_dtype=compute_dtype, device=device,
                          mesh=mesh, merge=merge)

@@ -731,7 +731,7 @@ def autotune_ivf(
     from knn_tpu_torch.ivf import IVFIndex
     from knn_tpu_torch.ops.refine import refine_shared_exact
 
-    mesh = tier_mesh(mesh, device)
+    mesh = tier_mesh(mesh, device, "autotune_ivf")
     dev = mesh.devices.flat[0]
     db = np.asarray(db, dtype=np.float32)
     queries = np.asarray(queries, dtype=np.float32)

@@ -359,13 +359,25 @@ def test_single_process_degenerates_and_refusals(tmp_path):
 
 
 def test_cross_process_mesh_is_refused_by_name(monkeypatch):
+    """The in-mesh path across processes now runs (test_torch_global_mesh
+    drives it with real processes): with two processes' published devices
+    ``global_mesh`` spans them and ``shard_across_hosts`` places this
+    process's rows on its own position, the other remote; the store
+    replica still refuses a ring by name, and points at the mesh."""
     monkeypatch.setitem(multihost._STATE, "process_count", 2)
     monkeypatch.setitem(multihost._STATE, "process_index", 0)
-    with pytest.raises(ValueError, match="NCCL"):
-        multihost.global_mesh(1, 2)
-    with pytest.raises(ValueError, match="NCCL"):
-        multihost.shard_across_hosts(np.ones((4, 2)), None)
-    with pytest.raises(ValueError, match="store transport is an allgather"):
+    monkeypatch.setitem(multihost._STATE, "devices", [["cpu"], ["cpu"]])
+    mesh = multihost.global_mesh(1, 2)
+    assert mesh.spans_processes and mesh.local_positions == [(0, 0)]
+    placed = multihost.shard_across_hosts(np.ones((4, 2)), mesh)
+    assert placed.shape == (8, 2) and placed.parts[0, 1] is None
+    assert placed.block(0).shape == (4, 2)
+    with pytest.raises(ValueError, match="lies on process"):
+        placed.block(1)
+    with pytest.raises(ValueError, match="multiple of process_count"):
+        multihost.shard_across_hosts(np.ones((4, 2)), multihost.global_mesh(
+            2, 1))
+    with pytest.raises(ValueError, match="runs in the mesh"):
         multihost.MultiHostKNN(np.ones((4, 2), np.float32), k=1,
                                device="cpu", dcn_merge="ring")
     with pytest.raises(RuntimeError, match="no store"):
