@@ -138,7 +138,26 @@ exits non-zero and prints no result):
              IVF's default precision highest: K2's tiled entry, on the
              mesh's first device, as the JAX package runs it) launched once
              a probe group of each gated and timed search and no other
-             kernel;
+             kernel; and, beside the phase's own calls, the spanning block
+             (``TIERS_SPAN_CHILD``): two processes on cuda:0 under gloo on
+             ``global_mesh(1, 4)``, two positions a process, making the
+             phase's calls on its inputs — the ``MutableIndex`` writes and
+             its 1,024-query certified call, reads of 64 queries across a
+             background compaction (``compact_tail_rows`` at the 4,096
+             written rows: every read from one epoch in both processes, 0
+             first, 1 last), the compacted call (in turns with process 0's
+             one-process logical index of the same rows); the ivf anchor
+             trained and searched by both selectors (pallas at its default
+             precision, highest: K2 once a probe group a process); the
+             IVF tuner; the stream and certified joins; the 2,048-query
+             certified stream interrupted after its first segment and
+             resumed; ``sharded_minmax`` over the main rows and queries —
+             each path's results equal in both processes and bitwise the
+             phase's own logical 1 x 4 results, K1 twice a process a
+             certified call (once an owned shard) and no other kernel,
+             K1 on one owned shard against its plain version and timed,
+             each path's seconds and exchanges; no child imports jax,
+             jaxlib or knn_tpu;
 4d. mesh_paths — (run after ``tiers_mesh``, on its 1 x 4 logical
              placement of the ``main`` draw; launch counts reset before
              each path) the host-RAM tier on the 1 x 4 and a 2 x 2 logical
@@ -511,6 +530,7 @@ Then the ``nvidia-smi`` name/power line and, last, ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import os
@@ -805,6 +825,244 @@ print("RESULT " + json.dumps(res), flush=True)
 """
 
 
+#: one process of the tiers_mesh phase's process-spanning block: two
+#: processes, each driving cuda:0 under gloo, run the tiers on
+#: ``global_mesh(1, 4)`` (two positions a process) with the phase's own
+#: inputs and calls; the parent holds their results against the phase's
+#: one-process 1 x 4 logical results.  Process 0 also times the compacted
+#: index's certified call in turns with a one-process logical index of the
+#: same rows.  Arrays go to ``out_dir``, the rest to the RESULT line.
+TIERS_SPAN_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+
+pid, n_proc, port, out_dir = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                              sys.argv[4])
+import chip_smoke as cs
+from knn_tpu_torch import streaming
+from knn_tpu_torch.index import MutableIndex
+from knn_tpu_torch.ivf import IVFIndex
+from knn_tpu_torch.join import knn_join
+from knn_tpu_torch.ops import coarse_knn as ck
+from knn_tpu_torch.parallel import multihost
+from knn_tpu_torch.parallel.mesh import make_mesh
+from knn_tpu_torch.parallel.sharded import ShardedKNN, sharded_minmax
+from knn_tpu_torch.tuning import autotune_ivf
+
+dev = torch.device("cuda", 0)
+multihost.initialize(f"localhost:{port}", n_proc, pid, timeout_s=600,
+                     backend="gloo", devices=[dev])
+mesh = multihost.global_mesh(1, 4, devices=[dev, dev])
+n, dim, k = 1_000_000, 128, 100
+rng = np.random.default_rng(0)
+db = (rng.random(size=(n, dim)) * 128.0).astype(np.float32)
+q_all = (rng.random(size=(4096, dim)) * 128.0).astype(np.float32)
+res = {"pid": pid, "mesh": repr(mesh),
+       "local_positions": [list(p) for p in mesh.local_positions]}
+k1_main = 0
+
+
+def sync():
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+
+
+def launches():
+    out = {}
+    for fn in (ck.binned_select, ck.stream_select, ck.fused_select):
+        for attr in ("launches", "deep_launches", "lane_launches",
+                     "db_major_launches"):
+            for a, c in getattr(fn, attr, {}).items():
+                tiled = fn is ck.binned_select and attr == "launches"
+                out[a if tiled else f"{fn.__name__}.{attr}.{a}"] = c
+    return out
+
+
+def run(label, fn):
+    # fn() on the spanning mesh: its seconds, the kernels it launched and
+    # its exchanges (multihost.last_report)
+    global k1_main
+    before = launches()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = launches()
+    rep = multihost.last_report() or {}
+    sync()
+    got = {a: after[a] - before[a] for a in after if after[a] != before[a]}
+    k1_main += got.get("bf16x3", 0)
+    res.setdefault(label, {}).update(
+        seconds=wall, launches=got, exchange_s=rep.get("exchange_s"),
+        exchange_bytes=rep.get("exchange_bytes"),
+        exchanges=rep.get("exchanges"))
+    return out
+
+
+def save(label, *arrays):
+    for j, a in enumerate(arrays):
+        np.save(f"{out_dir}/{label}_{j}_{pid}.npy",
+                a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a))
+
+
+# -- MutableIndex: the phase's writes, 1,024 queries
+q = q_all[:1024]
+t0 = time.perf_counter()
+idx = MutableIndex(db, k=k, reserve=32, mesh=mesh, compact_tail_rows=4096)
+res["build_s"] = time.perf_counter() - t0
+new = (np.random.default_rng(5).random(size=(4096, dim))
+       * 128.0).astype(np.float32)
+rungs = []
+for lo, hi in ((0, 200), (200, 1100), (1100, 4096)):
+    idx.insert(new[lo:hi], np.arange(n + lo, n + hi))
+    rungs.append(idx.stats()["tail_capacity"])
+dead = [int(j) for j in range(0, n, n // 24)][:24]
+dead += [n + j for j in range(0, 4096, 512)][: 32 - len(dead)]
+idx.delete(dead)
+res["tail_rungs"] = rungs
+d, i, st = run("mutable", lambda: idx.search_certified(q))
+save("mutable", d, i)
+res["mutable"]["fallback_queries"] = st["fallback_queries"]
+# -- reads across a background compaction: the compactor cuts at its
+# start (the tail is at its 4,096-row threshold); each read agrees on the
+# epoch, so the swap lands at the same read in both processes
+idx.start_compactor()
+reads = []
+while True:
+    d, i, st = run("read", lambda: idx.search_certified(q[:64]))
+    reads.append({"epoch": st["index"]["epoch"],
+                  "launches": res["read"]["launches"],
+                  "seconds": res["read"]["seconds"]})
+    save(f"read{len(reads) - 1}", d, i)
+    if st["index"]["epoch"] == 1 or len(reads) >= 120:
+        break
+    time.sleep(0.25)
+idx.close()
+res.pop("read")
+res["reads"] = reads
+d, i, st = run("mutable_compacted", lambda: idx.search_certified(q))
+save("compacted", d, i)
+# the compacted call in turns with a one-process logical index of the same
+# rows (process 0; process 1 waits at the barrier)
+snap = idx._snapshot()
+logical = (MutableIndex(snap.main._host_train(), snap.base_ids, k=k,
+                        reserve=32, mesh=make_mesh(1, 4, devices=[dev] * 4))
+           if pid == 0 else None)
+turns = {"spanning": [], "logical": []}
+for _ in range(2):
+    run("turn", lambda: idx.search_certified(q))
+    turns["spanning"].append(res.pop("turn")["seconds"])
+    sync()
+    if pid == 0:
+        t0 = time.perf_counter()
+        ld, li, _ = logical.search_certified(q)
+        torch.cuda.synchronize()
+        turns["logical"].append(time.perf_counter() - t0)
+        res["logical_bitwise"] = bool(np.array_equal(ld, d)
+                                      and np.array_equal(li, i))
+    sync()
+res["mutable_compacted"]["seconds_in_turns"] = turns
+del logical
+# K1 on one of this process's shards of the compacted index: against its
+# plain version at the phase's tolerance, then timed
+sub = next(iter(idx._main._shards.values()))
+pl = sub.placement
+q_dev = torch.from_numpy(q).to(dev)
+qp = ck.pad_queries(q_dev)
+args = (qp, pl.th, pl.tl, pl.tnorm)
+kern = ck.binned_select(*args, tile_n=ck.TILE_N, arm="bf16x3")
+plain = ck.binned_select_plain(*args, tile_n=ck.TILE_N, arm="bf16x3")
+tol_q = cs.tolerance_q(q_dev, tmax=pl.db_norm_max)
+check = cs.Check()
+check.values("cd@span_shard", kern[0], plain[0], tol_q)
+check.values("bounds@span_shard", kern[2], plain[2], tol_q)
+del kern, plain
+n_p, dp = pl.th.shape
+res["k1_shard"] = {
+    "rows": pl.n_train, "queries": int(qp.shape[0]), "dp": dp,
+    "tiles": n_p // ck.TILE_N, "max_abs_err": check.max_abs_err,
+    "ms": cs.time_cuda(lambda: ck.binned_select(*args, tile_n=ck.TILE_N,
+                                                arm="bf16x3"), 3),
+    "plain_ms": cs.time_cuda(lambda: ck.binned_select_plain(
+        *args, tile_n=ck.TILE_N, arm="bf16x3"), 1)}
+del args, qp, sub, pl, idx, snap
+torch.cuda.empty_cache()
+
+# -- IVFIndex on the ivf anchor: every list probed, both selectors
+uni = np.ascontiguousarray(db[:65_536])
+qu = q_all[:32]
+uidx = run("ivf_train", lambda: IVFIndex(uni, k=k, ncentroids=32,
+                                         train_iters=2, mesh=mesh))
+save("ivf_centroids", uidx._centroids)
+for label, kw in (("ivf_exact", {"selector": "exact"}),
+                  ("ivf_pallas", {"selector": "pallas"})):
+    d, i, st = run(label, lambda kw=kw: uidx.search_certified(
+        qu, nprobe=32, **kw))
+    save(label, d, i)
+    res[label]["groups"] = st["groups"]
+del uidx
+
+# -- the IVF tuner: the phase's grid, 8 queries, one run
+tune_grid = [{"ncentroids": 32, "nprobe": p} for p in (32, 8)]
+entry = run("autotune_ivf", lambda: autotune_ivf(
+    uni, q_all[:8], k, mesh=mesh, runs=1, grid=tune_grid,
+    selector="pallas", train_iters=2, seed=0))
+res["autotune_ivf"]["entry"] = entry
+
+# -- the joins of the 4,096 queries by 1,024 on the main rows
+knn = ShardedKNN(db, k=k, mesh=mesh, merge="allgather")
+for mode in ("stream", "certified"):
+    d, i, st = run(f"join_{mode}", lambda mode=mode: knn_join(
+        knn, q_all, mode=mode, superblock_rows=1024))
+    save(f"join_{mode}", d, i)
+    res[f"join_{mode}"]["superblocks"] = st["superblocks"]
+del knn
+
+# -- the certified stream of 2,048 queries in two segments, interrupted
+# after its first, then resumed from the segments both processes hold
+sdir = os.path.join(out_dir, f"stream_p{pid}")
+real = ShardedKNN.search_certified
+calls = {"n": 0}
+
+
+def interrupted(self, *a, **kw):
+    calls["n"] += 1
+    if calls["n"] == 2:
+        raise ValueError("interrupted")
+    return real(self, *a, **kw)
+
+
+def stream():
+    ShardedKNN.search_certified = interrupted
+    try:
+        streaming.streaming_certified_knn(db, q_all[:2048], k, sdir,
+                                          segment_size=1024, mesh=mesh)
+    except ValueError as e:
+        res["stream_interrupted"] = str(e)
+    finally:
+        ShardedKNN.search_certified = real
+    res["stream_done_before_resume"] = sorted(os.listdir(sdir))
+    return streaming.streaming_certified_knn(db, q_all[:2048], k, sdir,
+                                             segment_size=1024, mesh=mesh)
+
+
+d, i, st = run("certified_stream", stream)
+save("certified_stream", d, i)
+res["certified_stream"]["certified"] = st["certified"]
+
+# -- sharded_minmax over the main rows and queries
+lo, hi = run("minmax", lambda: sharded_minmax([db, q_all], mesh=mesh))
+save("minmax", lo, hi)
+res["k1_main_path"] = k1_main
+res["foreign"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "knn_tpu"))
+multihost.shutdown()
+print("RESULT " + json.dumps(res), flush=True)
+"""
+
+
 def spawn_children(script, n_proc, work, tag):
     """``n_proc`` processes of ``script`` (argv: process index, count, a
     free local port, ``work``), each with the repo on its path."""
@@ -821,6 +1079,15 @@ def spawn_children(script, n_proc, work, tag):
         [sys.executable, child, str(pid), str(n_proc), str(port), work],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for pid in range(n_proc)]
+
+
+def stop_children(procs):
+    """Stops every child of ``procs`` still running (a phase that failed
+    before collecting them)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def collect_children(procs, label, timeout):
@@ -2016,6 +2283,14 @@ def main(argv=None) -> int:
             "binned_select_bf16x3 (tiers, 1 x 4 mesh shard)",
             "knn_tpu_torch/csrc/binned_coarse.cu",
             "knn_tpu/ops/pallas_knn.py:856"),
+        # K1 on one process's shard of the tiers on global_mesh(1, 4) over
+        # two processes (the compacted index's shard is timed in process
+        # 0); its launches are both processes' on their shards along the
+        # spanning block's paths (tiers_mesh phase)
+        "k1_tiers_span": kernel_record(
+            "binned_select_bf16x3 (tiers, spanning mesh shard)",
+            "knn_tpu_torch/csrc/binned_coarse.cu",
+            "knn_tpu/ops/pallas_knn.py:856"),
         # K7 (tiled entry) on one db shard of the pq placement on a 1 x 4
         # mesh, and K11 on one shard at the mesh pipeline's geometry; their
         # launches are the counters' on the mesh paths (mesh_paths phase)
@@ -2735,6 +3010,121 @@ def main(argv=None) -> int:
                         for r in span2]
                 for label in ("bf16x3", "highest", "int8")}}
 
+    def tiers_spanning_checks(S, span, span_work, ref, want_k2, groups):
+        """The tiers_mesh phase's spanning block held: both processes'
+        results equal and bitwise the phase's one-process 1 x 4 logical
+        results (``ref``: path -> (arrays, seconds)), every read across
+        the background compaction from one epoch in both, each path's
+        launches exactly its kernel's on a process's two shards (K1 twice
+        a certified MutableIndex call, K2 once a probe group), no foreign
+        import.  Returns the block's line, each path's seconds spanning /
+        logical (concurrent with each other: no speed claim) and its
+        exchanges."""
+        def loaded(label, n_arrays):
+            got = [[np.load(os.path.join(span_work,
+                                         f"{label}_{j}_{pid}.npy"))
+                    for j in range(n_arrays)] for pid in range(2)]
+            if not all_equal(got[0], got[1]):
+                raise AssertionError(f"tiers_mesh spanning {label}: the "
+                                     f"processes' results differ")
+            return got[0]
+
+        def host(x):
+            return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+        for r in span:
+            if r["foreign"]:
+                raise AssertionError(f"tiers_mesh spanning: foreign imports "
+                                     f"{r['foreign']}")
+        two = {"bf16x3": 2}
+        want = {"mutable": two, "mutable_compacted": two, "ivf_train": {},
+                "ivf_exact": {}, "ivf_pallas": {"highest": 1},
+                "autotune_ivf": {"highest": want_k2}, "join_stream": {},
+                "join_certified": {"bf16x3": 8},
+                "certified_stream": {"bf16x3": 4}, "minmax": {}}
+        paths = {}
+        for label, launches_want in want.items():
+            arrays, logical_s = ref[label]
+            if arrays:
+                files = {"mutable_compacted": "compacted",
+                         "ivf_train": "ivf_centroids"}.get(label, label)
+                got = loaded(files, len(arrays))
+                if not all_equal(got, [host(a) for a in arrays]):
+                    raise AssertionError(
+                        f"tiers_mesh spanning {label}: not bitwise the "
+                        f"logical 1 x 4 result")
+            for r in span:
+                if r[label]["launches"] != launches_want:
+                    raise AssertionError(
+                        f"tiers_mesh spanning {label}: launches "
+                        f"{r[label]['launches']}, expected {launches_want}")
+            paths[label] = {
+                "seconds_spanning": [r[label]["seconds"] for r in span],
+                "seconds_logical": logical_s,
+                "launches_per_process": launches_want,
+                "exchanges": span[0][label]["exchanges"],
+                "exchange_s": [r[label]["exchange_s"] for r in span],
+                "exchange_bytes": span[0][label]["exchange_bytes"],
+                "bitwise_logical": bool(arrays)}
+        if span[0]["ivf_pallas"]["groups"] != 1:
+            raise AssertionError("tiers_mesh spanning ivf: "
+                                 f"{span[0]['ivf_pallas']['groups']} groups")
+        entries = [r["autotune_ivf"]["entry"] for r in span]
+        if entries[0] != entries[1] or entries[0]["errors"] or None in \
+                entries[0]["timings_ms"].values():
+            raise AssertionError(f"tiers_mesh spanning autotune_ivf: "
+                                 f"{entries}")
+        # the reads across the background compaction: one epoch a read in
+        # both processes, epoch 0 first and 1 last; every read's answer
+        # the logical index's (a certified answer is the survivors')
+        reads = span[0]["reads"]
+        if [x["epoch"] for x in reads] != [x["epoch"] for x in
+                                           span[1]["reads"]] or \
+                reads[0]["epoch"] != 0 or reads[-1]["epoch"] != 1:
+            raise AssertionError(f"tiers_mesh spanning reads: "
+                                 f"{[r['reads'] for r in span]}")
+        d_m, i_m = ref["mutable"][0]
+        for j, x in enumerate(reads):
+            if not all_equal(loaded(f"read{j}", 2), (d_m[:64], i_m[:64])) \
+                    or any(r["reads"][j]["launches"] != two for r in span):
+                raise AssertionError(f"tiers_mesh spanning read {j}")
+        for r in span:
+            if r["stream_interrupted"] != "interrupted" or \
+                    r["stream_done_before_resume"] != [
+                        "batch_000000.npz", "manifest.json"]:
+                raise AssertionError(f"tiers_mesh spanning stream: {r}")
+        if span[0]["logical_bitwise"] is not True:
+            raise AssertionError("tiers_mesh spanning: the compacted call "
+                                 "differs from the logical index's")
+        shard = span[0]["k1_shard"]
+        bound = f32_bound(shard["queries"], shard["rows"], shard["dp"],
+                          shard["tiles"], ck.SURVIVORS)
+        launches = sum(r["k1_main_path"] for r in span)
+        checks["k1_tiers_span"].max_abs_err = max(
+            r["k1_shard"]["max_abs_err"] for r in span)
+        records["k1_tiers_span"].update(
+            launches=launches, ms=shard["ms"], plain_ms=shard["plain_ms"],
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+        return {
+            "layout": "global_mesh(1, 4) over two processes on cuda:0 "
+                      "(gloo), two positions a process",
+            "mesh": span[0]["mesh"],
+            "local_positions": [r["local_positions"] for r in span],
+            "transport": "torch.distributed gloo over loopback TCP, "
+                         "exchanges staged through the host",
+            "build_s": [r["build_s"] for r in span],
+            "tail_rungs": span[0]["tail_rungs"],
+            "paths": paths,
+            "reads_across_compaction": [x["epoch"] for x in reads],
+            "compacted_in_turns": span[0]["mutable_compacted"][
+                "seconds_in_turns"],
+            "autotune_ivf_winner": entries[0]["winner"],
+            "autotune_ivf_timings_ms": entries[0]["timings_ms"],
+            "probe_groups": groups,
+            "k1_launches_main_path": launches,
+            "k1_shard": dict(shard, bound=bound),
+            "children_foreign_imports": [r["foreign"] for r in span]}
+
     def phase_tiers_mesh(S):
         """Docstring item 4c: the tiers on the 1 x 4 logical mesh of the
         card at the main shape, each path's launches read around it."""
@@ -2746,16 +3136,27 @@ def main(argv=None) -> int:
         from knn_tpu_torch.join import knn_join
         from knn_tpu_torch.ops.refine import refine_shared_exact
         from knn_tpu_torch.parallel.mesh import make_host_mesh, make_mesh
+        from knn_tpu_torch.parallel.sharded import sharded_minmax
         from knn_tpu_torch.serving import ServingEngine, bucket_for
         from knn_tpu_torch.streaming import streaming_certified_knn
         from knn_tpu_torch.tuning import ivf_label
 
         t_phase = time.perf_counter()
+        # the spanning block's two processes run beside the phase's own
+        # calls (the card and the host shared), and are held against the
+        # phase's results at its end
+        span_work = tempfile.mkdtemp(prefix="chip_smoke_tiers_span_")
+        span_procs = spawn_children(TIERS_SPAN_CHILD, 2, span_work,
+                                    "tiers_span")
+        atexit.register(stop_children, span_procs)
         n, dim, k, q_all = S["n"], S["dim"], S["k"], S["q_np"]
         db = S["db_np"]
         devs = [torch.device("cuda", torch.cuda.current_device())] * 4
         mesh = make_mesh(1, 4, devices=devs)
         shards = 4
+        # the phase's logical results the spanning block is held against,
+        # with each path's seconds
+        ref = {}
         out = {"phase": "tiers_mesh", "n": n, "dim": dim, "k": k,
                "mesh": "1 x 4", "devices": "cuda:0 x 4 (logical)",
                "nvidia_smi": smi}
@@ -2797,6 +3198,7 @@ def main(argv=None) -> int:
             x.delete(dead)
         (d_m, i_m, st_m), mesh_s = run(
             "mutable", lambda: idx.search_certified(q), shards)
+        ref["mutable"] = ((d_m, i_m), mesh_s)
         # the (1, 1) index on the first 256 queries (a cut for time: the
         # tail's host f64 scan is most of a mutated call)
         (d_1, i_1, _), one_s = run(
@@ -2830,8 +3232,9 @@ def main(argv=None) -> int:
         one.compact()
         torch.cuda.synchronize()
         compact_s = time.perf_counter() - t0
-        (d_c, i_c, _), _ = run("mutable compacted",
-                               lambda: idx.search_certified(q), shards)
+        (d_c, i_c, _), compacted_s = run(
+            "mutable compacted", lambda: idx.search_certified(q), shards)
+        ref["mutable_compacted"] = ((d_c, i_c), compacted_s)
         if not (np.array_equal(i_c, i_m) and np.array_equal(d_c, d_m)):
             raise AssertionError("tiers_mesh: the compacted mesh index "
                                  "differs")
@@ -2936,6 +3339,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         uidx = IVFIndex(uni, k=k, ncentroids=32, train_iters=2, mesh=mesh)
         ivf_train_s = time.perf_counter() - t0
+        ref["ivf_train"] = ((uidx._centroids,), ivf_train_s)
         brute = refine_shared_exact(uni, qu, np.arange(n_anchor,
                                                        dtype=np.int64), k)
         ivf = {}
@@ -2955,6 +3359,8 @@ def main(argv=None) -> int:
             ivf[label] = {"wall_s": wall, "groups": st["groups"],
                           "k1_launches": want,
                           "fallback_queries": st["fallback_queries"]}
+            ref["ivf_exact" if label == "exact" else "ivf_pallas"] = (
+                (d, i), wall)
         oi_a, od_a = live_oracle(torch.from_numpy(qu).to(dev), uni,
                                  np.arange(n_anchor), k)
         if not np.array_equal(brute[1], oi_a):
@@ -2992,6 +3398,7 @@ def main(argv=None) -> int:
                 uni, qt, k, mesh=mesh, runs=1, grid=tune_grid,
                 selector="pallas", train_iters=2, seed=0),
             {"tiled_highest": want_k2})
+        ref["autotune_ivf"] = ((), tune_s)
         win = entry["knobs"]["nprobe"]
         if (entry["errors"] or None in entry["timings_ms"].values()
                 or len(entry["timings_ms"]) != 2 or not all_equal(
@@ -3019,6 +3426,7 @@ def main(argv=None) -> int:
         (sd, si, sst), stream_s = run(
             "join stream", lambda: knn_join(knn, q_all, mode="stream",
                                             superblock_rows=1024), 0)
+        ref["join_stream"] = ((sd, si), stream_s)
         loop = [knn.search(q_all[lo:lo + 1024])
                 for lo in range(0, q_all.shape[0], 1024)]
         if not (np.array_equal(sd, np.concatenate(
@@ -3032,6 +3440,7 @@ def main(argv=None) -> int:
             "join certified", lambda: knn_join(
                 knn, q_all, mode="certified", superblock_rows=1024),
             shards * n_sb)
+        ref["join_certified"] = ((cd, ci), cert_s)
         looped = [knn.search_certified(q_all[lo:lo + 1024])
                   for lo in range(0, q_all.shape[0], 1024)]
         if not (np.array_equal(cd, np.concatenate([x[0] for x in looped]))
@@ -3057,6 +3466,10 @@ def main(argv=None) -> int:
                 and np.array_equal(pi, direct[1])):
             raise AssertionError("tiers_mesh: the certified stream is not "
                                  "the direct mesh search_certified")
+        ref["certified_stream"] = ((pd, pi), stream_cert_s)
+        (lo, hi), minmax_s = run(
+            "minmax", lambda: sharded_minmax([db, q_all], mesh=mesh), 0)
+        ref["minmax"] = ((lo, hi), minmax_s)
         join_turns = in_turns(
             lambda: knn_join(knn, q_all, mode="certified",
                              superblock_rows=1024),
@@ -3126,6 +3539,11 @@ def main(argv=None) -> int:
         records["k1_tiers_mesh"].update(
             launches=k1_on_shards, ms=k1_ms, plain_ms=k1_plain_ms,
             bound_ms=k1_bound["bound_ms"], bound_by=k1_bound["bound_by"])
+        t_span = time.perf_counter()
+        span = collect_children(span_procs, "tiers_mesh spanning", 900)
+        out["spanning"] = tiers_spanning_checks(
+            S, span, span_work, ref, want_k2, groups)
+        out["spanning"]["waited_s"] = time.perf_counter() - t_span
         out.update(k1_launches_total=k1_total,
                    k1_launches_on_shards=k1_on_shards,
                    k1_shard={"rows": k1_rows, "queries": 1024,

@@ -62,6 +62,15 @@ Threads and streams: compaction builds its placement on the compactor
 thread while searches run on others.  Every tier works on the default
 CUDA stream, so a search enqueued after the swap is ordered after the new
 placement's copies and kernels.
+
+On a mesh that spans processes (parallel.multihost.global_mesh) every
+process makes the same calls in the same order; each places and searches
+its own positions and returns the whole answer.  A compaction there is
+agreed (index.tier.AgreedCompaction): cut at ``compact()`` or at the
+write that trips a threshold, built without a collective on the readers'
+group, swapped in at the first read at which every process has finished
+it.  The serving frontend is refused there by name (serving over
+processes is queued).
 """
 
 from __future__ import annotations
@@ -79,9 +88,10 @@ from knn_tpu_torch.obs import names as _mn
 from knn_tpu_torch.device import DeviceLike
 from knn_tpu_torch.index.artifact import (MutationBudgetError,
                                           MutationUnsupportedError)
-from knn_tpu_torch.index.tier import (Compactor, Frontend, check_fresh,
-                                     check_live, checked_rows, ladder_rung,
-                                     thresholds_tripped, tier_mesh)
+from knn_tpu_torch.index.tier import (AgreedCompaction, Compactor, Frontend,
+                                     check_fresh, check_live, checked_rows,
+                                     ladder_rung, thresholds_tripped,
+                                     tier_mesh)
 from knn_tpu_torch.parallel.collectives import shard
 from knn_tpu_torch.parallel.mesh import db_axes, db_topology
 from knn_tpu_torch.ops.topk import I32MAX
@@ -201,8 +211,8 @@ class MutableIndex:
                 f"MutableIndex supports the l2 metric family only, got "
                 f"{metric!r} (cosine re-normalizes rows at placement "
                 f"and L1 has no certified bound)")
-        self.mesh = tier_mesh(mesh, device, "MutableIndex")
-        self.device = self.mesh.devices.flat[0]
+        self.mesh = tier_mesh(mesh, device)
+        self.device = self.mesh.first_device
         hosts, chips = db_topology(self.mesh)
         self._db_shards = hosts * chips
         self._multihost = hosts > 1
@@ -272,6 +282,14 @@ class MutableIndex:
         #: kwargs compaction rebuilds it with (None until serving_engine())
         self._inner_engine = None
         self._engine_kwargs: Optional[dict] = None
+        #: on a mesh that spans processes: the cut, build and swap every
+        #: process agrees on (index.tier.AgreedCompaction)
+        self._agreed = None
+        if self.mesh.spans_processes:
+            self._agreed = AgreedCompaction(
+                self._lock, "mutable", cut=self._snapshot,
+                build=self._build, swap=self._swap,
+                tripped=self._compact_due)
         obs.gauge(_mn.INDEX_EPOCH).set(0.0)
         obs.gauge(_mn.INDEX_TAIL_ROWS).set(0.0)
         obs.gauge(_mn.INDEX_TOMBSTONES).set(0.0)
@@ -354,6 +372,8 @@ class MutableIndex:
             self._snap_cache = None
             tail_len = self._tail_len
             epoch = self._epoch
+            if self._agreed is not None:
+                self._agreed.note_write()
             self._lock.notify_all()  # wake the compactor
         obs.gauge(_mn.INDEX_TAIL_ROWS).set(float(tail_len))
         return {"epoch": epoch, "tail_rows": tail_len}
@@ -387,6 +407,8 @@ class MutableIndex:
             self._snap_cache = None
             n_tombs = len(self._tombstones)
             epoch = self._epoch
+            if self._agreed is not None:
+                self._agreed.note_write()
             self._lock.notify_all()
         obs.gauge(_mn.INDEX_TOMBSTONES).set(float(n_tombs))
         return {"epoch": epoch, "tombstones": n_tombs}
@@ -485,6 +507,8 @@ class MutableIndex:
             raise ValueError(
                 f"k={k} outside (0, {self.k}] — the certify reserve "
                 f"was sized for the construction k")
+        if self._agreed is not None:
+            self._agreed.agree()
         snap = self._snapshot()
         if k > snap.live_rows():
             raise ValueError(f"k={k} > {snap.live_rows()} live rows")
@@ -531,6 +555,8 @@ class MutableIndex:
             steps[step] = now - t
             return now
 
+        if self._agreed is not None:
+            self._agreed.agree()
         snap = self._snapshot()
         if self.k > snap.live_rows():
             raise ValueError(f"k={self.k} > {snap.live_rows()} live rows")
@@ -583,87 +609,108 @@ class MutableIndex:
         searches in flight finish on the old epoch.  Writes that landed
         during the build carry over: rows inserted after the cut stay in
         the new tail, ids deleted after the cut stay tombstoned against
-        the new placement."""
-        from knn_tpu_torch.parallel.sharded import ShardedKNN
-
+        the new placement.  On a mesh that spans processes every process
+        calls it at the same point of its calls: the cut, the build and
+        the swap are agreed (index.tier.AgreedCompaction)."""
         self._require_mutable("compact")
+        if self._agreed is not None:
+            return self._agreed.compact_now()
         t0 = time.perf_counter()
         with self._compact_lock:
             snap = self._snapshot()
-            tomb_snap = set(snap.tomb_ids.tolist())
-            base_host = snap.main._host_train()
-            keep_b = (~np.isin(snap.base_ids, snap.tomb_ids)
-                      if snap.tomb_ids.size
-                      else np.ones(snap.n_base, bool))
-            parts = [base_host[keep_b]]
-            id_parts = [snap.base_ids[keep_b]]
-            dropped = int(snap.n_base - parts[0].shape[0])
-            merged = 0
-            if snap.tail_len:
-                keep_t = (~np.isin(snap.tail_ids, snap.tomb_ids)
-                          if snap.tomb_ids.size
-                          else np.ones(snap.tail_len, bool))
-                parts.append(snap.tail[keep_t])
-                id_parts.append(snap.tail_ids[keep_t])
-                dropped += int(snap.tail_len - parts[1].shape[0])
-                merged = int(parts[1].shape[0])
-            new_base = (parts[0] if len(parts) == 1
-                        else np.concatenate(parts))
-            new_ids = (id_parts[0] if len(id_parts) == 1
-                       else np.concatenate(id_parts))
-            if new_base.shape[0] < self.k:
-                raise MutationBudgetError(
-                    f"compaction would leave {new_base.shape[0]} rows "
-                    f"< k={self.k}")
-            new_main = ShardedKNN(new_base,
-                                  k=self._k_eff_for(new_base.shape[0]),
-                                  **self._ctor)
-            from knn_tpu_torch.serving.engine import ServingEngine
+            return self._swap(snap, self._build(snap, t0))
 
-            new_engine = None
-            with self._lock:
-                kw = self._engine_kwargs
-                old_engine = self._inner_engine
-            if kw is not None:
-                # built and warmed off the serving path (on the card its
-                # graphs are captured here, beside live replays): the first
-                # request after the swap finds every rung ready
-                new_engine = ServingEngine(new_main, **kw)
-                new_engine.warmup(tuple(
-                    sorted(getattr(old_engine, "warmed_ops", ()))
-                    or ("search",)))
-            t_swap = time.perf_counter()
-            with self._lock:
-                self._main = new_main
-                self._base_ids = new_ids
-                self._tail_parts = self._tail_parts[snap.tail_parts_count:]
-                self._tail_id_parts = self._tail_id_parts[
-                    snap.tail_parts_count:]
-                self._tail_len = int(sum(p.shape[0]
-                                         for p in self._tail_parts))
-                self._tombstones = {t for t in self._tombstones
-                                    if t not in tomb_snap}
-                self._epoch += 1
-                if new_engine is None and self._engine_kwargs is not None:
-                    # a frontend made during the build: its rungs build
-                    # at their first requests
-                    new_engine = ServingEngine(new_main,
-                                               **self._engine_kwargs)
-                if new_engine is not None:
-                    self._inner_engine = new_engine
-                self._snap_cache = None
-                self._tail_place = None
-                self._compactions += 1
-                report = self._last_compaction = {
-                    "epoch": self._epoch,
-                    "rows": int(new_base.shape[0]),
-                    "rows_dropped": dropped,
-                    "tail_rows_merged": merged,
-                    "carry_tail_rows": self._tail_len,
-                    "carry_tombstones": len(self._tombstones),
-                    "wall_s": round(time.perf_counter() - t0, 4),
-                    "swap_s": round(time.perf_counter() - t_swap, 6),
-                }
+    def _build(self, snap: _Snapshot, t0: Optional[float] = None) -> dict:
+        """The fresh placement of ``snap``'s surviving rows (and, with a
+        frontend, its warmed serving engine), off the lock."""
+        from knn_tpu_torch.parallel.sharded import ShardedKNN
+
+        t0 = time.perf_counter() if t0 is None else t0
+        base_host = snap.main._host_train()
+        keep_b = (~np.isin(snap.base_ids, snap.tomb_ids)
+                  if snap.tomb_ids.size
+                  else np.ones(snap.n_base, bool))
+        parts = [base_host[keep_b]]
+        id_parts = [snap.base_ids[keep_b]]
+        dropped = int(snap.n_base - parts[0].shape[0])
+        merged = 0
+        if snap.tail_len:
+            keep_t = (~np.isin(snap.tail_ids, snap.tomb_ids)
+                      if snap.tomb_ids.size
+                      else np.ones(snap.tail_len, bool))
+            parts.append(snap.tail[keep_t])
+            id_parts.append(snap.tail_ids[keep_t])
+            dropped += int(snap.tail_len - parts[1].shape[0])
+            merged = int(parts[1].shape[0])
+        new_base = (parts[0] if len(parts) == 1
+                    else np.concatenate(parts))
+        new_ids = (id_parts[0] if len(id_parts) == 1
+                   else np.concatenate(id_parts))
+        if new_base.shape[0] < self.k:
+            raise MutationBudgetError(
+                f"compaction would leave {new_base.shape[0]} rows "
+                f"< k={self.k}")
+        new_main = ShardedKNN(new_base,
+                              k=self._k_eff_for(new_base.shape[0]),
+                              **self._ctor)
+        from knn_tpu_torch.serving.engine import ServingEngine
+
+        new_engine = None
+        with self._lock:
+            kw = self._engine_kwargs
+            old_engine = self._inner_engine
+        if kw is not None:
+            # built and warmed off the serving path (on the card its
+            # graphs are captured here, beside live replays): the first
+            # request after the swap finds every rung ready
+            new_engine = ServingEngine(new_main, **kw)
+            new_engine.warmup(tuple(
+                sorted(getattr(old_engine, "warmed_ops", ()))
+                or ("search",)))
+        return {"t0": t0, "main": new_main, "ids": new_ids,
+                "rows": int(new_base.shape[0]), "dropped": dropped,
+                "merged": merged, "engine": new_engine}
+
+    def _swap(self, snap: _Snapshot, built: dict) -> dict:
+        """Swaps ``built`` (of :meth:`_build`) in under the lock; writes
+        after ``snap`` carry over.  Returns the compaction's report."""
+        from knn_tpu_torch.serving.engine import ServingEngine
+
+        tomb_snap = set(snap.tomb_ids.tolist())
+        new_engine = built["engine"]
+        dropped, merged = built["dropped"], built["merged"]
+        t_swap = time.perf_counter()
+        with self._lock:
+            self._main = built["main"]
+            self._base_ids = built["ids"]
+            self._tail_parts = self._tail_parts[snap.tail_parts_count:]
+            self._tail_id_parts = self._tail_id_parts[
+                snap.tail_parts_count:]
+            self._tail_len = int(sum(p.shape[0]
+                                     for p in self._tail_parts))
+            self._tombstones = {t for t in self._tombstones
+                                if t not in tomb_snap}
+            self._epoch += 1
+            if new_engine is None and self._engine_kwargs is not None:
+                # a frontend made during the build: its rungs build
+                # at their first requests
+                new_engine = ServingEngine(built["main"],
+                                           **self._engine_kwargs)
+            if new_engine is not None:
+                self._inner_engine = new_engine
+            self._snap_cache = None
+            self._tail_place = None
+            self._compactions += 1
+            report = self._last_compaction = {
+                "epoch": self._epoch,
+                "rows": built["rows"],
+                "rows_dropped": dropped,
+                "tail_rows_merged": merged,
+                "carry_tail_rows": self._tail_len,
+                "carry_tombstones": len(self._tombstones),
+                "wall_s": round(time.perf_counter() - built["t0"], 4),
+                "swap_s": round(time.perf_counter() - t_swap, 6),
+            }
         obs.counter(_mn.INDEX_COMPACTIONS).inc()
         obs.histogram(_mn.INDEX_SWAP_SECONDS).observe(report["swap_s"])
         obs.gauge(_mn.INDEX_EPOCH).set(float(report["epoch"]))
@@ -688,7 +735,10 @@ class MutableIndex:
         or every ``interval_s`` while there is anything to fold in.  A
         failed compaction is recorded (``stats()["last_compaction_error"]``,
         re-raised by :meth:`close`) and the loop goes on.  Idempotent;
-        ``close()`` stops it."""
+        ``close()`` stops it.  On a mesh that spans processes only the
+        thresholds trigger it (``interval_s`` is refused): the compactor
+        builds the agreed cut and the next read swaps it in everywhere
+        (index.tier.AgreedCompaction)."""
         deadline = (None if interval_s is None
                     else time.monotonic() + interval_s)
 
@@ -702,6 +752,17 @@ class MutableIndex:
                 deadline = time.monotonic() + interval_s
             return True
 
+        if self._agreed is not None:
+            if interval_s is not None:
+                raise ValueError(
+                    "start_compactor(interval_s=) on a mesh that spans "
+                    "processes: a wall-clock trigger would cut each "
+                    "process's compaction at another write; set "
+                    "compact_tail_rows / compact_tombstones (the writes "
+                    "that trip them are every process's)")
+            self._agreed.start()
+            self._compactor.start(self._agreed.build, self._agreed.due, None)
+            return
         # without an interval every state change notifies the condition
         self._compactor.start(
             self.compact, due,
@@ -710,6 +771,8 @@ class MutableIndex:
     def close(self) -> None:
         """Stops the compactor, waiting out a compaction in flight;
         re-raises its last recorded exception."""
+        if self._agreed is not None:
+            self._agreed.stop()
         self._compactor.close()
 
     def __enter__(self):

@@ -32,6 +32,13 @@ serving frontend ``IVFServingEngine``).
 - **Mutability**: delta tails per list absorb inserts (epoch visibility,
   id tombstones, budgeted refusal); compaction re-clusters the survivors
   and swaps the snapshot atomically.
+- **Over processes** (a mesh of parallel.multihost.global_mesh): every
+  process makes the same calls; the segment program and the k-means
+  searches cross the process group, the pallas selector runs its kernel
+  over each probe group's block on each process's first device (as each
+  JAX controller does), and a compaction's retrain runs on the tier's
+  own process group and swaps in at a read every process agrees on
+  (index.tier.AgreedCompaction).  The frontend is refused there.
 - **Serving**: :meth:`IVFIndex.serving_engine` returns an
   :class:`IVFServingEngine`, the ``QueryQueue``-facing frontend: each
   request runs ``search_certified`` against the snapshot it pins, so a
@@ -77,9 +84,10 @@ from knn_tpu_torch import obs
 
 from knn_tpu_torch.device import DeviceLike
 from knn_tpu_torch.index.artifact import MutationBudgetError
-from knn_tpu_torch.index.tier import (Compactor, Frontend, check_fresh,
-                                     check_live, checked_rows, ladder_rung,
-                                     thresholds_tripped, tier_mesh)
+from knn_tpu_torch.index.tier import (AgreedCompaction, Compactor, Frontend,
+                                     check_fresh, check_live, checked_rows,
+                                     ladder_rung, thresholds_tripped,
+                                     tier_mesh)
 from knn_tpu_torch.parallel.mesh import QUERY_AXIS, db_topology
 from knn_tpu_torch.ivf.kmeans import train_kmeans
 from knn_tpu_torch.ops.certified import certification_tolerance
@@ -185,8 +193,8 @@ class IVFIndex:
                 f"IVFIndex supports metric='l2' only (the residual "
                 f"certificate is a Euclidean triangle inequality), got "
                 f"{metric!r}")
-        self.mesh = tier_mesh(mesh, device, "IVFIndex")
-        self.device = self.mesh.devices.flat[0]
+        self.mesh = tier_mesh(mesh, device)
+        self.device = self.mesh.first_device
         hosts, chips = db_topology(self.mesh)
         self._db_shards = hosts * chips
         base = np.ascontiguousarray(np.asarray(train, np.float32))
@@ -232,6 +240,13 @@ class IVFIndex:
         self._tail_len = 0
         self._tombstones: set = set()
         self._snap_cache: Optional[_IVFSnapshot] = None
+        #: on a mesh that spans processes: the cut, build (the retrain)
+        #: and swap every process agrees on (index.tier.AgreedCompaction)
+        self._agreed = None
+        if self.mesh.spans_processes:
+            self._agreed = AgreedCompaction(
+                self._lock, "ivf", cut=self._cut, build=self._build,
+                swap=self._swap, tripped=self._compact_due)
         self._install(base, ids_arr, self._train(base))
         self._live = set(ids_arr.tolist())
         obs.health.register_index(self)
@@ -477,6 +492,8 @@ class IVFIndex:
                 f"queries shape {q.shape} incompatible with dim {self.dim}")
         k = self.k if k is None else int(k)
         margin = self.margin if margin is None else int(margin)
+        if self._agreed is not None:
+            self._agreed.agree()
         snap = self._snapshot()
         if snap.n_live < k:
             raise ValueError(f"k={k} exceeds live rows {snap.n_live}")
@@ -632,6 +649,8 @@ class IVFIndex:
             self._snap_cache = None
             tail_len = self._tail_len
             epoch = self.epoch
+            if self._agreed is not None:
+                self._agreed.note_write()
             self._lock.notify_all()
         return {"epoch": epoch, "tail_rows": tail_len}
 
@@ -655,6 +674,8 @@ class IVFIndex:
             self._snap_cache = None
             n_tombs = len(self._tombstones)
             epoch = self.epoch
+            if self._agreed is not None:
+                self._agreed.note_write()
             self._lock.notify_all()
         return {"epoch": epoch, "tombstones": n_tombs}
 
@@ -663,40 +684,61 @@ class IVFIndex:
         """Re-cluster the surviving rows into a fresh list-major placement
         off the search path, then swap under the lock — searches in
         flight keep their snapshot; writes after the cut carry over into
-        the new epoch's delta tails."""
+        the new epoch's delta tails.  On a mesh that spans processes every
+        process calls it at the same point of its calls: the cut, the
+        retrain (on the tier's compaction group) and the swap are agreed
+        (index.tier.AgreedCompaction)."""
+        if self._agreed is not None:
+            return self._agreed.compact_now()
         t0 = time.perf_counter()
         with self._compact_lock:
             with self._lock:
-                snap = self._snapshot()
-                cut_parts = len(self._tail_parts)
-                tomb_cut = set(self._tombstones)
-            survivors = np.ascontiguousarray(
-                snap.all_rows[snap.live_positions])
-            surv_ids = snap.all_ids[snap.live_positions]
-            km = self._train(survivors)
-            with self._lock:
-                carried_rows = self._tail_parts[cut_parts:]
-                carried_ids = self._tail_id_parts[cut_parts:]
-                self._install(survivors, surv_ids, km)
-                self._tail_parts = []
-                self._tail_id_parts = []
-                self._tail_assign_parts = []
-                self._tail_len = 0
-                for part, part_ids in zip(carried_rows, carried_ids):
-                    self._add_tail(part, part_ids)
-                self._tombstones -= tomb_cut
-                self.epoch += 1
-                self._compactions += 1
-                self._snap_cache = None
-                report = {
-                    "epoch": self.epoch,
-                    "rows": int(survivors.shape[0]),
-                    "carried_tail_rows": self._tail_len,
-                    "tombstones_dropped": len(tomb_cut),
-                    "tombstones_carried": len(self._tombstones),
-                    "wall_s": round(time.perf_counter() - t0, 4),
-                }
-                self._last_compaction = report
+                cut = self._cut()
+            return self._swap(cut, self._build(cut, t0))
+
+    def _cut(self) -> tuple:
+        """The state a compaction folds: ``(snapshot, tail parts, the
+        tombstones)``.  Caller holds the lock."""
+        return (self._snapshot(), len(self._tail_parts),
+                set(self._tombstones))
+
+    def _build(self, cut: tuple, t0: Optional[float] = None) -> dict:
+        """The survivors of ``cut`` re-clustered (k-means on the tier's
+        mesh), off the lock."""
+        t0 = time.perf_counter() if t0 is None else t0
+        snap = cut[0]
+        survivors = np.ascontiguousarray(snap.all_rows[snap.live_positions])
+        surv_ids = snap.all_ids[snap.live_positions]
+        return {"t0": t0, "rows": survivors, "ids": surv_ids,
+                "km": self._train(survivors)}
+
+    def _swap(self, cut: tuple, built: dict) -> dict:
+        """Installs ``built`` (of :meth:`_build`) under the lock; writes
+        after ``cut`` carry over.  Returns the compaction's report."""
+        _, cut_parts, tomb_cut = cut
+        with self._lock:
+            carried_rows = self._tail_parts[cut_parts:]
+            carried_ids = self._tail_id_parts[cut_parts:]
+            self._install(built["rows"], built["ids"], built["km"])
+            self._tail_parts = []
+            self._tail_id_parts = []
+            self._tail_assign_parts = []
+            self._tail_len = 0
+            for part, part_ids in zip(carried_rows, carried_ids):
+                self._add_tail(part, part_ids)
+            self._tombstones -= tomb_cut
+            self.epoch += 1
+            self._compactions += 1
+            self._snap_cache = None
+            report = {
+                "epoch": self.epoch,
+                "rows": int(built["rows"].shape[0]),
+                "carried_tail_rows": self._tail_len,
+                "tombstones_dropped": len(tomb_cut),
+                "tombstones_carried": len(self._tombstones),
+                "wall_s": round(time.perf_counter() - built["t0"], 4),
+            }
+            self._last_compaction = report
         obs.record_span("index.compact", f"ivf-compact-{report['epoch']}",
                         report["wall_s"], rows=report["rows"])
         return report
@@ -713,12 +755,21 @@ class IVFIndex:
         compactor re-clusters off the search path, snapshots swap
         atomically.  A failed compaction is recorded
         (``stats()["last_compaction_error"]``, re-raised by :meth:`close`)
-        and the loop goes on.  Idempotent; ``close()`` stops it."""
+        and the loop goes on.  Idempotent; ``close()`` stops it.  On a mesh
+        that spans processes the compactor builds the agreed cut and the
+        next read swaps it in everywhere (index.tier.AgreedCompaction)."""
+        if self._agreed is not None:
+            self._agreed.start()
+            self._compactor.start(self._agreed.build, self._agreed.due,
+                                  interval_s)
+            return
         self._compactor.start(self.compact, self._compact_due, interval_s)
 
     def close(self) -> None:
         """Stops the compactor, waiting out a compaction in flight;
         re-raises its last recorded exception."""
+        if self._agreed is not None:
+            self._agreed.stop()
         self._compactor.close()
 
     def __enter__(self) -> "IVFIndex":

@@ -94,7 +94,7 @@ def train_kmeans(rows: np.ndarray, ncentroids: int, *,
     update."""
     from knn_tpu_torch.index.tier import tier_mesh
 
-    mesh = tier_mesh(mesh, device, "train_kmeans")
+    mesh = tier_mesh(mesh, device)
     rows = np.ascontiguousarray(np.asarray(rows, np.float32))
     n, d = rows.shape
     ncentroids = int(min(max(1, ncentroids), n))

@@ -37,6 +37,13 @@ tier's segment program is the mesh's (each segment's blocks over the db
 shards, the queries over the query shards, the shards' lists merged onto
 the first device, where the carry merges).
 
+On a mesh that spans processes (parallel.multihost.global_mesh) every
+process calls the join with the same queries: the resident stream and
+the certified loop run the mesh's programs, each process its own
+positions, and every process returns the whole ``(d, i)``.  The tiered
+join does not run there (its host-RAM tier is refused by name on such a
+mesh).
+
 Every run returns ``(d, i, stats)``; ``stats`` carries the executed
 superblock / segment / dispatch counts (checked against the
 :mod:`knn_tpu_torch.analysis.hbm` plan), ``rows_per_s`` and
@@ -318,9 +325,6 @@ def knn_join(
         raise ValueError(f"unknown join mode {mode!r}; expected one of "
                          f"{JOIN_MODES}")
     sharded = _is_sharded(program)
-    from knn_tpu_torch.parallel.mesh import require_one_process
-
-    require_one_process(getattr(program, "mesh", None), "knn_join")
     if not sharded and mode != "certified":
         raise ValueError(
             "IVF joins run mode='certified' only (the probed tier has no "

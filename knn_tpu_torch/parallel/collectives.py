@@ -32,7 +32,9 @@ tensors sit on the group's device (multihost.group_device: the CPU under
 gloo, the process's card under nccl) and land on ``device``; every
 process ends with the same result.  Participants of one other process
 are that process's alone: here the collective returns None.  Each
-exchange's bytes and seconds go to multihost.record_exchange.
+exchange's bytes and seconds go to multihost.record_exchange.  A thread
+inside multihost.group_scope runs its collectives on that group (a
+tier's background compaction beside its readers).
 
 :func:`barrier` is the timing fence of knn_mpi.cpp:133-134: CUDA work is
 asynchronous, so a wall clock without it measures the enqueue; over a
@@ -140,10 +142,14 @@ def _as_tensor(x) -> torch.Tensor:
 
 def _place(blocks: List[torch.Tensor], mesh: Mesh, block_of) -> np.ndarray:
     """Object array of the mesh's shape: position p holds block
-    ``block_of(p)`` on p's device, one copy per (block, device)."""
+    ``block_of(p)`` on p's device, one copy per (block, device); on a mesh
+    that spans processes only this process's positions (the others None),
+    so a process moves only its own blocks to its devices."""
     parts = np.empty(mesh.devices.shape, dtype=object)
     copies = {}
     for pos in np.ndindex(*mesh.devices.shape):
+        if not mesh.is_local(pos):  # another process places its own
+            continue
         dev = mesh.devices[pos]
         j = block_of(pos)
         key = (j, str(dev))
@@ -185,11 +191,12 @@ def shard(x, mesh: Mesh, axis_name: Union[str, Sequence[str]],
 
 def _group():
     """The joined process group's module (parallel.multihost), its
-    process index and count, and the device tensors cross on."""
+    process index and count, the device tensors cross on and the calling
+    thread's process group (multihost.group_scope; None: the default)."""
     from knn_tpu_torch.parallel import multihost
 
     return (multihost, multihost.process_index(), multihost.process_count(),
-            multihost.group_device())
+            multihost.group_device(), multihost.current_pg())
 
 
 def _crosses(owners) -> bool:
@@ -220,7 +227,7 @@ def exchange(items: Sequence[Optional[tuple]], owners: Sequence[int],
     participants' entries, one ``all_gather`` an entry crosses them, and
     every participant's tuple comes back, another process's on
     ``device``.  Every process of the group calls it."""
-    mh, me, world, wire = _group()
+    mh, me, world, wire, pg = _group()
     owners = [int(o) for o in owners]
     mine = [s for s, o in enumerate(owners) if o == me]
     n_max = max(owners.count(p) for p in range(world))
@@ -236,7 +243,7 @@ def exchange(items: Sequence[Optional[tuple]], owners: Sequence[int],
         for b, s in enumerate(mine):
             buf[b].copy_(items[s][t])
         bufs = [torch.empty_like(buf) for _ in range(world)]
-        torch.distributed.all_gather(bufs, buf)
+        torch.distributed.all_gather(bufs, buf, group=pg)
         nbytes += buf.nbytes * world
         seen = [0] * world
         for s, o in enumerate(owners):
@@ -253,7 +260,7 @@ def send_recv(tensors: Optional[tuple], src: int, dst: int, like, device
     ``tensors`` (entries shaped as ``like``) to process ``dst``, which
     receives them on ``device``.  Returns the received tuple on ``dst``,
     None on every other process (which does nothing)."""
-    mh, me, _, wire = _group()
+    mh, me, _, wire, pg = _group()
     if me not in (src, dst):
         return None
     t0 = time.perf_counter()
@@ -262,10 +269,10 @@ def send_recv(tensors: Optional[tuple], src: int, dst: int, like, device
     for t, (shape, dtype) in enumerate(like):
         if me == src:
             buf = tensors[t].to(device=wire, dtype=_wire(dtype)).contiguous()
-            torch.distributed.send(buf, dst)
+            torch.distributed.send(buf, dst, group=pg)
         else:
             buf = torch.empty(tuple(shape), dtype=_wire(dtype), device=wire)
-            torch.distributed.recv(buf, src)
+            torch.distributed.recv(buf, src, group=pg)
             out.append(buf.to(device=device, dtype=dtype))
         nbytes += buf.nbytes
     mh.record_exchange("send" if me == src else "recv", nbytes,
@@ -299,7 +306,7 @@ def _reduce(parts, device, op, owners=None, like=None, name=None):
             q = q.to(device, non_blocking=True)
             acc = q if acc is None else op(acc, q)
         return acc
-    mh, me, _, wire = _group()
+    mh, me, _, wire, pg = _group()
     shape, dtype = tuple(like[0]), like[1]
     acc = None
     for q, o in zip(parts, owners):
@@ -313,7 +320,7 @@ def _reduce(parts, device, op, owners=None, like=None, name=None):
     acc = acc.contiguous()
     t0 = time.perf_counter()
     torch.distributed.all_reduce(acc, op=getattr(
-        torch.distributed.ReduceOp, name))
+        torch.distributed.ReduceOp, name), group=pg)
     mh.record_exchange("all_reduce", acc.nbytes * mh.process_count(),
                        time.perf_counter() - t0)
     return acc.to(device=device, dtype=dtype)
@@ -399,7 +406,10 @@ def barrier(*arrays) -> None:
     for d in devices:
         torch.cuda.synchronize(d)
     if spans:
-        torch.distributed.barrier()
+        from knn_tpu_torch.parallel import multihost
+
+        torch.distributed.barrier(group=multihost.current_pg())
+        multihost.count_collective()
 
 
 __all__ = [

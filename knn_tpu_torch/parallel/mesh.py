@@ -280,12 +280,20 @@ def owners3(mesh: Mesh) -> np.ndarray:
 
 def require_one_process(mesh: Optional[Mesh], what: str) -> None:
     """Refuses, by name, a path that does not run on a mesh that spans
-    processes yet (ROADMAP queue A item 4.5)."""
+    processes yet (ROADMAP queue A item 4.6): serving (``ServingEngine``,
+    the tiers' frontends, ``search_bucketed``), the host-RAM tier and
+    the tiered join, pq, ``overlap`` and the streaming / fused kernels."""
     if mesh is not None and mesh.spans_processes:
         raise ValueError(
             f"{what} on a mesh that spans processes is queued (ROADMAP "
-            f"queue A item 4.5): search, search_certified and predict run "
-            f"there; run {what} on a mesh of one process's devices")
+            f"queue A item 4.6): search, search_certified, predict, the "
+            f"tiers (MutableIndex, IVFIndex, train_kmeans, knn_join's "
+            f"resident modes, streaming, autotune_ivf), "
+            f"segment_search_program and sharded_minmax run there; "
+            f"serving (ServingEngine, the tiers' frontends, "
+            f"search_bucketed), the host-RAM tier and the tiered join, "
+            f"pq, overlap and the streaming / fused kernels do not yet; "
+            f"run {what} on a mesh of one process's devices")
 
 
 def default_mesh(db_shards: int = 1) -> Mesh:

@@ -37,6 +37,7 @@ here: not NVLink or InfiniBand, and gloo is not NCCL.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import itertools
 import json
@@ -231,10 +232,131 @@ def group_device() -> torch.device:
     return _STATE["group_device"]
 
 
-def _all_gather_object(obj) -> list:
-    """``obj`` of every process, in process order, through the group."""
+def all_gather_object(obj) -> list:
+    """``obj`` (a small picklable host object) of every process, in
+    process order, through the calling thread's group
+    (:func:`group_scope`); every process of the group calls it."""
     out = [None] * process_count()
-    torch.distributed.all_gather_object(out, obj)
+    torch.distributed.all_gather_object(out, obj, group=current_pg())
+    count_collective()
+    return out
+
+
+def broadcast_object(obj, src: int = 0):
+    """Process ``src``'s ``obj`` (a small picklable host object) in every
+    process, through the calling thread's group; every process calls it
+    (the others' ``obj`` is ignored)."""
+    box = [obj]
+    torch.distributed.broadcast_object_list(box, src=src, group=current_pg())
+    count_collective()
+    return box[0]
+
+
+def max_over_processes(values: Sequence[float]) -> List[float]:
+    """The elementwise maximum of every process's float64 ``values`` (one
+    ``all_reduce``), the same floats in every process."""
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                     device=group_device())
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                 group=current_pg())
+    count_collective()
+    return t.cpu().tolist()
+
+
+def all_gather_ints(values: Sequence[int]) -> np.ndarray:
+    """Every process's int ``values`` (one ``all_gather``): an int64 array
+    ``[process_count, len(values)]`` in process order, the same in every
+    process."""
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                     device=group_device())
+    out = [torch.empty_like(t) for _ in range(process_count())]
+    torch.distributed.all_gather(out, t, group=current_pg())
+    count_collective()
+    return torch.stack(out).cpu().numpy()
+
+
+# -- process groups of one thread's collectives -------------------------------
+
+class Group:
+    """A process group over every process of the joined group, made by
+    :func:`new_group` at the same point of every process's call sequence.
+    A thread that issues collectives beside another thread's (a tier's
+    background compaction beside its readers) runs them on a group of its
+    own inside :func:`group_scope`, so the two threads' collectives never
+    pair with each other across processes.  ``tag`` names it in
+    :func:`collective_counts`."""
+
+    def __init__(self, pg, tag: str):
+        self.pg = pg
+        self.tag = tag
+
+    def __repr__(self) -> str:
+        return f"Group({self.tag!r})"
+
+
+def new_group(tag: str) -> Optional[Group]:
+    """A new :class:`Group` of every process (``torch.distributed.
+    new_group`` with the joined group's backend and timeout); None in one
+    process.  Every process calls it, in the same order as every other
+    collective."""
+    if process_count() == 1:
+        return None
+    pg = torch.distributed.new_group(
+        list(range(process_count())), backend=_STATE["backend"],
+        timeout=timedelta(seconds=_STATE["timeout_s"]))
+    return Group(pg, tag)
+
+
+#: the group each thread's collectives run on (None: the default group)
+_THREAD_GROUP = threading.local()
+
+
+@contextlib.contextmanager
+def group_scope(group: Optional[Group]):
+    """Runs the calling thread's collectives inside on ``group`` (None:
+    the default group)."""
+    prev = getattr(_THREAD_GROUP, "group", None)
+    _THREAD_GROUP.group = group
+    try:
+        yield
+    finally:
+        _THREAD_GROUP.group = prev
+
+
+def current_group() -> Optional[Group]:
+    """The calling thread's group (None: the default group)."""
+    return getattr(_THREAD_GROUP, "group", None)
+
+
+def current_pg():
+    """The ``torch.distributed`` process group of the calling thread's
+    collectives (None: the default group)."""
+    group = current_group()
+    return None if group is None else group.pg
+
+
+#: collectives issued, by (thread name, group tag): what a test reads to
+#: show that a thread kept to its own group
+_COLLECTIVES: dict = {}
+
+
+def count_collective() -> None:
+    """One collective issued by the calling thread on its group
+    (parallel.collectives counts each)."""
+    group = current_group()
+    key = (threading.current_thread().name,
+           "default" if group is None else group.tag)
+    with _REPORT_LOCK:
+        _COLLECTIVES[key] = _COLLECTIVES.get(key, 0) + 1
+
+
+def collective_counts(reset: bool = False) -> dict:
+    """``{"<thread name>|<group tag>": collectives}`` since the last
+    reset (``reset=True`` clears the counts after reading them)."""
+    with _REPORT_LOCK:
+        out = {f"{t}|{g}": n for (t, g), n in sorted(_COLLECTIVES.items())}
+        if reset:
+            _COLLECTIVES.clear()
     return out
 
 
@@ -246,7 +368,7 @@ def _global_devices(devices) -> Tuple[list, list]:
     if devices is None:
         lists = _STATE["devices"]
     else:
-        lists = _all_gather_object([str(d) for d in _devices(devices)])
+        lists = all_gather_object([str(d) for d in _devices(devices)])
     flat, owners = [], []
     for p, lst in enumerate(lists):
         flat += lst
@@ -411,28 +533,40 @@ def _update_report(**kw) -> None:
         _LAST_REPORT.update(kw)
 
 
-#: the cross-process exchanges of the in-mesh call in progress (this
-#: process's view), and how deep its calls nest
-_IN_MESH: dict = {"depth": 0, "log": []}
+#: the cross-process exchanges of the calling thread's in-mesh call in
+#: progress (this process's view), and how deep its calls nest: a
+#: thread's own, so a background compaction's calls never mix into a
+#: reader's report
+_IN_MESH = threading.local()
+
+
+def _in_mesh() -> threading.local:
+    if not hasattr(_IN_MESH, "depth"):
+        _IN_MESH.depth, _IN_MESH.log = 0, []
+    return _IN_MESH
 
 
 def record_exchange(op: str, nbytes: int, seconds: float) -> None:
     """One cross-process exchange of an in-mesh call: the collective
     (``all_gather``, ``all_reduce``, ``send`` / ``recv``), the bytes every
     process put into it, and its seconds on this process's clock, host
-    staging included (parallel.collectives records each)."""
-    with _REPORT_LOCK:
-        _IN_MESH["log"].append({"op": op, "bytes": int(nbytes),
-                                "s": float(seconds)})
+    staging included (parallel.collectives records each).  Outside an
+    in-mesh call it is only counted (:func:`count_collective`)."""
+    count_collective()
+    state = _in_mesh()
+    if state.depth:
+        state.log.append({"op": op, "bytes": int(nbytes),
+                          "s": float(seconds)})
 
 
 def begin_in_mesh_call() -> None:
     """An in-mesh call on a mesh that spans processes starts; a call made
-    inside it (the fallback repair's select) adds to its exchanges."""
-    with _REPORT_LOCK:
-        if _IN_MESH["depth"] == 0:
-            _IN_MESH["log"] = []
-        _IN_MESH["depth"] += 1
+    inside it (the fallback repair's select, a mesh program) adds to its
+    exchanges."""
+    state = _in_mesh()
+    if state.depth == 0:
+        state.log = []
+    state.depth += 1
 
 
 def finish_in_mesh_call(*, dcn_merge: Optional[str],
@@ -443,13 +577,14 @@ def finish_in_mesh_call(*, dcn_merge: Optional[str],
     level that crosses processes, and the seconds and bytes of its
     exchanges (``exchange_log`` one entry each) — becomes
     :func:`last_report`."""
-    with _REPORT_LOCK:
-        _IN_MESH["depth"] -= 1
-        if _IN_MESH["depth"]:
-            return
-        log = list(_IN_MESH["log"])
+    state = _in_mesh()
+    state.depth -= 1
+    if state.depth:
+        return
+    log = list(state.log)
     _update_report(
         hosts=process_count(), process_index=process_index(),
+        thread=threading.current_thread().name,
         transport=f"in_mesh:{backend()}", dcn_merge=dcn_merge,
         dcn_merge_source=dcn_merge_source,
         dcn_merge_bytes=int(dcn_merge_bytes), straggler_gap_s=None,

@@ -44,9 +44,12 @@ arms' bound statistics are one ``all_reduce``, and the query shards'
 outputs cross in one ``all_gather``, so every process holds the whole
 result and runs the host repair on it, as each JAX process runs its
 host code on a replicated output.  Every process calls every entry in
-the same order with the same queries.  The tiers' paths, the host-RAM
-tier, pq, the pipeline, ``search_bucketed`` and the streaming kernels
-are refused there by name (parallel.mesh.require_one_process).
+the same order with the same queries.  The tiers run there on the same
+programs (:func:`segment_search_program`, :func:`query_stream_program`,
+:func:`sharded_minmax`); serving (``ServingEngine``, the tiers'
+frontends, ``search_bucketed``), the host-RAM tier, pq, the pipeline and
+the streaming / fused kernels are refused there by name
+(parallel.mesh.require_one_process).
 
 The host-RAM tier (the JAX package's, sharded.py:650-975): with
 ``hbm_budget_bytes`` a database whose placement (analysis.hbm's byte
@@ -273,10 +276,14 @@ def segment_search_program(k: int, metric: str = "l2", *,
     (:func:`_merge_shards`); the outputs lie on the mesh's first
     device.  A one-position mesh runs the one-device body on its device
     (a :class:`~knn_tpu_torch.parallel.collectives.Placed` segment gives
-    its one block)."""
+    its one block).  On a mesh that spans processes every process calls
+    ``prog`` with the same queries and segment: a host segment is cut to
+    this process's positions (only its own shards' rows reach its
+    devices), a placed one holds them already, each process searches its
+    own shards and every process returns the whole ``(d, i)``
+    (:func:`_run_on_mesh`)."""
     if mesh is not None and device is not None:
         raise ValueError("pass mesh= or device=, not both")
-    require_one_process(mesh, "segment_search_program")
     if mesh is not None and mesh.size == 1:
         device, mesh = mesh.devices.flat[0], None
     if mesh is not None:
@@ -570,7 +577,33 @@ def _run_on_mesh(mesh: Mesh, q: torch.Tensor, local, keep: int, merge: str,
     process's positions only, the merge levels cross processes where
     their lists do (:func:`_merge_shards`), and the query shards' merged
     lists cross to every process (one ``all_gather``), so every process
-    returns the whole result."""
+    returns the whole result; a call made outside a :class:`ShardedKNN`
+    entry (a tier's segment or stream program) is an in-mesh call of its
+    own (multihost.last_report)."""
+    if mesh.spans_processes:
+        from knn_tpu_torch.parallel import multihost
+
+        rows = -(-q.shape[0] // mesh.shape[QUERY_AXIS]) * \
+            mesh.shape[QUERY_AXIS]
+        multihost.begin_in_mesh_call()
+        try:
+            return _run_on_local(mesh, q, local, keep, merge, dcn_merge,
+                                 shard_rows=shard_rows, n_valid=n_valid)
+        finally:
+            strategy, nbytes = _crossing_level(mesh, merge, dcn_merge,
+                                               rows, keep)
+            multihost.finish_in_mesh_call(dcn_merge=strategy,
+                                          dcn_merge_source=None,
+                                          dcn_merge_bytes=nbytes)
+    return _run_on_local(mesh, q, local, keep, merge, dcn_merge,
+                         shard_rows=shard_rows, n_valid=n_valid)
+
+
+def _run_on_local(mesh: Mesh, q: torch.Tensor, local, keep: int, merge: str,
+                  dcn_merge: Optional[str], *, shard_rows: int,
+                  n_valid: int):
+    """:func:`_run_on_mesh`'s body: this process's positions, the merge
+    tree and the query shards' exchange."""
     first = mesh.first_device
     n_qs = mesh.shape[QUERY_AXIS]
     qp, n_q = pad_to_multiple(q, n_qs)
@@ -651,6 +684,29 @@ def _in_mesh_call(fn):
     return call
 
 
+def _intra_crosses(mesh: Mesh) -> bool:
+    """Whether the level over a host's db shards crosses processes (a
+    flat mesh whose db axis spans them)."""
+    own = owners3(mesh)
+    return any(len(set(own[r, h].tolist())) > 1
+               for r in range(own.shape[0]) for h in range(own.shape[1]))
+
+
+def _crossing_level(mesh: Mesh, merge: str, dcn_merge: Optional[str],
+                    n_rows: int, k: int) -> tuple:
+    """``(strategy, modeled bytes)`` of the merge level of ``mesh`` that
+    crosses processes (``(None, 0)`` where none does: a mesh whose
+    processes split only the queries); the host level merges by
+    ``dcn_merge``, or ``merge`` without one (:func:`_merge_shards`)."""
+    hosts, chips = db_topology(mesh)
+    if chips > 1 and _intra_crosses(mesh):
+        return merge, merge_bytes(n_rows, k, chips, merge)
+    if hosts > 1 and mesh.spans_processes:
+        level = dcn_merge or merge
+        return level, merge_bytes(n_rows, k, hosts, level)
+    return None, 0
+
+
 def _position(mesh: Mesh, r: int, h: int, c: int) -> tuple:
     """The mesh index of grid3's position ``[r, h, c]``."""
     return (r, h, c) if len(mesh.axis_names) == 3 else (r, c)
@@ -702,7 +758,13 @@ class ShardedKNN:
     ``multihost.shard_across_hosts`` placed (search and predict only:
     no process holds a host copy for the certificates' refine); each
     process holds and runs its own positions and returns the whole
-    result (module docstring).
+    result (module docstring).  The tiers run on such a placement
+    (index.MutableIndex, ivf.IVFIndex and its k-means, join.knn_join in
+    its resident modes, streaming, tuning.autotune_ivf); serving
+    (``ServingEngine``, the tiers' frontends, ``search_bucketed``), the
+    host-RAM tier and the tiered join, ``precision="pq"``,
+    ``overlap=True`` and ``kernel="streaming" | "fused"`` are refused
+    there by name.
 
     ``hbm_budget_bytes`` (None: no budget) runs a host array whose
     placement would exceed it a host in the host-RAM tier on any mesh
@@ -1216,25 +1278,18 @@ class ShardedKNN:
         return _over_processes(torch.stack(outs), reduce_sum,
                                self.mesh).reshape(-1)[:n_q]
 
-    def _intra_crosses(self) -> bool:
-        """Whether the level over a host's db shards crosses processes (a
-        flat mesh whose db axis spans them)."""
-        own = owners3(self.mesh)
-        return any(len(set(own[r, h].tolist())) > 1
-                   for r in range(own.shape[0]) for h in range(own.shape[1]))
-
     def _cross_level(self, n_rows: int, k: int) -> tuple:
         """``(strategy, its source, modeled bytes)`` of the merge level
         that crosses processes (``(None, None, 0)`` where none does: a mesh
         whose processes split only the queries)."""
+        strategy, nbytes = _crossing_level(self.mesh, self.merge,
+                                           self.dcn_merge, n_rows, k)
+        if strategy is None:
+            return None, None, 0
         hosts, chips = db_topology(self.mesh)
-        if chips > 1 and self._intra_crosses():
-            return (self.merge, self.merge_source,
-                    merge_bytes(n_rows, k, chips, self.merge))
-        if hosts > 1 and self.mesh.spans_processes:
-            return (self.dcn_merge, self.dcn_merge_source,
-                    merge_bytes(n_rows, k, hosts, self.dcn_merge))
-        return None, None, 0
+        source = (self.merge_source if chips > 1 and
+                  _intra_crosses(self.mesh) else self.dcn_merge_source)
+        return strategy, source, nbytes
 
     def _record_merge_bytes(self, n_rows: int, k: int) -> None:
         """The modeled merge volume of each level into ``MERGE_BYTES``
@@ -1244,7 +1299,8 @@ class ShardedKNN:
         hosts, chips = db_topology(self.mesh)
         if chips > 1:
             obs.counter(_mn.MERGE_BYTES,
-                        level="dcn" if self._intra_crosses() else "intra",
+                        level="dcn" if _intra_crosses(self.mesh)
+                        else "intra",
                         strategy=self.merge).inc(
                 merge_bytes(n_rows, k, chips, self.merge))
         if hosts > 1 and self.dcn_merge is not None:
@@ -2763,23 +2819,27 @@ def sharded_minmax(arrays, *, mesh: Mesh):
     arrays, each split over every mesh position (edge rows pad it to a
     multiple of the mesh size, which leaves the extrema alone), the local
     extrema reduced onto the first device by the min / max pair of
-    knn_mpi.cpp:276-277 (sharded.py:2569-2600).  Returns f32 tensors on the mesh's first
-    device; empty arrays are the reduce identity (+inf, -inf)."""
+    knn_mpi.cpp:276-277 (sharded.py:2569-2600).  Returns f32 tensors on the
+    mesh's first device; empty arrays are the reduce identity (+inf,
+    -inf).  On a mesh that spans processes every process passes the same
+    arrays, reduces the blocks of its own positions, and the min and max
+    cross the group (one ``all_reduce`` each): exact, so every process
+    gets the one-process result bitwise."""
     from knn_tpu_torch.ops.normalize import local_minmax
 
     from knn_tpu_torch.parallel.collectives import reduce_max
 
-    require_one_process(mesh, "sharded_minmax")
     arrays = list(arrays)
     if not arrays:
         raise ValueError("sharded_minmax needs at least one array")
-    first = mesh.devices.flat[0]
+    first = mesh.first_device
     dim = arrays[0].shape[-1]
     nonempty = [a for a in arrays if a.shape[0] > 0]
     if not nonempty:
         return (torch.full((dim,), torch.inf, device=first),
                 torch.full((dim,), -torch.inf, device=first))
     devices = list(mesh.devices.flat)
+    owners = [int(o) for o in mesh.owners.flat]
     lows, highs = [None] * len(devices), [None] * len(devices)
     for a in nonempty:
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
@@ -2790,10 +2850,16 @@ def sharded_minmax(arrays, *, mesh: Mesh):
             t = torch.cat([t, t[-1:].expand(target - t.shape[0], -1)])
         for p, (dev, block) in enumerate(zip(devices,
                                              torch.chunk(t, len(devices)))):
+            if owners[p] != mesh.rank:  # another process's position
+                continue
             lo, hi = local_minmax(block.to(dev, non_blocking=True))
             lows[p] = lo if lows[p] is None else torch.minimum(lows[p], lo)
             highs[p] = hi if highs[p] is None else torch.maximum(highs[p], hi)
-    return reduce_min(lows, first), reduce_max(highs, first)
+    if not mesh.spans_processes:
+        return reduce_min(lows, first), reduce_max(highs, first)
+    like = ((dim,), next(x for x in lows if x is not None).dtype)
+    return (reduce_min(lows, first, owners=owners, like=like),
+            reduce_max(highs, first, owners=owners, like=like))
 
 
 def sharded_normalize_transductive(train, test=None, val=None, *,
@@ -2806,7 +2872,7 @@ def sharded_normalize_transductive(train, test=None, val=None, *,
 
     present = [a for a in (train, test, val) if a is not None]
     lo, hi = sharded_minmax(present, mesh=mesh)
-    first = mesh.devices.flat[0]
+    first = mesh.first_device
     return tuple(
         None if a is None else minmax_apply(
             (a if isinstance(a, torch.Tensor) else torch.from_numpy(

@@ -25,6 +25,16 @@ is unusable, so a retry could only repeat it).  The entry points place
 on ``device`` or on ``mesh`` (not both; ``merge`` its strategy, the JAX
 package's default ``"allgather"``); their manifests echo the placement's
 device type and the strategy.
+
+On a mesh that spans processes (parallel.multihost.global_mesh) every
+process runs the same stream with the same queries and writes the same
+files, each process through a temporary name of its own (so two
+processes on one machine never race on one ``.tmp``; the final files
+are byte-identical to a one-process run's).  A resume starts from the
+batches every process sees complete (their intersection, agreed through
+the group), so every process runs the same batches, and the same
+collectives; a batch is never retried there (a retry in one process
+would pair its collectives with another process's next batch).
 """
 
 from __future__ import annotations
@@ -144,7 +154,9 @@ class StreamingSearch:
 
     ``search_fn(query_batch) -> (dists [B, k], idx [B, k])`` (numpy arrays
     or tensors) is typically ``ShardedKNN.search``, but any callable with
-    that contract works."""
+    that contract works.  ``mesh``: the mesh it searches on; over
+    processes the module docstring's rules apply (own temporary names,
+    the agreed resume set, no retry)."""
 
     MANIFEST = "manifest.json"
 
@@ -158,8 +170,11 @@ class StreamingSearch:
         db_fingerprint: Optional[str] = None,
         search_config: Optional[dict] = None,
         max_retries: int = 2,
+        mesh=None,
     ):
         self._fn = search_fn
+        #: the search runs on a mesh that spans processes (class docstring)
+        self._spans = mesh is not None and mesh.spans_processes
         self.k = k
         self.dir = checkpoint_dir
         self.batch_size = batch_size
@@ -198,10 +213,32 @@ class StreamingSearch:
                     "use a fresh directory or delete the stale checkpoint"
                 )
         else:
-            tmp = path + ".tmp"
+            tmp = self._tmp(path)
             with open(tmp, "w") as f:
                 json.dump(expected, f)
             os.replace(tmp, path)
+
+    def _tmp(self, path: str) -> str:
+        """The temporary name ``path`` is written under before its atomic
+        rename: over processes each process's own."""
+        if not self._spans:
+            return path + ".tmp"
+        from knn_tpu_torch.parallel import multihost
+
+        return f"{path}.tmp.p{multihost.process_index()}"
+
+    def _agreed_done(self, done: list) -> set:
+        """The finished batches a run resumes from: this process's, or over
+        processes those every process sees finished."""
+        if not self._spans:
+            return set(done)
+        from knn_tpu_torch.parallel import multihost
+
+        seen = multihost.all_gather_object(sorted(done))
+        return set.intersection(*(set(d) for d in seen))
+
+    def _attempts(self) -> int:
+        return 1 if self._spans else self.max_retries + 1
 
     def _batch_path(self, b: int) -> str:
         return os.path.join(self.dir, f"batch_{b:06d}.npz")
@@ -223,7 +260,7 @@ class StreamingSearch:
 
     def _run_batch(self, chunk: np.ndarray):
         d, i = _retry(lambda: self._fn(chunk), "stream batch",
-                      self.max_retries + 1)
+                      self._attempts())
         return _host(d), _host(i)
 
     def _strip(self, result, pad: int):
@@ -243,7 +280,7 @@ class StreamingSearch:
         n = queries.shape[0]
         self._check_manifest(queries)
         st = self.state(n)
-        done = set(st.done)
+        done = self._agreed_done(st.done)
         for b in range(st.n_batches):
             if b in done:
                 continue
@@ -255,7 +292,7 @@ class StreamingSearch:
             result = self._run_batch(chunk)
             if pad and self._pad_batches:
                 result = self._strip(result, pad)
-            tmp = self._batch_path(b) + ".tmp"
+            tmp = self._tmp(self._batch_path(b))
             with open(tmp, "wb") as f:
                 np.savez(f, **self._payload(result))
             os.replace(tmp, self._batch_path(b))
@@ -297,7 +334,7 @@ class StreamingCertifiedSearch(StreamingSearch):
 
     def _run_batch(self, chunk: np.ndarray):
         d, i, stats = _retry(lambda: self._fn(chunk),
-                             "certified stream batch", self.max_retries + 1)
+                             "certified stream batch", self._attempts())
         return (None if d is None else _host(d), _host(i), dict(stats))
 
     def _payload(self, result) -> dict:
@@ -363,10 +400,8 @@ def streaming_certified_knn(
     through and is echoed into the manifest.  ``selector`` defaults to
     ``"pallas"``, the port's ``search_certified`` default (the JAX
     package's streaming entry defaults to it too)."""
-    from knn_tpu_torch.parallel.mesh import require_one_process
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
-    require_one_process(mesh, "streaming")
     program = ShardedKNN(db, k=k, metric=metric, train_tile=train_tile,
                          compute_dtype=compute_dtype, device=device,
                          mesh=mesh, merge=merge)
@@ -392,6 +427,7 @@ def streaming_certified_knn(
             **{key: str(v) for key, v in sorted(certified_kwargs.items())},
         },
         max_retries=max_retries,
+        mesh=program.mesh,
     )
     return stream.run(queries)
 
@@ -415,10 +451,8 @@ def streaming_knn(
     ``merge`` its db-axis strategy), stream ``queries`` through
     ``ShardedKNN.search`` with checkpointing, and resume from
     ``checkpoint_dir`` if an earlier run was interrupted."""
-    from knn_tpu_torch.parallel.mesh import require_one_process
     from knn_tpu_torch.parallel.sharded import ShardedKNN
 
-    require_one_process(mesh, "streaming")
     program = ShardedKNN(db, k=k, metric=metric, train_tile=train_tile,
                          compute_dtype=compute_dtype, device=device,
                          mesh=mesh, merge=merge)
@@ -434,5 +468,6 @@ def streaming_knn(
             "device": program.device.type,
         },
         max_retries=max_retries,
+        mesh=program.mesh,
     )
     return stream.run(queries)

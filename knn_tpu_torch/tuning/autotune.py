@@ -726,13 +726,19 @@ def autotune_ivf(
     probe_fraction / fallback_rate / bytes_streamed_ratio recorded.  One
     index is trained per ncentroids and shared by its nprobe ladder.  A
     candidate that raises ``ValueError`` (a shape its geometry refuses) is
-    recorded ineligible; any other exception — a device fault — raises."""
+    recorded ineligible; any other exception — a device fault — raises.
+    On a mesh that spans processes every process makes the call with the
+    same arguments and times its own runs; each candidate's time is the
+    group's maximum (one ``all_reduce``) and ``measured_at`` process 0's,
+    so every process returns the same entry and picks the same winner
+    (ROADMAP queue C)."""
     from knn_tpu_torch.index.tier import tier_mesh
     from knn_tpu_torch.ivf import IVFIndex
     from knn_tpu_torch.ops.refine import refine_shared_exact
 
-    mesh = tier_mesh(mesh, device, "autotune_ivf")
-    dev = mesh.devices.flat[0]
+    mesh = tier_mesh(mesh, device)
+    dev = mesh.first_device
+    spans = mesh.spans_processes
     db = np.asarray(db, dtype=np.float32)
     queries = np.asarray(queries, dtype=np.float32)
     n, d = db.shape
@@ -796,6 +802,12 @@ def autotune_ivf(
                 continue
             _bump("candidates_timed")
             ms = float(np.mean(reps)) * 1e3
+            if spans:
+                # each process timed its own run: the group's slowest, so
+                # every process picks one winner and reports one table
+                from knn_tpu_torch.parallel import multihost
+
+                ms = multihost.max_over_processes([ms])[0]
             timings[label] = round(ms, 3)
             stats_per[label] = {
                 kk: st[kk] for kk in
@@ -809,6 +821,11 @@ def autotune_ivf(
         raise RuntimeError(
             f"autotune_ivf: no eligible candidate for n={n} d={d} k={k} "
             f"(errors: {errors})")
+    measured_at = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+    if spans:
+        from knn_tpu_torch.parallel import multihost
+
+        measured_at = multihost.broadcast_object(measured_at)
     return {
         "knobs": best_knobs,
         "winner": best_label,
@@ -822,5 +839,5 @@ def autotune_ivf(
         "selector": selector,
         "device_kind": device_kind,
         "backend": dev.type,
-        "measured_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "measured_at": measured_at,
     }

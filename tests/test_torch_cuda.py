@@ -2379,3 +2379,150 @@ def test_cuda_autotune_ivf_on_a_logical_mesh_launches_per_probe_group(
     for a, b in zip(ref.search_certified(q, nprobe=p, selector="pallas")[:2],
                     one.search_certified(q, nprobe=p, selector="pallas")[:2]):
         np.testing.assert_array_equal(a, b)
+
+
+#: one of two processes on cuda:0 (gloo) running a tier on
+#: ``global_mesh(1, 4)``, two positions a process: what the spanning
+#: tests below hold against the one-process logical mesh
+_SPAN_TIER_CHILD = r'''
+import json, sys
+import numpy as np
+import torch
+
+pid, port, what = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from knn_tpu_torch.index import MutableIndex
+from knn_tpu_torch.ivf import IVFIndex
+from knn_tpu_torch.ops import coarse_knn as ck
+from knn_tpu_torch.parallel import multihost
+
+dev = torch.device("cuda", 0)
+multihost.initialize(f"localhost:{port}", 2, pid, timeout_s=120,
+                     backend="gloo", devices=[dev])
+mesh = multihost.global_mesh(1, 4, devices=[dev, dev])
+rng = np.random.default_rng(83)
+q = (rng.normal(size=(96, 32)) * 10).astype(np.float32)
+db = (rng.normal(size=(20000, 32)) * 10).astype(np.float32)
+new = (rng.normal(size=(300, 32)) * 10).astype(np.float32)
+out = {}
+
+
+def counts():
+    return {f"{fn.__name__}.{a}": n
+            for fn in (ck.binned_select, ck.stream_select, ck.fused_select)
+            for a, n in fn.launches.items()}
+
+
+def launched(fn):
+    before = counts()
+    res = fn()
+    after = counts()
+    return res, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+if what == "mutable":
+    idx = MutableIndex(db, k=10, mesh=mesh)
+    idx.insert(new, np.arange(10 ** 6, 10 ** 6 + 300))
+    idx.delete([5, 77, 10 ** 6 + 3])
+    (d, i, _), out["launched"] = launched(
+        lambda: idx.search_certified(q, batch_size=48))
+    out["d"], out["i"] = d.tolist(), i.tolist()
+else:
+    ivf = IVFIndex(db[:8192], mesh=mesh, k=10, ncentroids=16, train_iters=2,
+                   seed=0)
+    for p in (16, 4):
+        (d, i, st), got = launched(lambda: ivf.search_certified(
+            q[:24], nprobe=p, selector="pallas"))
+        out[str(p)] = {"launched": got, "groups": st["groups"],
+                       "d": d.tolist(), "i": i.tolist()}
+out["foreign"] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "knn_tpu"))
+multihost.shutdown()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+def _spanning_children(tmp_path, what):
+    """Two processes of ``_SPAN_TIER_CHILD`` on cuda:0, joined over a free
+    local port; their RESULT dicts."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    child = tmp_path / "span_tier_child.py"
+    child.write_text(_SPAN_TIER_CHILD)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen(
+        [sys.executable, str(child), str(p), str(port), what], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for p in range(2)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+            line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            results.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return results
+
+
+@pytest.mark.cuda
+def test_cuda_spanning_mutable_index_launches_k1_per_owned_shard(
+        cuda_device, tmp_path):
+    """A certified ``MutableIndex`` call on ``global_mesh(1, 4)`` over two
+    processes on cuda:0: each process launches K1 once an owned shard a
+    batch (2 shards x 2 batches) and no other kernel, and both return the
+    one-process (1, 4) logical mesh's ``(d, i)`` bitwise."""
+    from knn_tpu_torch.index import MutableIndex
+
+    results = _spanning_children(tmp_path, "mutable")
+    rng = np.random.default_rng(83)
+    q, db = (rng.normal(size=(96, 32)) * 10).astype(np.float32), \
+        (rng.normal(size=(20000, 32)) * 10).astype(np.float32)
+    new = (rng.normal(size=(300, 32)) * 10).astype(np.float32)
+    ref = MutableIndex(db, k=10, mesh=_logical_mesh(cuda_device, (1, 4)))
+    ref.insert(new, np.arange(10 ** 6, 10 ** 6 + 300))
+    ref.delete([5, 77, 10 ** 6 + 3])
+    d, i, _ = ref.search_certified(q, batch_size=48)
+    for r in results:
+        assert r["launched"] == {"binned_select.bf16x3": 2 * 2}
+        assert r["foreign"] == []
+        np.testing.assert_array_equal(np.asarray(r["i"]), i)
+        np.testing.assert_array_equal(np.asarray(r["d"]), d)
+
+
+@pytest.mark.cuda
+def test_cuda_spanning_ivf_pallas_launches_k2_per_probe_group(
+        cuda_device, tmp_path):
+    """IVF's pallas selector on ``global_mesh(1, 4)`` over two processes
+    on cuda:0: each process runs ``knn_search_pallas`` over every probe
+    group's gathered block on its first device, at the default precision
+    highest — K2's tiled entry once a probe group a process, no other
+    kernel — and both return the logical mesh's answer bitwise."""
+    from knn_tpu_torch.ivf import IVFIndex
+
+    results = _spanning_children(tmp_path, "ivf")
+    rng = np.random.default_rng(83)
+    q, db = (rng.normal(size=(96, 32)) * 10).astype(np.float32), \
+        (rng.normal(size=(20000, 32)) * 10).astype(np.float32)
+    ref = IVFIndex(db[:8192], mesh=_logical_mesh(cuda_device, (1, 4)), k=10,
+                   ncentroids=16, train_iters=2, seed=0)
+    for p in (16, 4):
+        d, i, st = ref.search_certified(q[:24], nprobe=p, selector="pallas")
+        for r in results:
+            got = r[str(p)]
+            assert got["groups"] == st["groups"]
+            assert got["launched"] == {"binned_select.highest": st["groups"]}
+            np.testing.assert_array_equal(np.asarray(got["i"]), i)
+            np.testing.assert_array_equal(np.asarray(got["d"]), d)
+    assert all(r["foreign"] == [] for r in results)

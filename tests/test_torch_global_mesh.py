@@ -180,21 +180,11 @@ if n_proc == 2:
                                  for s in pp._shards.values()]
     refused("n_train_outside", lambda: ShardedKNN(placed, k=K, mesh=mesh,
                                                   n_train=N + 1))
-    # the paths still queued on a spanning mesh, each by name
-    from knn_tpu_torch.index import MutableIndex
-    from knn_tpu_torch.ivf import IVFIndex
-    from knn_tpu_torch.ivf.kmeans import train_kmeans
-    from knn_tpu_torch.join import knn_join
-    from knn_tpu_torch.parallel.sharded import segment_search_program
+    # the paths still queued on a spanning mesh, each by name (the tiers
+    # run there: tests/test_torch_global_tiers.py)
     from knn_tpu_torch.serving import ServingEngine
-    from knn_tpu_torch.streaming import streaming_knn
 
     queued = {
-        "MutableIndex": lambda: MutableIndex(db, k=K, mesh=mesh),
-        "IVFIndex": lambda: IVFIndex(db, k=K, mesh=mesh, ncentroids=4),
-        "train_kmeans": lambda: train_kmeans(db, 4, mesh=mesh),
-        "knn_join": lambda: knn_join(knn, q),
-        "streaming": lambda: streaming_knn(db, q, K, "unused", mesh=mesh),
         "ServingEngine": lambda: ServingEngine(knn),
         "search_bucketed": lambda: knn.search_bucketed(q),
         "hosttier": lambda: ShardedKNN(db, k=K, mesh=mesh,
@@ -204,7 +194,6 @@ if n_proc == 2:
         "streaming_kernel": lambda: knn.search_certified(
             q, kernel="streaming"),
         "fused_kernel": lambda: knn.search_certified(q, kernel="fused"),
-        "segment_program": lambda: segment_search_program(K, mesh=mesh),
     }
     for name, fn in queued.items():
         refused(f"queued/{name}", fn)
@@ -483,9 +472,8 @@ def test_two_process_shard_across_hosts(two):
 
 
 @pytest.mark.parametrize("name", [
-    "MutableIndex", "IVFIndex", "train_kmeans", "knn_join", "streaming",
     "ServingEngine", "search_bucketed", "hosttier", "pq", "overlap",
-    "streaming_kernel", "fused_kernel", "segment_program"])
+    "streaming_kernel", "fused_kernel"])
 def test_two_process_queued_paths_refused_by_name(two, name):
     kind, msg = two[0][f"queued/{name}"]
     assert kind == "ValueError" and "spans processes is queued" in msg
